@@ -1,0 +1,628 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
+
+Drives the port's serving path — paged-KV continuous-batching decode of
+the transformer LM — at the repo's bench geometry (GPT-2-small: L12,
+hidden 768, 12 heads, vocab 32768, max_seq_len 1024; 8 slots, page 64;
+random weights from seed 0), and holds every hand-written kernel of that
+path against its plain PyTorch version on the card.  Phases, in order:
+
+1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and identify the card;
+2. each kernel against its plain version at the shapes the decode step
+   gives it, with its time, its bound (the least time for the bytes it
+   must move at 3.35 TB/s, or its operations at the f32 peak), the plain
+   version's time and one PyTorch library call's time as a yardstick;
+3. a small decode step and the full-width step on the card against the
+   same steps on the CPU;
+4. serve f32: a DecodeEngine over ``get_decode_step(init_decode_params
+   (cfg, seed=0))``, 16 requests of mixed lengths with one
+   higher-priority arrival into a full batch, continuous-vs-serial token
+   parity, step time and tokens/s beside the ``decode_step_model``
+   roofline;
+5. serve int8 and int4 exports of the same model.
+
+Launch counters are set to 0 just before each serving path and read just
+after it: every kernel of the path must have launched, exactly once per
+layer per step (and once per matmul for the quantized ones).
+
+Run from the root of a checkout:  ``python3 chip_smoke.py``.  It needs one
+CUDA card, exits non-zero without one (or without the package beside it),
+and prints as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+The line before it holds the kernels' numbers as JSON, and the line before
+that the card's name and power limit as nvidia-smi reports them.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HBM_BYTES_S = 3.35e12         # H100 SXM device memory rate
+F32_FLOPS_S = 67e12           # H100 SXM f32 outside the tensor cores
+
+FULL = dict(vocab_size=32768, num_layers=12, hidden=768, heads=12,
+            seq_len=1024, page_size=64, max_seqs=8)
+
+
+def fail(msg):
+    print("chip_smoke: FAIL: %s" % msg, file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+class Timer:
+    """Median per-call device time (CUDA events), each call after a read
+    of 64 MB (more than the 50 MB L2) that evicts its inputs, as the
+    decode step finds its weights cold.  The flush only reads, so it
+    leaves no dirty lines whose write-back would land inside the timed
+    call.  A 1 ms spin kernel between the flush and the start event keeps
+    the card busy while the host enqueues the call, so the events time
+    the device work and not the host's launch overhead."""
+
+    def __init__(self, torch, iters=25):
+        self.torch = torch
+        self.iters = iters
+        self.flush = torch.ones(16 << 20, dtype=torch.float32, device="cuda")
+
+    def __call__(self, fn):
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(self.iters):
+            self.flush.sum()
+            torch.cuda._sleep(2_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return statistics.median(ts)
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / F32_FLOPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(torch, kernels, F, timer, card):
+    """Every kernel against its plain version at the decode step's
+    shapes, with times and bounds."""
+    rows = []
+    dev = torch.device("cuda")
+    c = FULL
+    S, H, D, page = c["max_seqs"], c["heads"], c["hidden"] // c["heads"], \
+        c["page_size"]
+    max_pages = c["seq_len"] // page
+    P = 1 + S * max_pages
+    rs = np.random.RandomState(0)
+    # inactive, one token, a page boundary, mid-page lengths, the maximum
+    lens = np.array([0, 1, 64, 100, 1024, 513, 300, 777], np.int32)
+    q = torch.from_numpy(rs.randn(S, H, D).astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    vp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    pt = torch.from_numpy(rs.permutation(np.arange(1, P)).reshape(
+        S, max_pages).astype(np.int32)).to(dev)
+    sl = torch.from_numpy(lens).to(dev)
+    out = kernels.decode_attention(q, kp, vp, pt, sl)
+    ref = kernels.decode_attention_plain(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    act = sl > 0
+    err = (out[act] - ref[act]).abs().max().item()
+    # f32 both sides; online softmax over up to 1024 keys in another
+    # summation order: 1e-5 absolute on outputs of magnitude ~1
+    tol = 1e-5
+    log("decode_attention S%d H%d D%d page%d P%d lens=%s: max_abs_err=%.3g "
+        "(tolerance %.0e: f32 both sides, online vs one-pass softmax)"
+        % (S, H, D, page, P, lens.tolist(), err, tol))
+    check(err <= tol and torch.isfinite(out).all().item(),
+          "decode_attention disagrees with its plain version")
+    # yardstick: one SDPA call over contiguous K/V of the same lengths,
+    # padded to the longest and masked (its mask keeps inactive rows
+    # finite by letting them see key 0)
+    T = int(lens.max())
+    kc = torch.zeros(S, H, T, D, device=dev)
+    vc = torch.zeros(S, H, T, D, device=dev)
+    for s in range(S):
+        n = int(lens[s])
+        if n:
+            ks = kp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
+            vs = vp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
+            kc[s, :, :n], vc[s, :, :n] = ks[:, :n], vs[:, :n]
+    mask = torch.arange(T, device=dev)[None, :] < \
+        torch.from_numpy(np.maximum(lens, 1)).to(dev)[:, None]
+    mask = mask[:, None, None, :]
+    lib = F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                         attn_mask=mask)[:, :, 0]
+    check((lib[act] - ref[act]).abs().max().item() < 1e-4,
+          "the SDPA yardstick computes another function")
+    tot = int(lens.sum())
+    nbytes = 2 * tot * H * D * 4 + 2 * S * H * D * 4 + pt.numel() * 4 + S * 4
+    b, by = bound_ms(nbytes, 4.0 * tot * H * D)
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:619",
+        "shape": "S%d H%d D%d page%d, sum(seq_lens)=%d" % (S, H, D, page,
+                                                           tot),
+        "launches_per_step": c["num_layers"],
+        "max_abs_err": err,
+        "ms": timer(lambda: kernels.decode_attention(q, kp, vp, pt, sl)),
+        "plain_ms": timer(lambda: kernels.decode_attention_plain(
+            q, kp, vp, pt, sl)),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask)),
+        "library_call": "F.scaled_dot_product_attention over contiguous "
+                        "K/V padded to %d, masked" % T,
+    })
+    del kp, vp, kc, vc
+
+    h, V = c["hidden"], c["vocab_size"]
+    M = S
+    shapes = [("q/k/v/proj", h, h, 4 * c["num_layers"]),
+              ("ff1", 4 * h, h, c["num_layers"]),
+              ("ff2", h, 4 * h, c["num_layers"]),
+              ("head", V, h, 1)]
+    for bits in (8, 4):
+        for label, N, K, per_step in shapes:
+            w = (rs.randn(N, K) * 0.02).astype(np.float32)
+            qw_np, sc_np = kernels.quantize_weight(w, bits)
+            x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to(dev)
+            qw = torch.from_numpy(qw_np).to(dev)
+            sc = torch.from_numpy(sc_np).to(dev)
+            wf = (kernels.unpack_int4(qw)[:, :K] if bits == 4
+                  else qw.float()) * sc[:, None]
+            out = kernels.quant_matmul(x, qw, sc, bits)
+            ref = kernels.quant_matmul_plain(x, qw, sc, bits)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            # scale applied after vs before an f32 sum over K terms, in
+            # another order: 1e-5 relative to the result's magnitude
+            tol = 1e-5 * max(scale, 1.0)
+            log("quant_matmul int%d %s (%dx%d)@(%dx%d)^T: max_abs_err=%.3g "
+                "(tolerance %.3g = 1e-5 x max|y|)"
+                % (bits, label, M, K, N, K, err, tol))
+            check(err <= tol, "quant_matmul int%d %s disagrees with its "
+                  "plain version" % (bits, label))
+            nbytes = qw.numel() + 4 * N + 4 * M * K + 4 * M * N
+            b, by = bound_ms(nbytes, 2.0 * M * N * K)
+            rows.append({
+                "name": "quant_matmul_int%d" % bits, "route": "cuda",
+                "source": "mxnet_tpu_torch/csrc/quant_matmul.cu",
+                "replaces": "mxnet_tpu/ops/pallas_kernels.py:743",
+                "shape": "%s: x (%d,%d) w (%d,%d)" % (label, M, K, N, K),
+                "launches_per_step": per_step,
+                "max_abs_err": err,
+                "ms": timer(lambda: kernels.quant_matmul(x, qw, sc, bits)),
+                "plain_ms": timer(lambda: kernels.quant_matmul_plain(
+                    x, qw, sc, bits)),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": timer(lambda: torch.matmul(x, wf.T)),
+                "library_call": "torch.matmul(x, w_f32.T)",
+            })
+    for r in rows:
+        log("  %-18s %-34s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%.4f  [%s]"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], r["library_ms"], card))
+    return rows
+
+
+def teacher_forced(progs, steps, n_active, seed):
+    """Run the same teacher-forced steps through each program; returns
+    per program the list of (next_tokens, logits) of the active slots
+    and the final pools."""
+    c = progs[0].config
+    S, pp = c.max_seqs, c.pages_per_seq
+    table = np.zeros((S, pp), np.int32)
+    for s in range(n_active):
+        table[s] = 1 + s * pp + np.arange(pp)
+    act = (np.arange(S) < n_active).astype(np.int32)
+    toks = np.random.RandomState(seed).randint(
+        0, c.vocab_size, (S, steps)).astype(np.int32)
+    kvs = [p.fresh_cache() for p in progs]
+    outs = [[] for _ in progs]
+    for t in range(steps):
+        pos = np.full(S, t, np.int32) * act
+        args = (toks[:, t], pos, (pos + 1) * act,
+                table[np.arange(S), pos // c.page_size] * act,
+                (pos % c.page_size) * act, table)
+        for i, p in enumerate(progs):
+            nxt, logits, kvs[i] = p.step(kvs[i], *args)
+            outs[i].append((nxt[:n_active].cpu(), logits[:n_active].cpu()))
+    return outs, kvs
+
+
+def phase_step_parity(torch, DecodeConfig, DecodeProgram, init_params):
+    """The decode step on the card against the same step on the CPU
+    (plain versions), small and at full width."""
+    cases = [(DecodeConfig(64, 2, 32, 4, 16, page_size=4, max_seqs=3),
+              16, 2, (None, "int8", "int4")),
+             (DecodeConfig(FULL["vocab_size"], FULL["num_layers"],
+                           FULL["hidden"], FULL["heads"], FULL["seq_len"],
+                           page_size=FULL["page_size"],
+                           max_seqs=FULL["max_seqs"]),
+              6, 7, (None, "int4"))]
+    for cfg, steps, n_active, quants in cases:
+        params = init_params(cfg, seed=1)
+        for qz in quants:
+            progs = [DecodeProgram(params, cfg, quantize=qz, device=d)
+                     for d in ("cpu", "cuda")]
+            outs, kvs = teacher_forced(progs, steps, n_active, seed=2)
+            lerr = max((a[1] - b[1]).abs().max().item()
+                       for a, b in zip(*outs))
+            same = all(torch.equal(a[0], b[0]) for a, b in zip(*outs))
+            kerr = (kvs[1][:, :, 1:].cpu() - kvs[0][:, :, 1:]).abs().max() \
+                .item()
+            log("step parity card vs cpu %s %s: %d steps, %d active slots: "
+                "logits max_abs_err=%.3g (tolerance 1e-4), next tokens "
+                "equal=%s, KV pages 1.. max_abs_err=%.3g (tolerance 1e-5)"
+                % (cfg.describe(), qz or "f32", steps, n_active, lerr, same,
+                   kerr))
+            check(lerr < 1e-4 and same and kerr < 1e-5,
+                  "decode step on the card disagrees with the CPU")
+            del progs, kvs
+
+
+def serve(torch, kernels, DecodeEngine, prog, requests, vip=None,
+          parity=0, card=""):
+    """Serve ``requests`` ([(prompt, max_new)]) through a DecodeEngine
+    over ``prog``.  With ``vip`` = (prompt, max_new): submit one batch's
+    worth of requests, wait until every slot is busy and the queue is
+    empty, submit ``vip`` at a higher priority (it must evict exactly one
+    running sequence), then submit the rest.  Returns a summary dict."""
+    out = {}
+    S = prog.config.max_seqs
+    with DecodeEngine(prog, default_deadline=900.0, queue_depth=64) as eng:
+        t0 = time.perf_counter()
+        first = requests if vip is None else requests[:S]
+        reqs = [eng.submit(p, max_new_tokens=n) for p, n in first]
+        vreq = None
+        if vip is not None:
+            t_wait = time.monotonic() + 120
+            while (eng.stats()["decode"]["active_slots"] < S
+                   and time.monotonic() < t_wait):
+                time.sleep(0.001)
+            st = eng.stats()
+            check(st["decode"]["active_slots"] == S
+                  and st["queue_depth"] == 0, "the batch never filled")
+            vreq = eng.submit(vip[0], max_new_tokens=vip[1], priority=5)
+            reqs += [eng.submit(p, max_new_tokens=n)
+                     for p, n in requests[S:]]
+        results, evicted = [], 0
+        from mxnet_tpu_torch.serving.errors import Overloaded
+        for r, (_p, n) in zip(reqs, requests):
+            try:
+                ids = r.result(timeout=900)[0]
+                check(ids.size == n and ((0 <= ids) & (ids < prog.config
+                                                       .vocab_size)).all(),
+                      "a request came back with wrong tokens")
+                results.append(ids)
+            except Overloaded:
+                evicted += 1
+                results.append(None)
+        wall = time.perf_counter() - t0
+        if vreq is not None:
+            ids = vreq.result(timeout=900)[0]
+            check(ids.size == vip[1], "the priority arrival did not finish")
+            check(evicted == 1, "expected exactly one eviction by the "
+                  "priority arrival, saw %d" % evicted)
+        st = eng.stats()
+        out.update(wall_s=wall, evicted=evicted, stats=st["decode"],
+                   latency=st.get("latency_s"))
+        # continuous vs serial: the same engine, one request at a time
+        done = [i for i, r in enumerate(results) if r is not None]
+        for i in done[:parity]:
+            p, n = requests[i]
+            again = eng.generate(p, max_new_tokens=n)
+            check(np.array_equal(again, results[i]),
+                  "continuous batching changed the tokens of request %d" % i)
+        out["parity_checked"] = min(parity, len(done))
+        out["step_calls"] = eng.stats()["counters"]["steps"]
+    d = out["stats"]
+    toks = d["tokens_decoded"] + d["tokens_prefilled"]
+    log("serve %s: %d requests (+%d priority), %d evicted, %d steps, "
+        "%d tokens fed (%d decoded) in %.3f s = %.1f tok/s; step p50 "
+        "%.3f ms p99 %.3f ms; occupancy %.3f; serial parity checked on %d "
+        "[%s]" % (prog.config.describe(), len(requests),
+                  0 if vip is None else 1, out["evicted"],
+                  out["step_calls"], toks, d["tokens_decoded"],
+                  out["wall_s"], toks / out["wall_s"],
+                  d["token_step_s"]["p50"] * 1e3,
+                  d["token_step_s"]["p99"] * 1e3, d["occupancy_mean"],
+                  out["parity_checked"], card))
+    return out
+
+
+def steady_args(prog, cached_per_slot):
+    """Step inputs with every slot active at the same cached length (the
+    slot's last token at position ``cached_per_slot - 1``)."""
+    c = prog.config
+    S, pp = c.max_seqs, c.pages_per_seq
+    table = (1 + np.arange(S)[:, None] * pp + np.arange(pp)).astype(np.int32)
+    pos = np.full(S, cached_per_slot - 1, np.int32)
+    return (np.zeros(S, np.int32), pos, pos + 1,
+            table[np.arange(S), pos // c.page_size], pos % c.page_size,
+            table)
+
+
+def step_timing(torch, prog, cached_per_slot, steps=30):
+    """Steady state of the full batch: median host ms of a step that
+    waits for its next tokens (as the engine does), and ms per step with
+    steps queued back to back (CUDA events around the run)."""
+    args = steady_args(prog, cached_per_slot)
+    kv = prog.fresh_cache()
+    for _ in range(3):
+        nxt, _l, kv = prog.step(kv, *args)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        nxt, _l, kv = prog.step(kv, *args)
+        nxt.cpu()
+        host.append((time.perf_counter() - t0) * 1e3)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(steps):
+        nxt, _l, kv = prog.step(kv, *args)
+    e.record()
+    e.synchronize()
+    return statistics.median(host), s.elapsed_time(e) / steps
+
+
+def profile_step(torch, prog, cached_per_slot):
+    """Device time per kernel name over a few steady steps
+    (torch.profiler): ``[(us per step, launches per step, name)]``."""
+    from torch.profiler import ProfilerActivity, profile
+    args = steady_args(prog, cached_per_slot)
+    kv = prog.fresh_cache()
+    prog.step(kv, *args)
+    torch.cuda.synchronize()
+    n = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            nxt, _l, kv = prog.step(kv, *args)
+        nxt.cpu()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type.name == "CUDA":
+            rows.append((dev_us / n, ev.count // n, ev.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def host_costs(torch, kernels, card, n=400):
+    """Host time per call of each wrapper and of the pieces it is made
+    of, at the smallest decode shape (the card keeps up, so the host's
+    enqueue rate is what is measured)."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(1)
+    K = N = FULL["hidden"]
+    x = torch.from_numpy(rs.randn(8, K).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rs.randn(N, K).astype(np.float32)).to(dev)
+    qw_np, sc_np = kernels.quantize_weight(rs.randn(N, K), 8)
+    qw, sc = torch.from_numpy(qw_np).to(dev), torch.from_numpy(sc_np).to(dev)
+    b = torch.zeros(N, device=dev)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    def ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    costs = [
+        ("quant_matmul int8 wrapper", lambda: kernels.quant_matmul(
+            x, qw, sc, 8)),
+        ("x @ W.T + b (f32 path)", lambda: x @ w.T + b),
+        ("torch.empty((8, 768))", lambda: torch.empty((8, N), device=dev)),
+        ("torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("kernels._stream_ptr (raw stream)", lambda: kernels._stream_ptr(0)),
+        ("with torch.cuda.device(dev)", ctx),
+        ("3x data_ptr()", lambda: (x.data_ptr(), qw.data_ptr(),
+                                   sc.data_ptr())),
+    ]
+    for name, fn in costs:
+        log("host cost %-44s %7.2f us/call [%s]" % (name, per_call(fn), card))
+
+
+def report_profile(torch, prog, tag, cached, card):
+    """Print the per-kernel device time of a steady step; returns the
+    device-busy ms per step, or None where the profiler saw no device
+    time (a measurement aid: it never fails the run)."""
+    try:
+        rows = profile_step(torch, prog, cached)
+    except Exception as e:
+        log("profile %s: not measured (%r)" % (tag, e))
+        return None
+    if not rows:
+        log("profile %s: not measured (no device events)" % tag)
+        return None
+    log("device time per %s step by kernel (torch.profiler, all slots at "
+        "%d cached tokens) [%s]:" % (tag, cached, card))
+    for us, cnt, key in rows[:10]:
+        log("  %9.1f us  x%-4d %s" % (us, cnt, key[:90]))
+    total = sum(r[0] for r in rows)
+    log("  %9.1f us  total device time per step" % total)
+    return total / 1e3
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a "
+             "CUDA card and never falls back to the CPU")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "mxnet_tpu_torch", "csrc")):
+        fail("mxnet_tpu_torch/ is not beside chip_smoke.py; run it from a "
+             "checkout of the repository")
+    sys.path.insert(0, here)
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.analysis.costmodel import decode_step_model
+    from mxnet_tpu_torch.models.transformer import get_decode_step
+    from mxnet_tpu_torch.ops import build, kernels
+    from mxnet_tpu_torch.serving.decode import (DecodeConfig, DecodeEngine,
+                                                DecodeProgram,
+                                                init_decode_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # -- 1. build and identify ---------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, "nvidia-smi failed: %s" % smi.stderr)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    log("card: %s | torch %s, CUDA %s, %d device(s)"
+        % (card, torch.__version__, torch.version.cuda,
+           torch.cuda.device_count()))
+    t0 = time.perf_counter()
+    paths = build.build_kernels()
+    log("built %d kernel libraries in %.2f s: %s"
+        % (len(paths), time.perf_counter() - t0,
+           ", ".join(os.path.relpath(p, here) for p in paths.values())))
+    for name in paths:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas %s: %s" % (name, line.strip()))
+
+    # -- 2. kernels vs plain, timed ------------------------------------------
+    timer = Timer(torch)
+    rows = phase_kernels(torch, kernels, F, timer, card)
+    del timer
+
+    host_costs(torch, kernels, card)
+
+    # -- 3. the step on the card vs the CPU ---------------------------------
+    phase_step_parity(torch, DecodeConfig, DecodeProgram,
+                      init_decode_params)
+
+    # -- 4. serve f32 at full width -----------------------------------------
+    cfg = DecodeConfig(FULL["vocab_size"], FULL["num_layers"],
+                       FULL["hidden"], FULL["heads"], FULL["seq_len"],
+                       page_size=FULL["page_size"],
+                       max_seqs=FULL["max_seqs"])
+    t0 = time.perf_counter()
+    params = init_decode_params(cfg, seed=0)
+    log("init_decode_params(%s, seed=0): %.1f s"
+        % (cfg.describe(), time.perf_counter() - t0))
+    rs = np.random.RandomState(0)
+    requests = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 513))),
+                 int(rs.randint(16, 65))) for _ in range(15)]
+    vip = (rs.randint(0, cfg.vocab_size, 32), 16)
+    launches, timing, busy = {}, {}, {}
+    kernels.reset_launches()
+    prog = get_decode_step(params, vocab_size=cfg.vocab_size,
+                           seq_len=cfg.max_seq_len,
+                           num_layers=cfg.num_layers, hidden=cfg.hidden,
+                           heads=cfg.heads, page_size=cfg.page_size,
+                           max_seqs=cfg.max_seqs, name="smoke-f32")
+    res = serve(torch, kernels, DecodeEngine, prog, requests, vip=vip,
+                parity=3, card=card)
+    got = dict(kernels.LAUNCHES)
+    calls = res["step_calls"] + 1                 # + the warm-up step
+    log("launches on the f32 path: %s over %d step calls" % (got, calls))
+    check(got["decode_attention"] == cfg.num_layers * calls,
+          "decode_attention launched %d times, want %d"
+          % (got["decode_attention"], cfg.num_layers * calls))
+    launches["f32"] = got
+    cached = 512
+    timing["f32"] = step_timing(torch, prog, cached)
+    busy["f32"] = report_profile(torch, prog, "f32", cached, card)
+    del prog
+
+    # -- 5. serve int8 and int4 ---------------------------------------------
+    small = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65))), 16)
+             for _ in range(4)]
+    for qz in ("int8", "int4"):
+        kernels.reset_launches()
+        prog = get_decode_step(params, vocab_size=cfg.vocab_size,
+                               seq_len=cfg.max_seq_len,
+                               num_layers=cfg.num_layers, hidden=cfg.hidden,
+                               heads=cfg.heads, page_size=cfg.page_size,
+                               max_seqs=cfg.max_seqs, quantize=qz,
+                               name="smoke-" + qz)
+        res = serve(torch, kernels, DecodeEngine, prog, small, parity=1,
+                    card=card)
+        got = dict(kernels.LAUNCHES)
+        calls = res["step_calls"] + 1
+        log("launches on the %s path: %s over %d step calls"
+            % (qz, got, calls))
+        check(got["decode_attention"] == cfg.num_layers * calls,
+              "%s: decode_attention launches %d, want %d"
+              % (qz, got["decode_attention"], cfg.num_layers * calls))
+        check(got["quant_matmul_" + qz] == (6 * cfg.num_layers + 1) * calls,
+              "%s: quant_matmul launches %d, want %d"
+              % (qz, got["quant_matmul_" + qz],
+                 (6 * cfg.num_layers + 1) * calls))
+        launches[qz] = got
+        timing[qz] = step_timing(torch, prog, cached)
+        busy[qz] = report_profile(torch, prog, qz, cached, card)
+        del prog
+    del params
+
+    for qz, bits in (("f32", 32), ("int8", 8), ("int4", 4)):
+        m = decode_step_model(cfg.num_layers, cfg.hidden, cfg.vocab_size,
+                              cfg.max_seqs, cfg.max_seqs * cached, bits)
+        roof_ms = m["hbm_bytes"] / HBM_BYTES_S * 1e3
+        host_ms, b2b_ms = timing[qz]
+        dev_ms = busy[qz]
+        log("steady step %s, 8 slots at %d cached tokens: %.3f ms per step "
+            "waiting for each step's tokens (%.1f tok/s), %.3f ms per step "
+            "back to back; device busy %s ms per step (idle share %s); "
+            "decode_step_model roofline %.3f ms (%.1f MB/step at 3.35 "
+            "TB/s) = %.1f%% of the step [%s]"
+            % (qz, cached, host_ms, cfg.max_seqs / host_ms * 1e3, b2b_ms,
+               "not measured" if dev_ms is None else "%.3f" % dev_ms,
+               "not measured" if dev_ms is None
+               else "%.3f" % (1 - dev_ms / host_ms), roof_ms,
+               m["hbm_bytes"] / 1e6, 100 * roof_ms / host_ms, card))
+
+    # -- report ---------------------------------------------------------------
+    for r in rows:
+        key = r["name"]
+        r["launches"] = sum(v.get(key, 0) for v in launches.values())
+    log("total %.1f s" % (time.perf_counter() - t_start))
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

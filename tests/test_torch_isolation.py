@@ -1,0 +1,127 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+* ``mxnet_tpu_torch`` and every one of its modules, and ``chip_smoke``,
+  import without pulling in ``jax`` or any of ``mxnet_tpu`` (checked in a
+  fresh interpreter, since this test process has both loaded);
+* the entry points default to the card: without a CUDA device they raise
+  a typed error instead of running on the CPU;
+* ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and when it stands alone in a directory.
+"""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch
+from mxnet_tpu_torch.base import DeviceUnavailable, MXNetError
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _all_modules():
+    names = ["mxnet_tpu_torch"]
+    for info in pkgutil.walk_packages(mxnet_tpu_torch.__path__,
+                                      "mxnet_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_port_module_is_listed():
+    mods = _all_modules()
+    for want in ("mxnet_tpu_torch.serving.decode",
+                 "mxnet_tpu_torch.ops.kernels",
+                 "mxnet_tpu_torch.models.transformer",
+                 "mxnet_tpu_torch.analysis.costmodel",
+                 "mxnet_tpu_torch.resilience.container",
+                 "mxnet_tpu_torch.telemetry.memory",
+                 "mxnet_tpu_torch.convert", "mxnet_tpu_torch.deploy"):
+        assert want in mods
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.path.insert(0, %r)" % ROOT,
+        "for name in %r:" % (_all_modules(),),
+        "    importlib.import_module(name)",
+        "import chip_smoke",
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'jaxlib'"
+        " or m.startswith('jaxlib.') or m == 'mxnet_tpu'"
+        " or m.startswith('mxnet_tpu.'))",
+        "print('LEAKED' if bad else 'CLEAN', bad)",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=180, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("CLEAN"), out.stdout
+
+
+def test_port_sources_name_no_jax_import():
+    for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
+                                                      "mxnet_tpu_torch")):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            text = open(os.path.join(dirpath, f)).read()
+            for line in text.splitlines():
+                s = line.strip()
+                assert not s.startswith(("import jax", "from jax",
+                                         "import mxnet_tpu ",
+                                         "from mxnet_tpu ",
+                                         "from mxnet_tpu.")), (f, s)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the no-card paths do not "
+                    "apply")
+
+
+def test_entry_points_default_to_the_card():
+    _no_cuda()
+    from mxnet_tpu_torch.models.transformer import get_decode_step
+    from mxnet_tpu_torch.serving.decode import (DecodeConfig, DecodeProgram,
+                                                init_decode_params)
+    cfg = DecodeConfig(16, 1, 8, 2, 8, page_size=4, max_seqs=2)
+    params = init_decode_params(cfg, seed=0)
+    with pytest.raises(DeviceUnavailable):
+        DecodeProgram(params, cfg)
+    with pytest.raises(DeviceUnavailable):
+        DecodeProgram(params, cfg, device=None)
+    with pytest.raises(DeviceUnavailable):
+        get_decode_step(params, vocab_size=16, seq_len=8, num_layers=1,
+                        hidden=8, heads=2, page_size=4, max_seqs=2)
+    with pytest.raises(MXNetError):
+        DecodeProgram(params, cfg, device="cuda")
+    # asked for explicitly, the CPU runs (the plain versions)
+    prog = DecodeProgram(params, cfg, device="cpu")
+    toks = np.zeros((2, prog.config.forward_len), np.int32)
+    assert prog.forward(toks)[0].shape == (2, 1)
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, timeout=180,
+                          cwd=cwd)
+
+
+def test_chip_smoke_fails_without_a_card():
+    _no_cuda()
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone_in_a_directory(tmp_path):
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    out = _run_smoke(str(tmp_path))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

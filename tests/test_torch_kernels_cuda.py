@@ -1,0 +1,144 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: decode attention and the int8/int4 quantized matmul at ragged and
+odd shapes that the full-width smoke run does not reach, and a small
+decode step on the card against the same step on the CPU.
+
+Every test here is marked ``cuda`` and skips without a CUDA device.  This
+file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
+PyTorch), so it runs there without the repository's conftest::
+
+    python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
+"""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from mxnet_tpu_torch.ops import kernels  # noqa: E402
+from mxnet_tpu_torch.serving.decode import (DecodeConfig,  # noqa: E402
+                                            DecodeProgram,
+                                            init_decode_params)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("D,page,lens", [
+    (8, 4, [0, 1, 4, 6, 16]),
+    (64, 64, [1, 63, 64, 65, 1024, 0, 300, 777]),
+    (100, 16, [5, 0, 17, 48]),
+    (128, 8, [3, 8, 9, 31, 32]),
+], ids=["d8", "d64-full", "d100-ragged", "d128"])
+def test_decode_attention_kernel_matches_plain(dev, D, page, lens):
+    rs = np.random.RandomState(D)
+    S, H = len(lens), 3
+    max_pages = -(-max(lens) // page)
+    P = 1 + S * max_pages
+    q = torch.from_numpy(rs.randn(S, H, D).astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    vp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    pt = torch.from_numpy(
+        rs.permutation(np.arange(1, P)).reshape(S, max_pages)
+        .astype(np.int32)).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["decode_attention"]
+    out = kernels.decode_attention(q, kp, vp, pt, sl)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode_attention"] == before + 1
+    ref = kernels.decode_attention_plain(q, kp, vp, pt, sl)
+    act = sl > 0
+    # f32 on both sides; online vs one-pass softmax and another summation
+    # order over up to 1024 terms: 1e-5 absolute on outputs of size ~1
+    assert (out[act] - ref[act]).abs().max().item() < 1e-5
+    assert torch.isfinite(out).all()
+    assert (out[~act] == 0).all()      # the TPU kernel's inactive output
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N,K", [(8, 768, 768), (3, 40, 33), (13, 9, 1),
+                                   (1, 257, 1030), (8, 64, 3072)],
+                         ids=["decode", "odd-k", "k1", "m1-ragged",
+                              "wide-k"])
+def test_quant_matmul_kernel_matches_plain(dev, bits, M, N, K):
+    rs = np.random.RandomState(M * N + K)
+    w = rs.randn(N, K).astype(np.float32)
+    qw, sc = kernels.quantize_weight(w, bits)
+    x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to(dev)
+    qw, sc = torch.from_numpy(qw).to(dev), torch.from_numpy(sc).to(dev)
+    key = "quant_matmul_int%d" % bits
+    before = kernels.LAUNCHES[key]
+    out = kernels.quant_matmul(x, qw, sc, bits)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == before + 1
+    ref = kernels.quant_matmul_plain(x, qw, sc, bits)
+    # scale applied after vs before the f32 sum, another summation order:
+    # 1e-5 relative to the result's scale
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * max(scale, 1.0)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel_unaligned_x_matches_plain(dev, bits):
+    """x whose rows are not 16-byte aligned takes the scalar staging
+    path of the kernel."""
+    rs = np.random.RandomState(bits)
+    M, N, K = 8, 96, 768
+    qw, sc = kernels.quantize_weight(rs.randn(N, K).astype(np.float32), bits)
+    qw, sc = torch.from_numpy(qw).to(dev), torch.from_numpy(sc).to(dev)
+    flat = torch.from_numpy(rs.randn(M * K + 1).astype(np.float32)).to(dev)
+    x = flat[1:].view(M, K)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    out = kernels.quant_matmul(x, qw, sc, bits)
+    ref = kernels.quant_matmul_plain(x, qw, sc, bits)
+    assert (out - ref).abs().max().item() <= 1e-5 * max(
+        ref.abs().max().item(), 1.0)
+
+
+def test_kernels_refuse_wrong_dtype_and_layout(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    x = torch.randn(4, 16, device=dev)
+    qw = torch.zeros(8, 16, dtype=torch.int8, device=dev)
+    sc = torch.ones(8, device=dev)
+    with pytest.raises(MXNetError):
+        kernels.quant_matmul(x.double(), qw, sc, 8)
+    with pytest.raises(MXNetError):
+        kernels.quant_matmul(x, qw.t().contiguous().t(), sc, 8)
+    with pytest.raises(MXNetError):
+        kernels.quant_matmul(x, qw, sc.cpu(), 8)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8", "int4"])
+def test_decode_step_on_card_matches_cpu(dev, quantize):
+    cfg = DecodeConfig(64, 2, 32, 4, 16, page_size=4, max_seqs=3)
+    params = init_decode_params(cfg, seed=3)
+    progs = [DecodeProgram(params, cfg, quantize=quantize, device=d)
+             for d in ("cpu", dev)]
+    kvs = [p.fresh_cache() for p in progs]
+    S, pp = cfg.max_seqs, cfg.pages_per_seq
+    table = np.zeros((S, pp), np.int32)
+    for s in range(2):                      # slot 2 stays inactive
+        table[s] = 1 + s * pp + np.arange(pp)
+    act = np.array([1, 1, 0], np.int32)
+    toks = np.random.RandomState(1).randint(0, 64, (S, 16)).astype(np.int32)
+    for t in range(16):
+        pos = np.full(S, t, np.int32) * act
+        args = (toks[:, t], pos, (pos + 1) * act,
+                table[np.arange(S), pos // 4] * act, (pos % 4) * act, table)
+        outs = [p.step(kv, *args) for p, kv in zip(progs, kvs)]
+        (n0, l0, kvs[0]), (n1, l1, kvs[1]) = outs
+        assert (l1[:2].cpu() - l0[:2]).abs().max().item() < 1e-4
+        assert torch.equal(n1[:2].cpu(), n0[:2])
+    assert torch.allclose(kvs[1][:, :, 1:].cpu(), kvs[0][:, :, 1:],
+                          atol=1e-5)
