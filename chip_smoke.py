@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
-Drives the port's serving path — paged-KV continuous-batching decode of
-the transformer LM — at the repo's bench geometry (GPT-2-small: L12,
-hidden 768, 12 heads, vocab 32768, max_seq_len 1024; 8 slots, page 64;
-random weights from seed 0), and holds every hand-written kernel of that
-path against its plain PyTorch version on the card.  Phases, in order:
+Drives the port's two paths at the repo's bench geometry (GPT-2-small:
+L12, hidden 768, 12 heads, vocab 32768, T 1024; random weights from seed
+0): serving — paged-KV continuous-batching decode of the transformer LM
+(8 slots, page 64) — and training — ``get_symbol`` -> ``ShardedTrainer``
+-> ``init_state`` -> ``step`` in f32 at batch 8 — and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card.  Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and identify the card;
@@ -20,11 +22,20 @@ path against its plain PyTorch version on the card.  Phases, in order:
    higher-priority arrival into a full batch, continuous-vs-serial token
    parity, step time and tokens/s beside the ``decode_step_model``
    roofline;
-5. serve int8 and int4 exports of the same model.
+5. serve int8 and int4 exports of the same model;
+6. the three flash-attention kernels (forward with the logsumexp, dQ,
+   dK/dV) against their plain versions at the training shape (B8 T1024
+   H12 D64, causal), a ragged T 1000 and a non-causal case, with times,
+   bounds and the ``scaled_dot_product_attention`` yardstick;
+7. one training step at full width and depth 2 (batch 2) on the card
+   against the same step on the CPU (plain versions) from the same state;
+8. training at full width: L12, batch 8, one warm-up and five timed
+   steps, tokens/s, device busy time and idle share, peak memory, the
+   share of the f32 peak, and the cross-entropy before and after.
 
-Launch counters are set to 0 just before each serving path and read just
-after it: every kernel of the path must have launched, exactly once per
-layer per step (and once per matmul for the quantized ones).
+Launch counters are set to 0 just before each path is driven and read
+just after it: every kernel of the path must have launched, exactly once
+per layer per step (and once per matmul for the quantized ones).
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``.  It needs one
 CUDA card, exits non-zero without one (or without the package beside it),
@@ -61,6 +72,22 @@ def check(cond, msg):
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+class phase:
+    """Prints a phase's elapsed seconds when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log("== phase %s" % self.name)
+
+    def __exit__(self, *exc):
+        log("== phase %s: %.1f s" % (self.name,
+                                     time.perf_counter() - self.t0))
+        return False
 
 
 class Timer:
@@ -479,6 +506,320 @@ def report_profile(torch, prog, tag, cached, card):
     return total / 1e3
 
 
+TRAIN = dict(vocab_size=32768, seq_len=1024, num_layers=12, hidden=768,
+             heads=12)
+
+
+def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out):
+    """Bound of one flash kernel: ``units`` x 2·D flops per (q, k) pair
+    that the mask keeps (4 for the forward, 6 for dQ, 8 for dK/dV, as
+    4·BH·T²·D·½ etc.), and ``n_in`` (B, T, H, D) tensors read, ``n_out``
+    written, plus the (B·H, T) lse/delta rows."""
+    if causal:
+        pairs = sum(min(Tk, q + 1) for q in range(Tq))
+    else:
+        pairs = Tq * Tk
+    flops = units * B * H * pairs * D
+    nbytes = (n_in + n_out) * B * Tq * H * D * 4 + 2 * B * H * Tq * 4
+    return bound_ms(nbytes, flops)
+
+
+def phase_flash(torch, kernels, F, timer, card):
+    """The three flash kernels against their plain versions at the
+    training shape (timed), and at a ragged and a non-causal shape."""
+    dev = torch.device("cuda")
+    H, D = TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    rows = []
+    cases = [(8, 1024, True, True), (8, 1000, True, False),
+             (4, 1024, False, False)]
+    for B, T, causal, timed in cases:
+        rs = np.random.RandomState(T + B)
+        q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, D).astype(
+            np.float32)).to(dev) for _ in range(4))
+        tag = "B%d T%d H%d D%d %s" % (B, T, H, D,
+                                      "causal" if causal else "full")
+        out, lse = kernels.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal)
+        delta = kernels.flash_delta(ref, do)
+        dq = kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                            causal)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse,
+                                                 delta, causal)
+        refs = kernels.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do,
+                                                 causal)
+        torch.cuda.synchronize()
+        errs = {"out": (out - ref).abs().max().item(),
+                "lse": (lse - ref_lse).abs().max().item()}
+        tols = {"out": 1e-5, "lse": 1e-5}
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            errs[name] = (got - want).abs().max().item()
+            tols[name] = 1e-4 * max(1.0, want.abs().max().item())
+        log("flash %s: max_abs_err %s (tolerances: out, lse 1e-5 absolute, "
+            "f32 both sides, online vs one-pass softmax; dq/dk/dv 1e-4 x "
+            "max(1, max|ref|): sums over up to %d rows in another order)"
+            % (tag, ", ".join("%s=%.3g/%.3g" % (n, errs[n], tols[n])
+                              for n in errs), T))
+        check(all(errs[n] <= tols[n] for n in errs),
+              "flash kernels disagree with their plain versions at %s" % tag)
+        if not timed:
+            continue
+        # yardstick: SDPA in f32 on the (B, H, T, D) transposes, forward
+        # and its autograd backward (dQ, dK, dV together); timed only
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+        check((lib_out.transpose(1, 2) - ref).abs().max().item() < 1e-4,
+              "the SDPA yardstick computes another function")
+        lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
+        del lib_out
+        src = "mxnet_tpu_torch/csrc/flash_attention.cu"
+        b_f, by_f = flash_bound(B, T, T, H, D, causal, 4, 3, 1)
+        b_q, by_q = flash_bound(B, T, T, H, D, causal, 6, 4, 1)
+        b_kv, by_kv = flash_bound(B, T, T, H, D, causal, 8, 4, 2)
+        shape = "q/k/v (B, T, H, D) = (%d, %d, %d, %d) f32, causal" % (
+            B, T, H, D)
+        per_step = TRAIN["num_layers"]
+        rows += [{
+            "name": "flash_attention_fwd", "route": "cuda", "source": src,
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:250",
+            "shape": shape + ", with lse", "launches_per_step": per_step,
+            "max_abs_err": max(errs["out"], errs["lse"]),
+            "ms": timer(lambda: kernels.flash_attention_fwd(q, k, v,
+                                                            causal)),
+            "plain_ms": timer(lambda: kernels.flash_attention_fwd_plain(
+                q, k, v, causal)),
+            "bound_ms": b_f, "bound_by": by_f, "library_ms": lib_fwd,
+            "library_call": "F.scaled_dot_product_attention(is_causal="
+                            "True) f32 forward",
+        }, {
+            "name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:448",
+            "shape": shape + ", dO, lse, delta",
+            "launches_per_step": per_step, "max_abs_err": errs["dq"],
+            "ms": timer(lambda: kernels.flash_attention_bwd_dq(
+                q, k, v, do, ref_lse, delta, causal)),
+            "plain_ms": timer(lambda: kernels.flash_attention_bwd_dq_plain(
+                q, k, v, do, ref_lse, delta, causal)),
+            "bound_ms": b_q, "bound_by": by_q, "library_ms": lib_bwd,
+            "library_call": "autograd backward of the SDPA forward (dQ, "
+                            "dK and dV together)",
+        }, {
+            "name": "flash_attention_bwd_dkv", "route": "cuda",
+            "source": src,
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:468",
+            "shape": shape + ", dO, lse, delta",
+            "launches_per_step": per_step,
+            "max_abs_err": max(errs["dk"], errs["dv"]),
+            "ms": timer(lambda: kernels.flash_attention_bwd_dkv(
+                q, k, v, do, ref_lse, delta, causal)),
+            "plain_ms": timer(lambda: kernels.flash_attention_bwd_dkv_plain(
+                q, k, v, do, ref_lse, delta, causal)),
+            "bound_ms": b_kv, "bound_by": by_kv, "library_ms": lib_bwd,
+            "library_call": "autograd backward of the SDPA forward (dQ, "
+                            "dK and dV together)",
+        }]
+        del qt, kt, vt
+    for r in rows:
+        log("  %-24s %-48s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%.4f  [%s]"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], r["library_ms"], card))
+    return rows
+
+
+def lm_batch(vocab, batch, seq, seed):
+    rs = np.random.RandomState(seed)
+    return {"data": rs.randint(0, vocab, (batch, seq)).astype(np.float32),
+            "softmax_label": rs.randint(0, vocab, (batch, seq))
+            .astype(np.float32)}
+
+
+def cross_entropy(torch, trainer, params, aux, batch):
+    """mean -log p[label] from a forward's SoftmaxOutput probabilities
+    (no gradient)."""
+    prog = trainer.prog
+    args = [None] * len(prog.arg_names)
+    for i, p in zip(trainer.param_idx, params):
+        args[i] = p
+    for n in trainer.input_names:
+        args[trainer.input_idx[n]] = torch.as_tensor(batch[n],
+                                                     device=trainer.device)
+    with torch.no_grad():
+        probs = prog.evaluate(args, aux, train=False)[0][0]
+        lab = args[trainer.input_idx["softmax_label"]].reshape(-1).long()
+        picked = probs.gather(1, lab[:, None]).double()
+        return float(-picked.log().mean())
+
+
+def phase_train_parity(torch, get_symbol, ShardedTrainer, card):
+    """One training step on the card and on the CPU (plain versions)
+    from the same state, at full width and depth 2, batch 2."""
+    cfg = dict(TRAIN, num_layers=2)
+    net = get_symbol(**cfg)
+    shapes = {"data": (2, cfg["seq_len"]), "softmax_label":
+              (2, cfg["seq_len"])}
+    batch = lm_batch(cfg["vocab_size"], 2, cfg["seq_len"], seed=7)
+    result = {}
+    for dev in ("cuda", "cpu"):
+        tr = ShardedTrainer(net, lr=0.01, momentum=0.9, wd=1e-4,
+                            device=dev)
+        if dev == "cuda":
+            params, mom, aux = tr.init_state(shapes, seed=3)
+            start = [p.detach().to("cpu", copy=True) for p in params]
+        else:
+            params = tuple(p.clone() for p in start)
+            mom = tuple(torch.zeros_like(p) for p in params)
+            aux = ()
+        t0 = time.perf_counter()
+        params, mom, aux, loss = tr.step(params, mom, aux, batch)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        ce = cross_entropy(torch, tr, params, aux, batch)
+        result[dev] = ([p.detach().cpu() - s for p, s in zip(params, start)],
+                       ce, loss, dt)
+        log("train step %s L%d h%d T%d batch 2: %.2f s, loss %.1f, "
+            "cross-entropy after %.6f" % (dev, cfg["num_layers"],
+                                         cfg["hidden"], cfg["seq_len"], dt,
+                                         loss, ce))
+    worst = 0.0
+    cpu_update = dict(zip(tr.param_names, result["cpu"][0]))
+    for name, a, b in zip(tr.param_names, result["cuda"][0],
+                          result["cpu"][0]):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if name.endswith("_k_bias"):
+            # the softmax is invariant to a per-row shift of the scores,
+            # so the key bias gets no gradient: both updates are rounding
+            # noise of a zero, whose size depends on the CPU's summation
+            # order.  Each must stay within the same 1e-3 of the update of
+            # the layer's key weight, the sum of the same dK rows weighted
+            # by the layer's input.
+            ref = cpu_update[name[:-len("bias")] + "weight"]
+            limit = 1e-3 * ref.abs().max().item()
+            moved = max(scale, a.abs().max().item())
+            check(moved <= limit,
+                  "%s moved by %.3g on the card and %.3g on the CPU; its "
+                  "gradient is zero, and the limit is %.3g (1e-3 of the "
+                  "key weight's largest update)"
+                  % (name, a.abs().max().item(), scale, limit))
+            log("%s (no gradient): moved by %.3g on the card and %.3g on "
+                "the CPU, limit %.3g" % (name, a.abs().max().item(), scale,
+                                         limit))
+            continue
+        worst = max(worst, err / scale)
+        check(err <= 1e-3 * scale,
+              "update of %s on the card differs from the CPU: max_abs_err "
+              "%.3g vs its largest update %.3g" % (name, err, scale))
+    ce_c, ce_h = result["cuda"][1], result["cpu"][1]
+    log("train step card vs cpu: updates agree per tensor within %.3g of "
+        "that tensor's largest update (tolerance 1e-3: f32 both sides, "
+        "cuBLAS and the flash kernels vs CPU BLAS and the plain versions; "
+        "the key biases, whose gradient is zero, within 1e-3 of the key "
+        "weight's largest update); "
+        "cross-entropy %.6f vs %.6f (tolerance 1e-4 relative) [%s]"
+        % (worst, ce_c, ce_h, card))
+    check(abs(ce_c - ce_h) <= 1e-4 * abs(ce_h),
+          "cross-entropy on the card differs from the CPU")
+
+
+def phase_train(torch, kernels, get_symbol, ShardedTrainer, flops_fn,
+                card):
+    """Full-width training: warm-up, five timed steps, a profiled step;
+    returns (launch counts over the path's steps, summary)."""
+    cfg = TRAIN
+    B, T, L = 8, cfg["seq_len"], cfg["num_layers"]
+    net = get_symbol(**cfg)
+    tr = ShardedTrainer(net, lr=1e-4, momentum=0.9, wd=0.0)
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    t0 = time.perf_counter()
+    params, mom, aux = tr.init_state(shapes, seed=0)
+    log("init_state(L%d h%d V%d, seed=0): %d tensors, %.1f M parameters, "
+        "%.1f s" % (L, cfg["hidden"], cfg["vocab_size"], len(params),
+                    sum(p.numel() for p in params) / 1e6,
+                    time.perf_counter() - t0))
+    batch = lm_batch(cfg["vocab_size"], B, T, seed=0)
+    ce0 = cross_entropy(torch, tr, params, aux, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for i in range(6):              # 1 warm-up + 5 timed
+        t0 = time.perf_counter()
+        params, mom, aux, loss = tr.step(params, mom, aux, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, mom, aux, loss = tr.step(params, mom, aux, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    steps = 7
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ce1 = cross_entropy(torch, tr, params, aux, batch)
+    log("launches on the training path: %s over %d steps" % (got, steps))
+    for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"):
+        check(got[key] == L * steps, "%s launched %d times over %d steps, "
+              "want %d" % (key, got[key], steps, L * steps))
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type.name == "CUDA":
+            by_kernel[ev.key] = (dev_us, ev.count)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    timed = times[1:]
+    med = statistics.median(timed)
+    flops = flops_fn(B, T, L, cfg["hidden"], cfg["vocab_size"])
+    log("train step L%d h%d V%d T%d batch %d f32: warm-up %.1f ms; timed "
+        "%s ms; median %.1f ms (spread %.1f-%.1f) = %.0f tokens/s [%s]"
+        % (L, cfg["hidden"], cfg["vocab_size"], T, B, times[0],
+           ", ".join("%.1f" % t for t in timed), med, min(timed),
+           max(timed), B * T / med * 1e3, card))
+    if by_kernel:
+        log("device time of one step by kernel (torch.profiler) [%s]:"
+            % card)
+        for key, (us, cnt) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:12]:
+            log("  %9.1f us  x%-4d %s" % (us, cnt, key[:90]))
+        groups = {"flash kernels": 0.0, "matmuls (cuBLAS/CUTLASS f32)": 0.0,
+                  "everything else": 0.0}
+        for key, (us, _cnt) in by_kernel.items():
+            group = ("flash kernels" if "flash_" in key else
+                     "matmuls (cuBLAS/CUTLASS f32)" if "gemm" in key
+                     else "everything else")
+            groups[group] += us / 1e3
+        log("  by group: %s" % ", ".join("%s %.1f ms" % kv
+                                         for kv in groups.items()))
+        # the profiled step's own wall time: the profiler slows the host,
+        # so the unprofiled median is no denominator for its busy time
+        log("  device busy %.1f ms of the profiled step's %.1f ms: idle "
+            "share %.3f" % (busy_ms, prof_ms, 1 - busy_ms / prof_ms))
+    else:
+        log("device busy: not measured (the profiler saw no device time)")
+    log("peak memory allocated %.2f GB; transformer_flops_per_step %.3f "
+        "TFLOP -> %.1f TFLOP/s = %.3f of the 67 TFLOP/s f32 peak (%.1f ms "
+        "at peak); cross-entropy before %.4f, after %d steps %.4f [%s]"
+        % (peak / 1e9, flops / 1e12, flops / med / 1e9,
+           flops / (med / 1e3) / F32_FLOPS_S, flops / F32_FLOPS_S * 1e3,
+           ce0, steps, ce1, card))
+    check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
+          "training did not lower the cross-entropy on the repeated batch "
+          "(%.4f -> %.4f)" % (ce0, ce1))
+    check(tr.skipped_steps == 0, "a training step was skipped as "
+          "non-finite")
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -490,126 +831,143 @@ def main():
              "checkout of the repository")
     sys.path.insert(0, here)
     import torch.nn.functional as F
-    from mxnet_tpu_torch.analysis.costmodel import decode_step_model
-    from mxnet_tpu_torch.models.transformer import get_decode_step
+    from mxnet_tpu_torch.analysis.costmodel import (
+        decode_step_model, transformer_flops_per_step)
+    from mxnet_tpu_torch.models.transformer import (get_decode_step,
+                                                    get_symbol)
     from mxnet_tpu_torch.ops import build, kernels
+    from mxnet_tpu_torch.parallel import ShardedTrainer
     from mxnet_tpu_torch.serving.decode import (DecodeConfig, DecodeEngine,
                                                 DecodeProgram,
                                                 init_decode_params)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
 
-    # -- 1. build and identify ---------------------------------------------
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, "nvidia-smi failed: %s" % smi.stderr)
-    card = smi.stdout.strip().splitlines()[0].strip()
-    log("card: %s | torch %s, CUDA %s, %d device(s)"
-        % (card, torch.__version__, torch.version.cuda,
-           torch.cuda.device_count()))
-    t0 = time.perf_counter()
-    paths = build.build_kernels()
-    log("built %d kernel libraries in %.2f s: %s"
-        % (len(paths), time.perf_counter() - t0,
-           ", ".join(os.path.relpath(p, here) for p in paths.values())))
-    for name in paths:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas %s: %s" % (name, line.strip()))
+    with phase("1 build and identify"):
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        check(smi.returncode == 0, "nvidia-smi failed: %s" % smi.stderr)
+        card = smi.stdout.strip().splitlines()[0].strip()
+        log("card: %s | torch %s, CUDA %s, %d device(s)"
+            % (card, torch.__version__, torch.version.cuda,
+               torch.cuda.device_count()))
+        t0 = time.perf_counter()
+        paths = build.build_kernels()
+        log("built %d kernel libraries in %.2f s: %s"
+            % (len(paths), time.perf_counter() - t0,
+               ", ".join(os.path.relpath(p, here) for p in paths.values())))
+        for name in paths:
+            for line in build.build_log(name).splitlines():
+                if "registers" in line or "spill" in line:
+                    log("  ptxas %s: %s" % (name, line.strip()))
 
-    # -- 2. kernels vs plain, timed ------------------------------------------
-    timer = Timer(torch)
-    rows = phase_kernels(torch, kernels, F, timer, card)
-    del timer
+    with phase("2 decode kernels vs plain"):
+        timer = Timer(torch)
+        rows = phase_kernels(torch, kernels, F, timer, card)
+        host_costs(torch, kernels, card)
 
-    host_costs(torch, kernels, card)
+    with phase("3 decode step card vs cpu"):
+        phase_step_parity(torch, DecodeConfig, DecodeProgram,
+                          init_decode_params)
 
-    # -- 3. the step on the card vs the CPU ---------------------------------
-    phase_step_parity(torch, DecodeConfig, DecodeProgram,
-                      init_decode_params)
-
-    # -- 4. serve f32 at full width -----------------------------------------
     cfg = DecodeConfig(FULL["vocab_size"], FULL["num_layers"],
                        FULL["hidden"], FULL["heads"], FULL["seq_len"],
                        page_size=FULL["page_size"],
                        max_seqs=FULL["max_seqs"])
-    t0 = time.perf_counter()
-    params = init_decode_params(cfg, seed=0)
-    log("init_decode_params(%s, seed=0): %.1f s"
-        % (cfg.describe(), time.perf_counter() - t0))
-    rs = np.random.RandomState(0)
-    requests = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 513))),
-                 int(rs.randint(16, 65))) for _ in range(15)]
-    vip = (rs.randint(0, cfg.vocab_size, 32), 16)
     launches, timing, busy = {}, {}, {}
-    kernels.reset_launches()
-    prog = get_decode_step(params, vocab_size=cfg.vocab_size,
-                           seq_len=cfg.max_seq_len,
-                           num_layers=cfg.num_layers, hidden=cfg.hidden,
-                           heads=cfg.heads, page_size=cfg.page_size,
-                           max_seqs=cfg.max_seqs, name="smoke-f32")
-    res = serve(torch, kernels, DecodeEngine, prog, requests, vip=vip,
-                parity=3, card=card)
-    got = dict(kernels.LAUNCHES)
-    calls = res["step_calls"] + 1                 # + the warm-up step
-    log("launches on the f32 path: %s over %d step calls" % (got, calls))
-    check(got["decode_attention"] == cfg.num_layers * calls,
-          "decode_attention launched %d times, want %d"
-          % (got["decode_attention"], cfg.num_layers * calls))
-    launches["f32"] = got
     cached = 512
-    timing["f32"] = step_timing(torch, prog, cached)
-    busy["f32"] = report_profile(torch, prog, "f32", cached, card)
-    del prog
-
-    # -- 5. serve int8 and int4 ---------------------------------------------
-    small = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65))), 16)
-             for _ in range(4)]
-    for qz in ("int8", "int4"):
+    with phase("4 serve f32"):
+        t0 = time.perf_counter()
+        params = init_decode_params(cfg, seed=0)
+        log("init_decode_params(%s, seed=0): %.1f s"
+            % (cfg.describe(), time.perf_counter() - t0))
+        rs = np.random.RandomState(0)
+        requests = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 513))),
+                     int(rs.randint(16, 65))) for _ in range(15)]
+        vip = (rs.randint(0, cfg.vocab_size, 32), 16)
         kernels.reset_launches()
         prog = get_decode_step(params, vocab_size=cfg.vocab_size,
                                seq_len=cfg.max_seq_len,
                                num_layers=cfg.num_layers, hidden=cfg.hidden,
                                heads=cfg.heads, page_size=cfg.page_size,
-                               max_seqs=cfg.max_seqs, quantize=qz,
-                               name="smoke-" + qz)
-        res = serve(torch, kernels, DecodeEngine, prog, small, parity=1,
-                    card=card)
+                               max_seqs=cfg.max_seqs, name="smoke-f32")
+        res = serve(torch, kernels, DecodeEngine, prog, requests, vip=vip,
+                    parity=3, card=card)
         got = dict(kernels.LAUNCHES)
-        calls = res["step_calls"] + 1
-        log("launches on the %s path: %s over %d step calls"
-            % (qz, got, calls))
+        calls = res["step_calls"] + 1                 # + the warm-up step
+        log("launches on the f32 path: %s over %d step calls"
+            % (got, calls))
         check(got["decode_attention"] == cfg.num_layers * calls,
-              "%s: decode_attention launches %d, want %d"
-              % (qz, got["decode_attention"], cfg.num_layers * calls))
-        check(got["quant_matmul_" + qz] == (6 * cfg.num_layers + 1) * calls,
-              "%s: quant_matmul launches %d, want %d"
-              % (qz, got["quant_matmul_" + qz],
-                 (6 * cfg.num_layers + 1) * calls))
-        launches[qz] = got
-        timing[qz] = step_timing(torch, prog, cached)
-        busy[qz] = report_profile(torch, prog, qz, cached, card)
+              "decode_attention launched %d times, want %d"
+              % (got["decode_attention"], cfg.num_layers * calls))
+        launches["f32"] = got
+        timing["f32"] = step_timing(torch, prog, cached)
+        busy["f32"] = report_profile(torch, prog, "f32", cached, card)
         del prog
-    del params
 
-    for qz, bits in (("f32", 32), ("int8", 8), ("int4", 4)):
-        m = decode_step_model(cfg.num_layers, cfg.hidden, cfg.vocab_size,
-                              cfg.max_seqs, cfg.max_seqs * cached, bits)
-        roof_ms = m["hbm_bytes"] / HBM_BYTES_S * 1e3
-        host_ms, b2b_ms = timing[qz]
-        dev_ms = busy[qz]
-        log("steady step %s, 8 slots at %d cached tokens: %.3f ms per step "
-            "waiting for each step's tokens (%.1f tok/s), %.3f ms per step "
-            "back to back; device busy %s ms per step (idle share %s); "
-            "decode_step_model roofline %.3f ms (%.1f MB/step at 3.35 "
-            "TB/s) = %.1f%% of the step [%s]"
-            % (qz, cached, host_ms, cfg.max_seqs / host_ms * 1e3, b2b_ms,
-               "not measured" if dev_ms is None else "%.3f" % dev_ms,
-               "not measured" if dev_ms is None
-               else "%.3f" % (1 - dev_ms / host_ms), roof_ms,
-               m["hbm_bytes"] / 1e6, 100 * roof_ms / host_ms, card))
+    with phase("5 serve int8 and int4"):
+        small = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65))), 16)
+                 for _ in range(4)]
+        for qz in ("int8", "int4"):
+            kernels.reset_launches()
+            prog = get_decode_step(params, vocab_size=cfg.vocab_size,
+                                   seq_len=cfg.max_seq_len,
+                                   num_layers=cfg.num_layers,
+                                   hidden=cfg.hidden, heads=cfg.heads,
+                                   page_size=cfg.page_size,
+                                   max_seqs=cfg.max_seqs, quantize=qz,
+                                   name="smoke-" + qz)
+            res = serve(torch, kernels, DecodeEngine, prog, small, parity=1,
+                        card=card)
+            got = dict(kernels.LAUNCHES)
+            calls = res["step_calls"] + 1
+            log("launches on the %s path: %s over %d step calls"
+                % (qz, got, calls))
+            check(got["decode_attention"] == cfg.num_layers * calls,
+                  "%s: decode_attention launches %d, want %d"
+                  % (qz, got["decode_attention"], cfg.num_layers * calls))
+            want = (6 * cfg.num_layers + 1) * calls
+            check(got["quant_matmul_" + qz] == want,
+                  "%s: quant_matmul launches %d, want %d"
+                  % (qz, got["quant_matmul_" + qz], want))
+            launches[qz] = got
+            timing[qz] = step_timing(torch, prog, cached)
+            busy[qz] = report_profile(torch, prog, qz, cached, card)
+            del prog
+        del params
+
+        for qz, bits in (("f32", 32), ("int8", 8), ("int4", 4)):
+            m = decode_step_model(cfg.num_layers, cfg.hidden,
+                                  cfg.vocab_size, cfg.max_seqs,
+                                  cfg.max_seqs * cached, bits)
+            roof_ms = m["hbm_bytes"] / HBM_BYTES_S * 1e3
+            host_ms, b2b_ms = timing[qz]
+            dev_ms = busy[qz]
+            log("steady step %s, 8 slots at %d cached tokens: %.3f ms per "
+                "step waiting for each step's tokens (%.1f tok/s), %.3f ms "
+                "per step back to back; device busy %s ms per step (idle "
+                "share %s); decode_step_model roofline %.3f ms (%.1f MB/step "
+                "at 3.35 TB/s) = %.1f%% of the step [%s]"
+                % (qz, cached, host_ms, cfg.max_seqs / host_ms * 1e3, b2b_ms,
+                   "not measured" if dev_ms is None else "%.3f" % dev_ms,
+                   "not measured" if dev_ms is None
+                   else "%.3f" % (1 - dev_ms / host_ms), roof_ms,
+                   m["hbm_bytes"] / 1e6, 100 * roof_ms / host_ms, card))
+
+    with phase("6 flash kernels vs plain"):
+        rows += phase_flash(torch, kernels, F, timer, card)
+        del timer
+
+    with phase("7 training step card vs cpu"):
+        phase_train_parity(torch, get_symbol, ShardedTrainer, card)
+
+    with phase("8 training at full width"):
+        launches["train"] = phase_train(torch, kernels, get_symbol,
+                                        ShardedTrainer,
+                                        transformer_flops_per_step, card)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

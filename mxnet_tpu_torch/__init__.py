@@ -9,11 +9,16 @@ Pallas kernel of the JAX package on a ported path becomes a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/``), with a plain PyTorch version
 beside it that the tests hold it against.
 
-Ported so far (ROADMAP.md): the serving slice — paged-KV
-continuous-batching decode of the transformer LM
-(``models.transformer.get_decode_step`` ->
-``serving.decode.DecodeProgram`` -> ``serving.decode.DecodeEngine``)
-with the decode-attention and int8/int4 quantized-matmul kernels.
+Ported so far (ROADMAP.md):
+
+* the serving slice — paged-KV continuous-batching decode of the
+  transformer LM (``models.transformer.get_decode_step`` ->
+  ``serving.decode.DecodeProgram`` -> ``serving.decode.DecodeEngine``)
+  with the decode-attention and int8/int4 quantized-matmul kernels;
+* the training slice — the LM's Symbol graph trained on one card
+  (``models.transformer.get_symbol`` -> ``parallel.ShardedTrainer`` ->
+  ``init_state`` -> ``step``) with the flash-attention forward, dQ and
+  dK/dV kernels.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,14 +1,16 @@
-"""Analytic cost of one paged decode step (port of
-``mxnet_tpu/analysis/costmodel.py`` ``decode_step_model``; the HLO-text
-models of the rest of that module wait for ROADMAP queue A13).
+"""Analytic costs: one paged decode step (port of
+``mxnet_tpu/analysis/costmodel.py`` ``decode_step_model``) and one
+transformer training step (a copy of ``transformer_flops_per_step`` of
+``tools/bench_ideal.py``, the bench's FLOP count).  The HLO-text models of
+the rest of that module wait for ROADMAP queue A13.
 
-``chip_smoke.py`` holds measured decode steps against this model.
+``chip_smoke.py`` holds measured decode and training steps against them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-__all__ = ["decode_step_model"]
+__all__ = ["decode_step_model", "transformer_flops_per_step"]
 
 
 def decode_step_model(num_layers: int, hidden: int, vocab: int,
@@ -36,3 +38,17 @@ def decode_step_model(num_layers: int, hidden: int, vocab: int,
     return {"flops": flops, "weight_bytes": weight_bytes,
             "kv_bytes": kv_bytes,
             "hbm_bytes": weight_bytes + kv_bytes + S * V * 4.0}
+
+
+def transformer_flops_per_step(batch, seq, layers, hidden, vocab):
+    """Model FLOPs for one train step of the LM (fwd+bwd = 3x fwd
+    matmuls).
+
+    Matmul counting (dense 2mnk): qkv+out projections 4*D^2/tok/layer,
+    FFN 8*D^2/tok/layer, vocab head D*V/tok; attention scores+values
+    4*T*D/tok/layer counted over the FULL score matrix (the convention
+    of the reference's bench; halve it for the causal-skip count)."""
+    tokens = batch * seq
+    proj = 2 * tokens * (layers * 12 * hidden * hidden + hidden * vocab)
+    attn = 2 * tokens * layers * 2 * (2 * seq * hidden)
+    return 3 * (proj + attn)

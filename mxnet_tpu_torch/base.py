@@ -1,5 +1,7 @@
 """Core shared utilities for mxnet_tpu_torch: the error types, the
-environment-knob helpers, and device resolution.
+environment-knob helpers, device resolution, dtype names, and the typed
+op-attribute machinery (the dmlc::Parameter analog: ``Param`` and the
+``attr_*`` constructors) with ``AttrScope``.
 
 Counterpart of ``mxnet_tpu/base.py``.  The port keeps its own copy of what
 it needs instead of importing the JAX package (whose ``__init__`` imports
@@ -7,10 +9,16 @@ jax and changes global jax config).
 """
 from __future__ import annotations
 
+import ast
 import os
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
 
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "env_int",
-           "env_float", "resolve_device"]
+           "env_float", "resolve_device", "_Null", "dtype_np", "dtype_name",
+           "dtype_torch", "Param", "attr_bool", "attr_int", "attr_float",
+           "attr_str", "attr_shape", "attr_dtype", "AttrScope"]
 
 
 class MXNetError(Exception):
@@ -62,3 +70,180 @@ def resolve_device(device=None):
                                     "device is visible" % (device,))
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# ---------------------------------------------------------------------------
+# dtypes
+# ---------------------------------------------------------------------------
+
+class _NullType:
+    """Placeholder for missing attribute values (reference ``_Null``)."""
+    _inst = None
+
+    def __new__(cls):
+        if cls._inst is None:
+            cls._inst = super().__new__(cls)
+        return cls._inst
+
+    def __repr__(self):
+        return "_Null"
+
+    def __bool__(self):
+        return False
+
+
+_Null = _NullType()
+
+_TORCH_DTYPES = ("float32", "float64", "float16", "bfloat16", "uint8",
+                 "int8", "int32", "int64", "bool")
+
+
+def dtype_np(dtype) -> Any:
+    """Normalise a dtype spec (str/np.dtype/type) to a numpy dtype.
+    numpy has no bfloat16, and the port does not depend on ``ml_dtypes``:
+    ask :func:`dtype_torch` for it."""
+    if dtype is None or dtype is _Null:
+        return None
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        raise MXNetError("numpy has no bfloat16; use dtype_torch")
+    return np.dtype(dtype)
+
+
+def dtype_name(dtype) -> str:
+    """Canonical string name for a dtype (numpy, torch or a name)."""
+    if isinstance(dtype, str):
+        return dtype
+    text = str(dtype)
+    if text.startswith("torch."):
+        return text[len("torch."):]
+    return np.dtype(dtype).name
+
+
+def dtype_torch(dtype):
+    """A dtype spec (name, numpy or torch dtype) -> ``torch.dtype``."""
+    import torch
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype_name(dtype)
+    if name not in _TORCH_DTYPES:
+        raise MXNetError("dtype %r has no torch counterpart in the port"
+                         % (dtype,))
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Typed attribute parsing — the dmlc::Parameter analog.
+#
+# Ops declare a schema {name: attr_<type>(default)}; values arriving from the
+# Symbol layer are strings, from Python callers native values.  Both are
+# normalised to the same canonical values.
+# ---------------------------------------------------------------------------
+
+class Param:
+    """One typed op attribute: parser + default (+ required flag)."""
+
+    __slots__ = ("parse", "default", "required", "kind")
+
+    def __init__(self, parse: Callable[[Any], Any], default: Any = _Null,
+                 required: bool = False, kind: str = "str"):
+        self.parse = parse
+        self.default = default
+        self.required = required
+        self.kind = kind
+
+    def __call__(self, value):
+        if value is None or value is _Null:
+            return self.default
+        return self.parse(value)
+
+
+def _parse_bool(v) -> bool:
+    if isinstance(v, str):
+        return v.strip().lower() in ("1", "true", "yes")
+    return bool(v)
+
+
+def _parse_int(v) -> Optional[int]:
+    if isinstance(v, str):
+        v = v.strip()
+        if v.lower() in ("none", ""):
+            return None
+    return int(v)
+
+
+def _parse_shape(v) -> Optional[Tuple[int, ...]]:
+    """Parse '(2,3)' / [2,3] / 2 -> tuple of ints; 'None' -> None."""
+    if v is None:
+        return None
+    if isinstance(v, str):
+        v = v.strip()
+        if v.lower() in ("none", ""):
+            return None
+        v = ast.literal_eval(v)
+    if isinstance(v, (int, np.integer)):
+        return (int(v),)
+    return tuple(int(x) for x in v)
+
+
+def _parse_dtype(v) -> Optional[str]:
+    if v is None:
+        return None
+    return dtype_name(v)
+
+
+def attr_bool(default=_Null, required=False):
+    return Param(_parse_bool, default, required, "boolean")
+
+
+def attr_int(default=_Null, required=False):
+    return Param(_parse_int, default, required, "int")
+
+
+def attr_float(default=_Null, required=False):
+    return Param(float, default, required, "float")
+
+
+def attr_str(default=_Null, required=False):
+    return Param(str, default, required, "string")
+
+
+def attr_shape(default=_Null, required=False):
+    return Param(_parse_shape, default, required, "Shape(tuple)")
+
+
+def attr_dtype(default=_Null, required=False):
+    return Param(_parse_dtype, default, required, "dtype")
+
+
+class AttrScope:
+    """``with AttrScope(ctx_group='dev1'):`` — attributes attached to every
+    symbol created inside the scope (reference: python/mxnet/attribute.py)."""
+
+    _current: Optional["AttrScope"] = None
+
+    def __init__(self, **kwargs):
+        self._attr = {str(k): str(v) for k, v in kwargs.items()}
+        self._old: Optional[AttrScope] = None
+
+    def get(self, attr: Optional[Dict[str, str]]) -> Dict[str, str]:
+        out = dict(self._attr)
+        if attr:
+            out.update(attr)
+        return out
+
+    @classmethod
+    def current(cls) -> "AttrScope":
+        if cls._current is None:
+            cls._current = AttrScope()
+        return cls._current
+
+    def __enter__(self):
+        self._old = AttrScope._current
+        merged = dict(self._old._attr) if self._old else {}
+        merged.update(self._attr)
+        self._attr = merged
+        AttrScope._current = self
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        AttrScope._current = self._old

@@ -1,4 +1,4 @@
-"""Carrying weights across from the JAX package.
+"""Carrying weights and training state across from the JAX package.
 
 The JAX package's decode program and its artifacts hold parameters under
 the training graph's names (``tok_embed_weight``, ``l0_q_weight``,
@@ -7,6 +7,12 @@ split into ``<name>#q`` (int8, or uint8 packed int4) and
 ``<name>#scale`` (f32) entries.  The port keeps the same names, so a
 trained module's ``arg_params`` or an exported artifact maps onto the
 port one to one; only the array type changes.
+
+A JAX ``ShardedTrainer``'s state is three tuples ``(params, mom, aux)`` in
+its ``param_names`` / ``prog.aux_names`` order; the port's trainer keeps
+the same names and order.  :func:`trainer_state_from_numpy` moves such a
+state (as host arrays) onto a device for the port, matching it by name,
+and :func:`trainer_state_to_numpy` brings the port's state back.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import numpy as np
 
 from .base import MXNetError
 
-__all__ = ["from_jax_params", "is_quantized"]
+__all__ = ["from_jax_params", "is_quantized", "trainer_state_from_numpy",
+           "trainer_state_to_numpy"]
 
 # dtypes a decode parameter may have: f32 everywhere except the quantized
 # payloads
@@ -57,3 +64,46 @@ def from_jax_params(params: Mapping, device) -> Dict[str, "object"]:
                              % (name, dtype))
         out[name] = t.to(device).contiguous()
     return out
+
+
+def trainer_state_from_numpy(names, state, device, order=None):
+    """A trainer state as host arrays -> the port's state on ``device``.
+
+    ``names`` is ``(param_names, aux_names)`` of ``state = (params, mom,
+    aux)``; ``order`` is the ``(param_names, aux_names)`` of the port
+    trainer it is for (default: ``names``).  Entries are matched by name,
+    so the two orders may differ; a missing or extra name, a shape that
+    differs between a parameter and its momentum, or a dtype other than
+    float32 raises."""
+    import torch
+    param_names, aux_names = (list(n) for n in names)
+    params, mom, aux = state
+    want_p, want_a = (list(n) for n in (order or names))
+    if sorted(param_names) != sorted(want_p) or \
+            sorted(aux_names) != sorted(want_a):
+        raise MXNetError("trainer state names %s / %s do not match %s / %s"
+                         % (param_names, aux_names, want_p, want_a))
+
+    def put(name, value):
+        host = np.asarray(value)
+        if host.dtype != np.float32:
+            raise MXNetError("%s: trainer state is float32, got %s"
+                             % (name, host.dtype))
+        return torch.tensor(host, device=device)
+
+    by_p = {n: (p, m) for n, p, m in zip(param_names, params, mom)}
+    by_a = dict(zip(aux_names, aux))
+    for n, (p, m) in by_p.items():
+        if np.shape(p) != np.shape(m):
+            raise MXNetError("%s: parameter %s and momentum %s differ in "
+                             "shape" % (n, np.shape(p), np.shape(m)))
+    return (tuple(put(n, by_p[n][0]) for n in want_p),
+            tuple(put(n, by_p[n][1]) for n in want_p),
+            tuple(put(n, by_a[n]) for n in want_a))
+
+
+def trainer_state_to_numpy(state):
+    """The port's ``(params, mom, aux)`` -> the same tuples of host
+    arrays."""
+    return tuple(tuple(t.detach().cpu().numpy() for t in part)
+                 for part in state)

@@ -33,21 +33,29 @@ _CSRC = os.path.join(_PKG, "csrc")
 
 # kernel library -> source file under csrc/
 SOURCES = {"decode_attention": "decode_attention.cu",
-           "quant_matmul": "quant_matmul.cu"}
+           "quant_matmul": "quant_matmul.cu",
+           "flash_attention": "flash_attention.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo")
 
-# argtypes of each library's one entry point (pointers and the stream as
+# argtypes of each library's entry points (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decode_attention": ("mxt_decode_attention",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _P]),
-    "quant_matmul": ("mxt_quant_matmul",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "decode_attention": {
+        "mxt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _P]},
+    "quant_matmul": {
+        "mxt_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
+    "flash_attention": {
+        # q, k, v, out, lse | B, H, Tq, Tk, D, causal | scale | stream
+        "mxt_flash_attention_fwd": [_P] * 5 + [_I] * 6 + [_F, _P],
+        # q, k, v, dO, lse, delta, dq | ...
+        "mxt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
+        # q, k, v, dO, lse, delta, dk, dv | ...
+        "mxt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P]},
 }
 
 _LOCK = threading.Lock()
@@ -131,9 +139,9 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = build_kernels([name])[name]
             lib = ctypes.CDLL(path)
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib

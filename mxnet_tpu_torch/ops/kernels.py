@@ -1,43 +1,55 @@
-"""The decode path's two kernels: paged decode attention and weight-only
-quantized matmul (port of the decode half of
-``mxnet_tpu/ops/pallas_kernels.py``).
+"""The port's kernels: on the decode path paged decode attention and
+weight-only quantized matmul, on the training path flash attention
+forward, dQ and dK/dV (port of ``mxnet_tpu/ops/pallas_kernels.py``).
 
 Each kernel has three parts here:
 
-* a **wrapper** (:func:`decode_attention`, :func:`quant_matmul`) that
+* a **wrapper** (:func:`decode_attention`, :func:`quant_matmul`,
+  :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
+  :func:`flash_attention_bwd_dkv`) that
   checks device, dtype, shape and contiguity and launches the hand-written
   CUDA kernel (``mxnet_tpu_torch/csrc/*.cu``) on the current stream for a
   CUDA tensor, or raises.  It takes the plain version only for a tensor
   that lies on the CPU; nothing selects the plain version for a CUDA
   tensor (no backend knob, no autotune fallback);
 * a **plain PyTorch version** (:func:`decode_attention_plain`,
-  :func:`quant_matmul_plain`) with the semantics of the JAX package's XLA
-  formulation (``_decode_attn_xla``, ``_quant_matmul_xla``).  It is the
-  tests' oracle and the CPU path, never a fallback on the card;
+  :func:`quant_matmul_plain`, :func:`flash_attention_fwd_plain`,
+  :func:`flash_attention_bwd_plain`) with the semantics of the JAX
+  package's XLA formulation or Pallas kernel.  It is the tests' oracle and
+  the CPU path, never a fallback on the card;
 * a **launch count**: :data:`LAUNCHES` gains one where the wrapper
   launches its kernel and nowhere else, so a run can show that its main
   path went through the kernel.
 
 :func:`quantize_weight` is a numpy copy of the JAX package's, byte for
 byte, so both packages quantize a weight to identical payloads.
+:class:`FlashAttention` is the ``torch.autograd.Function`` that runs the
+flash forward and its two backward kernels.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from . import build
 
 __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "decode_attention", "decode_attention_plain", "quant_matmul",
-           "quant_matmul_plain"]
+           "quant_matmul_plain", "flash_attention", "FlashAttention",
+           "flash_attention_fwd", "flash_attention_fwd_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_delta"]
 
 # launches per kernel; quant_matmul's two template instantiations count
-# apart
+# apart, and the flash forward counts with and without the lse alike
 LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
-            "quant_matmul_int4": 0}
+            "quant_matmul_int4": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}
@@ -53,7 +65,6 @@ def _stream_ptr(index):
     int.  ``torch._C._cuda_getCurrentRawStream`` skips building a Stream
     object (a few microseconds of host time per launch on a step that is
     host-bound); the public spelling is the same value."""
-    import torch
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if raw is not None:
         return raw(index)
@@ -78,7 +89,6 @@ def _launch(name, device, fn, *args):
     """Launch on ``device``'s current stream; the C entry point returns
     the launch's ``cudaGetLastError()``.  The CUDA runtime launches on the
     calling thread's current device, so switch only when it differs."""
-    import torch
     idx = device.index
     if idx == torch.cuda.current_device():
         rc = fn(*args, _stream_ptr(idx))
@@ -100,7 +110,6 @@ def decode_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
     positions at or past ``seq_lens[s]`` with -1e30, one softmax.  An
     inactive slot (length 0) gets a uniform softmax over its masked row:
     garbage-but-finite, as in the JAX formulation."""
-    import torch
     S, H, D = q.shape
     page = k_pages.shape[2]
     n_pages = page_table.shape[1]
@@ -131,7 +140,6 @@ def decode_attention(q, k_pages, v_pages, page_table, seq_lens,
     CUDA tensors launch ``csrc/decode_attention.cu``, which reads only
     the pages below ``ceil(seq_lens[s] / page)``; CPU tensors run
     :func:`decode_attention_plain`; anything else raises."""
-    import torch
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_pages, v_pages, page_table,
                                       seq_lens, scale)
@@ -204,7 +212,6 @@ def quantize_weight(w, bits: int = 8):
 def unpack_int4(packed):
     """(N, K//2) uint8 -> (N, K) f32 in [-7, 7] (sign-extended nibbles,
     low nibble first), as ``_unpack_int4``."""
-    import torch
     p = packed.to(torch.int32)
     both = torch.stack([p & 0xF, (p >> 4) & 0xF], dim=-1)
     both = both.reshape(p.shape[0], -1)
@@ -227,7 +234,6 @@ def quant_matmul(x, qw, scales, bits: int = 8):
     CUDA tensors launch ``csrc/quant_matmul.cu`` (dequantization in
     registers, f32 accumulation, the scale applied once per output);
     CPU tensors run :func:`quant_matmul_plain`; anything else raises."""
-    import torch
     if bits not in _QMAX:
         raise MXNetError("quant_matmul: bits must be 8 or 4, got %r"
                          % (bits,))
@@ -263,3 +269,244 @@ def quant_matmul(x, qw, scales, bits: int = 8):
             scales.data_ptr(), out.data_ptr(), M, N, K, bits, vec, xvec)
     LAUNCHES["quant_matmul_int%d" % bits] += 1
     return out.reshape(lead + (N,))
+
+
+# ---------------------------------------------------------------------------
+# flash attention: forward (B1), dQ (B2a), dK/dV (B2b)
+# ---------------------------------------------------------------------------
+#
+# q/k/v/out/dO are (B, T, H, D), the layout the FC -> Reshape of the LM
+# graph produces, read in place by the kernels; lse and delta are
+# (B*H, Tq) f32 (the TPU kernels carry them lane-broadcast to 128).
+
+def _plain_device(t):
+    """The plain versions run for CPU tensors, and for ``meta`` tensors
+    when the executor infers shapes; nothing else takes them."""
+    return t.device.type in ("cpu", "meta")
+
+
+def _flash_scale(D, scale):
+    return 1.0 / math.sqrt(D) if scale is None else float(scale)
+
+
+def _flash_scores(q, k, causal, scale):
+    """Scaled logits (B, H, Tq, Tk) with the kernels' causal rule:
+    ``q_idx >= k_idx`` on absolute indices, -1e30 elsewhere."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        keep = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~keep, _NEG_BIG)
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+    """The einsum formulation of the attention op plus the row
+    logsumexp of the scaled logits, ``m + log(max(l, 1e-37))`` as the
+    TPU kernel writes it.  Returns ``(out (B, Tq, H, D), lse (B*H, Tq))``."""
+    B, Tq, H, D = q.shape
+    scale = _flash_scale(D, scale)
+    s = _flash_scores(q.float(), k.float(), causal, scale)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", e / l, v.float()).to(q.dtype)
+    lse = (m + torch.log(l.clamp_min(1e-37))).reshape(B * H, Tq)
+    return out, lse
+
+
+def flash_delta(out, do):
+    """``delta = rowsum(dO * O)`` as (B*H, Tq) f32: the softmax-normaliser
+    term both backward kernels read.  One small PyTorch reduction, as the
+    JAX package computes it in XLA outside its kernels."""
+    B, Tq, H, _ = out.shape
+    d = torch.einsum("bthd,bthd->bht", do.float(), out.float())
+    return d.reshape(B * H, Tq).contiguous()
+
+
+def _flash_bwd_parts(q, k, v, do, lse, delta, causal, scale):
+    """``p = exp(s - lse)`` rebuilt from the saved logsumexp, and
+    ``ds = p (dO v^T - delta) scale``, both (B, H, Tq, Tk)."""
+    B, Tq, H, _ = q.shape
+    s = _flash_scores(q.float(), k.float(), causal, scale)
+    p = torch.exp(s - lse.reshape(B, H, Tq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta.reshape(B, H, Tq, 1)) * scale
+    return p, ds
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                 scale=None):
+    """The dQ kernel's function: ``dq = ds k``."""
+    _p, ds = _flash_bwd_parts(q, k, v, do, lse, delta, causal,
+                              _flash_scale(q.shape[-1], scale))
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                                  scale=None):
+    """The dK/dV kernel's function: ``dk = ds^T q``, ``dv = p^T dO``."""
+    p, ds = _flash_bwd_parts(q, k, v, do, lse, delta, causal,
+                             _flash_scale(q.shape[-1], scale))
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, do.float()).to(v.dtype))
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
+                              scale=None):
+    """The explicit lse-based backward of the TPU kernels
+    (``_flash_bwd_dq_kernel`` / ``_flash_bwd_dkv_kernel``) with
+    whole-tensor ops: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``."""
+    scale = _flash_scale(q.shape[-1], scale)
+    p, ds = _flash_bwd_parts(q, k, v, do, lse, flash_delta(out, do),
+                             causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+def _check_flash(name, q, k, v, *rows):
+    """Device, dtype, shape and contiguity of a flash kernel's operands;
+    ``rows`` are the (B*H, Tq) lse/delta vectors."""
+    _require(q.device.type == "cuda", "%s: no kernel for device %s", name,
+             q.device)
+    _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
+             and q.shape[0] == k.shape[0] and q.shape[2:] == k.shape[2:],
+             "%s: q %s and k/v %s / %s are not (B, T, H, D) of one B, H, D",
+             name, tuple(q.shape), tuple(k.shape), tuple(v.shape))
+    B, Tq, H, D = q.shape
+    _require(Tq > 0 and k.shape[1] > 0 and B * H > 0,
+             "%s: empty sequence in q %s, k %s", name, tuple(q.shape),
+             tuple(k.shape))
+    _require(D <= 128, "%s: head_dim %d > 128", name, D)
+    _require(B * H <= 65535, "%s: B*H = %d > 65535", name, B * H)
+    for t in (q, k, v) + rows:
+        _require(t.dtype == torch.float32, "%s: %s tensor where float32 is "
+                 "required", name, t.dtype)
+    for t in rows:
+        _require(tuple(t.shape) == (B * H, Tq), "%s: row vector %s, want "
+                 "(%d, %d)", name, tuple(t.shape), B * H, Tq)
+    _check_cuda(name, q, k, v, *rows)
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, with_lse=True):
+    """Flash attention forward over (B, T, H, D) f32 tensors; returns
+    ``(out, lse)`` with ``lse`` (B*H, Tq) f32, or ``None`` when
+    ``with_lse`` is false (nothing will differentiate).
+
+    CUDA tensors launch ``mxt_flash_attention_fwd`` of
+    ``csrc/flash_attention.cu``; CPU tensors run
+    :func:`flash_attention_fwd_plain`; anything else raises."""
+    scale = _flash_scale(q.shape[-1], scale)
+    if _plain_device(q):
+        out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
+        return out, (lse if with_lse else None)
+    _check_flash("flash_attention_fwd", q, k, v)
+    B, Tq, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    fn = build.library("flash_attention").mxt_flash_attention_fwd
+    _launch("flash_attention_fwd", q.device, fn, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, Tq, k.shape[1],
+            D, int(bool(causal)), scale)
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           scale=None):
+    """dQ of flash attention from the saved ``lse`` and ``delta``
+    (:func:`flash_delta`).  CUDA tensors launch
+    ``mxt_flash_attention_bwd_dq``; CPU tensors the plain version."""
+    scale = _flash_scale(q.shape[-1], scale)
+    if _plain_device(q):
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            scale)
+    _check_flash("flash_attention_bwd_dq", q, k, v, lse, delta)
+    _require(do.shape == q.shape, "flash_attention_bwd_dq: dO %s for q %s",
+             tuple(do.shape), tuple(q.shape))
+    _check_flash("flash_attention_bwd_dq", do, k, v)
+    B, Tq, H, D = q.shape
+    dq = torch.empty_like(q)
+    fn = build.library("flash_attention").mxt_flash_attention_bwd_dq
+    _launch("flash_attention_bwd_dq", q.device, fn, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), B, H, Tq, k.shape[1], D,
+            int(bool(causal)), scale)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            scale=None):
+    """(dK, dV) of flash attention from the saved ``lse`` and ``delta``.
+    CUDA tensors launch ``mxt_flash_attention_bwd_dkv``; CPU tensors the
+    plain version."""
+    scale = _flash_scale(q.shape[-1], scale)
+    if _plain_device(q):
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             causal, scale)
+    _check_flash("flash_attention_bwd_dkv", q, k, v, lse, delta)
+    _require(do.shape == q.shape, "flash_attention_bwd_dkv: dO %s for q %s",
+             tuple(do.shape), tuple(q.shape))
+    _check_flash("flash_attention_bwd_dkv", do, k, v)
+    B, Tq, H, D = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    fn = build.library("flash_attention").mxt_flash_attention_bwd_dkv
+    _launch("flash_attention_bwd_dkv", q.device, fn, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq,
+            k.shape[1], D, int(bool(causal)), scale)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
+    """(dQ, dK, dV) from the forward's ``out`` and ``lse``: ``delta`` by
+    :func:`flash_delta`, then the dQ kernel and the dK/dV kernel on CUDA
+    tensors; :func:`flash_attention_bwd_plain` on CPU tensors."""
+    if _plain_device(q):
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                         scale)
+    # the kernels read dO's rows in place; autograd may hand the backward
+    # a non-contiguous view of it, which is copied here and only then
+    do = do.contiguous()
+    delta = flash_delta(out, do)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is the flash kernel (saving the row
+    logsumexp when a gradient is wanted) and whose backward is the dQ and
+    dK/dV kernels over that residual: no (T, T) tensor is stored."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, with_lse):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale,
+                                       with_lse=with_lse)
+        if with_lse:
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal=False, scale=None):
+    """Differentiable flash attention over (B, T, H, D): the forward
+    kernel takes the logsumexp only when autograd will need it."""
+    with_lse = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return FlashAttention.apply(q, k, v, bool(causal),
+                                _flash_scale(q.shape[-1], scale), with_lse)

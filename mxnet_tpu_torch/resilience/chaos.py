@@ -31,7 +31,7 @@ import sys
 import time
 from typing import List, Optional
 
-__all__ = ["inject", "fire", "maybe_slow_exec", "maybe_exec_error",
+__all__ = ["inject", "fire", "armed", "maybe_slow_exec", "maybe_exec_error",
            "maybe_replica_crash", "maybe_hedge_lag", "reset"]
 
 
@@ -153,6 +153,14 @@ def fire(kind: str, step: Optional[int] = None) -> Optional[dict]:
         telemetry.count("chaos.faults_injected", kind=kind)
         return dict(f.params)
     return None
+
+
+def armed(kinds) -> List[str]:
+    """The kinds among ``kinds`` that have a firing left: a caller that
+    has not ported a fault refuses to run with it armed."""
+    _parse_env()
+    return sorted({f.kind for f in _FAULTS
+                   if f.kind in kinds and f.remaining > 0})
 
 
 def _sleep_fault(kind, step, env, default):

@@ -39,7 +39,19 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.analysis.costmodel",
                  "mxnet_tpu_torch.resilience.container",
                  "mxnet_tpu_torch.telemetry.memory",
-                 "mxnet_tpu_torch.convert", "mxnet_tpu_torch.deploy"):
+                 "mxnet_tpu_torch.convert", "mxnet_tpu_torch.deploy",
+                 "mxnet_tpu_torch.name", "mxnet_tpu_torch.executor",
+                 "mxnet_tpu_torch.initializer",
+                 "mxnet_tpu_torch.symbol.symbol",
+                 "mxnet_tpu_torch.symbol.contrib",
+                 "mxnet_tpu_torch.ops.registry",
+                 "mxnet_tpu_torch.ops.shape_hints",
+                 "mxnet_tpu_torch.ops.matrix",
+                 "mxnet_tpu_torch.ops.broadcast_reduce",
+                 "mxnet_tpu_torch.ops.nn",
+                 "mxnet_tpu_torch.resilience.guards",
+                 "mxnet_tpu_torch.parallel.mesh",
+                 "mxnet_tpu_torch.parallel.trainer"):
         assert want in mods
 
 
@@ -104,6 +116,22 @@ def test_entry_points_default_to_the_card():
     prog = DecodeProgram(params, cfg, device="cpu")
     toks = np.zeros((2, prog.config.forward_len), np.int32)
     assert prog.forward(toks)[0].shape == (2, 1)
+    # the training entry points: the mesh, and the trainer built on it
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    from mxnet_tpu_torch.parallel import MeshSpec, ShardedTrainer, make_mesh
+    net = get_symbol(vocab_size=16, seq_len=8, num_layers=1, hidden=8,
+                     heads=2)
+    with pytest.raises(DeviceUnavailable):
+        make_mesh((1,), ("dp",))
+    with pytest.raises(DeviceUnavailable):
+        ShardedTrainer(net)
+    with pytest.raises(DeviceUnavailable):
+        ShardedTrainer(net, device="cuda")
+    tr = ShardedTrainer(net, MeshSpec(make_mesh((1,), ("dp",),
+                                                device="cpu")))
+    params, _mom, _aux = tr.init_state({"data": (2, 8),
+                                        "softmax_label": (2, 8)})
+    assert all(p.device.type == "cpu" for p in params)
 
 
 def _run_smoke(cwd):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: decode attention and the int8/int4 quantized matmul at ragged and
-odd shapes that the full-width smoke run does not reach, and a small
-decode step on the card against the same step on the CPU.
+card: decode attention, the int8/int4 quantized matmul and the three
+flash-attention kernels (forward, dQ, dK/dV) at ragged and odd shapes
+that the full-width smoke run does not reach, and a small decode step on
+the card against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -142,3 +143,92 @@ def test_decode_step_on_card_matches_cpu(dev, quantize):
         assert torch.equal(n1[:2].cpu(), n0[:2])
     assert torch.allclose(kvs[1][:, :, 1:].cpu(), kvs[0][:, :, 1:],
                           atol=1e-5)
+
+
+def _flash_inputs(dev, B, Tq, Tk, H, D, seed):
+    rs = np.random.RandomState(seed)
+    mk = lambda T: torch.from_numpy(  # noqa: E731
+        rs.randn(B, T, H, D).astype(np.float32)).to(dev)
+    return mk(Tq), mk(Tk), mk(Tk), mk(Tq)
+
+
+FLASH_CASES = [(2, 64, 64, 2, 64, True), (2, 1000, 1000, 3, 64, True),
+               (1, 130, 130, 2, 64, False), (2, 48, 48, 2, 8, True),
+               (1, 77, 77, 2, 100, True), (1, 200, 200, 1, 128, True),
+               (2, 96, 160, 2, 32, True), (1, 160, 96, 2, 16, False)]
+FLASH_IDS = ["t64", "t1000-ragged", "noncausal-t130", "d8-t48",
+             "d100-t77", "d128-t200", "tq96-tk160-causal",
+             "tq160-tk96-noncausal"]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_attention_fwd_kernel_matches_plain(dev, B, Tq, Tk, H, D,
+                                                  causal):
+    q, k, v, _ = _flash_inputs(dev, B, Tq, Tk, H, D, Tq + D)
+    before = kernels.LAUNCHES["flash_attention_fwd"]
+    out, lse = kernels.flash_attention_fwd(q, k, v, causal=causal)
+    out2, none = kernels.flash_attention_fwd(q, k, v, causal=causal,
+                                             with_lse=False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == before + 2
+    assert none is None
+    ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    # f32 both sides; online vs one-pass softmax over up to 1000 keys in
+    # another summation order: 1e-5 absolute on outputs and lse of size ~1
+    assert (out - ref).abs().max().item() < 1e-5
+    assert (lse - ref_lse).abs().max().item() < 1e-5
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_attention_bwd_kernels_match_plain(dev, B, Tq, Tk, H, D,
+                                                 causal):
+    q, k, v, do = _flash_inputs(dev, B, Tq, Tk, H, D, Tq * 3 + D)
+    out, lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = kernels.flash_delta(out, do)
+    n_dq = kernels.LAUNCHES["flash_attention_bwd_dq"]
+    n_dkv = kernels.LAUNCHES["flash_attention_bwd_dkv"]
+    dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_bwd_dq"] == n_dq + 1
+    assert kernels.LAUNCHES["flash_attention_bwd_dkv"] == n_dkv + 1
+    refs = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        # sums over up to 1000 rows in another order: 1e-4 relative to
+        # the gradient's own scale
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() < tol
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(dev):
+    """The FlashAttention Function on the card (forward kernel with lse,
+    dQ and dK/dV kernels) against the same Function on the CPU (plain
+    versions), through a non-contiguous incoming gradient."""
+    B, T, H, D = 2, 130, 2, 64
+    q, k, v, g = _flash_inputs("cpu", B, T, T, H, D, 5)
+    grads = []
+    for d in ("cpu", dev):
+        qs = [t.to(d).clone().requires_grad_() for t in (q, k, v)]
+        out = kernels.flash_attention(*qs, causal=True)
+        # a transposed view as the incoming gradient
+        gt = g.to(d).transpose(1, 2).contiguous().transpose(1, 2)
+        assert not gt.is_contiguous()
+        out.backward(gt)
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in qs])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() < 1e-4 * max(
+            1.0, a.abs().max().item())
+
+
+def test_flash_kernels_refuse_wrong_dtype_and_shape(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    q = torch.randn(1, 8, 2, 16, device=dev)
+    with pytest.raises(MXNetError):
+        kernels.flash_attention_fwd(q.double(), q.double(), q.double())
+    big = torch.randn(1, 8, 1, 160, device=dev)
+    with pytest.raises(MXNetError):
+        kernels.flash_attention_fwd(big, big, big)
+    with pytest.raises(MXNetError):
+        kernels.flash_attention_fwd(q, q[:, :, :1], q)
