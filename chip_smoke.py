@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
-Drives the port's two paths at the repo's bench geometry (GPT-2-small:
-L12, hidden 768, 12 heads, vocab 32768, T 1024; random weights from seed
-0): serving — paged-KV continuous-batching decode of the transformer LM
-(8 slots, page 64) — and training — ``get_symbol`` -> ``ShardedTrainer``
--> ``init_state`` -> ``step`` in f32 at batch 8 — and holds every
-hand-written kernel of those paths against its plain PyTorch version on
-the card.  Phases, in order:
+Drives the port's three paths at the repo's bench geometries, with random
+weights from seeds: serving — paged-KV continuous-batching decode of the
+transformer LM (GPT-2-small: L12, hidden 768, 12 heads, vocab 32768,
+T 1024; 8 slots, page 64) — training the same LM — ``get_symbol`` ->
+``ShardedTrainer`` -> ``init_state`` -> ``step`` in f32 at batch 8 — and
+training the DLRM-style recommender over the sparse embedding plane —
+``ShardedEmbedding`` -> ``recommender_state`` -> ``make_recommender_step``
+at the bench's 4 tables x 100,000 x 16, batch 4096, and at a Criteo shape
+of 26 tables x 1,000,000 x 64, batch 8192 — and holds every hand-written
+kernel of those paths against its plain PyTorch version on the card.
+Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel) and identify the card;
@@ -31,11 +35,25 @@ the card.  Phases, in order:
    against the same step on the CPU (plain versions) from the same state;
 8. training at full width: L12, batch 8, one warm-up and five timed
    steps, tokens/s, device busy time and idle share, peak memory, the
-   share of the f32 peak, and the cross-entropy before and after.
+   share of the f32 peak, and the cross-entropy before and after;
+9. the embedding gather and scatter (add and set) kernels against their
+   plain versions, exactly, at the recommender path's shapes (timed, with
+   bounds and the ``index_select`` / ``index_copy_`` / ``index_add_``
+   yardsticks) and at ragged ones (D 13 and 1, n 1, duplicates, the ids
+   0 and rows-1, pads >= rows);
+10. two recommender steps on the card against the same steps on the CPU
+    from one state (4 tables x 1000 x 16, batch 512);
+11. the recommender at the bench geometry (3 warm-up and 20 timed steps)
+    and the Criteo shape (2 + 5): examples/s, step time, device busy time
+    and idle share, peak memory, the loss before and after on the
+    repeated batch, and one step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
+    before the loss is read).
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
-per layer per step (and once per matmul for the quantized ones).
+per layer per step (once per matmul for the quantized ones; three gathers
+and two scatters per table per recommender step).
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``.  It needs one
 CUDA card, exits non-zero without one (or without the package beside it),
@@ -820,6 +838,310 @@ def phase_train(torch, kernels, get_symbol, ShardedTrainer, flops_fn,
     return got
 
 
+# the bench's recommender geometry (bench.py:215-219) and a Criteo-shaped
+# one: 26 categorical features of 1M rows at dim 64, batch 8192
+REC = dict(tables=4, rows=100000, dim=16, dense=13, hidden=(64, 32),
+           batch=4096, lr=0.05, momentum=0.9)
+CRITEO = dict(REC, tables=26, rows=1000000, dim=64, batch=8192)
+
+
+def path_ids(rs, rows, n):
+    """The ids the recommender path hands the kernels for a batch of ``n``
+    random ids: the update's scatter ids (sorted unique ids, then pads
+    equal to ``rows`` up to ``n``) and the gathers' (the same, clamped)."""
+    u = np.unique(rs.randint(0, rows, n))
+    sc = np.concatenate([u, np.full(n - len(u), rows)]).astype(np.int32)
+    return len(u), sc, np.minimum(sc, rows - 1).astype(np.int32)
+
+
+def embed_case(torch, sk, rows, D, n, seed, dev):
+    """Check B5 and B6 (add and set) against their plain versions on one
+    shape, exactly (a table of multiples of 2^-6 and payloads of
+    multiples of 2^-10 make every sum exact in any order).  Returns the
+    tensors the timing needs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randint(-64, 64, (rows, D), generator=g, device=dev) \
+        .float() / 64
+    rs = np.random.RandomState(seed)
+    n_u, sc, ga = path_ids(rs, rows, n)
+    if n > 2:           # the ids 0 and rows-1 and a duplicate run
+        raw = np.sort(np.concatenate([[0, rows - 1, rows - 1],
+                                      rs.randint(0, rows, n - 3)]))
+    else:
+        raw = np.sort(rs.randint(0, rows, n))
+    pads = np.arange(rows, rows + 3)
+    add_ids = np.concatenate([raw, pads]).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    sc, ga, add_ids = t(sc), t(ga), t(add_ids)
+    src = torch.randint(-512, 512, (n, D), generator=g, device=dev) \
+        .float() / 1024
+    set_src = torch.where((sc < rows)[:, None], src, table[rows - 1])
+    add_src = torch.cat([torch.randint(-512, 512, (n, D), generator=g,
+                                       device=dev).float() / 1024,
+                         torch.zeros(3, D, device=dev)])
+    got = {"gather": sk.embedding_gather(table, ga),
+           "set": sk.embedding_scatter(table.clone(), sc, set_src, "set"),
+           "add": sk.embedding_scatter(table.clone(), add_ids, add_src,
+                                       "add")}
+    want = {"gather": sk.embedding_gather_plain(table, ga),
+            "set": sk.embedding_scatter_plain(table.clone(), sc, set_src,
+                                              "set"),
+            "add": sk.embedding_scatter_plain(table.clone(), add_ids,
+                                              add_src, "add")}
+    torch.cuda.synchronize()
+    errs = {k: (got[k] - want[k]).abs().max().item() for k in got}
+    same = {k: torch.equal(got[k], want[k]) for k in got}
+    log("embedding kernels rows %d D %d n %d (%d unique, pads, duplicates, "
+        "ids 0 and rows-1): max_abs_err %s (tolerance 0: exact inputs)"
+        % (rows, D, n, n_u, ", ".join("%s=%.3g" % kv for kv in errs.items())))
+    check(all(same.values()), "embedding kernels disagree with their plain "
+          "versions at rows %d D %d n %d: %s" % (rows, D, n, same))
+    return dict(table=table, sc=sc, ga=ga, set_src=set_src, add_ids=add_ids,
+                add_src=add_src, n_u=n_u, errs=errs,
+                add_rows=int(torch.unique(add_ids.clamp(max=rows - 1))
+                             .numel()))
+
+
+def phase_embedding(torch, kernels, sk, timer, card):
+    """B5 and B6 against their plain versions at the recommender path's
+    shapes (bench and Criteo geometries, timed) and at ragged shapes."""
+    dev = torch.device("cuda")
+    for rows, D, n in ((1000, 13, 257), (50, 16, 1), (77, 64, 40),
+                       (3, 1, 9)):
+        embed_case(torch, sk, rows, D, n, rows + D + n, dev)
+    out = []
+    src = "mxnet_tpu_torch/csrc/embedding.cu"
+    for tag, geo in (("bench", REC), ("criteo", CRITEO)):
+        rows, D, n, F = geo["rows"], geo["dim"], geo["batch"], geo["tables"]
+        c = embed_case(torch, sk, rows, D, n, 7, dev)
+        table, sc, ga = c["table"], c["sc"], c["ga"]
+        shape = "%s: table (%d, %d) f32, n %d (%d unique + pads)" % (
+            tag, rows, D, n, c["n_u"])
+        row_b = D * 4
+        # distinct rows the set scatter writes: the unique ids, and the
+        # last row once more where the pads form a run of their own
+        set_rows = c["n_u"] + int(rows - 1 not in set(
+            sc[:c["n_u"]].tolist()))
+        b_g, by_g = bound_ms(n * 4 + 2 * n * row_b, 0)
+        b_s, by_s = bound_ms(n * 4 + n * row_b + set_rows * row_b, 0)
+        na = c["add_ids"].numel()
+        b_a, by_a = bound_ms(na * 4 + na * row_b + 2 * c["add_rows"] * row_b,
+                             na * D)
+        ga_l, sc_l = ga.long(), sc.clamp(max=rows - 1).long()
+        add_l = c["add_ids"].clamp(max=rows - 1).long()
+        t_set, t_add = table.clone(), table.clone()
+        out += [{
+            "name": "embedding_gather", "route": "cuda", "source": src,
+            "replaces": "mxnet_tpu/sparse/kernels.py:117",
+            "shape": shape, "launches_per_step": 3 * F,
+            "max_abs_err": c["errs"]["gather"],
+            "ms": timer(lambda: sk.embedding_gather(table, ga)),
+            "plain_ms": timer(lambda: sk.embedding_gather_plain(table, ga)),
+            "bound_ms": b_g, "bound_by": by_g,
+            "library_ms": timer(lambda: torch.index_select(table, 0, ga_l)),
+            "library_call": "torch.index_select(table, 0, ids)",
+        }, {
+            "name": "embedding_scatter", "route": "cuda", "source": src,
+            "replaces": "mxnet_tpu/sparse/kernels.py:175",
+            "shape": shape + ", set", "launches_per_step": 2 * F,
+            "max_abs_err": c["errs"]["set"],
+            "ms": timer(lambda: sk.embedding_scatter(t_set, sc, c["set_src"],
+                                                     "set")),
+            "plain_ms": timer(lambda: sk.embedding_scatter_plain(
+                t_set, sc, c["set_src"], "set")),
+            "bound_ms": b_s, "bound_by": by_s,
+            "library_ms": timer(lambda: t_set.index_copy_(0, sc_l,
+                                                          c["set_src"])),
+            "library_call": "table.index_copy_(0, clamped ids, rows)",
+        }, {
+            "name": "embedding_scatter", "route": "cuda", "source": src,
+            "replaces": "mxnet_tpu/sparse/kernels.py:175",
+            "shape": "%s: table (%d, %d) f32, n %d sorted with duplicates + "
+                     "3 pads, add (not on the step's path)" % (tag, rows, D,
+                                                               na - 3),
+            "launches_per_step": 0,
+            "max_abs_err": c["errs"]["add"],
+            "ms": timer(lambda: sk.embedding_scatter(
+                t_add, c["add_ids"], c["add_src"], "add")),
+            "plain_ms": timer(lambda: sk.embedding_scatter_plain(
+                t_add, c["add_ids"], c["add_src"], "add")),
+            "bound_ms": b_a, "bound_by": by_a,
+            "library_ms": timer(lambda: t_add.index_add_(0, add_l,
+                                                         c["add_src"])),
+            "library_call": "table.index_add_(0, clamped ids, rows)",
+        }]
+        del c, table, t_set, t_add
+    for r in out:
+        log("  %-18s %-62s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%.4f  [%s]"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], r["library_ms"], card))
+    return out
+
+
+def rec_batch(torch, geo, seed, dev):
+    rs = np.random.RandomState(seed)
+    B, F = geo["batch"], geo["tables"]
+    b = {"ids": rs.randint(0, geo["rows"], (F, B)).astype(np.int32),
+         "dense": rs.rand(B, geo["dense"]).astype(np.float32),
+         "label": (rs.rand(B) > 0.5).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def phase_rec_parity(torch, tsp, MeshSpec, make_mesh, convert, card):
+    """Two recommender steps on the card and on the CPU (plain versions)
+    from the same state: 4 tables x 1000 x 16, batch 512."""
+    geo = dict(REC, rows=1000, batch=512)
+    F = geo["tables"]
+    batches = [rec_batch(torch, geo, 20 + i, "cpu") for i in range(2)]
+    res = {}
+    start = None
+    for dev in ("cpu", "cuda"):
+        spec = MeshSpec(make_mesh((1,), ("dp",), device=dev))
+        embs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], spec,
+                                     name="par%d" % f) for f in range(F)]
+        if start is None:
+            start = convert.recommender_state_to_numpy(tsp.recommender_state(
+                embs, dense_dim=geo["dense"], hidden=geo["hidden"], seed=3))
+        state = convert.recommender_state_from_numpy(start, dev)
+        step = tsp.make_recommender_step(embs, lr=geo["lr"],
+                                         momentum=geo["momentum"])
+        losses = []
+        for b in batches:
+            state, loss = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(loss))
+        res[dev] = (convert.recommender_state_to_numpy(state), losses)
+    (cpu, l_cpu), (card_s, l_card) = res["cpu"], res["cuda"]
+    worst = 0.0
+    pairs = [("%s[%d]" % (p, i), a, b, start[p][i]) for p in ("tables",
+                                                             "moms")
+             for i, (a, b) in enumerate(zip(cpu[p], card_s[p]))]
+    pairs += [("%s.%s" % (p, k), cpu[p][k], card_s[p][k], start[p][k])
+              for p in ("mlp", "mlp_mom") for k in cpu[p]]
+    for name, a, b, s0 in pairs:
+        upd = np.abs(a - s0).max()
+        err = np.abs(a - b).max()
+        worst = max(worst, err / upd)
+        check(err <= 1e-3 * upd, "recommender %s on the card differs from "
+              "the CPU by %.3g; its largest update is %.3g" % (name, err,
+                                                              upd))
+    lerr = max(abs(a - b) for a, b in zip(l_cpu, l_card))
+    log("recommender 2 steps card vs cpu (%d x %d x %d, batch %d): every "
+        "table, momentum and MLP tensor within %.3g of its largest update "
+        "(tolerance 1e-3: f32 both sides, duplicate-id gradient sums in "
+        "another order, cuBLAS vs CPU BLAS); losses %s vs %s, max diff "
+        "%.3g (tolerance 1e-5) [%s]"
+        % (F, geo["rows"], geo["dim"], geo["batch"], worst,
+           ["%.7f" % v for v in l_card], ["%.7f" % v for v in l_cpu], lerr,
+           card))
+    check(lerr <= 1e-5, "recommender losses on the card differ from the CPU")
+
+
+def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
+            card):
+    """Train the recommender at ``geo`` on the card: ``warm`` + ``timed``
+    steps that each read their loss, one step under
+    ``set_sync_debug_mode("error")`` and one profiled step; checks the
+    launch counts exactly and returns them."""
+    F, B = geo["tables"], geo["batch"]
+    tag = "%d tables x %d x %d, batch %d" % (F, geo["rows"], geo["dim"], B)
+    spec = MeshSpec(make_mesh((1,), ("dp",)))
+    embs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], spec,
+                                 name="table%d" % f) for f in range(F)]
+    t0 = time.perf_counter()
+    state = tsp.recommender_state(embs, dense_dim=geo["dense"],
+                                  hidden=geo["hidden"], seed=0)
+    torch.cuda.synchronize()
+    log("recommender_state(%s, seed=0): %.2f GB of tables, %.1f s"
+        % (tag, 2 * sum(e.table_bytes for e in embs) / 1e9,
+           time.perf_counter() - t0))
+    batch = rec_batch(torch, geo, 0, "cuda")
+    step = tsp.make_recommender_step(embs, lr=geo["lr"],
+                                     momentum=geo["momentum"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times, losses = [], []
+    for _ in range(warm + timed):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(float(loss))
+    log("one step under torch.cuda.set_sync_debug_mode('error'): no host "
+        "synchronisation before the loss read")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    steps = warm + timed + 2
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log("launches on the recommender path (%s): %s over %d steps"
+        % (tag, got, steps))
+    check(got["embedding_gather"] == 3 * F * steps,
+          "embedding_gather launched %d times over %d steps, want %d"
+          % (got["embedding_gather"], steps, 3 * F * steps))
+    check(got["embedding_scatter"] == 2 * F * steps,
+          "embedding_scatter launched %d times over %d steps, want %d"
+          % (got["embedding_scatter"], steps, 2 * F * steps))
+    tt = times[warm:]
+    med = statistics.median(tt)
+    log("recommender %s: warm-up %s ms; timed %d steps median %.3f ms "
+        "(spread %.3f-%.3f) = %.1f examples/s [%s]"
+        % (tag, ", ".join("%.1f" % t for t in times[:warm]), timed, med,
+           min(tt), max(tt), B / med * 1e3, card))
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type.name == "CUDA":
+            by_kernel[ev.key] = (dev_us, ev.count)
+    if by_kernel:
+        busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+        log("device time of one step by kernel (torch.profiler) [%s]:"
+            % card)
+        for key, (us, cnt) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:12]:
+            log("  %9.1f us  x%-4d %s" % (us, cnt, key[:90]))
+        groups = {"embedding kernels": 0.0, "sort (dedup)": 0.0,
+                  "matmuls": 0.0, "everything else": 0.0}
+        for key, (us, _cnt) in by_kernel.items():
+            group = ("embedding kernels" if ("gather_kernel" in key or
+                                             "scatter_kernel" in key)
+                     else "sort (dedup)" if "sort" in key.lower()
+                     or "radix" in key.lower()
+                     else "matmuls" if "gemm" in key.lower()
+                     else "everything else")
+            groups[group] += us / 1e3
+        log("  by group: %s" % ", ".join("%s %.3f ms" % kv
+                                         for kv in groups.items()))
+        log("  device busy %.3f ms of the profiled step's %.3f ms: idle "
+            "share %.3f; %d device kernels and copies in the step"
+            % (busy_ms, prof_ms, 1 - busy_ms / prof_ms,
+               sum(cnt for _us, cnt in by_kernel.values())))
+    else:
+        log("device busy: not measured (the profiler saw no device time)")
+    log("peak memory allocated %.2f GB; loss on the repeated batch before "
+        "%.6f, after %d steps %.6f [%s]"
+        % (peak / 1e9, losses[0], steps - 1, losses[-1], card))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "the recommender did not lower its loss on the repeated batch "
+          "(%.6f -> %.6f)" % (losses[0], losses[-1]))
+    del state, embs
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -840,6 +1162,10 @@ def main():
     from mxnet_tpu_torch.serving.decode import (DecodeConfig, DecodeEngine,
                                                 DecodeProgram,
                                                 init_decode_params)
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch import sparse as tsp
+    from mxnet_tpu_torch.parallel import MeshSpec, make_mesh
+    from mxnet_tpu_torch.sparse import kernels as sk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -959,7 +1285,6 @@ def main():
 
     with phase("6 flash kernels vs plain"):
         rows += phase_flash(torch, kernels, F, timer, card)
-        del timer
 
     with phase("7 training step card vs cpu"):
         phase_train_parity(torch, get_symbol, ShardedTrainer, card)
@@ -968,6 +1293,21 @@ def main():
         launches["train"] = phase_train(torch, kernels, get_symbol,
                                         ShardedTrainer,
                                         transformer_flops_per_step, card)
+
+    with phase("9 embedding kernels vs plain"):
+        rows += phase_embedding(torch, kernels, sk, timer, card)
+        del timer
+
+    with phase("10 recommender step card vs cpu"):
+        phase_rec_parity(torch, tsp, MeshSpec, make_mesh, convert, card)
+
+    with phase("11 recommender at full width"):
+        launches["recommender"] = rec_run(torch, kernels, tsp, MeshSpec,
+                                          make_mesh, REC, 3, 20, card)
+        torch.cuda.empty_cache()
+        launches["criteo"] = rec_run(torch, kernels, tsp, MeshSpec,
+                                     make_mesh, CRITEO, 2, 5, card)
+        torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------
     for r in rows:

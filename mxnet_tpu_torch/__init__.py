@@ -18,7 +18,11 @@ Ported so far (ROADMAP.md):
 * the training slice — the LM's Symbol graph trained on one card
   (``models.transformer.get_symbol`` -> ``parallel.ShardedTrainer`` ->
   ``init_state`` -> ``step``) with the flash-attention forward, dQ and
-  dK/dV kernels.
+  dK/dV kernels;
+* the recommender slice — the DLRM-style click predictor trained over the
+  sparse embedding plane on one card (``sparse.ShardedEmbedding`` ->
+  ``sparse.recommender_state`` -> ``sparse.make_recommender_step``) with
+  the embedding gather and sorted-id scatter kernels.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -13,6 +13,14 @@ its ``param_names`` / ``prog.aux_names`` order; the port's trainer keeps
 the same names and order.  :func:`trainer_state_from_numpy` moves such a
 state (as host arrays) onto a device for the port, matching it by name,
 and :func:`trainer_state_to_numpy` brings the port's state back.
+
+A recommender state (``sparse.recommender_state``) is a dict of the
+``tables`` and ``moms`` tuples (a momentum slot may be None) and the
+``mlp`` / ``mlp_mom`` dicts.  The JAX package draws its tables from
+``jax.random``, which the port cannot reproduce, so
+:func:`recommender_state_from_numpy` carries a JAX state (as host arrays)
+onto a device, and :func:`recommender_state_to_numpy` brings the port's
+back.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import numpy as np
 from .base import MXNetError
 
 __all__ = ["from_jax_params", "is_quantized", "trainer_state_from_numpy",
-           "trainer_state_to_numpy"]
+           "trainer_state_to_numpy", "recommender_state_from_numpy",
+           "recommender_state_to_numpy"]
 
 # dtypes a decode parameter may have: f32 everywhere except the quantized
 # payloads
@@ -107,3 +116,52 @@ def trainer_state_to_numpy(state):
     arrays."""
     return tuple(tuple(t.detach().cpu().numpy() for t in part)
                  for part in state)
+
+
+def _f32_tensor(name, value, device):
+    import torch
+    host = np.asarray(value)
+    if host.dtype != np.float32:
+        raise MXNetError("%s: recommender state is float32, got %s"
+                         % (name, host.dtype))
+    return torch.tensor(host, device=device)
+
+
+def recommender_state_from_numpy(state, device):
+    """A recommender state of host arrays (``{"tables", "moms", "mlp",
+    "mlp_mom"}``, e.g. a JAX ``recommender_state`` through ``np.asarray``)
+    -> the same structure of float32 tensors on ``device``.  A momentum
+    slot that is None stays None; the MLP and its momentum must name the
+    same parameters with the same shapes."""
+    tables, moms = tuple(state["tables"]), tuple(state["moms"])
+    if len(tables) != len(moms):
+        raise MXNetError("recommender state has %d tables and %d momentum "
+                         "slots" % (len(tables), len(moms)))
+    mlp, mlp_mom = dict(state["mlp"]), dict(state["mlp_mom"])
+    if sorted(mlp) != sorted(mlp_mom) or any(
+            np.shape(mlp[k]) != np.shape(mlp_mom[k]) for k in mlp):
+        raise MXNetError("recommender MLP %s and its momentum %s differ"
+                         % ({k: np.shape(v) for k, v in mlp.items()},
+                            {k: np.shape(v) for k, v in mlp_mom.items()}))
+    return {
+        "tables": tuple(_f32_tensor("tables[%d]" % i, t, device)
+                        for i, t in enumerate(tables)),
+        "moms": tuple(None if m is None else
+                      _f32_tensor("moms[%d]" % i, m, device)
+                      for i, m in enumerate(moms)),
+        "mlp": {k: _f32_tensor("mlp." + k, v, device)
+                for k, v in mlp.items()},
+        "mlp_mom": {k: _f32_tensor("mlp_mom." + k, v, device)
+                    for k, v in mlp_mom.items()},
+    }
+
+
+def recommender_state_to_numpy(state):
+    """The port's recommender state -> the same structure of host
+    arrays (copies)."""
+    def host(t):
+        return None if t is None else t.detach().to("cpu", copy=True).numpy()
+    return {"tables": tuple(host(t) for t in state["tables"]),
+            "moms": tuple(host(m) for m in state["moms"]),
+            "mlp": {k: host(v) for k, v in state["mlp"].items()},
+            "mlp_mom": {k: host(v) for k, v in state["mlp_mom"].items()}}

@@ -34,7 +34,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 # kernel library -> source file under csrc/
 SOURCES = {"decode_attention": "decode_attention.cu",
            "quant_matmul": "quant_matmul.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "embedding": "embedding.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,6 +57,11 @@ _SIGNATURES = {
         "mxt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
         # q, k, v, dO, lse, delta, dk, dv | ...
         "mxt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P]},
+    "embedding": {
+        # table, ids, out | rows, D, n, vec | stream
+        "mxt_embedding_gather": [_P] * 3 + [_I] * 4 + [_P],
+        # table, ids, rows | nrows, D, n, add, vec | stream
+        "mxt_embedding_scatter": [_P] * 3 + [_I] * 5 + [_P]},
 }
 
 _LOCK = threading.Lock()

@@ -46,10 +46,12 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "flash_delta"]
 
 # launches per kernel; quant_matmul's two template instantiations count
-# apart, and the flash forward counts with and without the lse alike
+# apart, the flash forward counts with and without the lse alike, and the
+# embedding kernels (``mxnet_tpu_torch.sparse.kernels``) count here too
 LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "quant_matmul_int4": 0, "flash_attention_fwd": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "embedding_gather": 0, "embedding_scatter": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}

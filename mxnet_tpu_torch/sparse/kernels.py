@@ -1,0 +1,208 @@
+"""The shard-local halves of the embedding plane: row gather (lookup) and
+sorted-id row scatter (touched-rows update).  Port of
+``mxnet_tpu/sparse/kernels.py``.
+
+Each kernel has three parts here, as in :mod:`mxnet_tpu_torch.ops.kernels`:
+
+* a **wrapper** (:func:`embedding_gather`, :func:`embedding_scatter`)
+  that checks device, dtype, shape and contiguity and launches the
+  hand-written CUDA kernel (``mxnet_tpu_torch/csrc/embedding.cu``) on the
+  current stream for a CUDA table, or raises.  It takes the plain version
+  only for a table that lies on the CPU.  Nothing selects the plain
+  version for a CUDA table: the JAX package's ``MXNET_TPU_PALLAS_EMBED``
+  knob and autotune cache choose between two TPU backends and are not
+  read here, and a ``backend`` other than ``None`` / ``"cuda"`` on a CUDA
+  table raises;
+* a **plain PyTorch version** (:func:`embedding_gather_plain`,
+  :func:`embedding_scatter_plain`) with the semantics of the JAX package's
+  XLA path, the tests' oracle and the CPU path;
+* a **launch count** in :data:`mxnet_tpu_torch.ops.kernels.LAUNCHES`
+  (``embedding_gather``, ``embedding_scatter``), one where the wrapper
+  launches its kernel and nowhere else.
+
+Contracts (both versions, as in the JAX package):
+
+* :func:`embedding_gather` — ``ids`` in range ``[0, rows)``; the kernel
+  clamps an id out of range, so it never reads out of bounds.
+* :func:`embedding_scatter` — ``ids`` SORTED ascending, the table updated
+  IN PLACE and returned.  ``mode="add"`` accumulates a run of equal ids in
+  order (``t + r0 + r1 + ...``); ``mode="set"`` is first-wins.  Entries
+  with ``ids >= rows`` are dropped by the plain version (the XLA path's
+  ``mode="drop"``) and clamped onto the last row by the kernel (the Pallas
+  path), so they must carry a no-op payload: zero rows in add mode, the
+  current row in set mode.  The routing layer
+  (:mod:`mxnet_tpu_torch.sparse.embedding`) guarantees both.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError, NotPortedYet
+from ..ops import build
+from ..ops.kernels import LAUNCHES, _check_cuda, _launch, _require
+
+__all__ = ["embedding_gather", "embedding_gather_plain",
+           "embedding_scatter", "embedding_scatter_plain", "embed_backend",
+           "tune_embedding", "gather_sig", "scatter_sig"]
+
+# the JAX package's backend names are accepted on a CPU table (where the
+# plain version is the only path); a CUDA table takes None or "cuda"
+BACKENDS = (None, "cuda", "plain", "pallas", "xla")
+
+
+def gather_sig(rows: int, dim: int, n: int, dtype) -> tuple:
+    return (int(rows), int(dim), int(n), str(dtype))
+
+
+scatter_sig = gather_sig
+
+
+def embed_backend(kind: str, rows: int, dim: int, n: int,
+                  dtype="float32", device=None) -> str:
+    """The path one kernel call takes: ``"cuda"`` (the kernel) for a table
+    on the card — ``device=None`` means the card — and ``"plain"`` for a
+    table on the CPU.  ``rows``, ``dim``, ``n`` and ``dtype`` are the JAX
+    package's autotune key; there is one kernel per device, so they do
+    not change the answer."""
+    if kind not in ("gather", "scatter"):
+        raise ValueError("embed_backend kind must be gather|scatter, got %r"
+                         % (kind,))
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        return "cuda"
+    if dev.type == "cpu":
+        return "plain"
+    raise MXNetError("embedding kernels: no path for device %s" % dev)
+
+
+def _path(name, table, backend):
+    """``"plain"`` for a CPU table; ``"cuda"`` for a CUDA table asked
+    for with ``backend`` None or "cuda"; anything else raises."""
+    if backend not in BACKENDS:
+        raise ValueError("%s backend must be one of %s, got %r"
+                         % (name, BACKENDS, backend))
+    if table.device.type == "cpu":
+        return "plain"
+    _require(table.device.type == "cuda", "%s: no kernel for device %s",
+             name, table.device)
+    _require(backend in (None, "cuda"), "%s: backend %r on a CUDA table; "
+             "the card runs the kernel (backend None or 'cuda') and never "
+             "the plain version", name, backend)
+    return "cuda"
+
+
+def _ids32(name, ids):
+    _require(ids.dim() == 1, "%s: ids must be 1-D, got %s", name,
+             tuple(ids.shape))
+    _require(not ids.is_floating_point() and not ids.is_complex(),
+             "%s: ids of dtype %s", name, ids.dtype)
+    return ids.to(torch.int32).contiguous()
+
+
+def _check_table(name, table):
+    _require(table.dim() == 2 and table.shape[0] > 0,
+             "%s: table must be (rows >= 1, D), got %s", name,
+             tuple(table.shape))
+    _require(table.dtype == torch.float32, "%s: %s table where float32 is "
+             "required", name, table.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gather (B5)
+# ---------------------------------------------------------------------------
+
+def embedding_gather_plain(table, ids):
+    """``table[ids]`` with ids clamped into range, as the kernel reads
+    them (in-range ids: ``jnp.take``)."""
+    idx = ids.long().clamp(0, table.shape[0] - 1)
+    return table.index_select(0, idx)
+
+
+def embedding_gather(table, ids, backend=None):
+    """``table[ids]`` — (rows, D) x (n,) -> (n, D).  CUDA tables launch
+    ``mxt_embedding_gather``; CPU tables run
+    :func:`embedding_gather_plain`; anything else raises."""
+    if _path("embedding_gather", table, backend) == "plain":
+        return embedding_gather_plain(table, ids)
+    _check_table("embedding_gather", table)
+    ids = _ids32("embedding_gather", ids)
+    rows, D = table.shape
+    n = ids.shape[0]
+    out = torch.empty((n, D), dtype=table.dtype, device=table.device)
+    _check_cuda("embedding_gather", table, ids, out)
+    if n == 0:
+        return out
+    vec = int(D % 4 == 0 and table.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    fn = build.library("embedding").mxt_embedding_gather
+    _launch("embedding_gather", table.device, fn, table.data_ptr(),
+            ids.data_ptr(), out.data_ptr(), rows, D, n, vec)
+    LAUNCHES["embedding_gather"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# scatter (B6)
+# ---------------------------------------------------------------------------
+
+def _check_mode(mode):
+    if mode not in ("add", "set"):
+        raise ValueError("embedding_scatter mode must be add|set, got %r"
+                         % (mode,))
+
+
+def embedding_scatter_plain(table, ids, rows, mode: str = "add"):
+    """``.at[ids].add/.set(rows, mode="drop")`` in place: entries with ids
+    outside ``[0, rows)`` are dropped; ``add`` sums each id's entries into
+    its row in order; ``set`` writes the first entry of each run of equal
+    (sorted) ids, the kernel's first-wins rule (XLA leaves the winner
+    among duplicates unspecified)."""
+    _check_mode(mode)
+    ids = ids.long()
+    nrows = table.shape[0]
+    keep = (ids >= 0) & (ids < nrows)
+    if mode == "add":
+        src = rows.to(table.dtype)
+        table.index_add_(0, ids[keep], src[keep])
+        return table
+    first = torch.ones_like(keep)
+    first[1:] = ids[1:] != ids[:-1]
+    keep &= first
+    table[ids[keep]] = rows[keep].to(table.dtype)
+    return table
+
+
+def embedding_scatter(table, ids, rows, mode: str = "add", backend=None):
+    """Scatter ``rows`` (n, D) into ``table`` (rows, D) at ``ids`` (n,),
+    sorted ascending, IN PLACE; returns ``table``.  CUDA tables launch
+    ``mxt_embedding_scatter``; CPU tables run
+    :func:`embedding_scatter_plain`; anything else raises."""
+    _check_mode(mode)
+    if _path("embedding_scatter", table, backend) == "plain":
+        return embedding_scatter_plain(table, ids, rows, mode)
+    _check_table("embedding_scatter", table)
+    ids = _ids32("embedding_scatter", ids)
+    nrows, D = table.shape
+    n = ids.shape[0]
+    _require(tuple(rows.shape) == (n, D), "embedding_scatter: rows %s for "
+             "%d ids into a table of width %d", tuple(rows.shape), n, D)
+    _require(rows.dtype == torch.float32, "embedding_scatter: %s rows "
+             "where float32 is required", rows.dtype)
+    _check_cuda("embedding_scatter", table, ids, rows)
+    if n == 0:
+        return table
+    vec = int(D % 4 == 0 and table.data_ptr() % 16 == 0
+              and rows.data_ptr() % 16 == 0)
+    fn = build.library("embedding").mxt_embedding_scatter
+    _launch("embedding_scatter", table.device, fn, table.data_ptr(),
+            ids.data_ptr(), rows.data_ptr(), nrows, D, n,
+            int(mode == "add"), vec)
+    LAUNCHES["embedding_scatter"] += 1
+    return table
+
+
+def tune_embedding(rows: int, dim: int, n: int, dtype="float32",
+                   iters: int = 10, force: bool = False) -> dict:
+    raise NotPortedYet("tune_embedding: the autotune cache is ROADMAP "
+                       "queue A10, and the card has one embedding kernel "
+                       "per device to choose from")

@@ -1,0 +1,165 @@
+"""DLRM-style recommender training step over the sharded embedding plane
+(port of ``mxnet_tpu/sparse/step.py``).
+
+Categorical features hit the embedding tables a few rows per example,
+dense features run through an MLP, and the interaction trains a click
+predictor:
+
+* tables row-sharded via :class:`~mxnet_tpu_torch.sparse.embedding.
+  ShardedEmbedding` (lookup = owner-shard routing, kernel B5);
+* the MLP a plain dict of tensors, updated by SGD with momentum;
+* embedding gradients NEVER densify: the loss is differentiated with
+  respect to the *looked-up rows* (not the tables), and the
+  ``(ids, grad_rows)`` pairs feed the lazy SGD, which touches only those
+  rows (kernels B5 and B6).
+
+Where the JAX package compiles the step into one XLA program, PyTorch runs
+it eagerly, and the update is applied IN PLACE on the state dict (the
+convention of the port's ``ShardedTrainer``).  On the card the step issues
+no host synchronisation: reading the loss is the first.
+
+Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
+:func:`lower_step` (it returns compiled HLO text; ROADMAP queue A13) and
+the GC306 pre-flight of the first step (``MXNET_TPU_PREFLIGHT=1``).
+"""
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..base import NotPortedYet, resolve_device
+from .embedding import ShardedEmbedding
+
+__all__ = ["init_mlp", "make_recommender_step", "recommender_state",
+           "lower_step"]
+
+_OFF = ("0", "", "false", "off")
+
+
+def init_mlp(dims: Sequence[int], seed: int = 0,
+             device=None) -> Dict[str, torch.Tensor]:
+    """Plain MLP params {wI, bI}: the dense half of the DLRM interaction
+    stack, drawn from ``numpy.random.RandomState(seed)`` exactly as the
+    JAX package draws them (the same bytes), on ``device`` (None: the
+    card)."""
+    dev = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    out = {}
+    for i in range(len(dims) - 1):
+        fan_in = dims[i]
+        w = (rs.randn(dims[i], dims[i + 1]) / np.sqrt(fan_in)) \
+            .astype(np.float32)
+        out["w%d" % i] = torch.from_numpy(w).to(dev)
+        out["b%d" % i] = torch.zeros((dims[i + 1],), dtype=torch.float32,
+                                     device=dev)
+    return out
+
+
+def _mlp_apply(params: Dict[str, torch.Tensor], x):
+    n = len(params) // 2
+    for i in range(n):
+        x = x @ params["w%d" % i] + params["b%d" % i]
+        if i < n - 1:
+            x = torch.relu(x)
+    return x
+
+
+def recommender_state(embs: Sequence[ShardedEmbedding], dense_dim: int,
+                      hidden: Sequence[int] = (64, 32), seed: int = 0,
+                      momentum: bool = True) -> dict:
+    """Initial state on the tables' device: the tables (+ momentum slots)
+    and the MLP (+ momentum)."""
+    tables = tuple(e.init_state(seed=seed + i) for i, e in enumerate(embs))
+    moms = tuple(e.zeros_slot() if momentum else None for e in embs)
+    in_dim = dense_dim + sum(e.dim for e in embs)
+    mlp = init_mlp([in_dim] + list(hidden) + [1], seed=seed,
+                   device=embs[0].device)
+    mlp_mom = {k: torch.zeros_like(v) for k, v in mlp.items()}
+    return {"tables": tables, "moms": moms, "mlp": mlp, "mlp_mom": mlp_mom}
+
+
+def _loss_fn(mlp, emb_rows, dense, label):
+    x = torch.cat(list(emb_rows) + [dense], dim=-1)
+    logit = _mlp_apply(mlp, x)[:, 0]
+    # numerically-stable sigmoid BCE
+    return torch.mean(logit.clamp_min(0) - logit * label +
+                      torch.log1p(torch.exp(-logit.abs())))
+
+
+def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
+                          momentum: float = 0.9, wd: float = 0.0,
+                          dp_axis: Optional[str] = None):
+    """Build the step: ``step(state, batch) -> (state, loss)``.
+
+    ``batch``: ``{"ids": (F, B) int, "dense": (B, Dd) f32, "label": (B,)
+    f32}``, tensors or host arrays.  BCE loss on a sigmoid click head; the
+    MLP takes SGD+momentum, each table takes the lazy SGD over exactly the
+    touched rows.  ``state`` is updated in place and returned; ``loss`` is
+    a 0-d tensor on the tables' device."""
+    embs = list(embs)
+    dev = embs[0].device
+    lr, momentum, wd = float(lr), float(momentum), float(wd)
+
+    def put(v, dtype):
+        if not isinstance(v, torch.Tensor):
+            return torch.tensor(np.asarray(v), dtype=dtype, device=dev)
+        return v.to(device=dev, dtype=dtype)
+
+    def step(state, batch):
+        if os.environ.get("MXNET_TPU_PREFLIGHT", "0") not in _OFF:
+            raise NotPortedYet("the GC306 recommender pre-flight "
+                               "(MXNET_TPU_PREFLIGHT) is not ported yet "
+                               "(ROADMAP queue A13)")
+        ids = put(batch["ids"], torch.int32)
+        dense = put(batch["dense"], torch.float32)
+        label = put(batch["label"], torch.float32)
+        with torch.no_grad():
+            emb_rows = [e.lookup(t, ids[f]) for f, (e, t)
+                        in enumerate(zip(embs, state["tables"]))]
+        names = list(state["mlp"])
+        leaves = [state["mlp"][k].detach().requires_grad_() for k in names]
+        rows = [r.requires_grad_() for r in emb_rows]
+        with torch.enable_grad():
+            loss = _loss_fn(dict(zip(names, leaves)), rows, dense, label)
+            grads = torch.autograd.grad(loss, leaves + rows)
+        g_mlp, g_rows = grads[:len(names)], grads[len(names):]
+        with torch.no_grad():
+            # dense half: SGD+momentum in place, m = momentum*m - lr*g
+            # (g = grad + wd*p) and p += m, one multi-tensor op each
+            params = [state["mlp"][k] for k in names]
+            moms = [state["mlp_mom"][k] for k in names]
+            g_mlp = list(g_mlp)
+            if wd:
+                g_mlp = torch._foreach_add(
+                    g_mlp, torch._foreach_mul(params, wd))
+            torch._foreach_mul_(moms, momentum)
+            torch._foreach_sub_(moms, torch._foreach_mul(g_mlp, lr))
+            torch._foreach_add_(params, moms)
+            # sparse half: (ids, grad_rows) -> lazy update, touched rows
+            # only — never the table-sized dense gradient
+            for f, (e, t, mo) in enumerate(zip(embs, state["tables"],
+                                               state["moms"])):
+                e.apply_sgd(t, mo, ids[f], g_rows[f], lr=lr,
+                            momentum=momentum, wd=wd)
+        loss = loss.detach()
+        from ..telemetry import memory as _memory
+        if _memory.enabled():
+            for e, t, m in zip(embs, state["tables"], state["moms"]):
+                _memory.tag(t, "embedding", label=e.name)
+                if m is not None:
+                    _memory.tag(m, "embedding", label=e.name + ".slot")
+            _memory.tag(state["mlp"], "params", label="recommender")
+            _memory.tag(state["mlp_mom"], "optimizer", label="recommender")
+        return state, loss
+
+    step.embs = embs
+    return step
+
+
+def lower_step(step, state, batch):
+    raise NotPortedYet("lower_step: the port runs the recommender step "
+                       "eagerly and has no compiled HLO to return "
+                       "(ROADMAP queue A13)")

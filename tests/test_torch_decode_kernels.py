@@ -201,10 +201,13 @@ def test_build_failure_is_a_typed_error(tmp_path, monkeypatch):
 
 def test_kernel_sources_carry_their_header_note():
     csrc = os.path.join(os.path.dirname(build.__file__), "..", "csrc")
+    # the file of the TPU kernels each source replaces
+    replaced = {"embedding.cu": "mxnet_tpu/sparse/kernels.py"}
     for src in build.SOURCES.values():
         text = open(os.path.join(csrc, src)).read()
         head = text[:text.index("#include")]
-        assert "Replaces: mxnet_tpu/ops/pallas_kernels.py" in head
+        assert "Replaces: " + replaced.get(
+            src, "mxnet_tpu/ops/pallas_kernels.py") in head
         assert "bounds it on the H100" in head
         assert "What the design does about it" in head
         assert 'extern "C" int mxt_' in text

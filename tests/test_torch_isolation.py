@@ -51,7 +51,13 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.ops.nn",
                  "mxnet_tpu_torch.resilience.guards",
                  "mxnet_tpu_torch.parallel.mesh",
-                 "mxnet_tpu_torch.parallel.trainer"):
+                 "mxnet_tpu_torch.parallel.trainer",
+                 "mxnet_tpu_torch.parallel.placement",
+                 "mxnet_tpu_torch.parallel.audit",
+                 "mxnet_tpu_torch.sparse",
+                 "mxnet_tpu_torch.sparse.kernels",
+                 "mxnet_tpu_torch.sparse.embedding",
+                 "mxnet_tpu_torch.sparse.step"):
         assert want in mods
 
 
@@ -132,6 +138,17 @@ def test_entry_points_default_to_the_card():
     params, _mom, _aux = tr.init_state({"data": (2, 8),
                                         "softmax_label": (2, 8)})
     assert all(p.device.type == "cpu" for p in params)
+    # the recommender: its tables live on the mesh's device, and the MLP
+    # helper defaults to the card as well
+    from mxnet_tpu_torch.sparse import (ShardedEmbedding, init_mlp,
+                                        recommender_state)
+    with pytest.raises(DeviceUnavailable):
+        init_mlp([4, 2, 1])
+    spec = MeshSpec(make_mesh((1,), ("dp",), device="cpu"))
+    embs = [ShardedEmbedding(10, 4, spec)]
+    state = recommender_state(embs, dense_dim=2, hidden=(4,))
+    assert state["tables"][0].device.type == "cpu"
+    assert state["mlp"]["w0"].device.type == "cpu"
 
 
 def _run_smoke(cwd):

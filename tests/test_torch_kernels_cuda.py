@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: decode attention, the int8/int4 quantized matmul and the three
-flash-attention kernels (forward, dQ, dK/dV) at ragged and odd shapes
-that the full-width smoke run does not reach, and a small decode step on
-the card against the same step on the CPU.
+card: decode attention, the int8/int4 quantized matmul, the three
+flash-attention kernels (forward, dQ, dK/dV) and the embedding gather and
+scatter at ragged and odd shapes that the full-width smoke run does not
+reach, a small decode step and a small recommender step on the card
+against the same steps on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -20,7 +21,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
+from mxnet_tpu_torch import convert  # noqa: E402
 from mxnet_tpu_torch.ops import kernels  # noqa: E402
+from mxnet_tpu_torch.parallel import MeshSpec, make_mesh  # noqa: E402
+from mxnet_tpu_torch.sparse import kernels as sparse_kernels  # noqa: E402
+from mxnet_tpu_torch.sparse import (ShardedEmbedding,  # noqa: E402
+                                    make_recommender_step,
+                                    recommender_state)
 from mxnet_tpu_torch.serving.decode import (DecodeConfig,  # noqa: E402
                                             DecodeProgram,
                                             init_decode_params)
@@ -232,3 +239,162 @@ def test_flash_kernels_refuse_wrong_dtype_and_shape(dev):
         kernels.flash_attention_fwd(big, big, big)
     with pytest.raises(MXNetError):
         kernels.flash_attention_fwd(q, q[:, :, :1], q)
+
+
+# (rows, D, n): the bench's D 16, the Criteo run's D 64, D 13 and 1 (the
+# scalar path), n = 1
+EMBED_CASES = [(1000, 16, 512), (5000, 64, 300), (77, 13, 40), (50, 1, 33),
+               (20, 16, 1)]
+EMBED_IDS = ["d16", "d64", "d13", "d1", "n1"]
+
+
+def _embed_inputs(dev, rows, D, n, seed, pads=3):
+    """A table of multiples of 2^-6, sorted ids with a run of duplicates,
+    0 and rows-1 among them, then ``pads`` ids >= rows; payload rows of
+    multiples of 2^-10 (sums are exact in any order)."""
+    rs = np.random.RandomState(seed)
+    table = (rs.randint(-64, 64, (rows, D)) / 64.0).astype(np.float32)
+    ids = rs.randint(0, rows, n)
+    ids[0] = 0
+    ids[-1] = rows - 1
+    if n > 4:
+        ids[1:4] = ids[2]
+    ids = np.concatenate([np.sort(ids), rows + np.arange(pads)])
+    src = (rs.randint(-512, 512, (len(ids), D)) / 1024.0).astype(np.float32)
+    return (torch.from_numpy(table).to(dev),
+            torch.from_numpy(ids.astype(np.int32)).to(dev),
+            torch.from_numpy(src).to(dev))
+
+
+def _misaligned(t):
+    """The same values at an address that is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("rows,D,n", EMBED_CASES, ids=EMBED_IDS)
+def test_embedding_gather_kernel_matches_plain(dev, rows, D, n, aligned):
+    table, ids, _src = _embed_inputs(dev, rows, D, n, rows + D, pads=0)
+    if not aligned:
+        table = _misaligned(table)
+    before = kernels.LAUNCHES["embedding_gather"]
+    out = sparse_kernels.embedding_gather(table, ids)
+    # an id out of range is clamped, never read out of bounds
+    wild = torch.tensor([-5, rows, rows + 1000], dtype=torch.int32,
+                        device=dev)
+    edge = sparse_kernels.embedding_gather(table, wild)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_gather"] == before + 2
+    assert torch.equal(out, sparse_kernels.embedding_gather_plain(table,
+                                                                  ids))
+    assert torch.equal(out, table[ids.long()])
+    assert torch.equal(edge, table[[0, rows - 1, rows - 1]])
+
+
+@pytest.mark.parametrize("mode", ["add", "set"])
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("rows,D,n", EMBED_CASES, ids=EMBED_IDS)
+def test_embedding_scatter_kernel_matches_plain(dev, rows, D, n, aligned,
+                                                mode):
+    """Pads follow a real update of the last row and carry the no-op
+    payload: zero rows (add), the current row (set)."""
+    table, ids, src = _embed_inputs(dev, rows, D, n, rows * 3 + D)
+    if mode == "add":
+        src[n:] = 0.0
+    else:
+        src[n:] = table[rows - 1]
+    if not aligned:
+        table, src = _misaligned(table), _misaligned(src)
+    ref = sparse_kernels.embedding_scatter_plain(table.clone(), ids, src,
+                                                 mode)
+    before = kernels.LAUNCHES["embedding_scatter"]
+    out = sparse_kernels.embedding_scatter(table, ids, src, mode)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_scatter"] == before + 1
+    assert out is table                          # in place
+    assert torch.equal(out, ref)
+
+
+def test_embedding_kernels_refuse_what_they_do_not_take(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    table = torch.zeros(10, 4, device=dev)
+    ids = torch.zeros(3, dtype=torch.int32, device=dev)
+    rows = torch.zeros(3, 4, device=dev)
+    for backend in ("plain", "xla", "pallas"):
+        with pytest.raises(MXNetError):
+            sparse_kernels.embedding_gather(table, ids, backend=backend)
+        with pytest.raises(MXNetError):
+            sparse_kernels.embedding_scatter(table, ids, rows, "set",
+                                             backend=backend)
+    with pytest.raises(MXNetError):
+        sparse_kernels.embedding_gather(table.double(), ids)
+    with pytest.raises(MXNetError):
+        sparse_kernels.embedding_gather(table, ids.cpu())
+    with pytest.raises(MXNetError):
+        sparse_kernels.embedding_scatter(table, ids, rows[:2], "add")
+    with pytest.raises(MXNetError):
+        sparse_kernels.embedding_scatter(table.t().contiguous().t(), ids,
+                                         rows, "add")
+    with pytest.raises(MXNetError):
+        sparse_kernels.embedding_gather(table, ids.float())
+
+
+def test_recommender_steps_on_card_match_cpu(dev):
+    """Two steps of the recommender on the card (kernels, no host sync
+    before the loss is read) against the same steps on the CPU (plain
+    versions) from one state: every tensor within 1e-3 of its largest
+    update, losses within 1e-5."""
+    F, V, D, B = 3, 300, 16, 128
+    state0, steps = None, {}
+    rs = np.random.RandomState(2)
+    batches = [{"ids": torch.from_numpy(rs.randint(0, V, (F, B))
+                                        .astype(np.int32)),
+                "dense": torch.from_numpy(rs.rand(B, 13).astype(np.float32)),
+                "label": torch.from_numpy((rs.rand(B) > 0.5)
+                                          .astype(np.float32))}
+               for _ in range(2)]
+    for d in ("cpu", dev):
+        spec = MeshSpec(make_mesh((1,), ("dp",), device=d))
+        embs = [ShardedEmbedding(V, D, spec, name="c%d" % f)
+                for f in range(F)]
+        if state0 is None:
+            state0 = convert.recommender_state_to_numpy(
+                recommender_state(embs, dense_dim=13, seed=1))
+        state = convert.recommender_state_from_numpy(state0, d)
+        step = make_recommender_step(embs, lr=0.05, momentum=0.9)
+        losses = []
+        for b in batches:
+            b = {k: v.to(d) for k, v in b.items()}
+            before = dict(kernels.LAUNCHES)
+            if d != "cpu":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, loss = step(state, b)
+            finally:
+                if d != "cpu":
+                    torch.cuda.set_sync_debug_mode(0)
+            losses.append(float(loss))
+            if d != "cpu":
+                assert kernels.LAUNCHES["embedding_gather"] == \
+                    before["embedding_gather"] + 3 * F
+                assert kernels.LAUNCHES["embedding_scatter"] == \
+                    before["embedding_scatter"] + 2 * F
+        steps[str(d)] = (convert.recommender_state_to_numpy(state), losses)
+    (cpu, l_cpu), (card, l_card) = steps["cpu"], steps[str(dev)]
+    for a, b in zip(l_cpu, l_card):
+        assert abs(a - b) <= 1e-5
+    for part in ("tables", "moms"):
+        for i, (a, b) in enumerate(zip(cpu[part], card[part])):
+            upd = np.abs(a - state0[part][i]).max()
+            assert np.abs(a - b).max() <= 1e-3 * upd, (part, i)
+    for part in ("mlp", "mlp_mom"):
+        for k in cpu[part]:
+            upd = np.abs(cpu[part][k] - state0[part][k]).max()
+            assert np.abs(cpu[part][k] - card[part][k]).max() <= 1e-3 * upd
