@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
-Drives the port's three paths at the repo's bench geometries, with random
+Drives the port's four paths at the repo's bench geometries, with random
 weights from seeds: serving — paged-KV continuous-batching decode of the
 transformer LM (GPT-2-small: L12, hidden 768, 12 heads, vocab 32768,
 T 1024; 8 slots, page 64) — training the same LM — ``get_symbol`` ->
-``ShardedTrainer`` -> ``init_state`` -> ``step`` in f32 at batch 8 — and
+``ShardedTrainer`` -> ``init_state`` -> ``step`` in f32 at batch 8 —
 training the DLRM-style recommender over the sparse embedding plane —
 ``ShardedEmbedding`` -> ``recommender_state`` -> ``make_recommender_step``
 at the bench's 4 tables x 100,000 x 16, batch 4096, and at a Criteo shape
-of 26 tables x 1,000,000 x 64, batch 8192 — and holds every hand-written
-kernel of those paths against its plain PyTorch version on the card.
+of 26 tables x 1,000,000 x 64, batch 8192 — and training the LM through
+the classic API — ``mx.io.NDArrayIter`` -> ``mx.mod.Module(net,
+compression_params={"type": "2bit", ...})`` -> ``fit(kvstore=
+mx.kv.create("device"))`` — and holds every hand-written kernel of those
+paths against its plain PyTorch version on the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
@@ -48,7 +51,24 @@ Phases, in order:
     and idle share, peak memory, the loss before and after on the
     repeated batch, and one step under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
-    before the loss is read).
+    before the loss is read);
+12. the two-bit gradient compression kernel against its plain version,
+    exactly, at every shape the LM's 198 pushes give it (timed, with
+    bounds) and at n 1 and 1023, a tail (25,165,827), misaligned views,
+    threshold 0.3 at f32(0.3) and its nextafter neighbours, NaN and +-inf;
+13. ``Module.fit`` for 3 steps through a compressing ``KVStore("device")``
+    on the card and on the CPU from the same parameters (2 layers,
+    hidden 64, T 64): every push's q + new residual, q exactly except
+    near +-t (counted), the weights, and one kernel launch per key per
+    step;
+14. ``Module.fit`` of the full-width LM at batch 8 through a compressing
+    ``KVStore("device")`` on 16 numpy-seeded sequences (2 batches per
+    epoch): 2 warm-up and 12 timed steps (CUDA events at each batch end),
+    tokens/s, host time in ``update()``, B7's launches and device time,
+    device idle share and kernels per step from one profiled step, peak
+    memory, phase 8's ``ShardedTrainer`` step beside it, the perplexity
+    falling over the timed epochs, and the fired share counted in a last
+    epoch after the timed and profiled steps, which carry no counting.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -835,7 +855,7 @@ def phase_train(torch, kernels, get_symbol, ShardedTrainer, flops_fn,
           "(%.4f -> %.4f)" % (ce0, ce1))
     check(tr.skipped_steps == 0, "a training step was skipped as "
           "non-finite")
-    return got
+    return got, med
 
 
 # the bench's recommender geometry (bench.py:215-219) and a Criteo-shaped
@@ -1142,6 +1162,388 @@ def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
     return got
 
 
+# the LM's pushes per step under Module.fit (GPT-2-small, 198 keys): the
+# shapes B7 sees and how many keys have each
+TWO_BIT_PUSHES = [((32768, 768), 2), ((3072, 768), 12), ((768, 3072), 12),
+                  ((768, 768), 48), ((1024, 768), 1), ((32768,), 1),
+                  ((3072,), 12), ((768,), 110)]
+
+
+def two_bit_case(torch, kernels, n, threshold, seed, offset=0, edges=()):
+    """B7 against its plain version on ``n`` elements (a view ``offset``
+    floats into its buffer, so misaligned when ``offset`` % 4), exactly;
+    ``edges`` are placed in the residual with a zero gradient.  Returns
+    (grad, residual, max_abs_err)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(n + offset, generator=gen, device="cuda")[offset:] * 0.5
+    r = torch.randn(n + offset, generator=gen, device="cuda")[offset:] * 0.2
+    if len(edges):
+        e = torch.tensor(edges, dtype=torch.float32, device="cuda")
+        e = e.repeat(-(-min(n, 4096) // e.numel()))[:min(n, 4096)]
+        g[:e.numel()] = 0.0
+        r[:e.numel()] = e
+    q0, r0 = kernels.two_bit_compress_plain(g, r, threshold)
+    q, r1 = kernels.two_bit_compress(g, r.clone(), threshold)
+    torch.cuda.synchronize()
+    nan = torch.isnan(r0)
+    same = (torch.equal(q, q0) and torch.equal(torch.isnan(r1), nan)
+            and torch.equal(r1[~nan], r0[~nan]))
+    err = max((q - q0).abs().max().item(),
+              (r1[~nan] - r0[~nan]).abs().max().item() if n else 0.0)
+    check(same, "two_bit_compress differs from its plain version at n %d, "
+          "threshold %r, offset %d: max_abs_err %.3g" % (n, threshold,
+                                                         offset, err))
+    return g, r, err
+
+
+def phase_two_bit(torch, kernels, timer, card):
+    """B7 against its plain version, exactly, at every shape the LM's
+    pushes give it (timed, with bounds) and at edge cases: n 1 and 1023,
+    a tail (25,165,827), misaligned views, threshold 0.3 at f32(0.3) and
+    its nextafter neighbours, NaN and +-inf."""
+    for t in (0.5, 0.3):
+        t32 = np.float32(t)
+        edges = [t32, np.nextafter(t32, np.float32(1)),
+                 np.nextafter(t32, np.float32(0)), -t32,
+                 -np.nextafter(t32, np.float32(1)), 0.0, np.nan, np.inf,
+                 -np.inf]
+        for n, offset in ((1, 0), (1023, 0), (25165827, 0), (4099, 1),
+                          (4099, 2), (4099, 3), (1023, 1)):
+            two_bit_case(torch, kernels, n, t, n + offset, offset,
+                         edges=[float(x) for x in edges])
+    log("two_bit_compress vs plain: n 1, 1023, 25165827, misaligned views "
+        "(offsets 1-3), thresholds 0.5 and 0.3 with f32(t) and its "
+        "nextafter neighbours, NaN, +-inf: equal (tolerance 0)")
+    out = []
+    for shape, per_step in TWO_BIT_PUSHES:
+        n = int(np.prod(shape))
+        g, r, err = two_bit_case(torch, kernels, n, 0.5, n)
+        b, by = bound_ms(16 * n, 2 * n)
+        out.append({
+            "name": "two_bit_compress", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/two_bit.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:121",
+            "shape": "grad/residual %s f32, threshold 0.5" % (shape,),
+            "launches_per_step": per_step, "max_abs_err": err,
+            "ms": timer(lambda: kernels.two_bit_compress(g, r, 0.5)),
+            "plain_ms": timer(lambda: kernels.two_bit_compress_plain(
+                g, r, 0.5)),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call computes q and "
+                            "the new residual"})
+        del g, r
+    for r in out:
+        log("  %-16s %-44s x%-3d ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "[%s]" % (r["name"], r["shape"], r["launches_per_step"],
+                      r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+                      card))
+    dev = sum(r["ms"] * r["launches_per_step"] for r in out)
+    bnd = sum(r["bound_ms"] * r["launches_per_step"] for r in out)
+    log("two_bit_compress per LM step (%d launches): %.3f ms of kernel time "
+        "(cold L2, one call at a time) against a %.3f ms bound [%s]"
+        % (sum(p for _, p in TWO_BIT_PUSHES), dev, bnd, card))
+    return out
+
+
+def record_pushes(torch, kv_mod):
+    """Wrap the store's two-bit compressor to log, per push, the key and
+    (g, r before, q, r after) on the host.  Returns (log, undo)."""
+    cls = kv_mod._TwoBitCompressor
+    orig = cls.compress
+    pushes = []
+
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    def compress(self, key, grad):
+        before = self.residual.get(key)
+        before = torch.zeros(grad.shape) if before is None else host(before)
+        q = orig(self, key, grad)
+        pushes.append((key, host(grad), before, host(q),
+                       host(self.residual[key])))
+        return q
+
+    cls.compress = compress
+    return pushes, lambda: setattr(cls, "compress", orig)
+
+
+def module_params(net, shapes, seed):
+    """Seeded parameters (numpy) for ``net`` as host NDArrays: weights
+    N(0, 0.05), LayerNorm gammas 1, biases and betas 0."""
+    arg_shapes, _, _ = net.infer_shape(**shapes)
+    rs = np.random.RandomState(seed)
+    args = {}
+    for name, shp in zip(net.list_arguments(), arg_shapes):
+        if name in shapes:
+            continue
+        if name.endswith("gamma"):
+            v = np.ones(shp, np.float32)
+        elif name.endswith(("bias", "beta")):
+            v = np.zeros(shp, np.float32)
+        else:
+            v = (rs.normal(0, 0.05, shp)).astype(np.float32)
+        args[name] = v
+    return args
+
+
+def phase_module_parity(torch, mx, kernels, kv_mod, get_symbol, card):
+    """Module.fit for 3 steps through a compressing KVStore("device") on
+    the card and on the CPU from the same parameters (a 2-layer LM,
+    hidden 64, T 64): every push's q + new residual, q exactly except
+    near +-t, the weights, and B7's launch count."""
+    cfg = dict(vocab_size=1024, seq_len=64, num_layers=2, hidden=64,
+               heads=4)
+    B, T, t = 4, cfg["seq_len"], 0.5
+    lr, momentum = 0.05, 0.9
+    net = get_symbol(**cfg)
+    rs = np.random.RandomState(13)
+    X = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    start = module_params(net, shapes, seed=3)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+        kv = mx.kv.create("device", device=dev)
+        pushes, undo = record_pushes(torch, kv_mod)
+        mod = mx.mod.Module(net, context=ctx,
+                            compression_params={"type": "2bit",
+                                                "threshold": t})
+        kernels.reset_launches()
+        try:
+            mod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), kvstore=kv,
+                    optimizer="sgd",
+                    optimizer_params={"learning_rate": lr,
+                                      "momentum": momentum},
+                    eval_metric=mx.metric.Perplexity(ignore_label=None),
+                    arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in start.items()},
+                    num_epoch=1)
+        finally:
+            undo()
+        launches = kernels.LAUNCHES["two_bit_compress"]
+        args, _ = mod.get_params()
+        res[dev] = ({k: v.asnumpy() for k, v in args.items()}, pushes,
+                    launches)
+    n_keys = len(start)
+    check(res["cuda"][2] == 3 * n_keys,
+          "two_bit_compress launched %d times on the card over 3 steps of "
+          "%d keys, want %d" % (res["cuda"][2], n_keys, 3 * n_keys))
+    check(res["cpu"][2] == 0, "the CPU run launched a kernel")
+    near_n = flip_n = fired = 0
+    flipped = {}
+    worst_sum = 0.0
+    for (k1, g1, r1, q1, n1), (k2, g2, r2, q2, n2) in zip(res["cuda"][1],
+                                                          res["cpu"][1]):
+        check(k1 == k2, "push order differs: %s vs %s" % (k1, k2))
+        s1, s2 = (q1 + n1).numpy(), (q2 + n2).numpy()
+        comp = (g2 + r2).numpy()
+        scale = max(float(np.abs(comp).max()), t)
+        err = float(np.abs(s1 - s2).max())
+        worst_sum = max(worst_sum, err / scale)
+        check(err <= 1e-4 * scale, "%s: q + new residual differs card vs "
+              "CPU by %.3g (scale %.3g)" % (k1, err, scale))
+        near = np.abs(np.abs(comp) - np.float32(t)) <= 1e-4 * scale
+        differ = (q1 != q2).numpy()
+        check(not (differ & ~near).any(), "%s: q differs away from +-t"
+              % k1)
+        near_n += int(near.sum())
+        flip_n += int(differ.sum())
+        fired += int((q1 != 0).sum())
+        flipped[k1] = flipped.get(k1, np.zeros(differ.shape, bool)) | differ
+    bound = lr / B * 2 * t * 3 / (1 - momentum)
+    worst = 0.0
+    for name, w0 in start.items():
+        a, b = res["cuda"][0][name], res["cpu"][0][name]
+        upd = float(np.abs(b - w0).max())
+        mask = flipped.get(name, np.zeros(w0.shape, bool))
+        err = float(np.abs(np.where(mask, b, a) - b).max())
+        check(err <= 1e-3 * upd, "%s: card and CPU weights differ by %.3g, "
+              "its largest update is %.3g" % (name, err, upd))
+        check((np.abs(a - b)[mask] <= bound).all(), "%s: a flipped element "
+              "moved more than one flip's update" % name)
+        if upd:
+            worst = max(worst, err / upd)
+    log("Module.fit card vs cpu, L2 h64 T64 batch 4, 3 steps through a "
+        "compressing KVStore (%d keys, %d B7 launches on the card, %d "
+        "values fired): q + new residual within %.3g of its scale "
+        "(tolerance 1e-4), q equal except %d of %d elements within the "
+        "tolerance of +-t; weights within %.3g of each tensor's largest "
+        "update (tolerance 1e-3) [%s]"
+        % (n_keys, res["cuda"][2], fired, worst_sum, flip_n, near_n, worst,
+           card))
+
+
+def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
+                     card):
+    """Module.fit of the full-width LM through a compressing
+    KVStore("device"): 16 numpy-seeded sequences (2 batches of 8 per
+    epoch), 2 warm-up steps, 12 timed, one profiled epoch, then one
+    epoch whose pushes count the fired values.  The timed and profiled
+    steps run the user's path as it is: per step one CUDA event and two
+    host clock reads around update(), and nothing on the device."""
+    cfg = TRAIN
+    B, T = 8, cfg["seq_len"]
+    warm, timed = 2, 12
+    epochs = (warm + timed + 4) // 2   # + one profiled, one counted epoch
+    counted = (2 * epochs - 1, 2 * epochs)     # the steps that count q
+    net = get_symbol(**cfg)
+    rs = np.random.RandomState(0)
+    X = rs.randint(0, cfg["vocab_size"], (2 * B, T)).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], (2 * B, T)).astype(np.float32)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B, label_name="softmax_label")
+    threshold = 0.5
+    mod = mx.mod.Module(net, compression_params={"type": "2bit",
+                                                 "threshold": threshold})
+    kv = mx.kv.create("device")
+    # fired values per step, counted on the card as the pushes of the
+    # last epoch go (after the timed and profiled steps: the count adds
+    # two launches per push and a host read per step)
+    fired = torch.zeros((), dtype=torch.int64, device="cuda")
+    cls = kv_mod._TwoBitCompressor
+    orig = cls.compress
+
+    def counting(self, key, grad):
+        q = orig(self, key, grad)
+        fired.add_(torch.count_nonzero(q))
+        return q
+
+    update_ms = []
+    orig_update = mod.update
+
+    def timed_update():
+        t0 = time.perf_counter()
+        orig_update()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+
+    mod.update = timed_update
+    from torch.profiler import ProfilerActivity, profile
+    ev, host_t, fired_n, launches, ppl = [], [], [], [], []
+    prof = {}
+    n_elem = []
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+        host_t.append(time.perf_counter())
+        launches.append(kernels.LAUNCHES["two_bit_compress"])
+        if p.nbatch == 1:
+            ppl.append(p.eval_metric.get()[1])
+        step = len(ev)
+        if step in counted:
+            fired_n.append(int(fired.item()))
+            fired.zero_()
+        if step == counted[0] - 2:
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif step == counted[0] - 1:
+            torch.cuda.synchronize()
+            prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+            cls.compress = counting
+
+    torch.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_fit = time.perf_counter()
+    try:
+        mod.fit(it, kvstore=kv, optimizer="sgd",
+                optimizer_params={"learning_rate": 1e-4, "momentum": 0.9},
+                initializer=mx.init.Xavier(),
+                eval_metric=mx.metric.Perplexity(ignore_label=None),
+                batch_end_callback=on_batch, num_epoch=epochs)
+    finally:
+        cls.compress = orig
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_keys = len(mod._exec_group.param_names)
+    n_params = sum(int(np.prod(a.shape)) for a in
+                   mod.get_params()[0].values())
+    steps = len(ev)
+    check(steps == 2 * epochs, "fit ran %d steps, want %d"
+          % (steps, 2 * epochs))
+    check(got["two_bit_compress"] == n_keys * steps,
+          "two_bit_compress launched %d times over %d steps of %d keys"
+          % (got["two_bit_compress"], steps, n_keys))
+    for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"):
+        check(got[key] == cfg["num_layers"] * steps,
+              "%s launched %d times over %d steps" % (key, got[key], steps))
+    # step i (1-based) ends at ev[i-1]; a step that starts an epoch also
+    # carries the previous epoch's end (get_params / set_params)
+    inner, crossing = [], []
+    for i in range(warm + 1, warm + timed + 1):
+        ms = ev[i - 2].elapsed_time(ev[i - 1])
+        (crossing if i % 2 == 1 else inner).append(ms)
+    med = statistics.median(inner)
+    share = [f / n_params for f in fired_n]
+    log("Module.fit L%d h%d V%d T%d batch %d f32, KVStore('device') with "
+        "2-bit compression (threshold %g), %d keys, %.1f M parameters: "
+        "%d steps in %.1f s" % (cfg["num_layers"], cfg["hidden"],
+                                cfg["vocab_size"], T, B, threshold, n_keys,
+                                n_params / 1e6, steps, fit_s))
+    log("  step ms (CUDA events at batch end), timed steps inside an "
+        "epoch: %s; median %.3f (spread %.3f-%.3f) = %.0f tokens/s; steps "
+        "that start an epoch (+ the epoch-end parameter sync): %s, median "
+        "%.3f [%s]" % (", ".join("%.3f" % x for x in inner), med,
+                       min(inner), max(inner), B * T / med * 1e3,
+                       ", ".join("%.3f" % x for x in crossing),
+                       statistics.median(crossing), card))
+    log("  ShardedTrainer step of phase 8 in this run: %.3f ms; the "
+        "Module/KVStore layer adds %.3f ms per step (%.1f%%)"
+        % (trainer_ms, med - trainer_ms, 100 * (med - trainer_ms)
+           / trainer_ms))
+    log("  host ms in update() per step: %s (median %.2f)"
+        % (", ".join("%.1f" % x for x in update_ms[warm:warm + timed]),
+           statistics.median(update_ms[warm:warm + timed])))
+    log("  two_bit_compress launches per step: %s; fired share (q != 0) "
+        "in steps %s (counted after the timed window): %s"
+        % (", ".join(str(b - a) for a, b in zip([0] + launches, launches)),
+           "/".join(map(str, counted)), ", ".join("%.5f" % s for s in share)))
+    log("  perplexity per epoch (both batches, before each update): %s"
+        % ", ".join("%.2f" % x for x in ppl))
+    by_kernel = {}
+    for e in prof["p"].key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us and e.device_type.name == "CUDA":
+            by_kernel[e.key] = (dev_us / 1e3, e.count)
+    busy = sum(ms for ms, _ in by_kernel.values())
+    if busy:
+        groups = dict.fromkeys(("two_bit_compress", "flash kernels",
+                                "matmuls", "everything else"), 0.0)
+        for key, (ms, _cnt) in by_kernel.items():
+            groups["two_bit_compress" if "two_bit" in key else
+                   "flash kernels" if "flash_" in key else
+                   "matmuls" if "gemm" in key else "everything else"] += ms
+        log("  profiled step: device busy %.1f ms of %.1f ms, idle share "
+            "%.3f; %d kernels and copies on the device; by group: %s [%s]"
+            % (busy, prof["wall"], 1 - busy / prof["wall"],
+               sum(c for _, c in by_kernel.values()),
+               ", ".join("%s %.3f ms" % kv for kv in groups.items()), card))
+        for key, (ms, cnt) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:12]:
+            log("    %9.3f ms  x%-5d %s" % (ms, cnt, key[:90]))
+    else:
+        log("  device busy: not measured (the profiler saw no device time)")
+    log("  peak memory allocated %.2f GB [%s]" % (peak / 1e9, card))
+    check(max(share) > 0, "2-bit quantization fired on no step at "
+          "threshold %g" % threshold)
+    first, last = ppl[warm // 2], ppl[(warm + timed) // 2 - 1]
+    check(np.isfinite(first) and np.isfinite(last) and last < first,
+          "perplexity did not fall over the timed steps (%.4f -> %.4f)"
+          % (first, last))
+    del mod, kv
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1166,6 +1568,8 @@ def main():
     from mxnet_tpu_torch import sparse as tsp
     from mxnet_tpu_torch.parallel import MeshSpec, make_mesh
     from mxnet_tpu_torch.sparse import kernels as sk
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kvstore as tkv
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1290,13 +1694,12 @@ def main():
         phase_train_parity(torch, get_symbol, ShardedTrainer, card)
 
     with phase("8 training at full width"):
-        launches["train"] = phase_train(torch, kernels, get_symbol,
-                                        ShardedTrainer,
-                                        transformer_flops_per_step, card)
+        launches["train"], trainer_ms = phase_train(
+            torch, kernels, get_symbol, ShardedTrainer,
+            transformer_flops_per_step, card)
 
     with phase("9 embedding kernels vs plain"):
         rows += phase_embedding(torch, kernels, sk, timer, card)
-        del timer
 
     with phase("10 recommender step card vs cpu"):
         phase_rec_parity(torch, tsp, MeshSpec, make_mesh, convert, card)
@@ -1307,6 +1710,19 @@ def main():
         torch.cuda.empty_cache()
         launches["criteo"] = rec_run(torch, kernels, tsp, MeshSpec,
                                      make_mesh, CRITEO, 2, 5, card)
+        torch.cuda.empty_cache()
+
+    with phase("12 two-bit kernel vs plain"):
+        rows += phase_two_bit(torch, kernels, timer, card)
+        del timer
+        torch.cuda.empty_cache()
+
+    with phase("13 Module step card vs cpu"):
+        phase_module_parity(torch, mx, kernels, tkv, get_symbol, card)
+
+    with phase("14 Module.fit at full width"):
+        launches["module"] = phase_module_fit(torch, mx, kernels, tkv,
+                                              get_symbol, trainer_ms, card)
         torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------

@@ -22,10 +22,44 @@ Ported so far (ROADMAP.md):
 * the recommender slice — the DLRM-style click predictor trained over the
   sparse embedding plane on one card (``sparse.ShardedEmbedding`` ->
   ``sparse.recommender_state`` -> ``sparse.make_recommender_step``) with
-  the embedding gather and sorted-id scatter kernels.
+  the embedding gather and sorted-id scatter kernels;
+* the Module slice — the classic MXNet API (``mx.mod.Module(net,
+  compression_params=...)``, ``mx.io.NDArrayIter``,
+  ``mx.kv.create("device")``, ``Module.fit``) training the LM on one card,
+  with the kvstore's two-bit gradient compression kernel.
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Entry points run on the card unless the caller passes ``device="cpu"``
+(``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
+``mx.sym``, ``mx.kv``, ``mx.io``, ``mx.mod``, ``mx.metric``, ``mx.init``,
+``mx.optimizer``, ``mx.callback``, ``mx.cpu`` / ``mx.gpu``) are loaded on
+first use, so ``import mxnet_tpu_torch`` imports no torch.
 """
+import importlib as _importlib
+
 from .base import DeviceUnavailable, MXNetError, NotPortedYet
 
-__all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet"]
+__all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
+           "kv", "io", "mod", "metric", "init", "optimizer", "callback",
+           "model", "cpu", "gpu", "Context", "current_context"]
+
+# attribute -> (module, name in it or None for the module itself)
+_LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
+         "sym": ("symbol", None), "symbol": ("symbol", None),
+         "kv": ("kvstore", None), "kvstore": ("kvstore", None),
+         "io": ("io", None), "mod": ("module", None),
+         "module": ("module", None), "metric": ("metric", None),
+         "init": ("initializer", None), "initializer": ("initializer", None),
+         "optimizer": ("optimizer", None), "callback": ("callback", None),
+         "model": ("model", None), "context": ("context", None),
+         "cpu": ("context", "cpu"), "gpu": ("context", "gpu"),
+         "Context": ("context", "Context"),
+         "current_context": ("context", "current_context")}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError("module %r has no attribute %r"
+                             % (__name__, name))
+    mod_name, attr = _LAZY[name]
+    mod = _importlib.import_module("." + mod_name, __name__)
+    return mod if attr is None else getattr(mod, attr)

@@ -16,8 +16,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "env_int",
-           "env_float", "resolve_device", "_Null", "dtype_np", "dtype_name",
-           "dtype_torch", "Param", "attr_bool", "attr_int", "attr_float",
+           "env_float", "armed_env", "resolve_device", "_Null", "dtype_np",
+           "dtype_name", "dtype_torch", "Param", "attr_bool", "attr_int", "attr_float",
            "attr_str", "attr_shape", "attr_dtype", "AttrScope"]
 
 
@@ -50,6 +50,40 @@ def env_float(name, default):
         return float(os.environ[name])
     except (KeyError, ValueError):
         return default
+
+
+# The values at which the JAX package leaves each knob off, as its own
+# modules read them: the raw string is compared, except where a knob is
+# stripped and lower-cased first (_ENV_FOLDED)
+_ENV_OFF = {
+    # executor.py:76-84 there (an unknown policy warns there and runs
+    # without remat; the port refuses any value but these)
+    "MXNET_TPU_REMAT_POLICY": ("", "none"),
+    "MXNET_BACKWARD_DO_MIRROR": ("0", ""),
+    # analysis/preflight.py:49, telemetry/perf.py:54
+    "MXNET_TPU_PREFLIGHT": ("0", "", "false", "off"),
+    "MXNET_TPU_ATTRIBUTION": ("0", "", "false", "off"),
+    # compile/cache.py:121
+    "MXNET_TPU_COMPILE_CACHE": ("", "0", "off", "false", "no", "disabled"),
+    # resilience/watchdog.py:790
+    "MXNET_TPU_WATCHDOG": ("0", "false", "off", ""),
+}
+_ENV_FOLDED = frozenset({"MXNET_TPU_COMPILE_CACHE"})
+
+
+def armed_env(names):
+    """The variables among ``names`` that are set to a value the JAX
+    package reads as on (each knob with that package's own off values,
+    ``_ENV_OFF``): the knobs of a feature the port refuses to run with,
+    naming them."""
+    armed = []
+    for n in names:
+        raw = os.environ.get(n, "")
+        if n in _ENV_FOLDED:
+            raw = raw.strip().lower()
+        if raw not in _ENV_OFF[n]:
+            armed.append(n)
+    return armed
 
 
 def resolve_device(device=None):

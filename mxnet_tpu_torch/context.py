@@ -1,0 +1,112 @@
+"""Device context (port of ``mxnet_tpu/context.py``; reference
+include/mxnet/base.h:142-247).
+
+A :class:`Context` names a torch device: ``gpu(i)`` is
+``torch.device("cuda", i)`` and ``cpu()`` the host.
+
+Stated deviation from the JAX package: there the default context is the
+CPU (``context.py:98-100``); here :func:`current_context` outside any
+``with ctx:`` scope is the card (``base.resolve_device``), and without one
+it raises :class:`~mxnet_tpu_torch.base.DeviceUnavailable`.  Tests ask for
+the CPU with ``cpu()``.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+from .base import resolve_device
+
+__all__ = ["Context", "cpu", "gpu", "current_context", "context_of",
+           "as_torch_device"]
+
+
+class Context:
+    """Named device: devtype 'cpu' | 'gpu' and an index.  The JAX
+    package's 'tpu', 'cpu_pinned' and 'cpu_shared' name no device of the
+    port and are refused."""
+
+    devtype2id = {"cpu": 1, "gpu": 2}
+    devid2type = {v: k for k, v in devtype2id.items()}
+    _default_ctx = threading.local()
+
+    def __init__(self, device_type, device_id: int = 0):
+        if isinstance(device_type, Context):
+            device_type, device_id = (device_type.device_type,
+                                      device_type.device_id)
+        if isinstance(device_type, int):
+            device_type = Context.devid2type.get(device_type, device_type)
+        if device_type not in Context.devtype2id:
+            raise ValueError("unknown device type %r" % (device_type,))
+        self.device_type = device_type
+        self.device_id = int(device_id)
+        self._old_ctx: Optional[Context] = None
+
+    @property
+    def torch_device(self):
+        """The torch device this context names (``cuda:i`` for gpu; a
+        missing card raises ``DeviceUnavailable``)."""
+        import torch
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return resolve_device(torch.device("cuda", self.device_id))
+
+    def __eq__(self, other):
+        return (isinstance(other, Context)
+                and self.device_type == other.device_type
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    __str__ = __repr__
+
+    def __enter__(self):
+        self._old_ctx = getattr(Context._default_ctx, "value", None)
+        Context._default_ctx.value = self
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        Context._default_ctx.value = self._old_ctx
+
+    @classmethod
+    def default_ctx(cls) -> "Context":
+        """The innermost ``with ctx:`` scope, else the card."""
+        ctx = getattr(cls._default_ctx, "value", None)
+        if ctx is not None:
+            return ctx
+        return Context("gpu", resolve_device(None).index)
+
+
+def cpu(device_id: int = 0) -> Context:
+    return Context("cpu", device_id)
+
+
+def gpu(device_id: int = 0) -> Context:
+    return Context("gpu", device_id)
+
+
+def current_context() -> Context:
+    return Context.default_ctx()
+
+
+def context_of(obj) -> Context:
+    """The Context of a torch tensor or device."""
+    dev = getattr(obj, "device", obj)
+    if dev.type == "cuda":
+        return gpu(dev.index or 0)
+    return cpu()
+
+
+def as_torch_device(ctx):
+    """A Context, a torch device, a device string or None (the current
+    context) -> ``torch.device``."""
+    import torch
+    if ctx is None:
+        ctx = current_context()
+    if isinstance(ctx, Context):
+        return ctx.torch_device
+    return resolve_device(torch.device(ctx))

@@ -21,6 +21,13 @@ A recommender state (``sparse.recommender_state``) is a dict of the
 :func:`recommender_state_from_numpy` carries a JAX state (as host arrays)
 onto a device, and :func:`recommender_state_to_numpy` brings the port's
 back.
+
+A JAX ``Module``'s ``get_params()`` is two dicts of NDArrays by name;
+:func:`module_params_from_numpy` turns them (as host arrays) into the
+port Module's ``arg_params`` / ``aux_params`` (host NDArrays, as
+``Module.get_params`` keeps them), so both packages train from one
+start.  :func:`kvstore_state_to_numpy` reads a port ``KVStore``'s
+per-key two-bit residuals and optimizer states back to host arrays.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from .base import MXNetError
 
 __all__ = ["from_jax_params", "is_quantized", "trainer_state_from_numpy",
            "trainer_state_to_numpy", "recommender_state_from_numpy",
-           "recommender_state_to_numpy"]
+           "recommender_state_to_numpy", "module_params_from_numpy",
+           "kvstore_state_to_numpy"]
 
 # dtypes a decode parameter may have: f32 everywhere except the quantized
 # payloads
@@ -165,3 +173,37 @@ def recommender_state_to_numpy(state):
             "moms": tuple(host(m) for m in state["moms"]),
             "mlp": {k: host(v) for k, v in state["mlp"].items()},
             "mlp_mom": {k: host(v) for k, v in state["mlp_mom"].items()}}
+
+
+def module_params_from_numpy(arg_params: Mapping, aux_params: Mapping):
+    """A JAX Module's ``get_params()`` (name -> host array or anything
+    with ``asnumpy``) -> ``(arg_params, aux_params)`` of port NDArrays on
+    the CPU, copies, float32 only (anything else raises)."""
+    from .ndarray.ndarray import NDArray
+
+    def conv(part, what):
+        out = {}
+        for name, value in part.items():
+            host = np.asarray(value.asnumpy() if hasattr(value, "asnumpy")
+                              else value)
+            out[name] = NDArray(_f32_tensor("%s %s" % (what, name), host,
+                                            "cpu"))
+        return out
+
+    return conv(arg_params, "arg"), conv(aux_params, "aux")
+
+
+def kvstore_state_to_numpy(kv):
+    """A port store's state as host arrays: ``{"residual": {key: array},
+    "states": {updater key: array or None}}`` (the two-bit residuals of
+    every pushed key, and the optimizer state of every updated one)."""
+    comp = kv._compressor
+    updater = kv._updater
+    return {"residual": {} if comp is None else
+            {k: r.detach().to("cpu", copy=True).numpy()
+             for k, r in comp.residual.items()},
+            "states": {} if updater is None or not hasattr(updater,
+                                                           "states") else
+            {k: None if s is None else
+             np.asarray(s.asnumpy() if hasattr(s, "asnumpy") else s)
+             for k, s in updater.states.items()}}

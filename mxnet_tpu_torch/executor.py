@@ -7,21 +7,34 @@ autograd records it, so the backward of a training step is
 (:func:`infer_shapes`) runs the same ops on ``meta`` tensors, which carry
 shapes and dtypes but no data, after the ``infer_params`` hooks
 (:mod:`.ops.shape_hints`) have filled in the parameter shapes the caller
-did not give.  The ``Executor`` class and ``simple_bind`` come with the
-Module slice (ROADMAP).
+did not give.
+
+:class:`Executor` is a Symbol bound to arrays on one device
+(``simple_bind`` allocates them from the inferred shapes): a train-mode
+forward records the graph with autograd, and ``backward`` runs
+``torch.autograd.grad`` over its outputs and writes the gradients into
+the bound gradient arrays; ``run_fwd_bwd`` does both at once (the Module
+path).  Monitor taps (``set_monitor_callback``), ``ctx_group``
+placement and remat (``MXNET_TPU_REMAT_POLICY`` /
+``MXNET_BACKWARD_DO_MIRROR``) raise ``NotPortedYet`` (ROADMAP A4).
 """
 from __future__ import annotations
 
 import ast
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 
-from .base import MXNetError, dtype_torch
+from .base import MXNetError, NotPortedYet, armed_env, dtype_torch
+from .context import Context, as_torch_device, context_of
+from .ndarray.ndarray import NDArray, zeros
 from .ops import shape_hints  # noqa: F401  (installs infer_params hooks)
 from .symbol.symbol import Symbol, _topo_order
 
-__all__ = ["GraphProgram", "infer_shapes", "node_attrs", "batch_hint_from"]
+__all__ = ["GraphProgram", "Executor", "infer_shapes", "node_attrs",
+           "batch_hint_from"]
+
+_REMAT_KNOBS = ("MXNET_TPU_REMAT_POLICY", "MXNET_BACKWARD_DO_MIRROR")
 
 
 def batch_hint_from(arg_map: Dict[str, Any], arg_names: Sequence[str]):
@@ -206,3 +219,214 @@ def infer_shapes(symbol: Symbol, kwargs, partial=False):
     aux_shapes = [tuple(known[n].shape) if n in known else None
                   for n in prog.aux_names]
     return arg_shapes, out_shapes, aux_shapes
+
+
+class Executor:
+    """A Symbol bound to argument, gradient and auxiliary arrays on one
+    device (reference python/mxnet/executor.py).
+
+    ``args`` / ``args_grad`` / ``aux_states`` are NDArrays (a list in
+    ``list_arguments()`` order or a dict by name).  Gradients are written
+    into the bound gradient arrays in place, as ``grad_req`` says per
+    argument: ``"write"`` overwrites, ``"add"`` accumulates, ``"null"``
+    computes none."""
+
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, shared_exec=None, program=None,
+                 group2ctx=None):
+        if group2ctx:
+            raise NotPortedYet("ctx_group placement (group2ctx) is not "
+                               "ported yet (ROADMAP A4)")
+        armed = armed_env(_REMAT_KNOBS)
+        if armed:
+            raise NotPortedYet("remat (%s) is not ported to the executor "
+                               "yet (ROADMAP A4)" % ", ".join(armed))
+        self._symbol = symbol
+        self._ctx = ctx if isinstance(ctx, Context) else \
+            context_of(as_torch_device(ctx))
+        if program is not None:
+            self._prog = program
+        elif shared_exec is not None and shared_exec._symbol is symbol:
+            self._prog = shared_exec._prog
+        else:
+            self._prog = GraphProgram(symbol)
+        arg_names, aux_names = self._prog.arg_names, self._prog.aux_names
+        self.arg_arrays = ([args[n] for n in arg_names]
+                           if isinstance(args, dict) else list(args))
+        self.arg_dict = dict(zip(arg_names, self.arg_arrays))
+        aux_states = aux_states or []
+        self.aux_arrays = ([aux_states[n] for n in aux_names]
+                           if isinstance(aux_states, dict)
+                           else list(aux_states))
+        self.aux_dict = dict(zip(aux_names, self.aux_arrays))
+        if isinstance(grad_req, str):
+            self.grad_req = {n: grad_req for n in arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self.grad_req = dict(zip(arg_names, grad_req))
+        else:
+            self.grad_req = {n: grad_req.get(n, "null") for n in arg_names}
+        if args_grad is None:
+            self.grad_arrays = [None] * len(arg_names)
+        elif isinstance(args_grad, dict):
+            self.grad_arrays = [args_grad.get(n) for n in arg_names]
+        else:
+            self.grad_arrays = list(args_grad) + [None] * (
+                len(arg_names) - len(args_grad))
+        self.grad_dict = dict(zip(arg_names, self.grad_arrays))
+        self.outputs: List = []
+        self._graph = None     # (outputs, leaf names, leaves) to backward
+
+    # -- binding ----------------------------------------------------------
+    @staticmethod
+    def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
+                    shared_exec=None, group2ctx=None, **kwargs):
+        """Infer every argument's shape from the given input shapes and
+        allocate zeroed argument, auxiliary and gradient arrays on
+        ``ctx``'s device."""
+        if type_dict:
+            kwargs = {n: (torch.empty(tuple(v), dtype=dtype_torch(
+                type_dict[n]), device="meta") if n in type_dict else v)
+                for n, v in kwargs.items()}
+        prog, known, _ = _resolve_structs(symbol, kwargs)
+        missing = [n for n in prog.arg_names if n not in known]
+        if missing:
+            raise MXNetError("simple_bind: could not infer shapes for %s"
+                             % missing)
+
+        def alloc(n):
+            return zeros(tuple(known[n].shape), ctx=ctx,
+                         dtype=known[n].dtype)
+
+        greq = grad_req if isinstance(grad_req, dict) else \
+            {n: grad_req for n in prog.arg_names}
+        return Executor(
+            symbol, ctx, {n: alloc(n) for n in prog.arg_names},
+            args_grad={n: alloc(n) for n in prog.arg_names
+                       if greq.get(n, "null") != "null"},
+            grad_req=greq, aux_states={n: alloc(n) for n in prog.aux_names},
+            program=prog, group2ctx=group2ctx)
+
+    # -- execution --------------------------------------------------------
+    def _mask(self):
+        return [n for n in self._prog.arg_names
+                if self.grad_req.get(n, "null") != "null"]
+
+    def _run(self, is_train, record):
+        """Evaluate the graph; with ``record`` under autograd, keeping
+        what :meth:`backward` needs.  Train mode writes the new auxiliary
+        states into the bound arrays."""
+        names = self._mask() if record else []
+        leaves = {n: self.arg_dict[n]._handle.detach().requires_grad_()
+                  for n in names}
+        args = [leaves[n] if n in leaves else a._handle
+                for n, a in zip(self._prog.arg_names, self.arg_arrays)]
+        aux = [a._handle for a in self.aux_arrays]
+        with torch.set_grad_enabled(record):
+            outs, new_aux = self._prog.evaluate(args, aux,
+                                                train=bool(is_train))
+        self._graph = (outs, names, [leaves[n] for n in names]) \
+            if record else None
+        with torch.no_grad():
+            if is_train:
+                for nd_, na in zip(self.aux_arrays, new_aux):
+                    nd_._handle.copy_(na)
+        self.outputs = [NDArray(o.detach()) for o in outs]
+        return self.outputs
+
+    def forward(self, is_train=False, **kwargs):
+        """Copy any ``name=array`` keyword into the bound argument, then
+        evaluate; a train-mode forward records the graph for
+        :meth:`backward`."""
+        for k, v in kwargs.items():
+            if k in self.arg_dict:
+                src = v._handle if hasattr(v, "_handle") else \
+                    torch.as_tensor(v)
+                self.arg_dict[k]._handle.copy_(src)
+        return self._run(is_train, bool(is_train) and bool(self._mask()))
+
+    def _write_grads(self, names, grads):
+        with torch.no_grad():
+            for name, g in zip(names, grads):
+                tgt = self.grad_dict.get(name)
+                if tgt is None:
+                    continue
+                if self.grad_req[name] == "add":
+                    if g is not None:
+                        tgt._handle.add_(g)
+                elif g is None:
+                    tgt._handle.zero_()    # not connected to the outputs
+                else:
+                    tgt._handle.copy_(g)
+
+    def backward(self, out_grads=None, is_train=True):
+        """Gradients of the outputs (weighted by ``out_grads``, default
+        ones) with respect to every argument whose ``grad_req`` is not
+        "null", written into the gradient arrays.  Uses the graph of the
+        preceding train-mode forward, else runs one."""
+        if not self._mask():
+            return
+        if self._graph is None:
+            self._run(is_train, True)
+        outs, names, leaves = self._graph
+        self._graph = None
+        if out_grads is None:
+            # a loss head ignores its incoming gradient; an expanded scalar
+            # costs no memory where the output is (N*T, vocab)
+            cots = [o.new_ones(()).expand_as(o) for o in outs]
+        else:
+            if not isinstance(out_grads, (list, tuple)):
+                out_grads = [out_grads]
+            cots = [g._handle if hasattr(g, "_handle") else
+                    torch.as_tensor(g, device=o.device)
+                    for g, o in zip(out_grads, outs)]
+        grads = torch.autograd.grad(outs, leaves, grad_outputs=cots,
+                                    allow_unused=True)
+        self._write_grads(names, grads)
+
+    def run_fwd_bwd(self, out_cots=None, is_train=True):
+        """Forward and backward in one call (the Module's step); returns
+        the outputs."""
+        outputs = self._run(is_train, bool(self._mask()))
+        if self._graph is not None:
+            self.backward(out_grads=out_cots, is_train=is_train)
+        return outputs
+
+    # -- misc -------------------------------------------------------------
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        """Copy values into the bound arrays (in place, cast to their
+        dtype)."""
+        with torch.no_grad():
+            for src, dst, what in ((arg_params, self.arg_dict, "arguments"),
+                                   (aux_params or {}, self.aux_dict, "aux")):
+                for name, arr in src.items():
+                    if name in dst:
+                        dst[name]._handle.copy_(arr._handle)
+                    elif not allow_extra_params:
+                        raise MXNetError("Found name \"%s\" not in %s"
+                                         % (name, what))
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor for new input shapes.  Arrays whose shape does
+        not change (the parameters, their gradients, the aux states) are
+        shared with this one; the reshaped inputs get new arrays."""
+        args, grads = {}, {}
+        for n, arr in self.arg_dict.items():
+            g = self.grad_dict.get(n)
+            if n in kwargs and tuple(kwargs[n]) != arr.shape:
+                args[n] = zeros(kwargs[n], ctx=self._ctx, dtype=arr.dtype)
+                if g is not None:
+                    grads[n] = zeros(kwargs[n], ctx=self._ctx,
+                                     dtype=g.dtype)
+            else:
+                args[n] = arr
+                if g is not None:
+                    grads[n] = g
+        return Executor(self._symbol, self._ctx, args, args_grad=grads,
+                        grad_req=self.grad_req, aux_states=self.aux_dict,
+                        program=self._prog)
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        raise NotPortedYet("executor monitor taps are not ported yet "
+                           "(ROADMAP A4)")

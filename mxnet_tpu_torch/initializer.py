@@ -1,12 +1,14 @@
 """Weight initialization (port of ``InitDesc``, the name routes of
-``Initializer`` and ``Xavier`` from ``mxnet_tpu/initializer.py``;
-reference python/mxnet/initializer.py).
+``Initializer``, ``Uniform`` and ``Xavier`` from
+``mxnet_tpu/initializer.py``; reference python/mxnet/initializer.py).
 
-Random draws come from an explicit ``torch.Generator`` that the caller
-seeds (``ShardedTrainer.init_state(seed=)``), drawn on the CPU so a seed
-gives the same values whatever device the state then lives on.  The JAX
-package draws from its own key stream, so the two packages' draws differ
-and agree only in distribution.
+Random draws come from a ``torch.Generator`` that the caller seeds
+(``ShardedTrainer.init_state(seed=)``), or from torch's default CPU
+generator (``torch.manual_seed``) when none is given, as ``Module``
+calls it; they are drawn on the CPU so a seed gives the same values
+whatever device the state then lives on.  The JAX package draws from its
+own key stream, so the two packages' draws differ and agree only in
+distribution.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 
 from .base import MXNetError, NotPortedYet
 
-__all__ = ["InitDesc", "Initializer", "Xavier"]
+__all__ = ["InitDesc", "Initializer", "Uniform", "Xavier"]
 
 
 class InitDesc(str):
@@ -35,7 +37,8 @@ class Initializer:
     The suffix table encodes the reference's naming convention: batch-norm
     statistics, quantization ranges and bias/gamma/beta have fixed fills
     whatever the initializer; only ``weight`` (and unknown names) defer to
-    the subclass.  ``arr`` is a CPU float tensor filled in place.
+    the subclass.  ``arr`` is a CPU float tensor (or an NDArray over
+    one) filled in place.
     """
 
     # (name suffixes, handler attribute) — first match wins
@@ -58,9 +61,11 @@ class Initializer:
     def __call__(self, desc, arr, generator=None):
         if not isinstance(desc, str):
             raise TypeError("desc must be string or InitDesc")
+        arr = getattr(arr, "_handle", arr)
         if isinstance(desc, InitDesc) and desc.attrs.get("__init__"):
             raise NotPortedYet("per-parameter __init__ attrs: only the "
-                               "global Xavier initializer is ported")
+                               "global Uniform and Xavier initializers "
+                               "are ported")
         lowered = desc.lower()
         for suffixes, handler in self._ROUTES:
             if lowered.endswith(suffixes):
@@ -86,6 +91,19 @@ class Initializer:
         raise MXNetError(
             "Unknown initialization pattern for %s. Default initialization "
             "applies to weight/bias/gamma/beta/moving_* names." % name)
+
+
+class Uniform(Initializer):
+    """U(-scale, scale): ``Module.fit``'s default, ``Uniform(0.01)``."""
+
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, name, arr, generator):
+        arr.uniform_(-self.scale, self.scale, generator=generator)
+
+    _init_default = _init_weight
 
 
 class Xavier(Initializer):

@@ -1,0 +1,228 @@
+"""KVStore: parameter synchronisation inside one process (port of the
+local stores of ``mxnet_tpu/kvstore/__init__.py``; reference
+include/mxnet/kvstore.h, src/kvstore/kvstore_local.h,
+python/mxnet/kvstore.py).
+
+The store keeps one NDArray per key on its device (the card unless the
+caller passes ``device="cpu"``).  ``push`` sums a key's values (a list
+of them is one value per device), compresses the sum when
+:meth:`KVStore.set_gradient_compression` is set, and then either runs
+the updater on the stored value (``set_optimizer`` / ``set_updater``)
+or replaces it.  ``pull`` copies the stored value into each out array.
+
+The JAX package rebinds immutable handles; torch tensors are mutable, so
+no in-place update here may reach an array a caller still holds:
+``init`` stores a clone, ``pull`` copies (``out.copy_(stored)``), the
+compressor writes ``q`` to a new tensor and never into the pushed
+gradient, and the updater reads the pushed gradient without writing it.
+
+With two-bit compression each dense push runs the hand-written CUDA
+kernel ``ops.kernels.two_bit_compress`` (B7) on the card; the residual
+of every key lives beside its gradient.
+
+Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
+the ``dist_*`` stores (ROADMAP A5, A11: NCCL), ``row_sparse_pull`` and
+sparse values (A2).
+"""
+from __future__ import annotations
+
+import pickle
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..base import MXNetError, NotPortedYet, resolve_device
+from ..ndarray.ndarray import NDArray
+from ..ops import kernels
+from .. import telemetry
+
+__all__ = ["KVStore", "create"]
+
+_LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
+                "local_allreduce_device", "device", "nccl", "tpu")
+
+
+def _key_str(key):
+    return str(key)
+
+
+def _dense(v, what):
+    if getattr(v, "stype", "default") != "default":
+        raise NotPortedYet("%s of a %s NDArray: sparse NDArrays are not "
+                           "ported yet (ROADMAP A2)" % (what, v.stype))
+    return v
+
+
+class _TwoBitCompressor:
+    """Two-bit gradient compression with error feedback (reference
+    src/kvstore/gradient_compression.{h,cc}): values quantised to
+    {-threshold, 0, +threshold}, the quantisation error carried to the
+    key's next push.  One residual per key, the size of the parameter,
+    on the gradient's device, updated in place by the kernel."""
+
+    def __init__(self, threshold=0.5):
+        self.threshold = float(threshold)
+        self.residual: Dict[str, torch.Tensor] = {}
+
+    def compress(self, key, grad: torch.Tensor) -> torch.Tensor:
+        r = self.residual.get(key)
+        if r is None:
+            r = self.residual[key] = torch.zeros_like(grad)
+        q, _ = kernels.two_bit_compress(grad, r, self.threshold)
+        return q
+
+
+class KVStore:
+    """In-process store (reference kvstore.py:62)."""
+
+    def __init__(self, kv_type="local", device=None):
+        self.type = kv_type
+        self.device = resolve_device(device)
+        self._store: Dict[str, NDArray] = {}
+        self._updater: Optional[Callable] = None
+        self._optimizer = None
+        self._compressor: Optional[_TwoBitCompressor] = None
+
+    # -- init/push/pull ---------------------------------------------------
+    def init(self, key, value):
+        """Store a copy of each value under its key (a key already
+        present keeps its value)."""
+        keys, values = self._normalize(key, value)
+        for k, v in zip(keys, values):
+            if k not in self._store:
+                _dense(v, "init")
+                self._store[k] = NDArray(v._handle.to(self.device,
+                                                      copy=True))
+
+    def push(self, key, value, priority=0):
+        """Reduce value(s) into the store and run the updater if set
+        (reference KVStoreLocal::PushImpl, kvstore_local.h:159)."""
+        with telemetry.span("kvstore/push", cat="kvstore"):
+            keys, values = self._normalize_push(key, value)
+            for k, vlist in zip(keys, values):
+                merged = self._reduce(k, vlist)
+                stored = self._store[k]
+                if merged.device != stored._handle.device:
+                    merged = merged.to(stored._handle.device)
+                if self._updater is not None:
+                    self._updater(self._updater_key(k), NDArray(merged),
+                                  stored)
+                else:
+                    # no updater: the merged value REPLACES the stored one
+                    # (reference kvstore_local.h:190 "local = merged")
+                    stored._handle.copy_(merged)
+
+    def pull(self, key, out=None, priority=0, ignore_sparse=True):
+        """Copy the stored value into each out array, on its own device
+        (the Comm::Broadcast analog)."""
+        with telemetry.span("kvstore/pull", cat="kvstore"):
+            keys, outs = self._normalize_push(key, out)
+            for k, olist in zip(keys, outs):
+                src = self._store[k]._handle
+                for o in olist:
+                    _dense(o, "pull")._handle.copy_(src)
+
+    def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
+        raise NotPortedYet("row_sparse_pull: sparse NDArrays are not ported "
+                           "yet (ROADMAP A2)")
+
+    # -- updater/optimizer ------------------------------------------------
+    def set_updater(self, updater):
+        self._updater = updater
+
+    def set_optimizer(self, optimizer):
+        """The updater becomes an :class:`~mxnet_tpu_torch.optimizer.
+        Updater` of ``optimizer`` (the 'server' is this process)."""
+        from ..optimizer import Updater
+        self._optimizer = optimizer
+        self._updater = Updater(optimizer)
+
+    def set_gradient_compression(self, compression_params):
+        """Two-bit compression with error feedback: every dense push is
+        quantized to {-t, 0, +t} (``threshold``, default 0.5) with the
+        residual carried forward.  As in the JAX package the reduced
+        value stays a dense f32 tensor: the reference's packed 2-bit
+        wire format saves bandwidth between workers, which a one-process
+        store does not move."""
+        ctype = compression_params.get("type", "2bit")
+        if ctype != "2bit":
+            raise MXNetError("unsupported compression type " + ctype)
+        self._compressor = _TwoBitCompressor(
+            compression_params.get("threshold", 0.5))
+
+    # -- topology (one process) -------------------------------------------
+    @property
+    def rank(self) -> int:
+        return 0
+
+    @property
+    def num_workers(self) -> int:
+        return 1
+
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        if self._updater is None:
+            raise MXNetError("no optimizer states: set_optimizer first")
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        if self._updater is None:
+            raise MXNetError("no updater to load states into: "
+                             "set_optimizer first")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+
+    # -- helpers ----------------------------------------------------------
+    def _updater_key(self, k):
+        try:
+            return int(k)
+        except ValueError:
+            return k
+
+    def _reduce(self, k, vlist) -> torch.Tensor:
+        """The sum of a key's pushed values (on the first one's device),
+        then its compression.  The result may be the caller's own tensor
+        (one value, no compression): it is only read from here on."""
+        for v in vlist:
+            _dense(v, "push")
+        merged = vlist[0]._handle
+        if len(vlist) > 1:
+            merged = merged + vlist[1]._handle.to(merged.device)
+            for v in vlist[2:]:
+                merged += v._handle.to(merged.device)
+        if self._compressor is not None:
+            merged = self._compressor.compress(k, merged)
+        return merged
+
+    def _normalize(self, key, value):
+        if isinstance(key, (str, int)):
+            key, value = [key], [value]
+        keys = [_key_str(k) for k in key]
+        values = value if isinstance(value, list) else [value]
+        return keys, values
+
+    def _normalize_push(self, key, value):
+        """Keys and a list of values for each."""
+        if isinstance(key, (str, int)):
+            keys = [_key_str(key)]
+            if isinstance(value, (list, tuple)) and \
+                    all(isinstance(v, NDArray) for v in value):
+                return keys, [list(value)]
+            return keys, [[value]]
+        keys = [_key_str(k) for k in key]
+        return keys, [list(v) if isinstance(v, (list, tuple)) else [v]
+                      for v in value]
+
+
+def create(name="local", device=None) -> KVStore:
+    """A store of a local type on ``device`` (default: the card; a typed
+    ``DeviceUnavailable`` without one).  The ``dist_*`` types raise
+    ``NotPortedYet`` (ROADMAP A5)."""
+    if not isinstance(name, str):
+        raise TypeError("name must be a string")
+    if name in _LOCAL_TYPES:
+        return KVStore(name, device=device)
+    if name.startswith("dist"):
+        raise NotPortedYet("kvstore %r: distributed stores need NCCL "
+                           "(ROADMAP A5, A11)" % name)
+    raise MXNetError("unknown KVStore type %s" % name)

@@ -1,0 +1,111 @@
+"""The kvstore helpers of the legacy model API (port of
+``mxnet_tpu/model.py:25-100``; reference python/mxnet/model.py
+``_create_kvstore`` :58, ``_update_params_on_kvstore`` :126,
+``_update_params`` :138).
+
+Both update paths are ported: with a store that updates
+(``update_on_kvstore``), every gradient is pushed and the new weight
+pulled back; otherwise the gradients are reduced through the store (if
+any) and the local updater applies them.  One device with a string
+kvstore gets no store at all, as in the reference, so a ``KVStore``
+object is how a one-card run reaches the store (and its gradient
+compression).
+
+Checkpoints (``save_checkpoint`` / ``load_checkpoint``) wait for the
+``.params`` format (``ndarray/serialization.py``, ROADMAP A2) and raise
+``NotPortedYet``; ``FeedForward`` is not ported.
+"""
+from __future__ import annotations
+
+from collections import namedtuple
+
+import numpy as np
+
+from . import kvstore as kvs
+from .base import NotPortedYet
+
+__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+
+BatchEndParam = namedtuple("BatchEndParams",
+                           ["epoch", "nbatch", "eval_metric", "locals"])
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(store or None, update_on_kvstore)`` (reference model.py:58)."""
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return (kv, update_on_kvstore)
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Seed the store from the executors' copies of the parameters (the
+    values of ``arg_params`` after ``set_params``), and pull them back
+    when the store does the updates (reference model.py:87)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, param_on_devs[0] if param_on_devs
+                     else arg_params[name])
+        if update_on_kvstore:
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push every gradient, pull the new weight (reference model.py:126)."""
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        name = param_names[index]
+        kvstore.push(name, grad_list, priority=-index)
+        kvstore.pull(name, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None, param_names=None):
+    """Reduce the gradients through the store (if any), then update
+    locally (reference model.py:138): one ``Updater.update_batch`` per
+    device, a ``torch._foreach_*`` chain for plain SGD."""
+    updates = [[] for _ in range(num_device)]
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                      grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            updates[k].append((index * num_device + k, g, w))
+    for dev_updates in updates:
+        updater.update_batch(dev_updates)
+
+
+def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
+    raise NotPortedYet("save_checkpoint: the .params format "
+                       "(ndarray/serialization.py) is not ported yet "
+                       "(ROADMAP A2)")
+
+
+def load_checkpoint(prefix, epoch):
+    raise NotPortedYet("load_checkpoint: the .params format "
+                       "(ndarray/serialization.py) is not ported yet "
+                       "(ROADMAP A2)")

@@ -35,7 +35,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 SOURCES = {"decode_attention": "decode_attention.cu",
            "quant_matmul": "quant_matmul.cu",
            "flash_attention": "flash_attention.cu",
-           "embedding": "embedding.cu"}
+           "embedding": "embedding.cu",
+           "two_bit": "two_bit.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # argtypes of each library's entry points (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention": {
         "mxt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -62,6 +64,9 @@ _SIGNATURES = {
         "mxt_embedding_gather": [_P] * 3 + [_I] * 4 + [_P],
         # table, ids, rows | nrows, D, n, add, vec | stream
         "mxt_embedding_scatter": [_P] * 3 + [_I] * 5 + [_P]},
+    "two_bit": {
+        # grad, residual, q, new_residual | n | threshold | vec | stream
+        "mxt_two_bit_compress": [_P] * 4 + [_L, _F, _I, _P]},
 }
 
 _LOCK = threading.Lock()

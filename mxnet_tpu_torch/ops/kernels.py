@@ -1,12 +1,13 @@
 """The port's kernels: on the decode path paged decode attention and
 weight-only quantized matmul, on the training path flash attention
-forward, dQ and dK/dV (port of ``mxnet_tpu/ops/pallas_kernels.py``).
+forward, dQ and dK/dV, on the kvstore's push two-bit gradient
+compression (port of ``mxnet_tpu/ops/pallas_kernels.py``).
 
 Each kernel has three parts here:
 
 * a **wrapper** (:func:`decode_attention`, :func:`quant_matmul`,
   :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
-  :func:`flash_attention_bwd_dkv`) that
+  :func:`flash_attention_bwd_dkv`, :func:`two_bit_compress`) that
   checks device, dtype, shape and contiguity and launches the hand-written
   CUDA kernel (``mxnet_tpu_torch/csrc/*.cu``) on the current stream for a
   CUDA tensor, or raises.  It takes the plain version only for a tensor
@@ -14,7 +15,8 @@ Each kernel has three parts here:
   tensor (no backend knob, no autotune fallback);
 * a **plain PyTorch version** (:func:`decode_attention_plain`,
   :func:`quant_matmul_plain`, :func:`flash_attention_fwd_plain`,
-  :func:`flash_attention_bwd_plain`) with the semantics of the JAX
+  :func:`flash_attention_bwd_plain`, :func:`two_bit_compress_plain`)
+  with the semantics of the JAX
   package's XLA formulation or Pallas kernel.  It is the tests' oracle and
   the CPU path, never a fallback on the card;
 * a **launch count**: :data:`LAUNCHES` gains one where the wrapper
@@ -43,7 +45,7 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
-           "flash_delta"]
+           "flash_delta", "two_bit_compress", "two_bit_compress_plain"]
 
 # launches per kernel; quant_matmul's two template instantiations count
 # apart, the flash forward counts with and without the lse alike, and the
@@ -51,7 +53,8 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
 LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "quant_matmul_int4": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "embedding_gather": 0, "embedding_scatter": 0}
+            "embedding_gather": 0, "embedding_scatter": 0,
+            "two_bit_compress": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}
@@ -512,3 +515,64 @@ def flash_attention(q, k, v, causal=False, scale=None):
         t.requires_grad for t in (q, k, v))
     return FlashAttention.apply(q, k, v, bool(causal),
                                 _flash_scale(q.shape[-1], scale), with_lse)
+
+
+# ---------------------------------------------------------------------------
+# two-bit gradient quantization with error feedback (B7)
+# ---------------------------------------------------------------------------
+
+def _f32_threshold(threshold):
+    """The threshold as the f32 value both packages compare against (the
+    JAX kernel's ``jnp.float32(t)``): a threshold such as 0.3 is never
+    compared in f64."""
+    return float(np.float32(threshold))
+
+
+def two_bit_compress_plain(grad, residual, threshold=0.5):
+    """``_two_bit_kernel`` / ``_two_bit_xla`` semantics, functionally:
+    ``comp = g + r`` in f32, ``q = t`` where ``comp >= t``, ``-t`` where
+    ``comp <= -t``, else 0, and ``new_r = comp - q``; both returned in
+    ``grad``'s dtype.  NaN gives ``q = 0`` and ``new_r = NaN``."""
+    t = _f32_threshold(threshold)
+    comp = grad.float() + residual.float()
+    pos = torch.full((), t, dtype=torch.float32, device=comp.device)
+    zero = torch.zeros((), dtype=torch.float32, device=comp.device)
+    q = torch.where(comp >= pos, pos, torch.where(comp <= -pos, -pos, zero))
+    return q.to(grad.dtype), (comp - q).to(grad.dtype)
+
+
+def two_bit_compress(grad, residual, threshold=0.5):
+    """Quantize ``grad + residual`` to {-t, 0, +t} and carry the error
+    forward.  Returns ``(q, residual)``: ``q`` a new tensor of ``grad``'s
+    shape, ``residual`` the tensor passed in, updated IN PLACE to ``grad
+    + residual - q`` (the compressor owns it).  ``grad`` is only read.
+
+    CUDA tensors launch ``csrc/two_bit.cu`` (f32, contiguous, one shape;
+    anything else raises); CPU tensors run :func:`two_bit_compress_plain`
+    and copy its residual back; any other device raises."""
+    _require(grad.shape == residual.shape, "two_bit_compress: grad %s and "
+             "residual %s differ in shape", tuple(grad.shape),
+             tuple(residual.shape))
+    if grad.device.type == "cpu":
+        q, new_r = two_bit_compress_plain(grad, residual, threshold)
+        residual.copy_(new_r)
+        return q, residual
+    _require(grad.device.type == "cuda", "two_bit_compress: no kernel for "
+             "device %s", grad.device)
+    for t in (grad, residual):
+        _require(t.dtype == torch.float32, "two_bit_compress: %s tensor "
+                 "where float32 is required", t.dtype)
+    _check_cuda("two_bit_compress", grad, residual)
+    t = _f32_threshold(threshold)
+    q = torch.empty_like(grad)
+    n = grad.numel()
+    if n == 0:
+        return q, residual
+    vec = int(all(p % 16 == 0 for p in (grad.data_ptr(),
+                                        residual.data_ptr(), q.data_ptr())))
+    fn = build.library("two_bit").mxt_two_bit_compress
+    _launch("two_bit_compress", grad.device, fn, grad.data_ptr(),
+            residual.data_ptr(), q.data_ptr(), residual.data_ptr(), n, t,
+            vec)
+    LAUNCHES["two_bit_compress"] += 1
+    return q, residual

@@ -10,9 +10,10 @@ cache keyed on the attrs.  Op schemas are the typed ``params`` dict
 (:class:`~mxnet_tpu_torch.base.Param`), parsed identically from Python
 values and from Symbol attr strings.
 
-Only what the ported graphs use is here: no op of the port needs a
-random key, a variadic input list or a per-step dynamic attr yet, so
-those declarations of the reference are not accepted.
+Only what the ported graphs and optimizers use is here: no op of the
+port needs a random key or a variadic input list yet, and eager PyTorch
+keeps no compile cache that a per-step attr (a scheduled lr or wd) would
+have to bypass, so those declarations of the reference are not accepted.
 """
 from __future__ import annotations
 

@@ -24,37 +24,29 @@ and the training chaos drills).
 """
 from __future__ import annotations
 
-import os
 from typing import Dict
 
 import numpy as np
 import torch
 
-from ..base import MXNetError, NotPortedYet, dtype_name
-from ..executor import GraphProgram, _resolve_structs
+from ..base import MXNetError, NotPortedYet, armed_env, dtype_name
+from ..executor import _REMAT_KNOBS, GraphProgram, _resolve_structs
 from ..resilience import chaos as _chaos
 from ..resilience import guards as _guards
 from .mesh import MeshSpec, make_mesh
 
 __all__ = ["ShardedTrainer", "sgd_step_fn"]
 
-_OFF = ("0", "", "false", "off", "no", "disabled")
 _TRAIN_FAULTS = ("preempt", "nan_grad", "hang", "oom")
+_KNOBS = dict({k: "remat" for k in _REMAT_KNOBS},
+              MXNET_TPU_COMPILE_CACHE="compile cache",
+              MXNET_TPU_PREFLIGHT="pre-flight",
+              MXNET_TPU_ATTRIBUTION="attribution")
 
 
 def _unported_env():
     """The JAX step's env-armed features that are set here, by name."""
-    env = os.environ
-    found = []
-    if env.get("MXNET_TPU_REMAT_POLICY", "").strip() not in ("", "none"):
-        found.append("MXNET_TPU_REMAT_POLICY (remat)")
-    if env.get("MXNET_BACKWARD_DO_MIRROR", "0").strip() not in ("0", ""):
-        found.append("MXNET_BACKWARD_DO_MIRROR (remat)")
-    for var, what in (("MXNET_TPU_COMPILE_CACHE", "compile cache"),
-                      ("MXNET_TPU_PREFLIGHT", "pre-flight"),
-                      ("MXNET_TPU_ATTRIBUTION", "attribution")):
-        if env.get(var, "").strip().lower() not in _OFF:
-            found.append("%s (%s)" % (var, what))
+    found = ["%s (%s)" % (k, _KNOBS[k]) for k in armed_env(_KNOBS)]
     found += ["MXNET_TPU_CHAOS=%s (training chaos drill)" % k
               for k in _chaos.armed(_TRAIN_FAULTS)]
     return found

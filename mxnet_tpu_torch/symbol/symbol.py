@@ -164,6 +164,13 @@ class Symbol:
         return str(v) if v is not None else None
 
     # -- composition: the arithmetic the ported graphs use ---------------
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """``{node name: {attr: value}}`` for every node that has attrs
+        (the ``__lr_mult__`` / ``__wd_mult__`` / ``__init__`` the
+        optimizer and the initializer read)."""
+        return {node.name: {k: str(v) for k, v in node.attrs.items()}
+                for node in _topo_order(self._entries) if node.attrs}
+
     def __add__(self, other):
         if not isinstance(other, Symbol):
             raise MXNetError("Symbol + %r: only Symbol + Symbol "

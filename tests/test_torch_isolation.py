@@ -57,7 +57,22 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.sparse",
                  "mxnet_tpu_torch.sparse.kernels",
                  "mxnet_tpu_torch.sparse.embedding",
-                 "mxnet_tpu_torch.sparse.step"):
+                 "mxnet_tpu_torch.sparse.step",
+                 "mxnet_tpu_torch.context",
+                 "mxnet_tpu_torch.ndarray",
+                 "mxnet_tpu_torch.ndarray.ndarray",
+                 "mxnet_tpu_torch.ops.optimizer_ops",
+                 "mxnet_tpu_torch.optimizer",
+                 "mxnet_tpu_torch.kvstore",
+                 "mxnet_tpu_torch.io",
+                 "mxnet_tpu_torch.io.io",
+                 "mxnet_tpu_torch.metric",
+                 "mxnet_tpu_torch.model",
+                 "mxnet_tpu_torch.module",
+                 "mxnet_tpu_torch.module.executor_group",
+                 "mxnet_tpu_torch.module.base_module",
+                 "mxnet_tpu_torch.module.module",
+                 "mxnet_tpu_torch.callback"):
         assert want in mods
 
 
@@ -149,6 +164,22 @@ def test_entry_points_default_to_the_card():
     state = recommender_state(embs, dense_dim=2, hidden=(4,))
     assert state["tables"][0].device.type == "cpu"
     assert state["mlp"]["w0"].device.type == "cpu"
+    # the Module path: the module, its store, the arrays and the context
+    import mxnet_tpu_torch as mx
+    with pytest.raises(DeviceUnavailable):
+        mx.mod.Module(net)
+    with pytest.raises(DeviceUnavailable):
+        mx.kv.create("device")
+    with pytest.raises(DeviceUnavailable):
+        mx.nd.zeros((2, 3))
+    with pytest.raises(DeviceUnavailable):
+        mx.nd.array(np.zeros(3))
+    with pytest.raises(DeviceUnavailable):
+        mx.current_context()
+    assert mx.mod.Module(net, context=mx.cpu()) is not None
+    assert mx.kv.create("device", device="cpu").device.type == "cpu"
+    with mx.cpu():
+        assert mx.nd.zeros((2, 3)).context == mx.cpu()
 
 
 def _run_smoke(cwd):

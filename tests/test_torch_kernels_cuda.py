@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: decode attention, the int8/int4 quantized matmul, the three
-flash-attention kernels (forward, dQ, dK/dV) and the embedding gather and
-scatter at ragged and odd shapes that the full-width smoke run does not
-reach, a small decode step and a small recommender step on the card
-against the same steps on the CPU.
+flash-attention kernels (forward, dQ, dK/dV), the embedding gather and
+scatter and the two-bit gradient compression at ragged and odd shapes
+that the full-width smoke run does not reach, a small decode step and a
+small recommender step on the card against the same steps on the CPU,
+a compressing KVStore push on the card, and a Module that lands on the
+card when given no context.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -398,3 +400,103 @@ def test_recommender_steps_on_card_match_cpu(dev):
         for k in cpu[part]:
             upd = np.abs(cpu[part][k] - state0[part][k]).max()
             assert np.abs(cpu[part][k] - card[part][k]).max() <= 1e-3 * upd
+
+
+# the shapes of the LM's pushes (GPT-2-small), a tail, a one-element and
+# a 1023-element vector
+TWO_BIT_SHAPES = [(32768, 768), (3072, 768), (768, 3072), (768, 768),
+                  (1024, 768), (32768,), (3072,), (768,), (1,), (1023,),
+                  (25165827,)]
+
+
+def _two_bit_inputs(dev, shape, seed, offset=0):
+    rs = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    g = torch.from_numpy(rs.normal(0, 0.5, n + offset).astype(np.float32))
+    r = torch.from_numpy(rs.normal(0, 0.2, n + offset).astype(np.float32))
+    g, r = g.to(dev)[offset:], r.to(dev)[offset:]
+    return g.reshape(shape), r.reshape(shape)
+
+
+def _assert_two_bit_equal(g, r, t):
+    q0, r0 = kernels.two_bit_compress_plain(g, r, t)
+    before = kernels.LAUNCHES["two_bit_compress"]
+    q, r1 = kernels.two_bit_compress(g, r.clone(), t)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["two_bit_compress"] == before + 1
+    assert torch.equal(q, q0)
+    nan = torch.isnan(r0)
+    assert torch.equal(torch.isnan(r1), nan)
+    assert torch.equal(r1[~nan], r0[~nan])
+
+
+@pytest.mark.parametrize("shape", TWO_BIT_SHAPES,
+                         ids=["x".join(map(str, s)) for s in TWO_BIT_SHAPES])
+def test_two_bit_kernel_matches_plain(dev, shape):
+    g, r = _two_bit_inputs(dev, shape, sum(shape))
+    _assert_two_bit_equal(g, r, 0.5)
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.3])
+def test_two_bit_kernel_edges_and_misaligned_views(dev, threshold):
+    """Threshold +- 1 ulp, NaN and +-inf, and views whose pointers are
+    not 16-byte aligned (the scalar path)."""
+    t32 = np.float32(threshold)
+    edges = np.array([t32, np.nextafter(t32, np.float32(1)),
+                      np.nextafter(t32, np.float32(0)), -t32, 0.0, np.nan,
+                      np.inf, -np.inf], np.float32)
+    r = torch.from_numpy(np.tile(edges, 129)).to(dev)
+    _assert_two_bit_equal(torch.zeros_like(r), r, threshold)
+    for offset in (1, 2, 3):
+        g, r = _two_bit_inputs(dev, (4099,), offset, offset=offset)
+        _assert_two_bit_equal(g, r, threshold)
+
+
+def test_two_bit_kernel_refuses_what_it_does_not_take(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    g = torch.zeros(8, 4, device=dev)
+    with pytest.raises(MXNetError):
+        kernels.two_bit_compress(g.double(), g.double())
+    with pytest.raises(MXNetError):
+        kernels.two_bit_compress(g.t(), torch.zeros(4, 8, device=dev))
+    with pytest.raises(MXNetError):
+        kernels.two_bit_compress(g, torch.zeros(8, 4))
+
+
+def test_kvstore_push_on_card_runs_the_kernel(dev, monkeypatch):
+    """A compressing push on the card launches B7 once per key and never
+    reaches the plain version."""
+    from mxnet_tpu_torch import kvstore, nd
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+
+    monkeypatch.setattr(kernels, "two_bit_compress_plain", refuse)
+    kv = kvstore.create("device")
+    assert kv.device.type == "cuda"
+    kv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+    w = nd.array(np.ones((64, 3), np.float32))
+    kv.init("w", w)
+    before = kernels.LAUNCHES["two_bit_compress"]
+    g = nd.array(np.full((64, 3), 0.7, np.float32))
+    kv.push("w", g)
+    out = nd.zeros((64, 3))
+    kv.pull("w", out=out)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["two_bit_compress"] == before + 1
+    assert (out.asnumpy() == 0.5).all()
+    assert (w.asnumpy() == 1.0).all()
+
+
+def test_module_without_a_context_lands_on_the_card(dev):
+    import mxnet_tpu_torch as mx
+    net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                                name="fc")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    mod = mx.mod.Module(net)
+    mod.bind(data_shapes=[("data", (8, 5))],
+             label_shapes=[("softmax_label", (8,))])
+    mod.init_params()
+    ex = mod._exec_group.execs[0]
+    assert all(a.handle.device.type == "cuda" for a in ex.arg_arrays)
+    assert mx.current_context().device_type == "gpu"

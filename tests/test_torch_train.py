@@ -245,8 +245,10 @@ def test_unported_features_raise():
 @pytest.mark.parametrize("var,value", [
     ("MXNET_TPU_REMAT_POLICY", "dots"),
     ("MXNET_BACKWARD_DO_MIRROR", "1"),
+    ("MXNET_BACKWARD_DO_MIRROR", "false"),
     ("MXNET_TPU_COMPILE_CACHE", "1"),
     ("MXNET_TPU_PREFLIGHT", "1"),
+    ("MXNET_TPU_PREFLIGHT", "no"),
     ("MXNET_TPU_ATTRIBUTION", "1"),
     ("MXNET_TPU_CHAOS", "nan_grad@2"),
 ])
