@@ -12,7 +12,10 @@ at the bench's 4 tables x 100,000 x 16, batch 4096, and at a Criteo shape
 of 26 tables x 1,000,000 x 64, batch 8192 — and training the LM through
 the classic API — ``mx.io.NDArrayIter`` -> ``mx.mod.Module(net,
 compression_params={"type": "2bit", ...})`` -> ``fit(kvstore=
-mx.kv.create("device"))`` — and holds every hand-written kernel of those
+mx.kv.create("device"))`` — and the imperative API over the same LM's
+parameters — ``mx.nd`` arrays from ``mx.random``, a user's CUDA kernel
+compiled by ``mx.rtc.CudaModule`` and launched over them,
+``nd.save`` / ``nd.load`` — and holds every hand-written kernel of those
 paths against its plain PyTorch version on the card.
 Phases, in order:
 
@@ -69,6 +72,27 @@ Phases, in order:
     memory, phase 8's ``ShardedTrainer`` step beside it, the perplexity
     falling over the timed epochs, and the fired share counted in a last
     epoch after the timed and profiled steps, which carry no counting.
+15. ``rtc.CudaModule`` (the port of the last Pallas site, the JAX
+    package's ``rtc.TPUModule``): the user kernels of
+    ``mxnet_tpu_torch/csrc/rtc_kernels.cu`` compiled by NVRTC for
+    ``sm_90a`` with ``--fmad=false`` (compile ms printed), the five of
+    ``tests/test_rtc.py`` and the reference's docstring launched at
+    (8, 128) and (32768, 768) f32 and held to their plain versions
+    exactly (one ``--fmad=true`` build's difference beside them), timed
+    with bounds and library yardsticks; the host time per launch; and a
+    CPU context, a dtype mismatch, a non-contiguous array, a 2048-thread
+    block and a source that does not compile, each raising MXNetError;
+16. every op case of the five general op modules (``tests/
+    torch_cases.py``) through ``mx.nd`` on the card against the CPU;
+17. the imperative path at full width: the LM's 198 parameter arrays
+    (136.2 M) made with ``mx.random.seed(0)`` and ``nd.random.normal``
+    on the card, gradients and momenta likewise, NDArray arithmetic,
+    ``nd.sum`` and ``nd.dot``, 5 steps of momentum SGD each launching the
+    user's ``CudaModule`` kernel ``sgd_mom`` once per array, held against
+    ``nd.sgd_mom_update`` on copies (1e-6 of each tensor's largest
+    magnitude), device and host ms per step against the bound, peak
+    memory, then ``nd.save`` of the weights (545 MB) and ``nd.load``
+    back, bit for bit.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -1544,16 +1568,342 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
     return got
 
 
+
+# B8: the user kernels of mxnet_tpu_torch/csrc/rtc_kernels.cu through
+# rtc.CudaModule: bytes each moves and f32 operations per element
+RTC_COST = {"axpy": (12, 2), "doubled": (8, 1), "split_sign": (12, 2),
+            "ident": (8, 0), "axpy_inplace": (12, 2), "sgd_mom": (20, 7)}
+RTC_SHAPES = ((8, 128), (32768, 768))
+
+
+# one PyTorch call computing the same function as a user kernel
+RTC_LIBRARY = {
+    "axpy": ("torch.add(y, x, alpha=2.0)",
+             lambda torch, t: torch.add(t["y"], t["x"], alpha=2.0)),
+    "doubled": ("torch.mul(x, 2.0)", lambda torch, t: torch.mul(t["x"], 2.0)),
+    "ident": ("out.copy_(x)", lambda torch, t: t["out"].copy_(t["x"])),
+    "axpy_inplace": ("y.add_(x, alpha=0.3)",
+                     lambda torch, t: t["y"].add_(t["x"], alpha=0.3)),
+}
+
+
+def rtc_check(torch, tc, kernel, name, shape, seed):
+    """Launch ``kernel`` on fresh tensors; returns (tensors, largest
+    difference from the plain version over the arguments it writes)."""
+    import mxnet_tpu_torch as mx
+    t = tc.rtc_arrays(name, shape, seed, "cuda")
+    want = tc.rtc_plain(name, {a: v.clone() for a, v in t.items()})
+    tc.rtc_launch(kernel, name, t, mx.gpu(0))
+    torch.cuda.synchronize()
+    err = max((t[a] - v).abs().max().item() for a, v in want.items())
+    same = all(torch.equal(t[a], v) for a, v in want.items())
+    return t, err, same
+
+
+def phase_rtc(torch, mx, kernels, tc, timer, card):
+    """B8: one CudaModule of the user kernels compiled by NVRTC for sm_90a
+    with --fmad=false; the five of test_rtc.py and the reference's
+    docstring at (8, 128) and (32768, 768) f32 against their plain
+    versions, exactly (with one --fmad=true build's largest difference
+    beside it), timed with a cold L2; the host time per launch; and the
+    launches that must raise MXNetError."""
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.base import MXNetError
+    src = tc.rtc_source()
+    mod = rtc.CudaModule(src, options=("--fmad=false",))
+    fma = rtc.CudaModule(src, options=("--fmad=true",))
+    log("rtc.CudaModule(%s): NVRTC compile %.1f ms (--fmad=false), %.1f ms "
+        "(--fmad=true), %d-byte sm_90a cubin, options %s"
+        % (tc.RTC_SOURCE, mod.compile_ms, fma.compile_ms, len(mod._cubin),
+           " ".join(mod.options)))
+    rows = []
+    for name in tc.RTC_CHECKED:
+        k = mod.get_kernel(name, tc.RTC_SIGNATURES[name])
+        kf = fma.get_kernel(name, tc.RTC_SIGNATURES[name])
+        for shape in RTC_SHAPES:
+            seed = int(np.prod(shape)) + len(name)
+            t, err, same = rtc_check(torch, tc, k, name, shape, seed)
+            check(same, "rtc %s at %s differs from its plain version: "
+                  "max_abs_err %.3g" % (name, shape, err))
+            _, fma_err, _ = rtc_check(torch, tc, kf, name, shape, seed)
+            n = int(np.prod(shape))
+            nbytes, ops = RTC_COST[name]
+            b, by = bound_ms(nbytes * n, ops * n)
+            label, lib = RTC_LIBRARY.get(name, (
+                "none: no single PyTorch call writes both outputs", None))
+            ctx = mx.gpu(0)
+            rows.append({
+                "name": "rtc", "route": "cuda",
+                "source": tc.RTC_SOURCE, "launcher": "mxnet_tpu_torch/rtc.py",
+                "replaces": "mxnet_tpu/rtc.py:74", "user_kernel": name,
+                "shape": "%s f32" % (shape,), "max_abs_err": err,
+                "fmad_true_max_abs_err": fma_err,
+                "ms": timer(lambda: tc.rtc_launch(k, name, t, ctx)),
+                "plain_ms": timer(lambda: tc.rtc_plain(name, t)),
+                "bound_ms": b, "bound_by": by,
+                "library_ms": timer(lambda: lib(torch, t)) if lib else None,
+                "library_call": label})
+            del t
+    for r in rows:
+        log("  rtc %-13s %-20s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%s err=%g fmad=true err=%g [%s]"
+            % (r["user_kernel"], r["shape"], r["ms"], r["plain_ms"],
+               r["bound_ms"], r["bound_by"],
+               "%.4f" % r["library_ms"] if r["library_ms"] else "-",
+               r["max_abs_err"], r["fmad_true_max_abs_err"], card))
+    # host cost of one launch: signature checks, kernelParams, the call
+    k = mod.get_kernel("ident", tc.RTC_SIGNATURES["ident"])
+    x = mx.nd.NDArray(torch.randn(8, 128, device="cuda"))
+    o = mx.nd.NDArray(torch.zeros(8, 128, device="cuda"))
+    args, grid, block = [x, o, 1024], (4, 1, 1), (256, 1, 1)
+    for _ in range(50):
+        k.launch(args, mx.gpu(0), grid, block)
+    torch.cuda.synchronize()
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        k.launch(args, mx.gpu(0), grid, block)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    log("rtc CudaKernel.launch host cost: %.2f us per launch (ident at "
+        "(8, 128), %d launches back to back) [%s]" % (host_us, reps, card))
+    # each of these must raise and launch nothing
+    before = kernels.LAUNCHES["rtc"]
+    refused = {
+        "a CPU context": (args, mx.cpu(), block),
+        "a dtype mismatch": ([mx.nd.NDArray(x.handle.double()), o, 1024],
+                             mx.gpu(0), block),
+        "a non-contiguous NDArray": ([mx.nd.NDArray(x.handle.t()), o, 1024],
+                                     mx.gpu(0), block),
+        "a 2048-thread block": (args, mx.gpu(0), (2048, 1, 1)),
+    }
+    for what, (a, ctx, blk) in refused.items():
+        try:
+            k.launch(a, ctx, grid, blk)
+        except MXNetError as e:
+            log("  refused %s: %s" % (what, str(e).splitlines()[0][:120]))
+        else:
+            fail("rtc launch with %s did not raise MXNetError" % what)
+    try:
+        rtc.CudaModule('extern "C" __global__ void k(float *x) { x[0] = y; }')
+    except MXNetError as e:
+        log("  refused a source that does not compile: %s"
+            % " | ".join(str(e).splitlines()[:2])[:160])
+    else:
+        fail("a CUDA source that does not compile did not raise MXNetError")
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["rtc"] == before, "a refused launch was counted")
+    return rows, host_us, mod.compile_ms
+
+
+def phase_nd_parity(torch, tc, card):
+    """Every op case of the five op modules through mx.nd on the card and
+    on the CPU from the same numpy inputs, within the CPU parity tests'
+    tolerances; random ops by shape, dtype and same-seed reproducibility
+    on the card."""
+    worst = {}
+    keys = sorted(tc.OP_CASES)
+    for key in keys:
+        _, case = tc.op_case(key)
+        card_out = tc.run_port(key, "cuda")
+        cpu_out = tc.run_port(key, "cpu")
+        check(len(card_out) == len(cpu_out), "%s: output count" % key)
+        for c, h in zip(card_out, cpu_out):
+            if case["random"]:
+                check(c.shape == h.shape and c.dtype == h.dtype,
+                      "%s: %s %s on the card, %s %s on the CPU"
+                      % (key, c.shape, c.dtype, h.shape, h.dtype))
+                continue
+            tol = max(case["tol"], tc.ARITH) if case["tol"] else 0.0
+            try:
+                err = tc.compare(c, h, tol)
+            except AssertionError as e:
+                fail("nd.%s on the card vs the CPU: %s" % (key, e))
+            worst[tol] = max(worst.get(tol, 0.0), err)
+        if case["random"]:
+            again = tc.run_port(key, "cuda")
+            check(all(np.array_equal(a, b) for a, b in zip(card_out, again)),
+                  "%s: the same seed gave other draws on the card" % key)
+    log("nd ops card vs cpu: %d cases (%d random) agree; largest "
+        "difference by tolerance: %s [%s]"
+        % (len(keys), sum(tc.op_case(k)[1]["random"] for k in keys),
+           ", ".join("tol %g: %.3g" % kv for kv in sorted(worst.items())),
+           card))
+
+
+def phase_imperative(torch, mx, kernels, tc, get_symbol, timer, card):
+    """The imperative path at the full width of the LM: its 198 parameter
+    arrays as mx.nd arrays on the card from mx.random.seed(0) with
+    nd.random.normal (gradients and momenta likewise), a little NDArray
+    arithmetic, 5 steps of momentum SGD each launching the user's
+    CudaModule kernel sgd_mom once per array, held against
+    nd.sgd_mom_update on copies, then nd.save of the updated weights and
+    nd.load back, bit for bit."""
+    import shutil
+    import tempfile
+    net = get_symbol(**TRAIN)
+    arg_shapes, _, _ = net.infer_shape(data=(8, TRAIN["seq_len"]),
+                                       softmax_label=(8, TRAIN["seq_len"]))
+    shapes = [(n, tuple(s)) for n, s in zip(net.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")]
+    total = sum(int(np.prod(s)) for _, s in shapes)
+    check(len(shapes) == 198, "%d parameter arrays, want 198" % len(shapes))
+    steps, ctx, hp = 5, mx.gpu(0), tc.SGD
+    import gc
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9    # by earlier phases
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    w = [mx.nd.random.normal(0, 0.02, shape=s, ctx=ctx) for _, s in shapes]
+    g = [mx.nd.random.normal(0, 1, shape=s, ctx=ctx) * 1e-3
+         for _, s in shapes]
+    m = [mx.nd.random.normal(0, 1, shape=s, ctx=ctx) * 1e-4
+         for _, s in shapes]
+    gnorm = float(np.sqrt(sum(mx.nd.sum(x * x).asscalar() for x in g)))
+    head = w[[n for n, _ in shapes].index("head_weight")]
+    probe = mx.nd.dot(mx.nd.ones((8, TRAIN["hidden"]), ctx=ctx), head,
+                      transpose_b=True)
+    check(probe.shape == (8, TRAIN["vocab_size"])
+          and np.isfinite(probe.asnumpy()).all(), "nd.dot probe")
+    w_ref = [x.copy() for x in w]
+    m_ref = [x.copy() for x in m]
+    mx.nd.waitall()
+    log("imperative: %d arrays, %d parameters (%.1f MB each of w, g, m), "
+        "made with nd.random.normal in %.2f s; gradient norm %.6f"
+        % (len(shapes), total, total * 4 / 1e6, time.perf_counter() - t0,
+           gnorm))
+    # the user writes the kernel as a string and compiles it
+    mod = mx.rtc.CudaModule(tc.rtc_source(), options=("--fmad=false",))
+    k = mod.get_kernel("sgd_mom", tc.RTC_SIGNATURES["sgd_mom"])
+    scal = [hp["lr"], hp["momentum"], hp["wd"], hp["rescale"], hp["clip"]]
+    launch = []
+    for wi, gi, mi in zip(w, g, m):
+        n = wi.size
+        grid, block = tc.rtc_grid("sgd_mom", n)
+        launch.append(([wi, gi, mi] + scal + [n], grid, block))
+
+    def kernel_step():
+        for args, grid, block in launch:
+            k.launch(args, ctx, grid, block)
+
+    def op_step():
+        for wi, gi, mi in zip(w_ref, g, m_ref):
+            mx.nd.sgd_mom_update(wi, gi, mi, lr=hp["lr"],
+                                 momentum=hp["momentum"], wd=hp["wd"],
+                                 rescale_grad=hp["rescale"],
+                                 clip_gradient=hp["clip"])
+
+    def run(step_fn):
+        dev_ms, host_ms = [], []
+        for _ in range(steps):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            s.record()
+            step_fn()
+            h1 = time.perf_counter()
+            e.record()
+            e.synchronize()
+            dev_ms.append(s.elapsed_time(e))
+            host_ms.append((h1 - h0) * 1e3)
+        return dev_ms, host_ms
+
+    k_dev, k_host = run(kernel_step)
+    got = dict(kernels.LAUNCHES)
+    o_dev, o_host = run(op_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    check(got["rtc"] == steps * len(shapes),
+          "sgd_mom launched %d times, want %d" % (got["rtc"],
+                                                   steps * len(shapes)))
+    worst, equal = 0.0, 0
+    for (name, _), a, b, ma, mb in zip(shapes, w, w_ref, m, m_ref):
+        for x, y in ((a, b), (ma, mb)):
+            scale = y.handle.abs().max().item()
+            err = (x.handle - y.handle).abs().max().item()
+            check(err <= 1e-6 * scale, "%s: CudaModule SGD vs "
+                  "nd.sgd_mom_update differ by %.3g (scale %.3g)"
+                  % (name, err, scale))
+            worst = max(worst, err / scale)
+            equal += torch.equal(x.handle, y.handle)
+    nbytes = 5 * 4 * total
+    bound = nbytes / HBM_BYTES_S * 1e3
+    log("CudaModule sgd_mom vs nd.sgd_mom_update over %d steps: %d of %d "
+        "tensors bit-equal, largest difference %.3g of the tensor's largest "
+        "magnitude (limit 1e-6)" % (steps, equal, 2 * len(shapes), worst))
+    log("per step, %d sgd_mom launches: device %.3f ms median (%.3f-%.3f) "
+        "against a %.3f ms bound (%.1f MB at 3.35 TB/s, %.0f%% of it); host "
+        "%.3f ms median for the launches; nd.sgd_mom_update: device %.3f ms "
+        "(%.3f-%.3f), host %.3f ms; peak memory %.2f GB above the %.2f GB "
+        "that earlier phases still hold [%s]"
+        % (len(shapes), statistics.median(k_dev), min(k_dev), max(k_dev),
+           bound, nbytes / 1e6, 100 * bound / statistics.median(k_dev),
+           statistics.median(k_host), statistics.median(o_dev), min(o_dev),
+           max(o_dev), statistics.median(o_host), peak, held, card))
+    # save the updated weights and load them back
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_params_")
+    try:
+        fname = os.path.join(tmp, "lm-0005.params")
+        params = {"arg:" + n: x for (n, _), x in zip(shapes, w)}
+        t0 = time.perf_counter()
+        mx.nd.save(fname, params)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(fname)
+        t0 = time.perf_counter()
+        back = mx.nd.load(fname)
+        mx.nd.waitall()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(list(back) == list(params), "nd.load: names or order differ")
+    for n, x in params.items():
+        check(back[n].context == ctx and torch.equal(back[n].handle,
+                                                     x.handle),
+              "nd.load: %s differs from what was saved" % n)
+    log("nd.save of the %d updated weights: %.1f MB in %.2f s; nd.load "
+        "back onto the card %.2f s; bit-equal" % (len(params), size / 1e6,
+                                                  save_s, load_s))
+    # B8's row for the path's kernel, at its largest array
+    shape = max((s for _, s in shapes), key=lambda s: int(np.prod(s)))
+    t, err, same = rtc_check(torch, tc, k, "sgd_mom", shape, 17)
+    check(same, "sgd_mom at %s differs from its plain version" % (shape,))
+    fma = mx.rtc.CudaModule(tc.rtc_source(), options=("--fmad=true",))
+    _, fma_err, _ = rtc_check(torch, tc, fma.get_kernel(
+        "sgd_mom", tc.RTC_SIGNATURES["sgd_mom"]), "sgd_mom", shape, 17)
+    n = int(np.prod(shape))
+    b, by = bound_ms(RTC_COST["sgd_mom"][0] * n, RTC_COST["sgd_mom"][1] * n)
+    row = {"name": "rtc", "route": "cuda", "source": tc.RTC_SOURCE,
+           "launcher": "mxnet_tpu_torch/rtc.py",
+           "replaces": "mxnet_tpu/rtc.py:74", "user_kernel": "sgd_mom",
+           "shape": "w/g/m %s f32 (the largest of the 198)" % (shape,),
+           "max_abs_err": err, "fmad_true_max_abs_err": fma_err,
+           "ms": timer(lambda: tc.rtc_launch(k, "sgd_mom", t, ctx)),
+           "plain_ms": timer(lambda: tc.rtc_plain("sgd_mom", t)),
+           "bound_ms": b, "bound_by": by, "library_ms": None,
+           "library_call": "none: no single PyTorch call updates w and m",
+           "step_ms": statistics.median(k_dev), "step_bound_ms": bound}
+    log("  rtc sgd_mom %s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) err=%g "
+        "fmad=true err=%g [%s]" % (row["shape"], row["ms"], row["plain_ms"],
+                                   b, by, err, fma_err, card))
+    del w, g, m, w_ref, m_ref, back, params, t
+    return got, row
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
              "CUDA card and never falls back to the CPU")
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "mxnet_tpu_torch", "csrc")):
-        fail("mxnet_tpu_torch/ is not beside chip_smoke.py; run it from a "
-             "checkout of the repository")
+    if not os.path.isdir(os.path.join(here, "mxnet_tpu_torch", "csrc")) \
+            or not os.path.isfile(os.path.join(here, "tests",
+                                               "torch_cases.py")):
+        fail("mxnet_tpu_torch/ and tests/ are not beside chip_smoke.py; run "
+             "it from a checkout of the repository")
     sys.path.insert(0, here)
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_cases as tc
     import torch.nn.functional as F
     from mxnet_tpu_torch.analysis.costmodel import (
         decode_step_model, transformer_flops_per_step)
@@ -1723,6 +2073,21 @@ def main():
     with phase("14 Module.fit at full width"):
         launches["module"] = phase_module_fit(torch, mx, kernels, tkv,
                                               get_symbol, trainer_ms, card)
+        torch.cuda.empty_cache()
+
+    with phase("15 rtc kernels vs plain"):
+        timer = Timer(torch)
+        rtc_rows, _, _ = phase_rtc(torch, mx, kernels, tc, timer, card)
+        rows += rtc_rows
+        torch.cuda.empty_cache()
+
+    with phase("16 nd ops card vs cpu"):
+        phase_nd_parity(torch, tc, card)
+
+    with phase("17 imperative path at full width"):
+        launches["imperative"], row = phase_imperative(
+            torch, mx, kernels, tc, get_symbol, timer, card)
+        rows.append(row)
         torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------

@@ -26,12 +26,19 @@ Ported so far (ROADMAP.md):
 * the Module slice — the classic MXNet API (``mx.mod.Module(net,
   compression_params=...)``, ``mx.io.NDArrayIter``,
   ``mx.kv.create("device")``, ``Module.fit``) training the LM on one card,
-  with the kvstore's two-bit gradient compression kernel.
+  with the kvstore's two-bit gradient compression kernel;
+* the imperative slice -- ``mx.nd`` arrays and the general op modules
+  (creation, elementwise, broadcast and reduce, matrix, random),
+  ``mx.random``, ``mx.engine``, ``nd.save`` / ``nd.load`` in the
+  reference's byte format, and ``mx.rtc.CudaModule``, which compiles a
+  user's CUDA source with NVRTC for ``sm_90a`` and launches its kernels
+  over NDArrays.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
 ``mx.sym``, ``mx.kv``, ``mx.io``, ``mx.mod``, ``mx.metric``, ``mx.init``,
-``mx.optimizer``, ``mx.callback``, ``mx.cpu`` / ``mx.gpu``) are loaded on
+``mx.optimizer``, ``mx.callback``, ``mx.random``, ``mx.rtc``,
+``mx.engine``, ``mx.cpu`` / ``mx.gpu``) are loaded on
 first use, so ``import mxnet_tpu_torch`` imports no torch.
 """
 import importlib as _importlib
@@ -40,7 +47,8 @@ from .base import DeviceUnavailable, MXNetError, NotPortedYet
 
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
            "kv", "io", "mod", "metric", "init", "optimizer", "callback",
-           "model", "cpu", "gpu", "Context", "current_context"]
+           "model", "random", "rtc", "engine", "cpu", "gpu", "Context",
+           "current_context"]
 
 # attribute -> (module, name in it or None for the module itself)
 _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
@@ -51,6 +59,8 @@ _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
          "init": ("initializer", None), "initializer": ("initializer", None),
          "optimizer": ("optimizer", None), "callback": ("callback", None),
          "model": ("model", None), "context": ("context", None),
+         "random": ("random", None), "rtc": ("rtc", None),
+         "engine": ("engine", None),
          "cpu": ("context", "cpu"), "gpu": ("context", "gpu"),
          "Context": ("context", "Context"),
          "current_context": ("context", "current_context")}

@@ -102,11 +102,15 @@ def context_of(obj) -> Context:
 
 
 def as_torch_device(ctx):
-    """A Context, a torch device, a device string or None (the current
+    """A Context, its string form (``"gpu(0)"``, as an op's ``ctx`` attr
+    holds it), a torch device, a device string or None (the current
     context) -> ``torch.device``."""
     import torch
     if ctx is None:
         ctx = current_context()
+    if isinstance(ctx, str) and ctx.endswith(")"):
+        kind, _, idx = ctx[:-1].partition("(")
+        ctx = Context(kind, int(idx or 0))
     if isinstance(ctx, Context):
         return ctx.torch_device
     return resolve_device(torch.device(ctx))

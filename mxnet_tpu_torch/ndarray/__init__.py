@@ -1,15 +1,66 @@
-"""``mx.nd`` namespace (port of ``mxnet_tpu/ndarray``): the NDArray and
-the creation functions the Module/KVStore path needs.  The JAX package's
-other names (``ones``, ``full``, ``arange``, ``save``, ``load``, the op
-wrappers, ``sparse``, ...) raise
-:class:`~mxnet_tpu_torch.base.NotPortedYet` when asked for (ROADMAP A2)."""
-from ..base import NotPortedYet as _NotPortedYet
-from .ndarray import NDArray, array, empty, invoke_with_arrays, zeros
+"""``mx.nd`` namespace (port of ``mxnet_tpu/ndarray``): the NDArray, the
+creation and I/O functions, every registered op as a function
+(``populate_module``), ``maximum`` ... ``power``, and ``mx.nd.random``.
+``sparse``, ``linalg`` and ``contrib`` raise
+:class:`~mxnet_tpu_torch.base.NotPortedYet` when asked for (ROADMAP A9,
+A3)."""
+import sys as _sys
 
-__all__ = ["NDArray", "array", "empty", "invoke_with_arrays", "zeros"]
+from .. import ops as _ops  # noqa: F401  (registers the ops)
+from ..base import NotPortedYet as _NotPortedYet
+from .ndarray import (NDArray, arange, array, concatenate,  # noqa: F401
+                      empty, eye, full, imperative_invoke,
+                      invoke_with_arrays, load, moveaxis, ones,
+                      populate_module, save, stack_nd, waitall, zeros)
+
+populate_module(_sys.modules[__name__])
+
+from . import random  # noqa: E402,F401
+
+
+def _pair(lhs, rhs, same, bcast, scalar):
+    if isinstance(lhs, NDArray) and isinstance(rhs, NDArray):
+        name = same if lhs.shape == rhs.shape else bcast
+        return invoke_with_arrays(name, [lhs, rhs], {})
+    if isinstance(lhs, NDArray):
+        return invoke_with_arrays(scalar, [lhs], dict(scalar=float(rhs)))
+    return invoke_with_arrays(scalar, [rhs], dict(scalar=float(lhs)))
+
+
+def maximum(lhs, rhs):
+    return _pair(lhs, rhs, "_maximum", "broadcast_maximum",
+                 "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _pair(lhs, rhs, "_minimum", "broadcast_minimum",
+                 "_minimum_scalar")
+
+
+def add(lhs, rhs):
+    return lhs + rhs
+
+
+def subtract(lhs, rhs):
+    return lhs - rhs
+
+
+def multiply(lhs, rhs):
+    return lhs * rhs
+
+
+def divide(lhs, rhs):
+    return lhs / rhs
+
+
+def power(lhs, rhs):
+    return lhs ** rhs
 
 
 def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise _NotPortedYet("mx.nd.%s is not ported yet (ROADMAP A2)" % name)
+    if name in ("sparse", "linalg", "contrib", "cast_storage",
+                "sparse_retain", "csr_matrix", "row_sparse_array",
+                "BaseSparseNDArray", "CSRNDArray", "RowSparseNDArray"):
+        raise _NotPortedYet("mx.nd.%s is not ported yet (sparse storage: "
+                            "ROADMAP A9; linalg and contrib ops: A3)" % name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

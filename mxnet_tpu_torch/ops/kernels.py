@@ -49,12 +49,13 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
 
 # launches per kernel; quant_matmul's two template instantiations count
 # apart, the flash forward counts with and without the lse alike, and the
-# embedding kernels (``mxnet_tpu_torch.sparse.kernels``) count here too
+# embedding kernels (``mxnet_tpu_torch.sparse.kernels``) and the user
+# kernels of ``rtc.CudaModule`` (all under "rtc") count here too
 LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "quant_matmul_int4": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "embedding_gather": 0, "embedding_scatter": 0,
-            "two_bit_compress": 0}
+            "two_bit_compress": 0, "rtc": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}

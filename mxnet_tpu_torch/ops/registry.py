@@ -10,10 +10,20 @@ cache keyed on the attrs.  Op schemas are the typed ``params`` dict
 (:class:`~mxnet_tpu_torch.base.Param`), parsed identically from Python
 values and from Symbol attr strings.
 
-Only what the ported graphs and optimizers use is here: no op of the
-port needs a random key or a variadic input list yet, and eager PyTorch
-keeps no compile cache that a per-step attr (a scheduled lr or wd) would
-have to bypass, so those declarations of the reference are not accepted.
+Stateful concerns are declared, as in the JAX package:
+
+* ``needs_rng`` -- the op receives a ``torch.Generator`` for its output's
+  device as an implicit first input, where the JAX op receives a PRNG key
+  (:func:`mxnet_tpu_torch.rng.next_generator`);
+* ``variadic`` -- the op takes ``num_args`` inputs (``add_n``,
+  ``Concat``, ``stack``);
+* ``mode_dependent`` -- the op's behaviour differs in training and
+  prediction (kept as a flag; no op of the port reads it yet).
+
+An op with no tensor input (the creation and random ops) finds the device
+to create its output on with :func:`device_of`.  Eager PyTorch keeps no
+compile cache that a per-step attr (a scheduled lr or wd) would have to
+bypass, so the JAX package's ``dynamic_params`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -21,8 +31,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 from ..base import MXNetError, Param, _Null
 
-__all__ = ["Operator", "register", "get_op", "list_ops", "AttrDict",
-           "apply_op"]
+__all__ = ["Operator", "register", "get_op", "list_ops", "alias",
+           "AttrDict", "apply_op", "device_of"]
 
 
 class AttrDict(dict):
@@ -44,8 +54,11 @@ class Operator:
     def __init__(self, name: str, fn: Callable,
                  params: Optional[Dict[str, Param]] = None,
                  inputs: Union[Sequence[str], Callable] = ("data",),
-                 num_outputs: int = 1,
-                 num_visible_outputs: Optional[int] = None,
+                 num_outputs: Union[int, Callable] = 1,
+                 num_visible_outputs: Union[int, Callable, None] = None,
+                 needs_rng: bool = False,
+                 mode_dependent: bool = False,
+                 variadic: bool = False,
                  writeback: Optional[Dict[int, int]] = None,
                  aux_inputs: Sequence[int] = (),
                  doc: str = ""):
@@ -55,6 +68,9 @@ class Operator:
         self._inputs = inputs
         self._num_outputs = num_outputs
         self._num_visible_outputs = num_visible_outputs
+        self.needs_rng = needs_rng
+        self.mode_dependent = mode_dependent
+        self.variadic = variadic
         # {input_index: output_index}: output j is the new value of aux
         # input i (the functional form of the reference's FMutateInputs)
         self.writeback = dict(writeback or {})
@@ -83,12 +99,20 @@ class Operator:
                              % (k, self.name))
         return out
 
-    def list_inputs(self, attrs: Optional[AttrDict] = None) -> List[str]:
+    def list_inputs(self, attrs: Optional[AttrDict] = None,
+                    num_args: Optional[int] = None) -> List[str]:
         if callable(self._inputs):
             return list(self._inputs(attrs))
+        if self.variadic:
+            if num_args is None and attrs:
+                num_args = attrs.get("num_args")
+            if num_args is not None:
+                return ["arg%d" % i for i in range(num_args)]
         return list(self._inputs)
 
     def num_outputs(self, attrs: Optional[AttrDict] = None) -> int:
+        if callable(self._num_outputs):
+            return self._num_outputs(attrs)
         return self._num_outputs
 
     def writeback_map(self, attrs: Optional[AttrDict] = None) -> Dict[int,
@@ -101,6 +125,8 @@ class Operator:
     def num_visible_outputs(self, attrs: Optional[AttrDict] = None) -> int:
         if self._num_visible_outputs is None:
             return self.num_outputs(attrs)
+        if callable(self._num_visible_outputs):
+            return self._num_visible_outputs(attrs)
         return self._num_visible_outputs
 
     def __repr__(self):
@@ -108,16 +134,19 @@ class Operator:
 
 
 def register(name: str, *, params=None, inputs=("data",), num_outputs=1,
-             num_visible_outputs=None, writeback=None, aux_inputs=(),
-             aliases=()):
-    """Decorator registering ``fn(attrs, *tensors)`` as operator ``name``."""
+             num_visible_outputs=None, needs_rng=False, mode_dependent=False,
+             variadic=False, writeback=None, aux_inputs=(), aliases=()):
+    """Decorator registering ``fn(attrs, *tensors)`` as operator ``name``
+    (``fn(attrs, generator, *tensors)`` when ``needs_rng``), also under
+    each of ``aliases``."""
 
     def deco(fn):
         op = Operator(name, fn, params=params, inputs=inputs,
                       num_outputs=num_outputs,
                       num_visible_outputs=num_visible_outputs,
-                      writeback=writeback, aux_inputs=aux_inputs,
-                      doc=fn.__doc__ or "")
+                      needs_rng=needs_rng, mode_dependent=mode_dependent,
+                      variadic=variadic, writeback=writeback,
+                      aux_inputs=aux_inputs, doc=fn.__doc__ or "")
         if name in _REGISTRY:
             raise MXNetError("Operator %s already registered" % name)
         _REGISTRY[name] = op
@@ -126,6 +155,14 @@ def register(name: str, *, params=None, inputs=("data",), num_outputs=1,
         return fn
 
     return deco
+
+
+def alias(existing: str, *new_names: str):
+    """Register ``new_names`` for the op already registered as
+    ``existing``."""
+    op = get_op(existing)
+    for n in new_names:
+        _REGISTRY[n] = op
 
 
 def get_op(name: str) -> Operator:
@@ -142,3 +179,13 @@ def list_ops() -> List[str]:
 def apply_op(op: Operator, attrs: AttrDict, *tensors):
     """Apply ``op`` to torch tensors (eager; autograd records it)."""
     return op.fn(attrs, *tensors)
+
+
+def device_of(attrs: AttrDict):
+    """The device an op with no tensor input creates its output on: the
+    ``_device`` the imperative layer resolved for it, else the op's
+    ``ctx`` attr (``"cpu(0)"``, ``"gpu(1)"``), else the current context
+    (the card)."""
+    from ..context import as_torch_device
+    dev = attrs.get("_device")
+    return dev if dev is not None else as_torch_device(attrs.get("ctx"))

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, List, Optional, Sequence
 
-from ..base import AttrScope, MXNetError, _Null, dtype_name
+from ..base import AttrScope, MXNetError, NotPortedYet, _Null, dtype_name
 from ..name import NameManager
 from ..ops.registry import AttrDict, Operator, get_op
 
@@ -288,6 +288,10 @@ def create(op_name: str, input_syms: Sequence[Symbol],
     kwargs by name, and a missing input becomes a variable named
     ``<node name>_<input name>``."""
     op = get_op(op_name)
+    if op.needs_rng:
+        raise NotPortedYet("%s: random ops inside a Symbol graph are not "
+                           "ported yet (ROADMAP A3); use mx.nd.random"
+                           % op_name)
     kwargs = {k: v for k, v in kwargs.items()
               if v is not None and v is not _Null}
     attr = kwargs.pop("attr", None)

@@ -72,7 +72,14 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.module.executor_group",
                  "mxnet_tpu_torch.module.base_module",
                  "mxnet_tpu_torch.module.module",
-                 "mxnet_tpu_torch.callback"):
+                 "mxnet_tpu_torch.callback",
+                 "mxnet_tpu_torch.rtc", "mxnet_tpu_torch.rng",
+                 "mxnet_tpu_torch.random", "mxnet_tpu_torch.engine",
+                 "mxnet_tpu_torch.ndarray.random",
+                 "mxnet_tpu_torch.ndarray.serialization",
+                 "mxnet_tpu_torch.ops.init_ops",
+                 "mxnet_tpu_torch.ops.elemwise",
+                 "mxnet_tpu_torch.ops.random_ops"):
         assert want in mods
 
 
@@ -83,6 +90,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "for name in %r:" % (_all_modules(),),
         "    importlib.import_module(name)",
         "import chip_smoke",
+        "sys.path.insert(0, %r)" % os.path.join(ROOT, "tests"),
+        "import torch_cases",
+        "import mxnet_tpu_torch as mx",
+        "mods = (mx.nd, mx.random, mx.rtc, mx.engine, mx.nd.random)",
+        "assert len([n for n in dir(mx.nd) if not n.startswith('__')]) > 250",
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'jaxlib'"
         " or m.startswith('jaxlib.') or m == 'mxnet_tpu'"
@@ -180,6 +192,17 @@ def test_entry_points_default_to_the_card():
     assert mx.kv.create("device", device="cpu").device.type == "cpu"
     with mx.cpu():
         assert mx.nd.zeros((2, 3)).context == mx.cpu()
+    # the imperative API: creation, random draws and loads default to the
+    # card too; CudaModule has no CPU path
+    for call in (lambda: mx.nd.ones((2,)), lambda: mx.nd.random.normal(
+            shape=(2,)), lambda: mx.nd.arange(3), lambda: mx.nd._zeros(
+            shape=(2,)), lambda: mx.nd.load(os.devnull)):
+        with pytest.raises(DeviceUnavailable):
+            call()
+    with pytest.raises(MXNetError):
+        mx.rtc.CudaModule('extern "C" __global__ void k() {}')
+    with mx.cpu():
+        assert mx.nd.random.normal(shape=(2,)).context == mx.cpu()
 
 
 def _run_smoke(cwd):

@@ -4,8 +4,11 @@ flash-attention kernels (forward, dQ, dK/dV), the embedding gather and
 scatter and the two-bit gradient compression at ragged and odd shapes
 that the full-width smoke run does not reach, a small decode step and a
 small recommender step on the card against the same steps on the CPU,
-a compressing KVStore push on the card, and a Module that lands on the
-card when given no context.
+a compressing KVStore push on the card, a Module that lands on the
+card when given no context, and the imperative slice: the user kernels
+of ``rtc.CudaModule`` against their plain versions (exactly), its
+errors, exports and large shared memory, every ``mx.nd`` op case on the
+card against the CPU, and ``nd.save`` / ``nd.load`` on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -500,3 +503,152 @@ def test_module_without_a_context_lands_on_the_card(dev):
     ex = mod._exec_group.execs[0]
     assert all(a.handle.device.type == "cuda" for a in ex.arg_arrays)
     assert mx.current_context().device_type == "gpu"
+
+
+# ---------------------------------------------------------------------------
+# the imperative slice: rtc.CudaModule (B8) and mx.nd on the card
+# ---------------------------------------------------------------------------
+
+_RTC = {}
+
+
+def _rtc_module(options=("--fmad=false",)):
+    """One CudaModule of the user kernels per option set (compiled once)."""
+    from mxnet_tpu_torch import rtc
+    import torch_cases as tc
+    if options not in _RTC:
+        _RTC[options] = rtc.CudaModule(tc.rtc_source(), options=options)
+    return _RTC[options]
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (1000, 3), (1,)],
+                         ids=["8x128", "ragged-3000", "n1"])
+@pytest.mark.parametrize("name", ["axpy", "doubled", "split_sign", "ident",
+                                  "axpy_inplace", "sgd_mom"])
+def test_rtc_user_kernel_equals_plain(dev, name, shape):
+    """Each user kernel, compiled by NVRTC with --fmad=false, equals its
+    plain PyTorch version bit for bit; one launch counted."""
+    import mxnet_tpu_torch as mx
+    import torch_cases as tc
+    mod = _rtc_module()
+    k = mod.get_kernel(name, tc.RTC_SIGNATURES[name])
+    t = tc.rtc_arrays(name, shape, sum(shape), dev)
+    want = tc.rtc_plain(name, {a: v.clone() for a, v in t.items()})
+    before = kernels.LAUNCHES["rtc"]
+    tc.rtc_launch(k, name, t, mx.gpu(0))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rtc"] == before + 1
+    for arg, v in want.items():
+        assert torch.equal(t[arg], v), (name, arg)
+
+
+def test_rtc_errors(dev):
+    """A CPU context, a wrong dtype, a non-contiguous array, an array on
+    the CPU, a refused launch (2048 threads), a failed compile and a
+    missing kernel each raise MXNetError; none launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    from mxnet_tpu_torch.base import MXNetError
+    import torch_cases as tc
+    k = _rtc_module().get_kernel("ident", tc.RTC_SIGNATURES["ident"])
+    x = mx.nd.NDArray(torch.randn(8, 128, device=dev))
+    o = mx.nd.NDArray(torch.zeros(8, 128, device=dev))
+    good = ((4, 1, 1), (256, 1, 1))
+    before = kernels.LAUNCHES["rtc"]
+    bad = [
+        ([x, o, 1024], mx.cpu(), good),
+        ([mx.nd.NDArray(x.handle.double()), o, 1024], mx.gpu(0), good),
+        ([mx.nd.NDArray(x.handle.t()), o, 1024], mx.gpu(0), good),
+        ([mx.nd.NDArray(x.handle.cpu()), o, 1024], mx.gpu(0), good),
+        ([x, o, x], mx.gpu(0), good),
+        ([x, o, 1024], mx.gpu(0), ((4, 1, 1), (2048, 1, 1))),
+    ]
+    for args, ctx, (grid, block) in bad:
+        with pytest.raises(MXNetError):
+            k.launch(args, ctx, grid, block)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rtc"] == before
+    with pytest.raises(MXNetError, match="compile"):
+        rtc.CudaModule('extern "C" __global__ void k(float *x) { x[0] = y; }')
+    with pytest.raises(MXNetError, match="nope"):
+        _rtc_module().get_kernel("nope", "float *x")
+    # the module still launches after the refused calls
+    k.launch([x, o, 1024], mx.gpu(0), *good)
+    torch.cuda.synchronize()
+    assert torch.equal(o.handle, x.handle)
+
+
+def test_rtc_exports_and_large_shared_memory(dev):
+    """A template kernel found through ``exports`` (its lowered name), and
+    a launch with 64 KB of dynamic shared memory (above the 48 KB that
+    needs cuFuncSetAttribute)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc
+    src = r'''
+    template <typename T> __global__ void scale(T *x, T a, int n) {
+      int i = blockIdx.x * blockDim.x + threadIdx.x;
+      if (i < n) x[i] = x[i] * a;
+    }
+    extern "C" __global__ void reverse_block(const float *x, float *y) {
+      extern __shared__ float buf[];
+      int n = 16384, t = threadIdx.x;
+      for (int i = t; i < n; i += blockDim.x) buf[i] = x[i];
+      __syncthreads();
+      for (int i = t; i < n; i += blockDim.x) y[i] = buf[n - 1 - i];
+    }'''
+    mod = rtc.CudaModule(src, exports=("scale<float>", "scale<double>"))
+    x = torch.arange(1000, dtype=torch.float64, device=dev)
+    k = mod.get_kernel("scale<double>", "double *x, double a, int n")
+    k.launch([mx.nd.NDArray(x), 0.5, 1000], mx.gpu(0), (4, 1, 1),
+             (256, 1, 1))
+    y = torch.randn(16384, device=dev)
+    out = torch.empty_like(y)
+    r = mod.get_kernel("reverse_block", "const float *x, float *y")
+    r.launch([mx.nd.NDArray(y), mx.nd.NDArray(out)], mx.gpu(0), (1, 1, 1),
+             (512, 1, 1), shared_mem=16384 * 4)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.arange(1000, dtype=torch.float64,
+                                       device=dev) * 0.5)
+    assert torch.equal(out, y.flip(0))
+
+
+def test_nd_ops_on_card_match_cpu(dev):
+    """Every op case of the five op modules through mx.nd on the card and
+    on the CPU from the same numpy inputs, within its tolerance; random
+    ops by shape, dtype and same-seed reproducibility on the card."""
+    import torch_cases as tc
+    for key in sorted(tc.OP_CASES):
+        _, case = tc.op_case(key)
+        card = tc.run_port(key, dev)
+        cpu = tc.run_port(key, "cpu")
+        assert len(card) == len(cpu), key
+        for c, h in zip(card, cpu):
+            if case["random"]:
+                assert c.shape == h.shape and c.dtype == h.dtype, key
+            else:
+                tc.compare(c, h, max(case["tol"], tc.ARITH)
+                           if case["tol"] else 0.0)
+        if case["random"]:
+            again = tc.run_port(key, dev)
+            for a, b in zip(card, again):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_nd_save_load_on_card(dev, tmp_path):
+    """Arrays on the card save to the same bytes as their CPU copies and
+    load back onto the card bit for bit."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(5)
+    host = {"w": rs.randn(64, 33).astype(np.float32),
+            "i": rs.randint(-9, 9, size=(7,)).astype(np.int64),
+            "h": rs.randn(3, 2).astype(np.float16)}
+    on_card = {k: mx.nd.array(v, ctx=mx.gpu(0)) for k, v in host.items()}
+    f_card, f_cpu = str(tmp_path / "card.params"), str(tmp_path / "cpu.params")
+    mx.nd.save(f_card, on_card)
+    mx.nd.save(f_cpu, {k: mx.nd.array(v, ctx=mx.cpu())
+                       for k, v in host.items()})
+    assert open(f_card, "rb").read() == open(f_cpu, "rb").read()
+    back = mx.nd.load(f_card)
+    for k, v in host.items():
+        assert back[k].context == mx.gpu(0)
+        np.testing.assert_array_equal(back[k].asnumpy(), v)
