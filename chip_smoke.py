@@ -36,7 +36,11 @@ Phases, in order:
 6. the three flash-attention kernels (forward with the logsumexp, dQ,
    dK/dV) against their plain versions at the training shape (B8 T1024
    H12 D64, causal), a ragged T 1000 and a non-causal case, with times,
-   bounds and the ``scaled_dot_product_attention`` yardstick;
+   bounds (f32 and 3xTF32) and the ``scaled_dot_product_attention``
+   yardstick; before them the SASS of the two backward kernels (TF32
+   HMMA instructions, by ``cuobjdump -sass``), two launches of each
+   bit-equal, and inputs on which 1xTF32 einsums exceed the tolerance
+   that the kernels meet;
 7. one training step at full width and depth 2 (batch 2) on the card
    against the same step on the CPU (plain versions) from the same state;
 8. training at full width: L12, batch 8, one warm-up and five timed
@@ -83,7 +87,10 @@ Phases, in order:
     CPU context, a dtype mismatch, a non-contiguous array, a 2048-thread
     block and a source that does not compile, each raising MXNetError;
 16. every op case of the five general op modules (``tests/
-    torch_cases.py``) through ``mx.nd`` on the card against the CPU;
+    torch_cases.py``, with the variants at ids out of range, saturating
+    casts, NaN, integer remainder by zero and integer dtypes) through
+    ``mx.nd`` on the card against the CPU, and variadic ops (concat,
+    stack, add_n, khatri_rao) in a Symbol graph;
 17. the imperative path at full width: the LM's 198 parameter arrays
     (136.2 M) made with ``mx.random.seed(0)`` and ``nd.random.normal``
     on the card, gradients and momenta likewise, NDArray arithmetic,
@@ -117,6 +124,7 @@ import numpy as np
 
 HBM_BYTES_S = 3.35e12         # H100 SXM device memory rate
 F32_FLOPS_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 
 FULL = dict(vocab_size=32768, num_layers=12, hidden=768, heads=12,
             seq_len=1024, page_size=64, max_seqs=8)
@@ -583,7 +591,78 @@ def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out):
         pairs = Tq * Tk
     flops = units * B * H * pairs * D
     nbytes = (n_in + n_out) * B * Tq * H * D * 4 + 2 * B * H * Tq * 4
-    return bound_ms(nbytes, flops)
+    b, by = bound_ms(nbytes, flops)
+    # the same work in 3xTF32: three TF32 MMAs per f32 product
+    tc = max(nbytes / HBM_BYTES_S, 3 * flops / TF32_FLOPS_S) * 1e3
+    return b, by, tc
+
+
+def flash_sass_check(build, card):
+    """The two backward kernels run TF32 MMAs on the tensor cores: their
+    SASS (``cuobjdump -sass`` of the built library) holds HMMA
+    instructions of TF32 operands; the forward (f32 FMA) holds none."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    check(os.path.isfile(tool), "cuobjdump not found (PATH, "
+          "/usr/local/cuda/bin): the SASS check cannot run")
+    lib = build.build_kernels(["flash_attention"])["flash_attention"]
+    res = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, "cuobjdump -sass failed: %s" % res.stderr)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        got = {f: n for f, n in counts.items() if name in f}
+        check(got and all(n > 0 for n in got.values()),
+              "%s: no TF32 HMMA in its SASS (%s)" % (name, got))
+        log("SASS %s: TF32 HMMA instructions per instantiation %s"
+            % (name, sorted(got.values())))
+    fwd = [n for f, n in counts.items() if "flash_fwd_kernel" in f]
+    log("SASS flash_fwd_kernel: TF32 HMMA %s (f32 FMA) [%s]" % (fwd, card))
+
+
+def flash_tf32_cases(torch, kernels, card):
+    """Two launches of each backward kernel are bit-equal; and the
+    tolerance tells 3xTF32 from 1xTF32: on inputs whose logits reach
+    ~+-20 the plain einsums under ``allow_tf32`` exceed it, the kernels
+    stay inside it (as tests/test_torch_kernels_cuda.py)."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(21)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, 256, 2, 64).astype(
+        np.float32)).to(dev) for _ in range(4))
+    q, k = q * 2.5, k * 2.5
+    out, lse = kernels.flash_attention_fwd_plain(q, k, v, True)
+    delta = kernels.flash_delta(out, do)
+    runs = [(kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),)
+            + kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+            for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "two launches of the backward kernels gave different bits")
+    refs = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ratios = []
+    for name, got, t, ref in zip(("dq", "dk", "dv"), runs[0], tf32, refs):
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        ratios.append((name, (got - ref).abs().max().item() / tol,
+                       (t - ref).abs().max().item() / tol))
+    log("flash backward, logits to ~+-20: error / tolerance, kernel vs "
+        "1xTF32 einsums: %s; two launches bit-equal [%s]"
+        % (", ".join("%s %.3g vs %.3g" % r for r in ratios), card))
+    check(all(r[1] <= 1.0 for r in ratios),
+          "the 3xTF32 kernels exceed the tolerance on large logits")
+    check(max(r[2] for r in ratios) > 1.0,
+          "1xTF32 stays within the tolerance: it cannot tell them apart")
 
 
 def phase_flash(torch, kernels, F, timer, card):
@@ -640,9 +719,9 @@ def phase_flash(torch, kernels, F, timer, card):
             lib_out, (qt, kt, vt), dot, retain_graph=True))
         del lib_out
         src = "mxnet_tpu_torch/csrc/flash_attention.cu"
-        b_f, by_f = flash_bound(B, T, T, H, D, causal, 4, 3, 1)
-        b_q, by_q = flash_bound(B, T, T, H, D, causal, 6, 4, 1)
-        b_kv, by_kv = flash_bound(B, T, T, H, D, causal, 8, 4, 2)
+        b_f, by_f, tc_f = flash_bound(B, T, T, H, D, causal, 4, 3, 1)
+        b_q, by_q, tc_q = flash_bound(B, T, T, H, D, causal, 6, 4, 1)
+        b_kv, by_kv, tc_kv = flash_bound(B, T, T, H, D, causal, 8, 4, 2)
         shape = "q/k/v (B, T, H, D) = (%d, %d, %d, %d) f32, causal" % (
             B, T, H, D)
         per_step = TRAIN["num_layers"]
@@ -655,7 +734,8 @@ def phase_flash(torch, kernels, F, timer, card):
                                                             causal)),
             "plain_ms": timer(lambda: kernels.flash_attention_fwd_plain(
                 q, k, v, causal)),
-            "bound_ms": b_f, "bound_by": by_f, "library_ms": lib_fwd,
+            "bound_ms": b_f, "bound_by": by_f, "bound_tc_ms": tc_f,
+            "math": "f32 fma", "library_ms": lib_fwd,
             "library_call": "F.scaled_dot_product_attention(is_causal="
                             "True) f32 forward",
         }, {
@@ -667,7 +747,8 @@ def phase_flash(torch, kernels, F, timer, card):
                 q, k, v, do, ref_lse, delta, causal)),
             "plain_ms": timer(lambda: kernels.flash_attention_bwd_dq_plain(
                 q, k, v, do, ref_lse, delta, causal)),
-            "bound_ms": b_q, "bound_by": by_q, "library_ms": lib_bwd,
+            "bound_ms": b_q, "bound_by": by_q, "bound_tc_ms": tc_q,
+            "math": "3xtf32 mma.sync", "library_ms": lib_bwd,
             "library_call": "autograd backward of the SDPA forward (dQ, "
                             "dK and dV together)",
         }, {
@@ -681,16 +762,18 @@ def phase_flash(torch, kernels, F, timer, card):
                 q, k, v, do, ref_lse, delta, causal)),
             "plain_ms": timer(lambda: kernels.flash_attention_bwd_dkv_plain(
                 q, k, v, do, ref_lse, delta, causal)),
-            "bound_ms": b_kv, "bound_by": by_kv, "library_ms": lib_bwd,
+            "bound_ms": b_kv, "bound_by": by_kv, "bound_tc_ms": tc_kv,
+            "math": "3xtf32 mma.sync", "library_ms": lib_bwd,
             "library_call": "autograd backward of the SDPA forward (dQ, "
                             "dK and dV together)",
         }]
         del qt, kt, vt
     for r in rows:
         log("  %-24s %-48s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "library_ms=%.4f  [%s]"
+            "bound_tc_ms=%.4f library_ms=%.4f  [%s; %s]"
             % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
-               r["bound_by"], r["library_ms"], card))
+               r["bound_by"], r["bound_tc_ms"], r["library_ms"], r["math"],
+               card))
     return rows
 
 
@@ -1724,6 +1807,24 @@ def phase_nd_parity(torch, tc, card):
             again = tc.run_port(key, "cuda")
             check(all(np.array_equal(a, b) for a, b in zip(card_out, again)),
                   "%s: the same seed gave other draws on the card" % key)
+    # variadic ops built in a Symbol graph (num_args counted by create),
+    # evaluated on the card and on the CPU
+    from mxnet_tpu_torch import symbol as sym
+    from mxnet_tpu_torch.executor import GraphProgram
+    rs = np.random.RandomState(16)
+    for label, build_sym, shapes in (
+            ("concat", lambda a, b: sym.concat(a, b, dim=1), ((3, 2), (3, 4))),
+            ("stack", lambda a, b: sym.stack(a, b), ((2, 3), (2, 3))),
+            ("add_n", lambda a, b: sym.add_n(a, b), ((2, 3), (2, 3))),
+            ("khatri_rao", lambda a, b: sym.khatri_rao(a, b),
+             ((3, 2), (4, 2)))):
+        g = build_sym(sym.Variable("a"), sym.Variable("b"))
+        vals = [rs.randn(*sh).astype(np.float32) for sh in shapes]
+        outs = [GraphProgram(g).evaluate(
+            [torch.from_numpy(v).to(d) for v in vals], [])[0][0].cpu()
+            for d in ("cuda", "cpu")]
+        check(torch.allclose(outs[0], outs[1], rtol=0, atol=1e-6),
+              "sym.%s on the card vs the CPU" % label)
     log("nd ops card vs cpu: %d cases (%d random) agree; largest "
         "difference by tolerance: %s [%s]"
         % (len(keys), sum(tc.op_case(k)[1]["random"] for k in keys),
@@ -2038,6 +2139,8 @@ def main():
                    m["hbm_bytes"] / 1e6, 100 * roof_ms / host_ms, card))
 
     with phase("6 flash kernels vs plain"):
+        flash_sass_check(build, card)
+        flash_tf32_cases(torch, kernels, card)
         rows += phase_flash(torch, kernels, F, timer, card)
 
     with phase("7 training step card vs cpu"):

@@ -341,10 +341,11 @@ class NDArray:
                          "elements is ambiguous.")
 
     def _inplace(self, out: "NDArray") -> "NDArray":
-        """``self op= x``: the result written into this array's tensor
-        (cast to its dtype), as the reference writes in place; a result
-        of another shape (a broadcast) rebinds the handle."""
-        if out.shape == self.shape:
+        """``self op= x``: the result written into this array's tensor;
+        a result of another shape (a broadcast) or dtype (an integer
+        array plus a float: float64) rebinds the handle, as the
+        reference rebinds it."""
+        if out.shape == self.shape and out.dtype == self.dtype:
             self._handle.copy_(out._handle)
         else:
             self._handle = out._handle

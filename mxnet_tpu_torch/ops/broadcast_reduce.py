@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..base import Param, attr_bool, attr_float, attr_shape, attr_str
-from .elemwise import _mod
+from .elemwise import _int_to_f64, _mod
 from .registry import register
 
 _BROADCAST = {
@@ -195,5 +195,6 @@ def _l2_normalization(attrs, x):
         axes = (1,)
     else:  # spatial
         axes = tuple(range(2, x.dim()))
+    x = _int_to_f64(x)         # the JAX package's float64 for integers
     norm = torch.sqrt(torch.sum(x * x, axes, keepdim=True) + attrs.eps)
     return x / norm

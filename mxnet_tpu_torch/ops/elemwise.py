@@ -12,10 +12,15 @@ package registers one ``jnp`` expression.  Parity notes:
 * comparison and logical ops return 0/1 in the lhs dtype, not bool;
 * ``_mod`` is the JAX package's ``jnp.mod``: ``fmod``, then the divisor
   added where the remainder's sign differs from the divisor's, so the
-  bits equal XLA's;
-* an integer tensor combined with a float scalar gives float32 here
-  (PyTorch's default float), where the JAX package, which runs with
-  x64 enabled, gives float64.
+  bits equal XLA's; an integer remainder by zero is 0;
+* dtypes follow the JAX package, which runs with x64 enabled: an integer
+  tensor combined with a scalar (every scalar attr is a float), and
+  ``clip``, ``round``, ``rint``, ``reciprocal`` and ``smooth_l1`` of
+  one, give float64;
+* ``Cast`` from a float to an integer type saturates as XLA's convert
+  does (NaN to 0, out-of-range values to the type's least or largest
+  value), where ``Tensor.to`` wraps;
+* ``sign(NaN)`` is NaN, where ``torch.sign`` gives 0.
 """
 from __future__ import annotations
 
@@ -27,8 +32,46 @@ from .registry import register
 
 
 def _mod(a, b):
+    if a.is_floating_point() or b.is_floating_point():
+        r = torch.fmod(a, b)
+        return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+    # integers: XLA's remainder by zero is 0, where torch raises (CPU) or
+    # leaves it undefined (CUDA); divide by 1 there and put 0 back
+    zero = b == 0
+    b = torch.where(zero, 1, b)
     r = torch.fmod(a, b)
-    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+    r = torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+    return torch.where(zero, 0, r)
+
+
+def _int_to_f64(x):
+    """``x``, or float64 for an integer or boolean tensor: what a float
+    scalar promotes an integer array to in the JAX package (x64)."""
+    return x if x.is_floating_point() or x.is_complex() else \
+        x.to(torch.float64)
+
+
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN."""
+    out = torch.sign(x)
+    return out.masked_fill(torch.isnan(x), float("nan")) \
+        if x.is_floating_point() else out
+
+
+def _saturating_cast(x, dtype):
+    """``x.to(dtype)``, except that a float cast to an integer type
+    saturates: NaN gives 0 and a value past the type's range its least or
+    largest value.  The thresholds are powers of two, exact in every
+    float type."""
+    if not x.is_floating_point() or dtype == torch.bool \
+            or dtype.is_floating_point or dtype.is_complex:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    t = torch.trunc(x)
+    hi = t >= float(info.max) + 1.0
+    lo = t < float(info.min)
+    out = torch.where(hi | lo | torch.isnan(t), 0, t).to(dtype)
+    return torch.where(hi, info.max, torch.where(lo, info.min, out))
 
 
 def _cbrt(x):
@@ -45,8 +88,8 @@ def _scalar_like(x, s):
 # ---------------------------------------------------------------------------
 _UNARY = {
     "abs": torch.abs,
-    "sign": torch.sign,
-    "rint": torch.round,          # half to even, as jnp.rint
+    "sign": _sign,
+    "rint": lambda x: torch.round(_int_to_f64(x)),   # half to even
     "ceil": torch.ceil,
     "floor": torch.floor,
     "trunc": torch.trunc,
@@ -78,7 +121,7 @@ _UNARY = {
     "radians": torch.deg2rad,
     "gamma": lambda x: torch.exp(torch.lgamma(x)),
     "gammaln": torch.lgamma,
-    "reciprocal": lambda x: 1.0 / x,
+    "reciprocal": lambda x: 1.0 / _int_to_f64(x),
     "negative": torch.neg,
     "relu": torch.relu,
     "sigmoid": torch.sigmoid,
@@ -171,6 +214,7 @@ for _name, _f in _BINARY.items():
 @register("smooth_l1", inputs=("data",), params=dict(scalar=attr_float(1.0)))
 def _smooth_l1(attrs, x):
     """reference: mshadow_op.h smooth_l1_loss; sigma = attrs.scalar"""
+    x = _int_to_f64(x)
     s2 = attrs.scalar * attrs.scalar
     absx = torch.abs(x)
     return torch.where(absx < 1.0 / s2, 0.5 * s2 * x * x, absx - 0.5 / s2)
@@ -209,7 +253,8 @@ for _name, _f in _SCALAR.items():
     register(_name, inputs=("data",),
              params=dict(scalar=attr_float(required=True)))(
         (lambda f, cast: lambda attrs, x: (
-            f(x, attrs.scalar).to(x.dtype) if cast else f(x, attrs.scalar)))(
+            f(x, attrs.scalar).to(x.dtype) if cast
+            else f(_int_to_f64(x), attrs.scalar)))(
             _f, any(t in _name for t in _CMP)))
 
 
@@ -223,13 +268,13 @@ def _scatter_div(attrs, a, b):
                       a_max=attr_float(required=True)))
 def _clip(attrs, x):
     """reference tensor/matrix_op.cc Clip"""
-    return torch.clamp(x, attrs.a_min, attrs.a_max)
+    return torch.clamp(_int_to_f64(x), attrs.a_min, attrs.a_max)
 
 
 @register("Cast", inputs=("data",),
           params=dict(dtype=attr_str(required=True)), aliases=("cast",))
 def _cast(attrs, x):
-    return x.to(dtype_torch(attrs.dtype))
+    return _saturating_cast(x, dtype_torch(attrs.dtype))
 
 
 @register("where", inputs=("condition", "x", "y"))
@@ -245,6 +290,7 @@ def _where(attrs, cond, x, y):
 def _round(attrs, x):
     """reference mshadow_op.h round: ties away from zero (not the
     half-to-even of ``rint``)."""
+    x = _int_to_f64(x)
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 

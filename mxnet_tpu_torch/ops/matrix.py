@@ -109,8 +109,32 @@ def _expand_dims(attrs, x):
                       sparse_grad=attr_bool(False)))
 def _embedding(attrs, idx, weight):
     """``weight[idx]``; ids arrive as floats and truncate to integers, as
-    the reference's ``astype(int32)``."""
-    return F.embedding(idx.long(), weight)
+    the reference's ``astype(int32)``; an id out of range gives a NaN
+    row."""
+    i, ok = _in_range(idx.long(), weight.shape[0])
+    return _fill(F.embedding(i, weight), ok.unsqueeze(-1))
+
+
+def _in_range(i, n):
+    """``(index, ok)``: ``i`` with a negative index counted from the end
+    and every index clamped into [0, n), so a gather never leaves the
+    axis, and where ``i`` was in [-n, n)."""
+    ok = (i >= -n) & (i < n)
+    return torch.where(i < 0, i + n, i).clamp(0, max(n - 1, 0)), ok
+
+
+def _fill(x, ok):
+    """``x`` where ``ok``, else the fill value of ``jnp.take``'s "fill"
+    mode: NaN for floats, the least signed or the largest unsigned
+    integer, True."""
+    if x.dtype == torch.bool:
+        fill = True
+    elif x.is_floating_point() or x.is_complex():
+        fill = float("nan")
+    else:
+        info = torch.iinfo(x.dtype)
+        fill = info.min if x.dtype.is_signed else info.max
+    return torch.where(ok, x, fill)
 
 
 
@@ -391,7 +415,8 @@ def _take(attrs, a, idx):
 
 @register("batch_take", inputs=("a", "indices"))
 def _batch_take(attrs, a, idx):
-    return torch.gather(a, 1, idx.long().reshape(-1, 1)).squeeze(1)
+    i, ok = _in_range(idx.long().reshape(-1, 1), a.shape[1])
+    return _fill(torch.gather(a, 1, i), ok).squeeze(1)
 
 
 @register("pick", inputs=("data", "index"),
@@ -399,8 +424,8 @@ def _batch_take(attrs, a, idx):
                       mode=attr_str("clip")))
 def _pick(attrs, x, idx):
     axis = attrs.axis if attrs.axis is not None else -1
-    ie = idx.long().unsqueeze(axis)
-    out = torch.gather(x, axis, ie)
+    i, ok = _in_range(idx.long().unsqueeze(axis), x.shape[axis])
+    out = _fill(torch.gather(x, axis, i), ok)
     return out if attrs.keepdims else out.squeeze(axis)
 
 

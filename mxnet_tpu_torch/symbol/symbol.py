@@ -301,6 +301,9 @@ def create(op_name: str, input_syms: Sequence[Symbol],
     for k in list(kwargs):
         if isinstance(kwargs[k], Symbol):
             sym_kwargs[k] = kwargs.pop(k)
+    # a variadic op (add_n, Concat, stack, khatri_rao) counts its inputs
+    if op.variadic and "num_args" not in kwargs:
+        kwargs["num_args"] = len(input_syms) + len(sym_kwargs)
 
     name = NameManager.current().get(name, op.name.lower().lstrip("_"))
     attrs = dict(kwargs)

@@ -214,6 +214,76 @@ def test_flash_attention_bwd_kernels_match_plain(dev, B, Tq, Tk, H, D,
         assert (got - ref).abs().max().item() < tol
 
 
+# shapes the full-width path does not reach: D 72 (between the kernels'
+# templates, zero-padded to 128), T 1 (a single row and key)
+BWD_EXTRA = [(2, 70, 70, 3, 72, True), (3, 1, 1, 2, 64, True),
+             (2, 1, 5, 2, 64, False)]
+BWD_EXTRA_IDS = ["d72-t70", "t1-causal", "tq1-tk5-noncausal"]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", BWD_EXTRA,
+                         ids=BWD_EXTRA_IDS)
+def test_flash_attention_bwd_kernels_match_plain_odd_shapes(dev, B, Tq, Tk,
+                                                            H, D, causal):
+    q, k, v, do = _flash_inputs(dev, B, Tq, Tk, H, D, Tq * 7 + D)
+    out, lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = kernels.flash_delta(out, do)
+    dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+    for got, ref in zip((dq, dk, dv), refs):
+        # as test_flash_attention_bwd_kernels_match_plain
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (got - ref).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_bwd_kernels_are_deterministic(dev, causal):
+    """Every output tile has one owner block and no atomics: two launches
+    on the same inputs give the same bits."""
+    q, k, v, do = _flash_inputs(dev, 2, 300, 300, 3, 64, 11)
+    out, lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = kernels.flash_delta(out, do)
+    runs = [(kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal),)
+            + kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+# inputs scaled so that logits reach ~+-20: one TF32 product (10 mantissa
+# bits) moves a logit by ~1e-2, which the gradients' tolerance sees; the
+# kernels' 3xTF32 (~2^-21 per product) stays inside it
+TF32_SCALE = 2.5
+
+
+def test_flash_attention_bwd_kernels_are_not_1xtf32(dev):
+    """The tolerance tells 3xTF32 from 1xTF32: the plain version's einsums
+    run in TF32 (``allow_tf32``) exceed it on these inputs, the kernels
+    stay inside it."""
+    q, k, v, do = _flash_inputs(dev, 2, 256, 256, 2, 64, 21)
+    q, k = q * TF32_SCALE, k * TF32_SCALE
+    out, lse = kernels.flash_attention_fwd_plain(q, k, v, causal=True)
+    delta = kernels.flash_delta(out, do)
+    refs = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=True)
+    got = (kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),) \
+        + kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                 causal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    worst_tf32 = 0.0
+    for g, t, ref in zip(got, tf32, refs):
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (g - ref).abs().max().item() < tol
+        worst_tf32 = max(worst_tf32, (t - ref).abs().max().item() / tol)
+    assert worst_tf32 > 1.0, "1xTF32 stays within the tolerance"
+
+
 def test_flash_attention_autograd_on_card_matches_cpu(dev):
     """The FlashAttention Function on the card (forward kernel with lse,
     dQ and dK/dV kernels) against the same Function on the CPU (plain
@@ -632,6 +702,27 @@ def test_nd_ops_on_card_match_cpu(dev):
             again = tc.run_port(key, dev)
             for a, b in zip(card, again):
                 np.testing.assert_array_equal(a, b)
+
+
+def test_out_of_range_ids_on_card_do_not_assert(dev):
+    """Embedding, pick and batch_take with ids below -n and at or past n:
+    NaN where the CPU gives NaN, no device assert (which would end the
+    process's CUDA context), and the card still answers afterwards."""
+    import mxnet_tpu_torch as mx
+    w = np.arange(12, dtype=np.float32).reshape(3, 4)
+    ids = np.array([-1, 5, 1, -4, 3], np.float32)
+    outs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        wt, it = mx.nd.array(w, ctx=ctx), mx.nd.array(ids, ctx=ctx)
+        outs.append([
+            mx.nd.Embedding(it, wt, input_dim=3, output_dim=4).asnumpy(),
+            mx.nd.pick(wt, it[:3], axis=1).asnumpy(),
+            mx.nd.batch_take(wt, it[:3]).asnumpy()])
+    torch.cuda.synchronize()
+    for c, h in zip(*outs):
+        np.testing.assert_array_equal(c, h)       # NaN where NaN
+    assert np.isnan(outs[0][0][1]).all() and (outs[0][0][0] == w[2]).all()
+    assert torch.ones(4, device=dev).sum().item() == 4.0
 
 
 def test_nd_save_load_on_card(dev, tmp_path):

@@ -87,6 +87,23 @@ def test_inplace():
     _both(script, 1e-6)
 
 
+def test_integer_arrays_follow_x64_dtypes():
+    """An int32 array with a Python scalar, and ``round``, ``clip``,
+    ``reciprocal`` of one, give float64 in both packages (the JAX package
+    runs with x64); ``a += 1.7`` rebinds an int32 array to float64; a
+    remainder by zero is 0."""
+    def script(mx):
+        a = mx.nd.array(np.array([1, -2, 3, 4], np.int32), dtype="int32")
+        b = mx.nd.array(np.array([0, 3, -2, 0], np.int32), dtype="int32")
+        r = [a + 2, a / 2, a * 1.5, 2 - a, mx.nd.round(a),
+             mx.nd.clip(a, 0, 2), mx.nd.reciprocal(a), a % b, a + a]
+        c = a.copy()
+        c += 1.7
+        r.append(c)
+        return r
+    _both(script, 1e-6)
+
+
 def test_inplace_writes_reach_views():
     with tmx.cpu():
         a = tmx.nd.zeros((3, 4))

@@ -122,3 +122,39 @@ def test_graph_program_evaluates_the_lm():
     assert aux == ()
     assert tuple(outs[0].shape) == (32, 12)
     torch.testing.assert_close(outs[0].sum(-1), torch.ones(32))
+
+
+# variadic ops built in a Symbol graph: (graph function, input shapes, output
+# shape); each package counts the inputs into num_args
+VARIADIC = [
+    (lambda s, a, b: s.concat(a, b, dim=1), ((3, 2), (3, 4)), (3, 6)),
+    (lambda s, a, b: s.Concat(a, b, dim=0), ((3, 2), (1, 2)), (4, 2)),
+    (lambda s, a, b: s.stack(a, b), ((2, 3), (2, 3)), (2, 2, 3)),
+    (lambda s, a, b: s.add_n(a, b), ((2, 3), (2, 3)), (2, 3)),
+    (lambda s, a, b: s.khatri_rao(a, b), ((3, 2), (4, 2)), (12, 2)),
+]
+VARIADIC_IDS = ["concat", "Concat", "stack", "add_n", "khatri_rao"]
+
+
+@pytest.mark.parametrize("build,shapes,want", VARIADIC, ids=VARIADIC_IDS)
+def test_variadic_ops_in_a_graph_match_jax(build, shapes, want):
+    import jax.numpy as jnp
+    import torch
+    from mxnet_tpu.executor import GraphProgram as JaxGraphProgram
+    from mxnet_tpu_torch.executor import GraphProgram
+    with JaxNameManager():
+        j = build(jax_sym, jax_sym.Variable("a"), jax_sym.Variable("b"))
+    with NameManager():
+        t = build(sym, sym.Variable("a"), sym.Variable("b"))
+    assert t.tojson() == j.tojson()
+    named = dict(a=shapes[0], b=shapes[1])
+    assert t.infer_shape(**named) == j.infer_shape(**named)
+    assert t.infer_shape(**named)[1] == [want]
+    rs = np.random.RandomState(len(want))
+    vals = [rs.randn(*s).astype(np.float32) for s in shapes]
+    got, _ = GraphProgram(t).evaluate([torch.from_numpy(v) for v in vals],
+                                      [])
+    ref, _ = JaxGraphProgram(j).evaluate([jnp.asarray(v) for v in vals], [],
+                                         None, False)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
+                               rtol=0, atol=1e-6)

@@ -6,7 +6,10 @@ never jax, so the card's host can use it).
   (``mxnet_tpu/ops/{elemwise,broadcast_reduce,matrix,init_ops,
   random_ops}.py``), aliases included, the inputs (numpy, from a seed
   derived from the case's name), the attrs, the inputs to differentiate
-  and the tolerance.  A key ``name:variant`` is one more case of ``name``.
+  and the tolerance.  A key ``name:variant`` is one more case of ``name``;
+  the variants of ``_edge_cases`` hold the port to the reference at ids
+  out of range, saturating casts, NaN, integer remainder by zero and
+  the float64 of an integer array with a scalar.
   :func:`run_port` runs a case through ``mx.nd`` on a device.
 * ``RTC_*``: the user kernels of ``mxnet_tpu_torch/csrc/rtc_kernels.cu``
   (compiled by ``rtc.CudaModule``) with their signatures, launch
@@ -73,6 +76,67 @@ def _ints(rs, lo, hi, *shape):
 
 _TIES = _f32([[-2.5, -1.5, -0.5, 0.5, 1.5, 2.5],
               [-1.7, -0.2, 0.0, 0.3, 1.2, 3.9]])
+
+_NAN, _INF = float("nan"), float("inf")
+
+
+def _i32(a):
+    return np.asarray(a, np.int32)
+
+
+# an int32 operand of the dtype-rule cases: x64 makes each op float64
+_INTS = _i32([[1, -2, 3], [4, 0, -7]])
+
+
+def _edge_cases():
+    """The port's repaired parity faults against the JAX package: ids out
+    of range (NaN, or counted from the end), saturating float -> int
+    casts, sign(NaN), integer remainder by zero, and the float64 that x64
+    gives an integer array with a scalar."""
+    c = {}
+    c["Embedding:range"] = lambda rs: _case(
+        [_f32([-1, 5, 1, -4]), _any(rs, 3, 4)],
+        dict(input_dim=3, output_dim=4), grad=[1], tol=ARITH)
+    c["pick:range"] = lambda rs: _case([_any(rs, 3, 4), _f32([-1, 4, 2])],
+                                       dict(axis=1), grad=[0])
+    c["pick:range-axis0"] = lambda rs: _case(
+        [_any(rs, 3, 4), _f32([-4, 2, -1, 3])],
+        dict(axis=0, keepdims=True), grad=[0])
+    c["batch_take:range"] = lambda rs: _case([_any(rs, 3, 4),
+                                              _f32([-1, 4, 2])])
+    big = [[300, -300, _NAN, 5.7, -3.9, 127.9],
+           [-128.9, -129.0, _INF, -_INF, 255.9, -0.5]]
+    for dt in ("int8", "uint8", "int32", "int64"):
+        c["Cast:saturate-" + dt] = lambda rs, dt=dt: _case(
+            [_f32(big) * (1e7 if "int32" in dt else 1)], dict(dtype=dt))
+    c["cast:saturate-int32"] = lambda rs: _case(
+        [_f32([[_NAN, _INF, -_INF, 3e9, -3e9, 2147483520.0]])],
+        dict(dtype="int32"))
+    c["sign:nan"] = lambda rs: _case([_f32([_NAN, -2, 0, 3, _INF, -_INF])])
+    c["_mod:int"] = lambda rs: _case([_i32([5, -5, 7, 3, -7, 0]),
+                                      _i32([0, 3, -2, 0, 2, 0])])
+    c["_mod_scalar:int-zero"] = lambda rs: _case([_INTS], dict(scalar=0.0))
+    c["_mod_scalar:int"] = lambda rs: _case([_INTS], dict(scalar=3.0))
+    for n in ("_plus_scalar", "_minus_scalar", "_mul_scalar", "_div_scalar",
+              "_rdiv_scalar", "_maximum_scalar", "_power_scalar"):
+        c[n + ":int"] = lambda rs: _case([_i32([[1, -2, 3], [4, 5, -7]])],
+                                         dict(scalar=2.0), tol=ARITH)
+    for n in ("round", "rint", "reciprocal"):
+        c[n + ":int"] = lambda rs: _case([_i32([[1, -2, 3], [4, 5, -7]])],
+                                         tol=ARITH)
+    c["clip:int"] = lambda rs: _case([_INTS], dict(a_min=0, a_max=2))
+    c["smooth_l1:int"] = lambda rs: _case([_INTS], dict(scalar=1.0),
+                                          tol=ARITH)
+    c["broadcast_mod:int"] = lambda rs: _case(
+        [_i32([[5, -5, 7, 3]]), _i32([[0], [3], [-2]])])
+    c["L2Normalization:int"] = lambda rs: _case([_INTS], tol=ARITH)
+    return c
+
+
+# the JAX module of each op name with an edge case outside elemwise
+_EDGE_MODULE = {"Embedding": "matrix", "pick": "matrix",
+                "batch_take": "matrix", "broadcast_mod": "broadcast_reduce",
+                "L2Normalization": "broadcast_reduce"}
 
 
 def _elemwise_cases():
@@ -439,6 +503,9 @@ def _random_cases():
 OP_MODULES = {"elemwise": _elemwise_cases(), "init_ops": _init_cases(),
               "broadcast_reduce": _broadcast_reduce_cases(),
               "matrix": _matrix_cases(), "random_ops": _random_cases()}
+for _key, _build in _edge_cases().items():
+    OP_MODULES[_EDGE_MODULE.get(_key.split(":")[0], "elemwise")][_key] = \
+        _build
 OP_CASES = {k: v for cases in OP_MODULES.values() for k, v in cases.items()}
 
 
