@@ -20,11 +20,16 @@ paths against its plain PyTorch version on the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and identify the card;
+   source, in parallel), identify the card, and check the SASS of the
+   3xTF32 kernels (the three flash kernels and both instantiations of
+   the quantized matmul) for TF32 ``HMMA`` instructions
+   (``cuobjdump -sass``);
 2. each kernel against its plain version at the shapes the decode step
-   gives it, with its time, its bound (the least time for the bytes it
-   must move at 3.35 TB/s, or its operations at the f32 peak), the plain
-   version's time and one PyTorch library call's time as a yardstick;
+   gives it, two launches bit-equal, with its time, its bound (the least
+   time for the bytes it must move at 3.35 TB/s, or its operations at the
+   f32 peak; for the quantized matmul also at the TF32 tensor-core peak
+   with two MMAs per product), the plain version's time and one PyTorch
+   library call's time as a yardstick;
 3. a small decode step and the full-width step on the card against the
    same steps on the CPU;
 4. serve f32: a DecodeEngine over ``get_decode_step(init_decode_params
@@ -37,10 +42,8 @@ Phases, in order:
    dK/dV) against their plain versions at the training shape (B8 T1024
    H12 D64, causal), a ragged T 1000 and a non-causal case, with times,
    bounds (f32 and 3xTF32) and the ``scaled_dot_product_attention``
-   yardstick; before them the SASS of the two backward kernels (TF32
-   HMMA instructions, by ``cuobjdump -sass``), two launches of each
-   bit-equal, and inputs on which 1xTF32 einsums exceed the tolerance
-   that the kernels meet;
+   yardstick; before them two launches of each bit-equal, and inputs on
+   which 1xTF32 einsums exceed the tolerances that the kernels meet;
 7. one training step at full width and depth 2 (batch 2) on the card
    against the same step on the CPU (plain versions) from the same state;
 8. training at full width: L12, batch 8, one warm-up and five timed
@@ -288,8 +291,11 @@ def phase_kernels(torch, kernels, F, timer, card):
             wf = (kernels.unpack_int4(qw)[:, :K] if bits == 4
                   else qw.float()) * sc[:, None]
             out = kernels.quant_matmul(x, qw, sc, bits)
+            again = kernels.quant_matmul(x, qw, sc, bits)
             ref = kernels.quant_matmul_plain(x, qw, sc, bits)
             torch.cuda.synchronize()
+            check(torch.equal(out, again), "two launches of quant_matmul "
+                  "int%d %s gave different bits" % (bits, label))
             err = (out - ref).abs().max().item()
             scale = ref.abs().max().item()
             # scale applied after vs before an f32 sum over K terms, in
@@ -302,6 +308,10 @@ def phase_kernels(torch, kernels, F, timer, card):
                   "plain version" % (bits, label))
             nbytes = qw.numel() + 4 * N + 4 * M * K + 4 * M * N
             b, by = bound_ms(nbytes, 2.0 * M * N * K)
+            # the same work on the tensor cores: two TF32 MMAs per product
+            # (x split in two; the integer weights are exact in TF32)
+            tc = max(nbytes / HBM_BYTES_S,
+                     2 * 2.0 * M * N * K / TF32_FLOPS_S) * 1e3
             rows.append({
                 "name": "quant_matmul_int%d" % bits, "route": "cuda",
                 "source": "mxnet_tpu_torch/csrc/quant_matmul.cu",
@@ -312,15 +322,17 @@ def phase_kernels(torch, kernels, F, timer, card):
                 "ms": timer(lambda: kernels.quant_matmul(x, qw, sc, bits)),
                 "plain_ms": timer(lambda: kernels.quant_matmul_plain(
                     x, qw, sc, bits)),
-                "bound_ms": b, "bound_by": by,
+                "bound_ms": b, "bound_by": by, "bound_tc_ms": tc,
+                "math": "2xtf32 mma.sync (x split; integer w exact)",
                 "library_ms": timer(lambda: torch.matmul(x, wf.T)),
                 "library_call": "torch.matmul(x, w_f32.T)",
             })
     for r in rows:
         log("  %-18s %-34s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "library_ms=%.4f  [%s]"
+            "bound_tc_ms=%s library_ms=%.4f  [%s]"
             % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
-               r["bound_by"], r["library_ms"], card))
+               r["bound_by"], "%.4f" % r["bound_tc_ms"]
+               if "bound_tc_ms" in r else "-", r["library_ms"], card))
     return rows
 
 
@@ -597,42 +609,49 @@ def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out):
     return b, by, tc
 
 
-def flash_sass_check(build, card):
-    """The two backward kernels run TF32 MMAs on the tensor cores: their
-    SASS (``cuobjdump -sass`` of the built library) holds HMMA
-    instructions of TF32 operands; the forward (f32 FMA) holds none."""
+# kernels that run TF32 MMAs on the tensor cores, by library
+TF32_KERNELS = {"flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel"),
+                "quant_matmul": ("quant_matmul_kernel",)}
+
+
+def sass_check(build, card):
+    """The 3xTF32 kernels (the three flash kernels, and quant_matmul's two
+    instantiations with x split in two) run TF32 MMAs on the tensor cores:
+    the SASS of each instantiation (``cuobjdump -sass`` of the built
+    library) holds HMMA instructions of TF32 operands."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     check(os.path.isfile(tool), "cuobjdump not found (PATH, "
           "/usr/local/cuda/bin): the SASS check cannot run")
-    lib = build.build_kernels(["flash_attention"])["flash_attention"]
-    res = subprocess.run([tool, "-sass", lib], capture_output=True,
-                         text=True, timeout=300)
-    check(res.returncode == 0, "cuobjdump -sass failed: %s" % res.stderr)
-    counts, fn = {}, None
-    for line in res.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            counts[fn] = 0
-        elif fn and "HMMA" in line and "TF32" in line:
-            counts[fn] += 1
-    for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
-        got = {f: n for f, n in counts.items() if name in f}
-        check(got and all(n > 0 for n in got.values()),
-              "%s: no TF32 HMMA in its SASS (%s)" % (name, got))
-        log("SASS %s: TF32 HMMA instructions per instantiation %s"
-            % (name, sorted(got.values())))
-    fwd = [n for f, n in counts.items() if "flash_fwd_kernel" in f]
-    log("SASS flash_fwd_kernel: TF32 HMMA %s (f32 FMA) [%s]" % (fwd, card))
+    paths = build.build_kernels(list(TF32_KERNELS))
+    for lib, names in TF32_KERNELS.items():
+        res = subprocess.run([tool, "-sass", paths[lib]], capture_output=True,
+                             text=True, timeout=300)
+        check(res.returncode == 0, "cuobjdump -sass failed: %s" % res.stderr)
+        counts, fn = {}, None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn and "HMMA" in line and "TF32" in line:
+                counts[fn] += 1
+        for name in names:
+            got = {f: n for f, n in counts.items() if name in f}
+            check(got and all(n > 0 for n in got.values()),
+                  "%s: no TF32 HMMA in its SASS (%s)" % (name, got))
+            log("SASS %s: TF32 HMMA instructions per instantiation %s [%s]"
+                % (name, sorted(got.values()), card))
 
 
 def flash_tf32_cases(torch, kernels, card):
-    """Two launches of each backward kernel are bit-equal; and the
-    tolerance tells 3xTF32 from 1xTF32: on inputs whose logits reach
-    ~+-20 the plain einsums under ``allow_tf32`` exceed it, the kernels
-    stay inside it (as tests/test_torch_kernels_cuda.py)."""
+    """Two launches of each flash kernel are bit-equal; and the
+    tolerances tell 3xTF32 from 1xTF32: on inputs whose logits reach
+    ~+-20 the plain versions' einsums under ``allow_tf32`` exceed them,
+    the kernels stay inside them (as tests/test_torch_kernels_cuda.py):
+    out and lse 1e-5, dq/dk/dv 1e-4, each x max(1, max|ref|)."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(21)
     q, k, v, do = (torch.from_numpy(rs.randn(2, 256, 2, 64).astype(
@@ -640,28 +659,35 @@ def flash_tf32_cases(torch, kernels, card):
     q, k = q * 2.5, k * 2.5
     out, lse = kernels.flash_attention_fwd_plain(q, k, v, True)
     delta = kernels.flash_delta(out, do)
-    runs = [(kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, True),)
+    runs = [kernels.flash_attention_fwd(q, k, v, True)
+            + (kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              True),)
             + kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
             for _ in range(2)]
     check(all(torch.equal(a, b) for a, b in zip(*runs)),
-          "two launches of the backward kernels gave different bits")
-    refs = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+          "two launches of the flash kernels gave different bits")
+    refs = (out, lse) + kernels.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, True)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32 = kernels.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+        tf32 = kernels.flash_attention_fwd_plain(q, k, v, True) + \
+            kernels.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     ratios = []
-    for name, got, t, ref in zip(("dq", "dk", "dv"), runs[0], tf32, refs):
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
+    for name, base, got, t, ref in zip(
+            ("out", "lse", "dq", "dk", "dv"), (1e-5, 1e-5, 1e-4, 1e-4, 1e-4),
+            runs[0], tf32, refs):
+        tol = base * max(1.0, ref.abs().max().item())
         ratios.append((name, (got - ref).abs().max().item() / tol,
                        (t - ref).abs().max().item() / tol))
-    log("flash backward, logits to ~+-20: error / tolerance, kernel vs "
+    log("flash kernels, logits to ~+-20: error / tolerance, kernel vs "
         "1xTF32 einsums: %s; two launches bit-equal [%s]"
         % (", ".join("%s %.3g vs %.3g" % r for r in ratios), card))
     check(all(r[1] <= 1.0 for r in ratios),
           "the 3xTF32 kernels exceed the tolerance on large logits")
-    check(max(r[2] for r in ratios) > 1.0,
+    check(max(r[2] for r in ratios[:2]) > 1.0
+          and max(r[2] for r in ratios[2:]) > 1.0,
           "1xTF32 stays within the tolerance: it cannot tell them apart")
 
 
@@ -735,7 +761,7 @@ def phase_flash(torch, kernels, F, timer, card):
             "plain_ms": timer(lambda: kernels.flash_attention_fwd_plain(
                 q, k, v, causal)),
             "bound_ms": b_f, "bound_by": by_f, "bound_tc_ms": tc_f,
-            "math": "f32 fma", "library_ms": lib_fwd,
+            "math": "3xtf32 mma.sync", "library_ms": lib_fwd,
             "library_call": "F.scaled_dot_product_attention(is_causal="
                             "True) f32 forward",
         }, {
@@ -2044,6 +2070,7 @@ def main():
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
+        sass_check(build, card)
 
     with phase("2 decode kernels vs plain"):
         timer = Timer(torch)
@@ -2139,7 +2166,6 @@ def main():
                    m["hbm_bytes"] / 1e6, 100 * roof_ms / host_ms, card))
 
     with phase("6 flash kernels vs plain"):
-        flash_sass_check(build, card)
         flash_tf32_cases(torch, kernels, card)
         rows += phase_flash(torch, kernels, F, timer, card)
 

@@ -41,27 +41,21 @@
 //  * Ragged edges: tiles are zero-filled past T and past D, columns past
 //    Tk (rows past Tq in dK/dV) get p = 0 explicitly, and rows past Tq
 //    are never written, so the result does not depend on the tile.
-//    Causal masking is on absolute indices (-1e30 in the forward, p = 0
-//    in the backward), so Tq != Tk works.
+//    Causal masking is on absolute indices (a logit of -inf in the
+//    forward, p = 0 in the backward), so Tq != Tk works.
 //  * D <= 128 through templates at DP in {32, 64, 128}; a D between them
 //    is zero-padded to DP.  Shared memory is above 48 KB, so each launch
 //    first raises the kernel's dynamic shared memory limit.
 //
-// B1, the forward: a first, simple version in f32 FMA.  256 threads as
-// 16 x 16; thread (ty, tx) owns rows ty + 16i and columns tx + 16j
-// (i, j < 4) of each 64 x 64 score tile, so each operand read from shared
-// memory feeds four FMAs; the online softmax stays in registers; tiles
-// have a row stride of D_pad + 1 floats (66 KB at D = 64).  Its tensor
-// core version is later work.
-//
-// B2a (dQ) and B2b (dK/dV): tensor cores in 3xTF32, f32-accurate.  The
-// f32 FMA pipes (67 TFLOP/s) need about 4 FMAs per shared-memory load to
-// stay busy, and the FMA kernels these replace reached 2 (3.6-3.8x their
-// f32 bound).  Every product -- s = q k^T, dp = dO v^T, dq = ds k,
-// dk = ds^T q, dv = p^T dO -- goes through
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 instead.  Each f32
-// operand x is split into big = x with the 13 mantissa bits below TF32
-// cleared and small = x - big (exact), and a.b is accumulated in f32 as
+// B1 (forward), B2a (dQ) and B2b (dK/dV): tensor cores in 3xTF32,
+// f32-accurate.  The f32 FMA pipes (67 TFLOP/s) need about 4 FMAs per
+// shared-memory load to stay busy, and the FMA kernels these replace
+// reached 2 (3.6-4.1x their f32 bound).  Every product -- s = q k^T,
+// out += p v, dp = dO v^T, dq = ds k, dk = ds^T q, dv = p^T dO -- goes
+// through mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 instead.
+// Each f32 operand x is split into big = x with the 13 mantissa bits
+// below TF32 cleared and small = x - big (exact), and a.b is accumulated
+// in f32 as
 // a_big.b_small + a_small.b_big + a_big.b_big (the small terms first):
 // three MMAs per product, which keep about 21 bits of each product, near
 // f32 and far from the 11 of one TF32 product.  1xTF32 is never used.
@@ -71,29 +65,43 @@
 // cvt.rna costs one instruction, not several, and ptxas drops it for the
 // big operand, whose low bits the MMA ignores.)
 //  * 128 threads, 4 warps; warp w owns rows 16w..16w+15 of the block's
-//    64-row tile (q rows for dQ, k rows for dK/dV).  dK/dV computes the
-//    transposed scores s^T = k q^T, so p^T and ds^T come out with keys as
-//    rows and are A operands directly.
-//  * Resident A operands (q and dO for dQ, k and v for dK/dV) are copied
-//    once per block into fragment order (a_slot): a lane loads its A
-//    fragment with one 128-bit load.  Their depth order pairs columns 2t
-//    and 2t + 1, which the B operand of q k^T (rows of k) reads as one
-//    64-bit load.
-//  * Streamed B operands (k and v tiles for dQ; q, dO, lse and delta for
-//    dK/dV) come in 32-row tiles: cp.async fetches the next tile into a
-//    staging buffer while the current one computes, and one pass splits
-//    it into big and small tiles of row stride DP + 8 (8 mod 32) that
-//    every warp reads without splitting: 64-bit loads along rows (words
-//    8g + 2t) and 32-bit loads down columns (words 8t + g), both free of
-//    bank conflicts.
-//  * The MMAs of one depth step go in three passes over 8 independent
-//    accumulators: three MMAs into one accumulator back to back would
-//    each wait out the tensor core's latency.
-//  * The p / ds tile between two products goes through shared memory (row
-//    stride 40): the MMA's C fragment (lane holds rows g, g+8, cols 2t,
-//    2t+1) is not its A fragment (rows g, g+8, cols t, t+4).  Each warp
-//    writes and reads back only its own 16 rows, so a __syncwarp
-//    suffices.
+//    64-row tile (q rows for the forward and dQ, k rows for dK/dV).
+//    dK/dV computes the transposed scores s^T = k q^T, so p^T and ds^T
+//    come out with keys as rows and are A operands directly.
+//  * Resident A operands (q for the forward, q and dO for dQ, k and v for
+//    dK/dV) are copied once per block into fragment order (a_slot): a
+//    lane loads its A fragment with one 128-bit load.  Their depth order
+//    pairs columns 2t and 2t + 1, which the B operand of q k^T (rows of
+//    k) reads as one 64-bit load.
+//  * Streamed B operands (k and v tiles for the forward and dQ; q, dO, lse
+//    and delta for dK/dV) come in 32-row tiles: cp.async fetches the next
+//    tile into a staging buffer while the current one computes, and one
+//    pass splits it into big and small tiles of row stride DP + 8 (8 mod
+//    32) that every warp reads without splitting: 64-bit loads along rows
+//    (words 8g + 2t) and 32-bit loads down columns (words 8t + g), both
+//    free of bank conflicts.
+//  * The MMAs of one depth step go in three passes over 4 to 8
+//    independent accumulators: three MMAs into one accumulator back to
+//    back would each wait out the tensor core's latency.
+//  * In the backward the p / ds tile between two products goes through
+//    shared memory (row stride 40): the MMA's C fragment (lane holds rows
+//    g, g+8, cols 2t, 2t+1) is not its A fragment (rows g, g+8, cols t,
+//    t+4).  Each warp writes and reads back only its own 16 rows, so a
+//    __syncwarp suffices.  The forward keeps p in registers instead: the
+//    C fragment of s is the A fragment of p v once depth t is read as key
+//    2t and depth t+4 as key 2t+1, and v is split into key-pair order
+//    (split_pairs) so that its B fragment in that order is one 64-bit
+//    load (on the H100 the shared-memory round trip was 17% slower).
+//  * The forward's online softmax stays in the C fragments: the row max
+//    over the quad's four lanes by two shuffles, each lane's share of the
+//    row sum kept apart and added once at the end.  The tensor core
+//    truncates as it adds into an accumulator, so summed into one
+//    accumulator s (24 MMAs at D = 64) and out (12 per 32-key tile, 384
+//    at T = 1024) drifted to 0.55-0.69 of out's 1e-5 tolerance at T 1024
+//    on the H100; each depth step's three MMAs of s and each key tile's
+//    MMAs of p v go into a fresh accumulator added in f32 round-to-
+//    nearest (0.13-0.25 of it; 10% slower).  A warp skips a causal key
+//    tile that lies wholly past its last row.
 //  * exp as ex2.approx (about 2 ulp) with log2 e folded into the scale and
 //    the saved lse; masking by select, with no branch per element.
 //  * At D = 64 a block takes 96 KB (dQ) or 107 KB (dK/dV) of shared memory
@@ -108,199 +116,12 @@
 
 namespace {
 
-constexpr int kB = 64;          // rows of a q tile and of a k tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLdS = kB + 1;    // row stride of a 64 x 64 score tile
+constexpr int kB = 64;          // rows of a backward block's tile
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows [t0, t0 + 64) of head h, batch b of a (B, T, H, D) tensor into a
-// 64 x (DP + 1) shared tile, zero past T and past D.  Consecutive threads
-// take consecutive d: one coalesced read per row.
-template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int b, int h, int t0, int T,
-                                          int H, int D) {
-  constexpr int LD = DP + 1;
-  for (int idx = threadIdx.x; idx < kB * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int d = idx % DP;
-    const int t = t0 + r;
-    float x = 0.f;
-    if (t < T && d < D) x = src[((size_t)(b * T + t) * H + h) * D + d];
-    dst[r * LD + d] = x;
-  }
-}
-
-// acc[i][j] += sum_{d < D} A[ty + 16i][d] * Bt[tx + 16j][d]: a 4 x 4 block
-// of a (64 x D) (64 x D)^T product of two shared tiles.
-template <int LD>
-__device__ __forceinline__ void dot_rows(float (&acc)[4][4], const float* A,
-                                         const float* Bt, int D, int ty,
-                                         int tx) {
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = Bt[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{c < 64} P[ty + 16i][c] * M[c][tx + 16j]: the rows this
-// thread owns of a (64 x 64) score tile times a (64 x D) shared tile.
-template <int DP>
-__device__ __forceinline__ void mul_tile(float (&acc)[4][DP / 16],
-                                         const float* P, const float* M,
-                                         int ty, int tx) {
-  constexpr int LD = DP + 1;
-  constexpr int NJ = DP / 16;
-#pragma unroll 4
-  for (int c = 0; c < kB; ++c) {
-    float p[4], m[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty + 16 * i) * kLdS + c];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) m[j] = M[c * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], m[j], acc[i][j]);
-  }
-}
-
-// Store the rows this thread owns of a (64 x D) tile to a (B, T, H, D)
-// tensor, rows below T and columns below D only.
-template <int DP>
-__device__ __forceinline__ void store_rows(float* dst,
-                                           const float (&acc)[4][DP / 16],
-                                           int b, int h, int t0, int T,
-                                           int H, int D, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= T) continue;
-    float* row = dst + ((size_t)(b * T + t) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) row[d] = acc[i][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// B1: forward
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int H, int Tq, int Tk, int D,
-                 int causal, float scale) {
-  constexpr int LD = DP + 1;
-  constexpr int NJ = DP / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;               // 64 x LD
-  float* sK = sQ + kB * LD;       // 64 x LD
-  float* sV = sK + kB * LD;       // 64 x LD
-  float* sP = sV + kB * LD;       // 64 x kLdS
-
-  const int nq = gridDim.x;
-  const int q0 = (nq - 1 - (int)blockIdx.x) * kB;   // heaviest first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<DP>(sQ, q, b, h, q0, Tq, H, D);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegBig;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  // causal: keys past the tile's last row are masked for all its rows
-  const int k_end = causal ? min(Tk, q0 + kB) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kB) {
-    __syncthreads();              // the last tile's readers are done
-    load_tile<DP>(sK, k, b, h, k0, Tk, H, D);
-    load_tile<DP>(sV, v, b, h, k0, Tk, H, D);
-    __syncthreads();
-
-    float s[4][4] = {};
-    dot_rows<LD>(s, sQ, sK, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      float mx = kNegBig;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if ((causal && qi < kj) || kj >= Tk) x = kNegBig;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tx + 16 * j < Tk ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + half_warp_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty + 16 * i) * kLdS + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-    mul_tile<DP>(acc, sP, sV, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = acc[i][j] / l[i];
-    const int t = q0 + ty + 16 * i;
-    if (lse != nullptr && tx == 0 && t < Tq)
-      lse[(size_t)bh * Tq + t] = m[i] + logf(fmaxf(l[i], 1e-37f));
-  }
-  store_rows<DP>(out, acc, b, h, q0, Tq, H, D, ty, tx);
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 tensor-core products (B2a, B2b)
+// 3xTF32 tensor-core products (B1, B2a, B2b)
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdThreads = 128;   // 4 warps, 16 rows each
@@ -471,17 +292,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
-// Start copying rows [t0, t0 + 64) of head h, batch b of a (B, T, H, D)
-// tensor into a 64 x DP fragment-order shared tile (a_slot), zero past T
+// Start copying rows [t0, t0 + ROWS) of head h, batch b of a (B, T, H, D)
+// tensor into a ROWS x DP fragment-order shared tile (a_slot), zero past T
 // and past D (a copy of source size 0 writes zeros): the block's resident
-// A operands.  Consecutive threads read consecutive d.
-template <int DP>
+// A operands, by NT threads.  Consecutive threads read consecutive d.
+template <int DP, int ROWS = kB, int NT = kBwdThreads>
 __device__ __forceinline__ void stage_resident(float* dst, const float* src,
                                                int b, int h, int t0, int T,
                                                int H, int D) {
   const float* row = src + ((size_t)b * T * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
-  for (int idx = threadIdx.x; idx < kB * DP; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
     const int r = idx / DP;
     const int c = idx % DP;
     const int t = t0 + r;
@@ -501,8 +322,8 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 // Start copying rows [t0, t0 + kBs) of a (B, T, H, D) tensor into a
 // kBs x DP staging tile, zero past T and D: the next streamed tile, in
 // flight while the current one computes.  `vec`: D % 4 == 0 and the
-// tensor 16-byte aligned, so whole 16-byte chunks are copied.
-template <int DP>
+// tensor 16-byte aligned, so whole 16-byte chunks are copied.  NT threads.
+template <int DP, int NT = kBwdThreads>
 __device__ __forceinline__ void fetch_stream(float* raw, const float* src,
                                              int b, int h, int t0, int T,
                                              int H, int D, bool vec) {
@@ -510,14 +331,14 @@ __device__ __forceinline__ void fetch_stream(float* raw, const float* src,
   const size_t HD = (size_t)H * D;
   if (vec) {
     constexpr int C4 = DP / 4;
-    for (int idx = threadIdx.x; idx < kBs * C4; idx += kBwdThreads) {
+    for (int idx = threadIdx.x; idx < kBs * C4; idx += NT) {
       const int t = t0 + idx / C4;
       const int c = (idx % C4) * 4;
       const bool ok = t < T && c < D;
       cp_async16(raw + idx * 4, ok ? row + t * HD + c : src, ok ? 16 : 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < kBs * DP; idx += kBwdThreads) {
+    for (int idx = threadIdx.x; idx < kBs * DP; idx += NT) {
       const int t = t0 + idx / DP;
       const int c = idx % DP;
       const bool ok = t < T && c < D;
@@ -539,13 +360,13 @@ __device__ __forceinline__ void fetch_rows(float* raw, const float* src,
 
 // A staging tile split once into the big and small parts of two
 // kBs x (DP + 8) tiles: the streamed B operands, read by every warp
-// without splitting.
-template <int DP>
+// without splitting.  NT threads.
+template <int DP, int NT = kBwdThreads>
 __device__ __forceinline__ void split_stream(float* hi, float* lo,
                                              const float* raw) {
   constexpr int LD = DP + 8;
   constexpr int C4 = DP / 4;
-  for (int idx = threadIdx.x; idx < kBs * C4; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < kBs * C4; idx += NT) {
     const float4 x = reinterpret_cast<const float4*>(raw)[idx];
     const float4 big = make_float4(tf32_big(x.x), tf32_big(x.y),
                                    tf32_big(x.z), tf32_big(x.w));
@@ -577,6 +398,235 @@ __device__ __forceinline__ void store_frags(float* dst,
       if (d + 1 < D) out[d + 1] = acc[n][2 * half + 1];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// B1: forward
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdWarps = 4;                 // 16 q rows each
+constexpr int kFwdRows = 16 * kFwdWarps;     // q rows of a block
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A kBs x DP staging tile of v split into big and small parts in key-pair
+// order: keys 2p and 2p + 1 of column d side by side at p * (2 DP + 8) +
+// 2d.  The B operand of p v, read in the key order of s's C fragment
+// (frag_b_pairs), is then one 64-bit load, free of bank conflicts.
+template <int DP>
+__device__ __forceinline__ void split_pairs(float* hi, float* lo,
+                                            const float* raw) {
+  constexpr int LDV = 2 * DP + 8;
+  constexpr int C4 = DP / 4;
+  for (int idx = threadIdx.x; idx < kBs / 2 * C4; idx += kFwdThreads) {
+    const int p = idx / C4;
+    const int d = (idx % C4) * 4;
+    const float4 x0 = *reinterpret_cast<const float4*>(raw + 2 * p * DP + d);
+    const float4 x1 =
+        *reinterpret_cast<const float4*>(raw + (2 * p + 1) * DP + d);
+    const float pair[8] = {x0.x, x1.x, x0.y, x1.y, x0.z, x1.z, x0.w, x1.w};
+    float big[8], small[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      big[e] = tf32_big(pair[e]);
+      small[e] = pair[e] - big[e];
+    }
+    float4* h = reinterpret_cast<float4*>(hi + p * LDV + 2 * d);
+    float4* l = reinterpret_cast<float4*>(lo + p * LDV + 2 * d);
+    h[0] = make_float4(big[0], big[1], big[2], big[3]);
+    h[1] = make_float4(big[4], big[5], big[6], big[7]);
+    l[0] = make_float4(small[0], small[1], small[2], small[3]);
+    l[1] = make_float4(small[4], small[5], small[6], small[7]);
+  }
+}
+
+// B fragment of p v for keys 8j..8j+7 of the tile and columns n0..n0+7:
+// depth t is key 8j + 2t and depth t + 4 key 8j + 2t + 1, the order in
+// which s's C fragment holds p (see flash_fwd_kernel).
+__device__ __forceinline__ FragB frag_b_pairs(const float* hi,
+                                              const float* lo, int ldv,
+                                              int j, int n0, int g, int t) {
+  const int at = (4 * j + t) * ldv + 2 * (n0 + g);
+  const float2 h = *reinterpret_cast<const float2*>(hi + at);
+  const float2 l = *reinterpret_cast<const float2*>(lo + at);
+  FragB f;
+  f.hi[0] = __float_as_uint(h.x);
+  f.hi[1] = __float_as_uint(h.y);
+  f.lo[0] = __float_as_uint(l.x);
+  f.lo[1] = __float_as_uint(l.y);
+  return f;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads, DP <= 64 ? 3 : 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int H, int Tq, int Tk, int D,
+                 int causal, float scale, int vec) {
+  constexpr int LD = DP + 8;       // row stride of the split k tiles
+  constexpr int LDV = 2 * DP + 8;  // of the split v tiles (key pairs)
+  constexpr int NK = DP / 8;       // depth steps of q k^T; column tiles of out
+  constexpr int NS = kBs / 8;      // column tiles of s; depth steps of p v
+  constexpr int CH = NK < kChunk ? NK : kChunk;   // out tiles per pass
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                  // kFwdRows x DP, fragment order
+  float* rK = sQ + kFwdRows * DP;    // the next k tile, kBs x DP staging
+  float* rV = rK + kBs * DP;         // the next v tile
+  float* sKh = rV + kBs * DP;        // k, big part, kBs x LD
+  float* sKl = sKh + kBs * LD;       // k, small part
+  float* sVh = sKl + kBs * LD;       // v, big part, kBs / 2 x LDV
+  float* sVl = sVh + kBs / 2 * LDV;  // v, small part
+
+  const int nq = gridDim.x;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kFwdRows;   // heaviest first
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+
+  stage_resident<DP, kFwdRows, kFwdThreads>(sQ, q, b, h, q0, Tq, H, D);
+  const float scale2 = scale * kLog2e;
+
+  // per row (g, g + 8): the running max of the log2-scaled logits, and
+  // this lane's share of the running sum (the quad's four shares are
+  // added once at the end: the rescaling is the same for all four)
+  float acc[NK][4], row_m[2] = {kNegBig, kNegBig}, row_l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // causal: keys past the block's last row are masked for all its rows,
+  // and a tile of keys past a warp's last row for all the warp's rows
+  const int k_end = causal ? min(Tk, q0 + kFwdRows) : Tk;
+  const int warp_last = q0 + m0 + 15;
+  fetch_stream<DP, kFwdThreads>(rK, k, b, h, 0, Tk, H, D, vec);
+  fetch_stream<DP, kFwdThreads>(rV, v, b, h, 0, Tk, H, D, vec);
+  for (int k0 = 0; k0 < k_end; k0 += kBs) {
+    cp_async_wait_all();           // this tile (and q) has landed
+    __syncthreads();               // for every thread; the last tile is done
+    split_stream<DP, kFwdThreads>(sKh, sKl, rK);
+    split_pairs<DP>(sVh, sVl, rV);
+    __syncthreads();               // split tiles ready, staging free
+    if (k0 + kBs < k_end) {        // the next tile flies during this one
+      fetch_stream<DP, kFwdThreads>(rK, k, b, h, k0 + kBs, Tk, H, D, vec);
+      fetch_stream<DP, kFwdThreads>(rV, v, b, h, k0 + kBs, Tk, H, D, vec);
+    }
+    if (causal && k0 > warp_last) continue;   // warp-uniform
+
+    // s = q k^T for this warp's 16 rows x kBs keys, each depth step's
+    // three MMAs into a fresh accumulator added in f32 (see the header)
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const FragA aq = frag_a_rows<DP>(sQ, m0, kk, lane);
+      FragB bk[NS];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        bk[n] = frag_b_rows(sKh, sKl, LD, n * 8, kk * 8, g, t);
+      float part[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+      mma3(part, 0, aq, bk);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] += part[n][e];
+    }
+
+    // online softmax in the C fragments (lane: rows g, g + 8, columns
+    // 2t, 2t + 1 of each 8-key tile); a masked logit is -inf, so its p is
+    // 0 whatever the running max
+    const float neg_inf = __int_as_float(0xff800000);
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + m0 + g + 8 * (e >> 1);
+        const int kj = k0 + n * 8 + 2 * t + (e & 1);
+        const bool keep = kj < Tk && !(causal && qi < kj);
+        s[n][e] = keep ? s[n][e] * scale2 : neg_inf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      const float m_new = fmaxf(row_m[half], mx[half]);
+      corr[half] = exp2_approx(row_m[half] - m_new);
+      row_m[half] = m_new;
+      row_l[half] *= corr[half];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_approx(s[n][e] - row_m[e >> 1]);
+        row_l[e >> 1] += s[n][e];
+      }
+    // out += p v.  The C fragment of s's tile j (rows g, g + 8; keys
+    // 2t, 2t + 1) is the A fragment of depth step j once depth t is read
+    // as key 2t and depth t + 4 as key 2t + 1: p stays in registers, and
+    // v's B fragment is read in that key order (frag_b_pairs).
+    // this tile's p v in a fresh accumulator; then out = out corr + p v
+    float pv[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      FragA ap;
+      split_tf32(s[j][0], ap.hi[0], ap.lo[0]);
+      split_tf32(s[j][2], ap.hi[1], ap.lo[1]);
+      split_tf32(s[j][1], ap.hi[2], ap.lo[2]);
+      split_tf32(s[j][3], ap.hi[3], ap.lo[3]);
+#pragma unroll
+      for (int c0 = 0; c0 < NK; c0 += CH) {
+        FragB bv[CH];
+#pragma unroll
+        for (int n = 0; n < CH; ++n)
+          bv[n] = frag_b_pairs(sVh, sVl, LDV, j, (c0 + n) * 8, g, t);
+        mma3(pv, c0, ap, bv);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], corr[e >> 1], pv[n][e]);
+  }
+
+  // the quad's shares of each row's sum; out = acc / l; lse in natural
+  // log units, m + log(max(l, 1e-37)) of the scaled logits
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = row_l[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      acc[n][2 * half] *= inv;
+      acc[n][2 * half + 1] *= inv;
+    }
+    const int row = q0 + m0 + g + 8 * half;
+    if (lse != nullptr && t == 0 && row < Tq)
+      lse[(size_t)bh * Tq + row] =
+          row_m[half] * kLn2 + logf(fmaxf(l, 1e-37f));
+  }
+  store_frags<DP>(out, acc, b, h, q0, Tq, H, D, m0, g, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -872,20 +922,6 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int DP>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
-               float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (3 * kB * (DP + 1) + kB * kLdS);
-  cudaError_t rc = prepare(flash_fwd_kernel<DP>, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((Tq + kB - 1) / kB, B * H);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, st>>>(q, k, v, out, lse, H,
-                                                     Tq, Tk, D, causal,
-                                                     scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // whole 16-byte copies: D a multiple of 4 and every (B, T, H, D) operand
 // 16-byte aligned
 int vec_copies(int D, const float* a, const float* b, const float* c,
@@ -895,6 +931,22 @@ int vec_copies(int D, const float* a, const float* b, const float* c,
                         reinterpret_cast<uintptr_t>(c) |
                         reinterpret_cast<uintptr_t>(d);
   return D % 4 == 0 && any % 16 == 0;
+}
+
+template <int DP>
+int launch_fwd(const float* q, const float* k, const float* v, float* out,
+               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
+               float scale, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((kFwdRows + 2 * kBs) * DP +
+                                       2 * kBs * (DP + 8) +
+                                       kBs * (2 * DP + 8));
+  cudaError_t rc = prepare(flash_fwd_kernel<DP>, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid((Tq + kFwdRows - 1) / kFwdRows, B * H);
+  flash_fwd_kernel<DP><<<grid, kFwdThreads, smem, st>>>(
+      q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
+      vec_copies(D, q, k, v, v));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>

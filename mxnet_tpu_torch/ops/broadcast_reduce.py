@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..base import Param, attr_bool, attr_float, attr_shape, attr_str
-from .elemwise import _int_to_f64, _mod
+from .elemwise import _hypot, _int_to_f64, _mod, _power
 from .registry import register
 
 _BROADCAST = {
@@ -23,10 +23,10 @@ _BROADCAST = {
     "broadcast_mul": (torch.mul, ()),
     "broadcast_div": (torch.div, ()),
     "broadcast_mod": (_mod, ()),
-    "broadcast_power": (torch.pow, ()),
+    "broadcast_power": (_power, ()),
     "broadcast_maximum": (torch.maximum, ()),
     "broadcast_minimum": (torch.minimum, ()),
-    "broadcast_hypot": (lambda a, b: torch.hypot(
+    "broadcast_hypot": (lambda a, b: _hypot(
         *torch.broadcast_tensors(a, b)), ()),
     "broadcast_equal": (torch.eq, ()),
     "broadcast_not_equal": (torch.ne, ()),

@@ -20,7 +20,12 @@ package registers one ``jnp`` expression.  Parity notes:
 * ``Cast`` from a float to an integer type saturates as XLA's convert
   does (NaN to 0, out-of-range values to the type's least or largest
   value), where ``Tensor.to`` wraps;
-* ``sign(NaN)`` is NaN, where ``torch.sign`` gives 0.
+* ``sign(NaN)`` is NaN, where ``torch.sign`` gives 0;
+* ``_hypot`` of integers is float64 for 64-bit ones and float32 for the
+  narrower ones and bool, as ``jnp.hypot`` promotes them;
+* ``_power`` of integers is ``jnp.power``'s binary exponentiation over
+  the exponent's 6 low bits, wrapping in the integer type, where
+  ``torch.pow`` gives 0 for a negative exponent.
 """
 from __future__ import annotations
 
@@ -42,6 +47,37 @@ def _mod(a, b):
     r = torch.fmod(a, b)
     r = torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
     return torch.where(zero, 0, r)
+
+
+def _hypot(a, b):
+    """``jnp.hypot``: integer and bool inputs become float64 (64-bit
+    ones) or float32 first."""
+    dt = torch.result_type(a, b)
+    if not dt.is_floating_point:
+        dt = torch.float64 if dt in (torch.int64, torch.uint64) \
+            else torch.float32
+        a, b = a.to(dt), b.to(dt)
+    return torch.hypot(a, b)
+
+
+def _power(a, b):
+    """``jnp.power``: for integers its ``_pow_int_int``, six rounds of
+    binary exponentiation over the exponent's low bits with products that
+    wrap in the integer type, starting from 0 where the base is 0 and the
+    exponent is not.  A negative exponent (or one of 64 and above) gives
+    what those bits give, with no host sync."""
+    dt = torch.result_type(a, b)
+    if dt.is_floating_point or dt.is_complex:
+        return torch.pow(a, b)
+    if dt == torch.bool:
+        dt = torch.int32                 # jnp's numeric promotion of bool
+    x, e = a.to(dt), b.to(dt)
+    acc = torch.where((x == 0) & (e != 0), torch.zeros((), dtype=dt),
+                      torch.ones((), dtype=dt))
+    for i in range(6):
+        acc = torch.where(((e >> i) & 1) != 0, acc * x, acc)
+        x = x * x
+    return acc
 
 
 def _int_to_f64(x):
@@ -172,8 +208,8 @@ _BINARY = {
     "elemwise_div": torch.div,
     "_maximum": torch.maximum,
     "_minimum": torch.minimum,
-    "_hypot": torch.hypot,
-    "_power": torch.pow,
+    "_hypot": _hypot,
+    "_power": _power,
     "_mod": _mod,
     "_equal": torch.eq,
     "_not_equal": torch.ne,

@@ -238,7 +238,8 @@ def quant_matmul(x, qw, scales, bits: int = 8):
     :func:`quantize_weight`).  ``x``: (..., K) f32; returns (..., N).
 
     CUDA tensors launch ``csrc/quant_matmul.cu`` (dequantization in
-    registers, f32 accumulation, the scale applied once per output);
+    registers, x split into two TF32 parts on the tensor cores, the
+    scale applied once per output);
     CPU tensors run :func:`quant_matmul_plain`; anything else raises."""
     if bits not in _QMAX:
         raise MXNetError("quant_matmul: bits must be 8 or 4, got %r"
@@ -267,8 +268,11 @@ def quant_matmul(x, qw, scales, bits: int = 8):
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out.reshape(lead + (N,))
-    # 4-byte weight words / float4 rows of x where alignment allows
-    vec = int(row_bytes % 4 == 0 and qw.data_ptr() % 4 == 0)
+    # 16-byte (int8) / 8-byte (int4) weight loads and float4 loads of x
+    # where alignment allows
+    lane_bytes = 16 if bits == 8 else 8
+    vec = int(row_bytes % lane_bytes == 0
+              and qw.data_ptr() % lane_bytes == 0)
     xvec = int(K % 4 == 0 and x2.data_ptr() % 16 == 0)
     fn = build.library("quant_matmul").mxt_quant_matmul
     _launch("quant_matmul", x.device, fn, x2.data_ptr(), qw.data_ptr(),

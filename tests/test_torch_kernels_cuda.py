@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: decode attention, the int8/int4 quantized matmul, the three
-flash-attention kernels (forward, dQ, dK/dV), the embedding gather and
+card: decode attention, the int8/int4 quantized matmul (at the decode
+step's shapes too), the three flash-attention kernels (forward, dQ,
+dK/dV; bit-equal reruns, and inputs on which 1xTF32 exceeds the
+tolerance that their 3xTF32 meets), the embedding gather and
 scatter and the two-bit gradient compression at ragged and odd shapes
 that the full-width smoke run does not reach, a small decode step and a
 small recommender step on the card against the same steps on the CPU,
@@ -117,6 +119,59 @@ def test_quant_matmul_kernel_unaligned_x_matches_plain(dev, bits):
     ref = kernels.quant_matmul_plain(x, qw, sc, bits)
     assert (out - ref).abs().max().item() <= 1e-5 * max(
         ref.abs().max().item(), 1.0)
+
+
+# the decode step's shapes at 8 slots (q/k/v/proj, ff1, ff2 and the
+# vocabulary head of the full-width LM), one slot, 13 rows (two row
+# tiles); N = 768 splits K across the block's warps
+QUANT_DECODE = [(8, 768, 768), (8, 3072, 768), (8, 768, 3072),
+                (8, 32768, 768), (1, 768, 768), (13, 3072, 768)]
+QUANT_DECODE_IDS = ["qkv-splitk", "ff1", "ff2-splitk", "head", "m1",
+                    "m13"]
+
+
+def _quant_inputs(dev, bits, M, N, K, seed):
+    rs = np.random.RandomState(seed)
+    qw, sc = kernels.quantize_weight(
+        (rs.randn(N, K) * 0.02).astype(np.float32), bits)
+    x = torch.from_numpy(rs.randn(M, K).astype(np.float32)).to(dev)
+    return x, torch.from_numpy(qw).to(dev), torch.from_numpy(sc).to(dev)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N,K", QUANT_DECODE, ids=QUANT_DECODE_IDS)
+def test_quant_matmul_kernel_at_decode_shapes(dev, bits, M, N, K):
+    """The decode path's shapes, within the tolerance of
+    test_quant_matmul_kernel_matches_plain, and the same bits on a
+    rerun (the k slices are summed in a fixed order, no atomics)."""
+    x, qw, sc = _quant_inputs(dev, bits, M, N, K, M + N + K)
+    out = kernels.quant_matmul(x, qw, sc, bits)
+    again = kernels.quant_matmul(x, qw, sc, bits)
+    ref = kernels.quant_matmul_plain(x, qw, sc, bits)
+    # as test_quant_matmul_kernel_matches_plain
+    assert (out - ref).abs().max().item() <= 1e-5 * max(
+        ref.abs().max().item(), 1.0)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_kernel_is_not_1xtf32(dev, bits):
+    """The kernel splits x into two TF32 parts (the integer weights are
+    exact in TF32): it stays within the tolerance that the plain version
+    run in TF32 (``allow_tf32``, x and the weights rounded to 10 mantissa
+    bits) exceeds."""
+    x, qw, sc = _quant_inputs(dev, bits, 8, 768, 768, 7)
+    ref = kernels.quant_matmul_plain(x, qw, sc, bits)
+    got = kernels.quant_matmul(x, qw, sc, bits)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = kernels.quant_matmul_plain(x, qw, sc, bits)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 1e-5 * max(ref.abs().max().item(), 1.0)   # as above
+    assert (got - ref).abs().max().item() <= tol
+    assert (tf32 - ref).abs().max().item() > tol, \
+        "1xTF32 stays within the tolerance"
 
 
 def test_kernels_refuse_wrong_dtype_and_layout(dev):
@@ -279,6 +334,41 @@ def test_flash_attention_bwd_kernels_are_not_1xtf32(dev):
     worst_tf32 = 0.0
     for g, t, ref in zip(got, tf32, refs):
         tol = 1e-4 * max(1.0, ref.abs().max().item())
+        assert (g - ref).abs().max().item() < tol
+        worst_tf32 = max(worst_tf32, (t - ref).abs().max().item() / tol)
+    assert worst_tf32 > 1.0, "1xTF32 stays within the tolerance"
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_fwd_kernel_is_deterministic(dev, causal):
+    """One owner block per output tile, no atomics: two launches of the
+    forward give the same bits, out and lse."""
+    q, k, v, _ = _flash_inputs(dev, 2, 300, 300, 3, 64, 12)
+    runs = [kernels.flash_attention_fwd(q, k, v, causal=causal)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_fwd_kernel_is_not_1xtf32(dev):
+    """The forward's tolerance tells 3xTF32 from 1xTF32: on logits that
+    reach ~+-20 the plain version's einsums in TF32 (``allow_tf32``)
+    exceed it, the kernel stays inside it.  The tolerance is
+    test_flash_attention_fwd_kernel_matches_plain's 1e-5, scaled to
+    max(1, max|ref|) because out and lse grow with the logits here (lse
+    to ~20), as the backward's is."""
+    q, k, v, _ = _flash_inputs(dev, 2, 256, 256, 2, 64, 21)
+    q, k = q * TF32_SCALE, k * TF32_SCALE
+    refs = kernels.flash_attention_fwd_plain(q, k, v, causal=True)
+    got = kernels.flash_attention_fwd(q, k, v, causal=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = kernels.flash_attention_fwd_plain(q, k, v, causal=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    worst_tf32 = 0.0
+    for g, t, ref in zip(got, tf32, refs):
+        tol = 1e-5 * max(1.0, ref.abs().max().item())
         assert (g - ref).abs().max().item() < tol
         worst_tf32 = max(worst_tf32, (t - ref).abs().max().item() / tol)
     assert worst_tf32 > 1.0, "1xTF32 stays within the tolerance"

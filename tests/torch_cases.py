@@ -91,8 +91,9 @@ _INTS = _i32([[1, -2, 3], [4, 0, -7]])
 def _edge_cases():
     """The port's repaired parity faults against the JAX package: ids out
     of range (NaN, or counted from the end), saturating float -> int
-    casts, sign(NaN), integer remainder by zero, and the float64 that x64
-    gives an integer array with a scalar."""
+    casts, sign(NaN), integer remainder by zero, the float64 that x64
+    gives an integer array with a scalar, integer hypot and integer
+    power."""
     c = {}
     c["Embedding:range"] = lambda rs: _case(
         [_f32([-1, 5, 1, -4]), _any(rs, 3, 4)],
@@ -130,12 +131,41 @@ def _edge_cases():
     c["broadcast_mod:int"] = lambda rs: _case(
         [_i32([[5, -5, 7, 3]]), _i32([[0], [3], [-2]])])
     c["L2Normalization:int"] = lambda rs: _case([_INTS], tol=ARITH)
+    # integer hypot: float32, or float64 from 64-bit integers (jnp.hypot).
+    # The dtype is exact; the values ARITH, as the float _hypot case: XLA
+    # computes x1 sqrt(1 + (x2/x1)^2) with its own contractions, 1 ulp
+    # from torch.hypot on some inputs (252.01783 vs 252.01785 in uint8)
+    hyp = ([[3, -4, 5], [0, 2, -7]], [[4, 3, -2], [1, -1, 2]])
+    for dt in ("int32", "int64", "uint8"):
+        c["_hypot:int-" + dt] = lambda rs, dt=dt: _case(
+            [np.asarray(a).astype(dt) for a in hyp], tol=ARITH)
+    c["broadcast_hypot:int"] = lambda rs: _case(
+        [_i32([[3, -4, 5, 0]]), _i32([[4], [-2], [0]])], tol=ARITH)
+    bools = (np.array([[True, False], [True, False]]),
+             np.array([[True, True], [False, False]]))
+    c["_hypot:bool"] = lambda rs: _case(list(bools), tol=ARITH)
+    # bool ** bool is int32 (jnp.power's numeric promotion)
+    c["_power:bool"] = lambda rs: _case(list(bools))
+    # integer power with negative exponents: jnp.power's binary
+    # exponentiation over the exponent's 6 low bits, wrapping
+    base, expo = np.meshgrid(np.arange(-3, 6), np.arange(-3, 0))
+    for dt in ("int8", "int32", "int64"):
+        c["_power:int-neg-" + dt] = lambda rs, dt=dt: _case(
+            [base.astype(dt), expo.astype(dt)])
+    # exponents of 64 and above, as an integer array (not a float scalar)
+    c["_power:int-big"] = lambda rs: _case(
+        [_i32([2, 3, -1, 2, 3, 0, 5, -2]),
+         _i32([64, 65, 127, 100, 1000, 64, 67, 129])])
+    c["broadcast_power:int-neg"] = lambda rs: _case(
+        [_i32([[-3], [0], [2], [5]]), _i32([[-3, -1, 0, 2, 64]])])
     return c
 
 
 # the JAX module of each op name with an edge case outside elemwise
 _EDGE_MODULE = {"Embedding": "matrix", "pick": "matrix",
                 "batch_take": "matrix", "broadcast_mod": "broadcast_reduce",
+                "broadcast_hypot": "broadcast_reduce",
+                "broadcast_power": "broadcast_reduce",
                 "L2Normalization": "broadcast_reduce"}
 
 
