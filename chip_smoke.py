@@ -25,7 +25,9 @@ Phases, in order:
    the quantized matmul) for TF32 ``HMMA`` instructions
    (``cuobjdump -sass``);
 2. each kernel against its plain version at the shapes the decode step
-   gives it, two launches bit-equal, with its time, its bound (the least
+   gives it (decode attention at the step's mix of lengths and at the
+   full cache, 8 x 1024 tokens), two launches bit-equal, with its time,
+   its bound (the least
    time for the bytes it must move at 3.35 TB/s, or its operations at the
    f32 peak; for the quantized matmul also at the TF32 tensor-core peak
    with two MMAs per product), the plain version's time and one PyTorch
@@ -213,66 +215,74 @@ def phase_kernels(torch, kernels, F, timer, card):
     max_pages = c["seq_len"] // page
     P = 1 + S * max_pages
     rs = np.random.RandomState(0)
-    # inactive, one token, a page boundary, mid-page lengths, the maximum
-    lens = np.array([0, 1, 64, 100, 1024, 513, 300, 777], np.int32)
     q = torch.from_numpy(rs.randn(S, H, D).astype(np.float32)).to(dev)
     kp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
     vp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
     pt = torch.from_numpy(rs.permutation(np.arange(1, P)).reshape(
         S, max_pages).astype(np.int32)).to(dev)
-    sl = torch.from_numpy(lens).to(dev)
-    out = kernels.decode_attention(q, kp, vp, pt, sl)
-    ref = kernels.decode_attention_plain(q, kp, vp, pt, sl)
-    torch.cuda.synchronize()
-    act = sl > 0
-    err = (out[act] - ref[act]).abs().max().item()
-    # f32 both sides; online softmax over up to 1024 keys in another
-    # summation order: 1e-5 absolute on outputs of magnitude ~1
-    tol = 1e-5
-    log("decode_attention S%d H%d D%d page%d P%d lens=%s: max_abs_err=%.3g "
-        "(tolerance %.0e: f32 both sides, online vs one-pass softmax)"
-        % (S, H, D, page, P, lens.tolist(), err, tol))
-    check(err <= tol and torch.isfinite(out).all().item(),
-          "decode_attention disagrees with its plain version")
-    # yardstick: one SDPA call over contiguous K/V of the same lengths,
-    # padded to the longest and masked (its mask keeps inactive rows
-    # finite by letting them see key 0)
-    T = int(lens.max())
-    kc = torch.zeros(S, H, T, D, device=dev)
-    vc = torch.zeros(S, H, T, D, device=dev)
-    for s in range(S):
-        n = int(lens[s])
-        if n:
-            ks = kp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
-            vs = vp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
-            kc[s, :, :n], vc[s, :, :n] = ks[:, :n], vs[:, :n]
-    mask = torch.arange(T, device=dev)[None, :] < \
-        torch.from_numpy(np.maximum(lens, 1)).to(dev)[:, None]
-    mask = mask[:, None, None, :]
-    lib = F.scaled_dot_product_attention(q[:, :, None], kc, vc,
-                                         attn_mask=mask)[:, :, 0]
-    check((lib[act] - ref[act]).abs().max().item() < 1e-4,
-          "the SDPA yardstick computes another function")
-    tot = int(lens.sum())
-    nbytes = 2 * tot * H * D * 4 + 2 * S * H * D * 4 + pt.numel() * 4 + S * 4
-    b, by = bound_ms(nbytes, 4.0 * tot * H * D)
-    rows.append({
-        "name": "decode_attention", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:619",
-        "shape": "S%d H%d D%d page%d, sum(seq_lens)=%d" % (S, H, D, page,
-                                                           tot),
-        "launches_per_step": c["num_layers"],
-        "max_abs_err": err,
-        "ms": timer(lambda: kernels.decode_attention(q, kp, vp, pt, sl)),
-        "plain_ms": timer(lambda: kernels.decode_attention_plain(
-            q, kp, vp, pt, sl)),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask)),
-        "library_call": "F.scaled_dot_product_attention over contiguous "
-                        "K/V padded to %d, masked" % T,
-    })
+    # the decode step's mix (inactive, one token, a page boundary,
+    # mid-page lengths, the maximum) and the full cache, where the split
+    # over the sequence has the most to do
+    for tag, lens in (("step mix", [0, 1, 64, 100, 1024, 513, 300, 777]),
+                      ("full cache", [c["seq_len"]] * S)):
+        lens = np.array(lens, np.int32)
+        sl = torch.from_numpy(lens).to(dev)
+        out = kernels.decode_attention(q, kp, vp, pt, sl)
+        ref = kernels.decode_attention_plain(q, kp, vp, pt, sl)
+        torch.cuda.synchronize()
+        act = sl > 0
+        err = (out[act] - ref[act]).abs().max().item()
+        # f32 both sides; online softmax over up to 1024 keys in another
+        # summation order: 1e-5 absolute on outputs of magnitude ~1
+        tol = 1e-5
+        log("decode_attention S%d H%d D%d page%d P%d lens=%s: max_abs_err="
+            "%.3g (tolerance %.0e: f32 both sides, online vs one-pass "
+            "softmax)" % (S, H, D, page, P, lens.tolist(), err, tol))
+        check(err <= tol and torch.isfinite(out).all().item()
+              and bool((out[~act] == 0).all()),
+              "decode_attention disagrees with its plain version")
+        check(torch.equal(out, kernels.decode_attention(q, kp, vp, pt, sl)),
+              "two launches of decode_attention gave different bits")
+        # yardstick: one SDPA call over contiguous K/V of the same
+        # lengths, padded to the longest and masked (its mask keeps
+        # inactive rows finite by letting them see key 0)
+        T = int(lens.max())
+        kc = torch.zeros(S, H, T, D, device=dev)
+        vc = torch.zeros(S, H, T, D, device=dev)
+        for s in range(S):
+            n = int(lens[s])
+            if n:
+                ks = kp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
+                vs = vp[pt[s].long()].permute(1, 0, 2, 3).reshape(H, -1, D)
+                kc[s, :, :n], vc[s, :, :n] = ks[:, :n], vs[:, :n]
+        mask = torch.arange(T, device=dev)[None, :] < \
+            torch.from_numpy(np.maximum(lens, 1)).to(dev)[:, None]
+        mask = mask[:, None, None, :]
+        lib = F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                             attn_mask=mask)[:, :, 0]
+        check((lib[act] - ref[act]).abs().max().item() < 1e-4,
+              "the SDPA yardstick computes another function")
+        tot = int(lens.sum())
+        nbytes = 2 * tot * H * D * 4 + 2 * S * H * D * 4 + pt.numel() * 4 \
+            + S * 4
+        b, by = bound_ms(nbytes, 4.0 * tot * H * D)
+        rows.append({
+            "name": "decode_attention", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:619",
+            "shape": "S%d H%d D%d page%d, %s, sum(seq_lens)=%d"
+                     % (S, H, D, page, tag, tot),
+            "launches_per_step": c["num_layers"],
+            "max_abs_err": err,
+            "ms": timer(lambda: kernels.decode_attention(q, kp, vp, pt, sl)),
+            "plain_ms": timer(lambda: kernels.decode_attention_plain(
+                q, kp, vp, pt, sl)),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, attn_mask=mask)),
+            "library_call": "F.scaled_dot_product_attention over contiguous "
+                            "K/V padded to %d, masked" % T,
+        })
     del kp, vp, kc, vc
 
     h, V = c["hidden"], c["vocab_size"]

@@ -23,7 +23,8 @@
 //    of 64 bytes per warp; D = 64: 2 rows of 256 bytes).  The TPU kernel's
 //    grid fetched one (1, D) block per step with the id prefetched into
 //    SMEM; here every thread loads its id itself (the loads of one row's
-//    threads hit the same word).
+//    threads hit the same word).  The scatter's threads are laid out the
+//    same way.
 //  * Ids are clamped into [0, rows): an id out of range never reads or
 //    writes out of bounds.  Callers clip, as the TPU kernel's caller does.
 //  * The scatter gives each touched table row exactly one owner, so it
@@ -36,10 +37,18 @@
 //    pad (id >= rows) is clamped onto the last row: when it follows a real
 //    update of that row it joins that run and changes nothing, and a run
 //    of pads alone writes its own no-op payload (the caller's contract).
+//  * The scatter hides its latency in at most two rounds of loads.  One
+//    thread per (entry, vector): round 1 issues every load that needs no
+//    id together, the entry's id, its neighbours' ids and its own payload,
+//    so a set-mode owner writes after one round trip.  In add mode the
+//    owner's round 2 issues the table row with, where the run goes on,
+//    its next four payloads and ids.  Blocks of 128 threads put the
+//    recommender's 4096 ids at D 16 on 129 SMs.  (A warp-ballot design,
+//    one warp listing a block's runs in shared memory, tied index_add_:
+//    the barrier and the shared-memory hop sat between the two rounds.)
 //
-// Not yet done (later PRs): hiding the id load's latency (one id per
-// vector today), a warp per long run in add mode (a run is walked by one
-// thread per vector), TMA bulk row copies.
+// Not yet done (later PRs): TMA bulk row copies; a run longer than five
+// entries costs one more round of loads per four entries.
 //
 // Interface: plain C, launched on the caller's stream, allocates nothing,
 // returns cudaGetLastError() of the launch.
@@ -51,6 +60,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 16;   // grid-stride beyond this
+constexpr int kScatterThreads = 128;   // 129 blocks at the bench shape
+constexpr int kBatch = 4;              // payload rows per run loaded together
 
 __device__ __forceinline__ int clamp_id(int32_t id, int rows) {
   return id < 0 ? 0 : (id >= rows ? rows - 1 : id);
@@ -83,8 +94,12 @@ gather_kernel(const V* __restrict__ table, const int32_t* __restrict__ ids,
   }
 }
 
+// One thread per (entry, column).  Round 1 issues every load that needs
+// no id: the entry's id, its neighbours' and its own payload.  A thread
+// whose entry starts a run then issues round 2 (add mode): the table row,
+// and where the run goes on, its next kBatch payloads and ids together.
 template <typename V, bool kAdd>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScatterThreads)
 scatter_kernel(V* table, const int32_t* __restrict__ ids,
                const V* __restrict__ src, int rows, int cols, int n,
                long long total) {
@@ -93,17 +108,46 @@ scatter_kernel(V* table, const int32_t* __restrict__ ids,
     const int i = (int)(t / cols);
     const int c = (int)(t - (long long)i * cols);
     const int r = clamp_id(ids[i], rows);
-    // only the entry that starts a run of equal clamped ids writes
-    if (i > 0 && clamp_id(ids[i - 1], rows) == r) continue;
+    const int prev = i > 0 ? clamp_id(ids[i - 1], rows) : -1;
+    const int next = i + 1 < n ? clamp_id(ids[i + 1], rows) : -1;
+    const V first = src[(size_t)i * cols + c];
+    if (prev == r) continue;         // the run's first entry writes
     V* dst = table + (size_t)r * cols + c;
-    if (kAdd) {
-      V acc = *dst;
-      for (int k = i; k < n && clamp_id(ids[k], rows) == r; ++k)
-        acc = add(acc, src[(size_t)k * cols + c]);
-      *dst = acc;
-    } else {
-      *dst = src[(size_t)i * cols + c];
+    if (!kAdd) {
+      *dst = first;
+      continue;
     }
+    const V row = *dst;
+    V pay[kBatch];
+    int nid[kBatch];
+    int e = i + 1;                   // the next entry of the run
+    bool more = next == r;
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        pay[k] = src[(size_t)min(e + k, n - 1) * cols + c];
+        nid[k] = e + k + 1 < n ? clamp_id(ids[e + k + 1], rows) : -1;
+      }
+    }
+    V acc = add(row, first);
+    while (more) {
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        if (more) {
+          acc = add(acc, pay[k]);
+          more = nid[k] == r;
+        }
+      }
+      e += kBatch;
+      if (more) {
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          pay[k] = src[(size_t)min(e + k, n - 1) * cols + c];
+          nid[k] = e + k + 1 < n ? clamp_id(ids[e + k + 1], rows) : -1;
+        }
+      }
+    }
+    *dst = acc;
   }
 }
 
@@ -143,25 +187,26 @@ extern "C" int mxt_embedding_scatter(float* table, const int32_t* ids,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int cols = vec ? D / 4 : D;
+  const long long total = (long long)n * cols;
+  const long long blocks = (total + kScatterThreads - 1) / kScatterThreads;
+  const int grid = (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
   if (vec) {
-    const int cols = D / 4;
-    const long long total = (long long)n * cols;
     float4* t4 = reinterpret_cast<float4*>(table);
     const float4* s4 = reinterpret_cast<const float4*>(src);
     if (add_mode)
-      scatter_kernel<float4, true><<<grid_for(total), kThreads, 0, st>>>(
+      scatter_kernel<float4, true><<<grid, kScatterThreads, 0, st>>>(
           t4, ids, s4, rows, cols, n, total);
     else
-      scatter_kernel<float4, false><<<grid_for(total), kThreads, 0, st>>>(
+      scatter_kernel<float4, false><<<grid, kScatterThreads, 0, st>>>(
           t4, ids, s4, rows, cols, n, total);
   } else {
-    const long long total = (long long)n * D;
     if (add_mode)
-      scatter_kernel<float, true><<<grid_for(total), kThreads, 0, st>>>(
-          table, ids, src, rows, D, n, total);
+      scatter_kernel<float, true><<<grid, kScatterThreads, 0, st>>>(
+          table, ids, src, rows, cols, n, total);
     else
-      scatter_kernel<float, false><<<grid_for(total), kThreads, 0, st>>>(
-          table, ids, src, rows, D, n, total);
+      scatter_kernel<float, false><<<grid, kScatterThreads, 0, st>>>(
+          table, ids, src, rows, cols, n, total);
   }
   return static_cast<int>(cudaGetLastError());
 }

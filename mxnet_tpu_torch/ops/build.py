@@ -48,8 +48,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention": {
-        "mxt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _F, _P]},
+        # q, k_pages, v_pages, page_table, seq_lens, out | S, H, D, page,
+        # max_pages, num_pages, chunk_pages, vec | scale | stream
+        "mxt_decode_attention": [_P] * 6 + [_I] * 8 + [_F, _P]},
     "quant_matmul": {
         "mxt_quant_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     "flash_attention": {

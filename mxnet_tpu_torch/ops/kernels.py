@@ -39,7 +39,8 @@ from ..base import MXNetError
 from . import build
 
 __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
-           "decode_attention", "decode_attention_plain", "quant_matmul",
+           "decode_attention", "decode_attention_plain",
+           "decode_chunk_pages", "quant_matmul",
            "quant_matmul_plain", "flash_attention", "FlashAttention",
            "flash_attention_fwd", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
@@ -143,8 +144,10 @@ def decode_attention(q, k_pages, v_pages, page_table, seq_lens,
     ``seq_lens``: (S,) int32 cached tokens per slot (0 = inactive slot:
     output finite, not meaningful).  Returns (S, H, D).
 
-    CUDA tensors launch ``csrc/decode_attention.cu``, which reads only
-    the pages below ``ceil(seq_lens[s] / page)``; CPU tensors run
+    CUDA tensors launch ``csrc/decode_attention.cu``, which splits each
+    slot's pages into chunks (:func:`decode_chunk_pages`, from the shapes
+    alone, so no host sync) and reads only the pages below
+    ``ceil(seq_lens[s] / page)``; CPU tensors run
     :func:`decode_attention_plain`; anything else raises."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_pages, v_pages, page_table,
@@ -171,17 +174,47 @@ def decode_attention(q, k_pages, v_pages, page_table, seq_lens,
     _check_cuda("decode_attention", q, k_pages, v_pages, page_table,
                 seq_lens)
     P, _, page, _ = k_pages.shape
+    max_pages = page_table.shape[1]
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    _require(page > 0 and P > 0, "decode_attention: empty page pool %s",
+             tuple(k_pages.shape))
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if out.numel() == 0 or max_pages == 0:     # no cached token anywhere
+        return out.zero_()
+    chunk = decode_chunk_pages(S, H, page, max_pages,
+                               _sm_count(q.device))
+    vec = int(D % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (q, k_pages, v_pages, out)))
     fn = build.library("decode_attention").mxt_decode_attention
     _launch("decode_attention", q.device, fn, q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            seq_lens.data_ptr(), out.data_ptr(), S, H, D, page,
-            page_table.shape[1], P, scale)
+            seq_lens.data_ptr(), out.data_ptr(), S, H, D, page, max_pages,
+            P, chunk, vec, scale)
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+_SMS = {}
+
+
+def _sm_count(device):
+    """The card's SM count (cached: a device query, no sync)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def decode_chunk_pages(S, H, page, max_pages, sms):
+    """Whole pages per chunk of the decode kernel's split token axis, from
+    the shapes alone (never from ``seq_lens``, which would cost a host
+    sync): enough chunks per (slot, head) that ``S * H * chunks`` blocks
+    put about four on each of ``sms`` SMs, at most 8 chunks (the chunks
+    of one (slot, head) merge in a thread-block cluster, whose portable
+    size is 8), and at least 64 tokens a chunk."""
+    want = min(8, -(-4 * sms // (S * H)))
+    return min(max_pages, max(-(-max_pages // want), -(-64 // page)))
 
 
 # ---------------------------------------------------------------------------

@@ -129,6 +129,27 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert kernels.LAUNCHES == before
 
 
+# (S, H, page, max_pages, chunk): the full-width decode step, one long
+# slot of small pages, many slots and heads, a one-page table, a table
+# of 1000 pages
+CHUNKS = [(8, 12, 64, 16, 3), (1, 1, 4, 256, 32), (1, 12, 16, 64, 8),
+          (64, 32, 16, 128, 128), (8, 12, 8, 1, 1), (3, 2, 4, 1000, 125)]
+
+
+@pytest.mark.parametrize("S,H,page,max_pages,chunk", CHUNKS)
+def test_decode_chunk_pages_come_from_the_shapes(S, H, page, max_pages,
+                                                 chunk):
+    """The split the wrapper hands the CUDA kernel, from the shapes and
+    the SM count alone: whole pages, at most 8 chunks per (slot, head)
+    (they merge in one portable cluster), at least 64 tokens a chunk
+    where the table holds that many, and about four blocks per SM."""
+    got = kernels.decode_chunk_pages(S, H, page, max_pages, 132)
+    assert got == chunk
+    n_split = -(-max_pages // got)
+    assert 1 <= got <= max_pages and n_split <= 8
+    assert got * page >= min(64, max_pages * page)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     meta = torch.device("meta")
     q = torch.empty(2, 2, 8, device=meta)

@@ -1,16 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: decode attention, the int8/int4 quantized matmul (at the decode
-step's shapes too), the three flash-attention kernels (forward, dQ,
-dK/dV; bit-equal reruns, and inputs on which 1xTF32 exceeds the
-tolerance that their 3xTF32 meets), the embedding gather and
-scatter and the two-bit gradient compression at ragged and odd shapes
-that the full-width smoke run does not reach, a small decode step and a
-small recommender step on the card against the same steps on the CPU,
-a compressing KVStore push on the card, a Module that lands on the
-card when given no context, and the imperative slice: the user kernels
-of ``rtc.CudaModule`` against their plain versions (exactly), its
-errors, exports and large shared memory, every ``mx.nd`` op case on the
-card against the CPU, and ``nd.save`` / ``nd.load`` on the card.
+card: decode attention (split over the sequence: lengths around its page
+and chunk boundaries, page ids out of the pool, bit-equal reruns, no host
+sync), the int8/int4 quantized matmul (at the decode step's shapes too),
+the three flash-attention kernels (forward, dQ, dK/dV; bit-equal reruns,
+and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
+meets), the embedding gather and scatter (runs of 1 to 1000 equal ids
+with inexact payloads, bit-equal to an in-order float32 fold) and the
+two-bit gradient compression at ragged and odd shapes that the
+full-width smoke run does not reach, a small decode step and a small
+recommender step on the card against the same steps on the CPU, a
+compressing KVStore push on the card, a Module that lands on the card
+when given no context, and the imperative slice: the user kernels of
+``rtc.CudaModule`` against their plain versions (exactly), its errors,
+exports and large shared memory, every ``mx.nd`` op case on the card
+against the CPU, and ``nd.save`` / ``nd.load`` on the card.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -79,6 +82,84 @@ def test_decode_attention_kernel_matches_plain(dev, D, page, lens):
     assert (out[act] - ref[act]).abs().max().item() < 1e-5
     assert torch.isfinite(out).all()
     assert (out[~act] == 0).all()      # the TPU kernel's inactive output
+
+
+# (S, H, D, page): every D of 8/64/100/128 at every page of 4/16/64, with
+# S 1 and 8 and H 1 and 12 in turn; a cap of 1024 tokens per slot
+DECODE_SPLIT = [((1, 8)[i % 2], (1, 12)[i // 2 % 2], D, page)
+                for i, (D, page) in enumerate(
+                    (D, page) for D in (8, 64, 100, 128)
+                    for page in (4, 16, 64))]
+
+
+def _decode_lens(page, chunk, cap):
+    """Lengths at and one either side of page and chunk boundaries, a
+    slot at the cap, 0, negative and above the cap."""
+    c = chunk * page
+    want = {0, 1, page - 1, page, page + 1, c - 1, c, c + 1, 2 * c - 1,
+            2 * c, 2 * c + 1, cap - page - 1, cap - 1, cap}
+    return sorted(x for x in want if 0 <= x <= cap) + [-3, cap + 5]
+
+
+@pytest.mark.parametrize("S,H,D,page", DECODE_SPLIT,
+                         ids=["s%d-h%d-d%d-p%d" % c for c in DECODE_SPLIT])
+def test_decode_attention_split_kernel_at_boundaries(dev, S, H, D, page):
+    """The split-sequence kernel against its plain version at lengths
+    around its page and chunk boundaries, with page ids out of the pool
+    (the kernel clamps them; the plain version is given them clamped),
+    bit-equal on a rerun."""
+    cap = 1024
+    max_pages = cap // page
+    chunk = kernels.decode_chunk_pages(
+        S, H, page, max_pages,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    lens = _decode_lens(page, chunk, cap)
+    rs = np.random.RandomState(D * page + S + H)
+    P = 1 + max(S, 2) * max_pages
+    q = torch.from_numpy(rs.randn(S, H, D).astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    vp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    for at in range(0, len(lens), S):
+        group = (lens[at:at + S] + lens[:S])[:S]
+        pt = rs.permutation(np.arange(1, P))[:S * max_pages] \
+            .reshape(S, max_pages).astype(np.int32)
+        wild = pt.copy()
+        wild[:, 1::3] = P + np.arange(max_pages)[1::3]
+        wild[:, 2::5] = -1 - np.arange(max_pages)[2::5]
+        sl = torch.tensor(group, dtype=torch.int32, device=dev)
+        wild_t = torch.from_numpy(wild).to(dev)
+        out = kernels.decode_attention(q, kp, vp, wild_t, sl)
+        again = kernels.decode_attention(q, kp, vp, wild_t, sl)
+        ref = kernels.decode_attention_plain(
+            q, kp, vp, wild_t.clamp(0, P - 1), sl.clamp(0, cap))
+        torch.cuda.synchronize()
+        act = sl > 0
+        # as test_decode_attention_kernel_matches_plain
+        assert ((out[act] - ref[act]).abs() < 1e-5).all(), group
+        assert (out[~act] == 0).all(), group
+        assert torch.equal(out, again), group
+
+
+def test_decode_attention_makes_no_host_sync(dev):
+    """The wrapper sizes its split from the shapes, never from seq_lens:
+    a call under ``set_sync_debug_mode("error")`` raises nothing."""
+    rs = np.random.RandomState(5)
+    S, H, D, page, max_pages = 8, 12, 64, 64, 16
+    P = 1 + S * max_pages
+    q = torch.from_numpy(rs.randn(S, H, D).astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    vp = torch.from_numpy(rs.randn(P, H, page, D).astype(np.float32)).to(dev)
+    pt = torch.from_numpy(rs.permutation(np.arange(1, P)).reshape(
+        S, max_pages).astype(np.int32)).to(dev)
+    sl = torch.tensor([0, 1, 64, 100, 1024, 513, 300, 777],
+                      dtype=torch.int32, device=dev)
+    first = kernels.decode_attention(q, kp, vp, pt, sl)   # builds, queries
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = kernels.decode_attention(q, kp, vp, pt, sl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, first)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -484,6 +565,76 @@ def test_embedding_scatter_kernel_matches_plain(dev, rows, D, n, aligned,
     assert kernels.LAUNCHES["embedding_scatter"] == before + 1
     assert out is table                          # in place
     assert torch.equal(out, ref)
+
+
+def _runs_inputs(rs, rows, D, lengths, pads, pad_alone):
+    """Sorted ids in runs of the given lengths (distinct rows), then
+    ``pads`` ids >= rows, which follow a real run of the last row or,
+    with ``pad_alone``, form a run of their own; an inexact table and
+    payloads, zero payloads on the pads (the add contract)."""
+    top = rows - 2 if pad_alone else rows - 1
+    heads = np.sort(rs.choice(top, len(lengths) - 1, replace=False))
+    heads = np.append(heads, top)
+    ids = np.concatenate([np.full(k, r) for r, k in zip(heads, lengths)] +
+                         [rows + np.arange(pads)]).astype(np.int32)
+    table = (rs.randn(rows, D) * 10).astype(np.float32)
+    src = rs.randn(len(ids), D).astype(np.float32)
+    src[len(ids) - pads:] = 0.0
+    return table, ids, src
+
+
+def _fold(table, ids, src, mode):
+    """The TPU kernel's result in numpy: t + r_i + r_{i+1} + ... over each
+    run in order, in float32 (add), or the run's first payload (set)."""
+    out = table.copy()
+    rows = len(table)
+    cl = np.minimum(ids, rows - 1)
+    i = 0
+    while i < len(ids):
+        j = i
+        acc = out[cl[i]].copy() if mode == "add" else src[i].copy()
+        while j < len(ids) and cl[j] == cl[i]:
+            if mode == "add":
+                acc = acc + src[j]
+            j += 1
+        out[cl[i]] = acc
+        i = j
+    return out
+
+
+# runs of 1, 2, 33 and 1000 equal ids; 31 + 2 crosses a 32-entry slice,
+# 1000 crosses many, 40 + 90 cross a 128-thread block's items
+SCATTER_RUNS = {
+    "ones-twos": [1] * 20 + [2] * 11 + [1] * 9,
+    "run33": [3, 29, 33, 1, 1, 2],
+    "run1000": [1, 2, 1000, 1, 2],
+    "crossing": [31, 2, 30, 3, 40, 90, 1, 64, 32],
+}
+
+
+@pytest.mark.parametrize("mode", ["add", "set"])
+@pytest.mark.parametrize("pad_alone", [False, True],
+                         ids=["pads-after-run", "pads-alone"])
+@pytest.mark.parametrize("D", [16, 64, 7])
+@pytest.mark.parametrize("runs", list(SCATTER_RUNS))
+def test_embedding_scatter_kernel_runs_bit_equal_numpy(dev, runs, D,
+                                                       pad_alone, mode):
+    """Inexact payloads, so the order of the adds shows: the kernel is
+    bit-equal to an in-order float32 fold (add) or the first write (set),
+    and to itself on a rerun."""
+    rs = np.random.RandomState(len(SCATTER_RUNS[runs]) * D + pad_alone)
+    table, ids, src = _runs_inputs(rs, 3000, D, SCATTER_RUNS[runs], 3,
+                                   pad_alone)
+    if mode == "set":          # pads carry the current last row
+        src[len(ids) - 3:] = table[-1]
+    want = _fold(table, ids, src, mode)
+    t = torch.from_numpy(table).to(dev)
+    i, r = torch.from_numpy(ids).to(dev), torch.from_numpy(src).to(dev)
+    got = sparse_kernels.embedding_scatter(t.clone(), i, r, mode)
+    again = sparse_kernels.embedding_scatter(t.clone(), i, r, mode)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, again)
 
 
 def test_embedding_kernels_refuse_what_they_do_not_take(dev):

@@ -7,7 +7,8 @@ in interpret mode and with its XLA path.
 
 Inputs are made with numpy from a seed.  Payload rows are multiples of
 2^-10 and tables multiples of 2^-6, so every sum is exact in float32 and
-the comparison is exact equality whatever the order of the adds.
+the comparison is exact equality whatever the order of the adds; one
+test takes inexact payloads, so that the order of the adds shows.
 
 The scatter's contract (ids sorted; pads >= rows carry a no-op payload)
 is what both backends are held to: the XLA path drops pads, the Pallas
@@ -96,6 +97,46 @@ def test_scatter_add_plain_matches_jax(backend, rows, D, n):
     ref = table.copy()
     np.add.at(ref, ids[:n], src[:n])
     np.testing.assert_array_equal(want, ref)
+
+
+# run lengths of equal ids: runs of 1, 2, 33 and 1000
+INEXACT_RUNS = {"ones-twos": [1] * 12 + [2] * 6,
+                "run33": [3, 33, 1, 2],
+                "run1000": [1, 2, 1000, 1]}
+
+
+@pytest.mark.parametrize("pad_alone", [False, True],
+                         ids=["pads-after-run", "pads-alone"])
+@pytest.mark.parametrize("D", [1, 7, 16, 64])
+@pytest.mark.parametrize("runs", list(INEXACT_RUNS))
+def test_scatter_add_plain_inexact_matches_pallas_order(runs, D, pad_alone):
+    """Inexact payloads make the order of the adds show.  The plain add
+    (``index_add_`` on the CPU) is bit-equal to the Pallas kernel in
+    interpret mode, whose order ``t + r_i + r_{i+1} + ...`` the CUDA
+    kernel keeps, and to that fold done in numpy in float32.  Three pads
+    with zero payloads follow a real run of the last row, or form a run
+    of their own."""
+    rs = np.random.RandomState(len(INEXACT_RUNS[runs]) * D + pad_alone)
+    rows, lengths = 200, INEXACT_RUNS[runs]
+    top = rows - 2 if pad_alone else rows - 1
+    heads = np.append(np.sort(rs.choice(top, len(lengths) - 1,
+                                        replace=False)), top)
+    ids = _pad(np.concatenate([np.full(k, r) for r, k in
+                               zip(heads, lengths)]), 3, rows)
+    table = (rs.randn(rows, D) * 10).astype(np.float32)
+    src = rs.randn(len(ids), D).astype(np.float32)
+    src[len(ids) - 3:] = 0.0
+    want = np.asarray(jax_scatter(jnp.asarray(table), jnp.asarray(ids),
+                                  jnp.asarray(src), mode="add",
+                                  backend="pallas"))
+    got = K.embedding_scatter_plain(torch.from_numpy(table.copy()),
+                                    torch.from_numpy(ids),
+                                    torch.from_numpy(src), mode="add")
+    np.testing.assert_array_equal(got.numpy(), want)
+    fold = table.copy()
+    for i, r in enumerate(ids[:len(ids) - 3]):
+        fold[r] = fold[r] + src[i]
+    np.testing.assert_array_equal(want, fold)
 
 
 @pytest.mark.parametrize("rows,D,n", CASES, ids=CASE_IDS)

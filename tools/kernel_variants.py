@@ -16,8 +16,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def build_all(build, lib_name, srcs):
     """Build every source in ``srcs`` (one ``nvcc`` each, all at once) into
     ``build/variants/`` and load it with the argtypes of ``lib_name``;
-    prints each build's exit code, registers and spills.  Returns
-    ``[(src, path, CDLL)]`` for the builds that succeeded."""
+    prints each build's exit code, its kernels' names, registers and
+    spills.  Returns ``[(src, path, CDLL)]`` for the builds that
+    succeeded."""
     out_dir = os.path.join(ROOT, "build", "variants")
     nvcc = build.find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
@@ -32,8 +33,8 @@ def build_all(build, lib_name, srcs):
         log, _ = proc.communicate()
         print("== %s: nvcc exit %d" % (src, proc.returncode))
         for line in log.splitlines():
-            if "error" in line or "Used" in line or (
-                    "spill" in line and "0 bytes spill" not in line):
+            if "error" in line or "Used" in line or "entry function" in line \
+                    or ("spill" in line and "0 bytes spill" not in line):
                 print("   " + line.strip()[:150])
         if proc.returncode:
             continue
