@@ -55,7 +55,10 @@ Phases, in order:
    plain versions, exactly, at the recommender path's shapes (timed, with
    bounds and the ``index_select`` / ``index_copy_`` / ``index_add_``
    yardsticks) and at ragged ones (D 13 and 1, n 1, duplicates, the ids
-   0 and rows-1, pads >= rows);
+   0 and rows-1, pads >= rows); then the step's two grouped gathers at
+   both geometries (the lookup over every table: 4 and 26 segments; the
+   update over every table's weight and momentum rows: 8 and 52), timed
+   beside one launch per table and one ``index_select`` per table;
 10. two recommender steps on the card against the same steps on the CPU
     from one state (4 tables x 1000 x 16, batch 512);
 11. the recommender at the bench geometry (3 warm-up and 20 timed steps)
@@ -65,14 +68,16 @@ Phases, in order:
     ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
     before the loss is read);
 12. the two-bit gradient compression kernel against its plain version,
-    exactly, at every shape the LM's 198 pushes give it (timed, with
-    bounds) and at n 1 and 1023, a tail (25,165,827), misaligned views,
-    threshold 0.3 at f32(0.3) and its nextafter neighbours, NaN and +-inf;
+    exactly, with one segment at every shape the LM's 198 keys give it
+    (timed, with bounds) and at n 1 and 1023, a tail (25,165,827),
+    misaligned views, threshold 0.3 at f32(0.3) and its nextafter
+    neighbours, NaN and +-inf; then over all 198 keys in one grouped call
+    (timed against the bound and one launch per key);
 13. ``Module.fit`` for 3 steps through a compressing ``KVStore("device")``
     on the card and on the CPU from the same parameters (2 layers,
-    hidden 64, T 64): every push's q + new residual, q exactly except
-    near +-t (counted), the weights, and one kernel launch per key per
-    step;
+    hidden 64, T 64): every key's q + new residual, q exactly except
+    near +-t (counted), the weights, and one grouped kernel launch per
+    push;
 14. ``Module.fit`` of the full-width LM at batch 8 through a compressing
     ``KVStore("device")`` on 16 numpy-seeded sequences (2 batches per
     epoch): 2 warm-up and 12 timed steps (CUDA events at each batch end),
@@ -108,8 +113,10 @@ Phases, in order:
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
-per layer per step (once per matmul for the quantized ones; three gathers
-and two scatters per table per recommender step).
+per layer per step (once per matmul for the quantized ones; two grouped
+gathers per recommender step and two scatters per table; one grouped
+two-bit launch per ``Module.fit`` step while its keys fit in one
+launch's parameters).
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``.  It needs one
 CUDA card, exits non-zero without one (or without the package beside it),
@@ -165,14 +172,28 @@ class phase:
         return False
 
 
+def spin_cycles(torch, fn):
+    """Cycles of ``torch.cuda._sleep`` that outlast the host's enqueue of
+    ``fn`` (a warm call, timed on the host clock) twice over at up to
+    2 GHz, and at least 2,000,000 (~1 ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return max(2_000_000, min(int(host_s * 4e9), 400_000_000))
+
+
 class Timer:
     """Median per-call device time (CUDA events), each call after a read
     of 64 MB (more than the 50 MB L2) that evicts its inputs, as the
     decode step finds its weights cold.  The flush only reads, so it
     leaves no dirty lines whose write-back would land inside the timed
-    call.  A 1 ms spin kernel between the flush and the start event keeps
-    the card busy while the host enqueues the call, so the events time
-    the device work and not the host's launch overhead."""
+    call.  A spin kernel between the flush and the start event keeps the
+    card busy while the host enqueues the call (at least 1 ms, and twice
+    the host's enqueue time of the call: a grouped wrapper prepares
+    hundreds of segments first), so the events time the device work and
+    not the host's launch overhead."""
 
     def __init__(self, torch, iters=25):
         self.torch = torch
@@ -182,11 +203,11 @@ class Timer:
     def __call__(self, fn):
         torch = self.torch
         fn()
-        torch.cuda.synchronize()
+        spin = spin_cycles(torch, fn)
         ts = []
         for _ in range(self.iters):
             self.flush.sum()
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -195,6 +216,19 @@ class Timer:
             e.synchronize()
             ts.append(s.elapsed_time(e))
         return statistics.median(ts)
+
+
+def host_ms(torch, fn, n):
+    """Host ms per call of ``fn``: ``n`` calls enqueued back to back (few
+    enough that the launch queue never fills), on the host clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
 
 
 def bound_ms(nbytes, flops):
@@ -1096,7 +1130,9 @@ def phase_embedding(torch, kernels, sk, timer, card):
         out += [{
             "name": "embedding_gather", "route": "cuda", "source": src,
             "replaces": "mxnet_tpu/sparse/kernels.py:117",
-            "shape": shape, "launches_per_step": 3 * F,
+            "shape": shape + ", one segment (lookup / apply_sgd / "
+                     "apply_adam alone; not on the step's path)",
+            "launches_per_step": 0,
             "max_abs_err": c["errs"]["gather"],
             "ms": timer(lambda: sk.embedding_gather(table, ga)),
             "plain_ms": timer(lambda: sk.embedding_gather_plain(table, ga)),
@@ -1134,11 +1170,75 @@ def phase_embedding(torch, kernels, sk, timer, card):
             "library_call": "table.index_add_(0, clamped ids, rows)",
         }]
         del c, table, t_set, t_add
+        out += gather_groups(torch, sk, timer, tag, geo, dev)
     for r in out:
         log("  %-18s %-62s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "library_ms=%.4f  [%s]"
+            "library_ms=%s%s  [%s]"
             % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
-               r["bound_by"], r["library_ms"], card))
+               r["bound_by"], "none" if r["library_ms"] is None
+               else "%.4f" % r["library_ms"],
+               "" if "per_table_ms" not in r else
+               "; one launch per table %.4f, one index_select per table "
+               "%.4f (back to back); host ms per call %.4f, per-table "
+               "calls %.4f" % (r["per_table_ms"], r["library_sum_ms"],
+                               r["host_ms"], r["per_table_host_ms"]), card))
+    return out
+
+
+def gather_groups(torch, sk, timer, tag, geo, dev):
+    """The recommender step's two grouped gathers at ``geo``: the lookup
+    (one segment per table) and the update (each table's weight and
+    momentum rows), over distinct tables and momentum slots, with the
+    step's ids (sorted unique + pads, clamped).  Each is held to the
+    plain version exactly and timed beside the same segments as one
+    kernel launch per table (the design before) and as one
+    ``index_select`` per table."""
+    rows, D, n, F = geo["rows"], geo["dim"], geo["batch"], geo["tables"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    bufs = [torch.randint(-64, 64, (rows, D), generator=g, device=dev)
+            .float() / 64 for _ in range(2 * F)]
+    rs = np.random.RandomState(11)
+    ids = [torch.from_numpy(path_ids(rs, rows, n)[2]).to(dev)
+           for _ in range(F)]
+    out = []
+    for phase_name, tabs, idx in (
+            ("lookup", bufs[:F], ids),
+            ("update", [b for f in range(F) for b in (bufs[f], bufs[F + f])],
+             [i for i in ids for _ in range(2)])):
+        m = len(tabs)
+        got = sk.embedding_gather_many(tabs, idx)
+        want = sk.embedding_gather_many_plain(tabs, idx)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "the grouped gather differs from its plain version (%s %s)"
+              % (tag, phase_name))
+        del got, want
+        longs = [i.long() for i in idx]
+        b, by = bound_ms(m * (n * 4 + 2 * n * D * 4), 0)
+        out.append({
+            "name": "embedding_gather", "route": "cuda",
+            "source": "mxnet_tpu_torch/csrc/embedding.cu",
+            "replaces": "mxnet_tpu/sparse/kernels.py:117",
+            "shape": "%s %s: %d segments, tables (%d, %d) f32, n %d each, "
+                     "grouped" % (tag, phase_name, m, rows, D, n),
+            "launches_per_step": 1, "max_abs_err": err,
+            "ms": timer(lambda: sk.embedding_gather_many(tabs, idx)),
+            "plain_ms": timer(lambda: sk.embedding_gather_many_plain(tabs,
+                                                                     idx)),
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "library_call": "none: no single PyTorch call gathers from "
+                            "many tables",
+            "per_table_ms": timer(lambda: [sk.embedding_gather(t, i)
+                                           for t, i in zip(tabs, idx)]),
+            "library_sum_ms": timer(lambda: [torch.index_select(t, 0, i)
+                                             for t, i in zip(tabs, longs)]),
+            "host_ms": host_ms(torch, lambda: sk.embedding_gather_many(
+                tabs, idx), 10),
+            "per_table_host_ms": host_ms(torch, lambda: [
+                sk.embedding_gather(t, i) for t, i in zip(tabs, idx)], 10),
+        })
+    del bufs
     return out
 
 
@@ -1251,9 +1351,10 @@ def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
     peak = torch.cuda.max_memory_allocated()
     log("launches on the recommender path (%s): %s over %d steps"
         % (tag, got, steps))
-    check(got["embedding_gather"] == 3 * F * steps,
-          "embedding_gather launched %d times over %d steps, want %d"
-          % (got["embedding_gather"], steps, 3 * F * steps))
+    check(got["embedding_gather"] == 2 * steps,
+          "embedding_gather launched %d times over %d steps, want %d (one "
+          "grouped lookup and one grouped update gather per step)"
+          % (got["embedding_gather"], steps, 2 * steps))
     check(got["embedding_scatter"] == 2 * F * steps,
           "embedding_scatter launched %d times over %d steps, want %d"
           % (got["embedding_scatter"], steps, 2 * F * steps))
@@ -1366,8 +1467,10 @@ def phase_two_bit(torch, kernels, timer, card):
             "name": "two_bit_compress", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/two_bit.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:121",
-            "shape": "grad/residual %s f32, threshold 0.5" % (shape,),
-            "launches_per_step": per_step, "max_abs_err": err,
+            "shape": "grad/residual %s f32, threshold 0.5, one segment "
+                     "(%d keys of the push have this shape)"
+                     % (shape, per_step),
+            "launches_per_step": 0, "max_abs_err": err,
             "ms": timer(lambda: kernels.two_bit_compress(g, r, 0.5)),
             "plain_ms": timer(lambda: kernels.two_bit_compress_plain(
                 g, r, 0.5)),
@@ -1375,39 +1478,96 @@ def phase_two_bit(torch, kernels, timer, card):
             "library_call": "none: no single PyTorch call computes q and "
                             "the new residual"})
         del g, r
+    out.append(two_bit_group(torch, kernels, timer))
     for r in out:
-        log("  %-16s %-44s x%-3d ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "[%s]" % (r["name"], r["shape"], r["launches_per_step"],
-                      r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
-                      card))
-    dev = sum(r["ms"] * r["launches_per_step"] for r in out)
-    bnd = sum(r["bound_ms"] * r["launches_per_step"] for r in out)
-    log("two_bit_compress per LM step (%d launches): %.3f ms of kernel time "
-        "(cold L2, one call at a time) against a %.3f ms bound [%s]"
-        % (sum(p for _, p in TWO_BIT_PUSHES), dev, bnd, card))
+        log("  %-16s %-64s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s)%s "
+            "[%s]" % (r["name"], r["shape"], r["ms"], r["plain_ms"],
+                      r["bound_ms"], r["bound_by"],
+                      " per-key launches %.4f" % r["per_key_ms"]
+                      if "per_key_ms" in r else "", card))
+    g = out[-1]
+    per_key_sum = sum(r["ms"] * p for r, (_, p) in zip(out, TWO_BIT_PUSHES))
+    log("two_bit_compress per LM step: %d grouped launch(es) over %d keys, "
+        "%.4f ms (%.0f%% of the HBM rate) against a %.4f ms bound; one "
+        "launch per key: %.4f ms summed over the one-segment rows (each "
+        "timed alone), %.4f ms as 198 launches back to back; host ms per "
+        "push %.3f grouped, %.3f one call per key [%s]"
+        % (g["launches_per_step"], sum(p for _, p in TWO_BIT_PUSHES),
+           g["ms"], 100 * g["bound_ms"] / g["ms"], g["bound_ms"],
+           per_key_sum, g["per_key_ms"], g["host_ms"],
+           g["per_key_host_ms"], card))
     return out
 
 
+def two_bit_group(torch, kernels, timer, dev="cuda"):
+    """B7 over every key of the LM's push (``TWO_BIT_PUSHES``, 198 keys)
+    in one grouped call, held to the plain version exactly, timed beside
+    the same keys launched one per key (the design before)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    shapes = [s for s, k in TWO_BIT_PUSHES for _ in range(k)]
+    gs = [torch.randn(s, generator=gen, device=dev) * 0.5 for s in shapes]
+    rs_ = [torch.randn(s, generator=gen, device=dev) * 0.2 for s in shapes]
+    q0, r0 = kernels.two_bit_compress_many_plain(gs, rs_, 0.5)
+    before = kernels.LAUNCHES["two_bit_compress"]
+    qs = kernels.two_bit_compress_many(gs, rs_, 0.5)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["two_bit_compress"] - before
+    per = kernels.two_bit_segments_per_launch()
+    check(launches == -(-len(shapes) // per), "the grouped two_bit_compress "
+          "made %d launches for %d keys at %d per launch"
+          % (launches, len(shapes), per))
+    err = max(max((a - b).abs().max().item() for a, b in zip(qs, q0)),
+              max((a - b).abs().max().item() for a, b in zip(rs_, r0)))
+    check(all(torch.equal(a, b) for a, b in zip(qs, q0))
+          and all(torch.equal(a, b) for a, b in zip(rs_, r0)),
+          "the grouped two_bit_compress differs from its plain version")
+    del qs, q0, r0
+    n = sum(int(np.prod(s)) for s in shapes)
+    b, by = bound_ms(16 * n, 2 * n)
+    return {
+        "name": "two_bit_compress", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/two_bit.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:121",
+        "shape": "the LM's push: %d keys, %d elements f32, threshold 0.5, "
+                 "grouped" % (len(shapes), n),
+        "launches_per_step": launches, "max_abs_err": err,
+        "ms": timer(lambda: kernels.two_bit_compress_many(gs, rs_, 0.5)),
+        "plain_ms": timer(lambda: kernels.two_bit_compress_many_plain(
+            gs, rs_, 0.5)),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "library_call": "none: no single PyTorch call computes q and the "
+                        "new residual",
+        "per_key_ms": timer(lambda: [kernels.two_bit_compress(g, r, 0.5)
+                                     for g, r in zip(gs, rs_)]),
+        "host_ms": host_ms(torch, lambda: kernels.two_bit_compress_many(
+            gs, rs_, 0.5), 10),
+        "per_key_host_ms": host_ms(torch, lambda: [
+            kernels.two_bit_compress(g, r, 0.5) for g, r in zip(gs, rs_)],
+            3)}
+
+
 def record_pushes(torch, kv_mod):
-    """Wrap the store's two-bit compressor to log, per push, the key and
-    (g, r before, q, r after) on the host.  Returns (log, undo)."""
+    """Wrap the store's two-bit compressor (``compress_many``: every key
+    of a push in one call) to log, per key, the key and (g, r before, q,
+    r after) on the host.  Returns (log, undo)."""
     cls = kv_mod._TwoBitCompressor
-    orig = cls.compress
+    orig = cls.compress_many
     pushes = []
 
     def host(t):
         return t.detach().to("cpu", copy=True)
 
-    def compress(self, key, grad):
-        before = self.residual.get(key)
-        before = torch.zeros(grad.shape) if before is None else host(before)
-        q = orig(self, key, grad)
-        pushes.append((key, host(grad), before, host(q),
-                       host(self.residual[key])))
-        return q
+    def compress_many(self, keys, grads):
+        before = [torch.zeros(g.shape) if self.residual.get(k) is None
+                  else host(self.residual[k]) for k, g in zip(keys, grads)]
+        qs = orig(self, keys, grads)
+        for k, g, r0, q in zip(keys, grads, before, qs):
+            pushes.append((k, host(g), r0, host(q),
+                           host(self.residual[k])))
+        return qs
 
-    cls.compress = compress
-    return pushes, lambda: setattr(cls, "compress", orig)
+    cls.compress_many = compress_many
+    return pushes, lambda: setattr(cls, "compress_many", orig)
 
 
 def module_params(net, shapes, seed):
@@ -1469,9 +1629,11 @@ def phase_module_parity(torch, mx, kernels, kv_mod, get_symbol, card):
         res[dev] = ({k: v.asnumpy() for k, v in args.items()}, pushes,
                     launches)
     n_keys = len(start)
-    check(res["cuda"][2] == 3 * n_keys,
+    want = 3 * -(-n_keys // kernels.two_bit_segments_per_launch())
+    check(res["cuda"][2] == want,
           "two_bit_compress launched %d times on the card over 3 steps of "
-          "%d keys, want %d" % (res["cuda"][2], n_keys, 3 * n_keys))
+          "%d keys, want %d (one grouped call per push)"
+          % (res["cuda"][2], n_keys, want))
     check(res["cpu"][2] == 0, "the CPU run launched a kernel")
     near_n = flip_n = fired = 0
     flipped = {}
@@ -1541,15 +1703,16 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
     kv = mx.kv.create("device")
     # fired values per step, counted on the card as the pushes of the
     # last epoch go (after the timed and profiled steps: the count adds
-    # two launches per push and a host read per step)
+    # two launches per key and a host read per step)
     fired = torch.zeros((), dtype=torch.int64, device="cuda")
     cls = kv_mod._TwoBitCompressor
-    orig = cls.compress
+    orig = cls.compress_many
 
-    def counting(self, key, grad):
-        q = orig(self, key, grad)
-        fired.add_(torch.count_nonzero(q))
-        return q
+    def counting(self, keys, grads):
+        qs = orig(self, keys, grads)
+        for q in qs:
+            fired.add_(torch.count_nonzero(q))
+        return qs
 
     update_ms = []
     orig_update = mod.update
@@ -1586,7 +1749,7 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
             torch.cuda.synchronize()
             prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
             prof["p"].__exit__(None, None, None)
-            cls.compress = counting
+            cls.compress_many = counting
 
     torch.manual_seed(0)
     torch.cuda.synchronize()
@@ -1600,7 +1763,7 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
                 eval_metric=mx.metric.Perplexity(ignore_label=None),
                 batch_end_callback=on_batch, num_epoch=epochs)
     finally:
-        cls.compress = orig
+        cls.compress_many = orig
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     got = dict(kernels.LAUNCHES)
@@ -1611,9 +1774,11 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
     steps = len(ev)
     check(steps == 2 * epochs, "fit ran %d steps, want %d"
           % (steps, 2 * epochs))
-    check(got["two_bit_compress"] == n_keys * steps,
-          "two_bit_compress launched %d times over %d steps of %d keys"
-          % (got["two_bit_compress"], steps, n_keys))
+    per_step = -(-n_keys // kernels.two_bit_segments_per_launch())
+    check(got["two_bit_compress"] == per_step * steps,
+          "two_bit_compress launched %d times over %d steps of %d keys, "
+          "want %d per step (one grouped call per push)"
+          % (got["two_bit_compress"], steps, n_keys, per_step))
     for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
                 "flash_attention_bwd_dkv"):
         check(got[key] == cfg["num_layers"] * steps,

@@ -15,16 +15,32 @@
 // 3.35 TB/s.
 //
 // What the design does about it:
-//  * Every thread moves one 16-byte vector (float4) of one row where the
-//    row width D is a multiple of 4 and the pointers are 16-byte aligned
-//    (the wrapper checks and says so), else one float.  Neighbouring
-//    threads take neighbouring vectors of a row and then the next row, so
-//    a warp's accesses are coalesced runs of whole rows (D = 16: 8 rows
-//    of 64 bytes per warp; D = 64: 2 rows of 256 bytes).  The TPU kernel's
-//    grid fetched one (1, D) block per step with the id prefetched into
-//    SMEM; here every thread loads its id itself (the loads of one row's
-//    threads hit the same word).  The scatter's threads are laid out the
-//    same way.
+//  * The gather is one launch over many (table, ids, out) segments: every
+//    table's lookup of a recommender step in one launch, and every
+//    table's weight and momentum rows of its update in another (26 and
+//    52 segments at a Criteo shape, where one launch per table and use
+//    cost more than the 4.2 MB each moves).  The C entry takes a host
+//    array of segment descriptors and passes up to kMaxGatherSegs of them
+//    BY VALUE in the kernel's parameters (a __grid_constant__ struct:
+//    CUDA >= 12.1 takes 32,764 bytes of them, 680 segments; older
+//    toolkits 4 KB, 80): no copy to the device, no allocation, no host
+//    sync.  Each block takes a fixed run of kGatherChunk (row, vector)
+//    work units of one segment and finds its segment by a binary search
+//    over the segments' first blocks.  Segments may differ in D, rows
+//    and alignment.
+//  * Every thread moves 16-byte vectors (float4) of rows where the
+//    segment's row width D is a multiple of 4 and its table and out are
+//    16-byte aligned (the wrapper checks and says so), else single
+//    floats.  Neighbouring threads take neighbouring vectors of a row and
+//    then the next row, so a warp's accesses are coalesced runs of whole
+//    rows (D = 16: 8 rows of 64 bytes per warp; D = 64: 2 rows of 256
+//    bytes).  Each thread moves one (row, vector) unit, as the one-table
+//    kernel before it did: two units per thread (half the blocks) ran the
+//    bench shape's lookup 9.5% slower alone.  The TPU kernel's grid
+//    fetched one (1, D)
+//    block per step with the id prefetched into SMEM; here every thread
+//    loads its id itself (the loads of one row's threads hit the same
+//    word).  The scatter's threads are laid out the same way.
 //  * Ids are clamped into [0, rows): an id out of range never reads or
 //    writes out of bounds.  Callers clip, as the TPU kernel's caller does.
 //  * The scatter gives each touched table row exactly one owner, so it
@@ -47,11 +63,13 @@
 //    one warp listing a block's runs in shared memory, tied index_add_:
 //    the barrier and the shared-memory hop sat between the two rounds.)
 //
-// Not yet done (later PRs): TMA bulk row copies; a run longer than five
-// entries costs one more round of loads per four entries.
+// Not yet done (later PRs): the scatter as one launch over many tables
+// (it is one launch per table and use: 52 per Criteo step); TMA bulk row
+// copies; a run longer than five entries costs one more round of loads
+// per four entries.
 //
 // Interface: plain C, launched on the caller's stream, allocates nothing,
-// returns cudaGetLastError() of the launch.
+// returns cudaGetLastError() of the launches (the first that failed).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +80,13 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132LL * 16;   // grid-stride beyond this
 constexpr int kScatterThreads = 128;   // 129 blocks at the bench shape
 constexpr int kBatch = 4;              // payload rows per run loaded together
+constexpr int kGatherItems = 1;        // gather work units per thread
+constexpr int kGatherChunk = kThreads * kGatherItems;   // per block
+#if CUDART_VERSION >= 12010
+constexpr int kMaxGatherSegs = 680;    // 8 + 680 * 48 <= 32,764 bytes
+#else
+constexpr int kMaxGatherSegs = 80;     // 8 + 80 * 48 <= 4,096 bytes
+#endif
 
 __device__ __forceinline__ int clamp_id(int32_t id, int rows) {
   return id < 0 ? 0 : (id >= rows ? rows - 1 : id);
@@ -80,18 +105,81 @@ __device__ __forceinline__ float4 add<float4>(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// V = float4 (W = 4 floats per vector) or float (W = 1); cols = D / W
+// one gather segment as the kernel reads it (48 bytes): out (n, D) =
+// table (rows, D)[ids (n,)], in vectors of W floats (cols = D / W)
+struct GatherSeg {
+  const float* table;
+  const int32_t* ids;
+  float* out;
+  int rows;
+  int cols;
+  int n;
+  int vec;
+  int first_block;
+  int pad;
+};
+
+template <int kCap>
+struct GatherBatch {
+  int count;
+  int pad;
+  GatherSeg seg[kCap];
+};
+
+// V = float4 (W = 4 floats per vector) or float (W = 1).  Work unit t of
+// a segment is (entry t / cols, vector t % cols); the thread's units are
+// t0, t0 + kThreads, ...: neighbouring threads on neighbouring vectors of
+// a row, then the next row.  Every id is loaded, then every row vector,
+// then every store.
 template <typename V>
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(const V* __restrict__ table, const int32_t* __restrict__ ids,
-              V* __restrict__ out, int rows, int cols, long long total) {
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const long long i = t / cols;
-    const int c = (int)(t - i * cols);
-    const int r = clamp_id(ids[i], rows);
-    out[t] = table[(size_t)r * cols + c];
+__device__ __forceinline__ void gather_chunk(
+    const V* __restrict__ table, const int32_t* __restrict__ ids,
+    V* __restrict__ out, int rows, int cols, long long total,
+    long long t0) {
+  long long off[kGatherItems];
+#pragma unroll
+  for (int k = 0; k < kGatherItems; ++k) {
+    const long long t = t0 + (long long)k * kThreads;
+    if (t < total) {
+      const long long i = t / cols;
+      const int c = (int)(t - i * cols);
+      off[k] = (long long)clamp_id(ids[i], rows) * cols + c;
+    }
   }
+  V v[kGatherItems];
+#pragma unroll
+  for (int k = 0; k < kGatherItems; ++k) {
+    const long long t = t0 + (long long)k * kThreads;
+    if (t < total) v[k] = table[off[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < kGatherItems; ++k) {
+    const long long t = t0 + (long long)k * kThreads;
+    if (t < total) out[t] = v[k];
+  }
+}
+
+// one block per kGatherChunk work units of one segment; the block finds
+// its segment by a binary search over the segments' first blocks
+template <int kCap>
+__global__ void __launch_bounds__(kThreads)
+gather_kernel(const __grid_constant__ GatherBatch<kCap> b) {
+  const int blk = blockIdx.x;
+  int lo = 0, hi = b.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (b.seg[mid].first_block <= blk) lo = mid; else hi = mid - 1;
+  }
+  const GatherSeg& s = b.seg[lo];
+  const long long total = (long long)s.n * s.cols;
+  const long long t0 =
+      (long long)(blk - s.first_block) * kGatherChunk + threadIdx.x;
+  if (s.vec)
+    gather_chunk<float4>(reinterpret_cast<const float4*>(s.table), s.ids,
+                         reinterpret_cast<float4*>(s.out), s.rows, s.cols,
+                         total, t0);
+  else
+    gather_chunk<float>(s.table, s.ids, s.out, s.rows, s.cols, total, t0);
 }
 
 // One thread per (entry, column).  Round 1 issues every load that needs
@@ -151,32 +239,67 @@ scatter_kernel(V* table, const int32_t* __restrict__ ids,
   }
 }
 
-int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+// launch one GatherBatch<kCap> over segs[0, count) (count <= kCap)
+template <int kCap>
+int launch_gather(const GatherSeg* segs, int count, cudaStream_t st) {
+  GatherBatch<kCap> b;
+  b.count = count;
+  b.pad = 0;
+  long long blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    b.seg[i] = segs[i];
+    b.seg[i].first_block = (int)blocks;
+    blocks += ((long long)segs[i].n * segs[i].cols + kGatherChunk - 1)
+              / kGatherChunk;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gather_kernel<kCap><<<(unsigned)blocks, kThreads, 0, st>>>(b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int mxt_embedding_gather(const float* table, const int32_t* ids,
-                                    float* out, int rows, int D, int n,
-                                    int vec, void* stream) {
-  if (rows <= 0 || D <= 0 || n < 0 || (vec && D % 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+extern "C" int mxt_embedding_segments_per_launch() {
+  return kMaxGatherSegs;
+}
+
+// one segment as the caller passes it: seven 64-bit words (table, ids,
+// out, rows, D, n, vec); zero-length segments are the caller's to leave
+// out
+extern "C" int mxt_embedding_gather_many(const long long* desc, int count,
+                                         void* stream) {
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    const int cols = D / 4;
-    const long long total = (long long)n * cols;
-    gather_kernel<float4><<<grid_for(total), kThreads, 0, st>>>(
-        reinterpret_cast<const float4*>(table), ids,
-        reinterpret_cast<float4*>(out), rows, cols, total);
-  } else {
-    const long long total = (long long)n * D;
-    gather_kernel<float><<<grid_for(total), kThreads, 0, st>>>(
-        table, ids, out, rows, D, total);
+  GatherSeg segs[kMaxGatherSegs];
+  for (int done = 0; done < count;) {
+    const int m = count - done < kMaxGatherSegs ? count - done
+                                                : kMaxGatherSegs;
+    for (int i = 0; i < m; ++i) {
+      const long long* d = desc + 7LL * (done + i);
+      const long long rows = d[3], D = d[4], n = d[5];
+      const int vec = (int)d[6];
+      if (rows <= 0 || rows > 0x7fffffffLL || D <= 0 || D > 0x7fffffffLL
+          || n <= 0 || n > 0x7fffffffLL || (vec && D % 4))
+        return static_cast<int>(cudaErrorInvalidValue);
+      GatherSeg& s = segs[i];
+      s.table = reinterpret_cast<const float*>(d[0]);
+      s.ids = reinterpret_cast<const int32_t*>(d[1]);
+      s.out = reinterpret_cast<float*>(d[2]);
+      s.rows = (int)rows;
+      s.cols = (int)(vec ? D / 4 : D);
+      s.n = (int)n;
+      s.vec = vec;
+      s.first_block = 0;
+      s.pad = 0;
+    }
+    // the smallest parameter struct that holds the batch
+    const int rc = m <= 1 ? launch_gather<1>(segs, m, st)
+                 : m <= 16 ? launch_gather<16>(segs, m, st)
+                 : launch_gather<kMaxGatherSegs>(segs, m, st);
+    if (rc) return rc;
+    done += m;
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }
 
 extern "C" int mxt_embedding_scatter(float* table, const int32_t* ids,

@@ -1,4 +1,5 @@
-// Two-bit gradient quantization with error feedback for Hopper (sm_90a).
+// Two-bit gradient quantization with error feedback for Hopper (sm_90a),
+// one launch over every key of a push.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py two_bit_compress
 //   (_two_bit_kernel / _two_bit_jit, the pallas_call at :121), which the
@@ -11,42 +12,84 @@
 //
 // What bounds it on the H100: bytes.  Two reads and two writes of 4 bytes
 // per element against three float operations: 16 bytes per element at
-// 3.35 TB/s.  A (32768, 768) push is 0.120 ms at that rate; most pushes
-// of a transformer step are (768,) or (768, 768) and finish inside a
-// launch's own latency.
+// 3.35 TB/s.  The 198 keys of a GPT-2-small Module.fit step hold 136.2 M
+// elements, 0.650 ms at that rate; 123 of them are vectors of <= 32768
+// elements and 49 more are (768, 768) or (1024, 768), each of which
+// finishes inside a launch's own latency when it has a launch of its own.
 //
 // What the design does about it:
-//  * One grid-stride elementwise pass.  The TPU kernel padded the flat
-//    array to 1024-lane rows in 256-row blocks for VMEM; nothing of that
-//    layout is carried over: the kernel walks the flat array as it lies.
-//  * Where all four pointers are 16-byte aligned (the wrapper checks and
-//    says so), each thread moves float4 vectors: 16-byte loads and
-//    stores, neighbouring threads on neighbouring vectors; the n % 4
-//    elements past the last vector are done by the first threads of the
-//    grid, one each.  Otherwise every thread moves single floats.
-//  * At most 132 x 8 blocks of 256 threads: enough loads in flight to
-//    keep every SM's memory pipe busy on the largest push, and a single
-//    block for the (768,) ones.
+//  * One launch for many keys ("segments").  The C entry takes a host
+//    array of segment descriptors (g, r, q, new_r, n, vec) and passes up
+//    to kMaxSegs of them BY VALUE in the kernel's parameters (a
+//    __grid_constant__ struct: CUDA >= 12.1 takes 32,764 bytes of them,
+//    680 segments; older toolkits 4 KB, 80), so a launch needs no copy to
+//    the device, no allocation and no host sync.  A push of more segments
+//    than that takes ceil(count / kMaxSegs) launches; the wrapper reads
+//    kMaxSegs from mxt_two_bit_segments_per_launch().
+//  * Each block takes a fixed chunk of kChunk = 1024 elements of one
+//    segment; the struct holds each segment's first block, and a block
+//    finds its segment by a binary search over them (uniform across the
+//    block: constant-cache broadcasts).  A (768,) key costs one block,
+//    not a launch; a (32768, 768) key 24,576 blocks.  Up to (1024, 768)
+//    that is the grid the one-key kernel before it launched (one float4
+//    per thread); chunks of 4096 elements (576 blocks at 4 per SM) left
+//    a (3072, 768) key a second, nearly empty wave of blocks and ran it
+//    5.6% slower alone than that kernel.
+//  * Inside a chunk each thread issues all its loads before its first
+//    store: one float4 vector of g and of r where all four pointers of
+//    the segment are 16-byte aligned (the wrapper checks and says so;
+//    neighbouring threads on neighbouring vectors), else 4 single floats.
+//    The n % 4 elements past a segment's last vector are done one by one
+//    by the thread that owns the partial vector.  The TPU kernel padded
+//    the flat array to 1024-lane rows in 256-row blocks for VMEM; nothing
+//    of that layout is carried over: the kernel walks each flat array as
+//    it lies.
 //  * The new residual may be written over the residual it was read from
 //    (the compressor owns it and updates it in place): each element is
 //    read and written by the same thread, so r and new_r are not marked
 //    __restrict__.
 //  * The sum and the difference are rounded with __fadd_rn / __fsub_rn:
-//    no contraction, the same bits as the f32 reference on any compiler.
+//    no contraction, the same bits as the f32 reference on any compiler,
+//    whatever the segment, the chunk or the vector width.
 //
-// Not yet done (a later PR): one launch for all the keys of a step (198
-// launches of a transformer step, 122 of them on <= 3072 elements, are
-// latency-bound), and the packed 2-bit wire format of the reference.
+// Not yet done (a later PR): the packed 2-bit wire format of the
+// reference; non-f32 and strided gradients (the wrapper refuses them).
 //
 // Interface: plain C, launched on the caller's stream, allocates nothing,
-// returns cudaGetLastError() of the launch.
+// returns cudaGetLastError() of the launches (the first that failed).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 8;   // grid-stride beyond this
+constexpr int kVecItems = 1;                       // float4 per thread
+constexpr int kChunk = kThreads * kVecItems * 4;   // elements per block
+constexpr int kScalarItems = kChunk / kThreads;    // floats per thread
+
+// one segment as the kernel reads it (48 bytes)
+struct Seg {
+  const float* g;
+  const float* r;
+  float* q;
+  float* nr;
+  long long n;
+  int first_block;
+  int vec;
+};
+
+#if CUDART_VERSION >= 12010
+constexpr int kMaxSegs = 680;   // 8 + 680 * 48 <= 32,764 bytes
+#else
+constexpr int kMaxSegs = 80;    // 8 + 80 * 48 <= 4,096 bytes
+#endif
+
+template <int kCap>
+struct Batch {
+  int count;
+  float t;
+  Seg seg[kCap];
+};
 
 __device__ __forceinline__ void quantize(float g, float r, float t,
                                          float& q, float& nr) {
@@ -55,64 +98,124 @@ __device__ __forceinline__ void quantize(float g, float r, float t,
   nr = __fsub_rn(c, q);
 }
 
+__device__ __forceinline__ float4 quantize4(float4 a, float4 b, float t,
+                                            float4& ro) {
+  float4 qo;
+  quantize(a.x, b.x, t, qo.x, ro.x);
+  quantize(a.y, b.y, t, qo.y, ro.y);
+  quantize(a.z, b.z, t, qo.z, ro.z);
+  quantize(a.w, b.w, t, qo.w, ro.w);
+  return qo;
+}
+
+template <int kCap>
 __global__ void __launch_bounds__(kThreads)
-two_bit_vec_kernel(const float4* __restrict__ g, const float4* r,
-                   float4* __restrict__ q, float4* nr, const float* g1,
-                   const float* r1, float* q1, float* nr1, long long n4,
-                   int tail, float t) {
-  const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  for (long long i = first; i < n4; i += (long long)gridDim.x * blockDim.x) {
-    const float4 a = g[i];
-    const float4 b = r[i];
-    float4 qo, ro;
-    quantize(a.x, b.x, t, qo.x, ro.x);
-    quantize(a.y, b.y, t, qo.y, ro.y);
-    quantize(a.z, b.z, t, qo.z, ro.z);
-    quantize(a.w, b.w, t, qo.w, ro.w);
-    q[i] = qo;
-    nr[i] = ro;
+two_bit_many_kernel(const __grid_constant__ Batch<kCap> b) {
+  const int blk = blockIdx.x;
+  int lo = 0, hi = b.count - 1;        // last segment starting at <= blk
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (b.seg[mid].first_block <= blk) lo = mid; else hi = mid - 1;
   }
-  if (first < tail) {
-    const long long j = n4 * 4 + first;
-    quantize(g1[j], r1[j], t, q1[j], nr1[j]);
+  const Seg& s = b.seg[lo];
+  const float t = b.t;
+  const long long n = s.n;
+  const long long base = (long long)(blk - s.first_block) * kChunk;
+  if (s.vec) {
+    const long long n4 = n >> 2;
+    const float4* g4 = reinterpret_cast<const float4*>(s.g);
+    const float4* r4 = reinterpret_cast<const float4*>(s.r);
+    float4* q4 = reinterpret_cast<float4*>(s.q);
+    float4* nr4 = reinterpret_cast<float4*>(s.nr);
+    const long long v0 = (base >> 2) + threadIdx.x;
+    float4 a[kVecItems], c[kVecItems];
+#pragma unroll
+    for (int k = 0; k < kVecItems; ++k) {
+      const long long i = v0 + (long long)k * kThreads;
+      if (i < n4) {
+        a[k] = g4[i];
+        c[k] = r4[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kVecItems; ++k) {
+      const long long i = v0 + (long long)k * kThreads;
+      if (i < n4) {
+        float4 ro;
+        q4[i] = quantize4(a[k], c[k], t, ro);
+        nr4[i] = ro;
+      } else if (i == n4) {            // the partial vector: the tail
+        for (long long j = n4 * 4; j < n; ++j)
+          quantize(s.g[j], s.r[j], t, s.q[j], s.nr[j]);
+      }
+    }
+  } else {
+    const long long e0 = base + threadIdx.x;
+    float a[kScalarItems], c[kScalarItems];
+#pragma unroll
+    for (int k = 0; k < kScalarItems; ++k) {
+      const long long i = e0 + (long long)k * kThreads;
+      if (i < n) {
+        a[k] = s.g[i];
+        c[k] = s.r[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kScalarItems; ++k) {
+      const long long i = e0 + (long long)k * kThreads;
+      if (i < n) quantize(a[k], c[k], t, s.q[i], s.nr[i]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-two_bit_kernel(const float* __restrict__ g, const float* r,
-               float* __restrict__ q, float* nr, long long n, float t) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x)
-    quantize(g[i], r[i], t, q[i], nr[i]);
-}
-
-int grid_for(long long work) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+// launch one Batch<kCap> over segs[0, count) (count <= kCap)
+template <int kCap>
+int launch(const Seg* segs, int count, float t, cudaStream_t st) {
+  Batch<kCap> b;
+  b.count = count;
+  b.t = t;
+  long long blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    b.seg[i] = segs[i];
+    b.seg[i].first_block = (int)blocks;
+    blocks += (segs[i].n + kChunk - 1) / kChunk;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  two_bit_many_kernel<kCap><<<(unsigned)blocks, kThreads, 0, st>>>(b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int mxt_two_bit_compress(const float* grad, const float* residual,
-                                    float* q, float* new_residual,
-                                    long long n, float threshold, int vec,
-                                    void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
+// one segment as the caller passes it: six 64-bit words (g, r, q, new_r,
+// n, vec); zero-length segments are the caller's to leave out
+extern "C" int mxt_two_bit_segments_per_launch() { return kMaxSegs; }
+
+extern "C" int mxt_two_bit_compress_many(const long long* desc, int count,
+                                         float threshold, void* stream) {
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    const long long n4 = n / 4;
-    const int tail = (int)(n - n4 * 4);
-    two_bit_vec_kernel<<<grid_for(n4 > tail ? n4 : tail), kThreads, 0,
-                         st>>>(
-        reinterpret_cast<const float4*>(grad),
-        reinterpret_cast<const float4*>(residual),
-        reinterpret_cast<float4*>(q), reinterpret_cast<float4*>(new_residual),
-        grad, residual, q, new_residual, n4, tail, threshold);
-  } else {
-    two_bit_kernel<<<grid_for(n), kThreads, 0, st>>>(
-        grad, residual, q, new_residual, n, threshold);
+  Seg segs[kMaxSegs];
+  for (int done = 0; done < count;) {
+    const int m = count - done < kMaxSegs ? count - done : kMaxSegs;
+    for (int i = 0; i < m; ++i) {
+      const long long* d = desc + 6LL * (done + i);
+      Seg& s = segs[i];
+      s.g = reinterpret_cast<const float*>(d[0]);
+      s.r = reinterpret_cast<const float*>(d[1]);
+      s.q = reinterpret_cast<float*>(d[2]);
+      s.nr = reinterpret_cast<float*>(d[3]);
+      s.n = d[4];
+      s.vec = (int)d[5];
+      s.first_block = 0;
+      if (s.n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the smallest parameter struct that holds the batch
+    const int rc = m <= 1 ? launch<1>(segs, m, threshold, st)
+                 : m <= 16 ? launch<16>(segs, m, threshold, st)
+                 : launch<kMaxSegs>(segs, m, threshold, st);
+    if (rc) return rc;
+    done += m;
   }
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

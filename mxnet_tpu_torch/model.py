@@ -67,32 +67,52 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
             kvstore.pull(name, param_on_devs, priority=-idx)
 
 
+def _pushed(param_arrays, grad_arrays, param_names):
+    """``(names, arg_lists, grad_lists)`` of the parameters that have a
+    gradient, in parameter order."""
+    got = [(param_names[i], args, grads) for i, (args, grads)
+           in enumerate(zip(param_arrays, grad_arrays))
+           if grads[0] is not None]
+    return tuple(map(list, zip(*got))) if got else ([], [], [])
+
+
 def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
                               param_names):
-    """Push every gradient, pull the new weight (reference model.py:126)."""
-    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
-                                                      grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        name = param_names[index]
-        kvstore.push(name, grad_list, priority=-index)
-        kvstore.pull(name, arg_list, priority=-index)
+    """Push every gradient, pull the new weight (reference model.py:126).
+
+    The reference pushes and pulls key by key; here every key goes in one
+    list push and one list pull (the list form of the same API), so the
+    store compresses all of a step's gradients in one grouped kernel
+    launch.  The weights are the same: a push of key k reads only k's
+    gradients and writes only k's stored value, residual and optimizer
+    state, the updater runs in key order either way, and a pull of k
+    reads only k's stored value."""
+    names, arg_lists, grad_lists = _pushed(param_arrays, grad_arrays,
+                                           param_names)
+    if names:
+        kvstore.push(names, grad_lists)
+        kvstore.pull(names, arg_lists)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None, param_names=None):
     """Reduce the gradients through the store (if any), then update
     locally (reference model.py:138): one ``Updater.update_batch`` per
-    device, a ``torch._foreach_*`` chain for plain SGD."""
+    device, a ``torch._foreach_*`` chain for plain SGD.  The store
+    reduces every gradient in one list push and one list pull (see
+    :func:`_update_params_on_kvstore` for why that equals the reference's
+    push and pull per key)."""
+    if kvstore:
+        names, _, grad_lists = _pushed(param_arrays, grad_arrays,
+                                       param_names)
+        if names:
+            kvstore.push(names, grad_lists)
+            kvstore.pull(names, grad_lists)
     updates = [[] for _ in range(num_device)]
     for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
                                                       grad_arrays)):
         if grad_list[0] is None:
             continue
-        if kvstore:
-            name = param_names[index]
-            kvstore.push(name, grad_list, priority=-index)
-            kvstore.pull(name, grad_list, priority=-index)
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):
             updates[k].append((index * num_device + k, g, w))
     for dev_updates in updates:

@@ -45,7 +45,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # argtypes of each library's entry points (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L = ctypes.c_longlong
 _SIGNATURES = {
     "decode_attention": {
         # q, k_pages, v_pages, page_table, seq_lens, out | S, H, D, page,
@@ -61,13 +60,17 @@ _SIGNATURES = {
         # q, k, v, dO, lse, delta, dk, dv | ...
         "mxt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P]},
     "embedding": {
-        # table, ids, out | rows, D, n, vec | stream
-        "mxt_embedding_gather": [_P] * 3 + [_I] * 4 + [_P],
+        # host descriptors (7 int64 words per segment: table, ids, out,
+        # rows, D, n, vec) | count | stream
+        "mxt_embedding_gather_many": [_P, _I, _P],
+        "mxt_embedding_segments_per_launch": [],
         # table, ids, rows | nrows, D, n, add, vec | stream
         "mxt_embedding_scatter": [_P] * 3 + [_I] * 5 + [_P]},
     "two_bit": {
-        # grad, residual, q, new_residual | n | threshold | vec | stream
-        "mxt_two_bit_compress": [_P] * 4 + [_L, _F, _I, _P]},
+        # host descriptors (6 int64 words per segment: grad, residual, q,
+        # new_residual, n, vec) | count | threshold | stream
+        "mxt_two_bit_compress_many": [_P, _I, _F, _P],
+        "mxt_two_bit_segments_per_launch": []},
 }
 
 _LOCK = threading.Lock()

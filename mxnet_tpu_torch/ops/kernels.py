@@ -7,7 +7,8 @@ Each kernel has three parts here:
 
 * a **wrapper** (:func:`decode_attention`, :func:`quant_matmul`,
   :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
-  :func:`flash_attention_bwd_dkv`, :func:`two_bit_compress`) that
+  :func:`flash_attention_bwd_dkv`, :func:`two_bit_compress`,
+  :func:`two_bit_compress_many`) that
   checks device, dtype, shape and contiguity and launches the hand-written
   CUDA kernel (``mxnet_tpu_torch/csrc/*.cu``) on the current stream for a
   CUDA tensor, or raises.  It takes the plain version only for a tensor
@@ -15,7 +16,8 @@ Each kernel has three parts here:
   tensor (no backend knob, no autotune fallback);
 * a **plain PyTorch version** (:func:`decode_attention_plain`,
   :func:`quant_matmul_plain`, :func:`flash_attention_fwd_plain`,
-  :func:`flash_attention_bwd_plain`, :func:`two_bit_compress_plain`)
+  :func:`flash_attention_bwd_plain`, :func:`two_bit_compress_plain`,
+  :func:`two_bit_compress_many_plain`)
   with the semantics of the JAX
   package's XLA formulation or Pallas kernel.  It is the tests' oracle and
   the CPU path, never a fallback on the card;
@@ -46,7 +48,9 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
-           "flash_delta", "two_bit_compress", "two_bit_compress_plain"]
+           "flash_delta", "two_bit_compress", "two_bit_compress_plain",
+           "two_bit_compress_many", "two_bit_compress_many_plain",
+           "two_bit_segments_per_launch"]
 
 # launches per kernel; quant_matmul's two template instantiations count
 # apart, the flash forward counts with and without the lse alike, and the
@@ -579,38 +583,106 @@ def two_bit_compress_plain(grad, residual, threshold=0.5):
     return q.to(grad.dtype), (comp - q).to(grad.dtype)
 
 
+def two_bit_compress_many_plain(grads, residuals, threshold=0.5):
+    """:func:`two_bit_compress_plain` per segment: ``(qs, new_rs)``,
+    lists in the order of ``grads``.  The oracle of
+    :func:`two_bit_compress_many` and its CPU path."""
+    out = [two_bit_compress_plain(g, r, threshold)
+           for g, r in zip(grads, residuals)]
+    return [q for q, _ in out], [nr for _, nr in out]
+
+
+def two_bit_segments_per_launch():
+    """How many segments one launch of ``mxt_two_bit_compress_many``
+    takes (the kernel parameters' capacity; builds the library)."""
+    return build.library("two_bit").mxt_two_bit_segments_per_launch()
+
+
+def _aligned_offsets(sizes):
+    """Offsets of ``sizes`` in one flat buffer, each a multiple of 4
+    elements (16 bytes of f32), and the buffer's length."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 4) * 4
+    return offs, total
+
+
+def two_bit_compress_many(grads, residuals, threshold=0.5):
+    """:func:`two_bit_compress` over many keys at once: quantize each
+    ``grads[i] + residuals[i]`` to {-t, 0, +t} and carry the error
+    forward.  Returns the list of ``q``: views of ONE new flat tensor,
+    each of its grad's shape, 16-byte aligned.  Every residual is updated
+    IN PLACE (the compressor owns them); the grads are only read.  Each
+    pair is checked as :func:`two_bit_compress` checks it.
+
+    CUDA tensors (all on one device) launch
+    ``mxt_two_bit_compress_many`` over every non-empty pair: one launch
+    per :func:`two_bit_segments_per_launch` pairs, each counted in
+    ``LAUNCHES["two_bit_compress"]``.  CPU tensors run
+    :func:`two_bit_compress_many_plain` and copy its residuals back; any
+    other device raises.  A residual must not appear twice."""
+    grads, residuals = list(grads), list(residuals)
+    _require(len(grads) == len(residuals), "two_bit_compress: %d grads "
+             "and %d residuals", len(grads), len(residuals))
+    for g, r in zip(grads, residuals):
+        _require(g.shape == r.shape, "two_bit_compress: grad %s and "
+                 "residual %s differ in shape", tuple(g.shape),
+                 tuple(r.shape))
+    if not grads:
+        return []
+    _require(len({r.data_ptr() for r in residuals if r.numel()})
+             == sum(1 for r in residuals if r.numel()),
+             "two_bit_compress: a residual appears twice")
+    dev = grads[0].device
+    if dev.type == "cpu":
+        for t in grads + residuals:
+            _require(t.device.type == "cpu", "two_bit_compress: tensors "
+                     "on cpu and %s", t.device)
+        qs, new_rs = two_bit_compress_many_plain(grads, residuals,
+                                                 threshold)
+        for r, nr in zip(residuals, new_rs):
+            r.copy_(nr)
+        return qs
+    _require(dev.type == "cuda", "two_bit_compress: no kernel for device "
+             "%s", dev)
+    for t in grads + residuals:
+        _require(t.dtype == torch.float32, "two_bit_compress: %s tensor "
+                 "where float32 is required", t.dtype)
+    _check_cuda("two_bit_compress", *grads, *residuals)
+    t = _f32_threshold(threshold)
+    sizes = [g.numel() for g in grads]
+    offs, total = _aligned_offsets(sizes)
+    flat = torch.empty(total, dtype=torch.float32, device=dev)
+    qs = [flat[o:o + n].view(g.shape)
+          for o, n, g in zip(offs, sizes, grads)]
+    desc = []
+    for g, r, q, n in zip(grads, residuals, qs, sizes):
+        if n:
+            gp, rp, qp = g.data_ptr(), r.data_ptr(), q.data_ptr()
+            desc += [gp, rp, qp, rp, n,
+                     int(gp % 16 == 0 and rp % 16 == 0 and qp % 16 == 0)]
+    count = len(desc) // 6
+    if count:
+        lib = build.library("two_bit")
+        arr = np.array(desc, dtype=np.int64)
+        _launch("two_bit_compress", dev, lib.mxt_two_bit_compress_many,
+                arr.ctypes.data, count, t)
+        per = lib.mxt_two_bit_segments_per_launch()
+        LAUNCHES["two_bit_compress"] += -(-count // per)
+    return qs
+
+
 def two_bit_compress(grad, residual, threshold=0.5):
     """Quantize ``grad + residual`` to {-t, 0, +t} and carry the error
     forward.  Returns ``(q, residual)``: ``q`` a new tensor of ``grad``'s
     shape, ``residual`` the tensor passed in, updated IN PLACE to ``grad
     + residual - q`` (the compressor owns it).  ``grad`` is only read.
 
-    CUDA tensors launch ``csrc/two_bit.cu`` (f32, contiguous, one shape;
-    anything else raises); CPU tensors run :func:`two_bit_compress_plain`
-    and copy its residual back; any other device raises."""
-    _require(grad.shape == residual.shape, "two_bit_compress: grad %s and "
-             "residual %s differ in shape", tuple(grad.shape),
-             tuple(residual.shape))
-    if grad.device.type == "cpu":
-        q, new_r = two_bit_compress_plain(grad, residual, threshold)
-        residual.copy_(new_r)
-        return q, residual
-    _require(grad.device.type == "cuda", "two_bit_compress: no kernel for "
-             "device %s", grad.device)
-    for t in (grad, residual):
-        _require(t.dtype == torch.float32, "two_bit_compress: %s tensor "
-                 "where float32 is required", t.dtype)
-    _check_cuda("two_bit_compress", grad, residual)
-    t = _f32_threshold(threshold)
-    q = torch.empty_like(grad)
-    n = grad.numel()
-    if n == 0:
-        return q, residual
-    vec = int(all(p % 16 == 0 for p in (grad.data_ptr(),
-                                        residual.data_ptr(), q.data_ptr())))
-    fn = build.library("two_bit").mxt_two_bit_compress
-    _launch("two_bit_compress", grad.device, fn, grad.data_ptr(),
-            residual.data_ptr(), q.data_ptr(), residual.data_ptr(), n, t,
-            vec)
-    LAUNCHES["two_bit_compress"] += 1
+    The one-key case of :func:`two_bit_compress_many`: CUDA tensors
+    launch ``csrc/two_bit.cu`` with one segment (f32, contiguous, one
+    shape; anything else raises); CPU tensors run
+    :func:`two_bit_compress_plain` and copy its residual back; any other
+    device raises."""
+    q, = two_bit_compress_many([grad], [residual], threshold)
     return q, residual

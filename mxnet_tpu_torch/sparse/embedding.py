@@ -11,6 +11,14 @@ their owners, and the lazy update (:meth:`ShardedEmbedding.apply_sgd` /
 :meth:`~ShardedEmbedding.apply_adam`) touches ONLY those rows of the table
 and its optimizer slots (gather B5, scatter B6).
 
+Each of these is split at its row reads into a half before (the plan:
+``_lookup_plan``, ``_update_plan``) and a half after (``_lookup_finish``,
+``_sgd_finish``), around one grouped gather (:func:`gather_rows`, one
+kernel launch for many buffers): ``lookup`` reads one segment,
+``apply_sgd`` two (the weight and momentum rows), ``apply_adam`` three.
+The recommender step (:mod:`mxnet_tpu_torch.sparse.step`) runs the same
+halves for every table around one gather per phase.
+
 Where the JAX package compiles each of these into one program under
 ``shard_map``, PyTorch runs them eagerly, and issues no host
 synchronisation on the card: the fixed-size ``unique`` of the reference
@@ -147,6 +155,26 @@ def _axis_index(S: int) -> int:
     return 0 if S == 1 else torch.distributed.get_rank()
 
 
+def _span(name: str, nbytes: int):
+    """The span around an all-to-all pair of the plane (a collective
+    entry point: span + audit-trail record, the moe_ffn discipline)."""
+    from .. import telemetry as _tel
+    return _tel.span(name, cat="collective",
+                     metric="parallel.collective_seconds",
+                     kind="all-to-all", bytes=nbytes)
+
+
+def gather_rows(embs, bufs, idxs):
+    """One grouped gather (kernel B5) of ``bufs[i][idxs[i]]`` for every i:
+    ``embs[i]`` is the plane that owns ``bufs[i]`` (a table or a slot),
+    whose backend that buffer is held to."""
+    if len({e.backend for e in embs}) > 1:
+        for e, b in zip(embs, bufs):
+            _kernels._path("embedding_gather", b, e.backend)
+    return _kernels.embedding_gather_many(bufs, idxs,
+                                          backend=embs[0].backend)
+
+
 class ShardedEmbedding:
     """One row-sharded embedding table over a named mesh axis.
 
@@ -247,18 +275,26 @@ class ShardedEmbedding:
         return x.to(self.device)
 
     # -- lookup ----------------------------------------------------------
-    def _lookup_local(self, table, ids, C: int, with_stats: bool):
-        S, rows_per = self.num_shards, self.rows_per_shard
-        vpad, dim = self.padded_rows, self.dim
+    def _lookup_plan(self, ids, C: int):
+        """The half of a lookup before its gather: the routing plan and
+        the local rows to gather, ``(lidx, plan)``."""
+        S, rows_per, vpad = self.num_shards, self.rows_per_shard, \
+            self.padded_rows
         uniq, inv, owner, pos, ok, dropped = _plan(ids, S, rows_per, C, vpad)
         send = _bucket(uniq, owner, pos, ok, S, C, vpad)
         recv = _a2a(send, self.axis, S)                  # ids asked of me
         local = recv - _axis_index(S) * rows_per
         in_range = (local >= 0) & (local < rows_per)
         lidx = local.clamp(0, rows_per - 1).reshape(-1)
-        rows = _kernels.embedding_gather(table, lidx, backend=self.backend)
+        return lidx, (inv, owner, pos, ok, dropped, in_range, C)
+
+    def _lookup_finish(self, rows, plan, with_stats: bool):
+        """The half of a lookup after its gather: the gathered ``rows``
+        routed back to the ids' positions."""
+        inv, owner, pos, ok, dropped, in_range, C = plan
+        S = self.num_shards
         rows = torch.where(in_range.reshape(-1, 1), rows, 0.0)
-        back = _a2a(rows.reshape(S, C, dim), self.axis, S)
+        back = _a2a(rows.reshape(S, C, self.dim), self.axis, S)
         got = back[owner.clamp(0, S - 1), pos.clamp(0, C - 1)]
         got = torch.where(ok[:, None], got, 0.0)
         out = got.index_select(0, inv)
@@ -267,29 +303,31 @@ class ShardedEmbedding:
         received = in_range.sum().to(torch.int32).reshape(1)
         return out, received, dropped.reshape(1)
 
+    def _lookup_local(self, table, ids, C: int, with_stats: bool):
+        lidx, plan = self._lookup_plan(ids, C)
+        rows, = gather_rows([self], [table], [lidx])
+        return self._lookup_finish(rows, plan, with_stats)
+
+    def _lookup_bytes(self, B: int) -> int:
+        w = self.wire_model(B)
+        return w["ids"] + w["rows"]
+
+    def _note_lookup(self, B: int):
+        from ..parallel.audit import record_collective
+        record_collective("all-to-all", "%s.lookup id+row routing"
+                          % self.name, bytes=self._lookup_bytes(B))
+
     def lookup(self, table, ids, stats: bool = False):
         """Routed lookup: ``ids`` (B,) int — B divisible by the shard
         count.  Returns (B, dim) rows; ids beyond a bucket's capacity
         return zero rows (impossible at the default capacity).
         ``stats=True`` additionally returns ``(received_per_shard (S,),
         dropped_per_shard (S,))`` for load drills."""
-        B = int(ids.shape[0])
-        if B % self.num_shards:
-            raise ValueError(
-                "lookup batch %d is not divisible by the %r shard count "
-                "%d" % (B, self.axis, self.num_shards))
-        C = self.capacity(B)
-        from .. import telemetry as _tel
-        from ..parallel.audit import record_collective
-        w = self.wire_model(B)
-        # the id/row all-to-all pair is a collective entry point: span +
-        # audit-trail record, the moe_ffn discipline
-        with _tel.span("collective/embedding_lookup", cat="collective",
-                       metric="parallel.collective_seconds",
-                       kind="all-to-all", bytes=w["ids"] + w["rows"]):
-            res = self._lookup_local(table, self._put(ids), C, stats)
-        record_collective("all-to-all", "%s.lookup id+row routing"
-                          % self.name, bytes=w["ids"] + w["rows"])
+        B = self._check_batch("lookup", ids)
+        with _span("collective/embedding_lookup", self._lookup_bytes(B)):
+            res = self._lookup_local(table, self._put(ids),
+                                     self.capacity(B), stats)
+        self._note_lookup(B)
         return res
 
     # -- sparse gradient + lazy updates ----------------------------------
@@ -344,16 +382,33 @@ class ShardedEmbedding:
         return _kernels.embedding_scatter(buf, u2, vals, mode="set",
                                           backend=self.backend)
 
-    def _gather(self, buf, idx):
-        return _kernels.embedding_gather(buf, idx, backend=self.backend)
-
-    def _check_update_batch(self, ids):
+    def _check_batch(self, what, ids):
         B = int(ids.shape[0])
         if B % self.num_shards:
             raise ValueError(
-                "update batch %d is not divisible by the %r shard count "
-                "%d" % (B, self.axis, self.num_shards))
-        return self.capacity(B)
+                "%s batch %d is not divisible by the %r shard count "
+                "%d" % (what, B, self.axis, self.num_shards))
+        return B
+
+    def _update_plan(self, ids, grad_rows):
+        """The half of a lazy update before its row reads: the touched
+        local rows ``(u2, g2, ok2, idx)`` (``idx`` the rows to gather)."""
+        C = self.capacity(self._check_batch("update", ids))
+        u2, g2, ok2 = self._route(self._put(ids), self._put(grad_rows), C)
+        return u2, g2, ok2, u2.clamp(0, self.rows_per_shard - 1)
+
+    def _sgd_finish(self, table, mom, plan, w_rows, m_rows, lr, momentum,
+                    wd, rescale, clip):
+        """The half of a lazy SGD after its row reads: new rows, then the
+        set scatters into ``table`` (and ``mom``)."""
+        u2, g2, ok2, _idx = plan
+        g = self._prep_grad("sgd", g2, w_rows, rescale, wd, clip)
+        if mom is None:
+            self._scatter_set(table, u2, ok2, w_rows - lr * g, w_rows)
+        else:
+            new_m = momentum * m_rows - lr * g
+            self._scatter_set(table, u2, ok2, w_rows + new_m, w_rows)
+            self._scatter_set(mom, u2, ok2, new_m, m_rows)
 
     def apply_sgd(self, table, mom, ids, grad_rows, lr, momentum=0.0,
                   wd=0.0, rescale_grad=1.0, clip_gradient=None):
@@ -361,28 +416,19 @@ class ShardedEmbedding:
         with duplicate contributions summed — the twin of the host
         ``sgd_row_sparse_update``.  ``grad_rows`` (B, dim) pairs with
         ``ids``; ``mom`` may be None (momentum-free).  Updates ``table``
-        and ``mom`` in place and returns ``(table, mom)``."""
-        from .. import telemetry as _tel
-        C = self._check_update_batch(ids)
-        wbytes = sum(self.wire_model(int(ids.shape[0])).values())
-        lr, wd, rescale = float(lr), float(wd), float(rescale_grad)
-        with _tel.span("collective/embedding_update", cat="collective",
-                       metric="parallel.collective_seconds",
-                       kind="all-to-all", bytes=wbytes):
-            u2, g2, ok2 = self._route(self._put(ids),
-                                      self._put(grad_rows), C)
-            idx = u2.clamp(0, self.rows_per_shard - 1)
-            w_rows = self._gather(table, idx)
-            g = self._prep_grad("sgd", g2, w_rows, rescale, wd,
-                                clip_gradient)
-            if mom is None:
-                self._scatter_set(table, u2, ok2, w_rows - lr * g, w_rows)
-            else:
-                m_rows = self._gather(mom, idx)
-                new_m = float(momentum) * m_rows - lr * g
-                self._scatter_set(table, u2, ok2, w_rows + new_m, w_rows)
-                self._scatter_set(mom, u2, ok2, new_m, m_rows)
-        self._note_update(int(ids.shape[0]))
+        and ``mom`` in place and returns ``(table, mom)``.  The weight and
+        momentum rows are read in one grouped gather."""
+        B = int(ids.shape[0])
+        with _span("collective/embedding_update",
+                   sum(self.wire_model(B).values())):
+            plan = self._update_plan(ids, grad_rows)
+            bufs = [table] if mom is None else [table, mom]
+            rows = gather_rows([self] * len(bufs), bufs,
+                               [plan[3]] * len(bufs))
+            self._sgd_finish(table, mom, plan, rows[0], rows[-1],
+                             float(lr), float(momentum), float(wd),
+                             float(rescale_grad), clip_gradient)
+        self._note_update(B)
         return table, mom
 
     def apply_adam(self, table, mean, var, ids, grad_rows, lr, beta1=0.9,
@@ -390,29 +436,25 @@ class ShardedEmbedding:
                    clip_gradient=None):
         """Sharded lazy Adam over touched rows only (the twin of the host
         ``adam_row_sparse_update``).  Updates the three tensors in place
-        and returns ``(table, mean, var)``."""
-        from .. import telemetry as _tel
-        C = self._check_update_batch(ids)
-        wbytes = sum(self.wire_model(int(ids.shape[0])).values())
+        and returns ``(table, mean, var)``; their rows are read in one
+        grouped gather."""
+        B = int(ids.shape[0])
         lr, beta1, beta2 = float(lr), float(beta1), float(beta2)
-        with _tel.span("collective/embedding_update", cat="collective",
-                       metric="parallel.collective_seconds",
-                       kind="all-to-all", bytes=wbytes):
-            u2, g2, ok2 = self._route(self._put(ids),
-                                      self._put(grad_rows), C)
-            idx = u2.clamp(0, self.rows_per_shard - 1)
-            w_rows = self._gather(table, idx)
+        with _span("collective/embedding_update",
+                   sum(self.wire_model(B).values())):
+            plan = self._update_plan(ids, grad_rows)
+            u2, g2, ok2, idx = plan
+            w_rows, mean_rows, var_rows = gather_rows(
+                [self] * 3, [table, mean, var], [idx] * 3)
             g = self._prep_grad("adam", g2, w_rows, float(rescale_grad),
                                 float(wd), clip_gradient)
-            mean_rows = self._gather(mean, idx)
-            var_rows = self._gather(var, idx)
             m_rows = beta1 * mean_rows + (1 - beta1) * g
             v_rows = beta2 * var_rows + (1 - beta2) * g * g
             new_w = w_rows - lr * m_rows / (v_rows.sqrt() + float(epsilon))
             self._scatter_set(table, u2, ok2, new_w, w_rows)
             self._scatter_set(mean, u2, ok2, m_rows, mean_rows)
             self._scatter_set(var, u2, ok2, v_rows, var_rows)
-        self._note_update(int(ids.shape[0]))
+        self._note_update(B)
         return table, mean, var
 
     def _note_update(self, n_ids: int):

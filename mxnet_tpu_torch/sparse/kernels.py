@@ -4,7 +4,8 @@ sorted-id row scatter (touched-rows update).  Port of
 
 Each kernel has three parts here, as in :mod:`mxnet_tpu_torch.ops.kernels`:
 
-* a **wrapper** (:func:`embedding_gather`, :func:`embedding_scatter`)
+* a **wrapper** (:func:`embedding_gather_many` and its one-segment case
+  :func:`embedding_gather`, :func:`embedding_scatter`)
   that checks device, dtype, shape and contiguity and launches the
   hand-written CUDA kernel (``mxnet_tpu_torch/csrc/embedding.cu``) on the
   current stream for a CUDA table, or raises.  It takes the plain version
@@ -14,11 +15,12 @@ Each kernel has three parts here, as in :mod:`mxnet_tpu_torch.ops.kernels`:
   read here, and a ``backend`` other than ``None`` / ``"cuda"`` on a CUDA
   table raises;
 * a **plain PyTorch version** (:func:`embedding_gather_plain`,
-  :func:`embedding_scatter_plain`) with the semantics of the JAX package's
-  XLA path, the tests' oracle and the CPU path;
+  :func:`embedding_gather_many_plain`, :func:`embedding_scatter_plain`)
+  with the semantics of the JAX package's XLA path, the tests' oracle and
+  the CPU path;
 * a **launch count** in :data:`mxnet_tpu_torch.ops.kernels.LAUNCHES`
-  (``embedding_gather``, ``embedding_scatter``), one where the wrapper
-  launches its kernel and nowhere else.
+  (``embedding_gather``, ``embedding_scatter``), one for each launch the
+  wrapper makes and nowhere else.
 
 Contracts (both versions, as in the JAX package):
 
@@ -35,13 +37,17 @@ Contracts (both versions, as in the JAX package):
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import MXNetError, NotPortedYet
 from ..ops import build
-from ..ops.kernels import LAUNCHES, _check_cuda, _launch, _require
+from ..ops.kernels import (LAUNCHES, _aligned_offsets, _check_cuda, _launch,
+                           _require)
 
 __all__ = ["embedding_gather", "embedding_gather_plain",
+           "embedding_gather_many", "embedding_gather_many_plain",
+           "embedding_segments_per_launch",
            "embedding_scatter", "embedding_scatter_plain", "embed_backend",
            "tune_embedding", "gather_sig", "scatter_sig"]
 
@@ -118,26 +124,72 @@ def embedding_gather_plain(table, ids):
     return table.index_select(0, idx)
 
 
+def embedding_gather_many_plain(tables, ids_list):
+    """:func:`embedding_gather_plain` per segment, in order: the oracle of
+    :func:`embedding_gather_many` and its CPU path."""
+    return [embedding_gather_plain(t, i) for t, i in zip(tables, ids_list)]
+
+
+def embedding_segments_per_launch():
+    """How many segments one launch of ``mxt_embedding_gather_many``
+    takes (the kernel parameters' capacity; builds the library)."""
+    return build.library("embedding").mxt_embedding_segments_per_launch()
+
+
+def embedding_gather_many(tables, ids_list, backend=None):
+    """``[tables[i][ids_list[i]] for i ...]`` in one grouped call: (rows_i,
+    D_i) x (n_i,) -> (n_i, D_i) for every segment i, each checked as
+    :func:`embedding_gather` checks it.  CUDA tables (all on one device)
+    launch ``mxt_embedding_gather_many`` over every non-empty segment: one
+    launch per :func:`embedding_segments_per_launch` segments, each
+    counted in ``LAUNCHES["embedding_gather"]``; the outputs are views of
+    ONE new flat tensor, each 16-byte aligned.  CPU tables run
+    :func:`embedding_gather_many_plain`; anything else raises."""
+    tables, ids_list = list(tables), list(ids_list)
+    _require(len(tables) == len(ids_list), "embedding_gather: %d tables "
+             "and %d id lists", len(tables), len(ids_list))
+    if not tables:
+        return []
+    paths = {_path("embedding_gather", t, backend) for t in tables}
+    _require(len(paths) == 1, "embedding_gather: tables on the CPU and on "
+             "the card in one call")
+    if paths == {"plain"}:
+        return embedding_gather_many_plain(tables, ids_list)
+    dev = tables[0].device
+    ids_list = [_ids32("embedding_gather", i) for i in ids_list]
+    for t in tables:
+        _check_table("embedding_gather", t)
+    _check_cuda("embedding_gather", *tables, *ids_list)
+    sizes = [i.shape[0] * t.shape[1] for t, i in zip(tables, ids_list)]
+    offs, total = _aligned_offsets(sizes)
+    flat = torch.empty(total, dtype=torch.float32, device=dev)
+    outs = [flat[o:o + m].view(i.shape[0], t.shape[1])
+            for o, m, t, i in zip(offs, sizes, tables, ids_list)]
+    desc = []
+    for t, i, out in zip(tables, ids_list, outs):
+        n = i.shape[0]
+        if n:
+            rows, D = t.shape
+            tp, op = t.data_ptr(), out.data_ptr()
+            desc += [tp, i.data_ptr(), op, rows, D, n,
+                     int(D % 4 == 0 and tp % 16 == 0 and op % 16 == 0)]
+    count = len(desc) // 7
+    if count:
+        lib = build.library("embedding")
+        arr = np.array(desc, dtype=np.int64)
+        _launch("embedding_gather", dev, lib.mxt_embedding_gather_many,
+                arr.ctypes.data, count)
+        per = lib.mxt_embedding_segments_per_launch()
+        LAUNCHES["embedding_gather"] += -(-count // per)
+    return outs
+
+
 def embedding_gather(table, ids, backend=None):
-    """``table[ids]`` — (rows, D) x (n,) -> (n, D).  CUDA tables launch
-    ``mxt_embedding_gather``; CPU tables run
+    """``table[ids]`` — (rows, D) x (n,) -> (n, D): the one-segment case
+    of :func:`embedding_gather_many`.  CUDA tables launch
+    ``mxt_embedding_gather_many``; CPU tables run
     :func:`embedding_gather_plain`; anything else raises."""
-    if _path("embedding_gather", table, backend) == "plain":
-        return embedding_gather_plain(table, ids)
-    _check_table("embedding_gather", table)
-    ids = _ids32("embedding_gather", ids)
-    rows, D = table.shape
-    n = ids.shape[0]
-    out = torch.empty((n, D), dtype=table.dtype, device=table.device)
-    _check_cuda("embedding_gather", table, ids, out)
-    if n == 0:
-        return out
-    vec = int(D % 4 == 0 and table.data_ptr() % 16 == 0
-              and out.data_ptr() % 16 == 0)
-    fn = build.library("embedding").mxt_embedding_gather
-    _launch("embedding_gather", table.device, fn, table.data_ptr(),
-            ids.data_ptr(), out.data_ptr(), rows, D, n, vec)
-    LAUNCHES["embedding_gather"] += 1
+    out, = embedding_gather_many([table], [ids], backend)
     return out
 
 

@@ -11,7 +11,11 @@ predictor:
 * embedding gradients NEVER densify: the loss is differentiated with
   respect to the *looked-up rows* (not the tables), and the
   ``(ids, grad_rows)`` pairs feed the lazy SGD, which touches only those
-  rows (kernels B5 and B6).
+  rows (kernels B5 and B6);
+* the rows of every table are read in two grouped gathers per step (B5,
+  one launch each): one for every table's lookup, one for every table's
+  weight and momentum rows in the update.  The scatters (B6) stay one
+  launch per table and buffer.
 
 Where the JAX package compiles the step into one XLA program, PyTorch runs
 it eagerly, and the update is applied IN PLACE on the state dict (the
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..base import NotPortedYet, resolve_device
-from .embedding import ShardedEmbedding
+from .embedding import ShardedEmbedding, _span, gather_rows
 
 __all__ = ["init_mlp", "make_recommender_step", "recommender_state",
            "lower_step"]
@@ -89,6 +93,54 @@ def _loss_fn(mlp, emb_rows, dense, label):
                       torch.log1p(torch.exp(-logit.abs())))
 
 
+def _lookup_all(embs, tables, ids):
+    """Every table's lookup (``ids[f]`` into ``tables[f]``) with ONE
+    grouped gather for all of them: each table's routing plan, then one
+    :func:`~mxnet_tpu_torch.sparse.embedding.gather_rows` over every
+    table's local rows, then each table's rows routed back.  Equal to
+    ``embs[f].lookup(tables[f], ids[f])`` for each f: the halves are the
+    ones ``lookup`` runs around its own one-segment gather."""
+    Bs = [e._check_batch("lookup", ids[f]) for f, e in enumerate(embs)]
+    with _span("collective/embedding_lookup",
+               sum(e._lookup_bytes(B) for e, B in zip(embs, Bs))):
+        plans = [e._lookup_plan(ids[f], e.capacity(B))
+                 for f, (e, B) in enumerate(zip(embs, Bs))]
+        rows = gather_rows(embs, tables, [lidx for lidx, _ in plans])
+        out = [e._lookup_finish(r, plan, False)
+               for e, r, (_lidx, plan) in zip(embs, rows, plans)]
+    for e, B in zip(embs, Bs):
+        e._note_lookup(B)
+    return out
+
+
+def _sgd_all(embs, tables, moms, ids, g_rows, lr, momentum, wd):
+    """Every table's lazy SGD with ONE grouped gather of every table's
+    weight and momentum rows (two segments per table, one without
+    momentum): each table's routing, the gather, then each table's new
+    rows and scatters.  Equal to ``embs[f].apply_sgd(...)`` for each f:
+    the halves are the ones ``apply_sgd`` runs around its own gather."""
+    Bs = [int(i.shape[0]) for i in ids]
+    with _span("collective/embedding_update",
+               sum(sum(e.wire_model(B).values())
+                   for e, B in zip(embs, Bs))):
+        plans = [e._update_plan(ids[f], g_rows[f])
+                 for f, e in enumerate(embs)]
+        owners, bufs, idxs = [], [], []
+        for e, t, m, plan in zip(embs, tables, moms, plans):
+            for b in ((t,) if m is None else (t, m)):
+                owners.append(e)
+                bufs.append(b)
+                idxs.append(plan[3])
+        rows = iter(gather_rows(owners, bufs, idxs))
+        for e, t, m, plan in zip(embs, tables, moms, plans):
+            w_rows = next(rows)
+            m_rows = None if m is None else next(rows)
+            e._sgd_finish(t, m, plan, w_rows, m_rows, lr, momentum, wd,
+                          1.0, None)
+    for e, B in zip(embs, Bs):
+        e._note_update(B)
+
+
 def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
                           momentum: float = 0.9, wd: float = 0.0,
                           dp_axis: Optional[str] = None):
@@ -117,8 +169,7 @@ def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
         dense = put(batch["dense"], torch.float32)
         label = put(batch["label"], torch.float32)
         with torch.no_grad():
-            emb_rows = [e.lookup(t, ids[f]) for f, (e, t)
-                        in enumerate(zip(embs, state["tables"]))]
+            emb_rows = _lookup_all(embs, state["tables"], ids)
         names = list(state["mlp"])
         leaves = [state["mlp"][k].detach().requires_grad_() for k in names]
         rows = [r.requires_grad_() for r in emb_rows]
@@ -140,10 +191,8 @@ def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
             torch._foreach_add_(params, moms)
             # sparse half: (ids, grad_rows) -> lazy update, touched rows
             # only — never the table-sized dense gradient
-            for f, (e, t, mo) in enumerate(zip(embs, state["tables"],
-                                               state["moms"])):
-                e.apply_sgd(t, mo, ids[f], g_rows[f], lr=lr,
-                            momentum=momentum, wd=wd)
+            _sgd_all(embs, state["tables"], state["moms"], ids, g_rows,
+                     lr, momentum, wd)
         loss = loss.detach()
         from ..telemetry import memory as _memory
         if _memory.enabled():

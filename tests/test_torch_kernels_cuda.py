@@ -7,7 +7,10 @@ and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
 meets), the embedding gather and scatter (runs of 1 to 1000 equal ids
 with inexact payloads, bit-equal to an in-order float32 fold) and the
 two-bit gradient compression at ragged and odd shapes that the
-full-width smoke run does not reach, a small decode step and a small
+full-width smoke run does not reach, both grouped kernels (the two-bit
+compression over the LM's 198 keys, the gather over the recommender's
+tables; misaligned views, empty segments, more segments than one launch
+takes, no host sync), a small decode step and a small
 recommender step on the card against the same steps on the CPU, a
 compressing KVStore push on the card, a Module that lands on the card
 when given no context, and the imperative slice: the user kernels of
@@ -663,9 +666,10 @@ def test_embedding_kernels_refuse_what_they_do_not_take(dev):
 
 def test_recommender_steps_on_card_match_cpu(dev):
     """Two steps of the recommender on the card (kernels, no host sync
-    before the loss is read) against the same steps on the CPU (plain
-    versions) from one state: every tensor within 1e-3 of its largest
-    update, losses within 1e-5."""
+    before the loss is read; two grouped gathers and two scatters per
+    table each) against the same steps on the CPU (plain versions) from
+    one state: every tensor within 1e-3 of its largest update, losses
+    within 1e-5."""
     F, V, D, B = 3, 300, 16, 128
     state0, steps = None, {}
     rs = np.random.RandomState(2)
@@ -697,9 +701,9 @@ def test_recommender_steps_on_card_match_cpu(dev):
                 if d != "cpu":
                     torch.cuda.set_sync_debug_mode(0)
             losses.append(float(loss))
-            if d != "cpu":
+            if d != "cpu":     # one grouped gather per lookup / update
                 assert kernels.LAUNCHES["embedding_gather"] == \
-                    before["embedding_gather"] + 3 * F
+                    before["embedding_gather"] + 2
                 assert kernels.LAUNCHES["embedding_scatter"] == \
                     before["embedding_scatter"] + 2 * F
         steps[str(d)] = (convert.recommender_state_to_numpy(state), losses)
@@ -777,8 +781,173 @@ def test_two_bit_kernel_refuses_what_it_does_not_take(dev):
         kernels.two_bit_compress(g, torch.zeros(8, 4))
 
 
+# the LM's pushes per Module.fit step (GPT-2-small, 198 keys), as
+# chip_smoke.py's TWO_BIT_PUSHES: (shape, keys of that shape)
+LM_PUSHES = [((32768, 768), 2), ((3072, 768), 12), ((768, 3072), 12),
+             ((768, 768), 48), ((1024, 768), 1), ((32768,), 1),
+             ((3072,), 12), ((768,), 110)]
+
+
+def _view(dev, n, offset, gen, scale):
+    """n normal values times ``scale``, a view ``offset`` floats into its
+    buffer (not 16-byte aligned when ``offset`` % 4)."""
+    return (torch.randn(n + offset, generator=gen, device=dev)
+            * scale)[offset:]
+
+
+def _two_bit_segments(dev, shapes, threshold, seed):
+    """Grads and residuals of ``shapes``; pair i a view i % 4 floats into
+    its buffers (three of four misaligned), the edge values of the
+    threshold (+-1 ulp, NaN, +-inf) at the front of every eighth
+    residual, with a zero gradient."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t32 = np.float32(threshold)
+    edges = torch.tensor([t32, np.nextafter(t32, np.float32(1)),
+                          np.nextafter(t32, np.float32(0)), -t32, 0.0,
+                          np.nan, np.inf, -np.inf], device=dev)
+    gs, rs_ = [], []
+    for i, shape in enumerate(shapes):
+        n = int(np.prod(shape))
+        g = _view(dev, n, i % 4, gen, 0.5)
+        r = _view(dev, n, (i + 1) % 4, gen, 0.2)
+        if i % 8 == 0 and n:
+            m = min(n, edges.numel())
+            g[:m] = 0.0
+            r[:m] = edges[:m]
+        gs.append(g.view(shape))
+        rs_.append(r.view(shape))
+    return gs, rs_
+
+
+def _assert_many_equal(gs, rs_, threshold):
+    """The grouped kernel against its plain version, exactly, with no
+    host sync; returns the launches it counted."""
+    want_q, want_r = kernels.two_bit_compress_many_plain(gs, rs_, threshold)
+    before = kernels.LAUNCHES["two_bit_compress"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        qs = kernels.two_bit_compress_many(gs, rs_, threshold)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for g, r, q, q0, r0 in zip(gs, rs_, qs, want_q, want_r):
+        assert q.shape == g.shape and q.data_ptr() % 16 == 0
+        assert torch.equal(q, q0)
+        nan = torch.isnan(r0)
+        assert torch.equal(torch.isnan(r), nan)
+        assert torch.equal(r[~nan], r0[~nan])
+    return kernels.LAUNCHES["two_bit_compress"] - before
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.3])
+def test_two_bit_many_kernel_over_the_lm_push(dev, threshold):
+    """All 198 keys of the LM's push and n = 0, 1, 3, 1023 in one call,
+    most of them misaligned views: bit-equal to the plain version per
+    key, ceil(non-empty keys / segments per launch) launches."""
+    shapes = [s for s, k in LM_PUSHES for _ in range(k)]
+    shapes += [(0,), (1,), (3,), (1023,), (0, 7)]
+    gs, rs_ = _two_bit_segments(dev, shapes, threshold, 3)
+    per = kernels.two_bit_segments_per_launch()
+    assert per >= 80
+    want = -(-(len(shapes) - 2) // per)
+    assert _assert_many_equal(gs, rs_, threshold) == want
+
+
+def test_two_bit_many_kernel_beyond_one_launch(dev):
+    """More keys than one launch's parameters hold: the next launch takes
+    the rest, and every key is still exact."""
+    per = kernels.two_bit_segments_per_launch()
+    rs = np.random.RandomState(6)
+    shapes = [(int(n),) for n in rs.randint(1, 3000, per + 7)]
+    gs, rs_ = _two_bit_segments(dev, shapes, 0.3, 4)
+    assert _assert_many_equal(gs, rs_, 0.3) == 2
+
+
+def test_two_bit_many_kernel_refuses_what_it_does_not_take(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    g = torch.zeros(8, 4, device=dev)
+    before = kernels.LAUNCHES["two_bit_compress"]
+    for gs, rs_ in (([g, g.double()], [g.clone(), g.double()]),
+                    ([g, g.t()], [g.clone(), torch.zeros(4, 8,
+                                                         device=dev)]),
+                    ([g, g], [g.clone(), torch.zeros(8, 4)]),
+                    ([g, g], [g.clone(), g.clone()[:4]])):
+        with pytest.raises(MXNetError):
+            kernels.two_bit_compress_many(gs, rs_, 0.5)
+    r = torch.zeros(8, 4, device=dev)
+    with pytest.raises(MXNetError):
+        kernels.two_bit_compress_many([g, g], [r, r], 0.5)
+    assert kernels.LAUNCHES["two_bit_compress"] == before
+
+
+# chip_smoke.py's recommender geometries: (rows, D, n, tables)
+GATHER_GEOS = {"bench": (100000, 16, 4096, 4),
+               "criteo": (1000000, 64, 8192, 26)}
+
+
+def _gather_segments(dev, rows, D, n, count, seed):
+    """``count`` segments at (rows, D, n) over four distinct tables
+    (segments share them cyclically: a gather only reads), sorted unique
+    ids + pads clamped into range as the update's, and three segments of
+    other widths: D 7 and 13 over misaligned tables, and an empty one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = [torch.randn(rows, D, generator=gen, device=dev)
+              for _ in range(min(count, 4))]
+    rs = np.random.RandomState(seed)
+    segs = []
+    for i in range(count):
+        u = np.unique(rs.randint(0, rows, n))
+        ids = np.concatenate([u, np.full(n - len(u), rows - 1)])
+        segs.append((tables[i % len(tables)],
+                     torch.from_numpy(ids.astype(np.int32)).to(dev)))
+    for Dx, nx in ((7, 300), (13, 1), (16, 0)):
+        t = _misaligned(torch.randn(997, Dx, generator=gen, device=dev))
+        ids = torch.from_numpy(rs.randint(-5, 1002, nx).astype(np.int32))
+        segs.append((t, ids.to(dev)))
+    return segs
+
+
+def _assert_gather_many_equal(segs):
+    tables, ids = [t for t, _ in segs], [i for _, i in segs]
+    before = kernels.LAUNCHES["embedding_gather"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = sparse_kernels.embedding_gather_many(tables, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for out, want in zip(outs, sparse_kernels.embedding_gather_many_plain(
+            tables, ids)):
+        assert out.data_ptr() % 16 == 0
+        assert torch.equal(out, want)
+    return kernels.LAUNCHES["embedding_gather"] - before
+
+
+@pytest.mark.parametrize("per_table", [1, 2], ids=["lookup", "update"])
+@pytest.mark.parametrize("geo", list(GATHER_GEOS))
+def test_embedding_gather_many_kernel_at_step_shapes(dev, geo, per_table):
+    """The recommender step's grouped gathers (4 and 8 segments at the
+    bench geometry, 26 and 52 at the Criteo shape) with segments of D 7
+    and 13 over misaligned tables, ids out of range and an empty segment
+    beside them: bit-equal to the plain version, one launch, no host
+    sync."""
+    rows, D, n, F = GATHER_GEOS[geo]
+    segs = _gather_segments(dev, rows, D, n, per_table * F, 9)
+    per = sparse_kernels.embedding_segments_per_launch()
+    assert per >= 80
+    assert _assert_gather_many_equal(segs) == 1
+
+
+def test_embedding_gather_many_kernel_beyond_one_launch(dev):
+    per = sparse_kernels.embedding_segments_per_launch()
+    segs = _gather_segments(dev, 500, 16, 40, per + 2, 10)
+    assert _assert_gather_many_equal(segs) == 2
+
+
 def test_kvstore_push_on_card_runs_the_kernel(dev, monkeypatch):
-    """A compressing push on the card launches B7 once per key and never
+    """A compressing push on the card launches B7 once per push and never
     reaches the plain version."""
     from mxnet_tpu_torch import kvstore, nd
 

@@ -92,6 +92,62 @@ def test_push_pull_matches_jax(compression, optimizer):
                    jk._updater.states[key].asnumpy())
 
 
+@pytest.mark.parametrize("repeat", [False, True],
+                         ids=["distinct-keys", "a-key-twice"])
+@pytest.mark.parametrize("optimizer", [True, False],
+                         ids=["sgd-momentum", "no-updater"])
+def test_list_push_equals_per_key_pushes(optimizer, repeat):
+    """A compressing push of a key list (one ``compress_many`` over all
+    its keys) against the port pushing the same keys one at a time and
+    against the JAX store pushing key by key: stored values and residuals
+    bit-equal to the per-key port, within 1e-6 of the JAX store.  With a
+    key twice in the list, its second value is compressed against the
+    residual its first left, as two pushes in turn do."""
+    rs = np.random.RandomState(10 + 2 * int(optimizer) + int(repeat))
+    many, jk = _stores(True, optimizer)
+    one, _ = _stores(True, optimizer)
+    keys = list(SHAPES) + (["w"] if repeat else [])
+    for k, s in SHAPES.items():
+        v = rs.normal(0, 1, s).astype(np.float32)
+        for kv in (many, one):
+            kv.init(k, tnd.array(v, ctx="cpu"))
+        jk.init(k, jnd.array(v))
+    calls = []
+    orig = tkv._TwoBitCompressor.compress_many
+
+    def counted(self, ks, grads):
+        calls.append(len(ks))
+        return orig(self, ks, grads)
+
+    tkv._TwoBitCompressor.compress_many = counted
+    try:
+        for step in range(3):
+            gs = [rs.normal(0, 0.4, SHAPES[k]).astype(np.float32)
+                  for k in keys]
+            n = len(calls)
+            many.push(keys, [tnd.array(g, ctx="cpu") for g in gs])
+            assert calls[n:] == [len(keys)]        # one call for the list
+            for k, g in zip(keys, gs):
+                one.push(k, tnd.array(g, ctx="cpu"))
+                jk.push(k, jnd.array(g))
+    finally:
+        tkv._TwoBitCompressor.compress_many = orig
+    outs = {k: tnd.zeros(s, ctx="cpu") for k, s in SHAPES.items()}
+    many.pull(list(outs), out=list(outs.values()))
+    for k, s in SHAPES.items():
+        o, j = tnd.zeros(s, ctx="cpu"), jnd.zeros(s)
+        one.pull(k, out=o)
+        jk.pull(k, out=j)
+        np.testing.assert_array_equal(outs[k].asnumpy(), o.asnumpy())
+        _close(outs[k].asnumpy(), j.asnumpy())
+        key = str(k)
+        np.testing.assert_array_equal(
+            many._compressor.residual[key].numpy(),
+            one._compressor.residual[key].numpy())
+        _close(many._compressor.residual[key].numpy(),
+               np.asarray(jk._compressor.residual[key]))
+
+
 def test_compressed_push_sends_only_quantized_values():
     tk, _ = _stores(True, False)
     tk.init("g", tnd.zeros((5,), ctx="cpu"))

@@ -201,18 +201,40 @@ LM = dict(vocab_size=40, seq_len=16, num_layers=2, hidden=32, heads=2,
           flash_min_seq=10000)
 
 
-def _record_pushes(monkeypatch, cls, to_np):
-    """Wrap ``cls.compress`` to log (key, g, r before, q, r after)."""
+def _record_pushes(monkeypatch, cls, to_np, many=False):
+    """Wrap ``cls.compress`` to log (key, g, r before, q, r after), or
+    with ``many`` ``cls.compress_many`` (the port's store compresses all
+    the keys of a push in one call) to log the same tuple per key, in
+    key order."""
     log = []
+
+    def before(self, key, grad):
+        r = self.residual.get(key)
+        return np.zeros(grad.shape, np.float32) if r is None \
+            else to_np(r).copy()
+
+    def after(self, key, grad, r0, q):
+        log.append((key, to_np(grad).copy(), r0, to_np(q).copy(),
+                    to_np(self.residual[key]).copy()))
+
+    if many:
+        orig_many = cls.compress_many
+
+        def compress_many(self, keys, grads):
+            r0 = [before(self, k, g) for k, g in zip(keys, grads)]
+            qs = orig_many(self, keys, grads)
+            for k, g, r, q in zip(keys, grads, r0, qs):
+                after(self, k, g, r, q)
+            return qs
+
+        monkeypatch.setattr(cls, "compress_many", compress_many)
+        return log
     orig = cls.compress
 
     def compress(self, key, grad):
-        before = self.residual.get(key)
-        before = np.zeros(grad.shape, np.float32) if before is None \
-            else to_np(before).copy()
+        r0 = before(self, key, grad)
         q = orig(self, key, grad)
-        log.append((key, to_np(grad).copy(), before, to_np(q).copy(),
-                    to_np(self.residual[key]).copy()))
+        after(self, key, grad, r0, q)
         return q
 
     monkeypatch.setattr(cls, "compress", compress)
@@ -228,7 +250,7 @@ def test_module_fit_lm_two_bit_matches_jax(monkeypatch, capsys):
     j_net = jax_get_symbol(**LM)
     args, auxs = _jax_start(j_net, (it.provide_data, it.provide_label))
     t_log = _record_pushes(monkeypatch, tkv._TwoBitCompressor,
-                           lambda a: a.detach().numpy())
+                           lambda a: a.detach().numpy(), many=True)
     j_log = _record_pushes(monkeypatch, jkv._TwoBitCompressor, np.asarray)
     kv_t = tkv.create("device", device="cpu")
     lr, momentum = 0.1, 0.9

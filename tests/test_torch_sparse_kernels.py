@@ -68,6 +68,63 @@ def test_gather_plain_matches_jax(backend, rows, D, n):
     np.testing.assert_array_equal(want, table[ids])
 
 
+# one grouped call's segments (rows, D, n): the bench's D 16, the Criteo
+# shape's D 64, D 7 (the scalar path), an empty segment, n = 1
+MANY = [(97, 16, 24), (33, 64, 9), (40, 7, 16), (20, 16, 0), (50, 64, 1),
+        (97, 16, 30)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_gather_many_plain_matches_jax_per_table(backend):
+    """``embedding_gather_many_plain`` over segments of mixed D, with ids
+    out of range (clamped into [0, rows), as the kernel reads them) and
+    an empty segment, equals the JAX ``embedding_gather`` per table given
+    the clamped ids (its callers clip; the Pallas kernel takes no empty
+    id list, so the empty segment goes to the XLA path)."""
+    rs = np.random.RandomState(31)
+    tables, ids_list = [], []
+    for rows, D, n in MANY:
+        tables.append(_table(rs, rows, D))
+        ids = rs.randint(0, rows, n).astype(np.int32)
+        if n > 3:
+            ids[:4] = [-3, rows, rows + 50, rows - 1]
+        ids_list.append(ids)
+    got = K.embedding_gather_many_plain(
+        [torch.from_numpy(t) for t in tables],
+        [torch.from_numpy(i) for i in ids_list])
+    assert len(got) == len(MANY)
+    for t, ids, g, (rows, D, n) in zip(tables, ids_list, got, MANY):
+        clipped = np.clip(ids, 0, rows - 1)
+        want = np.asarray(jax_gather(jnp.asarray(t), jnp.asarray(clipped),
+                                     backend=backend if n else "xla"))
+        assert g.shape == (n, D)
+        np.testing.assert_array_equal(g.numpy(), want.reshape(n, D))
+        np.testing.assert_array_equal(g.numpy(), t[clipped])
+
+
+def test_gather_many_wrapper_on_cpu_is_the_plain_version():
+    """On CPU tables the grouped wrapper returns the plain version's
+    rows, segment by segment, for any backend name, and launches
+    nothing; mismatched lists and a mix of devices raise."""
+    rs = np.random.RandomState(4)
+    tables = [torch.from_numpy(_table(rs, rows, D)) for rows, D, _ in MANY]
+    ids = [torch.from_numpy(rs.randint(0, rows, n).astype(np.int64))
+           for rows, _, n in MANY]
+    before = dict(LAUNCHES)
+    for backend in (None, "plain", "xla"):
+        got = K.embedding_gather_many(tables, ids, backend=backend)
+        for g, w in zip(got, K.embedding_gather_many_plain(tables, ids)):
+            assert torch.equal(g, w)
+    assert dict(LAUNCHES) == before
+    assert K.embedding_gather_many([], []) == []
+    with pytest.raises(MXNetError):
+        K.embedding_gather_many(tables, ids[:-1])
+    with pytest.raises(MXNetError):
+        K.embedding_gather_many([tables[0], torch.zeros(3, 4,
+                                                        device="meta")],
+                                ids[:2])
+
+
 def _pad(ids, rows_to_add, rows):
     """Append pads >= rows (sorted order is kept)."""
     return np.concatenate([ids, rows + np.arange(rows_to_add)]) \

@@ -258,6 +258,103 @@ def test_recommender_three_steps_match_jax(specs):
             _close(got[part][k], want[part][k], "%s.%s" % (part, k))
 
 
+def _count_gathers(monkeypatch):
+    """Record the segment count of every grouped gather call."""
+    from mxnet_tpu_torch.sparse import kernels as tkernels
+    calls = []
+    orig = tkernels.embedding_gather_many
+
+    def counted(tables, ids_list, backend=None):
+        calls.append(len(tables))
+        return orig(tables, ids_list, backend)
+
+    monkeypatch.setattr(tkernels, "embedding_gather_many", counted)
+    return calls
+
+
+@pytest.mark.parametrize("momentum", [True, False],
+                         ids=["momentum", "no-momentum"])
+def test_grouped_step_bit_equals_per_table_step(specs, monkeypatch,
+                                                momentum):
+    """The recommender step gathers every table's lookup rows in one
+    grouped call and every table's weight and momentum rows in another;
+    from the same state and batches it is bit-equal to the same step
+    made of one ``lookup`` and one ``apply_sgd`` per table, over tables
+    of mixed width (D 8, 16 and 7)."""
+    from mxnet_tpu_torch.sparse import step as tstep
+    _jspec, tspec = specs
+    dims, V, Dd, B = (8, 16, 7), 150, 5, 64
+    embs = [tsp.ShardedEmbedding(V, D, tspec, name="g%d" % f)
+            for f, D in enumerate(dims)]
+    F = len(embs)
+    start = convert.recommender_state_to_numpy(tsp.recommender_state(
+        embs, dense_dim=Dd, hidden=(16, 8), seed=2, momentum=momentum))
+    rs = np.random.RandomState(8)
+    batches = []
+    for _ in range(3):
+        b = {"ids": rs.randint(0, V, (F, B)).astype(np.int32),
+             "dense": rs.rand(B, Dd).astype(np.float32),
+             "label": (rs.rand(B) > 0.5).astype(np.float32)}
+        b["ids"][:, :6] = b["ids"][:, :1]                 # duplicates
+        batches.append(b)
+
+    def per_table_lookup(embs_, tables, ids):
+        return [e.lookup(t, ids[f]) for f, (e, t) in enumerate(zip(embs_,
+                                                                    tables))]
+
+    def per_table_sgd(embs_, tables, moms, ids, g_rows, lr, mom, wd):
+        for f, (e, t, m) in enumerate(zip(embs_, tables, moms)):
+            e.apply_sgd(t, m, ids[f], g_rows[f], lr=lr, momentum=mom, wd=wd)
+
+    results = {}
+    for mode in ("grouped", "per-table"):
+        with monkeypatch.context() as mp:
+            if mode == "per-table":
+                mp.setattr(tstep, "_lookup_all", per_table_lookup)
+                mp.setattr(tstep, "_sgd_all", per_table_sgd)
+            calls = _count_gathers(mp)
+            state = convert.recommender_state_from_numpy(start, "cpu")
+            step = tsp.make_recommender_step(embs, lr=0.05, momentum=0.9,
+                                             wd=1e-4)
+            losses = [float(step(state, b)[1]) for b in batches]
+            results[mode] = (convert.recommender_state_to_numpy(state),
+                             losses)
+        per_update = 2 * F if momentum else F
+        if mode == "grouped":
+            assert calls == [F, per_update] * 3      # 2 gathers per step
+        else:
+            assert calls == ([1] * F + [2 if momentum else 1] * F) * 3
+    (a, la), (b, lb) = results["grouped"], results["per-table"]
+    assert la == lb
+    for part in ("tables", "moms"):
+        for x, y in zip(a[part], b[part]):
+            if x is None:
+                assert y is None and not momentum
+            else:
+                np.testing.assert_array_equal(x, y)
+    for part in ("mlp", "mlp_mom"):
+        for k in a[part]:
+            np.testing.assert_array_equal(a[part][k], b[part][k])
+
+
+def test_lookup_and_updates_make_one_grouped_gather(specs, monkeypatch):
+    """``lookup``, ``apply_sgd`` (with and without momentum) and
+    ``apply_adam`` each read their rows in one grouped gather of 1, 2, 1
+    and 3 segments."""
+    _jspec, tspec = specs
+    e = tsp.ShardedEmbedding(60, 8, tspec, name="one")
+    t, m, v = e.init_state(seed=1), e.zeros_slot(), e.zeros_slot()
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, 60, 16).astype(np.int32)
+    g = _exact_grads(rs, 16, 8)
+    calls = _count_gathers(monkeypatch)
+    e.lookup(t, ids)
+    e.apply_sgd(t, m, ids, g, lr=0.1, momentum=0.9)
+    e.apply_sgd(t, None, ids, g, lr=0.1)
+    e.apply_adam(t, m, v, ids, g, lr=0.01)
+    assert calls == [1, 2, 1, 3]
+
+
 # ---------------------------------------------------------------------------
 # what this slice leaves
 # ---------------------------------------------------------------------------

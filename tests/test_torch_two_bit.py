@@ -123,3 +123,89 @@ def test_wrapper_refuses_mismatched_shapes():
     from mxnet_tpu_torch.base import MXNetError
     with pytest.raises(MXNetError):
         kernels.two_bit_compress(torch.zeros(3), torch.zeros(4))
+
+
+# ---------------------------------------------------------------------------
+# the grouped form: every key of a push in one call
+# ---------------------------------------------------------------------------
+
+# a push's keys: vectors and matrices, n = 0 and 1, tails (n % 4 != 0),
+# more than one Pallas block
+MANY_SHAPES = [(768,), (33, 5), (0,), (1,), (7,), (2, 3, 4), (0, 5),
+               (1023,), (64, 48), (256 * 1024 + 3,)]
+
+
+def _many_inputs(seed, threshold):
+    rs = np.random.RandomState(seed)
+    gs = [rs.normal(0, 0.5, s).astype(np.float32) for s in MANY_SHAPES]
+    rs_ = [rs.normal(0, 0.2, s).astype(np.float32) for s in MANY_SHAPES]
+    for g, r in zip(gs, rs_):           # the edge values in every key
+        edges = _edge_values(threshold)[:g.size]
+        g.reshape(-1)[:edges.size] = 0.0
+        r.reshape(-1)[:edges.size] = edges
+    return gs, rs_
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["xla", "pallas-interpret"])
+@pytest.mark.parametrize("threshold", [0.5, 0.3])
+def test_many_plain_matches_jax_per_key(threshold, use_pallas):
+    """``two_bit_compress_many_plain`` over a push's mixed keys equals the
+    JAX function called key by key, bit for bit.  The Pallas kernel
+    takes no empty array (its block slice is larger than the operand), so
+    the empty keys go to the XLA mode, which returns empty arrays."""
+    gs, rs_ = _many_inputs(5 + int(threshold * 10), threshold)
+    qs, nrs = kernels.two_bit_compress_many_plain(
+        [torch.from_numpy(g) for g in gs],
+        [torch.from_numpy(r) for r in rs_], threshold)
+    assert len(qs) == len(nrs) == len(MANY_SHAPES)
+    for g, r, q, nr in zip(gs, rs_, qs, nrs):
+        jq, jr = _jax(g, r, threshold, use_pallas and g.size > 0)
+        _same(q.numpy(), jq)
+        _same(nr.numpy(), jr)
+
+
+@pytest.mark.parametrize("threshold", [0.5, 0.3])
+def test_many_wrapper_on_cpu_equals_per_key_wrapper(threshold):
+    """The grouped wrapper on CPU tensors: q of each key's shape, the
+    residuals updated in place, bit-equal to one ``two_bit_compress``
+    call per key over three pushes with the residuals carried; the grads
+    are only read, and nothing is launched."""
+    gs, rs_ = _many_inputs(11, threshold)
+    r_many = [torch.from_numpy(r.copy()) for r in rs_]
+    r_one = [torch.from_numpy(r.copy()) for r in rs_]
+    before = dict(kernels.LAUNCHES)
+    rs = np.random.RandomState(2)
+    for step in range(3):
+        if step:
+            gs = [rs.normal(0, 0.4, s).astype(np.float32)
+                  for s in MANY_SHAPES]
+        g_t = [torch.from_numpy(g) for g in gs]
+        keep = [g.clone() for g in g_t]
+        ptrs = [r.data_ptr() for r in r_many]
+        qs = kernels.two_bit_compress_many(g_t, r_many, threshold)
+        assert [r.data_ptr() for r in r_many] == ptrs
+        for g, k in zip(g_t, keep):
+            assert torch.equal(g, k)
+        for g, r1, q in zip(g_t, r_one, qs):
+            q1, r1_out = kernels.two_bit_compress(g, r1, threshold)
+            assert r1_out is r1 and q.shape == g.shape
+            _same(q.numpy(), q1.numpy())
+        for a, b in zip(r_many, r_one):
+            _same(a.numpy(), b.numpy())
+    assert kernels.LAUNCHES == before
+    assert kernels.two_bit_compress_many([], [], threshold) == []
+
+
+def test_many_wrapper_refuses_what_it_does_not_take():
+    from mxnet_tpu_torch.base import MXNetError
+    g, r = torch.zeros(3), torch.zeros(3)
+    with pytest.raises(MXNetError):               # counts differ
+        kernels.two_bit_compress_many([g, g], [r], 0.5)
+    with pytest.raises(MXNetError):               # shapes differ
+        kernels.two_bit_compress_many([g, g], [r, torch.zeros(4)], 0.5)
+    with pytest.raises(MXNetError):               # one residual twice
+        kernels.two_bit_compress_many([g, g], [r, r], 0.5)
+    with pytest.raises(MXNetError):               # no kernel for meta
+        kernels.two_bit_compress_many([torch.zeros(3, device="meta")],
+                                      [torch.zeros(3, device="meta")], 0.5)

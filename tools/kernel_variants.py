@@ -9,6 +9,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -18,7 +19,8 @@ def build_all(build, lib_name, srcs):
     ``build/variants/`` and load it with the argtypes of ``lib_name``;
     prints each build's exit code, its kernels' names, registers and
     spills.  Returns ``[(src, path, CDLL)]`` for the builds that
-    succeeded."""
+    succeeded; entry points that a source lacks (an older interface) are
+    left for the caller to type."""
     out_dir = os.path.join(ROOT, "build", "variants")
     nvcc = build.find_nvcc()
     os.makedirs(out_dir, exist_ok=True)
@@ -40,8 +42,9 @@ def build_all(build, lib_name, srcs):
             continue
         lib = ctypes.CDLL(out)
         for fn, argtypes in build._SIGNATURES[lib_name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            if hasattr(lib, fn):       # an older source has older entries
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         libs.append((src, out, lib))
     return libs
 
@@ -69,7 +72,8 @@ def sass_counts(path, name_re):
 def card_timer(torch):
     """Print the card's name and power limit; return ``timer(fn)``: the
     median device ms of 25 calls, each after a 64 MB read that evicts the
-    L2 and a spin kernel that hides the host's enqueue."""
+    L2 and a spin kernel that hides the host's enqueue (at least ~1 ms,
+    and twice the host's enqueue time of one call at up to 2 GHz)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
@@ -79,10 +83,15 @@ def card_timer(torch):
     def timer(fn, iters=25):
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()                          # the host's enqueue time of one call
+        spin = max(2_000_000, min(int((time.perf_counter() - t0) * 4e9),
+                                  400_000_000))
+        torch.cuda.synchronize()
         ts = []
         for _ in range(iters):
             flush.sum()
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
