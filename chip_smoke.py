@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mxnet_tpu_torch``) on one card.
 
-Drives the port's four paths at the repo's bench geometries, with random
+Drives the port's paths at the repo's bench geometries, with random
 weights from seeds: serving — paged-KV continuous-batching decode of the
 transformer LM (GPT-2-small: L12, hidden 768, 12 heads, vocab 32768,
 T 1024; 8 slots, page 64) — training the same LM — ``get_symbol`` ->
@@ -15,8 +15,11 @@ compression_params={"type": "2bit", ...})`` -> ``fit(kvstore=
 mx.kv.create("device"))`` — and the imperative API over the same LM's
 parameters — ``mx.nd`` arrays from ``mx.random``, a user's CUDA kernel
 compiled by ``mx.rtc.CudaModule`` and launched over them,
-``nd.save`` / ``nd.load`` — and holds every hand-written kernel of those
-paths against its plain PyTorch version on the card.
+``nd.save`` / ``nd.load`` — and training ResNet-50 at bench.py's
+configuration through ``ShardedTrainer`` (after small ResNets and a
+conv net's ``Module.fit`` on the card against the CPU) — and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
@@ -109,7 +112,27 @@ Phases, in order:
     ``nd.sgd_mom_update`` on copies (1e-6 of each tensor's largest
     magnitude), device and host ms per step against the bound, peak
     memory, then ``nd.save`` of the weights (545 MB) and ``nd.load``
-    back, bit for bit.
+    back, bit for bit;
+18. conv nets on the card against the CPU from one state: two
+    ``ShardedTrainer`` steps of the cifar ResNet-20 (12x12, batch 4; every
+    tensor within 1e-3 of its largest change) and of the imagenet branch's
+    7x7 stride-2 stem and padded max pool at depth 18 (64x64, batch 2;
+    norm-wise within 1e-2, since its ``bn0_gamma`` gradient is
+    ill-conditioned and a ReLU or max-pool tie can go another way on the
+    two devices: ``tools/convnet_gaps.py``), NCHW and NHWC; one training
+    forward and gradient of the bottleneck ResNet-50 (40x40, batch 2);
+    three ``Module.fit`` batches of the cifar ResNet-20, its BatchNorm
+    statistics through the Module's aux path;
+19. ResNet-50 at bench.py's configuration (224x224, 1000 classes, batch
+    32, f32, lr 0.1, momentum 0.9, wd 1e-4, data from a seed on the
+    card), ``cudnn.benchmark`` on and TF32 off: 2 warm-up and 10 timed
+    steps in NCHW, 2 and 5 in NHWC; images/s, step ms and spread, device
+    busy time, idle share and time by group (conv forward, data
+    gradient, weight gradient, batch norm, elementwise, SGD) from one
+    profiled step, peak memory, the share of the f32 peak from the
+    graph's FLOP count, and the cross-entropy falling on the repeated
+    batch.  The path runs on cuDNN and cuBLAS: no hand-written kernel
+    launches there.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -2192,6 +2215,358 @@ def phase_imperative(torch, mx, kernels, tc, get_symbol, timer, card):
     return got, row
 
 
+# ---------------------------------------------------------------------------
+# The conv-net training path (phases 18-19): ResNet through ShardedTrainer
+# and Module.fit on cuDNN/cuBLAS; no hand-written kernel is on it
+# ---------------------------------------------------------------------------
+
+# bench.py's ResNet-50 configuration (bench.py:385-422)
+RESNET50 = dict(num_classes=1000, num_layers=50, image_shape="3,224,224")
+RESNET_BATCH = 32
+
+
+def conv_net_shapes(kw, batch, layout):
+    c, h, w = (int(v) for v in kw["image_shape"].split(","))
+    data = (batch, c, h, w) if layout == "NCHW" else (batch, h, w, c)
+    return {"data": data, "softmax_label": (batch,)}
+
+
+def train_flops(symbol, shapes):
+    """FLOPs of one training step from the graph's inferred shapes: 2 x
+    the multiply-adds of every Convolution (output elements x C_in/g x
+    kernel) and FullyConnected (output elements x input features), x 3
+    for the forward, the data gradient and the weight gradient."""
+    from mxnet_tpu_torch.executor import _resolve_structs
+    prog, _, shapes_of = _resolve_structs(symbol, shapes)
+    macs = 0
+    for node in prog.nodes:
+        if node.is_var or node.op.name not in ("Convolution",
+                                               "FullyConnected"):
+            continue
+        out = shapes_of[id(node)][0].shape
+        w = shapes_of[id(node.inputs[1].node)][0].shape
+        macs += int(np.prod(out)) * int(np.prod(w[1:]))
+    return 2 * 3 * macs
+
+
+def state_gaps(start, got, want):
+    """How far ``got``'s (params, moms, aux) dicts stand from ``want``'s:
+    per tensor, the largest difference over the largest change of the
+    same tensor in ``want`` from ``start``, worst first; and per part,
+    norm-wise, |got - want| over |want - start| of all its tensors as
+    one vector."""
+    per_tensor, norms = [], {}
+    for part, s0, a, b in zip(("params", "moms", "aux"), start, got, want):
+        diff2 = change2 = 0.0
+        for name in b:
+            change = b[name] - s0[name]
+            diff = a[name] - b[name]
+            per_tensor.append((float(np.abs(diff).max())
+                               / max(float(np.abs(change).max()), 1e-12),
+                               part, name))
+            diff2 += float((diff.astype(np.float64) ** 2).sum())
+            change2 += float((change.astype(np.float64) ** 2).sum())
+        norms[part] = (diff2 / max(change2, 1e-300)) ** 0.5
+    return sorted(per_tensor, reverse=True), norms
+
+
+def resnet_two_steps(torch, ShardedTrainer, convert, kw, batch, layout,
+                     seed=0):
+    """Two ShardedTrainer steps of ``resnet.get_symbol(**kw)`` on the card
+    and on the CPU from one state: ``state_gaps`` of the card's against
+    the CPU's, and both losses."""
+    from mxnet_tpu_torch.models import resnet
+    net_kw = dict(kw, num_classes=10, layout=layout)
+    shapes = conv_net_shapes(net_kw, batch, layout)
+    trs = {d: ShardedTrainer(resnet.get_symbol(**net_kw), device=d, lr=0.1,
+                             momentum=0.9, wd=1e-4) for d in ("cuda", "cpu")}
+    names = (trs["cpu"].param_names, trs["cpu"].prog.aux_names)
+    start = convert.trainer_state_to_numpy(
+        trs["cpu"].init_state(shapes, seed=3))
+    rs = np.random.RandomState(seed)
+    batches = [{"data": rs.randn(*shapes["data"]).astype(np.float32),
+                "softmax_label": rs.randint(0, 10, batch).astype(np.float32)}
+               for _ in range(2)]
+    out = {}
+    for d, tr in trs.items():
+        state = convert.trainer_state_from_numpy(names, start, d)
+        for b in batches:
+            *state, loss = tr.step(*state, b)
+        out[d] = (convert.trainer_state_to_numpy(state), float(loss))
+    parts = (names[0], names[0], names[1])
+    as_dicts = [tuple(dict(zip(n, part)) for n, part in zip(parts, st))
+                for st in (start, out["cuda"][0], out["cpu"][0])]
+    per_tensor, norms = state_gaps(*as_dicts)
+    return per_tensor, norms, (out["cuda"][1], out["cpu"][1])
+
+
+def resnet_fwd_grad(torch, ShardedTrainer, kw, batch, seed=1):
+    """One training-mode forward and gradient of ``resnet.get_symbol(
+    **kw)`` (NCHW) on the card and on the CPU from one state: the largest
+    difference of the outputs and new aux states (relative to their
+    largest magnitude, or 1), and the norm-wise gap of all gradients as
+    one vector."""
+    from mxnet_tpu_torch.executor import GraphProgram
+    from mxnet_tpu_torch.models import resnet
+    kw = dict(kw, num_classes=10)
+    shapes = conv_net_shapes(kw, batch, "NCHW")
+    net = resnet.get_symbol(**kw)
+    tr = ShardedTrainer(net, device="cpu")
+    params, _, aux = tr.init_state(shapes, seed=3)
+    rs = np.random.RandomState(seed)
+    feed = {"data": rs.randn(*shapes["data"]).astype(np.float32),
+            "softmax_label": rs.randint(0, 10, batch).astype(np.float32)}
+    prog = GraphProgram(net)
+    res = {}
+    for d in ("cuda", "cpu"):
+        leaves = [p.detach().to(d).requires_grad_() for p in params]
+        m = dict(zip(tr.param_names, leaves),
+                 **{k: torch.from_numpy(v).to(d) for k, v in feed.items()})
+        outs, new_aux = prog.evaluate([m[n] for n in prog.arg_names],
+                                      [a.to(d) for a in aux], train=True)
+        grads = torch.autograd.grad(sum(o.sum() for o in outs), leaves,
+                                    allow_unused=True)     # fixed gammas
+        res[d] = ([o.detach().cpu() for o in outs + new_aux],
+                  torch.cat([(torch.zeros_like(p) if g is None else g)
+                             .detach().cpu().reshape(-1)
+                             for p, g in zip(leaves, grads)]))
+    fwd = max(((a - b).abs().max() / b.abs().max().clamp(min=1)).item()
+              for a, b in zip(res["cuda"][0], res["cpu"][0]))
+    gap = ((res["cuda"][1] - res["cpu"][1]).norm()
+           / res["cpu"][1].norm()).item()
+    return fwd, gap
+
+
+# phase 18's small ResNets: (label, get_symbol kwargs, batch)
+CIFAR20 = ("cifar ResNet-20 12x12", dict(num_layers=20,
+                                         image_shape="3,12,12"), 4)
+IMAGENET18 = ("imagenet ResNet-18 64x64", dict(num_layers=18,
+                                               image_shape="3,64,64"), 2)
+BOTTLENECK50 = ("bottleneck ResNet-50 40x40", dict(num_layers=50,
+                                                   image_shape="3,40,40"), 2)
+
+
+def phase_convnet_parity(torch, mx, ShardedTrainer, convert, card):
+    """Two ShardedTrainer steps of small ResNets on the card and on the
+    CPU from one state, NCHW and NHWC: the cifar branch (depth 20) held
+    per tensor, the imagenet branch's stem and padded max pool (depth
+    18) norm-wise; the bottleneck units (depth 50) by one training
+    forward and gradient; then three Module.fit batches of the cifar
+    ResNet, whose BatchNorm statistics go through the Module's aux
+    path.  ``tools/convnet_gaps.py`` measures the same gaps over seeds
+    and sizes: where a ReLU or max-pool input lies within float32
+    rounding of a tie, the two devices may take different branches, and
+    the imagenet stem's ``bn0_gamma`` gradient is ill-conditioned
+    (PERF.md §6)."""
+    for (label, kw, batch), strict in ((CIFAR20, True), (IMAGENET18, False)):
+        for layout in ("NCHW", "NHWC"):
+            per_tensor, norms, (loss_c, loss_h) = resnet_two_steps(
+                torch, ShardedTrainer, convert, kw, batch, layout)
+            beyond = sum(r > 1e-3 for r, _, _ in per_tensor)
+            log("%s %s batch %d, 2 steps card vs cpu: worst tensors %s; "
+                "norm-wise params %.3g, moms %.3g, aux %.3g; %d of %d "
+                "tensors beyond 1e-3 of their largest change; loss %.6f vs "
+                "%.6f [%s]"
+                % (label, layout, batch, ", ".join(
+                    "%s %s %.3g" % (p, n, r) for r, p, n in per_tensor[:3]),
+                   norms["params"], norms["moms"], norms["aux"], beyond,
+                   len(per_tensor), loss_c, loss_h, card))
+            check(abs(loss_c - loss_h) <= 1e-4 * abs(loss_h),
+                  "%s %s: loss differs" % (label, layout))
+            if strict:
+                check(per_tensor[0][0] <= 1e-3,
+                      "%s %s: %s %s on the card differs from the CPU by "
+                      "%.3g of its largest change (tolerance 1e-3)"
+                      % (label, layout, per_tensor[0][1], per_tensor[0][2],
+                         per_tensor[0][0]))
+            else:
+                check(max(norms.values()) <= 1e-2,
+                      "%s %s: norm-wise gaps %s (tolerance 1e-2)"
+                      % (label, layout, norms))
+    label, kw, batch = BOTTLENECK50
+    fwd, gap = resnet_fwd_grad(torch, ShardedTrainer, kw, batch)
+    log("%s batch %d, training forward and gradient card vs cpu: outputs "
+        "and new aux within %.3g (tolerance 1e-4), gradients norm-wise "
+        "%.3g apart (tolerance 5e-2) [%s]" % (label, batch, fwd, gap, card))
+    check(fwd <= 1e-4 and gap <= 5e-2, "%s card vs cpu" % label)
+    # Module.fit: three batches of the cifar ResNet-20
+    from mxnet_tpu_torch.models import resnet
+    kw = dict(num_classes=10, num_layers=20, image_shape="3,12,12")
+    rs = np.random.RandomState(5)
+    X = rs.randn(24, 3, 12, 12).astype(np.float32)
+    y = rs.randint(0, 10, 24).astype(np.float32)
+    net = resnet.get_symbol(**kw)
+    torch.manual_seed(0)
+    init = mx.mod.Module(net, context=mx.cpu())
+    it = mx.io.NDArrayIter(X, y, batch_size=8)
+    init.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    init.init_params(initializer=mx.init.Xavier())
+    args, auxs = ({k: v.asnumpy() for k, v in part.items()}
+                  for part in init.get_params())
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = mx.mod.Module(net, context=ctx)
+        a, x = convert.module_params_from_numpy(args, auxs)
+        mod.fit(mx.io.NDArrayIter(X, y, batch_size=8), arg_params=a,
+                aux_params=x, optimizer="sgd", num_epoch=1,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-4})
+        ap, xp = mod.get_params()
+        got[ctx.device_type] = ({k: v.asnumpy() for k, v in ap.items()},
+                                {k: v.asnumpy() for k, v in xp.items()})
+    worst = 0.0
+    for part, s0 in zip(range(2), (args, auxs)):
+        for name, want in got["cpu"][part].items():
+            change = float(np.abs(want - s0[name]).max())
+            err = float(np.abs(got["gpu"][part][name] - want).max())
+            check(change > 0 and err <= 1e-3 * change,
+                  "Module.fit %s on the card differs from the CPU by %.3g, "
+                  "its largest change is %.3g" % (name, err, change))
+            worst = max(worst, err / change)
+    log("Module.fit cifar ResNet-20 12x12, 3 batches of 8, card vs cpu: %d "
+        "params and %d aux states within %.3g of each tensor's largest "
+        "change (tolerance 1e-3) [%s]"
+        % (len(got["cpu"][0]), len(got["cpu"][1]), worst, card))
+
+
+def train_ce(torch, tr, params, aux, data, label):
+    """Mean -log p[label] of a training-mode forward (batch statistics,
+    as the step sees them; the moving statistics are not moved)."""
+    prog = tr.prog
+    args = [None] * len(prog.arg_names)
+    for i, p in zip(tr.param_idx, params):
+        args[i] = p
+    args[tr.input_idx["data"]] = data
+    args[tr.input_idx["softmax_label"]] = label
+    with torch.no_grad():
+        probs = prog.evaluate(args, aux, train=True)[0][0]
+        picked = probs.gather(1, label.long()[:, None]).double()
+        return float(-picked.clamp(min=1e-30).log().mean())
+
+
+# device kernel name fragments -> group of the ResNet step's time
+CONV_GROUPS = (("conv weight-gradient", ("wgrad",)),
+               ("conv data-gradient", ("dgrad",)),
+               ("conv forward", ("fprop", "conv", "implicit_gemm",
+                                 "xmma")),
+               ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                               "welford", "cudnn::bn")),
+               ("SGD", ("multi_tensor", "foreach")),
+               ("matmul (FC)", ("gemm",)),
+               ("pooling", ("pool",)),
+               ("reductions", ("reduce",)),
+               ("elementwise", ("elementwise", "copy", "fill", "where",
+                                "relu", "threshold")))
+
+
+def phase_resnet50(torch, kernels, ShardedTrainer, card):
+    """ResNet-50 training at bench.py's configuration, NCHW then NHWC;
+    returns the port kernels launched (none: the path runs on cuDNN and
+    cuBLAS)."""
+    from mxnet_tpu_torch.models import resnet
+    from torch.profiler import ProfilerActivity, profile
+    torch.backends.cudnn.benchmark = True
+    kernels.reset_launches()
+    for layout, timed_n in (("NCHW", 10), ("NHWC", 5)):
+        kw = dict(RESNET50, layout=layout)
+        shapes = conv_net_shapes(kw, RESNET_BATCH, layout)
+        net = resnet.get_symbol(**kw)
+        tr = ShardedTrainer(net, lr=0.1, momentum=0.9, wd=1e-4)
+        t0 = time.perf_counter()
+        params, mom, aux = tr.init_state(shapes, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        data = torch.randn(shapes["data"], generator=gen, device="cuda")
+        label = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                              device="cuda").float()
+        batch = {"data": data, "softmax_label": label}
+        log("ResNet-50 %s init_state: %d tensors, %.2f M parameters, %d aux "
+            "states, %.1f s" % (layout, len(params),
+                                sum(p.numel() for p in params) / 1e6,
+                                len(aux), time.perf_counter() - t0))
+        ce0 = train_ce(torch, tr, params, aux, data, label)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2 + timed_n):
+            t0 = time.perf_counter()
+            params, mom, aux, loss = tr.step(params, mom, aux, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, mom, aux, loss = tr.step(params, mom, aux, batch)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        ce1 = train_ce(torch, tr, params, aux, data, label)
+        timed = times[2:]
+        med = statistics.median(timed)
+        flops = train_flops(net, shapes)
+        log("ResNet-50 %s %s batch %d f32 (cudnn.benchmark on, TF32 off): "
+            "warm-up %s ms; timed %s ms; median %.2f ms (spread %.2f-%.2f) "
+            "= %.1f images/s [%s]"
+            % (layout, "x".join(kw["image_shape"].split(",")[1:]),
+               RESNET_BATCH, ", ".join("%.1f" % t for t in times[:2]),
+               ", ".join("%.2f" % t for t in timed), med, min(timed),
+               max(timed), RESNET_BATCH / med * 1e3, card))
+        by_kernel = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0)
+            if dev_us and ev.device_type.name == "CUDA":
+                by_kernel[ev.key] = (dev_us, ev.count)
+        if by_kernel:
+            busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+            groups = {g: 0.0 for g, _ in CONV_GROUPS}
+            groups["other"] = 0.0
+            for key, (us, _cnt) in by_kernel.items():
+                low = key.lower()
+                group = next((g for g, frags in CONV_GROUPS
+                              if any(f in low for f in frags)), "other")
+                groups[group] += us / 1e3
+            log("  device time of one step by kernel (torch.profiler) [%s]:"
+                % card)
+            for key, (us, cnt) in sorted(by_kernel.items(),
+                                         key=lambda kv: -kv[1][0])[:14]:
+                log("  %9.1f us  x%-4d %s" % (us, cnt, key[:100]))
+            log("  by group: %s" % ", ".join(
+                "%s %.2f ms" % kv for kv in sorted(groups.items(),
+                                                   key=lambda kv: -kv[1])))
+            # the profiler slows the host: the unprofiled median is the
+            # other denominator of the same busy time
+            log("  device busy %.2f ms of the profiled step's %.2f ms: idle "
+                "share %.3f; of the unprofiled median %.2f ms: %.3f"
+                % (busy_ms, prof_ms, 1 - busy_ms / prof_ms, med,
+                   1 - busy_ms / med))
+        else:
+            log("  device busy: not measured (the profiler saw no device "
+                "time)")
+        log("  peak memory allocated %.2f GB; FLOPs per step = 2 x 3 x "
+            "multiply-adds of every Convolution and FullyConnected = %.4f "
+            "TFLOP -> %.2f TFLOP/s = %.3f of the 67 TFLOP/s f32 peak (%.2f "
+            "ms at peak); cross-entropy of the repeated batch before %.4f, "
+            "after %d steps %.4f [%s]"
+            % (peak / 1e9, flops / 1e12, flops / med / 1e9,
+               flops / (med / 1e3) / F32_FLOPS_S, flops / F32_FLOPS_S * 1e3,
+               ce0, len(times) + 1, ce1, card))
+        check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
+              "ResNet-50 %s did not lower the cross-entropy on the repeated "
+              "batch (%.4f -> %.4f)" % (layout, ce0, ce1))
+        check(tr.skipped_steps == 0, "a ResNet-50 step was skipped")
+        check(torch.backends.cudnn.allow_tf32 is False,
+              "cuDNN's TF32 is on after the ResNet step")
+        del params, mom, aux, batch, data, tr
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    got = dict(kernels.LAUNCHES)
+    check(not any(got.values()), "the ResNet path launched a hand-written "
+          "kernel: %s" % got)
+    log("hand-written kernel launches on the ResNet path: none (%s)" % got)
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2392,6 +2767,14 @@ def main():
         launches["imperative"], row = phase_imperative(
             torch, mx, kernels, tc, get_symbol, timer, card)
         rows.append(row)
+        torch.cuda.empty_cache()
+
+    with phase("18 conv nets card vs cpu"):
+        phase_convnet_parity(torch, mx, ShardedTrainer, convert, card)
+
+    with phase("19 ResNet-50 at full width"):
+        launches["resnet"] = phase_resnet50(torch, kernels, ShardedTrainer,
+                                            card)
         torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------

@@ -10,7 +10,8 @@ port one to one; only the array type changes.
 
 A JAX ``ShardedTrainer``'s state is three tuples ``(params, mom, aux)`` in
 its ``param_names`` / ``prog.aux_names`` order; the port's trainer keeps
-the same names and order.  :func:`trainer_state_from_numpy` moves such a
+the same names and order (for a conv net: BatchNorm's moving statistics
+in ``aux``, and NHWC graphs' OHWI convolution weights as they are).  :func:`trainer_state_from_numpy` moves such a
 state (as host arrays) onto a device for the port, matching it by name,
 and :func:`trainer_state_to_numpy` brings the port's state back.
 

@@ -3,11 +3,17 @@
 
 :class:`GraphProgram` evaluates a Symbol's DAG op by op on torch tensors;
 autograd records it, so the backward of a training step is
-``torch.autograd.grad`` over its outputs.  Shape inference
+``torch.autograd.grad`` over its outputs.  A ``needs_rng`` node (Dropout,
+rrelu) draws from the ``torch.Generator`` the caller hands
+:meth:`GraphProgram.evaluate`, the nodes in topological order, as the JAX
+program hands out its keys; the :class:`Executor` and the trainer own one
+on their device, seeded from ``mx.random.seed``.  A mode-dependent node
+(BatchNorm, Dropout) sees ``_train``.  Shape inference
 (:func:`infer_shapes`) runs the same ops on ``meta`` tensors, which carry
 shapes and dtypes but no data, after the ``infer_params`` hooks
 (:mod:`.ops.shape_hints`) have filled in the parameter shapes the caller
-did not give.
+did not give; type inference (:func:`infer_types`) propagates dtypes
+forward as the JAX package does.
 
 :class:`Executor` is a Symbol bound to arrays on one device
 (``simple_bind`` allocates them from the inferred shapes): a train-mode
@@ -23,16 +29,19 @@ from __future__ import annotations
 import ast
 from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 
-from .base import MXNetError, NotPortedYet, armed_env, dtype_torch
+from . import rng as _rng
+from .base import (MXNetError, NotPortedYet, armed_env, dtype_name,
+                   dtype_np, dtype_torch)
 from .context import Context, as_torch_device, context_of
 from .ndarray.ndarray import NDArray, zeros
 from .ops import shape_hints  # noqa: F401  (installs infer_params hooks)
 from .symbol.symbol import Symbol, _topo_order
 
-__all__ = ["GraphProgram", "Executor", "infer_shapes", "node_attrs",
-           "batch_hint_from"]
+__all__ = ["GraphProgram", "Executor", "infer_shapes", "infer_types",
+           "node_attrs", "batch_hint_from"]
 
 _REMAT_KNOBS = ("MXNET_TPU_REMAT_POLICY", "MXNET_BACKWARD_DO_MIRROR")
 
@@ -51,9 +60,9 @@ def batch_hint_from(arg_map: Dict[str, Any], arg_names: Sequence[str]):
 
 
 def node_attrs(node, train: bool, batch_hint):
-    """Attrs for evaluating one graph node, with 0-dims of a creation op's
-    ``shape`` resolved against the batch hint.  No op of the port is
-    mode-dependent yet, so ``train`` changes nothing here."""
+    """Attrs for evaluating one graph node: 0-dims of a creation op's
+    ``shape`` resolved against the batch hint, and ``_train`` set for a
+    mode-dependent op."""
     attrs = node.parsed_attrs()
     if not node.inputs and 0 in (attrs.get("shape") or ()):
         if not batch_hint:
@@ -64,6 +73,9 @@ def node_attrs(node, train: bool, batch_hint):
         attrs = type(attrs)(attrs)
         attrs["shape"] = tuple(batch_hint if d == 0 else d
                                for d in attrs["shape"])
+    if node.op.mode_dependent:
+        attrs = type(attrs)(attrs)
+        attrs["_train"] = train
     return attrs
 
 
@@ -80,6 +92,8 @@ class GraphProgram:
         for n in self.nodes:
             if n.is_var:
                 self.var_kind[id(n)] = "aux" if id(n) in aux_ids else "arg"
+        self.num_rng = sum(1 for n in self.nodes
+                           if not n.is_var and n.op.needs_rng)
         # aux writeback plan: (aux_name, node, out_idx)
         self.aux_updates = []
         for n in self.nodes:
@@ -92,8 +106,11 @@ class GraphProgram:
                         self.aux_updates.append((src.name, n, i_out))
 
     def evaluate(self, arg_arrays: Sequence, aux_arrays: Sequence,
-                 train: bool = False):
-        """Evaluate the DAG; returns ``(outputs, new_aux)`` as tuples."""
+                 train: bool = False, generator=None):
+        """Evaluate the DAG; returns ``(outputs, new_aux)`` as tuples.
+        Each ``needs_rng`` node draws from ``generator`` in topological
+        order (without one, from its device's generator of
+        :mod:`mxnet_tpu_torch.rng`)."""
         arg_map = dict(zip(self.arg_names, arg_arrays))
         aux_map = dict(zip(self.aux_names, aux_arrays))
         batch_hint = batch_hint_from(arg_map, self.arg_names)
@@ -106,6 +123,8 @@ class GraphProgram:
                 continue
             attrs = node_attrs(node, train, batch_hint)
             ins = [raw[id(e.node)][e.index] for e in node.inputs]
+            if node.op.needs_rng:
+                ins = [generator] + ins
             out = node.op.fn(attrs, *ins)
             raw[id(node)] = out if isinstance(out, tuple) else (out,)
         outputs = tuple(raw[id(e.node)][e.index]
@@ -201,6 +220,8 @@ def _resolve_structs(symbol: Symbol, kwargs: Dict[str, Any],
                 raise MXNetError(
                     "infer_shape: cannot determine shape of %s (inputs of "
                     "node %s); provide it explicitly" % (missing, node.name))
+            if node.op.needs_rng:
+                ins = [None] + ins    # predict mode: no draw
             out = node.op.fn(attrs, *ins)
             shapes[id(node)] = out if isinstance(out, tuple) else (out,)
     return prog, known, shapes
@@ -219,6 +240,65 @@ def infer_shapes(symbol: Symbol, kwargs, partial=False):
     aux_shapes = [tuple(known[n].shape) if n in known else None
                   for n in prog.aux_names]
     return arg_shapes, out_shapes, aux_shapes
+
+
+# ops whose output dtype follows a specific (non-first) input: lookup ops
+# emit the dtype of their table, not of their integer indices
+_DTYPE_FOLLOWS_INPUT = {"Embedding": 1, "take": 0, "gather_nd": 0}
+
+# inputs pinned to a fixed dtype whatever the data's: BatchNorm keeps
+# gamma/beta and the moving statistics float32 under fp16/bf16 data
+_DTYPE_PINNED_INPUTS = {"BatchNorm": {1: "float32", 2: "float32",
+                                      3: "float32", 4: "float32"}}
+
+
+def infer_types(symbol: Symbol, kwargs):
+    """``(arg_types, out_types, aux_types)`` as numpy dtypes, from the
+    dtypes given by name (port of the JAX package's ``infer_types``).
+
+    Forward propagation: a node's output dtype is its own ``dtype`` attr
+    where the user set one (Cast), a creation op's ``dtype`` param, the
+    table's dtype for a lookup op, else its first typed input's; an
+    untyped variable input takes the node's dtype (BatchNorm's parameters
+    and statistics stay float32)."""
+    prog = GraphProgram(symbol)
+    type_dict = {k: dtype_name(v) for k, v in (kwargs or {}).items()
+                 if v is not None}
+    default_dt = next(iter(type_dict.values()), "float32")
+    dts: Dict[int, tuple] = {}
+    for node in prog.nodes:
+        if node.is_var:
+            d = type_dict.get(node.name) or node.attrs.get("__dtype__")
+            dts[id(node)] = (dtype_name(d) if d else None,)
+            continue
+        attrs = node.parsed_attrs()
+        declared = node.attrs.get("dtype")
+        in_dts = [dts[id(e.node)][e.index] for e in node.inputs]
+        if not node.inputs:
+            anchor = dtype_name(attrs.get("dtype") or default_dt)
+        elif node.op.name in _DTYPE_FOLLOWS_INPUT:
+            f = _DTYPE_FOLLOWS_INPUT[node.op.name]
+            anchor = in_dts[f] if f < len(in_dts) and in_dts[f] is not None \
+                else dtype_name(attrs.get("dtype") or "float32")
+        else:
+            anchor = next((d for d in in_dts if d is not None), default_dt)
+        pinned = _DTYPE_PINNED_INPUTS.get(node.op.name, {})
+        for i, (e, d) in enumerate(zip(node.inputs, in_dts)):
+            if d is None and e.node.is_var:
+                dts[id(e.node)] = (pinned.get(i, anchor),)
+        out_dt = dtype_name(declared) if declared else anchor
+        dts[id(node)] = (out_dt,) * node.op.num_outputs(attrs)
+
+    def final(d, fallback):
+        return np.dtype(dtype_np(d or fallback))
+
+    by_name = {n.name: n for n in prog.nodes if n.is_var}
+    return ([final(dts[id(by_name[n])][0], default_dt)
+             for n in prog.arg_names],
+            [final(dts[id(e.node)][e.index], default_dt)
+             for e in symbol._entries],
+            [final(dts[id(by_name[n])][0], "float32")
+             for n in prog.aux_names])
 
 
 class Executor:
@@ -275,6 +355,7 @@ class Executor:
         self.grad_dict = dict(zip(arg_names, self.grad_arrays))
         self.outputs: List = []
         self._graph = None     # (outputs, leaf names, leaves) to backward
+        self._generator = None  # the needs_rng nodes' draws, made lazily
 
     # -- binding ----------------------------------------------------------
     @staticmethod
@@ -321,9 +402,12 @@ class Executor:
         args = [leaves[n] if n in leaves else a._handle
                 for n, a in zip(self._prog.arg_names, self.arg_arrays)]
         aux = [a._handle for a in self.aux_arrays]
+        if self._prog.num_rng and self._generator is None:
+            self._generator = _rng.new_generator(self._ctx.torch_device)
         with torch.set_grad_enabled(record):
             outs, new_aux = self._prog.evaluate(args, aux,
-                                                train=bool(is_train))
+                                                train=bool(is_train),
+                                                generator=self._generator)
         self._graph = (outs, names, [leaves[n] for n in names]) \
             if record else None
         with torch.no_grad():

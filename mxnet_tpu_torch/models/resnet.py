@@ -1,0 +1,172 @@
+"""ResNet symbol builder (port of ``mxnet_tpu/models/resnet.py``; the
+same graph, and the same ``tojson()``, as the JAX package's).
+
+Reference: example/image-classification/symbols/resnet.py (He et al.
+1512.03385 / 1603.05027, v2 pre-activation residual units, bottleneck
+units from depth 50).  Images of height <= 32 take the cifar stem (one
+3x3 convolution), larger ones the imagenet stem (7x7 stride-2
+convolution, batch norm, relu, 3x3 stride-2 max pool); height <= 28 gives
+three stages.  ``layout="NHWC"`` builds the channels-last graph (NHWC
+convolutions with OHWI weights, batch norm over axis 3).  The port trains
+in float32 only: another ``dtype`` builds the graph, and the trainer
+refuses a non-f32 ``param_dtype``.
+"""
+from __future__ import annotations
+
+from .. import symbol as sym
+
+
+def residual_unit(data, num_filter, stride, dim_match, name,
+                  bottle_neck=True, bn_mom=0.9, workspace=256,
+                  layout="NCHW"):
+    """Pre-activation residual unit (v2)."""
+    bn_ax = 3 if layout == "NHWC" else 1
+    lay = layout if layout == "NHWC" else None
+    if bottle_neck:
+        bn1 = sym.BatchNorm(data, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                            axis=bn_ax, name=name + "_bn1")
+        act1 = sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+        conv1 = sym.Convolution(act1, num_filter=num_filter // 4,
+                                kernel=(1, 1), stride=(1, 1), pad=(0, 0),
+                                no_bias=True, workspace=workspace,
+                                layout=lay, name=name + "_conv1")
+        bn2 = sym.BatchNorm(conv1, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                            axis=bn_ax, name=name + "_bn2")
+        act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+        conv2 = sym.Convolution(act2, num_filter=num_filter // 4,
+                                kernel=(3, 3), stride=stride, pad=(1, 1),
+                                no_bias=True, workspace=workspace,
+                                layout=lay, name=name + "_conv2")
+        bn3 = sym.BatchNorm(conv2, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                            axis=bn_ax, name=name + "_bn3")
+        act3 = sym.Activation(bn3, act_type="relu", name=name + "_relu3")
+        conv3 = sym.Convolution(act3, num_filter=num_filter, kernel=(1, 1),
+                                stride=(1, 1), pad=(0, 0), no_bias=True,
+                                workspace=workspace, layout=lay,
+                                name=name + "_conv3")
+        if dim_match:
+            shortcut = data
+        else:
+            shortcut = sym.Convolution(act1, num_filter=num_filter,
+                                       kernel=(1, 1), stride=stride,
+                                       no_bias=True, workspace=workspace,
+                                       layout=lay, name=name + "_sc")
+        return conv3 + shortcut
+    bn1 = sym.BatchNorm(data, fix_gamma=False, momentum=bn_mom, eps=2e-5,
+                        axis=bn_ax, name=name + "_bn1")
+    act1 = sym.Activation(bn1, act_type="relu", name=name + "_relu1")
+    conv1 = sym.Convolution(act1, num_filter=num_filter, kernel=(3, 3),
+                            stride=stride, pad=(1, 1), no_bias=True,
+                            workspace=workspace, layout=lay,
+                            name=name + "_conv1")
+    bn2 = sym.BatchNorm(conv1, fix_gamma=False, momentum=bn_mom, eps=2e-5,
+                        axis=bn_ax, name=name + "_bn2")
+    act2 = sym.Activation(bn2, act_type="relu", name=name + "_relu2")
+    conv2 = sym.Convolution(act2, num_filter=num_filter, kernel=(3, 3),
+                            stride=(1, 1), pad=(1, 1), no_bias=True,
+                            workspace=workspace, layout=lay,
+                            name=name + "_conv2")
+    if dim_match:
+        shortcut = data
+    else:
+        shortcut = sym.Convolution(act1, num_filter=num_filter, kernel=(1, 1),
+                                   stride=stride, no_bias=True,
+                                   workspace=workspace, layout=lay,
+                                   name=name + "_sc")
+    return conv2 + shortcut
+
+
+def resnet(units, num_stages, filter_list, num_classes, image_shape,
+           bottle_neck=True, bn_mom=0.9, workspace=256, dtype="float32",
+           layout="NCHW"):
+    num_unit = len(units)
+    assert num_unit == num_stages
+    bn_ax = 3 if layout == "NHWC" else 1
+    lay = layout if layout == "NHWC" else None
+    data = sym.Variable(name="data")
+    if dtype != "float32":
+        data = sym.Cast(data, dtype=dtype)
+    data = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=bn_mom,
+                         axis=bn_ax, name="bn_data")
+    (nchannel, height, width) = image_shape
+    if height <= 32:  # cifar
+        body = sym.Convolution(data, num_filter=filter_list[0], kernel=(3, 3),
+                               stride=(1, 1), pad=(1, 1), no_bias=True,
+                               layout=lay, name="conv0", workspace=workspace)
+    else:  # imagenet
+        body = sym.Convolution(data, num_filter=filter_list[0], kernel=(7, 7),
+                               stride=(2, 2), pad=(3, 3), no_bias=True,
+                               layout=lay, name="conv0", workspace=workspace)
+        body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                             axis=bn_ax, name="bn0")
+        body = sym.Activation(body, act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max", layout=lay)
+
+    for i in range(num_stages):
+        body = residual_unit(body, filter_list[i + 1],
+                             (1 if i == 0 else 2,) * 2, False,
+                             name="stage%d_unit%d" % (i + 1, 1),
+                             bottle_neck=bottle_neck, workspace=workspace,
+                             bn_mom=bn_mom, layout=layout)
+        for j in range(units[i] - 1):
+            body = residual_unit(body, filter_list[i + 1], (1, 1), True,
+                                 name="stage%d_unit%d" % (i + 1, j + 2),
+                                 bottle_neck=bottle_neck,
+                                 workspace=workspace, bn_mom=bn_mom,
+                                 layout=layout)
+    bn1 = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                        axis=bn_ax, name="bn1")
+    relu1 = sym.Activation(bn1, act_type="relu", name="relu1")
+    pool1 = sym.Pooling(relu1, global_pool=True, kernel=(7, 7),
+                        pool_type="avg", layout=lay, name="pool1")
+    flat = sym.Flatten(pool1)
+    fc1 = sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+    if dtype != "float32":
+        fc1 = sym.Cast(fc1, dtype="float32")
+    return sym.SoftmaxOutput(fc1, name="softmax")
+
+
+def get_symbol(num_classes=1000, num_layers=50, image_shape="3,224,224",
+               conv_workspace=256, dtype="float32", layout="NCHW",
+               **kwargs):
+    """reference symbols/resnet.py get_symbol — same depth table."""
+    image_shape = [int(l) for l in image_shape.split(",")] \
+        if isinstance(image_shape, str) else list(image_shape)
+    (nchannel, height, width) = image_shape
+    if height <= 28:
+        num_stages = 3
+        if (num_layers - 2) % 9 == 0 and num_layers >= 164:
+            per_unit = [(num_layers - 2) // 9]
+            filter_list = [16, 64, 128, 256]
+            bottle_neck = True
+        elif (num_layers - 2) % 6 == 0 and num_layers < 164:
+            per_unit = [(num_layers - 2) // 6]
+            filter_list = [16, 16, 32, 64]
+            bottle_neck = False
+        else:
+            raise ValueError("no experiments done on num_layers %d"
+                             % num_layers)
+        units = per_unit * num_stages
+    else:
+        if num_layers >= 50:
+            filter_list = [64, 256, 512, 1024, 2048]
+            bottle_neck = True
+        else:
+            filter_list = [64, 64, 128, 256, 512]
+            bottle_neck = False
+        num_stages = 4
+        units = {
+            18: [2, 2, 2, 2],
+            34: [3, 4, 6, 3],
+            50: [3, 4, 6, 3],
+            101: [3, 4, 23, 3],
+            152: [3, 8, 36, 3],
+            200: [3, 24, 36, 3],
+            269: [3, 30, 48, 8],
+        }[num_layers]
+
+    return resnet(units=units, num_stages=num_stages,
+                  filter_list=filter_list, num_classes=num_classes,
+                  image_shape=image_shape, bottle_neck=bottle_neck,
+                  workspace=conv_workspace, dtype=dtype, layout=layout)

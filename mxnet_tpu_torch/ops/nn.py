@@ -1,14 +1,34 @@
-"""Neural-network ops of the LM graph (port of ``FullyConnected``,
-``Activation``, ``LayerNorm``, ``SoftmaxOutput`` and
-``_contrib_fused_attention`` from ``mxnet_tpu/ops/nn.py``; reference
-src/operator/nn/, softmax_output-inl.h).
+"""Neural-network ops (port of ``mxnet_tpu/ops/nn.py``; reference
+src/operator/nn/, softmax_output-inl.h, the loss heads and legacy root
+ops).
 
-The loss head keeps the reference's defining quirk: its backward IGNORES
-the incoming gradient and emits ``softmax - one_hot(label)`` directly
-(unless ``out_grad``), so it is a ``torch.autograd.Function``.  The
-attention op keeps the reference's dispatch: below ``flash_min_seq`` the
-plain einsum formulation and autograd, at and above it the hand-written
-flash kernels of :mod:`.kernels` in both directions.
+Convolution, pooling and batch norm are library calls (cuDNN on the
+card, ATen on the CPU), as the JAX package leaves them to XLA; no
+hand-written kernel is on their path.  On a CUDA tensor the convolutions
+turn cuDNN's TF32 off themselves (the reference computes f32 convolutions
+at full precision), whatever the caller set.  Where the obvious PyTorch
+call gives another answer than the reference, the op follows the
+reference: max pooling pads with -inf for any ``pad``, avg pooling
+divides by the whole kernel (the extra right padding of
+``pooling_convention="full"`` included), ``Deconvolution`` pads
+``k-1-p`` per side whatever ``dilate`` is, ``BatchNorm`` moves its
+statistics with the biased batch variance, ``UpSampling`` repeats
+nearest neighbours whatever ``sample_type`` says, and ``CTCLoss`` runs
+the reference's alpha recursion with its blank and padding conventions.
+
+The loss heads keep the reference's defining quirk: their backward
+IGNORES the incoming gradient and emits the loss gradient directly
+(``SoftmaxOutput`` unless ``out_grad``; the regression outputs,
+``MakeLoss``, ``SVMOutput``), so each is a ``torch.autograd.Function``,
+as is ``IdentityAttachKLSparseReg``.  The attention op keeps the
+reference's dispatch: below ``flash_min_seq`` the plain einsum
+formulation and autograd, at and above it the hand-written flash
+kernels of :mod:`.kernels` in both directions.
+
+``Dropout`` and ``LeakyReLU`` (rrelu) are ``needs_rng``: they draw from
+the ``torch.Generator`` the caller hands them (the graph program's, or
+the device generator of :mod:`mxnet_tpu_torch.rng`).  The
+mode-dependent ops read ``_train``, which the executor sets.
 """
 from __future__ import annotations
 
@@ -19,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import (MXNetError, NotPortedYet, Param, attr_bool, attr_float,
-                    attr_int, attr_str)
+                    attr_int, attr_shape, attr_str)
 from . import kernels
 from .registry import register
 
@@ -45,6 +65,189 @@ def _fully_connected(attrs, data, weight, bias=None):
 
 
 # ---------------------------------------------------------------------------
+# Convolution / Deconvolution
+# ---------------------------------------------------------------------------
+
+_conv_inputs = _fc_inputs
+
+_CONV_PARAMS = dict(
+    kernel=attr_shape(required=True), stride=attr_shape(()),
+    dilate=attr_shape(()), pad=attr_shape(()),
+    num_filter=attr_int(required=True), num_group=attr_int(1),
+    workspace=attr_int(1024), no_bias=attr_bool(False),
+    cudnn_tune=attr_str(None), cudnn_off=attr_bool(False),
+    layout=attr_str(None))
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _conv_geometry(attrs):
+    nd = len(attrs.kernel)
+    return (nd, tuple(attrs.stride or (1,) * nd),
+            tuple(attrs.dilate or (1,) * nd), tuple(attrs.pad or (0,) * nd))
+
+
+def _no_cudnn_tf32(x):
+    """f32 convolutions at full precision on the card, as the reference
+    computes them: cuDNN's TF32 defaults to on, so the op turns it off
+    itself rather than trust the caller."""
+    if x.device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+
+
+@register("Convolution", inputs=_conv_inputs, params=dict(_CONV_PARAMS),
+          aliases=("Convolution_v1",))
+def _convolution(attrs, x, w, bias=None):
+    """NC(D)HW activations with OI(D)HW weights, or ``layout="NHWC"``
+    (2-d only) with OHWI weights.  An NHWC tensor permuted to NCHW is a
+    ``channels_last`` tensor, which cuDNN runs without a copy; the result
+    is permuted back."""
+    nd, stride, dilate, pad = _conv_geometry(attrs)
+    _no_cudnn_tf32(x)
+    if attrs.layout == "NHWC":
+        if nd != 2:
+            raise MXNetError("Convolution: NHWC layout is 2-d only")
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias,
+                       stride, pad, dilate, attrs.num_group)
+        return out.permute(0, 2, 3, 1)
+    return _CONV[nd](x, w, bias, stride, pad, dilate, attrs.num_group)
+
+
+@register("Deconvolution", inputs=_conv_inputs,
+          params=dict(_CONV_PARAMS, adj=attr_shape(()),
+                      target_shape=attr_shape(())))
+def _deconvolution(attrs, x, w, bias=None):
+    """Transposed convolution with the reference's ``(C_in, C_out/g,
+    k...)`` weights, which are ``conv_transpose``'s own.  The reference
+    computes it as a convolution of the stride-dilated input with the
+    flipped kernel, padded ``k-1-p`` on each side (``+adj`` on the
+    right) whatever ``dilate`` is, so its output has
+    ``(i-1)*s + 1 + 2*(k-1-p) - dilate*(k-1) + adj`` elements per axis.
+    Here the full transposed convolution (no padding, extent
+    ``(i-1)*s + dilate*(k-1) + 1``) is cropped, or zero-padded on the
+    right where ``adj`` reaches past it, to that window.
+    ``target_shape`` is parsed and ignored, as in the reference."""
+    nd, stride, dilate, pad = _conv_geometry(attrs)
+    adj = tuple(attrs.adj or (0,) * nd)
+    _no_cudnn_tf32(x)
+    full = _CONV_T[nd](x, w, None, stride, 0, 0, attrs.num_group, dilate)
+    crop = []
+    for i in range(nd):
+        k, size = attrs.kernel[i], full.shape[2 + i]
+        start = (dilate[i] - 1) * (k - 1) + pad[i]
+        end = (x.shape[2 + i] - 1) * stride[i] + k - pad[i] + adj[i]
+        crop.append((-start, end - size))
+    out = F.pad(full, [p for lo_hi in reversed(crop) for p in lo_hi])
+    if bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * nd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pooling / UpSampling
+# ---------------------------------------------------------------------------
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+# avg_pool1d has no divisor_override: 1-d windows are summed as 2-d ones
+_SUM_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_window(x, kind, kernel, stride, pads):
+    """Window ``max`` or ``sum`` over the trailing ``len(kernel)`` axes of
+    ``x`` (N, C, spatial...), padded ``pads[i] = (lo, hi)`` with the
+    reduction's identity (-inf, or ``iinfo.min`` for an integer max, and
+    0) before ATen's pooling sees it, so no ``pad > kernel/2`` limit
+    applies.  Integer windows, which ATen's pooling does not take, are an
+    ``unfold`` and a reduction."""
+    nd = len(kernel)
+    if x.is_floating_point():
+        fill = float("-inf") if kind == "max" else 0.0
+    else:
+        fill = torch.iinfo(x.dtype).min if kind == "max" else 0
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    if any(flat):
+        x = F.pad(x, flat, value=fill)
+    if not x.is_floating_point():
+        for i, (k, s) in enumerate(zip(kernel, stride)):
+            x = x.unfold(2 + i, k, s)
+        dims = tuple(range(-nd, 0))
+        return x.amax(dims) if kind == "max" else x.sum(dims)
+    if kind == "max":
+        return _MAX_POOL[nd](x, kernel, stride)
+    if nd == 1:
+        return _pool_window(x.unsqueeze(-1), kind, kernel + (1,),
+                            stride + (1,), [(0, 0)] * 2).squeeze(-1)
+    return _SUM_POOL[nd](x, kernel, stride, divisor_override=1)
+
+
+@register("Pooling", inputs=("data",),
+          params=dict(kernel=attr_shape(()), pool_type=attr_str("max"),
+                      global_pool=attr_bool(False),
+                      cudnn_off=attr_bool(False),
+                      pooling_convention=attr_str("valid"),
+                      stride=attr_shape(()), pad=attr_shape(()),
+                      layout=attr_str(None)),
+          aliases=("Pooling_v1",))
+def _pooling(attrs, x):
+    """Max, avg or sum pooling over 1-3 spatial axes (NCHW, or NHWC).
+    Max pads with -inf (``iinfo.min`` for integers) for any ``pad``; avg
+    divides every window by ``prod(kernel)``, padding included, also
+    where ``pooling_convention="full"`` extends the right padding so that
+    the output size rounds up."""
+    nd = x.dim() - 2
+    nhwc = attrs.layout == "NHWC"
+    if nhwc:
+        x = x.movedim(-1, 1)
+    if attrs.global_pool:
+        kernel = tuple(x.shape[2:])
+        stride, pad = (1,) * nd, (0,) * nd
+    else:
+        kernel = tuple(attrs.kernel)
+        stride = tuple(attrs.stride or (1,) * nd)
+        pad = tuple(attrs.pad or (0,) * nd)
+    pads = [(p, p) for p in pad]
+    if attrs.pooling_convention == "full" and not attrs.global_pool:
+        for i in range(nd):
+            size = x.shape[2 + i] + 2 * pad[i]
+            out = -(-(size - kernel[i]) // stride[i]) + 1
+            need = (out - 1) * stride[i] + kernel[i] - size
+            pads[i] = (pad[i], pad[i] + max(0, need))
+    if attrs.pool_type == "max":
+        out = _pool_window(x, "max", kernel, stride, pads)
+    else:
+        out = _pool_window(x, "sum", kernel, stride, pads)
+        if attrs.pool_type != "sum":
+            out = out / float(np.prod(kernel))
+    return out.movedim(1, -1) if nhwc else out
+
+
+@register("UpSampling", variadic=True,
+          params=dict(num_args=attr_int(1), scale=attr_int(required=True),
+                      sample_type=attr_str("nearest"),
+                      num_filter=attr_int(0),
+                      multi_input_mode=attr_str("concat"),
+                      workspace=attr_int(512)))
+def _upsampling(attrs, *xs):
+    """Nearest-neighbour repeat by ``scale`` along axes 2 and 3, whatever
+    ``sample_type`` says (the reference's own behaviour); several inputs
+    are summed or concatenated along the channels."""
+    s = attrs.scale
+    outs = []
+    for x in xs:
+        n, c, h, w = x.shape[:4]
+        big = x.reshape(n, c, h, 1, w, 1, *x.shape[4:]).expand(
+            n, c, h, s, w, s, *x.shape[4:])
+        outs.append(big.reshape(n, c, h * s, w * s, *x.shape[4:]))
+    if len(outs) == 1:
+        return outs[0]
+    if attrs.multi_input_mode == "sum":
+        return sum(outs)
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------
 
@@ -64,6 +267,67 @@ def _act(name):
           params=dict(act_type=attr_str(required=True)))
 def _activation(attrs, x):
     return _act(attrs.act_type)(x)
+
+
+def _lrelu_inputs(attrs):
+    if attrs is not None and attrs.get("act_type", "leaky") == "prelu":
+        return ["data", "gamma"]
+    return ["data"]
+
+
+@register("LeakyReLU", inputs=_lrelu_inputs,
+          params=dict(act_type=attr_str("leaky"), slope=attr_float(0.25),
+                      lower_bound=attr_float(0.125),
+                      upper_bound=attr_float(0.334)),
+          needs_rng=True, mode_dependent=True)
+def _leaky_relu(attrs, gen, x, gamma=None):
+    """leaky, elu, prelu (a learnt slope per channel), rrelu (a uniform
+    slope per element in training, the mean slope otherwise) and gelu."""
+    t = attrs.act_type
+    if t == "leaky":
+        return torch.where(x >= 0, x, attrs.slope * x)
+    if t == "elu":
+        return torch.where(x >= 0, x, attrs.slope * torch.expm1(x))
+    if t == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (x.dim() - 2)) \
+            if x.dim() > 1 else gamma
+        return torch.where(x >= 0, x, g * x)
+    if t == "rrelu":
+        lo, hi = attrs.lower_bound, attrs.upper_bound
+        if attrs.get("_train", False):
+            slope = torch.rand(x.shape, generator=_generator(gen, x),
+                               device=x.device, dtype=x.dtype) \
+                * (hi - lo) + lo
+        else:
+            slope = (lo + hi) / 2.0
+        return torch.where(x >= 0, x, slope * x)
+    if t == "gelu":
+        return F.gelu(x, approximate="none")
+    raise ValueError("unknown act_type %s" % t)
+
+
+def _temperature(attrs, x):
+    return x / attrs.temperature if attrs.temperature is not None else x
+
+
+@register("softmax", inputs=("data",),
+          params=dict(axis=Param(int, -1), temperature=attr_float(None)))
+def _softmax(attrs, x):
+    return torch.softmax(_temperature(attrs, x), dim=attrs.axis)
+
+
+@register("log_softmax", inputs=("data",),
+          params=dict(axis=Param(int, -1), temperature=attr_float(None)))
+def _log_softmax(attrs, x):
+    return torch.log_softmax(_temperature(attrs, x), dim=attrs.axis)
+
+
+@register("SoftmaxActivation", inputs=("data",),
+          params=dict(mode=attr_str("instance")))
+def _softmax_activation(attrs, x):
+    if attrs.mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +350,108 @@ def _layer_norm(attrs, x, gamma, beta):
     out = (x32 - mean) * inv * gamma.reshape(shape) + beta.reshape(shape)
     return (out.to(x.dtype), mean.squeeze(ax).to(x.dtype),
             var.squeeze(ax).to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm, with the moving statistics written back: inputs data, gamma,
+# beta, moving_mean, moving_var; outputs out, mean, var, new_moving_mean,
+# new_moving_var (the first visible; the last two the new aux values)
+# ---------------------------------------------------------------------------
+
+@register("BatchNorm",
+          inputs=("data", "gamma", "beta", "moving_mean", "moving_var"),
+          params=dict(eps=attr_float(1e-3), momentum=attr_float(0.9),
+                      fix_gamma=attr_bool(True),
+                      use_global_stats=attr_bool(False),
+                      output_mean_var=attr_bool(False), axis=attr_int(1),
+                      cudnn_off=attr_bool(False)),
+          num_outputs=5, num_visible_outputs=1,
+          writeback={3: 3, 4: 4}, aux_inputs=(3, 4), mode_dependent=True,
+          aliases=("BatchNorm_v1",))
+def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
+    """Statistics in f32, the result back in the input dtype.  In
+    training (``_train`` and not ``use_global_stats``) the batch's mean
+    and biased variance normalise and move the statistics
+    (``m*old + (1-m)*batch``); otherwise the moving ones normalise.
+    ``fix_gamma`` takes gamma as ones, so its gradient is 0.  The
+    normalisation is ``F.batch_norm`` (cuDNN on the card) with the
+    channel axis moved to 1, and no running statistics handed to it: it
+    would move them with the unbiased variance."""
+    ax = attrs.axis % x.dim()
+    train = attrs.get("_train", False) and not attrs.use_global_stats
+    xf = x.float().movedim(ax, 1)
+    g = torch.ones_like(gamma) if attrs.fix_gamma else gamma
+    if train:
+        with torch.no_grad():
+            red = [i for i in range(xf.dim()) if i != 1]
+            var, mean = torch.var_mean(xf, dim=red, correction=0)
+        m = attrs.momentum
+        new_mm = mov_mean * m + mean * (1 - m)
+        new_mv = mov_var * m + var * (1 - m)
+        out = F.batch_norm(xf, None, None, g, beta, True, 0.0, attrs.eps)
+    else:
+        mean, var, new_mm, new_mv = mov_mean, mov_var, mov_mean, mov_var
+        out = F.batch_norm(xf, mov_mean, mov_var, g, beta, False, 0.0,
+                           attrs.eps)
+    return out.movedim(1, ax).to(x.dtype), mean, var, new_mm, new_mv
+
+
+@register("InstanceNorm", inputs=("data", "gamma", "beta"),
+          params=dict(eps=attr_float(1e-3)))
+def _instance_norm(attrs, x, gamma, beta):
+    red = tuple(range(2, x.dim()))
+    var, mean = torch.var_mean(x, dim=red, correction=0, keepdim=True)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    return (x - mean) * torch.rsqrt(var + attrs.eps) * \
+        gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("LRN", inputs=("data",),
+          params=dict(alpha=attr_float(1e-4), beta=attr_float(0.75),
+                      knorm=attr_float(2.0), nsize=attr_int(required=True)))
+def _lrn(attrs, x):
+    """Local response norm across channels: ``x * (knorm + alpha/n *
+    sum of x^2 over n neighbouring channels)^-beta``."""
+    n = attrs.nsize
+    half = n // 2
+    sq = F.pad((x * x).movedim(1, -1), (half, half))
+    ssum = sq.unfold(-1, n, 1).sum(-1).movedim(-1, 1)
+    return x * torch.pow(attrs.knorm + attrs.alpha / n * ssum, -attrs.beta)
+
+
+# ---------------------------------------------------------------------------
+# Dropout
+# ---------------------------------------------------------------------------
+
+def _generator(gen, x):
+    """The generator a random op draws from: the one its caller handed
+    it, else the device generator of ``x``'s device."""
+    if gen is not None:
+        return gen
+    from ..rng import next_generator
+    return next_generator(x.device)
+
+
+@register("Dropout", inputs=("data",),
+          params=dict(p=attr_float(0.5), mode=attr_str("training"),
+                      axes=attr_shape(())),
+          needs_rng=True, mode_dependent=True,
+          num_outputs=2, num_visible_outputs=1)
+def _dropout(attrs, gen, x):
+    """In training (or ``mode="always"``) keep each element with
+    probability ``1-p`` and scale the kept ones by ``1/(1-p)``; the mask
+    is drawn once along each axis of ``axes`` and broadcast.  Returns
+    the output and the (scaled) mask."""
+    train = attrs.get("_train", False) or attrs.mode == "always"
+    if not train or attrs.p <= 0:
+        return x, torch.ones_like(x)
+    shape = list(x.shape)
+    for ax in (attrs.axes or ()):
+        shape[ax] = 1
+    keep = 1.0 - attrs.p
+    u = torch.rand(shape, generator=_generator(gen, x), device=x.device)
+    mask = (u < keep).to(x.dtype) / keep
+    return x * mask, mask.expand(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +557,188 @@ def _softmax_output(attrs, data, label):
     * grad_scale / normalizer, ignoring the incoming gradient — the exact
     semantics of softmax_output-inl.h."""
     return SoftmaxOutputFn.apply(data, label, attrs)
+
+
+# ---------------------------------------------------------------------------
+# The other loss heads
+# ---------------------------------------------------------------------------
+
+class _HeadFn(torch.autograd.Function):
+    """A loss head: forward ``fwd(data)``, backward ``grad(data, label)``
+    in place of the incoming gradient (the reference's heads ignore it);
+    the label gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad):
+        ctx.grad = grad
+        ctx.save_for_backward(data, label)
+        return fwd(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        return ctx.grad(data, label).to(data.dtype), None, None, None
+
+
+def _make_regression(name, fwd, grad):
+    """``*RegressionOutput``: ``grad(fwd(d), label) * grad_scale`` over the
+    elements of one example (``prod(shape) / shape[0]``)."""
+
+    @register(name, inputs=("data", "label"),
+              params=dict(grad_scale=attr_float(1.0)))
+    def _op(attrs, data, label):
+        def _grad(d, lab):
+            num = float(np.prod(tuple(d.shape)) / d.shape[0])
+            return grad(fwd(d), lab.reshape(d.shape)) * attrs.grad_scale \
+                / num
+        return _HeadFn.apply(data, label, fwd, _grad)
+    return _op
+
+
+_make_regression("LinearRegressionOutput", lambda d: d, lambda o, l: o - l)
+_make_regression("MAERegressionOutput", lambda d: d,
+                 lambda o, l: torch.sign(o - l))
+_make_regression("LogisticRegressionOutput", torch.sigmoid,
+                 lambda o, l: o - l)
+
+
+class _MakeLossFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, attrs):
+        ctx.attrs = attrs
+        ctx.save_for_backward(data)
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        attrs = ctx.attrs
+        scale = attrs.grad_scale
+        if attrs.normalization == "batch":
+            scale = scale / d.shape[0]
+        elif attrs.normalization == "valid":
+            valid = torch.clamp((d > attrs.valid_thresh).sum(), min=1)
+            scale = scale / valid.to(d.dtype)
+        return torch.ones_like(d) * scale, None
+
+
+@register("MakeLoss", inputs=("data",),
+          params=dict(grad_scale=attr_float(1.0),
+                      valid_thresh=attr_float(0.0),
+                      normalization=attr_str("null")))
+def _make_loss(attrs, data):
+    """Forward identity; backward ``grad_scale``, divided by the batch
+    (``normalization="batch"``) or by the count of elements above
+    ``valid_thresh`` (``"valid"``)."""
+    return _MakeLossFn.apply(data, attrs)
+
+
+@register("SVMOutput", inputs=("data", "label"),
+          params=dict(margin=attr_float(1.0),
+                      regularization_coefficient=attr_float(1.0),
+                      use_linear=attr_bool(False)))
+def _svm_output(attrs, data, label):
+    """Forward identity; backward the linear (``use_linear``) or squared
+    hinge gradient of the one-vs-rest margin (reference svm_output-inl.h)."""
+
+    def grad(d, lab):
+        li = lab.long()
+        oh = _one_hot(li, d.shape[1], -1, d.dtype)
+        correct = d.gather(1, li.clamp(0, d.shape[1] - 1)[:, None])
+        c = attrs.regularization_coefficient
+        if attrs.use_linear:
+            g = ((d - correct + attrs.margin) > 0).to(d.dtype) * c * (1 - oh)
+        else:
+            g = 2 * c * torch.clamp(d - correct + attrs.margin, min=0) \
+                * (1 - oh)
+        return g - oh * g.sum(dim=1, keepdim=True)
+
+    return _HeadFn.apply(data, label, lambda d: d.view_as(d), grad)
+
+
+_NEG_INF = -1e30
+
+
+@register("CTCLoss", inputs=("data", "label"),
+          params=dict(use_data_lengths=attr_bool(False),
+                      use_label_lengths=attr_bool(False),
+                      blank_label=attr_str("first")),
+          aliases=("ctc_loss", "_contrib_CTCLoss", "_contrib_ctc_loss"))
+def _ctc_loss(attrs, data, label):
+    """The loss of each example, from ``data`` (T, N, C) of unnormalised
+    activations and ``label`` (N, L): the reference's alpha recursion in
+    log space over the blank-extended labels, with -1e30 for an
+    impossible state (so an impossible alignment costs about 1e30, not
+    inf).  ``blank_label="first"``: channel 0 is the blank and label 0
+    pads; ``"last"``: channel C-1 is the blank and a negative label pads.
+    A row of padding only is the empty label.  The gradient is autograd's
+    through the recursion."""
+    T, N, C = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    first = attrs.blank_label == "first"
+    blank = 0 if first else C - 1
+    lab = label.long()
+    lab = torch.where(lab == 0 if first else lab < 0, -1, lab)
+    L = lab.shape[1]
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.long, device=data.device)
+    ext[:, 1::2] = torch.where(lab >= 0, lab, blank)
+    lab_len = (lab >= 0).sum(dim=1)
+    ext_len = 2 * lab_len + 1
+    ext_m2 = F.pad(ext[:, :-2], (2, 0), value=-2)
+    allow2 = (ext != blank) & (ext != ext_m2)
+    neg = torch.full((N, S), _NEG_INF, dtype=logp.dtype, device=data.device)
+    emit0 = logp[0].gather(1, ext)
+    alpha = torch.where(torch.arange(S, device=data.device) == 0, emit0, neg)
+    alpha = torch.where((torch.arange(S, device=data.device) == 1)
+                        & (lab_len > 0)[:, None], emit0, alpha)
+    for t in range(1, T):
+        a1 = F.pad(alpha[:, :-1], (1, 0), value=_NEG_INF)
+        a2 = F.pad(alpha[:, :-2], (2, 0), value=_NEG_INF)
+        merged = torch.logaddexp(alpha, a1)
+        merged = torch.where(allow2, torch.logaddexp(merged, a2), merged)
+        alpha = merged + logp[t].gather(1, ext)
+    last = alpha.gather(1, (ext_len - 1)[:, None])[:, 0]
+    last2 = torch.where(
+        lab_len > 0,
+        alpha.gather(1, torch.clamp(ext_len - 2, min=0)[:, None])[:, 0],
+        torch.full_like(last, _NEG_INF))
+    return -torch.logaddexp(last, last2)
+
+
+@register("softmax_cross_entropy", inputs=("data", "label"))
+def _softmax_cross_entropy(attrs, data, label):
+    """The total softmax cross-entropy as a length-1 array."""
+    picked = torch.log_softmax(data, dim=-1).gather(
+        -1, label.long()[:, None])[:, 0]
+    return -picked.sum()[None]
+
+
+class _KLSparseRegFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rho, penalty):
+        ctx.rho, ctx.penalty = rho, penalty
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        rho = ctx.rho
+        rho_hat = torch.clamp(x.mean(dim=0, keepdim=True), 1e-6, 1 - 1e-6)
+        reg = ctx.penalty * (-rho / rho_hat + (1 - rho) / (1 - rho_hat))
+        return g + reg.to(g.dtype), None, None
+
+
+@register("IdentityAttachKLSparseReg", inputs=("data",),
+          params=dict(sparseness_target=attr_float(0.1),
+                      penalty=attr_float(0.001), momentum=attr_float(0.9)))
+def _identity_attach_kl_sparse_reg(attrs, x):
+    """Identity forward; the backward adds ``penalty * (-rho/rho_hat +
+    (1-rho)/(1-rho_hat))``, with ``rho_hat`` the current batch's mean
+    activation (the reference keeps a momentum-smoothed copy only for
+    logging)."""
+    return _KLSparseRegFn.apply(x, attrs.sparseness_target, attrs.penalty)
 
 
 # ---------------------------------------------------------------------------

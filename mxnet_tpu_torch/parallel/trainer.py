@@ -11,8 +11,13 @@ divides; it is never a training signal.
 
 Where the JAX package compiles the step into one XLA program, PyTorch runs
 it eagerly: the attention layers launch the flash kernels
-(:mod:`mxnet_tpu_torch.ops.kernels`), the rest are PyTorch ops.  The
-update is applied in place (see :meth:`ShardedTrainer.step`).
+(:mod:`mxnet_tpu_torch.ops.kernels`), the rest are PyTorch ops (cuDNN's
+convolutions, pooling and batch norm for a conv net).  The update is
+applied in place (see :meth:`ShardedTrainer.step`).  BatchNorm's moving
+statistics are the ``aux`` state: each step returns their new values.
+The graph's random nodes (Dropout) draw from a ``torch.Generator`` the
+trainer owns on its device, seeded from ``mx.random.seed`` and the seed
+of :meth:`~ShardedTrainer.init_state`.
 
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
 (ROADMAP): ``param_dtype`` other than float32, ZeRO /
@@ -29,6 +34,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import rng as _rng
 from ..base import MXNetError, NotPortedYet, armed_env, dtype_name
 from ..executor import _REMAT_KNOBS, GraphProgram, _resolve_structs
 from ..resilience import chaos as _chaos
@@ -123,6 +129,7 @@ class ShardedTrainer:
         self._bad_streak = 0
         self._skipped_steps = 0
         self._step_count = 0
+        self._generator = None
 
     # -- state ------------------------------------------------------------
     def init_state(self, shapes: Dict[str, tuple], initializer=None,
@@ -132,7 +139,10 @@ class ShardedTrainer:
         the CPU from a ``torch.Generator`` seeded with ``seed`` (Xavier
         gaussian, fan-in, magnitude 2 by default, as the reference), so a
         seed gives the same state on every device; a name no initializer
-        route handles stays zero, as in the reference."""
+        route handles stays zero, as in the reference.  The moving means
+        start at 0 and the other aux states at 1, as in the JAX trainer.
+        The generator of the graph's random nodes restarts from
+        ``mx.random.seed`` and ``seed``."""
         from ..initializer import InitDesc, Xavier
         _, known, _ = _resolve_structs(self.symbol, shapes)
         initializer = initializer or Xavier(rnd_type="gaussian",
@@ -152,6 +162,8 @@ class ShardedTrainer:
         aux = tuple((torch.zeros if "mean" in n else torch.ones)(
             tuple(known[n].shape), dtype=torch.float32, device=self.device)
             for n in self.prog.aux_names)
+        if self.prog.num_rng:
+            self._generator = _rng.new_generator(self.device, seed)
         return tuple(params), mom, aux
 
     # -- the step ---------------------------------------------------------
@@ -169,8 +181,11 @@ class ShardedTrainer:
             args[i] = p
         for n, v in inputs.items():
             args[self.input_idx[n]] = v
+        if self.prog.num_rng and self._generator is None:
+            self._generator = _rng.new_generator(self.device)
         with torch.enable_grad():
-            outs, new_aux = self.prog.evaluate(args, aux, train=True)
+            outs, new_aux = self.prog.evaluate(args, aux, train=True,
+                                               generator=self._generator)
             loss = sum(o.float().sum() for o in outs)
             grads = torch.autograd.grad(loss * scale, leaves,
                                         allow_unused=True)

@@ -4,7 +4,9 @@
 The JAX package draws from a root threefry key advanced by a counter
 (``next_key``).  Here each device has one ``torch.Generator`` and every
 random op draws from its device's generator (:func:`next_generator`).
-:func:`seed` reseeds them all.
+:func:`seed` reseeds them all.  A graph's executor or trainer owns a
+generator of its own (:func:`new_generator`), seeded from the current
+seed when it is made.
 
 Stated difference: the draws are torch's streams (Philox on the card,
 the CPU generator's on the host), not JAX's threefry.  The same seed and
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import threading
 
-__all__ = ["seed", "next_generator"]
+__all__ = ["seed", "next_generator", "new_generator"]
 
 _state = threading.local()
 
@@ -49,4 +51,17 @@ def next_generator(device):
         gen = torch.Generator(device=device)
         gen.manual_seed(s.seed)
         s.gens[device] = gen
+    return gen
+
+
+def new_generator(device, offset: int = 0):
+    """A new generator for ``device``, seeded from the calling thread's
+    current seed and ``offset`` (a trainer's own seed), for an owner that
+    draws a graph's random nodes."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=device)
+    gen.manual_seed((_get().seed * 1000003 + int(offset)) % (1 << 63))
     return gen

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 from typing import Any, Dict, List, Optional, Sequence
 
-from ..base import AttrScope, MXNetError, NotPortedYet, _Null, dtype_name
+from ..base import AttrScope, MXNetError, _Null, dtype_name
 from ..name import NameManager
 from ..ops.registry import AttrDict, Operator, get_op
 
@@ -163,7 +163,6 @@ class Symbol:
         v = self._entries[0].node.attrs.get(key)
         return str(v) if v is not None else None
 
-    # -- composition: the arithmetic the ported graphs use ---------------
     def attr_dict(self) -> Dict[str, Dict[str, str]]:
         """``{node name: {attr: value}}`` for every node that has attrs
         (the ``__lr_mult__`` / ``__wd_mult__`` / ``__init__`` the
@@ -171,20 +170,94 @@ class Symbol:
         return {node.name: {k: str(v) for k, v in node.attrs.items()}
                 for node in _topo_order(self._entries) if node.attrs}
 
-    def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("Symbol + %r: only Symbol + Symbol "
-                             "(broadcast_add) is ported" % (other,))
-        return create("broadcast_add", [self, other], {})
+    # -- composition: arithmetic -----------------------------------------
+    def _binary(self, other, op_nd, op_sc, rev=False):
+        """``self op other``: a ``broadcast_*`` node with a Symbol, else
+        the ``_*_scalar`` op (its ``_r*_scalar`` form when reversed)."""
+        if isinstance(other, Symbol):
+            a, b = (other, self) if rev else (self, other)
+            return create(op_nd, [a, b], {})
+        name = _REVERSED_SCALAR.get(op_sc, op_sc) if rev else op_sc
+        return create(name, [self], dict(scalar=float(other)))
 
-    def __radd__(self, other):
-        if not isinstance(other, Symbol):
-            raise MXNetError("%r + Symbol: only Symbol + Symbol "
-                             "(broadcast_add) is ported" % (other,))
-        return create("broadcast_add", [other, self], {})
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    def __radd__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar", rev=True)
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar", rev=True)
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    def __rmul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar", rev=True)
+
+    def __truediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar", rev=True)
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
+
+    def __neg__(self):
+        return create("negative", [self], {})
+
+    def __eq__(self, o):
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal",
+                            "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal",
+                            "_lesser_equal_scalar")
 
     def __hash__(self):
         return id(self)
+
+    # -- method forms of the ops, as on NDArray --------------------------
+    def reshape(self, *shape, **kw):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        return create("Reshape", [self], dict(shape=shape, **kw))
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return create("transpose", [self], dict(axes=axes))
+
+    def flatten(self):
+        return create("Flatten", [self], {})
+
+    def sum(self, axis=None, keepdims=False):
+        return create("sum", [self], dict(axis=axis, keepdims=keepdims))
+
+    def mean(self, axis=None, keepdims=False):
+        return create("mean", [self], dict(axis=axis, keepdims=keepdims))
+
+    def astype(self, dtype):
+        return create("Cast", [self], dict(dtype=dtype_name(dtype)))
 
     # -- inference -------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
@@ -201,6 +274,41 @@ class Symbol:
             kwargs = dict(zip(self.list_arguments(), args))
             kwargs = {k: v for k, v in kwargs.items() if v is not None}
         return infer_shapes(self, kwargs, partial=partial)
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes, from the
+        dtypes given by position (argument order) or by name."""
+        from ..executor import infer_types
+        if args:
+            kwargs = dict(zip(self.list_arguments(), args))
+        return infer_types(self, kwargs)
+
+    # -- binding ---------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **kwargs):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` with zeroed
+        arrays on ``ctx`` of the shapes inferred from ``kwargs``."""
+        from ..executor import Executor
+        return Executor.simple_bind(self, ctx, grad_req=grad_req,
+                                    type_dict=type_dict,
+                                    shared_exec=shared_exec,
+                                    group2ctx=group2ctx, **kwargs)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
+        arrays (a list in argument order or a dict by name)."""
+        from ..executor import Executor
+        return Executor(self, ctx, args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states,
+                        shared_exec=shared_exec, group2ctx=group2ctx)
+
+    def eval(self, ctx=None, **kwargs):
+        """The outputs of a predict-mode forward over the arrays given by
+        name (on ``ctx``, default the current context)."""
+        from ..context import current_context
+        return self.bind(ctx or current_context(), kwargs).forward()
 
     # -- serialization ---------------------------------------------------
     def tojson(self) -> str:
@@ -227,6 +335,13 @@ class Symbol:
     def save(self, fname: str):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+
+# the reversed form of a scalar op: ``2 - x`` is ``_rminus_scalar``
+_REVERSED_SCALAR = {"_minus_scalar": "_rminus_scalar",
+                    "_div_scalar": "_rdiv_scalar",
+                    "_mod_scalar": "_rmod_scalar",
+                    "_power_scalar": "_rpower_scalar"}
 
 
 def load_json(json_str: str) -> Symbol:
@@ -288,10 +403,6 @@ def create(op_name: str, input_syms: Sequence[Symbol],
     kwargs by name, and a missing input becomes a variable named
     ``<node name>_<input name>``."""
     op = get_op(op_name)
-    if op.needs_rng:
-        raise NotPortedYet("%s: random ops inside a Symbol graph are not "
-                           "ported yet (ROADMAP A3); use mx.nd.random"
-                           % op_name)
     kwargs = {k: v for k, v in kwargs.items()
               if v is not None and v is not _Null}
     attr = kwargs.pop("attr", None)

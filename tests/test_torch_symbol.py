@@ -102,8 +102,13 @@ def test_names_scopes_and_grouping():
     assert ln.list_outputs() == ["ln_output"]
     # the internals expose every visible output, variables included
     assert "fullyconnected0_weight" in c.get_internals().list_outputs()
-    with pytest.raises(MXNetError):
-        a + 1.0                             # scalar arithmetic: not ported
+    # scalar arithmetic, as in the JAX package: a _plus_scalar node, and
+    # no reflected power (a scalar ** Symbol is a TypeError in both)
+    plus = a + 1.0
+    assert plus._entries[0].node.op.name == "_plus_scalar"
+    assert float(plus._entries[0].node.attrs["scalar"]) == 1.0
+    with pytest.raises(TypeError):
+        2.0 ** a
 
 
 def test_graph_program_evaluates_the_lm():

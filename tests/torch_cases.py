@@ -4,13 +4,20 @@ never jax, so the card's host can use it).
 
 * ``OP_CASES``: for every op name of the JAX package's general op modules
   (``mxnet_tpu/ops/{elemwise,broadcast_reduce,matrix,init_ops,
-  random_ops}.py``), aliases included, the inputs (numpy, from a seed
-  derived from the case's name), the attrs, the inputs to differentiate
-  and the tolerance.  A key ``name:variant`` is one more case of ``name``;
-  the variants of ``_edge_cases`` hold the port to the reference at ids
-  out of range, saturating casts, NaN, integer remainder by zero and
-  the float64 of an integer array with a scalar.
-  :func:`run_port` runs a case through ``mx.nd`` on a device.
+  random_ops}.py``) and of its conv-net ops and loss heads
+  (``mxnet_tpu/ops/nn.py``, module ``"nn"``), aliases included, the
+  inputs (numpy, from a seed derived from the case's name), the attrs,
+  the inputs to differentiate and the tolerance.  A key ``name:variant``
+  is one more case of ``name``; the variants of ``_edge_cases`` hold the
+  port to the reference at ids out of range, saturating casts, NaN,
+  integer remainder by zero and the float64 of an integer array with a
+  scalar, and those of ``_nn_cases`` at the paddings, divisors, output
+  sizes and blank conventions where the obvious PyTorch call differs.
+  A ``train`` case runs the op as a training graph does (``_train``
+  set, a seeded generator for a random op), and an ``all_outputs`` case
+  compares the invisible outputs too.  :func:`run_port` runs a case
+  through ``mx.nd`` on a device (a ``train`` or ``all_outputs`` case
+  through the registered op itself).
 * ``RTC_*``: the user kernels of ``mxnet_tpu_torch/csrc/rtc_kernels.cu``
   (compiled by ``rtc.CudaModule``) with their signatures, launch
   geometry and plain PyTorch versions.
@@ -42,9 +49,11 @@ def _rs(key):
     return np.random.RandomState(zlib.crc32(key.encode()) % (2 ** 31))
 
 
-def _case(inputs, attrs=None, grad=(), tol=EXACT, random=False):
+def _case(inputs, attrs=None, grad=(), tol=EXACT, random=False,
+          train=False, all_outputs=False):
     return dict(inputs=inputs, attrs=dict(attrs or {}), grad=tuple(grad),
-                tol=tol, random=random)
+                tol=tol, random=random, train=train,
+                all_outputs=all_outputs)
 
 
 def _f32(a):
@@ -529,10 +538,243 @@ def _random_cases():
     return c
 
 
+# the tolerance of the nn cases whose results sum over windows, channels
+# or a batch (convolutions, pooling, normalisations, softmax, CTC): f32
+# reductions in another order, and cuDNN's algorithms on the card
+NN = 1e-5
+
+
+def _relu_ties(rs, *shape):
+    """Non-negative values with all-zero windows: max pooling's ties."""
+    a = np.maximum(rs.randn(*shape), 0)
+    a[..., 1:4, 1:4] = 0
+    return _f32(a)
+
+
+def _bn_inputs(rs, c, *shape):
+    return [_f32(rs.randn(*shape) * 1.5 + 0.7), _pos(rs, c) + 0.5,
+            _any(rs, c), _any(rs, c) * 0.1, _pos(rs, c)]
+
+
+def _nn_cases():
+    """The conv-net ops and loss heads of ``mxnet_tpu/ops/nn.py``; the
+    variants hold the port to the reference where the obvious PyTorch
+    call differs (padding, divisors, output sizes, blanks), and
+    ``train`` cases run the mode-dependent ops as a training graph does
+    (``all_outputs`` compares the invisible outputs too: BatchNorm's
+    batch statistics and new moving statistics)."""
+    c = {}
+    conv = dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=4)
+    for n in ("Convolution", "Convolution_v1"):
+        c[n] = lambda rs: _case([_any(rs, 2, 3, 7, 7), _any(rs, 4, 3, 3, 3),
+                                 _any(rs, 4)], conv, grad=[0, 1, 2], tol=NN)
+    c["Convolution:group-dilate"] = lambda rs: _case(
+        [_any(rs, 2, 4, 9, 9), _any(rs, 6, 2, 3, 3)],
+        dict(kernel=(3, 3), dilate=(2, 2), num_filter=6, num_group=2,
+             no_bias=True), grad=[0, 1], tol=NN)
+    c["Convolution:1d"] = lambda rs: _case(
+        [_any(rs, 2, 3, 10), _any(rs, 4, 3, 3)],
+        dict(kernel=(3,), stride=(2,), pad=(1,), num_filter=4,
+             no_bias=True), grad=[0, 1], tol=NN)
+    c["Convolution:3d"] = lambda rs: _case(
+        [_any(rs, 1, 2, 5, 5, 5), _any(rs, 3, 2, 3, 3, 3), _any(rs, 3)],
+        dict(kernel=(3, 3, 3), pad=(1, 1, 1), num_filter=3),
+        grad=[0, 1, 2], tol=NN)
+    c["Convolution:nhwc"] = lambda rs: _case(
+        [_any(rs, 2, 7, 7, 3), _any(rs, 4, 3, 3, 3), _any(rs, 4)],
+        dict(conv, layout="NHWC"), grad=[0, 1, 2], tol=NN)
+    deconv = dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=4)
+    c["Deconvolution"] = lambda rs: _case(
+        [_any(rs, 2, 3, 5, 5), _any(rs, 3, 4, 3, 3), _any(rs, 4)], deconv,
+        grad=[0, 1, 2], tol=NN)
+    c["Deconvolution:adj"] = lambda rs: _case(
+        [_any(rs, 2, 3, 5, 5), _any(rs, 3, 4, 3, 3)],
+        dict(deconv, adj=(3, 3), no_bias=True), grad=[0, 1], tol=NN)
+    c["Deconvolution:dilate"] = lambda rs: _case(
+        [_any(rs, 2, 3, 5, 5), _any(rs, 3, 4, 3, 3)],
+        dict(deconv, dilate=(2, 2), no_bias=True), grad=[0, 1], tol=NN)
+    c["Deconvolution:group"] = lambda rs: _case(
+        [_any(rs, 2, 4, 5, 5), _any(rs, 4, 3, 3, 3), _any(rs, 6)],
+        dict(deconv, num_filter=6, num_group=2, target_shape=(9, 9)),
+        grad=[0, 1, 2], tol=NN)
+    c["Deconvolution:1d"] = lambda rs: _case(
+        [_any(rs, 2, 3, 6), _any(rs, 3, 2, 4)],
+        dict(kernel=(4,), stride=(3,), pad=(2,), adj=(1,), num_filter=2,
+             no_bias=True), grad=[0, 1], tol=NN)
+    c["Pooling"] = lambda rs: _case(
+        [_any(rs, 2, 3, 7, 7)],
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1)), grad=[0])
+    c["Pooling_v1"] = lambda rs: _case(
+        [_any(rs, 2, 3, 6, 6)],
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="avg"), grad=[0],
+        tol=NN)
+    c["Pooling:avg-full"] = lambda rs: _case(
+        [_any(rs, 2, 2, 5, 5)],
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="avg",
+             pooling_convention="full"), grad=[0], tol=NN)
+    c["Pooling:max-full"] = lambda rs: _case(
+        [_any(rs, 1, 2, 6, 6) - 5],
+        dict(kernel=(3, 3), stride=(2, 2), pooling_convention="full"),
+        grad=[0])
+    c["Pooling:max-pad-past-half"] = lambda rs: _case(
+        [_any(rs, 1, 2, 5, 5)], dict(kernel=(3, 3), pad=(2, 2)), grad=[0])
+    c["Pooling:avg-pad-past-half"] = lambda rs: _case(
+        [_any(rs, 1, 2, 5, 5)],
+        dict(kernel=(3, 3), pad=(2, 2), pool_type="avg"), grad=[0], tol=NN)
+    c["Pooling:max-int"] = lambda rs: _case(
+        [np.asarray(rs.randint(-50, 50, (1, 2, 5, 5)), np.int64)],
+        dict(kernel=(2, 2), stride=(2, 2), pad=(1, 1)))
+    c["Pooling:sum"] = lambda rs: _case(
+        [_any(rs, 2, 2, 6, 6)],
+        dict(kernel=(3, 3), stride=(1, 1), pool_type="sum"), grad=[0],
+        tol=NN)
+    c["Pooling:sum-int"] = lambda rs: _case(
+        [np.asarray(rs.randint(-50, 50, (1, 2, 4, 4)), np.int64)],
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="sum"))
+    c["Pooling:global-avg"] = lambda rs: _case(
+        [_any(rs, 2, 3, 7, 7)],
+        dict(kernel=(7, 7), global_pool=True, pool_type="avg"), grad=[0],
+        tol=NN)
+    c["Pooling:global-max"] = lambda rs: _case(
+        [_any(rs, 2, 3, 5, 6)], dict(global_pool=True), grad=[0])
+    c["Pooling:max-ties"] = lambda rs: _case(
+        [_relu_ties(rs, 1, 2, 6, 6)],
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1)), grad=[0])
+    c["Pooling:nhwc"] = lambda rs: _case(
+        [_any(rs, 2, 7, 7, 3)],
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), layout="NHWC"),
+        grad=[0])
+    c["Pooling:nhwc-global-avg"] = lambda rs: _case(
+        [_any(rs, 2, 4, 4, 3)],
+        dict(kernel=(7, 7), global_pool=True, pool_type="avg",
+             layout="NHWC"), grad=[0], tol=NN)
+    c["Pooling:1d"] = lambda rs: _case(
+        [_any(rs, 2, 3, 9)],
+        dict(kernel=(3,), stride=(2,), pad=(1,), pool_type="avg"),
+        grad=[0], tol=NN)
+    c["Pooling:3d"] = lambda rs: _case(
+        [_any(rs, 1, 2, 5, 5, 5)],
+        dict(kernel=(2, 2, 2), stride=(2, 2, 2), pad=(1, 1, 1)), grad=[0])
+    c["UpSampling"] = lambda rs: _case([_any(rs, 2, 3, 3, 4)],
+                                       dict(scale=2), grad=[0])
+    c["UpSampling:bilinear"] = lambda rs: _case(
+        [_any(rs, 1, 2, 3, 3)],
+        dict(scale=3, sample_type="bilinear", num_filter=2), grad=[0])
+    c["UpSampling:sum"] = lambda rs: _case(
+        [_any(rs, 1, 2, 3, 3), _any(rs, 1, 2, 3, 3)],
+        dict(scale=2, multi_input_mode="sum"), grad=[0, 1])
+    c["UpSampling:concat"] = lambda rs: _case(
+        [_any(rs, 1, 2, 3, 3), _any(rs, 1, 3, 3, 3)], dict(scale=2),
+        grad=[0, 1])
+    c["LeakyReLU"] = lambda rs: _case([_farz(rs, 3, 4)], dict(slope=0.1),
+                                      grad=[0], tol=ARITH)
+    c["LeakyReLU:elu"] = lambda rs: _case(
+        [_farz(rs, 3, 4)], dict(act_type="elu", slope=0.7), grad=[0],
+        tol=TRANSC)
+    c["LeakyReLU:prelu"] = lambda rs: _case(
+        [_farz(rs, 2, 3, 4), _pos(rs, 3)], dict(act_type="prelu"),
+        grad=[0, 1], tol=ARITH)
+    c["LeakyReLU:rrelu"] = lambda rs: _case(
+        [_farz(rs, 3, 4)], dict(act_type="rrelu"), grad=[0], tol=ARITH)
+    c["LeakyReLU:rrelu-train"] = lambda rs: _case(
+        [_farz(rs, 3, 4)], dict(act_type="rrelu"), train=True, random=True)
+    c["LeakyReLU:gelu"] = lambda rs: _case(
+        [_any(rs, 3, 4)], dict(act_type="gelu"), grad=[0], tol=TRANSC)
+    c["softmax"] = lambda rs: _case([_any(rs, 3, 5)], grad=[0], tol=TRANSC)
+    c["softmax:axis-temperature"] = lambda rs: _case(
+        [_any(rs, 2, 3, 4)], dict(axis=1, temperature=2.5), grad=[0],
+        tol=TRANSC)
+    c["log_softmax"] = lambda rs: _case([_any(rs, 3, 5)], grad=[0],
+                                        tol=TRANSC)
+    c["log_softmax:axis-temperature"] = lambda rs: _case(
+        [_any(rs, 2, 3, 4)], dict(axis=0, temperature=0.5), grad=[0],
+        tol=TRANSC)
+    c["SoftmaxActivation"] = lambda rs: _case(
+        [_any(rs, 2, 3, 2, 2)], grad=[0], tol=TRANSC)
+    c["SoftmaxActivation:channel"] = lambda rs: _case(
+        [_any(rs, 2, 3, 2, 2)], dict(mode="channel"), grad=[0], tol=TRANSC)
+    bn = dict(fix_gamma=False, eps=2e-5)
+    c["BatchNorm"] = lambda rs: _case(_bn_inputs(rs, 3, 4, 3, 5, 5), bn,
+                                      grad=[0, 1, 2], tol=NN)
+    c["BatchNorm_v1"] = lambda rs: _case(_bn_inputs(rs, 4, 6, 4), {},
+                                         grad=[0, 2], tol=NN)
+    c["BatchNorm:train"] = lambda rs: _case(
+        _bn_inputs(rs, 3, 4, 3, 5, 5), dict(bn, momentum=0.8),
+        grad=[0, 1, 2], tol=NN, train=True, all_outputs=True)
+    c["BatchNorm:train-fix-gamma"] = lambda rs: _case(
+        _bn_inputs(rs, 3, 4, 3, 5, 5), {}, grad=[0, 1, 2], tol=NN,
+        train=True, all_outputs=True)
+    c["BatchNorm:train-nhwc"] = lambda rs: _case(
+        _bn_inputs(rs, 3, 4, 5, 5, 3), dict(bn, axis=3), grad=[0, 1, 2],
+        tol=NN, train=True, all_outputs=True)
+    c["BatchNorm:train-2d"] = lambda rs: _case(
+        _bn_inputs(rs, 5, 8, 5), bn, grad=[0, 1, 2], tol=NN, train=True,
+        all_outputs=True)
+    c["BatchNorm:global-stats"] = lambda rs: _case(
+        _bn_inputs(rs, 3, 4, 3, 5, 5), dict(bn, use_global_stats=True),
+        grad=[0, 1, 2], tol=NN, train=True, all_outputs=True)
+    c["InstanceNorm"] = lambda rs: _case(
+        [_any(rs, 2, 3, 4, 5) + 0.5, _pos(rs, 3), _any(rs, 3)], {},
+        grad=[0, 1, 2], tol=NN)
+    c["LRN"] = lambda rs: _case([_any(rs, 2, 6, 3, 3)],
+                                dict(nsize=3, alpha=0.1, knorm=1.5),
+                                grad=[0], tol=NN)
+    c["Dropout"] = lambda rs: _case([_any(rs, 4, 5)], dict(p=0.3),
+                                    grad=[0])
+    c["Dropout:train-p0"] = lambda rs: _case(
+        [_any(rs, 4, 5)], dict(p=0.0), grad=[0], train=True,
+        all_outputs=True)
+    c["Dropout:train"] = lambda rs: _case(
+        [_any(rs, 4, 5)], dict(p=0.3, axes=(1,)), train=True,
+        all_outputs=True, random=True)
+    c["Dropout:always"] = lambda rs: _case(
+        [_any(rs, 4, 5)], dict(p=0.5, mode="always"), random=True)
+    for n in ("LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput"):
+        c[n] = lambda rs: _case([_any(rs, 4, 3), _any(rs, 4, 3)],
+                                dict(grad_scale=1.5), grad=[0], tol=TRANSC)
+    c["LinearRegressionOutput:flat-label"] = lambda rs: _case(
+        [_any(rs, 4, 1), _any(rs, 4)], {}, grad=[0], tol=ARITH)
+    c["MakeLoss"] = lambda rs: _case([_any(rs, 3, 4)],
+                                     dict(grad_scale=2.0), grad=[0])
+    c["MakeLoss:batch"] = lambda rs: _case(
+        [_any(rs, 3, 4)], dict(normalization="batch"), grad=[0],
+        tol=ARITH)
+    c["MakeLoss:valid"] = lambda rs: _case(
+        [_any(rs, 3, 4)], dict(normalization="valid", valid_thresh=0.2),
+        grad=[0], tol=ARITH)
+    c["SVMOutput"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([0, 3, 1, 4])], dict(margin=0.5), grad=[0],
+        tol=ARITH)
+    c["SVMOutput:linear"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([2, 0, 4, 4])],
+        dict(use_linear=True, regularization_coefficient=0.5), grad=[0],
+        tol=ARITH)
+    first = [_f32([[1, 2, 2], [3, 0, 0], [0, 0, 0]])]
+    for n in ("CTCLoss", "ctc_loss"):
+        c[n] = lambda rs: _case([_any(rs, 6, 3, 4)] + first, grad=[0],
+                                tol=NN)
+    c["_contrib_CTCLoss"] = lambda rs: _case(
+        [_any(rs, 6, 3, 5), _f32([[0, 1, 1], [3, -1, -1], [-1, -1, -1]])],
+        dict(blank_label="last"), grad=[0], tol=NN)
+    c["_contrib_ctc_loss"] = lambda rs: _case(
+        [_any(rs, 5, 2, 4), _f32([[2, 0], [1, 3]])], grad=[0], tol=NN)
+    # three repeats need five frames: an impossible alignment in three
+    c["CTCLoss:impossible"] = lambda rs: _case(
+        [_any(rs, 3, 2, 3), _f32([[1, 1, 1], [2, 0, 0]])], tol=NN)
+    c["softmax_cross_entropy"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([0, 4, 2, 2])], grad=[0], tol=TRANSC)
+    c["IdentityAttachKLSparseReg"] = lambda rs: _case(
+        [_f32(rs.rand(4, 3) * 0.8 + 0.1)],
+        dict(sparseness_target=0.2, penalty=0.01), grad=[0], tol=ARITH)
+    return c
+
+
 # module of the JAX package -> {case key: builder}
 OP_MODULES = {"elemwise": _elemwise_cases(), "init_ops": _init_cases(),
               "broadcast_reduce": _broadcast_reduce_cases(),
-              "matrix": _matrix_cases(), "random_ops": _random_cases()}
+              "matrix": _matrix_cases(), "random_ops": _random_cases(),
+              "nn": _nn_cases()}
 for _key, _build in _edge_cases().items():
     OP_MODULES[_EDGE_MODULE.get(_key.split(":")[0], "elemwise")][_key] = \
         _build
@@ -548,11 +790,30 @@ def op_case(key):
 def run_port(key, device, seed=0):
     """Case ``key`` through ``mx.nd`` on ``device`` (a torch device or
     string): the outputs as numpy arrays.  A random op draws after
-    ``mx.random.seed(seed)``."""
+    ``mx.random.seed(seed)``.  A ``train`` or ``all_outputs`` case runs
+    the registered op on tensors, with ``_train`` as the case says and a
+    generator seeded with ``seed``, and returns every output where the
+    case says so."""
     import torch
     import mxnet_tpu_torch as mx
     name, case = op_case(key)
     device = torch.device(device)
+    if case["train"] or case["all_outputs"]:
+        from mxnet_tpu_torch.ops.registry import get_op
+        op = get_op(name)
+        attrs = op.parse_attrs(dict(case["attrs"]))
+        if op.mode_dependent:
+            attrs["_train"] = case["train"]
+        ins = [torch.from_numpy(np.array(a)).to(device)
+               for a in case["inputs"]]
+        if op.needs_rng:
+            ins = [torch.Generator(device=device).manual_seed(seed)] + ins
+        with torch.no_grad():
+            out = op.fn(attrs, *ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        if not case["all_outputs"]:
+            outs = outs[:op.num_visible_outputs(attrs)]
+        return [o.cpu().numpy() for o in outs]
     ctx = mx.cpu() if device.type == "cpu" else mx.gpu(device.index or 0)
     nds = [mx.nd.array(a, ctx=ctx) for a in case["inputs"]]
     attrs = dict(case["attrs"])

@@ -4,7 +4,9 @@ package and the port on the CPU: the port's forward through ``mx.nd``
 the case's tolerance and the same dtype; for the inputs the case
 differentiates, the port's op under torch autograd against the JAX vjp
 of one numpy cotangent on the first output.  A random op is compared by
-shape and dtype (its draws are torch's, not JAX's).
+shape and dtype (its draws are torch's, not JAX's).  A ``train`` case
+runs both ops with ``_train`` set (the mode of a training graph), and an
+``all_outputs`` case compares the invisible outputs too.
 """
 import jax
 import jax.numpy as jnp
@@ -30,15 +32,24 @@ def case_keys(module):
     return sorted(OP_MODULES[module])
 
 
+def _attrs(op, case):
+    attrs = op.parse_attrs(dict(case["attrs"]))
+    if case["train"]:
+        attrs["_train"] = True
+    return attrs
+
+
 def _jax_outputs(name, case):
     op = jax_get_op(name)
-    attrs = op.parse_attrs(dict(case["attrs"]))
+    attrs = _attrs(op, case)
     args = [jnp.asarray(a) for a in case["inputs"]]
     if op.needs_rng:
         args = [jax.random.PRNGKey(0)] + args
     out = op.fn(attrs, *args)
     outs = out if isinstance(out, tuple) else (out,)
-    return [np.asarray(o) for o in outs[:op.num_visible_outputs(attrs)]]
+    if not case["all_outputs"]:
+        outs = outs[:op.num_visible_outputs(attrs)]
+    return [np.asarray(o) for o in outs]
 
 
 def check_op(key):
@@ -58,16 +69,17 @@ def check_op(key):
 
 def _check_grad(name, case):
     jop, top = jax_get_op(name), get_op(name)
-    attrs = dict(case["attrs"])
-    jattrs, tattrs = jop.parse_attrs(attrs), top.parse_attrs(attrs)
+    jattrs, tattrs = _attrs(jop, case), _attrs(top, case)
     inputs = [jnp.asarray(a) for a in case["inputs"]]
     diff = case["grad"]
+    jkey = [jax.random.PRNGKey(0)] if jop.needs_rng else []
+    tgen = [torch.Generator().manual_seed(0)] if top.needs_rng else []
 
     def first(*xs):
         full = list(inputs)
         for i, x in zip(diff, xs):
             full[i] = x
-        out = jop.fn(jattrs, *full)
+        out = jop.fn(jattrs, *jkey, *full)
         return out[0] if isinstance(out, tuple) else out
 
     y, vjp = jax.vjp(first, *[inputs[i] for i in diff])
@@ -77,7 +89,7 @@ def _check_grad(name, case):
     leaves = [torch.from_numpy(np.array(a)) for a in case["inputs"]]
     for i in diff:
         leaves[i].requires_grad_()
-    out = top.fn(tattrs, *leaves)
+    out = top.fn(tattrs, *tgen, *leaves)
     out = out[0] if isinstance(out, tuple) else out
     out.backward(torch.from_numpy(g).to(out.dtype))
     for i, jg in zip(diff, jgrads):
