@@ -17,9 +17,11 @@ parameters — ``mx.nd`` arrays from ``mx.random``, a user's CUDA kernel
 compiled by ``mx.rtc.CudaModule`` and launched over them,
 ``nd.save`` / ``nd.load`` — and training ResNet-50 at bench.py's
 configuration through ``ShardedTrainer`` (after small ResNets and a
-conv net's ``Module.fit`` on the card against the CPU) — and holds every
-hand-written kernel of those paths against its plain PyTorch version on
-the card.
+conv net's ``Module.fit`` on the card against the CPU) — and bench.py's
+own bf16 configuration, the LM (on the flash kernels in bf16) and
+ResNet-50 through ``sgd_step_fn`` and ``build_step_auto_layout`` — and
+holds every hand-written kernel of those paths against its plain PyTorch
+version on the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
@@ -132,7 +134,32 @@ Phases, in order:
     profiled step, peak memory, the share of the f32 peak from the
     graph's FLOP count, and the cross-entropy falling on the repeated
     batch.  The path runs on cuDNN and cuBLAS: no hand-written kernel
-    launches there.
+    launches there;
+20. the flash kernels in bf16 (B9: the three kernels' bf16 entry points)
+    against their plain versions at the LM's training shape (B8 T1024
+    H12 D64, causal; timed, with bounds at the bf16 tensor rate and the
+    bf16 ``scaled_dot_product_attention`` forward and forward+backward
+    as yardsticks) and at ragged shapes (T 1000 D 32, T 777 D 128, a
+    non-causal T 520), within one bf16 step of each element plus the f32
+    kernels' tolerances, two launches bit-equal;
+21. bench.py's LM configuration in bf16 (``param_dtype="bfloat16"``):
+    one step of the L2, hidden 64, T 64 LM on the flash path on the card
+    against the CPU, each tensor within 3x the CPU's own bf16 rounding
+    gap (its bf16 step against its f32 step from the same weights); then
+    the full-width LM at batch 8 through ``sgd_step_fn`` (one step under
+    ``set_sync_debug_mode("error")``) and ``build_step_auto_layout`` in
+    bench.py's loop shape (3 warm-up, 20 timed steps, the loss read once
+    at the end): tokens/s, per-step spread from CUDA events, device idle
+    share and time by group from 3 profiled steps, peak memory, 12
+    launches of each B9 kernel per step and none of the f32 ones, the
+    cross-entropy falling on the repeated batch;
+22. bench.py's ResNet-50 configuration in bf16 (``dtype="bfloat16"``,
+    ``param_dtype="bfloat16"``, NCHW): one step of the cifar ResNet-20 on
+    the card against the CPU (as in 21), then ResNet-50 through
+    ``build_step_auto_layout`` (its 53 convolution weights and their
+    momentum channels-last) and ``sgd_step_fn`` in bench.py's loop
+    shape: images/s, spread, idle share, time by group, peak memory, the
+    cross-entropy falling; no hand-written kernel launches there.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -259,6 +286,18 @@ def bound_ms(nbytes, flops):
     t_ops = flops / F32_FLOPS_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_by_kernel(prof):
+    """{kernel name: (device us, count)} of a torch.profiler run."""
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us and ev.device_type.name == "CUDA":
+            out[ev.key] = (dev_us, ev.count)
+    return out
 
 
 def phase_kernels(torch, kernels, F, timer, card):
@@ -580,13 +619,8 @@ def profile_step(torch, prog, cached_per_slot):
         for _ in range(n):
             nxt, _l, kv = prog.step(kv, *args)
         nxt.cpu()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and ev.device_type.name == "CUDA":
-            rows.append((dev_us / n, ev.count // n, ev.key))
+    rows = [(us / n, cnt // n, key)
+            for key, (us, cnt) in device_by_kernel(prof).items()]
     rows.sort(reverse=True)
     return rows
 
@@ -659,17 +693,18 @@ TRAIN = dict(vocab_size=32768, seq_len=1024, num_layers=12, hidden=768,
              heads=12)
 
 
-def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out):
+def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows):
     """Bound of one flash kernel: ``units`` x 2·D flops per (q, k) pair
     that the mask keeps (4 for the forward, 6 for dQ, 8 for dK/dV, as
     4·BH·T²·D·½ etc.), and ``n_in`` (B, T, H, D) tensors read, ``n_out``
-    written, plus the (B·H, T) lse/delta rows."""
+    written, plus ``n_rows`` (B·H, T) f32 rows (the forward writes lse;
+    the backward kernels read lse and delta)."""
     if causal:
         pairs = sum(min(Tk, q + 1) for q in range(Tq))
     else:
         pairs = Tq * Tk
     flops = units * B * H * pairs * D
-    nbytes = (n_in + n_out) * B * Tq * H * D * 4 + 2 * B * H * Tq * 4
+    nbytes = (n_in + n_out) * B * Tq * H * D * 4 + n_rows * B * H * Tq * 4
     b, by = bound_ms(nbytes, flops)
     # the same work in 3xTF32: three TF32 MMAs per f32 product
     tc = max(nbytes / HBM_BYTES_S, 3 * flops / TF32_FLOPS_S) * 1e3
@@ -812,9 +847,9 @@ def phase_flash(torch, kernels, F, timer, card):
             lib_out, (qt, kt, vt), dot, retain_graph=True))
         del lib_out
         src = "mxnet_tpu_torch/csrc/flash_attention.cu"
-        b_f, by_f, tc_f = flash_bound(B, T, T, H, D, causal, 4, 3, 1)
-        b_q, by_q, tc_q = flash_bound(B, T, T, H, D, causal, 6, 4, 1)
-        b_kv, by_kv, tc_kv = flash_bound(B, T, T, H, D, causal, 8, 4, 2)
+        b_f, by_f, tc_f = flash_bound(B, T, T, H, D, causal, 4, 3, 1, 1)
+        b_q, by_q, tc_q = flash_bound(B, T, T, H, D, causal, 6, 4, 1, 2)
+        b_kv, by_kv, tc_kv = flash_bound(B, T, T, H, D, causal, 8, 4, 2, 2)
         shape = "q/k/v (B, T, H, D) = (%d, %d, %d, %d) f32, causal" % (
             B, T, H, D)
         per_step = TRAIN["num_layers"]
@@ -1007,13 +1042,7 @@ def phase_train(torch, kernels, get_symbol, ShardedTrainer, flops_fn,
                 "flash_attention_bwd_dkv"):
         check(got[key] == L * steps, "%s launched %d times over %d steps, "
               "want %d" % (key, got[key], steps, L * steps))
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and ev.device_type.name == "CUDA":
-            by_kernel[ev.key] = (dev_us, ev.count)
+    by_kernel = device_by_kernel(prof)
     busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
     timed = times[1:]
     med = statistics.median(timed)
@@ -1387,13 +1416,7 @@ def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
         "(spread %.3f-%.3f) = %.1f examples/s [%s]"
         % (tag, ", ".join("%.1f" % t for t in times[:warm]), timed, med,
            min(tt), max(tt), B / med * 1e3, card))
-    by_kernel = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us and ev.device_type.name == "CUDA":
-            by_kernel[ev.key] = (dev_us, ev.count)
+    by_kernel = device_by_kernel(prof)
     if by_kernel:
         busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
         log("device time of one step by kernel (torch.profiler) [%s]:"
@@ -1839,13 +1862,8 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
            "/".join(map(str, counted)), ", ".join("%.5f" % s for s in share)))
     log("  perplexity per epoch (both batches, before each update): %s"
         % ", ".join("%.2f" % x for x in ppl))
-    by_kernel = {}
-    for e in prof["p"].key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us and e.device_type.name == "CUDA":
-            by_kernel[e.key] = (dev_us / 1e3, e.count)
+    by_kernel = {k: (us / 1e3, cnt)
+                 for k, (us, cnt) in device_by_kernel(prof["p"]).items()}
     busy = sum(ms for ms, _ in by_kernel.values())
     if busy:
         groups = dict.fromkeys(("two_bit_compress", "flash kernels",
@@ -2510,13 +2528,7 @@ def phase_resnet50(torch, kernels, ShardedTrainer, card):
                RESNET_BATCH, ", ".join("%.1f" % t for t in times[:2]),
                ", ".join("%.2f" % t for t in timed), med, min(timed),
                max(timed), RESNET_BATCH / med * 1e3, card))
-        by_kernel = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            if dev_us and ev.device_type.name == "CUDA":
-                by_kernel[ev.key] = (dev_us, ev.count)
+        by_kernel = device_by_kernel(prof)
         if by_kernel:
             busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
             groups = {g: 0.0 for g, _ in CONV_GROUPS}
@@ -2567,6 +2579,463 @@ def phase_resnet50(torch, kernels, ShardedTrainer, card):
     return got
 
 
+# ---------------------------------------------------------------------------
+# bench.py's training configuration (phases 20-22): bf16 parameters
+# through ShardedTrainer, the raw step (sgd_step_fn) and the auto-layout
+# step (build_step_auto_layout), the LM on the bf16 flash kernels (B9)
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_S = 989e12         # H100 SXM dense bf16 on the tensor cores
+
+# TF32 MMAs per bf16 product in the B9 kernels: one where both operands
+# are bf16 (q k^T, dO v^T), two where one is f32 (p v, ds k, ds^T q,
+# p^T dO); per kernel, over its products of 2·D flops per (q, k) pair
+B9_MMAS = {"fwd": 1 + 2, "dq": 1 + 1 + 2, "dkv": 1 + 1 + 2 + 2}
+
+
+def b9_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows, mmas):
+    """Bound of one B9 kernel: the bf16 (B, T, H, D) tensors read and
+    written once (2 bytes an element) and ``n_rows`` f32 (B·H, T) rows
+    (lse written by the forward; lse and delta read by dQ and dK/dV), against
+    ``units`` x D flops per (q, k) pair that the mask keeps at the dense
+    bf16 tensor rate (989 TFLOP/s); and the same work as the kernel does
+    it, ``mmas`` TF32 MMAs of 2·D flops per pair at 495 TFLOP/s."""
+    pairs = sum(min(Tk, q + 1) for q in range(Tq)) if causal else Tq * Tk
+    flops = units * B * H * pairs * D
+    nbytes = (n_in + n_out) * B * Tq * H * D * 2 + n_rows * B * H * Tq * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
+    tc = max(t_bytes, mmas * 2 * B * H * pairs * D / TF32_FLOPS_S) * 1e3
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", tc)
+
+
+def bf16_close(torch, got, want, base):
+    """Largest error of ``got`` over its tolerance against ``want``
+    (both bf16): one bf16 step of each element (2^-7 of its magnitude)
+    plus ``base`` x max(1, max|want|), the f32 kernels' own tolerance;
+    and the largest absolute error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = 2.0 ** -7 * want.abs() + base * max(1.0, want.abs().max().item())
+    return (err / tol).max().item(), err.max().item()
+
+
+def phase_flash_bf16(torch, kernels, F, timer, card):
+    """B9 against its plain versions: at the LM's training shape (timed,
+    with bounds and the bf16 SDPA yardstick) and at ragged shapes (T not a
+    multiple of 64; D 32 and 128)."""
+    dev = torch.device("cuda")
+    H, D = TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    rows = []
+    cases = [(8, 1024, H, D, True, True), (2, 1000, 3, 32, True, False),
+             (2, 777, 2, 128, True, False), (2, 520, 4, 64, False, False)]
+    for B, T, Hc, Dc, causal, timed in cases:
+        rs = np.random.RandomState(T + Dc)
+        q, k, v, do = (torch.from_numpy(rs.randn(B, T, Hc, Dc).astype(
+            np.float32)).to(dev).bfloat16() for _ in range(4))
+        tag = "B%d T%d H%d D%d bf16 %s" % (B, T, Hc, Dc,
+                                           "causal" if causal else "full")
+        before = dict(kernels.LAUNCHES)
+        out, lse = kernels.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal)
+        delta = kernels.flash_delta(ref, do)
+        dq = kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                            causal)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse,
+                                                 delta, causal)
+        refs = kernels.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do,
+                                                 causal)
+        torch.cuda.synchronize()
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            check(kernels.LAUNCHES[name + "_bf16"]
+                  == before[name + "_bf16"] + 1
+                  and kernels.LAUNCHES[name] == before[name],
+                  "%s: the bf16 kernel did not launch once" % name)
+        check(out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+              and lse.dtype == torch.float32, "B9 output dtypes")
+        ratio = {"out": bf16_close(torch, out, ref, 1e-5)}
+        lse_err = (lse - ref_lse).abs().max().item()
+        ratio["lse"] = (lse_err / (1e-5 * max(1.0, ref_lse.abs().max()
+                                              .item())), lse_err)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            ratio[name] = bf16_close(torch, got, want, 1e-4)
+        log("B9 %s: error/tolerance %s; max_abs_err %s (tolerance: one bf16 "
+            "step of each element plus the f32 kernels' 1e-5 (out, lse) / "
+            "1e-4 (dq, dk, dv) x max(1, max|ref|); the reference's own bf16 "
+            "bar is rtol 0.1, atol 0.05) [%s]"
+            % (tag, ", ".join("%s %.3g" % (n, r[0]) for n, r in ratio.items()),
+               ", ".join("%s %.3g" % (n, r[1]) for n, r in ratio.items()),
+               card))
+        check(all(r[0] <= 1.0 for r in ratio.values()),
+              "B9 disagrees with its plain versions at %s" % tag)
+        again = (kernels.flash_attention_fwd(q, k, v, causal)[0],
+                 kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                                causal)) + \
+            kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                            causal)
+        check(all(torch.equal(a, b) for a, b in zip((out, dq, dk, dv),
+                                                     again)),
+              "two launches of B9 gave different bits at %s" % tag)
+        if not timed:
+            continue
+        # yardstick: SDPA in bf16 on the (B, H, T, D) transposes, the
+        # forward, and the forward with its autograd backward; timed only
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+        check(bf16_close(torch, lib_out.transpose(1, 2), ref, 1e-3)[0] <= 2,
+              "the SDPA yardstick computes another function")
+        del lib_out
+        lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        lib_both = timer(sdpa_fwd_bwd)
+        src = "mxnet_tpu_torch/csrc/flash_attention.cu"
+        shape = "q/k/v (B, T, H, D) = (%d, %d, %d, %d) bf16, causal" % (
+            B, T, Hc, Dc)
+        common = {"route": "cuda", "source": src, "math":
+                  "bf16 tiles widened to f32, TF32 mma.sync: 1 MMA per "
+                  "bf16 x bf16 product, 2 where one side is f32"}
+        specs = [
+            ("flash_attention_fwd_bf16", ":250", 4, 3, 1, 1, "fwd",
+             lambda: kernels.flash_attention_fwd(q, k, v, causal),
+             lambda: kernels.flash_attention_fwd_plain(q, k, v, causal),
+             max(ratio["out"][1], ratio["lse"][1]), lib_fwd,
+             "F.scaled_dot_product_attention(is_causal=True) bf16 forward",
+             ", with lse"),
+            ("flash_attention_bwd_dq_bf16", ":448", 6, 4, 1, 2, "dq",
+             lambda: kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse,
+                                                    delta, causal),
+             lambda: kernels.flash_attention_bwd_dq_plain(
+                 q, k, v, do, ref_lse, delta, causal),
+             ratio["dq"][1], lib_both,
+             "the bf16 SDPA forward and its autograd backward (dQ, dK, dV "
+             "together)", ", dO, lse, delta"),
+            ("flash_attention_bwd_dkv_bf16", ":468", 8, 4, 2, 2, "dkv",
+             lambda: kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse,
+                                                     delta, causal),
+             lambda: kernels.flash_attention_bwd_dkv_plain(
+                 q, k, v, do, ref_lse, delta, causal),
+             max(ratio["dk"][1], ratio["dv"][1]), lib_both,
+             "the bf16 SDPA forward and its autograd backward (dQ, dK, dV "
+             "together)", ", dO, lse, delta")]
+        for (name, site, units, n_in, n_out, n_rows, kind, fn, plain, err,
+             lib, call, extra) in specs:
+            b, by, tc = b9_bound(B, T, T, Hc, Dc, causal, units, n_in,
+                                 n_out, n_rows, B9_MMAS[kind])
+            rows.append(dict(common, **{
+                "name": name, "replaces": "mxnet_tpu/ops/pallas_kernels.py"
+                + site, "shape": shape + extra,
+                "launches_per_step": TRAIN["num_layers"],
+                "max_abs_err": err, "ms": timer(fn),
+                "plain_ms": timer(plain), "bound_ms": b, "bound_by": by,
+                "bound_tc_ms": tc, "library_ms": lib,
+                "library_call": call}))
+        del qt, kt, vt
+    for r in rows:
+        log("  %-28s %-52s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s, bf16 "
+            "989 TFLOP/s) bound_tc_ms=%.4f library_ms=%.4f [%s]"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], r["bound_tc_ms"], r["library_ms"], card))
+    return rows
+
+
+def own_gap_check(torch, names, start, got, want, exact, label, card):
+    """Norm-wise, per tensor: ``|got - want| / |want - start|`` at most 3x
+    the bf16 rounding gap of ``want`` itself, ``|want - exact| / |exact -
+    start|`` (``exact``: the same step in f32 from the same weights), and
+    at least one bf16 step (2^-8): two independent roundings of one size
+    stand about sqrt(2) of it apart.  Each argument is a list of host
+    tensors in ``names`` order."""
+    worst = (0.0, "")
+    for n, s0, a, b, e in zip(names, start, got, want, exact):
+        s0, a, b, e = (t.double() for t in (s0, a, b, e))
+        gap = ((a - b).norm() / (b - s0).norm().clamp(min=1e-30)).item()
+        own = ((b - e).norm() / (e - s0).norm().clamp(min=1e-30)).item()
+        ratio = gap / max(own, 2.0 ** -8)
+        check(ratio <= 3.0, "%s: %s on the card stands %.3g from the CPU, "
+              "3x the CPU's own bf16 gap %.3g is the limit"
+              % (label, n, gap, own))
+        worst = max(worst, (ratio, n))
+    log("%s card vs cpu: every tensor within %.3g of the CPU's own bf16 "
+        "rounding gap (limit 3; the gap: the CPU's bf16 step against its "
+        "f32 step from the same weights; worst: %s) [%s]"
+        % (label, worst[0], worst[1], card))
+
+
+def bf16_step_triplet(torch, make, shapes, batch, label, card):
+    """One step of ``make(device, param_dtype)``'s trainer on the card in
+    bf16, on the CPU in bf16 and on the CPU in f32 from the same weights;
+    the card's state held to the CPU's by ``own_gap_check``."""
+    tr = make("cpu", "bfloat16")
+    start = tr.init_state(shapes, seed=3)
+    names = tr.param_names + tr.param_names + tr.prog.aux_names
+    res = {}
+    for tag, dev, pdt in (("card", "cuda", "bfloat16"),
+                          ("cpu", "cpu", "bfloat16"),
+                          ("f32", "cpu", None)):
+        t = make(dev, pdt)
+        p, m, x = (tuple((a.float() if pdt is None else a.clone()).to(dev)
+                         for a in part) for part in start)
+        p, m, x, loss = t.step(p, m, x, batch)
+        check(t.skipped_steps == 0 and np.isfinite(float(loss)),
+              "%s %s step was not finite" % (label, tag))
+        res[tag] = [a.detach().float().cpu() for a in p + m + x]
+    own_gap_check(torch, names, [a.float() for a in sum(start, ())],
+                  res["card"], res["cpu"], res["f32"], label, card)
+
+
+def bench_loop(torch, tr, step, state, inputs, warm, iters, peak=False):
+    """bench.py's loop shape: ``warm`` steps, a read of the loss, then
+    ``iters`` steps and one read of the loss at the end; returns (state,
+    ms per step over the loop, each step's ms from CUDA events recorded
+    between the steps, which add no sync)."""
+    p, m, x = state
+    keys, guard = tr._keys(), tr._guard_arrays()
+    for _ in range(warm):
+        p, m, x, loss, ok, guard = step(p, m, x, inputs, keys, guard)
+    float(loss)
+    if peak:
+        torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(iters):
+        p, m, x, loss, ok, guard = step(p, m, x, inputs, keys, guard)
+        ev[i + 1].record()
+    float(loss)
+    dt = (time.perf_counter() - t0) / iters * 1e3
+    tr._guard_state = guard
+    check(bool(ok), "a bf16 step was skipped as non-finite")
+    return (p, m, x), dt, [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def profiled_steps(torch, tr, step, state, inputs, n):
+    """``n`` steps in the loop shape under torch.profiler: (state, device
+    time by kernel, the steps' wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    p, m, x = state
+    keys, guard = tr._keys(), tr._guard_arrays()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            p, m, x, loss, ok, guard = step(p, m, x, inputs, keys, guard)
+        float(loss)
+        wall = (time.perf_counter() - t0) * 1e3
+    tr._guard_state = guard
+    return (p, m, x), device_by_kernel(prof), wall
+
+
+def phase_lm_bf16(torch, kernels, get_symbol, ShardedTrainer, sgd_step_fn,
+                  flops_fn, card):
+    """The LM in bf16 (bench.py's default): card vs CPU at a small size
+    on the flash path, then full width through sgd_step_fn and
+    build_step_auto_layout in bench.py's loop shape; returns the launch
+    counts of the full-width run and its ms per step."""
+    small = dict(vocab_size=1000, seq_len=64, num_layers=2, hidden=64,
+                 heads=4, flash_min_seq=1)
+
+    def make(dev, pdt):
+        return ShardedTrainer(get_symbol(**small), device=dev, lr=0.01,
+                              momentum=0.9, wd=0.0, param_dtype=pdt)
+
+    bf16_step_triplet(torch, make, {"data": (4, 64), "softmax_label":
+                                    (4, 64)},
+                      lm_batch(1000, 4, 64, seed=7),
+                      "LM L2 h64 T64 bf16 flash path, 1 step", card)
+    cfg = TRAIN
+    B, T, L = 8, cfg["seq_len"], cfg["num_layers"]
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    batch = lm_batch(cfg["vocab_size"], B, T, seed=0)
+    inputs = {n: torch.from_numpy(v).cuda() for n, v in batch.items()}
+    flops = flops_fn(B, T, L, cfg["hidden"], cfg["vocab_size"])
+    got, times = {}, {}
+    for mode in ("sgd_step_fn", "build_step_auto_layout"):
+        tr = ShardedTrainer(get_symbol(**cfg), lr=1e-4, momentum=0.9,
+                            wd=0.0, param_dtype="bfloat16")
+        state = tr.init_state(shapes, seed=0)
+        dts = sorted({str(p.dtype).replace("torch.", "") for p in state[0]})
+        if mode == "sgd_step_fn":
+            step = sgd_step_fn(tr)
+        else:
+            step, *state = tr.build_step_auto_layout(*state, shapes)
+        ce0 = cross_entropy(torch, tr, state[0], state[2], batch)
+        if mode == "sgd_step_fn":
+            # no host sync inside the step: the card runs ahead
+            keys, guard = tr._keys(), tr._guard_arrays()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = step(*state, inputs, keys, guard)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            state, tr._guard_state = out[:3], out[5]
+            log("LM bf16 %s: one step under set_sync_debug_mode(\"error\"): "
+                "no host sync" % mode)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        warm, iters = 3, 20
+        state, ms, per_step = bench_loop(torch, tr, step, state, inputs,
+                                         warm, iters, peak=True)
+        peak = torch.cuda.max_memory_allocated()
+        state, by_kernel, wall = profiled_steps(torch, tr, step, state,
+                                                inputs, 3)
+        n_steps = warm + iters + 3
+        counts = dict(kernels.LAUNCHES)
+        for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"):
+            check(counts[key + "_bf16"] == L * n_steps and counts[key] == 0,
+                  "%s: %s bf16 / %s f32 launches over %d steps, want %d "
+                  "bf16" % (key, counts[key + "_bf16"], counts[key], n_steps,
+                            L * n_steps))
+        ce1 = cross_entropy(torch, tr, state[0], state[2], batch)
+        busy = sum(us for us, _ in by_kernel.values()) / 1e3
+        groups = {"flash kernels (B9)": 0.0, "matmuls (cuBLAS bf16)": 0.0,
+                  "the rest": 0.0}
+        for key, (us, _cnt) in by_kernel.items():
+            low = key.lower()
+            g = ("flash kernels (B9)" if "flash_" in low else
+                 "matmuls (cuBLAS bf16)" if any(
+                     f in low for f in ("gemm", "nvjet", "xmma", "cutlass"))
+                 else "the rest")
+            groups[g] += us / 1e3 / 3
+        log("LM bf16 L%d h%d V%d T%d batch %d through %s (params %s, "
+            "bench.py's loop: %d warm-up, %d timed, the loss read once): "
+            "%.2f ms per step = %.0f tokens/s; per-step events %.2f-%.2f "
+            "ms (median %.2f); %.1f TFLOP/s = %.3f of the 989 TFLOP/s bf16 "
+            "peak [%s]"
+            % (L, cfg["hidden"], cfg["vocab_size"], T, B, mode, "/".join(dts),
+               warm, iters, ms, B * T / ms * 1e3, min(per_step),
+               max(per_step), statistics.median(per_step), flops / ms / 1e9,
+               flops / (ms / 1e3) / BF16_FLOPS_S, card))
+        # the profiler slows the host: the unprofiled loop's ms per step
+        # is the other denominator of the same busy time
+        log("  3 profiled steps: device busy %.2f ms per step; idle share "
+            "%.3f of the profiled steps' %.2f ms, %.3f of the unprofiled "
+            "loop's %.2f; per step by group: %s; peak memory %.2f GB; B9 "
+            "launches %s over %d steps (%d per step each); cross-entropy "
+            "of the repeated batch %.4f -> %.4f [%s]"
+            % (busy / 3, 1 - busy / wall, wall / 3, 1 - busy / 3 / ms, ms,
+               ", ".join("%s %.2f ms" % kv for kv in groups.items()),
+               peak / 1e9,
+               {k: v for k, v in counts.items() if v}, n_steps, L, ce0, ce1,
+               card))
+        check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
+              "the bf16 LM did not lower the cross-entropy (%.4f -> %.4f)"
+              % (ce0, ce1))
+        got[mode], times[mode] = counts, ms
+        del state, tr, step
+        torch.cuda.empty_cache()
+    return got, times
+
+
+def phase_resnet50_bf16(torch, kernels, ShardedTrainer, sgd_step_fn, card):
+    """ResNet-50 in bf16 at bench.py's configuration (NCHW), through
+    build_step_auto_layout (channels-last convolution weights) and through
+    sgd_step_fn; card vs CPU first at the cifar ResNet-20 size."""
+    from mxnet_tpu_torch.models import resnet
+
+    def make(dev, pdt):
+        kw = dict(CIFAR20[1], num_classes=10,
+                  dtype="bfloat16" if pdt else "float32")
+        return ShardedTrainer(resnet.get_symbol(**kw), device=dev, lr=0.1,
+                              momentum=0.9, wd=1e-4, param_dtype=pdt)
+
+    rs = np.random.RandomState(4)
+    bf16_step_triplet(
+        torch, make, {"data": (4, 3, 12, 12), "softmax_label": (4,)},
+        {"data": rs.randn(4, 3, 12, 12).astype(np.float32),
+         "softmax_label": rs.randint(0, 10, 4).astype(np.float32)},
+        "cifar ResNet-20 12x12 bf16, 1 step", card)
+    torch.backends.cudnn.benchmark = True
+    kernels.reset_launches()
+    kw = dict(RESNET50, layout="NCHW", dtype="bfloat16")
+    shapes = conv_net_shapes(kw, RESNET_BATCH, "NCHW")
+    net = resnet.get_symbol(**kw)
+    flops = train_flops(net, shapes)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = {"data": torch.randn(shapes["data"], generator=gen,
+                                  device="cuda"),
+              "softmax_label": torch.randint(0, 1000, (RESNET_BATCH,),
+                                             generator=gen,
+                                             device="cuda").float()}
+    times = {}
+    for mode in ("build_step_auto_layout", "sgd_step_fn"):
+        tr = ShardedTrainer(net, lr=0.1, momentum=0.9, wd=1e-4,
+                            param_dtype="bfloat16")
+        state = tr.init_state(shapes, seed=0)
+        if mode == "sgd_step_fn":
+            step = sgd_step_fn(tr)
+        else:
+            step, *state = tr.build_step_auto_layout(*state, shapes)
+            n_cl = sum(p.dim() == 4 and p.is_contiguous(
+                memory_format=torch.channels_last) for p in state[0])
+            check(n_cl == 53, "%d channels-last conv weights, want 53"
+                  % n_cl)
+        ce0 = train_ce(torch, tr, state[0], state[2], inputs["data"],
+                       inputs["softmax_label"])
+        warm, iters = 3, 20
+        state, ms, per_step = bench_loop(torch, tr, step, state, inputs,
+                                         warm, iters, peak=True)
+        peak = torch.cuda.max_memory_allocated()
+        state, by_kernel, wall = profiled_steps(torch, tr, step, state,
+                                                inputs, 2)
+        ce1 = train_ce(torch, tr, state[0], state[2], inputs["data"],
+                       inputs["softmax_label"])
+        busy = sum(us for us, _ in by_kernel.values()) / 1e3
+        groups = {g: 0.0 for g, _ in CONV_GROUPS}
+        groups["other"] = 0.0
+        for key, (us, _cnt) in by_kernel.items():
+            low = key.lower()
+            g = next((g for g, frags in CONV_GROUPS
+                      if any(f in low for f in frags)), "other")
+            groups[g] += us / 1e3 / 2
+        log("ResNet-50 NCHW 224x224 batch %d bf16 through %s (bench.py's "
+            "loop: %d warm-up, %d timed, the loss read once; cudnn.benchmark "
+            "on): %.2f ms per step = %.1f images/s; per-step events "
+            "%.2f-%.2f ms (median %.2f); %.2f TFLOP/s = %.3f of the 989 "
+            "TFLOP/s bf16 peak [%s]"
+            % (RESNET_BATCH, mode, warm, iters, ms, RESNET_BATCH / ms * 1e3,
+               min(per_step), max(per_step), statistics.median(per_step),
+               flops / ms / 1e9, flops / (ms / 1e3) / BF16_FLOPS_S, card))
+        log("  2 profiled steps: device busy %.2f ms per step; idle share "
+            "%.3f of the profiled steps' %.2f ms, %.3f of the unprofiled "
+            "loop's %.2f; per step by group: %s; top kernels: %s; peak "
+            "memory %.2f GB; cross-entropy of the repeated batch %.4f -> "
+            "%.4f [%s]"
+            % (busy / 2, 1 - busy / wall, wall / 2, 1 - busy / 2 / ms, ms,
+               ", ".join(
+                "%s %.2f ms" % kv for kv in sorted(groups.items(),
+                                                   key=lambda kv: -kv[1])),
+               "; ".join("%.0f us x%d %s" % (us / 2, cnt // 2, k[:60])
+                         for k, (us, cnt) in sorted(
+                             by_kernel.items(), key=lambda kv: -kv[1][0])[:4]),
+               peak / 1e9, ce0, ce1, card))
+        check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
+              "ResNet-50 bf16 (%s) did not lower the cross-entropy (%.4f -> "
+              "%.4f)" % (mode, ce0, ce1))
+        times[mode] = ms
+        del state, tr, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = False
+    got = dict(kernels.LAUNCHES)
+    check(not any(got.values()), "the bf16 ResNet path launched a "
+          "hand-written kernel: %s" % got)
+    log("ResNet-50 bf16: auto-layout %.2f ms vs raw %.2f ms per step (%s is "
+        "the faster); no hand-written kernel launched [%s]"
+        % (times["build_step_auto_layout"], times["sgd_step_fn"],
+           min(times, key=times.get), card))
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2588,6 +3057,7 @@ def main():
                                                     get_symbol)
     from mxnet_tpu_torch.ops import build, kernels
     from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.parallel.trainer import sgd_step_fn
     from mxnet_tpu_torch.serving.decode import (DecodeConfig, DecodeEngine,
                                                 DecodeProgram,
                                                 init_decode_params)
@@ -2775,6 +3245,27 @@ def main():
     with phase("19 ResNet-50 at full width"):
         launches["resnet"] = phase_resnet50(torch, kernels, ShardedTrainer,
                                             card)
+        torch.cuda.empty_cache()
+
+    with phase("20 flash kernels in bf16 (B9) vs plain"):
+        timer = Timer(torch)
+        rows += phase_flash_bf16(torch, kernels, F, timer, card)
+        del timer
+        torch.cuda.empty_cache()
+
+    with phase("21 the LM in bf16"):
+        lm_bf16, lm_bf16_ms = phase_lm_bf16(
+            torch, kernels, get_symbol, ShardedTrainer, sgd_step_fn,
+            transformer_flops_per_step, card)
+        launches["lm_bf16"] = lm_bf16["sgd_step_fn"]
+        log("LM per step: f32 ShardedTrainer.step %.2f ms (phase 8), bf16 "
+            "sgd_step_fn %.2f ms, bf16 build_step_auto_layout %.2f ms [%s]"
+            % (trainer_ms, lm_bf16_ms["sgd_step_fn"],
+               lm_bf16_ms["build_step_auto_layout"], card))
+
+    with phase("22 ResNet-50 in bf16"):
+        launches["resnet_bf16"] = phase_resnet50_bf16(
+            torch, kernels, ShardedTrainer, sgd_step_fn, card)
         torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------

@@ -13,7 +13,10 @@ its ``param_names`` / ``prog.aux_names`` order; the port's trainer keeps
 the same names and order (for a conv net: BatchNorm's moving statistics
 in ``aux``, and NHWC graphs' OHWI convolution weights as they are).  :func:`trainer_state_from_numpy` moves such a
 state (as host arrays) onto a device for the port, matching it by name,
-and :func:`trainer_state_to_numpy` brings the port's state back.
+and :func:`trainer_state_to_numpy` brings the port's state back.  With a
+bf16 ``param_dtype`` the JAX package's parameters reach numpy as
+``ml_dtypes.bfloat16`` arrays, a dtype the port does not import: it is
+recognised by its name and its bits cross as they are.
 
 A recommender state (``sparse.recommender_state``) is a dict of the
 ``tables`` and ``moms`` tuples (a momentum slot may be None) and the
@@ -92,7 +95,9 @@ def trainer_state_from_numpy(names, state, device, order=None):
     trainer it is for (default: ``names``).  Entries are matched by name,
     so the two orders may differ; a missing or extra name, a shape that
     differs between a parameter and its momentum, or a dtype other than
-    float32 raises."""
+    float32 or bfloat16 raises.  A bf16 array (numpy's dtype named
+    ``bfloat16``, e.g. ``ml_dtypes``') becomes a bf16 tensor bit for bit:
+    its 16-bit words are viewed as int16 and then as bf16."""
     import torch
     param_names, aux_names = (list(n) for n in names)
     params, mom, aux = state
@@ -104,9 +109,13 @@ def trainer_state_from_numpy(names, state, device, order=None):
 
     def put(name, value):
         host = np.asarray(value)
+        if host.dtype.name == "bfloat16":
+            bits = torch.from_numpy(np.array(host).view(np.uint16).view(
+                np.int16))
+            return bits.view(torch.bfloat16).to(device, copy=True)
         if host.dtype != np.float32:
-            raise MXNetError("%s: trainer state is float32, got %s"
-                             % (name, host.dtype))
+            raise MXNetError("%s: trainer state is float32 or bfloat16, "
+                             "got %s" % (name, host.dtype))
         return torch.tensor(host, device=device)
 
     by_p = {n: (p, m) for n, p, m in zip(param_names, params, mom)}
@@ -122,9 +131,17 @@ def trainer_state_from_numpy(names, state, device, order=None):
 
 def trainer_state_to_numpy(state):
     """The port's ``(params, mom, aux)`` -> the same tuples of host
-    arrays."""
-    return tuple(tuple(t.detach().cpu().numpy() for t in part)
-                 for part in state)
+    arrays (copies).  A bf16 tensor, which numpy cannot hold, comes back
+    as a float32 array of the same values: bf16 -> f32 is exact, so
+    ``.astype`` of it to a bf16 dtype gives the tensor's bits again."""
+    import torch
+
+    def host(t):
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.to("cpu", copy=True).numpy()
+    return tuple(tuple(host(t) for t in part) for part in state)
 
 
 def _f32_tensor(name, value, device):

@@ -108,9 +108,32 @@
 //    and 223 / 245 registers (no spills), so two blocks share an SM; at
 //    DP = 128, 255 registers with 8 bytes of spills and one block.
 //
+// B9: the same three kernels in bf16 (the reference's kernels take bf16
+// q, k, v and dO, compute in f32 and write out, dQ, dK and dV in the input
+// dtype, with lse and delta f32).  Each kernel is a template over the
+// element type T of its (B, T, H, D) tensors.  A bf16 tile is widened to
+// f32 as it lands in shared memory and runs the 3xTF32 path above: a bf16
+// value is exact in TF32, so its small part is zero and the MMAs that
+// read it are dropped at compile time (flags ALO and BLO of mma3).
+// Products of two bf16 operands (s = q k^T, dp = dO v^T) are one TF32 MMA,
+// exact products accumulated in f32; products with an f32 operand (p v,
+// ds k, ds^T q, p^T dO) are two, the f32 side split as above.  Streamed
+// tiles are fetched as bf16 (cp.async of 16-byte chunks, 8 elements, when
+// D % 8 == 0 and the tensors are 16-byte aligned; plain loads otherwise),
+// half the bytes of the f32 kernels; resident tiles are widened by plain
+// loads.  Outputs are rounded to bf16 to nearest even, as astype does.
+// Shared memory is laid out per element type (FwdSmem, DqSmem, DkvSmem):
+// bf16 staging tiles take half the bytes and the small-part tiles none, so
+// at D = 64 a block takes 42.5 KB (forward), 69.6 KB (dQ) or 80.4 KB
+// (dK/dV) where the f32 kernels take 68.6, 96.3 and 107.0 KB.
+// The f32 instantiations compile to what they were before the template.
+//
 // Interface: plain C, launched on the caller's stream, allocates nothing,
-// f32 only, D <= 128; returns the first CUDA error (attribute or launch).
+// f32 (mxt_flash_attention_*) or bf16 (mxt_flash_attention_*_bf16) q, k,
+// v, dO and outputs, lse and delta f32 in both, D <= 128; returns the
+// first CUDA error (attribute or launch).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -119,6 +142,26 @@ namespace {
 constexpr int kB = 64;          // rows of a backward block's tile
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the element type of the (B, T, H, D) tensors: f32, whose operands have
+// a TF32 small part, or bf16, whose operands are exact in TF32
+template <typename T>
+struct Wide {
+  static constexpr bool value = false;
+};
+template <>
+struct Wide<float> {
+  static constexpr bool value = true;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 // ---------------------------------------------------------------------------
 // 3xTF32 tensor-core products (B1, B2a, B2b)
@@ -169,34 +212,44 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // then big.big, each as one pass over the N independent accumulators, so
 // that no MMA waits for the one just before it (three MMAs into one
 // accumulator back to back stall on the tensor core's latency).  c0 is a
-// constant once the caller's loop is unrolled.
-template <int N, int M>
+// constant once the caller's loop is unrolled.  ALO / BLO: a / b has a
+// small part (false for an operand that came from bf16: its pass is
+// dropped).
+template <bool ALO, bool BLO, int N, int M>
 __device__ __forceinline__ void mma3(float (&c)[M][4], int c0,
                                      const FragA& a, const FragB (&b)[N]) {
+  if (ALO) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.lo, b[n].hi);
+    for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.lo, b[n].hi);
+  }
+  if (BLO) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].lo);
+    for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].lo);
+  }
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].hi);
 }
 
 // the same for two products that share nothing (s and dp, dv and dk):
 // their passes interleave
-template <int N, int M>
+template <bool ALO, bool BLO, int N, int M>
 __device__ __forceinline__ void mma3x2(float (&c)[M][4], float (&e)[M][4],
                                        int c0, const FragA& a,
                                        const FragB (&b)[N], const FragA& f,
                                        const FragB (&g)[N]) {
+  if (ALO) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    mma_tf32(c[c0 + n], a.lo, b[n].hi);
-    mma_tf32(e[c0 + n], f.lo, g[n].hi);
+    for (int n = 0; n < N; ++n) {
+      mma_tf32(c[c0 + n], a.lo, b[n].hi);
+      mma_tf32(e[c0 + n], f.lo, g[n].hi);
+    }
   }
+  if (BLO) {
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    mma_tf32(c[c0 + n], a.hi, b[n].lo);
-    mma_tf32(e[c0 + n], f.hi, g[n].lo);
+    for (int n = 0; n < N; ++n) {
+      mma_tf32(c[c0 + n], a.hi, b[n].lo);
+      mma_tf32(e[c0 + n], f.hi, g[n].lo);
+    }
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -295,24 +348,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Start copying rows [t0, t0 + ROWS) of head h, batch b of a (B, T, H, D)
 // tensor into a ROWS x DP fragment-order shared tile (a_slot), zero past T
 // and past D (a copy of source size 0 writes zeros): the block's resident
-// A operands, by NT threads.  Consecutive threads read consecutive d.
-template <int DP, int ROWS = kB, int NT = kBwdThreads>
-__device__ __forceinline__ void stage_resident(float* dst, const float* src,
-                                               int b, int h, int t0, int T,
+// A operands, by NT threads.  Consecutive threads read consecutive d.  A
+// bf16 tensor is widened to f32 by plain loads (cp.async copies no 2-byte
+// element).
+template <int DP, int ROWS = kB, int NT = kBwdThreads, typename T>
+__device__ __forceinline__ void stage_resident(float* dst, const T* src,
+                                               int b, int h, int t0, int T_,
                                                int H, int D) {
-  const float* row = src + ((size_t)b * T * H + h) * D;   // row 0 of (b, h)
+  const T* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
   for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
     const int r = idx / DP;
     const int c = idx % DP;
     const int t = t0 + r;
-    const bool ok = t < T && c < D;
-    cp_async4(dst + a_slot<DP>(r, c), ok ? row + t * HD + c : src,
-              ok ? 4 : 0);
+    const bool ok = t < T_ && c < D;
+    if (Wide<T>::value)
+      cp_async4(dst + a_slot<DP>(r, c),
+                reinterpret_cast<const float*>(ok ? row + t * HD + c : src),
+                ok ? 4 : 0);
+    else
+      dst[a_slot<DP>(r, c)] = ok ? to_f32(row[t * HD + c]) : 0.f;
   }
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
@@ -320,31 +379,51 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 }
 
 // Start copying rows [t0, t0 + kBs) of a (B, T, H, D) tensor into a
-// kBs x DP staging tile, zero past T and D: the next streamed tile, in
-// flight while the current one computes.  `vec`: D % 4 == 0 and the
-// tensor 16-byte aligned, so whole 16-byte chunks are copied.  NT threads.
-template <int DP, int NT = kBwdThreads>
-__device__ __forceinline__ void fetch_stream(float* raw, const float* src,
-                                             int b, int h, int t0, int T,
-                                             int H, int D, bool vec) {
-  const float* row = src + ((size_t)b * T * H + h) * D;   // row 0 of (b, h)
+// kBs x DP staging tile of its own element type, zero past T and D: the
+// next streamed tile, in flight while the current one computes.  `vec`:
+// whole 16-byte chunks (4 f32 or 8 bf16 elements) never cross D and the
+// tensor is 16-byte aligned, so whole chunks are copied.  NT threads.
+template <int DP, int NT = kBwdThreads, typename T>
+__device__ __forceinline__ void fetch_stream(T* raw, const T* src, int b,
+                                             int h, int t0, int T_, int H,
+                                             int D, bool vec) {
+  const T* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
   if (vec) {
-    constexpr int C4 = DP / 4;
-    for (int idx = threadIdx.x; idx < kBs * C4; idx += NT) {
-      const int t = t0 + idx / C4;
-      const int c = (idx % C4) * 4;
-      const bool ok = t < T && c < D;
-      cp_async16(raw + idx * 4, ok ? row + t * HD + c : src, ok ? 16 : 0);
+    constexpr int E = 16 / sizeof(T);       // elements per chunk
+    constexpr int CE = DP / E;
+    for (int idx = threadIdx.x; idx < kBs * CE; idx += NT) {
+      const int t = t0 + idx / CE;
+      const int c = (idx % CE) * E;
+      const bool ok = t < T_ && c < D;
+      cp_async16(raw + idx * E, ok ? row + t * HD + c : src, ok ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < kBs * DP; idx += NT) {
       const int t = t0 + idx / DP;
       const int c = idx % DP;
-      const bool ok = t < T && c < D;
-      cp_async4(raw + idx, ok ? row + t * HD + c : src, ok ? 4 : 0);
+      const bool ok = t < T_ && c < D;
+      if (Wide<T>::value)
+        cp_async4(reinterpret_cast<float*>(raw + idx),
+                  reinterpret_cast<const float*>(ok ? row + t * HD + c : src),
+                  ok ? 4 : 0);
+      else
+        raw[idx] = ok ? row[t * HD + c] : T();
     }
   }
+}
+
+// Four consecutive elements of a staging tile as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // kBs values of a (B*H, T) row vector (lse or delta) into staging, zero
@@ -360,17 +439,22 @@ __device__ __forceinline__ void fetch_rows(float* raw, const float* src,
 
 // A staging tile split once into the big and small parts of two
 // kBs x (DP + 8) tiles: the streamed B operands, read by every warp
-// without splitting.  NT threads.
-template <int DP, int NT = kBwdThreads>
+// without splitting.  A bf16 tile is widened and has no small part, which
+// no MMA reads (BLO false), so none is written.  NT threads.
+template <int DP, int NT = kBwdThreads, typename T>
 __device__ __forceinline__ void split_stream(float* hi, float* lo,
-                                             const float* raw) {
+                                             const T* raw) {
   constexpr int LD = DP + 8;
   constexpr int C4 = DP / 4;
   for (int idx = threadIdx.x; idx < kBs * C4; idx += NT) {
-    const float4 x = reinterpret_cast<const float4*>(raw)[idx];
+    const float4 x = load4(raw + idx * 4);
+    const int at = (idx / C4) * LD + (idx % C4) * 4;
+    if (!Wide<T>::value) {
+      *reinterpret_cast<float4*>(hi + at) = x;
+      continue;
+    }
     const float4 big = make_float4(tf32_big(x.x), tf32_big(x.y),
                                    tf32_big(x.z), tf32_big(x.w));
-    const int at = (idx / C4) * LD + (idx % C4) * 4;
     *reinterpret_cast<float4*>(hi + at) = big;
     *reinterpret_cast<float4*>(lo + at) =
         make_float4(x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
@@ -378,27 +462,42 @@ __device__ __forceinline__ void split_stream(float* hi, float* lo,
 }
 
 // Store a warp's 16 x DP accumulator tile (C fragments) to rows
-// t0 + m0 + g (+8) of a (B, T, H, D) tensor, rows below T and columns
-// below D only.
-template <int DP>
-__device__ __forceinline__ void store_frags(float* dst,
+// t0 + m0 + g (+8) of a (B, T, H, D) tensor of element type T, rows below
+// T and columns below D only.
+template <int DP, typename T>
+__device__ __forceinline__ void store_frags(T* dst,
                                             const float (&acc)[DP / 8][4],
-                                            int b, int h, int t0, int T,
+                                            int b, int h, int t0, int T_,
                                             int H, int D, int m0, int g,
                                             int t) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = t0 + m0 + g + 8 * half;
-    if (row >= T) continue;
-    float* out = dst + ((size_t)(b * T + row) * H + h) * D;
+    if (row >= T_) continue;
+    T* out = dst + ((size_t)(b * T_ + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int d = n * 8 + 2 * t;
-      if (d < D) out[d] = acc[n][2 * half];
-      if (d + 1 < D) out[d + 1] = acc[n][2 * half + 1];
+      if (d < D) store_elem(out + d, acc[n][2 * half]);
+      if (d + 1 < D) store_elem(out + d + 1, acc[n][2 * half + 1]);
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Shared-memory layouts: each tile's offset in floats from the start of
+// dynamic shared memory, and `total`, what the launch reserves.  A staging
+// tile holds kBs x DP elements of T (half the bytes in bf16).  A bf16
+// operand has no small part: its lo tile takes no room, and the kernel
+// points it at the big part, whose reads by the dropped MMA pass are dead.
+// ---------------------------------------------------------------------------
+
+template <int DP, typename T>
+struct Tiles {
+  static constexpr int kStage = kBs * DP * (int)sizeof(T) / 4;
+  static constexpr int kLo = Wide<T>::value ? 1 : 0;
+  static constexpr int kSplit = kBs * (DP + 8);   // kBs x LD split tile
+};
 
 // ---------------------------------------------------------------------------
 // B1: forward
@@ -412,31 +511,33 @@ constexpr float kLn2 = 0.6931471805599453f;
 // A kBs x DP staging tile of v split into big and small parts in key-pair
 // order: keys 2p and 2p + 1 of column d side by side at p * (2 DP + 8) +
 // 2d.  The B operand of p v, read in the key order of s's C fragment
-// (frag_b_pairs), is then one 64-bit load, free of bank conflicts.
-template <int DP>
+// (frag_b_pairs), is then one 64-bit load, free of bank conflicts.  A
+// bf16 tile has no small part (BLO false), so none is written.
+template <int DP, typename T>
 __device__ __forceinline__ void split_pairs(float* hi, float* lo,
-                                            const float* raw) {
+                                            const T* raw) {
   constexpr int LDV = 2 * DP + 8;
   constexpr int C4 = DP / 4;
   for (int idx = threadIdx.x; idx < kBs / 2 * C4; idx += kFwdThreads) {
     const int p = idx / C4;
     const int d = (idx % C4) * 4;
-    const float4 x0 = *reinterpret_cast<const float4*>(raw + 2 * p * DP + d);
-    const float4 x1 =
-        *reinterpret_cast<const float4*>(raw + (2 * p + 1) * DP + d);
+    const float4 x0 = load4(raw + 2 * p * DP + d);
+    const float4 x1 = load4(raw + (2 * p + 1) * DP + d);
     const float pair[8] = {x0.x, x1.x, x0.y, x1.y, x0.z, x1.z, x0.w, x1.w};
     float big[8], small[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      big[e] = tf32_big(pair[e]);
+      big[e] = Wide<T>::value ? tf32_big(pair[e]) : pair[e];
       small[e] = pair[e] - big[e];
     }
     float4* h = reinterpret_cast<float4*>(hi + p * LDV + 2 * d);
-    float4* l = reinterpret_cast<float4*>(lo + p * LDV + 2 * d);
     h[0] = make_float4(big[0], big[1], big[2], big[3]);
     h[1] = make_float4(big[4], big[5], big[6], big[7]);
-    l[0] = make_float4(small[0], small[1], small[2], small[3]);
-    l[1] = make_float4(small[4], small[5], small[6], small[7]);
+    if (Wide<T>::value) {
+      float4* l = reinterpret_cast<float4*>(lo + p * LDV + 2 * d);
+      l[0] = make_float4(small[0], small[1], small[2], small[3]);
+      l[1] = make_float4(small[4], small[5], small[6], small[7]);
+    }
   }
 }
 
@@ -457,25 +558,40 @@ __device__ __forceinline__ FragB frag_b_pairs(const float* hi,
   return f;
 }
 
-template <int DP>
+template <int DP, typename T>
+struct FwdSmem : Tiles<DP, T> {
+  using B = Tiles<DP, T>;
+  static constexpr int kPairs = kBs / 2 * (2 * DP + 8);   // split v tile
+  static constexpr int rk = kFwdRows * DP;      // after q
+  static constexpr int rv = rk + B::kStage;
+  static constexpr int kh = rv + B::kStage;
+  static constexpr int kl = kh + B::kSplit;
+  static constexpr int vh = kl + B::kLo * B::kSplit;
+  static constexpr int vl = vh + kPairs;
+  static constexpr int total = vl + B::kLo * kPairs;
+};
+
+template <int DP, typename T>
 __global__ void __launch_bounds__(kFwdThreads, DP <= 64 ? 3 : 1)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Tq, int Tk, int D,
                  int causal, float scale, int vec) {
+  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;       // row stride of the split k tiles
   constexpr int LDV = 2 * DP + 8;  // of the split v tiles (key pairs)
   constexpr int NK = DP / 8;       // depth steps of q k^T; column tiles of out
   constexpr int NS = kBs / 8;      // column tiles of s; depth steps of p v
   constexpr int CH = NK < kChunk ? NK : kChunk;   // out tiles per pass
+  using L = FwdSmem<DP, T>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                  // kFwdRows x DP, fragment order
-  float* rK = sQ + kFwdRows * DP;    // the next k tile, kBs x DP staging
-  float* rV = rK + kBs * DP;         // the next v tile
-  float* sKh = rV + kBs * DP;        // k, big part, kBs x LD
-  float* sKl = sKh + kBs * LD;       // k, small part
-  float* sVh = sKl + kBs * LD;       // v, big part, kBs / 2 x LDV
-  float* sVl = sVh + kBs / 2 * LDV;  // v, small part
+  T* rK = reinterpret_cast<T*>(smem + L::rk);   // the next k tile, staging
+  T* rV = reinterpret_cast<T*>(smem + L::rv);   // the next v tile
+  float* sKh = smem + L::kh;         // k, big part, kBs x LD
+  float* sKl = W ? smem + L::kl : sKh;   // k, small part
+  float* sVh = smem + L::vh;         // v, big part, kBs / 2 x LDV
+  float* sVl = W ? smem + L::vl : sVh;   // v, small part
 
   const int nq = gridDim.x;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kFwdRows;   // heaviest first
@@ -536,7 +652,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-      mma3(part, 0, aq, bk);
+      mma3<W, W>(part, 0, aq, bk);
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -598,7 +714,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < CH; ++n)
           bv[n] = frag_b_pairs(sVh, sVl, LDV, j, (c0 + n) * 8, g, t);
-        mma3(pv, c0, ap, bv);
+        mma3<true, W>(pv, c0, ap, bv);
       }
     }
 #pragma unroll
@@ -633,30 +749,45 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // B2a: dQ
 // ---------------------------------------------------------------------------
 
-template <int DP>
+template <int DP, typename T>
+struct DqSmem : Tiles<DP, T> {
+  using B = Tiles<DP, T>;
+  static constexpr int o = kB * DP;             // after q
+  static constexpr int rk = o + kB * DP;
+  static constexpr int rv = rk + B::kStage;
+  static constexpr int kh = rv + B::kStage;
+  static constexpr int kl = kh + B::kSplit;
+  static constexpr int vh = kl + B::kLo * B::kSplit;
+  static constexpr int vl = vh + B::kSplit;
+  static constexpr int s = vl + B::kLo * B::kSplit;
+  static constexpr int total = s + kB * (kBs + 8);
+};
+
+template <int DP, typename T>
 __global__ void __launch_bounds__(kBwdThreads, DP <= 64 ? 2 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int H, int Tq, int Tk, int D, int causal, float scale,
                     int vec) {
+  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;
   constexpr int LDS = kBs + 8;    // row stride of the ds tile
   constexpr int NK = DP / 8;      // depth steps over d; column tiles of dq
   constexpr int NS = kBs / 8;     // column tiles of a score tile
   constexpr int CH = NK < kChunk ? NK : kChunk;   // dq tiles per pass
+  using L = DqSmem<DP, T>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;               // 64 x DP, fragment order
-  float* sO = sQ + kB * DP;       // dO, 64 x DP, fragment order
-  float* rK = sO + kB * DP;       // the next k tile, kBs x DP staging
-  float* rV = rK + kBs * DP;      // the next v tile
-  float* sKh = rV + kBs * DP;     // k, big part, kBs x LD
-  float* sKl = sKh + kBs * LD;    // k, small part
-  float* sVh = sKl + kBs * LD;    // v, big part
-  float* sVl = sVh + kBs * LD;    // v, small part
-  float* sS = sVl + kBs * LD;     // ds, 64 x LDS
+  float* sO = smem + L::o;        // dO, 64 x DP, fragment order
+  T* rK = reinterpret_cast<T*>(smem + L::rk);   // the next k tile, staging
+  T* rV = reinterpret_cast<T*>(smem + L::rv);   // the next v
+  float* sKh = smem + L::kh;      // k, big part, kBs x LD
+  float* sKl = W ? smem + L::kl : sKh;   // k, small part
+  float* sVh = smem + L::vh;      // v, big part
+  float* sVl = W ? smem + L::vl : sVh;   // v, small part
+  float* sS = smem + L::s;        // ds, 64 x LDS
 
   const int nq = gridDim.x;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kB;   // heaviest first
@@ -717,7 +848,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         bk[n] = frag_b_rows(sKh, sKl, LD, n * 8, kk * 8, g, t);
         bv[n] = frag_b_rows(sVh, sVl, LD, n * 8, kk * 8, g, t);
       }
-      mma3x2(s, dp, 0, aq, bk, ao, bv);
+      mma3x2<W, W>(s, dp, 0, aq, bk, ao, bv);
     }
 
     // ds = p (dp - delta) scale, p = exp(s scale - lse), into shared memory
@@ -753,7 +884,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < CH; ++n)
           bk[n] = frag_b(sKh, sKl, LD, kk * 8, (c0 + n) * 8, g, t);
-        mma3(acc, c0, a, bk);
+        mma3<true, W>(acc, c0, a, bk);
       }
     }
   }
@@ -764,37 +895,55 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // B2b: dK and dV
 // ---------------------------------------------------------------------------
 
-template <int DP>
+template <int DP, typename T>
+struct DkvSmem : Tiles<DP, T> {
+  using B = Tiles<DP, T>;
+  static constexpr int v = kB * DP;             // after k
+  static constexpr int rq = v + kB * DP;
+  static constexpr int ro = rq + B::kStage;
+  static constexpr int rl = ro + B::kStage;
+  static constexpr int rd = rl + kBs;
+  static constexpr int qh = rd + kBs;
+  static constexpr int ql = qh + B::kSplit;
+  static constexpr int oh = ql + B::kLo * B::kSplit;
+  static constexpr int ol = oh + B::kSplit;
+  static constexpr int p = ol + B::kLo * B::kSplit;
+  static constexpr int s = p + kB * (kBs + 8);
+  static constexpr int l = s + kB * (kBs + 8);
+  static constexpr int d = l + kBs;
+  static constexpr int total = d + kBs;
+};
+
+template <int DP, typename T>
 __global__ void __launch_bounds__(kBwdThreads, DP <= 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int H,
-                     int Tq, int Tk, int D, int causal, float scale,
-                     int vec) {
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Tq, int Tk, int D,
+                     int causal, float scale, int vec) {
+  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;
   constexpr int LDP = kBs + 8;    // row stride of the p^T and ds^T tiles
   constexpr int NK = DP / 8;      // depth steps over d; column tiles of dk
   constexpr int NS = kBs / 8;     // column tiles of a score tile
   constexpr int CH = NK < kChunk / 2 ? NK : kChunk / 2;  // dk, dv per pass
+  using L = DkvSmem<DP, T>;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;               // 64 x DP, this block's keys, fragment order
-  float* sV = sK + kB * DP;       // 64 x DP, fragment order
-  float* rQ = sV + kB * DP;       // the next q tile, kBs x DP staging
-  float* rO = rQ + kBs * DP;      // the next dO tile
-  float* rL = rO + kBs * DP;      // the next lse, kBs
-  float* rD = rL + kBs;           // the next delta, kBs
-  float* sQh = rD + kBs;          // the current q tile, big part, kBs x LD
-  float* sQl = sQh + kBs * LD;    // small part
-  float* sOh = sQl + kBs * LD;    // dO, big part
-  float* sOl = sOh + kBs * LD;    // dO, small part
-  float* sP = sOl + kBs * LD;     // p^T, 64 (k) x LDP (q)
-  float* sS = sP + kB * LDP;      // ds^T, 64 (k) x LDP (q)
-  float* sL = sS + kB * LDP;      // lse of the q tile, kBs
-  float* sD = sL + kBs;           // delta of the q tile, kBs
+  float* sV = smem + L::v;        // 64 x DP, fragment order
+  T* rQ = reinterpret_cast<T*>(smem + L::rq);   // the next q tile, staging
+  T* rO = reinterpret_cast<T*>(smem + L::ro);   // the next dO
+  float* rL = smem + L::rl;       // the next lse, kBs
+  float* rD = smem + L::rd;       // the next delta, kBs
+  float* sQh = smem + L::qh;      // the current q tile, big part, kBs x LD
+  float* sQl = W ? smem + L::ql : sQh;   // small part
+  float* sOh = smem + L::oh;      // dO, big part
+  float* sOl = W ? smem + L::ol : sOh;   // dO, small part
+  float* sP = smem + L::p;        // p^T, 64 (k) x LDP (q)
+  float* sS = smem + L::s;        // ds^T, 64 (k) x LDP (q)
+  float* sL = smem + L::l;        // lse of the q tile, kBs
+  float* sD = smem + L::d;        // delta of the q tile, kBs
 
   // causal: early k tiles have the most q tiles to visit, so they go first
   const int k0 = (int)blockIdx.x * kB;
@@ -857,7 +1006,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
         bq[n] = frag_b_rows(sQh, sQl, LD, n * 8, kk * 8, g, t);
         bo[n] = frag_b_rows(sOh, sOl, LD, n * 8, kk * 8, g, t);
       }
-      mma3x2(st, dpt, 0, fk, bq, fv, bo);
+      mma3x2<W, W>(st, dpt, 0, fk, bq, fv, bo);
     }
 
 #pragma unroll
@@ -902,7 +1051,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
           bo[n] = frag_b(sOh, sOl, LD, kk * 8, (c0 + n) * 8, g, t);
           bq[n] = frag_b(sQh, sQl, LD, kk * 8, (c0 + n) * 8, g, t);
         }
-        mma3x2(av, ak, c0, ap, bo, as, bq);
+        mma3x2<true, W>(av, ak, c0, ap, bo, as, bq);
       }
     }
   }
@@ -922,61 +1071,56 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// whole 16-byte copies: D a multiple of 4 and every (B, T, H, D) operand
-// 16-byte aligned
-int vec_copies(int D, const float* a, const float* b, const float* c,
-               const float* d) {
+// whole 16-byte copies: D a multiple of the elements in 16 bytes (4 f32,
+// 8 bf16) and every (B, T, H, D) operand 16-byte aligned
+template <typename T>
+int vec_copies(int D, const T* a, const T* b, const T* c, const T* d) {
   const uintptr_t any = reinterpret_cast<uintptr_t>(a) |
                         reinterpret_cast<uintptr_t>(b) |
                         reinterpret_cast<uintptr_t>(c) |
                         reinterpret_cast<uintptr_t>(d);
-  return D % 4 == 0 && any % 16 == 0;
+  return D % (16 / sizeof(T)) == 0 && any % 16 == 0;
 }
 
-template <int DP>
-int launch_fwd(const float* q, const float* k, const float* v, float* out,
-               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
-               float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((kFwdRows + 2 * kBs) * DP +
-                                       2 * kBs * (DP + 8) +
-                                       kBs * (2 * DP + 8));
-  cudaError_t rc = prepare(flash_fwd_kernel<DP>, smem);
+template <int DP, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B,
+               int H, int Tq, int Tk, int D, int causal, float scale,
+               cudaStream_t st) {
+  const size_t smem = sizeof(float) * FwdSmem<DP, T>::total;
+  cudaError_t rc = prepare(flash_fwd_kernel<DP, T>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tq + kFwdRows - 1) / kFwdRows, B * H);
-  flash_fwd_kernel<DP><<<grid, kFwdThreads, smem, st>>>(
+  flash_fwd_kernel<DP, T><<<grid, kFwdThreads, smem, st>>>(
       q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, v));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_dq(const float* q, const float* k, const float* v,
-              const float* dout, const float* lse, const float* delta,
-              float* dq, int B, int H, int Tq, int Tk, int D, int causal,
-              float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (2 * (kB + kBs) * DP +
-                                       4 * kBs * (DP + 8) + kB * (kBs + 8));
-  cudaError_t rc = prepare(flash_bwd_dq_kernel<DP>, smem);
+template <int DP, typename T>
+int launch_dq(const T* q, const T* k, const T* v, const T* dout,
+              const float* lse, const float* delta, T* dq, int B, int H,
+              int Tq, int Tk, int D, int causal, float scale,
+              cudaStream_t st) {
+  const size_t smem = sizeof(float) * DqSmem<DP, T>::total;
+  cudaError_t rc = prepare(flash_bwd_dq_kernel<DP, T>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tq + kB - 1) / kB, B * H);
-  flash_bwd_dq_kernel<DP><<<grid, kBwdThreads, smem, st>>>(
+  flash_bwd_dq_kernel<DP, T><<<grid, kBwdThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dq, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_dkv(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               float* dk, float* dv, int B, int H, int Tq, int Tk, int D,
-               int causal, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (2 * (kB + kBs) * DP +
-                                       4 * kBs * (DP + 8) +
-                                       2 * kB * (kBs + 8) + 4 * kBs);
-  cudaError_t rc = prepare(flash_bwd_dkv_kernel<DP>, smem);
+template <int DP, typename T>
+int launch_dkv(const T* q, const T* k, const T* v, const T* dout,
+               const float* lse, const float* delta, T* dk, T* dv, int B,
+               int H, int Tq, int Tk, int D, int causal, float scale,
+               cudaStream_t st) {
+  const size_t smem = sizeof(float) * DkvSmem<DP, T>::total;
+  cudaError_t rc = prepare(flash_bwd_dkv_kernel<DP, T>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tk + kB - 1) / kB, B * H);
-  flash_bwd_dkv_kernel<DP><<<grid, kBwdThreads, smem, st>>>(
+  flash_bwd_dkv_kernel<DP, T><<<grid, kBwdThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
@@ -987,14 +1131,11 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
          (long long)B * H > 65535;
 }
 
-}  // namespace
-
-// out (B, Tq, H, D); lse (B*H, Tq) or null (then it is not written).
-extern "C" int mxt_flash_attention_fwd(const float* q, const float* k,
-                                       const float* v, float* out,
-                                       float* lse, int B, int H, int Tq,
-                                       int Tk, int D, int causal,
-                                       float scale, void* stream) {
+// the three entry points of one element type: the template for DP in
+// {32, 64, 128} that holds D
+template <typename T>
+int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int H,
+        int Tq, int Tk, int D, int causal, float scale, void* stream) {
   if (bad_shape(B, H, Tq, Tk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1008,13 +1149,10 @@ extern "C" int mxt_flash_attention_fwd(const float* q, const float* k,
                          st);
 }
 
-extern "C" int mxt_flash_attention_bwd_dq(const float* q, const float* k,
-                                          const float* v, const float* dout,
-                                          const float* lse,
-                                          const float* delta, float* dq,
-                                          int B, int H, int Tq, int Tk, int D,
-                                          int causal, float scale,
-                                          void* stream) {
+template <typename T>
+int bwd_dq(const T* q, const T* k, const T* v, const T* dout,
+           const float* lse, const float* delta, T* dq, int B, int H, int Tq,
+           int Tk, int D, int causal, float scale, void* stream) {
   if (bad_shape(B, H, Tq, Tk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1028,13 +1166,10 @@ extern "C" int mxt_flash_attention_bwd_dq(const float* q, const float* k,
                         causal, scale, st);
 }
 
-extern "C" int mxt_flash_attention_bwd_dkv(const float* q, const float* k,
-                                           const float* v, const float* dout,
-                                           const float* lse,
-                                           const float* delta, float* dk,
-                                           float* dv, int B, int H, int Tq,
-                                           int Tk, int D, int causal,
-                                           float scale, void* stream) {
+template <typename T>
+int bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
+            const float* lse, const float* delta, T* dk, T* dv, int B, int H,
+            int Tq, int Tk, int D, int causal, float scale, void* stream) {
   if (bad_shape(B, H, Tq, Tk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1046,4 +1181,64 @@ extern "C" int mxt_flash_attention_bwd_dkv(const float* q, const float* k,
                           causal, scale, st);
   return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
                          causal, scale, st);
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// out (B, Tq, H, D); lse (B*H, Tq) or null (then it is not written).
+extern "C" int mxt_flash_attention_fwd(const float* q, const float* k,
+                                       const float* v, float* out,
+                                       float* lse, int B, int H, int Tq,
+                                       int Tk, int D, int causal,
+                                       float scale, void* stream) {
+  return fwd(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dq(const float* q, const float* k,
+                                          const float* v, const float* dout,
+                                          const float* lse,
+                                          const float* delta, float* dq,
+                                          int B, int H, int Tq, int Tk, int D,
+                                          int causal, float scale,
+                                          void* stream) {
+  return bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, causal,
+                scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dkv(const float* q, const float* k,
+                                           const float* v, const float* dout,
+                                           const float* lse,
+                                           const float* delta, float* dk,
+                                           float* dv, int B, int H, int Tq,
+                                           int Tk, int D, int causal,
+                                           float scale, void* stream) {
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D, causal,
+                 scale, stream);
+}
+
+// B9: the same in bf16 (q, k, v, dO, out, dq, dk, dv); lse and delta f32.
+extern "C" int mxt_flash_attention_fwd_bf16(const bf16* q, const bf16* k,
+                                            const bf16* v, bf16* out,
+                                            float* lse, int B, int H, int Tq,
+                                            int Tk, int D, int causal,
+                                            float scale, void* stream) {
+  return fwd(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dq_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const float* lse, const float* delta, bf16* dq, int B, int H, int Tq,
+    int Tk, int D, int causal, float scale, void* stream) {
+  return bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, causal,
+                scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dkv_bf16(
+    const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+    const float* lse, const float* delta, bf16* dk, bf16* dv, int B, int H,
+    int Tq, int Tk, int D, int causal, float scale, void* stream) {
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D, causal,
+                 scale, stream);
 }

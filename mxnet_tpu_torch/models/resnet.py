@@ -7,9 +7,10 @@ units from depth 50).  Images of height <= 32 take the cifar stem (one
 3x3 convolution), larger ones the imagenet stem (7x7 stride-2
 convolution, batch norm, relu, 3x3 stride-2 max pool); height <= 28 gives
 three stages.  ``layout="NHWC"`` builds the channels-last graph (NHWC
-convolutions with OHWI weights, batch norm over axis 3).  The port trains
-in float32 only: another ``dtype`` builds the graph, and the trainer
-refuses a non-f32 ``param_dtype``.
+convolutions with OHWI weights, batch norm over axis 3).  Another
+``dtype`` (bench.py's ``bfloat16``) casts the data to it after the input
+and the logits back to float32 before the head, so type inference gives
+the convolutions and batch norms that dtype.
 """
 from __future__ import annotations
 

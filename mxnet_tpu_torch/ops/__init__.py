@@ -4,12 +4,26 @@ of the imperative API and the LM graph (:mod:`.init_ops`,
 :mod:`.random_ops`, :mod:`.nn`, with the parameter-shape hooks of
 :mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), and the
 hand-written CUDA kernels (:mod:`.kernels`) with their build
-(:mod:`.build`)."""
+(:mod:`.build`).
+
+Importing the package sets one process-wide cuBLAS policy, before any op
+runs: bf16 and f16 matrix products (``FullyConnected``, ``dot``,
+``batch_dot``, the attention's einsums) accumulate in f32 to the end, as
+the reference's do, with no split-K reduction in the input's precision
+(``torch.backends.cuda.matmul.allow_{bf16,fp16}_reduced_precision_
+reduction = False``).  Every low-precision product of the port, and the
+caller's own, then rounds one way whatever ran before it; a caller who
+sets the flags back after the import gets ATen's rounding everywhere."""
+import torch as _torch
+
 from . import build, kernels
 from . import registry, init_ops, elemwise, broadcast_reduce, matrix
 from . import random_ops, nn, shape_hints, optimizer_ops
 from .kernels import (LAUNCHES, decode_attention, flash_attention,
                       quant_matmul, quantize_weight)
+
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+_torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 __all__ = ["build", "kernels", "registry", "init_ops", "elemwise",
            "broadcast_reduce", "matrix", "random_ops", "nn", "shape_hints",

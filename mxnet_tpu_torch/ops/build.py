@@ -58,7 +58,11 @@ _SIGNATURES = {
         # q, k, v, dO, lse, delta, dq | ...
         "mxt_flash_attention_bwd_dq": [_P] * 7 + [_I] * 6 + [_F, _P],
         # q, k, v, dO, lse, delta, dk, dv | ...
-        "mxt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P]},
+        "mxt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
+        # the same three in bf16 (lse and delta f32)
+        "mxt_flash_attention_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "mxt_flash_attention_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "mxt_flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _P]},
     "embedding": {
         # host descriptors (7 int64 words per segment: table, ids, out,
         # rows, D, n, vec) | count | stream

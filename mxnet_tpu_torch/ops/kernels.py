@@ -1,7 +1,8 @@
 """The port's kernels: on the decode path paged decode attention and
 weight-only quantized matmul, on the training path flash attention
-forward, dQ and dK/dV, on the kvstore's push two-bit gradient
-compression (port of ``mxnet_tpu/ops/pallas_kernels.py``).
+forward, dQ and dK/dV (f32, and bf16 as bench.py trains), on the
+kvstore's push two-bit gradient compression (port of
+``mxnet_tpu/ops/pallas_kernels.py``).
 
 Each kernel has three parts here:
 
@@ -53,13 +54,16 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "two_bit_segments_per_launch"]
 
 # launches per kernel; quant_matmul's two template instantiations count
-# apart, the flash forward counts with and without the lse alike, and the
+# apart, the flash kernels' f32 and bf16 entry points count apart (the
+# bf16 ones under ``*_bf16``), the flash forward counts with and without
+# the lse alike, and the
 # embedding kernels (``mxnet_tpu_torch.sparse.kernels``) and the user
 # kernels of ``rtc.CudaModule`` (all under "rtc") count here too
 LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "quant_matmul_int4": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-            "embedding_gather": 0, "embedding_scatter": 0,
+            "flash_attention_fwd_bf16": 0, "flash_attention_bwd_dq_bf16": 0,
+            "flash_attention_bwd_dkv_bf16": 0, "embedding_gather": 0, "embedding_scatter": 0,
             "two_bit_compress": 0, "rtc": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
@@ -413,9 +417,16 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
     return dq, dk, dv
 
 
+# the flash kernels' element types: f32 (B1, B2a, B2b) and bf16 (B9), each
+# its own C entry point (``*_bf16``) and launch count
+_FLASH_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 def _check_flash(name, q, k, v, *rows):
     """Device, dtype, shape and contiguity of a flash kernel's operands;
-    ``rows`` are the (B*H, Tq) lse/delta vectors."""
+    ``rows`` are the (B*H, Tq) lse/delta vectors.  q, k and v are one
+    dtype, float32 or bfloat16; the rows are float32.  Returns the suffix
+    of the entry point and launch count for that dtype."""
     _require(q.device.type == "cuda", "%s: no kernel for device %s", name,
              q.device)
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
@@ -428,38 +439,45 @@ def _check_flash(name, q, k, v, *rows):
              tuple(k.shape))
     _require(D <= 128, "%s: head_dim %d > 128", name, D)
     _require(B * H <= 65535, "%s: B*H = %d > 65535", name, B * H)
-    for t in (q, k, v) + rows:
-        _require(t.dtype == torch.float32, "%s: %s tensor where float32 is "
-                 "required", name, t.dtype)
+    _require(q.dtype in _FLASH_DTYPES, "%s: %s tensors where float32 or "
+             "bfloat16 is required", name, q.dtype)
+    for t in (k, v):
+        _require(t.dtype == q.dtype, "%s: %s tensor beside %s q", name,
+                 t.dtype, q.dtype)
+    for t in rows:
+        _require(t.dtype == torch.float32, "%s: %s lse/delta where float32 "
+                 "is required", name, t.dtype)
     for t in rows:
         _require(tuple(t.shape) == (B * H, Tq), "%s: row vector %s, want "
                  "(%d, %d)", name, tuple(t.shape), B * H, Tq)
     _check_cuda(name, q, k, v, *rows)
+    return _FLASH_DTYPES[q.dtype]
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, with_lse=True):
-    """Flash attention forward over (B, T, H, D) f32 tensors; returns
-    ``(out, lse)`` with ``lse`` (B*H, Tq) f32, or ``None`` when
-    ``with_lse`` is false (nothing will differentiate).
+    """Flash attention forward over (B, T, H, D) f32 or bf16 tensors;
+    returns ``(out, lse)`` with ``out`` in the input dtype and ``lse``
+    (B*H, Tq) f32, or ``None`` when ``with_lse`` is false (nothing will
+    differentiate).
 
-    CUDA tensors launch ``mxt_flash_attention_fwd`` of
+    CUDA tensors launch ``mxt_flash_attention_fwd`` (``_bf16``) of
     ``csrc/flash_attention.cu``; CPU tensors run
     :func:`flash_attention_fwd_plain`; anything else raises."""
     scale = _flash_scale(q.shape[-1], scale)
     if _plain_device(q):
         out, lse = flash_attention_fwd_plain(q, k, v, causal, scale)
         return out, (lse if with_lse else None)
-    _check_flash("flash_attention_fwd", q, k, v)
+    name = "flash_attention_fwd" + _check_flash("flash_attention_fwd", q, k,
+                                                 v)
     B, Tq, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    fn = build.library("flash_attention").mxt_flash_attention_fwd
-    _launch("flash_attention_fwd", q.device, fn, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), B, H, Tq, k.shape[1],
-            D, int(bool(causal)), scale)
-    LAUNCHES["flash_attention_fwd"] += 1
+    fn = getattr(build.library("flash_attention"), "mxt_" + name)
+    _launch(name, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), B, H,
+            Tq, k.shape[1], D, int(bool(causal)), scale)
+    LAUNCHES[name] += 1
     return out, lse
 
 
@@ -472,18 +490,18 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     if _plain_device(q):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
                                             scale)
-    _check_flash("flash_attention_bwd_dq", q, k, v, lse, delta)
+    name = "flash_attention_bwd_dq" + _check_flash(
+        "flash_attention_bwd_dq", q, k, v, lse, delta)
     _require(do.shape == q.shape, "flash_attention_bwd_dq: dO %s for q %s",
              tuple(do.shape), tuple(q.shape))
     _check_flash("flash_attention_bwd_dq", do, k, v)
     B, Tq, H, D = q.shape
     dq = torch.empty_like(q)
-    fn = build.library("flash_attention").mxt_flash_attention_bwd_dq
-    _launch("flash_attention_bwd_dq", q.device, fn, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), B, H, Tq, k.shape[1], D,
-            int(bool(causal)), scale)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    fn = getattr(build.library("flash_attention"), "mxt_" + name)
+    _launch(name, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, H, Tq, k.shape[1], D, int(bool(causal)), scale)
+    LAUNCHES[name] += 1
     return dq
 
 
@@ -496,19 +514,20 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     if _plain_device(q):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                              causal, scale)
-    _check_flash("flash_attention_bwd_dkv", q, k, v, lse, delta)
+    name = "flash_attention_bwd_dkv" + _check_flash(
+        "flash_attention_bwd_dkv", q, k, v, lse, delta)
     _require(do.shape == q.shape, "flash_attention_bwd_dkv: dO %s for q %s",
              tuple(do.shape), tuple(q.shape))
     _check_flash("flash_attention_bwd_dkv", do, k, v)
     B, Tq, H, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = build.library("flash_attention").mxt_flash_attention_bwd_dkv
-    _launch("flash_attention_bwd_dkv", q.device, fn, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Tq,
-            k.shape[1], D, int(bool(causal)), scale)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    fn = getattr(build.library("flash_attention"), "mxt_" + name)
+    _launch(name, q.device, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, H, Tq, k.shape[1], D, int(bool(causal)),
+            scale)
+    LAUNCHES[name] += 1
     return dk, dv
 
 

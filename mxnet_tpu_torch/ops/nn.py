@@ -41,9 +41,18 @@ import torch.nn.functional as F
 from ..base import (MXNetError, NotPortedYet, Param, attr_bool, attr_float,
                     attr_int, attr_shape, attr_str)
 from . import kernels
+from .elemwise import _int_to_f64
+from .matrix import _fill, _in_range
 from .registry import register
 
 __all__ = ["FLASH_MIN_SEQ"]
+
+
+def _int_to_f32(x):
+    """``x``, or float32 for an integer or boolean tensor: the dtype the
+    JAX package's softmax, gelu and normalisation give integer input
+    (ATen's kernels take no integers)."""
+    return x if x.is_floating_point() or x.is_complex() else x.float()
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +141,13 @@ def _deconvolution(attrs, x, w, bias=None):
     nd, stride, dilate, pad = _conv_geometry(attrs)
     adj = tuple(attrs.adj or (0,) * nd)
     _no_cudnn_tf32(x)
+    if not x.is_floating_point():
+        # integer data keeps its dtype, as in the reference; ATen's
+        # transposed convolution takes no integers, and float64 holds
+        # every sum of these products exactly
+        out = _deconvolution(attrs, x.double(), w.double(),
+                             None if bias is None else bias.double())
+        return out.to(x.dtype)
     full = _CONV_T[nd](x, w, None, stride, 0, 0, attrs.num_group, dilate)
     crop = []
     for i in range(nd):
@@ -173,7 +189,7 @@ def _pool_window(x, kind, kernel, stride, pads):
         for i, (k, s) in enumerate(zip(kernel, stride)):
             x = x.unfold(2 + i, k, s)
         dims = tuple(range(-nd, 0))
-        return x.amax(dims) if kind == "max" else x.sum(dims)
+        return x.amax(dims) if kind == "max" else x.sum(dims, dtype=x.dtype)
     if kind == "max":
         return _MAX_POOL[nd](x, kernel, stride)
     if nd == 1:
@@ -195,7 +211,9 @@ def _pooling(attrs, x):
     Max pads with -inf (``iinfo.min`` for integers) for any ``pad``; avg
     divides every window by ``prod(kernel)``, padding included, also
     where ``pooling_convention="full"`` extends the right padding so that
-    the output size rounds up."""
+    the output size rounds up.  Integer data: the sum keeps its dtype
+    (and wraps, as in the reference), avg is that sum divided in
+    float64."""
     nd = x.dim() - 2
     nhwc = attrs.layout == "NHWC"
     if nhwc:
@@ -219,7 +237,7 @@ def _pooling(attrs, x):
     else:
         out = _pool_window(x, "sum", kernel, stride, pads)
         if attrs.pool_type != "sum":
-            out = out / float(np.prod(kernel))
+            out = _int_to_f64(out) / float(np.prod(kernel))
     return out.movedim(1, -1) if nhwc else out
 
 
@@ -259,7 +277,7 @@ def _act(name):
         "softrelu": F.softplus,
         "softsign": F.softsign,
         # exact erf formulation, as the reference GELU
-        "gelu": lambda v: F.gelu(v, approximate="none"),
+        "gelu": lambda v: F.gelu(_int_to_f32(v), approximate="none"),
     }[name]
 
 
@@ -282,8 +300,12 @@ def _lrelu_inputs(attrs):
           needs_rng=True, mode_dependent=True)
 def _leaky_relu(attrs, gen, x, gamma=None):
     """leaky, elu, prelu (a learnt slope per channel), rrelu (a uniform
-    slope per element in training, the mean slope otherwise) and gelu."""
+    slope per element in training, the mean slope otherwise) and gelu.
+    Integer data: leaky and rrelu give float64 (a float slope times an
+    integer, as in the reference), gelu float32."""
     t = attrs.act_type
+    if t in ("leaky", "rrelu"):
+        x = _int_to_f64(x)
     if t == "leaky":
         return torch.where(x >= 0, x, attrs.slope * x)
     if t == "elu":
@@ -302,12 +324,17 @@ def _leaky_relu(attrs, gen, x, gamma=None):
             slope = (lo + hi) / 2.0
         return torch.where(x >= 0, x, slope * x)
     if t == "gelu":
-        return F.gelu(x, approximate="none")
+        return F.gelu(_int_to_f32(x), approximate="none")
     raise ValueError("unknown act_type %s" % t)
 
 
 def _temperature(attrs, x):
-    return x / attrs.temperature if attrs.temperature is not None else x
+    """``x / temperature``; integer data is float64 divided by a
+    temperature (a float scalar's promotion in the reference), float32
+    without one."""
+    if attrs.temperature is not None:
+        return _int_to_f64(x) / attrs.temperature
+    return _int_to_f32(x)
 
 
 @register("softmax", inputs=("data",),
@@ -325,6 +352,7 @@ def _log_softmax(attrs, x):
 @register("SoftmaxActivation", inputs=("data",),
           params=dict(mode=attr_str("instance")))
 def _softmax_activation(attrs, x):
+    x = _int_to_f32(x)
     if attrs.mode == "channel":
         return torch.softmax(x, dim=1)
     return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
@@ -369,9 +397,9 @@ def _layer_norm(attrs, x, gamma, beta):
           writeback={3: 3, 4: 4}, aux_inputs=(3, 4), mode_dependent=True,
           aliases=("BatchNorm_v1",))
 def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
-    """Statistics in f32, the result back in the input dtype.  In
-    training (``_train`` and not ``use_global_stats``) the batch's mean
-    and biased variance normalise and move the statistics
+    """Statistics and affine parameters in f32, the result back in the
+    input dtype.  In training (``_train`` and not ``use_global_stats``)
+    the batch's mean and biased variance normalise and move the statistics
     (``m*old + (1-m)*batch``); otherwise the moving ones normalise.
     ``fix_gamma`` takes gamma as ones, so its gradient is 0.  The
     normalisation is ``F.batch_norm`` (cuDNN on the card) with the
@@ -380,25 +408,49 @@ def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
     ax = attrs.axis % x.dim()
     train = attrs.get("_train", False) and not attrs.use_global_stats
     xf = x.float().movedim(ax, 1)
-    g = torch.ones_like(gamma) if attrs.fix_gamma else gamma
+    # f32 affine parameters whatever their own dtype (a graph that casts
+    # its data to f16 or bf16 infers them in that dtype), as the
+    # reference promotes them against its f32 statistics
+    g = torch.ones_like(gamma, dtype=torch.float32) if attrs.fix_gamma \
+        else gamma.float()
+    beta = beta.float()
     if train:
+        red = [i for i in range(xf.dim()) if i != 1]
         with torch.no_grad():
-            red = [i for i in range(xf.dim()) if i != 1]
             var, mean = torch.var_mean(xf, dim=red, correction=0)
         m = attrs.momentum
         new_mm = mov_mean * m + mean * (1 - m)
         new_mv = mov_var * m + var * (1 - m)
-        out = F.batch_norm(xf, None, None, g, beta, True, 0.0, attrs.eps)
+        if xf.numel() == xf.shape[1]:
+            # one value per channel: the reference normalises by a zero
+            # variance, where ATen's batch norm refuses to train
+            bshape = (1, -1) + (1,) * (xf.dim() - 2)
+            mu = xf.mean(dim=red, keepdim=True)
+            out = (xf - mu) * torch.rsqrt(
+                ((xf - mu) ** 2).mean(dim=red, keepdim=True) + attrs.eps) \
+                * g.reshape(bshape) + beta.reshape(bshape)
+        else:
+            out = F.batch_norm(xf, None, None, g, beta, True, 0.0,
+                               attrs.eps)
     else:
         mean, var, new_mm, new_mv = mov_mean, mov_var, mov_mean, mov_var
-        out = F.batch_norm(xf, mov_mean, mov_var, g, beta, False, 0.0,
-                           attrs.eps)
+        if mean.dtype == var.dtype == torch.float32:
+            out = F.batch_norm(xf, mean, var, g, beta, False, 0.0,
+                               attrs.eps)
+        else:
+            # statistics of another dtype: the reference's own formula,
+            # rsqrt in their dtype
+            bshape = (1, -1) + (1,) * (xf.dim() - 2)
+            inv = torch.rsqrt(var + attrs.eps)
+            out = (xf - mean.reshape(bshape)) * (inv * g).reshape(bshape) \
+                + beta.reshape(bshape)
     return out.movedim(1, ax).to(x.dtype), mean, var, new_mm, new_mv
 
 
 @register("InstanceNorm", inputs=("data", "gamma", "beta"),
           params=dict(eps=attr_float(1e-3)))
 def _instance_norm(attrs, x, gamma, beta):
+    x = _int_to_f32(x)
     red = tuple(range(2, x.dim()))
     var, mean = torch.var_mean(x, dim=red, correction=0, keepdim=True)
     bshape = (1, -1) + (1,) * (x.dim() - 2)
@@ -412,6 +464,7 @@ def _instance_norm(attrs, x, gamma, beta):
 def _lrn(attrs, x):
     """Local response norm across channels: ``x * (knorm + alpha/n *
     sum of x^2 over n neighbouring channels)^-beta``."""
+    x = _int_to_f64(x)     # integer data: float64, as in the reference
     n = attrs.nsize
     half = n // 2
     sq = F.pad((x * x).movedim(1, -1), (half, half))
@@ -445,6 +498,7 @@ def _dropout(attrs, gen, x):
     train = attrs.get("_train", False) or attrs.mode == "always"
     if not train or attrs.p <= 0:
         return x, torch.ones_like(x)
+    x = _int_to_f64(x)     # integer data: float64, as in the reference
     shape = list(x.shape)
     for ax in (attrs.axes or ()):
         shape[ax] = 1
@@ -459,6 +513,7 @@ def _dropout(attrs, gen, x):
 # ---------------------------------------------------------------------------
 
 def _softmax_fwd(attrs, d):
+    d = _int_to_f32(d)
     if attrs.multi_output and d.dim() > 2:
         return torch.softmax(d, dim=1)
     if attrs.preserve_shape:
@@ -642,9 +697,12 @@ def _svm_output(attrs, data, label):
     hinge gradient of the one-vs-rest margin (reference svm_output-inl.h)."""
 
     def grad(d, lab):
+        # a label past the axis reads NaN, a negative one counts from the
+        # end (the reference's take_along_axis); its one-hot row is zero
         li = lab.long()
         oh = _one_hot(li, d.shape[1], -1, d.dtype)
-        correct = d.gather(1, li.clamp(0, d.shape[1] - 1)[:, None])
+        i, ok = _in_range(li[:, None], d.shape[1])
+        correct = _fill(d.gather(1, i), ok)
         c = attrs.regularization_coefficient
         if attrs.use_linear:
             g = ((d - correct + attrs.margin) > 0).to(d.dtype) * c * (1 - oh)
@@ -671,10 +729,12 @@ def _ctc_loss(attrs, data, label):
     impossible state (so an impossible alignment costs about 1e30, not
     inf).  ``blank_label="first"``: channel 0 is the blank and label 0
     pads; ``"last"``: channel C-1 is the blank and a negative label pads.
-    A row of padding only is the empty label.  The gradient is autograd's
+    A row of padding only is the empty label; a label at or past the
+    alphabet's size emits NaN, so its example's loss is NaN, as the
+    reference's take_along_axis gives.  The gradient is autograd's
     through the recursion."""
     T, N, C = data.shape
-    logp = torch.log_softmax(data, dim=-1)
+    logp = torch.log_softmax(_int_to_f32(data), dim=-1)
     first = attrs.blank_label == "first"
     blank = 0 if first else C - 1
     lab = label.long()
@@ -688,7 +748,12 @@ def _ctc_loss(attrs, data, label):
     ext_m2 = F.pad(ext[:, :-2], (2, 0), value=-2)
     allow2 = (ext != blank) & (ext != ext_m2)
     neg = torch.full((N, S), _NEG_INF, dtype=logp.dtype, device=data.device)
-    emit0 = logp[0].gather(1, ext)
+    ext_i, ext_ok = _in_range(ext, C)
+
+    def emit(lp):
+        return _fill(lp.gather(1, ext_i), ext_ok)
+
+    emit0 = emit(logp[0])
     alpha = torch.where(torch.arange(S, device=data.device) == 0, emit0, neg)
     alpha = torch.where((torch.arange(S, device=data.device) == 1)
                         & (lab_len > 0)[:, None], emit0, alpha)
@@ -697,7 +762,7 @@ def _ctc_loss(attrs, data, label):
         a2 = F.pad(alpha[:, :-2], (2, 0), value=_NEG_INF)
         merged = torch.logaddexp(alpha, a1)
         merged = torch.where(allow2, torch.logaddexp(merged, a2), merged)
-        alpha = merged + logp[t].gather(1, ext)
+        alpha = merged + emit(logp[t])
     last = alpha.gather(1, (ext_len - 1)[:, None])[:, 0]
     last2 = torch.where(
         lab_len > 0,
@@ -708,9 +773,12 @@ def _ctc_loss(attrs, data, label):
 
 @register("softmax_cross_entropy", inputs=("data", "label"))
 def _softmax_cross_entropy(attrs, data, label):
-    """The total softmax cross-entropy as a length-1 array."""
-    picked = torch.log_softmax(data, dim=-1).gather(
-        -1, label.long()[:, None])[:, 0]
+    """The total softmax cross-entropy as a length-1 array.  A label past
+    the class axis picks NaN and a negative one counts from the end, as
+    the reference's take_along_axis (no host sync, no device assert)."""
+    logp = torch.log_softmax(_int_to_f32(data), dim=-1)
+    i, ok = _in_range(label.long()[:, None], logp.shape[-1])
+    picked = _fill(logp.gather(-1, i), ok)[:, 0]
     return -picked.sum()[None]
 
 

@@ -3,9 +3,10 @@ trainer half of ``mxnet_tpu/resilience/guards.py``).
 
 :func:`all_finite` reduces ``isfinite`` over the loss and every gradient
 on the device; :func:`scale_update` is the loss-scale automaton (grow
-after N consecutive good steps, halve on a bad one).  The JAX package
-traces both into its compiled step; here the step reads the verdict once
-on the host and applies the automaton there.  The host-side
+after N consecutive good steps, halve on a bad one), also on the device.
+The JAX package traces both into its compiled step; here the trainer's
+step runs them eagerly without reading the verdict on the host (its
+caller reads it once, for the non-finite budget).  The host-side
 ``GradientGuard`` of the imperative Module/gluon paths waits for those
 slices (ROADMAP).
 """
@@ -49,18 +50,27 @@ def all_finite(loss, grads):
 
 
 def scale_update(scale, good, ok, growth_interval, dynamic=True):
-    """One transition of the loss-scale automaton on host scalars.
+    """One transition of the loss-scale automaton, on the device (no host
+    sync): ``scale`` f32 and ``good`` int32 0-d tensors, ``ok`` the 0-d
+    bool verdict of :func:`all_finite` (host scalars are taken as 0-d
+    tensors).
 
     Good step: ``good + 1``, doubling ``scale`` (capped at MAX_SCALE) and
     resetting the streak once it reaches ``growth_interval``.  Bad step:
     halve ``scale`` (floored at MIN_SCALE), streak to 0.  With
     ``dynamic=False`` the scale is constant and only the streak moves.
-    Returns ``(scale, good)``."""
-    good2 = good + 1 if ok else 0
+    Returns ``(scale, good)`` as new tensors."""
+    import torch
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    good = torch.as_tensor(good, dtype=torch.int32, device=scale.device)
+    ok = torch.as_tensor(ok, device=scale.device)
+    good2 = torch.where(ok, good + 1, torch.zeros_like(good))
     if not dynamic:
-        return scale, good2
-    if not ok:
-        return max(scale * BACKOFF_FACTOR, MIN_SCALE), good2
-    if good2 >= growth_interval:
-        return min(scale * GROWTH_FACTOR, MAX_SCALE), 0
-    return scale, good2
+        return scale.clone(), good2
+    grow = ok & (good2 >= growth_interval)
+    scale2 = torch.where(
+        ok, torch.where(grow, (scale * GROWTH_FACTOR).clamp(max=MAX_SCALE),
+                        scale),
+        (scale * BACKOFF_FACTOR).clamp(min=MIN_SCALE))
+    good2 = torch.where(grow, torch.zeros_like(good2), good2)
+    return scale2, good2

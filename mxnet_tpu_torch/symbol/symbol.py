@@ -236,6 +236,15 @@ class Symbol:
     def __hash__(self):
         return id(self)
 
+    def __copy__(self):
+        """A new Symbol over the same nodes, as the reference's."""
+        return Symbol(list(self._entries))
+
+    def __deepcopy__(self, memo):
+        """A graph of new nodes through the JSON round trip, as the
+        reference's (``MXSymbolCopy`` relies on it)."""
+        return load_json(self.tojson())
+
     # -- method forms of the ops, as on NDArray --------------------------
     def reshape(self, *shape, **kw):
         if len(shape) == 1 and isinstance(shape[0], (list, tuple)):

@@ -4,7 +4,8 @@ and chunk boundaries, page ids out of the pool, bit-equal reruns, no host
 sync), the int8/int4 quantized matmul (at the decode step's shapes too),
 the three flash-attention kernels (forward, dQ, dK/dV; bit-equal reruns,
 and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
-meets), the embedding gather and scatter (runs of 1 to 1000 equal ids
+meets) and their bf16 entry points (B9, against the plain versions within
+one bf16 step), the embedding gather and scatter (runs of 1 to 1000 equal ids
 with inexact payloads, bit-equal to an in-order float32 fold) and the
 two-bit gradient compression at ragged and odd shapes that the
 full-width smoke run does not reach, both grouped kernels (the two-bit
@@ -54,6 +55,35 @@ def dev():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
+
+
+def test_bf16_products_round_one_way_whatever_ran_first(dev):
+    """The cuBLAS policy that importing the ops sets holds for every bf16
+    product, the caller's own included: ``dot``, ``batch_dot`` and an
+    einsum give the same bits before and after a ``FullyConnected``
+    ran, at a depth (K 16384) where cuBLAS would split the reduction."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    m = torch.backends.cuda.matmul
+    assert not m.allow_bf16_reduced_precision_reduction
+    assert not m.allow_fp16_reduced_precision_reduction
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(64, 16384, generator=g).to(dev, torch.bfloat16)
+    b = torch.randn(16384, 64, generator=g).to(dev, torch.bfloat16)
+    ops = {n: get_op(n) for n in ("dot", "batch_dot", "FullyConnected")}
+
+    def products():
+        return (ops["dot"].fn(ops["dot"].parse_attrs({}), a, b),
+                ops["batch_dot"].fn(ops["batch_dot"].parse_attrs({}),
+                                    a[None], b[None]),
+                torch.einsum("ik,kj->ij", a, b))
+
+    before = products()
+    fc = ops["FullyConnected"]
+    fc.fn(fc.parse_attrs({"num_hidden": 64, "no_bias": True}), a,
+          b.t().contiguous())
+    torch.cuda.synchronize()
+    for x, y in zip(before, products()):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("D,page,lens", [
@@ -488,6 +518,85 @@ def test_flash_kernels_refuse_wrong_dtype_and_shape(dev):
         kernels.flash_attention_fwd(big, big, big)
     with pytest.raises(MXNetError):
         kernels.flash_attention_fwd(q, q[:, :, :1], q)
+    with pytest.raises(MXNetError):     # one dtype for q, k and v
+        kernels.flash_attention_fwd(q.bfloat16(), q, q)
+
+
+# B9: the bf16 kernels.  Both sides compute in f32 from the same bf16
+# inputs and round out, dq, dk and dv to bf16, so an element may land one
+# bf16 step apart (2^-7 of its magnitude at most) on top of the f32
+# kernels' own tolerances (1e-5 for out and lse, 1e-4 for the gradients,
+# each x max(1, max|ref|)).  The reference's own bf16 bar is far looser
+# (tests/test_flash_vjp.py: rtol 0.1, atol 0.05).
+BF16_CASES = [(2, 1024, 1024, 12, 64, True), (2, 1000, 1000, 3, 64, True),
+              (1, 130, 130, 2, 64, False), (1, 77, 77, 2, 100, True),
+              (1, 200, 200, 1, 128, True), (2, 96, 160, 2, 32, True),
+              (1, 70, 70, 2, 12, True), (3, 1, 1, 2, 64, True)]
+BF16_IDS = ["t1024-d64", "t1000-ragged", "noncausal-t130", "d100-t77",
+            "d128-t200", "tq96-tk160-d32", "d12-unaligned", "t1"]
+
+
+def _bf16_close(got, ref, base):
+    """Every element within one bf16 step of the plain version's, plus
+    ``base`` x max(1, max|ref|); returns the largest error over that."""
+    assert got.dtype == ref.dtype
+    got, ref = got.float(), ref.float()
+    tol = 2.0 ** -7 * ref.abs() + base * max(1.0, ref.abs().max().item())
+    return ((got - ref).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", BF16_CASES, ids=BF16_IDS)
+def test_flash_attention_bf16_kernels_match_plain(dev, B, Tq, Tk, H, D,
+                                                  causal):
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(
+        dev, B, Tq, Tk, H, D, Tq * 5 + D))
+    before = dict(kernels.LAUNCHES)
+    out, lse = kernels.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = kernels.flash_delta(ref, do)
+    dq = kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                             causal)
+    torch.cuda.synchronize()
+    # the bf16 entry points ran, once each; the f32 ones did not
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert kernels.LAUNCHES[name + "_bf16"] == before[name + "_bf16"] + 1
+        assert kernels.LAUNCHES[name] == before[name]
+    assert lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() < 1e-5 * max(
+        1.0, ref_lse.abs().max().item())
+    assert _bf16_close(out, ref, 1e-5) <= 1.0
+    refs = kernels.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do,
+                                             causal=causal)
+    for got, want in zip((dq, dk, dv), refs):
+        assert _bf16_close(got, want, 1e-4) <= 1.0
+    # every output tile has one owner: a rerun gives the same bits
+    again = (kernels.flash_attention_fwd(q, k, v, causal=causal)[0],
+             kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                            causal)) + \
+        kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal)
+    for a, b in zip((out, dq, dk, dv), again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_autograd_on_card_matches_cpu(dev):
+    """The FlashAttention Function in bf16 on the card (the B9 kernels)
+    against the same Function on the CPU (plain versions in f32 from the
+    same bf16 inputs), outputs and gradients in bf16, one bf16 step plus
+    1e-4 x max(1, max|ref|) apart at most."""
+    B, T, H, D = 2, 130, 2, 64
+    q, k, v, g = (t.bfloat16() for t in _flash_inputs("cpu", B, T, T, H, D,
+                                                      6))
+    res = []
+    for d in ("cpu", dev):
+        qs = [t.to(d).clone().requires_grad_() for t in (q, k, v)]
+        out = kernels.flash_attention(*qs, causal=True)
+        out.backward(g.to(d))
+        res.append([out.detach().cpu()] + [t.grad.cpu() for t in qs])
+    for a, b in zip(res[1], res[0]):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_close(a, b, 1e-4) <= 1.0
 
 
 # (rows, D, n): the bench's D 16, the Criteo run's D 64, D 13 and 1 (the

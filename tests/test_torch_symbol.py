@@ -163,3 +163,24 @@ def test_variadic_ops_in_a_graph_match_jax(build, shapes, want):
                                          None, False)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cfg", CONFIGS, ids=IDS)
+def test_copy_and_deepcopy_match_jax(cfg):
+    """``copy.deepcopy`` of a Symbol is a graph of new nodes with the same
+    JSON (the reference round-trips through ``load_json``; its
+    ``MXSymbolCopy`` relies on it), and ``copy.copy`` shares the nodes;
+    the copies' JSON is the JAX package's copies' JSON."""
+    import copy
+    j, t = _pair(cfg)
+    deep, jdeep = copy.deepcopy(t), copy.deepcopy(j)
+    assert deep.tojson() == t.tojson() == jdeep.tojson()
+    assert deep.list_arguments() == t.list_arguments()
+    assert deep._entries[0].node is not t._entries[0].node
+    shallow = copy.copy(t)
+    assert shallow._entries[0].node is t._entries[0].node
+    assert shallow.tojson() == copy.copy(j).tojson()
+    # the copy is a working graph: it evaluates as the original does
+    shapes = {"data": (2, cfg["seq_len"]),
+              "softmax_label": (2, cfg["seq_len"])}
+    assert deep.infer_shape(**shapes) == t.infer_shape(**shapes)

@@ -95,6 +95,44 @@ def test_grad_accum_matches_jax(flash_min_seq):
     _assert_state_close(tstate, jstate)
 
 
+@pytest.mark.parametrize("rows", [(8, 6), (7, 7)],
+                         ids=["mismatched", "indivisible"])
+def test_grad_accum_rejects_a_batch_of_two_sizes(rows):
+    """With grad_accum > 1 every input must have one leading size that
+    divides by it; anything else is refused at the step, before the
+    forward runs."""
+    tt = ShardedTrainer(get_symbol(**TINY), device="cpu", lr=0.1,
+                        momentum=0.9, wd=0.0, grad_accum=2)
+    state = tt.init_state(SHAPES, seed=0)
+    rs = np.random.RandomState(0)
+    batch = {"data": rs.randint(0, 12, (rows[0], 16)).astype(np.float32),
+             "softmax_label": rs.randint(0, 12, (rows[1], 16)).astype(
+                 np.float32)}
+    with pytest.raises(ValueError, match="not one size divisible"):
+        tt.step(*state, batch)
+
+
+def test_step_hands_the_loss_scale_automaton_the_device_verdict(
+        monkeypatch):
+    """``step`` reads the verdict on the host once, to choose the
+    in-place update; the loss-scale automaton gets the 0-d device
+    tensor, so no host scalar is copied to the card after the update."""
+    from mxnet_tpu_torch.resilience import guards
+    seen = []
+    real = guards.scale_update
+
+    def spy(scale, good, ok, *args, **kw):
+        seen.append(ok)
+        return real(scale, good, ok, *args, **kw)
+
+    monkeypatch.setattr(guards, "scale_update", spy)
+    _, _, tt, tstate = _pair(dynamic_loss_scale=True, loss_scale=8.0)
+    _train(tt, tstate, _batches(1))
+    assert len(seen) == 1
+    assert isinstance(seen[0], torch.Tensor) and seen[0].dim() == 0
+    assert seen[0].dtype == torch.bool and bool(seen[0])
+
+
 def test_loss_scale_matches_jax():
     """The head ignores the cotangent, so a static scale only divides
     the gradients: the update is the unscaled one, as in JAX."""
@@ -223,9 +261,11 @@ def test_port_trained_state_serves_through_get_decode_step():
 
 
 def test_unported_features_raise():
+    """ZeRO, local batches and meshes of more than one device are still
+    to port (bf16 ``param_dtype``, ``build_step_auto_layout`` and
+    ``sgd_step_fn`` are ported: tests/test_torch_train_bf16.py)."""
     net = get_symbol(**TINY)
-    for kw in (dict(param_dtype="bfloat16"), dict(zero=True),
-               dict(shard_optimizer_state=True)):
+    for kw in (dict(zero=True), dict(shard_optimizer_state=True)):
         with pytest.raises(NotPortedYet):
             ShardedTrainer(net, device="cpu", **kw)
     tt = ShardedTrainer(net, device="cpu")
@@ -233,11 +273,6 @@ def test_unported_features_raise():
     state = tt.init_state(SHAPES)
     with pytest.raises(NotPortedYet):
         tt.step(*state, _batches(1)[0], local_batch=True)
-    with pytest.raises(NotPortedYet):
-        tt.build_step_auto_layout(*state, SHAPES)
-    from mxnet_tpu_torch.parallel.trainer import sgd_step_fn
-    with pytest.raises(NotPortedYet):
-        sgd_step_fn(tt)
     with pytest.raises(NotPortedYet):
         make_mesh((2,), ("dp",), device="cpu")
 

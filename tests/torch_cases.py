@@ -767,6 +767,90 @@ def _nn_cases():
     c["IdentityAttachKLSparseReg"] = lambda rs: _case(
         [_f32(rs.rand(4, 3) * 0.8 + 0.1)],
         dict(sparseness_target=0.2, penalty=0.01), grad=[0], tol=ARITH)
+    c.update(_nn_dtype_cases())
+    return c
+
+
+def _small_i32(rs, *shape):
+    return _i32(rs.randint(-4, 5, size=shape))
+
+
+def _nn_dtype_cases():
+    """The nn ops at the dtypes where the port once differed (ROADMAP
+    C9-C11): integer data takes the dtype the reference gives it under
+    x64 (float32 for the softmaxes, gelu and InstanceNorm, float64 where
+    a float scalar meets it, its own for sum pooling and the transposed
+    convolution); BatchNorm takes float16 data, gamma, beta and moving
+    statistics, and trains on one value per channel; a loss head's label
+    past the class axis gives NaN and a negative one counts from the end
+    (the reference's ``take_along_axis``)."""
+    c = {}
+    for n in ("softmax", "log_softmax", "SoftmaxActivation"):
+        c[n + ":int32"] = lambda rs: _case([_small_i32(rs, 3, 5)],
+                                           tol=TRANSC)
+    c["softmax:int32-temperature"] = lambda rs: _case(
+        [_small_i32(rs, 3, 5)], dict(temperature=2.5), tol=TRANSC)
+    c["SoftmaxOutput:int32"] = lambda rs: _case(
+        [_small_i32(rs, 4, 5), _f32([0, 3, 1, 4])], tol=TRANSC)
+    c["softmax_cross_entropy:int32"] = lambda rs: _case(
+        [_small_i32(rs, 4, 5), _f32([0, 4, 2, 2])], tol=TRANSC)
+    c["CTCLoss:int32"] = lambda rs: _case(
+        [_small_i32(rs, 6, 3, 4), _f32([[1, 2, 2], [3, 0, 0], [0, 0, 0]])],
+        tol=NN)
+    c["LeakyReLU:gelu-int32"] = lambda rs: _case(
+        [_small_i32(rs, 3, 4)], dict(act_type="gelu"), tol=TRANSC)
+    c["Activation:gelu-int32"] = lambda rs: _case(
+        [_small_i32(rs, 3, 4)], dict(act_type="gelu"), tol=TRANSC)
+    c["LeakyReLU:leaky-int32"] = lambda rs: _case(
+        [_small_i32(rs, 3, 4)], dict(slope=0.1), tol=ARITH)
+    c["LeakyReLU:rrelu-int32"] = lambda rs: _case(
+        [_small_i32(rs, 3, 4)], dict(act_type="rrelu"), tol=ARITH)
+    c["InstanceNorm:int32"] = lambda rs: _case(
+        [_small_i32(rs, 2, 3, 4, 5), _pos(rs, 3), _any(rs, 3)], tol=NN)
+    c["Pooling:avg-int32"] = lambda rs: _case(
+        [_small_i32(rs, 1, 2, 5, 5)],
+        dict(kernel=(2, 2), stride=(2, 2), pad=(1, 1), pool_type="avg"),
+        tol=ARITH)
+    c["Pooling:avg-uint8"] = lambda rs: _case(
+        [np.asarray(rs.randint(0, 256, (1, 2, 4, 4)), np.uint8)],
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="avg"), tol=ARITH)
+    c["Pooling:sum-int32"] = lambda rs: _case(
+        [_small_i32(rs, 1, 2, 4, 4)],
+        dict(kernel=(2, 2), stride=(2, 2), pool_type="sum"))
+    c["LRN:int32"] = lambda rs: _case(
+        [_small_i32(rs, 2, 6, 3, 3)], dict(nsize=3, alpha=0.1, knorm=1.5),
+        tol=NN)
+    c["Dropout:train-int32"] = lambda rs: _case(
+        [_small_i32(rs, 4, 5)], dict(p=0.3), train=True, all_outputs=True,
+        random=True)
+    c["Deconvolution:int32"] = lambda rs: _case(
+        [_small_i32(rs, 2, 3, 5, 5), _small_i32(rs, 3, 4, 3, 3),
+         _small_i32(rs, 4)],
+        dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=4))
+    f16 = lambda a: np.asarray(a, np.float16)   # noqa: E731
+    c["BatchNorm:train-f16"] = lambda rs: _case(
+        [f16(a) for a in _bn_inputs(rs, 3, 4, 3, 5, 5)],
+        dict(fix_gamma=False, eps=2e-5), grad=[0, 1, 2], tol=1e-3,
+        train=True, all_outputs=True)
+    c["BatchNorm:f16"] = lambda rs: _case(
+        [f16(a) for a in _bn_inputs(rs, 3, 4, 3, 5, 5)],
+        dict(fix_gamma=False, eps=2e-5), grad=[0, 1, 2], tol=1e-3)
+    c["BatchNorm:train-one-per-channel"] = lambda rs: _case(
+        _bn_inputs(rs, 5, 1, 5), dict(fix_gamma=False), grad=[0, 1, 2],
+        tol=NN, train=True, all_outputs=True)
+    c["softmax_cross_entropy:label-out-of-range"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([0, 7, 2, -1])], grad=[0], tol=TRANSC)
+    c["softmax_cross_entropy:negative-label"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([-5, 4, -2, -1])], grad=[0], tol=TRANSC)
+    c["CTCLoss:label-past-alphabet"] = lambda rs: _case(
+        [_any(rs, 6, 3, 4), _f32([[1, 2, 4], [3, 0, 0], [7, 1, 0]])],
+        tol=NN)
+    c["SVMOutput:label-out-of-range"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([0, 5, -1, 9])], dict(margin=0.5), grad=[0],
+        tol=ARITH)
+    c["SVMOutput:linear-label-out-of-range"] = lambda rs: _case(
+        [_any(rs, 4, 5), _f32([-2, 5, 1, 4])], dict(use_linear=True),
+        grad=[0], tol=ARITH)
     return c
 
 
