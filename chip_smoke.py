@@ -26,9 +26,10 @@ Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel), identify the card, and check the SASS of the
-   3xTF32 kernels (the three flash kernels and both instantiations of
-   the quantized matmul) for TF32 ``HMMA`` instructions
-   (``cuobjdump -sass``);
+   3xTF32 kernels (the three f32 flash kernels, the bf16 dQ, and both
+   instantiations of the quantized matmul) for TF32 ``HMMA``
+   instructions, and of the bf16 flash forward and dK/dV for bf16
+   ``HMMA.16816`` and no TF32 one (``cuobjdump -sass``);
 2. each kernel against its plain version at the shapes the decode step
    gives it (decode attention at the step's mix of lengths and at the
    full cache, 8 x 1024 tokens), two launches bit-equal, with its time,
@@ -138,10 +139,11 @@ Phases, in order:
 20. the flash kernels in bf16 (B9: the three kernels' bf16 entry points)
     against their plain versions at the LM's training shape (B8 T1024
     H12 D64, causal; timed, with bounds at the bf16 tensor rate and the
-    bf16 ``scaled_dot_product_attention`` forward and forward+backward
-    as yardsticks) and at ragged shapes (T 1000 D 32, T 777 D 128, a
-    non-causal T 520), within one bf16 step of each element plus the f32
-    kernels' tolerances, two launches bit-equal;
+    bf16 ``scaled_dot_product_attention`` forward, backward alone and
+    forward+backward as yardsticks, the backend that ran named) and at
+    ragged shapes (T 1000 D 32, T 777 D 128, a non-causal T 520), within
+    one bf16 step of each element plus the f32 kernels' tolerances, two
+    launches bit-equal;
 21. bench.py's LM configuration in bf16 (``param_dtype="bfloat16"``):
     one step of the L2, hidden 64, T 64 LM on the flash path on the card
     against the CPU, each tensor within 3x the CPU's own bf16 rounding
@@ -711,17 +713,23 @@ def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows):
     return b, by, tc
 
 
-# kernels that run TF32 MMAs on the tensor cores, by library
+# kernels that run TF32 MMAs on the tensor cores, by library (the f32
+# flash forward and dK/dV, and dQ in f32 and bf16), and those that run
+# bf16 MMAs and no TF32 one (the bf16 flash forward and dK/dV)
 TF32_KERNELS = {"flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel"),
                 "quant_matmul": ("quant_matmul_kernel",)}
+BF16_KERNELS = {"flash_attention": ("flash_fwd_bf16_kernel",
+                                    "flash_bwd_dkv_bf16_kernel")}
 
 
 def sass_check(build, card):
-    """The 3xTF32 kernels (the three flash kernels, and quant_matmul's two
-    instantiations with x split in two) run TF32 MMAs on the tensor cores:
-    the SASS of each instantiation (``cuobjdump -sass`` of the built
-    library) holds HMMA instructions of TF32 operands."""
+    """The 3xTF32 kernels (the f32 flash kernels, the bf16 dQ, and
+    quant_matmul's two instantiations with x split in two) run TF32 MMAs
+    on the tensor cores, and the bf16 flash forward and dK/dV run bf16
+    m16n8k16 MMAs and no TF32 one: the SASS of each instantiation
+    (``cuobjdump -sass`` of the built library) holds ``HMMA...TF32``,
+    respectively ``HMMA.16816...BF16`` and no ``TF32``."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -732,20 +740,29 @@ def sass_check(build, card):
         res = subprocess.run([tool, "-sass", paths[lib]], capture_output=True,
                              text=True, timeout=300)
         check(res.returncode == 0, "cuobjdump -sass failed: %s" % res.stderr)
-        counts, fn = {}, None
+        counts, fn = {}, None       # function -> [TF32 HMMA, bf16 HMMA]
         for line in res.stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                counts[fn] = 0
-            elif fn and "HMMA" in line and "TF32" in line:
-                counts[fn] += 1
+                counts[fn] = [0, 0]
+            elif fn and "HMMA" in line:
+                counts[fn][0] += "TF32" in line
+                counts[fn][1] += "HMMA.16816" in line and "BF16" in line
         for name in names:
-            got = {f: n for f, n in counts.items() if name in f}
+            got = {f: n[0] for f, n in counts.items() if name in f}
             check(got and all(n > 0 for n in got.values()),
                   "%s: no TF32 HMMA in its SASS (%s)" % (name, got))
             log("SASS %s: TF32 HMMA instructions per instantiation %s [%s]"
                 % (name, sorted(got.values()), card))
+        for name in BF16_KERNELS.get(lib, ()):
+            got = {f: n for f, n in counts.items() if name in f}
+            check(got and all(n[1] > 0 and n[0] == 0 for n in got.values()),
+                  "%s: not bf16 HMMA.16816 alone in its SASS (TF32, bf16 "
+                  "per instantiation: %s)" % (name, list(got.values())))
+            log("SASS %s: HMMA.16816 bf16 instructions per instantiation "
+                "%s, TF32 none [%s]" % (name, sorted(n[1] for n in
+                                                     got.values()), card))
 
 
 def flash_tf32_cases(torch, kernels, card):
@@ -2587,10 +2604,20 @@ def phase_resnet50(torch, kernels, ShardedTrainer, card):
 
 BF16_FLOPS_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 
-# TF32 MMAs per bf16 product in the B9 kernels: one where both operands
-# are bf16 (q k^T, dO v^T), two where one is f32 (p v, ds k, ds^T q,
-# p^T dO); per kernel, over its products of 2·D flops per (q, k) pair
-B9_MMAS = {"fwd": 1 + 2, "dq": 1 + 1 + 2, "dkv": 1 + 1 + 2 + 2}
+# MMAs per product of 2·D flops per (q, k) pair in each B9 kernel, and
+# their rate.  The forward and dK/dV run bf16 MMAs: one where both
+# operands are bf16 (q k^T, k q^T, v dO^T), two where one side is f32 (p v,
+# p^T dO, ds^T q as bf16 hi + lo).  dQ runs TF32 MMAs on bf16 widened to
+# f32: one for q k^T and dO v^T, two for ds k.
+B9_MMAS = {"fwd": (1 + 2, BF16_FLOPS_S), "dq": (1 + 1 + 2, TF32_FLOPS_S),
+           "dkv": (1 + 1 + 2 + 2, BF16_FLOPS_S)}
+B9_MATH = {
+    "fwd": "bf16 tiles, bf16 m16n8k16 mma.sync: 1 MMA for q k^T, 2 for "
+           "p v (p as bf16 hi + lo)",
+    "dq": "bf16 tiles widened to f32, TF32 mma.sync: 1 MMA per bf16 x bf16 "
+          "product, 2 where one side is f32",
+    "dkv": "bf16 tiles, bf16 m16n8k16 mma.sync: 1 MMA each for k q^T and "
+           "v dO^T, 2 each for p^T dO and ds^T q (hi + lo)"}
 
 
 def b9_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows, mmas):
@@ -2599,14 +2626,35 @@ def b9_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows, mmas):
     (lse written by the forward; lse and delta read by dQ and dK/dV), against
     ``units`` x D flops per (q, k) pair that the mask keeps at the dense
     bf16 tensor rate (989 TFLOP/s); and the same work as the kernel does
-    it, ``mmas`` TF32 MMAs of 2·D flops per pair at 495 TFLOP/s."""
+    it, ``mmas = (count, rate)``: count MMAs of 2·D flops per pair at the
+    rate of their type."""
     pairs = sum(min(Tk, q + 1) for q in range(Tq)) if causal else Tq * Tk
     flops = units * B * H * pairs * D
     nbytes = (n_in + n_out) * B * Tq * H * D * 2 + n_rows * B * H * Tq * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOPS_S
-    tc = max(t_bytes, mmas * 2 * B * H * pairs * D / TF32_FLOPS_S) * 1e3
+    count, rate = mmas
+    tc = max(t_bytes, count * 2 * B * H * pairs * D / rate) * 1e3
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", tc)
+
+
+# Times of the earlier B9 design at the training shape, bf16 tiles
+# widened to f32 on TF32 MMAs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# §6): the forward and dK/dV that the bf16 kernels replaced, for the log
+# beside this run's
+B9_WIDENED_MS = {"flash_attention_fwd_bf16": "0.2443 ms",
+                 "flash_attention_bwd_dq_bf16": "0.3883 ms, the same kernel",
+                 "flash_attention_bwd_dkv_bf16": "0.4585 ms"}
+
+
+def sdpa_backend(torch, q, k, v, causal):
+    """The backend that PyTorch's dispatcher picks for
+    ``scaled_dot_product_attention`` on these (B, H, T, D) inputs
+    (``torch._fused_sdp_choice``), by name."""
+    from torch.nn.attention import SDPBackend
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    i = int(torch._fused_sdp_choice(q, k, v, is_causal=causal))
+    return names.get(i, str(i))
 
 
 def bf16_close(torch, got, want, base):
@@ -2680,7 +2728,8 @@ def phase_flash_bf16(torch, kernels, F, timer, card):
         if not timed:
             continue
         # yardstick: SDPA in bf16 on the (B, H, T, D) transposes, the
-        # forward, and the forward with its autograd backward; timed only
+        # forward, its autograd backward alone (the forward done outside
+        # the timer, the graph retained), and the two; timed only
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         dot = do.transpose(1, 2).contiguous()
@@ -2693,16 +2742,20 @@ def phase_flash_bf16(torch, kernels, F, timer, card):
                                                  is_causal=causal)
         check(bf16_close(torch, lib_out.transpose(1, 2), ref, 1e-3)[0] <= 2,
               "the SDPA yardstick computes another function")
-        del lib_out
         lib_fwd = timer(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
         lib_both = timer(sdpa_fwd_bwd)
+        del lib_out
+        log("SDPA bf16 at %s: forward %.4f ms, backward alone %.4f ms, "
+            "forward + backward %.4f ms; backend %s [%s]"
+            % (tag, lib_fwd, lib_bwd, lib_both,
+               sdpa_backend(torch, qt, kt, vt, causal), card))
         src = "mxnet_tpu_torch/csrc/flash_attention.cu"
         shape = "q/k/v (B, T, H, D) = (%d, %d, %d, %d) bf16, causal" % (
             B, T, Hc, Dc)
-        common = {"route": "cuda", "source": src, "math":
-                  "bf16 tiles widened to f32, TF32 mma.sync: 1 MMA per "
-                  "bf16 x bf16 product, 2 where one side is f32"}
+        common = {"route": "cuda", "source": src}
         specs = [
             ("flash_attention_fwd_bf16", ":250", 4, 3, 1, 1, "fwd",
              lambda: kernels.flash_attention_fwd(q, k, v, causal),
@@ -2715,35 +2768,37 @@ def phase_flash_bf16(torch, kernels, F, timer, card):
                                                     delta, causal),
              lambda: kernels.flash_attention_bwd_dq_plain(
                  q, k, v, do, ref_lse, delta, causal),
-             ratio["dq"][1], lib_both,
-             "the bf16 SDPA forward and its autograd backward (dQ, dK, dV "
-             "together)", ", dO, lse, delta"),
+             ratio["dq"][1], lib_bwd,
+             "the bf16 SDPA autograd backward alone (dQ, dK, dV together)",
+             ", dO, lse, delta"),
             ("flash_attention_bwd_dkv_bf16", ":468", 8, 4, 2, 2, "dkv",
              lambda: kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse,
                                                      delta, causal),
              lambda: kernels.flash_attention_bwd_dkv_plain(
                  q, k, v, do, ref_lse, delta, causal),
-             max(ratio["dk"][1], ratio["dv"][1]), lib_both,
-             "the bf16 SDPA forward and its autograd backward (dQ, dK, dV "
-             "together)", ", dO, lse, delta")]
+             max(ratio["dk"][1], ratio["dv"][1]), lib_bwd,
+             "the bf16 SDPA autograd backward alone (dQ, dK, dV together)",
+             ", dO, lse, delta")]
         for (name, site, units, n_in, n_out, n_rows, kind, fn, plain, err,
              lib, call, extra) in specs:
             b, by, tc = b9_bound(B, T, T, Hc, Dc, causal, units, n_in,
                                  n_out, n_rows, B9_MMAS[kind])
             rows.append(dict(common, **{
                 "name": name, "replaces": "mxnet_tpu/ops/pallas_kernels.py"
-                + site, "shape": shape + extra,
+                + site, "shape": shape + extra, "math": B9_MATH[kind],
                 "launches_per_step": TRAIN["num_layers"],
                 "max_abs_err": err, "ms": timer(fn),
                 "plain_ms": timer(plain), "bound_ms": b, "bound_by": by,
                 "bound_tc_ms": tc, "library_ms": lib,
-                "library_call": call}))
+                "library_call": call, "library_fwd_bwd_ms": lib_both}))
         del qt, kt, vt
     for r in rows:
-        log("  %-28s %-52s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s, bf16 "
-            "989 TFLOP/s) bound_tc_ms=%.4f library_ms=%.4f [%s]"
-            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
-               r["bound_by"], r["bound_tc_ms"], r["library_ms"], card))
+        log("  %-28s %-52s ms=%.4f (widened-f32 design: %s) plain_ms=%.4f "
+            "bound_ms=%.4f (%s, bf16 989 TFLOP/s) bound_tc_ms=%.4f "
+            "library_ms=%.4f [%s]"
+            % (r["name"], r["shape"], r["ms"], B9_WIDENED_MS[r["name"]],
+               r["plain_ms"], r["bound_ms"], r["bound_by"], r["bound_tc_ms"],
+               r["library_ms"], card))
     return rows
 
 

@@ -108,26 +108,68 @@
 //    and 223 / 245 registers (no spills), so two blocks share an SM; at
 //    DP = 128, 255 registers with 8 bytes of spills and one block.
 //
-// B9: the same three kernels in bf16 (the reference's kernels take bf16
-// q, k, v and dO, compute in f32 and write out, dQ, dK and dV in the input
-// dtype, with lse and delta f32).  Each kernel is a template over the
-// element type T of its (B, T, H, D) tensors.  A bf16 tile is widened to
-// f32 as it lands in shared memory and runs the 3xTF32 path above: a bf16
-// value is exact in TF32, so its small part is zero and the MMAs that
-// read it are dropped at compile time (flags ALO and BLO of mma3).
-// Products of two bf16 operands (s = q k^T, dp = dO v^T) are one TF32 MMA,
-// exact products accumulated in f32; products with an f32 operand (p v,
-// ds k, ds^T q, p^T dO) are two, the f32 side split as above.  Streamed
-// tiles are fetched as bf16 (cp.async of 16-byte chunks, 8 elements, when
-// D % 8 == 0 and the tensors are 16-byte aligned; plain loads otherwise),
-// half the bytes of the f32 kernels; resident tiles are widened by plain
-// loads.  Outputs are rounded to bf16 to nearest even, as astype does.
-// Shared memory is laid out per element type (FwdSmem, DqSmem, DkvSmem):
-// bf16 staging tiles take half the bytes and the small-part tiles none, so
-// at D = 64 a block takes 42.5 KB (forward), 69.6 KB (dQ) or 80.4 KB
-// (dK/dV) where the f32 kernels take 68.6, 96.3 and 107.0 KB.
-// The f32 instantiations compile to what they were before the template.
-//
+// B9: the same three functions in bf16 (the reference's kernels take
+// bf16 q, k, v and dO, compute in f32 and write out, dQ, dK and dV in the
+// input dtype, with lse and delta f32).  Outputs are rounded to bf16 to
+// nearest even, as astype does.
+//  * dQ (flash_bwd_dq_kernel<DP, bf16>) is the f32 kernel above as a
+//    template over the element type: a bf16 tile is widened to f32 as it
+//    lands in shared memory (Wide<T>) and runs the TF32 path, a bf16
+//    value being exact in TF32, so the MMAs that would read its small
+//    part are dropped at compile time (ALO, BLO of mma3).
+//  * The forward (flash_fwd_bf16_kernel) and dK/dV
+//    (flash_bwd_dkv_bf16_kernel) are written for bf16.  What bounds them
+//    on the H100, at the training shape: the forward moves 50.7 MB
+//    (0.0151 ms at 3.35 TB/s) for 12.9 GFLOP (0.0130 ms at the 989 TFLOP/s
+//    of bf16); dK/dV does 25.8 GFLOP (0.0261 ms) on 76 MB (0.0227 ms).
+//    Both run far from either, on mma.sync (the rates of the tensor core
+//    that wgmma reaches are not open to it) at 3 (forward) and 6 (dK/dV)
+//    MMA units of 2 D flops per (q, k) pair.  What the design does (the
+//    percentages: NVIDIA H100 80GB HBM3 at 700 W, tools/flash_variants.py):
+//    - bf16 tiles in shared memory, never widened, rows padded by 16
+//      bytes (stride DP + 8 elements) so that ldmatrix's 8 rows of 16
+//      bytes fall in 8 groups of 4 banks; the streamed tiles (k and v of
+//      64 keys for the forward, q and dO of 64 rows with their lse and
+//      delta for dK/dV) fill a ring of 2 stages by cp.async 16-byte
+//      chunks, the next tile in flight while this one computes, one
+//      barrier per tile.  Each thread's copy offsets are computed once
+//      (recomputing them per chunk cost the forward 15%).
+//    - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for every
+//      product, fragments by ldmatrix.x4 (.trans where the depth runs
+//      down the rows: v in p v, dO and q in p^T dO and ds^T q).  q k^T,
+//      k q^T and v dO^T take one MMA per depth step of 16: bf16 x bf16
+//      products are exact in f32, so this is the reference's product up
+//      to summation order.
+//    - The f32 side of p v, p^T dO and ds^T q (p, ds) goes in as two bf16
+//      terms, hi = bf16_rn(x) and lo = bf16_rn(x - hi), about 16 bits of
+//      x, and two MMAs, the small term first.  One term (p rounded to
+//      bf16) breaks the bf16 tolerance (tests/test_torch_flash_bf16_
+//      split.py); it would save 12% of the forward and of dK/dV.
+//    - The C fragments of two adjacent n8 score tiles, packed as bf16x2,
+//      are the A fragment of one depth step of 16 (split_frag): p and ds
+//      never leave registers.  dK/dV computes s^T = k q^T and dp^T = v
+//      dO^T with keys as the M rows for that reason.
+//    - The forward: 4 warps of 16 q rows, one block per 64 q rows; q's A
+//      fragments are read from shared memory per tile (held in registers
+//      for the whole loop they cost 9%); the online softmax in exp2 units
+//      in the C fragments; each tile's p v into a fresh accumulator per
+//      64 columns, added in f32 (lesson (b) above).  dK/dV: 4 warps of 16
+//      keys, one block per 64 keys; dk and dv accumulate in f32
+//      registers, rounded once to bf16.
+//    - The grid is (B H, tiles): blocks run heads across blockIdx.x, so
+//      every head's heaviest causal tile runs in the first wave and the
+//      tail is light (the other order cost 11% / 6%).  One owner per
+//      output tile: no atomics, the same bits on every run.
+//    - Masks (past T, the causal diagonal) only on the tiles that need
+//      them; -inf logits in the forward, p = 0 in dK/dV.
+//    Occupancy at DP = 64 (-Xptxas -v, sm_90a): forward 166 registers, no
+//    spills, 45 KB of shared memory, 3 blocks (12 warps) per SM; dK/dV 212
+//    registers, no spills, 56 KB, 2 blocks.  DP = 32: 122 / 160
+//    registers; DP = 128: 245 registers (forward, no spills), 255 with 72
+//    bytes of stack (dK/dV).
+// The f32 kernels and the bf16 dQ give the same bits as before these two
+// were added (tests/test_torch_kernels_cuda.py holds their digests).
+
 // Interface: plain C, launched on the caller's stream, allocates nothing,
 // f32 (mxt_flash_attention_*) or bf16 (mxt_flash_attention_*_bf16) q, k,
 // v, dO and outputs, lse and delta f32 in both, D <= 128; returns the
@@ -511,11 +553,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // A kBs x DP staging tile of v split into big and small parts in key-pair
 // order: keys 2p and 2p + 1 of column d side by side at p * (2 DP + 8) +
 // 2d.  The B operand of p v, read in the key order of s's C fragment
-// (frag_b_pairs), is then one 64-bit load, free of bank conflicts.  A
-// bf16 tile has no small part (BLO false), so none is written.
-template <int DP, typename T>
+// (frag_b_pairs), is then one 64-bit load, free of bank conflicts.
+template <int DP>
 __device__ __forceinline__ void split_pairs(float* hi, float* lo,
-                                            const T* raw) {
+                                            const float* raw) {
   constexpr int LDV = 2 * DP + 8;
   constexpr int C4 = DP / 4;
   for (int idx = threadIdx.x; idx < kBs / 2 * C4; idx += kFwdThreads) {
@@ -527,17 +568,15 @@ __device__ __forceinline__ void split_pairs(float* hi, float* lo,
     float big[8], small[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      big[e] = Wide<T>::value ? tf32_big(pair[e]) : pair[e];
+      big[e] = tf32_big(pair[e]);
       small[e] = pair[e] - big[e];
     }
     float4* h = reinterpret_cast<float4*>(hi + p * LDV + 2 * d);
     h[0] = make_float4(big[0], big[1], big[2], big[3]);
     h[1] = make_float4(big[4], big[5], big[6], big[7]);
-    if (Wide<T>::value) {
-      float4* l = reinterpret_cast<float4*>(lo + p * LDV + 2 * d);
-      l[0] = make_float4(small[0], small[1], small[2], small[3]);
-      l[1] = make_float4(small[4], small[5], small[6], small[7]);
-    }
+    float4* l = reinterpret_cast<float4*>(lo + p * LDV + 2 * d);
+    l[0] = make_float4(small[0], small[1], small[2], small[3]);
+    l[1] = make_float4(small[4], small[5], small[6], small[7]);
   }
 }
 
@@ -558,9 +597,9 @@ __device__ __forceinline__ FragB frag_b_pairs(const float* hi,
   return f;
 }
 
-template <int DP, typename T>
-struct FwdSmem : Tiles<DP, T> {
-  using B = Tiles<DP, T>;
+template <int DP>
+struct FwdSmem : Tiles<DP, float> {
+  using B = Tiles<DP, float>;
   static constexpr int kPairs = kBs / 2 * (2 * DP + 8);   // split v tile
   static constexpr int rk = kFwdRows * DP;      // after q
   static constexpr int rv = rk + B::kStage;
@@ -571,27 +610,26 @@ struct FwdSmem : Tiles<DP, T> {
   static constexpr int total = vl + B::kLo * kPairs;
 };
 
-template <int DP, typename T>
+template <int DP>
 __global__ void __launch_bounds__(kFwdThreads, DP <= 64 ? 3 : 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int H, int Tq, int Tk, int D,
                  int causal, float scale, int vec) {
-  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;       // row stride of the split k tiles
   constexpr int LDV = 2 * DP + 8;  // of the split v tiles (key pairs)
   constexpr int NK = DP / 8;       // depth steps of q k^T; column tiles of out
   constexpr int NS = kBs / 8;      // column tiles of s; depth steps of p v
   constexpr int CH = NK < kChunk ? NK : kChunk;   // out tiles per pass
-  using L = FwdSmem<DP, T>;
+  using L = FwdSmem<DP>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                  // kFwdRows x DP, fragment order
-  T* rK = reinterpret_cast<T*>(smem + L::rk);   // the next k tile, staging
-  T* rV = reinterpret_cast<T*>(smem + L::rv);   // the next v tile
+  float* rK = smem + L::rk;          // the next k tile, staging
+  float* rV = smem + L::rv;          // the next v tile
   float* sKh = smem + L::kh;         // k, big part, kBs x LD
-  float* sKl = W ? smem + L::kl : sKh;   // k, small part
+  float* sKl = smem + L::kl;         // k, small part
   float* sVh = smem + L::vh;         // v, big part, kBs / 2 x LDV
-  float* sVl = W ? smem + L::vl : sVh;   // v, small part
+  float* sVl = smem + L::vl;         // v, small part
 
   const int nq = gridDim.x;
   const int q0 = (nq - 1 - (int)blockIdx.x) * kFwdRows;   // heaviest first
@@ -652,7 +690,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-      mma3<W, W>(part, 0, aq, bk);
+      mma3<true, true>(part, 0, aq, bk);
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -714,7 +752,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < CH; ++n)
           bv[n] = frag_b_pairs(sVh, sVl, LDV, j, (c0 + n) * 8, g, t);
-        mma3<true, W>(pv, c0, ap, bv);
+        mma3<true, true>(pv, c0, ap, bv);
       }
     }
 #pragma unroll
@@ -895,9 +933,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // B2b: dK and dV
 // ---------------------------------------------------------------------------
 
-template <int DP, typename T>
-struct DkvSmem : Tiles<DP, T> {
-  using B = Tiles<DP, T>;
+template <int DP>
+struct DkvSmem : Tiles<DP, float> {
+  using B = Tiles<DP, float>;
   static constexpr int v = kB * DP;             // after k
   static constexpr int rq = v + kB * DP;
   static constexpr int ro = rq + B::kStage;
@@ -914,32 +952,32 @@ struct DkvSmem : Tiles<DP, T> {
   static constexpr int total = d + kBs;
 };
 
-template <int DP, typename T>
+template <int DP>
 __global__ void __launch_bounds__(kBwdThreads, DP <= 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tq, int Tk, int D,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Tq, int Tk, int D,
                      int causal, float scale, int vec) {
-  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;
   constexpr int LDP = kBs + 8;    // row stride of the p^T and ds^T tiles
   constexpr int NK = DP / 8;      // depth steps over d; column tiles of dk
   constexpr int NS = kBs / 8;     // column tiles of a score tile
   constexpr int CH = NK < kChunk / 2 ? NK : kChunk / 2;  // dk, dv per pass
-  using L = DkvSmem<DP, T>;
+  using L = DkvSmem<DP>;
   extern __shared__ __align__(16) float smem[];
   float* sK = smem;               // 64 x DP, this block's keys, fragment order
   float* sV = smem + L::v;        // 64 x DP, fragment order
-  T* rQ = reinterpret_cast<T*>(smem + L::rq);   // the next q tile, staging
-  T* rO = reinterpret_cast<T*>(smem + L::ro);   // the next dO
+  float* rQ = smem + L::rq;       // the next q tile, staging
+  float* rO = smem + L::ro;       // the next dO
   float* rL = smem + L::rl;       // the next lse, kBs
   float* rD = smem + L::rd;       // the next delta, kBs
   float* sQh = smem + L::qh;      // the current q tile, big part, kBs x LD
-  float* sQl = W ? smem + L::ql : sQh;   // small part
+  float* sQl = smem + L::ql;      // small part
   float* sOh = smem + L::oh;      // dO, big part
-  float* sOl = W ? smem + L::ol : sOh;   // dO, small part
+  float* sOl = smem + L::ol;      // dO, small part
   float* sP = smem + L::p;        // p^T, 64 (k) x LDP (q)
   float* sS = smem + L::s;        // ds^T, 64 (k) x LDP (q)
   float* sL = smem + L::l;        // lse of the q tile, kBs
@@ -1006,7 +1044,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bq[n] = frag_b_rows(sQh, sQl, LD, n * 8, kk * 8, g, t);
         bo[n] = frag_b_rows(sOh, sOl, LD, n * 8, kk * 8, g, t);
       }
-      mma3x2<W, W>(st, dpt, 0, fk, bq, fv, bo);
+      mma3x2<true, true>(st, dpt, 0, fk, bq, fv, bo);
     }
 
 #pragma unroll
@@ -1051,11 +1089,569 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bo[n] = frag_b(sOh, sOl, LD, kk * 8, (c0 + n) * 8, g, t);
           bq[n] = frag_b(sQh, sQl, LD, kk * 8, (c0 + n) * 8, g, t);
         }
-        mma3x2<true, W>(av, ak, c0, ap, bo, as, bq);
+        mma3x2<true, true>(av, ak, c0, ap, bo, as, bq);
       }
     }
   }
   cp_async_wait_all();            // a block with no q tile still copied k, v
+  store_frags<DP>(dk, ak, b, h, k0, Tk, H, D, m0, g, t);
+  store_frags<DP>(dv, av, b, h, k0, Tk, H, D, m0, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// B9 forward and dK/dV: bf16 tiles and bf16 tensor-core MMAs
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// the forward: 4 warps of 16 q rows a block, kFwdKeys keys a streamed k /
+// v tile, a ring of kFwdStages tiles; dK/dV: 4 warps of 16 keys a block,
+// q / dO tiles of as many rows in a ring of kDkvStages
+constexpr int kFwdThreads16 = 128;
+constexpr int kFwdRows16 = 64;
+constexpr int kFwdKeys = 64;
+constexpr int kFwdStages = 2;
+constexpr int kFwdMinBlocks = 2;
+constexpr int kDkvRows = 64;
+constexpr int kDkvThreads = 128;
+constexpr int kDkvStages = 2;
+constexpr int kDkvMinBlocks = 2;
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices from shared memory (byte address `a`): lane l
+// gives the address of row l % 8 of matrix l / 8 and receives (row l / 4,
+// columns 2 (l % 4), +1) of each; .trans: (rows 2 (l % 4), +1, column
+// l / 4)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Each lane's row of a 16 x 16 ldmatrix.x4 block of a tile of row stride
+// LDS elements, in elements from the block's corner:
+//   a_lane: the A fragment (rows 0-7, 8-15) x (depth 0-7, 8-15);
+//   b_lane: the B fragments of two n8 tiles whose columns are rows 0-7 and
+//           8-15 of the tile, depth along the row (b0, b1 of each);
+//   bt_lane: the same with depth down the rows (.trans).
+template <int LDS>
+__device__ __forceinline__ int a_lane(int lane) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
+}
+template <int LDS>
+__device__ __forceinline__ int b_lane(int lane) {
+  return ((lane >> 4) * 8 + (lane & 7)) * LDS + ((lane >> 3) & 1) * 8;
+}
+template <int LDS>
+__device__ __forceinline__ int bt_lane(int lane) {
+  return (((lane >> 3) & 1) * 8 + (lane & 7)) * LDS + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// x0, x1 (f32) as bf16x2 hi + lo, each rounded to nearest even: hi =
+// bf16(x), lo = bf16(x - hi), so hi + lo keeps about 16 bits of x; x0 in
+// the low halves (the lower column of an MMA operand)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The C fragments of two adjacent n8 score tiles (rows g, g + 8; columns
+// 2t, 2t + 1 of each), packed in pairs, are the A fragment of one depth
+// step of 16: split into hi and lo A fragments.
+__device__ __forceinline__ void split_frag(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);   // row g, columns 2t, 2t + 1
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);   // row g + 8
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);   // row g, columns 8 + 2t, + 1
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);   // row g + 8
+}
+
+// Start copying rows [t0, t0 + ROWS) of head h, batch b of a (B, T, H, D)
+// bf16 tensor into a ROWS x (DP + 8) shared tile, zero past T and past D,
+// by NT threads.  `vec`: 16-byte cp.async chunks (D % 8 == 0, 16-byte
+// aligned tensors); else plain loads, complete at the next barrier.
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
+                                          int h, int t0, int T_, int H,
+                                          int D, bool vec) {
+  constexpr int LDS = DP + 8;
+  const bf16* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
+  const size_t HD = (size_t)H * D;
+  if (vec) {
+    // thread x copies chunk x % CE of rows x / CE + RS i
+    constexpr int CE = DP / 8;      // 16-byte chunks per row
+    constexpr int RS = NT / CE;     // rows per round of NT chunks
+    static_assert(NT % CE == 0 && ROWS % RS == 0, "whole rounds");
+    const int r0 = threadIdx.x / CE;
+    const int c = (threadIdx.x % CE) * 8;
+    const bf16* from = row + (size_t)(t0 + r0) * HD + c;
+    bf16* to = dst + r0 * LDS + c;
+#pragma unroll
+    for (int i = 0; i < ROWS / RS; ++i) {
+      const bool ok = t0 + r0 + RS * i < T_ && c < D;
+      cp_async16(to + RS * i * LDS, ok ? from + RS * i * HD : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
+      const int r = idx / DP;
+      const int c = idx % DP;
+      const int t = t0 + r;
+      dst[r * LDS + c] =
+          t < T_ && c < D ? row[t * HD + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B9 forward
+// ---------------------------------------------------------------------------
+
+// shared memory of the forward, in bf16 elements: q, then kFwdStages
+// stages of k and of v; rows padded by 8 elements (16 bytes), so that
+// ldmatrix's 8 rows of 16 bytes fall in 8 different groups of 4 banks
+template <int DP>
+struct FwdBf16Smem {
+  static constexpr int LDS = DP + 8;
+  static constexpr int q_tile = kFwdRows16 * LDS;
+  static constexpr int kv_tile = kFwdKeys * LDS;
+  static constexpr int total = q_tile + 2 * kFwdStages * kv_tile;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kFwdThreads16, kFwdMinBlocks)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      float* __restrict__ lse, int H, int Tq, int Tk, int D,
+                      int causal, float scale, int vec) {
+  using L = FwdBf16Smem<DP>;
+  constexpr int LDS = L::LDS;
+  constexpr int QR = kFwdRows16;   // q rows of the block
+  constexpr int KN = kFwdKeys;
+  constexpr int NT = kFwdThreads16;
+  constexpr int NK = DP / 16;      // depth steps of q k^T
+  constexpr int NS = KN / 8;       // n8 tiles of s (keys of a tile)
+  constexpr int NO = DP / 8;       // n8 tiles of out
+  constexpr int CH = NO < 8 ? NO : 8;   // out tiles per fresh accumulator
+  constexpr int S = kFwdStages;
+  extern __shared__ __align__(16) float smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + L::q_tile;       // S stages
+  bf16* sV = sK + S * L::kv_tile;  // S stages
+
+  // blocks run in the order of blockIdx.x + gridDim.x blockIdx.y: every
+  // head's heaviest (causal: last) q tile first
+  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * QR;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const float scale2 = scale * kLog2e;
+  // this lane's ldmatrix rows (bytes): q's A fragments, k's B fragments
+  // (keys as columns), v's B fragments (keys as depth, .trans)
+  const unsigned aq_at = smem_u32(sQ) + 2 * (m0 * LDS + a_lane<LDS>(lane));
+  const unsigned bk_at = smem_u32(sK) + 2 * b_lane<LDS>(lane);
+  const unsigned bv_at = smem_u32(sV) + 2 * bt_lane<LDS>(lane);
+
+  // causal: keys past the block's last row are masked for all its rows
+  const int k_end = causal ? min(Tk, q0 + QR) : Tk;
+  const int n_tiles = (k_end + KN - 1) / KN;
+  // tile i of k and v into stage s of the ring, as one copy group
+  auto load_kv = [&](int i, int s) {
+    if (i < n_tiles) {
+      load_tile<DP, KN, NT>(sK + s * L::kv_tile, k, b, h, i * KN, Tk, H, D,
+                            vec);
+      load_tile<DP, KN, NT>(sV + s * L::kv_tile, v, b, h, i * KN, Tk, H, D,
+                            vec);
+    }
+    cp_async_commit();
+  };
+  load_tile<DP, QR, NT>(sQ, q, b, h, q0, Tq, H, D, vec);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) load_kv(i, i);   // q goes with tile 0
+
+  // per row (g, g + 8): the output, the running max of the log2-scaled
+  // logits, this lane's share of the running sum (the quad's four shares
+  // are added once at the end: the rescaling is the same for all four)
+  float acc[NO][4], row_m[2] = {kNegBig, kNegBig}, row_l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0, st = 0; it < n_tiles; ++it, st = st + 1 < S ? st + 1
+                                                                : 0) {
+    const int k0 = it * KN;
+    cp_async_wait<S - 2>();        // tile it (and q) has landed ...
+    __syncthreads();               // ... for every thread, and every warp
+                                   // is done with tile it - 1
+    load_kv(it + S - 1, st > 0 ? st - 1 : S - 1);   // into its stage
+    const unsigned ck = bk_at + st * (2 * L::kv_tile);
+    const unsigned cv = bv_at + st * (2 * L::kv_tile);
+
+    // s = q k^T, 16 rows x KN keys: one MMA per depth step of 16, exact
+    // bf16 products summed in f32 (q's fragments read again each tile:
+    // held in registers for the whole loop they cost more than the reads)
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t aq[4];
+      ldsm_x4(aq, aq_at + 32 * kk);
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ck + 2 * (16 * n2 * LDS + 16 * kk));
+        mma_bf16(s[2 * n2], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], aq, bk[2], bk[3]);
+      }
+    }
+
+    const int r0 = q0 + m0;      // this warp's first row
+    // online softmax in the C fragments (rows g, g + 8; keys 2t, 2t + 1
+    // of each n8 tile); a masked logit is -inf, so its p is 0 whatever
+    // the running max.  Only a tile past Tk or across the diagonal
+    // masks.
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale2;
+    if (k0 + KN > Tk || (causal && k0 + KN - 1 > r0)) {
+      const float neg_inf = __int_as_float(0xff800000);
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = r0 + g + 8 * (e >> 1);
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          s[n][e] = kj < Tk && !(causal && qi < kj) ? s[n][e] : neg_inf;
+        }
+    }
+    float mx[2] = {kNegBig, kNegBig};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float corr[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      const float m_new = fmaxf(row_m[half], mx[half]);
+      corr[half] = exp2_approx(row_m[half] - m_new);
+      row_m[half] = m_new;
+      row_l[half] *= corr[half];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_approx(s[n][e] - row_m[e >> 1]);
+        row_l[e >> 1] += s[n][e];
+      }
+
+    // out = out corr + p v, p as bf16 hi + lo (two MMAs per depth step,
+    // the small term first) into a fresh accumulator per tile and CH
+    // column tiles: the tensor core truncates as it accumulates
+#pragma unroll
+    for (int c0 = 0; c0 < NO; c0 += CH) {
+      float pv[CH][4];
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS / 2; ++j) {
+        uint32_t ph[4], pl[4];
+        split_frag(s[2 * j], s[2 * j + 1], ph, pl);
+        uint32_t bv[CH / 2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2)
+          ldsm_x4_t(bv[n2], cv + 2 * (16 * j * LDS + (c0 + 2 * n2) * 8));
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(pv[2 * n2], pl, bv[n2][0], bv[n2][1]);
+          mma_bf16(pv[2 * n2 + 1], pl, bv[n2][2], bv[n2][3]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(pv[2 * n2], ph, bv[n2][0], bv[n2][1]);
+          mma_bf16(pv[2 * n2 + 1], ph, bv[n2][2], bv[n2][3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c0 + n][e] = fmaf(acc[c0 + n][e], corr[e >> 1], pv[n][e]);
+    }
+  }
+  cp_async_wait<0>();              // the ring's empty trailing groups
+
+  // the quad's shares of each row's sum; out = acc / l; lse in natural
+  // log units, m + log(max(l, 1e-37)) of the scaled logits
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = row_l[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][2 * half] *= inv;
+      acc[n][2 * half + 1] *= inv;
+    }
+    const int row = q0 + m0 + g + 8 * half;
+    if (lse != nullptr && t == 0 && row < Tq)
+      lse[(size_t)bh * Tq + row] =
+          row_m[half] * kLn2 + logf(fmaxf(l, 1e-37f));
+  }
+  store_frags<DP>(out, acc, b, h, q0, Tq, H, D, m0, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// B9 dK/dV
+// ---------------------------------------------------------------------------
+
+// shared memory of dK/dV: lse and delta (kDkvStages stages of kDkvRows
+// f32 each), then in bf16 elements k, v, kDkvStages stages of q and of
+// dO, rows padded as the forward's
+template <int DP>
+struct DkvBf16Smem {
+  static constexpr int LDS = DP + 8;
+  static constexpr int tile = kDkvRows * LDS;
+  static constexpr int rows_f32 = 2 * kDkvStages * kDkvRows;
+  static constexpr size_t bytes =
+      4 * rows_f32 + 2 * (2 + 2 * kDkvStages) * tile;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          int Tq, int Tk, int D, int causal, float scale,
+                          int vec) {
+  using L = DkvBf16Smem<DP>;
+  constexpr int LDS = L::LDS;
+  constexpr int R = kDkvRows;      // keys of the block, q rows of a tile
+  constexpr int NT = kDkvThreads;
+  constexpr int NK = DP / 16;      // depth steps of k q^T and v dO^T
+  constexpr int NS = R / 8;        // n8 tiles of s^T (queries of a tile)
+  constexpr int NO = DP / 8;       // n8 tiles of dk, dv
+  constexpr int CH = NO < 8 ? NO : 8;   // dk, dv tiles per pass
+  constexpr int S = kDkvStages;
+  extern __shared__ __align__(16) float smem[];
+  float* sL = smem;                // lse of the q tiles, S stages
+  float* sD = smem + S * R;        // delta
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::rows_f32);   // the keys
+  bf16* sV = sK + L::tile;
+  bf16* sQ = sV + L::tile;         // S stages
+  bf16* sO = sQ + S * L::tile;     // dO, S stages
+
+  // causal: early k tiles have the most q tiles to visit; blocks run in
+  // the order of blockIdx.x + gridDim.x blockIdx.y, so every head's first
+  // k tile goes first
+  const int k0 = (int)blockIdx.y * R;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const float scale2 = scale * kLog2e;
+  // this lane's ldmatrix rows (bytes): k's and v's A fragments; q's and
+  // dO's B fragments with queries as columns, and with queries as depth
+  // (.trans)
+  const int a_at = 2 * (m0 * LDS + a_lane<LDS>(lane));
+  const unsigned ak_at = smem_u32(sK) + a_at;
+  const unsigned av_at = smem_u32(sV) + a_at;
+  const unsigned bq_at = smem_u32(sQ) + 2 * b_lane<LDS>(lane);
+  const unsigned bo_at = smem_u32(sO) + 2 * b_lane<LDS>(lane);
+  const unsigned tq_at = smem_u32(sQ) + 2 * bt_lane<LDS>(lane);
+  const unsigned to_at = smem_u32(sO) + 2 * bt_lane<LDS>(lane);
+
+  float ak[NO][4], av[NO][4];      // dk and dv, keys as rows
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+
+  // causal: q rows below k0 see none of these keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_tiles = q_begin < Tq ? (Tq - q_begin + R - 1) / R : 0;
+  // q tile i's copies into stage s of the ring, as one copy group: q,
+  // dO, and lse (threads 0-63) and delta (64-127) of its rows, zero past
+  // Tq
+  const int rr = threadIdx.x & (R - 1);
+  const float* rsrc = threadIdx.x < R ? lse : delta;
+  float* rdst = threadIdx.x < R ? sL : sD;
+  auto load_q_tile = [&](int i, int s) {
+    if (i < n_tiles) {
+      const int t0 = q_begin + i * R;
+      load_tile<DP, R, NT>(sQ + s * L::tile, q, b, h, t0, Tq, H, D, vec);
+      load_tile<DP, R, NT>(sO + s * L::tile, dout, b, h, t0, Tq, H, D, vec);
+      const bool ok = t0 + rr < Tq;
+      cp_async4(rdst + s * R + rr,
+                ok ? rsrc + (size_t)bh * Tq + t0 + rr : rsrc, ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  if (n_tiles > 0) {               // k and v go with q tile 0
+    load_tile<DP, R, NT>(sK, k, b, h, k0, Tk, H, D, vec);
+    load_tile<DP, R, NT>(sV, v, b, h, k0, Tk, H, D, vec);
+#pragma unroll
+    for (int i = 0; i < S - 1; ++i) load_q_tile(i, i);
+  }
+
+  for (int it = 0, st = 0; it < n_tiles; ++it, st = st + 1 < S ? st + 1
+                                                                : 0) {
+    const int q0 = q_begin + it * R;
+    cp_async_wait<S - 2>();        // q tile it (and k, v) has landed ...
+    __syncthreads();               // ... for every thread, and every warp
+                                   // is done with tile it - 1
+    load_q_tile(it + S - 1, st > 0 ? st - 1 : S - 1);   // into its stage
+    const unsigned so = st * (2 * L::tile);   // the stage, in bytes
+    const float* cL = sL + st * R;
+    const float* cD = sD + st * R;
+
+    // transposed scores s^T = k q^T and dp^T = v dO^T: this warp's 16
+    // keys x R queries, one MMA per depth step of 16 each (exact products)
+    float sT[NS][4], dpT[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t fk[4], fv[4];
+      ldsm_x4(fk, ak_at + 32 * kk);
+      ldsm_x4(fv, av_at + 32 * kk);
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, bq_at + so + 2 * (16 * n2 * LDS + 16 * kk));
+        ldsm_x4(bo, bo_at + so + 2 * (16 * n2 * LDS + 16 * kk));
+        mma_bf16(sT[2 * n2], fk, bq[0], bq[1]);
+        mma_bf16(sT[2 * n2 + 1], fk, bq[2], bq[3]);
+        mma_bf16(dpT[2 * n2], fv, bo[0], bo[1]);
+        mma_bf16(dpT[2 * n2 + 1], fv, bo[2], bo[3]);
+      }
+    }
+
+    // p^T = exp(s scale - lse), ds^T = p^T (dp^T - delta) scale, in place
+    // of s^T and dp^T; p^T is 0 where masked (only a tile past Tq or
+    // across the diagonal masks)
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(cL + c);
+      const float ls[2] = {l2.x * kLog2e, l2.y * kLog2e};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sT[n][e] = exp2_approx(fmaf(sT[n][e], scale2, -ls[e & 1]));
+    }
+    if (q0 + R > Tq || (causal && q0 < k0 + m0 + 15)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + m0 + g + 8 * (e >> 1);
+          const int qi = q0 + n * 8 + 2 * t + (e & 1);
+          sT[n][e] = qi < Tq && !(causal && qi < kj) ? sT[n][e] : 0.f;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(cD + n * 8 + 2 * t);
+      const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpT[n][e] = sT[n][e] * (dpT[n][e] - dl[e & 1]) * scale;
+    }
+
+    // dv += p^T dO, dk += ds^T q: p^T and ds^T as bf16 hi + lo A
+    // fragments straight from the C fragments (two MMAs each, the small
+    // term first), dO and q as B fragments down their rows (.trans)
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      uint32_t ph[4], pl[4], sh[4], sl[4];
+      split_frag(sT[2 * j], sT[2 * j + 1], ph, pl);
+      split_frag(dpT[2 * j], dpT[2 * j + 1], sh, sl);
+#pragma unroll
+      for (int c0 = 0; c0 < NO; c0 += CH) {
+        uint32_t bo[CH / 2][4], bq[CH / 2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          const int at = 2 * (16 * j * LDS + (c0 + 2 * n2) * 8);
+          ldsm_x4_t(bo[n2], to_at + so + at);
+          ldsm_x4_t(bq[n2], tq_at + so + at);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(av[c0 + 2 * n2], pl, bo[n2][0], bo[n2][1]);
+          mma_bf16(av[c0 + 2 * n2 + 1], pl, bo[n2][2], bo[n2][3]);
+          mma_bf16(ak[c0 + 2 * n2], sl, bq[n2][0], bq[n2][1]);
+          mma_bf16(ak[c0 + 2 * n2 + 1], sl, bq[n2][2], bq[n2][3]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(av[c0 + 2 * n2], ph, bo[n2][0], bo[n2][1]);
+          mma_bf16(av[c0 + 2 * n2 + 1], ph, bo[n2][2], bo[n2][3]);
+          mma_bf16(ak[c0 + 2 * n2], sh, bq[n2][0], bq[n2][1]);
+          mma_bf16(ak[c0 + 2 * n2 + 1], sh, bq[n2][2], bq[n2][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();              // the ring's empty trailing groups
   store_frags<DP>(dk, ak, b, h, k0, Tk, H, D, m0, g, t);
   store_frags<DP>(dv, av, b, h, k0, Tk, H, D, m0, g, t);
 }
@@ -1082,15 +1678,15 @@ int vec_copies(int D, const T* a, const T* b, const T* c, const T* d) {
   return D % (16 / sizeof(T)) == 0 && any % 16 == 0;
 }
 
-template <int DP, typename T>
-int launch_fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B,
-               int H, int Tq, int Tk, int D, int causal, float scale,
-               cudaStream_t st) {
-  const size_t smem = sizeof(float) * FwdSmem<DP, T>::total;
-  cudaError_t rc = prepare(flash_fwd_kernel<DP, T>, smem);
+template <int DP>
+int launch_fwd(const float* q, const float* k, const float* v, float* out,
+               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
+               float scale, cudaStream_t st) {
+  const size_t smem = sizeof(float) * FwdSmem<DP>::total;
+  cudaError_t rc = prepare(flash_fwd_kernel<DP>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tq + kFwdRows - 1) / kFwdRows, B * H);
-  flash_fwd_kernel<DP, T><<<grid, kFwdThreads, smem, st>>>(
+  flash_fwd_kernel<DP><<<grid, kFwdThreads, smem, st>>>(
       q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, v));
   return static_cast<int>(cudaGetLastError());
@@ -1111,16 +1707,46 @@ int launch_dq(const T* q, const T* k, const T* v, const T* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, typename T>
-int launch_dkv(const T* q, const T* k, const T* v, const T* dout,
-               const float* lse, const float* delta, T* dk, T* dv, int B,
-               int H, int Tq, int Tk, int D, int causal, float scale,
-               cudaStream_t st) {
-  const size_t smem = sizeof(float) * DkvSmem<DP, T>::total;
-  cudaError_t rc = prepare(flash_bwd_dkv_kernel<DP, T>, smem);
+template <int DP>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               float* dk, float* dv, int B, int H, int Tq, int Tk, int D,
+               int causal, float scale, cudaStream_t st) {
+  const size_t smem = sizeof(float) * DkvSmem<DP>::total;
+  cudaError_t rc = prepare(flash_bwd_dkv_kernel<DP>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tk + kB - 1) / kB, B * H);
-  flash_bwd_dkv_kernel<DP, T><<<grid, kBwdThreads, smem, st>>>(
+  flash_bwd_dkv_kernel<DP><<<grid, kBwdThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, D, causal, scale,
+      vec_copies(D, q, k, v, dout));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B9: the bf16 forward and dK/dV kernels
+template <int DP>
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
+               float scale, cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * FwdBf16Smem<DP>::total;
+  cudaError_t rc = prepare(flash_fwd_bf16_kernel<DP>, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(B * H, (Tq + kFwdRows16 - 1) / kFwdRows16);
+  flash_fwd_bf16_kernel<DP><<<grid, kFwdThreads16, smem, st>>>(
+      q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
+      vec_copies(D, q, k, v, v));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dkv(const bf16* q, const bf16* k, const bf16* v,
+               const bf16* dout, const float* lse, const float* delta,
+               bf16* dk, bf16* dv, int B, int H, int Tq, int Tk, int D,
+               int causal, float scale, cudaStream_t st) {
+  const size_t smem = DkvBf16Smem<DP>::bytes;
+  cudaError_t rc = prepare(flash_bwd_dkv_bf16_kernel<DP>, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(B * H, (Tk + kDkvRows - 1) / kDkvRows);
+  flash_bwd_dkv_bf16_kernel<DP><<<grid, kDkvThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
@@ -1131,8 +1757,8 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
          (long long)B * H > 65535;
 }
 
-// the three entry points of one element type: the template for DP in
-// {32, 64, 128} that holds D
+// the three entry points of one element type: the kernel for DP in {32,
+// 64, 128} that holds D (the launch_fwd / launch_dkv of that type)
 template <typename T>
 int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int H,
         int Tq, int Tk, int D, int causal, float scale, void* stream) {
@@ -1182,8 +1808,6 @@ int bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
   return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
                          causal, scale, st);
 }
-
-using bf16 = __nv_bfloat16;
 
 }  // namespace
 

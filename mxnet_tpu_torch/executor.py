@@ -394,8 +394,8 @@ class Executor:
 
     def _run(self, is_train, record):
         """Evaluate the graph; with ``record`` under autograd, keeping
-        what :meth:`backward` needs.  Train mode writes the new auxiliary
-        states into the bound arrays."""
+        what :meth:`backward` needs.  Train mode rebinds each auxiliary
+        array to its new state."""
         names = self._mask() if record else []
         leaves = {n: self.arg_dict[n]._handle.detach().requires_grad_()
                   for n in names}
@@ -410,10 +410,12 @@ class Executor:
                                                 generator=self._generator)
         self._graph = (outs, names, [leaves[n] for n in names]) \
             if record else None
-        with torch.no_grad():
-            if is_train:
-                for nd_, na in zip(self.aux_arrays, new_aux):
-                    nd_._handle.copy_(na)
+        if is_train:
+            # each aux array takes the op's new statistic itself, dtype
+            # included (f32 moving statistics under f16 data), as the
+            # reference rebinds its handle; the NDArray objects stay
+            for nd_, na in zip(self.aux_arrays, new_aux):
+                nd_._handle = na.detach()
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
 

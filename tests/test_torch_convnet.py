@@ -221,6 +221,54 @@ def test_bind_simple_bind_and_backward_match_jax():
                                    atol=1e-6, err_msg=n)
 
 
+def test_train_forward_rebinds_f32_statistics_under_f16_data():
+    """Convolution -> BatchNorm bound with float16 data: a training
+    forward gives each aux array the op's new statistic itself, float32
+    in both packages (not rounded into the float16 buffer simple_bind
+    made), and the NDArray objects stay those of ``aux_dict``.  Inputs
+    are multiples of 1/4, so the f16 convolution is exact on both sides
+    and the outputs are equal; the statistics differ by f32 summation
+    order only (rtol 1e-6, far below f16's 2^-11)."""
+    def net(s):
+        x = s.Convolution(s.Variable("data"), num_filter=4, kernel=(3, 3),
+                          pad=(1, 1), name="conv")
+        return s.BatchNorm(x, fix_gamma=False, name="bn")
+
+    with JaxNameManager():
+        j = net(jsym)
+    with NameManager():
+        t = net(sym)
+    shapes = dict(data=(2, 3, 5, 5))
+    jex = j.simple_bind(jmx.cpu(), type_dict={"data": "float16"}, **shapes)
+    tex = t.simple_bind(tmx.cpu(), type_dict={"data": "float16"}, **shapes)
+    rs = np.random.RandomState(0)
+    vals = {n: (rs.randint(-4, 5, a.shape) / 4).astype(a.dtype)
+            for n, a in jex.arg_dict.items()}
+    vals["bn_gamma"] = (1 + rs.randint(0, 4, 4) / 4).astype(np.float16)
+    aux = {"bn_moving_mean": np.full(4, 0.1, np.float32),
+           "bn_moving_var": np.full(4, 0.9, np.float32)}
+    jex.copy_params_from(
+        {n: jmx.nd.array(v, dtype=v.dtype) for n, v in vals.items()},
+        {n: jmx.nd.array(v, dtype=v.dtype) for n, v in aux.items()})
+    tex.copy_params_from(
+        {n: tmx.nd.array(v, ctx=tmx.cpu(), dtype=v.dtype)
+         for n, v in vals.items()},
+        {n: tmx.nd.array(v, ctx=tmx.cpu(), dtype=v.dtype)
+         for n, v in aux.items()})
+    bound = dict(tex.aux_dict)
+    for is_train in (True, True, False):
+        tout = tex.forward(is_train=is_train)[0].asnumpy()
+        jout = jex.forward(is_train=is_train)[0].asnumpy()
+        assert tout.dtype == jout.dtype == np.float16
+        np.testing.assert_array_equal(tout, jout)
+        for n in aux:
+            assert tex.aux_dict[n] is bound[n]
+            assert tex.aux_arrays[tex._prog.aux_names.index(n)] is bound[n]
+            got, want = tex.aux_dict[n].asnumpy(), jex.aux_dict[n].asnumpy()
+            assert got.dtype == want.dtype == np.float32, n
+            np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=n)
+
+
 def test_dropout_in_a_graph():
     """Random ops enter a graph: a Dropout net trains through the
     trainer (draws from its own generator: a seed repeats them, and

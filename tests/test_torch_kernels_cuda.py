@@ -5,7 +5,9 @@ sync), the int8/int4 quantized matmul (at the decode step's shapes too),
 the three flash-attention kernels (forward, dQ, dK/dV; bit-equal reruns,
 and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
 meets) and their bf16 entry points (B9, against the plain versions within
-one bf16 step), the embedding gather and scatter (runs of 1 to 1000 equal ids
+one bf16 step, at logits of +-20 and ragged non-causal tiles too; the f32
+kernels and the bf16 dQ give the bits they gave before the bf16 forward
+and dK/dV were rewritten), the embedding gather and scatter (runs of 1 to 1000 equal ids
 with inexact payloads, bit-equal to an in-order float32 fold) and the
 two-bit gradient compression at ragged and odd shapes that the
 full-width smoke run does not reach, both grouped kernels (the two-bit
@@ -545,11 +547,11 @@ def _bf16_close(got, ref, base):
     return ((got - ref).abs() / tol).max().item()
 
 
-@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", BF16_CASES, ids=BF16_IDS)
-def test_flash_attention_bf16_kernels_match_plain(dev, B, Tq, Tk, H, D,
-                                                  causal):
-    q, k, v, do = (t.bfloat16() for t in _flash_inputs(
-        dev, B, Tq, Tk, H, D, Tq * 5 + D))
+def _check_bf16_kernels(q, k, v, do, causal):
+    """The three B9 kernels against their plain versions on bf16 q, k, v,
+    dO: one launch each (and none of the f32 ones), lse within 1e-5,
+    out / dq / dk / dv within one bf16 step plus 1e-5 / 1e-4 x max(1,
+    max|ref|), and a rerun gives the same bits."""
     before = dict(kernels.LAUNCHES)
     out, lse = kernels.flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
@@ -578,6 +580,84 @@ def test_flash_attention_bf16_kernels_match_plain(dev, B, Tq, Tk, H, D,
         kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal)
     for a, b in zip((out, dq, dk, dv), again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", BF16_CASES, ids=BF16_IDS)
+def test_flash_attention_bf16_kernels_match_plain(dev, B, Tq, Tk, H, D,
+                                                  causal):
+    q, k, v, do = (t.bfloat16() for t in _flash_inputs(
+        dev, B, Tq, Tk, H, D, Tq * 5 + D))
+    _check_bf16_kernels(q, k, v, do, causal)
+
+
+# the edges of the bf16 tiling and of p's hi + lo split: logits that reach
+# ~+-20 (q and k x 2.5: p spans e^-40..1 in one row), and Tq != Tk without
+# the causal mask at D 32 and 128 (ragged 64-row tiles on both sides)
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal,gain", [
+    (2, 256, 256, 2, 64, True, 2.5), (1, 96, 160, 2, 32, False, 1.0),
+    (2, 160, 96, 2, 128, False, 1.0)],
+    ids=["logits20-t256", "full-tq96-tk160-d32", "full-tq160-tk96-d128"])
+def test_flash_attention_bf16_kernels_at_the_edges(dev, B, Tq, Tk, H, D,
+                                                   causal, gain):
+    q, k, v, do = _flash_inputs(dev, B, Tq, Tk, H, D, 21 + D)
+    q, k = q * gain, k * gain
+    if gain > 1:
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / D ** 0.5
+        assert s.abs().max().item() > 15
+    _check_bf16_kernels(*(t.bfloat16() for t in (q, k, v, do)), causal)
+
+
+# The f32 kernels (B1, B2a, B2b) and the bf16 dQ kernel are the same code
+# as before the bf16 forward and dK/dV were redesigned: SHA-256 (first 16
+# hex digits) of their outputs at fixed inputs, as the earlier source
+# (commit cd7afa8) gave them on the H100.  The bf16 dQ reads lse and delta
+# of the plain versions, so that it does not depend on the new forward.
+FLASH_DIGESTS = {
+    "T1000-D64 out": "001023db11a41cad",
+    "T1000-D64 lse": "c1105eee0cf06b42",
+    "T1000-D64 dq": "a7760161e18de24f",
+    "T1000-D64 dk": "a91928aeb2fa97ae",
+    "T1000-D64 dv": "6f5c896be33f48a1",
+    "T1000-D64 dq_bf16": "aa2ab549fa913d87",
+    "T160-D128 out": "9fd9fde54f85c201",
+    "T160-D128 lse": "1599631a6df556c5",
+    "T160-D128 dq": "e69225bf6b6d8ff6",
+    "T160-D128 dk": "85045e675546132e",
+    "T160-D128 dv": "d4faebd584fd8850",
+    "T160-D128 dq_bf16": "9a18dae6df916235",
+}
+
+
+def flash_digests(dev):
+    """{output name: digest} of the f32 forward (out, lse), dQ, dK, dV and
+    the bf16 dQ at two fixed inputs."""
+    import hashlib
+    out = {}
+    for B, Tq, Tk, H, D, causal in [(2, 1000, 1000, 3, 64, True),
+                                    (1, 160, 96, 2, 128, False)]:
+        q, k, v, do = _flash_inputs(dev, B, Tq, Tk, H, D, 7)
+        o, lse = kernels.flash_attention_fwd(q, k, v, causal)
+        delta = kernels.flash_delta(o, do)
+        dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal)
+        qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        ref, ref_lse = kernels.flash_attention_fwd_plain(qb, kb, vb, causal)
+        dqb = kernels.flash_attention_bwd_dq(qb, kb, vb, dob, ref_lse,
+                                             kernels.flash_delta(ref, dob),
+                                             causal)
+        torch.cuda.synchronize()
+        for name, t in (("out", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                        ("dv", dv), ("dq_bf16", dqb)):
+            out["T%d-D%d %s" % (Tq, D, name)] = hashlib.sha256(
+                t.cpu().view(torch.int16 if t.dtype == torch.bfloat16
+                             else torch.int32).numpy().tobytes()
+            ).hexdigest()[:16]
+    return out
+
+
+def test_flash_f32_and_bf16_dq_kernels_give_the_earlier_bits(dev):
+    assert flash_digests(dev) == FLASH_DIGESTS
 
 
 def test_flash_attention_bf16_autograd_on_card_matches_cpu(dev):

@@ -24,9 +24,15 @@ them, and the SASS opcode counts of the D = 64 kernels (``cuobjdump
 
 ``--bf16`` runs the bf16 kernels (B9) instead: bf16 inputs, each error
 over ``chip_smoke.py``'s bf16 tolerance (one bf16 step of each element
-plus the f32 tolerance above), whether each variant's outputs are
-bit-equal to the first variant's, the same times, and SDPA in bf16; the
-large-logits check, which compares with 1xTF32 f32 einsums, is f32 only.
+plus the f32 tolerance above), whether each output (out, lse, dq, dk, dv)
+is bit-equal to the first variant's, the same times, and SDPA in bf16;
+the large-logits check, which compares with 1xTF32 f32 einsums, is f32
+only.  To time the bf16 kernels of a parent commit against the tree's::
+
+    git show <commit>:mxnet_tpu_torch/csrc/flash_attention.cu \
+        > build/variants/flash_parent.cu
+    python tools/flash_variants.py --bf16 build/variants/flash_parent.cu \
+        mxnet_tpu_torch/csrc/flash_attention.cu
 """
 import sys
 
@@ -95,11 +101,12 @@ def main():
                      for i, (g, r, base) in enumerate(zip(
                          got, (ref, lse) + refs, [1e-5, 1e-5] + [1e-4] * 3))]
             line = "B%d T%d H%d D%d %s | %s: error/tolerance %s, " \
-                "bit-equal %s, as the first variant %s" % (
+                "bit-equal %s, as the first variant (out, lse, dq, dk, " \
+                "dv) %s" % (
                     B, T, H, D, "causal" if causal else "full", src,
                     ["%.3g" % x for x in ratio],
                     all(torch.equal(a, b) for a, b in zip(got, again)),
-                    all(torch.equal(a, b) for a, b in zip(got, first)))
+                    [torch.equal(a, b) for a, b in zip(got, first)])
             if (B, T, H, D, causal) in TIMED:
                 line += " | fwd %.4f ms, dq %.4f ms, dkv %.4f ms" % (
                     timer(lambda: fwd(q, k, v, causal)),
@@ -133,13 +140,15 @@ def main():
         lambda: torch.autograd.grad(out, (qt, kt, vt),
                                     do.transpose(1, 2).contiguous(),
                                     retain_graph=True))))
-    # the instantiation of this element type: ...kernelILi64EfE (f32) or
-    # ...kernelILi64E13__nv_bfloat16E; a source from before the template
-    # has ...kernelILi64EE, which counts as f32
-    tname = "13__nv_bfloat16" if bf16 else "(?:f)?"
+    # the kernels of this element type: f32 ...kernelILi64EfE (a source
+    # from before the template: ...kernelILi64EE); bf16 the template's
+    # ...kernelILi64E13__nv_bfloat16E or the bf16 kernels'
+    # ..._bf16_kernelILi64EE
+    name_re = (r"(fwd|bwd_dq|bwd_dkv)(?:_bf16_kernelILi(\d+)EE|"
+               r"_kernelILi(\d+)E13__nv_bfloat16E)" if bf16 else
+               r"(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)E(?:f)?E")
     for src, path, _ in libs:
-        hist = sass_counts(path, r"(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)E%sE"
-                           % tname)
+        hist = sass_counts(path, name_re)
         for fn in ("fwd64", "bwd_dq64", "bwd_dkv64"):
             print("%s %s: %d SASS instructions, %s" % (
                 src, fn, sum(hist[fn].values()),

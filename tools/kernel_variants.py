@@ -60,7 +60,7 @@ def sass_counts(path, name_re):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kind = re.search(name_re, m.group(1))
-            fn = "".join(kind.groups()) if kind else None
+            fn = "".join(g for g in kind.groups() if g) if kind else None
             continue
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)",
                       line)
