@@ -26,10 +26,10 @@ Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel), identify the card, and check the SASS of the
-   3xTF32 kernels (the three f32 flash kernels, the bf16 dQ, and both
-   instantiations of the quantized matmul) for TF32 ``HMMA``
-   instructions, and of the bf16 flash forward and dK/dV for bf16
-   ``HMMA.16816`` and no TF32 one (``cuobjdump -sass``);
+   3xTF32 kernels (the three f32 flash kernels and both instantiations
+   of the quantized matmul) for TF32 ``HMMA`` instructions, and of the
+   three bf16 flash kernels for bf16 ``HMMA.16816`` and no TF32 one
+   (``cuobjdump -sass``);
 2. each kernel against its plain version at the shapes the decode step
    gives it (decode attention at the step's mix of lengths and at the
    full cache, 8 x 1024 tokens), two launches bit-equal, with its time,
@@ -152,9 +152,10 @@ Phases, in order:
     ``set_sync_debug_mode("error")``) and ``build_step_auto_layout`` in
     bench.py's loop shape (3 warm-up, 20 timed steps, the loss read once
     at the end): tokens/s, per-step spread from CUDA events, device idle
-    share and time by group from 3 profiled steps, peak memory, 12
-    launches of each B9 kernel per step and none of the f32 ones, the
-    cross-entropy falling on the repeated batch;
+    share and time by group from 3 profiled steps (B9's share of the
+    step among them), peak memory, 12 launches of each B9 kernel per step
+    and none of the f32 ones, the cross-entropy falling on the repeated
+    batch;
 22. bench.py's ResNet-50 configuration in bf16 (``dtype="bfloat16"``,
     ``param_dtype="bfloat16"``, NCHW): one step of the cifar ResNet-20 on
     the card against the CPU (as in 21), then ResNet-50 through
@@ -714,20 +715,21 @@ def flash_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows):
 
 
 # kernels that run TF32 MMAs on the tensor cores, by library (the f32
-# flash forward and dK/dV, and dQ in f32 and bf16), and those that run
-# bf16 MMAs and no TF32 one (the bf16 flash forward and dK/dV)
+# flash forward, dQ and dK/dV, and the quantized matmul), and those that
+# run bf16 MMAs and no TF32 one (the bf16 flash forward, dQ and dK/dV)
 TF32_KERNELS = {"flash_attention": ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                     "flash_bwd_dkv_kernel"),
                 "quant_matmul": ("quant_matmul_kernel",)}
 BF16_KERNELS = {"flash_attention": ("flash_fwd_bf16_kernel",
+                                    "flash_bwd_dq_bf16_kernel",
                                     "flash_bwd_dkv_bf16_kernel")}
 
 
 def sass_check(build, card):
-    """The 3xTF32 kernels (the f32 flash kernels, the bf16 dQ, and
-    quant_matmul's two instantiations with x split in two) run TF32 MMAs
-    on the tensor cores, and the bf16 flash forward and dK/dV run bf16
-    m16n8k16 MMAs and no TF32 one: the SASS of each instantiation
+    """The 3xTF32 kernels (the f32 flash kernels and quant_matmul's two
+    instantiations with x split in two) run TF32 MMAs on the tensor
+    cores, and the bf16 flash kernels run bf16 m16n8k16 MMAs and no TF32
+    one: the SASS of each instantiation
     (``cuobjdump -sass`` of the built library) holds ``HMMA...TF32``,
     respectively ``HMMA.16816...BF16`` and no ``TF32``."""
     import re
@@ -2605,17 +2607,16 @@ def phase_resnet50(torch, kernels, ShardedTrainer, card):
 BF16_FLOPS_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 
 # MMAs per product of 2·D flops per (q, k) pair in each B9 kernel, and
-# their rate.  The forward and dK/dV run bf16 MMAs: one where both
-# operands are bf16 (q k^T, k q^T, v dO^T), two where one side is f32 (p v,
-# p^T dO, ds^T q as bf16 hi + lo).  dQ runs TF32 MMAs on bf16 widened to
-# f32: one for q k^T and dO v^T, two for ds k.
-B9_MMAS = {"fwd": (1 + 2, BF16_FLOPS_S), "dq": (1 + 1 + 2, TF32_FLOPS_S),
+# their rate: bf16 MMAs, one where both operands are bf16 (q k^T, dO v^T,
+# k q^T, v dO^T), two where one side is f32 (p v, ds k, p^T dO, ds^T q as
+# bf16 hi + lo).
+B9_MMAS = {"fwd": (1 + 2, BF16_FLOPS_S), "dq": (1 + 1 + 2, BF16_FLOPS_S),
            "dkv": (1 + 1 + 2 + 2, BF16_FLOPS_S)}
 B9_MATH = {
     "fwd": "bf16 tiles, bf16 m16n8k16 mma.sync: 1 MMA for q k^T, 2 for "
            "p v (p as bf16 hi + lo)",
-    "dq": "bf16 tiles widened to f32, TF32 mma.sync: 1 MMA per bf16 x bf16 "
-          "product, 2 where one side is f32",
+    "dq": "bf16 tiles, bf16 m16n8k16 mma.sync: 1 MMA each for q k^T and "
+          "dO v^T, 2 for ds k (ds as bf16 hi + lo)",
     "dkv": "bf16 tiles, bf16 m16n8k16 mma.sync: 1 MMA each for k q^T and "
            "v dO^T, 2 each for p^T dO and ds^T q (hi + lo)"}
 
@@ -2640,10 +2641,10 @@ def b9_bound(B, Tq, Tk, H, D, causal, units, n_in, n_out, n_rows, mmas):
 
 # Times of the earlier B9 design at the training shape, bf16 tiles
 # widened to f32 on TF32 MMAs (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-# §6): the forward and dK/dV that the bf16 kernels replaced, for the log
-# beside this run's
+# §6): the kernels that the bf16 ones replaced, for the log beside this
+# run's
 B9_WIDENED_MS = {"flash_attention_fwd_bf16": "0.2443 ms",
-                 "flash_attention_bwd_dq_bf16": "0.3883 ms, the same kernel",
+                 "flash_attention_bwd_dq_bf16": "0.3883 ms",
                  "flash_attention_bwd_dkv_bf16": "0.4585 ms"}
 
 
@@ -2983,6 +2984,11 @@ def phase_lm_bf16(torch, kernels, get_symbol, ShardedTrainer, sgd_step_fn,
                peak / 1e9,
                {k: v for k, v in counts.items() if v}, n_steps, L, ce0, ce1,
                card))
+        log("  B9's share of the step: %.2f ms per step = %.3f of the "
+            "device busy time, %.3f of the unprofiled loop's step [%s]"
+            % (groups["flash kernels (B9)"],
+               groups["flash kernels (B9)"] / (busy / 3),
+               groups["flash kernels (B9)"] / ms, card))
         check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
               "the bf16 LM did not lower the cross-entropy (%.4f -> %.4f)"
               % (ce0, ce1))

@@ -111,40 +111,37 @@
 // B9: the same three functions in bf16 (the reference's kernels take
 // bf16 q, k, v and dO, compute in f32 and write out, dQ, dK and dV in the
 // input dtype, with lse and delta f32).  Outputs are rounded to bf16 to
-// nearest even, as astype does.
-//  * dQ (flash_bwd_dq_kernel<DP, bf16>) is the f32 kernel above as a
-//    template over the element type: a bf16 tile is widened to f32 as it
-//    lands in shared memory (Wide<T>) and runs the TF32 path, a bf16
-//    value being exact in TF32, so the MMAs that would read its small
-//    part are dropped at compile time (ALO, BLO of mma3).
-//  * The forward (flash_fwd_bf16_kernel) and dK/dV
-//    (flash_bwd_dkv_bf16_kernel) are written for bf16.  What bounds them
-//    on the H100, at the training shape: the forward moves 50.7 MB
-//    (0.0151 ms at 3.35 TB/s) for 12.9 GFLOP (0.0130 ms at the 989 TFLOP/s
-//    of bf16); dK/dV does 25.8 GFLOP (0.0261 ms) on 76 MB (0.0227 ms).
-//    Both run far from either, on mma.sync (the rates of the tensor core
-//    that wgmma reaches are not open to it) at 3 (forward) and 6 (dK/dV)
-//    MMA units of 2 D flops per (q, k) pair.  What the design does (the
-//    percentages: NVIDIA H100 80GB HBM3 at 700 W, tools/flash_variants.py):
+// nearest even, as astype does.  The forward (flash_fwd_bf16_kernel),
+// dQ (flash_bwd_dq_bf16_kernel) and dK/dV (flash_bwd_dkv_bf16_kernel) are
+// written for bf16.  What bounds them on the H100, at the training shape:
+// the forward moves 50.7 MB (0.0151 ms at 3.35 TB/s) for 12.9 GFLOP
+// (0.0130 ms at the 989 TFLOP/s of bf16); dQ does 19.4 GFLOP (0.0196 ms)
+// on 64 MB (0.0190 ms); dK/dV 25.8 GFLOP (0.0261 ms) on 76 MB (0.0227 ms).
+// All three run far from either, on mma.sync (the rates of the tensor
+// core that wgmma reaches are not open to it) at 3 (forward), 4 (dQ) and
+// 6 (dK/dV) MMA units of 2 D flops per (q, k) pair.  What the design does
+// (the percentages: NVIDIA H100 80GB HBM3 at 700 W,
+// tools/flash_variants.py):
 //    - bf16 tiles in shared memory, never widened, rows padded by 16
 //      bytes (stride DP + 8 elements) so that ldmatrix's 8 rows of 16
 //      bytes fall in 8 groups of 4 banks; the streamed tiles (k and v of
-//      64 keys for the forward, q and dO of 64 rows with their lse and
-//      delta for dK/dV) fill a ring of 2 stages by cp.async 16-byte
+//      64 keys for the forward and dQ, q and dO of 64 rows with their lse
+//      and delta for dK/dV) fill a ring of 2 stages by cp.async 16-byte
 //      chunks, the next tile in flight while this one computes, one
 //      barrier per tile.  Each thread's copy offsets are computed once
 //      (recomputing them per chunk cost the forward 15%).
 //    - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 for every
 //      product, fragments by ldmatrix.x4 (.trans where the depth runs
-//      down the rows: v in p v, dO and q in p^T dO and ds^T q).  q k^T,
-//      k q^T and v dO^T take one MMA per depth step of 16: bf16 x bf16
-//      products are exact in f32, so this is the reference's product up
-//      to summation order.
-//    - The f32 side of p v, p^T dO and ds^T q (p, ds) goes in as two bf16
-//      terms, hi = bf16_rn(x) and lo = bf16_rn(x - hi), about 16 bits of
-//      x, and two MMAs, the small term first.  One term (p rounded to
-//      bf16) breaks the bf16 tolerance (tests/test_torch_flash_bf16_
-//      split.py); it would save 12% of the forward and of dK/dV.
+//      down the rows: v in p v, k in ds k, dO and q in p^T dO and ds^T
+//      q).  q k^T, dO v^T, k q^T and v dO^T take one MMA per depth step of
+//      16: bf16 x bf16 products are exact in f32, so this is the
+//      reference's product up to summation order.
+//    - The f32 side of p v, ds k, p^T dO and ds^T q (p, ds) goes in as two
+//      bf16 terms, hi = bf16_rn(x) and lo = bf16_rn(x - hi), about 16 bits
+//      of x, and two MMAs, the small term first.  One term (p or ds
+//      rounded to bf16) breaks the bf16 tolerance (tests/test_torch_flash_
+//      bf16_split.py: 5-16x on dq); it would save 12% of the forward and
+//      of dK/dV.
 //    - The C fragments of two adjacent n8 score tiles, packed as bf16x2,
 //      are the A fragment of one depth step of 16 (split_frag): p and ds
 //      never leave registers.  dK/dV computes s^T = k q^T and dp^T = v
@@ -153,22 +150,30 @@
 //      fragments are read from shared memory per tile (held in registers
 //      for the whole loop they cost 9%); the online softmax in exp2 units
 //      in the C fragments; each tile's p v into a fresh accumulator per
-//      64 columns, added in f32 (lesson (b) above).  dK/dV: 4 warps of 16
-//      keys, one block per 64 keys; dk and dv accumulate in f32
-//      registers, rounded once to bf16.
+//      64 columns, added in f32 (lesson (b) above).  dQ: the forward's
+//      blocks and k / v ring, with q and dO resident; s, dp, p and ds in
+//      the C fragments, lse and delta of a lane's two rows in registers.
+//      dK/dV: 4 warps of 16 keys, one block per 64 keys.  dq, dk and dv
+//      accumulate in f32 registers across the whole loop, rounded once to
+//      bf16: their tolerance is one bf16 step, far above what the tensor
+//      core's truncation of the sums costs (a fresh dq accumulator per
+//      key tile, added in f32, gave the same error at every shape and
+//      was 0.5% slower).
 //    - The grid is (B H, tiles): blocks run heads across blockIdx.x, so
 //      every head's heaviest causal tile runs in the first wave and the
 //      tail is light (the other order cost 11% / 6%).  One owner per
 //      output tile: no atomics, the same bits on every run.
 //    - Masks (past T, the causal diagonal) only on the tiles that need
-//      them; -inf logits in the forward, p = 0 in dK/dV.
+//      them; -inf logits in the forward, p = 0 in dQ and dK/dV.
 //    Occupancy at DP = 64 (-Xptxas -v, sm_90a): forward 166 registers, no
-//    spills, 45 KB of shared memory, 3 blocks (12 warps) per SM; dK/dV 212
-//    registers, no spills, 56 KB, 2 blocks.  DP = 32: 122 / 160
-//    registers; DP = 128: 245 registers (forward, no spills), 255 with 72
+//    spills, 45 KB of shared memory, 3 blocks (12 warps) per SM; dQ 166
+//    registers, no spills, 54 KB, 3 blocks; dK/dV 212 registers, no
+//    spills, 56 KB, 2 blocks.  DP = 32: 122 / 142 / 160 registers; DP =
+//    128: 245 (forward) and 226 (dQ) registers, no spills, 255 with 72
 //    bytes of stack (dK/dV).
-// The f32 kernels and the bf16 dQ give the same bits as before these two
-// were added (tests/test_torch_kernels_cuda.py holds their digests).
+// The f32 kernels give the same bits as before the bf16 kernels were
+// added, and the bf16 forward and dK/dV the same as before dQ was
+// (tests/test_torch_kernels_cuda.py holds their digests).
 
 // Interface: plain C, launched on the caller's stream, allocates nothing,
 // f32 (mxt_flash_attention_*) or bf16 (mxt_flash_attention_*_bf16) q, k,
@@ -185,21 +190,6 @@ constexpr int kB = 64;          // rows of a backward block's tile
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the element type of the (B, T, H, D) tensors: f32, whose operands have
-// a TF32 small part, or bf16, whose operands are exact in TF32
-template <typename T>
-struct Wide {
-  static constexpr bool value = false;
-};
-template <>
-struct Wide<float> {
-  static constexpr bool value = true;
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -254,44 +244,34 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // then big.big, each as one pass over the N independent accumulators, so
 // that no MMA waits for the one just before it (three MMAs into one
 // accumulator back to back stall on the tensor core's latency).  c0 is a
-// constant once the caller's loop is unrolled.  ALO / BLO: a / b has a
-// small part (false for an operand that came from bf16: its pass is
-// dropped).
-template <bool ALO, bool BLO, int N, int M>
+// constant once the caller's loop is unrolled.
+template <int N, int M>
 __device__ __forceinline__ void mma3(float (&c)[M][4], int c0,
                                      const FragA& a, const FragB (&b)[N]) {
-  if (ALO) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.lo, b[n].hi);
-  }
-  if (BLO) {
+  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.lo, b[n].hi);
 #pragma unroll
-    for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].lo);
-  }
+  for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].lo);
 #pragma unroll
   for (int n = 0; n < N; ++n) mma_tf32(c[c0 + n], a.hi, b[n].hi);
 }
 
 // the same for two products that share nothing (s and dp, dv and dk):
 // their passes interleave
-template <bool ALO, bool BLO, int N, int M>
+template <int N, int M>
 __device__ __forceinline__ void mma3x2(float (&c)[M][4], float (&e)[M][4],
                                        int c0, const FragA& a,
                                        const FragB (&b)[N], const FragA& f,
                                        const FragB (&g)[N]) {
-  if (ALO) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      mma_tf32(c[c0 + n], a.lo, b[n].hi);
-      mma_tf32(e[c0 + n], f.lo, g[n].hi);
-    }
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(c[c0 + n], a.lo, b[n].hi);
+    mma_tf32(e[c0 + n], f.lo, g[n].hi);
   }
-  if (BLO) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      mma_tf32(c[c0 + n], a.hi, b[n].lo);
-      mma_tf32(e[c0 + n], f.hi, g[n].lo);
-    }
+  for (int n = 0; n < N; ++n) {
+    mma_tf32(c[c0 + n], a.hi, b[n].lo);
+    mma_tf32(e[c0 + n], f.hi, g[n].lo);
   }
 #pragma unroll
   for (int n = 0; n < N; ++n) {
@@ -390,26 +370,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Start copying rows [t0, t0 + ROWS) of head h, batch b of a (B, T, H, D)
 // tensor into a ROWS x DP fragment-order shared tile (a_slot), zero past T
 // and past D (a copy of source size 0 writes zeros): the block's resident
-// A operands, by NT threads.  Consecutive threads read consecutive d.  A
-// bf16 tensor is widened to f32 by plain loads (cp.async copies no 2-byte
-// element).
-template <int DP, int ROWS = kB, int NT = kBwdThreads, typename T>
-__device__ __forceinline__ void stage_resident(float* dst, const T* src,
+// A operands, by NT threads.  Consecutive threads read consecutive d.
+template <int DP, int ROWS = kB, int NT = kBwdThreads>
+__device__ __forceinline__ void stage_resident(float* dst, const float* src,
                                                int b, int h, int t0, int T_,
                                                int H, int D) {
-  const T* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
+  const float* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
   for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
     const int r = idx / DP;
     const int c = idx % DP;
     const int t = t0 + r;
     const bool ok = t < T_ && c < D;
-    if (Wide<T>::value)
-      cp_async4(dst + a_slot<DP>(r, c),
-                reinterpret_cast<const float*>(ok ? row + t * HD + c : src),
-                ok ? 4 : 0);
-    else
-      dst[a_slot<DP>(r, c)] = ok ? to_f32(row[t * HD + c]) : 0.f;
+    cp_async4(dst + a_slot<DP>(r, c), ok ? row + t * HD + c : src,
+              ok ? 4 : 0);
   }
 }
 
@@ -421,18 +395,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 }
 
 // Start copying rows [t0, t0 + kBs) of a (B, T, H, D) tensor into a
-// kBs x DP staging tile of its own element type, zero past T and D: the
-// next streamed tile, in flight while the current one computes.  `vec`:
-// whole 16-byte chunks (4 f32 or 8 bf16 elements) never cross D and the
-// tensor is 16-byte aligned, so whole chunks are copied.  NT threads.
-template <int DP, int NT = kBwdThreads, typename T>
-__device__ __forceinline__ void fetch_stream(T* raw, const T* src, int b,
-                                             int h, int t0, int T_, int H,
-                                             int D, bool vec) {
-  const T* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
+// kBs x DP staging tile, zero past T and D: the next streamed tile, in
+// flight while the current one computes.  `vec`: whole 16-byte chunks (4
+// elements) never cross D and the tensor is 16-byte aligned, so whole
+// chunks are copied.  NT threads.
+template <int DP, int NT = kBwdThreads>
+__device__ __forceinline__ void fetch_stream(float* raw, const float* src,
+                                             int b, int h, int t0, int T_,
+                                             int H, int D, bool vec) {
+  const float* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
   if (vec) {
-    constexpr int E = 16 / sizeof(T);       // elements per chunk
+    constexpr int E = 4;                    // elements per chunk
     constexpr int CE = DP / E;
     for (int idx = threadIdx.x; idx < kBs * CE; idx += NT) {
       const int t = t0 + idx / CE;
@@ -445,27 +419,14 @@ __device__ __forceinline__ void fetch_stream(T* raw, const T* src, int b,
       const int t = t0 + idx / DP;
       const int c = idx % DP;
       const bool ok = t < T_ && c < D;
-      if (Wide<T>::value)
-        cp_async4(reinterpret_cast<float*>(raw + idx),
-                  reinterpret_cast<const float*>(ok ? row + t * HD + c : src),
-                  ok ? 4 : 0);
-      else
-        raw[idx] = ok ? row[t * HD + c] : T();
+      cp_async4(raw + idx, ok ? row + t * HD + c : src, ok ? 4 : 0);
     }
   }
 }
 
-// Four consecutive elements of a staging tile as f32.
+// Four consecutive elements of a staging tile.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // kBs values of a (B*H, T) row vector (lse or delta) into staging, zero
@@ -481,20 +442,15 @@ __device__ __forceinline__ void fetch_rows(float* raw, const float* src,
 
 // A staging tile split once into the big and small parts of two
 // kBs x (DP + 8) tiles: the streamed B operands, read by every warp
-// without splitting.  A bf16 tile is widened and has no small part, which
-// no MMA reads (BLO false), so none is written.  NT threads.
-template <int DP, int NT = kBwdThreads, typename T>
+// without splitting.  NT threads.
+template <int DP, int NT = kBwdThreads>
 __device__ __forceinline__ void split_stream(float* hi, float* lo,
-                                             const T* raw) {
+                                             const float* raw) {
   constexpr int LD = DP + 8;
   constexpr int C4 = DP / 4;
   for (int idx = threadIdx.x; idx < kBs * C4; idx += NT) {
     const float4 x = load4(raw + idx * 4);
     const int at = (idx / C4) * LD + (idx % C4) * 4;
-    if (!Wide<T>::value) {
-      *reinterpret_cast<float4*>(hi + at) = x;
-      continue;
-    }
     const float4 big = make_float4(tf32_big(x.x), tf32_big(x.y),
                                    tf32_big(x.z), tf32_big(x.w));
     *reinterpret_cast<float4*>(hi + at) = big;
@@ -528,16 +484,12 @@ __device__ __forceinline__ void store_frags(T* dst,
 
 // ---------------------------------------------------------------------------
 // Shared-memory layouts: each tile's offset in floats from the start of
-// dynamic shared memory, and `total`, what the launch reserves.  A staging
-// tile holds kBs x DP elements of T (half the bytes in bf16).  A bf16
-// operand has no small part: its lo tile takes no room, and the kernel
-// points it at the big part, whose reads by the dropped MMA pass are dead.
+// dynamic shared memory, and `total`, what the launch reserves.
 // ---------------------------------------------------------------------------
 
-template <int DP, typename T>
+template <int DP>
 struct Tiles {
-  static constexpr int kStage = kBs * DP * (int)sizeof(T) / 4;
-  static constexpr int kLo = Wide<T>::value ? 1 : 0;
+  static constexpr int kStage = kBs * DP;         // kBs x DP staging tile
   static constexpr int kSplit = kBs * (DP + 8);   // kBs x LD split tile
 };
 
@@ -598,16 +550,16 @@ __device__ __forceinline__ FragB frag_b_pairs(const float* hi,
 }
 
 template <int DP>
-struct FwdSmem : Tiles<DP, float> {
-  using B = Tiles<DP, float>;
+struct FwdSmem : Tiles<DP> {
+  using B = Tiles<DP>;
   static constexpr int kPairs = kBs / 2 * (2 * DP + 8);   // split v tile
   static constexpr int rk = kFwdRows * DP;      // after q
   static constexpr int rv = rk + B::kStage;
   static constexpr int kh = rv + B::kStage;
   static constexpr int kl = kh + B::kSplit;
-  static constexpr int vh = kl + B::kLo * B::kSplit;
+  static constexpr int vh = kl + B::kSplit;
   static constexpr int vl = vh + kPairs;
-  static constexpr int total = vl + B::kLo * kPairs;
+  static constexpr int total = vl + kPairs;
 };
 
 template <int DP>
@@ -690,7 +642,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
-      mma3<true, true>(part, 0, aq, bk);
+      mma3(part, 0, aq, bk);
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -752,7 +704,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < CH; ++n)
           bv[n] = frag_b_pairs(sVh, sVl, LDV, j, (c0 + n) * 8, g, t);
-        mma3<true, true>(pv, c0, ap, bv);
+        mma3(pv, c0, ap, bv);
       }
     }
 #pragma unroll
@@ -787,44 +739,44 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // B2a: dQ
 // ---------------------------------------------------------------------------
 
-template <int DP, typename T>
-struct DqSmem : Tiles<DP, T> {
-  using B = Tiles<DP, T>;
+template <int DP>
+struct DqSmem : Tiles<DP> {
+  using B = Tiles<DP>;
   static constexpr int o = kB * DP;             // after q
   static constexpr int rk = o + kB * DP;
   static constexpr int rv = rk + B::kStage;
   static constexpr int kh = rv + B::kStage;
   static constexpr int kl = kh + B::kSplit;
-  static constexpr int vh = kl + B::kLo * B::kSplit;
+  static constexpr int vh = kl + B::kSplit;
   static constexpr int vl = vh + B::kSplit;
-  static constexpr int s = vl + B::kLo * B::kSplit;
+  static constexpr int s = vl + B::kSplit;
   static constexpr int total = s + kB * (kBs + 8);
 };
 
-template <int DP, typename T>
+template <int DP>
 __global__ void __launch_bounds__(kBwdThreads, DP <= 64 ? 2 : 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Tq, int Tk, int D, int causal, float scale,
                     int vec) {
-  constexpr bool W = Wide<T>::value;   // operands have a small part
   constexpr int LD = DP + 8;
   constexpr int LDS = kBs + 8;    // row stride of the ds tile
   constexpr int NK = DP / 8;      // depth steps over d; column tiles of dq
   constexpr int NS = kBs / 8;     // column tiles of a score tile
   constexpr int CH = NK < kChunk ? NK : kChunk;   // dq tiles per pass
-  using L = DqSmem<DP, T>;
+  using L = DqSmem<DP>;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;               // 64 x DP, fragment order
   float* sO = smem + L::o;        // dO, 64 x DP, fragment order
-  T* rK = reinterpret_cast<T*>(smem + L::rk);   // the next k tile, staging
-  T* rV = reinterpret_cast<T*>(smem + L::rv);   // the next v
+  float* rK = smem + L::rk;       // the next k tile, staging
+  float* rV = smem + L::rv;       // the next v
   float* sKh = smem + L::kh;      // k, big part, kBs x LD
-  float* sKl = W ? smem + L::kl : sKh;   // k, small part
+  float* sKl = smem + L::kl;      // k, small part
   float* sVh = smem + L::vh;      // v, big part
-  float* sVl = W ? smem + L::vl : sVh;   // v, small part
+  float* sVl = smem + L::vl;      // v, small part
   float* sS = smem + L::s;        // ds, 64 x LDS
 
   const int nq = gridDim.x;
@@ -886,7 +838,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bk[n] = frag_b_rows(sKh, sKl, LD, n * 8, kk * 8, g, t);
         bv[n] = frag_b_rows(sVh, sVl, LD, n * 8, kk * 8, g, t);
       }
-      mma3x2<W, W>(s, dp, 0, aq, bk, ao, bv);
+      mma3x2(s, dp, 0, aq, bk, ao, bv);
     }
 
     // ds = p (dp - delta) scale, p = exp(s scale - lse), into shared memory
@@ -922,7 +874,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < CH; ++n)
           bk[n] = frag_b(sKh, sKl, LD, kk * 8, (c0 + n) * 8, g, t);
-        mma3<true, W>(acc, c0, a, bk);
+        mma3(acc, c0, a, bk);
       }
     }
   }
@@ -934,8 +886,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 
 template <int DP>
-struct DkvSmem : Tiles<DP, float> {
-  using B = Tiles<DP, float>;
+struct DkvSmem : Tiles<DP> {
+  using B = Tiles<DP>;
   static constexpr int v = kB * DP;             // after k
   static constexpr int rq = v + kB * DP;
   static constexpr int ro = rq + B::kStage;
@@ -943,9 +895,9 @@ struct DkvSmem : Tiles<DP, float> {
   static constexpr int rd = rl + kBs;
   static constexpr int qh = rd + kBs;
   static constexpr int ql = qh + B::kSplit;
-  static constexpr int oh = ql + B::kLo * B::kSplit;
+  static constexpr int oh = ql + B::kSplit;
   static constexpr int ol = oh + B::kSplit;
-  static constexpr int p = ol + B::kLo * B::kSplit;
+  static constexpr int p = ol + B::kSplit;
   static constexpr int s = p + kB * (kBs + 8);
   static constexpr int l = s + kB * (kBs + 8);
   static constexpr int d = l + kBs;
@@ -1044,7 +996,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         bq[n] = frag_b_rows(sQh, sQl, LD, n * 8, kk * 8, g, t);
         bo[n] = frag_b_rows(sOh, sOl, LD, n * 8, kk * 8, g, t);
       }
-      mma3x2<true, true>(st, dpt, 0, fk, bq, fv, bo);
+      mma3x2(st, dpt, 0, fk, bq, fv, bo);
     }
 
 #pragma unroll
@@ -1089,7 +1041,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           bo[n] = frag_b(sOh, sOl, LD, kk * 8, (c0 + n) * 8, g, t);
           bq[n] = frag_b(sQh, sQl, LD, kk * 8, (c0 + n) * 8, g, t);
         }
-        mma3x2<true, true>(av, ak, c0, ap, bo, as, bq);
+        mma3x2(av, ak, c0, ap, bo, as, bq);
       }
     }
   }
@@ -1656,6 +1608,201 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   store_frags<DP>(dv, av, b, h, k0, Tk, H, D, m0, g, t);
 }
 
+
+// ---------------------------------------------------------------------------
+// B9 dQ
+// ---------------------------------------------------------------------------
+
+// 4 warps of 16 q rows a block; k and v tiles of kDqKeys keys in a ring of
+// kDqStages; 3 blocks per SM up to DP = 64 (at most 168 registers: 10%
+// faster than 2 at the training shape on an NVIDIA H100 80GB HBM3 at 700
+// W), one at DP = 128 (139 KB of shared memory)
+constexpr int kDqRows = 64;
+constexpr int kDqThreads = 128;
+constexpr int kDqKeys = 64;
+constexpr int kDqStages = 2;
+
+// shared memory of dQ, in bf16 elements: q, dO, then kDqStages stages of
+// k and of v, rows padded as the forward's
+template <int DP>
+struct DqBf16Smem {
+  static constexpr int LDS = DP + 8;
+  static constexpr int q_tile = kDqRows * LDS;
+  static constexpr int kv_tile = kDqKeys * LDS;
+  static constexpr int total = 2 * q_tile + 2 * kDqStages * kv_tile;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kDqThreads, DP <= 64 ? 3 : 1)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
+                         int causal, float scale, int vec) {
+  using L = DqBf16Smem<DP>;
+  constexpr int LDS = L::LDS;
+  constexpr int QR = kDqRows;      // q rows of the block
+  constexpr int KN = kDqKeys;
+  constexpr int NT = kDqThreads;
+  constexpr int NK = DP / 16;      // depth steps of q k^T and dO v^T
+  constexpr int NS = KN / 8;       // n8 tiles of s and dp (keys of a tile)
+  constexpr int NO = DP / 8;       // n8 tiles of dq
+  constexpr int CH = NO < 8 ? NO : 8;   // dq tiles per pass
+  constexpr int S = kDqStages;
+  extern __shared__ __align__(16) float smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sO = sQ + L::q_tile;       // dO
+  bf16* sK = sO + L::q_tile;       // S stages
+  bf16* sV = sK + S * L::kv_tile;  // S stages
+
+  // blocks run in the order of blockIdx.x + gridDim.x blockIdx.y: every
+  // head's heaviest (causal: last) q tile first
+  const int q0 = (gridDim.y - 1 - (int)blockIdx.y) * QR;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;
+  const float scale2 = scale * kLog2e;
+  // this lane's ldmatrix rows (bytes): q's and dO's A fragments; k's and
+  // v's B fragments with keys as columns, and k's with keys as depth
+  // (.trans)
+  const int a_at = 2 * (m0 * LDS + a_lane<LDS>(lane));
+  const unsigned aq_at = smem_u32(sQ) + a_at;
+  const unsigned ao_at = smem_u32(sO) + a_at;
+  const unsigned bk_at = smem_u32(sK) + 2 * b_lane<LDS>(lane);
+  const unsigned bv_at = smem_u32(sV) + 2 * b_lane<LDS>(lane);
+  const unsigned tk_at = smem_u32(sK) + 2 * bt_lane<LDS>(lane);
+
+  // causal: keys past the block's last row are masked for all its rows
+  const int k_end = causal ? min(Tk, q0 + QR) : Tk;
+  const int n_tiles = (k_end + KN - 1) / KN;
+  // tile i of k and v into stage s of the ring, as one copy group
+  auto load_kv = [&](int i, int s) {
+    if (i < n_tiles) {
+      load_tile<DP, KN, NT>(sK + s * L::kv_tile, k, b, h, i * KN, Tk, H, D,
+                            vec);
+      load_tile<DP, KN, NT>(sV + s * L::kv_tile, v, b, h, i * KN, Tk, H, D,
+                            vec);
+    }
+    cp_async_commit();
+  };
+  load_tile<DP, QR, NT>(sQ, q, b, h, q0, Tq, H, D, vec);
+  load_tile<DP, QR, NT>(sO, dout, b, h, q0, Tq, H, D, vec);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) load_kv(i, i);   // q, dO go with tile 0
+
+  // lse (times log2 e) and delta of this lane's two rows, in registers for
+  // the whole loop
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + m0 + g + 8 * half;
+    row_lse[half] = row < Tq ? lse[(size_t)bh * Tq + row] * kLog2e : 0.f;
+    row_delta[half] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+  }
+
+  float acc[NO][4];                // dq, this warp's 16 rows
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0, st = 0; it < n_tiles; ++it, st = st + 1 < S ? st + 1
+                                                                : 0) {
+    const int k0 = it * KN;
+    cp_async_wait<S - 2>();        // tile it (and q, dO) has landed ...
+    __syncthreads();               // ... for every thread, and every warp
+                                   // is done with tile it - 1
+    load_kv(it + S - 1, st > 0 ? st - 1 : S - 1);   // into its stage
+    const unsigned so = st * (2 * L::kv_tile);   // the stage, in bytes
+
+    // s = q k^T and dp = dO v^T, 16 rows x KN keys: one MMA per depth
+    // step of 16 each (exact bf16 products summed in f32)
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, aq_at + 32 * kk);
+      ldsm_x4(ao, ao_at + 32 * kk);
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        const unsigned at = so + 2 * (16 * n2 * LDS + 16 * kk);
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, bk_at + at);
+        ldsm_x4(bv, bv_at + at);
+        mma_bf16(s[2 * n2], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * n2 + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * n2], ao, bv[0], bv[1]);
+        mma_bf16(dp[2 * n2 + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // p = exp(s scale - lse) in exp2 units in place of s, 0 where masked
+    // (only a tile past Tk or across the diagonal masks); ds = p (dp -
+    // delta) scale in place of dp
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = exp2_approx(fmaf(s[n][e], scale2, -row_lse[e >> 1]));
+    const int r0 = q0 + m0;        // this warp's first row
+    if (k0 + KN > Tk || (causal && k0 + KN - 1 > r0)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = r0 + g + 8 * (e >> 1);
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          s[n][e] = kj < Tk && !(causal && qi < kj) ? s[n][e] : 0.f;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[n][e] = s[n][e] * (dp[n][e] - row_delta[e >> 1]) * scale;
+
+    // dq += ds k: ds as bf16 hi + lo A fragments straight from the C
+    // fragments (two MMAs, the small term first), k as B fragments with
+    // keys as depth (.trans)
+#pragma unroll
+    for (int j = 0; j < NS / 2; ++j) {
+      uint32_t sh[4], sl[4];
+      split_frag(dp[2 * j], dp[2 * j + 1], sh, sl);
+#pragma unroll
+      for (int c0 = 0; c0 < NO; c0 += CH) {
+        uint32_t bk[CH / 2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2)
+          ldsm_x4_t(bk[n2],
+                    tk_at + so + 2 * (16 * j * LDS + (c0 + 2 * n2) * 8));
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(acc[c0 + 2 * n2], sl, bk[n2][0], bk[n2][1]);
+          mma_bf16(acc[c0 + 2 * n2 + 1], sl, bk[n2][2], bk[n2][3]);
+        }
+#pragma unroll
+        for (int n2 = 0; n2 < CH / 2; ++n2) {
+          mma_bf16(acc[c0 + 2 * n2], sh, bk[n2][0], bk[n2][1]);
+          mma_bf16(acc[c0 + 2 * n2 + 1], sh, bk[n2][2], bk[n2][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();              // the ring's empty trailing groups
+  store_frags<DP>(dq, acc, b, h, q0, Tq, H, D, m0, g, t);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1692,16 +1839,16 @@ int launch_fwd(const float* q, const float* k, const float* v, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP, typename T>
-int launch_dq(const T* q, const T* k, const T* v, const T* dout,
-              const float* lse, const float* delta, T* dq, int B, int H,
-              int Tq, int Tk, int D, int causal, float scale,
-              cudaStream_t st) {
-  const size_t smem = sizeof(float) * DqSmem<DP, T>::total;
-  cudaError_t rc = prepare(flash_bwd_dq_kernel<DP, T>, smem);
+template <int DP>
+int launch_dq(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, const float* delta,
+              float* dq, int B, int H, int Tq, int Tk, int D, int causal,
+              float scale, cudaStream_t st) {
+  const size_t smem = sizeof(float) * DqSmem<DP>::total;
+  cudaError_t rc = prepare(flash_bwd_dq_kernel<DP>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid((Tq + kB - 1) / kB, B * H);
-  flash_bwd_dq_kernel<DP, T><<<grid, kBwdThreads, smem, st>>>(
+  flash_bwd_dq_kernel<DP><<<grid, kBwdThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dq, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
@@ -1722,7 +1869,7 @@ int launch_dkv(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: the bf16 forward and dK/dV kernels
+// B9: the bf16 kernels
 template <int DP>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out,
                float* lse, int B, int H, int Tq, int Tk, int D, int causal,
@@ -1734,6 +1881,21 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   flash_fwd_bf16_kernel<DP><<<grid, kFwdThreads16, smem, st>>>(
       q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, v));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+              const float* lse, const float* delta, bf16* dq, int B, int H,
+              int Tq, int Tk, int D, int causal, float scale,
+              cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * DqBf16Smem<DP>::total;
+  cudaError_t rc = prepare(flash_bwd_dq_bf16_kernel<DP>, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(B * H, (Tq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_bf16_kernel<DP><<<grid, kDqThreads, smem, st>>>(
+      q, k, v, dout, lse, delta, dq, H, Tq, Tk, D, causal, scale,
+      vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 

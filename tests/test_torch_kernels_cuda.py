@@ -6,9 +6,9 @@ the three flash-attention kernels (forward, dQ, dK/dV; bit-equal reruns,
 and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
 meets) and their bf16 entry points (B9, against the plain versions within
 one bf16 step, at logits of +-20 and ragged non-causal tiles too; the f32
-kernels and the bf16 dQ give the bits they gave before the bf16 forward
-and dK/dV were rewritten), the embedding gather and scatter (runs of 1 to 1000 equal ids
-with inexact payloads, bit-equal to an in-order float32 fold) and the
+kernels and the bf16 forward and dK/dV give the bits they gave before the
+bf16 dQ was rewritten), the embedding gather and scatter (runs of 1 to
+1000 equal ids with inexact payloads, bit-equal to an in-order float32 fold) and the
 two-bit gradient compression at ragged and odd shapes that the
 full-width smoke run does not reach, both grouped kernels (the two-bit
 compression over the LM's 198 keys, the gather over the recommender's
@@ -607,30 +607,37 @@ def test_flash_attention_bf16_kernels_at_the_edges(dev, B, Tq, Tk, H, D,
     _check_bf16_kernels(*(t.bfloat16() for t in (q, k, v, do)), causal)
 
 
-# The f32 kernels (B1, B2a, B2b) and the bf16 dQ kernel are the same code
-# as before the bf16 forward and dK/dV were redesigned: SHA-256 (first 16
-# hex digits) of their outputs at fixed inputs, as the earlier source
-# (commit cd7afa8) gave them on the H100.  The bf16 dQ reads lse and delta
-# of the plain versions, so that it does not depend on the new forward.
+# The f32 kernels (B1, B2a, B2b) and the bf16 forward and dK/dV are the
+# same code as before the bf16 dQ was redesigned: SHA-256 (first 16 hex
+# digits) of their outputs at fixed inputs, as the earlier sources gave
+# them on the H100 (the f32 entries: commit cd7afa8; the bf16 ones:
+# e6878f0).  The bf16 dK/dV reads lse and delta of the plain versions, so
+# that it does not depend on the forward.
 FLASH_DIGESTS = {
     "T1000-D64 out": "001023db11a41cad",
     "T1000-D64 lse": "c1105eee0cf06b42",
     "T1000-D64 dq": "a7760161e18de24f",
     "T1000-D64 dk": "a91928aeb2fa97ae",
     "T1000-D64 dv": "6f5c896be33f48a1",
-    "T1000-D64 dq_bf16": "aa2ab549fa913d87",
+    "T1000-D64 out_bf16": "3d885af5d130038e",
+    "T1000-D64 lse_bf16": "771bf4b09a39ef17",
+    "T1000-D64 dk_bf16": "7d8edc6ab8f2a8aa",
+    "T1000-D64 dv_bf16": "a3a31520db274344",
     "T160-D128 out": "9fd9fde54f85c201",
     "T160-D128 lse": "1599631a6df556c5",
     "T160-D128 dq": "e69225bf6b6d8ff6",
     "T160-D128 dk": "85045e675546132e",
     "T160-D128 dv": "d4faebd584fd8850",
-    "T160-D128 dq_bf16": "9a18dae6df916235",
+    "T160-D128 out_bf16": "e3250b17aceed12f",
+    "T160-D128 lse_bf16": "f451ace19ef63d10",
+    "T160-D128 dk_bf16": "8053618ae026d4db",
+    "T160-D128 dv_bf16": "cfef198789952976",
 }
 
 
 def flash_digests(dev):
     """{output name: digest} of the f32 forward (out, lse), dQ, dK, dV and
-    the bf16 dQ at two fixed inputs."""
+    the bf16 forward (out, lse) and dK/dV at two fixed inputs."""
     import hashlib
     out = {}
     for B, Tq, Tk, H, D, causal in [(2, 1000, 1000, 3, 64, True),
@@ -642,13 +649,14 @@ def flash_digests(dev):
         dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                  causal)
         qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        ob, lseb = kernels.flash_attention_fwd(qb, kb, vb, causal)
         ref, ref_lse = kernels.flash_attention_fwd_plain(qb, kb, vb, causal)
-        dqb = kernels.flash_attention_bwd_dq(qb, kb, vb, dob, ref_lse,
-                                             kernels.flash_delta(ref, dob),
-                                             causal)
+        dkb, dvb = kernels.flash_attention_bwd_dkv(
+            qb, kb, vb, dob, ref_lse, kernels.flash_delta(ref, dob), causal)
         torch.cuda.synchronize()
         for name, t in (("out", o), ("lse", lse), ("dq", dq), ("dk", dk),
-                        ("dv", dv), ("dq_bf16", dqb)):
+                        ("dv", dv), ("out_bf16", ob), ("lse_bf16", lseb),
+                        ("dk_bf16", dkb), ("dv_bf16", dvb)):
             out["T%d-D%d %s" % (Tq, D, name)] = hashlib.sha256(
                 t.cpu().view(torch.int16 if t.dtype == torch.bfloat16
                              else torch.int32).numpy().tobytes()
@@ -656,7 +664,7 @@ def flash_digests(dev):
     return out
 
 
-def test_flash_f32_and_bf16_dq_kernels_give_the_earlier_bits(dev):
+def test_flash_f32_kernels_and_bf16_fwd_dkv_give_the_earlier_bits(dev):
     assert flash_digests(dev) == FLASH_DIGESTS
 
 
