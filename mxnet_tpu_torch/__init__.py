@@ -37,8 +37,8 @@ Ported so far (ROADMAP.md):
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
 ``mx.sym``, ``mx.kv``, ``mx.io``, ``mx.mod``, ``mx.metric``, ``mx.init``,
-``mx.optimizer``, ``mx.callback``, ``mx.random``, ``mx.rtc``,
-``mx.engine``, ``mx.cpu`` / ``mx.gpu``) are loaded on
+``mx.optimizer``, ``mx.lr_scheduler``, ``mx.callback``, ``mx.random``,
+``mx.rtc``, ``mx.engine``, ``mx.cpu`` / ``mx.gpu``) are loaded on
 first use, so ``import mxnet_tpu_torch`` imports no torch.
 """
 import importlib as _importlib
@@ -46,7 +46,8 @@ import importlib as _importlib
 from .base import DeviceUnavailable, MXNetError, NotPortedYet
 
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
-           "kv", "io", "mod", "metric", "init", "optimizer", "callback",
+           "kv", "io", "mod", "metric", "init", "optimizer", "lr_scheduler",
+           "callback",
            "model", "random", "rtc", "engine", "cpu", "gpu", "Context",
            "current_context"]
 
@@ -57,7 +58,9 @@ _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
          "io": ("io", None), "mod": ("module", None),
          "module": ("module", None), "metric": ("metric", None),
          "init": ("initializer", None), "initializer": ("initializer", None),
-         "optimizer": ("optimizer", None), "callback": ("callback", None),
+         "optimizer": ("optimizer", None),
+         "lr_scheduler": ("lr_scheduler", None),
+         "callback": ("callback", None),
          "model": ("model", None), "context": ("context", None),
          "random": ("random", None), "rtc": ("rtc", None),
          "engine": ("engine", None),

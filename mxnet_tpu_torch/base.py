@@ -18,7 +18,8 @@ import numpy as np
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "env_int",
            "env_float", "armed_env", "resolve_device", "_Null", "dtype_np",
            "dtype_name", "dtype_torch", "Param", "attr_bool", "attr_int", "attr_float",
-           "attr_str", "attr_shape", "attr_dtype", "AttrScope"]
+           "attr_str", "attr_shape", "attr_dtype", "attr_float_tuple",
+           "AttrScope"]
 
 
 class MXNetError(Exception):
@@ -223,6 +224,19 @@ def _parse_dtype(v) -> Optional[str]:
     if v is None:
         return None
     return dtype_name(v)
+
+
+def _parse_float_tuple(v) -> Tuple[float, ...]:
+    """Parse '(0.1, 0.2)' / [0.1, 0.2] / 0.1 -> tuple of floats."""
+    if isinstance(v, str):
+        v = ast.literal_eval(v.strip())
+    if isinstance(v, (int, float, np.floating, np.integer)):
+        return (float(v),)
+    return tuple(float(x) for x in v)
+
+
+def attr_float_tuple(default=_Null, required=False):
+    return Param(_parse_float_tuple, default, required, "tuple of <float>")
 
 
 def attr_bool(default=_Null, required=False):

@@ -95,8 +95,10 @@ def trainer_state_from_numpy(names, state, device, order=None):
     trainer it is for (default: ``names``).  Entries are matched by name,
     so the two orders may differ; a missing or extra name, a shape that
     differs between a parameter and its momentum, or a dtype other than
-    float32 or bfloat16 raises.  A bf16 array (numpy's dtype named
-    ``bfloat16``, e.g. ``ml_dtypes``') becomes a bf16 tensor bit for bit:
+    float32 or bfloat16 (and float16 for a parameter: a float16
+    trainer's weights; its momentum is float32) raises.  A bf16 array
+    (numpy's dtype named ``bfloat16``, e.g. ``ml_dtypes``') becomes a
+    bf16 tensor bit for bit:
     its 16-bit words are viewed as int16 and then as bf16."""
     import torch
     param_names, aux_names = (list(n) for n in names)
@@ -107,15 +109,17 @@ def trainer_state_from_numpy(names, state, device, order=None):
         raise MXNetError("trainer state names %s / %s do not match %s / %s"
                          % (param_names, aux_names, want_p, want_a))
 
-    def put(name, value):
+    def put(name, value, f16=False):
         host = np.asarray(value)
         if host.dtype.name == "bfloat16":
             bits = torch.from_numpy(np.array(host).view(np.uint16).view(
                 np.int16))
             return bits.view(torch.bfloat16).to(device, copy=True)
-        if host.dtype != np.float32:
-            raise MXNetError("%s: trainer state is float32 or bfloat16, "
-                             "got %s" % (name, host.dtype))
+        if host.dtype != np.float32 and not (f16 and
+                                             host.dtype == np.float16):
+            raise MXNetError("%s: trainer state is float32 or bfloat16 "
+                             "(a parameter also float16), got %s"
+                             % (name, host.dtype))
         return torch.tensor(host, device=device)
 
     by_p = {n: (p, m) for n, p, m in zip(param_names, params, mom)}
@@ -124,7 +128,7 @@ def trainer_state_from_numpy(names, state, device, order=None):
         if np.shape(p) != np.shape(m):
             raise MXNetError("%s: parameter %s and momentum %s differ in "
                              "shape" % (n, np.shape(p), np.shape(m)))
-    return (tuple(put(n, by_p[n][0]) for n in want_p),
+    return (tuple(put(n, by_p[n][0], f16=True) for n in want_p),
             tuple(put(n, by_p[n][1]) for n in want_p),
             tuple(put(n, by_a[n]) for n in want_a))
 
@@ -196,7 +200,9 @@ def recommender_state_to_numpy(state):
 def module_params_from_numpy(arg_params: Mapping, aux_params: Mapping):
     """A JAX Module's ``get_params()`` (name -> host array or anything
     with ``asnumpy``) -> ``(arg_params, aux_params)`` of port NDArrays on
-    the CPU, copies, float32 only (anything else raises)."""
+    the CPU, copies, float32 or float16 (a float16 Module's weights, bit
+    for bit; anything else raises)."""
+    import torch
     from .ndarray.ndarray import NDArray
 
     def conv(part, what):
@@ -204,8 +210,9 @@ def module_params_from_numpy(arg_params: Mapping, aux_params: Mapping):
         for name, value in part.items():
             host = np.asarray(value.asnumpy() if hasattr(value, "asnumpy")
                               else value)
-            out[name] = NDArray(_f32_tensor("%s %s" % (what, name), host,
-                                            "cpu"))
+            out[name] = NDArray(
+                torch.tensor(host) if host.dtype == np.float16 else
+                _f32_tensor("%s %s" % (what, name), host, "cpu"))
         return out
 
     return conv(arg_params, "arg"), conv(aux_params, "aux")
@@ -213,15 +220,23 @@ def module_params_from_numpy(arg_params: Mapping, aux_params: Mapping):
 
 def kvstore_state_to_numpy(kv):
     """A port store's state as host arrays: ``{"residual": {key: array},
-    "states": {updater key: array or None}}`` (the two-bit residuals of
-    every pushed key, and the optimizer state of every updated one)."""
+    "states": {updater key: array, tuple of them or None}}`` (the two-bit
+    residuals of every pushed key, in its gradient's dtype, and the
+    optimizer state of every updated one: a multi-precision SGD state is
+    the tuple ``(weight32, mom)``)."""
     comp = kv._compressor
     updater = kv._updater
+
+    def host(s):
+        if s is None:
+            return None
+        if isinstance(s, tuple):
+            return tuple(host(x) for x in s)
+        return np.asarray(s.asnumpy() if hasattr(s, "asnumpy") else s)
+
     return {"residual": {} if comp is None else
             {k: r.detach().to("cpu", copy=True).numpy()
              for k, r in comp.residual.items()},
             "states": {} if updater is None or not hasattr(updater,
                                                            "states") else
-            {k: None if s is None else
-             np.asarray(s.asnumpy() if hasattr(s, "asnumpy") else s)
-             for k, s in updater.states.items()}}
+            {k: host(s) for k, s in updater.states.items()}}

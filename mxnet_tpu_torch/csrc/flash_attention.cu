@@ -108,12 +108,15 @@
 //    and 223 / 245 registers (no spills), so two blocks share an SM; at
 //    DP = 128, 255 registers with 8 bytes of spills and one block.
 //
-// B9: the same three functions in bf16 (the reference's kernels take
-// bf16 q, k, v and dO, compute in f32 and write out, dQ, dK and dV in the
-// input dtype, with lse and delta f32).  Outputs are rounded to bf16 to
-// nearest even, as astype does.  The forward (flash_fwd_bf16_kernel),
-// dQ (flash_bwd_dq_bf16_kernel) and dK/dV (flash_bwd_dkv_bf16_kernel) are
-// written for bf16.  What bounds them on the H100, at the training shape:
+// B9: the same three functions in bf16 and f16 (the reference's kernels
+// take bf16 or f16 q, k, v and dO, compute in f32 and write out, dQ, dK
+// and dV in the input dtype, with lse and delta f32).  Outputs are rounded
+// to the 16-bit type to nearest even, as astype does.  The forward
+// (flash_fwd16_kernel), dQ (flash_bwd_dq16_kernel) and dK/dV
+// (flash_bwd_dkv16_kernel) are templates over the 16-bit element type E:
+// bf16 or __half tiles and the m16n8k16 MMA of that type; the bf16
+// instantiations are the kernels described here, and the f16 ones differ
+// only where f16's range demands (kPScale, rescale_rows below).  What bounds them on the H100, at the training shape:
 // the forward moves 50.7 MB (0.0151 ms at 3.35 TB/s) for 12.9 GFLOP
 // (0.0130 ms at the 989 TFLOP/s of bf16); dQ does 19.4 GFLOP (0.0196 ms)
 // on 64 MB (0.0190 ms); dK/dV 25.8 GFLOP (0.0261 ms) on 76 MB (0.0227 ms).
@@ -173,16 +176,25 @@
 //    bytes of stack (dK/dV).
 // The f32 kernels give the same bits as before the bf16 kernels were
 // added, and the bf16 forward and dK/dV the same as before dQ was
-// (tests/test_torch_kernels_cuda.py holds their digests).
+// (tests/test_torch_kernels_cuda.py holds their digests); the bf16
+// kernels give the same bits and SASS as before the f16 ones were added.
+// B9 f16 (DP 64: 168 / 164 / 214 registers, no spills): the same MMAs;
+// p (at most 1) goes into its f16 hi + lo terms times 2^15, and ds, whose
+// size follows dO's, times a running power of two per row, both undone
+// in f32 (tests/test_torch_flash_f16_split.py emulates them: without the
+// scaling a ds past 65504 gives NaN where the plain version is finite).
 
 // Interface: plain C, launched on the caller's stream, allocates nothing,
-// f32 (mxt_flash_attention_*) or bf16 (mxt_flash_attention_*_bf16) q, k,
-// v, dO and outputs, lse and delta f32 in both, D <= 128; returns the
-// first CUDA error (attribute or launch).
+// f32 (mxt_flash_attention_*), bf16 (mxt_flash_attention_*_bf16) or f16
+// (mxt_flash_attention_*_f16) q, k, v, dO and outputs, lse and delta f32
+// in all, D <= 128; returns the first CUDA error (attribute or launch).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -193,6 +205,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 __device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_elem(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // ---------------------------------------------------------------------------
@@ -1051,7 +1066,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// B9 forward and dK/dV: bf16 tiles and bf16 tensor-core MMAs
+// B9 forward, dK/dV and dQ: 16-bit tiles and 16-bit tensor-core MMAs
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -1069,13 +1084,92 @@ constexpr int kDkvThreads = 128;
 constexpr int kDkvStages = 2;
 constexpr int kDkvMinBlocks = 2;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// B9's element types: bf16, and f16 (__half), the same kernels over 16-bit
+// tiles with the m16n8k16 MMA of that type (f32 sums)
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1,
+                                      const bf16*) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1,
+                                      const __half*) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f16's range (largest 65504, normal from 2^-14) is not f32's, so the f32
+// side of p v, ds k, p^T dO and ds^T q goes into its f16 hi + lo terms
+// scaled by an exact power of two, undone in f32 after the MMAs:
+//  * p (at most 1) by kPScale = 2^15: hi + lo then keep f32's relative
+//    precision for p down to 2^-29 and stay below 2^15;
+//  * ds, whose size follows dO's (a loss scale of 2^16 puts |ds| far past
+//    65504), by 2^-e per row, e the row's running exponent: kept so that
+//    the row's largest |ds| so far times 2^-e lies in [2^14, 2^15); when a
+//    tile raises it, the row's accumulator is scaled down by the same
+//    power of two first (exact in f32).  In bf16, whose exponent is f32's,
+//    neither is done.
+constexpr float kPScale = 32768.f;
+constexpr float kPUnscale = 1.f / 32768.f;
+constexpr int kEMin = -110;      // a row's exponent before its first ds
+
+// 2^n as a float for n in [kEMin - 110 - 16, 127]; 0 below 2^-126
+__device__ __forceinline__ float pow2i(int n) {
+  return n < -126 ? 0.f : __int_as_float((n + 127) << 23);
+}
+
+// The running exponent of a warp's rows g and g + 8 (this lane's `re`)
+// after a tile whose ds is x (C fragments, rows g / g + 8 in e >> 1): the
+// quad's largest |ds| of each row sets e = floor(log2 max) - 14, never
+// lowered and clamped to [kEMin, 110]; `acc`'s rows are scaled by 2^(old
+// - new), and x by 2^-new.  NaN does not raise e (fmaxf), inf sets 110.
+template <int NS, int NA>
+__device__ __forceinline__ void rescale_rows(float (&x)[NS][4],
+                                             float (&acc)[NA][4],
+                                             int (&re)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[n][e]));
+  float down[2], mul[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float m = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const int ex = ((__float_as_int(m) >> 23) & 0xff) - 127 - 14;
+    const int e_new = max(re[half], min(ex, 110));
+    down[half] = pow2i(re[half] - e_new);
+    mul[half] = pow2i(-e_new);
+    re[half] = e_new;
+  }
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= down[e >> 1];
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] *= mul[e >> 1];
+}
+
+// the accumulator's rows g, g + 8 times 2^re (the scale of ds undone)
+template <int NA>
+__device__ __forceinline__ void unscale_rows(float (&acc)[NA][4],
+                                             const int (&re)[2]) {
+  const float up[2] = {pow2i(re[0]), pow2i(re[1])};
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= up[e >> 1];
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -1131,38 +1225,69 @@ __device__ __forceinline__ void cp_async_wait() {
 // x0, x1 (f32) as bf16x2 hi + lo, each rounded to nearest even: hi =
 // bf16(x), lo = bf16(x - hi), so hi + lo keeps about 16 bits of x; x0 in
 // the low halves (the lower column of an MMA operand)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo, const bf16*) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
+// the same in f16: hi + lo keep about 22 bits of x (the callers keep x
+// inside f16's normal range, see kPScale)
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo, const __half*) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 hf = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
 // The C fragments of two adjacent n8 score tiles (rows g, g + 8; columns
 // 2t, 2t + 1 of each), packed in pairs, are the A fragment of one depth
-// step of 16: split into hi and lo A fragments.
+// step of 16: split into hi and lo A fragments of element type E.
+template <typename E>
 __device__ __forceinline__ void split_frag(const float (&c0)[4],
                                            const float (&c1)[4],
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);   // row g, columns 2t, 2t + 1
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);   // row g + 8
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);   // row g, columns 8 + 2t, + 1
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);   // row g + 8
+  const E* tag = nullptr;
+  split16(c0[0], c0[1], hi[0], lo[0], tag);   // row g, columns 2t, 2t + 1
+  split16(c0[2], c0[3], hi[1], lo[1], tag);   // row g + 8
+  split16(c1[0], c1[1], hi[2], lo[2], tag);   // row g, columns 8 + 2t, + 1
+  split16(c1[2], c1[3], hi[3], lo[3], tag);   // row g + 8
+}
+
+// the same with the f32 values times `mul` first (f16's p: kPScale)
+template <typename E>
+__device__ __forceinline__ void split_frag(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4], float mul) {
+  const float a[4] = {c0[0] * mul, c0[1] * mul, c0[2] * mul, c0[3] * mul};
+  const float b[4] = {c1[0] * mul, c1[1] * mul, c1[2] * mul, c1[3] * mul};
+  split_frag<E>(a, b, hi, lo);
+}
+
+// a zero of the tile's element type
+__device__ __forceinline__ bf16 zero16(const bf16*) {
+  return __float2bfloat16_rn(0.f);
+}
+__device__ __forceinline__ __half zero16(const __half*) {
+  return __float2half_rn(0.f);
 }
 
 // Start copying rows [t0, t0 + ROWS) of head h, batch b of a (B, T, H, D)
 // bf16 tensor into a ROWS x (DP + 8) shared tile, zero past T and past D,
 // by NT threads.  `vec`: 16-byte cp.async chunks (D % 8 == 0, 16-byte
 // aligned tensors); else plain loads, complete at the next barrier.
-template <int DP, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
+template <int DP, int ROWS, int NT, typename E>
+__device__ __forceinline__ void load_tile(E* dst, const E* src, int b,
                                           int h, int t0, int T_, int H,
                                           int D, bool vec) {
   constexpr int LDS = DP + 8;
-  const bf16* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
+  const E* row = src + ((size_t)b * T_ * H + h) * D;   // row 0 of (b, h)
   const size_t HD = (size_t)H * D;
   if (vec) {
     // thread x copies chunk x % CE of rows x / CE + RS i
@@ -1171,8 +1296,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
     static_assert(NT % CE == 0 && ROWS % RS == 0, "whole rounds");
     const int r0 = threadIdx.x / CE;
     const int c = (threadIdx.x % CE) * 8;
-    const bf16* from = row + (size_t)(t0 + r0) * HD + c;
-    bf16* to = dst + r0 * LDS + c;
+    const E* from = row + (size_t)(t0 + r0) * HD + c;
+    E* to = dst + r0 * LDS + c;
 #pragma unroll
     for (int i = 0; i < ROWS / RS; ++i) {
       const bool ok = t0 + r0 + RS * i < T_ && c < D;
@@ -1185,7 +1310,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b,
       const int c = idx % DP;
       const int t = t0 + r;
       dst[r * LDS + c] =
-          t < T_ && c < D ? row[t * HD + c] : __float2bfloat16_rn(0.f);
+          t < T_ && c < D ? row[t * HD + c] : zero16(dst);
     }
   }
 }
@@ -1205,12 +1330,12 @@ struct FwdBf16Smem {
   static constexpr int total = q_tile + 2 * kFwdStages * kv_tile;
 };
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(kFwdThreads16, kFwdMinBlocks)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int H, int Tq, int Tk, int D,
-                      int causal, float scale, int vec) {
+flash_fwd16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v, E* __restrict__ out,
+                   float* __restrict__ lse, int H, int Tq, int Tk, int D,
+                   int causal, float scale, int vec) {
   using L = FwdBf16Smem<DP>;
   constexpr int LDS = L::LDS;
   constexpr int QR = kFwdRows16;   // q rows of the block
@@ -1221,10 +1346,12 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NO = DP / 8;       // n8 tiles of out
   constexpr int CH = NO < 8 ? NO : 8;   // out tiles per fresh accumulator
   constexpr int S = kFwdStages;
+  constexpr bool F16 = kIsF16<E>;
+  const E* tag = nullptr;
   extern __shared__ __align__(16) float smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + L::q_tile;       // S stages
-  bf16* sV = sK + S * L::kv_tile;  // S stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sK = sQ + L::q_tile;          // S stages
+  E* sV = sK + S * L::kv_tile;     // S stages
 
   // blocks run in the order of blockIdx.x + gridDim.x blockIdx.y: every
   // head's heaviest (causal: last) q tile first
@@ -1295,8 +1422,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n2 = 0; n2 < NS / 2; ++n2) {
         uint32_t bk[4];
         ldsm_x4(bk, ck + 2 * (16 * n2 * LDS + 16 * kk));
-        mma_bf16(s[2 * n2], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * n2 + 1], aq, bk[2], bk[3]);
+        mma16(s[2 * n2], aq, bk[0], bk[1], tag);
+        mma16(s[2 * n2 + 1], aq, bk[2], bk[3], tag);
       }
     }
 
@@ -1346,7 +1473,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // out = out corr + p v, p as bf16 hi + lo (two MMAs per depth step,
     // the small term first) into a fresh accumulator per tile and CH
-    // column tiles: the tensor core truncates as it accumulates
+    // column tiles: the tensor core truncates as it accumulates (f16: p
+    // times kPScale, undone with 1 / l)
 #pragma unroll
     for (int c0 = 0; c0 < NO; c0 += CH) {
       float pv[CH][4];
@@ -1357,20 +1485,23 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < NS / 2; ++j) {
         uint32_t ph[4], pl[4];
-        split_frag(s[2 * j], s[2 * j + 1], ph, pl);
+        if constexpr (F16)
+          split_frag<E>(s[2 * j], s[2 * j + 1], ph, pl, kPScale);
+        else
+          split_frag<E>(s[2 * j], s[2 * j + 1], ph, pl);
         uint32_t bv[CH / 2][4];
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2)
           ldsm_x4_t(bv[n2], cv + 2 * (16 * j * LDS + (c0 + 2 * n2) * 8));
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(pv[2 * n2], pl, bv[n2][0], bv[n2][1]);
-          mma_bf16(pv[2 * n2 + 1], pl, bv[n2][2], bv[n2][3]);
+          mma16(pv[2 * n2], pl, bv[n2][0], bv[n2][1], tag);
+          mma16(pv[2 * n2 + 1], pl, bv[n2][2], bv[n2][3], tag);
         }
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(pv[2 * n2], ph, bv[n2][0], bv[n2][1]);
-          mma_bf16(pv[2 * n2 + 1], ph, bv[n2][2], bv[n2][3]);
+          mma16(pv[2 * n2], ph, bv[n2][0], bv[n2][1], tag);
+          mma16(pv[2 * n2 + 1], ph, bv[n2][2], bv[n2][3], tag);
         }
       }
 #pragma unroll
@@ -1389,7 +1520,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float l = row_l[half];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / l;
+    const float inv = F16 ? kPUnscale / l : 1.f / l;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       acc[n][2 * half] *= inv;
@@ -1419,17 +1550,15 @@ struct DkvBf16Smem {
       4 * rows_f32 + 2 * (2 + 2 * kDkvStages) * tile;
 };
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
-                          int Tq, int Tk, int D, int causal, float scale,
-                          int vec) {
+flash_bwd_dkv16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                       const E* __restrict__ v, const E* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       E* __restrict__ dk, E* __restrict__ dv, int H,
+                       int Tq, int Tk, int D, int causal, float scale,
+                       int vec) {
   using L = DkvBf16Smem<DP>;
   constexpr int LDS = L::LDS;
   constexpr int R = kDkvRows;      // keys of the block, q rows of a tile
@@ -1439,13 +1568,15 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   constexpr int NO = DP / 8;       // n8 tiles of dk, dv
   constexpr int CH = NO < 8 ? NO : 8;   // dk, dv tiles per pass
   constexpr int S = kDkvStages;
+  constexpr bool F16 = kIsF16<E>;
+  const E* tag = nullptr;
   extern __shared__ __align__(16) float smem[];
   float* sL = smem;                // lse of the q tiles, S stages
   float* sD = smem + S * R;        // delta
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::rows_f32);   // the keys
-  bf16* sV = sK + L::tile;
-  bf16* sQ = sV + L::tile;         // S stages
-  bf16* sO = sQ + S * L::tile;     // dO, S stages
+  E* sK = reinterpret_cast<E*>(smem + L::rows_f32);   // the keys
+  E* sV = sK + L::tile;
+  E* sQ = sV + L::tile;            // S stages
+  E* sO = sQ + S * L::tile;        // dO, S stages
 
   // causal: early k tiles have the most q tiles to visit; blocks run in
   // the order of blockIdx.x + gridDim.x blockIdx.y, so every head's first
@@ -1475,6 +1606,7 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  int row_e[2] = {kEMin, kEMin};   // f16: ds^T's scale of rows g, g + 8
 
   // causal: q rows below k0 see none of these keys
   const int q_begin = causal ? k0 : 0;
@@ -1531,10 +1663,10 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         uint32_t bq[4], bo[4];
         ldsm_x4(bq, bq_at + so + 2 * (16 * n2 * LDS + 16 * kk));
         ldsm_x4(bo, bo_at + so + 2 * (16 * n2 * LDS + 16 * kk));
-        mma_bf16(sT[2 * n2], fk, bq[0], bq[1]);
-        mma_bf16(sT[2 * n2 + 1], fk, bq[2], bq[3]);
-        mma_bf16(dpT[2 * n2], fv, bo[0], bo[1]);
-        mma_bf16(dpT[2 * n2 + 1], fv, bo[2], bo[3]);
+        mma16(sT[2 * n2], fk, bq[0], bq[1], tag);
+        mma16(sT[2 * n2 + 1], fk, bq[2], bq[3], tag);
+        mma16(dpT[2 * n2], fv, bo[0], bo[1], tag);
+        mma16(dpT[2 * n2 + 1], fv, bo[2], bo[3], tag);
       }
     }
 
@@ -1568,15 +1700,20 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e)
         dpT[n][e] = sT[n][e] * (dpT[n][e] - dl[e & 1]) * scale;
     }
+    if constexpr (F16) rescale_rows(dpT, ak, row_e);
 
     // dv += p^T dO, dk += ds^T q: p^T and ds^T as bf16 hi + lo A
     // fragments straight from the C fragments (two MMAs each, the small
-    // term first), dO and q as B fragments down their rows (.trans)
+    // term first), dO and q as B fragments down their rows (.trans); f16:
+    // p^T times kPScale, ds^T times its rows' 2^-e
 #pragma unroll
     for (int j = 0; j < NS / 2; ++j) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
-      split_frag(sT[2 * j], sT[2 * j + 1], ph, pl);
-      split_frag(dpT[2 * j], dpT[2 * j + 1], sh, sl);
+      if constexpr (F16)
+        split_frag<E>(sT[2 * j], sT[2 * j + 1], ph, pl, kPScale);
+      else
+        split_frag<E>(sT[2 * j], sT[2 * j + 1], ph, pl);
+      split_frag<E>(dpT[2 * j], dpT[2 * j + 1], sh, sl);
 #pragma unroll
       for (int c0 = 0; c0 < NO; c0 += CH) {
         uint32_t bo[CH / 2][4], bq[CH / 2][4];
@@ -1588,22 +1725,29 @@ flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
         }
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(av[c0 + 2 * n2], pl, bo[n2][0], bo[n2][1]);
-          mma_bf16(av[c0 + 2 * n2 + 1], pl, bo[n2][2], bo[n2][3]);
-          mma_bf16(ak[c0 + 2 * n2], sl, bq[n2][0], bq[n2][1]);
-          mma_bf16(ak[c0 + 2 * n2 + 1], sl, bq[n2][2], bq[n2][3]);
+          mma16(av[c0 + 2 * n2], pl, bo[n2][0], bo[n2][1], tag);
+          mma16(av[c0 + 2 * n2 + 1], pl, bo[n2][2], bo[n2][3], tag);
+          mma16(ak[c0 + 2 * n2], sl, bq[n2][0], bq[n2][1], tag);
+          mma16(ak[c0 + 2 * n2 + 1], sl, bq[n2][2], bq[n2][3], tag);
         }
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(av[c0 + 2 * n2], ph, bo[n2][0], bo[n2][1]);
-          mma_bf16(av[c0 + 2 * n2 + 1], ph, bo[n2][2], bo[n2][3]);
-          mma_bf16(ak[c0 + 2 * n2], sh, bq[n2][0], bq[n2][1]);
-          mma_bf16(ak[c0 + 2 * n2 + 1], sh, bq[n2][2], bq[n2][3]);
+          mma16(av[c0 + 2 * n2], ph, bo[n2][0], bo[n2][1], tag);
+          mma16(av[c0 + 2 * n2 + 1], ph, bo[n2][2], bo[n2][3], tag);
+          mma16(ak[c0 + 2 * n2], sh, bq[n2][0], bq[n2][1], tag);
+          mma16(ak[c0 + 2 * n2 + 1], sh, bq[n2][2], bq[n2][3], tag);
         }
       }
     }
   }
   cp_async_wait<0>();              // the ring's empty trailing groups
+  if constexpr (F16) {
+    unscale_rows(ak, row_e);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) av[n][e] *= kPUnscale;
+  }
   store_frags<DP>(dk, ak, b, h, k0, Tk, H, D, m0, g, t);
   store_frags<DP>(dv, av, b, h, k0, Tk, H, D, m0, g, t);
 }
@@ -1632,16 +1776,14 @@ struct DqBf16Smem {
   static constexpr int total = 2 * q_tile + 2 * kDqStages * kv_tile;
 };
 
-template <int DP>
+template <int DP, typename E>
 __global__ void __launch_bounds__(kDqThreads, DP <= 64 ? 3 : 1)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq, int H, int Tq, int Tk, int D,
-                         int causal, float scale, int vec) {
+flash_bwd_dq16_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const E* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      E* __restrict__ dq, int H, int Tq, int Tk, int D,
+                      int causal, float scale, int vec) {
   using L = DqBf16Smem<DP>;
   constexpr int LDS = L::LDS;
   constexpr int QR = kDqRows;      // q rows of the block
@@ -1652,11 +1794,13 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   constexpr int NO = DP / 8;       // n8 tiles of dq
   constexpr int CH = NO < 8 ? NO : 8;   // dq tiles per pass
   constexpr int S = kDqStages;
+  constexpr bool F16 = kIsF16<E>;
+  const E* tag = nullptr;
   extern __shared__ __align__(16) float smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + L::q_tile;       // dO
-  bf16* sK = sO + L::q_tile;       // S stages
-  bf16* sV = sK + S * L::kv_tile;  // S stages
+  E* sQ = reinterpret_cast<E*>(smem);
+  E* sO = sQ + L::q_tile;          // dO
+  E* sK = sO + L::q_tile;          // S stages
+  E* sV = sK + S * L::kv_tile;     // S stages
 
   // blocks run in the order of blockIdx.x + gridDim.x blockIdx.y: every
   // head's heaviest (causal: last) q tile first
@@ -1712,6 +1856,7 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  int row_e[2] = {kEMin, kEMin};   // f16: ds's scale of rows g, g + 8
 
   for (int it = 0, st = 0; it < n_tiles; ++it, st = st + 1 < S ? st + 1
                                                                 : 0) {
@@ -1740,10 +1885,10 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, bk_at + at);
         ldsm_x4(bv, bv_at + at);
-        mma_bf16(s[2 * n2], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * n2 + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * n2], ao, bv[0], bv[1]);
-        mma_bf16(dp[2 * n2 + 1], ao, bv[2], bv[3]);
+        mma16(s[2 * n2], aq, bk[0], bk[1], tag);
+        mma16(s[2 * n2 + 1], aq, bk[2], bk[3], tag);
+        mma16(dp[2 * n2], ao, bv[0], bv[1], tag);
+        mma16(dp[2 * n2 + 1], ao, bv[2], bv[3], tag);
       }
     }
 
@@ -1771,14 +1916,15 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dp[n][e] = s[n][e] * (dp[n][e] - row_delta[e >> 1]) * scale;
+    if constexpr (F16) rescale_rows(dp, acc, row_e);
 
     // dq += ds k: ds as bf16 hi + lo A fragments straight from the C
     // fragments (two MMAs, the small term first), k as B fragments with
-    // keys as depth (.trans)
+    // keys as depth (.trans); f16: ds times its rows' 2^-e
 #pragma unroll
     for (int j = 0; j < NS / 2; ++j) {
       uint32_t sh[4], sl[4];
-      split_frag(dp[2 * j], dp[2 * j + 1], sh, sl);
+      split_frag<E>(dp[2 * j], dp[2 * j + 1], sh, sl);
 #pragma unroll
       for (int c0 = 0; c0 < NO; c0 += CH) {
         uint32_t bk[CH / 2][4];
@@ -1788,18 +1934,19 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
                     tk_at + so + 2 * (16 * j * LDS + (c0 + 2 * n2) * 8));
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(acc[c0 + 2 * n2], sl, bk[n2][0], bk[n2][1]);
-          mma_bf16(acc[c0 + 2 * n2 + 1], sl, bk[n2][2], bk[n2][3]);
+          mma16(acc[c0 + 2 * n2], sl, bk[n2][0], bk[n2][1], tag);
+          mma16(acc[c0 + 2 * n2 + 1], sl, bk[n2][2], bk[n2][3], tag);
         }
 #pragma unroll
         for (int n2 = 0; n2 < CH / 2; ++n2) {
-          mma_bf16(acc[c0 + 2 * n2], sh, bk[n2][0], bk[n2][1]);
-          mma_bf16(acc[c0 + 2 * n2 + 1], sh, bk[n2][2], bk[n2][3]);
+          mma16(acc[c0 + 2 * n2], sh, bk[n2][0], bk[n2][1], tag);
+          mma16(acc[c0 + 2 * n2 + 1], sh, bk[n2][2], bk[n2][3], tag);
         }
       }
     }
   }
   cp_async_wait<0>();              // the ring's empty trailing groups
+  if constexpr (F16) unscale_rows(acc, row_e);
   store_frags<DP>(dq, acc, b, h, q0, Tq, H, D, m0, g, t);
 }
 
@@ -1869,46 +2016,47 @@ int launch_dkv(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B9: the bf16 kernels
-template <int DP>
-int launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* out,
-               float* lse, int B, int H, int Tq, int Tk, int D, int causal,
-               float scale, cudaStream_t st) {
-  const size_t smem = sizeof(bf16) * FwdBf16Smem<DP>::total;
-  cudaError_t rc = prepare(flash_fwd_bf16_kernel<DP>, smem);
+// B9: the bf16 and f16 kernels (overloads of the f32 launchers above,
+// which partial ordering prefers for f32)
+template <int DP, typename E>
+int launch_fwd(const E* q, const E* k, const E* v, E* out, float* lse,
+               int B, int H, int Tq, int Tk, int D, int causal, float scale,
+               cudaStream_t st) {
+  const size_t smem = sizeof(E) * FwdBf16Smem<DP>::total;
+  cudaError_t rc = prepare(flash_fwd16_kernel<DP, E>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(B * H, (Tq + kFwdRows16 - 1) / kFwdRows16);
-  flash_fwd_bf16_kernel<DP><<<grid, kFwdThreads16, smem, st>>>(
+  flash_fwd16_kernel<DP, E><<<grid, kFwdThreads16, smem, st>>>(
       q, k, v, out, lse, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, v));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_dq(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-              const float* lse, const float* delta, bf16* dq, int B, int H,
+template <int DP, typename E>
+int launch_dq(const E* q, const E* k, const E* v, const E* dout,
+              const float* lse, const float* delta, E* dq, int B, int H,
               int Tq, int Tk, int D, int causal, float scale,
               cudaStream_t st) {
-  const size_t smem = sizeof(bf16) * DqBf16Smem<DP>::total;
-  cudaError_t rc = prepare(flash_bwd_dq_bf16_kernel<DP>, smem);
+  const size_t smem = sizeof(E) * DqBf16Smem<DP>::total;
+  cudaError_t rc = prepare(flash_bwd_dq16_kernel<DP, E>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(B * H, (Tq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_bf16_kernel<DP><<<grid, kDqThreads, smem, st>>>(
+  flash_bwd_dq16_kernel<DP, E><<<grid, kDqThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dq, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DP>
-int launch_dkv(const bf16* q, const bf16* k, const bf16* v,
-               const bf16* dout, const float* lse, const float* delta,
-               bf16* dk, bf16* dv, int B, int H, int Tq, int Tk, int D,
-               int causal, float scale, cudaStream_t st) {
+template <int DP, typename E>
+int launch_dkv(const E* q, const E* k, const E* v, const E* dout,
+               const float* lse, const float* delta, E* dk, E* dv, int B,
+               int H, int Tq, int Tk, int D, int causal, float scale,
+               cudaStream_t st) {
   const size_t smem = DkvBf16Smem<DP>::bytes;
-  cudaError_t rc = prepare(flash_bwd_dkv_bf16_kernel<DP>, smem);
+  cudaError_t rc = prepare(flash_bwd_dkv16_kernel<DP, E>, smem);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const dim3 grid(B * H, (Tk + kDkvRows - 1) / kDkvRows);
-  flash_bwd_dkv_bf16_kernel<DP><<<grid, kDkvThreads, smem, st>>>(
+  flash_bwd_dkv16_kernel<DP, E><<<grid, kDkvThreads, smem, st>>>(
       q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, D, causal, scale,
       vec_copies(D, q, k, v, dout));
   return static_cast<int>(cudaGetLastError());
@@ -1919,8 +2067,6 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
          (long long)B * H > 65535;
 }
 
-// the three entry points of one element type: the kernel for DP in {32,
-// 64, 128} that holds D (the launch_fwd / launch_dkv of that type)
 template <typename T>
 int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int H,
         int Tq, int Tk, int D, int causal, float scale, void* stream) {
@@ -1928,11 +2074,11 @@ int fwd(const T* q, const T* k, const T* v, T* out, float* lse, int B, int H,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_fwd<32>(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale,
-                          st);
+    return launch_fwd<32>(q, k, v, out, lse, B, H, Tq, Tk, D, causal,
+                          scale, st);
   if (D <= 64)
-    return launch_fwd<64>(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale,
-                          st);
+    return launch_fwd<64>(q, k, v, out, lse, B, H, Tq, Tk, D, causal,
+                          scale, st);
   return launch_fwd<128>(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale,
                          st);
 }
@@ -1962,13 +2108,13 @@ int bwd_dkv(const T* q, const T* k, const T* v, const T* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 32)
-    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
-                          causal, scale, st);
+    return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk,
+                          D, causal, scale, st);
   if (D <= 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
-                          causal, scale, st);
-  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
-                         causal, scale, st);
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk,
+                          D, causal, scale, st);
+  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk,
+                         D, causal, scale, st);
 }
 
 }  // namespace
@@ -2025,6 +2171,31 @@ extern "C" int mxt_flash_attention_bwd_dkv_bf16(
     const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
     const float* lse, const float* delta, bf16* dk, bf16* dv, int B, int H,
     int Tq, int Tk, int D, int causal, float scale, void* stream) {
+  return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D, causal,
+                 scale, stream);
+}
+
+// B9 f16: the same in f16 (q, k, v, dO, out, dq, dk, dv); lse and delta f32.
+extern "C" int mxt_flash_attention_fwd_f16(const __half* q, const __half* k,
+                                           const __half* v, __half* out,
+                                           float* lse, int B, int H, int Tq,
+                                           int Tk, int D, int causal,
+                                           float scale, void* stream) {
+  return fwd(q, k, v, out, lse, B, H, Tq, Tk, D, causal, scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dq_f16(
+    const __half* q, const __half* k, const __half* v, const __half* dout,
+    const float* lse, const float* delta, __half* dq, int B, int H, int Tq,
+    int Tk, int D, int causal, float scale, void* stream) {
+  return bwd_dq(q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, causal,
+                scale, stream);
+}
+
+extern "C" int mxt_flash_attention_bwd_dkv_f16(
+    const __half* q, const __half* k, const __half* v, const __half* dout,
+    const float* lse, const float* delta, __half* dk, __half* dv, int B,
+    int H, int Tq, int Tk, int D, int causal, float scale, void* stream) {
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D, causal,
                  scale, stream);
 }

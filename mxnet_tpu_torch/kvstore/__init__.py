@@ -17,9 +17,10 @@ compressor writes ``q`` to a new tensor and never into the pushed
 gradient, and the updater reads the pushed gradient without writing it.
 
 With two-bit compression each dense push runs the hand-written CUDA
-kernel ``ops.kernels.two_bit_compress_many`` (B7) on the card, one
-launch over every key of the push; the residual of every key lives
-beside its gradient.
+kernel ``ops.kernels.two_bit_compress_many`` (B7; B10 for f16, bf16 and
+f64 gradients) on the card, one launch per dtype over every key of the
+push; the residual of every key lives beside its gradient, in its
+dtype.
 
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
 the ``dist_*`` stores (ROADMAP A5, A11: NCCL), ``row_sparse_pull`` and
@@ -58,17 +59,22 @@ class _TwoBitCompressor:
     """Two-bit gradient compression with error feedback (reference
     src/kvstore/gradient_compression.{h,cc}): values quantised to
     {-threshold, 0, +threshold}, the quantisation error carried to the
-    key's next push.  One residual per key, the size of the parameter,
-    on the gradient's device, updated in place by the kernel."""
+    key's next push.  One residual per key, the size and dtype of the
+    parameter's gradient, on its device, updated in place by the kernel
+    (f16, bf16, f32 and f64: B7 / B10)."""
 
     def __init__(self, threshold=0.5):
         self.threshold = float(threshold)
         self.residual: Dict[str, torch.Tensor] = {}
 
     def _residual(self, key, grad):
+        """The key's residual: its gradient's dtype and shape (the
+        reference's ``zeros_like``), contiguous whatever the gradient's
+        strides."""
         r = self.residual.get(key)
         if r is None:
-            r = self.residual[key] = torch.zeros_like(grad)
+            r = self.residual[key] = torch.zeros(
+                grad.shape, dtype=grad.dtype, device=grad.device)
         return r
 
     def compress(self, key, grad: torch.Tensor) -> torch.Tensor:
@@ -81,7 +87,8 @@ class _TwoBitCompressor:
     def compress_many(self, keys, grads):
         """Every key of a push in one call of the grouped kernel
         (``kernels.two_bit_compress_many``; per device where the grads
-        lie on several), creating the residuals that are missing.  Each
+        lie on several; the kernel launches once per dtype), creating
+        the residuals that are missing.  Each
         key's ``q`` and new residual are exactly what :meth:`compress`
         gives it, since keys share nothing; a key that comes again in
         ``keys`` starts a new call, after the one that carries its first

@@ -1,6 +1,6 @@
 """Evaluation metrics (port of ``EvalMetric``, ``create``,
-``CompositeEvalMetric``, ``Accuracy``, ``Perplexity`` and
-``CrossEntropy`` from ``mxnet_tpu/metric.py``; reference
+``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``Perplexity``
+and ``CrossEntropy`` from ``mxnet_tpu/metric.py``; reference
 python/mxnet/metric.py).
 
 The values are the JAX package's; where it walks each (label, pred) pair
@@ -10,9 +10,9 @@ gigabyte at the bench geometry, which must not cross to the host every
 step.  The running state is the usual ``(sum_metric, num_inst)`` pair on
 the host.
 
-The JAX package's other metrics (top-k accuracy, F1, the regression
-family, Pearson, Loss, custom callables) raise
-:class:`~mxnet_tpu_torch.base.NotPortedYet` from :func:`create`.
+The JAX package's other metrics (F1, the regression family, Pearson,
+Loss, custom callables) raise :class:`~mxnet_tpu_torch.base.NotPortedYet`
+from :func:`create` (ROADMAP queue A item 2).
 """
 from __future__ import annotations
 
@@ -25,12 +25,14 @@ import torch
 from .base import NotPortedYet
 from .ndarray.ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "Perplexity",
-           "CrossEntropy", "create", "register", "check_label_shapes"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "Perplexity", "CrossEntropy", "create", "register",
+           "check_label_shapes"]
 
 _METRIC_REGISTRY: Dict[str, type] = {}
-# metric names of the JAX package that a later slice ports (ROADMAP A4)
-_NOT_PORTED = ("topkaccuracy", "top_k_accuracy", "top_k_acc", "f1", "mae",
+# metric names of the JAX package that a later slice ports (ROADMAP queue
+# A item 2)
+_NOT_PORTED = ("f1", "mae",
                "mse", "rmse", "negativeloglikelihood", "nll_loss",
                "pearsoncorrelation", "pearsonr", "loss", "torch", "caffe",
                "custommetric")
@@ -54,7 +56,7 @@ def create(metric, *args, **kwargs):
         return metric
     if callable(metric):
         raise NotPortedYet("custom metric callables are not ported yet "
-                           "(ROADMAP A4)")
+                           "(ROADMAP queue A item 2)")
     if isinstance(metric, (list, tuple)):
         bundle = CompositeEvalMetric()
         for entry in metric:
@@ -64,8 +66,8 @@ def create(metric, *args, **kwargs):
     if key in _METRIC_REGISTRY:
         return _METRIC_REGISTRY[key](*args, **kwargs)
     if key in _NOT_PORTED:
-        raise NotPortedYet("metric %r is not ported yet (ROADMAP A4)"
-                           % metric)
+        raise NotPortedYet("metric %r is not ported yet (ROADMAP queue A "
+                           "item 2)" % metric)
     raise ValueError("Metric must be callable/str/EvalMetric, got %s"
                      % (metric,))
 
@@ -202,6 +204,30 @@ class Accuracy(_PairwiseMetric):
         decided = pred.to(torch.int32).reshape(-1)
         check_label_shapes(label, decided, shape=True)
         return int((decided == label).sum().item()), label.numel()
+
+
+@_registered("top_k_accuracy", "top_k_acc")
+class TopKAccuracy(_PairwiseMetric):
+    """The label among the ``top_k`` highest-scoring classes (reference
+    metric.py:405).  Where classes tie at the k-th score, which of them
+    count is ``torch.topk``'s choice (the JAX package's is numpy's
+    ``argpartition``'s)."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        if top_k <= 1:
+            raise ValueError("Use Accuracy for top_k=1")
+        self.top_k = top_k
+        self.name = "%s_%d" % (self.name, top_k)
+
+    def _accumulate(self, label, pred):
+        if pred.dim() != 2:
+            raise ValueError("Predictions should be 2 dims")
+        label = label.to(torch.int32).reshape(-1)
+        leaders = pred.float().topk(self.top_k, dim=1).indices
+        hits = (leaders == label[:, None]).any(dim=1).sum()
+        return int(hits.item()), label.numel()
 
 
 @register

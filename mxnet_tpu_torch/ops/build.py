@@ -62,7 +62,11 @@ _SIGNATURES = {
         # the same three in bf16 (lse and delta f32)
         "mxt_flash_attention_fwd_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
         "mxt_flash_attention_bwd_dq_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
-        "mxt_flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _P]},
+        "mxt_flash_attention_bwd_dkv_bf16": [_P] * 8 + [_I] * 6 + [_F, _P],
+        # and in f16 (B9 f16)
+        "mxt_flash_attention_fwd_f16": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "mxt_flash_attention_bwd_dq_f16": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "mxt_flash_attention_bwd_dkv_f16": [_P] * 8 + [_I] * 6 + [_F, _P]},
     "embedding": {
         # host descriptors (7 int64 words per segment: table, ids, out,
         # rows, D, n, vec) | count | stream
@@ -74,6 +78,10 @@ _SIGNATURES = {
         # host descriptors (6 int64 words per segment: grad, residual, q,
         # new_residual, n, vec) | count | threshold | stream
         "mxt_two_bit_compress_many": [_P, _I, _F, _P],
+        # the same over f16, bf16 and f64 segments (B10)
+        "mxt_two_bit_compress_many_f16": [_P, _I, _F, _P],
+        "mxt_two_bit_compress_many_bf16": [_P, _I, _F, _P],
+        "mxt_two_bit_compress_many_f64": [_P, _I, _F, _P],
         "mxt_two_bit_segments_per_launch": []},
 }
 

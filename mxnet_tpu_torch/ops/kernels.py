@@ -1,7 +1,8 @@
 """The port's kernels: on the decode path paged decode attention and
 weight-only quantized matmul, on the training path flash attention
-forward, dQ and dK/dV (f32, and bf16 as bench.py trains), on the
-kvstore's push two-bit gradient compression (port of
+forward, dQ and dK/dV (f32, and bf16 as bench.py trains, and f16), on
+the kvstore's push two-bit gradient compression (f16, bf16, f32, f64;
+port of
 ``mxnet_tpu/ops/pallas_kernels.py``).
 
 Each kernel has three parts here:
@@ -54,8 +55,9 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "two_bit_segments_per_launch"]
 
 # launches per kernel; quant_matmul's two template instantiations count
-# apart, the flash kernels' f32 and bf16 entry points count apart (the
-# bf16 ones under ``*_bf16``), the flash forward counts with and without
+# apart, the flash kernels' f32, bf16 and f16 entry points count apart
+# (under ``*_bf16`` and ``*_f16``), so do the two-bit kernel's f32, f16,
+# bf16 and f64 ones, the flash forward counts with and without
 # the lse alike, and the
 # embedding kernels (``mxnet_tpu_torch.sparse.kernels``) and the user
 # kernels of ``rtc.CudaModule`` (all under "rtc") count here too
@@ -63,8 +65,12 @@ LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "quant_matmul_int4": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "flash_attention_fwd_bf16": 0, "flash_attention_bwd_dq_bf16": 0,
-            "flash_attention_bwd_dkv_bf16": 0, "embedding_gather": 0, "embedding_scatter": 0,
-            "two_bit_compress": 0, "rtc": 0}
+            "flash_attention_bwd_dkv_bf16": 0,
+            "flash_attention_fwd_f16": 0, "flash_attention_bwd_dq_f16": 0,
+            "flash_attention_bwd_dkv_f16": 0, "embedding_gather": 0,
+            "embedding_scatter": 0, "two_bit_compress": 0,
+            "two_bit_compress_f16": 0, "two_bit_compress_bf16": 0,
+            "two_bit_compress_f64": 0, "rtc": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}
@@ -417,16 +423,17 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
     return dq, dk, dv
 
 
-# the flash kernels' element types: f32 (B1, B2a, B2b) and bf16 (B9), each
-# its own C entry point (``*_bf16``) and launch count
-_FLASH_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+# the flash kernels' element types: f32 (B1, B2a, B2b), bf16 and f16 (B9),
+# each its own C entry point (``*_bf16``, ``*_f16``) and launch count
+_FLASH_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16",
+                 torch.float16: "_f16"}
 
 
 def _check_flash(name, q, k, v, *rows):
     """Device, dtype, shape and contiguity of a flash kernel's operands;
     ``rows`` are the (B*H, Tq) lse/delta vectors.  q, k and v are one
-    dtype, float32 or bfloat16; the rows are float32.  Returns the suffix
-    of the entry point and launch count for that dtype."""
+    dtype, float32, bfloat16 or float16; the rows are float32.  Returns
+    the suffix of the entry point and launch count for that dtype."""
     _require(q.device.type == "cuda", "%s: no kernel for device %s", name,
              q.device)
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape
@@ -439,8 +446,8 @@ def _check_flash(name, q, k, v, *rows):
              tuple(k.shape))
     _require(D <= 128, "%s: head_dim %d > 128", name, D)
     _require(B * H <= 65535, "%s: B*H = %d > 65535", name, B * H)
-    _require(q.dtype in _FLASH_DTYPES, "%s: %s tensors where float32 or "
-             "bfloat16 is required", name, q.dtype)
+    _require(q.dtype in _FLASH_DTYPES, "%s: %s tensors where float32, "
+             "bfloat16 or float16 is required", name, q.dtype)
     for t in (k, v):
         _require(t.dtype == q.dtype, "%s: %s tensor beside %s q", name,
                  t.dtype, q.dtype)
@@ -455,12 +462,12 @@ def _check_flash(name, q, k, v, *rows):
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, with_lse=True):
-    """Flash attention forward over (B, T, H, D) f32 or bf16 tensors;
+    """Flash attention forward over (B, T, H, D) f32, bf16 or f16 tensors;
     returns ``(out, lse)`` with ``out`` in the input dtype and ``lse``
     (B*H, Tq) f32, or ``None`` when ``with_lse`` is false (nothing will
     differentiate).
 
-    CUDA tensors launch ``mxt_flash_attention_fwd`` (``_bf16``) of
+    CUDA tensors launch ``mxt_flash_attention_fwd`` (``_bf16``, ``_f16``) of
     ``csrc/flash_attention.cu``; CPU tensors run
     :func:`flash_attention_fwd_plain`; anything else raises."""
     scale = _flash_scale(q.shape[-1], scale)
@@ -617,9 +624,16 @@ def two_bit_segments_per_launch():
     return build.library("two_bit").mxt_two_bit_segments_per_launch()
 
 
+# B7 / B10: the element types of the two-bit kernel, each its own C entry
+# point and launch count (f32 under the plain name)
+_TWO_BIT_DTYPES = {torch.float32: "", torch.float16: "_f16",
+                   torch.bfloat16: "_bf16", torch.float64: "_f64"}
+
+
 def _aligned_offsets(sizes):
     """Offsets of ``sizes`` in one flat buffer, each a multiple of 4
-    elements (16 bytes of f32), and the buffer's length."""
+    elements (one vector of the kernel: 16 bytes of f32), and the
+    buffer's length."""
     offs, total = [], 0
     for n in sizes:
         offs.append(total)
@@ -627,20 +641,55 @@ def _aligned_offsets(sizes):
     return offs, total
 
 
+def _two_bit_launch(dev, grads, residuals, t, suffix):
+    """One dtype's pairs (contiguous) into ``mxt_two_bit_compress_many``
+    ``suffix``: returns their ``q``, views of one new flat tensor."""
+    dtype = grads[0].dtype
+    sizes = [g.numel() for g in grads]
+    offs, total = _aligned_offsets(sizes)
+    flat = torch.empty(total, dtype=dtype, device=dev)
+    qs = [flat[o:o + n].view(g.shape)
+          for o, n, g in zip(offs, sizes, grads)]
+    align = 4 * flat.element_size()       # one vector of 4 elements
+    desc = []
+    for g, r, q, n in zip(grads, residuals, qs, sizes):
+        if n:
+            gp, rp, qp = g.data_ptr(), r.data_ptr(), q.data_ptr()
+            desc += [gp, rp, qp, rp, n, int(gp % align == 0
+                                           and rp % align == 0
+                                           and qp % align == 0)]
+    count = len(desc) // 6
+    if count:
+        lib = build.library("two_bit")
+        arr = np.array(desc, dtype=np.int64)
+        name = "two_bit_compress" + suffix
+        _launch(name, dev, getattr(lib, "mxt_two_bit_compress_many" + suffix),
+                arr.ctypes.data, count, t)
+        per = lib.mxt_two_bit_segments_per_launch()
+        LAUNCHES[name] += -(-count // per)
+    return qs
+
+
 def two_bit_compress_many(grads, residuals, threshold=0.5):
     """:func:`two_bit_compress` over many keys at once: quantize each
     ``grads[i] + residuals[i]`` to {-t, 0, +t} and carry the error
-    forward.  Returns the list of ``q``: views of ONE new flat tensor,
-    each of its grad's shape, 16-byte aligned.  Every residual is updated
-    IN PLACE (the compressor owns them); the grads are only read.  Each
-    pair is checked as :func:`two_bit_compress` checks it.
+    forward.  Returns the list of ``q``, each of its grad's shape and
+    dtype: per dtype, views of ONE new flat tensor, each aligned to 4
+    elements.  Every residual is updated IN PLACE (the compressor owns
+    them); the grads are only read.  float16, bfloat16, float32 and
+    float64 are taken (computed in f32 as the reference does, ``q`` and
+    the new residual rounded back to the gradient's dtype); a residual
+    has its gradient's dtype and shape.  A strided gradient or residual
+    is compressed through a contiguous copy.
 
     CUDA tensors (all on one device) launch
-    ``mxt_two_bit_compress_many`` over every non-empty pair: one launch
-    per :func:`two_bit_segments_per_launch` pairs, each counted in
-    ``LAUNCHES["two_bit_compress"]``.  CPU tensors run
-    :func:`two_bit_compress_many_plain` and copy its residuals back; any
-    other device raises.  A residual must not appear twice."""
+    ``mxt_two_bit_compress_many`` (``_f16``, ``_bf16``, ``_f64``) over
+    every non-empty pair of that dtype: one launch per
+    :func:`two_bit_segments_per_launch` pairs of a dtype, each counted in
+    ``LAUNCHES["two_bit_compress"]`` (``..._f16`` and so on).  CPU
+    tensors run :func:`two_bit_compress_many_plain` and copy its
+    residuals back; any other device raises.  A residual must not
+    appear twice."""
     grads, residuals = list(grads), list(residuals)
     _require(len(grads) == len(residuals), "two_bit_compress: %d grads "
              "and %d residuals", len(grads), len(residuals))
@@ -648,6 +697,10 @@ def two_bit_compress_many(grads, residuals, threshold=0.5):
         _require(g.shape == r.shape, "two_bit_compress: grad %s and "
                  "residual %s differ in shape", tuple(g.shape),
                  tuple(r.shape))
+        _require(g.dtype in _TWO_BIT_DTYPES and r.dtype == g.dtype,
+                 "two_bit_compress: %s gradient and %s residual where one "
+                 "of float16, bfloat16, float32, float64 is required",
+                 g.dtype, r.dtype)
     if not grads:
         return []
     _require(len({r.data_ptr() for r in residuals if r.numel()})
@@ -666,29 +719,25 @@ def two_bit_compress_many(grads, residuals, threshold=0.5):
     _require(dev.type == "cuda", "two_bit_compress: no kernel for device "
              "%s", dev)
     for t in grads + residuals:
-        _require(t.dtype == torch.float32, "two_bit_compress: %s tensor "
-                 "where float32 is required", t.dtype)
-    _check_cuda("two_bit_compress", *grads, *residuals)
+        _require(t.device == dev, "two_bit_compress: tensors on %s and %s",
+                 dev, t.device)
     t = _f32_threshold(threshold)
-    sizes = [g.numel() for g in grads]
-    offs, total = _aligned_offsets(sizes)
-    flat = torch.empty(total, dtype=torch.float32, device=dev)
-    qs = [flat[o:o + n].view(g.shape)
-          for o, n, g in zip(offs, sizes, grads)]
-    desc = []
-    for g, r, q, n in zip(grads, residuals, qs, sizes):
-        if n:
-            gp, rp, qp = g.data_ptr(), r.data_ptr(), q.data_ptr()
-            desc += [gp, rp, qp, rp, n,
-                     int(gp % 16 == 0 and rp % 16 == 0 and qp % 16 == 0)]
-    count = len(desc) // 6
-    if count:
-        lib = build.library("two_bit")
-        arr = np.array(desc, dtype=np.int64)
-        _launch("two_bit_compress", dev, lib.mxt_two_bit_compress_many,
-                arr.ctypes.data, count, t)
-        per = lib.mxt_two_bit_segments_per_launch()
-        LAUNCHES["two_bit_compress"] += -(-count // per)
+    # strided operands through contiguous copies; the residual's copy is
+    # written back after the launch
+    gs = [g.contiguous() for g in grads]
+    rs = [r if r.is_contiguous() else r.contiguous() for r in residuals]
+    qs = [None] * len(grads)
+    by_dtype = {}
+    for i, g in enumerate(gs):
+        by_dtype.setdefault(g.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        for i, q in zip(idx, _two_bit_launch(
+                dev, [gs[i] for i in idx], [rs[i] for i in idx], t,
+                _TWO_BIT_DTYPES[dtype])):
+            qs[i] = q
+    for r, rc in zip(residuals, rs):
+        if rc is not r:
+            r.copy_(rc)
     return qs
 
 
@@ -699,8 +748,8 @@ def two_bit_compress(grad, residual, threshold=0.5):
     + residual - q`` (the compressor owns it).  ``grad`` is only read.
 
     The one-key case of :func:`two_bit_compress_many`: CUDA tensors
-    launch ``csrc/two_bit.cu`` with one segment (f32, contiguous, one
-    shape; anything else raises); CPU tensors run
+    launch ``csrc/two_bit.cu`` with one segment (f16, bf16, f32 or f64,
+    one shape and dtype; anything else raises); CPU tensors run
     :func:`two_bit_compress_plain` and copy its residual back; any other
     device raises."""
     q, = two_bit_compress_many([grad], [residual], threshold)

@@ -1,5 +1,8 @@
-"""Optimizer update ops (port of ``sgd_update`` / ``sgd_mom_update`` from
-``mxnet_tpu/ops/optimizer_ops.py:39,47``; reference
+"""Optimizer update ops (port of ``sgd_update`` / ``sgd_mom_update``, the
+mixed-precision ``mp_sgd_update`` / ``mp_sgd_mom_update`` and the
+many-parameter ``multi_sgd_update``, ``multi_sgd_mom_update``,
+``multi_mp_sgd_update`` and ``multi_mp_sgd_mom_update`` from
+``mxnet_tpu/ops/optimizer_ops.py:39-76, 164-275``; reference
 src/operator/optimizer_op.cc).
 
 Each op returns ``(new_weight, new_states...)`` and declares
@@ -8,13 +11,22 @@ copies those into the weight and state NDArrays in place, as the
 reference's FMutateInputs does.  The formulas are the JAX package's:
 ``g = clip(grad * rescale_grad)``, then ``w - lr (g + wd w)`` (SGD) or
 ``m' = momentum m - lr (g + wd w)``, ``w + m'`` (SGD with momentum).
-The other optimizers' ops wait (ROADMAP A3).
+The ``mp_`` ops keep an f32 master copy ``weight32`` of a low-precision
+weight: the gradient is cast to f32 before ``rescale_grad`` and the clip,
+the update runs on ``weight32`` (and an f32 momentum), and the weight is
+written as the rounding of the new master to its dtype.  The ``multi_``
+ops take ``num_weights`` groups of inputs (weight, grad[, mom][,
+weight32]) with per-group ``lrs`` / ``wds`` and apply the same formulas
+to each (their ``wd`` term is added after the clip, as in the JAX
+package).  The JAX package's ``dynamic_params`` have no counterpart: an
+eager op keeps no compile cache for a per-step lr or wd to bypass.  The
+other optimizers' ops wait (ROADMAP queue A item 2).
 """
 from __future__ import annotations
 
 import torch
 
-from ..base import attr_bool, attr_float
+from ..base import attr_bool, attr_float, attr_float_tuple, attr_int
 from .registry import register
 
 __all__ = []
@@ -46,3 +58,140 @@ def _sgd_mom_update(attrs, weight, grad, mom):
     g = _prep_grad(attrs, grad)
     new_mom = attrs.momentum * mom - attrs.lr * (g + attrs.wd * weight)
     return weight + new_mom, new_mom
+
+
+@register("mp_sgd_update", inputs=("weight", "grad", "weight32"),
+          params=dict(_COMMON, lazy_update=attr_bool(True)),
+          num_outputs=2, num_visible_outputs=1, writeback={0: 0, 2: 1})
+def _mp_sgd_update(attrs, weight, grad, weight32):
+    g = _prep_grad(attrs, grad.float())
+    new_w32 = weight32 - attrs.lr * (g + attrs.wd * weight32)
+    return new_w32.to(weight.dtype), new_w32
+
+
+@register("mp_sgd_mom_update", inputs=("weight", "grad", "mom", "weight32"),
+          params=dict(_COMMON, momentum=attr_float(0.0),
+                      lazy_update=attr_bool(True)),
+          num_outputs=3, num_visible_outputs=1,
+          writeback={0: 0, 2: 1, 3: 2})
+def _mp_sgd_mom_update(attrs, weight, grad, mom, weight32):
+    g = _prep_grad(attrs, grad.float())
+    new_mom = attrs.momentum * mom - attrs.lr * (g + attrs.wd * weight32)
+    new_w32 = weight32 + new_mom
+    return new_w32.to(weight.dtype), new_mom, new_w32
+
+
+# ---------------------------------------------------------------------------
+# many parameters in one op (variadic inputs, per-group lrs / wds); the
+# writeback maps follow num_weights
+# ---------------------------------------------------------------------------
+
+def _multi_attrs():
+    return dict(lrs=attr_float_tuple(required=True),
+                wds=attr_float_tuple(required=True),
+                rescale_grad=attr_float(1.0),
+                clip_gradient=attr_float(-1.0),
+                num_weights=attr_int(-1),   # -1: from the argument count
+                num_args=attr_int(0),
+                momentum=attr_float(0.0))
+
+
+def _nw(attrs, stride):
+    """num_weights, derived from the argument count if not given."""
+    n = attrs.num_weights
+    if n is None or n < 0:
+        n = (attrs.num_args or stride) // stride
+    return n
+
+
+def _multi_prep(attrs, grad, weight, i):
+    g = grad * attrs.rescale_grad
+    if attrs.clip_gradient > 0:
+        g = torch.clamp(g, -attrs.clip_gradient, attrs.clip_gradient)
+    return g + attrs.wds[i] * weight
+
+
+def _multi_inputs(stride, names):
+    def inputs(attrs, num_args=None):
+        n = attrs.get("num_weights", -1) if attrs else -1
+        if n is None or n < 0:
+            n = (num_args if num_args else
+                 (attrs.get("num_args") if attrs else 0) or stride) // stride
+        return ["%s_%d" % (nm, i) for i in range(n) for nm in names]
+    return inputs
+
+
+def _multi_writeback(stride, states):
+    """Input 0 of each group -> its new weight (output i), and the
+    group's ``states`` (input offsets) -> the outputs after the weights,
+    one block of num_weights each."""
+    def writeback(attrs):
+        n = _nw(attrs, stride)
+        wb = {stride * i: i for i in range(n)}
+        for j, off in enumerate(states):
+            wb.update({stride * i + off: (j + 1) * n + i for i in range(n)})
+        return wb
+    return writeback
+
+
+@register("multi_sgd_update", inputs=_multi_inputs(2, ("weight", "grad")),
+          params=_multi_attrs(), variadic=True,
+          num_outputs=lambda a: _nw(a, 2),
+          writeback=_multi_writeback(2, ()))
+def _multi_sgd_update(attrs, *args):
+    out = []
+    for i in range(_nw(attrs, 2)):
+        w, g = args[2 * i], args[2 * i + 1]
+        out.append(w - attrs.lrs[i] * _multi_prep(attrs, g, w, i))
+    return tuple(out)
+
+
+@register("multi_sgd_mom_update",
+          inputs=_multi_inputs(3, ("weight", "grad", "mom")),
+          params=_multi_attrs(), variadic=True,
+          num_outputs=lambda a: 2 * _nw(a, 3),
+          num_visible_outputs=lambda a: _nw(a, 3),
+          writeback=_multi_writeback(3, (2,)))
+def _multi_sgd_mom_update(attrs, *args):
+    ws, ms = [], []
+    for i in range(_nw(attrs, 3)):
+        w, g, m = args[3 * i], args[3 * i + 1], args[3 * i + 2]
+        m2 = attrs.momentum * m - attrs.lrs[i] * _multi_prep(attrs, g, w, i)
+        ws.append(w + m2)
+        ms.append(m2)
+    return tuple(ws + ms)
+
+
+@register("multi_mp_sgd_update",
+          inputs=_multi_inputs(3, ("weight", "grad", "weight32")),
+          params=_multi_attrs(), variadic=True,
+          num_outputs=lambda a: 2 * _nw(a, 3),
+          num_visible_outputs=lambda a: _nw(a, 3),
+          writeback=_multi_writeback(3, (2,)))
+def _multi_mp_sgd_update(attrs, *args):
+    ws, w32s = [], []
+    for i in range(_nw(attrs, 3)):
+        w, g, w32 = args[3 * i], args[3 * i + 1], args[3 * i + 2]
+        new32 = w32 - attrs.lrs[i] * _multi_prep(attrs, g.float(), w32, i)
+        ws.append(new32.to(w.dtype))
+        w32s.append(new32)
+    return tuple(ws + w32s)
+
+
+@register("multi_mp_sgd_mom_update",
+          inputs=_multi_inputs(4, ("weight", "grad", "mom", "weight32")),
+          params=_multi_attrs(), variadic=True,
+          num_outputs=lambda a: 3 * _nw(a, 4),
+          num_visible_outputs=lambda a: _nw(a, 4),
+          writeback=_multi_writeback(4, (2, 3)))
+def _multi_mp_sgd_mom_update(attrs, *args):
+    ws, ms, w32s = [], [], []
+    for i in range(_nw(attrs, 4)):
+        w, g, m, w32 = args[4 * i:4 * i + 4]
+        m2 = attrs.momentum * m - attrs.lrs[i] * _multi_prep(
+            attrs, g.float(), w32, i)
+        new32 = w32 + m2
+        ws.append(new32.to(w.dtype))
+        ms.append(m2)
+        w32s.append(new32)
+    return tuple(ws + ms + w32s)

@@ -72,8 +72,10 @@ class Operator:
         self.mode_dependent = mode_dependent
         self.variadic = variadic
         # {input_index: output_index}: output j is the new value of aux
-        # input i (the functional form of the reference's FMutateInputs)
-        self.writeback = dict(writeback or {})
+        # input i (the functional form of the reference's FMutateInputs);
+        # a callable(attrs) -> dict for variadic ops (multi_sgd_*)
+        self.writeback = writeback if callable(writeback) \
+            else dict(writeback or {})
         # input positions that are auxiliary states (ListAuxiliaryStates)
         self.aux_inputs = tuple(aux_inputs)
         self.doc = doc
@@ -102,7 +104,9 @@ class Operator:
     def list_inputs(self, attrs: Optional[AttrDict] = None,
                     num_args: Optional[int] = None) -> List[str]:
         if callable(self._inputs):
-            return list(self._inputs(attrs))
+            # a variadic op's names follow its argument count (multi_*)
+            return list(self._inputs(attrs, num_args) if self.variadic
+                        else self._inputs(attrs))
         if self.variadic:
             if num_args is None and attrs:
                 num_args = attrs.get("num_args")
@@ -117,7 +121,8 @@ class Operator:
 
     def writeback_map(self, attrs: Optional[AttrDict] = None) -> Dict[int,
                                                                       int]:
-        return dict(self.writeback)
+        wb = self.writeback
+        return dict(wb(attrs)) if callable(wb) else dict(wb)
 
     def aux_input_indices(self, attrs: Optional[AttrDict] = None):
         return self.aux_inputs

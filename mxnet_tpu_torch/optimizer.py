@@ -14,10 +14,19 @@ update path: for plain dense SGD it applies every parameter of a step as
 one chain of ``torch._foreach_*`` kernels (the JAX package's one jitted
 program, the reference's ``multi_sgd_mom_update``) with the same formula.
 
-Ported: ``Optimizer``, ``SGD`` (dense; a row_sparse gradient and
-``multi_precision`` on an f16 weight raise ``NotPortedYet``),
-``create`` / ``register``, ``Updater`` and ``get_updater``.  The JAX
-package's other optimizers raise ``NotPortedYet`` from :func:`create`.
+``multi_precision=True`` keeps an f32 master copy of each float16 weight
+(MXNet's mixed-precision recipe; bf16 and f32 weights take the plain
+path, as in the reference): the state is ``(weight32, base state)``, the
+update runs in f32 on the master and the weight is written as its
+rounding.  :class:`SGD` does that through the ``mp_sgd_update`` /
+``mp_sgd_mom_update`` ops with the state ``(weight32, mom)``; the
+:class:`Updater` applies such updates key by key (grouping them is not
+done yet).
+
+Ported: ``Optimizer``, ``SGD`` (dense; a row_sparse gradient raises
+``NotPortedYet``), ``create`` / ``register``, ``Updater`` and
+``get_updater``.  The JAX package's other optimizers raise
+``NotPortedYet`` from :func:`create`.
 """
 from __future__ import annotations
 
@@ -34,7 +43,8 @@ from .telemetry import memory as _memory
 __all__ = ["Optimizer", "SGD", "Updater", "get_updater", "create",
            "register"]
 
-# optimizers of the JAX package that a later slice ports (ROADMAP A4)
+# optimizers of the JAX package that a later slice ports (ROADMAP queue A
+# item 2)
 _NOT_PORTED = ("lbsgd", "signum", "ftml", "dcasgd", "nag", "sgld", "adam",
                "adagrad", "rmsprop", "adadelta", "ftrl", "adamax", "nadam",
                "test")
@@ -80,28 +90,35 @@ class Optimizer:
         if key in Optimizer.opt_registry:
             return Optimizer.opt_registry[key](**kwargs)
         if key in _NOT_PORTED:
-            raise NotPortedYet("optimizer %r is not ported yet (ROADMAP A4)"
-                               % name)
+            raise NotPortedYet("optimizer %r is not ported yet (ROADMAP "
+                               "queue A item 2)" % name)
         raise ValueError("Cannot find optimizer %s" % name)
 
     def create_state(self, index, weight):
         return None
 
-    def create_state_multi_precision(self, index, weight):
-        self._refuse_multi_precision(weight)
-        return self.create_state(index, weight)
+    def _mixed(self, weight):
+        """Whether ``weight`` gets an f32 master copy: float16 weights
+        under ``multi_precision``."""
+        return self.multi_precision and \
+            weight._handle.dtype == torch.float16
 
-    def _refuse_multi_precision(self, weight):
-        if self.multi_precision and weight.dtype == np.float16:
-            raise NotPortedYet("multi_precision updates of float16 weights "
-                               "are not ported yet (ROADMAP A4)")
+    def create_state_multi_precision(self, index, weight):
+        if self._mixed(weight):
+            w32 = weight.astype("float32")
+            return (w32, self.create_state(index, w32))
+        return self.create_state(index, weight)
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
 
     def update_multi_precision(self, index, weight, grad, state):
-        self._refuse_multi_precision(weight)
-        self.update(index, weight, grad, state)
+        if self._mixed(weight):
+            w32, base_state = state
+            self.update(index, w32, grad.astype("float32"), base_state)
+            weight._handle.copy_(w32._handle)
+        else:
+            self.update(index, weight, grad, state)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -180,12 +197,14 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        return zeros(weight.shape, dtype=weight.dtype, ctx=weight.context)
+        return zeros(weight.shape, dtype=weight._handle.dtype,
+                     ctx=weight.context)
 
     def update(self, index, weight, grad, state):
         if grad.stype != "default":
             raise NotPortedYet("SGD on a %s gradient: sparse NDArrays are "
-                               "not ported yet (ROADMAP A2)" % grad.stype)
+                               "not ported yet (ROADMAP queue A item 5)"
+                               % grad.stype)
         self._update_count(index)
         kw = self._common_kwargs(index)
         if state is not None:
@@ -193,6 +212,35 @@ class SGD(Optimizer):
                                dict(momentum=self.momentum, **kw))
         else:
             invoke_with_arrays("sgd_update", [weight, grad], kw)
+
+    def create_state_multi_precision(self, index, weight):
+        if self._mixed(weight):
+            mom = None
+            if self.momentum != 0.0:
+                mom = zeros(weight.shape, dtype="float32",
+                            ctx=weight.context)
+            return (weight.astype("float32"), mom)
+        return self.create_state(index, weight)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``mp_sgd(_mom)_update`` on a float16 weight and its state
+        ``(weight32, mom)``; the lr and wd are read before the update
+        count moves, as in the reference."""
+        if not self._mixed(weight):
+            self.update(index, weight, grad, state)
+            return
+        if grad.stype != "default":
+            raise NotPortedYet("SGD on a %s gradient: sparse NDArrays are "
+                               "not ported yet (ROADMAP queue A item 5)"
+                               % grad.stype)
+        kw = self._common_kwargs(index)
+        w32, mom = state if isinstance(state, tuple) else (state, None)
+        if mom is not None:
+            invoke_with_arrays("mp_sgd_mom_update", [weight, grad, mom, w32],
+                               dict(momentum=self.momentum, **kw))
+        else:
+            invoke_with_arrays("mp_sgd_update", [weight, grad, w32], kw)
+        self._update_count(index)
 
 
 create = Optimizer.create_optimizer
@@ -253,9 +301,11 @@ class Updater:
         if index not in self.states:
             self.states[index] = create(index, weight)
             self.states_synced[index] = True
-            if isinstance(self.states[index], NDArray):
-                _memory.tag(self.states[index]._handle, "optimizer",
-                            label="Updater[%s]" % index)
+            parts = self.states[index]
+            for part in (parts if isinstance(parts, tuple) else (parts,)):
+                if isinstance(part, NDArray):
+                    _memory.tag(part._handle, "optimizer",
+                                label="Updater[%s]" % index)
         elif not self.states_synced[index]:
             self.states[index] = _to_context(self.states[index],
                                              weight.context)
@@ -268,6 +318,9 @@ class Updater:
         self.optimizer.update_multi_precision(index, weight, grad, state)
 
     def _fusable(self, triples):
+        """Plain dense SGD: one ``torch._foreach_*`` chain.  A
+        ``multi_precision`` optimizer goes key by key, as the reference's
+        (``mxnet_tpu/optimizer.py:699``)."""
         opt = self.optimizer
         return (type(opt) is SGD and not opt.multi_precision
                 and all(g.stype == "default" for _, g, _ in triples))

@@ -11,7 +11,7 @@ hi)``, each product summed in f32.  Here the same split runs over the
 kernels' 64-key tiles (the forward with the online softmax in exp2 units
 and a fresh accumulator per tile; dQ summing tile after tile), on bf16
 inputs made with numpy from a seed, at small causal shapes whose first
-rows have 1 to 4 live keys.  Held to ``chip_smoke.bf16_close`` against
+rows have 1 to 4 live keys.  Held to ``chip_smoke.lowp_close`` against
 the plain versions (``ops/kernels.py``), as the card holds the kernels:
 out, dq, dk and dv stand within one bf16 step of each element plus 1e-5
 (out) / 1e-4 (dq, dk, dv) x max(1, max|ref|); the one-term form, p and
@@ -29,7 +29,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import bf16_close  # noqa: E402
+from chip_smoke import lowp_close  # noqa: E402
 from mxnet_tpu_torch.ops import kernels  # noqa: E402
 
 TILE = 64                  # keys of the forward's tiles
@@ -147,7 +147,7 @@ def _ratios(case, terms):
     got = {"out": emulate_fwd(q, k, v, True, terms),
            "dq": emulate_dq(q, k, v, do, lse, delta, True, terms)}
     got["dk"], got["dv"] = emulate_dkv(q, k, v, do, lse, delta, True, terms)
-    return {n: bf16_close(torch, got[n], ref[n],
+    return {n: lowp_close(torch, got[n], ref[n],
                           1e-5 if n == "out" else 1e-4)[0] for n in got}
 
 

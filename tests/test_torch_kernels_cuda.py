@@ -7,10 +7,14 @@ and inputs on which 1xTF32 exceeds the tolerance that their 3xTF32
 meets) and their bf16 entry points (B9, against the plain versions within
 one bf16 step, at logits of +-20 and ragged non-causal tiles too; the f32
 kernels and the bf16 forward and dK/dV give the bits they gave before the
-bf16 dQ was rewritten), the embedding gather and scatter (runs of 1 to
+bf16 dQ was rewritten) and f16 ones (B9 f16, within one f16 step, at dO
+of a loss scale's size and where ds passes f16's range; f16 HMMA alone
+in their SASS), the embedding gather and scatter (runs of 1 to
 1000 equal ids with inexact payloads, bit-equal to an in-order float32 fold) and the
 two-bit gradient compression at ragged and odd shapes that the
-full-width smoke run does not reach, both grouped kernels (the two-bit
+full-width smoke run does not reach, in f16, bf16 and f64 too (B10,
+exactly; strided gradients; a push of mixed dtypes, one launch each),
+both grouped kernels (the two-bit
 compression over the LM's 198 keys, the gather over the recommender's
 tables; misaligned views, empty segments, more segments than one launch
 takes, no host sync), a small decode step and a small
@@ -607,6 +611,129 @@ def test_flash_attention_bf16_kernels_at_the_edges(dev, B, Tq, Tk, H, D,
     _check_bf16_kernels(*(t.bfloat16() for t in (q, k, v, do)), causal)
 
 
+# B9 f16: the same three kernels over f16 tiles and f16 MMAs.  One f16
+# step of each element is 2^-10 of its magnitude; the f32 terms are the
+# bf16 ones.
+def _f16_close(got, ref, base):
+    """Every element within one f16 step of the plain version's, plus
+    ``base`` x max(1, max finite |ref|); inf and NaN only where the plain
+    version has them.  Returns the largest error over that."""
+    assert got.dtype == ref.dtype == torch.float16
+    got, ref = got.float(), ref.float()
+    same = (got == ref) | (torch.isnan(got) & torch.isnan(ref))
+    fin = ref[torch.isfinite(ref)]
+    tol = 2.0 ** -10 * ref.abs() + base * max(
+        1.0, fin.abs().max().item() if fin.numel() else 1.0)
+    return torch.where(same, torch.zeros((), device=got.device),
+                       (got - ref).abs() / tol).max().item()
+
+
+def _check_f16_kernels(q, k, v, do, causal, rerun=True):
+    before = dict(kernels.LAUNCHES)
+    out, lse = kernels.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = kernels.flash_delta(ref, do)
+    dq = kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                             causal)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert kernels.LAUNCHES[name + "_f16"] == before[name + "_f16"] + 1
+        assert kernels.LAUNCHES[name] == before[name]
+        assert kernels.LAUNCHES[name + "_bf16"] == before[name + "_bf16"]
+    assert lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() < 1e-5 * max(
+        1.0, ref_lse.abs().max().item())
+    assert _f16_close(out, ref, 1e-5) <= 1.0
+    refs = kernels.flash_attention_bwd_dq_plain(
+        q, k, v, do, ref_lse, delta, causal), \
+        *kernels.flash_attention_bwd_dkv_plain(q, k, v, do, ref_lse, delta,
+                                               causal)
+    for got, want in zip((dq, dk, dv), refs):
+        assert _f16_close(got, want, 1e-4) <= 1.0
+    if rerun:
+        again = (kernels.flash_attention_fwd(q, k, v, causal=causal)[0],
+                 kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                                causal)) + \
+            kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                            causal)
+        for a, b in zip((out, dq, dk, dv), again):
+            assert torch.equal(a, b)
+    return refs
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,D,causal", BF16_CASES, ids=BF16_IDS)
+def test_flash_attention_f16_kernels_match_plain(dev, B, Tq, Tk, H, D,
+                                                 causal):
+    q, k, v, do = (t.half() for t in _flash_inputs(
+        dev, B, Tq, Tk, H, D, Tq * 5 + D))
+    _check_f16_kernels(q, k, v, do, causal)
+
+
+@pytest.mark.parametrize("do_max", [1e3, 1e4, 6e4])
+def test_flash_attention_f16_kernels_at_a_loss_scale(dev, do_max):
+    """dO at the sizes a loss scale of 2^10-2^16 gives it (its largest
+    |dO| up to 6e4, next to f16's largest value 65504; 1e5 is not an f16
+    value), with logits to ~+-20: within one f16 step of the plain
+    versions, inf only where they have it."""
+    q, k, v, do = _flash_inputs(dev, 2, 256, 256, 2, 64, 31)
+    q, k = q * 2.5, k * 2.5
+    do = do * (do_max / do.abs().max().item())
+    _check_f16_kernels(*(t.half() for t in (q, k, v, do)), True)
+
+
+def test_flash_attention_f16_ds_past_f16_range(dev):
+    """ds ~1e5, past f16's range, while dq stays ~1e4 (two keys share
+    each query's weight, v_1 = -v_0, dO = 3e4 sign(v_0):
+    ``tests/test_torch_flash_f16_split.overflow_inputs``): dq within one
+    f16 step of the plain version and finite, where f16 hi + lo terms of
+    the unscaled ds would give NaN."""
+    from test_torch_flash_f16_split import overflow_inputs
+    q, k, v, do = (t.to(dev) for t in overflow_inputs(amp=3e4,
+                                                      spread=0.1))
+    _p, ds = kernels._flash_bwd_parts(
+        q.cpu(), k.cpu(), v.cpu(), do.cpu(),
+        *(lambda o, l: (l, kernels.flash_delta(o, do.cpu())))(
+            *kernels.flash_attention_fwd_plain(q.cpu(), k.cpu(), v.cpu())),
+        False, 1.0 / 8.0)
+    assert ds.abs().max().item() > 65504.0
+    dq_ref, _dk, _dv = _check_f16_kernels(q, k, v, do, False)
+    assert bool(torch.isfinite(dq_ref).all())
+
+
+def test_flash_f16_kernels_sass_holds_f16_hmma(dev):
+    """The SASS of every f16 instantiation holds f16 HMMA.16816 and no
+    TF32 HMMA; the bf16 instantiations hold bf16 ones."""
+    import re
+    import shutil
+    import subprocess
+    from mxnet_tpu_torch.ops import build
+    path = build.build_kernels(["flash_attention"])["flash_attention"]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0, 0]
+        elif fn and "HMMA" in line:
+            counts[fn][0] += "TF32" in line
+            counts[fn][1] += "HMMA.16816.F32.BF16" in line
+            counts[fn][2] += "HMMA.16816.F32 " in line or \
+                line.rstrip().endswith("HMMA.16816.F32")
+    for kind in ("fwd16", "bwd_dq16", "bwd_dkv16"):
+        f16 = [n for f, n in counts.items()
+               if "flash_%s_kernel" % kind in f and "__half" in f]
+        bf16 = [n for f, n in counts.items()
+                if "flash_%s_kernel" % kind in f and "__nv_bfloat16" in f]
+        assert len(f16) == 3 and len(bf16) == 3, (kind, counts)
+        assert all(n[0] == 0 and n[1] == 0 and n[2] > 0 for n in f16), f16
+        assert all(n[0] == 0 and n[1] > 0 and n[2] == 0 for n in bf16), bf16
+
+
 # The f32 kernels (B1, B2a, B2b) and the bf16 forward and dK/dV are the
 # same code as before the bf16 dQ was redesigned: SHA-256 (first 16 hex
 # digits) of their outputs at fixed inputs, as the earlier sources gave
@@ -968,14 +1095,118 @@ def test_two_bit_kernel_edges_and_misaligned_views(dev, threshold):
 
 
 def test_two_bit_kernel_refuses_what_it_does_not_take(dev):
+    """An integer gradient, a residual of another dtype or shape, a
+    residual on another device."""
     from mxnet_tpu_torch.base import MXNetError
     g = torch.zeros(8, 4, device=dev)
     with pytest.raises(MXNetError):
-        kernels.two_bit_compress(g.double(), g.double())
+        kernels.two_bit_compress(g.int(), g.int())
     with pytest.raises(MXNetError):
-        kernels.two_bit_compress(g.t(), torch.zeros(4, 8, device=dev))
+        kernels.two_bit_compress(g.half(), g.clone())
+    with pytest.raises(MXNetError):
+        kernels.two_bit_compress(g.t(), torch.zeros(8, 4, device=dev))
     with pytest.raises(MXNetError):
         kernels.two_bit_compress(g, torch.zeros(8, 4))
+
+
+# B10: the kernel over f16, bf16 and f64 gradients and strided ones
+TWO_BIT_DTYPES = [torch.float16, torch.bfloat16, torch.float64]
+
+
+def _two_bit_typed(dev, shape, dtype, seed, offset=0, edges=True):
+    """g, r of ``dtype``, views ``offset`` elements into their buffers;
+    with ``edges`` the residual's front holds the threshold's neighbours
+    (+-1 ulp in f32 and in ``dtype``), NaN and +-inf under a zero g."""
+    g, r = _two_bit_inputs(dev, shape, seed, offset=offset)
+    g, r = g.to(dtype), r.to(dtype)
+    if edges and r.numel() >= 12:
+        t32 = np.float32(0.5)
+        e = torch.tensor([t32, np.nextafter(t32, np.float32(1)),
+                          np.nextafter(t32, np.float32(0)), -t32, 0.0,
+                          np.nan, np.inf, -np.inf], device=dev).to(dtype)
+        lo = torch.tensor([0.5], device=dev).to(dtype)
+        e = torch.cat([e, torch.nextafter(lo, lo + 1), torch.nextafter(
+            lo, lo - 1), -torch.nextafter(lo, lo + 1), 65504.0 * lo])
+        r.view(-1)[:12] = e
+        g.view(-1)[:12] = 0
+    return g, r
+
+
+@pytest.mark.parametrize("dtype", TWO_BIT_DTYPES,
+                         ids=["f16", "bf16", "f64"])
+@pytest.mark.parametrize("shape", [(768, 768), (3072,), (1023,), (1,),
+                                   (25165827,)],
+                         ids=["768x768", "3072", "1023", "1", "25M"])
+def test_two_bit_kernel_matches_plain_in_every_dtype(dev, dtype, shape):
+    """q and the new residual bit-equal to the plain version (NaN where
+    it has NaN), in the gradient's dtype, one launch of that dtype's
+    entry point; aligned, and misaligned by 1-3 elements."""
+    for offset in (0, 1, 3):
+        g, r = _two_bit_typed(dev, shape, dtype, sum(shape) + offset,
+                              offset)
+        q0, r0 = kernels.two_bit_compress_plain(g, r, 0.5)
+        name = "two_bit_compress" + kernels._TWO_BIT_DTYPES[dtype]
+        before = dict(kernels.LAUNCHES)
+        q, r1 = kernels.two_bit_compress(g, r.clone(), 0.5)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before[name] + 1
+        assert all(kernels.LAUNCHES[n] == before[n] for n in before
+                   if n != name)
+        assert q.dtype == r1.dtype == dtype and q.shape == g.shape
+        assert torch.equal(q, q0)
+        nan = torch.isnan(r0)
+        assert torch.equal(torch.isnan(r1), nan)
+        assert torch.equal(r1[~nan], r0[~nan])
+
+
+def test_two_bit_kernel_compresses_strided_gradients(dev):
+    """A transposed gradient and a residual that is a strided view: q of
+    the gradient's shape, the residual updated in place, both as the
+    plain version gives them, over three pushes."""
+    for dtype in (torch.float32, torch.float16):
+        base = torch.randn(100, 96, device=dev, dtype=torch.float32)
+        r = torch.zeros(200, 96, device=dev, dtype=dtype)[::2, :].t()
+        r_want = r.clone()
+        for i in range(3):
+            g = (base * (i + 1) * 0.2).to(dtype).t()
+            assert not g.is_contiguous() and not r.is_contiguous()
+            q0, r_want = kernels.two_bit_compress_plain(g, r_want, 0.5)
+            q, r1 = kernels.two_bit_compress(g, r, 0.5)
+            assert r1 is r and q.shape == g.shape
+            assert torch.equal(q, q0) and torch.equal(r, r_want)
+
+
+def test_two_bit_many_kernel_over_mixed_dtypes(dev):
+    """One push of f32, f16, bf16 and f64 keys, misaligned views among
+    them: bit-equal per key, one launch per dtype, no host sync."""
+    rs = np.random.RandomState(9)
+    gs, rs_ = [], []
+    for i in range(40):
+        dtype = [torch.float32, torch.float16, torch.bfloat16,
+                 torch.float64][i % 4]
+        n = int(rs.randint(1, 5000))
+        g, r = _two_bit_typed(dev, (n,), dtype, i, offset=i % 3,
+                              edges=i % 5 == 0)
+        gs.append(g)
+        rs_.append(r)
+    want_q, want_r = kernels.two_bit_compress_many_plain(gs, rs_, 0.5)
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        qs = kernels.two_bit_compress_many(gs, rs_, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for suffix in kernels._TWO_BIT_DTYPES.values():
+        n = "two_bit_compress" + suffix
+        assert kernels.LAUNCHES[n] == before[n] + 1
+    for g, r, q, q0, r0 in zip(gs, rs_, qs, want_q, want_r):
+        assert q.dtype == g.dtype and q.shape == g.shape
+        assert torch.equal(q, q0)
+        nan = torch.isnan(r0)
+        assert torch.equal(torch.isnan(r), nan)
+        assert torch.equal(r[~nan], r0[~nan])
 
 
 # the LM's pushes per Module.fit step (GPT-2-small, 198 keys), as
@@ -1065,9 +1296,8 @@ def test_two_bit_many_kernel_refuses_what_it_does_not_take(dev):
     from mxnet_tpu_torch.base import MXNetError
     g = torch.zeros(8, 4, device=dev)
     before = kernels.LAUNCHES["two_bit_compress"]
-    for gs, rs_ in (([g, g.double()], [g.clone(), g.double()]),
-                    ([g, g.t()], [g.clone(), torch.zeros(4, 8,
-                                                         device=dev)]),
+    for gs, rs_ in (([g, g.double()], [g.clone(), g.float()]),
+                    ([g, g.int()], [g.clone(), g.int()]),
                     ([g, g], [g.clone(), torch.zeros(8, 4)]),
                     ([g, g], [g.clone(), g.clone()[:4]])):
         with pytest.raises(MXNetError):

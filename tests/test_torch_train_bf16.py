@@ -334,8 +334,8 @@ def _run(mode, trainer, shapes, batches, seed=3):
     return p, m, x
 
 
-@pytest.mark.parametrize("param_dtype", [None, "bfloat16"],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("param_dtype", [None, "bfloat16", "float16"],
+                         ids=["f32", "bf16", "f16"])
 def test_raw_and_auto_layout_lm_steps_equal_the_step(param_dtype):
     """The LM (no convolution, so the auto layout re-lays nothing): the
     raw and auto-layout steps give the step's state bit for bit."""

@@ -3,7 +3,7 @@
 CUDA card, in one process (so that they share the card, its clocks and its
 power limit).
 
-    python tools/flash_variants.py [--bf16] a.cu b.cu ...
+    python tools/flash_variants.py [--bf16 | --f16] a.cu b.cu ...
 
 Each argument is a complete copy of ``mxnet_tpu_torch/csrc/flash_attention.cu``
 with one change (an older version too, such as the f32-FMA forward of an
@@ -27,7 +27,10 @@ over ``chip_smoke.py``'s bf16 tolerance (one bf16 step of each element
 plus the f32 tolerance above), whether each output (out, lse, dq, dk, dv)
 is bit-equal to the first variant's, the same times, and SDPA in bf16;
 the large-logits check, which compares with 1xTF32 f32 einsums, is f32
-only.  To time the bf16 kernels of a parent commit against the tree's::
+only.  ``--f16`` does the same for the f16 kernels (B9 f16: one f16 step,
+2^-10 of each element's magnitude; sources without the ``*_f16`` entry
+points cannot run it).  To time the bf16 kernels of a parent commit
+against the tree's::
 
     git show <commit>:mxnet_tpu_torch/csrc/flash_attention.cu \
         > build/variants/flash_parent.cu
@@ -51,15 +54,17 @@ TIMED = {(8, 1024, 12, 64, True), (4, 1024, 12, 64, False)}
 def main():
     import torch
     import torch.nn.functional as F
-    from chip_smoke import bf16_close
+    from chip_smoke import lowp_close
     from mxnet_tpu_torch.ops import build, kernels
     if not torch.cuda.is_available():
         sys.exit("flash_variants: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     args = sys.argv[1:]
     bf16 = "--bf16" in args
-    args = [a for a in args if a != "--bf16"]
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    f16 = "--f16" in args
+    args = [a for a in args if a not in ("--bf16", "--f16")]
+    dtype = torch.bfloat16 if bf16 else torch.float16 if f16 \
+        else torch.float32
     timer = card_timer(torch)
     libs = build_all(build, "flash_attention", args)
     dev = torch.device("cuda")
@@ -70,8 +75,8 @@ def main():
             np.float32)).to(dev, dtype) for _ in range(4)]
 
     def error_ratio(got, want, base, lse=False):
-        if bf16 and not lse:
-            return bf16_close(torch, got, want, base)[0]
+        if (bf16 or f16) and not lse:
+            return lowp_close(torch, got, want, base)[0]
         tol = base * (max(1.0, want.abs().max().item()) if base > 1e-5
                       else 1.0)
         return (got.float() - want.float()).abs().max().item() / tol
@@ -115,7 +120,7 @@ def main():
                     timer(lambda: kernels.flash_attention_bwd_dkv(
                         q, k, v, do, lse, delta, causal)))
             print(line, flush=True)
-    if not bf16:
+    if not (bf16 or f16):
         large_logits(torch, kernels, build, libs, inputs, fwd)
     q, k, v, do = inputs(8, 1024, 12, 64, 1032)
     ref, lse = kernels.flash_attention_fwd_plain(q, k, v, True)
@@ -131,7 +136,7 @@ def main():
                 q, k, v, do, lse, delta, True))), flush=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
-    kind = "bf16" if bf16 else "f32"
+    kind = "bf16" if bf16 else "f16" if f16 else "f32"
     print("SDPA %s forward %.4f ms" % (kind, timer(
         lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                is_causal=True))))
@@ -144,9 +149,13 @@ def main():
     # from before the template: ...kernelILi64EE); bf16 the template's
     # ...kernelILi64E13__nv_bfloat16E or the bf16 kernels'
     # ..._bf16_kernelILi64EE
+    # ..._bf16_kernelILi64EE, or the 16-bit template's
+    # ...16_kernelILi64E13__nv_bfloat16EE; f16 ...16_kernelILi64E6__halfEE
     name_re = (r"(fwd|bwd_dq|bwd_dkv)(?:_bf16_kernelILi(\d+)EE|"
-               r"_kernelILi(\d+)E13__nv_bfloat16E)" if bf16 else
-               r"(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)E(?:f)?E")
+               r"_kernelILi(\d+)E13__nv_bfloat16E|"
+               r"16_kernelILi(\d+)E13__nv_bfloat16E)" if bf16 else
+               r"(fwd|bwd_dq|bwd_dkv)16_kernelILi(\d+)E6__halfE" if f16
+               else r"(fwd|bwd_dq|bwd_dkv)_kernelILi(\d+)E(?:f)?E")
     for src, path, _ in libs:
         hist = sass_counts(path, name_re)
         for fn in ("fwd64", "bwd_dq64", "bwd_dkv64"):

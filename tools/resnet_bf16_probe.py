@@ -4,6 +4,8 @@ step, on one CUDA card.
 
     python tools/resnet_bf16_probe.py [--prelude] [--deterministic] [--f32]
                                       [--cpu-profile] [--phases N]
+    python tools/resnet_bf16_probe.py --check
+    python tools/resnet_bf16_probe.py --check-processes N [--parallel P]
 
 One process trains phase 22's two trajectories as the phase does (the
 cifar ResNet-20 card-vs-CPU step first; then ResNet-50 NCHW, batch 32,
@@ -34,6 +36,25 @@ check.  The benchmark's algorithm cache lives
 as long as the process, so each run of this script samples cuDNN's
 choice once; run it several times to see the choice and the trajectory
 vary.
+
+``--check`` follows the training checks of phases 19, 22 and 24 in one
+process instead (``chip_smoke.resnet_loss_check``,
+``module_loss_check``): for f32 through ``ShardedTrainer.step`` and for
+bf16 through ``build_step_auto_layout`` and ``sgd_step_fn``, a fresh
+ResNet-50 trainer's cross-entropy over 10 steps at each of
+``CHECK_LRS``, with the update as it is and with the gradient's sign
+flipped, and at lr 0; beside them the old check (lr 0.1 over the timed
+loop's 13 / 25 steps, passed when the last cross-entropy lies below the
+first); and for the float16 ``Module.fit`` path (2-bit store,
+multi-precision SGD) the cross-entropy the metric reads over 10 epochs
+of one repeated batch at each of ``MODULE_LRS``, as it is, with the
+gradient's sign flipped, and at lr 0.  One JSON line per trajectory.
+``--check-processes N`` runs ``--check`` in N fresh processes, ``P`` at a
+time on the one card (default 4), each printing into
+``chiprun_out/probe_check_<i>.txt``, and then prints, per trajectory
+kind, the cross-entropy drop after each step over all of them, and how
+many pass ``chip_smoke``'s checks as they stand (``RESNET_CHECK``,
+``MODULE_CHECK``).
 """
 import hashlib
 import json
@@ -44,6 +65,127 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+
+CHECK_LRS = (0.005, 0.01, 0.02)
+MODULE_LRS = (0.1, 0.05)
+PROBE_STEPS = 10
+
+
+def flip_gradients(tr):
+    """Break a trainer's update: every gradient's sign flipped."""
+    inner = tr._loss_and_grads
+
+    def flipped(*args, **kwargs):
+        loss, grads, aux = inner(*args, **kwargs)
+        return loss, [-g for g in grads], aux
+
+    tr._loss_and_grads = flipped
+
+
+def run_checks(torch, cs, ShardedTrainer, sgd_step_fn, card):
+    """``--check``: the trajectories of the training checks, one JSON
+    line each."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import resnet
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = None
+    for dtype, mode, old_steps in ((None, "step", 13),
+                                   ("bfloat16", "build_step_auto_layout",
+                                    25),
+                                   ("bfloat16", "sgd_step_fn", 25)):
+        kw = dict(cs.RESNET50, layout="NCHW", dtype=dtype or "float32")
+        shapes = cs.conv_net_shapes(kw, cs.RESNET_BATCH, "NCHW")
+        net = resnet.get_symbol(**kw)
+        gen.manual_seed(0)
+        inputs = {"data": torch.randn(shapes["data"], generator=gen,
+                                      device="cuda"),
+                  "softmax_label": torch.randint(
+                      0, 1000, (cs.RESNET_BATCH,), generator=gen,
+                      device="cuda").float()}
+        runs = [("old", 0.1, None, old_steps)]
+        for lr in CHECK_LRS:
+            runs += [("ok", lr, None, PROBE_STEPS),
+                     ("sign-flipped", lr, flip_gradients, PROBE_STEPS)]
+        runs.append(("lr0", 0.0, None, PROBE_STEPS))
+        for variant, lr, tamper, steps in runs:
+            _passed, ce0, ces = cs.resnet_loss_check(
+                torch, ShardedTrainer, sgd_step_fn, net, shapes, inputs,
+                mode, dtype, lr=lr, tamper=tamper, steps=steps)
+            print(json.dumps({"path": "%s %s" % (dtype or "float32", mode),
+                              "variant": variant, "lr": lr, "ce0": ce0,
+                              "ces": ces, "card": card}), flush=True)
+            torch.cuda.empty_cache()
+    kw = dict(cs.RESNET50, layout="NCHW", dtype="float16")
+    net = resnet.get_symbol(**kw)
+    rs = np.random.RandomState(0)
+    X = rs.rand(4 * cs.RESNET_BATCH, 3, 224, 224).astype(np.float32)
+    Y = rs.randint(0, 1000, 4 * cs.RESNET_BATCH).astype(np.float32)
+    X, Y = X[:cs.RESNET_BATCH], Y[:cs.RESNET_BATCH]
+    runs = []
+    for lr in MODULE_LRS:
+        runs += [("ok", lr, 1.0), ("sign-flipped", lr, -1.0)]
+    runs.append(("lr0", 0.0, 1.0))
+    for variant, lr, sign in runs:
+        _passed, ces = cs.module_loss_check(torch, mx, net, X, Y, lr=lr,
+                                            sign=sign, epochs=PROBE_STEPS)
+        print(json.dumps({"path": "float16 Module.fit", "variant": variant,
+                          "lr": lr, "ce0": ces[0], "ces": ces[1:],
+                          "card": card}), flush=True)
+    torch.backends.cudnn.benchmark = False
+
+
+def many_processes(n, parallel):
+    """``--check-processes``: ``--check`` in ``n`` fresh processes,
+    ``parallel`` at a time, and the summary over all of them."""
+    import subprocess
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    procs, done = [], []
+    for i in range(n):
+        while len([p for p in procs if p[1].poll() is None]) >= parallel:
+            import time
+            time.sleep(1)
+        path = os.path.join(out_dir, "probe_check_%d.txt" % i)
+        f = open(path, "w")
+        procs.append((path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--check"],
+            stdout=f, stderr=subprocess.STDOUT, cwd=ROOT), f))
+    for path, p, f in procs:
+        p.wait()
+        f.close()
+        done.append((path, p.returncode))
+    import chip_smoke as cs
+    rows = {}
+    for path, rc in done:
+        with open(path) as f:
+            for line in f:
+                if line.startswith("{") and '"variant"' in line:
+                    r = json.loads(line)
+                    rows.setdefault((r["path"], r["variant"], r["lr"]),
+                                    []).append(r)
+    print(json.dumps({"processes": n, "exit_codes": [rc for _, rc in done]}))
+    for (path, variant, lr), rs in sorted(rows.items()):
+        drops = np.array([[r["ce0"] - c for c in r["ces"]] for r in rs])
+        module = path.startswith("float16")
+        chk = cs.MODULE_CHECK if module else cs.RESNET_CHECK
+        k = (chk["epochs"] - 1) if module else chk["steps"]
+        if variant == "old":
+            passed = int(sum(r["ces"][-1] < r["ce0"] for r in rs))
+        elif lr == chk["lr"] or variant == "lr0":
+            passed = int((drops[:, k - 1] >= chk["margin"]).sum())
+        else:
+            passed = None
+        print(json.dumps({
+            "path": path, "variant": variant, "lr": lr, "runs": len(rs),
+            "passes_the_check": passed,
+            "ce0_min_max": [min(r["ce0"] for r in rs),
+                            max(r["ce0"] for r in rs)],
+            "drop_per_step_min": [round(float(x), 4)
+                                  for x in drops.min(axis=0)],
+            "drop_per_step_max": [round(float(x), 4)
+                                  for x in drops.max(axis=0)]}),
+            flush=True)
 
 
 def settings(torch):
@@ -110,6 +252,12 @@ def trajectory(torch, cs, ShardedTrainer, sgd_step_fn, mode, net, shapes,
 
 
 def main():
+    args = sys.argv[1:]
+    if "--check-processes" in args:
+        par = int(args[args.index("--parallel") + 1]) \
+            if "--parallel" in args else 4
+        many_processes(int(args[args.index("--check-processes") + 1]), par)
+        return
     import torch
     if not torch.cuda.is_available():
         sys.exit("resnet_bf16_probe: needs a CUDA card")
@@ -132,6 +280,9 @@ def main():
     args = sys.argv[1:]
     print(json.dumps({"card": card, "args": args,
                       "settings_at_start": settings(torch)}), flush=True)
+    if "--check" in args:
+        run_checks(torch, cs, ShardedTrainer, sgd_step_fn, card)
+        return
     if "--phases" in args:
         for i in range(int(args[args.index("--phases") + 1])):
             for name, run in (
@@ -152,13 +303,13 @@ def main():
         return
     if "--prelude" in args:
         timer = cs.Timer(torch)
-        cs.phase_flash_bf16(torch, kernels, F, timer, card)
+        cs.phase_flash_16(torch, kernels, F, timer, card, "bf16")
         del timer
         torch.cuda.empty_cache()
         print(json.dumps({"settings_after_phase_20": settings(torch)}),
               flush=True)
-        cs.phase_lm_bf16(torch, kernels, get_symbol, ShardedTrainer,
-                         sgd_step_fn, transformer_flops_per_step, card)
+        cs.phase_lm_16(torch, kernels, get_symbol, ShardedTrainer,
+                       sgd_step_fn, transformer_flops_per_step, card, "bf16")
         print(json.dumps({"settings_after_phase_21": settings(torch)}),
               flush=True)
 
