@@ -23,8 +23,11 @@ ResNet-50 through ``sgd_step_fn`` and ``build_step_auto_layout`` — and
 MXNet's float16 recipe: ResNet-50 built in float16 through ``Module.fit``
 with multi-precision SGD and a 2-bit ``KVStore("device")``, and the LM
 through ``ShardedTrainer(param_dtype="float16")`` with a dynamic loss
-scale on the flash kernels in f16 — and holds every hand-written kernel
-of those paths against its plain PyTorch version on the card.
+scale on the flash kernels in f16 — and the recommender on bf16 tables,
+the optimizers of ``mxnet_tpu_torch.optimizer`` through ``Module.fit``
+(the full-width LM with Adam) and a checkpoint resumed — and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
@@ -194,14 +197,40 @@ Phases, in order:
     ``sgd_step_fn`` and ``build_step_auto_layout`` as 21 runs it: 12
     launches of each B9 f16 kernel per step, the loss scale at the end,
     no step skipped (the guard's device streak of good steps equals the
-    steps taken), the cross-entropy falling by ``LM_CE_MARGIN``.
+    steps taken), the cross-entropy falling by ``LM_CE_MARGIN``;
+27. the embedding gather and scatter at the table's dtype (B11: bf16,
+    f16, f64) against their plain versions, exactly, with inexact tables
+    and payloads (each add rounds to the dtype, so the order shows) at
+    ragged shapes (D 13, 7 and 1, n 1, runs of duplicates, ids 0 and
+    rows-1, pads >= rows) and at the recommender's (timed, with the
+    bytes bound and ``index_select`` / ``index_copy_`` / ``index_add_``
+    in the same dtype), two launches bit-equal; then the bf16
+    recommender's update gather, bf16 tables with their f32 momentum in
+    one launch, at both geometries;
+28. the recommender on bf16 tables (``ShardedEmbedding(dtype=
+    "bfloat16")``): two steps on the card against the CPU (4 x 1000 x 16,
+    batch 512; tables within one bf16 step), then the bench geometry (3
+    + 20 steps) and the Criteo shape (2 + 5) as phase 11 runs them, two
+    grouped gathers per step and a bf16 and an f32 scatter per table,
+    beside phase 11's f32 steps;
+29. the optimizers through ``Module.fit``: each of Adam, NAG, RMSProp
+    (both forms), AdaGrad, AdaDelta, Adamax, Nadam, Ftrl, FTML, Signum,
+    SGLD, DCASGD and LBSGD (LARS) for three steps of the small LM on the
+    card, every update held to the CPU's replay of the same call (SGLD:
+    its noise N(0, lr)); the full-width LM with Adam through a 2-bit
+    ``KVStore("device")`` (tokens/s, host ms in ``update()``, one B7
+    launch per step, the perplexity falling); and checkpoint and resume
+    on the card: ``module_checkpoint(..., save_optimizer_states=True)``,
+    ``Module.load(prefix, 1, load_optimizer_states=True)`` and
+    ``fit(begin_epoch=1)`` equal to the uninterrupted ``fit`` bit for bit,
+    with SGD and with Adam.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
 per layer per step (once per matmul for the quantized ones; two grouped
-gathers per recommender step and two scatters per table; one grouped
-two-bit launch per ``Module.fit`` step and dtype while its keys fit in
-one launch's parameters).
+gathers per recommender step and two scatters per table, a bf16 table's
+counted under its dtype; one grouped two-bit launch per ``Module.fit``
+step and dtype while its keys fit in one launch's parameters).
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``.  It needs one
 CUDA card, exits non-zero without one (or without the package beside it),
@@ -1419,23 +1448,27 @@ def phase_rec_parity(torch, tsp, MeshSpec, make_mesh, convert, card):
 
 
 def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
-            card):
-    """Train the recommender at ``geo`` on the card: ``warm`` + ``timed``
-    steps that each read their loss, one step under
-    ``set_sync_debug_mode("error")`` and one profiled step; checks the
-    launch counts exactly and returns them."""
+            card, dtype="float32"):
+    """Train the recommender at ``geo`` on the card, its tables in
+    ``dtype`` (their momentum float32): ``warm`` + ``timed`` steps that
+    each read their loss, one step under ``set_sync_debug_mode("error")``
+    and one profiled step; checks the launch counts exactly and returns
+    them with the median step ms."""
     F, B = geo["tables"], geo["batch"]
-    tag = "%d tables x %d x %d, batch %d" % (F, geo["rows"], geo["dim"], B)
+    tag = "%d tables x %d x %d %s, batch %d" % (F, geo["rows"], geo["dim"],
+                                               dtype, B)
     spec = MeshSpec(make_mesh((1,), ("dp",)))
     embs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], spec,
-                                 name="table%d" % f) for f in range(F)]
+                                 dtype=dtype, name="table%d" % f)
+            for f in range(F)]
     t0 = time.perf_counter()
     state = tsp.recommender_state(embs, dense_dim=geo["dense"],
                                   hidden=geo["hidden"], seed=0)
     torch.cuda.synchronize()
-    log("recommender_state(%s, seed=0): %.2f GB of tables, %.1f s"
-        % (tag, 2 * sum(e.table_bytes for e in embs) / 1e9,
-           time.perf_counter() - t0))
+    log("recommender_state(%s, seed=0): %.2f GB of tables and %.2f GB of "
+        "momentum, %.1f s" % (tag, sum(e.table_bytes for e in embs) / 1e9,
+                              sum(m.numel() * 4 for m in state["moms"])
+                              / 1e9, time.perf_counter() - t0))
     batch = rec_batch(torch, geo, 0, "cuda")
     step = tsp.make_recommender_step(embs, lr=geo["lr"],
                                      momentum=geo["momentum"])
@@ -1473,9 +1506,16 @@ def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
           "embedding_gather launched %d times over %d steps, want %d (one "
           "grouped lookup and one grouped update gather per step)"
           % (got["embedding_gather"], steps, 2 * steps))
-    check(got["embedding_scatter"] == 2 * F * steps,
-          "embedding_scatter launched %d times over %d steps, want %d"
-          % (got["embedding_scatter"], steps, 2 * F * steps))
+    # a set scatter per table and buffer: the table's in its dtype's
+    # count, the float32 momentum's in embedding_scatter
+    suffix = tsp.kernels._DTYPES[getattr(torch, dtype)][1]
+    want = {"embedding_scatter": F * steps}
+    want["embedding_scatter" + suffix] = \
+        want.get("embedding_scatter" + suffix, 0) + F * steps
+    for key, n_want in want.items():
+        check(got[key] == n_want, "%s launched %d times over %d steps, "
+              "want %d (two scatters per table)" % (key, got[key], steps,
+                                                    n_want))
     tt = times[warm:]
     med = statistics.median(tt)
     log("recommender %s: warm-up %s ms; timed %d steps median %.3f ms "
@@ -1515,7 +1555,7 @@ def rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo, warm, timed,
           "the recommender did not lower its loss on the repeated batch "
           "(%.6f -> %.6f)" % (losses[0], losses[-1]))
     del state, embs
-    return got
+    return got, med
 
 
 # the LM's pushes per step under Module.fit (GPT-2-small, 198 keys): the
@@ -1879,6 +1919,7 @@ def phase_module_fit(torch, mx, kernels, kv_mod, get_symbol, trainer_ms,
             cls.compress_many = counting
 
     torch.manual_seed(0)
+    mx.random.seed(0)             # the initializers' host stream
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -2496,6 +2537,7 @@ def phase_convnet_parity(torch, mx, ShardedTrainer, convert, card):
     y = rs.randint(0, 10, 24).astype(np.float32)
     net = resnet.get_symbol(**kw)
     torch.manual_seed(0)
+    mx.random.seed(0)             # the initializers' host stream
     init = mx.mod.Module(net, context=mx.cpu())
     it = mx.io.NDArrayIter(X, y, batch_size=8)
     init.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
@@ -2865,7 +2907,7 @@ def f16_module(mx, net, X, Y, lr, epochs, batch=RESNET_BATCH, sched=None,
                shuffle=False, start=None):
     """``Module.fit`` of ``net`` over (X, Y) as train_imagenet.py runs it:
     SGD with momentum 0.9, wd 1e-4, ``multi_precision``, ``sched``, Xavier
-    (gaussian, in, 2) from torch's generator seeded 0, a 2-bit
+    (gaussian, in, 2) drawn after ``mx.random.seed(0)``, a 2-bit
     KVStore("device") at threshold 0.5 (``compression``), metrics
     Accuracy, CrossEntropy and top-5 accuracy.  ``sign`` -1 flips the
     gradient in the update (``rescale_grad``); ``cpu`` runs it all on
@@ -2884,6 +2926,7 @@ def f16_module(mx, net, X, Y, lr, epochs, batch=RESNET_BATCH, sched=None,
     init = mx.init.Xavier(rnd_type="gaussian", factor_type="in",
                           magnitude=2)
     torch.manual_seed(0)
+    mx.random.seed(0)             # the initializers' host stream
     if start is not None:      # initialise before fit to read the start
         mod.bind(data_shapes=it.provide_data,
                  label_shapes=it.provide_label)
@@ -3676,6 +3719,569 @@ def phase_resnet50_bf16(torch, kernels, ShardedTrainer, sgd_step_fn, card):
     return got
 
 
+# B11: the embedding kernels at the table's dtype (bf16, f16, f64)
+B11_KINDS = (("bf16", "bfloat16"), ("f16", "float16"), ("f64", "float64"))
+B11_RAGGED = ((1000, 13, 257), (50, 16, 1), (77, 64, 40), (3, 1, 9),
+              (300, 7, 1200))
+
+
+def b11_case(torch, sk, dtype, rows, D, n, seed, dev, path=False):
+    """B5 and B6 (add and set) at ``dtype`` against their plain versions,
+    exactly, on one shape: an inexact table and inexact payloads rounded
+    to the table's dtype, so every add rounds and the order of the adds
+    shows.  The add's ids are sorted with a run of duplicates (long runs
+    where n > rows), the ids 0 and rows-1 and 3 pads with zero payloads;
+    the gather's and the set's are the path's (sorted unique ids, then
+    pads equal to ``rows`` carrying the current last row; the gather's
+    clamped) where ``path``, else the add's.  Two launches of each are
+    bit-equal.  Returns the tensors the timing needs."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = (torch.randn(rows, D, generator=g, device=dev) * 10).to(dtype)
+    rs = np.random.RandomState(seed)
+    raw = rs.randint(0, rows, n)
+    raw[0], raw[-1] = 0, rows - 1
+    if n > 4:
+        raw[1:4] = raw[2]
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    add_ids = t(np.concatenate([np.sort(raw), rows + np.arange(3)]))
+    if path:
+        n_u, sc, ga = path_ids(rs, rows, n)
+        sc, ga = t(sc), t(ga)
+    else:
+        sc, ga = add_ids, add_ids.clamp(max=rows - 1)
+        n_u = int(torch.unique(ga).numel())
+    add_src = torch.randn(add_ids.numel(), D, generator=g,
+                          device=dev).to(dtype)
+    add_src[-3:] = 0
+    set_src = torch.randn(sc.numel(), D, generator=g, device=dev).to(dtype)
+    set_src = torch.where((sc < rows)[:, None], set_src, table[rows - 1])
+    got, again, want = {}, {}, {}
+    for out in (got, again):
+        out["gather"] = sk.embedding_gather(table, ga)
+        out["set"] = sk.embedding_scatter(table.clone(), sc, set_src, "set")
+        out["add"] = sk.embedding_scatter(table.clone(), add_ids, add_src,
+                                          "add")
+    want["gather"] = sk.embedding_gather_plain(table, ga)
+    want["set"] = sk.embedding_scatter_plain(table.clone(), sc, set_src,
+                                             "set")
+    want["add"] = sk.embedding_scatter_plain(table.clone(), add_ids,
+                                             add_src, "add")
+    torch.cuda.synchronize()
+    errs = {k: (got[k].double() - want[k].double()).abs().max().item()
+            for k in got}
+    same = {k: torch.equal(got[k], want[k]) and torch.equal(got[k], again[k])
+            and got[k].dtype == dtype for k in got}
+    log("embedding kernels %s rows %d D %d n %d (%d unique; runs, pads, ids "
+        "0 and rows-1; inexact): max_abs_err %s (tolerance 0: the kernel "
+        "rounds as its plain version does), reruns bit-equal"
+        % (dtype, rows, D, n, n_u,
+           ", ".join("%s=%.3g" % kv for kv in errs.items())))
+    check(all(same.values()), "the embedding kernels in %s disagree with "
+          "their plain versions or with themselves at rows %d D %d n %d: %s"
+          % (dtype, rows, D, n, same))
+    return dict(table=table, sc=sc, ga=ga, set_src=set_src, add_ids=add_ids,
+                add_src=add_src, n_u=n_u, errs=errs,
+                add_rows=int(torch.unique(add_ids.clamp(max=rows - 1))
+                             .numel()))
+
+
+def b11_mixed_groups(torch, kernels, sk, timer, tag, geo, dev):
+    """The bf16 recommender's update gather at ``geo``: every table's bf16
+    rows and its float32 momentum rows in one launch, exactly equal to
+    the plain version, each output in its buffer's dtype; timed."""
+    rows, D, n, F = geo["rows"], geo["dim"], geo["batch"], geo["tables"]
+    g = torch.Generator(device=dev).manual_seed(17)
+    tabs = [torch.randn(rows, D, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(F)]
+    moms = [torch.randn(rows, D, generator=g, device=dev) for _ in range(F)]
+    rs = np.random.RandomState(17)
+    bufs, idx = [], []
+    for f in range(F):
+        i = torch.from_numpy(path_ids(rs, rows, n)[2]).to(dev)
+        bufs += [tabs[f], moms[f]]
+        idx += [i, i]
+    before = kernels.LAUNCHES["embedding_gather"]
+    got = sk.embedding_gather_many(bufs, idx)
+    want = sk.embedding_gather_many_plain(bufs, idx)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["embedding_gather"] == before + 1,
+          "the mixed-dtype update gather took more than one launch")
+    check(all(a.dtype == b.dtype and torch.equal(a, w)
+              for a, b, w in zip(got, bufs, want)),
+          "the mixed-dtype grouped gather differs from its plain version "
+          "(%s)" % tag)
+    del got, want
+    nbytes = F * (n * 4 + 2 * n * D * 2) + F * (n * 4 + 2 * n * D * 4)
+    b, by = bound_ms(nbytes, 0)
+    row = {
+        "name": "embedding_gather", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/embedding.cu",
+        "replaces": "mxnet_tpu/sparse/kernels.py:117",
+        "shape": "%s update, bf16 tables: %d segments (%d tables (%d, %d) "
+                 "bf16 + their f32 momentum), n %d each, grouped"
+                 % (tag, 2 * F, F, rows, D, n),
+        "launches_per_step": 1, "max_abs_err": 0.0,
+        "ms": timer(lambda: sk.embedding_gather_many(bufs, idx)),
+        "plain_ms": timer(lambda: sk.embedding_gather_many_plain(bufs,
+                                                                 idx)),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+        "library_call": "none: no single PyTorch call gathers from many "
+                        "tables",
+    }
+    del tabs, moms, bufs
+    return row
+
+
+def phase_embedding_b11(torch, kernels, sk, timer, card):
+    """B5 and B6 in bf16, f16 and f64 against their plain versions,
+    exactly, at ragged shapes and at the recommender's (timed, with the
+    bytes bound and the ``index_select`` / ``index_copy_`` / ``index_add_``
+    yardsticks in the same dtype), then the bf16 update gather with f32
+    momentum in one launch at both geometries."""
+    dev = torch.device("cuda")
+    out = []
+    src = "mxnet_tpu_torch/csrc/embedding.cu"
+    for kind, name in B11_KINDS:
+        dtype = getattr(torch, name)
+        size = dtype.itemsize
+        for rows, D, n in B11_RAGGED:
+            b11_case(torch, sk, dtype, rows, D, n, rows + D + n, dev)
+        for tag, geo in (("bench", REC), ("criteo", CRITEO)):
+            rows, D, n = geo["rows"], geo["dim"], geo["batch"]
+            c = b11_case(torch, sk, dtype, rows, D, n, 7, dev, path=True)
+            table, sc, ga = c["table"], c["sc"], c["ga"]
+            shape = "%s: table (%d, %d) %s, n %d (%d unique + pads)" % (
+                tag, rows, D, kind, n, c["n_u"])
+            row_b = D * size
+            set_rows = c["n_u"] + int(rows - 1 not in set(
+                sc[:c["n_u"]].tolist()))
+            b_g, by_g = bound_ms(n * 4 + 2 * n * row_b, 0)
+            b_s, by_s = bound_ms(n * 4 + n * row_b + set_rows * row_b, 0)
+            na = c["add_ids"].numel()
+            b_a, by_a = bound_ms(na * 4 + na * row_b
+                                 + 2 * c["add_rows"] * row_b, na * D)
+            ga_l, sc_l = ga.long(), sc.clamp(max=rows - 1).long()
+            add_l = c["add_ids"].clamp(max=rows - 1).long()
+            t_set, t_add = table.clone(), table.clone()
+            out += [{
+                "name": "embedding_gather", "route": "cuda", "source": src,
+                "replaces": "mxnet_tpu/sparse/kernels.py:117",
+                "shape": shape + ", one segment (lookup or apply_* alone; "
+                         "not on the step's path)",
+                "launches_per_step": 0,
+                "max_abs_err": c["errs"]["gather"],
+                "ms": timer(lambda: sk.embedding_gather(table, ga)),
+                "plain_ms": timer(lambda: sk.embedding_gather_plain(table,
+                                                                    ga)),
+                "bound_ms": b_g, "bound_by": by_g,
+                "library_ms": timer(lambda: torch.index_select(table, 0,
+                                                               ga_l)),
+                "library_call": "torch.index_select(table, 0, ids), %s"
+                                % kind,
+            }, {
+                "name": "embedding_scatter_" + kind, "route": "cuda",
+                "source": src,
+                "replaces": "mxnet_tpu/sparse/kernels.py:175",
+                "shape": shape + ", set",
+                "launches_per_step": REC["tables"] if kind == "bf16" else 0,
+                "max_abs_err": c["errs"]["set"],
+                "ms": timer(lambda: sk.embedding_scatter(
+                    t_set, sc, c["set_src"], "set")),
+                "plain_ms": timer(lambda: sk.embedding_scatter_plain(
+                    t_set, sc, c["set_src"], "set")),
+                "bound_ms": b_s, "bound_by": by_s,
+                "library_ms": timer(lambda: t_set.index_copy_(
+                    0, sc_l, c["set_src"])),
+                "library_call": "table.index_copy_(0, clamped ids, rows), "
+                                "%s" % kind,
+            }, {
+                "name": "embedding_scatter_" + kind, "route": "cuda",
+                "source": src,
+                "replaces": "mxnet_tpu/sparse/kernels.py:175",
+                "shape": "%s: table (%d, %d) %s, n %d sorted with "
+                         "duplicates + 3 pads, add (not on the step's "
+                         "path)" % (tag, rows, D, kind, na - 3),
+                "launches_per_step": 0,
+                "max_abs_err": c["errs"]["add"],
+                "ms": timer(lambda: sk.embedding_scatter(
+                    t_add, c["add_ids"], c["add_src"], "add")),
+                "plain_ms": timer(lambda: sk.embedding_scatter_plain(
+                    t_add, c["add_ids"], c["add_src"], "add")),
+                "bound_ms": b_a, "bound_by": by_a,
+                "library_ms": timer(lambda: t_add.index_add_(
+                    0, add_l, c["add_src"])),
+                "library_call": "table.index_add_(0, clamped ids, rows), "
+                                "%s (atomics: another order)" % kind,
+            }]
+            del c, table, t_set, t_add
+            torch.cuda.empty_cache()
+    for tag, geo in (("bench", REC), ("criteo", CRITEO)):
+        out.append(b11_mixed_groups(torch, kernels, sk, timer, tag, geo,
+                                    dev))
+        torch.cuda.empty_cache()
+    for r in out:
+        log("  %-22s %-66s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%s  [%s]"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], "none" if r["library_ms"] is None
+               else "%.4f" % r["library_ms"], card))
+    return out
+
+
+def phase_rec_bf16_parity(torch, tsp, MeshSpec, make_mesh, convert, card):
+    """Two steps of the recommender over bf16 tables on the card and on
+    the CPU (plain versions) from one state: 4 tables x 1000 x 16, batch
+    512.  Tables within one bf16 step of the CPU's per element plus 1e-3
+    of their largest update (a new row's f32 value rounds once to bf16,
+    and the two devices' f32 values may straddle a rounding boundary);
+    momentum and MLP within 1e-3 of their largest update; losses within
+    1e-5."""
+    geo = dict(REC, rows=1000, batch=512)
+    F = geo["tables"]
+    batches = [rec_batch(torch, geo, 20 + i, "cpu") for i in range(2)]
+    res, start = {}, None
+    for dev in ("cpu", "cuda"):
+        spec = MeshSpec(make_mesh((1,), ("dp",), device=dev))
+        embs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], spec,
+                                     dtype="bfloat16", name="pb%d" % f)
+                for f in range(F)]
+        if start is None:
+            start = tsp.recommender_state(embs, dense_dim=geo["dense"],
+                                          hidden=geo["hidden"], seed=3)
+        state = {k: (tuple(t.to(dev, copy=True) for t in v)
+                     if isinstance(v, tuple) else
+                     {n: t.to(dev, copy=True) for n, t in v.items()})
+                 for k, v in start.items()}
+        step = tsp.make_recommender_step(embs, lr=geo["lr"],
+                                         momentum=geo["momentum"])
+        losses = []
+        for b in batches:
+            state, loss = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(loss))
+        check(all(t.dtype == torch.bfloat16 for t in state["tables"]),
+              "a bf16 table changed dtype")
+        res[dev] = (convert.recommender_state_to_numpy(state), losses)
+    s0 = convert.recommender_state_to_numpy(start)
+    (cpu, l_cpu), (crd, l_card) = res["cpu"], res["cuda"]
+    worst, steps_off = 0.0, 0
+    for i, (a, b) in enumerate(zip(cpu["tables"], crd["tables"])):
+        upd = np.abs(a - s0["tables"][i]).max()
+        step_bf16 = np.abs(a) * 2.0 ** -7
+        over = np.abs(a - b) > 1e-3 * upd
+        steps_off += int(over.sum())
+        check((np.abs(a - b) <= step_bf16 + 1e-3 * upd).all(),
+              "bf16 table %d on the card differs from the CPU by more than "
+              "one bf16 step" % i)
+    for p in ("moms",):
+        for i, (a, b) in enumerate(zip(cpu[p], crd[p])):
+            upd = np.abs(a - s0[p][i]).max()
+            err = np.abs(a - b).max()
+            worst = max(worst, err / upd)
+            check(err <= 1e-3 * upd, "%s[%d] differs card vs CPU" % (p, i))
+    for p in ("mlp", "mlp_mom"):
+        for k in cpu[p]:
+            upd = np.abs(cpu[p][k] - s0[p][k]).max()
+            err = np.abs(cpu[p][k] - crd[p][k]).max()
+            worst = max(worst, err / upd)
+            check(err <= 1e-3 * upd, "%s.%s differs card vs CPU" % (p, k))
+    lerr = max(abs(a - b) for a, b in zip(l_cpu, l_card))
+    log("bf16 recommender 2 steps card vs cpu (%d x %d x %d, batch %d): "
+        "tables within one bf16 step (%d elements off by a rounding), "
+        "momentum and MLP within %.3g of their largest update (tolerance "
+        "1e-3); losses %s vs %s, max diff %.3g (tolerance 1e-5) [%s]"
+        % (F, geo["rows"], geo["dim"], geo["batch"], steps_off, worst,
+           ["%.7f" % v for v in l_card], ["%.7f" % v for v in l_cpu], lerr,
+           card))
+    check(lerr <= 1e-5, "bf16 recommender losses on the card differ from "
+          "the CPU")
+
+
+# the small LM of the Module parity phases and the optimizers the card
+# runs it with: (name, optimizer_params)
+SMALL_LM = dict(vocab_size=1024, seq_len=64, num_layers=2, hidden=64,
+                heads=4)
+CARD_OPTIMIZERS = (
+    ("adam", dict(learning_rate=1e-3)),
+    ("nag", dict(learning_rate=0.05, momentum=0.9)),
+    ("rmsprop", dict(learning_rate=1e-3)),
+    ("rmsprop", dict(learning_rate=1e-3, centered=True, gamma2=0.8)),
+    ("adagrad", dict(learning_rate=0.01)),
+    ("adadelta", dict(rho=0.9)),
+    ("adamax", dict(learning_rate=2e-3)),
+    ("nadam", dict(learning_rate=1e-3)),
+    ("ftrl", dict(learning_rate=0.1, lamda1=0.001)),
+    ("ftml", dict(learning_rate=2e-3)),
+    ("signum", dict(learning_rate=1e-3, momentum=0.9)),
+    ("sgld", dict(learning_rate=1e-4)),
+    ("dcasgd", dict(learning_rate=0.05, momentum=0.9)),
+    ("lbsgd", dict(learning_rate=0.05, momentum=0.9,
+                   warmup_strategy="lars")),
+)
+
+
+def small_lm_fit(mx, net, X, Y, dev, opt, params, start):
+    """One epoch of ``Module.fit`` of the small LM (batch 4, a local
+    updater) on ``dev`` from ``start`` (host arrays); returns the
+    Module."""
+    ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+    mod = mx.mod.Module(net, context=ctx)
+    mod.fit(mx.io.NDArrayIter(X, Y, batch_size=4), kvstore="local",
+            optimizer=opt, optimizer_params=dict(params),
+            eval_metric=mx.metric.Perplexity(ignore_label=None),
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in start.items()},
+            num_epoch=1)
+    return mod
+
+
+def host_params(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_optimizers_parity(torch, mx, get_symbol, card):
+    """Each optimizer of ``CARD_OPTIMIZERS`` for three ``Module.fit``
+    steps of the small LM on the card (a local updater: one call per key
+    and step), every update held to the CPU's: each call's gradient and
+    weight are recorded on the card and the same calls replayed on the
+    CPU by a fresh optimizer of the same settings (its states its own),
+    the weight after each within 1e-6 of its largest magnitude before or
+    after the update (float32 elementwise ops on both devices; the states
+    drift by ulps).  SGLD's
+    noise comes from each device's own generator: the CPU replays it with
+    the noise drawn as zeros, and the card's increment over that
+    deterministic part must have mean 0 and variance lr (within 5
+    standard errors).  Then the same fit on the CPU end to end: the
+    weights' card-vs-CPU gap, norm-wise over all parameters, is printed
+    (the normalising optimizers turn gradients that are rounding noise
+    into steps of lr, so an element's gap says little there)."""
+    from mxnet_tpu_torch import optimizer as opt_mod
+    import mxnet_tpu_torch.ndarray.random as nd_random
+    cfg = SMALL_LM
+    B, T = 4, cfg["seq_len"]
+    net = get_symbol(**cfg)
+    rs = np.random.RandomState(29)
+    X = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    start = module_params(net, shapes, seed=5)
+    for opt, params in CARD_OPTIMIZERS:
+        label = opt + ("-centered" if params.get("centered") else "")
+        calls = []
+        orig_call = opt_mod.Updater.__call__
+
+        def recording(self, index, grad, weight):
+            before = weight.asnumpy()
+            orig_call(self, index, grad, weight)
+            calls.append((index, grad.asnumpy(), before, weight.asnumpy()))
+
+        opt_mod.Updater.__call__ = recording
+        try:
+            mx.random.seed(1)
+            mod = small_lm_fit(mx, net, X, Y, "cuda", opt, params, start)
+        finally:
+            opt_mod.Updater.__call__ = orig_call
+        card_w = host_params(mod)
+        settings = dict(params, rescale_grad=mod._optimizer.rescale_grad,
+                        param_idx2name=dict(mod._optimizer.idx2name),
+                        sym=net)
+        del mod
+        check(len(calls) == 3 * len(start), "%s: %d updater calls, want %d"
+              % (label, len(calls), 3 * len(start)))
+        replay = opt_mod.get_updater(opt_mod.create(opt, **settings))
+        orig_normal = nd_random.normal
+        if opt == "sgld":
+            nd_random.normal = lambda *a, shape=(), dtype="float32", \
+                ctx=None, **k: mx.nd.zeros(shape, dtype=dtype, ctx=ctx)
+        worst, noise = 0.0, []
+        try:
+            for index, g, before, after in calls:
+                w = mx.nd.array(before, ctx=mx.cpu())
+                replay(index, mx.nd.array(g, ctx=mx.cpu()), w)
+                got = w.asnumpy()
+                if opt == "sgld":
+                    if after.size >= 4096:
+                        noise.append((after - got).ravel())
+                    continue
+                err = float(np.abs(after - got).max())
+                scale = max(float(np.abs(got).max()),
+                            float(np.abs(before).max()))
+                if scale:
+                    worst = max(worst, err / scale)
+                check(err <= 1e-6 * scale, "%s: the card's update of key %s "
+                      "differs from the CPU's by %.3g (largest magnitude "
+                      "%.3g)" % (label, index, err, scale))
+        finally:
+            nd_random.normal = orig_normal
+        mx.random.seed(1)
+        cpu_w = host_params(small_lm_fit(mx, net, X, Y, "cpu", opt, params,
+                                         start))
+        gap = np.sqrt(sum(float(((card_w[k] - cpu_w[k]) ** 2).sum())
+                          for k in start))
+        moved = np.sqrt(sum(float(((cpu_w[k] - start[k]) ** 2).sum())
+                            for k in start))
+        check(all(np.isfinite(v).all() for v in card_w.values())
+              and moved > 0, "%s: the card's fit gave non-finite or "
+              "unmoved weights" % label)
+        if opt == "sgld":
+            z = np.concatenate(noise).astype(np.float64)
+            lr = params["learning_rate"]
+            se_mean = np.sqrt(lr / z.size)
+            se_var = lr * np.sqrt(2.0 / z.size)
+            log("  %-16s %d updates on the card; its noise over %d "
+                "elements: mean %.3g (standard error %.3g), variance %.5g "
+                "(lr %.5g, standard error %.3g); end to end card vs cpu "
+                "%.3g of the update norm-wise [%s]"
+                % (label, len(calls), z.size, z.mean(), se_mean, z.var(),
+                   lr, se_var, gap / moved, card))
+            check(abs(z.mean()) <= 5 * se_mean
+                  and abs(z.var() - lr) <= 5 * se_var,
+                  "sgld's noise on the card is not N(0, lr)")
+            continue
+        log("  %-16s %d updates on the card, each within %.3g of its "
+            "largest magnitude of the CPU's replay (tolerance 1e-6); end "
+            "to end card vs cpu %.3g of the update norm-wise [%s]"
+            % (label, len(calls), worst, gap / moved, card))
+
+
+def phase_checkpoint_resume(torch, mx, get_symbol, card):
+    """On the card: ``fit`` the small LM for two epochs (3 batches each,
+    SGD with momentum, then Adam) with ``module_checkpoint(...,
+    save_optimizer_states=True)``; ``Module.load(prefix, 1,
+    load_optimizer_states=True)`` and ``fit(begin_epoch=1)`` must give
+    the uninterrupted run's weights bit for bit."""
+    import tempfile
+    cfg = SMALL_LM
+    B, T = 4, cfg["seq_len"]
+    net = get_symbol(**cfg)
+    rs = np.random.RandomState(31)
+    X = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], (3 * B, T)).astype(np.float32)
+    start = module_params(net, {"data": (B, T), "softmax_label": (B, T)},
+                          seed=6)
+    for opt, params in (("sgd", dict(learning_rate=0.05, momentum=0.9)),
+                        ("adam", dict(learning_rate=1e-3))):
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "lm")
+            mod = mx.mod.Module(net, context=mx.gpu(0))
+            mod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), kvstore="local",
+                    optimizer=opt, optimizer_params=dict(params),
+                    eval_metric=mx.metric.Perplexity(ignore_label=None),
+                    arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in start.items()},
+                    epoch_end_callback=mx.callback.module_checkpoint(
+                        mod, prefix, save_optimizer_states=True),
+                    num_epoch=2)
+            whole = host_params(mod)
+            files = sorted(os.listdir(tmp))
+            del mod
+            resumed = mx.mod.Module.load(prefix, 1,
+                                         load_optimizer_states=True,
+                                         context=mx.gpu(0))
+            p2 = dict(params)
+            if opt == "adam":       # the step count resumes with the states
+                p2["begin_num_update"] = 3
+            resumed.fit(mx.io.NDArrayIter(X, Y, batch_size=B),
+                        kvstore="local", optimizer=opt, optimizer_params=p2,
+                        eval_metric=mx.metric.Perplexity(ignore_label=None),
+                        begin_epoch=1, num_epoch=2)
+            got = host_params(resumed)
+            del resumed
+        same = all(np.array_equal(got[k], whole[k]) for k in whole)
+        moved = max(float(np.abs(whole[k] - start[k]).max()) for k in start)
+        log("  checkpoint and resume on the card (%s; files %s): resumed "
+            "weights equal to the uninterrupted run's bit for bit: %s "
+            "(largest update %.3g) [%s]" % (opt, ", ".join(files), same,
+                                           moved, card))
+        check(same and moved > 0, "%s: the resumed fit differs from the "
+              "uninterrupted one" % opt)
+
+
+def phase_adam_fit(torch, mx, kernels, get_symbol, card):
+    """``Module.fit`` of the full-width LM with Adam through a 2-bit
+    ``KVStore("device")`` (the store runs Adam per key): 16 numpy-seeded
+    sequences, 2 batches of 8 per epoch, 2 warm-up and 8 timed steps
+    (CUDA events at batch end), tokens/s, host ms in ``update()``, one
+    B7 launch per step, peak memory, the perplexity falling."""
+    cfg = TRAIN
+    B, T = 8, cfg["seq_len"]
+    warm, timed = 2, 8
+    epochs = (warm + timed) // 2
+    net = get_symbol(**cfg)
+    rs = np.random.RandomState(0)
+    X = rs.randint(0, cfg["vocab_size"], (2 * B, T)).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], (2 * B, T)).astype(np.float32)
+    it = mx.io.NDArrayIter(X, Y, batch_size=B, label_name="softmax_label")
+    mod = mx.mod.Module(net, compression_params={"type": "2bit",
+                                                 "threshold": 0.5})
+    kv = mx.kv.create("device")
+    update_ms, ev, ppl, launches = [], [], [], []
+    orig_update = mod.update
+
+    def timed_update():
+        t0 = time.perf_counter()
+        orig_update()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+        launches.append(kernels.LAUNCHES["two_bit_compress"])
+        if p.nbatch == 1:
+            ppl.append(p.eval_metric.get()[1])
+
+    mod.update = timed_update
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(it, kvstore=kv, optimizer="adam",
+            optimizer_params={"learning_rate": 1e-4},
+            initializer=mx.init.Xavier(),
+            eval_metric=mx.metric.Perplexity(ignore_label=None),
+            batch_end_callback=on_batch, num_epoch=epochs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(ev)
+    n_keys = len(mod._exec_group.param_names)
+    per_step = -(-n_keys // kernels.two_bit_segments_per_launch())
+    check(steps == 2 * epochs, "fit ran %d steps" % steps)
+    check(got["two_bit_compress"] == per_step * steps,
+          "two_bit_compress launched %d times over %d steps, want %d per "
+          "step" % (got["two_bit_compress"], steps, per_step))
+    check(isinstance(kv._updater.optimizer, mx.optimizer.Adam),
+          "the store did not run Adam")
+    inner = [ev[i - 2].elapsed_time(ev[i - 1])
+             for i in range(warm + 1, warm + timed + 1) if i % 2 == 0]
+    every = [ev[i - 2].elapsed_time(ev[i - 1])
+             for i in range(warm + 1, warm + timed + 1)]
+    med = statistics.median(inner)
+    log("Module.fit L%d h%d V%d T%d batch %d f32 with Adam (lr 1e-4) "
+        "through KVStore('device') with 2-bit compression, %d keys: %d "
+        "steps in %.1f s" % (cfg["num_layers"], cfg["hidden"],
+                             cfg["vocab_size"], T, B, n_keys, steps, fit_s))
+    log("  step ms (CUDA events at batch end): %s; steps inside an epoch "
+        "median %.3f = %.0f tokens/s [%s]"
+        % (", ".join("%.3f" % x for x in every), med, B * T / med * 1e3,
+           card))
+    log("  host ms in update() per timed step: %s (median %.2f); "
+        "two_bit_compress launches per step: %s; peak memory %.2f GB [%s]"
+        % (", ".join("%.1f" % x for x in update_ms[warm:]),
+           statistics.median(update_ms[warm:]),
+           ", ".join(str(b - a) for a, b in zip([0] + launches, launches)),
+           peak / 1e9, card))
+    log("  perplexity per epoch (before each epoch's second update): %s"
+        % ", ".join("%.2f" % x for x in ppl))
+    check(np.isfinite(ppl).all() and ppl[-1] < ppl[0],
+          "the perplexity did not fall under Adam (%.4f -> %.4f)"
+          % (ppl[0], ppl[-1]))
+    del mod, kv
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3843,12 +4449,13 @@ def main():
     with phase("10 recommender step card vs cpu"):
         phase_rec_parity(torch, tsp, MeshSpec, make_mesh, convert, card)
 
+    rec_ms = {}
     with phase("11 recommender at full width"):
-        launches["recommender"] = rec_run(torch, kernels, tsp, MeshSpec,
-                                          make_mesh, REC, 3, 20, card)
+        launches["recommender"], rec_ms["bench"] = rec_run(
+            torch, kernels, tsp, MeshSpec, make_mesh, REC, 3, 20, card)
         torch.cuda.empty_cache()
-        launches["criteo"] = rec_run(torch, kernels, tsp, MeshSpec,
-                                     make_mesh, CRITEO, 2, 5, card)
+        launches["criteo"], rec_ms["criteo"] = rec_run(
+            torch, kernels, tsp, MeshSpec, make_mesh, CRITEO, 2, 5, card)
         torch.cuda.empty_cache()
 
     with phase("12 two-bit kernel vs plain"):
@@ -3937,6 +4544,34 @@ def main():
                lm_f16_ms["sgd_step_fn"],
                lm_f16_ms["build_step_auto_layout"], card))
         torch.cuda.empty_cache()
+
+    with phase("27 embedding kernels in bf16, f16, f64 (B11) vs plain"):
+        timer = Timer(torch)
+        rows += phase_embedding_b11(torch, kernels, sk, timer, card)
+        del timer
+        torch.cuda.empty_cache()
+
+    with phase("28 the recommender on bf16 tables"):
+        phase_rec_bf16_parity(torch, tsp, MeshSpec, make_mesh, convert,
+                              card)
+        for tag, geo, warm, timed in (("bench", REC, 3, 20),
+                                      ("criteo", CRITEO, 2, 5)):
+            got, ms = rec_run(torch, kernels, tsp, MeshSpec, make_mesh, geo,
+                              warm, timed, card, dtype="bfloat16")
+            launches["rec_bf16_" + tag] = got
+            log("recommender %s: bf16 tables %.3f ms per step (%.1f "
+                "examples/s), f32 tables %.3f ms (%.1f examples/s, phase "
+                "11) [%s]" % (tag, ms, geo["batch"] / ms * 1e3,
+                              rec_ms[tag], geo["batch"] / rec_ms[tag] * 1e3,
+                              card))
+            torch.cuda.empty_cache()
+
+    with phase("29 the optimizers and checkpoints through Module.fit"):
+        phase_optimizers_parity(torch, mx, get_symbol, card)
+        launches["module_adam"] = phase_adam_fit(torch, mx, kernels,
+                                                 get_symbol, card)
+        torch.cuda.empty_cache()
+        phase_checkpoint_resume(torch, mx, get_symbol, card)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

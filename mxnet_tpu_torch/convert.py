@@ -43,6 +43,7 @@ from .base import MXNetError
 
 __all__ = ["from_jax_params", "is_quantized", "trainer_state_from_numpy",
            "trainer_state_to_numpy", "recommender_state_from_numpy",
+           "tensor_from_host", "tensor_to_host",
            "recommender_state_to_numpy", "module_params_from_numpy",
            "kvstore_state_to_numpy"]
 
@@ -97,10 +98,7 @@ def trainer_state_from_numpy(names, state, device, order=None):
     differs between a parameter and its momentum, or a dtype other than
     float32 or bfloat16 (and float16 for a parameter: a float16
     trainer's weights; its momentum is float32) raises.  A bf16 array
-    (numpy's dtype named ``bfloat16``, e.g. ``ml_dtypes``') becomes a
-    bf16 tensor bit for bit:
-    its 16-bit words are viewed as int16 and then as bf16."""
-    import torch
+    becomes a bf16 tensor bit for bit (:func:`tensor_from_host`)."""
     param_names, aux_names = (list(n) for n in names)
     params, mom, aux = state
     want_p, want_a = (list(n) for n in (order or names))
@@ -111,16 +109,12 @@ def trainer_state_from_numpy(names, state, device, order=None):
 
     def put(name, value, f16=False):
         host = np.asarray(value)
-        if host.dtype.name == "bfloat16":
-            bits = torch.from_numpy(np.array(host).view(np.uint16).view(
-                np.int16))
-            return bits.view(torch.bfloat16).to(device, copy=True)
-        if host.dtype != np.float32 and not (f16 and
-                                             host.dtype == np.float16):
+        if host.dtype.name not in ("float32", "bfloat16") and not (
+                f16 and host.dtype == np.float16):
             raise MXNetError("%s: trainer state is float32 or bfloat16 "
                              "(a parameter also float16), got %s"
                              % (name, host.dtype))
-        return torch.tensor(host, device=device)
+        return tensor_from_host(host).to(device)
 
     by_p = {n: (p, m) for n, p, m in zip(param_names, params, mom)}
     by_a = dict(zip(aux_names, aux))
@@ -135,17 +129,42 @@ def trainer_state_from_numpy(names, state, device, order=None):
 
 def trainer_state_to_numpy(state):
     """The port's ``(params, mom, aux)`` -> the same tuples of host
-    arrays (copies).  A bf16 tensor, which numpy cannot hold, comes back
-    as a float32 array of the same values: bf16 -> f32 is exact, so
-    ``.astype`` of it to a bf16 dtype gives the tensor's bits again."""
-    import torch
+    arrays (copies; a bf16 tensor as float32 of the same values, see
+    :func:`tensor_to_host`)."""
+    return tuple(tuple(tensor_to_host(t) for t in part) for part in state)
 
-    def host(t):
-        t = t.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.to("cpu", copy=True).numpy()
-    return tuple(tuple(host(t) for t in part) for part in state)
+
+def tensor_from_host(host):
+    """A host array -> a CPU tensor of its dtype, a copy.  A bf16 array
+    (numpy's dtype named ``bfloat16``, e.g. ``ml_dtypes``', which the port
+    does not import) crosses bit for bit: its 16-bit words are viewed as
+    int16 and then as bf16."""
+    import torch
+    host = np.asarray(host)
+    if host.dtype.name == "bfloat16":
+        bits = np.array(host).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return torch.tensor(host)
+
+
+def tensor_to_host(t):
+    """A tensor -> a host array (a copy).  bf16, which numpy cannot hold
+    without ``ml_dtypes``, comes back as a float32 array of the same
+    values: bf16 -> f32 is exact, so rounding it back gives the same
+    bits."""
+    import torch
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.to("cpu", copy=True).numpy()
+
+
+def _table_tensor(name, value, device):
+    host = np.asarray(value)
+    if host.dtype.name not in ("float32", "bfloat16", "float16", "float64"):
+        raise MXNetError("%s: embedding tables are float32, bfloat16, "
+                         "float16 or float64, got %s" % (name, host.dtype))
+    return tensor_from_host(host).to(device)
 
 
 def _f32_tensor(name, value, device):
@@ -160,9 +179,11 @@ def _f32_tensor(name, value, device):
 def recommender_state_from_numpy(state, device):
     """A recommender state of host arrays (``{"tables", "moms", "mlp",
     "mlp_mom"}``, e.g. a JAX ``recommender_state`` through ``np.asarray``)
-    -> the same structure of float32 tensors on ``device``.  A momentum
-    slot that is None stays None; the MLP and its momentum must name the
-    same parameters with the same shapes."""
+    -> the same structure of tensors on ``device``: the tables in their
+    dtype (float32, bfloat16 by its bits, float16 or float64), the
+    momentum slots and the MLP float32.  A momentum slot that is None
+    stays None; the MLP and its momentum must name the same parameters
+    with the same shapes."""
     tables, moms = tuple(state["tables"]), tuple(state["moms"])
     if len(tables) != len(moms):
         raise MXNetError("recommender state has %d tables and %d momentum "
@@ -174,7 +195,7 @@ def recommender_state_from_numpy(state, device):
                          % ({k: np.shape(v) for k, v in mlp.items()},
                             {k: np.shape(v) for k, v in mlp_mom.items()}))
     return {
-        "tables": tuple(_f32_tensor("tables[%d]" % i, t, device)
+        "tables": tuple(_table_tensor("tables[%d]" % i, t, device)
                         for i, t in enumerate(tables)),
         "moms": tuple(None if m is None else
                       _f32_tensor("moms[%d]" % i, m, device)
@@ -188,9 +209,10 @@ def recommender_state_from_numpy(state, device):
 
 def recommender_state_to_numpy(state):
     """The port's recommender state -> the same structure of host
-    arrays (copies)."""
+    arrays (copies; a bf16 table as float32 of the same values, see
+    :func:`tensor_to_host`)."""
     def host(t):
-        return None if t is None else t.detach().to("cpu", copy=True).numpy()
+        return None if t is None else tensor_to_host(t)
     return {"tables": tuple(host(t) for t in state["tables"]),
             "moms": tuple(host(m) for m in state["moms"]),
             "mlp": {k: host(v) for k, v in state["mlp"].items()},

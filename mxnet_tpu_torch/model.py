@@ -1,7 +1,8 @@
-"""The kvstore helpers of the legacy model API (port of
-``mxnet_tpu/model.py:25-100``; reference python/mxnet/model.py
+"""The kvstore helpers and checkpoints of the legacy model API (port of
+``mxnet_tpu/model.py:25-129``; reference python/mxnet/model.py
 ``_create_kvstore`` :58, ``_update_params_on_kvstore`` :126,
-``_update_params`` :138).
+``_update_params`` :138, ``save_checkpoint`` :366, ``load_checkpoint``
+:396).
 
 Both update paths are ported: with a store that updates
 (``update_on_kvstore``), every gradient is pushed and the new weight
@@ -11,18 +12,20 @@ kvstore gets no store at all, as in the reference, so a ``KVStore``
 object is how a one-card run reaches the store (and its gradient
 compression).
 
-Checkpoints (``save_checkpoint`` / ``load_checkpoint``) wait for the
-``.params`` format (``ndarray/serialization.py``, ROADMAP A2) and raise
-``NotPortedYet``; ``FeedForward`` is not ported.
+A checkpoint is ``prefix-symbol.json`` and ``prefix-NNNN.params`` (the
+reference's binary NDArray container, ``arg:`` / ``aux:`` keys), the same
+files as the JAX package's: either package loads the other's.
+``load_checkpoint`` reads the parameters onto the CPU, as the host copies
+a Module keeps.  ``FeedForward`` is not ported.
 """
 from __future__ import annotations
 
+import logging
 from collections import namedtuple
 
 import numpy as np
 
 from . import kvstore as kvs
-from .base import NotPortedYet
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
 
@@ -120,12 +123,30 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    raise NotPortedYet("save_checkpoint: the .params format "
-                       "(ndarray/serialization.py) is not ported yet "
-                       "(ROADMAP A2)")
+    """``prefix-symbol.json`` (if ``symbol``) and ``prefix-%04d.params``
+    of ``arg:``/``aux:`` keys (reference model.py:366)."""
+    from .ndarray.ndarray import save as nd_save
+    if symbol is not None:
+        symbol.save("%s-symbol.json" % prefix)
+    save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+    save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+    param_name = "%s-%04d.params" % (prefix, epoch)
+    nd_save(param_name, save_dict)
+    logging.info("Saved checkpoint to \"%s\"", param_name)
 
 
 def load_checkpoint(prefix, epoch):
-    raise NotPortedYet("load_checkpoint: the .params format "
-                       "(ndarray/serialization.py) is not ported yet "
-                       "(ROADMAP A2)")
+    """``(symbol, arg_params, aux_params)`` of a checkpoint, the
+    parameters as NDArrays on the CPU (reference model.py:396)."""
+    from .ndarray.ndarray import load as nd_load
+    from .symbol import load as sym_load
+    symbol = sym_load("%s-symbol.json" % prefix)
+    save_dict = nd_load("%s-%04d.params" % (prefix, epoch), ctx="cpu")
+    arg_params, aux_params = {}, {}
+    for k, v in save_dict.items():
+        tp, name = k.split(":", 1)
+        if tp == "arg":
+            arg_params[name] = v
+        if tp == "aux":
+            aux_params[name] = v
+    return symbol, arg_params, aux_params

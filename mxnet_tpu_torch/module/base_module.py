@@ -31,6 +31,8 @@ __all__ = ["BaseModule", "BatchEndParam"]
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
+_PARAM_TAGS = ("arg", "aux")
+
 _WATCHDOG_TIMEOUTS = ("MXNET_TPU_WATCHDOG_STEP_TIMEOUT",
                       "MXNET_TPU_WATCHDOG_COLLECTIVE_TIMEOUT")
 
@@ -162,10 +164,25 @@ class BaseModule:
                          force_init=force_init, allow_extra=allow_extra)
 
     def save_params(self, fname):
-        raise NotPortedYet("save_params: the .params format is not ported "
-                           "yet (ROADMAP A2)")
+        """The parameters as a ``.params`` file of ``arg:``/``aux:`` keys
+        (reference base_module.py:170)."""
+        from ..ndarray.ndarray import save
+        args, auxs = self.get_params()
+        blob = {"arg:" + k: v for k, v in args.items()}
+        blob.update(("aux:" + k, v) for k, v in auxs.items())
+        save(fname, blob)
 
-    load_params = save_params
+    def load_params(self, fname):
+        """Set the parameters from a ``.params`` file (reference
+        base_module.py:177)."""
+        from ..ndarray.ndarray import load
+        buckets = {tag: {} for tag in _PARAM_TAGS}
+        for key, value in load(fname, ctx="cpu").items():
+            tag, _, name = key.partition(":")
+            if tag not in _PARAM_TAGS or not name:
+                raise ValueError("Invalid param file " + fname)
+            buckets[tag][name] = value
+        self.set_params(buckets["arg"], buckets["aux"])
 
     # -- evaluation -------------------------------------------------------
     def score(self, eval_data, eval_metric, num_batch=None,

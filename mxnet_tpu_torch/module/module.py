@@ -15,11 +15,15 @@ size) shares the bound parameter arrays with the new executor, as the
 reference's does, instead of re-copying the host parameters into fresh
 ones.
 
+Checkpoints are the JAX package's files (``save_checkpoint`` /
+``Module.load``; an optimizer-state file is a pickle of the updater's
+states as host arrays, so it resumes in the package that wrote it).
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
-more than one context (NCCL, ROADMAP A11), checkpoints (the ``.params``
-format, A2), monitors, ``MXNET_TPU_PREFLIGHT`` and
-``MXNET_TPU_ATTRIBUTION`` (A13), the ``grad_guard`` of ``init_optimizer``
-(A12), ``sparse_row_id_fn`` (A2); ``BucketingModule``,
+more than one context (NCCL, ROADMAP A11), monitors,
+``MXNET_TPU_PREFLIGHT`` and ``MXNET_TPU_ATTRIBUTION`` (A13), the
+``grad_guard`` of ``init_optimizer`` (A12), ``sparse_row_id_fn`` (A2);
+``BucketingModule``,
 ``SequentialModule`` and ``PythonModule`` are absent.
 """
 from __future__ import annotations
@@ -34,7 +38,8 @@ from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io.io import DataDesc
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
-                     _update_params_on_kvstore)
+                     _update_params_on_kvstore, load_checkpoint,
+                     save_checkpoint)
 from ..ndarray.ndarray import zeros as nd_zeros
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -100,6 +105,7 @@ class Module(BaseModule):
         self._optimizer = self._kvstore = self._updater = None
         self._update_on_kvstore = None
         self._exec_group = self._data_shapes = self._label_shapes = None
+        self._preload_opt_states = None
         self._params_dirty = False
 
     # -- introspection ----------------------------------------------------
@@ -145,8 +151,8 @@ class Module(BaseModule):
                     allow_extra=False):
         """Fill host copies of every parameter from the given dicts or the
         initializer, then copy them into the executor (reference
-        module.py:233).  The initializer draws from torch's default CPU
-        generator (seed it with ``torch.manual_seed``)."""
+        module.py:233).  The initializer draws on the host from the
+        ``mx.random.seed`` stream, as the JAX package's does."""
         if self.params_initialized and not force_init:
             warnings.warn("parameters already set; init_params is a no-op "
                           "without force_init", stacklevel=2)
@@ -313,6 +319,9 @@ class Module(BaseModule):
         else:
             self._updater = opt_mod.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     def _exec_group_param_arrays(self):
         """Per parameter, the list of its per-device arrays."""
@@ -396,15 +405,30 @@ class Module(BaseModule):
         self._exec_group.get_params(self._arg_params, self._aux_params)
         self._params_dirty = False
 
-    # -- what waits -------------------------------------------------------
-    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        raise NotPortedYet("Module.save_checkpoint: the .params format is "
-                           "not ported yet (ROADMAP A2)")
-
+    # -- checkpoints ------------------------------------------------------
     @classmethod
     def load(cls, prefix, epoch, load_optimizer_states=False, **kwargs):
-        raise NotPortedYet("Module.load: the .params format is not ported "
-                           "yet (ROADMAP A2)")
+        """A Module of ``prefix-symbol.json`` with the parameters of
+        ``epoch`` (reference module.py:164); the optimizer states
+        (``prefix-%04d.states``) are loaded when the optimizer is
+        initialized."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = cls(symbol=sym, **kwargs)
+        mod._arg_params, mod._aux_params = args, auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states`` (reference
+        module.py:126)."""
+        self._sync_params_from_devices()
+        save_checkpoint(prefix, epoch, self.symbol, self._arg_params,
+                        self._aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
 
     def save_optimizer_states(self, fname):
         """Pickle the optimizer states (the store's when it updates)."""

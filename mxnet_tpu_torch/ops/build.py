@@ -69,11 +69,11 @@ _SIGNATURES = {
         "mxt_flash_attention_bwd_dkv_f16": [_P] * 8 + [_I] * 6 + [_F, _P]},
     "embedding": {
         # host descriptors (7 int64 words per segment: table, ids, out,
-        # rows, D, n, vec) | count | stream
+        # rows, row bytes, n, vector bytes) | count | stream
         "mxt_embedding_gather_many": [_P, _I, _P],
         "mxt_embedding_segments_per_launch": [],
-        # table, ids, rows | nrows, D, n, add, vec | stream
-        "mxt_embedding_scatter": [_P] * 3 + [_I] * 5 + [_P]},
+        # table, ids, rows | nrows, D, n, add, dtype, vector bytes | stream
+        "mxt_embedding_scatter": [_P] * 3 + [_I] * 6 + [_P]},
     "two_bit": {
         # host descriptors (6 int64 words per segment: grad, residual, q,
         # new_residual, n, vec) | count | threshold | stream

@@ -68,7 +68,9 @@ LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "flash_attention_bwd_dkv_bf16": 0,
             "flash_attention_fwd_f16": 0, "flash_attention_bwd_dq_f16": 0,
             "flash_attention_bwd_dkv_f16": 0, "embedding_gather": 0,
-            "embedding_scatter": 0, "two_bit_compress": 0,
+            "embedding_scatter": 0, "embedding_scatter_bf16": 0,
+            "embedding_scatter_f16": 0, "embedding_scatter_f64": 0,
+            "two_bit_compress": 0,
             "two_bit_compress_f16": 0, "two_bit_compress_bf16": 0,
             "two_bit_compress_f64": 0, "rtc": 0}
 

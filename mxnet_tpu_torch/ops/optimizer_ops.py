@@ -1,9 +1,12 @@
-"""Optimizer update ops (port of ``sgd_update`` / ``sgd_mom_update``, the
-mixed-precision ``mp_sgd_update`` / ``mp_sgd_mom_update`` and the
-many-parameter ``multi_sgd_update``, ``multi_sgd_mom_update``,
-``multi_mp_sgd_update`` and ``multi_mp_sgd_mom_update`` from
-``mxnet_tpu/ops/optimizer_ops.py:39-76, 164-275``; reference
-src/operator/optimizer_op.cc).
+"""Optimizer update ops (port of ``mxnet_tpu/ops/optimizer_ops.py``
+whole; reference src/operator/optimizer_op.cc): ``sgd_update`` /
+``sgd_mom_update``, the mixed-precision ``mp_sgd_update`` /
+``mp_sgd_mom_update``, the many-parameter ``multi_sgd_update``,
+``multi_sgd_mom_update``, ``multi_mp_sgd_update`` and
+``multi_mp_sgd_mom_update``, and the other optimizers' ``adam_update``,
+``rmsprop_update``, ``rmspropalex_update``, ``ftrl_update``,
+``signsgd_update``, ``signum_update`` and ``ftml_update``.  The JAX
+package computes them in XLA, not Pallas, so they are plain PyTorch.
 
 Each op returns ``(new_weight, new_states...)`` and declares
 ``writeback``; :func:`~mxnet_tpu_torch.ndarray.ndarray.invoke_with_arrays`
@@ -37,6 +40,15 @@ _COMMON = dict(lr=attr_float(required=True), wd=attr_float(0.0),
 
 def _prep_grad(attrs, grad):
     g = grad * attrs.rescale_grad
+    if attrs.clip_gradient > 0:
+        g = torch.clamp(g, -attrs.clip_gradient, attrs.clip_gradient)
+    return g
+
+
+def _prep_grad_wd(attrs, grad, weight):
+    """``wd * weight`` added BEFORE the clip (the adam / rmsprop
+    families; reference optimizer_op-inl.h:773)."""
+    g = grad * attrs.rescale_grad + attrs.wd * weight
     if attrs.clip_gradient > 0:
         g = torch.clamp(g, -attrs.clip_gradient, attrs.clip_gradient)
     return g
@@ -195,3 +207,113 @@ def _multi_mp_sgd_mom_update(attrs, *args):
         ms.append(m2)
         w32s.append(new32)
     return tuple(ws + ms + w32s)
+
+
+# ---------------------------------------------------------------------------
+# the other optimizers' updates
+# ---------------------------------------------------------------------------
+
+@register("adam_update", inputs=("weight", "grad", "mean", "var"),
+          params=dict(_COMMON, beta1=attr_float(0.9), beta2=attr_float(0.999),
+                      epsilon=attr_float(1e-8), lazy_update=attr_bool(True)),
+          num_outputs=3, num_visible_outputs=1,
+          writeback={0: 0, 2: 1, 3: 2})
+def _adam_update(attrs, weight, grad, mean, var):
+    g = _prep_grad_wd(attrs, grad, weight)
+    new_mean = attrs.beta1 * mean + (1 - attrs.beta1) * g
+    new_var = attrs.beta2 * var + (1 - attrs.beta2) * g * g
+    new_w = weight - attrs.lr * new_mean / (torch.sqrt(new_var)
+                                            + attrs.epsilon)
+    return new_w, new_mean, new_var
+
+
+@register("rmsprop_update", inputs=("weight", "grad", "n"),
+          params=dict(_COMMON, gamma1=attr_float(0.95),
+                      epsilon=attr_float(1e-8),
+                      clip_weights=attr_float(-1.0)),
+          num_outputs=2, num_visible_outputs=1, writeback={0: 0, 2: 1})
+def _rmsprop_update(attrs, weight, grad, n):
+    g = _prep_grad_wd(attrs, grad, weight)
+    new_n = (1 - attrs.gamma1) * g * g + attrs.gamma1 * n
+    new_w = weight - attrs.lr * g / torch.sqrt(new_n + attrs.epsilon)
+    if attrs.clip_weights > 0:
+        new_w = torch.clamp(new_w, -attrs.clip_weights, attrs.clip_weights)
+    return new_w, new_n
+
+
+@register("rmspropalex_update", inputs=("weight", "grad", "n", "g", "delta"),
+          params=dict(_COMMON, gamma1=attr_float(0.95),
+                      gamma2=attr_float(0.9), epsilon=attr_float(1e-8),
+                      clip_weights=attr_float(-1.0)),
+          num_outputs=4, num_visible_outputs=1,
+          writeback={0: 0, 2: 1, 3: 2, 4: 3})
+def _rmspropalex_update(attrs, weight, grad, n, g_state, delta):
+    g = _prep_grad_wd(attrs, grad, weight)
+    new_n = (1 - attrs.gamma1) * g * g + attrs.gamma1 * n
+    new_g = (1 - attrs.gamma1) * g + attrs.gamma1 * g_state
+    new_delta = attrs.gamma2 * delta - attrs.lr * g / torch.sqrt(
+        new_n - new_g * new_g + attrs.epsilon)
+    new_w = weight + new_delta
+    if attrs.clip_weights > 0:
+        new_w = torch.clamp(new_w, -attrs.clip_weights, attrs.clip_weights)
+    return new_w, new_n, new_g, new_delta
+
+
+@register("ftrl_update", inputs=("weight", "grad", "z", "n"),
+          params=dict(_COMMON, lamda1=attr_float(0.01), beta=attr_float(1.0)),
+          num_outputs=3, num_visible_outputs=1,
+          writeback={0: 0, 2: 1, 3: 2})
+def _ftrl_update(attrs, weight, grad, z, n):
+    g = _prep_grad(attrs, grad)
+    new_n = n + g * g
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / attrs.lr
+    new_z = z + g - sigma * weight
+    new_w = torch.where(
+        torch.abs(new_z) <= attrs.lamda1,
+        torch.zeros((), dtype=new_z.dtype, device=new_z.device),
+        -(new_z - torch.sign(new_z) * attrs.lamda1) /
+        ((attrs.beta + torch.sqrt(new_n)) / attrs.lr + attrs.wd))
+    return new_w.to(weight.dtype), new_z, new_n
+
+
+@register("signsgd_update", inputs=("weight", "grad"), params=dict(_COMMON),
+          writeback={0: 0})
+def _signsgd_update(attrs, weight, grad):
+    g = _prep_grad(attrs, grad)
+    return weight - attrs.lr * (torch.sign(g) + attrs.wd * weight)
+
+
+@register("signum_update", inputs=("weight", "grad", "mom"),
+          params=dict(_COMMON, momentum=attr_float(0.0),
+                      wd_lh=attr_float(0.0)),
+          num_outputs=2, num_visible_outputs=1, writeback={0: 0, 2: 1})
+def _signum_update(attrs, weight, grad, mom):
+    g = _prep_grad(attrs, grad)
+    new_mom = attrs.momentum * mom - (1 - attrs.momentum) * (
+        g + attrs.wd * weight)
+    new_w = (1 - attrs.lr * attrs.wd_lh) * weight + \
+        attrs.lr * torch.sign(new_mom)
+    return new_w, new_mom
+
+
+@register("ftml_update", inputs=("weight", "grad", "d", "v", "z"),
+          params=dict(lr=attr_float(required=True), beta1=attr_float(0.6),
+                      beta2=attr_float(0.999), epsilon=attr_float(1e-8),
+                      t=attr_int(required=True), wd=attr_float(0.0),
+                      rescale_grad=attr_float(1.0),
+                      clip_grad=attr_float(-1.0)),
+          num_outputs=4, num_visible_outputs=1,
+          writeback={0: 0, 2: 1, 3: 2, 4: 3})
+def _ftml_update(attrs, weight, grad, d, v, z):
+    """FTML (reference optimizer_op-inl.h:633 FTMLKernel); ``clip_grad``
+    applies from 0 up, as the JAX package's."""
+    g = attrs.rescale_grad * grad + attrs.wd * weight
+    if attrs.clip_grad >= 0:
+        g = torch.clamp(g, -attrs.clip_grad, attrs.clip_grad)
+    b1, b2, t = attrs.beta1, attrs.beta2, float(attrs.t)
+    v_new = b2 * v + (1 - b2) * torch.square(g)
+    d_t = (1 - b1 ** t) / attrs.lr * (
+        torch.sqrt(v_new / (1 - b2 ** t)) + attrs.epsilon)
+    z_new = b1 * z + (1 - b1) * g - (d_t - b1 * d) * weight
+    w_new = -z_new / d_t
+    return w_new, d_t, v_new, z_new

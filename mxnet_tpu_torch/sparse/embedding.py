@@ -33,6 +33,12 @@ Tables and slots are updated IN PLACE (the reference's Pallas scatter
 aliases the table to its output); ``apply_sgd`` / ``apply_adam`` return
 the same tensors, keeping the JAX signatures.
 
+A table may be float32, bfloat16, float16 or float64 (``dtype=``), as in
+the JAX package: a lookup returns rows in the table's dtype; an update
+sums the routed gradient in float32, keeps its slots float32
+(``zeros_slot``'s default), computes the new rows in float32 from the
+table's rows and rounds them once to the table's dtype.
+
 The routing is written for any shard count ``S``; :func:`_a2a` is the one
 place that needs a collective, and raises
 :class:`~mxnet_tpu_torch.base.NotPortedYet` for ``S > 1`` until the NCCL
@@ -207,9 +213,10 @@ class ShardedEmbedding:
             raise ValueError("embedding axis %r not in mesh axes %r"
                              % (axis, tuple(self.mesh.axis_names)))
         self.dtype = dtype_torch(dtype)
-        if self.dtype != torch.float32:
-            raise NotPortedYet("ShardedEmbedding dtype %s: the port's "
-                               "embedding kernels are float32" % self.dtype)
+        if self.dtype not in _kernels._DTYPES:
+            raise MXNetError("ShardedEmbedding dtype %s: the embedding "
+                             "kernels take float32, bfloat16, float16 and "
+                             "float64 tables" % self.dtype)
         if backend not in _kernels.BACKENDS:
             raise ValueError("unknown embedding backend %r" % (backend,))
         self.axis = axis
@@ -377,7 +384,9 @@ class ShardedEmbedding:
 
     def _scatter_set(self, buf, u2, ok2, new_rows, cur_rows):
         # pads write their CURRENT value (a no-op) for the kernel, which
-        # clamps instead of dropping; u2 sorted => the kernel's contract
+        # clamps instead of dropping; u2 sorted => the kernel's contract.
+        # The new rows (float32) round once to the buffer's dtype, in the
+        # scatter; the current rows are exact in it.
         vals = torch.where(ok2[:, None], new_rows, cur_rows)
         return _kernels.embedding_scatter(buf, u2, vals, mode="set",
                                           backend=self.backend)
@@ -402,6 +411,7 @@ class ShardedEmbedding:
         """The half of a lazy SGD after its row reads: new rows, then the
         set scatters into ``table`` (and ``mom``)."""
         u2, g2, ok2, _idx = plan
+        w_rows = w_rows.float()           # the table's rows, in float32
         g = self._prep_grad("sgd", g2, w_rows, rescale, wd, clip)
         if mom is None:
             self._scatter_set(table, u2, ok2, w_rows - lr * g, w_rows)
@@ -446,6 +456,7 @@ class ShardedEmbedding:
             u2, g2, ok2, idx = plan
             w_rows, mean_rows, var_rows = gather_rows(
                 [self] * 3, [table, mean, var], [idx] * 3)
+            w_rows = w_rows.float()
             g = self._prep_grad("adam", g2, w_rows, float(rescale_grad),
                                 float(wd), clip_gradient)
             m_rows = beta1 * mean_rows + (1 - beta1) * g
@@ -466,34 +477,53 @@ class ShardedEmbedding:
     # -- checkpoint / elastic resharding ---------------------------------
     def state_dict(self, table, **slots) -> Dict[str, np.ndarray]:
         """Host snapshot with shard padding STRIPPED — the world-size-
-        independent form a resharding restore re-pads from."""
-        def host(t):      # a copy: the live tensors change in place
-            return t[:self.num_rows].detach().to("cpu", copy=True).numpy()
+        independent form a resharding restore re-pads from.  Each array
+        is a copy (the live tensors change in place); a bf16 table comes
+        back as float32 of the same values (numpy holds no bf16 without
+        ``ml_dtypes``), which :meth:`load_array` with ``dtype=`` the
+        table's rounds back to the same bits."""
+        from ..convert import tensor_to_host
+
+        def host(t):
+            return tensor_to_host(t[:self.num_rows])
         out = {"table": host(table)}
         for k, v in slots.items():
             if v is not None:
                 out[k] = host(v)
         return out
 
-    def load_array(self, host_array):
+    def load_array(self, host_array, dtype=None):
         """Re-pad a (num_rows, dim) host array for THIS mesh's shard count
         and place it on the mesh's device — the resharding restore
-        primitive."""
+        primitive.  The array keeps its dtype (float32, float16, float64,
+        or bfloat16 by name, e.g. the JAX package's ``ml_dtypes`` arrays,
+        bit for bit), as the JAX package's does; ``dtype`` converts it,
+        and raises unless the values are exact in it (a bf16 table's
+        float32 snapshot from :meth:`state_dict`)."""
+        from ..convert import tensor_from_host
         host = np.asarray(host_array)
         if host.shape[0] != self.num_rows:
             raise ValueError("embedding %r: snapshot has %d rows, table "
                              "has %d" % (self.name, host.shape[0],
                                          self.num_rows))
-        if host.dtype != np.float32:
-            raise MXNetError("embedding %r: snapshot is %s, the table is "
-                             "float32" % (self.name, host.dtype))
-        pad = self.padded_rows - self.num_rows
-        if pad:
-            host = np.concatenate(
-                [host, np.zeros((pad,) + host.shape[1:], host.dtype)])
         # a copy: the table is updated in place, and a host array may be
         # another framework's read-only buffer
-        arr = torch.tensor(host, device=self.device)
+        arr = tensor_from_host(host)
+        if arr.dtype not in _kernels._DTYPES:
+            raise MXNetError("embedding %r: snapshot is %s; tables and "
+                             "slots are float32, bfloat16, float16 or "
+                             "float64" % (self.name, host.dtype))
+        if dtype is not None and dtype_torch(dtype) != arr.dtype:
+            cast = arr.to(dtype_torch(dtype))
+            if not torch.equal(cast.to(arr.dtype), arr):
+                raise MXNetError("embedding %r: the %s snapshot is not "
+                                 "exact in %s" % (self.name, arr.dtype,
+                                                  cast.dtype))
+            arr = cast
+        pad = self.padded_rows - self.num_rows
+        if pad:
+            arr = torch.cat([arr, arr.new_zeros((pad,) + arr.shape[1:])])
+        arr = arr.to(self.device)
         from ..telemetry import memory as _memory
         _memory.tag(arr, "embedding", label=self.name + ".restored")
         return arr

@@ -18,9 +18,15 @@ Each kernel has three parts here, as in :mod:`mxnet_tpu_torch.ops.kernels`:
   :func:`embedding_gather_many_plain`, :func:`embedding_scatter_plain`)
   with the semantics of the JAX package's XLA path, the tests' oracle and
   the CPU path;
-* a **launch count** in :data:`mxnet_tpu_torch.ops.kernels.LAUNCHES`
-  (``embedding_gather``, ``embedding_scatter``), one for each launch the
-  wrapper makes and nowhere else.
+* a **launch count** in :data:`mxnet_tpu_torch.ops.kernels.LAUNCHES`,
+  one for each launch the wrapper makes and nowhere else:
+  ``embedding_gather`` (one kernel for every dtype: it moves bytes) and
+  ``embedding_scatter`` for a float32 table, ``embedding_scatter_bf16``
+  / ``_f16`` / ``_f64`` for the others.
+
+Tables are float32, bfloat16, float16 or float64, as the JAX package's
+kernels run at ``table.dtype``; the rows of a scatter are rounded to the
+table's dtype first (``rows.astype(table.dtype)`` in the JAX package).
 
 Contracts (both versions, as in the JAX package):
 
@@ -33,7 +39,10 @@ Contracts (both versions, as in the JAX package):
   ``mode="drop"``) and clamped onto the last row by the kernel (the Pallas
   path), so they must carry a no-op payload: zero rows in add mode, the
   current row in set mode.  The routing layer
-  (:mod:`mxnet_tpu_torch.sparse.embedding`) guarantees both.
+  (:mod:`mxnet_tpu_torch.sparse.embedding`) guarantees both.  Each add
+  rounds to the table's dtype, so with inexact payloads the order shows:
+  the plain add folds each run in order (not ``index_add_``, which on the
+  card adds with atomics in no fixed order).
 """
 from __future__ import annotations
 
@@ -42,8 +51,7 @@ import torch
 
 from ..base import MXNetError, NotPortedYet
 from ..ops import build
-from ..ops.kernels import (LAUNCHES, _aligned_offsets, _check_cuda, _launch,
-                           _require)
+from ..ops.kernels import LAUNCHES, _check_cuda, _launch, _require
 
 __all__ = ["embedding_gather", "embedding_gather_plain",
            "embedding_gather_many", "embedding_gather_many_plain",
@@ -105,12 +113,28 @@ def _ids32(name, ids):
     return ids.to(torch.int32).contiguous()
 
 
+# the table dtypes the kernels take: the scatter's dtype code (the C
+# entry's) and the suffix of its launch count
+_DTYPES = {torch.float32: (0, ""), torch.float16: (1, "_f16"),
+           torch.bfloat16: (2, "_bf16"), torch.float64: (3, "_f64")}
+
+
 def _check_table(name, table):
     _require(table.dim() == 2 and table.shape[0] > 0,
              "%s: table must be (rows >= 1, D), got %s", name,
              tuple(table.shape))
-    _require(table.dtype == torch.float32, "%s: %s table where float32 is "
-             "required", name, table.dtype)
+    _require(table.dtype in _DTYPES, "%s: %s table; the kernels take "
+             "float32, bfloat16, float16 and float64", name, table.dtype)
+
+
+def _vector_bytes(row_bytes, *ptrs):
+    """The largest vector (16, 8, 4 or 2 bytes) that divides a row's
+    bytes and every pointer: what one thread of a copy moves."""
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
+            return v
+    raise MXNetError("embedding kernels: a row of %d bytes at addresses "
+                     "%s fits no vector" % (row_bytes, ptrs))
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +163,13 @@ def embedding_segments_per_launch():
 def embedding_gather_many(tables, ids_list, backend=None):
     """``[tables[i][ids_list[i]] for i ...]`` in one grouped call: (rows_i,
     D_i) x (n_i,) -> (n_i, D_i) for every segment i, each checked as
-    :func:`embedding_gather` checks it.  CUDA tables (all on one device)
-    launch ``mxt_embedding_gather_many`` over every non-empty segment: one
+    :func:`embedding_gather` checks it and returned in its table's dtype
+    (segments of different dtypes share a launch: the kernel moves
+    bytes).  CUDA tables (all on one device) launch
+    ``mxt_embedding_gather_many`` over every non-empty segment: one
     launch per :func:`embedding_segments_per_launch` segments, each
     counted in ``LAUNCHES["embedding_gather"]``; the outputs are views of
-    ONE new flat tensor, each 16-byte aligned.  CPU tables run
+    ONE new byte buffer, each 16-byte aligned.  CPU tables run
     :func:`embedding_gather_many_plain`; anything else raises."""
     tables, ids_list = list(tables), list(ids_list)
     _require(len(tables) == len(ids_list), "embedding_gather: %d tables "
@@ -160,19 +186,24 @@ def embedding_gather_many(tables, ids_list, backend=None):
     for t in tables:
         _check_table("embedding_gather", t)
     _check_cuda("embedding_gather", *tables, *ids_list)
-    sizes = [i.shape[0] * t.shape[1] for t, i in zip(tables, ids_list)]
-    offs, total = _aligned_offsets(sizes)
-    flat = torch.empty(total, dtype=torch.float32, device=dev)
-    outs = [flat[o:o + m].view(i.shape[0], t.shape[1])
-            for o, m, t, i in zip(offs, sizes, tables, ids_list)]
+    sizes = [i.shape[0] * t.shape[1] * t.element_size()
+             for t, i in zip(tables, ids_list)]
+    offs, total = [], 0
+    for nb in sizes:                      # each segment 16-byte aligned
+        offs.append(total)
+        total += -(-nb // 16) * 16
+    flat = torch.empty(total, dtype=torch.uint8, device=dev)
+    outs = [flat[o:o + nb].view(t.dtype).view(i.shape[0], t.shape[1])
+            for o, nb, t, i in zip(offs, sizes, tables, ids_list)]
     desc = []
     for t, i, out in zip(tables, ids_list, outs):
         n = i.shape[0]
         if n:
             rows, D = t.shape
+            row_bytes = D * t.element_size()
             tp, op = t.data_ptr(), out.data_ptr()
-            desc += [tp, i.data_ptr(), op, rows, D, n,
-                     int(D % 4 == 0 and tp % 16 == 0 and op % 16 == 0)]
+            desc += [tp, i.data_ptr(), op, rows, row_bytes, n,
+                     _vector_bytes(row_bytes, tp, op)]
     count = len(desc) // 7
     if count:
         lib = build.library("embedding")
@@ -203,31 +234,54 @@ def _check_mode(mode):
                          % (mode,))
 
 
+def _fold_add(table, ids, src):
+    """``table[ids[i]] += src[i]`` for sorted in-range ``ids``, each run
+    of equal ids folded in order in the table's dtype, ``((t + r0) + r1)
+    + ...`` with a rounding after every add (the kernel's order, and the
+    Pallas kernel's): one step per position within a run, every run at
+    once (a run's rows are distinct from the other runs')."""
+    n = ids.shape[0]
+    if n == 0:
+        return table
+    start = torch.ones(n, dtype=torch.bool, device=ids.device)
+    start[1:] = ids[1:] != ids[:-1]
+    idx = torch.arange(n, device=ids.device)
+    pos = idx - torch.cummax(torch.where(start, idx, 0), 0).values
+    for p in range(int(pos.max()) + 1):
+        sel = pos == p
+        r = ids[sel]
+        table.index_copy_(0, r, table.index_select(0, r) + src[sel])
+    return table
+
+
 def embedding_scatter_plain(table, ids, rows, mode: str = "add"):
-    """``.at[ids].add/.set(rows, mode="drop")`` in place: entries with ids
-    outside ``[0, rows)`` are dropped; ``add`` sums each id's entries into
-    its row in order; ``set`` writes the first entry of each run of equal
-    (sorted) ids, the kernel's first-wins rule (XLA leaves the winner
-    among duplicates unspecified)."""
+    """``.at[ids].add/.set(rows, mode="drop")`` in place, ``rows`` rounded
+    to the table's dtype first: entries with ids outside ``[0, rows)``
+    are dropped; ``add`` folds each run of equal (sorted) ids into its
+    row in order, rounding to the table's dtype after every add
+    (:func:`_fold_add`); ``set`` writes the first entry of each run, the
+    kernel's first-wins rule (XLA leaves the winner among duplicates
+    unspecified)."""
     _check_mode(mode)
     ids = ids.long()
     nrows = table.shape[0]
     keep = (ids >= 0) & (ids < nrows)
+    src = rows.to(table.dtype)
     if mode == "add":
-        src = rows.to(table.dtype)
-        table.index_add_(0, ids[keep], src[keep])
-        return table
+        return _fold_add(table, ids[keep], src[keep])
     first = torch.ones_like(keep)
     first[1:] = ids[1:] != ids[:-1]
     keep &= first
-    table[ids[keep]] = rows[keep].to(table.dtype)
+    table[ids[keep]] = src[keep]
     return table
 
 
 def embedding_scatter(table, ids, rows, mode: str = "add", backend=None):
     """Scatter ``rows`` (n, D) into ``table`` (rows, D) at ``ids`` (n,),
-    sorted ascending, IN PLACE; returns ``table``.  CUDA tables launch
-    ``mxt_embedding_scatter``; CPU tables run
+    sorted ascending, IN PLACE; returns ``table``.  ``rows`` of any float
+    dtype are rounded to the table's first.  CUDA tables launch
+    ``mxt_embedding_scatter`` (counted in ``embedding_scatter`` plus the
+    dtype's suffix: ``_bf16``, ``_f16``, ``_f64``); CPU tables run
     :func:`embedding_scatter_plain`; anything else raises."""
     _check_mode(mode)
     if _path("embedding_scatter", table, backend) == "plain":
@@ -238,18 +292,26 @@ def embedding_scatter(table, ids, rows, mode: str = "add", backend=None):
     n = ids.shape[0]
     _require(tuple(rows.shape) == (n, D), "embedding_scatter: rows %s for "
              "%d ids into a table of width %d", tuple(rows.shape), n, D)
-    _require(rows.dtype == torch.float32, "embedding_scatter: %s rows "
-             "where float32 is required", rows.dtype)
+    _require(rows.is_floating_point(), "embedding_scatter: %s rows",
+             rows.dtype)
+    if rows.dtype != table.dtype:
+        rows = rows.to(table.dtype)
     _check_cuda("embedding_scatter", table, ids, rows)
     if n == 0:
         return table
-    vec = int(D % 4 == 0 and table.data_ptr() % 16 == 0
-              and rows.data_ptr() % 16 == 0)
+    code, suffix = _DTYPES[table.dtype]
+    size = table.element_size()
+    tp, rp = table.data_ptr(), rows.data_ptr()
+    if mode == "add":      # the add's vectors: 16 bytes or one element
+        vb = 16 if (D * size) % 16 == 0 and tp % 16 == 0 \
+            and rp % 16 == 0 else size
+    else:
+        vb = _vector_bytes(D * size, tp, rp)
+    name = "embedding_scatter" + suffix
     fn = build.library("embedding").mxt_embedding_scatter
-    _launch("embedding_scatter", table.device, fn, table.data_ptr(),
-            ids.data_ptr(), rows.data_ptr(), nrows, D, n,
-            int(mode == "add"), vec)
-    LAUNCHES["embedding_scatter"] += 1
+    _launch(name, table.device, fn, tp, ids.data_ptr(), rp, nrows, D, n,
+            int(mode == "add"), code, vb)
+    LAUNCHES[name] += 1
     return table
 
 

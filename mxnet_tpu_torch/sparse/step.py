@@ -14,8 +14,13 @@ predictor:
   rows (kernels B5 and B6);
 * the rows of every table are read in two grouped gathers per step (B5,
   one launch each): one for every table's lookup, one for every table's
-  weight and momentum rows in the update.  The scatters (B6) stay one
-  launch per table and buffer.
+  weight and momentum rows in the update (a bf16 table's rows beside its
+  float32 momentum rows in the same launch).  The scatters (B6) stay one
+  launch per table and buffer;
+* tables may be bfloat16 (float16, float64): the lookup's rows keep the
+  table's dtype up to the concatenation with the dense input, which
+  promotes them to float32, and each row's gradient comes back in its
+  table's dtype.
 
 Where the JAX package compiles the step into one XLA program, PyTorch runs
 it eagerly, and the update is applied IN PLACE on the state dict (the
@@ -63,9 +68,14 @@ def init_mlp(dims: Sequence[int], seed: int = 0,
 
 
 def _mlp_apply(params: Dict[str, torch.Tensor], x):
+    """The MLP on ``x``; each product in the promoted dtype of its two
+    operands, as ``jnp`` promotes (float64 tables' rows meet float32
+    weights)."""
     n = len(params) // 2
     for i in range(n):
-        x = x @ params["w%d" % i] + params["b%d" % i]
+        w = params["w%d" % i]
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x = x.to(dt) @ w.to(dt) + params["b%d" % i]
         if i < n - 1:
             x = torch.relu(x)
     return x
@@ -86,6 +96,9 @@ def recommender_state(embs: Sequence[ShardedEmbedding], dense_dim: int,
 
 
 def _loss_fn(mlp, emb_rows, dense, label):
+    # rows of bf16 (f16, f64) tables meet the f32 dense input: ``cat``
+    # promotes, as ``jnp.concatenate`` does, and autograd returns each
+    # row's gradient in its table's dtype, rounded, as JAX's cotangent
     x = torch.cat(list(emb_rows) + [dense], dim=-1)
     logit = _mlp_apply(mlp, x)[:, 0]
     # numerically-stable sigmoid BCE

@@ -975,8 +975,8 @@ def test_embedding_kernels_refuse_what_they_do_not_take(dev):
         with pytest.raises(MXNetError):
             sparse_kernels.embedding_scatter(table, ids, rows, "set",
                                              backend=backend)
-    with pytest.raises(MXNetError):
-        sparse_kernels.embedding_gather(table.double(), ids)
+    with pytest.raises(MXNetError):      # f16, bf16 and f64 are taken
+        sparse_kernels.embedding_gather(table.int(), ids)
     with pytest.raises(MXNetError):
         sparse_kernels.embedding_gather(table, ids.cpu())
     with pytest.raises(MXNetError):
@@ -986,6 +986,177 @@ def test_embedding_kernels_refuse_what_they_do_not_take(dev):
                                          rows, "add")
     with pytest.raises(MXNetError):
         sparse_kernels.embedding_gather(table, ids.float())
+
+
+# B11: the embedding kernels at the table's dtype
+B11_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
+              "f64": torch.float64}
+B11_CASES = [(1000, 16, 512), (2000, 64, 300), (77, 13, 40), (50, 1, 33),
+             (20, 16, 1), (300, 7, 1200)]
+B11_IDS = ["d16", "d64", "d13", "d1", "n1", "d7-runs"]
+
+
+def _b11_inputs(dev, dtype, rows, D, n, seed, pads=3):
+    """An inexact table in ``dtype``; sorted ids with runs of duplicates
+    (long ones where n > rows), 0 and rows-1 among them, then ``pads``
+    ids >= rows; inexact float32 payloads (rounded to the table's dtype
+    by the wrapper), so the order of the adds shows."""
+    rs = np.random.RandomState(seed)
+    table = torch.from_numpy(rs.randn(rows, D) * 10).to(dtype)
+    ids = rs.randint(0, rows, n)
+    ids[0] = 0
+    ids[-1] = rows - 1
+    if n > 4:
+        ids[1:4] = ids[2]
+    ids = np.concatenate([np.sort(ids), rows + np.arange(pads)])
+    src = torch.from_numpy(rs.randn(len(ids), D).astype(np.float32))
+    return (table.to(dev), torch.from_numpy(ids.astype(np.int32)).to(dev),
+            src.to(dev))
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("rows,D,n", B11_CASES, ids=B11_IDS)
+@pytest.mark.parametrize("kind", list(B11_DTYPES))
+def test_embedding_kernels_b11_match_plain(dev, kind, rows, D, n, aligned):
+    """The gather, set and add at bf16, f16 and f64, exactly equal to the
+    plain versions (the add folds each run in order, rounding to the
+    table's dtype after every add), two launches bit-equal, each counted
+    under its dtype; pads carry the no-op payloads."""
+    dtype = B11_DTYPES[kind]
+    table, ids, src = _b11_inputs(dev, dtype, rows, D, n, rows + D + n)
+    if not aligned:
+        table, src = _misaligned(table), _misaligned(src)
+    ga = ids.clamp(max=rows - 1)
+    before = dict(kernels.LAUNCHES)
+    out = sparse_kernels.embedding_gather(table, ga)
+    again = sparse_kernels.embedding_gather(table, ga)
+    add_src = src.clone()
+    add_src[n:] = 0.0
+    set_src = src.to(dtype)
+    set_src[n:] = table[rows - 1]
+    got = {m: sparse_kernels.embedding_scatter(table.clone(), ids, s, m)
+           for m, s in (("add", add_src), ("set", set_src))}
+    rerun = {m: sparse_kernels.embedding_scatter(table.clone(), ids, s, m)
+             for m, s in (("add", add_src), ("set", set_src))}
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert torch.equal(out, sparse_kernels.embedding_gather_plain(table,
+                                                                  ga))
+    for m, s in (("add", add_src), ("set", set_src)):
+        want = sparse_kernels.embedding_scatter_plain(table.clone(), ids, s,
+                                                      m)
+        assert got[m].dtype == dtype
+        assert torch.equal(got[m], want), m
+        assert torch.equal(got[m], rerun[m]), m
+    assert kernels.LAUNCHES["embedding_gather"] == \
+        before["embedding_gather"] + 2
+    assert kernels.LAUNCHES["embedding_scatter_" + kind] == \
+        before["embedding_scatter_" + kind] + 4
+    assert kernels.LAUNCHES["embedding_scatter"] == \
+        before["embedding_scatter"]
+
+
+@pytest.mark.parametrize("geo", ["bench", "criteo"])
+def test_embedding_gather_many_bf16_tables_with_f32_momentum(dev, geo):
+    """The bf16 recommender's update gather: each table's bf16 rows and
+    its float32 momentum rows in one launch, bit-equal to the plain
+    version, each output in its buffer's dtype and 16-byte aligned."""
+    rows, D, n, F = {"bench": (100000, 16, 4096, 4),
+                     "criteo": (1000000, 64, 8192, 26)}[geo]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tabs = [torch.randn(rows, D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2)]
+    moms = [torch.randn(rows, D, generator=gen, device=dev)
+            for _ in range(2)]
+    rs = np.random.RandomState(3)
+    bufs, ids = [], []
+    for f in range(F):
+        u = np.unique(rs.randint(0, rows, n))
+        i = torch.from_numpy(np.concatenate(
+            [u, np.full(n - len(u), rows - 1)]).astype(np.int32)).to(dev)
+        bufs += [tabs[f % 2], moms[f % 2]]
+        ids += [i, i]
+    before = kernels.LAUNCHES["embedding_gather"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = sparse_kernels.embedding_gather_many(bufs, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["embedding_gather"] == before + 1
+    for out, b, want in zip(outs, bufs,
+                            sparse_kernels.embedding_gather_many_plain(
+                                bufs, ids)):
+        assert out.dtype == b.dtype and out.data_ptr() % 16 == 0
+        assert torch.equal(out, want)
+
+
+def test_bf16_recommender_steps_on_card_match_cpu(dev):
+    """Two steps of the recommender over bf16 tables on the card (two
+    grouped gathers per step, each table's bf16 and momentum rows in the
+    update's; a bf16 and a float32 scatter per table) against the same
+    steps on the CPU: tables within one bf16 step of the CPU's per
+    element plus 1e-3 of their largest update, momentum and MLP within
+    1e-3 of their largest update, losses within 1e-5."""
+    F, V, D, B = 3, 300, 16, 128
+    state0, steps = None, {}
+    rs = np.random.RandomState(2)
+    batches = [{"ids": torch.from_numpy(rs.randint(0, V, (F, B))
+                                        .astype(np.int32)),
+                "dense": torch.from_numpy(rs.rand(B, 13).astype(np.float32)),
+                "label": torch.from_numpy((rs.rand(B) > 0.5)
+                                          .astype(np.float32))}
+               for _ in range(2)]
+    for d in ("cpu", dev):
+        spec = MeshSpec(make_mesh((1,), ("dp",), device=d))
+        embs = [ShardedEmbedding(V, D, spec, name="b%d" % f,
+                                 dtype="bfloat16") for f in range(F)]
+        if state0 is None:
+            state0 = recommender_state(embs, dense_dim=13, seed=1)
+        state = {k: (tuple(t.to(d, copy=True) for t in v)
+                     if isinstance(v, tuple) else
+                     {n: t.to(d, copy=True) for n, t in v.items()})
+                 for k, v in state0.items()}
+        step = make_recommender_step(embs, lr=0.05, momentum=0.9)
+        losses = []
+        for b in batches:
+            b = {k: v.to(d) for k, v in b.items()}
+            before = dict(kernels.LAUNCHES)
+            if d != "cpu":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, loss = step(state, b)
+            finally:
+                if d != "cpu":
+                    torch.cuda.set_sync_debug_mode(0)
+            losses.append(float(loss))
+            if d != "cpu":
+                assert kernels.LAUNCHES["embedding_gather"] == \
+                    before["embedding_gather"] + 2
+                assert kernels.LAUNCHES["embedding_scatter_bf16"] == \
+                    before["embedding_scatter_bf16"] + F
+                assert kernels.LAUNCHES["embedding_scatter"] == \
+                    before["embedding_scatter"] + F
+        steps[str(d)] = (convert.recommender_state_to_numpy(state), losses)
+    start = convert.recommender_state_to_numpy(state0)
+    (cpu, l_cpu), (card, l_card) = steps["cpu"], steps[str(dev)]
+    for a, b in zip(l_cpu, l_card):
+        assert abs(a - b) <= 1e-5
+    for i, (a, b) in enumerate(zip(cpu["tables"], card["tables"])):
+        upd = np.abs(a - start["tables"][i]).max()
+        step_bf16 = np.abs(a) * 2.0 ** -7
+        assert (np.abs(a - b) <= step_bf16 + 1e-3 * upd).all(), i
+    for part in ("moms",):
+        for i, (a, b) in enumerate(zip(cpu[part], card[part])):
+            upd = np.abs(a - start[part][i]).max()
+            assert np.abs(a - b).max() <= 1e-3 * upd, (part, i)
+    for part in ("mlp", "mlp_mom"):
+        for k in cpu[part]:
+            upd = np.abs(cpu[part][k] - start[part][k]).max()
+            assert np.abs(cpu[part][k] - card[part][k]).max() <= 1e-3 * upd
 
 
 def test_recommender_steps_on_card_match_cpu(dev):

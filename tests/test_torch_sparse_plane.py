@@ -25,7 +25,7 @@ from mxnet_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from mxnet_tpu import sparse as jsp
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch import sparse as tsp
-from mxnet_tpu_torch.base import NotPortedYet
+from mxnet_tpu_torch.base import MXNetError, NotPortedYet
 from mxnet_tpu_torch.ops.kernels import LAUNCHES
 from mxnet_tpu_torch.parallel import MeshSpec, make_mesh
 from mxnet_tpu_torch.parallel import audit
@@ -367,8 +367,8 @@ def test_unported_paths_raise(specs, monkeypatch):
         tembedding._a2a(torch.zeros(2, 3), "dp", 2)
     with pytest.raises(NotPortedYet):
         tsp.tune_embedding(100, 8, 32)
-    with pytest.raises(NotPortedYet):
-        tsp.ShardedEmbedding(10, 4, tspec, dtype="bfloat16")
+    with pytest.raises(MXNetError):       # bf16/f16/f64 tables: ported
+        tsp.ShardedEmbedding(10, 4, tspec, dtype="int32")
     embs = [tsp.ShardedEmbedding(10, 4, tspec, name="np")]
     state = tsp.recommender_state(embs, dense_dim=2, hidden=(4,), seed=0)
     step = tsp.make_recommender_step(embs)

@@ -16,8 +16,10 @@ tiles of 16 and 64 tokens (8 and 2 lanes per token's score; 64 also with
 256 threads).  ``--decode-old`` takes a source with the interface before
 the split (``git show 36ffb45:mxnet_tpu_torch/csrc/decode_attention.cu``),
 called directly.  ``--embedding`` takes copies of ``csrc/embedding.cu``
-(one C interface across versions), run through the port's wrapper; the
-tool derives "256-threads" from the first (the old block size: half the
+with the checkout's C interface (sources before the table dtypes were
+added take D and a float4 flag where the wrapper now passes row bytes,
+a vector size and a dtype), run through the port's wrapper; the tool
+derives "256-threads" from the first (the old block size: half the
 blocks).  Each source is built with the port's ``nvcc`` flags
 (``-Xptxas -v``: registers, shared memory, spills).
 

@@ -11,11 +11,12 @@ The old sources are complete copies of ``csrc/two_bit.cu`` and
 ``csrc/embedding.cu`` with the single-segment C interface
 (``mxt_two_bit_compress``, ``mxt_embedding_gather``), e.g. ``git show
 b764777:mxnet_tpu_torch/csrc/two_bit.cu``, called directly.  The new
-sources are the checkout's; the tool derives variants of them under
-``build/variants/``: B7 with 2 and 4 float4 per thread (1 in the design)
-and with streaming loads of g (``__ldcs``), B5 with 2 and 4 work units
-per thread (1 in the design).  Each source is built with the port's
-``nvcc`` flags (``-Xptxas -v``: registers, spills).
+sources are the checkout's; the tool derives variants of B7 under
+``build/variants/``: 2 and 4 float4 per thread (1 in the design) and
+streaming loads of g (``__ldcs``).  (B5's gather moves one vector per
+thread; 2 and 4 per thread measured slower and the knob is gone.)  Each
+source is built with the port's ``nvcc`` flags (``-Xptxas -v``:
+registers, spills).
 
 Printed, each time the median of 25 calls with a cold L2 (as
 ``chip_smoke.py`` times): at every B7 shape of the LM's push and every B5
@@ -50,11 +51,6 @@ TWO_BIT_DERIVED = [
     ("vec4", [("constexpr int kVecItems = 1;",
                "constexpr int kVecItems = 4;")]),
     ("ldcs", [("        a[k] = g4[i];", "        a[k] = __ldcs(g4 + i);")])]
-GATHER_DERIVED = [
-    ("items2", [("constexpr int kGatherItems = 1;",
-                 "constexpr int kGatherItems = 2;")]),
-    ("items4", [("constexpr int kGatherItems = 1;",
-                 "constexpr int kGatherItems = 4;")])]
 _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_longlong)
 
@@ -145,8 +141,8 @@ def two_bit_part(torch, build, kernels, timer, old_src):
 
 def gather_part(torch, build, sk, timer, old_src):
     src = os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "embedding.cu")
-    libs = build_all(build, "embedding", [src] + derive(
-        src, GATHER_DERIVED, "embedding") + ([old_src] if old_src else []))
+    libs = build_all(build, "embedding",
+                     [src] + ([old_src] if old_src else []))
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     old = None
     if old_src:
