@@ -25,7 +25,8 @@ with multi-precision SGD and a 2-bit ``KVStore("device")``, and the LM
 through ``ShardedTrainer(param_dtype="float16")`` with a dynamic loss
 scale on the flash kernels in f16 — and the recommender on bf16 tables,
 the optimizers of ``mxnet_tpu_torch.optimizer`` through ``Module.fit``
-(the full-width LM with Adam) and a checkpoint resumed — and holds every
+(the full-width LM with Adam) and a checkpoint resumed — and the LM over
+length buckets through ``BucketingModule.fit``, with remat — and holds every
 hand-written kernel of those paths against its plain PyTorch version on
 the card.
 Phases, in order:
@@ -223,7 +224,26 @@ Phases, in order:
     on the card: ``module_checkpoint(..., save_optimizer_states=True)``,
     ``Module.load(prefix, 1, load_optimizer_states=True)`` and
     ``fit(begin_epoch=1)`` equal to the uninterrupted ``fit`` bit for bit,
-    with SGD and with Adam.
+    with SGD and with Adam;
+30. ``BucketingModule`` and remat: the three f32 flash kernels against
+    their plain versions at T 256 and 512 (B8 H12 D64 causal, phase 6's
+    tolerances), timed with bounds and SDPA; (a) the parity LM over
+    buckets 16 / 32 / 64 (``flash_min_seq`` 16, batch 4,
+    ``BucketSentenceIter`` on seeded sentences) through two epochs of
+    ``BucketingModule.fit`` and ``KVStore("device")`` on the card and
+    on the CPU, every parameter within 1e-3 of its largest update; (b)
+    the full-width LM over buckets 256 / 512 / 1024 (96 seeded
+    sentences, batch 8, SGD lr 1e-4, ``Perplexity(ignore_label=0)``,
+    2 epochs): per bucket the median step ms and real and padded
+    tokens/s, host ms in ``switch_bucket``, idle share of a profiled
+    1024 step, peak memory, the perplexity falling, and every bucket's
+    parameter and gradient tensors at the anchor's ``data_ptr``; (c)
+    one ``forward_backward`` of the 1024 bucket under each remat policy
+    and under ``MXNET_TPU_FLASH_BWD=remat``: peak memory, ms, launches,
+    gradients against ``none`` (1e-5 of each tensor's largest
+    magnitude; the einsum backward 5e-2, beside the flash and einsum
+    backward's distance from float64), ``full``'s peak below
+    ``none``'s.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -4282,6 +4302,430 @@ def phase_adam_fit(torch, mx, kernels, get_symbol, card):
     return got
 
 
+# phase 30: BucketingModule over length buckets, and remat
+BUCKET_SMALL = dict(vocab_size=1000, num_layers=2, hidden=64, heads=4)
+BUCKET_FULL = dict(vocab_size=TRAIN["vocab_size"], num_layers=12,
+                   hidden=768, heads=12)
+BUCKET_LR = 1e-4         # as phase 14: lr 0.1 diverges to NaN (30a's LM)
+FLASH_KEYS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def bucket_sym_gen(sym, block, vocab_size, num_layers, hidden, heads,
+                   flash_min_seq):
+    """A user's sym_gen for length buckets: the LM of
+    ``models.transformer.get_symbol``, its positions declared at 1024 and
+    sliced to the bucket's length, so that every bucket shares them."""
+    def sym_gen(T):
+        data = sym.Variable("data")
+        label = sym.Variable("softmax_label")
+        pos = sym.Variable("pos_embed", shape=(1024, hidden))
+        tok = sym.Embedding(data, input_dim=vocab_size, output_dim=hidden,
+                            name="tok_embed")
+        x = sym.broadcast_add(tok, sym.expand_dims(
+            sym.slice_axis(pos, axis=0, begin=0, end=T), axis=0))
+        for i in range(num_layers):
+            x = block(x, hidden, heads, T, i, flash_min_seq=flash_min_seq)
+        x = sym.LayerNorm(x, name="ln_f")
+        logits = sym.FullyConnected(x, num_hidden=vocab_size, flatten=False,
+                                    name="head")
+        logits = sym.Reshape(logits, shape=(-1, vocab_size))
+        out = sym.SoftmaxOutput(logits, sym.Reshape(label, shape=(-1,)),
+                                name="softmax")
+        return out, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def bucket_sentences(vocab, per_bucket, buckets, seed):
+    """``per_bucket`` sentences of each bucket, lengths uniform in (the
+    bucket below, the bucket], ids in [1, vocab) (0 pads), drawn with
+    numpy from ``seed`` as phase 14 draws its data."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for lo, hi in zip([buckets[0] // 2] + list(buckets[:-1]), buckets):
+        for _ in range(per_bucket):
+            out.append(list(rs.randint(1, vocab, int(rs.randint(lo + 1,
+                                                                 hi + 1)))))
+    return out
+
+
+def bucket_iter(mx, sentences, batch, buckets, seed):
+    """The BucketSentenceIter of ``sentences``; its batch order comes from
+    the global ``random`` and ``np.random``, seeded here."""
+    import random
+    random.seed(seed)
+    np.random.seed(seed)
+    return mx.rnn.BucketSentenceIter(sentences, batch, buckets=buckets,
+                                     invalid_label=0)
+
+
+def flash_at_lengths(torch, kernels, F, timer, card):
+    """B1, B2a and B2b against their plain versions at T 256 and 512
+    (B8 H12 D64, causal), within phase 6's tolerances, timed with their
+    bounds and the SDPA yardsticks."""
+    dev = torch.device("cuda")
+    H, D, B = TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"], 8
+    for T in (256, 512):
+        rs = np.random.RandomState(T)
+        q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, D).astype(
+            np.float32)).to(dev) for _ in range(4))
+        out, lse = kernels.flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = kernels.flash_attention_fwd_plain(q, k, v, True)
+        delta = kernels.flash_delta(ref, do)
+        dq = kernels.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta,
+                                            True)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, ref_lse,
+                                                 delta, True)
+        refs = kernels.flash_attention_bwd_plain(q, k, v, ref, ref_lse, do,
+                                                 True)
+        errs = {"out": (out - ref).abs().max().item(),
+                "lse": (lse - ref_lse).abs().max().item()}
+        tols = {"out": 1e-5, "lse": 1e-5}
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            errs[name] = (got - want).abs().max().item()
+            tols[name] = 1e-4 * max(1.0, want.abs().max().item())
+        tag = "B%d T%d H%d D%d causal" % (B, T, H, D)
+        log("flash %s: max_abs_err %s (phase 6's tolerances)"
+            % (tag, ", ".join("%s=%.3g/%.3g" % (n, errs[n], tols[n])
+                              for n in errs)))
+        check(all(errs[n] <= tols[n] for n in errs),
+              "flash kernels disagree with their plain versions at %s" % tag)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do.transpose(1, 2).contiguous(),
+            retain_graph=True))
+        rows = (("flash_attention_fwd", (4, 3, 1, 1),
+                 lambda: kernels.flash_attention_fwd(q, k, v, True),
+                 lambda: kernels.flash_attention_fwd_plain(q, k, v, True),
+                 lib_fwd),
+                ("flash_attention_bwd_dq", (6, 4, 1, 2),
+                 lambda: kernels.flash_attention_bwd_dq(
+                     q, k, v, do, ref_lse, delta, True),
+                 lambda: kernels.flash_attention_bwd_dq_plain(
+                     q, k, v, do, ref_lse, delta, True), lib_bwd),
+                ("flash_attention_bwd_dkv", (8, 4, 2, 2),
+                 lambda: kernels.flash_attention_bwd_dkv(
+                     q, k, v, do, ref_lse, delta, True),
+                 lambda: kernels.flash_attention_bwd_dkv_plain(
+                     q, k, v, do, ref_lse, delta, True), lib_bwd))
+        for name, cost, fn, plain, lib in rows:
+            b, by, tc = flash_bound(B, T, T, H, D, True, *cost)
+            log("  %-24s %s f32: ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+                "bound_tc_ms=%.4f library_ms=%.4f (SDPA %s) [%s]"
+                % (name, tag, timer(fn), timer(plain), b, by, tc, lib,
+                   "forward" if name.endswith("fwd") else
+                   "backward, dQ, dK and dV together", card))
+        del qt, kt, vt, lib_out
+
+
+def small_bucket_fit(torch, mx, block, dev):
+    """Two epochs of the small bucketed LM through KVStore("device") on
+    ``dev``; returns (initial, final) parameters on the host."""
+    cfg = BUCKET_SMALL
+    buckets = [16, 32, 64]
+    it = bucket_iter(mx, bucket_sentences(cfg["vocab_size"], 8, buckets, 3),
+                     4, buckets, 5)
+    ctx = mx.gpu() if dev == "cuda" else mx.cpu()
+    mod = mx.mod.BucketingModule(
+        bucket_sym_gen(mx.sym, block, flash_min_seq=16, **cfg),
+        default_bucket_key=it.default_bucket_key, context=ctx)
+    mx.random.seed(0)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=mx.init.Xavier())
+    start = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    mod.fit(it, kvstore=mx.kv.create("device", device=dev),
+            optimizer="sgd", optimizer_params={"learning_rate": BUCKET_LR,
+                                               "momentum": 0.9},
+            eval_metric=mx.metric.Perplexity(ignore_label=0), num_epoch=2)
+    return start, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_bucketing_parity(torch, mx, kernels, block, card):
+    """30a: the small bucketed LM card vs CPU."""
+    kernels.reset_launches()
+    start, card_p = small_bucket_fit(torch, mx, block, "cuda")
+    got = dict(kernels.LAUNCHES)
+    _, cpu_p = small_bucket_fit(torch, mx, block, "cpu")
+    for key in FLASH_KEYS:
+        check(got[key] > 0, "30a: %s never launched on the card" % key)
+    worst = 0.0
+    for name, want in cpu_p.items():
+        update = np.abs(want - start[name]).max()
+        err = np.abs(card_p[name] - want).max()
+        if name.endswith("_k_bias"):
+            # no gradient (phase 7): rounding noise within 1e-3 of the
+            # key weight's largest update
+            ref = np.abs(cpu_p[name[:-4] + "weight"]
+                         - start[name[:-4] + "weight"]).max()
+            moved = max(np.abs(card_p[name] - start[name]).max(), update)
+            check(moved <= 1e-3 * ref, "30a: %s moved by %.3g, limit %.3g"
+                  % (name, moved, 1e-3 * ref))
+            continue
+        worst = max(worst, err / update)
+        check(err <= 1e-3 * update,
+              "30a: %s differs card vs CPU by %.3g, its largest update "
+              "%.3g" % (name, err, update))
+    log("30a bucketed LM (L%d h%d V%d, buckets 16/32/64, flash_min_seq 16, "
+        "batch 4, 2 epochs of SGD lr %g momentum 0.9 through "
+        "KVStore('device')): every parameter within %.3g of its largest "
+        "update card vs CPU (tolerance 1e-3; the key biases, which get no "
+        "gradient, within 1e-3 of the key weight's update); flash launches "
+        "on the card %s [%s]"
+        % (BUCKET_SMALL["num_layers"], BUCKET_SMALL["hidden"],
+           BUCKET_SMALL["vocab_size"], BUCKET_LR, worst,
+           {k: got[k] for k in FLASH_KEYS}, card))
+
+
+def phase_bucketing_full(torch, mx, kernels, block, card):
+    """30b: the full-width LM through BucketingModule.fit over buckets
+    256/512/1024; returns (launches, module, a 1024 batch)."""
+    cfg = BUCKET_FULL
+    buckets = [256, 512, 1024]
+    B = 8
+    sentences = bucket_sentences(cfg["vocab_size"], 32, buckets, 0)
+    it = bucket_iter(mx, sentences, B, buckets, 0)
+    mod = mx.mod.BucketingModule(
+        bucket_sym_gen(mx.sym, block, flash_min_seq=256, **cfg),
+        default_bucket_key=it.default_bucket_key)
+    switch_ms, spawn_ms = [], []
+    orig_switch = mod.switch_bucket
+
+    def timed_switch(key, *a, **kw):
+        fresh = key not in mod._buckets
+        t0 = time.perf_counter()
+        orig_switch(key, *a, **kw)
+        (spawn_ms if fresh else switch_ms).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    mod.switch_bucket = timed_switch
+    ev, keys, real, ppl = [], [], [], []
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append((p.epoch, e))
+        keys.append(mod._curr_bucket_key)
+        real.append(int(np.count_nonzero(
+            p.locals["batch"].data[0].asnumpy())))
+        if p.nbatch == len(it.idx) - 1:
+            ppl.append(p.eval_metric.get()[1])
+
+    mx.random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_fit = time.perf_counter()
+    mod.fit(it, kvstore=mx.kv.create("device"), optimizer="sgd",
+            optimizer_params={"learning_rate": BUCKET_LR, "momentum": 0.9},
+            initializer=mx.init.Xavier(),
+            eval_metric=mx.metric.Perplexity(ignore_label=0),
+            batch_end_callback=on_batch, num_epoch=2)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(ev)
+    check(steps == 2 * len(it.idx), "30b ran %d steps, want %d"
+          % (steps, 2 * len(it.idx)))
+    for key in FLASH_KEYS:
+        check(got[key] == cfg["num_layers"] * steps,
+              "30b: %s launched %d times over %d steps, want %d"
+              % (key, got[key], steps, cfg["num_layers"] * steps))
+    # per bucket: the steps inside an epoch, without each bucket's first
+    seen, per = set(), {b: [] for b in buckets}
+    for i in range(steps):
+        if keys[i] not in seen:
+            seen.add(keys[i])
+            continue
+        if i == 0 or ev[i - 1][0] != ev[i][0]:
+            continue
+        per[keys[i]].append((ev[i - 1][1].elapsed_time(ev[i][1]), real[i]))
+    n_params = sum(int(np.prod(a.shape))
+                   for a in mod.get_params()[0].values())
+    log("30b BucketingModule.fit L%d h%d V%d f32, buckets %s, "
+        "flash_min_seq 256, batch %d, %d sentences, %.1f M parameters, SGD "
+        "lr %g momentum 0.9 through KVStore('device'): %d steps in %.1f s"
+        % (cfg["num_layers"], cfg["hidden"], cfg["vocab_size"], buckets, B,
+           len(sentences), n_params / 1e6, BUCKET_LR, steps, fit_s))
+    for b in buckets:
+        ms = [m for m, _ in per[b]]
+        check(ms, "30b: no timed step of bucket %d" % b)
+        med = statistics.median(ms)
+        toks = statistics.median([r for _, r in per[b]])
+        log("  bucket %4d: %d timed steps, median %.3f ms per step "
+            "(spread %.3f-%.3f): %.0f real tokens/s (median %d real of "
+            "%d), %.0f padded tokens/s [%s]"
+            % (b, len(ms), med, min(ms), max(ms), toks / med * 1e3, toks,
+               B * b, B * b / med * 1e3, card))
+    log("  host ms in switch_bucket: %.4f median over %d switches to a "
+        "bound bucket (max %.4f); binding a new bucket: %s ms"
+        % (statistics.median(switch_ms), len(switch_ms), max(switch_ms),
+           ", ".join("%.1f" % x for x in spawn_ms)))
+    log("  perplexity per epoch (ignore_label 0): %s; peak memory "
+        "allocated %.2f GB [%s]"
+        % (", ".join("%.2f" % x for x in ppl), peak / 1e9, card))
+    check(len(ppl) == 2 and np.isfinite(ppl).all() and ppl[1] < ppl[0],
+          "30b: the perplexity did not fall (%s)" % ppl)
+    anchor = mod._buckets[it.default_bucket_key]._exec_group.execs[0]
+    for b, child in mod._buckets.items():
+        ex = child._exec_group.execs[0]
+        for name in child._exec_group.param_names:
+            for table in ("arg_dict", "grad_dict"):
+                a = getattr(ex, table)[name]._handle
+                want = getattr(anchor, table)[name]._handle
+                check(a.data_ptr() == want.data_ptr(),
+                      "30b: bucket %d's %s %s is not the anchor's storage"
+                      % (b, table, name))
+    log("  every bucket's %d parameter and gradient tensors are the "
+        "anchor's (data_ptr)" % len(anchor.arg_dict))
+    # one profiled step of the 1024 bucket
+    it.reset()
+    batch = next(b for b in it if b.bucket_key == 1024)
+    from torch.profiler import ProfilerActivity, profile
+    mod.forward_backward(batch)
+    mod.update()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(us for us, _ in device_by_kernel(prof).values()) / 1e3
+    log("  profiled 1024 step: device busy %s of %.1f ms, idle share %s "
+        "[%s]" % ("%.1f ms" % busy if busy else "not measured", wall,
+                  "%.3f" % (1 - busy / wall) if busy else "not measured",
+                  card))
+    return got, mod, batch
+
+
+# MXNET_TPU_FLASH_BWD=remat differentiates another formula in f32 (the
+# einsum softmax's autograd backward, not the flash kernels' lse-based
+# one): where the trained LM's softmax saturates, dS = P (dP - delta)
+# cancels, and the two roundings leave the q and k weight gradients up to
+# ~2.4e-2 of their largest magnitude apart on an H100 (PERF.md §6).
+# flash_bwd_vs_f64 shows both formulas' distance from float64 at such
+# inputs.  The four remat policies recompute with the same kernels and
+# are held to 1e-5.
+REMAT_BWD_TOL = 5e-2
+
+
+def flash_bwd_vs_f64(torch, kernels, card):
+    """dQ, dK, dV of causal attention at B2 T1024 H12 D64 from the flash
+    kernels (B1 + B2a/B2b) and from the einsum formulation's autograd in
+    f32, each against the same autograd in float64, as the softmax
+    sharpens (q scaled by 1, 8 and 32)."""
+    from mxnet_tpu_torch.ops.nn import _attention_einsum
+    B, T, H, D = 2, 1024, TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    scale = 1.0 / D ** 0.5
+    for sharp in (1, 8, 32):
+        rs = np.random.RandomState(sharp)
+        q, k, v, do = (torch.from_numpy(rs.randn(B, T, H, D).astype(
+            np.float32)).cuda() for _ in range(4))
+        q = q * sharp
+        out, lse = kernels.flash_attention_fwd(q, k, v, True)
+        kern = kernels.flash_attention_bwd(q, k, v, out, lse, do, True)
+
+        def autograd(dtype):
+            x = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+            o = _attention_einsum(*x, True, scale)
+            return torch.autograd.grad(o, x, do.to(dtype))
+        f32, f64 = autograd(torch.float32), autograd(torch.float64)
+        errs = []
+        for name, a, b, t in zip(("dq", "dk", "dv"), kern, f32, f64):
+            m = t.abs().max().item()
+            errs.append("%s kernels %.3g einsum %.3g" % (
+                name, (a.double() - t).abs().max().item() / m,
+                (b.double() - t).abs().max().item() / m))
+        log("30c flash backward vs float64, q x %d: %s (of each tensor's "
+            "largest magnitude) [%s]" % (sharp, "; ".join(errs), card))
+
+
+def phase_remat(torch, mx, kernels, mod, batch, card):
+    """30c: one forward_backward of the 1024 bucket from one state under
+    each remat policy and under MXNET_TPU_FLASH_BWD=remat, gradients held
+    to the 'none' run's."""
+    from mxnet_tpu_torch.executor import set_backward_mirror
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    ex = mod._buckets[1024]._exec_group.execs[0]
+    names = mod._buckets[1024]._exec_group.param_names
+    runs = [("none", "pallas"), ("dots", "pallas"),
+            ("dots_no_batch", "pallas"), ("full", "pallas"),
+            ("none", "remat")]
+    base, peaks = None, {}
+    try:
+        for policy, bwd in runs:
+            set_backward_mirror(policy)
+            ops_nn._FLASH_BWD = bwd
+            mod.forward_backward(batch)        # warm: the first run of a
+            torch.cuda.synchronize()           # policy loads its modules
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            got = {k: kernels.LAUNCHES[k] for k in FLASH_KEYS}
+            grads = {n: ex.grad_dict[n]._handle for n in names}
+            tag = policy if bwd == "pallas" else "MXNET_TPU_FLASH_BWD=remat"
+            if base is None:
+                base = {n: g.clone() for n, g in grads.items()}
+                gap = 0.0
+            else:
+                # the key biases get no gradient (phase 7): their rounding
+                # noise is held to the key weight's largest magnitude
+                gaps = sorted((((grads[n] - base[n]).abs().max() / base[
+                    n[:-4] + "weight" if n.endswith("_k_bias") else n]
+                    .abs().max().clamp_min(1e-30)).item(), n) for n in names)
+                gap = gaps[-1][0]
+                norm = max(((grads[n] - base[n]).norm() / base[n].norm()
+                            .clamp_min(1e-30)).item() for n in names
+                           if not n.endswith("_k_bias"))
+                tol = 1e-5 if bwd == "pallas" else REMAT_BWD_TOL
+                log("30c %s: the largest gaps %s; the largest norm-wise "
+                    "gap %.3g" % (tag, ", ".join("%s %.3g" % (n, g)
+                                                for g, n in gaps[-4:]),
+                                  norm))
+                check(gap <= tol, "30c: %s gradients differ from 'none' "
+                      "by %.3g of a tensor's largest magnitude (tolerance "
+                      "%g)" % (tag, gap, tol))
+            peaks[tag] = peak
+            log("30c %-26s forward_backward %.1f ms (after a warm run), "
+                "peak memory %.3f GB, largest gradient gap to 'none' %.3g "
+                "(of each tensor's largest magnitude, the key biases' of "
+                "the key weight's; tolerance 1e-5), launches %s [%s]"
+                % (tag, ms, peak / 1e9, gap, got, card))
+    finally:
+        set_backward_mirror(None)
+        ops_nn._FLASH_BWD = "pallas"
+    check(peaks["full"] < peaks["none"],
+          "30c: full's peak %.3f GB is not below none's %.3f GB"
+          % (peaks["full"] / 1e9, peaks["none"] / 1e9))
+    flash_bwd_vs_f64(torch, kernels, card)
+
+
+def phase_bucketing(torch, mx, kernels, F, card):
+    """Phase 30: the flash kernels at T 256 and 512, then 30a-30c;
+    returns the launches of 30b, the main path."""
+    from mxnet_tpu_torch.models.transformer import _block
+    timer = Timer(torch)
+    flash_at_lengths(torch, kernels, F, timer, card)
+    del timer
+    phase_bucketing_parity(torch, mx, kernels, _block, card)
+    got, mod, batch = phase_bucketing_full(torch, mx, kernels, _block, card)
+    phase_remat(torch, mx, kernels, mod, batch, card)
+    del mod, batch
+    torch.cuda.empty_cache()
+    return got
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4572,6 +5016,9 @@ def main():
                                                  get_symbol, card)
         torch.cuda.empty_cache()
         phase_checkpoint_resume(torch, mx, get_symbol, card)
+
+    with phase("30 BucketingModule and remat at full width"):
+        launches["bucketing"] = phase_bucketing(torch, mx, kernels, F, card)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

@@ -9,30 +9,35 @@ Pallas kernel of the JAX package on a ported path becomes a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/``), with a plain PyTorch version
 beside it that the tests hold it against.
 
-Ported so far (ROADMAP.md):
+Ported so far (ROADMAP.md), slice by slice:
 
-* the serving slice — paged-KV continuous-batching decode of the
-  transformer LM (``models.transformer.get_decode_step`` ->
-  ``serving.decode.DecodeProgram`` -> ``serving.decode.DecodeEngine``)
-  with the decode-attention and int8/int4 quantized-matmul kernels;
-* the training slice — the LM's Symbol graph trained on one card
-  (``models.transformer.get_symbol`` -> ``parallel.ShardedTrainer`` ->
-  ``init_state`` -> ``step``) with the flash-attention forward, dQ and
-  dK/dV kernels;
-* the recommender slice — the DLRM-style click predictor trained over the
-  sparse embedding plane on one card (``sparse.ShardedEmbedding`` ->
-  ``sparse.recommender_state`` -> ``sparse.make_recommender_step``) with
-  the embedding gather and sorted-id scatter kernels;
-* the Module slice — the classic MXNet API (``mx.mod.Module(net,
-  compression_params=...)``, ``mx.io.NDArrayIter``,
-  ``mx.kv.create("device")``, ``Module.fit``) training the LM on one card,
-  with the kvstore's two-bit gradient compression kernel;
-* the imperative slice -- ``mx.nd`` arrays and the general op modules
-  (creation, elementwise, broadcast and reduce, matrix, random),
+* serving -- paged-KV continuous-batching decode of the transformer LM
+  (``models.transformer.get_decode_step`` -> ``serving.decode.
+  DecodeProgram`` -> ``DecodeEngine``) with the decode-attention and
+  int8/int4 quantized-matmul kernels;
+* training -- the LM's Symbol graph on one card (``get_symbol`` ->
+  ``parallel.ShardedTrainer`` -> ``init_state`` -> ``step``) with the
+  flash-attention forward, dQ and dK/dV kernels;
+* the recommender over the sparse embedding plane
+  (``sparse.ShardedEmbedding`` -> ``recommender_state`` ->
+  ``make_recommender_step``) with the embedding gather and scatter
+  kernels, on f32, bf16, f16 and f64 tables;
+* the classic API: ``mx.mod.Module`` over ``mx.io.NDArrayIter`` and
+  ``mx.kv.create("device")`` with the two-bit compression kernel (f32,
+  f16, bf16, f64), every optimizer, ``lr_scheduler``, initializer and
+  metric, checkpoints, ``BucketingModule`` over length buckets
+  (``mx.rnn.BucketSentenceIter``), ``SequentialModule``, the Python
+  modules, ``FeedForward``, the file and prefetching iterators, and
+  remat (``set_backward_mirror``);
+* the imperative API -- ``mx.nd`` arrays and the general op modules,
   ``mx.random``, ``mx.engine``, ``nd.save`` / ``nd.load`` in the
   reference's byte format, and ``mx.rtc.CudaModule``, which compiles a
-  user's CUDA source with NVRTC for ``sm_90a`` and launches its kernels
-  over NDArrays.
+  user's CUDA source with NVRTC for ``sm_90a``;
+* conv nets -- the rest of ``ops/nn.py`` and the model zoo's conv nets
+  (ResNet-50 on cuDNN) through ``ShardedTrainer`` and ``Module.fit``;
+* bench.py's bf16 configuration and MXNet's float16 recipe
+  (``param_dtype``, ``sgd_step_fn``, ``build_step_auto_layout``, the
+  flash kernels in bf16 and f16).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
@@ -47,9 +52,13 @@ from .base import DeviceUnavailable, MXNetError, NotPortedYet
 
 __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
            "kv", "io", "mod", "metric", "init", "optimizer", "lr_scheduler",
-           "callback",
-           "model", "random", "rtc", "engine", "cpu", "gpu", "Context",
-           "current_context"]
+           "callback", "model", "random", "rtc", "engine", "cpu", "gpu",
+           "cpu_pinned", "num_gpus", "Context", "current_context", "seed",
+           "AttrScope", "Symbol", "Executor", "KVStore", "Optimizer",
+           "FeedForward", "DataParallelExecutorManager",
+           "set_backward_mirror", "backward_mirror_policy", "name",
+           "attribute", "executor", "executor_manager", "rnn", "parallel",
+           "sparse", "serving", "resilience", "telemetry"]
 
 # attribute -> (module, name in it or None for the module itself)
 _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
@@ -65,8 +74,26 @@ _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
          "random": ("random", None), "rtc": ("rtc", None),
          "engine": ("engine", None),
          "cpu": ("context", "cpu"), "gpu": ("context", "gpu"),
+         "cpu_pinned": ("context", "cpu_pinned"),
+         "num_gpus": ("context", "num_gpus"),
          "Context": ("context", "Context"),
-         "current_context": ("context", "current_context")}
+         "current_context": ("context", "current_context"),
+         "seed": ("rng", "seed"), "AttrScope": ("base", "AttrScope"),
+         "Symbol": ("symbol", "Symbol"), "Executor": ("executor", "Executor"),
+         "KVStore": ("kvstore", "KVStore"),
+         "Optimizer": ("optimizer", "Optimizer"),
+         "FeedForward": ("model", "FeedForward"),
+         "DataParallelExecutorManager": ("executor_manager",
+                                         "DataParallelExecutorManager"),
+         "set_backward_mirror": ("executor", "set_backward_mirror"),
+         "backward_mirror_policy": ("executor", "backward_mirror_policy"),
+         "name": ("name", None), "attribute": ("attribute", None),
+         "executor": ("executor", None),
+         "executor_manager": ("executor_manager", None),
+         "rnn": ("rnn", None), "parallel": ("parallel", None),
+         "sparse": ("sparse", None), "serving": ("serving", None),
+         "resilience": ("resilience", None),
+         "telemetry": ("telemetry", None)}
 
 
 def __getattr__(name):

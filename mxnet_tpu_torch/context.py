@@ -8,7 +8,9 @@ Stated deviation from the JAX package: there the default context is the
 CPU (``context.py:98-100``); here :func:`current_context` outside any
 ``with ctx:`` scope is the card (``base.resolve_device``), and without one
 it raises :class:`~mxnet_tpu_torch.base.DeviceUnavailable`.  Tests ask for
-the CPU with ``cpu()``.
+the CPU with ``cpu()``.  ``cpu_pinned()`` names the host too (its arrays
+are ordinary host tensors: pinned staging is the data IO item of
+ROADMAP queue A), and :func:`num_gpus` counts the visible CUDA devices.
 """
 from __future__ import annotations
 
@@ -17,16 +19,16 @@ from typing import Optional
 
 from .base import resolve_device
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "context_of",
-           "as_torch_device"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
+           "num_gpus", "context_of", "as_torch_device"]
 
 
 class Context:
-    """Named device: devtype 'cpu' | 'gpu' and an index.  The JAX
-    package's 'tpu', 'cpu_pinned' and 'cpu_shared' name no device of the
-    port and are refused."""
+    """Named device: devtype 'cpu' | 'gpu' | 'cpu_pinned' | 'cpu_shared'
+    and an index, with the JAX package's type ids.  Its 'tpu' names no
+    device of the port and is refused."""
 
-    devtype2id = {"cpu": 1, "gpu": 2}
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "cpu_shared": 5}
     devid2type = {v: k for k, v in devtype2id.items()}
     _default_ctx = threading.local()
 
@@ -43,13 +45,26 @@ class Context:
         self._old_ctx: Optional[Context] = None
 
     @property
+    def device_typeid(self) -> int:
+        return Context.devtype2id[self.device_type]
+
+    @property
     def torch_device(self):
-        """The torch device this context names (``cuda:i`` for gpu; a
-        missing card raises ``DeviceUnavailable``)."""
+        """The torch device this context names (``cuda:i`` for gpu, the
+        host for the cpu types; a missing card raises
+        ``DeviceUnavailable``)."""
         import torch
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         return resolve_device(torch.device("cuda", self.device_id))
+
+    def empty_cache(self):
+        """Release the cached blocks of the card's allocator (reference
+        Context.empty_cache); a host context has none."""
+        if self.device_type == "gpu":
+            import torch
+            with torch.cuda.device(self.torch_device):
+                torch.cuda.empty_cache()
 
     def __eq__(self, other):
         return (isinstance(other, Context)
@@ -87,6 +102,16 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices this process sees."""
+    import torch
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def current_context() -> Context:

@@ -20,20 +20,41 @@ forward as the JAX package does.
 forward records the graph with autograd, and ``backward`` runs
 ``torch.autograd.grad`` over its outputs and writes the gradients into
 the bound gradient arrays; ``run_fwd_bwd`` does both at once (the Module
-path).  Monitor taps (``set_monitor_callback``), ``ctx_group``
-placement and remat (``MXNET_TPU_REMAT_POLICY`` /
-``MXNET_BACKWARD_DO_MIRROR``) raise ``NotPortedYet`` (ROADMAP A4).
+path).  Monitor taps (``set_monitor_callback``, ROADMAP queue A item 9,
+observability) and ``ctx_group`` placement (item 7, distribution) raise
+``NotPortedYet``.
+
+Remat (the reference's ``MXNET_BACKWARD_DO_MIRROR``): a policy chosen by
+:func:`set_backward_mirror`, else ``MXNET_TPU_REMAT_POLICY``, else
+``MXNET_BACKWARD_DO_MIRROR`` (which means ``dots``), as the JAX package
+resolves it.  A recording forward then evaluates the graph in segments
+of its topological order, about the square root of its node count each
+(the sublinear schedule of MXNet's mirror), every segment under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: ``full``
+keeps only what crosses a segment's edge, ``dots`` also the outputs of
+every matmul and convolution, ``dots_no_batch`` those of the matmuls
+without batch dimensions (selective checkpointing; the dispatcher ops
+that JAX's ``dots_saveable`` and ``dots_with_no_batch_dims_saveable``
+name).  The backward recomputes one segment at a time with the same ops
+and kernels.  One checkpoint over the whole forward would recompute it
+all at once and keep every activation again, so its peak would not
+fall.  A segment's random nodes redraw the same values: the executor's
+generator is rewound to the segment's start for the recompute.
 """
 from __future__ import annotations
 
 import ast
-from typing import Any, Dict, List, Sequence
+import functools
+import math
+import os
+import warnings
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from . import rng as _rng
-from .base import (MXNetError, NotPortedYet, armed_env, dtype_name,
+from .base import (MXNetError, NotPortedYet, dtype_name,
                    dtype_np, dtype_torch)
 from .context import Context, as_torch_device, context_of
 from .ndarray.ndarray import NDArray, zeros
@@ -41,9 +62,113 @@ from .ops import shape_hints  # noqa: F401  (installs infer_params hooks)
 from .symbol.symbol import Symbol, _topo_order
 
 __all__ = ["GraphProgram", "Executor", "infer_shapes", "infer_types",
-           "node_attrs", "batch_hint_from"]
+           "node_attrs", "batch_hint_from", "set_backward_mirror",
+           "backward_mirror_policy", "apply_backward_mirror"]
 
-_REMAT_KNOBS = ("MXNET_TPU_REMAT_POLICY", "MXNET_BACKWARD_DO_MIRROR")
+
+# ---------------------------------------------------------------------------
+# Remat (port of mxnet_tpu/executor.py:37-115)
+# ---------------------------------------------------------------------------
+
+_mirror_override: Optional[str] = None
+
+# the dispatcher ops whose outputs a policy keeps: JAX's dots_saveable
+# keeps dot_general and conv_general_dilated, dots_with_no_batch_dims_
+# saveable the dot_generals without batch dimensions
+_DOT_OPS = ("mm", "addmm", "mv", "addmv", "dot")
+_BATCH_DOT_OPS = ("bmm", "baddbmm")
+_CONV_OPS = ("convolution",)
+_REMAT_POLICIES = {"none": None, "full": (),
+                   "dots": _DOT_OPS + _BATCH_DOT_OPS + _CONV_OPS,
+                   "dots_no_batch": _DOT_OPS}
+
+
+def set_backward_mirror(policy: Optional[str]):
+    """Select the remat policy: 'none' | 'dots' | 'dots_no_batch' |
+    'full', or None to defer to ``MXNET_TPU_REMAT_POLICY`` /
+    ``MXNET_BACKWARD_DO_MIRROR``."""
+    global _mirror_override
+    if policy is not None and policy not in _REMAT_POLICIES:
+        raise ValueError("unknown remat policy %r (choose from %s)"
+                         % (policy, sorted(_REMAT_POLICIES)))
+    _mirror_override = policy
+
+
+def backward_mirror_policy() -> str:
+    """The active remat policy: the override, then
+    ``MXNET_TPU_REMAT_POLICY`` (an unknown name warns and leaves remat
+    off), then ``MXNET_BACKWARD_DO_MIRROR`` (any value but "0" or ""
+    means 'dots')."""
+    if _mirror_override is not None:
+        return _mirror_override
+    env = os.environ.get("MXNET_TPU_REMAT_POLICY")
+    if env:
+        if env not in _REMAT_POLICIES:
+            warnings.warn("MXNET_TPU_REMAT_POLICY=%r is not one of %s; "
+                          "remat stays off" % (env, sorted(_REMAT_POLICIES)))
+            return "none"
+        return env
+    if os.environ.get("MXNET_BACKWARD_DO_MIRROR", "0") not in ("0", ""):
+        return "dots"
+    return "none"
+
+
+def apply_backward_mirror(fn, policy: Optional[str] = None):
+    """Wrap a forward (or loss) function of tensors so that its
+    activations are recomputed in the backward per ``policy`` (None: the
+    active one)."""
+    return _remat_wrap(fn, policy if policy is not None
+                       else backward_mirror_policy())
+
+
+def _save_policy(names):
+    """The selective-checkpoint policy that keeps the outputs of the
+    aten ops ``names`` and recomputes every other op."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    keep = {getattr(torch.ops.aten, n) for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE
+                if getattr(op, "overloadpacket", op) in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
+def _remat_wrap(fn, policy: str, generator=None):
+    """``fn`` under ``torch.utils.checkpoint.checkpoint(use_reentrant=
+    False)`` per the named policy ('none' returns it unchanged; 'full'
+    saves nothing; 'dots' and 'dots_no_batch' save their ops' outputs
+    through selective checkpointing).  ``generator``: a
+    ``torch.Generator`` that ``fn``'s random ops draw from; its state at
+    the call is restored for the recompute (and its state after the
+    recompute put back), so the recompute draws what the forward drew.
+    ``preserve_rng_state`` covers only the default generators."""
+    if policy == "none":
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    keep = _REMAT_POLICIES[policy]
+    kwargs = {}
+    if keep:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_policy(keep))
+
+    def wrapped(*args):
+        start = generator.get_state() if generator is not None else None
+        ran = []
+
+        def body(*a):
+            if start is None or not ran:
+                ran.append(True)
+                return fn(*a)
+            now = generator.get_state()
+            generator.set_state(start)
+            try:
+                return fn(*a)
+            finally:
+                generator.set_state(now)
+        return checkpoint(body, *args, use_reentrant=False, **kwargs)
+    return wrapped
 
 
 def batch_hint_from(arg_map: Dict[str, Any], arg_names: Sequence[str]):
@@ -104,36 +229,94 @@ class GraphProgram:
                     src = n.inputs[i_in].node
                     if src.is_var and id(src) in aux_ids:
                         self.aux_updates.append((src.name, n, i_out))
+        self._segs = None
 
     def evaluate(self, arg_arrays: Sequence, aux_arrays: Sequence,
-                 train: bool = False, generator=None):
+                 train: bool = False, generator=None, remat: str = "none"):
         """Evaluate the DAG; returns ``(outputs, new_aux)`` as tuples.
         Each ``needs_rng`` node draws from ``generator`` in topological
         order (without one, from its device's generator of
-        :mod:`mxnet_tpu_torch.rng`)."""
+        :mod:`mxnet_tpu_torch.rng`).  ``remat`` other than "none" runs
+        the nodes in checkpointed segments (the module docstring)."""
         arg_map = dict(zip(self.arg_names, arg_arrays))
         aux_map = dict(zip(self.aux_names, aux_arrays))
         batch_hint = batch_hint_from(arg_map, self.arg_names)
-        raw: Dict[int, tuple] = {}
+        val: Dict[tuple, Any] = {}
         for node in self.nodes:
             if node.is_var:
-                kind = self.var_kind[id(node)]
-                raw[id(node)] = (arg_map[node.name] if kind == "arg"
-                                 else aux_map[node.name],)
-                continue
-            attrs = node_attrs(node, train, batch_hint)
-            ins = [raw[id(e.node)][e.index] for e in node.inputs]
-            if node.op.needs_rng:
-                ins = [generator] + ins
-            out = node.op.fn(attrs, *ins)
-            raw[id(node)] = out if isinstance(out, tuple) else (out,)
-        outputs = tuple(raw[id(e.node)][e.index]
+                val[(id(node), 0)] = (arg_map[node.name]
+                                      if self.var_kind[id(node)] == "arg"
+                                      else aux_map[node.name])
+        if remat == "none":
+            for node in self.nodes:
+                if not node.is_var:
+                    self._eval_node(node, val, train, batch_hint, generator)
+        else:
+            for nodes, live_in, live_out, draws in self._segments():
+                seg = functools.partial(self._eval_segment, nodes, live_in,
+                                        live_out, train, batch_hint,
+                                        generator)
+                outs = _remat_wrap(seg, remat,
+                                   generator if draws else None)(
+                    *[val[k] for k in live_in])
+                val.update(zip(live_out, outs))
+        outputs = tuple(val[(id(e.node), e.index)]
                         for e in self.symbol._entries)
         new_aux = list(aux_arrays)
         aux_pos = {n: i for i, n in enumerate(self.aux_names)}
         for aux_name, node, i_out in self.aux_updates:
-            new_aux[aux_pos[aux_name]] = raw[id(node)][i_out]
+            new_aux[aux_pos[aux_name]] = val[(id(node), i_out)]
         return outputs, tuple(new_aux)
+
+    @staticmethod
+    def _eval_node(node, val, train, batch_hint, generator):
+        attrs = node_attrs(node, train, batch_hint)
+        ins = [val[(id(e.node), e.index)] for e in node.inputs]
+        if node.op.needs_rng:
+            ins = [generator] + ins
+        out = node.op.fn(attrs, *ins)
+        for i, o in enumerate(out if isinstance(out, tuple) else (out,)):
+            val[(id(node), i)] = o
+
+    def _eval_segment(self, nodes, live_in, live_out, train, batch_hint,
+                      generator, *ins):
+        val = dict(zip(live_in, ins))
+        for node in nodes:
+            self._eval_node(node, val, train, batch_hint, generator)
+        return tuple(val[k] for k in live_out)
+
+    def _segments(self):
+        """The op nodes in topological order, cut into about sqrt(n)
+        segments of equal length; per segment ``(nodes, live_in,
+        live_out, draws)``: the (node id, output) values it reads from
+        outside, those it makes that a later segment, the outputs or the
+        aux writeback read, and whether it holds a random node."""
+        if self._segs is not None:
+            return self._segs
+        ops = [n for n in self.nodes if not n.is_var]
+        size = max(1, math.ceil(len(ops) / max(1, math.isqrt(len(ops)))))
+        chunks = [ops[i:i + size] for i in range(0, len(ops), size)]
+        owner = {id(n): c for c, chunk in enumerate(chunks) for n in chunk}
+        wanted = {(id(e.node), e.index) for e in self.symbol._entries}
+        wanted |= {(id(node), i) for _, node, i in self.aux_updates}
+        reads = [[] for _ in chunks]
+        for c, chunk in enumerate(chunks):
+            for n in chunk:
+                for e in n.inputs:
+                    key = (id(e.node), e.index)
+                    if owner.get(key[0]) != c and key not in reads[c]:
+                        reads[c].append(key)
+        later = set()
+        segs = []
+        for c in range(len(chunks) - 1, -1, -1):
+            made = [(id(n), i) for n in chunks[c]
+                    for i in range(n.num_outputs())]
+            out = [k for k in made if k in later or k in wanted]
+            segs.append((chunks[c], reads[c], out,
+                         any(n.op.needs_rng for n in chunks[c])))
+            later.update(reads[c])
+        self._segs = segs[::-1]
+        return self._segs
 
 
 def _meta(shape, dtype="float32"):
@@ -316,11 +499,8 @@ class Executor:
                  group2ctx=None):
         if group2ctx:
             raise NotPortedYet("ctx_group placement (group2ctx) is not "
-                               "ported yet (ROADMAP A4)")
-        armed = armed_env(_REMAT_KNOBS)
-        if armed:
-            raise NotPortedYet("remat (%s) is not ported to the executor "
-                               "yet (ROADMAP A4)" % ", ".join(armed))
+                               "ported yet (ROADMAP queue A item 7, "
+                               "distribution)")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else \
             context_of(as_torch_device(ctx))
@@ -360,10 +540,15 @@ class Executor:
     # -- binding ----------------------------------------------------------
     @staticmethod
     def simple_bind(symbol, ctx, grad_req="write", type_dict=None,
-                    shared_exec=None, group2ctx=None, **kwargs):
+                    shared_exec=None, group2ctx=None,
+                    shared_arg_names=None, **kwargs):
         """Infer every argument's shape from the given input shapes and
         allocate zeroed argument, auxiliary and gradient arrays on
-        ``ctx``'s device."""
+        ``ctx``'s device.  With ``shared_exec``, the arguments named in
+        ``shared_arg_names`` (with their gradient arrays) and every
+        auxiliary state are ``shared_exec``'s own NDArrays, by name, as
+        the reference's ``bind_exec`` shares a bucket's parameters; its
+        program is reused when the symbol is the same object."""
         if type_dict:
             kwargs = {n: (torch.empty(tuple(v), dtype=dtype_torch(
                 type_dict[n]), device="meta") if n in type_dict else v)
@@ -373,18 +558,41 @@ class Executor:
         if missing:
             raise MXNetError("simple_bind: could not infer shapes for %s"
                              % missing)
-
-        def alloc(n):
-            return zeros(tuple(known[n].shape), ctx=ctx,
-                         dtype=known[n].dtype)
-
+        if shared_exec is not None and shared_exec._symbol is symbol:
+            prog = shared_exec._prog
         greq = grad_req if isinstance(grad_req, dict) else \
             {n: grad_req for n in prog.arg_names}
+        shared = {}
+        if shared_exec is not None:
+            names = set(shared_arg_names or ())
+            shared = {"argument": {n: shared_exec.arg_dict[n]
+                                   for n in names
+                                   if n in shared_exec.arg_dict},
+                      "gradient": {n: shared_exec.grad_dict.get(n)
+                                   for n in names},
+                      "aux": shared_exec.aux_dict}
+
+        def take(n, what):
+            """``shared_exec``'s ``what`` array of ``n``, or a new zeroed
+            one."""
+            src = shared.get(what, {}).get(n)
+            want = (tuple(known[n].shape), known[n].dtype)
+            if src is None:
+                return zeros(want[0], ctx=ctx, dtype=want[1])
+            if (tuple(src.shape), src._handle.dtype) != want:
+                raise MXNetError(
+                    "simple_bind: shared %s %r is %s %s here and %s %s in "
+                    "the shared executor" % (what, n, want[0], want[1],
+                                             tuple(src.shape),
+                                             src._handle.dtype))
+            return src
+
         return Executor(
-            symbol, ctx, {n: alloc(n) for n in prog.arg_names},
-            args_grad={n: alloc(n) for n in prog.arg_names
+            symbol, ctx, {n: take(n, "argument") for n in prog.arg_names},
+            args_grad={n: take(n, "gradient") for n in prog.arg_names
                        if greq.get(n, "null") != "null"},
-            grad_req=greq, aux_states={n: alloc(n) for n in prog.aux_names},
+            grad_req=greq,
+            aux_states={n: take(n, "aux") for n in prog.aux_names},
             program=prog, group2ctx=group2ctx)
 
     # -- execution --------------------------------------------------------
@@ -405,9 +613,9 @@ class Executor:
         if self._prog.num_rng and self._generator is None:
             self._generator = _rng.new_generator(self._ctx.torch_device)
         with torch.set_grad_enabled(record):
-            outs, new_aux = self._prog.evaluate(args, aux,
-                                                train=bool(is_train),
-                                                generator=self._generator)
+            outs, new_aux = self._prog.evaluate(
+                args, aux, train=bool(is_train), generator=self._generator,
+                remat=backward_mirror_policy() if record else "none")
         self._graph = (outs, names, [leaves[n] for n in names]) \
             if record else None
         if is_train:
@@ -513,6 +721,14 @@ class Executor:
                         grad_req=self.grad_req, aux_states=self.aux_dict,
                         program=self._prog)
 
+    @property
+    def output_dict(self):
+        """The outputs of the last forward by output name."""
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    def debug_str(self):
+        return self._symbol.debug_str()
+
     def set_monitor_callback(self, callback, monitor_all=False):
         raise NotPortedYet("executor monitor taps are not ported yet "
-                           "(ROADMAP A4)")
+                           "(ROADMAP queue A item 9, observability)")

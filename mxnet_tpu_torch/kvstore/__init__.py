@@ -211,6 +211,14 @@ class KVStore:
     def num_workers(self) -> int:
         return 1
 
+    def barrier(self):
+        """A local store has no peers to wait for."""
+
+    def num_dead_node(self, node_id=0, timeout_sec=60):
+        """Count of unreachable nodes (reference
+        KVStore::get_num_dead_node): a local store has no peers."""
+        return 0
+
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:
             raise MXNetError("no optimizer states: set_optimizer first")

@@ -1,41 +1,35 @@
-"""Evaluation metrics (port of ``EvalMetric``, ``create``,
-``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``Perplexity``
-and ``CrossEntropy`` from ``mxnet_tpu/metric.py``; reference
+"""Evaluation metrics (port of ``mxnet_tpu/metric.py``; reference
 python/mxnet/metric.py).
 
-The values are the JAX package's; where it walks each (label, pred) pair
-as numpy, these run the sums on the prediction's device and read one
-scalar back per pair: the LM's per-token prediction is (N*T, vocab), a
-gigabyte at the bench geometry, which must not cross to the host every
-step.  The running state is the usual ``(sum_metric, num_inst)`` pair on
-the host.
-
-The JAX package's other metrics (F1, the regression family, Pearson,
-Loss, custom callables) raise :class:`~mxnet_tpu_torch.base.NotPortedYet`
-from :func:`create` (ROADMAP queue A item 2).
+The values are the JAX package's.  Where it walks each (label, pred) pair
+as numpy, Accuracy, TopKAccuracy, Perplexity and CrossEntropy (with
+NegativeLogLikelihood) run the sums on the prediction's device and read
+one scalar back per pair: the LM's per-token prediction is (N*T, vocab),
+a gigabyte at the bench geometry, which must not cross to the host every
+step.  F1, the regression family (MAE, MSE, RMSE), PearsonCorrelation,
+Loss (Torch, Caffe) and CustomMetric (``metric.np``, and a callable given
+to :func:`create`) take their pairs to the host and compute as the JAX
+package does, in numpy.  The running state is the usual ``(sum_metric,
+num_inst)`` pair on the host; ``get_config`` gives a metric's class,
+name and arguments.
 """
 from __future__ import annotations
 
 import math
 from typing import Dict
 
-import numpy as np
+import numpy as _numpy
 import torch
 
-from .base import NotPortedYet
 from .ndarray.ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "Perplexity", "CrossEntropy", "create", "register",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register",
            "check_label_shapes"]
 
 _METRIC_REGISTRY: Dict[str, type] = {}
-# metric names of the JAX package that a later slice ports (ROADMAP queue
-# A item 2)
-_NOT_PORTED = ("f1", "mae",
-               "mse", "rmse", "negativeloglikelihood", "nll_loss",
-               "pearsoncorrelation", "pearsonr", "loss", "torch", "caffe",
-               "custommetric")
 
 
 def register(klass, *aliases):
@@ -50,13 +44,12 @@ def _registered(*aliases):
 
 
 def create(metric, *args, **kwargs):
-    """Coerce a name, a list of them or an EvalMetric into an
-    EvalMetric."""
+    """Coerce a name, a callable ``feval(label, pred)``, a list of them or
+    an EvalMetric into an EvalMetric."""
     if isinstance(metric, EvalMetric):
         return metric
     if callable(metric):
-        raise NotPortedYet("custom metric callables are not ported yet "
-                           "(ROADMAP queue A item 2)")
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, (list, tuple)):
         bundle = CompositeEvalMetric()
         for entry in metric:
@@ -65,9 +58,6 @@ def create(metric, *args, **kwargs):
     key = metric.lower() if isinstance(metric, str) else None
     if key in _METRIC_REGISTRY:
         return _METRIC_REGISTRY[key](*args, **kwargs)
-    if key in _NOT_PORTED:
-        raise NotPortedYet("metric %r is not ported yet (ROADMAP queue A "
-                           "item 2)" % metric)
     raise ValueError("Metric must be callable/str/EvalMetric, got %s"
                      % (metric,))
 
@@ -86,23 +76,42 @@ def _tensor(x, device=None):
     elif isinstance(x, torch.Tensor):
         t = x
     else:
-        t = torch.from_numpy(np.asarray(x))
+        t = torch.from_numpy(_numpy.asarray(x))
     return t if device is None else t.to(device, non_blocking=True)
+
+
+def _as_np(x):
+    """An NDArray, tensor or array-like as a host numpy array."""
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return _numpy.asarray(x)
 
 
 class EvalMetric:
     """Named running statistic with (sum, count) state (reference
     metric.py:44).  ``output_names`` / ``label_names`` select tensors
-    when fed through :meth:`update_dict`."""
+    when fed through :meth:`update_dict`; the keyword arguments are what
+    :meth:`get_config` reports."""
 
-    def __init__(self, name, output_names=None, label_names=None):
+    def __init__(self, name, output_names=None, label_names=None,
+                 **kwargs):
         self.name = str(name)
         self.output_names = output_names
         self.label_names = label_names
+        self._kwargs = kwargs
         self.reset()
 
     def __str__(self):
         return "EvalMetric: %s" % dict(self.get_name_value())
+
+    def get_config(self):
+        """The metric's class name, name, output and label names and
+        constructor arguments (reference metric.py:86)."""
+        return dict(self._kwargs, metric=type(self).__name__,
+                    name=self.name, output_names=self.output_names,
+                    label_names=self.label_names)
 
     @staticmethod
     def _select(table, wanted):
@@ -194,7 +203,7 @@ class Accuracy(_PairwiseMetric):
 
     def __init__(self, axis=1, name="accuracy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, axis=axis)
         self.axis = axis
 
     def _accumulate(self, label, pred):
@@ -215,7 +224,7 @@ class TopKAccuracy(_PairwiseMetric):
 
     def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, top_k=top_k)
         if top_k <= 1:
             raise ValueError("Use Accuracy for top_k=1")
         self.top_k = top_k
@@ -238,7 +247,8 @@ class Perplexity(EvalMetric):
 
     def __init__(self, ignore_label=None, axis=-1, name="perplexity",
                  output_names=None, label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names,
+                         ignore_label=ignore_label, axis=axis)
         self.ignore_label = ignore_label
         self.axis = axis
 
@@ -279,7 +289,7 @@ class CrossEntropy(_PairwiseMetric):
 
     def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
                  label_names=None):
-        super().__init__(name, output_names, label_names)
+        super().__init__(name, output_names, label_names, eps=eps)
         self.eps = eps
 
     def _accumulate(self, label, pred):
@@ -290,3 +300,170 @@ class CrossEntropy(_PairwiseMetric):
         true_prob = pred.gather(1, idx[:, None])[:, 0]
         return (float(-torch.log(true_prob + self.eps).double().sum()),
                 idx.shape[0])
+
+
+@_registered("nll_loss")
+class NegativeLogLikelihood(CrossEntropy):
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(eps=eps, name=name, output_names=output_names,
+                         label_names=label_names)
+
+
+class _HostPairwiseMetric(EvalMetric):
+    """Walks (label, pred) pairs as host numpy arrays, as the JAX
+    package's pairwise metrics do."""
+
+    def _accumulate(self, label, pred):
+        raise NotImplementedError
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            score, count = self._accumulate(_as_np(label), _as_np(pred))
+            self.sum_metric += score
+            self.num_inst += count
+
+
+@register
+class F1(_HostPairwiseMetric):
+    """Binary F1 of the argmax predictions, averaged over the updates
+    (reference metric.py:479)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        super().__init__(name, output_names, label_names)
+
+    def _accumulate(self, label, pred):
+        label = label.astype("int32")
+        if label.max() > 1:
+            raise ValueError("F1 currently only supports binary "
+                             "classification.")
+        decided = _numpy.argmax(pred, axis=1)
+        tp = int(((decided == 1) & (label == 1)).sum())
+        fp = int(((decided == 1) & (label == 0)).sum())
+        fn = int(((decided == 0) & (label == 1)).sum())
+        precision = tp / (tp + fp) if tp + fp else 0.0
+        recall = tp / (tp + fn) if tp + fn else 0.0
+        f1 = (2 * precision * recall / (precision + recall)
+              if precision + recall else 0.0)
+        return f1, 1
+
+
+class _RegressionMetric(_HostPairwiseMetric):
+    """Elementwise residuals of column-aligned labels and predictions,
+    one score per update."""
+
+    def _score(self, err):
+        raise NotImplementedError
+
+    def _accumulate(self, label, pred):
+        if label.ndim == 1:
+            label = label[:, None]
+        if pred.ndim == 1:
+            pred = pred[:, None]
+        return self._score(label - pred), 1
+
+
+@register
+class MAE(_RegressionMetric):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def _score(self, err):
+        return _numpy.abs(err).mean()
+
+
+@register
+class MSE(_RegressionMetric):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def _score(self, err):
+        return (err ** 2.0).mean()
+
+
+@register
+class RMSE(_RegressionMetric):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def _score(self, err):
+        return _numpy.sqrt((err ** 2.0).mean())
+
+
+@_registered("pearsonr")
+class PearsonCorrelation(_HostPairwiseMetric):
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def _accumulate(self, label, pred):
+        return _numpy.corrcoef(pred.ravel(), label.ravel())[0, 1], 1
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of the outputs (for symbols whose outputs are losses); the
+    labels are ignored."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, _, preds):
+        for pred in preds:
+            host = _as_np(pred)
+            self.sum_metric += host.sum()
+            self.num_inst += host.size
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """A user's ``feval(label, pred)`` of host numpy arrays, returning a
+    score or ``(score_sum, count)``."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if "<" in name:
+                name = "custom(%s)" % name
+        super().__init__(name, output_names, label_names, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            verdict = self._feval(_as_np(label), _as_np(pred))
+            if isinstance(verdict, tuple):
+                score, count = verdict
+            else:
+                score, count = verdict, 1
+            self.sum_metric += score
+            self.num_inst += count
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A CustomMetric over a plain numpy function (reference
+    ``metric.np``)."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = name if name is not None else numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)

@@ -16,7 +16,12 @@ A checkpoint is ``prefix-symbol.json`` and ``prefix-NNNN.params`` (the
 reference's binary NDArray container, ``arg:`` / ``aux:`` keys), the same
 files as the JAX package's: either package loads the other's.
 ``load_checkpoint`` reads the parameters onto the CPU, as the host copies
-a Module keeps.  ``FeedForward`` is not ported.
+a Module keeps.
+
+``FeedForward`` is the legacy training facade over
+:class:`~mxnet_tpu_torch.module.Module` (reference model.py:434).  Its
+default context is the card, as the Module's (the JAX package's is the
+CPU); ``ctx=mx.cpu()`` asks for the host.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import numpy as np
 
 from . import kvstore as kvs
 
-__all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint"]
+__all__ = ["BatchEndParam", "FeedForward", "save_checkpoint",
+           "load_checkpoint"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -150,3 +156,101 @@ def load_checkpoint(prefix, epoch):
         if tp == "aux":
             aux_params[name] = v
     return symbol, arg_params, aux_params
+
+
+class FeedForward:
+    """The legacy training facade over ``Module`` (reference
+    model.py:434): ``fit``, ``predict``, ``save``, ``load`` and
+    ``create``."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        from .context import Context, current_context
+        from .initializer import Uniform
+        self.symbol = symbol
+        self.ctx = ctx if ctx is not None else current_context()
+        if isinstance(self.ctx, Context):
+            self.ctx = [self.ctx]
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.optimizer = optimizer
+        self.initializer = initializer or Uniform(0.01)
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self.kwargs = kwargs.copy()
+        self._module = None
+
+    def _get_module(self):
+        from .module.module import Module
+        if self._module is None:
+            self._module = Module(self.symbol, context=self.ctx)
+        return self._module
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None):
+        from .io.io import NDArrayIter
+        if not hasattr(X, "provide_data"):
+            X = NDArrayIter(X, y, batch_size=self.numpy_batch_size,
+                            shuffle=True)
+        mod = self._get_module()
+        mod.fit(X, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=self.optimizer, optimizer_params=self.kwargs,
+                initializer=self.initializer, arg_params=self.arg_params,
+                aux_params=self.aux_params, begin_epoch=self.begin_epoch,
+                num_epoch=self.num_epoch)
+        self.arg_params, self.aux_params = mod.get_params()
+        return self
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """The outputs over ``X`` (an iterator or an array) as numpy."""
+        from .io.io import NDArrayIter
+        from .ndarray.ndarray import NDArray
+        if not hasattr(X, "provide_data"):
+            X = NDArrayIter(X, batch_size=self.numpy_batch_size)
+        mod = self._get_module()
+        if not mod.binded:
+            mod.bind(data_shapes=X.provide_data, for_training=False)
+            mod.set_params(self.arg_params or {}, self.aux_params or {},
+                           allow_missing=True)
+        out = mod.predict(X, num_batch=num_batch, reset=reset)
+        return out.asnumpy() if isinstance(out, NDArray) else out
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params or {},
+                        self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch,
+                           **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,
+               optimizer="sgd", initializer=None, eval_data=None,
+               eval_metric="acc", epoch_end_callback=None,
+               batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_end_callback=None,
+               eval_batch_end_callback=None, **kwargs):
+        model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch,
+                            epoch_size=epoch_size, optimizer=optimizer,
+                            initializer=initializer, **kwargs)
+        model.fit(X, y, eval_data=eval_data, eval_metric=eval_metric,
+                  epoch_end_callback=epoch_end_callback,
+                  batch_end_callback=batch_end_callback, kvstore=kvstore,
+                  logger=logger, work_load_list=work_load_list,
+                  eval_end_callback=eval_end_callback,
+                  eval_batch_end_callback=eval_batch_end_callback)
+        return model

@@ -309,7 +309,8 @@ class BaseModule:
                                % ", ".join(found))
         if monitor is not None:
             raise NotPortedYet("fit(monitor=): executor monitors are not "
-                               "ported yet (ROADMAP A4)")
+                               "ported yet (ROADMAP queue A item 9, "
+                               "observability)")
         if initializer is None:
             from ..initializer import Uniform
             initializer = Uniform(0.01)

@@ -8,9 +8,16 @@ the executor bound (``copy_``, ``non_blocking`` from pinned host memory
 when the executor is on the card): nothing is rebound, so the step reads
 the same device buffers every time.
 
+A ``shared_group`` (a bucket of a ``BucketingModule``) binds its
+executor over the shared group's parameter, gradient and auxiliary
+NDArrays, by name (reference ``bind_exec``): every bucket reads and
+writes the same tensors, so an update through any bucket is the update
+of all.
+
 A context list longer than one raises
 :class:`~mxnet_tpu_torch.base.NotPortedYet`: data parallelism over cards
-waits for NCCL (ROADMAP A11); so do ``group2ctxs`` and a shared group.
+waits for NCCL (ROADMAP queue A item 7, distribution); so does
+``group2ctxs``.
 """
 from __future__ import annotations
 
@@ -39,11 +46,11 @@ class DataParallelExecutorGroup:
                  grad_req="write", state_names=None, group2ctxs=None):
         if len(contexts) != 1:
             raise NotPortedYet("a Module over %d contexts: data parallelism "
-                               "over cards needs NCCL (ROADMAP A11)"
-                               % len(contexts))
-        if group2ctxs or shared_group is not None:
-            raise NotPortedYet("group2ctxs / a shared executor group are "
-                               "not ported yet (ROADMAP A4)")
+                               "over cards needs NCCL (ROADMAP queue A "
+                               "item 7, distribution)" % len(contexts))
+        if group2ctxs:
+            raise NotPortedYet("group2ctxs is not ported yet (ROADMAP "
+                               "queue A item 7, distribution)")
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -71,9 +78,10 @@ class DataParallelExecutorGroup:
                 self.grad_req[name] = "null"
         if not for_training:
             self.grad_req = {k: "null" for k in self.grad_req}
-        self.bind_exec(data_shapes, label_shapes)
+        self.bind_exec(data_shapes, label_shapes, shared_group)
 
-    def bind_exec(self, data_shapes, label_shapes, reshape=False):
+    def bind_exec(self, data_shapes, label_shapes, shared_group=None,
+                  reshape=False):
         self.data_shapes = _descs(data_shapes)
         self.label_shapes = _descs(label_shapes)
         self.batch_size = self.data_shapes[0].shape[0]
@@ -84,9 +92,12 @@ class DataParallelExecutorGroup:
         if reshape and self.execs:
             self.execs = [self.execs[0].reshape(**shapes)]
         else:
+            shared = shared_group.execs[0] if shared_group is not None \
+                and shared_group.execs else None
             self.execs = [Executor.simple_bind(
                 self.symbol, self.contexts[0], grad_req=self.grad_req,
-                type_dict=types, **shapes)]
+                type_dict=types, shared_exec=shared,
+                shared_arg_names=self.param_names, **shapes)]
 
     def reshape(self, data_shapes, label_shapes):
         self.bind_exec(data_shapes, label_shapes, reshape=True)
@@ -166,4 +177,4 @@ class DataParallelExecutorGroup:
 
     def install_monitor(self, mon):
         raise NotPortedYet("executor monitors are not ported yet "
-                           "(ROADMAP A4)")
+                           "(ROADMAP queue A item 9, observability)")

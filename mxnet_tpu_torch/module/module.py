@@ -19,12 +19,18 @@ Checkpoints are the JAX package's files (``save_checkpoint`` /
 ``Module.load``; an optimizer-state file is a pickle of the updater's
 states as host arrays, so it resumes in the package that wrote it).
 
-Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
-more than one context (NCCL, ROADMAP A11), monitors,
-``MXNET_TPU_PREFLIGHT`` and ``MXNET_TPU_ATTRIBUTION`` (A13), the
-``grad_guard`` of ``init_optimizer`` (A12), ``sparse_row_id_fn`` (A2);
-``BucketingModule``,
-``SequentialModule`` and ``PythonModule`` are absent.
+``bind(shared_module=)`` binds over another bound Module's parameter,
+gradient and auxiliary arrays and shares its host parameter dicts, and
+``borrow_optimizer`` adopts its optimizer, store and updater (so the
+optimizer state of a parameter is one, whichever module updates it):
+the two halves of ``BucketingModule``.
+
+Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
+and naming its ROADMAP queue A item: more than one context
+(distribution), monitors, ``MXNET_TPU_PREFLIGHT`` and
+``MXNET_TPU_ATTRIBUTION`` (observability), the ``grad_guard`` of
+``init_optimizer`` (resilience), ``sparse_row_id_fn`` (sparse storage on
+the host).
 """
 from __future__ import annotations
 
@@ -78,8 +84,8 @@ class Module(BaseModule):
         self._context = [ctxs] if isinstance(ctxs, Context) else list(ctxs)
         if len(self._context) != 1:
             raise NotPortedYet("a Module over %d contexts: data parallelism "
-                               "over cards needs NCCL (ROADMAP A11)"
-                               % len(self._context))
+                               "over cards needs NCCL (ROADMAP queue A "
+                               "item 7, distribution)" % len(self._context))
         self._context[0].torch_device     # a missing card raises here
         self._work_load_list = (work_load_list if work_load_list is not None
                                 else [1] * len(self._context))
@@ -133,9 +139,18 @@ class Module(BaseModule):
 
     @property
     def output_shapes(self):
+        """(name, shape) of each output: the last forward's, else
+        inferred from the bound input shapes (so that a module chained
+        after this one can bind before any forward)."""
         self._require(bound=True)
+        outs = self._exec_group.execs[0].outputs
+        if not outs:
+            shapes = {d.name: d.shape for d in self._data_shapes
+                      + (self._label_shapes or [])}
+            return list(zip(self._output_names,
+                            self._symbol.infer_shape(**shapes)[1]))
         return [(name, out.shape) for name, out
-                in zip(self._output_names, self._exec_group.execs[0].outputs)]
+                in zip(self._output_names, outs)]
 
     # -- parameters -------------------------------------------------------
     def get_params(self):
@@ -215,14 +230,20 @@ class Module(BaseModule):
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
         """Allocate the executor's arrays on the card for the given input
-        shapes (reference module.py:363)."""
+        shapes (reference module.py:363).  With ``shared_module`` (a
+        bound Module with parameters), its parameter, gradient and aux
+        arrays are this module's too, by name, and so are its host
+        parameter dicts (reference module.py:221-280)."""
         armed = armed_env(_BIND_KNOBS)
         if armed:
-            raise NotPortedYet("not ported to Module.bind: %s (ROADMAP A13)"
+            raise NotPortedYet("not ported to Module.bind: %s (ROADMAP "
+                               "queue A item 9, observability)"
                                % ", ".join(armed))
-        if shared_module is not None:
-            raise NotPortedYet("bind(shared_module=) is not ported yet "
-                               "(ROADMAP A4)")
+        if shared_module is not None and not (
+                isinstance(shared_module, Module) and shared_module.binded
+                and shared_module.params_initialized):
+            raise ValueError("shared_module must be a bound Module with "
+                             "initialized parameters")
         if force_rebind:
             self.binded = False
             self._exec_group = self._data_shapes = self._label_shapes = None
@@ -238,9 +259,11 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
-            for_training, inputs_need_grad, logger=self.logger,
-            fixed_param_names=self._fixed_param_names, grad_req=grad_req,
-            state_names=self._state_names, group2ctxs=self._group2ctxs)
+            for_training, inputs_need_grad,
+            None if shared_module is None else shared_module._exec_group,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
+            grad_req=grad_req, state_names=self._state_names,
+            group2ctxs=self._group2ctxs)
         self.binded = True
         from ..telemetry import memory as _memory
         ex = self._exec_group.execs[0]
@@ -248,7 +271,11 @@ class Module(BaseModule):
                     "params", label="Module.arg")
         _memory.tag([g._handle for g in ex.grad_arrays if g is not None],
                     "activations", label="Module.grad")
-        if self.params_initialized:
+        if shared_module is not None:
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            self.params_initialized = True
+        elif self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
 
     def reshape(self, data_shapes, label_shapes=None):
@@ -276,7 +303,8 @@ class Module(BaseModule):
         self._require(bound=True, params=True)
         if grad_guard is not None:
             raise NotPortedYet("init_optimizer(grad_guard=): GradientGuard "
-                               "is not ported yet (ROADMAP A12)")
+                               "is not ported yet (ROADMAP queue A item 8, "
+                               "resilience)")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
@@ -322,6 +350,18 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def borrow_optimizer(self, shared_module):
+        """Adopt another Module's optimizer, store and updater (reference
+        module.py:375), so that modules over shared arrays keep one
+        optimizer state per parameter."""
+        if not shared_module.optimizer_initialized:
+            raise RuntimeError("the shared module's optimizer is not "
+                               "initialized")
+        for attr in ("_optimizer", "_kvstore", "_update_on_kvstore",
+                     "_updater"):
+            setattr(self, attr, getattr(shared_module, attr))
+        self.optimizer_initialized = True
 
     def _exec_group_param_arrays(self):
         """Per parameter, the list of its per-device arrays."""
@@ -449,10 +489,12 @@ class Module(BaseModule):
 
     def install_monitor(self, mon):
         raise NotPortedYet("Module.install_monitor: executor monitors are "
-                           "not ported yet (ROADMAP A4)")
+                           "not ported yet (ROADMAP queue A item 9, "
+                           "observability)")
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
         self._require(bound=True)
         if sparse_row_id_fn is not None:
             raise NotPortedYet("sparse_row_id_fn: row_sparse pulls are not "
-                               "ported yet (ROADMAP A2)")
+                               "ported yet (ROADMAP queue A item 5, sparse "
+                               "storage on the host)")

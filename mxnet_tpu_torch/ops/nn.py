@@ -38,8 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..base import (MXNetError, NotPortedYet, Param, attr_bool, attr_float,
-                    attr_int, attr_shape, attr_str)
+from ..base import (MXNetError, Param, attr_bool, attr_float, attr_int,
+                    attr_shape, attr_str)
 from . import kernels
 from .elemwise import _int_to_f64
 from .matrix import _fill, _in_range
@@ -832,6 +832,28 @@ def _attention_einsum(q, k, v, causal, scale):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+class _FlashRematFn(torch.autograd.Function):
+    """``MXNET_TPU_FLASH_BWD=remat``: the forward is the flash kernel
+    (without the logsumexp), the backward the einsum formulation's own
+    autograd backward over the saved q, k and v (the reference's
+    rematerialising vjp of ``naive``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, _ = kernels.flash_attention_fwd(q, k, v, causal, scale,
+                                             with_lse=False)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = _attention_einsum(q, k, v, ctx.causal, ctx.scale)
+        return torch.autograd.grad(out, (q, k, v), g) + (None, None)
+
+
 @register("_contrib_fused_attention", inputs=("query", "key", "value"),
           params=dict(causal=attr_bool(False), scale=attr_float(0.0),
                       block_q=attr_int(0), flash_min_seq=attr_int(0)),
@@ -845,8 +867,9 @@ def _contrib_fused_attention(attrs, q, k, v):
     the forward saves the row logsumexp and the backward rebuilds the
     probabilities from it, so no (T, T) tensor is stored.  ``block_q`` is
     validated (0 = the kernel's own tile); the CUDA kernels pick their
-    tile themselves.  ``MXNET_TPU_FLASH_BWD=remat`` (the reference's
-    rematerialising einsum backward) is not ported."""
+    tile themselves.  ``MXNET_TPU_FLASH_BWD`` other than "pallas" keeps
+    the flash forward and takes the einsum formulation's backward, as
+    the reference's ``remat`` fallback (:class:`_FlashRematFn`)."""
     scale = attrs.scale if attrs.scale > 0 else \
         1.0 / float(q.shape[-1]) ** 0.5
     if attrs.block_q < 0:
@@ -856,8 +879,6 @@ def _contrib_fused_attention(attrs, q, k, v):
     if q.shape[1] < flash_min:
         return _attention_einsum(q, k, v, attrs.causal, scale)
     if _FLASH_BWD != "pallas":
-        raise NotPortedYet("MXNET_TPU_FLASH_BWD=%s: the rematerialising "
-                           "einsum backward is not ported (ROADMAP)"
-                           % _FLASH_BWD)
+        return _FlashRematFn.apply(q, k, v, bool(attrs.causal), scale)
     return kernels.flash_attention(q, k, v, causal=attrs.causal,
                                    scale=scale)

@@ -28,11 +28,16 @@ random nodes (Dropout) draw from a ``torch.Generator`` the trainer owns
 on its device (``trainer._keys()``), seeded from ``mx.random.seed`` and
 the seed of :meth:`~ShardedTrainer.init_state`.
 
+The step honours the remat policy (:func:`~mxnet_tpu_torch.executor.
+backward_mirror_policy`): the trainer takes it when it is made and again
+at each :meth:`~ShardedTrainer.step`, as the reference rebuilds its step
+when the policy changes, and the forward then runs in checkpointed
+segments (:mod:`mxnet_tpu_torch.executor`).
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
 (ROADMAP): ZeRO / ``shard_optimizer_state``, ``local_batch=True``, and
-the JAX step's env-armed features (remat via ``MXNET_TPU_REMAT_POLICY`` /
-``MXNET_BACKWARD_DO_MIRROR``, the compile cache, pre-flight, attribution,
-and the training chaos drills).
+the JAX step's other env-armed features (the compile cache, pre-flight,
+attribution, and the training chaos drills).
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch
 
 from .. import rng as _rng
 from ..base import MXNetError, NotPortedYet, armed_env, dtype_torch
-from ..executor import _REMAT_KNOBS, GraphProgram, _resolve_structs
+from ..executor import (GraphProgram, _resolve_structs,
+                        backward_mirror_policy)
 from ..resilience import chaos as _chaos
 from ..resilience import guards as _guards
 from .mesh import MeshSpec, make_mesh
@@ -51,8 +57,7 @@ from .mesh import MeshSpec, make_mesh
 __all__ = ["ShardedTrainer", "sgd_step_fn"]
 
 _TRAIN_FAULTS = ("preempt", "nan_grad", "hang", "oom")
-_KNOBS = dict({k: "remat" for k in _REMAT_KNOBS},
-              MXNET_TPU_COMPILE_CACHE="compile cache",
+_KNOBS = dict(MXNET_TPU_COMPILE_CACHE="compile cache",
               MXNET_TPU_PREFLIGHT="pre-flight",
               MXNET_TPU_ATTRIBUTION="attribution")
 
@@ -182,6 +187,7 @@ class ShardedTrainer:
         self._skipped_steps = 0
         self._step_count = 0
         self._generator = None
+        self._built_remat = backward_mirror_policy()
 
     # -- state ------------------------------------------------------------
     def init_state(self, shapes: Dict[str, tuple], initializer=None,
@@ -243,7 +249,8 @@ class ShardedTrainer:
             args[self.input_idx[n]] = v
         with torch.enable_grad():
             outs, new_aux = self.prog.evaluate(args, aux, train=True,
-                                               generator=gen)
+                                               generator=gen,
+                                               remat=self._built_remat)
             loss = sum(o.float().sum() for o in outs)
             grads = torch.autograd.grad(loss * scale, leaves,
                                         allow_unused=True)
@@ -341,6 +348,7 @@ class ShardedTrainer:
         if found:
             raise NotPortedYet("not ported to the trainer: %s"
                                % ", ".join(found))
+        self._built_remat = backward_mirror_policy()
         self._step_count += 1
         params, mom, aux, loss, ok, self._guard_state = self._raw_step(
             params, mom, aux, self._prepare_batch(batch), self._keys(),

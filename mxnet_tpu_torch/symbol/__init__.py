@@ -5,8 +5,8 @@ import sys as _sys
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..base import MXNetError as _MXNetError
 from ..ops.registry import get_op as _get_op, list_ops as _list_ops
-from .symbol import (Group, Symbol, Variable, create, load, load_json,
-                     var)
+from .symbol import (Group, Symbol, Variable, arange, create, load,
+                     load_json, ones, var, zeros)
 
 
 def _make_sym_wrapper(op_name):

@@ -20,7 +20,7 @@ from ..name import NameManager
 from ..ops.registry import AttrDict, Operator, get_op
 
 __all__ = ["Symbol", "Variable", "var", "Group", "create", "load",
-           "load_json"]
+           "load_json", "zeros", "ones", "arange"]
 
 
 class Node:
@@ -151,12 +151,24 @@ class Symbol:
                 names.append("%s_output%d" % (node.name, e.index))
         return names
 
+    def list_inputs(self) -> List[str]:
+        """The arguments, then the auxiliary states."""
+        return self.list_arguments() + self.list_auxiliary_states()
+
     def get_internals(self) -> "Symbol":
         entries = []
         for node in _topo_order(self._entries):
             for i in range(node.num_visible_outputs()):
                 entries.append(NodeEntry(node, i))
         return Symbol(entries)
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of the first output's node, or None for a
+        variable."""
+        node = self._entries[0].node
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
 
     # -- attrs -----------------------------------------------------------
     def attr(self, key: str) -> Optional[str]:
@@ -268,6 +280,10 @@ class Symbol:
     def astype(self, dtype):
         return create("Cast", [self], dict(dtype=dtype_name(dtype)))
 
+    def slice_axis(self, axis, begin, end):
+        return create("slice_axis", [self],
+                      dict(axis=axis, begin=begin, end=end))
+
     # -- inference -------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the shapes given by
@@ -319,6 +335,11 @@ class Symbol:
         from ..context import current_context
         return self.bind(ctx or current_context(), kwargs).forward()
 
+    def grad(self, wrt):
+        raise MXNetError(
+            "Symbol.grad was deprecated in the reference; bind with "
+            "args_grad and call backward instead")
+
     # -- serialization ---------------------------------------------------
     def tojson(self) -> str:
         nodes_list = _topo_order(self._entries)
@@ -344,6 +365,19 @@ class Symbol:
     def save(self, fname: str):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+    def debug_str(self) -> str:
+        """One line per node in topological order (the JAX package's
+        text)."""
+        lines = []
+        for node in _topo_order(self._entries):
+            if node.is_var:
+                lines.append("Variable:%s" % node.name)
+            else:
+                ins = ", ".join(e.node.name for e in node.inputs)
+                lines.append("Op:%s, Name=%s, Inputs=[%s]"
+                             % (node.op.name, node.name, ins))
+        return "\n".join(lines)
 
 
 # the reversed form of a scalar op: ``2 - x`` is ``_rminus_scalar``
@@ -446,3 +480,17 @@ def create(op_name: str, input_syms: Sequence[Symbol],
     node = Node(op, entries, attrs, name)
     return Symbol([NodeEntry(node, i)
                    for i in range(node.num_visible_outputs())])
+
+
+def zeros(shape, dtype="float32", **kwargs):
+    return create("_zeros", [], dict(shape=shape, dtype=dtype, **kwargs))
+
+
+def ones(shape, dtype="float32", **kwargs):
+    return create("_ones", [], dict(shape=shape, dtype=dtype, **kwargs))
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype="float32",
+           **kwargs):
+    return create("_arange", [], dict(start=start, stop=stop, step=step,
+                                      repeat=repeat, dtype=dtype, **kwargs))

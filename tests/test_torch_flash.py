@@ -161,15 +161,30 @@ def test_fused_attention_op_refuses_negative_block_q():
 
 
 def test_flash_remat_backward_is_not_ported(monkeypatch):
-    from mxnet_tpu_torch.base import NotPortedYet
+    """``MXNET_TPU_FLASH_BWD=remat`` is ported (the name is the refusal's
+    it replaces): the op's output and its gradients against the JAX op's
+    under the same setting (the flash forward and the einsum
+    formulation's rematerialising vjp), above and below the
+    threshold."""
+    from mxnet_tpu.ops import nn as jnn
     from mxnet_tpu_torch.ops import nn
     monkeypatch.setattr(nn, "_FLASH_BWD", "remat")
-    op = get_op("_contrib_fused_attention")
-    x = torch.zeros(1, 8, 1, 4)
-    with pytest.raises(NotPortedYet):
-        op.fn(op.parse_attrs(dict(causal=True, flash_min_seq=8)), x, x, x)
-    # below the threshold the einsum path does not need it
-    op.fn(op.parse_attrs(dict(causal=True, flash_min_seq=9)), x, x, x)
+    monkeypatch.setattr(jnn, "_FLASH_BWD", "remat")
+    q, k, v, do = _inputs(1, 16, 2, 8, seed=4)
+    for min_seq in (8, 17):
+        params = dict(causal=True, flash_min_seq=min_seq)
+        jop = jax_get_op("_contrib_fused_attention")
+        jattrs = jop.parse_attrs(dict(params))
+        want, vjp = jax.vjp(lambda *x: jop.fn(jattrs, *x),
+                            *map(jnp.asarray, (q, k, v)))
+        want_grads = vjp(jnp.asarray(do))
+        op = get_op("_contrib_fused_attention")
+        x = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        got = op.fn(op.parse_attrs(dict(params)), *x)
+        grads = torch.autograd.grad(got, x, torch.from_numpy(do))
+        _close(got.detach().numpy(), want)
+        for g, w in zip(grads, want_grads):
+            _close(g.numpy(), w)
 
 
 def test_flash_wrappers_refuse_a_device_without_a_kernel():

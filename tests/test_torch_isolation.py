@@ -72,6 +72,12 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.module.executor_group",
                  "mxnet_tpu_torch.module.base_module",
                  "mxnet_tpu_torch.module.module",
+                 "mxnet_tpu_torch.module.bucketing_module",
+                 "mxnet_tpu_torch.module.sequential_module",
+                 "mxnet_tpu_torch.module.python_module",
+                 "mxnet_tpu_torch.executor_manager",
+                 "mxnet_tpu_torch.attribute",
+                 "mxnet_tpu_torch.rnn", "mxnet_tpu_torch.rnn.io",
                  "mxnet_tpu_torch.callback",
                  "mxnet_tpu_torch.rtc", "mxnet_tpu_torch.rng",
                  "mxnet_tpu_torch.random", "mxnet_tpu_torch.engine",

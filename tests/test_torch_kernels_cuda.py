@@ -20,7 +20,8 @@ tables; misaligned views, empty segments, more segments than one launch
 takes, no host sync), a small decode step and a small
 recommender step on the card against the same steps on the CPU, a
 compressing KVStore push on the card, a Module that lands on the card
-when given no context, and the imperative slice: the user kernels of
+when given no context, remat's gradients on the flash path equal to
+'none''s, and the imperative slice: the user kernels of
 ``rtc.CudaModule`` against their plain versions (exactly), its errors,
 exports and large shared memory, every ``mx.nd`` op case on the card
 against the CPU, and ``nd.save`` / ``nd.load`` on the card.
@@ -1581,6 +1582,49 @@ def test_module_without_a_context_lands_on_the_card(dev):
     ex = mod._exec_group.execs[0]
     assert all(a.handle.device.type == "cuda" for a in ex.arg_arrays)
     assert mx.current_context().device_type == "gpu"
+
+
+@pytest.mark.parametrize("policy", ["dots", "dots_no_batch", "full"])
+def test_remat_gradients_on_card_equal_none(dev, policy):
+    """A small LM on the flash path (T 128, every layer through B1/B2a/
+    B2b) on the card: one forward and backward under each remat policy
+    against 'none' from the same state.  The recompute relaunches B1 with
+    the same inputs, so the gradients are the same bits; B2a/B2b launch
+    once per layer either way."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor import set_backward_mirror
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    net = get_symbol(vocab_size=64, seq_len=128, num_layers=2, hidden=64,
+                     heads=2, flash_min_seq=128)
+    shapes = {"data": (2, 128), "softmax_label": (2, 128)}
+    rs = np.random.RandomState(0)
+    vals = {n: (rs.randint(0, 64, s) if n in shapes else
+                rs.normal(0, 0.1, s)).astype(np.float32)
+            for n, s in zip(net.list_arguments(),
+                            net.infer_shape(**shapes)[0])}
+    grads, launches = {}, {}
+    try:
+        for p in ("none", policy):
+            set_backward_mirror(p)
+            ex = net.simple_bind(mx.gpu(), **shapes)
+            for n, v in vals.items():
+                ex.arg_dict[n][:] = mx.nd.array(v)
+            kernels.reset_launches()
+            ex.forward(is_train=True)
+            ex.backward()
+            torch.cuda.synchronize()
+            launches[p] = dict(kernels.LAUNCHES)
+            grads[p] = {n: g.asnumpy() for n, g in ex.grad_dict.items()
+                        if g is not None}
+    finally:
+        set_backward_mirror(None)
+    assert launches["none"]["flash_attention_fwd"] == 2
+    assert launches[policy]["flash_attention_fwd"] == 4
+    for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert launches["none"][key] == launches[policy][key] == 2
+    for n, want in grads["none"].items():
+        np.testing.assert_allclose(grads[policy][n], want, rtol=1e-5,
+                                   atol=1e-6, err_msg=n)
 
 
 # ---------------------------------------------------------------------------

@@ -80,8 +80,22 @@ def test_ndarray_iter_matches_jax(handle, shuffle):
 
 
 def test_ndarray_iter_sharding_is_not_ported():
-    with pytest.raises(NotPortedYet):
-        tmx.io.NDArrayIter(np.zeros((8, 2)), batch_size=2, num_parts=2)
+    """``num_parts`` sharding is ported (the name is the refusal's it
+    replaces): each rank's batches equal the JAX package's, exactly."""
+    X = np.arange(44, dtype=np.float32).reshape(22, 2)
+    y = np.arange(22, dtype=np.float32)
+    for part in range(2):
+        kw = dict(batch_size=3, num_parts=2, part_index=part, shuffle=True,
+                  seed=5, last_batch_handle="pad")
+        t_b = list(tmx.io.NDArrayIter(X, y, **kw))
+        j_b = list(jmx.io.NDArrayIter(X, y, **kw))
+        assert len(t_b) == len(j_b) == 4
+        for a, b in zip(t_b, j_b):
+            assert a.pad == b.pad
+            np.testing.assert_array_equal(a.data[0].asnumpy(),
+                                          b.data[0].asnumpy())
+            np.testing.assert_array_equal(a.label[0].asnumpy(),
+                                          b.label[0].asnumpy())
 
 
 def _metric_inputs(seed, n=12, vocab=7):
@@ -117,8 +131,16 @@ def test_composite_metric_and_unported_names():
              [tmx.nd.array(probs, ctx="cpu")])
     assert [n for n, _ in m.get_name_value()] == ["accuracy",
                                                   "cross-entropy"]
-    with pytest.raises(NotPortedYet):
-        tmx.metric.create("f1")
+    # the names of the JAX package's other metrics are ported: F1 of a
+    # binary problem against the reference
+    rs = np.random.RandomState(4)
+    probs = rs.uniform(0, 1, (12, 2)).astype(np.float32)
+    labels = rs.randint(0, 2, 12).astype(np.float32)
+    tm, jm = tmx.metric.create("f1"), jmx.metric.create("f1")
+    tm.update([tmx.nd.array(labels, ctx="cpu")],
+              [tmx.nd.array(probs, ctx="cpu")])
+    jm.update([jmx.nd.array(labels)], [jmx.nd.array(probs)])
+    assert tm.get() == jm.get()
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +358,33 @@ def test_module_fit_lm_perplexity_matches_jax():
         assert abs(a - b) <= 1e-5 * b
 
 
+def _remat_env_parity(var, value):
+    """Under ``var=value`` both packages resolve the same remat policy,
+    and one forward and backward of the MLP gives the same gradients
+    (1e-5 of each tensor's largest magnitude)."""
+    from mxnet_tpu import executor as jexec
+    from mxnet_tpu_torch import executor as texec
+    assert texec.backward_mirror_policy() == jexec.backward_mirror_policy()
+    assert texec.backward_mirror_policy() == "dots"
+    X, y = _toy_data(8)
+    grads = {}
+    for pkg in (tmx, jmx):
+        ex = _mlp(pkg.sym).simple_bind(pkg.cpu(), data=(8, 16))
+        rs = np.random.RandomState(2)
+        kw = {"ctx": "cpu"} if pkg is tmx else {}
+        for name, arr in ex.arg_dict.items():
+            val = X if name == "data" else y if name == "softmax_label" \
+                else rs.normal(0, 0.1, arr.shape).astype(np.float32)
+            arr[:] = pkg.nd.array(val, **kw)
+        ex.forward(is_train=True)
+        ex.backward()
+        grads[pkg] = {n: g.asnumpy() for n, g in ex.grad_dict.items()
+                      if g is not None}
+    for n, want in grads[jmx].items():
+        assert np.abs(grads[tmx][n] - want).max() <= \
+            1e-5 * np.abs(want).max(), n
+
+
 @pytest.mark.parametrize("var,value,where", [
     ("MXNET_TPU_WATCHDOG_STEP_TIMEOUT", "30", "fit"),
     ("MXNET_TPU_CHAOS", "hang@2", "fit"),
@@ -353,6 +402,12 @@ def test_armed_env_features_of_the_jax_module_raise(monkeypatch, var, value,
     mod = tmx.mod.Module(_mlp(tmx.sym), context=tmx.cpu())
     monkeypatch.setenv(var, value)
     chaos.reset()
+    if var in ("MXNET_TPU_REMAT_POLICY", "MXNET_BACKWARD_DO_MIRROR"):
+        # remat is ported: these rows now hold the policy and a bound
+        # Module's gradients under it to the JAX package's
+        _remat_env_parity(var, value)
+        monkeypatch.delenv(var)
+        return
     try:
         with pytest.raises(NotPortedYet):
             if where == "bind":
@@ -466,7 +521,15 @@ def test_module_without_a_context_needs_the_card_and_refuses_more():
 
 @pytest.mark.parametrize("devtype", ["tpu", "cpu_pinned", "cpu_shared", 6])
 def test_context_refuses_device_types_the_port_has_no_device_for(devtype):
+    """'tpu' (id 6) names no device of the port.  The host types
+    'cpu_pinned' and 'cpu_shared' are accepted since C18 was repaired:
+    they name the host, with the JAX package's type ids."""
     from mxnet_tpu_torch.context import Context
     assert Context("gpu", 1) == tmx.gpu(1) and Context(1) == tmx.cpu()
+    if devtype in ("cpu_pinned", "cpu_shared"):
+        ctx = Context(devtype)
+        assert ctx.device_typeid == jmx.Context(devtype).device_typeid
+        assert ctx.torch_device == torch.device("cpu")
+        return
     with pytest.raises(ValueError):
         Context(devtype)

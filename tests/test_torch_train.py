@@ -294,6 +294,24 @@ def test_armed_env_features_of_the_jax_step_raise(monkeypatch, var, value):
     state = tt.init_state(SHAPES)
     monkeypatch.setenv(var, value)
     chaos.reset()
+    if var in ("MXNET_TPU_REMAT_POLICY", "MXNET_BACKWARD_DO_MIRROR"):
+        # remat is ported: these rows now hold a step under the policy
+        # to the step without it, and the policy to the JAX package's
+        from mxnet_tpu import executor as jexec
+        from mxnet_tpu_torch import executor as texec
+        assert texec.backward_mirror_policy() == \
+            jexec.backward_mirror_policy() == "dots"
+        tr = ShardedTrainer(net, device="cpu")
+        assert tr._built_remat == "dots"
+        start = tr.init_state(SHAPES)
+        got = tr.step(*start, _batches(1)[0])[0]
+        monkeypatch.delenv(var)
+        ref = ShardedTrainer(net, device="cpu")
+        want = ref.step(*ref.init_state(SHAPES), _batches(1)[0])[0]
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        return
     try:
         with pytest.raises(NotPortedYet):
             ShardedTrainer(net, device="cpu")
