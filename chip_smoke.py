@@ -26,7 +26,9 @@ through ``ShardedTrainer(param_dtype="float16")`` with a dynamic loss
 scale on the flash kernels in f16 — and the recommender on bf16 tables,
 the optimizers of ``mxnet_tpu_torch.optimizer`` through ``Module.fit``
 (the full-width LM with Adam) and a checkpoint resumed — and the LM over
-length buckets through ``BucketingModule.fit``, with remat — and holds every
+length buckets through ``BucketingModule.fit``, with remat — and the LM
+and ResNet-50 through Gluon (``autograd.record``, a hybridized
+``SymbolBlock`` or model-zoo net, ``gluon.Trainer``) — and holds every
 hand-written kernel of those paths against its plain PyTorch version on
 the card.
 Phases, in order:
@@ -243,7 +245,29 @@ Phases, in order:
     gradients against ``none`` (1e-5 of each tensor's largest
     magnitude; the einsum backward 5e-2, beside the flash and einsum
     backward's distance from float64), ``full``'s peak below
-    ``none``'s.
+    ``none``'s;
+31. autograd and Gluon: (a) ``nd.contrib.fused_attention`` under
+    ``autograd.record`` at (8, 1024, 12, 64) f32 with q, k and v marked
+    (``attach_grad``), then only q (``mark_variables``): the output and
+    the gradients against autograd through the plain einsum on the card
+    (phase 6's tolerances), one launch each of B1, B2a and B2b per
+    recording; (b) the LM's logits (``get_internals()["head_output"]``)
+    as a hybridized ``gluon.SymbolBlock`` trained by
+    ``SoftmaxCrossEntropyLoss``, ``autograd.record``, ``backward`` and
+    ``gluon.Trainer("sgd", kvstore="device")``: one step of the small LM
+    (L2, hidden 128, T 1024, vocab 1000, batch 2) on the card against the
+    CPU (phase 7's tolerances; the key weights norm-wise) and its
+    gradients under ``set_backward_mirror("dots")`` equal to ``none``'s,
+    then the full-width LM with phase 8's weights (2 warm-up and 10
+    timed steps, CUDA events at each step's end): tokens/s beside phase
+    8's ``ShardedTrainer``, host ms in ``Trainer.step``, the idle share
+    of a profiled step, peak memory with the loss freed each step and
+    kept until the next, 12 launches of each flash kernel per step, the
+    cross-entropy falling; (c) one hybridized ``resnet18_v1`` step
+    (32x32, batch 4) card against CPU (phase 18's norm-wise tolerance),
+    then ``model_zoo.vision.resnet50_v1`` at 224x224, batch 32, f32
+    through ``Trainer``: images/s over 5 timed steps, idle share, peak
+    memory, and phase 19's training check on a fresh net at lr 0.01.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -4726,6 +4750,462 @@ def phase_bucketing(torch, mx, kernels, F, card):
     return got
 
 
+# -- phase 31: autograd and Gluon ---------------------------------------------
+
+FLASH_KEYS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def gluon_flash(torch, mx, kernels, card, shape=(8, 1024, 12, 64),
+                dev="cuda"):
+    """31a: ``nd.contrib.fused_attention`` under ``autograd.record`` with
+    q, k and v marked, then with only q marked: the output and the marked
+    gradients against autograd through the plain einsum formulation on
+    the same device (phase 6's tolerances), one launch each of B1, B2a
+    and B2b per recording.  Returns the launches of both."""
+    from mxnet_tpu_torch.ops.nn import _attention_einsum
+    ctx = mx.gpu(0) if dev == "cuda" else mx.cpu()
+    rs = np.random.RandomState(31)
+    host = [rs.randn(*shape).astype(np.float32) for _ in range(4)]
+    scale = 1.0 / float(shape[-1]) ** 0.5
+    t = [torch.from_numpy(a).to(dev).requires_grad_() for a in host[:3]]
+    ref = _attention_einsum(*t, True, scale)
+    want = dict(zip("qkv", torch.autograd.grad(
+        ref, t, torch.from_numpy(host[3]).to(dev))))
+    ref = ref.detach()
+    del t
+    total = {}
+    for marked in ("qkv", "q"):
+        q, k, v, do = [mx.nd.array(a, ctx=ctx) for a in host]
+        named = dict(q=q, k=k, v=v)
+        if marked == "qkv":
+            for n in marked:
+                named[n].attach_grad()
+            bufs = [named[n].grad for n in marked]
+        else:
+            bufs = [mx.nd.zeros(q.shape, ctx=ctx)]
+            mx.autograd.mark_variables([q], bufs)
+        kernels.reset_launches()
+        with mx.autograd.record():
+            o = mx.nd.contrib.fused_attention(q, k, v, causal=True)
+        o.backward(do)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        for key in FLASH_KEYS:
+            total[key] = total.get(key, 0) + got.get(key, 0)
+        errs = {"out": (o._handle - ref).abs().max().item()}
+        tols = {"out": 1e-5}
+        for n, buf in zip(marked, bufs):
+            errs["d" + n] = (buf._handle - want[n]).abs().max().item()
+            tols["d" + n] = 1e-4 * max(1.0, want[n].abs().max().item())
+        log("31a fused_attention under autograd.record, %s marked, (B, T, "
+            "H, D) = %s f32: max_abs_err %s against autograd of the einsum "
+            "(tolerances: out 1e-5 absolute, gradients 1e-4 x max(1, "
+            "max|ref|), phase 6's); launches %s [%s]"
+            % (marked, shape, ", ".join("%s=%.3g/%.3g" % (n, errs[n], tols[n])
+                                        for n in errs),
+               {k: got.get(k, 0) for k in FLASH_KEYS}, card))
+        check(all(errs[n] <= tols[n] for n in errs),
+              "31a: fused_attention under autograd disagrees with the "
+              "plain formulation (%s marked)" % marked)
+        if dev == "cuda":
+            for key in FLASH_KEYS:
+                check(got.get(key, 0) == 1, "31a: %s launched %d times, "
+                      "want 1 (%s marked)" % (key, got.get(key, 0), marked))
+        del q, k, v, do, o, bufs, named
+    return total
+
+
+def gluon_lm_block(mx, cfg):
+    """The LM's logits (N, T, vocab) as a SymbolBlock over ``data``."""
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    net = get_symbol(**cfg).get_internals()["head_output"]
+    return mx.gluon.SymbolBlock(net, mx.sym.var("data"))
+
+
+def gluon_step(mx, net, trainer, loss_fn, x, y, batch):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(batch)
+    return loss
+
+
+GLUON_LM_SMALL = dict(vocab_size=1000, seq_len=1024, num_layers=2,
+                      hidden=128, heads=2)
+
+
+def gluon_lm_parity(torch, mx, kernels, convert, card, cfg=GLUON_LM_SMALL,
+                    batch=2):
+    """31b, card against CPU: one SymbolBlock + Trainer step of the small
+    LM (T 1024, so the card's attention runs the flash kernels) from one
+    seeded start, each parameter's update within 1e-3 of its largest
+    change and the loss within 1e-4; then the card's gradients under
+    ``set_backward_mirror("dots")`` against ``none``'s."""
+    T = cfg["seq_len"]
+    batch_np = lm_batch(cfg["vocab_size"], batch, T, seed=17)
+    mx.random.seed(3)
+    with mx.cpu():
+        start = gluon_lm_block(mx, cfg)
+        start.collect_params().initialize(mx.init.Xavier(), ctx=mx.cpu())
+        start.infer_shape(mx.nd.array(batch_np["data"]))
+        for p in start.collect_params().values():
+            p._finish_deferred_init()
+    arrays = {k: p.data().asnumpy()
+              for k, p in start.collect_params().items()}
+    del start
+    result = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = gluon_lm_block(mx, cfg)
+        convert.gluon_params_from_numpy(net.collect_params(), arrays,
+                                        ctx=ctx)
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.01, "momentum": 0.9},
+                                   kvstore="device")
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        x = mx.nd.array(batch_np["data"], ctx=ctx)
+        y = mx.nd.array(batch_np["softmax_label"], ctx=ctx)
+        t0 = time.perf_counter()
+        loss = gluon_step(mx, net, trainer, loss_fn, x, y, batch)
+        loss = float(loss.asnumpy().mean())
+        dt = time.perf_counter() - t0
+        result[ctx.device_type] = (
+            {k: p.data().asnumpy() - arrays[k]
+             for k, p in net.collect_params().items()}, loss, dt)
+        log("31b SymbolBlock + Trainer step %s L%d h%d T%d V%d batch %d: "
+            "%.2f s, loss %.6f" % (ctx, cfg["num_layers"], cfg["hidden"], T,
+                                   cfg["vocab_size"], batch, dt, loss))
+    worst = k_worst = 0.0
+    for name, want in result["cpu"][0].items():
+        got = result["gpu"][0][name]
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if name.endswith("_k_bias"):
+            # no gradient (the softmax ignores a per-row shift): both are
+            # rounding noise of zero, held to the key weight's update
+            limit = 1e-3 * float(np.abs(result["cpu"][0][
+                name[:-len("bias")] + "weight"]).max())
+            check(max(scale, float(np.abs(got).max())) <= limit,
+                  "31b: %s moved by more than %.3g" % (name, limit))
+            continue
+        if name.endswith("_k_weight"):
+            # the same shift invariance: the key rows' gradients sum to
+            # zero per head, so the key weight's gradient is what is left
+            # of a sum over B*T rows of dK that cancels, and the dK/dV
+            # kernel's rounding (within phase 6's tolerance) stays whole
+            # in it.  Held norm-wise, as phase 18 holds its ill-
+            # conditioned tensors: within 1e-3 of the update's norm.
+            nerr = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            k_worst = max(k_worst, nerr)
+            log("31b %s: max_abs_err %.3g of its largest update, norm-wise "
+                "%.3g" % (name, err / scale, nerr))
+            check(nerr <= 1e-3, "31b: update of %s on the card differs "
+                  "from the CPU norm-wise by %.3g (tolerance 1e-3)"
+                  % (name, nerr))
+            continue
+        worst = max(worst, err / scale)
+        check(err <= 1e-3 * scale, "31b: update of %s on the card differs "
+              "from the CPU by %.3g, its largest update is %.3g"
+              % (name, err, scale))
+    lc, lh = result["gpu"][1], result["cpu"][1]
+    log("31b step card vs cpu: updates agree per tensor within %.3g of its "
+        "largest update (tolerance 1e-3, as phase 7; the key weights "
+        "norm-wise within %.3g, tolerance 1e-3; the key biases, whose "
+        "gradient is zero, within 1e-3 of the key weight's); "
+        "loss %.6f vs %.6f (tolerance 1e-4 relative) [%s]"
+        % (worst, k_worst, lc, lh, card))
+    check(abs(lc - lh) <= 1e-4 * abs(lh), "31b: loss on the card differs "
+          "from the CPU")
+    # remat (set_backward_mirror) applies to a hybridized block: same
+    # gradients
+    net = gluon_lm_block(mx, cfg)
+    convert.gluon_params_from_numpy(net.collect_params(), arrays,
+                                    ctx=mx.gpu(0))
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = mx.nd.array(batch_np["data"], ctx=mx.gpu(0))
+    y = mx.nd.array(batch_np["softmax_label"], ctx=mx.gpu(0))
+    grads, peaks = {}, {}
+    try:
+        for policy in ("none", "dots"):
+            mx.set_backward_mirror(policy)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            del loss
+            torch.cuda.synchronize()
+            peaks[policy] = torch.cuda.max_memory_allocated()
+            grads[policy] = {k: p.grad().asnumpy()
+                             for k, p in net.collect_params().items()}
+    finally:
+        mx.set_backward_mirror(None)
+    gap = max(float(np.abs(grads["dots"][k] - g).max()) /
+              max(float(np.abs(g).max()), 1e-30)
+              for k, g in grads["none"].items())
+    log("31b remat on the hybridized block: 'dots' gradients within %.3g "
+        "of 'none''s relative to each tensor's largest (tolerance 1e-5); "
+        "peak %.3f GB vs %.3f GB [%s]" % (gap, peaks["dots"] / 1e9,
+                                          peaks["none"] / 1e9, card))
+    check(gap <= 1e-5, "31b: remat changed the hybridized block's "
+          "gradients")
+
+
+def gluon_lm_full(torch, mx, kernels, get_symbol, ShardedTrainer,
+                  trainer_ms, card, warm=2, timed=10):
+    """31b at full width: the LM's logits as a hybridized SymbolBlock with
+    phase 8's weights (``init_state(seed=0)``), SoftmaxCrossEntropyLoss
+    and ``gluon.Trainer("sgd", kvstore="device")`` at batch 8; returns the
+    launches of the timed loop."""
+    cfg = TRAIN
+    B, T, L = 8, cfg["seq_len"], cfg["num_layers"]
+    tr = ShardedTrainer(get_symbol(**cfg), lr=1e-4, momentum=0.9, wd=0.0)
+    params, _mom, _aux = tr.init_state({"data": (B, T),
+                                        "softmax_label": (B, T)}, seed=0)
+    net = gluon_lm_block(mx, cfg)
+    pd = net.collect_params()
+    for name, t in zip(tr.param_names, params):
+        pd[name]._load_init(mx.nd.NDArray(t), mx.gpu(0))
+    del tr, params, _mom
+    check(all(p._data is not None for p in pd.values()),
+          "31b: a parameter of the SymbolBlock got no weight")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(pd, "sgd", {"learning_rate": 1e-4,
+                                           "momentum": 0.9},
+                               kvstore="device")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    batch = lm_batch(cfg["vocab_size"], B, T, seed=0)
+    x = mx.nd.array(batch["data"], ctx=mx.gpu(0))
+    y = mx.nd.array(batch["softmax_label"], ctx=mx.gpu(0))
+
+    def ce():
+        return float(loss_fn(net(x), y).asnumpy().mean())
+
+    ce0 = ce()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ends = [torch.cuda.Event(enable_timing=True)
+            for _ in range(warm + timed + 1)]
+    step_host = []
+    ends[0].record()
+    for i in range(warm + timed):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        t0 = time.perf_counter()
+        trainer.step(B)
+        step_host.append((time.perf_counter() - t0) * 1e3)
+        del loss
+        ends[i + 1].record()
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    steps = warm + timed
+    peak = torch.cuda.max_memory_allocated()
+    ms = [ends[i].elapsed_time(ends[i + 1]) for i in range(warm, steps)]
+    med = statistics.median(ms)
+    # the same loop with the loss kept until the next one is made: the
+    # graph kept for a second backward lives as long as the loss does
+    torch.cuda.reset_peak_memory_stats()
+    loss = None
+    for _ in range(2):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(B)
+    torch.cuda.synchronize()
+    peak_kept = torch.cuda.max_memory_allocated()
+    del loss
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gluon_step(mx, net, trainer, loss_fn, x, y, B)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_by_kernel(prof)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    ce1 = ce()
+    log("31b launches over %d Gluon steps: %s" % (steps, {
+        k: got.get(k, 0) for k in FLASH_KEYS}))
+    for key in FLASH_KEYS:
+        check(got.get(key, 0) == L * steps, "31b: %s launched %d times "
+              "over %d steps, want %d" % (key, got.get(key, 0), steps,
+                                           L * steps))
+    log("31b Gluon LM L%d h%d V%d T%d batch %d f32 (SymbolBlock, "
+        "hybridized; autograd.record, backward, Trainer.step, kvstore "
+        "'device'): timed %s ms; median %.1f ms (spread %.1f-%.1f) = %.0f "
+        "tokens/s; ShardedTrainer.step %.1f ms (%.0f tokens/s, phase 8); "
+        "host ms in Trainer.step (%d per-key updates) median %.1f; "
+        "device busy %s of the profiled step's %.1f ms (idle share %s); "
+        "peak memory %.2f GB with the loss freed each step, %.2f GB with "
+        "it kept until the next; cross-entropy of the repeated batch %.4f "
+        "-> %.4f after %d steps [%s]"
+        % (L, cfg["hidden"], cfg["vocab_size"], T, B,
+           ", ".join("%.1f" % m for m in ms), med, min(ms), max(ms),
+           B * T / med * 1e3, trainer_ms, B * T / trainer_ms * 1e3,
+           len(pd), statistics.median(step_host[warm:]),
+           "%.1f ms" % busy_ms if by_kernel else "not measured", prof_ms,
+           "%.3f" % (1 - busy_ms / prof_ms) if by_kernel else
+           "not measured", peak / 1e9, peak_kept / 1e9, ce0, ce1,
+           steps + 3, card))
+    check(np.isfinite(ce0) and np.isfinite(ce1) and ce1 < ce0,
+          "31b: the cross-entropy of the repeated batch did not fall "
+          "(%.4f -> %.4f)" % (ce0, ce1))
+    return got
+
+
+def gluon_resnet_parity(torch, mx, convert, card):
+    """31c, card against CPU: one hybridized ``resnet18_v1`` step (32x32,
+    batch 4, SoftmaxCrossEntropyLoss, SGD momentum 0.9, wd 1e-4) from one
+    seeded start; the updates norm-wise within 1e-2 (phase 18's
+    tolerance for the 7x7 stem and max pool, where a ReLU or max-pool
+    tie can go another way on the two devices), the loss within 1e-4."""
+    rs = np.random.RandomState(19)
+    X = rs.randn(4, 3, 32, 32).astype(np.float32)
+    Y = rs.randint(0, 10, 4).astype(np.float32)
+    mx.random.seed(4)
+    with mx.cpu():
+        with mx.name.NameManager():
+            start = mx.gluon.model_zoo.vision.resnet18_v1(classes=10)
+        start.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        start(mx.nd.array(X))
+    arrays = {k: p.data().asnumpy() for k, p in
+              start.collect_params().items()}
+    del start
+    upd, losses = {}, {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with mx.name.NameManager():
+            net = mx.gluon.model_zoo.vision.resnet18_v1(classes=10)
+        convert.gluon_params_from_numpy(net.collect_params(), arrays,
+                                        ctx=ctx)
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9,
+                                    "wd": 1e-4})
+        loss = gluon_step(mx, net, trainer,
+                          mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                          mx.nd.array(X, ctx=ctx), mx.nd.array(Y, ctx=ctx),
+                          4)
+        losses[ctx.device_type] = float(loss.asnumpy().mean())
+        upd[ctx.device_type] = np.concatenate([
+            (p.data().asnumpy() - arrays[k]).ravel()
+            for k, p in net.collect_params().items()])
+    gap = float(np.linalg.norm(upd["gpu"] - upd["cpu"]) /
+                np.linalg.norm(upd["cpu"]))
+    log("31c resnet18_v1 32x32 batch 4, one Gluon step card vs cpu: the "
+        "updates norm-wise %.3g apart (tolerance 1e-2, phase 18's for the "
+        "imagenet stem); loss %.6f vs %.6f (tolerance 1e-4 relative) [%s]"
+        % (gap, losses["gpu"], losses["cpu"], card))
+    check(gap <= 1e-2, "31c: resnet18_v1 step card vs cpu")
+    check(abs(losses["gpu"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"]),
+          "31c: resnet18_v1 loss card vs cpu")
+
+
+def gluon_resnet50_net(mx, X):
+    with mx.name.NameManager():
+        net = mx.gluon.model_zoo.vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.hybridize()
+    net(X)           # the deferred shapes, then the weights
+    return net
+
+
+def gluon_resnet50(torch, mx, card, warm=2, timed=5, batch=RESNET_BATCH):
+    """31c at full width: ``resnet50_v1(classes=1000)`` hybridized at
+    224x224, batch 32, f32 (cuDNN, TF32 off), SGD lr 0.1, momentum 0.9,
+    wd 1e-4: images/s, idle share of a profiled step, peak memory; then
+    the training check of phase 19 (RESNET_CHECK) on a fresh net."""
+    torch.backends.cudnn.benchmark = True
+    rs = np.random.RandomState(0)
+    X = mx.nd.array(rs.randn(batch, 3, 224, 224).astype(np.float32),
+                    ctx=mx.gpu(0))
+    Y = mx.nd.array(rs.randint(0, 1000, batch).astype(np.float32),
+                    ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mx.random.seed(0)
+    net = gluon_resnet50_net(mx, X)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-4})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = [torch.cuda.Event(enable_timing=True)
+            for _ in range(warm + timed + 1)]
+    ends[0].record()
+    for i in range(warm + timed):
+        gluon_step(mx, net, trainer, loss_fn, X, Y, batch)
+        ends[i + 1].record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [ends[i].elapsed_time(ends[i + 1])
+          for i in range(warm, warm + timed)]
+    med = statistics.median(ms)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gluon_step(mx, net, trainer, loss_fn, X, Y, batch)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_by_kernel(prof)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    log("31c Gluon resnet50_v1 224x224 batch %d f32 (hybridized, cuDNN, "
+        "TF32 off; Trainer sgd lr 0.1 momentum 0.9 wd 1e-4): timed %s ms; "
+        "median %.1f ms = %.1f images/s; device busy %s of the profiled "
+        "step's %.1f ms (idle share %s); peak memory %.2f GB [%s]"
+        % (batch, ", ".join("%.1f" % m for m in ms), med,
+           batch / med * 1e3,
+           "%.1f ms" % busy_ms if by_kernel else "not measured", prof_ms,
+           "%.3f" % (1 - busy_ms / prof_ms) if by_kernel else
+           "not measured", peak / 1e9, card))
+    del net, trainer
+    torch.cuda.empty_cache()
+    # the training check on a fresh net at RESNET_CHECK's lr (the lr 0.1
+    # loop may spike by chance, ROADMAP / PERF.md)
+    mx.random.seed(0)
+    net = gluon_resnet50_net(mx, X)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": RESNET_CHECK["lr"],
+                                "momentum": 0.9, "wd": 1e-4})
+    ces = []
+    for _ in range(RESNET_CHECK["steps"]):
+        loss = gluon_step(mx, net, trainer, loss_fn, X, Y, batch)
+        ces.append(float(loss.asnumpy().mean()))
+        del loss
+    with mx.autograd.train_mode():
+        ces.append(float(loss_fn(net(X), Y).asnumpy().mean()))
+    log("31c training check: a fresh net at lr %g, cross-entropy of the "
+        "repeated batch by step (training-mode forwards) %s; must fall by "
+        "%.1f [%s]" % (RESNET_CHECK["lr"], ", ".join("%.3f" % c
+                                                     for c in ces),
+                       RESNET_CHECK["margin"], card))
+    check(np.all(np.isfinite(ces)) and
+          ces[-1] <= ces[0] - RESNET_CHECK["margin"],
+          "31c: the Gluon ResNet-50 did not learn the repeated batch")
+    del net, trainer
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_gluon(torch, mx, kernels, convert, get_symbol, ShardedTrainer,
+                trainer_ms, card):
+    """Phase 31: 31a-31c; returns the launches of 31a and of 31b's timed
+    Gluon loop, the main path."""
+    got_a = gluon_flash(torch, mx, kernels, card)
+    torch.cuda.empty_cache()
+    gluon_lm_parity(torch, mx, kernels, convert, card)
+    torch.cuda.empty_cache()
+    got_b = gluon_lm_full(torch, mx, kernels, get_symbol, ShardedTrainer,
+                          trainer_ms, card)
+    torch.cuda.empty_cache()
+    gluon_resnet_parity(torch, mx, convert, card)
+    gluon_resnet50(torch, mx, card)
+    return got_a, got_b
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5019,6 +5499,11 @@ def main():
 
     with phase("30 BucketingModule and remat at full width"):
         launches["bucketing"] = phase_bucketing(torch, mx, kernels, F, card)
+
+    with phase("31 autograd and Gluon at full width"):
+        launches["gluon_flash"], launches["gluon"] = phase_gluon(
+            torch, mx, kernels, convert, get_symbol, ShardedTrainer,
+            trainer_ms, card)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

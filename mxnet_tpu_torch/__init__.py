@@ -37,13 +37,20 @@ Ported so far (ROADMAP.md), slice by slice:
   (ResNet-50 on cuDNN) through ``ShardedTrainer`` and ``Module.fit``;
 * bench.py's bf16 configuration and MXNet's float16 recipe
   (``param_dtype``, ``sgd_step_fn``, ``build_step_auto_layout``, the
-  flash kernels in bf16 and f16).
+  flash kernels in bf16 and f16);
+* autograd and Gluon -- ``mx.autograd`` (``record``, ``backward``,
+  ``Function``), ``mx.nd.contrib``, ``mx.contrib.autograd``, CustomOp
+  (``mx.operator``), ``mx.gluon`` (blocks and ``hybridize``, parameters,
+  ``Trainer``, the layers, losses and the vision model zoo) and
+  ``mx.test_utils``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
 ``mx.sym``, ``mx.kv``, ``mx.io``, ``mx.mod``, ``mx.metric``, ``mx.init``,
 ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.callback``, ``mx.random``,
-``mx.rtc``, ``mx.engine``, ``mx.cpu`` / ``mx.gpu``) are loaded on
+``mx.rtc``, ``mx.engine``, ``mx.autograd``, ``mx.gluon``,
+``mx.contrib``, ``mx.operator``, ``mx.test_utils``, ``mx.cpu`` /
+``mx.gpu``) are loaded on
 first use, so ``import mxnet_tpu_torch`` imports no torch.
 """
 import importlib as _importlib
@@ -58,7 +65,8 @@ __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
            "FeedForward", "DataParallelExecutorManager",
            "set_backward_mirror", "backward_mirror_policy", "name",
            "attribute", "executor", "executor_manager", "rnn", "parallel",
-           "sparse", "serving", "resilience", "telemetry"]
+           "sparse", "serving", "resilience", "telemetry", "autograd",
+           "gluon", "contrib", "operator", "test_utils"]
 
 # attribute -> (module, name in it or None for the module itself)
 _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
@@ -93,7 +101,10 @@ _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
          "rnn": ("rnn", None), "parallel": ("parallel", None),
          "sparse": ("sparse", None), "serving": ("serving", None),
          "resilience": ("resilience", None),
-         "telemetry": ("telemetry", None)}
+         "telemetry": ("telemetry", None),
+         "autograd": ("autograd", None), "gluon": ("gluon", None),
+         "contrib": ("contrib", None), "operator": ("operator", None),
+         "test_utils": ("test_utils", None)}
 
 
 def __getattr__(name):

@@ -32,6 +32,11 @@ port Module's ``arg_params`` / ``aux_params`` (host NDArrays, as
 ``Module.get_params`` keeps them), so both packages train from one
 start.  :func:`kvstore_state_to_numpy` reads a port ``KVStore``'s
 per-key two-bit residuals and optimizer states back to host arrays.
+
+A JAX Gluon block's parameters are ``{name: array}`` by the full
+parameter names (``hybridsequential0_dense0_weight``), which the port's
+blocks give too; :func:`gluon_params_from_numpy` fills a port
+``ParameterDict`` from them.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ __all__ = ["from_jax_params", "is_quantized", "trainer_state_from_numpy",
            "trainer_state_to_numpy", "recommender_state_from_numpy",
            "tensor_from_host", "tensor_to_host",
            "recommender_state_to_numpy", "module_params_from_numpy",
-           "kvstore_state_to_numpy"]
+           "kvstore_state_to_numpy", "gluon_params_from_numpy"]
 
 # dtypes a decode parameter may have: f32 everywhere except the quantized
 # payloads
@@ -262,3 +267,27 @@ def kvstore_state_to_numpy(kv):
             "states": {} if updater is None or not hasattr(updater,
                                                            "states") else
             {k: host(s) for k, s in updater.states.items()}}
+
+
+def gluon_params_from_numpy(params, arrays: Mapping, ctx=None):
+    """Fill the port ``ParameterDict`` ``params`` from a JAX block's
+    ``{name: array}`` (host arrays, or anything with ``asnumpy``): every
+    parameter takes its array, cast to its dtype, on its context (a
+    parameter not yet initialized: on ``ctx``, default the current
+    context).  A name of ``params`` missing from ``arrays``, or an array
+    of another shape than a known one, raises."""
+    missing = [name for name in params.keys() if name not in arrays]
+    if missing:
+        raise MXNetError("gluon_params_from_numpy: no array for %s"
+                         % missing)
+    for name, p in params.items():
+        value = arrays[name]
+        host = np.asarray(value.asnumpy() if hasattr(value, "asnumpy")
+                          else value)
+        if p.shape is not None and 0 not in p.shape and \
+                tuple(p.shape) != host.shape:
+            raise MXNetError("gluon_params_from_numpy: %s is %s here and "
+                             "%s in the arrays" % (name, tuple(p.shape),
+                                                   host.shape))
+        p._load_init(host.astype(np.dtype(p.dtype), copy=False), ctx)
+    return params

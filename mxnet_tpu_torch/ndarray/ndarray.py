@@ -13,15 +13,25 @@ alias its input, ``identity`` or ``Reshape``, is copied).  Code that
 must not let an in-place update reach an array its caller holds copies
 first (``KVStore.init`` clones, ``pull`` copies).
 
-Ops run through :func:`imperative_invoke`: parse the attrs, hand a
-``needs_rng`` op its device's generator, apply the op to the tensors
-under ``torch.no_grad``, and write each declared ``writeback`` output
-into its input in place.  An op with no tensor input creates its output
-on ``ctx`` (default: the current context, the card).
+Ops run through :func:`imperative_invoke`: parse the attrs (a
+mode-dependent op takes ``_train`` from :func:`autograd.is_training`),
+hand a ``needs_rng`` op its device's generator, apply the op to the
+tensors (with grad enabled only while :func:`autograd.record` is on,
+where a marked variable enters as its leaf), and write each declared
+``writeback`` output into its input in place, never recorded.  An op
+with no tensor input creates its output on ``ctx`` (default: the current
+context, the card).
 
-Not ported (raising :class:`~mxnet_tpu_torch.base.NotPortedYet`):
-autograd (``attach_grad``, ``backward``, ``grad``: ROADMAP A6), sparse
-storage (``tostype``: A9) and the profiler hook of ``imperative_invoke``.
+Autograd (:mod:`mxnet_tpu_torch.autograd`): ``attach_grad`` marks an
+array, ``backward`` writes the gradients into the marked arrays'
+``grad`` buffers.  A write into an array that a recording used
+(``__setitem__``, ``+=``, ``copyto``) rebinds it to a written copy, so
+the recorded graph keeps the values it saw, as the JAX package's
+rebinding does.
+
+Not ported (raising :class:`~mxnet_tpu_torch.base.NotPortedYet`): sparse
+storage (``tostype``: ROADMAP queue A item 5, sparse storage) and the
+profiler hook of ``imperative_invoke`` (item 9, observability).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import autograd as _ag
 from .. import rng as _rng
 from ..base import (MXNetError, NotPortedYet, _Null, dtype_name, dtype_np,
                     dtype_torch)
@@ -42,21 +53,20 @@ __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "stack_nd"]
 
 
-def _unported_autograd(what):
-    return NotPortedYet("NDArray.%s: autograd is not ported yet (ROADMAP "
-                        "A6)" % what)
-
-
 class NDArray:
     """A torch tensor with the reference NDArray's interface."""
 
-    __slots__ = ("_handle", "__weakref__")
+    # _ag: the autograd record of a marked variable (None if unmarked);
+    # _recorded: a recording op has read this array
+    __slots__ = ("_handle", "_ag", "_recorded", "__weakref__")
 
     def __init__(self, handle):
         if not isinstance(handle, torch.Tensor):
             raise TypeError("NDArray wraps a torch.Tensor, got %s"
                             % type(handle).__name__)
         self._handle = handle
+        self._ag = None
+        self._recorded = False
 
     # -- properties -------------------------------------------------------
     @property
@@ -133,7 +143,7 @@ class NDArray:
             if other.shape != self.shape:
                 raise MXNetError("copyto: shape %s into %s"
                                  % (self.shape, other.shape))
-            other._handle.copy_(self._handle)
+            other._write(self._handle)
             return other
         if isinstance(other, Context):
             return NDArray(self._handle.to(other.torch_device, copy=True))
@@ -145,24 +155,51 @@ class NDArray:
         return self.copyto(context)
 
     def detach(self) -> "NDArray":
-        return NDArray(self._handle)
+        """The same values outside any recorded graph."""
+        return NDArray(self._handle.detach())
 
     def tostype(self, stype: str):
         if stype == "default":
             return self
         raise NotPortedYet("NDArray.tostype(%r): sparse storage is not "
-                           "ported yet (ROADMAP A9)" % (stype,))
+                           "ported yet (ROADMAP queue A item 5, sparse "
+                           "storage)" % (stype,))
 
-    # -- autograd (ROADMAP A6) --------------------------------------------
+    # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
-        raise _unported_autograd("attach_grad")
+        """Mark this array for :func:`autograd.backward`, with a zeroed
+        gradient buffer of its shape, dtype and device."""
+        if stype not in (None, "default"):
+            raise NotPortedYet("attach_grad(stype=%r): sparse gradients "
+                               "are not ported yet (ROADMAP queue A item "
+                               "5, sparse storage)" % (stype,))
+        _ag.mark_variables([self], [NDArray(torch.zeros_like(
+            self._handle.detach()))], grad_req)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
-        raise _unported_autograd("backward")
+        _ag.backward([self], [out_grad] if out_grad is not None else None,
+                     retain_graph=retain_graph, train_mode=train_mode)
 
     @property
     def grad(self):
-        raise _unported_autograd("grad")
+        return self._ag.grad if self._ag is not None else None
+
+    def _in_graph(self) -> bool:
+        """A recording read this array, or it is a recorded result."""
+        return self._recorded or self._handle.requires_grad
+
+    def _write(self, src):
+        """This array's values become ``src``'s (cast to its dtype): in
+        place, or, where a recorded graph holds the tensor, by rebinding
+        to a written copy."""
+        with torch.no_grad():
+            if self._in_graph():
+                new = torch.empty_like(self._handle.detach())
+                new.copy_(src)
+                self._handle = new
+                self._recorded = False
+            else:
+                self._handle.copy_(src)
 
     # -- shape ops (method forms) -----------------------------------------
     def reshape(self, *shape, **kwargs) -> "NDArray":
@@ -343,12 +380,16 @@ class NDArray:
     def _inplace(self, out: "NDArray") -> "NDArray":
         """``self op= x``: the result written into this array's tensor;
         a result of another shape (a broadcast) or dtype (an integer
-        array plus a float: float64) rebinds the handle, as the
-        reference rebinds it."""
-        if out.shape == self.shape and out.dtype == self.dtype:
-            self._handle.copy_(out._handle)
+        array plus a float: float64), a recorded result, or an array a
+        recorded graph holds rebinds the handle, as the reference rebinds
+        it."""
+        if out.shape == self.shape and out.dtype == self.dtype \
+                and not out._handle.requires_grad and not self._in_graph():
+            with torch.no_grad():
+                self._handle.copy_(out._handle)
         else:
             self._handle = out._handle
+            self._recorded = out._recorded
         return self
 
     def __iadd__(self, o):
@@ -377,15 +418,26 @@ class NDArray:
             out = invoke_with_arrays("slice", [self], dict(
                 begin=begin, end=end, step=step))
             return NDArray(out._handle.squeeze(ints)) if ints else out
-        return NDArray(self._handle[_torch_key(key, self._handle.device)])
+        if _ag.is_recording():
+            self._recorded = True
+            return NDArray(_ag._leaf_of(self)[
+                _torch_key(key, self._handle.device)])
+        with torch.no_grad():
+            return NDArray(self._handle[_torch_key(key,
+                                                   self._handle.device)])
 
     def __setitem__(self, key, value):
-        """Writes into this array's tensor in place.  A key of integers
-        and slices with a negative step goes through ``_slice_assign`` /
-        ``_slice_assign_scalar``."""
+        """Writes into this array's tensor in place (into a written copy
+        that the array is rebound to, where a recorded graph holds the
+        tensor).  A key of integers and slices with a negative step goes
+        through ``_slice_assign`` / ``_slice_assign_scalar``."""
+        if self._in_graph():
+            with torch.no_grad():
+                self._handle = self._handle.detach().clone()
+            self._recorded = False
         t = self._handle
         if isinstance(value, NDArray):
-            value = value._handle.to(t.device)
+            value = value._handle.detach().to(t.device)
         elif not isinstance(value, (int, float, bool, np.number)):
             value = torch.as_tensor(np.asarray(value), dtype=t.dtype,
                                     device=t.device)
@@ -504,30 +556,50 @@ def _owned(out, inputs):
 
 def imperative_invoke(op: Operator, inputs: Sequence[NDArray],
                       kwargs: Dict[str, Any], out=None):
-    """Run ``op`` on NDArrays: parse the attrs, hand a ``needs_rng`` op its
-    device's generator (the first input's device, else ``ctx``), apply the
-    op, write each output the op declares as the new value of an input
-    (``writeback``: optimizer states, weights) into that input in place,
-    and return the visible outputs (one NDArray, or a list).  ``out``
-    receives the visible outputs by copy."""
+    """Run ``op`` on NDArrays: parse the attrs (``_train`` from the
+    autograd training flag), hand a ``needs_rng`` op its device's
+    generator (the first input's device, else ``ctx``), apply the op
+    (recorded while :func:`autograd.record` is on, unless it has
+    writebacks), write each output the op declares as the new value of an
+    input (``writeback``: optimizer states, weights) into that input in
+    place, and return the visible outputs (one NDArray, or a list).
+    ``out`` receives the visible outputs by copy (by rebinding, for a
+    recorded result)."""
     attrs = op.parse_attrs(kwargs)
     if op.mode_dependent:
-        attrs["_train"] = False     # no autograd recording: predict mode
-    tensors = [x._handle for x in inputs]
+        attrs["_train"] = _ag.is_training()
+    wb = op.writeback_map(attrs)
+    # an op that writes back its aux states (BatchNorm) is recorded; one
+    # that writes back its other inputs (the optimizer updates) is not
+    recording = _ag.is_recording() and \
+        set(wb) <= set(op.aux_input_indices(attrs))
+    if recording:
+        tensors = [_ag._leaf_of(x) for x in inputs]
+        for x in inputs:
+            x._recorded = True
+    else:
+        tensors = [x._handle for x in inputs]
     if tensors:
         device = tensors[0].device
     else:
         device = as_torch_device(kwargs.get("ctx"))
         attrs["_device"] = device
-    with torch.no_grad():
+    with torch.set_grad_enabled(recording):
         if op.needs_rng:
             outputs = op.fn(attrs, _rng.next_generator(device), *tensors)
         else:
             outputs = op.fn(attrs, *tensors)
         if not isinstance(outputs, tuple):
             outputs = (outputs,)
-        for i_in, i_out in op.writeback_map(attrs).items():
-            inputs[i_in]._handle.copy_(outputs[i_out])
+    with torch.no_grad():
+        for i_in, i_out in wb.items():
+            if recording:
+                # the aux array takes the new value itself (C14), so a
+                # recorded graph keeps the one it read
+                inputs[i_in]._handle = outputs[i_out].detach()
+                inputs[i_in]._recorded = False
+            else:
+                inputs[i_in]._handle.copy_(outputs[i_out])
     n_vis = op.num_visible_outputs(attrs)
     visible = [NDArray(_owned(o, tensors)) for o in outputs[:n_vis]]
     if out is not None:
@@ -536,7 +608,10 @@ def imperative_invoke(op: Operator, inputs: Sequence[NDArray],
             raise MXNetError("%s produces %d output(s) but %d out array(s) "
                              "given" % (op.name, len(visible), len(outs)))
         for o, v in zip(outs, visible):
-            o._handle.copy_(v._handle)
+            if v._handle.requires_grad:
+                o._handle, o._recorded = v._handle, True
+            else:
+                o._write(v._handle)
         return out
     return visible[0] if n_vis == 1 else visible
 
@@ -627,7 +702,7 @@ def full(shape, val, ctx=None, dtype=None, out=None) -> NDArray:
                             dtype=dtype_torch(dtype or "float32"),
                             device=as_torch_device(ctx)))
     if out is not None:
-        out._handle.copy_(nd._handle)
+        out._write(nd._handle)
         return out
     return nd
 

@@ -2,7 +2,8 @@
 of the imperative API and the LM graph (:mod:`.init_ops`,
 :mod:`.elemwise`, :mod:`.broadcast_reduce`, :mod:`.matrix`,
 :mod:`.random_ops`, :mod:`.nn`, with the parameter-shape hooks of
-:mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), and the
+:mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
+``Custom`` op of :mod:`mxnet_tpu_torch.operator`, and the
 hand-written CUDA kernels (:mod:`.kernels`) with their build
 (:mod:`.build`).
 
@@ -21,6 +22,8 @@ from . import registry, init_ops, elemwise, broadcast_reduce, matrix
 from . import random_ops, nn, shape_hints, optimizer_ops
 from .kernels import (LAUNCHES, decode_attention, flash_attention,
                       quant_matmul, quantize_weight)
+
+from .. import operator as _operator  # noqa: E402,F401  (the Custom op)
 
 _torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

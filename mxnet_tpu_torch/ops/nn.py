@@ -69,8 +69,16 @@ def _fc_inputs(attrs):
           params=dict(num_hidden=attr_int(required=True),
                       no_bias=attr_bool(False), flatten=attr_bool(True)))
 def _fully_connected(attrs, data, weight, bias=None):
+    """Data and weight of different dtypes meet in their promoted dtype
+    (float64 data with a float32 weight gives float64, int32 data
+    float32), as the JAX package's ``dot_general`` and ``+ bias`` give
+    them (C20)."""
     x = data.reshape(data.shape[0], -1) if attrs.flatten else data
-    return F.linear(x, weight, bias)
+    if x.dtype == weight.dtype and (bias is None or bias.dtype == x.dtype):
+        return F.linear(x, weight, bias)
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    out = F.linear(x.to(dt), weight.to(dt))
+    return out if bias is None else out + bias
 
 
 # ---------------------------------------------------------------------------

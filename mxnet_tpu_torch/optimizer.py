@@ -783,8 +783,16 @@ class Updater:
                      float(opt.clip_gradient or 0.0))
 
     def set_states(self, states):
-        self.states = pickle.loads(states) if isinstance(states, bytes) \
+        """Take the states :meth:`get_states` wrote; with
+        ``dump_optimizer`` that is the pair ``(states, optimizer)``, whose
+        optimizer replaces this updater's (as MXNet's
+        ``Updater.set_states`` does; the JAX package's takes only the
+        states)."""
+        states = pickle.loads(states) if isinstance(states, bytes) \
             else states
+        if isinstance(states, tuple) and len(states) == 2:
+            states, self.optimizer = states
+        self.states = states
         self.states_synced = {k: False for k in self.states}
 
     def get_states(self, dump_optimizer=False):

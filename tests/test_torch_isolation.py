@@ -1,8 +1,10 @@
 """The port stands alone and runs on the card unless told otherwise.
 
-* ``mxnet_tpu_torch`` and every one of its modules, and ``chip_smoke``,
-  import without pulling in ``jax`` or any of ``mxnet_tpu`` (checked in a
-  fresh interpreter, since this test process has both loaded);
+* ``mxnet_tpu_torch`` and every one of its modules (``gluon``,
+  ``autograd``, ``contrib`` and ``operator`` among them), and
+  ``chip_smoke``, import without pulling in ``jax`` or any of
+  ``mxnet_tpu`` (checked in a fresh interpreter, since this test process
+  has both loaded);
 * the entry points default to the card: without a CUDA device they raise
   a typed error instead of running on the CPU;
 * ``chip_smoke.py`` exits non-zero and prints no result without a card,
@@ -85,7 +87,16 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.ndarray.serialization",
                  "mxnet_tpu_torch.ops.init_ops",
                  "mxnet_tpu_torch.ops.elemwise",
-                 "mxnet_tpu_torch.ops.random_ops"):
+                 "mxnet_tpu_torch.ops.random_ops",
+                 "mxnet_tpu_torch.autograd", "mxnet_tpu_torch.operator",
+                 "mxnet_tpu_torch.test_utils", "mxnet_tpu_torch.contrib",
+                 "mxnet_tpu_torch.contrib.autograd",
+                 "mxnet_tpu_torch.ndarray.contrib",
+                 "mxnet_tpu_torch.gluon", "mxnet_tpu_torch.gluon.block",
+                 "mxnet_tpu_torch.gluon.trainer",
+                 "mxnet_tpu_torch.gluon.nn.conv_layers",
+                 "mxnet_tpu_torch.gluon.model_zoo.vision",
+                 "mxnet_tpu_torch.gluon.contrib.nn"):
         assert want in mods
 
 
@@ -99,7 +110,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "sys.path.insert(0, %r)" % os.path.join(ROOT, "tests"),
         "import torch_cases",
         "import mxnet_tpu_torch as mx",
-        "mods = (mx.nd, mx.random, mx.rtc, mx.engine, mx.nd.random)",
+        "mods = (mx.nd, mx.random, mx.rtc, mx.engine, mx.nd.random,",
+        "        mx.gluon, mx.autograd, mx.contrib, mx.operator,",
+        "        mx.test_utils, mx.nd.contrib, mx.gluon.model_zoo,",
+        "        mx.contrib.autograd)",
         "assert len([n for n in dir(mx.nd) if not n.startswith('__')]) > 250",
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'jaxlib'"

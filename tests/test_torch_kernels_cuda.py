@@ -21,7 +21,9 @@ takes, no host sync), a small decode step and a small
 recommender step on the card against the same steps on the CPU, a
 compressing KVStore push on the card, a Module that lands on the card
 when given no context, remat's gradients on the flash path equal to
-'none''s, and the imperative slice: the user kernels of
+'none''s, ``nd.contrib.fused_attention`` under ``autograd.record``
+through the flash kernels and a hybridized Gluon block's gradients card
+vs CPU, and the imperative slice: the user kernels of
 ``rtc.CudaModule`` against their plain versions (exactly), its errors,
 exports and large shared memory, every ``mx.nd`` op case on the card
 against the CPU, and ``nd.save`` / ``nd.load`` on the card.
@@ -1625,6 +1627,90 @@ def test_remat_gradients_on_card_equal_none(dev, policy):
     for n, want in grads["none"].items():
         np.testing.assert_allclose(grads[policy][n], want, rtol=1e-5,
                                    atol=1e-6, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# autograd and Gluon on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("marked", ["qkv", "q"], ids=["qkv", "q-only"])
+def test_fused_attention_under_autograd_runs_the_kernels(dev, marked):
+    """``nd.contrib.fused_attention`` under ``autograd.record`` at T 128
+    (``flash_min_seq`` 128): one launch each of B1, B2a and B2b, the
+    output and the marked arrays' gradients against the plain versions on
+    the same card (phase 6's tolerances: out 1e-5 absolute, gradients
+    1e-4 x max(1, max|ref|))."""
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(11)
+    host = [rs.randn(2, 128, 4, 32).astype(np.float32) for _ in range(4)]
+    q, k, v, do = [mx.nd.array(a, ctx=mx.gpu()) for a in host]
+    named = dict(q=q, k=k, v=v)
+    bufs = [mx.nd.zeros(named[n].shape, ctx=mx.gpu()) for n in marked]
+    mx.autograd.mark_variables([named[n] for n in marked], bufs)
+    kernels.reset_launches()
+    with mx.autograd.record():
+        o = mx.nd.contrib.fused_attention(q, k, v, causal=True,
+                                          flash_min_seq=128)
+    o.backward(do)
+    torch.cuda.synchronize()
+    for key in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv"):
+        assert kernels.LAUNCHES[key] == 1, (key, dict(kernels.LAUNCHES))
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dev) for a in host)
+    ref, lse = kernels.flash_attention_fwd_plain(tq, tk, tv, True)
+    refs = dict(zip("qkv", kernels.flash_attention_bwd_plain(
+        tq, tk, tv, ref, lse, tdo, True)))
+    assert (o._handle - ref).abs().max().item() <= 1e-5
+    for n, buf in zip(marked, bufs):
+        want = refs[n]
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (buf._handle - want).abs().max().item() <= tol, n
+
+
+def test_hybridized_block_gradients_on_card_match_cpu(dev):
+    """A hybridized Dense/BatchNorm block trained one recorded forward and
+    backward on the card and on the CPU from the same weights: outputs,
+    the parameters' gradients and the moving statistics within 1e-4 of
+    each tensor's largest magnitude (f32 both sides, cuBLAS/cuDNN vs the
+    CPU's kernels)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+
+    def make():
+        with mx.name.NameManager():
+            net = nn.HybridSequential()
+            with net.name_scope():
+                # the Dense before the BatchNorm has a ReLU between them:
+                # a bias straight before a BatchNorm gets no gradient
+                net.add(nn.Dense(16, in_units=12, activation="relu"),
+                        nn.BatchNorm(in_channels=16),
+                        nn.Dense(5, in_units=16))
+        return net
+
+    rs = np.random.RandomState(12)
+    x = rs.randn(8, 12).astype(np.float32)
+    cot = rs.randn(8, 5).astype(np.float32)
+    mx.random.seed(0)
+    cpu_net = make()
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    arrays = {k: p.data().asnumpy()
+              for k, p in cpu_net.collect_params().items()}
+    got = {}
+    for ctx, net in ((mx.cpu(), cpu_net), (mx.gpu(), make())):
+        if ctx.device_type == "gpu":
+            convert.gluon_params_from_numpy(net.collect_params(), arrays,
+                                            ctx=ctx)
+        net.hybridize()
+        with mx.autograd.record():
+            out = net(mx.nd.array(x, ctx=ctx))
+        out.backward(mx.nd.array(cot, ctx=ctx))
+        got[ctx.device_type] = dict(
+            out=out.asnumpy(),
+            **{k: (p.grad() if p.grad_req != "null" else p.data()).asnumpy()
+               for k, p in net.collect_params().items()})
+    for k, want in got["cpu"].items():
+        scale = max(np.abs(want).max(), 1e-6)
+        assert np.abs(got["gpu"][k] - want).max() <= 1e-4 * scale, k
 
 
 # ---------------------------------------------------------------------------

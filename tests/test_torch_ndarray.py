@@ -6,7 +6,7 @@ exactly for creation, data movement, indexing, comparisons and ordering,
 within 1e-6 of the largest magnitude for f32 arithmetic and reductions;
 dtypes and shapes equal.  Plus what is particular to the port: in-place
 writes through views, ``nd.load`` onto the given context, and the
-``NotPortedYet`` parts (autograd, sparse).
+``NotPortedYet`` parts (sparse, the unported contrib ops).
 """
 import struct
 
@@ -294,9 +294,15 @@ def test_save_load_reference_binary(tmp_path):
 def test_not_ported_parts_raise():
     with tmx.cpu():
         a = tmx.nd.ones((2,))
-        for call in (a.attach_grad, a.backward, lambda: a.grad,
-                     lambda: a.tostype("csr"), lambda: tmx.nd.sparse,
-                     lambda: tmx.nd.linalg, lambda: tmx.nd.contrib):
+        # autograd and mx.nd.contrib are ported (tests/test_torch_
+        # autograd.py); the JAX package's other contrib ops are not
+        assert a.grad is None
+        a.attach_grad()
+        assert a.grad.asnumpy().tolist() == [0.0, 0.0]
+        for call in (lambda: a.tostype("csr"), lambda: tmx.nd.sparse,
+                     lambda: tmx.nd.linalg,
+                     lambda: tmx.nd.contrib.box_nms,
+                     lambda: a.attach_grad(stype="row_sparse")):
             with pytest.raises(NotPortedYet):
                 call()
         with pytest.raises(MXNetError):

@@ -797,6 +797,14 @@ def _nn_dtype_cases():
     c["CTCLoss:int32"] = lambda rs: _case(
         [_small_i32(rs, 6, 3, 4), _f32([[1, 2, 2], [3, 0, 0], [0, 0, 0]])],
         tol=NN)
+    # C20: data and weight of different dtypes (gluon's float64 numpy
+    # inputs into float32 layers)
+    c["FullyConnected:f64-data"] = lambda rs: _case(
+        [np.asarray(rs.randn(3, 4), np.float64), _any(rs, 5, 4),
+         _any(rs, 5)], dict(num_hidden=5), grad=[0, 1, 2], tol=ARITH)
+    c["FullyConnected:int32-data"] = lambda rs: _case(
+        [_small_i32(rs, 3, 4), _any(rs, 5, 4), _any(rs, 5)],
+        dict(num_hidden=5), grad=[1, 2], tol=ARITH)
     c["LeakyReLU:gelu-int32"] = lambda rs: _case(
         [_small_i32(rs, 3, 4)], dict(act_type="gelu"), tol=TRANSC)
     c["Activation:gelu-int32"] = lambda rs: _case(
