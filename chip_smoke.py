@@ -28,9 +28,11 @@ the optimizers of ``mxnet_tpu_torch.optimizer`` through ``Module.fit``
 (the full-width LM with Adam) and a checkpoint resumed — and the LM over
 length buckets through ``BucketingModule.fit``, with remat — and the LM
 and ResNet-50 through Gluon (``autograd.record``, a hybridized
-``SymbolBlock`` or model-zoo net, ``gluon.Trainer``) — and holds every
-hand-written kernel of those paths against its plain PyTorch version on
-the card.
+``SymbolBlock`` or model-zoo net, ``gluon.Trainer``) — and the
+recurrent stack: the large LSTM word LM through ``gluon.rnn.LSTM`` and
+a bucketed ``FusedRNNCell`` LM, both on the ``RNN`` op's cuDNN path — and
+holds every hand-written kernel of those paths against its plain PyTorch
+version on the card.
 Phases, in order:
 
 1. build the kernels from ``mxnet_tpu_torch/csrc`` (one ``nvcc`` per
@@ -267,7 +269,42 @@ Phases, in order:
     (32x32, batch 4) card against CPU (phase 18's norm-wise tolerance),
     then ``model_zoo.vision.resnet50_v1`` at 224x224, batch 32, f32
     through ``Trainer``: images/s over 5 timed steps, idle share, peak
-    memory, and phase 19's training check on a fresh net at lr 0.01.
+    memory, and phase 19's training check on a fresh net at lr 0.01;
+32. the recurrent stack: (a) Zaremba et al.'s large LSTM word LM, the
+    tied 1500-unit configuration of MXNet's
+    example/gluon/word_language_model (``nn.Embedding(10000, 1500)`` ->
+    ``Dropout(0.65)`` -> ``rnn.LSTM(1500, 2 layers, dropout 0.65)`` ->
+    ``Dropout(0.65)`` -> ``nn.Dense(10000)`` on the encoder's weight, 51 M
+    parameters) through Gluon at bptt 35, batch 32, f32: one step with
+    dropout 0 on the card against the CPU's plain loop from the same
+    weights (loss within 1e-5, each parameter's update norm-wise within
+    1e-3), then ``autograd.record``, ``backward``, ``clip_global_norm(
+    grads, 0.2 x 35 x 32)`` and ``Trainer("sgd", lr 1.0).step(32)`` with
+    the hidden state detached between Zipf-distributed token batches: 3
+    warm-up and 20 timed steps (ms, tokens/s, host ms in
+    ``Trainer.step``, idle share, cuDNN's RNN time, peak memory, every
+    forward through cuDNN and none through the plain loop), the held-out
+    batch's perplexity from an evaluation pass without ``record``, the
+    training check (a fresh model at ``WORD_LM_CHECK_LR``: the
+    cross-entropy falls by ``WORD_LM_CE_MARGIN``, the held-out
+    perplexity falls), and the two LSTM layers alone against
+    ``torch.nn.LSTM`` with cuDNN-flattened weights, with the copies the
+    packed blob and Gluon's per-gate Parameters cost; (b) the default
+    configuration of MXNet's example/rnn/bucketing/
+    cudnn_lstm_bucketing.py: ``FusedRNNCell(200, 2 layers, lstm)``
+    unrolled per bucket (10-60) in a ``BucketingModule``, SGD lr 0.01 wd
+    1e-5 through ``KVStore("device")``, ``Perplexity``: ms per step per
+    bucket; then ``save_rnn_checkpoint``, the unfused ``LSTMCell`` stack
+    from the file, and both scored on held-out buckets (perplexity within
+    1e-4, one batch's softmax within 1e-5);
+33. the ``RNN`` op on cuDNN against its plain loop on the card in every
+    mode, 1-2 layers, 1-2 directions, with and without
+    ``state_outputs``, f32 and f64, outputs and gradients; a gradient
+    under ``autograd.record(train_mode=False)``; the dropout's keep share
+    and its draws from ``mx.random.seed``; bf16 through cuDNN in f32; the
+    14 linalg ops (28 names) on 64 x 256 x 256 SPD matrices in f32 and
+    f64 card against CPU, timed; the spatial ops card against CPU, and
+    ``Correlation`` at FlowNetC's shape, timed.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -5206,6 +5243,875 @@ def phase_gluon(torch, mx, kernels, convert, get_symbol, ShardedTrainer,
     gluon_resnet50(torch, mx, card)
     return got_a, got_b
 
+# -- phases 32-33: the recurrent stack, linalg and the spatial ops ----------
+
+# Zaremba et al. (2014)'s large LSTM word LM, the tied 1500-unit
+# configuration of MXNet's example/gluon/word_language_model
+WORD_LM = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65, batch=32,
+               bptt=35, clip=0.2, lr=1.0)
+
+
+def word_lm_model(mx, vocab, hidden, layers, dropout):
+    """example/gluon/word_language_model's RNNModel with tied weights:
+    Embedding -> Dropout -> rnn.LSTM -> Dropout -> Dense on the encoder's
+    weight."""
+    gluon = mx.gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(dropout)
+                self.encoder = gluon.nn.Embedding(
+                    vocab, hidden, weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = gluon.rnn.LSTM(hidden, layers, dropout=dropout,
+                                          input_size=hidden)
+                self.decoder = gluon.nn.Dense(vocab, in_units=hidden,
+                                              params=self.encoder.params)
+
+        def forward(self, inputs, state):
+            emb = self.drop(self.encoder(inputs))
+            output, state = self.rnn(emb, state)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, hidden))), state
+
+    with mx.name.NameManager():
+        return RNNModel()
+
+
+def zipf_ids(vocab, n, seed):
+    """``n`` token ids over ``vocab`` from a seed, with Zipf's unigram law
+    (probability ~ 1 / rank), the shape of a word corpus's counts."""
+    p = 1.0 / np.arange(1, vocab + 1)
+    return np.random.RandomState(seed).choice(vocab, size=n, p=p / p.sum())
+
+
+def word_lm_batches(vocab, bptt, batch, n, seed):
+    """``n`` (data, target) pairs of (bptt, batch) ids: ``batch`` streams
+    cut into bptt windows, as batchify and get_batch cut the corpus."""
+    ids = zipf_ids(vocab, (n * bptt + 1) * batch, seed)
+    ids = ids.reshape(batch, -1).T.astype(np.float32)
+    return [(ids[i * bptt:(i + 1) * bptt], ids[i * bptt + 1:
+                                                (i + 1) * bptt + 1])
+            for i in range(n)]
+
+
+def word_lm_step(mx, model, trainer, loss_fn, state, data, target, cfg):
+    """One step of the example's train(): detach, record, backward,
+    clip_global_norm(grads, clip * bptt * batch), Trainer.step(batch).
+    Returns the batch's mean cross-entropy (an NDArray), the state and
+    the host ms in ``Trainer.step``."""
+    state = [s.detach() for s in state]
+    with mx.autograd.record():
+        out, state = model(data, state)
+        L = loss_fn(out, target.reshape((-1,)))
+    L.backward()
+    mx.gluon.utils.clip_global_norm(
+        [p.grad() for p in model.collect_params().values()],
+        cfg["clip"] * cfg["bptt"] * cfg["batch"])
+    t0 = time.perf_counter()
+    trainer.step(cfg["batch"])
+    return L.mean(), state, (time.perf_counter() - t0) * 1e3
+
+
+def held_out_perplexity(mx, model, loss_fn, held, cfg, ctx):
+    """exp of the mean cross-entropy of ``held`` (data, target) from an
+    evaluation pass without ``record`` (no dropout), from zero states."""
+    with ctx:
+        state = model.rnn.begin_state(batch_size=cfg["batch"],
+                                      func=mx.nd.zeros)
+    out, _ = model(held[0], state)
+    return float(np.exp(loss_fn(out, held[1].reshape((-1,))).mean()
+                        .asscalar()))
+
+
+def word_lm_trainer(mx, model, cfg):
+    return mx.gluon.Trainer(model.collect_params(), "sgd",
+                            {"learning_rate": cfg["lr"], "momentum": 0,
+                             "wd": 0})
+
+
+def word_lm_parity(torch, mx, convert, card, cfg=WORD_LM):
+    """32a-i: one step of the full-width word LM with dropout 0 on the
+    card and on the CPU (plain loop) from the same weights: the loss, and
+    each parameter's update norm-wise."""
+    c = dict(cfg, dropout=0.0)
+    data, target = word_lm_batches(c["vocab"], c["bptt"], c["batch"], 1,
+                                   seed=320)[0]
+    mx.random.seed(0)
+    with mx.cpu():
+        cpu_model = word_lm_model(mx, c["vocab"], c["hidden"], c["layers"],
+                                  0.0)
+        cpu_model.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    start = {k: p.data().asnumpy()
+             for k, p in cpu_model.collect_params().items()}
+    card_model = word_lm_model(mx, c["vocab"], c["hidden"], c["layers"],
+                               0.0)
+    convert.gluon_params_from_numpy(card_model.collect_params(), start,
+                                    ctx=mx.gpu(0))
+    res = {}
+    for tag, model, ctx in (("card", card_model, mx.gpu(0)),
+                            ("cpu", cpu_model, mx.cpu())):
+        with ctx:
+            state = model.rnn.begin_state(batch_size=c["batch"],
+                                          func=mx.nd.zeros)
+            loss, _, _ = word_lm_step(
+                mx, model, word_lm_trainer(mx, model, c), mx.gluon.loss.
+                SoftmaxCrossEntropyLoss(), state, mx.nd.array(data),
+                mx.nd.array(target), c)
+            res[tag] = (float(loss.asscalar()), {
+                k: p.data().asnumpy()
+                for k, p in model.collect_params().items()})
+    (l_card, p_card), (l_cpu, p_cpu) = res["card"], res["cpu"]
+    gaps = {}
+    for k, w0 in start.items():
+        upd = p_cpu[k] - w0
+        gaps[k] = float(np.linalg.norm(p_card[k] - p_cpu[k])
+                        / max(np.linalg.norm(upd), 1e-30))
+    worst = max(gaps, key=gaps.get)
+    log("32a word LM step card vs cpu (V%d h%d L%d, T%d batch %d, dropout "
+        "0, same weights): loss %.6f / %.6f (rel %.2e, tolerance 1e-5); "
+        "each parameter's update norm-wise: worst %s %.2e (tolerance "
+        "1e-3), all %s [%s]"
+        % (c["vocab"], c["hidden"], c["layers"], c["bptt"], c["batch"],
+           l_card, l_cpu, abs(l_card - l_cpu) / abs(l_cpu), worst,
+           gaps[worst], ", ".join("%s=%.1e" % kv for kv in
+                                  sorted(gaps.items())), card))
+    check(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+          "32a: the word LM's loss on the card is %.6f, on the CPU %.6f"
+          % (l_card, l_cpu))
+    check(gaps[worst] <= 1e-3, "32a: %s's update on the card stands %.2e "
+          "of its norm from the CPU's" % (worst, gaps[worst]))
+
+
+def op_device_ms(prof, names):
+    """Device ms of the torch ops named ``names`` (their kernels, children
+    included) in a torch.profiler run."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.key in names:
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0)
+            total += us
+    return total / 1e3
+
+
+def word_lm_full(torch, mx, card, cfg=WORD_LM, warm=3, timed=20):
+    """32a-ii: the word LM at full width with dropout 0.65 on the card:
+    3 warm-up and 20 timed steps (CUDA events at each step's end), the
+    held-out batch's perplexity before and after, one profiled step.
+    Returns the cuDNN calls of the timed loop."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    c = cfg
+    ctx = mx.gpu(0)
+    mx.random.seed(1)
+    model = word_lm_model(mx, c["vocab"], c["hidden"], c["layers"],
+                          c["dropout"])
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    n_params = sum(int(np.prod(p.shape))
+                   for p in model.collect_params().values())
+    trainer = word_lm_trainer(mx, model, c)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = [(mx.nd.array(d, ctx=ctx), mx.nd.array(t, ctx=ctx))
+               for d, t in word_lm_batches(c["vocab"], c["bptt"],
+                                           c["batch"], warm + timed + 1,
+                                           seed=321)]
+    held = [(mx.nd.array(d, ctx=ctx), mx.nd.array(t, ctx=ctx))
+            for d, t in word_lm_batches(c["vocab"], c["bptt"], c["batch"],
+                                        1, seed=322)][0]
+    ppl0 = held_out_perplexity(mx, model, loss_fn, held, c, ctx)
+    with ctx:
+        state = model.rnn.begin_state(batch_size=c["batch"],
+                                      func=mx.nd.zeros)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trnn.CALLS.update(cudnn=0, plain=0)
+    ends = [torch.cuda.Event(enable_timing=True)
+            for _ in range(warm + timed + 1)]
+    losses, step_host = [], []
+    ends[0].record()
+    for i in range(warm + timed):
+        loss, state, host = word_lm_step(mx, model, trainer, loss_fn, state,
+                                         *batches[i], c)
+        losses.append(loss)
+        step_host.append(host)
+        ends[i + 1].record()
+    torch.cuda.synchronize()
+    calls = dict(trnn.CALLS)
+    peak = torch.cuda.max_memory_allocated()
+    steps = warm + timed
+    ms = [ends[i].elapsed_time(ends[i + 1]) for i in range(warm, steps)]
+    med = statistics.median(ms)
+    ce = [float(x.asscalar()) for x in losses]
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, state, _ = word_lm_step(mx, model, trainer, loss_fn, state,
+                                   *batches[-1], c)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_by_kernel(prof)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    rnn_ms = op_device_ms(prof, ("aten::_cudnn_rnn",
+                                 "aten::_cudnn_rnn_backward"))
+    cat_ms = op_device_ms(prof, ("aten::cat",))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]
+    ppl1 = held_out_perplexity(mx, model, loss_fn, held, c, ctx)
+    tokens = c["bptt"] * c["batch"]
+    log("32a word LM (Zaremba large, tied: V%d, 2 x LSTM %d, dropout "
+        "%.2f, %.1f M parameters) T%d batch %d f32 through Gluon "
+        "(autograd.record, backward, clip_global_norm, Trainer.step, SGD "
+        "lr %.1f): timed %s ms; median %.2f ms (spread %.2f-%.2f) = %.0f "
+        "tokens/s; host ms in Trainer.step median %.2f; device busy %s "
+        "of the profiled step's %.2f ms (idle share %s); cuDNN's RNN "
+        "(aten::_cudnn_rnn + _backward, their kernels) %.2f ms of the "
+        "busy time; aten::cat %.3f ms; top kernels %s; peak memory %.2f "
+        "GB; cuDNN calls %d, plain loops %d [%s]"
+        % (c["vocab"], c["hidden"], c["dropout"], n_params / 1e6,
+           c["bptt"], c["batch"], c["lr"], ", ".join("%.1f" % m for m in ms),
+           med, min(ms), max(ms), tokens / med * 1e3,
+           statistics.median(step_host[warm:]),
+           "%.2f ms" % busy_ms if by_kernel else "not measured", prof_ms,
+           "%.3f" % (1 - busy_ms / prof_ms) if by_kernel else
+           "not measured", rnn_ms, cat_ms,
+           "; ".join("%s %.2f ms" % (k[:60], us / 1e3)
+                     for k, (us, _) in top),
+           peak / 1e9, calls["cudnn"], calls["plain"], card))
+    log("32a cross-entropy per step at lr %.1f: %s; held-out perplexity "
+        "(an evaluation pass without record) %.1f -> %.1f [%s]"
+        % (c["lr"], ", ".join("%.3f" % x for x in ce), ppl0, ppl1, card))
+    check(calls["cudnn"] == steps and calls["plain"] == 0,
+          "32a: the RNN op ran cuDNN %d and the plain loop %d times over %d "
+          "steps" % (calls["cudnn"], calls["plain"], steps))
+    check(all(np.isfinite(ce)) and np.isfinite(ppl0) and np.isfinite(ppl1),
+          "32a: a non-finite loss or perplexity")
+    return med
+
+
+# the word LM's training check: a fresh model at this lr (lr 1.0 spikes
+# at the third step at full width, on the CPU too, without dropout) must
+# lower the cross-entropy of WORD_LM_CHECK_STEPS Zipf batches by the
+# margin, and the held-out perplexity
+WORD_LM_CHECK_LR = 0.1
+WORD_LM_CHECK_STEPS = 10
+WORD_LM_CE_MARGIN = 0.5
+
+
+def word_lm_check(torch, mx, card, cfg=WORD_LM):
+    """32a-iii: the training check (dropout 0.65 on)."""
+    c = dict(cfg, lr=WORD_LM_CHECK_LR)
+    ctx = mx.gpu(0)
+    mx.random.seed(2)
+    model = word_lm_model(mx, c["vocab"], c["hidden"], c["layers"],
+                          c["dropout"])
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = word_lm_trainer(mx, model, c)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    held = [(mx.nd.array(d, ctx=ctx), mx.nd.array(t, ctx=ctx))
+            for d, t in word_lm_batches(c["vocab"], c["bptt"], c["batch"],
+                                        1, seed=322)][0]
+    ppl0 = held_out_perplexity(mx, model, loss_fn, held, c, ctx)
+    with ctx:
+        state = model.rnn.begin_state(batch_size=c["batch"],
+                                      func=mx.nd.zeros)
+    ce = []
+    for d, t in word_lm_batches(c["vocab"], c["bptt"], c["batch"],
+                                WORD_LM_CHECK_STEPS, seed=326):
+        loss, state, _ = word_lm_step(mx, model, trainer, loss_fn, state,
+                                      mx.nd.array(d, ctx=ctx),
+                                      mx.nd.array(t, ctx=ctx), c)
+        ce.append(loss)
+    ce = [float(x.asscalar()) for x in ce]
+    ppl1 = held_out_perplexity(mx, model, loss_fn, held, c, ctx)
+    last = float(np.mean(ce[-3:]))
+    log("32a training check (a fresh model, dropout %.2f, lr %.1f, %d "
+        "Zipf batches): cross-entropy %s (first %.3f, last three %.3f, "
+        "margin %.1f); held-out perplexity %.1f -> %.1f [%s]"
+        % (c["dropout"], c["lr"], WORD_LM_CHECK_STEPS,
+           ", ".join("%.3f" % x for x in ce), ce[0], last,
+           WORD_LM_CE_MARGIN, ppl0, ppl1, card))
+    check(last < ce[0] - WORD_LM_CE_MARGIN and ppl1 < ppl0,
+          "32a: the word LM did not learn (cross-entropy %.3f -> %.3f, "
+          "held-out perplexity %.1f -> %.1f)" % (ce[0], last, ppl0, ppl1))
+
+
+def word_lm_rnn_costs(torch, card, cfg=WORD_LM):
+    """32a-iv: the LM's two LSTM layers alone at its shapes: the RNN op
+    on the packed blob (cuDNN copies the blob's weights into its own
+    layout on every call) against the yardstick torch.nn.LSTM with
+    cuDNN-flattened weights, forward and backward; the copy of the weights
+    into a flat buffer alone, and Gluon's concatenation of the per-gate
+    Parameters into the blob (rnn_layer._pack_params)."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    H, T, N, L = cfg["hidden"], cfg["bptt"], cfg["batch"], cfg["layers"]
+    g = torch.Generator(device="cuda").manual_seed(323)
+    n = trnn.rnn_param_size(L, H, H, False, "lstm")
+    blob = (torch.rand(n, device="cuda", generator=g) - 0.5) * 0.05
+    blob.requires_grad_()
+    x = torch.randn(T, N, H, device="cuda", generator=g, requires_grad=True)
+    h0 = torch.zeros(L, N, H, device="cuda")
+    c0 = torch.zeros(L, N, H, device="cuda")
+    dout = torch.randn(T, N, H, device="cuda", generator=g)
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=H, num_layers=L, mode="lstm"))
+
+    def ours():
+        out = op.fn(attrs, None, x, blob, h0, c0)
+        torch.autograd.grad(out, (x, blob), dout)
+
+    lstm = torch.nn.LSTM(H, H, L).cuda()
+    lstm.flatten_parameters()
+    views = [w for per_dir in trnn._unpack(blob.detach(), L, H, H, False,
+                                           "lstm")
+             for ws in per_dir for w in ws]
+    with torch.no_grad():
+        for dst, src in zip(lstm._flat_weights, views):
+            dst.copy_(src)
+
+    def yardstick():
+        out, _ = lstm(x, (h0, c0))
+        torch.autograd.grad(out, [x] + list(lstm.parameters()), dout)
+
+    def flat_copy():
+        with torch.no_grad():
+            for dst, src in zip(lstm._flat_weights, views):
+                dst.copy_(src)
+
+    pieces = [v.detach().clone().reshape(-1) for v in views]
+
+    def pack():
+        torch.cat(pieces)
+
+    out = op.fn(attrs, None, x, blob, h0, c0)
+    with torch.no_grad():
+        want, _ = lstm(x, (h0, c0))
+    err = (out - want).abs().max().item()
+    timer = Timer(torch, iters=10)
+    t = {}
+    for tag, fn in (("ours", ours), ("yardstick", yardstick),
+                    ("ours2", ours), ("yardstick2", yardstick),
+                    ("flat_copy", flat_copy), ("pack", pack)):
+        t[tag] = timer(fn)
+    ours_ms = min(t["ours"], t["ours2"])
+    yard_ms = min(t["yardstick"], t["yardstick2"])
+    log("32a the LM's LSTM layers alone (2 x %d, T%d batch %d f32, forward "
+        "+ backward): the RNN op on the packed blob %.3f / %.3f ms, "
+        "torch.nn.LSTM with cuDNN-flattened weights %.3f / %.3f ms (in "
+        "turns; difference %.3f ms per step); the weights' copy into a "
+        "flat buffer alone %.4f ms (%.1f MB); Gluon's concatenation of the "
+        "per-gate Parameters %.4f ms; outputs agree to %.2e [%s]"
+        % (H, T, N, t["ours"], t["ours2"], t["yardstick"], t["yardstick2"],
+           ours_ms - yard_ms, t["flat_copy"], n * 4 / 1e6, t["pack"], err,
+           card))
+    check(err <= 1e-5, "32a: the RNN op and torch.nn.LSTM disagree by %.2e"
+          % err)
+    del lstm, blob, x, dout, views, pieces
+    torch.cuda.empty_cache()
+
+
+# MXNet's example/rnn/bucketing/cudnn_lstm_bucketing.py, its defaults
+BUCKET_LM = dict(vocab=10000, embed=200, hidden=200, layers=2,
+                 buckets=[10, 20, 30, 40, 50, 60], batch=32, lr=0.01,
+                 wd=1e-5, per_bucket=3)
+
+
+def fused_lm_sym_gen(mx, stack, cfg):
+    def sym_gen(seq_len):
+        sym = mx.sym
+        data = sym.Variable("data")
+        label = sym.Variable("softmax_label")
+        embed = sym.Embedding(data, input_dim=cfg["vocab"],
+                              output_dim=cfg["embed"], name="embed")
+        stack.reset()
+        out, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = sym.FullyConnected(sym.Reshape(out, shape=(-1,
+                                                          cfg["hidden"])),
+                                  num_hidden=cfg["vocab"], name="pred")
+        pred = sym.SoftmaxOutput(pred, sym.Reshape(label, shape=(-1,)),
+                                 name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def phase_fused_bucketing(torch, mx, card, cfg=BUCKET_LM):
+    """32b: FusedRNNCell(200, 2 layers, lstm) unrolled per bucket in a
+    BucketingModule over buckets 10-60 (cudnn_lstm_bucketing.py's
+    defaults), SGD lr 0.01 wd 1e-5 through KVStore("device"), Perplexity,
+    one epoch of ``per_bucket`` batches per bucket; then
+    save_rnn_checkpoint, the unfused LSTMCell stack from the saved file,
+    and score of both on a held-out iterator."""
+    import random
+    import tempfile
+    from mxnet_tpu_torch.ops import rnn as trnn
+    c = cfg
+
+    def sentences(per_bucket, seed):
+        rs = np.random.RandomState(seed)
+        out = []
+        for lo, hi in zip([1] + c["buckets"][:-1], c["buckets"]):
+            for _ in range(per_bucket * c["batch"]):
+                n = int(rs.randint(lo + 1, hi + 1))
+                out.append(list(zipf_ids(c["vocab"] - 1, n,
+                                         int(rs.randint(1 << 30))) + 1))
+        return out
+
+    random.seed(324)
+    np.random.seed(324)
+    it = mx.rnn.BucketSentenceIter(sentences(c["per_bucket"], 324),
+                                   c["batch"], buckets=c["buckets"],
+                                   invalid_label=0)
+    held = mx.rnn.BucketSentenceIter(sentences(1, 325), c["batch"],
+                                     buckets=c["buckets"], invalid_label=0)
+    with mx.name.NameManager():
+        cell = mx.rnn.FusedRNNCell(c["hidden"], num_layers=c["layers"],
+                                   mode="lstm", prefix="lstm_")
+    mod = mx.mod.BucketingModule(fused_lm_sym_gen(mx, cell, c),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    mx.random.seed(0)
+    init = mx.init.Mixed([".*parameters", ".*"],
+                         [mx.init.Uniform(0.07),
+                          mx.init.Xavier(factor_type="in", magnitude=2.34)])
+    marks, keys = [], []
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks.append(e)
+        keys.append(mod._curr_bucket_key)
+
+    start = torch.cuda.Event(enable_timing=True)
+    trnn.CALLS.update(cudnn=0, plain=0)
+    metric = mx.metric.Perplexity(ignore_label=0)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=init)
+    start.record()
+    mod.fit(it, kvstore=mx.kv.create("device"), optimizer="sgd",
+            optimizer_params={"learning_rate": c["lr"], "wd": c["wd"]},
+            eval_metric=metric, num_epoch=1, batch_end_callback=on_batch)
+    torch.cuda.synchronize()
+    calls = dict(trnn.CALLS)
+    ms = [start.elapsed_time(marks[0])] + [
+        marks[i - 1].elapsed_time(marks[i]) for i in range(1, len(marks))]
+    per_bucket = {}
+    for k, m in zip(keys, ms):
+        per_bucket.setdefault(k, []).append(m)
+    train_ppl = metric.get()[1]
+    log("32b FusedRNNCell(%d, %d layers, lstm) LM (V%d, embed %d) over "
+        "buckets %s, batch %d, SGD lr %g wd %g, KVStore('device'): ms per "
+        "step by bucket (the bucket's first step binds it; median of the "
+        "rest): %s; training perplexity %.1f; cuDNN calls %d, plain loops "
+        "%d [%s]"
+        % (c["hidden"], c["layers"], c["vocab"], c["embed"], c["buckets"],
+           c["batch"], c["lr"], c["wd"], "; ".join(
+               "%d: first %.2f, then %s" % (k, v[0], "%.2f" % statistics.
+                                            median(v[1:]) if v[1:] else "-")
+               for k, v in sorted(per_bucket.items())), train_ppl,
+           calls["cudnn"], calls["plain"], card))
+    check(sorted(per_bucket) == c["buckets"], "32b: buckets run %s"
+          % sorted(per_bucket))
+    check(calls["cudnn"] >= len(keys) and calls["plain"] == 0,
+          "32b: the RNN op ran cuDNN %d and the plain loop %d times over %d "
+          "batches" % (calls["cudnn"], calls["plain"], len(keys)))
+    arg, aux = mod.get_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "lstm_bucketing")
+        mx.rnn.save_rnn_checkpoint(cell, prefix, 1, fused_lm_sym_gen(
+            mx, cell, c)(it.default_bucket_key)[0], arg, aux)
+        _, f_arg, f_aux = mx.rnn.load_rnn_checkpoint(cell, prefix, 1)
+        _, u_arg, u_aux = mx.model.load_checkpoint(prefix, 1)
+    check(np.array_equal(f_arg["lstm_parameters"].asnumpy(),
+                         arg["lstm_parameters"].asnumpy()),
+          "32b: the blob did not round-trip through the checkpoint")
+    stack = cell.unfuse()
+    scores = {}
+    outs = {}
+    held.reset()
+    probe = next(iter(held))
+    for tag, sym_gen, a in (("fused", fused_lm_sym_gen(mx, cell, c), f_arg),
+                            ("unfused", fused_lm_sym_gen(mx, stack, c),
+                             u_arg)):
+        m = mx.mod.BucketingModule(sym_gen,
+                                   default_bucket_key=it.default_bucket_key,
+                                   context=mx.gpu(0))
+        m.bind(held.provide_data, held.provide_label, for_training=False)
+        m.set_params(a, f_aux if tag == "fused" else u_aux)
+        held.reset()
+        met = mx.metric.Perplexity(ignore_label=0)
+        t0 = time.perf_counter()
+        scores[tag] = dict(m.score(held, met))["perplexity"]
+        score_s = time.perf_counter() - t0
+        m.forward(probe, is_train=False)
+        outs[tag] = (m.get_outputs()[0].asnumpy(), score_s)
+    err = float(np.abs(outs["fused"][0] - outs["unfused"][0]).max())
+    rel = abs(scores["fused"] - scores["unfused"]) / scores["fused"]
+    log("32b save_rnn_checkpoint -> unfused LSTMCell stack: held-out "
+        "perplexity fused %.3f (score %.2f s), unfused %.3f (score %.2f s), "
+        "rel %.2e (tolerance 1e-4); one batch's softmax max_abs_err %.2e "
+        "(tolerance 1e-5) [%s]"
+        % (scores["fused"], outs["fused"][1], scores["unfused"],
+           outs["unfused"][1], rel, err, card))
+    check(rel <= 1e-4 and err <= 1e-5, "32b: the fused and unfused stacks "
+          "disagree (perplexity rel %.2e, outputs %.2e)" % (rel, err))
+    return per_bucket
+
+
+def phase_recurrent(torch, mx, convert, card):
+    """Phase 32: 32a (the word LM through Gluon: card vs CPU, full width,
+    the LSTM layers against torch.nn.LSTM) and 32b (the symbolic bucketed
+    LM over FusedRNNCell)."""
+    word_lm_parity(torch, mx, convert, card)
+    torch.cuda.empty_cache()
+    med = word_lm_full(torch, mx, card)
+    torch.cuda.empty_cache()
+    word_lm_check(torch, mx, card)
+    torch.cuda.empty_cache()
+    word_lm_rnn_costs(torch, card)
+    phase_fused_bucketing(torch, mx, card)
+    torch.cuda.empty_cache()
+    return med
+
+
+def rnn_vs_plain(torch, mode, layers, bidir, state_outputs, dtype,
+                 T=16, N=8, C=32, H=64, seed=0):
+    """The RNN op on the card (cuDNN) against its plain loop on the same
+    card tensors: (output errors, gradient errors, tolerance)."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d = 2 if bidir else 1
+    n = trnn.rnn_param_size(layers, C, H, bidir, mode)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g,
+                            dtype=torch.float64) * scale).to(dt)
+
+    ins = [r(T, N, C), r(n, scale=0.2), r(layers * d, N, H)]
+    if mode == "lstm":
+        ins.append(r(layers * d, N, H))
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=H, num_layers=layers,
+                                bidirectional=bidir, mode=mode,
+                                state_outputs=state_outputs))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        outs = fn(leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cots = [torch.randn(o.shape, device="cuda", dtype=torch.float64,
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(seed + 1 + i)).to(dt)
+                for i, o in enumerate(outs)]
+        grads = torch.autograd.grad(outs, leaves, cots)
+        return [o.detach() for o in outs], grads
+
+    def plain(leaves):
+        w = trnn._unpack(leaves[1], layers, C, H, bidir, mode)
+        out, hN, cN = trnn.rnn_plain(mode, leaves[0], w, leaves[2],
+                                     leaves[3] if mode == "lstm" else None)
+        if not state_outputs:
+            return out
+        return (out, hN, cN) if mode == "lstm" else (out, hN)
+
+    got = run(lambda leaves: op.fn(attrs, None, *leaves))
+    want = run(plain)
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    out_err = max((a - b).abs().max().item() / max(1.0, b.abs().max()
+                                                   .item())
+                  for a, b in zip(got[0], want[0]))
+    grad_err = max((a - b).abs().max().item() / max(1.0, b.abs().max()
+                                                    .item())
+                   for a, b in zip(got[1], want[1]))
+    return out_err, grad_err, tol
+
+
+def rnn_op_checks(torch, mx, card):
+    """33a: the RNN op (cuDNN) against its plain loop on the card in every
+    mode, 1-2 layers, 1-2 directions, with and without state_outputs, in
+    f32 and f64, outputs and gradients; a gradient under
+    ``autograd.record(train_mode=False)``; the dropout mask (keep share
+    within its binomial bounds, the same after the same seed, equal to
+    the plain loop's draw from the same generator); bf16 through cuDNN in
+    f32."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    trnn.CALLS.update(cudnn=0, plain=0)
+    worst = {"float32": [0.0, 0.0], "float64": [0.0, 0.0]}
+    bad = []
+    n = 0
+    for dtype in ("float32", "float64"):
+        for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+            for layers in (1, 2):
+                for bidir in (False, True):
+                    for so in (False, True):
+                        oe, ge, tol = rnn_vs_plain(torch, mode, layers,
+                                                   bidir, so, dtype,
+                                                   seed=n)
+                        n += 1
+                        w = worst[dtype]
+                        w[0], w[1] = max(w[0], oe), max(w[1], ge)
+                        if oe > tol or ge > 10 * tol:
+                            bad.append("%s L%d %s so=%s %s %.2e / %.2e"
+                                       % (mode, layers, "bi" if bidir
+                                          else "uni", so, dtype, oe, ge))
+    calls = dict(trnn.CALLS)
+    check(calls["cudnn"] == n and calls["plain"] == 0,
+          "33a: %d cuDNN calls and %d plain loops for %d cases"
+          % (calls["cudnn"], calls["plain"], n))
+    log("33a RNN op on the card (cuDNN) vs its plain loop on the card, %d "
+        "cases (4 modes x 1-2 layers x 1-2 directions x state_outputs x "
+        "f32/f64; T16 N8 C32 H64), relative to max(1, max|ref|): f32 "
+        "outputs %.2e gradients %.2e (tolerance 1e-4 / 1e-3), f64 %.2e / "
+        "%.2e (1e-9 / 1e-8) [%s]"
+        % (n, worst["float32"][0], worst["float32"][1],
+           worst["float64"][0], worst["float64"][1], card))
+    check(not bad, "33a: cuDNN vs plain outside tolerance: %s"
+          % "; ".join(bad))
+    # a gradient under record(train_mode=False): cuDNN's backward needs
+    # its forward in training mode
+    rs = np.random.RandomState(330)
+    H, C, T, N = 64, 32, 16, 8
+    blob = rs.randn(trnn.rnn_param_size(2, C, H, False, "lstm")) * 0.2
+    x = rs.randn(T, N, C)
+    grads = {}
+    for tag, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        with ctx:
+            a = [mx.nd.array(v, dtype="float64")
+                 for v in (x, blob, np.zeros((2, N, H)),
+                           np.zeros((2, N, H)))]
+            for v in a[:2]:
+                v.attach_grad()
+            with mx.autograd.record(train_mode=False):
+                out = mx.nd.RNN(*a, state_size=H, num_layers=2, mode="lstm",
+                                p=0.5)
+            out.backward()
+            grads[tag] = [v.grad.asnumpy() for v in a[:2]]
+    gerr = max(np.abs(g - w).max() for g, w in zip(grads["card"],
+                                                    grads["cpu"]))
+    log("33a gradient under autograd.record(train_mode=False) (p 0.5, no "
+        "dropout in predict mode), f64: card (cuDNN, train=True) vs cpu "
+        "%.2e (tolerance 1e-9) [%s]" % (gerr, card))
+    check(gerr <= 1e-9, "33a: the train_mode=False gradient disagrees "
+          "(%.2e)" % gerr)
+    # dropout: an rnn_relu stack whose upper layers pass their input
+    # through (Wx = I, Wh = 0, no bias) shows the masks between layers
+    hid, p, layers = 256, 0.3, 3
+    xs = np.abs(rs.randn(16, 32, hid)) + 0.5
+    probe = np.concatenate(
+        [np.concatenate([np.eye(hid).ravel(), np.zeros(hid * hid)])
+         for _ in range(layers)] + [np.zeros(2 * layers * hid)])
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=hid, num_layers=layers,
+                                mode="rnn_relu", p=p))
+    attrs["_train"] = True
+    args = [torch.tensor(v, device="cuda", dtype=torch.float32)
+            for v in (xs, probe, np.zeros((layers, 32, hid)))]
+
+    def masked(seed, fn):
+        mx.random.seed(seed)
+        return fn(args)
+
+    def via_op(a):
+        return op.fn(attrs, None, *a)
+
+    def via_plain(a):
+        from mxnet_tpu_torch.rng import next_generator
+        w = trnn._unpack(a[1], layers, hid, hid, False, "rnn_relu")
+        return trnn.rnn_plain("rnn_relu", a[0], w, a[2], None, p=p,
+                              train=True, gen=next_generator(a[0].device))[0]
+
+    o1, o2 = masked(7, via_op), masked(7, via_op)
+    o3, o4 = masked(8, via_op), masked(7, via_plain)
+    kept = (o1 != 0).double().mean().item()
+    want = (1 - p) ** (layers - 1)
+    sd = (want * (1 - want) / o1.numel()) ** 0.5
+    same_plain = (o1 - o4).abs().max().item()
+    log("33a RNN dropout on the card (p %.1f, %d layers: two masks): keep "
+        "share %.5f, binomial %.5f +- %.5f (5 sd allowed); same seed "
+        "equal %s, another seed differs %s, the plain loop's draw from the "
+        "same seed max_abs_err %.2e [%s]"
+        % (p, layers, kept, want, sd, bool(torch.equal(o1, o2)),
+           bool(not torch.equal(o1, o3)), same_plain, card))
+    check(abs(kept - want) <= 5 * sd and torch.equal(o1, o2)
+          and not torch.equal(o1, o3) and same_plain <= 1e-5,
+          "33a: the RNN op's dropout does not follow mx.random.seed")
+    # bf16: cuDNN in f32, rounded to bf16
+    ins = [torch.randn(16, 8, 32, device="cuda"),
+           torch.randn(trnn.rnn_param_size(2, 32, 64, True, "gru"),
+                       device="cuda") * 0.2,
+           torch.randn(4, 8, 64, device="cuda")]
+    attrs = op.parse_attrs(dict(state_size=64, num_layers=2,
+                                bidirectional=True, mode="gru"))
+    got = op.fn(attrs, None, *[t.bfloat16() for t in ins])
+    w = trnn._unpack(ins[1].bfloat16().float(), 2, 32, 64, True, "gru")
+    ref = trnn.rnn_plain("gru", ins[0].bfloat16().float(), w,
+                         ins[2].bfloat16().float(), None)[0]
+    berr = (got.float() - ref).abs().max().item()
+    log("33a RNN bf16 (gru, 2 layers, bidirectional): cuDNN in f32 rounded "
+        "to bf16, dtype %s, vs the plain loop in f32 on the bf16 inputs "
+        "%.2e (one bf16 step of |ref| <= 1: 7.8e-3) [%s]"
+        % (got.dtype, berr, card))
+    check(got.dtype == torch.bfloat16 and berr <= 7.9e-3,
+          "33a: the bf16 RNN is off by %.2e" % berr)
+
+
+def linalg_checks(torch, card, batch=64, n=256):
+    """33b: the 14 linalg ops (28 names: each alias is the same op) on
+    batched SPD matrices, card against CPU in f32 and f64, timed."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    rs = np.random.RandomState(331)
+    m = rs.randn(batch, n, n)
+    spd = m @ m.transpose(0, 2, 1) / n + np.eye(n)
+    low = np.linalg.cholesky(spd)
+    b = rs.randn(batch, n, n)
+    vec = rs.randn(batch, n * (n + 1) // 2)
+    cases = [("_linalg_gemm", [spd, b, b], dict(alpha=0.5, beta=2.0)),
+             ("_linalg_gemm2", [spd, b], dict(transpose_b=True)),
+             ("_linalg_potrf", [spd], {}), ("_linalg_potri", [low], {}),
+             ("_linalg_trmm", [low, b], dict(rightside=True)),
+             ("_linalg_trsm", [low, b], dict(transpose=True)),
+             ("_linalg_sumlogdiag", [spd], {}),
+             ("_linalg_syrk", [b], dict(alpha=0.5)),
+             ("_linalg_gelqf", [b[:, :n // 2]], {}),
+             ("_linalg_maketrian", [vec], {}),
+             ("_linalg_extracttrian", [spd], {}),
+             ("_linalg_extractdiag", [spd], dict(offset=1)),
+             ("_linalg_makediag", [b[:, 0]], dict(offset=-1)),
+             ("_linalg_syevd", [spd], {})]
+    for name, _, _ in cases:
+        check(get_op(name) is get_op(name[1:]), "33b: %s and %s are not "
+              "one op" % (name, name[1:]))
+    rows = []
+    # f32: a 256-wide decomposition's rounding (n eps ~ 1.5e-5 times the
+    # matrices' condition ~5) on each side, with room
+    for dtype, tol in (("float64", 1e-9), ("float32", 1e-3)):
+        dt = getattr(torch, dtype)
+        for name, ins, kw in cases:
+            op = get_op(name)
+            attrs = op.parse_attrs(kw)
+            cpu = [torch.tensor(a, dtype=dt) for a in ins]
+            dev = [t.cuda() for t in cpu]
+            want = op.fn(attrs, *cpu)
+            got = op.fn(attrs, *dev)
+            torch.cuda.synchronize()
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            if name == "_linalg_syevd":
+                # eigenvectors up to sign: rebuild A
+                u, w = got
+                got = (w, u.transpose(-1, -2) @ (w[..., None] * u))
+                want = (want[1], torch.tensor(ins[0], dtype=dt))
+            err = max(((g.cpu() - w).norm() / max(w.norm().item(), 1e-30))
+                      .item() for g, w in zip(got, want))
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(3):
+                op.fn(attrs, *dev)
+            e.record()
+            e.synchronize()
+            rows.append("%s %s %.2e %.3f ms" % (name[8:], dtype[5:], err,
+                                                s.elapsed_time(e) / 3))
+            check(err <= tol, "33b: %s in %s: card vs cpu %.2e (tolerance "
+                  "%.0e)" % (name, dtype, err, tol))
+    log("33b linalg on %d x %d x %d SPD matrices, card vs cpu norm-wise "
+        "(tolerance f64 1e-9, f32 1e-3) and card ms per call: %s [%s]"
+        % (batch, n, n, "; ".join(rows), card))
+
+
+def spatial_checks(torch, card, flow_batch=8):
+    """33c: the 7 spatial ops (9 names) card against CPU, outputs and
+    gradients at small shapes, then Correlation at FlowNetC's shape
+    (256 channels at 48 x 64, max_displacement 20, stride2 2, pad 20,
+    kernel 1): one pair card against CPU, and FlowNetC's batch of
+    ``flow_batch`` pairs timed on the card."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    rs = np.random.RandomState(332)
+
+    def f(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    cases = [("GridGenerator", [f(4, 6)], dict(transform_type="affine",
+                                              target_shape=(16, 20))),
+             ("GridGenerator", [f(4, 2, 16, 20)],
+              dict(transform_type="warp")),
+             ("BilinearSampler", [f(4, 8, 16, 20),
+                                  rs.uniform(-1.1, 1.1, (4, 2, 12, 14))
+                                  .astype(np.float32)], {}),
+             ("SpatialTransformer", [f(4, 8, 16, 20),
+                                     (np.array([[0.9, 0.1, 0, -0.1, 1.1, 0]]
+                                               * 4) + f(4, 6, scale=0.05))
+                                     .astype(np.float32)],
+              dict(target_shape=(12, 14))),
+             ("Correlation", [f(2, 16, 24, 32), f(2, 16, 24, 32)],
+              dict(kernel_size=3, max_displacement=4, stride1=1, stride2=2,
+                   pad_size=4)),
+             ("Crop", [f(2, 3, 16, 20), f(2, 3, 10, 12)],
+              dict(num_args=2, center_crop=True)),
+             ("_image_to_tensor", [rs.randint(0, 256, (2, 16, 20, 3))
+                                   .astype(np.uint8)], {}),
+             ("_image_normalize", [f(2, 3, 16, 20)],
+              dict(mean=(0.1, 0.2, 0.3), std=(0.5, 0.6, 0.7)))]
+    for name in ("_image_to_tensor", "_image_normalize"):
+        check(get_op(name) is get_op(name[1:]), "33c: %s and %s are not "
+              "one op" % (name, name[1:]))
+    worst = 0.0
+    for name, ins, kw in cases:
+        op = get_op(name)
+        attrs = op.parse_attrs(kw)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            leaves = [torch.tensor(a, device=dev) for a in ins]
+            diff = [t for t in leaves if t.is_floating_point()][:1 if name
+                                                                == "Crop"
+                                                                else None]
+            for t in diff:
+                t.requires_grad_()
+            out = op.fn(attrs, *leaves)
+            grads = torch.autograd.grad(out, diff, torch.ones_like(out)) \
+                if diff else ()
+            res[dev] = [out.detach().cpu()] + [g_.cpu() for g_ in grads]
+        err = max(((a.float() - b.float()).abs().max()
+                   / max(1.0, b.float().abs().max().item())).item()
+                  for a, b in zip(res["cuda"], res["cpu"]))
+        worst = max(worst, err)
+        check(err <= 1e-4, "33c: %s card vs cpu %.2e" % (name, err))
+    d1, d2 = f(flow_batch, 256, 48, 64), f(flow_batch, 256, 48, 64)
+    op = get_op("Correlation")
+    attrs = op.parse_attrs(dict(kernel_size=1, max_displacement=20,
+                                stride1=1, stride2=2, pad_size=20))
+    t0 = time.perf_counter()
+    want = op.fn(attrs, torch.tensor(d1[:1]), torch.tensor(d2[:1]))
+    cpu_s = time.perf_counter() - t0
+    a, b = torch.tensor(d1, device="cuda"), torch.tensor(d2, device="cuda")
+    got = op.fn(attrs, a, b)
+    torch.cuda.synchronize()
+    err = ((got[:1].cpu() - want).abs().max() / want.abs().max()).item()
+    corr_ms = Timer(torch, iters=5)(lambda: op.fn(attrs, a, b))
+    log("33c spatial ops card vs cpu (outputs and gradients, relative to "
+        "max(1, max|ref|)): worst %.2e (tolerance 1e-4); Correlation at "
+        "FlowNetC's shape (%d, 256, 48, 64), max_displacement 20, stride2 "
+        "2, pad 20, kernel 1 -> %s: the first pair card vs cpu %.2e "
+        "(tolerance 1e-5), card %.3f ms for the batch, cpu %.2f s for one "
+        "pair [%s]" % (worst, flow_batch, tuple(got.shape), err, corr_ms,
+                       cpu_s, card))
+    check(tuple(got.shape) == (flow_batch, 441, 48, 64) and err <= 1e-5,
+          "33c: Correlation at FlowNetC's shape: %s, %.2e"
+          % (tuple(got.shape), err))
+
+
+def phase_recurrent_ops(torch, mx, card):
+    """Phase 33: 33a-33c."""
+    rnn_op_checks(torch, mx, card)
+    linalg_checks(torch, card)
+    spatial_checks(torch, card)
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5504,6 +6410,15 @@ def main():
         launches["gluon_flash"], launches["gluon"] = phase_gluon(
             torch, mx, kernels, convert, get_symbol, ShardedTrainer,
             trainer_ms, card)
+
+    with phase("32 the recurrent stack: the word LM through Gluon, the "
+               "bucketed FusedRNNCell LM"):
+        kernels.reset_launches()
+        phase_recurrent(torch, mx, convert, card)
+        launches["recurrent"] = dict(kernels.LAUNCHES)
+
+    with phase("33 the RNN op, linalg and the spatial ops card vs cpu"):
+        phase_recurrent_ops(torch, mx, card)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

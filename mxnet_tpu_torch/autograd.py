@@ -135,9 +135,11 @@ class _AGInfo:
         self.old_leaves: List[weakref.ref] = []
 
 
-# id(NDArray) -> weakref: every live marked variable
+# id(NDArray) -> weakref: every live marked variable.  Re-entrant: a
+# collection that runs while the lock is held (any allocation may start
+# one) calls ``_forget``'s callbacks on the same thread.
 _marked: Dict[int, weakref.ref] = {}
-_marked_lock = threading.Lock()
+_marked_lock = threading.RLock()
 
 
 def _forget(key):
@@ -168,8 +170,9 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             continue
         var._ag = _AGInfo(g, req)
         key = id(var)
+        ref = weakref.ref(var, _forget(key))
         with _marked_lock:
-            _marked[key] = weakref.ref(var, _forget(key))
+            _marked[key] = ref
 
 
 def _leaf_of(nd):
@@ -248,7 +251,7 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     kept whatever ``retain_graph`` says, as in the JAX package."""
     heads, head_grads = _as_lists(heads, head_grads)
     with _marked_lock:
-        variables = [r() for r in _marked.values()]
+        variables = [r() for r in list(_marked.values())]
     variables = [v for v in variables if v is not None and v._ag is not None]
     per_var = [_variable_leaves(v) for v in variables]
     flat = [t for leaves in per_var for t in leaves]

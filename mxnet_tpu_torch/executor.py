@@ -184,11 +184,16 @@ def batch_hint_from(arg_map: Dict[str, Any], arg_names: Sequence[str]):
     return None
 
 
-def node_attrs(node, train: bool, batch_hint):
+def node_attrs(node, train: bool, batch_hint, device=None):
     """Attrs for evaluating one graph node: 0-dims of a creation op's
-    ``shape`` resolved against the batch hint, and ``_train`` set for a
-    mode-dependent op."""
+    ``shape`` resolved against the batch hint, a creation op without a
+    ``ctx`` attr made on ``device`` (the graph's), and ``_train`` set for
+    a mode-dependent op."""
     attrs = node.parsed_attrs()
+    if not node.inputs and device is not None and \
+            attrs.get("ctx") is None:
+        attrs = type(attrs)(attrs)
+        attrs["_device"] = device
     if not node.inputs and 0 in (attrs.get("shape") or ()):
         if not batch_hint:
             raise ValueError(
@@ -241,6 +246,8 @@ class GraphProgram:
         arg_map = dict(zip(self.arg_names, arg_arrays))
         aux_map = dict(zip(self.aux_names, aux_arrays))
         batch_hint = batch_hint_from(arg_map, self.arg_names)
+        device = next((a.device for a in arg_arrays
+                       if isinstance(a, torch.Tensor)), None)
         val: Dict[tuple, Any] = {}
         for node in self.nodes:
             if node.is_var:
@@ -250,12 +257,13 @@ class GraphProgram:
         if remat == "none":
             for node in self.nodes:
                 if not node.is_var:
-                    self._eval_node(node, val, train, batch_hint, generator)
+                    self._eval_node(node, val, train, batch_hint, generator,
+                                    device)
         else:
             for nodes, live_in, live_out, draws in self._segments():
                 seg = functools.partial(self._eval_segment, nodes, live_in,
                                         live_out, train, batch_hint,
-                                        generator)
+                                        generator, device)
                 outs = _remat_wrap(seg, remat,
                                    generator if draws else None)(
                     *[val[k] for k in live_in])
@@ -269,8 +277,8 @@ class GraphProgram:
         return outputs, tuple(new_aux)
 
     @staticmethod
-    def _eval_node(node, val, train, batch_hint, generator):
-        attrs = node_attrs(node, train, batch_hint)
+    def _eval_node(node, val, train, batch_hint, generator, device):
+        attrs = node_attrs(node, train, batch_hint, device)
         ins = [val[(id(e.node), e.index)] for e in node.inputs]
         if node.op.needs_rng:
             ins = [generator] + ins
@@ -279,10 +287,11 @@ class GraphProgram:
             val[(id(node), i)] = o
 
     def _eval_segment(self, nodes, live_in, live_out, train, batch_hint,
-                      generator, *ins):
+                      generator, device, *ins):
         val = dict(zip(live_in, ins))
         for node in nodes:
-            self._eval_node(node, val, train, batch_hint, generator)
+            self._eval_node(node, val, train, batch_hint, generator,
+                            device)
         return tuple(val[k] for k in live_out)
 
     def _segments(self):
@@ -370,7 +379,8 @@ def _resolve_structs(symbol: Symbol, kwargs: Dict[str, Any],
             # same 0-dim policy as evaluation: fail here, not at the
             # first forward, when a 0-dim cannot be resolved
             try:
-                attrs = node_attrs(node, train=False, batch_hint=batch_hint)
+                attrs = node_attrs(node, train=False, batch_hint=batch_hint,
+                                   device=torch.device("meta"))
             except ValueError:
                 if partial:
                     shapes[id(node)] = (None,) * node.num_outputs()

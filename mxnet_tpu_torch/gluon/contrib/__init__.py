@@ -1,4 +1,4 @@
 """Gluon contrib (port of ``mxnet_tpu/gluon/contrib``): ``nn``
-(``Concurrent``, ``HybridConcurrent``, ``Identity``); ``rnn`` and
-``data`` raise ``NotPortedYet``."""
+(``Concurrent``, ``HybridConcurrent``, ``Identity``) and ``rnn``
+(``Conv2DLSTMCell``); ``data`` raises ``NotPortedYet``."""
 from . import data, nn, rnn  # noqa: F401

@@ -1,12 +1,3 @@
-"""``mx.gluon.contrib.rnn`` (port of ``mxnet_tpu/gluon/contrib/rnn``): not
-ported yet, it needs the ``RNN`` op (ROADMAP queue A item 4, the rest of
-the ops).  Every name raises ``NotPortedYet``."""
-from ....base import NotPortedYet as _NotPortedYet
-
-
-def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise _NotPortedYet("mx.gluon.contrib.rnn.%s is not ported yet "
-                        "(ROADMAP queue A item 4, the rest of the ops: the "
-                        "RNN op)" % name)
+"""Gluon contrib recurrent cells (port of
+``mxnet_tpu/gluon/contrib/rnn``): ``Conv2DLSTMCell``."""
+from .conv_rnn_cell import Conv2DLSTMCell

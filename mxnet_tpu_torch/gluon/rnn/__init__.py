@@ -1,11 +1,7 @@
-"""``mx.gluon.rnn`` (port of ``mxnet_tpu/gluon/rnn``): not ported yet, it
-needs the ``RNN`` op (ROADMAP queue A item 4, the rest of the ops).
-Every name raises ``NotPortedYet``."""
-from ...base import NotPortedYet as _NotPortedYet
-
-
-def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise _NotPortedYet("mx.gluon.rnn.%s is not ported yet (ROADMAP queue "
-                        "A item 4, the rest of the ops: the RNN op)" % name)
+"""Gluon recurrent layers and cells (port of ``mxnet_tpu/gluon/rnn``;
+reference python/mxnet/gluon/rnn/)."""
+from .rnn_cell import (BidirectionalCell, DropoutCell, GRUCell,
+                       HybridRecurrentCell, LSTMCell, ModifierCell,
+                       RecurrentCell, ResidualCell, RNNCell,
+                       SequentialRNNCell, ZoneoutCell)
+from .rnn_layer import GRU, LSTM, RNN

@@ -1,10 +1,9 @@
 """``mx.nd`` namespace (port of ``mxnet_tpu/ndarray``): the NDArray, the
 creation and I/O functions, every registered op as a function
 (``populate_module``), ``maximum`` ... ``power``, ``mx.nd.random`` and
-``mx.nd.contrib`` (the ported ``_contrib_*`` ops).  ``sparse`` and
-``linalg`` raise :class:`~mxnet_tpu_torch.base.NotPortedYet` when asked
-for (ROADMAP queue A item 5, sparse storage; item 4, the rest of the
-ops)."""
+``mx.nd.contrib`` (the ported ``_contrib_*`` ops) and ``mx.nd.linalg``.
+``sparse`` raises :class:`~mxnet_tpu_torch.base.NotPortedYet` when asked
+for (ROADMAP queue A item 5, sparse storage)."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
@@ -18,6 +17,7 @@ populate_module(_sys.modules[__name__])
 
 from . import random  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401
 
 
 def _pair(lhs, rhs, same, bcast, scalar):
@@ -60,10 +60,6 @@ def power(lhs, rhs):
 
 
 def __getattr__(name):
-    if name == "linalg":
-        raise _NotPortedYet("mx.nd.linalg is not ported yet (ROADMAP queue "
-                            "A item 4, the rest of the ops and their "
-                            "namespaces)")
     if name in ("sparse", "cast_storage", "sparse_retain", "csr_matrix",
                 "row_sparse_array", "BaseSparseNDArray", "CSRNDArray",
                 "RowSparseNDArray"):

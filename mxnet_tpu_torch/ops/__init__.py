@@ -1,8 +1,9 @@
 """The port's operators: the registry (:mod:`.registry`), the general ops
 of the imperative API and the LM graph (:mod:`.init_ops`,
 :mod:`.elemwise`, :mod:`.broadcast_reduce`, :mod:`.matrix`,
-:mod:`.random_ops`, :mod:`.nn`, with the parameter-shape hooks of
-:mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
+:mod:`.random_ops`, :mod:`.nn`, the fused ``RNN`` op of :mod:`.rnn` on
+cuDNN, :mod:`.linalg` and the spatial ops of :mod:`.spatial`, with the
+parameter-shape hooks of :mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
 ``Custom`` op of :mod:`mxnet_tpu_torch.operator`, and the
 hand-written CUDA kernels (:mod:`.kernels`) with their build
 (:mod:`.build`).
@@ -19,7 +20,8 @@ import torch as _torch
 
 from . import build, kernels
 from . import registry, init_ops, elemwise, broadcast_reduce, matrix
-from . import random_ops, nn, shape_hints, optimizer_ops
+from . import random_ops, nn, rnn, linalg, spatial, shape_hints
+from . import optimizer_ops
 from .kernels import (LAUNCHES, decode_attention, flash_attention,
                       quant_matmul, quantize_weight)
 
@@ -29,6 +31,7 @@ _torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 __all__ = ["build", "kernels", "registry", "init_ops", "elemwise",
-           "broadcast_reduce", "matrix", "random_ops", "nn", "shape_hints",
+           "broadcast_reduce", "matrix", "random_ops", "nn", "rnn", "linalg",
+           "spatial", "shape_hints",
            "optimizer_ops", "LAUNCHES", "decode_attention",
            "flash_attention", "quant_matmul", "quantize_weight"]

@@ -1,6 +1,7 @@
-"""Parameter-shape inference hooks (port of the hooks of
-``mxnet_tpu/ops/shape_hints.py`` for the ported ops: the LM graph's and
-the conv nets' and loss heads' of ``ops/nn.py``).
+"""Parameter-shape inference hooks (port of
+``mxnet_tpu/ops/shape_hints.py``: the LM graph's, the conv nets' and
+loss heads' of ``ops/nn.py``, and the ``RNN`` op's packed blob and
+states).
 
 Output shapes come from running each op on ``meta`` tensors; this module
 supplies only the missing direction: for ops with learnable inputs, a hook
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from .registry import get_op
+from .rnn import rnn_param_size
 
 
 def _fc(attrs, shapes):
@@ -70,6 +72,19 @@ def _embedding(attrs, shapes):
     return {1: (attrs["input_dim"], attrs["output_dim"])}
 
 
+def _rnn(attrs, shapes):
+    data = shapes[0]
+    L = attrs["num_layers"]
+    d = 2 if attrs.get("bidirectional", False) else 1
+    h = attrs["state_size"]
+    n = rnn_param_size(L, data[2], h, attrs.get("bidirectional", False),
+                       attrs["mode"])
+    out = {1: (n,), 2: (L * d, data[1], h)}
+    if attrs["mode"] == "lstm":
+        out[3] = (L * d, data[1], h)
+    return out
+
+
 def _prelu(attrs, shapes):
     if attrs.get("act_type") == "prelu":
         data = shapes[0]
@@ -107,6 +122,7 @@ def install():
     get_op("InstanceNorm").infer_params = _in_norm
     get_op("LayerNorm").infer_params = _layer_norm
     get_op("Embedding").infer_params = _embedding
+    get_op("RNN").infer_params = _rnn
     get_op("LeakyReLU").infer_params = _prelu
 
 

@@ -1,5 +1,6 @@
 """``sym`` namespace (port of ``mxnet_tpu/symbol``): Symbol and every
-registered op of the port as a graph constructor."""
+registered op of the port as a graph constructor, with ``sym.random``,
+``sym.contrib`` and ``sym.linalg``."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
@@ -28,4 +29,6 @@ def _make_sym_wrapper(op_name):
 for _name in _list_ops():
     setattr(_sys.modules[__name__], _name, _make_sym_wrapper(_name))
 
+from . import random  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
+from . import linalg  # noqa: E402,F401

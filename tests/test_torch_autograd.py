@@ -419,3 +419,20 @@ def test_fused_attention_flash_path_goes_through_the_flash_function(
                                            flash_min_seq=17)
     assert calls == [(1, 16, 2, 8)]
     assert np.isfinite(q.grad.asnumpy()).all()
+
+
+
+def test_marking_survives_a_collection_that_frees_marked_variables():
+    """A garbage collection can start inside ``mark_variables`` while it
+    holds the registry's lock (any allocation may start one); freeing a
+    marked array runs its weakref callback on the same thread, which takes
+    the same lock.  The lock lets that thread in again (a plain lock
+    deadlocked there, on the thread's first collection of a marked array
+    held in a reference cycle)."""
+    from mxnet_tpu_torch import autograd as ag
+    with ag._marked_lock:
+        again = ag._marked_lock.acquire(timeout=5)
+        if again:
+            ag._forget(-1)(None)      # the callback, on the holding thread
+            ag._marked_lock.release()
+    assert again

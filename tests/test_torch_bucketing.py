@@ -248,7 +248,7 @@ def test_unported_parts_name_their_queue_item():
     with pytest.raises(NotPortedYet, match="item 9, observability"):
         mod.install_monitor(object())
     with pytest.raises(NotPortedYet, match="item 4"):
-        tmx.rnn.LSTMCell
+        tmx.nd.contrib.box_nms
     with pytest.raises(ValueError):
         mod.bind([("data", (2, 16))], shared_module=mod)
 

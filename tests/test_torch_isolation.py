@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * ``mxnet_tpu_torch`` and every one of its modules (``gluon``,
-  ``autograd``, ``contrib`` and ``operator`` among them), and
+  ``autograd``, ``contrib``, ``operator`` and the recurrent stack among
+  them), and
   ``chip_smoke``, import without pulling in ``jax`` or any of
   ``mxnet_tpu`` (checked in a fresh interpreter, since this test process
   has both loaded);
@@ -96,7 +97,16 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.gluon.trainer",
                  "mxnet_tpu_torch.gluon.nn.conv_layers",
                  "mxnet_tpu_torch.gluon.model_zoo.vision",
-                 "mxnet_tpu_torch.gluon.contrib.nn"):
+                 "mxnet_tpu_torch.gluon.contrib.nn",
+                 "mxnet_tpu_torch.ops.rnn", "mxnet_tpu_torch.ops.linalg",
+                 "mxnet_tpu_torch.ops.spatial",
+                 "mxnet_tpu_torch.ndarray.linalg",
+                 "mxnet_tpu_torch.symbol.linalg",
+                 "mxnet_tpu_torch.symbol.random",
+                 "mxnet_tpu_torch.rnn.rnn_cell", "mxnet_tpu_torch.rnn.rnn",
+                 "mxnet_tpu_torch.gluon.rnn.rnn_cell",
+                 "mxnet_tpu_torch.gluon.rnn.rnn_layer",
+                 "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell"):
         assert want in mods
 
 

@@ -26,7 +26,10 @@ through the flash kernels and a hybridized Gluon block's gradients card
 vs CPU, and the imperative slice: the user kernels of
 ``rtc.CudaModule`` against their plain versions (exactly), its errors,
 exports and large shared memory, every ``mx.nd`` op case on the card
-against the CPU, and ``nd.save`` / ``nd.load`` on the card.
+against the CPU, and ``nd.save`` / ``nd.load`` on the card; the ``RNN``
+op on cuDNN (never its plain loop) against the plain loop in every mode,
+its gradient under a predict-mode recording, its dropout drawn from
+``mx.random.seed``, and bfloat16 through cuDNN in float32.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -1881,3 +1884,130 @@ def test_nd_save_load_on_card(dev, tmp_path):
     for k, v in host.items():
         assert back[k].context == mx.gpu(0)
         np.testing.assert_array_equal(back[k].asnumpy(), v)
+
+
+# -- the RNN op on cuDNN ------------------------------------------------------
+
+def _rnn_inputs(dev, mode, layers, bidir, dtype, seed, T=7, N=5, C=12, H=16):
+    from mxnet_tpu_torch.ops import rnn as trnn
+    g = torch.Generator().manual_seed(seed)
+    d = 2 if bidir else 1
+    ins = [torch.randn(T, N, C, generator=g, dtype=torch.float64),
+           torch.randn(trnn.rnn_param_size(layers, C, H, bidir, mode),
+                       generator=g, dtype=torch.float64) * 0.3,
+           torch.randn(layers * d, N, H, generator=g, dtype=torch.float64)]
+    if mode == "lstm":
+        ins.append(torch.randn(layers * d, N, H, generator=g,
+                               dtype=torch.float64))
+    return [t.to(dev, dtype) for t in ins], (layers, C, H, bidir)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("layers,bidir", [(1, False), (2, True)])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_op_runs_cudnn_and_matches_its_plain_loop(dev, mode, layers,
+                                                      bidir, dtype):
+    """The op on CUDA tensors runs cuDNN (never the plain loop), and its
+    outputs and gradients equal the plain loop's on the same tensors."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    ins, (L, C, H, bi) = _rnn_inputs(dev, mode, layers, bidir, dtype, 3)
+    torch.backends.cudnn.allow_tf32 = True       # the op turns it off
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=H, num_layers=L, mode=mode,
+                                bidirectional=bi, state_outputs=True))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        outs = fn(leaves)
+        cots = [torch.ones_like(o) for o in outs]
+        return [o.detach() for o in outs], \
+            torch.autograd.grad(outs, leaves, cots)
+
+    def plain(leaves):
+        w = trnn._unpack(leaves[1], L, C, H, bi, mode)
+        out = trnn.rnn_plain(mode, leaves[0], w, leaves[2],
+                             leaves[3] if mode == "lstm" else None)
+        return out if mode == "lstm" else out[:2]
+
+    trnn.CALLS.update(cudnn=0, plain=0)
+    try:
+        got = run(lambda leaves: op.fn(attrs, None, *leaves))
+        assert trnn.CALLS == {"cudnn": 1, "plain": 0}
+        assert not torch.backends.cudnn.allow_tf32 or dtype != torch.float32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = run(plain)
+    # cuDNN's f32 recurrences round in their own order over T steps
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    for a, b in zip(got[0] + list(got[1]), want[0] + list(want[1])):
+        assert (a - b).abs().max().item() <= tol * max(1.0, b.abs().max()
+                                                       .item())
+
+
+def test_rnn_op_gradient_under_predict_mode_recording(dev):
+    """cuDNN's backward needs its forward in training mode: a recording
+    with ``train_mode=False`` still differentiates (the op passes
+    ``train=True`` to cuDNN when a gradient is wanted), without dropout."""
+    import mxnet_tpu_torch as mx
+    ins, (L, C, H, bi) = _rnn_inputs(dev, "lstm", 2, False, torch.float64,
+                                     4)
+    grads = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            a = [mx.nd.array(t.cpu().numpy(), dtype="float64") for t in ins]
+            for v in a[:2]:
+                v.attach_grad()
+            with mx.autograd.record(train_mode=False):
+                out = mx.nd.RNN(*a, state_size=H, num_layers=L, mode="lstm",
+                                p=0.5)
+            out.backward()
+            grads.append([v.grad.asnumpy() for v in a[:2]])
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-10)
+
+
+def test_rnn_op_dropout_on_card_follows_the_seed(dev):
+    """Between-layer dropout on the card draws from the op's generator
+    (``mx.random.seed``), one cuDNN call per layer: the same seed gives
+    the same output, the plain loop's draw from the same seed equals it,
+    and cuDNN's own dropout (torch's default generator) is never used."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    from mxnet_tpu_torch.rng import next_generator
+    ins, (L, C, H, bi) = _rnn_inputs(dev, "gru", 2, True, torch.float32, 5)
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=H, num_layers=L, mode="gru",
+                                bidirectional=bi, p=0.4))
+    attrs["_train"] = True
+    outs = []
+    for seed, torch_seed in ((1, 10), (1, 11), (2, 10)):
+        mx.random.seed(seed)
+        torch.manual_seed(torch_seed)
+        outs.append(op.fn(attrs, None, *ins))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0],
+                                                             outs[2])
+    mx.random.seed(1)
+    w = trnn._unpack(ins[1], L, C, H, bi, "gru")
+    ref = trnn.rnn_plain("gru", ins[0], w, ins[2], None, p=0.4, train=True,
+                         gen=next_generator(dev))[0]
+    assert (outs[0] - ref).abs().max().item() <= 2e-5
+
+
+def test_rnn_op_bf16_runs_cudnn_in_f32(dev):
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.ops.registry import get_op
+    ins, (L, C, H, bi) = _rnn_inputs(dev, "lstm", 2, True, torch.bfloat16,
+                                     6)
+    op = get_op("RNN")
+    attrs = op.parse_attrs(dict(state_size=H, num_layers=L, mode="lstm",
+                                bidirectional=bi))
+    trnn.CALLS.update(cudnn=0, plain=0)
+    got = op.fn(attrs, None, *ins)
+    assert got.dtype == torch.bfloat16 and trnn.CALLS["cudnn"] == 1
+    f32 = [t.float() for t in ins]
+    w = trnn._unpack(f32[1], L, C, H, bi, "lstm")
+    ref = trnn.rnn_plain("lstm", f32[0], w, f32[2], f32[3])[0]
+    assert (got.float() - ref).abs().max().item() <= 2 ** -8

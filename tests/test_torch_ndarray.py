@@ -300,7 +300,6 @@ def test_not_ported_parts_raise():
         a.attach_grad()
         assert a.grad.asnumpy().tolist() == [0.0, 0.0]
         for call in (lambda: a.tostype("csr"), lambda: tmx.nd.sparse,
-                     lambda: tmx.nd.linalg,
                      lambda: tmx.nd.contrib.box_nms,
                      lambda: a.attach_grad(stype="row_sparse")):
             with pytest.raises(NotPortedYet):

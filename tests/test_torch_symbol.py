@@ -184,3 +184,26 @@ def test_copy_and_deepcopy_match_jax(cfg):
     shapes = {"data": (2, cfg["seq_len"]),
               "softmax_label": (2, cfg["seq_len"])}
     assert deep.infer_shape(**shapes) == t.infer_shape(**shapes)
+
+
+def test_a_creation_node_lives_on_the_graphs_device():
+    """A creation op in a graph (a recurrent cell's ``begin_state`` is
+    ``sym.zeros`` with a 0-dim for the batch) is made on the device of
+    the graph's arrays, not on the current context, and as a meta tensor
+    during shape inference, where it meets the weights' meta tensors."""
+    import torch
+    from mxnet_tpu_torch.executor import GraphProgram
+    data = sym.Variable("data")
+    state = sym.zeros(shape=(0, 4), name="begin_state")
+    out = sym.FullyConnected(state, num_hidden=3, name="h2h") + \
+        sym.FullyConnected(data, num_hidden=3, name="i2h")
+    args, outs, _ = out.infer_shape(data=(2, 5))
+    assert dict(zip(out.list_arguments(), args))["h2h_weight"] == (3, 4)
+    assert outs == [(2, 3)]
+    prog = GraphProgram(out)
+    vals = {"data": torch.ones(2, 5), "h2h_weight": torch.ones(3, 4),
+            "h2h_bias": torch.zeros(3), "i2h_weight": torch.ones(3, 5),
+            "i2h_bias": torch.zeros(3)}
+    (got,), _ = prog.evaluate([vals[n] for n in prog.arg_names], [])
+    assert got.device.type == "cpu"
+    assert torch.equal(got, torch.full((2, 3), 5.0))
