@@ -31,6 +31,8 @@ and ResNet-50 through Gluon (``autograd.record``, a hybridized
 ``SymbolBlock`` or model-zoo net, ``gluon.Trainer``) — and the
 recurrent stack: the large LSTM word LM through ``gluon.rnn.LSTM`` and
 a bucketed ``FusedRNNCell`` LM, both on the ``RNN`` op's cuDNN path — and
+the SSD detector through ``Module.fit`` at 300x300 on the greedy-NMS
+kernel, the R-CNN and R-FCN detection ops and five more conv nets — and
 holds every hand-written kernel of those paths against its plain PyTorch
 version on the card.
 Phases, in order:
@@ -304,7 +306,31 @@ Phases, in order:
     and its draws from ``mx.random.seed``; bf16 through cuDNN in f32; the
     14 linalg ops (28 names) on 64 x 256 x 256 SPD matrices in f32 and
     f64 card against CPU, timed; the spatial ops card against CPU, and
-    ``Correlation`` at FlowNetC's shape, timed.
+    ``Correlation`` at FlowNetC's shape, timed;
+34. SSD (``models/ssd.get_symbol_train(num_classes=20, nms_thresh=0.45,
+    nms_topk=400)``): one ``Module`` step at 64x64, batch 4, on the card
+    and on the CPU from one state (losses within 1e-4; every update
+    within 1e-3 of its tensor's largest change, or the CPU's own, from
+    the float64 step), and MultiBoxDetection on the card fed the CPU
+    forward's heads equal to the CPU's; then ``Module.fit`` at 32 x 3 x
+    300 x 300 f32 (30,120 anchors, example/ssd/train.py's SGD: lr 0.002,
+    momentum 0.9, wd 5e-4) over 128 seeded scenes for 4 epochs: images/s
+    from CUDA events at each batch end, spread, one NMS launch per step,
+    idle share and time by group (convolutions, batch norm, NMS, the
+    rest) of one profiled step, peak memory; the NMS kernel on the step's
+    own sorted boxes equal to its plain version, timed with a cold L2
+    beside its bound; the cross-entropy of a fresh Module falling on one
+    repeated batch (``SSD_CHECK``); the deploy symbol's forward at batch
+    32;
+35. the detection ops at Faster R-CNN's and R-FCN's sizes card vs CPU,
+    timed: MultiProposal on (2, 18, 38, 63) with 9 anchors (6000 -> 300,
+    one NMS launch), ROIPooling of 300 ROIs at 7x7 on (1, 512, 38, 63),
+    PSROIPooling with output_dim 21 and k 7, DeformableConvolution 3x3 on
+    (1, 256, 38, 63); then ResNet-50 v1, ResNeXt-50 32x4d, MobileNet,
+    GoogLeNet and Inception-v4 at a small size card vs CPU (a training
+    forward per tensor, Inception-v4's up to reduction B; a predict
+    forward and gradient) and one ``ShardedTrainer`` step each at batch 32 and 224x224
+    (Inception-v4 299x299), images/s.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -6112,6 +6138,661 @@ def phase_recurrent_ops(torch, mx, card):
     torch.cuda.empty_cache()
 
 
+# -- phase 34: SSD at full width through Module.fit ---------------------------
+
+# models/ssd.py's training symbol at the reference's data shape (MXNet's
+# example/ssd: 300x300, the 20 PASCAL VOC classes) with example/ssd/
+# train.py's SGD defaults, on seeded synthetic scenes in the manner of
+# example/detection/train_ssd_toy.py (VOC is not in the repository): 4
+# batches of 32 per epoch, labels padded with -1 rows to 50
+SSD = dict(num_classes=20, nms_thresh=0.45, nms_topk=400)
+SSD_DATA = dict(batch=32, hw=300, rows=50, batches=4, epochs=4, max_obj=5)
+SSD_SGD = dict(learning_rate=0.002, momentum=0.9, wd=5e-4)
+# the training check: a fresh Module on one repeated batch for its steps;
+# the cross-entropy of the forward before the last update must lie its
+# margin below the first's.  Over all 30,120 anchors of 32 images it falls
+# slowly and smoothly at lr 0.002: 3.3190 -> 3.2831 in 10 steps, each
+# step's fall growing with the momentum (NVIDIA H100 80GB HBM3, 700 W)
+SSD_CHECK = dict(steps=12, margin=0.03)
+F64_FLOPS_S = 34e12           # H100 SXM f64 outside the tensor cores
+NMS_OPS_PER_PAIR = 17         # min/max/sub/mul/add/div/compare per IoU
+
+
+def ssd_module(mx, net, ctx, X, Y, args=None, auxs=None):
+    """A Module of ``net`` bound for (X, Y) on ``ctx`` with SSD_SGD, from
+    ``args``/``auxs`` (host arrays) or Xavier after mx.random.seed(0)."""
+    mod = mx.mod.Module(net, data_names=("data",), label_names=("label",),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", X.shape)],
+             label_shapes=[("label", Y.shape)])
+    if args is None:
+        mx.random.seed(0)
+        mod.init_params(initializer=mx.init.Xavier())
+    else:
+        from mxnet_tpu_torch import convert
+        a, x = convert.module_params_from_numpy(args, auxs)
+        mod.init_params(arg_params=a, aux_params=x)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_SGD))
+    return mod
+
+
+def ssd_batch(mx, ctx, X, Y):
+    return mx.io.DataBatch(data=[mx.nd.array(X, ctx=ctx)],
+                           label=[mx.nd.array(Y, ctx=ctx)])
+
+
+def ssd_ce(mod):
+    """Mean -log p[target] over every anchor of the last forward
+    (cls_prob against cls_label, both outputs of the training symbol)."""
+    prob, _, label = mod.get_outputs()[:3]
+    p, t = prob._handle, label._handle.long()
+    return float(-p.gather(1, t[:, None]).clamp(min=1e-30).log().mean())
+
+
+def ssd_f64_update(torch, net, args, auxs, X, Y, rescale):
+    """The first SGD step's update (SSD_SGD, momentum state 0) from the
+    graph's float64 gradient on the CPU: -lr (rescale g + wd w)."""
+    from mxnet_tpu_torch.executor import GraphProgram
+    prog = GraphProgram(net)
+    leaves = {n: torch.from_numpy(args[n]).double().requires_grad_()
+              for n in args}
+    feed = dict(leaves, data=torch.from_numpy(X).double(),
+                label=torch.from_numpy(Y).double())
+    outs, _ = prog.evaluate([feed[n] for n in prog.arg_names],
+                            [torch.from_numpy(auxs[n]).double()
+                             for n in prog.aux_names], train=True)
+    live = [o for o in outs if o.requires_grad]
+    grads = torch.autograd.grad(live, list(leaves.values()),
+                                [torch.ones_like(o) for o in live],
+                                allow_unused=True)
+    lr, wd = SSD_SGD["learning_rate"], SSD_SGD["wd"]
+    return {n: -lr * ((0.0 if g is None else rescale * g.numpy())
+                      + wd * args[n].astype(np.float64))
+            for n, g in zip(leaves, grads)}
+
+
+def ssd_parity(torch, mx, kernels, card):
+    """One Module step at 64x64, batch 4, on the card and on the CPU from
+    the same parameters: the losses within 1e-4; every update within 1e-3
+    of its tensor's largest change, or no further than the CPU's own,
+    from the same step in float64, plus one float32 ulp of the weight
+    (the CPU's float32 weight gradients of the first convolutions stand
+    ~2e-2 from float64 at this input: the log prints both); a bias that
+    BatchNorm subtracts again has a gradient of 0 up to rounding, and its
+    update stays under 1e-3 of the model's largest.  Then
+    MultiBoxDetection on the card fed the CPU forward's class
+    probabilities and location predictions equals the CPU's detections."""
+    import torch_cases as tc
+    from mxnet_tpu_torch.executor import GraphProgram
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops.registry import get_op
+    X, Y = tc.ssd_scenes(4, 64, SSD_DATA["rows"], SSD["num_classes"], 1)
+    net = ssd.get_symbol_train(**SSD)
+    start = ssd_module(mx, net, mx.cpu(), X, Y)
+    args, auxs = ({k: v.asnumpy() for k, v in part.items()}
+                  for part in start.get_params())
+    got = {}
+    for key, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        mod = ssd_module(mx, net, ctx, X, Y, args, auxs)
+        mod.forward_backward(ssd_batch(mx, ctx, X, Y))
+        ce = ssd_ce(mod)
+        loc = float(mod.get_outputs()[1].asnumpy().sum())
+        mod.update()
+        got[key] = (ce, loc, {k: v.asnumpy() for k, v in
+                              mod.get_params()[0].items()})
+        rescale = mod._optimizer.rescale_grad
+    (ce_c, loc_c, p_c), (ce_h, loc_h, p_h) = got["card"], got["cpu"]
+    want = ssd_f64_update(torch, net, args, auxs, X, Y, rescale)
+    largest = max(float(np.abs(u).max()) for u in want.values())
+    gaps = []
+    for n, u in want.items():
+        c, h = p_c[n] - args[n], p_h[n] - args[n]
+        if n.endswith("_bias") and n[:-5] + "_bn_gamma" in args:
+            moved = max(np.abs(c).max(), np.abs(h).max())
+            check(moved <= 1e-3 * largest, "SSD %s: a bias before "
+                  "BatchNorm moved by %.3g" % (n, moved))
+            continue
+        change = float(np.abs(u).max())
+        # w + update rounds to the weight's float32 ulp in either package
+        ulp = float(np.spacing(np.abs(args[n]).max().astype(np.float32)))
+        err_c, err_h = (float(np.abs(x - u).max()) for x in (c, h))
+        gaps.append((err_c / change, err_h / change, n,
+                     err_c <= max(1e-3 * change, err_h) + ulp))
+    gaps.sort(reverse=True)
+    log("SSD 64x64 batch 4, one Module step from one state: updates "
+        "against the float64 step, worst card %s; the CPU's f32 step, "
+        "worst %s (each of its tensor's largest change); cross-entropy "
+        "%.7f vs %.7f, loc loss %.6f vs %.6f card vs cpu [%s]"
+        % (", ".join("%s %.3g" % (n, c) for c, _, n, _ in gaps[:3]),
+           ", ".join("%s %.3g" % (n, h) for _, h, n, _ in
+                     sorted(gaps, key=lambda g: -g[1])[:3]),
+           ce_c, ce_h, loc_c, loc_h, card))
+    for c, h, n, ok in gaps:
+        check(ok, "SSD step %s on the card stands %.3g of its largest "
+              "change from the float64 step, the CPU %.3g (tolerance 1e-3, "
+              "or the CPU's own, + one ulp of the weight)" % (n, c, h))
+    check(abs(ce_c - ce_h) <= 1e-4 * abs(ce_h)
+          and abs(loc_c - loc_h) <= 1e-4 * abs(loc_h),
+          "SSD losses differ: cross-entropy %.7f vs %.7f, loc %.6f vs %.6f"
+          % (ce_c, ce_h, loc_c, loc_h))
+    # MultiBoxDetection of the CPU forward's outputs, on both devices
+    inner = net.get_internals()
+    heads = mx.sym.Group([inner["cls_prob_output"],
+                          inner["loc_preds_output"],
+                          inner["anchors_output"]])
+    prog = GraphProgram(heads)
+    feed = dict(args, data=X, label=Y)
+    ins = [torch.from_numpy(np.asarray(feed[n])) for n in prog.arg_names]
+    with torch.no_grad():
+        heads_cpu, _ = prog.evaluate(ins, [torch.from_numpy(auxs[n]) for n
+                                           in prog.aux_names], train=True)
+    op = get_op("_contrib_MultiBoxDetection")
+    attrs = op.parse_attrs(dict(nms_threshold=SSD["nms_thresh"],
+                                nms_topk=SSD["nms_topk"]))
+    det_h = op.fn(attrs, *heads_cpu)
+    before = kernels.LAUNCHES["greedy_nms_f64"]
+    det_c = op.fn(attrs, *[t.cuda() for t in heads_cpu]).cpu()
+    check(kernels.LAUNCHES["greedy_nms_f64"] == before + 1,
+          "MultiBoxDetection on the card did not launch the NMS kernel")
+    same = torch.equal(det_c[..., :2], det_h[..., :2])
+    box_err = float((det_c[..., 2:] - det_h[..., 2:]).abs().max())
+    check(same and box_err <= 1e-6, "MultiBoxDetection card vs cpu: class "
+          "and score columns equal %s, boxes within %.3g" % (same, box_err))
+    log("MultiBoxDetection on the card from the CPU forward's cls_prob / "
+        "loc_preds (%s): ids and scores equal, boxes within %.3g "
+        "(tolerance 1e-6: float64 exp on two libraries), %d detections "
+        "kept [%s]" % (tuple(det_h.shape), box_err,
+                       int((det_h[..., 0] >= 0).sum()), card))
+
+
+# device kernel name fragments -> group of the SSD step's time
+SSD_GROUPS = (("NMS", ("greedy_nms",)),
+              ("convolutions", ("conv", "wgrad", "dgrad", "fprop",
+                                "implicit_gemm", "xmma", "winograd",
+                                "cudnn")),
+              ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw",
+                              "welford")))
+
+
+def ssd_nms_row(torch, kernels, timer, boxes, valid, keep, card):
+    """The NMS kernel on the step's own sorted boxes: equal to its plain
+    version on the card, timed with a cold L2, with the bound of the
+    pairs this data needs (counted by the plain version)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    t0.record()
+    plain = kernels.greedy_nms_plain(boxes, SSD["nms_thresh"], valid=valid,
+                                     pairs=pairs)
+    t1.record()
+    torch.cuda.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    mism = int((plain != keep).sum())
+    check(mism == 0, "the NMS kernel differs from its plain version on %d "
+          "of the step's %d boxes" % (mism, keep.numel()))
+    again = kernels.greedy_nms(boxes, SSD["nms_thresh"], valid=valid)
+    check(torch.equal(again, keep), "the NMS kernel's rerun differs")
+    ms = timer(lambda: kernels.greedy_nms(boxes, SSD["nms_thresh"],
+                                          valid=valid))
+    B, n = keep.shape
+    nbytes = B * n * (4 * 8 + 1 + 1)
+    ops = NMS_OPS_PER_PAIR * int(pairs)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F64_FLOPS_S
+    row = {"name": "greedy_nms_f64", "route": "cuda",
+           "source": "mxnet_tpu_torch/csrc/nms.cu",
+           "replaces": "mxnet_tpu/ops/contrib.py:154",
+           "note": "no Pallas kernel: _greedy_nms is a lax.fori_loop; the "
+                   "port's kernel replaces that loop",
+           "shape": "MultiBoxDetection of the SSD step: (%d, %d, 4) f64 "
+                    "sorted boxes, %d valid, threshold %g" % (
+                        B, n, int(valid.sum()), SSD["nms_thresh"]),
+           "launches_per_step": 1, "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None,
+           "library_call": "none: no PyTorch call computes a greedy NMS",
+           "pairs": int(pairs), "kept": int(keep.sum())}
+    log("  NMS kernel on the step's sorted boxes (%d x %d f64, %d valid): "
+        "equal to its plain version (0 of %d flags differ), %d kept; %.4f "
+        "ms with a cold L2, plain version %.1f ms (with its count of the "
+        "IoU pairs); %d IoU pairs x %d "
+        "operations at 34 TFLOP/s f64 = %.4f ms, %.1f MB at 3.35 TB/s = "
+        "%.4f ms: bound %.4f ms (%s) [%s]"
+        % (B, n, int(valid.sum()), keep.numel(), row["kept"], ms, plain_ms,
+           row["pairs"], NMS_OPS_PER_PAIR, t_ops * 1e3, nbytes / 1e6,
+           t_bytes * 1e3, row["bound_ms"], row["bound_by"], card))
+    return row
+
+
+def phase_ssd(torch, mx, kernels, card):
+    """SSD trained at full width through Module.fit (32 x 3 x 300 x 300,
+    f32, TF32 off): images/s from CUDA events at each batch end, spread,
+    the NMS kernel's ms and launches, idle share and time by group of one
+    profiled step, peak memory; the kernel against its plain version on
+    the step's own sorted boxes; the card-vs-CPU step at 64x64; the
+    cross-entropy falling on a repeated batch; the deploy symbol's
+    forward at batch 32.  Returns (the fit's launches, the NMS row)."""
+    import torch_cases as tc
+    from mxnet_tpu_torch.models import ssd
+    from torch.profiler import ProfilerActivity, profile
+    ssd_parity(torch, mx, kernels, card)
+    d = SSD_DATA
+    n_img = d["batch"] * d["batches"]
+    X, Y = tc.ssd_scenes(n_img, d["hw"], d["rows"], SSD["num_classes"], 0,
+                         max_obj=d["max_obj"])
+    net = ssd.get_symbol_train(**SSD)
+    it = mx.io.NDArrayIter(X, {"label": Y}, batch_size=d["batch"],
+                           label_name="label")
+    mod = mx.mod.Module(net, data_names=("data",), label_names=("label",))
+    steps = d["batches"] * d["epochs"]
+    ev, prof, launches = [], {}, []
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+        launches.append(kernels.LAUNCHES["greedy_nms_f64"])
+        if len(ev) == steps - 1:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif len(ev) == steps:
+            torch.cuda.synchronize()
+            prof["wall"] = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mx.random.seed(0)
+    kernels.reset_launches()
+    t_fit = time.perf_counter()
+    mod.fit(it, optimizer="sgd", optimizer_params=dict(SSD_SGD),
+            initializer=mx.init.Xavier(),
+            eval_metric=mx.metric.Loss(output_names=["loc_loss_output"],
+                                       label_names=[]),
+            batch_end_callback=on_batch, num_epoch=d["epochs"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t_fit
+    got = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(ev) == steps, "fit ran %d steps, want %d" % (len(ev), steps))
+    check(got["greedy_nms_f64"] == steps and
+          all(b - a == 1 for a, b in zip([0] + launches, launches)),
+          "the NMS kernel launched %s times per step, want once"
+          % [b - a for a, b in zip([0] + launches, launches)])
+    # step i (1-based) ends at ev[i-1]; steps that start an epoch carry
+    # the epoch end; the first two warm cuDNN's choice; the last profiled
+    inner = [ev[i - 2].elapsed_time(ev[i - 1]) for i in range(3, steps)
+             if (i - 1) % d["batches"]]
+    med = statistics.median(inner)
+    n_params = sum(int(np.prod(a.shape)) for a in
+                   mod.get_params()[0].values())
+    det_shape = tuple(mod.get_outputs()[3].shape)   # (batch, anchors, 6)
+    log("SSD (models/ssd.py get_symbol_train(num_classes=20, nms_thresh="
+        "0.45, nms_topk=400)) %d x 3 x %d x %d f32, %d anchors, %.2f M "
+        "parameters, Module.fit SGD lr %g momentum %g wd %g: %d steps in "
+        "%.1f s" % (d["batch"], d["hw"], d["hw"], det_shape[1],
+                    n_params / 1e6,
+                    SSD_SGD["learning_rate"], SSD_SGD["momentum"],
+                    SSD_SGD["wd"], steps, fit_s))
+    check(len(inner) >= 10, "only %d timed steps" % len(inner))
+    log("  step ms (CUDA events at batch end, steps inside an epoch after "
+        "2 warm-up): %s; median %.2f (spread %.2f-%.2f) = %.1f images/s; "
+        "NMS launches per step %s [%s]"
+        % (", ".join("%.2f" % x for x in inner), med, min(inner),
+           max(inner), d["batch"] / med * 1e3,
+           [b - a for a, b in zip([0] + launches, launches)], card))
+    by_kernel = {k: (us / 1e3, cnt)
+                 for k, (us, cnt) in device_by_kernel(prof["p"]).items()}
+    busy = sum(ms for ms, _ in by_kernel.values())
+    if busy:
+        groups = {g: 0.0 for g, _ in SSD_GROUPS}
+        groups["the rest"] = 0.0
+        for key, (ms, _cnt) in by_kernel.items():
+            low = key.lower()
+            groups[next((g for g, frags in SSD_GROUPS
+                         if any(f in low for f in frags)),
+                        "the rest")] += ms
+        log("  profiled step: device busy %.2f ms of %.2f ms, idle share "
+            "%.3f; by group: %s [%s]"
+            % (busy, prof["wall"], 1 - busy / prof["wall"],
+               ", ".join("%s %.2f ms" % kv for kv in groups.items()), card))
+        for key, (ms, cnt) in sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1][0])[:10]:
+            log("    %9.3f ms  x%-5d %s" % (ms, cnt, key[:90]))
+        check(groups["NMS"] > 0, "the profiled step ran no NMS kernel")
+    else:
+        log("  device busy: not measured (the profiler saw no device time)")
+    log("  peak memory allocated %.2f GB [%s]" % (peak / 1e9, card))
+    # the step's own sorted boxes: one more forward, its NMS call captured
+    seen = {}
+    orig = kernels.greedy_nms
+
+    def capture(boxes, thresh, ids=None, valid=None):
+        keep = orig(boxes, thresh, ids=ids, valid=valid)
+        seen.update(boxes=boxes, valid=valid, keep=keep)
+        return keep
+
+    kernels.greedy_nms = capture
+    try:
+        it.reset()
+        mod.forward(next(iter(it)), is_train=True)
+        torch.cuda.synchronize()
+    finally:
+        kernels.greedy_nms = orig
+    row = ssd_nms_row(torch, kernels, Timer(torch), seen["boxes"],
+                      seen["valid"], seen["keep"], card)
+    det = mod.get_outputs()[3].asnumpy()
+    check(np.isfinite(det).all() and det.shape == det_shape
+          and ((det[..., 0] >= 0) == (det[..., 1] > 0)).all(),
+          "det_out: shape %s, finite %s" % (det.shape,
+                                            np.isfinite(det).all()))
+    del mod, seen
+    torch.cuda.empty_cache()
+    # training check: a fresh Module on one repeated batch
+    Xb, Yb = X[:d["batch"]], Y[:d["batch"]]
+    mod = ssd_module(mx, net, mx.gpu(0), Xb, Yb)
+    batch = ssd_batch(mx, mx.gpu(0), Xb, Yb)
+    ces = []
+    for _ in range(SSD_CHECK["steps"]):
+        mod.forward_backward(batch)
+        ces.append(ssd_ce(mod))
+        mod.update()
+    ok = bool(np.all(np.isfinite(ces))
+              and ces[-1] <= ces[0] - SSD_CHECK["margin"])
+    log("  training check: a fresh Module on one repeated batch, %d steps: "
+        "cross-entropy %s; must fall by %g: %s [%s]"
+        % (SSD_CHECK["steps"], ", ".join("%.4f" % c for c in ces),
+           SSD_CHECK["margin"], "passed" if ok else "FAILED", card))
+    check(ok, "SSD: the cross-entropy did not fall by %g (%.4f -> %.4f)"
+          % (SSD_CHECK["margin"], ces[0], ces[-1]))
+    del mod, batch
+    torch.cuda.empty_cache()
+    # the deploy symbol's forward
+    dep = mx.mod.Module(ssd.get_symbol(**SSD), data_names=("data",),
+                        label_names=None)
+    dep.bind(data_shapes=[("data", Xb.shape)], for_training=False)
+    mx.random.seed(0)
+    dep.init_params(initializer=mx.init.Xavier())
+    db = mx.io.DataBatch(data=[mx.nd.array(Xb, ctx=mx.gpu(0))])
+    ts = []
+    for _ in range(2 + 10):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        dep.forward(db, is_train=False)
+        e.record()
+        out = dep.get_outputs()[0]
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    dmed = statistics.median(ts[2:])
+    log("  deploy symbol (get_symbol) forward at batch %d: median %.2f ms "
+        "(spread %.2f-%.2f) = %.1f images/s, detections %s, %d kept in "
+        "the first image [%s]"
+        % (d["batch"], dmed, min(ts[2:]), max(ts[2:]),
+           d["batch"] / dmed * 1e3, tuple(out.shape),
+           int((out.asnumpy()[0, :, 0] >= 0).sum()), card))
+    torch.backends.cudnn.benchmark = False
+    del dep
+    torch.cuda.empty_cache()
+    return got, row
+
+
+# -- phase 35: the detection ops at realistic sizes, and the five conv nets --
+
+# Faster R-CNN's RPN on a 600 x 1000 image (feature stride 16: a 38 x 63
+# map, 9 anchors as the reference's rcnn example sets them, the JAX
+# defaults 6000 -> 300), its 300 ROIs pooled to 7 x 7 from a 512-channel
+# map, R-FCN's position-sensitive pooling over 21 classes at 7 x 7, and
+# a 3 x 3 deformable convolution on a 256-channel map
+RCNN = dict(batch=2, h=38, w=63, stride=16, scales=(8, 16, 32),
+            ratios=(0.5, 1, 2), rois=300, channels=512, classes=21, k=7,
+            deform_channels=256)
+
+
+def rcnn_rois(rs, R, H, W, stride, batch=1):
+    """R proposals in image coordinates (at least 16 pixels a side)."""
+    ih, iw = H * stride, W * stride
+    x0 = rs.uniform(0, iw - 16, R)
+    y0 = rs.uniform(0, ih - 16, R)
+    x1 = x0 + rs.uniform(16, iw, R) * rs.uniform(0.05, 1, R)
+    y1 = y0 + rs.uniform(16, ih, R) * rs.uniform(0.05, 1, R)
+    return np.stack([rs.randint(0, batch, R), x0, y0, np.minimum(x1, iw - 1),
+                     np.minimum(y1, ih - 1)], 1).astype(np.float32)
+
+
+def det_op_case(torch, name, attrs, inputs, timer):
+    """The op on the card and on the CPU from the same numpy inputs:
+    (card outputs, cpu outputs as tensors on the CPU, card ms with a cold
+    L2, cpu ms)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op(name)
+    a = op.parse_attrs(dict(attrs))
+    cpu = [torch.from_numpy(x) for x in inputs]
+    card = [t.cuda() for t in cpu]
+
+    def run(ts):
+        out = op.fn(a, *ts)
+        return list(out) if isinstance(out, tuple) else [out]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = run(cpu)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = [o.cpu() for o in run(card)]
+        ms = timer(lambda: run(card))
+    return got, want, ms, cpu_ms
+
+
+def phase_detection_ops(torch, kernels, card):
+    """The detection ops at Faster R-CNN's and R-FCN's sizes, card vs CPU
+    within stated tolerances, timed."""
+    timer = Timer(torch, iters=5)
+    rs = np.random.RandomState(35)
+    c = RCNN
+    A = len(c["scales"]) * len(c["ratios"])
+    fg = rs.rand(c["batch"], A, c["h"], c["w"]).astype(np.float32)
+    inputs = [np.concatenate([1 - fg, fg], 1),
+              (rs.randn(c["batch"], 4 * A, c["h"], c["w"]) * 0.2)
+              .astype(np.float32),
+              np.array([[c["h"] * c["stride"], c["w"] * c["stride"], 1]]
+                       * c["batch"], np.float32)]
+    before = kernels.LAUNCHES["greedy_nms_f64"]
+    got, want, ms, cpu_ms = det_op_case(
+        torch, "_contrib_MultiProposal",
+        dict(scales=c["scales"], ratios=c["ratios"],
+             feature_stride=c["stride"], output_score=True), inputs, timer)
+    check(kernels.LAUNCHES["greedy_nms_f64"] > before,
+          "MultiProposal on the card launched no NMS kernel")
+    # the f32 exp of the box decoder is CUDA's on the card: a box may move
+    # by an ulp, and an NMS decision at an IoU within it of the threshold
+    # may go the other way; rows are held to 1e-3 pixels, 99% of them
+    rows_ok = ((got[0] - want[0]).abs().max(1).values <= 1e-3)
+    share = float(rows_ok.float().mean())
+    score_err = float((got[1] - want[1]).abs().max())
+    log("MultiProposal (%d, %d, %d, %d) -> (%d, 5) rois, %d anchors, pre "
+        "6000 / post 300, one NMS launch over %d images of %d boxes: card "
+        "%.3f ms, cpu %.1f ms; rows within 1e-3 px of the CPU's: %.4f "
+        "(tolerance: 99%%), largest score difference %.3g [%s]"
+        % (c["batch"], 2 * A, c["h"], c["w"], got[0].shape[0],
+           c["h"] * c["w"] * A, c["batch"], min(6000, c["h"] * c["w"] * A),
+           ms, cpu_ms, share, score_err, card))
+    check(share >= 0.99 and got[0].dtype == torch.float64,
+          "MultiProposal card vs cpu: %.4f of the rows agree" % share)
+    data = rs.randn(1, c["channels"], c["h"], c["w"]).astype(np.float32)
+    rois = rcnn_rois(rs, c["rois"], c["h"], c["w"], c["stride"])
+    got, want, ms, cpu_ms = det_op_case(
+        torch, "ROIPooling", dict(pooled_size=(c["k"], c["k"]),
+                                  spatial_scale=1.0 / c["stride"]),
+        [data, rois], timer)
+    err = float((got[0] - want[0]).abs().max())
+    log("ROIPooling %d ROIs at %dx%d on (1, %d, %d, %d): card %.3f ms, cpu "
+        "%.1f ms; largest difference %.3g (tolerance 0: a max) [%s]"
+        % (c["rois"], c["k"], c["k"], c["channels"], c["h"], c["w"], ms,
+           cpu_ms, err, card))
+    check(err == 0, "ROIPooling card vs cpu differs by %.3g" % err)
+    ps = rs.randn(1, c["classes"] * c["k"] ** 2, c["h"], c["w"]) \
+        .astype(np.float32)
+    got, want, ms, cpu_ms = det_op_case(
+        torch, "_contrib_PSROIPooling",
+        dict(spatial_scale=1.0 / c["stride"], output_dim=c["classes"],
+             pooled_size=c["k"]), [ps, rois], timer)
+    err = float((got[0] - want[0]).abs().max()
+                / want[0].abs().max().clamp(min=1))
+    log("PSROIPooling %d ROIs, output_dim %d, k %d on (1, %d, %d, %d): card "
+        "%.3f ms, cpu %.1f ms; largest difference %.3g of the largest "
+        "magnitude (tolerance 1e-6: float64 integral images summed in "
+        "another order) [%s]" % (c["rois"], c["classes"], c["k"],
+                                 ps.shape[1], c["h"], c["w"], ms, cpu_ms,
+                                 err, card))
+    check(err <= 1e-6, "PSROIPooling card vs cpu differs by %.3g" % err)
+    C = c["deform_channels"]
+    dc = [rs.randn(1, C, c["h"], c["w"]).astype(np.float32),
+          (rs.randn(1, 18, c["h"], c["w"]) * 2).astype(np.float32),
+          (rs.randn(C, C, 3, 3) * 0.02).astype(np.float32),
+          rs.randn(C).astype(np.float32)]
+    got, want, ms, cpu_ms = det_op_case(
+        torch, "_contrib_DeformableConvolution",
+        dict(kernel=(3, 3), pad=(1, 1), num_filter=C), dc, timer)
+    err = float((got[0] - want[0]).abs().max()
+                / want[0].abs().max().clamp(min=1))
+    log("DeformableConvolution 3x3, %d -> %d channels on (1, %d, %d, %d): "
+        "card %.3f ms, cpu %.1f ms; largest difference %.3g of the largest "
+        "magnitude (tolerance 1e-5: float32 sums of %d products in "
+        "another order, TF32 off) [%s]" % (C, C, C, c["h"], c["w"], ms,
+                                           cpu_ms, err, 9 * C, card))
+    check(err <= 1e-5, "DeformableConvolution card vs cpu differs by %.3g"
+          % err)
+    del timer
+
+
+# the five conv nets at their full configurations (phase 35b) and input
+# sizes; their small parity configurations are torch_cases.MORE_NETS_SMALL
+MORE_NETS = (("resnet_v1", dict(num_layers=50), 224),
+             ("resnext", dict(num_layers=50), 224),
+             ("mobilenet", {}, 224), ("googlenet", {}, 224),
+             ("inception_v4", {}, 299))
+
+
+def more_net_parity(torch, family, card):
+    """The net at torch_cases.MORE_NETS_SMALL's configuration and
+    MORE_NETS_HW's size, batch 4, from more_net_case's state, on the card
+    and on the CPU in f32 (GoogLeNet and Inception-v4 up to their
+    classifier's Dropout, whose masks are each device's own draws).  Per
+    tensor, each difference is taken relative to the CPU's largest
+    magnitude (at least 1).
+    * The training forward up to MORE_NETS_TRAIN_CUT: each output and
+      new moving statistic within 2e-3, the tolerance
+      tests/torch_parity.check_more_net holds the port to the JAX
+      package with.
+    * Past the cut (Inception-v4's last stage, whose 1x1 maps leave
+      BatchNorm 4 values per channel) the training forward is logged,
+      beside the CPU's own distance when its data moves by 1e-7
+      (relative, about one ulp): what rounding alone does there.  The
+      port's BatchNorm, as the reference's, computes in f32 whatever the
+      data's dtype, so a float64 run is no witness.
+    * The predict forward and gradient (of the outputs' sum): outputs
+      within 1e-4, gradients norm-wise within 1e-2, as phase 18's
+      imagenet branch (ReLU and max-pool ties)."""
+    import torch_cases as tc
+    from mxnet_tpu_torch import models
+    net = tc.features(getattr(models, family).get_symbol(
+        num_classes=5, **tc.MORE_NETS_SMALL[family]))
+    hw = tc.MORE_NETS_HW[family]
+    params, aux, feed = tc.more_net_case(net, hw)
+
+    def train(sym, dev, feed=feed):
+        outs, new, _ = tc.more_net_eval(sym, params, aux, feed, True, dev,
+                                        grad=False)
+        return outs + new
+
+    def per_tensor(got, want):
+        check(len(got) == len(want), "%s: %d tensors where %d"
+              % (family, len(got), len(want)))
+        return max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                   for a, b in zip(got, want))
+
+    cut = tc.MORE_NETS_TRAIN_CUT.get(family)
+    sub = net.get_internals()[cut] if cut else net
+    held = per_tensor(train(sub, "cuda"), train(sub, "cpu"))
+    check(held <= 2e-3, "%s training forward%s: card %.3g from the CPU per "
+          "tensor" % (family, " to " + cut if cut else "", held))
+    past = ""
+    if cut:
+        cpu = train(net, "cpu")
+        moved = dict(feed, data=feed["data"] * np.float32(1 + 1e-7))
+        past = ("; the whole graph: card %.3g from the CPU, the CPU %.3g "
+                "from itself with the data moved by 1e-7"
+                % (per_tensor(train(net, "cuda"), cpu),
+                   per_tensor(train(net, "cpu", moved), cpu)))
+    (out_c, _, g_c), (out_h, _, g_h) = (
+        tc.more_net_eval(net, params, aux, feed, False, dev)
+        for dev in ("cuda", "cpu"))
+    out_err = per_tensor(out_c, out_h)
+    g_c, g_h = (np.concatenate([g.ravel() for g in gs]) for gs in (g_c, g_h))
+    gap = float(np.linalg.norm(g_c - g_h) / np.linalg.norm(g_h))
+    log("%s %dx%d batch 4 (%s) card vs cpu: training forward%s %.3g per "
+        "tensor (tolerance 2e-3)%s; predict forward and gradient: outputs "
+        "%.3g (tolerance 1e-4), gradients %.3g norm-wise (tolerance 1e-2) "
+        "[%s]"
+        % (family, hw, hw, "the whole graph" if "softmax_label" in feed
+           else "to the classifier's Dropout",
+           " to " + cut if cut else "", held, past, out_err, gap, card))
+    check(out_err <= 1e-4 and gap <= 1e-2, "%s predict card vs cpu: "
+          "outputs %.3g, gradients %.3g" % (family, out_err, gap))
+
+
+def phase_more_nets(torch, kernels, ShardedTrainer, card):
+    """The five conv nets: parity at a small size, then one ShardedTrainer
+    step each at batch 32 (224x224, Inception-v4 299x299), timed."""
+    from mxnet_tpu_torch import models
+    for family, _kw, _hw in MORE_NETS:
+        more_net_parity(torch, family, card)
+    kernels.reset_launches()
+    for family, kw, hw in MORE_NETS:
+        net = getattr(models, family).get_symbol(num_classes=1000, **kw)
+        shapes = {"data": (RESNET_BATCH, 3, hw, hw),
+                  "softmax_label": (RESNET_BATCH,)}
+        tr = ShardedTrainer(net, lr=0.1, momentum=0.9, wd=1e-4)
+        params, mom, aux = tr.init_state(shapes, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = {"data": torch.randn(shapes["data"], generator=gen,
+                                     device="cuda"),
+                 "softmax_label": torch.randint(
+                     0, 1000, (RESNET_BATCH,), generator=gen,
+                     device="cuda").float()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2 + 3):
+            t0 = time.perf_counter()
+            params, mom, aux, loss = tr.step(params, mom, aux, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times[2:])
+        flops = train_flops(net, shapes)
+        check(np.isfinite(float(loss)), "%s: loss %s" % (family, loss))
+        log("%s %s %dx%d batch %d f32 ShardedTrainer step (cudnn.benchmark "
+            "off, TF32 off): warm-up %s ms, timed %s ms, median %.2f = %.1f "
+            "images/s; %.4f TFLOP per step -> %.3f of the 67 TFLOP/s f32 "
+            "peak; peak memory %.2f GB [%s]"
+            % (family, kw or "", hw, hw, RESNET_BATCH,
+               ", ".join("%.1f" % t for t in times[:2]),
+               ", ".join("%.2f" % t for t in times[2:]), med,
+               RESNET_BATCH / med * 1e3, flops / 1e12,
+               flops / (med / 1e3) / F32_FLOPS_S,
+               torch.cuda.max_memory_allocated() / 1e9, card))
+        del tr, params, mom, aux, batch
+        torch.cuda.empty_cache()
+    got = dict(kernels.LAUNCHES)
+    check(not any(got.values()), "the conv nets launched a hand-written "
+          "kernel: %s" % got)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6167,6 +6848,9 @@ def main():
                 if "registers" in line or "spill" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
         sass_check(build, card)
+        log("  ptxas nms: the keep flags are dynamic shared memory, one byte "
+            "per box (30,120 bytes per block at SSD's anchors); at most "
+            "232,448 boxes per image, one block's shared memory")
 
     with phase("2 decode kernels vs plain"):
         timer = Timer(torch)
@@ -6419,6 +7103,17 @@ def main():
 
     with phase("33 the RNN op, linalg and the spatial ops card vs cpu"):
         phase_recurrent_ops(torch, mx, card)
+
+    with phase("34 SSD at full width through Module.fit"):
+        launches["ssd"], row = phase_ssd(torch, mx, kernels, card)
+        rows.append(row)
+        torch.cuda.empty_cache()
+
+    with phase("35 the detection ops at realistic sizes and the five conv "
+               "nets"):
+        phase_detection_ops(torch, kernels, card)
+        phase_more_nets(torch, kernels, ShardedTrainer, card)
+        torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------
     for r in rows:

@@ -683,8 +683,12 @@ class Executor:
             cots = [g._handle if hasattr(g, "_handle") else
                     torch.as_tensor(g, device=o.device)
                     for g, o in zip(out_grads, outs)]
-        grads = torch.autograd.grad(outs, leaves, grad_outputs=cots,
-                                    allow_unused=True)
+        # an output behind BlockGrad (SSD's det_out and cls_label) has no
+        # graph: it adds nothing, as its zero gradient in the reference
+        live = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+        grads = torch.autograd.grad(
+            [o for o, _ in live], leaves, grad_outputs=[c for _, c in live],
+            allow_unused=True) if live else [None] * len(leaves)
         self._write_grads(names, grads)
 
     def run_fwd_bwd(self, out_cots=None, is_train=True):

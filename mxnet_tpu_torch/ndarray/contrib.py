@@ -2,10 +2,10 @@
 reference python/mxnet/ndarray/contrib.py): every registered
 ``_contrib_*`` op of the port under its short name, so both spellings
 work, ``mx.nd.contrib.fused_attention(...)`` and
-``mx.nd._contrib_fused_attention(...)``.  The JAX package's other
-``_contrib_*`` ops (``ops/contrib.py``) are ROADMAP queue A item 4's
-second half (the contrib and detection ops); asking for one raises
-``NotPortedYet``."""
+``mx.nd._contrib_fused_attention(...)``, the contrib and detection ops
+of ``ops/contrib.py`` among them.  The one ``_contrib_*`` op left,
+``SparseEmbedding``, is ROADMAP queue A item 5 (sparse storage); asking
+for it, or for any other name, raises ``NotPortedYet``."""
 import sys as _sys
 
 from ..base import NotPortedYet as _NotPortedYet
@@ -33,5 +33,4 @@ def __getattr__(name):
     if name.startswith("__"):
         raise AttributeError(name)
     raise _NotPortedYet("mx.nd.contrib.%s is not ported yet (ROADMAP queue "
-                        "A item 4, the rest of the ops: the contrib and "
-                        "detection ops of ops/contrib.py)" % name)
+                        "A item 5, sparse storage: SparseEmbedding)" % name)

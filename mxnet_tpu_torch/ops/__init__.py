@@ -2,8 +2,9 @@
 of the imperative API and the LM graph (:mod:`.init_ops`,
 :mod:`.elemwise`, :mod:`.broadcast_reduce`, :mod:`.matrix`,
 :mod:`.random_ops`, :mod:`.nn`, the fused ``RNN`` op of :mod:`.rnn` on
-cuDNN, :mod:`.linalg` and the spatial ops of :mod:`.spatial`, with the
-parameter-shape hooks of :mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
+cuDNN, :mod:`.linalg`, the spatial ops of :mod:`.spatial` and the
+contrib and detection ops of :mod:`.contrib`, with the parameter-shape
+hooks of :mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
 ``Custom`` op of :mod:`mxnet_tpu_torch.operator`, and the
 hand-written CUDA kernels (:mod:`.kernels`) with their build
 (:mod:`.build`).
@@ -20,10 +21,10 @@ import torch as _torch
 
 from . import build, kernels
 from . import registry, init_ops, elemwise, broadcast_reduce, matrix
-from . import random_ops, nn, rnn, linalg, spatial, shape_hints
+from . import random_ops, nn, rnn, linalg, spatial, contrib, shape_hints
 from . import optimizer_ops
 from .kernels import (LAUNCHES, decode_attention, flash_attention,
-                      quant_matmul, quantize_weight)
+                      greedy_nms, quant_matmul, quantize_weight)
 
 from .. import operator as _operator  # noqa: E402,F401  (the Custom op)
 
@@ -32,6 +33,7 @@ _torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 __all__ = ["build", "kernels", "registry", "init_ops", "elemwise",
            "broadcast_reduce", "matrix", "random_ops", "nn", "rnn", "linalg",
-           "spatial", "shape_hints",
+           "spatial", "contrib", "shape_hints",
            "optimizer_ops", "LAUNCHES", "decode_attention",
-           "flash_attention", "quant_matmul", "quantize_weight"]
+           "flash_attention", "greedy_nms", "quant_matmul",
+           "quantize_weight"]

@@ -36,7 +36,8 @@ SOURCES = {"decode_attention": "decode_attention.cu",
            "quant_matmul": "quant_matmul.cu",
            "flash_attention": "flash_attention.cu",
            "embedding": "embedding.cu",
-           "two_bit": "two_bit.cu"}
+           "two_bit": "two_bit.cu",
+           "nms": "nms.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # argtypes of each library's entry points (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "decode_attention": {
         # q, k_pages, v_pages, page_table, seq_lens, out | S, H, D, page,
@@ -83,6 +85,10 @@ _SIGNATURES = {
         "mxt_two_bit_compress_many_bf16": [_P, _I, _F, _P],
         "mxt_two_bit_compress_many_f64": [_P, _I, _F, _P],
         "mxt_two_bit_segments_per_launch": []},
+    "nms": {
+        # boxes, ids, valid, keep | B, n | threshold | stream
+        "mxt_greedy_nms_f32": [_P] * 4 + [_I] * 2 + [_F, _P],
+        "mxt_greedy_nms_f64": [_P] * 4 + [_I] * 2 + [_D, _P]},
 }
 
 _LOCK = threading.Lock()

@@ -3,14 +3,15 @@ weight-only quantized matmul, on the training path flash attention
 forward, dQ and dK/dV (f32, and bf16 as bench.py trains, and f16), on
 the kvstore's push two-bit gradient compression (f16, bf16, f32, f64;
 port of
-``mxnet_tpu/ops/pallas_kernels.py``).
+``mxnet_tpu/ops/pallas_kernels.py``), and on the detection ops' path the
+greedy NMS (f32, f64), which has no Pallas counterpart.
 
 Each kernel has three parts here:
 
 * a **wrapper** (:func:`decode_attention`, :func:`quant_matmul`,
   :func:`flash_attention_fwd`, :func:`flash_attention_bwd_dq`,
   :func:`flash_attention_bwd_dkv`, :func:`two_bit_compress`,
-  :func:`two_bit_compress_many`) that
+  :func:`two_bit_compress_many`, :func:`greedy_nms`) that
   checks device, dtype, shape and contiguity and launches the hand-written
   CUDA kernel (``mxnet_tpu_torch/csrc/*.cu``) on the current stream for a
   CUDA tensor, or raises.  It takes the plain version only for a tensor
@@ -19,7 +20,7 @@ Each kernel has three parts here:
 * a **plain PyTorch version** (:func:`decode_attention_plain`,
   :func:`quant_matmul_plain`, :func:`flash_attention_fwd_plain`,
   :func:`flash_attention_bwd_plain`, :func:`two_bit_compress_plain`,
-  :func:`two_bit_compress_many_plain`)
+  :func:`two_bit_compress_many_plain`, :func:`greedy_nms_plain`)
   with the semantics of the JAX
   package's XLA formulation or Pallas kernel.  It is the tests' oracle and
   the CPU path, never a fallback on the card;
@@ -52,7 +53,7 @@ __all__ = ["LAUNCHES", "reset_launches", "quantize_weight", "unpack_int4",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
            "flash_delta", "two_bit_compress", "two_bit_compress_plain",
            "two_bit_compress_many", "two_bit_compress_many_plain",
-           "two_bit_segments_per_launch"]
+           "two_bit_segments_per_launch", "greedy_nms", "greedy_nms_plain"]
 
 # launches per kernel; quant_matmul's two template instantiations count
 # apart, the flash kernels' f32, bf16 and f16 entry points count apart
@@ -72,7 +73,8 @@ LAUNCHES = {"decode_attention": 0, "quant_matmul_int8": 0,
             "embedding_scatter_f16": 0, "embedding_scatter_f64": 0,
             "two_bit_compress": 0,
             "two_bit_compress_f16": 0, "two_bit_compress_bf16": 0,
-            "two_bit_compress_f64": 0, "rtc": 0}
+            "two_bit_compress_f64": 0, "greedy_nms": 0,
+            "greedy_nms_f64": 0, "rtc": 0}
 
 _NEG_BIG = -1e30          # the JAX kernels' mask value (not -inf)
 _QMAX = {8: 127, 4: 7}
@@ -756,3 +758,118 @@ def two_bit_compress(grad, residual, threshold=0.5):
     device raises."""
     q, = two_bit_compress_many([grad], [residual], threshold)
     return q, residual
+
+
+# ---------------------------------------------------------------------------
+# greedy non-maximum suppression over score-sorted boxes (no Pallas
+# counterpart: the JAX package runs it as a lax.fori_loop,
+# ``mxnet_tpu/ops/contrib.py`` ``_greedy_nms:154`` and ``box_nms:773``)
+# ---------------------------------------------------------------------------
+
+# the NMS kernel's element types, each its own C entry point and launch
+# count (f32 under the plain name)
+_NMS_DTYPES = {torch.float32: "", torch.float64: "_f64"}
+
+
+def _nms_threshold(dtype, thresh):
+    """The JAX loop compares the IoU with a Python float, weakly typed:
+    rounded to the boxes' dtype."""
+    return float(np.float32(thresh)) if dtype == torch.float32 \
+        else float(thresh)
+
+
+def _nms_iou_row(a, b):
+    """IoU of each image's box ``a`` (B, 4) with its boxes ``b`` (B, n,
+    4), in ``_box_iou``'s order of operations (contrib.py:80-92)."""
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    a = a[:, None, :]
+    iw = torch.maximum(torch.minimum(a[..., 2], b[..., 2])
+                       - torch.maximum(a[..., 0], b[..., 0]), zero)
+    ih = torch.maximum(torch.minimum(a[..., 3], b[..., 3])
+                       - torch.maximum(a[..., 1], b[..., 1]), zero)
+    inter = iw * ih
+    area_a = torch.maximum((a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1]),
+                           zero)
+    area_b = torch.maximum((b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1]),
+                           zero)
+    union = area_a + area_b - inter
+    return inter / torch.maximum(union, torch.full_like(zero, 1e-12))
+
+
+def greedy_nms_plain(boxes, thresh, ids=None, valid=None, pairs=None):
+    """The JAX loop (``_greedy_nms``, ``box_nms``'s body), vectorised over
+    the batch: ``boxes`` (B, n, 4) sorted by score; box j is suppressed
+    when a kept box i < j that is ``valid`` (if given) and of the same
+    class (``ids``, if given) overlaps it with IoU > ``thresh``.  Returns
+    the keep mask (B, n) bool.  ``pairs`` (an int64 tensor of one
+    element), if given, gains the number of IoUs the rule needs: each
+    kept, valid box against each later box still kept at its turn, of its
+    class.  The oracle of :func:`greedy_nms` and its CPU path."""
+    B, n, _ = boxes.shape
+    keep = torch.ones(B, n, dtype=torch.bool, device=boxes.device)
+    t = _nms_threshold(boxes.dtype, thresh)
+    order = torch.arange(n, device=boxes.device)
+    for i in range(n):
+        act = keep[:, i:i + 1]
+        if valid is not None:
+            act = act & valid[:, i:i + 1]
+        sup = (_nms_iou_row(boxes[:, i], boxes) > t) & (order > i) & act
+        if ids is not None:
+            same = ids == ids[:, i:i + 1]
+            sup = sup & same
+        if pairs is not None:
+            live = keep & (order > i) & act
+            pairs += (live & same if ids is not None else live).sum()
+        keep = keep & ~sup
+    return keep
+
+
+def greedy_nms(boxes, thresh, ids=None, valid=None):
+    """Greedy NMS of score-sorted boxes: the keep mask (B, n) bool under
+    the rule of :func:`greedy_nms_plain` (float32 or float64 boxes, class
+    ``ids`` (B, n) of any dtype compared as the boxes' dtype, ``valid``
+    (B, n) bool).
+
+    CUDA tensors launch ``csrc/nms.cu`` (``mxt_greedy_nms_f32`` /
+    ``_f64``): one launch over the batch, counted in
+    ``LAUNCHES["greedy_nms"]`` (``..._f64``); more boxes per image than
+    one block's shared memory holds flags for (232,448) fail the launch
+    and raise.  CPU tensors run
+    :func:`greedy_nms_plain`; ``meta`` tensors (shape inference) give a
+    mask of ones; any other device raises."""
+    _require(boxes.dim() == 3 and boxes.shape[2] == 4, "greedy_nms: boxes "
+             "of shape %s where (B, n, 4) is required", tuple(boxes.shape))
+    _require(boxes.dtype in _NMS_DTYPES, "greedy_nms: %s boxes where "
+             "float32 or float64 is required", boxes.dtype)
+    B, n, _ = boxes.shape
+    for name, t in (("ids", ids), ("valid", valid)):
+        _require(t is None or tuple(t.shape) == (B, n), "greedy_nms: %s of "
+                 "shape %s where %s is required", name,
+                 None if t is None else tuple(t.shape), (B, n))
+    if ids is not None:
+        ids = ids.to(boxes.dtype)
+    if valid is not None:
+        valid = valid.to(torch.bool)
+    dev = boxes.device
+    if dev.type == "meta":
+        return torch.ones(B, n, dtype=torch.bool, device=dev)
+    if dev.type == "cpu":
+        return greedy_nms_plain(boxes, thresh, ids, valid)
+    _require(dev.type == "cuda", "greedy_nms: no kernel for device %s", dev)
+    keep = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    if not B or not n:
+        return keep.bool()
+    lib = build.library("nms")
+    boxes = boxes.contiguous()
+    ids = None if ids is None else ids.contiguous()
+    valid = None if valid is None else valid.to(torch.uint8).contiguous()
+    _check_cuda("greedy_nms", boxes, keep,
+                *[t for t in (ids, valid) if t is not None])
+    suffix = _NMS_DTYPES[boxes.dtype]
+    _launch("greedy_nms" + suffix, dev,
+            getattr(lib, "mxt_greedy_nms" + (suffix or "_f32")),
+            boxes.data_ptr(), None if ids is None else ids.data_ptr(),
+            None if valid is None else valid.data_ptr(), keep.data_ptr(),
+            B, n, _nms_threshold(boxes.dtype, thresh))
+    LAUNCHES["greedy_nms" + suffix] += 1
+    return keep.bool()

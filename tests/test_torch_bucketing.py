@@ -247,8 +247,8 @@ def test_unported_parts_name_their_queue_item():
     mod.bind([("data", (2, 16))], [("softmax_label", (2, 16))])
     with pytest.raises(NotPortedYet, match="item 9, observability"):
         mod.install_monitor(object())
-    with pytest.raises(NotPortedYet, match="item 4"):
-        tmx.nd.contrib.box_nms
+    with pytest.raises(NotPortedYet, match="item 5"):
+        tmx.nd.contrib.SparseEmbedding
     with pytest.raises(ValueError):
         mod.bind([("data", (2, 16))], shared_module=mod)
 

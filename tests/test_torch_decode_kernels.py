@@ -223,7 +223,8 @@ def test_build_failure_is_a_typed_error(tmp_path, monkeypatch):
 def test_kernel_sources_carry_their_header_note():
     csrc = os.path.join(os.path.dirname(build.__file__), "..", "csrc")
     # the file of the TPU kernels each source replaces
-    replaced = {"embedding.cu": "mxnet_tpu/sparse/kernels.py"}
+    replaced = {"embedding.cu": "mxnet_tpu/sparse/kernels.py",
+                "nms.cu": "mxnet_tpu/ops/contrib.py"}
     for src in build.SOURCES.values():
         text = open(os.path.join(csrc, src)).read()
         head = text[:text.index("#include")]

@@ -99,7 +99,9 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.gluon.model_zoo.vision",
                  "mxnet_tpu_torch.gluon.contrib.nn",
                  "mxnet_tpu_torch.ops.rnn", "mxnet_tpu_torch.ops.linalg",
-                 "mxnet_tpu_torch.ops.spatial",
+                 "mxnet_tpu_torch.ops.spatial", "mxnet_tpu_torch.ops.contrib",
+                 "mxnet_tpu_torch.models.ssd",
+                 "mxnet_tpu_torch.models.inception_v4",
                  "mxnet_tpu_torch.ndarray.linalg",
                  "mxnet_tpu_torch.symbol.linalg",
                  "mxnet_tpu_torch.symbol.random",

@@ -29,7 +29,10 @@ exports and large shared memory, every ``mx.nd`` op case on the card
 against the CPU, and ``nd.save`` / ``nd.load`` on the card; the ``RNN``
 op on cuDNN (never its plain loop) against the plain loop in every mode,
 its gradient under a predict-mode recording, its dropout drawn from
-``mx.random.seed``, and bfloat16 through cuDNN in float32.
+``mx.random.seed``, and bfloat16 through cuDNN in float32; the greedy NMS
+kernel (``csrc/nms.cu``) against its plain version bit for bit in f32
+and f64, with class ids and a valid mask, one launch over the batch,
+past 48 KB of shared flags, and its refusals.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -2011,3 +2014,61 @@ def test_rnn_op_bf16_runs_cudnn_in_f32(dev):
     w = trnn._unpack(f32[1], L, C, H, bi, "lstm")
     ref = trnn.rnn_plain("lstm", f32[0], w, f32[2], f32[3])[0]
     assert (got.float() - ref).abs().max().item() <= 2 ** -8
+
+
+# -- greedy NMS (csrc/nms.cu) -------------------------------------------------
+
+def _nms_boxes(seed, B, n, dtype, dev):
+    rs = np.random.RandomState(seed)
+    centre = rs.uniform(0.3, 0.7, (B, n, 2))
+    half = rs.uniform(0.02, 0.25, (B, n, 2))
+    boxes = np.concatenate([centre - half, centre + half], -1)
+    return torch.from_numpy(boxes).to(dev, dtype)
+
+
+@pytest.mark.parametrize("B,n,dtype,with_ids,with_valid", [
+    (1, 1, torch.float32, False, False),
+    (3, 257, torch.float32, False, False),
+    (2, 1500, torch.float64, False, True),
+    (4, 999, torch.float32, True, True),
+    (2, 6000, torch.float64, False, False),
+    (1, 70000, torch.float32, False, False)])
+def test_greedy_nms_kernel_matches_plain(dev, B, n, dtype, with_ids,
+                                         with_valid):
+    """The keep mask equals the plain version's bit for bit (the IoU in
+    _box_iou's order with no FMA), one launch over the batch; past 48 KB
+    of flags (n 70000) the kernel asks for more shared memory."""
+    boxes = _nms_boxes(n, B, n, dtype, dev)
+    rs = np.random.RandomState(n + 1)
+    ids = torch.from_numpy(rs.randint(0, 3, (B, n))).to(dev) \
+        if with_ids else None
+    valid = torch.from_numpy(rs.rand(B, n) > 0.1).to(dev) \
+        if with_valid else None
+    before = kernels.LAUNCHES["greedy_nms" + kernels._NMS_DTYPES[dtype]]
+    keep = kernels.greedy_nms(boxes, 0.45, ids=ids, valid=valid)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["greedy_nms" + kernels._NMS_DTYPES[dtype]] == \
+        before + 1
+    small = n <= 1500          # the plain loop on the card takes n steps
+    want = kernels.greedy_nms_plain(boxes if small else boxes.cpu(), 0.45,
+                                    ids=None if ids is None else
+                                    (ids if small else ids.cpu()).to(dtype),
+                                    valid=None if valid is None else
+                                    (valid if small else valid.cpu()))
+    assert torch.equal(keep.cpu(), want.cpu())
+    again = kernels.greedy_nms(boxes, 0.45, ids=ids, valid=valid)
+    assert torch.equal(keep, again)
+
+
+def test_greedy_nms_kernel_refuses_what_it_does_not_take(dev):
+    from mxnet_tpu_torch.base import MXNetError
+    boxes = _nms_boxes(0, 1, 10, torch.float32, dev)
+    with pytest.raises(MXNetError):
+        kernels.greedy_nms(boxes.half(), 0.5)
+    with pytest.raises(MXNetError):
+        kernels.greedy_nms(boxes[0], 0.5)
+    with pytest.raises(MXNetError):
+        kernels.greedy_nms(boxes, 0.5, valid=torch.ones(1, 9, device=dev))
+    big = 232448 + 1      # one byte of shared memory per box's flag
+    with pytest.raises(MXNetError, match="launch failed"):
+        kernels.greedy_nms(torch.zeros(1, big, 4, device=dev), 0.5)

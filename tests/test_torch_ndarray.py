@@ -295,12 +295,12 @@ def test_not_ported_parts_raise():
     with tmx.cpu():
         a = tmx.nd.ones((2,))
         # autograd and mx.nd.contrib are ported (tests/test_torch_
-        # autograd.py); the JAX package's other contrib ops are not
+        # autograd.py, test_torch_contrib_ops.py); sparse storage is not
         assert a.grad is None
         a.attach_grad()
         assert a.grad.asnumpy().tolist() == [0.0, 0.0]
         for call in (lambda: a.tostype("csr"), lambda: tmx.nd.sparse,
-                     lambda: tmx.nd.contrib.box_nms,
+                     lambda: tmx.nd.contrib.SparseEmbedding,
                      lambda: a.attach_grad(stype="row_sparse")):
             with pytest.raises(NotPortedYet):
                 call()

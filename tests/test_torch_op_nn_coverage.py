@@ -5,10 +5,10 @@ the JAX package's aliases say, with the same registry flags
 (``needs_rng``, ``variadic``, ``mode_dependent``, the output counts,
 ``writeback``, ``aux_inputs``) and the same ``params`` keys, every name
 has a parity case in ``torch_cases.py``, and the two registries count
-324 shared names of the JAX package's 368 (all 13 ops of
+363 shared names of the JAX package's 368 (all 13 ops of
 ``ops/optimizer_ops.py``, the 28 of ``ops/linalg.py``, the 9 of
-``ops/spatial.py`` and ``RNN`` among them; the test keeps its name from
-when the count was 271)."""
+``ops/spatial.py``, ``RNN`` and the 39 of ``ops/contrib.py`` among them):
+the 5 left are ``ops/sparse_storage.py``'s."""
 import pytest
 
 from mxnet_tpu.ops.registry import get_op as jax_get_op
@@ -37,11 +37,15 @@ def test_registry_covers_the_jax_nn_module():
     assert not missing, missing
 
 
-def test_the_port_registers_271_of_the_368_names():
+def test_the_port_registers_all_but_the_sparse_storage_names():
     jax_names, port_names = set(jax_list_ops()), set(list_ops())
     assert len(jax_names) == 368
     assert not port_names - jax_names, sorted(port_names - jax_names)
-    assert len(port_names) == 324
+    assert len(port_names) == 363
+    left = jax_names - port_names
+    assert left <= set(jax_module_names("sparse_storage")), sorted(left)
+    assert sorted(left) == ["_contrib_SparseEmbedding", "_sparse_retain",
+                            "_square_sum", "cast_storage", "sparse_retain"]
 
 
 @pytest.mark.parametrize("name", CONV_NET_NAMES)

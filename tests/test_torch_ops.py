@@ -74,7 +74,7 @@ def test_the_lm_graph_ops_are_registered():
     assert get_op("fused_attention") is get_op("_contrib_fused_attention")
     assert "RNN" in list_ops()
     with pytest.raises(MXNetError):
-        get_op("MultiBoxPrior")     # ops/contrib.py is not ported yet
+        get_op("cast_storage")      # ops/sparse_storage.py is not ported yet
 
 
 @pytest.mark.parametrize("ishape,code,rev", [

@@ -4,8 +4,10 @@ never jax, so the card's host can use it).
 
 * ``OP_CASES``: for every op name of the JAX package's general op modules
   (``mxnet_tpu/ops/{elemwise,broadcast_reduce,matrix,init_ops,
-  random_ops}.py``) and of its conv-net ops and loss heads
-  (``mxnet_tpu/ops/nn.py``, module ``"nn"``), aliases included, the
+  random_ops}.py``), of its conv-net ops and loss heads
+  (``mxnet_tpu/ops/nn.py``, module ``"nn"``) and of its contrib and
+  detection ops (``mxnet_tpu/ops/contrib.py``, ``"contrib"``), aliases
+  included, the
   inputs (numpy, from a seed derived from the case's name), the attrs,
   the inputs to differentiate and the tolerance.  A key ``name:variant``
   is one more case of ``name``; the variants of ``_edge_cases`` hold the
@@ -862,11 +864,233 @@ def _nn_dtype_cases():
     return c
 
 
+# -- the contrib and detection ops (mxnet_tpu/ops/contrib.py) ---------------
+
+def _anchors(h, w, sizes, ratios):
+    """MultiBoxPrior's anchors of an (h, w) map as numpy (1, N, 4) f32."""
+    cy = (np.arange(h) + 0.5) / h
+    cx = (np.arange(w) + 0.5) / w
+    whs = [(s * np.sqrt(ratios[0]), s / np.sqrt(ratios[0])) for s in sizes]
+    whs += [(sizes[0] * np.sqrt(r), sizes[0] / np.sqrt(r))
+            for r in ratios[1:]]
+    whs = np.asarray(whs)
+    cy, cx = cy[:, None, None], cx[None, :, None]
+    out = np.stack(np.broadcast_arrays(cx - whs[:, 0] / 2, cy - whs[:, 1] / 2,
+                                       cx + whs[:, 0] / 2, cy + whs[:, 1] / 2),
+                   -1)
+    return _f32(np.clip(out.reshape(1, -1, 4), 0, 1))
+
+
+def _boxes(rs, n, lo=0.0, hi=1.0, min_size=0.05):
+    """n corner boxes inside [lo, hi]^2, each side at least min_size."""
+    x0 = rs.uniform(lo, hi - min_size, n)
+    y0 = rs.uniform(lo, hi - min_size, n)
+    x1 = x0 + rs.uniform(min_size, 1.0, n) * (hi - x0)
+    y1 = y0 + rs.uniform(min_size, 1.0, n) * (hi - y0)
+    return _f32(np.stack([x0, y0, x1, y1], -1))
+
+
+def _softmax(a, axis):
+    e = np.exp(a - a.max(axis, keepdims=True))
+    return _f32(e / e.sum(axis, keepdims=True))
+
+
+def _ssd_label(rs, batch, rows, n_obj, classes):
+    """SSD labels: ``n_obj`` boxes of ``[cls, x0, y0, x1, y1]`` per image,
+    padded with -1 rows."""
+    lab = np.full((batch, rows, 5), -1.0, np.float32)
+    for b in range(batch):
+        lab[b, :n_obj, 0] = rs.randint(0, classes, n_obj)
+        lab[b, :n_obj, 1:] = _boxes(rs, n_obj, min_size=0.15)
+    return lab
+
+
+def _detections(rs, G, n, classes, ties=False):
+    """box_nms input rows [id, score, x0, y0, x1, y1]: ids in
+    [0, classes), scores (in quarters with ``ties``), clustered boxes."""
+    ids = rs.randint(0, classes, (G, n))
+    scores = rs.randint(0, 4, (G, n)) / 4.0 if ties else rs.rand(G, n)
+    centre = rs.uniform(0.3, 0.7, (G, n, 2))
+    half = rs.uniform(0.05, 0.3, (G, n, 2))
+    boxes = np.concatenate([centre - half, centre + half], -1)
+    return _f32(np.concatenate([ids[..., None], scores[..., None], boxes],
+                               -1))
+
+
+def _contrib_cases():
+    """The 39 names of ``mxnet_tpu/ops/contrib.py``: the SSD family (score
+    ties, two ground truths sharing their best anchor, degenerate and
+    clipped boxes), ROI pooling with ROIs past the image, the R-CNN
+    proposals (with tied scores), R-FCN's pooling and the deformable ops,
+    fft, count_sketch, quantization, and the box ops (class-aware
+    ``box_nms`` with a background id, center formats, ``topk``)."""
+    c = {}
+    anchors = _anchors(4, 5, (0.3, 0.5), (1.0, 2.0, 0.5))       # N = 80
+    N = anchors.shape[1]
+    for n in ("_contrib_MultiBoxPrior", "MultiBoxPrior",
+              "_contrib_multibox_prior"):
+        c[n] = lambda rs: _case([_any(rs, 2, 3, 4, 5)],
+                                dict(sizes=(0.3, 0.5), ratios=(1, 2, 0.5)))
+    c["MultiBoxPrior:clip-steps"] = lambda rs: _case(
+        [_any(rs, 2, 3, 4, 5)],
+        dict(sizes=(0.6,), ratios=(1, 3), clip=True, steps=(0.3, 0.2),
+             offsets=(0.25, 0.75)))
+
+    def target(rs, shared=False):
+        lab = _ssd_label(rs, 3, 5, 3, 4)
+        lab[2, 3] = [2, 0.4, 0.4, 0.4, 0.9]         # degenerate: zero width
+        if shared:       # two gts of other classes on one best anchor
+            lab[0, 1] = lab[0, 0]
+            lab[0, 1, 0] = (lab[0, 0, 0] + 1) % 4
+        return _case([anchors, lab, _any(rs, 3, 5, N)], tol=ARITH,
+                     all_outputs=True)
+    for n in ("_contrib_MultiBoxTarget", "MultiBoxTarget",
+              "_contrib_multibox_target"):
+        c[n] = target
+    c["MultiBoxTarget:shared-anchor"] = lambda rs: target(rs, shared=True)
+
+    def detection(rs, ties=False, **attrs):
+        logits = rs.randn(2, 4, N) * 2
+        if ties:                    # scores in a few levels: many ties
+            logits = np.round(logits)
+        return _case([_softmax(logits, 1), _f32(rs.randn(2, N * 4) * 0.8),
+                      anchors], dict(attrs), grad=[0, 1], tol=ARITH)
+    for n in ("_contrib_MultiBoxDetection", "MultiBoxDetection",
+              "_contrib_multibox_detection"):
+        c[n] = lambda rs: detection(rs, nms_threshold=0.45)
+    c["MultiBoxDetection:ties"] = lambda rs: detection(rs, ties=True)
+    c["MultiBoxDetection:unclipped-threshold"] = lambda rs: detection(
+        rs, clip=False, threshold=0.3, background_id=2,
+        variances=(0.2, 0.2, 0.3, 0.3))
+
+    def rois(rs, R, B, H, W, scale):
+        """ROIs in image coordinates; one reaches past the image."""
+        box = _boxes(rs, R, min_size=0.1) * np.array(
+            [W, H, W, H], np.float32) / scale
+        box[0, 2:] = [W / scale * 1.3, H / scale * 1.2]
+        return _f32(np.concatenate([rs.randint(0, B, (R, 1)), box], 1))
+    for n in ("ROIPooling", "_contrib_ROIPooling"):
+        c[n] = lambda rs: _case(
+            [_any(rs, 2, 3, 8, 9), rois(rs, 5, 2, 8, 9, 0.5)],
+            dict(pooled_size=(3, 2), spatial_scale=0.5), grad=[0], tol=ARITH)
+
+    def proposal(rs, B, ties=False, **attrs):
+        A = 6
+        fg = rs.randint(0, 3, (B, A, 4, 5)) / 2.0 if ties \
+            else rs.rand(B, A, 4, 5)
+        cls = np.concatenate([1 - fg, fg], 1)
+        info = np.array([[64, 80, 1]] * B, np.float32)
+        return _case([_f32(cls), _f32(rs.randn(B, 4 * A, 4, 5) * 0.3), info],
+                     dict(dict(scales=(2, 4), ratios=(0.5, 1, 2),
+                               rpn_pre_nms_top_n=60, rpn_post_nms_top_n=12,
+                               rpn_min_size=4, threshold=0.6), **attrs),
+                     tol=ARITH)
+    for n in ("_contrib_Proposal", "Proposal", "_contrib_proposal"):
+        c[n] = lambda rs: proposal(rs, 2)
+    c["Proposal:ties-score"] = lambda rs: proposal(rs, 1, ties=True,
+                                                   output_score=True)
+    for n in ("_contrib_MultiProposal", "MultiProposal",
+              "_contrib_multi_proposal"):
+        c[n] = lambda rs: proposal(rs, 2, output_score=True)
+    c["MultiProposal:ties"] = lambda rs: proposal(rs, 2, ties=True)
+    for n in ("_contrib_fft", "fft"):
+        c[n] = lambda rs: _case([_any(rs, 3, 8)], grad=[0], tol=TRANSC)
+    for n in ("_contrib_ifft", "ifft"):
+        c[n] = lambda rs: _case([_any(rs, 3, 16)], grad=[0], tol=TRANSC)
+    for n in ("_contrib_count_sketch", "count_sketch"):
+        c[n] = lambda rs: _case(
+            [_any(rs, 3, 6), _f32([0, 2, 1, 2, 3, 0]),
+             _f32([1, -1, 1, 1, -1, 1])], dict(out_dim=4), grad=[0],
+            tol=ARITH)
+    for n in ("_contrib_quantize", "quantize"):
+        c[n] = lambda rs: _case([_any(rs, 3, 4), _f32([-1.5]), _f32([2.0])])
+    c["quantize:int8"] = lambda rs: _case(
+        [_any(rs, 3, 4), _f32([-1.0]), _f32([1.0])], dict(out_type="int8"))
+    for n in ("_contrib_dequantize", "dequantize"):
+        c[n] = lambda rs: _case(
+            [np.asarray(rs.randint(0, 256, (3, 4)), np.uint8), _f32([-1.5]),
+             _f32([2.0])], tol=ARITH)
+    c["dequantize:int8"] = lambda rs: _case(
+        [np.asarray(rs.randint(-127, 128, (3, 4)), np.int8), _f32([-1.0]),
+         _f32([1.0])], tol=ARITH)
+    for n in ("_contrib_DeformableConvolution", "DeformableConvolution"):
+        c[n] = lambda rs: _case(
+            [_any(rs, 2, 3, 6, 7), _f32(rs.randn(2, 18, 6, 7) * 1.5),
+             _any(rs, 4, 3, 3, 3), _any(rs, 4)],
+            dict(kernel=(3, 3), pad=(1, 1), num_filter=4), grad=[0, 1, 2, 3],
+            tol=NN)
+    c["DeformableConvolution:stride-dilate-groups"] = lambda rs: _case(
+        [_any(rs, 1, 2, 9, 8), _f32(rs.randn(1, 36, 4, 2) * 2),
+         _any(rs, 3, 2, 3, 3)],
+        dict(kernel=(3, 3), stride=(2, 2), dilate=(2, 2), pad=(1, 0),
+             num_filter=3, num_deformable_group=2, no_bias=True),
+        grad=[0, 1, 2], tol=NN)
+    for n in ("_contrib_PSROIPooling", "PSROIPooling"):
+        c[n] = lambda rs: _case(
+            [_any(rs, 2, 18, 8, 8), rois(rs, 4, 2, 8, 8, 0.5)],
+            dict(spatial_scale=0.5, output_dim=2, pooled_size=3), grad=[0],
+            tol=NN)
+    for n in ("_contrib_DeformablePSROIPooling", "DeformablePSROIPooling"):
+        c[n] = lambda rs: _case(
+            [_any(rs, 2, 18, 8, 8), rois(rs, 3, 2, 8, 8, 0.5),
+             _any(rs, 3, 4, 3, 3)],
+            dict(spatial_scale=0.5, output_dim=2, group_size=3,
+                 pooled_size=3, sample_per_part=2, trans_std=0.1),
+            grad=[0, 2], tol=NN, all_outputs=True)
+    c["DeformablePSROIPooling:no-trans"] = lambda rs: _case(
+        [_any(rs, 2, 18, 8, 8), rois(rs, 3, 2, 8, 8, 0.5)],
+        dict(spatial_scale=0.5, output_dim=2, group_size=3, pooled_size=3,
+             part_size=2, sample_per_part=3, no_trans=True), grad=[0],
+        tol=NN, all_outputs=True)
+
+    def iou(rs, fmt="corner"):
+        lhs = _boxes(rs, 3)
+        lhs[1] = [0.2, 0.2, 0.2, 0.6]               # degenerate: zero width
+        rhs = _boxes(rs, 10).reshape(2, 5, 4)
+        rhs[1, 4] = [2.0, 2.0, 3.0, 3.0]            # overlaps nothing
+        if fmt == "center":
+            lhs, rhs = [_f32(np.concatenate([(b[..., :2] + b[..., 2:]) / 2,
+                                             b[..., 2:] - b[..., :2]], -1))
+                        for b in (lhs, rhs)]
+        return _case([lhs, rhs], dict(format=fmt), grad=[0, 1], tol=ARITH)
+    for n in ("_contrib_box_iou", "box_iou"):
+        c[n] = iou
+    c["box_iou:center"] = lambda rs: iou(rs, "center")
+    for n in ("_contrib_bipartite_matching", "bipartite_matching"):
+        c[n] = lambda rs: _case([_f32(rs.rand(2, 4, 5))],
+                                dict(threshold=0.2))
+    c["bipartite_matching:ascend-topk-ties"] = lambda rs: _case(
+        [_f32(rs.randint(0, 4, (2, 4, 5)) / 4.0)],
+        dict(threshold=0.7, is_ascend=True, topk=2))
+    nms = dict(overlap_thresh=0.4, coord_start=2, score_index=1,
+               id_index=0, background_id=0)
+    for n in ("_contrib_box_nms", "box_nms"):
+        c[n] = lambda rs: _case([_detections(rs, 2, 24, 3)], nms, grad=[0],
+                                tol=ARITH)
+    c["box_nms:ties-force-topk"] = lambda rs: _case(
+        [_detections(rs, 2, 24, 3, ties=True)],
+        dict(nms, force_suppress=True, topk=12, valid_thresh=0.1), grad=[0],
+        tol=ARITH)
+
+    def centered(rs):
+        d = _detections(rs, 2, 24, 2)
+        d[..., 2:4], d[..., 4:] = ((d[..., 2:4] + d[..., 4:]) / 2,
+                                   d[..., 4:] - d[..., 2:4])
+        return _case([d], dict(overlap_thresh=0.3, id_index=0,
+                               in_format="center", out_format="corner"),
+                     grad=[0], tol=ARITH)
+    c["box_nms:center-in"] = centered
+    c["box_nms:center-out"] = lambda rs: _case(
+        [_detections(rs, 2, 24, 2)],
+        dict(overlap_thresh=0.5, out_format="center"), grad=[0], tol=ARITH)
+    return c
+
+
 # module of the JAX package -> {case key: builder}
 OP_MODULES = {"elemwise": _elemwise_cases(), "init_ops": _init_cases(),
               "broadcast_reduce": _broadcast_reduce_cases(),
               "matrix": _matrix_cases(), "random_ops": _random_cases(),
-              "nn": _nn_cases()}
+              "nn": _nn_cases(), "contrib": _contrib_cases()}
 for _key, _build in _edge_cases().items():
     OP_MODULES[_EDGE_MODULE.get(_key.split(":")[0], "elemwise")][_key] = \
         _build
@@ -1027,3 +1251,144 @@ def rtc_launch(kernel, name, t, ctx):
             for a in RTC_SIGNATURES[name].split(",") if "*" in a]
     grid, block = rtc_grid(name, n)
     kernel.launch(ptrs + rtc_scalars(name, n), ctx, grid, block)
+
+
+# ---------------------------------------------------------------------------
+# SSD scenes (models/ssd.py; example/detection/train_ssd_toy.py's task)
+# ---------------------------------------------------------------------------
+
+def ssd_scenes(n, hw, rows, classes, seed, max_obj=3):
+    """``n`` seeded synthetic detection scenes in the manner of
+    ``example/detection/train_ssd_toy.py``: 1 to ``max_obj``
+    non-overlapping objects on faint noise, a bright square for an even
+    class and a dark disc for an odd one.  Returns images (n, 3, hw, hw)
+    f32 and labels (n, rows, 5) rows ``[cls, x1, y1, x2, y2]`` in [0, 1],
+    padded with -1 rows."""
+    rs = np.random.RandomState(seed)
+    images = rs.uniform(0, 0.1, (n, 3, hw, hw)).astype(np.float32)
+    labels = np.full((n, rows, 5), -1.0, np.float32)
+    for i in range(n):
+        taken = []
+        want = rs.randint(1, max_obj + 1)
+        for _ in range(20 * max_obj):
+            if len(taken) == want:
+                break
+            size = rs.randint(hw // 6, hw // 2)
+            x, y = rs.randint(0, hw - size), rs.randint(0, hw - size)
+            box = (x, y, x + size, y + size)
+            if any(not (box[2] < t[0] or t[2] < box[0] or box[3] < t[1]
+                        or t[3] < box[1]) for t in taken):
+                continue
+            cls = rs.randint(0, classes)
+            if cls % 2 == 0:
+                images[i, :, y:y + size, x:x + size] += 0.8
+            else:
+                yy, xx = np.mgrid[0:size, 0:size]
+                disc = ((yy - size / 2) ** 2 + (xx - size / 2) ** 2
+                        <= (size / 2) ** 2)
+                images[i, :, y:y + size, x:x + size] -= 0.9 * disc
+            labels[i, len(taken)] = [cls, x / hw, y / hw, (x + size) / hw,
+                                     (y + size) / hw]
+            taken.append(box)
+    return images, labels
+
+
+# ---------------------------------------------------------------------------
+# the other conv nets of the model zoo (models/{resnet_v1,resnext,
+# mobilenet,googlenet,inception_v4}) at tests/test_model_symbols.py's
+# configurations, and one state for them
+# ---------------------------------------------------------------------------
+
+MORE_NETS_SMALL = {"resnet_v1": dict(num_layers=18),
+                   "resnext": dict(num_layers=50, cardinality=4,
+                                   bottleneck_width=4),
+                   "mobilenet": dict(multiplier=0.25),
+                   "googlenet": {}, "inception_v4": {}}
+# the least input each takes at those configurations (test_model_symbols'
+# 64x64; Inception-v4's valid convolutions and reductions need 75x75)
+MORE_NETS_HW = dict({k: 64 for k in MORE_NETS_SMALL}, inception_v4=75)
+# where a training forward is compared across packages or devices: at
+# 75x75, Inception-v4's last stage (from reduction B) runs on 1x1 maps,
+# whose BatchNorm normalizes the 4 images' values per channel; float32
+# rounding decides its outputs (moving the data by 1e-7 moves them by
+# tenths, chip_smoke.py phase 35), so the comparison stops before it
+MORE_NETS_TRAIN_CUT = {"inception_v4": "incB6_output"}
+
+
+def features(net):
+    """The graph up to the classifier head's Dropout (GoogLeNet,
+    Inception-v4), whose masks are each package's or device's own draws;
+    the whole graph where there is none."""
+    outs = net.get_internals().list_outputs()
+    drop = [i for i, n in enumerate(outs) if n.startswith("dropout")]
+    return net.get_internals()[outs[drop[0] - 1]] if drop else net
+
+
+def more_net_case(net, hw, batch=4):
+    """One state and feed of a small parity net (``features`` of a
+    ``MORE_NETS_SMALL`` symbol) at ``hw`` x ``hw``: (params, aux, feed),
+    dicts of float32 numpy arrays by name.  He-normal weights, unit
+    gammas, zero biases; the BatchNorm betas and moving means N(0, 0.1)
+    and moving variances U(0.5, 1.5), so that no pre-activation is
+    exactly 0 (at zero betas and means, a depthwise window of zeros
+    gives one): there the port's ReLU passes no gradient, as MXNet's
+    does, and the JAX package's ``jnp.maximum`` half (ROADMAP "Reference
+    caveats")."""
+    shapes = {"data": (batch, 3, hw, hw), "softmax_label": (batch,)}
+    args = net.list_arguments()
+    if "softmax_label" not in args:
+        del shapes["softmax_label"]
+    arg_shapes, _, aux_shapes = net.infer_shape(**shapes)
+    # float32 draws: Inception-v4 holds 41M weights
+    rng = np.random.default_rng(5)
+
+    def normal(std, shape):
+        return rng.standard_normal(shape, np.float32) * np.float32(std)
+
+    params = {}
+    for n, shape in zip(args, arg_shapes):
+        if n in shapes:
+            continue
+        if n.endswith("_weight"):
+            params[n] = normal(np.sqrt(2.0 / np.prod(shape[1:])), shape)
+        elif n.endswith("_beta"):
+            params[n] = normal(0.1, shape)
+        else:
+            params[n] = _f32(np.full(shape, float(n.endswith("_gamma"))))
+    # moving mean, moving variance of each BatchNorm in turn
+    aux = {n: _f32(normal(0.1, s) if i % 2 == 0 else rng.uniform(0.5, 1.5, s))
+           for i, (n, s) in enumerate(zip(net.list_auxiliary_states(),
+                                          aux_shapes))}
+    rs = np.random.RandomState(2)
+    feed = {"data": _f32(rs.randn(batch, 3, hw, hw)),
+            "softmax_label": _f32(rs.randint(0, 5, batch))}
+    return params, aux, {k: v for k, v in feed.items() if k in shapes}
+
+
+def more_net_eval(net, params, aux, feed, train, device="cpu", dtype=None,
+                  grad=True):
+    """The port's forward of ``net`` (the symbol :func:`more_net_case`
+    made the state for, or a cut of it) on ``device`` in ``dtype``
+    (float32 by default; the label stays float32), in training or
+    predict mode: (outputs, new moving statistics, gradients of the
+    outputs' sum in ``list_arguments`` order or None), each a list of
+    float64 numpy arrays."""
+    import torch
+    from mxnet_tpu_torch.executor import GraphProgram
+    dtype = dtype or torch.float32
+    prog = GraphProgram(net)
+    names = [n for n in prog.arg_names if n in params]
+    leaves = [torch.from_numpy(params[n]).to(device, dtype)
+              .requires_grad_(grad) for n in names]
+    m = dict(zip(names, leaves), **{
+        k: torch.from_numpy(v).to(device, dtype if k == "data"
+                                  else torch.float32)
+        for k, v in feed.items() if k in prog.arg_names})
+    with torch.set_grad_enabled(grad):
+        outs, new = prog.evaluate([m[n] for n in prog.arg_names],
+                                  [torch.from_numpy(aux[n]).to(device, dtype)
+                                   for n in prog.aux_names], train=train)
+    grads = torch.autograd.grad(sum(o.sum() for o in outs), leaves) \
+        if grad else None
+    host = lambda ts: [t.detach().cpu().double().numpy() for t in ts]  # noqa
+    return host(outs), host(new), None if grads is None else host(grads)
