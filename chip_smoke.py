@@ -318,13 +318,18 @@ Phases, in order:
     from CUDA events at each batch end, spread, one NMS launch per step,
     idle share and time by group (convolutions, batch norm, NMS, the
     rest) of one profiled step, peak memory; the NMS kernel on the step's
-    own sorted boxes equal to its plain version, timed with a cold L2
-    beside its bound; the cross-entropy of a fresh Module falling on one
-    repeated batch (``SSD_CHECK``); the deploy symbol's forward at batch
-    32;
+    own sorted boxes equal to its plain version, rerun equal, timed with a
+    cold L2 beside its bound, the chain floor (kept boxes of the longest image
+    x one measured barrier round trip x waves), the exchange floor (the
+    steps it needs at least x one measured round of its exchange x
+    waves) and its time at each cluster size; the cross-entropy of a
+    fresh Module falling on one repeated batch (``SSD_CHECK``); the
+    deploy symbol's forward at batch 32;
 35. the detection ops at Faster R-CNN's and R-FCN's sizes card vs CPU,
     timed: MultiProposal on (2, 18, 38, 63) with 9 anchors (6000 -> 300,
-    one NMS launch), ROIPooling of 300 ROIs at 7x7 on (1, 512, 38, 63),
+    one NMS launch), and its NMS call alone on the card (equal to the
+    plain version, timed, with its bound, chain floor and time at each
+    cluster size), ROIPooling of 300 ROIs at 7x7 on (1, 512, 38, 63),
     PSROIPooling with output_dim 21 and k 7, DeformableConvolution 3x3 on
     (1, 256, 38, 63); then ResNet-50 v1, ResNeXt-50 32x4d, MobileNet,
     GoogLeNet and Inception-v4 at a small size card vs CPU (a training
@@ -6155,7 +6160,13 @@ SSD_SGD = dict(learning_rate=0.002, momentum=0.9, wd=5e-4)
 # step's fall growing with the momentum (NVIDIA H100 80GB HBM3, 700 W)
 SSD_CHECK = dict(steps=12, margin=0.03)
 F64_FLOPS_S = 34e12           # H100 SXM f64 outside the tensor cores
-NMS_OPS_PER_PAIR = 17         # min/max/sub/mul/add/div/compare per IoU
+# the operations an NMS pair needs: every pair the greedy rule decides,
+# four comparisons (do the boxes overlap); a pair with an IoU > 0 besides
+# its IoU against t: min, max and sub for each side, inter, the later
+# box's area (2 sub, mul), the union (add, sub, the 1e-12 clamp), t x den
+# and one comparison
+NMS_TEST_OPS, NMS_IOU_OPS = 4, 15
+NMS_CLUSTERS = (1, 2, 4, 8, 16)
 
 
 def ssd_module(mx, net, ctx, X, Y, args=None, auxs=None):
@@ -6314,16 +6325,148 @@ SSD_GROUPS = (("NMS", ("greedy_nms",)),
                               "welford")))
 
 
+def captured_nms(torch, kernels, fn):
+    """Run ``fn()`` with ``kernels.greedy_nms`` watched; returns the last
+    call's boxes, thresh, ids, valid and keep mask."""
+    seen = {}
+    orig = kernels.greedy_nms
+
+    def capture(boxes, thresh, ids=None, valid=None):
+        keep = orig(boxes, thresh, ids=ids, valid=valid)
+        seen.update(boxes=boxes, thresh=thresh, ids=ids, valid=valid,
+                    keep=keep)
+        return keep
+
+    kernels.greedy_nms = capture
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        kernels.greedy_nms = orig
+    return seen
+
+
+def nms_plan(B, n, elem_bytes, cluster=0, lib=None):
+    """``csrc/nms.cu``'s launch layout for (B, n) boxes: cluster size,
+    flags a thread, of them in shared memory, shared memory bytes a CTA,
+    clusters the card holds at once, waves, candidates a step settles;
+    ``lib`` as in :func:`nms_exchange_us`."""
+    import ctypes
+    out = (ctypes.c_int * 7)()
+    rc = nms_lib(lib).mxt_greedy_nms_plan(B, n, elem_bytes, cluster, out)
+    check(rc == 0, "mxt_greedy_nms_plan(%d, %d) failed: %d" % (B, n, rc))
+    return dict(zip(("cluster", "flags", "on_chip", "smem", "resident",
+                     "waves", "candidates"), out))
+
+
+def nms_ops(pairs, overlaps):
+    """Operations the greedy rule needs on this data: NMS_TEST_OPS for each
+    pair it decides, NMS_IOU_OPS more for each one with an IoU > 0."""
+    return NMS_TEST_OPS * int(pairs) + NMS_IOU_OPS * int(overlaps)
+
+
+def nms_lib(lib):
+    from mxnet_tpu_torch.ops import build
+    return build.library("nms") if lib is None else lib
+
+
+def nms_exchange_us(torch, cluster, bare=0, rounds=20000, lib=None):
+    """us per round of the NMS kernel's per-step exchange between the
+    CTAs of one cluster (bare: its barrier alone, barrier.cluster, or
+    __syncthreads for cluster 1), from CUDA events around ``rounds`` of
+    them; ``lib``: a build of csrc/nms.cu (default the port's)."""
+    probe = nms_lib(lib).mxt_nms_barrier_probe
+    stream = torch.cuda.current_stream().cuda_stream
+    check(probe(cluster, 100, bare, stream) == 0, "the NMS probe failed")
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    a.record()
+    rc = probe(cluster, rounds, bare, stream)
+    e.record()
+    e.synchronize()
+    check(rc == 0, "the NMS probe failed: %d" % rc)
+    return a.elapsed_time(e) * 1e3 / rounds
+
+
+def nms_by_cluster(torch, kernels, timer, boxes, thresh, ids, valid, want,
+                   lib=None):
+    """The kernel's ms at each cluster size it may pick (cold L2), each
+    keep mask held to ``want``; ``lib`` as in :func:`nms_exchange_us`."""
+    B, n = boxes.shape[:2]
+    f64 = boxes.dtype == torch.float64
+    fn = getattr(nms_lib(lib), "mxt_greedy_nms_cluster"
+                 + ("_f64" if f64 else "_f32"))
+    ok = None if valid is None else valid.to(torch.uint8)
+    ids = None if ids is None else ids.to(boxes.dtype)
+    keep = torch.empty(B, n, dtype=torch.uint8, device=boxes.device)
+    t = kernels._nms_threshold(boxes.dtype, thresh)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for C in NMS_CLUSTERS:
+        if C * 1024 * 64 < n:
+            continue
+
+        def call():
+            return fn(boxes.data_ptr(),
+                      None if ids is None else ids.data_ptr(),
+                      None if ok is None else ok.data_ptr(), keep.data_ptr(),
+                      B, n, C, t, stream)
+
+        check(call() == 0, "the NMS kernel at cluster %d failed" % C)
+        torch.cuda.synchronize()
+        check(torch.equal(keep.bool(), want),
+              "the NMS kernel at cluster %d differs from its plain version"
+              % C)
+        out[C] = timer(call)
+    return out
+
+
+def nms_chain(torch, keep, valid, elem_bytes):
+    """The launch's layout and two floors of its chain, from the most
+    kept, valid boxes of an image: the chain floor, those boxes x one
+    barrier round trip at the picked cluster size (barrier.cluster;
+    __syncthreads for one CTA) x waves, a barrier for each kept box; and
+    the exchange floor, the steps the kernel needs at least (each
+    settles up to ``candidates`` boxes) x one measured round of its
+    exchange x waves: what no work at all would take."""
+    B, n = keep.shape
+    plan = nms_plan(B, n, elem_bytes)
+    kept = keep if valid is None else keep & valid
+    boxes = int(kept.sum(1).max())
+    steps = -(-boxes // plan["candidates"])
+    us = nms_exchange_us(torch, plan["cluster"])
+    bare = nms_exchange_us(torch, plan["cluster"], bare=1)
+    return dict(plan=plan, kept_boxes=boxes, steps=steps, exchange_us=us,
+                barrier_us=bare,
+                chain_floor_ms=boxes * bare * plan["waves"] / 1e3,
+                exchange_floor_ms=steps * us * plan["waves"] / 1e3)
+
+
+def nms_floors_text(chain):
+    """nms_chain's two floors in words."""
+    return ("chain floor %.4f ms: %d kept, valid boxes in the longest image "
+            "x %.3f us (the barrier alone at cluster %d) x %d wave(s); "
+            "exchange floor %.4f ms: %d steps x %.3f us (a step's exchange "
+            "of %d candidates alone) x %d wave(s)"
+            % (chain["chain_floor_ms"], chain["kept_boxes"],
+               chain["barrier_us"], chain["plan"]["cluster"],
+               chain["plan"]["waves"], chain["exchange_floor_ms"],
+               chain["steps"], chain["exchange_us"],
+               chain["plan"]["candidates"], chain["plan"]["waves"]))
+
+
 def ssd_nms_row(torch, kernels, timer, boxes, valid, keep, card):
     """The NMS kernel on the step's own sorted boxes: equal to its plain
     version on the card, timed with a cold L2, with the bound of the
-    pairs this data needs (counted by the plain version)."""
+    pairs this data needs (counted by the plain version, :func:`nms_ops`),
+    the chain floor, and its time at each cluster size."""
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    overlaps = torch.zeros(1, dtype=torch.int64, device="cuda")
     t0.record()
     plain = kernels.greedy_nms_plain(boxes, SSD["nms_thresh"], valid=valid,
-                                     pairs=pairs)
+                                     pairs=pairs, overlaps=overlaps)
     t1.record()
     torch.cuda.synchronize()
     plain_ms = t0.elapsed_time(t1)
@@ -6336,7 +6479,7 @@ def ssd_nms_row(torch, kernels, timer, boxes, valid, keep, card):
                                           valid=valid))
     B, n = keep.shape
     nbytes = B * n * (4 * 8 + 1 + 1)
-    ops = NMS_OPS_PER_PAIR * int(pairs)
+    ops = nms_ops(pairs, overlaps)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F64_FLOPS_S
     row = {"name": "greedy_nms_f64", "route": "cuda",
            "source": "mxnet_tpu_torch/csrc/nms.cu",
@@ -6352,16 +6495,29 @@ def ssd_nms_row(torch, kernels, timer, boxes, valid, keep, card):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None,
            "library_call": "none: no PyTorch call computes a greedy NMS",
-           "pairs": int(pairs), "kept": int(keep.sum())}
+           "pairs": int(pairs), "overlapping_pairs": int(overlaps),
+           "kept": int(keep.sum())}
+    chain = nms_chain(torch, keep, valid, 8)
+    row.update({k: chain[k] for k in ("chain_floor_ms", "exchange_floor_ms",
+                                      "barrier_us", "exchange_us",
+                                      "kept_boxes", "steps")},
+               layout=chain["plan"])
+    by_c = nms_by_cluster(torch, kernels, timer, boxes, SSD["nms_thresh"],
+                          None, valid, keep)
+    row["ms_by_cluster"] = by_c
     log("  NMS kernel on the step's sorted boxes (%d x %d f64, %d valid): "
         "equal to its plain version (0 of %d flags differ), %d kept; %.4f "
         "ms with a cold L2, plain version %.1f ms (with its count of the "
-        "IoU pairs); %d IoU pairs x %d "
-        "operations at 34 TFLOP/s f64 = %.4f ms, %.1f MB at 3.35 TB/s = "
-        "%.4f ms: bound %.4f ms (%s) [%s]"
+        "pairs); %d pairs x %d operations + %d with an IoU > 0 x %d at 34 "
+        "TFLOP/s f64 = %.4f ms, %.1f MB at 3.35 TB/s = %.4f ms: bound %.4f "
+        "ms (%s) [%s]"
         % (B, n, int(valid.sum()), keep.numel(), row["kept"], ms, plain_ms,
-           row["pairs"], NMS_OPS_PER_PAIR, t_ops * 1e3, nbytes / 1e6,
-           t_bytes * 1e3, row["bound_ms"], row["bound_by"], card))
+           row["pairs"], NMS_TEST_OPS, row["overlapping_pairs"], NMS_IOU_OPS,
+           t_ops * 1e3, nbytes / 1e6, t_bytes * 1e3, row["bound_ms"],
+           row["bound_by"], card))
+    log("  its layout %s; %s; ms by cluster size %s [%s]"
+        % (chain["plan"], nms_floors_text(chain),
+           ", ".join("%d: %.4f" % kv for kv in by_c.items()), card))
     return row
 
 
@@ -6469,21 +6625,9 @@ def phase_ssd(torch, mx, kernels, card):
         log("  device busy: not measured (the profiler saw no device time)")
     log("  peak memory allocated %.2f GB [%s]" % (peak / 1e9, card))
     # the step's own sorted boxes: one more forward, its NMS call captured
-    seen = {}
-    orig = kernels.greedy_nms
-
-    def capture(boxes, thresh, ids=None, valid=None):
-        keep = orig(boxes, thresh, ids=ids, valid=valid)
-        seen.update(boxes=boxes, valid=valid, keep=keep)
-        return keep
-
-    kernels.greedy_nms = capture
-    try:
-        it.reset()
-        mod.forward(next(iter(it)), is_train=True)
-        torch.cuda.synchronize()
-    finally:
-        kernels.greedy_nms = orig
+    it.reset()
+    seen = captured_nms(torch, kernels, lambda: mod.forward(
+        next(iter(it)), is_train=True))
     row = ssd_nms_row(torch, kernels, Timer(torch), seen["boxes"],
                       seen["valid"], seen["keep"], card)
     det = mod.get_outputs()[3].asnumpy()
@@ -6565,6 +6709,21 @@ def rcnn_rois(rs, R, H, W, stride, batch=1):
                      np.minimum(y1, ih - 1)], 1).astype(np.float32)
 
 
+def proposal_case(rs):
+    """MultiProposal's inputs at RCNN's size (scores, box deltas, image
+    info as numpy float32) and its attributes."""
+    c = RCNN
+    A = len(c["scales"]) * len(c["ratios"])
+    fg = rs.rand(c["batch"], A, c["h"], c["w"]).astype(np.float32)
+    inputs = [np.concatenate([1 - fg, fg], 1),
+              (rs.randn(c["batch"], 4 * A, c["h"], c["w"]) * 0.2)
+              .astype(np.float32),
+              np.array([[c["h"] * c["stride"], c["w"] * c["stride"], 1]]
+                       * c["batch"], np.float32)]
+    return inputs, dict(scales=c["scales"], ratios=c["ratios"],
+                        feature_stride=c["stride"], output_score=True)
+
+
 def det_op_case(torch, name, attrs, inputs, timer):
     """The op on the card and on the CPU from the same numpy inputs:
     (card outputs, cpu outputs as tensors on the CPU, card ms with a cold
@@ -6588,24 +6747,73 @@ def det_op_case(torch, name, attrs, inputs, timer):
     return got, want, ms, cpu_ms
 
 
+def proposal_nms(torch, kernels, inputs, attrs, card):
+    """MultiProposal's own NMS call on the card, alone: equal to the plain
+    version, rerun equal, its ms with a cold L2 beside the plain version's,
+    the bound, the chain floor and the ms at each cluster size."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    op = get_op("_contrib_MultiProposal")
+    a = op.parse_attrs(dict(attrs))
+    card_in = [torch.from_numpy(x).cuda() for x in inputs]
+    seen = captured_nms(torch, kernels, lambda: op.fn(a, *card_in))
+    boxes, thresh = seen["boxes"], seen["thresh"]
+    ids, valid, keep = seen["ids"], seen["valid"], seen["keep"]
+    pairs = torch.zeros(1, dtype=torch.int64, device="cuda")
+    overlaps = torch.zeros(1, dtype=torch.int64, device="cuda")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    want = kernels.greedy_nms_plain(boxes, thresh, ids=ids, valid=valid,
+                                    pairs=pairs, overlaps=overlaps)
+    t1.record()
+    torch.cuda.synchronize()
+    check(torch.equal(keep, want), "MultiProposal's NMS differs from its "
+          "plain version on %d flags" % int((keep != want).sum()))
+    check(torch.equal(kernels.greedy_nms(boxes, thresh, ids=ids,
+                                         valid=valid), keep),
+          "MultiProposal's NMS rerun differs")
+    timer = Timer(torch)
+    ms = timer(lambda: kernels.greedy_nms(boxes, thresh, ids=ids,
+                                          valid=valid))
+    B, n = keep.shape
+    t_ops = nms_ops(pairs, overlaps) / F64_FLOPS_S
+    t_bytes = B * n * (4 * boxes.element_size() + 2) / HBM_BYTES_S
+    chain = nms_chain(torch, keep, valid, boxes.element_size())
+    by_c = nms_by_cluster(torch, kernels, timer, boxes, thresh, ids, valid,
+                          keep)
+    out = dict(shape="MultiProposal's NMS: (%d, %d, 4) %s, threshold %g"
+               % (B, n, str(boxes.dtype)[6:], thresh), ms=ms,
+               plain_ms=t0.elapsed_time(t1), pairs=int(pairs),
+               overlapping_pairs=int(overlaps), kept=int(keep.sum()),
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               layout=chain["plan"], ms_by_cluster=by_c)
+    out.update({k: chain[k] for k in ("chain_floor_ms", "exchange_floor_ms",
+                                      "barrier_us", "exchange_us",
+                                      "kept_boxes", "steps")})
+    log("  its NMS alone (%d x %d %s, threshold %g): equal to its plain "
+        "version, %d kept, %d pairs (%d with an IoU > 0); %.4f ms with a "
+        "cold L2, plain version %.1f ms; bound %.4f ms (%s); layout %s; %s; "
+        "ms by cluster size %s [%s]"
+        % (B, n, str(boxes.dtype)[6:], thresh, out["kept"], out["pairs"],
+           out["overlapping_pairs"], ms, out["plain_ms"], out["bound_ms"],
+           out["bound_by"], chain["plan"], nms_floors_text(chain),
+           ", ".join("%d: %.4f" % kv for kv in by_c.items()), card))
+    return out
+
+
 def phase_detection_ops(torch, kernels, card):
     """The detection ops at Faster R-CNN's and R-FCN's sizes, card vs CPU
-    within stated tolerances, timed."""
+    within stated tolerances, timed; returns MultiProposal's NMS alone
+    (:func:`proposal_nms`)."""
     timer = Timer(torch, iters=5)
     rs = np.random.RandomState(35)
     c = RCNN
     A = len(c["scales"]) * len(c["ratios"])
-    fg = rs.rand(c["batch"], A, c["h"], c["w"]).astype(np.float32)
-    inputs = [np.concatenate([1 - fg, fg], 1),
-              (rs.randn(c["batch"], 4 * A, c["h"], c["w"]) * 0.2)
-              .astype(np.float32),
-              np.array([[c["h"] * c["stride"], c["w"] * c["stride"], 1]]
-                       * c["batch"], np.float32)]
+    inputs, attrs = proposal_case(rs)
     before = kernels.LAUNCHES["greedy_nms_f64"]
     got, want, ms, cpu_ms = det_op_case(
-        torch, "_contrib_MultiProposal",
-        dict(scales=c["scales"], ratios=c["ratios"],
-             feature_stride=c["stride"], output_score=True), inputs, timer)
+        torch, "_contrib_MultiProposal", attrs, inputs, timer)
     check(kernels.LAUNCHES["greedy_nms_f64"] > before,
           "MultiProposal on the card launched no NMS kernel")
     # the f32 exp of the box decoder is CUDA's on the card: a box may move
@@ -6623,6 +6831,7 @@ def phase_detection_ops(torch, kernels, card):
            ms, cpu_ms, share, score_err, card))
     check(share >= 0.99 and got[0].dtype == torch.float64,
           "MultiProposal card vs cpu: %.4f of the rows agree" % share)
+    nms = proposal_nms(torch, kernels, inputs, attrs, card)
     data = rs.randn(1, c["channels"], c["h"], c["w"]).astype(np.float32)
     rois = rcnn_rois(rs, c["rois"], c["h"], c["w"], c["stride"])
     got, want, ms, cpu_ms = det_op_case(
@@ -6668,6 +6877,7 @@ def phase_detection_ops(torch, kernels, card):
     check(err <= 1e-5, "DeformableConvolution card vs cpu differs by %.3g"
           % err)
     del timer
+    return nms
 
 
 # the five conv nets at their full configurations (phase 35b) and input
@@ -6848,9 +7058,14 @@ def main():
                 if "registers" in line or "spill" in line:
                     log("  ptxas %s: %s" % (name, line.strip()))
         sass_check(build, card)
-        log("  ptxas nms: the keep flags are dynamic shared memory, one byte "
-            "per box (30,120 bytes per block at SSD's anchors); at most "
-            "232,448 boxes per image, one block's shared memory")
+        log("  ptxas nms: each image on a cluster of 1-16 CTAs of 1024 "
+            "threads; a thread's flags are bits of 32- or 64-bit registers "
+            "(at most 64 a thread: 524,288 boxes per image over 8 CTAs), "
+            "its f64 boxes in the CTA's dynamic shared memory (7 a thread "
+            "at most, f32 14) beside the inbox of a step's candidates, the "
+            "rest read from global memory; layouts at SSD's (32, 30120) "
+            "f64: %s; at MultiProposal's (2, 6000) f64: %s"
+            % (nms_plan(32, 30120, 8), nms_plan(2, 6000, 8)))
 
     with phase("2 decode kernels vs plain"):
         timer = Timer(torch)
@@ -7111,7 +7326,10 @@ def main():
 
     with phase("35 the detection ops at realistic sizes and the five conv "
                "nets"):
-        phase_detection_ops(torch, kernels, card)
+        nms = phase_detection_ops(torch, kernels, card)
+        for r in rows:
+            if r["name"] == "greedy_nms_f64":
+                r["proposal_nms"] = nms
         phase_more_nets(torch, kernels, ShardedTrainer, card)
         torch.cuda.empty_cache()
 

@@ -88,7 +88,14 @@ _SIGNATURES = {
     "nms": {
         # boxes, ids, valid, keep | B, n | threshold | stream
         "mxt_greedy_nms_f32": [_P] * 4 + [_I] * 2 + [_F, _P],
-        "mxt_greedy_nms_f64": [_P] * 4 + [_I] * 2 + [_D, _P]},
+        "mxt_greedy_nms_f64": [_P] * 4 + [_I] * 2 + [_D, _P],
+        # the same | B, n, cluster size (0: the shape's) | ...
+        "mxt_greedy_nms_cluster_f32": [_P] * 4 + [_I] * 3 + [_F, _P],
+        "mxt_greedy_nms_cluster_f64": [_P] * 4 + [_I] * 3 + [_D, _P],
+        # B, n, element bytes, cluster size | int[7] out
+        "mxt_greedy_nms_plan": [_I] * 4 + [_P],
+        # cluster size, rounds, barrier alone | stream
+        "mxt_nms_barrier_probe": [_I] * 3 + [_P]},
 }
 
 _LOCK = threading.Lock()

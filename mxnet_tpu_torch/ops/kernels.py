@@ -796,15 +796,18 @@ def _nms_iou_row(a, b):
     return inter / torch.maximum(union, torch.full_like(zero, 1e-12))
 
 
-def greedy_nms_plain(boxes, thresh, ids=None, valid=None, pairs=None):
+def greedy_nms_plain(boxes, thresh, ids=None, valid=None, pairs=None,
+                     overlaps=None):
     """The JAX loop (``_greedy_nms``, ``box_nms``'s body), vectorised over
     the batch: ``boxes`` (B, n, 4) sorted by score; box j is suppressed
     when a kept box i < j that is ``valid`` (if given) and of the same
     class (``ids``, if given) overlaps it with IoU > ``thresh``.  Returns
     the keep mask (B, n) bool.  ``pairs`` (an int64 tensor of one
-    element), if given, gains the number of IoUs the rule needs: each
+    element), if given, gains the number of pairs the rule decides: each
     kept, valid box against each later box still kept at its turn, of its
-    class.  The oracle of :func:`greedy_nms` and its CPU path."""
+    class; ``overlaps`` likewise those of them with an IoU > 0, the pairs
+    that need more than an overlap test.  The oracle of
+    :func:`greedy_nms` and its CPU path."""
     B, n, _ = boxes.shape
     keep = torch.ones(B, n, dtype=torch.bool, device=boxes.device)
     t = _nms_threshold(boxes.dtype, thresh)
@@ -813,13 +816,19 @@ def greedy_nms_plain(boxes, thresh, ids=None, valid=None, pairs=None):
         act = keep[:, i:i + 1]
         if valid is not None:
             act = act & valid[:, i:i + 1]
-        sup = (_nms_iou_row(boxes[:, i], boxes) > t) & (order > i) & act
+        iou = _nms_iou_row(boxes[:, i], boxes)
+        sup = (iou > t) & (order > i) & act
         if ids is not None:
             same = ids == ids[:, i:i + 1]
             sup = sup & same
-        if pairs is not None:
+        if pairs is not None or overlaps is not None:
             live = keep & (order > i) & act
-            pairs += (live & same if ids is not None else live).sum()
+            if ids is not None:
+                live = live & same
+            if pairs is not None:
+                pairs += live.sum()
+            if overlaps is not None:
+                overlaps += (live & (iou > 0)).sum()
         keep = keep & ~sup
     return keep
 
@@ -831,10 +840,10 @@ def greedy_nms(boxes, thresh, ids=None, valid=None):
     (B, n) bool).
 
     CUDA tensors launch ``csrc/nms.cu`` (``mxt_greedy_nms_f32`` /
-    ``_f64``): one launch over the batch, counted in
-    ``LAUNCHES["greedy_nms"]`` (``..._f64``); more boxes per image than
-    one block's shared memory holds flags for (232,448) fail the launch
-    and raise.  CPU tensors run
+    ``_f64``): one launch over the batch, each image on a cluster of
+    CTAs, counted in ``LAUNCHES["greedy_nms"]`` (``..._f64``); more
+    boxes per image than 64 flag bits for each of 8 x 1024 threads
+    (524,288) fail the launch and raise.  CPU tensors run
     :func:`greedy_nms_plain`; ``meta`` tensors (shape inference) give a
     mask of ones; any other device raises."""
     _require(boxes.dim() == 3 and boxes.shape[2] == 4, "greedy_nms: boxes "

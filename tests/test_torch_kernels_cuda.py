@@ -31,8 +31,9 @@ op on cuDNN (never its plain loop) against the plain loop in every mode,
 its gradient under a predict-mode recording, its dropout drawn from
 ``mx.random.seed``, and bfloat16 through cuDNN in float32; the greedy NMS
 kernel (``csrc/nms.cu``) against its plain version bit for bit in f32
-and f64, with class ids and a valid mask, one launch over the batch,
-past 48 KB of shared flags, and its refusals.
+and f64, with class ids and a valid mask, on adversarial boxes, at every
+cluster size, a batch in waves, one launch over the batch, and its
+refusals.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  This
 file imports neither ``jax`` nor ``mxnet_tpu`` (the card's host has only
@@ -2026,38 +2027,104 @@ def _nms_boxes(seed, B, n, dtype, dev):
     return torch.from_numpy(boxes).to(dev, dtype)
 
 
-@pytest.mark.parametrize("B,n,dtype,with_ids,with_valid", [
-    (1, 1, torch.float32, False, False),
-    (3, 257, torch.float32, False, False),
-    (2, 1500, torch.float64, False, True),
-    (4, 999, torch.float32, True, True),
-    (2, 6000, torch.float64, False, False),
-    (1, 70000, torch.float32, False, False)])
+def _nms_plain(boxes, thresh, ids, valid):
+    """The plain version on the card (n dependent steps of a few ops)."""
+    return kernels.greedy_nms_plain(
+        boxes, thresh, ids=None if ids is None else ids.to(boxes.dtype),
+        valid=valid)
+
+
+@pytest.mark.parametrize("B,n,dtype,with_ids,with_valid,kind,thresh", [
+    (1, 1, torch.float32, False, False, "random", 0.45),
+    (3, 257, torch.float32, False, False, "random", 0.45),
+    (2, 1500, torch.float64, False, True, "random", 0.45),
+    (4, 999, torch.float32, True, True, "random", 0.45),
+    (1, 6000, torch.float64, False, False, "random", 0.45),
+    (2, 6000, torch.float64, False, False, "random", 0.45),
+    (2, 6000, torch.float64, False, False, "random", 0.7),
+    (1, 70000, torch.float32, False, False, "random", 0.45),
+    (3, 300, torch.float64, False, False, "random", 0.45),
+    (2, 5001, torch.float32, False, True, "random", 0.5),
+    (1, 12345, torch.float64, True, False, "random", 0.45),
+    (2, 30120, torch.float64, False, True, "random", 0.45),
+    (2, 20000, torch.float64, True, True, "random", 0.45),
+    (200, 2000, torch.float32, False, False, "random", 0.45),
+    (2, None, torch.float32, False, False, "adversarial", 0.0),
+    (2, None, torch.float32, False, False, "adversarial", 1.0),
+    (2, None, torch.float64, False, False, "adversarial", 0.0),
+    (2, None, torch.float64, False, False, "adversarial", 1.0),
+    (2, None, torch.float64, True, True, "adversarial", 0.45),
+    (2, None, torch.float32, False, False, "adversarial", -0.1),
+    (2, None, torch.float64, False, False, "adversarial", float("nan"))])
 def test_greedy_nms_kernel_matches_plain(dev, B, n, dtype, with_ids,
-                                         with_valid):
-    """The keep mask equals the plain version's bit for bit (the IoU in
-    _box_iou's order with no FMA), one launch over the batch; past 48 KB
-    of flags (n 70000) the kernel asks for more shared memory."""
-    boxes = _nms_boxes(n, B, n, dtype, dev)
+                                         with_valid, kind, thresh):
+    """The keep mask equals the plain version's (on the card) bit for bit
+    (the IoU in _box_iou's order with no FMA, the division skipped only
+    where it cannot decide), one launch over the batch: below one CTA's
+    threads, n not a multiple of the cluster's threads, MultiProposal's
+    (2, 6000) and Proposal's (1, 6000), SSD's 30,120 boxes with a valid
+    mask, past the shared-memory slots (n 70000), a batch in waves (200
+    images), and the adversarial boxes of torch_cases (NaN, +-inf,
+    zero-area, inverted, subnormal, IoUs within ulps of t)."""
+    import torch_cases as tc
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    if kind == "adversarial":
+        boxes = torch.from_numpy(tc.nms_adversarial_sets(np_dtype, 17,
+                                                         B)).to(dev)
+        n = boxes.shape[1]
+    else:
+        boxes = _nms_boxes(n, B, n, dtype, dev)
     rs = np.random.RandomState(n + 1)
     ids = torch.from_numpy(rs.randint(0, 3, (B, n))).to(dev) \
         if with_ids else None
     valid = torch.from_numpy(rs.rand(B, n) > 0.1).to(dev) \
         if with_valid else None
     before = kernels.LAUNCHES["greedy_nms" + kernels._NMS_DTYPES[dtype]]
-    keep = kernels.greedy_nms(boxes, 0.45, ids=ids, valid=valid)
+    keep = kernels.greedy_nms(boxes, thresh, ids=ids, valid=valid)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["greedy_nms" + kernels._NMS_DTYPES[dtype]] == \
         before + 1
-    small = n <= 1500          # the plain loop on the card takes n steps
-    want = kernels.greedy_nms_plain(boxes if small else boxes.cpu(), 0.45,
-                                    ids=None if ids is None else
-                                    (ids if small else ids.cpu()).to(dtype),
-                                    valid=None if valid is None else
-                                    (valid if small else valid.cpu()))
-    assert torch.equal(keep.cpu(), want.cpu())
-    again = kernels.greedy_nms(boxes, 0.45, ids=ids, valid=valid)
+    assert torch.equal(keep, _nms_plain(boxes, thresh, ids, valid))
+    again = kernels.greedy_nms(boxes, thresh, ids=ids, valid=valid)
     assert torch.equal(keep, again)
+
+
+_NMS_CLUSTER_CASE = {}
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_greedy_nms_kernel_every_cluster_size(dev, cluster, dtype):
+    """Each cluster size the kernel may pick (one CTA, 2-16 CTAs through
+    distributed shared memory) gives the plain version's mask, with ids
+    and a valid mask, on 3 x 20000 boxes: past the shared-memory slots
+    at small clusters (20 flags a thread at 1 CTA, 7 or 14 on chip)."""
+    import ctypes
+    from mxnet_tpu_torch.ops import build
+    B, n = 3, 20000
+    if dtype not in _NMS_CLUSTER_CASE:
+        rs = np.random.RandomState(21)
+        boxes = _nms_boxes(21, B, n, dtype, dev)
+        ids = torch.from_numpy(rs.randint(0, 2, (B, n))).to(dev, dtype)
+        valid = torch.from_numpy(rs.rand(B, n) > 0.05).to(dev)
+        _NMS_CLUSTER_CASE[dtype] = (boxes, ids, valid, _nms_plain(
+            boxes, 0.45, ids, valid))
+    boxes, ids, valid, want = _NMS_CLUSTER_CASE[dtype]
+    lib = build.library("nms")
+    plan = (ctypes.c_int * 7)()
+    assert lib.mxt_greedy_nms_plan(B, n, boxes.element_size(), cluster,
+                                   plan) == 0
+    assert plan[0] == cluster and plan[1] == -(-n // (cluster * 1024))
+    keep = torch.empty(B, n, dtype=torch.uint8, device=dev)
+    ok = valid.to(torch.uint8)
+    suffix = "_f64" if dtype == torch.float64 else "_f32"
+    rc = getattr(lib, "mxt_greedy_nms_cluster" + suffix)(
+        boxes.data_ptr(), ids.data_ptr(), ok.data_ptr(), keep.data_ptr(),
+        B, n, cluster, kernels._nms_threshold(dtype, 0.45),
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(keep.bool(), want)
 
 
 def test_greedy_nms_kernel_refuses_what_it_does_not_take(dev):
@@ -2069,6 +2136,6 @@ def test_greedy_nms_kernel_refuses_what_it_does_not_take(dev):
         kernels.greedy_nms(boxes[0], 0.5)
     with pytest.raises(MXNetError):
         kernels.greedy_nms(boxes, 0.5, valid=torch.ones(1, 9, device=dev))
-    big = 232448 + 1      # one byte of shared memory per box's flag
+    big = 64 * 1024 * 8 + 1     # 64 flag bits a thread, 8 CTAs of 1024
     with pytest.raises(MXNetError, match="launch failed"):
         kernels.greedy_nms(torch.zeros(1, big, 4, device=dev), 0.5)

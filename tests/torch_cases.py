@@ -1294,6 +1294,89 @@ def ssd_scenes(n, hw, rows, classes, seed, max_obj=3):
 
 
 # ---------------------------------------------------------------------------
+# adversarial boxes for the greedy NMS (csrc/nms.cu; tests/
+# test_torch_nms_decision.py on the CPU, test_torch_kernels_cuda.py on the
+# card)
+# ---------------------------------------------------------------------------
+
+def nms_adversarial_boxes(np_dtype):
+    """Corner boxes that reach every branch of the rule, in ``np_dtype``:
+    touching, nested, duplicate, zero-area, inverted, NaN / +-inf
+    coordinates, subnormal and overflowing extents, signed zeros; then
+    pairs (0, 0, 1, 1) / (x, 0, x + 1, 1) whose IoU (1 - x) / (1 + x)
+    lies within a few ulps of 0.45, 0.5, 0.7 and 1, at four scales."""
+    fi = np.finfo(np_dtype)
+    sub = np.nextafter(np_dtype(0), np_dtype(1))
+    tiny, nan, inf = fi.tiny, np.nan, np.inf
+    big = np_dtype(1e30) if np_dtype == np.float32 else np_dtype(1e300)
+    rows = [
+        (0, 0, 1, 1), (1, 0, 2, 1), (0, 1, 1, 2), (1, 1, 2, 2),
+        (0.25, 0.25, 0.75, 0.75), (0, 0, 1, 1), (0, 0, 0.5, 1),
+        (0.5, 0.5, 0.5, 0.5), (0, 0, 1, 0), (0, 0.5, 1, 0.5),
+        (1, 1, 0, 0), (0.8, 0, 0.2, 1), (0, 0.9, 1, 0.1),
+        (0.8, 0.8, 0.2, 0.2), (0.7, 0.9, 0.3, 0.1),
+        (nan, 0, 1, 1), (0, nan, 1, 1), (0, 0, nan, 1), (0, 0, 1, nan),
+        (nan, nan, nan, nan),
+        (-inf, -inf, inf, inf), (0, 0, inf, 1), (-inf, 0, 1, 1),
+        (0, 0, inf, inf), (inf, inf, inf, inf), (-inf, -inf, -inf, -inf),
+        (0, -inf, 1, inf), (inf, 0, -inf, 1),
+        (0, 0, sub, 1), (0, 0, sub, sub), (0, 0, tiny, tiny),
+        (sub, sub, 2 * sub, 2 * sub), (0, 0, 1, sub), (0, 0, tiny, 1),
+        (-0.0, -0.0, 0.0, 1), (0, 0, -0.0, 1), (-0.0, 0, 1, -0.0),
+        (0, 0, big, big), (-big, -big, big, big), (0, 0, big, 1),
+        (0.1, 0.2, 0.65, 0.9), (0.3, 0.1, 0.95, 0.55),
+    ]
+    for t in (0.45, 0.5, 0.7, 1.0):
+        tt = np_dtype(t)
+        x0 = (np_dtype(1) - tt) / (np_dtype(1) + tt)
+        for scale in (1.0, 3.7, 1e-3, 640.0):
+            s = np_dtype(scale)
+            rows.append((0, 0, s, s))
+            x = x0
+            for _ in range(6):
+                x = np.nextafter(x, np_dtype(-1))
+            for _ in range(13):
+                rows.append((x * s, 0, (x + np_dtype(1)) * s, s))
+                x = np.nextafter(x, np_dtype(2))
+    return np.array(rows, dtype=np_dtype)
+
+
+def nms_near_pairs(np_dtype, seed=5, rows=600):
+    """Pairs a = (0, 0, 1, 1), b = (x, y, x + 1, y + 1) with y random and
+    x stepped by ulps around the x whose IoU (1-x)(1-y) / (2 - (1-x)(1-y))
+    is t, at scales of 1 to 1000: inter / den near t with the rounding of
+    t * den spread over its range."""
+    rs = np.random.RandomState(seed)
+    a, b = [], []
+    for t in (0.45, 0.5, 0.7):
+        i = 2 * t / (1 + t)
+        for y in rs.uniform(0, 0.3, rows):
+            s = np_dtype(10 ** rs.uniform(0, 3))
+            x = np_dtype(1 - i / (1 - y))
+            y = np_dtype(y)
+            for _ in range(4):
+                x = np.nextafter(x, np_dtype(-1))
+            for _ in range(9):
+                a.append((0, 0, s, s))
+                b.append((x * s, y * s, (x + np_dtype(1)) * s,
+                          (y + np_dtype(1)) * s))
+                x = np.nextafter(x, np_dtype(2))
+    return np.array(a, np_dtype), np.array(b, np_dtype)
+
+
+def nms_adversarial_sets(np_dtype, seed, B):
+    """B orders of the adversarial set with clustered random boxes mixed
+    in (so suppression chains form)."""
+    rs = np.random.RandomState(seed)
+    adv = nms_adversarial_boxes(np_dtype)
+    centre = rs.uniform(0.3, 0.7, (len(adv), 2))
+    half = rs.uniform(0.02, 0.25, (len(adv), 2))
+    rnd = np.concatenate([centre - half, centre + half], -1)
+    pool = np.concatenate([adv, rnd.astype(np_dtype)])
+    return np.stack([pool[rs.permutation(len(pool))] for _ in range(B)])
+
+
+# ---------------------------------------------------------------------------
 # the other conv nets of the model zoo (models/{resnet_v1,resnext,
 # mobilenet,googlenet,inception_v4}) at tests/test_model_symbols.py's
 # configurations, and one state for them
