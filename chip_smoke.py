@@ -33,6 +33,10 @@ recurrent stack: the large LSTM word LM through ``gluon.rnn.LSTM`` and
 a bucketed ``FusedRNNCell`` LM, both on the ``RNN`` op's cuDNN path — and
 the SSD detector through ``Module.fit`` at 300x300 on the greedy-NMS
 kernel, the R-CNN and R-FCN detection ops and five more conv nets — and
+sparse storage: the wide-embedding loop of lazy SGD over
+``row_sparse_pull`` / ``push`` at the Criteo shape, CSR batches from
+``LibSVMIter`` at Avazu's width, and the SparseEmbedding classifier
+through ``Module.fit`` with ``sparse_row_id_fn`` — and
 holds every hand-written kernel of those paths against its plain PyTorch
 version on the card.
 Phases, in order:
@@ -335,7 +339,25 @@ Phases, in order:
     GoogLeNet and Inception-v4 at a small size card vs CPU (a training
     forward per tensor, Inception-v4's up to reduction B; a predict
     forward and gradient) and one ``ShardedTrainer`` step each at batch 32 and 224x224
-    (Inception-v4 299x299), images/s.
+    (Inception-v4 299x299), images/s;
+36. sparse storage: (a) example/sparse/linear_classification.py's loop
+    at the Criteo shape (26 keys of (1,000,000, 64) f32 in
+    ``kv.create("device")``, lazy momentum SGD, batch 8192, Zipf ids):
+    ``row_sparse_pull`` of each key's ids, ``embedding_grad``, one list
+    ``push``; three steps at 100,000 rows card vs the CPU's plain
+    versions, then 3 + 20 steps on a repeated batch: median step ms,
+    host ms in the pull and the push, host syncs, B5/B6 launches (3 and 2
+    a key a step, exactly), idle share, peak memory; every untouched row
+    bit-equal to its initial value; B5 and B6 at the loop's shape against
+    their plain versions, timed; (b) ``LibSVMIter`` at Avazu's width
+    (1,000,000 features, batch 8192) over a seeded 65,536-row file,
+    ``sparse.dot(csr, w)`` and ``dot(csr, g, transpose_a=True)`` card vs
+    CPU, cast_storage, sparse_retain and ``.params`` round trips, peak
+    memory far below one dense batch; (c) ``Module.fit`` of
+    example/sparse/symbolic_sparse_lr.py's SparseEmbedding classifier
+    (vocab 1,000,000, dim 16, 8 ids a row, batch 8192) through
+    ``KVStore("device")`` with ``sparse_row_id_fn``, one step at vocab
+    10,000 card vs CPU, the cross-entropy falling on a repeated batch.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -7003,6 +7025,660 @@ def phase_more_nets(torch, kernels, ShardedTrainer, card):
           "kernel: %s" % got)
 
 
+# ---------------------------------------------------------------------------
+# phase 36: sparse storage (row_sparse and CSR arrays, the kvstore's sparse
+# push and row_sparse_pull, lazy SGD, LibSVMIter, SparseEmbedding)
+# ---------------------------------------------------------------------------
+
+# example/sparse/linear_classification.py's loop at the Criteo Kaggle shape
+# of phase 11 (26 fields, a (1,000,000, 64) table each); the embedding lr is
+# high because a row's gradient is err / batch * w / fields
+WIDE = dict(keys=26, rows=1000000, dim=64, batch=8192, lr=20.0,
+            momentum=0.9, lr_w=2.0, zipf=1.2)
+WIDE_CHECK = dict(WIDE, rows=100000)       # the bench geometry's rows
+# Avazu's hashed width, as MXNet's example/sparse/linear_classification
+AVAZU = dict(features=1000000, batch=8192, rows=65536, nnz=(10, 21))
+# example/sparse/symbolic_sparse_lr.py's graph at full width
+SPARSE_LR = dict(vocab=1000000, dim=16, active=8, batch=8192, classes=2,
+                 lr=0.5, momentum=0.9, warm=2, timed=10)
+
+
+def to_dev(torch, a, dev):
+    """A host array on ``dev`` (from pinned memory without blocking on the
+    card, so the copy is no host sync)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(dev) if dev == "cpu" else \
+        t.pin_memory().to(dev, non_blocking=True)
+
+
+def wide_data(geo, seed):
+    """A batch of Zipf-drawn ids, one per field per sample (host int64),
+    and 0/1 labels."""
+    rs = np.random.RandomState(seed)
+    ids = (rs.zipf(geo["zipf"], (geo["batch"], geo["keys"])) - 1) \
+        % geo["rows"]
+    return ids.astype(np.int64), (rs.rand(geo["batch"]) > 0.5).astype(
+        np.float32)
+
+
+def wide_table(torch, geo, f, gen_dev):
+    """Key ``f``'s initial table, N(0, 0.01) from its own generator (so a
+    table can be drawn again for the lazy-contract check)."""
+    g = torch.Generator(device=gen_dev).manual_seed(36000 + f)
+    return torch.randn((geo["rows"], geo["dim"]), generator=g,
+                       device=gen_dev) * 0.01
+
+
+def wide_setup(torch, mx, geo, dev, gen_dev):
+    """The store (``kv.create("device")`` on ``dev``) with a table per key
+    and lazy momentum SGD, and the dense head ``w``."""
+    kv = mx.kv.create("device", device=dev)
+    keys = ["field%02d" % f for f in range(geo["keys"])]
+    for f, k in enumerate(keys):
+        kv.init(k, mx.nd.NDArray(wide_table(torch, geo, f, gen_dev).to(dev)))
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=geo["lr"],
+                                      momentum=geo["momentum"],
+                                      lazy_update=True))
+    w = to_dev(torch, np.random.RandomState(1).normal(
+        0, 1.0, geo["dim"]).astype(np.float32), dev)
+    return kv, keys, w
+
+
+def wide_step(torch, mx, sp, kv, keys, geo, w, ids, y, dev, host=None):
+    """One step of the loop: ``row_sparse_pull`` of every key's unique ids
+    into row_sparse outs, the mean-pooled logistic regression on ``dev``,
+    ``embedding_grad`` per key, one list ``push`` (lazy SGD on the
+    store), the head's SGD.  Returns the loss as a tensor (no host
+    read)."""
+    B, K, D = geo["batch"], geo["keys"], geo["dim"]
+    ctx = mx.cpu() if dev == "cpu" else mx.gpu(0)
+    outs = [sp.zeros_sparse("row_sparse", (geo["rows"], D), ctx=ctx)
+            for _ in keys]
+    t0 = time.perf_counter()
+    kv.row_sparse_pull(keys, out=outs, row_ids=[ids[:, f] for f in range(K)])
+    t1 = time.perf_counter()
+    ids_dev = to_dev(torch, ids.T, dev)              # (K, B)
+    e = torch.zeros((B, D), device=dev)
+    for f, o in enumerate(outs):
+        e += o._data[torch.searchsorted(o._indices, ids_dev[f])]
+    e /= K
+    yt = to_dev(torch, y, dev)
+    p = torch.sigmoid(e @ w)
+    loss = -(yt * torch.log(p + 1e-8) +
+             (1 - yt) * torch.log(1 - p + 1e-8)).mean()
+    err = (p - yt) / B
+    ge = err[:, None] * w[None, :] / K
+    grads = [sp.embedding_grad(ids[:, f], mx.nd.NDArray(ge), geo["rows"])
+             for f in range(K)]
+    t2 = time.perf_counter()
+    kv.push(keys, grads)
+    t3 = time.perf_counter()
+    w -= geo["lr_w"] * (e.t() @ err)
+    if host is not None:
+        host["pull"].append((t1 - t0) * 1e3)
+        host["push"].append((t3 - t2) * 1e3)
+    return loss
+
+
+def wide_parity(torch, mx, sp, card):
+    """36a (ii): three steps of the loop at 26 x 100,000 rows on the card
+    and on the CPU (its plain versions) from the same tables: touched rows
+    within 1e-6 x max(1, |w|), the rest unchanged, losses within 1e-6."""
+    geo = WIDE_CHECK
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        kv, keys, w = wide_setup(torch, mx, geo, dev, "cpu")
+        losses = []
+        for s in range(3):
+            ids, y = wide_data(geo, 100 + s)
+            losses.append(float(wide_step(torch, mx, sp, kv, keys, geo, w,
+                                          ids, y, dev)))
+        runs[dev] = (kv, keys, losses)
+    touched = [np.unique(np.concatenate([wide_data(geo, 100 + s)[0][:, f]
+                                         for s in range(3)]))
+               for f in range(geo["keys"])]
+    worst, moved = 0.0, 0
+    for f, k in enumerate(runs["cuda"][1]):
+        got = runs["cuda"][0]._store[k]._handle.cpu()
+        want = runs["cpu"][0]._store[k]._handle
+        init = wide_table(torch, geo, f, "cpu")
+        t = torch.from_numpy(touched[f])
+        mask = torch.ones(geo["rows"], dtype=torch.bool)
+        mask[t] = False
+        check(torch.equal(got[mask], init[mask]) and
+              torch.equal(want[mask], init[mask]),
+              "36a: a row no step touched moved (key %s)" % k)
+        err = ((got[t] - want[t]).abs() /
+               want[t].abs().clamp(min=1.0)).max().item()
+        worst = max(worst, err)
+        moved += int((want[t] != init[t]).any(1).sum())
+        check(err <= 1e-6, "36a: key %s on the card %.3g from the CPU "
+              "replay (tolerance 1e-6 x max(1, |w|))" % (k, err))
+    lc, lh = runs["cuda"][2], runs["cpu"][2]
+    check(all(abs(a - b) <= 1e-6 * max(1.0, abs(b)) for a, b in zip(lc, lh)),
+          "36a: losses card %s vs CPU %s" % (lc, lh))
+    log("36a parity: 3 steps of %d keys x %d x %d, batch %d, card vs the "
+        "CPU's plain versions: touched rows within %.3g of max(1, |w|) "
+        "(%d rows moved), every other row unchanged; losses card %s, CPU %s "
+        "[%s]" % (geo["keys"], geo["rows"], geo["dim"], geo["batch"], worst,
+                  moved, ["%.7f" % v for v in lc], ["%.7f" % v for v in lh],
+                  card))
+    del runs
+
+
+def wide_kernel_rows(torch, sk, timer, kv, keys, ids, card):
+    """B5 and B6 at 36a's shapes: one key's unique ids of a (1,000,000, 64)
+    table, as ``row_sparse_pull`` and the lazy SGD give them."""
+    table = kv._store[keys[0]]._handle
+    uniq = np.unique(ids[:, 0])
+    n, D = len(uniq), table.shape[1]
+    pos = torch.from_numpy(uniq).cuda()
+    pos32 = pos.to(torch.int32)
+    rows = torch.randn((n, D), device="cuda")
+    t_set, t_plain = table.clone(), table.clone()
+    g_k, g_p = sk.embedding_gather(table, pos32), \
+        sk.embedding_gather_plain(table, pos32)
+    sk.embedding_scatter(t_set, pos32, rows, "set")
+    sk.embedding_scatter_plain(t_plain, pos32, rows, "set")
+    torch.cuda.synchronize()
+    e_g = (g_k - g_p).abs().max().item()
+    e_s = (t_set - t_plain).abs().max().item()
+    check(e_g == 0 and e_s == 0, "36a: B5 / B6 against their plain versions "
+          "at the loop's shape: %g / %g" % (e_g, e_s))
+    row_b = D * 4
+    b_g, by_g = bound_ms(n * 4 + 2 * n * row_b, 0)
+    b_s, by_s = bound_ms(n * 4 + 2 * n * row_b, 0)
+    src = "mxnet_tpu_torch/csrc/embedding.cu"
+    shape = ("phase 36a: one key's %d unique ids of a (%d, %d) f32 table "
+             "(row_sparse_pull, the lazy SGD's weight and momentum rows)"
+             % (n, table.shape[0], D))
+    out = [{
+        "name": "embedding_gather", "route": "cuda", "source": src,
+        "replaces": "mxnet_tpu/sparse/kernels.py:117", "shape": shape,
+        "launches_per_step": 3 * len(keys), "max_abs_err": e_g,
+        "ms": timer(lambda: sk.embedding_gather(table, pos32)),
+        "plain_ms": timer(lambda: sk.embedding_gather_plain(table, pos32)),
+        "bound_ms": b_g, "bound_by": by_g,
+        "library_ms": timer(lambda: torch.index_select(table, 0, pos)),
+        "library_call": "torch.index_select(table, 0, ids)",
+    }, {
+        "name": "embedding_scatter", "route": "cuda", "source": src,
+        "replaces": "mxnet_tpu/sparse/kernels.py:175",
+        "shape": shape + ", set", "launches_per_step": 2 * len(keys),
+        "max_abs_err": e_s,
+        "ms": timer(lambda: sk.embedding_scatter(t_set, pos32, rows, "set")),
+        "plain_ms": timer(lambda: sk.embedding_scatter_plain(
+            t_set, pos32, rows, "set")),
+        "bound_ms": b_s, "bound_by": by_s,
+        "library_ms": timer(lambda: t_set.index_copy_(0, pos, rows)),
+        "library_call": "table.index_copy_(0, ids, rows)",
+    }]
+    for r in out:
+        log("  %-18s %s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
+            "library_ms=%.4f [%s]" % (r["name"], r["shape"], r["ms"],
+                                      r["plain_ms"], r["bound_ms"],
+                                      r["bound_by"], r["library_ms"], card))
+    del t_set, t_plain
+    return out
+
+
+def wide_full(torch, mx, sp, kernels, sk, card, warm=3, timed=20):
+    """36a at full width: 26 keys of (1,000,000, 64) f32 in
+    ``kv.create("device")``, lazy momentum SGD, batch 8192 repeated:
+    median step ms (CUDA events), host ms in ``row_sparse_pull`` and
+    ``push``, host syncs, B5/B6 launches, touched rows per step, idle
+    share, peak memory; holds the lazy contract on every untouched row
+    and the loss's fall."""
+    geo = WIDE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kv, keys, w = wide_setup(torch, mx, geo, "cuda", "cuda")
+    torch.cuda.synchronize()
+    log("36a: %d tables of (%d, %d) f32 in kv.create('device'): %.2f GB, "
+        "%.1f s" % (geo["keys"], geo["rows"], geo["dim"],
+                    geo["keys"] * geo["rows"] * geo["dim"] * 4 / 1e9,
+                    time.perf_counter() - t0))
+    ids, y = wide_data(geo, 36)
+    touched = sum(len(np.unique(ids[:, f])) for f in range(geo["keys"]))
+    host = {"pull": [], "push": []}
+    ev = [torch.cuda.Event(enable_timing=True)]
+    ev[0].record()
+    kernels.reset_launches()
+    syncs0 = sp.HOST_SYNCS["count"]
+    losses = []
+    for _ in range(warm + timed):
+        losses.append(wide_step(torch, mx, sp, kv, keys, geo, w, ids, y,
+                                "cuda", host))
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+    torch.cuda.synchronize()
+    steps = warm + timed
+    got = dict(kernels.LAUNCHES)
+    d_syncs = sp.HOST_SYNCS["count"] - syncs0
+    K = geo["keys"]
+    check(got["embedding_gather"] == 3 * K * steps and
+          got["embedding_scatter"] == 2 * K * steps,
+          "36a: B5 / B6 launched %d / %d times over %d steps, want %d / %d "
+          "(a pull and two update reads per key; two update writes)"
+          % (got["embedding_gather"], got["embedding_scatter"], steps,
+             3 * K * steps, 2 * K * steps))
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+    tt = ms[warm:]
+    med = statistics.median(tt)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses.append(wide_step(torch, mx, sp, kv, keys, geo, w, ids, y,
+                                    "cuda"))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    synced = [str(c.message)[:80] for c in caught
+              if "synchroniz" in str(c.message).lower()
+              and "prototype" not in str(c.message)]
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses.append(wide_step(torch, mx, sp, kv, keys, geo, w, ids, y,
+                                "cuda"))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_by_kernel(prof)
+    busy = sum(us for us, _ in by_kernel.values()) / 1e3
+    peak = torch.cuda.max_memory_allocated()
+    lv = [float(v) for v in losses]
+    log("36a wide embedding: %d keys x (%d, %d), batch %d, %d touched rows "
+        "a step: warm-up %s ms; %d timed steps median %.3f ms (spread "
+        "%.3f-%.3f) = %.1f examples/s; host ms a step in row_sparse_pull "
+        "%.3f, in push %.3f (medians); B5 %d and B6 %d launches a step; "
+        "host reads of device indices %d over %d steps; synchronising "
+        "operations in one step under set_sync_debug_mode('warn'): %d%s; "
+        "device busy %s ms of the profiled step's %.3f ms: idle share %s; "
+        "peak memory %.2f GB [%s]"
+        % (K, geo["rows"], geo["dim"], geo["batch"], touched,
+           ", ".join("%.1f" % t for t in ms[:warm]), timed, med, min(tt),
+           max(tt), geo["batch"] / med * 1e3,
+           statistics.median(host["pull"][warm:]),
+           statistics.median(host["push"][warm:]), 3 * K, 2 * K, d_syncs,
+           steps, len(synced), (" (%s)" % "; ".join(sorted(set(synced))))
+           if synced else "", "%.3f" % busy if by_kernel else "not measured",
+           prof_ms, "%.3f" % (1 - busy / prof_ms) if by_kernel
+           else "not measured", peak / 1e9, card))
+    check(all(np.isfinite(lv)) and lv[-1] < lv[0],
+          "36a: the loss did not fall on the repeated batch (%.6f -> %.6f)"
+          % (lv[0], lv[-1]))
+    log("36a loss on the repeated batch %.6f -> %.6f over %d steps [%s]"
+        % (lv[0], lv[-1], len(lv) - 1, card))
+    # the lazy contract: every row no step touched is bit-equal to its
+    # initial value, checked on the card against the table drawn again
+    moved = 0
+    for f, k in enumerate(keys):
+        init = wide_table(torch, geo, f, "cuda")
+        cur = kv._store[k]._handle
+        mask = torch.ones(geo["rows"], dtype=torch.bool, device="cuda")
+        mask[torch.from_numpy(np.unique(ids[:, f])).cuda()] = False
+        changed = (cur != init).any(1)
+        bad = int((changed & mask).sum())
+        moved += int((changed & ~mask).sum())
+        check(bad == 0, "36a: %d untouched rows of key %s moved" % (bad, k))
+        del init, changed
+    log("36a lazy contract: every untouched row of the %d tables bit-equal "
+        "to its initial value; %d of the %d touched rows moved [%s]"
+        % (K, moved, touched, card))
+    timer = Timer(torch)
+    rows = wide_kernel_rows(torch, sk, timer, kv, keys, ids, card)
+    del timer, kv, w
+    torch.cuda.empty_cache()
+    return got, rows
+
+
+def write_libsvm(path, geo, seed):
+    """A seeded libsvm file at Avazu's width: ``rows`` lines, 10-20
+    hashed feature ids a line (Zipf-skewed), values mostly 1 (one-hot
+    categories) and some real ones."""
+    rs = np.random.RandomState(seed)
+    lo, hi = geo["nnz"]
+    with open(path, "w") as f:
+        for start in range(0, geo["rows"], 4096):
+            lines = []
+            for _ in range(min(4096, geo["rows"] - start)):
+                k = rs.randint(lo, hi)
+                ids = (rs.zipf(1.1, k) * 2654435761) % geo["features"]
+                vals = np.where(rs.rand(k) < 0.8, 1.0,
+                                np.round(rs.rand(k), 4) + 1e-4)
+                lines.append("%d %s" % (rs.randint(0, 2), " ".join(
+                    "%d:%g" % kv for kv in zip(ids, vals))))
+            f.write("\n".join(lines) + "\n")
+
+
+def csr_avazu(torch, mx, sp, kernels, card):
+    """36b: ``LibSVMIter`` at Avazu's width (1,000,000 features, batch
+    8192) over a seeded file of 65,536 rows; per batch ``sparse.dot(csr,
+    w)`` and ``dot(csr, g, transpose_a=True)`` on the card against the
+    CPU (within 1e-5), cast_storage / sparse_retain round trips and a
+    ``.params`` round trip bit-equal; iterator and dot ms, peak memory
+    (no dense (8192, 1,000,000) array anywhere)."""
+    import shutil
+    import tempfile
+    geo = AVAZU
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+    try:
+        path = os.path.join(tmp, "avazu.libsvm")
+        t0 = time.perf_counter()
+        write_libsvm(path, geo, 36)
+        t_write = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        it = mx.io.LibSVMIter(path, data_shape=(geo["features"],),
+                              batch_size=geo["batch"])
+        t_parse = time.perf_counter() - t0
+        batches, t_next = [], []
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = it.next()
+            except StopIteration:
+                break
+            t_next.append((time.perf_counter() - t0) * 1e3)
+            batches.append(b)
+        check(len(batches) == geo["rows"] // geo["batch"] and
+              all(b.pad == 0 for b in batches),
+              "36b: %d batches" % len(batches))
+        rs = np.random.RandomState(37)
+        w_h = rs.randn(geo["features"], 1).astype(np.float32)
+        w_c, w_g = mx.nd.array(w_h, ctx=mx.cpu()), mx.nd.array(w_h,
+                                                               ctx=mx.gpu(0))
+        worst, dot_ms, nnz = 0.0, [], 0
+        kernels.reset_launches()
+        for i, b in enumerate(batches):
+            c_cpu = b.data[0]
+            c_gpu = c_cpu.as_in_context(mx.gpu(0))
+            check(c_gpu.stype == "csr", "36b: the batch left CSR on the card")
+            nnz += int(c_cpu._data.shape[0])
+            g_h = rs.randn(geo["batch"], 1).astype(np.float32)
+            g_c, g_g = mx.nd.array(g_h, ctx=mx.cpu()), \
+                mx.nd.array(g_h, ctx=mx.gpu(0))
+            for ta, rhs_c, rhs_g in ((False, w_c, w_g), (True, g_c, g_g)):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = sp.sparse_dot(c_gpu, rhs_g, transpose_a=ta)
+                e.record()
+                want = sp.sparse_dot(c_cpu, rhs_c, transpose_a=ta).handle
+                got = out.handle.cpu()
+                dot_ms.append((ta, s.elapsed_time(e)))
+                err = ((got - want).abs().max() /
+                       max(1.0, want.abs().max().item())).item()
+                worst = max(worst, err)
+                check(err <= 1e-5, "36b: batch %d dot(transpose_a=%s) %.3g "
+                      "from the CPU" % (i, ta, err))
+            if i == 0:
+                gw = out                       # dot(csr.T, g): (1M, 1)
+                rsp = mx.nd.cast_storage(gw, "row_sparse")
+                check(torch.equal(mx.nd.cast_storage(rsp, "default").handle,
+                                  gw.handle),
+                      "36b: dense -> row_sparse -> dense changed a value")
+                feats = np.unique(c_cpu._indices.numpy())[::2]
+                kept = mx.nd.sparse_retain(rsp, feats)
+                dense_kept = mx.nd._sparse_retain(
+                    gw, mx.nd.array(feats.astype(np.float32), ctx=mx.gpu(0)))
+                check(torch.equal(torch.from_numpy(kept.asnumpy()),
+                                  dense_kept.handle.cpu()),
+                      "36b: sparse_retain differs from the dense op")
+                c2 = mx.nd.cast_storage(c_gpu, "csr")
+                check(all(torch.equal(getattr(c2, a).cpu(),
+                                      getattr(c_cpu, a))
+                          for a in ("_data", "_indices", "_indptr")),
+                      "36b: csr -> csr changed the batch")
+                f = os.path.join(tmp, "sparse.params")
+                mx.nd.save(f, {"grad": rsp, "batch": c_gpu})
+                back = mx.nd.load(f, ctx=mx.gpu(0))
+                check(torch.equal(back["grad"]._data, rsp._data) and
+                      torch.equal(back["grad"]._indices, rsp._indices) and
+                      all(torch.equal(getattr(back["batch"], a),
+                                      getattr(c_gpu, a))
+                          for a in ("_data", "_indices", "_indptr")),
+                      "36b: the .params round trip changed a record")
+                log("36b round trips: (1000000, 1) dense -> row_sparse (%d "
+                    "rows) -> dense, sparse_retain of %d ids against the "
+                    "dense op, csr -> csr, .params of a row_sparse and a "
+                    "CSR record (%.1f MB): bit-equal"
+                    % (rsp._data.shape[0], len(feats),
+                       os.path.getsize(f) / 1e6))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        check(peak < 2e9, "36b: peak memory %.2f GB: a dense batch would be "
+              "%.1f GB" % (peak / 1e9, geo["batch"] * geo["features"] * 4 /
+                           1e9))
+        fw = [m for ta, m in dot_ms if not ta]
+        bw = [m for ta, m in dot_ms if ta]
+        got = dict(kernels.LAUNCHES)
+        log("36b CSR at Avazu's width: %d rows, %.1f nonzeros a row, written "
+            "in %.2f s; LibSVMIter parse %.2f s, next() median %.3f ms a "
+            "batch of %d; dot(csr, w (1000000, 1)) median %.4f ms, dot(csr, "
+            "g, transpose_a=True) median %.4f ms (first call included in "
+            "neither: %.4f / %.4f); within %.3g of the CPU; B5 launches %d; "
+            "peak memory %.3f GB (a dense batch: %.1f GB) [%s]"
+            % (geo["rows"], nnz / (len(batches) * geo["batch"]), t_write,
+               t_parse, statistics.median(t_next), geo["batch"],
+               statistics.median(fw[1:]), statistics.median(bw[1:]), fw[0],
+               bw[0], worst, got["embedding_gather"],
+               peak / 1e9, geo["batch"] * geo["features"] * 4 / 1e9, card))
+        check(got["embedding_gather"] >= 2 * len(batches),
+              "36b: the dots launched B5 %d times over %d batches"
+              % (got["embedding_gather"], len(batches)))
+        return got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sparse_lr_net(sym, vocab, dim, classes):
+    """example/sparse/symbolic_sparse_lr.py's graph."""
+    emb = sym.contrib.SparseEmbedding(data=sym.Variable("data"),
+                                      weight=sym.Variable("embed_weight"),
+                                      input_dim=vocab, output_dim=dim,
+                                      name="wide_embedding")
+    logits = sym.FullyConnected(sym.mean(emb, axis=1), num_hidden=classes,
+                                name="fc")
+    return sym.SoftmaxOutput(logits, name="softmax")
+
+
+def sparse_lr_data(cfg, n, seed):
+    """Ids (as the float32 data Module feeds) and the labels of a hidden
+    linear model over a hidden embedding."""
+    rs = np.random.RandomState(seed)
+    proj = rs.normal(0, 1, cfg["dim"]).astype(np.float32)
+    feats = rs.randint(0, cfg["vocab"], (n, cfg["active"]))
+    hidden = rs.normal(0, 1, (cfg["vocab"], cfg["dim"])).astype(np.float32)
+    y = (hidden[feats].mean(1) @ proj > 0).astype(np.float32)
+    return feats.astype(np.float32), y
+
+
+def sparse_row_ids(batch):
+    """``sparse_row_id_fn``: the rows of the embedding a batch reads."""
+    return {"embed_weight": batch.data[0].asnumpy().astype(np.int64).ravel()}
+
+
+def sparse_lr_module(mx, cfg, ctx, kv, params=None):
+    mod = mx.mod.Module(sparse_lr_net(mx.sym, cfg["vocab"], cfg["dim"],
+                                      cfg["classes"]), context=ctx)
+    mod.bind([("data", (cfg["batch"], cfg["active"]))],
+             [("softmax_label", (cfg["batch"],))])
+    if params is None:
+        mx.random.seed(36)
+        mod.init_params(mx.init.Xavier())
+    else:
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=ctx)
+                                    for k, v in params.items()})
+    mod.init_optimizer(kvstore=kv, optimizer="sgd", optimizer_params={
+        "learning_rate": cfg["lr"], "momentum": cfg["momentum"]})
+    return mod
+
+
+def sparse_lr_ce(torch, mod, batch):
+    mod.forward(batch, is_train=False)
+    p = mod.get_outputs()[0].handle
+    y = batch.label[0].handle.to(p.device).long()
+    return float(-torch.log(p[torch.arange(len(y), device=p.device), y]
+                            + 1e-12).mean())
+
+
+def sparse_lr_parity(torch, mx, card):
+    """36c: one step of the classifier at vocab 10,000 (batch 8192) on
+    the card and on the CPU from the same parameters, each batch's rows
+    pulled by ``sparse_row_id_fn``: every tensor within 1e-5 of its
+    largest update plus one float32 rounding of each element (the
+    embedding's updates, ~5e-5, lie below its weights' ulps, ~2e-9, so
+    the rounding of ``w + update`` alone can differ by an ulp)."""
+    cfg = dict(SPARSE_LR, vocab=10000)
+    X, Y = sparse_lr_data(cfg, cfg["batch"], 38)
+    host = mx.mod.Module(sparse_lr_net(mx.sym, cfg["vocab"], cfg["dim"],
+                                       cfg["classes"]), context=mx.cpu())
+    host.bind([("data", X.shape)], [("softmax_label", Y.shape)])
+    mx.random.seed(36)
+    host.init_params(mx.init.Xavier())
+    start = {k: v.asnumpy() for k, v in host.get_params()[0].items()}
+    after = {}
+    for dev, ctx in (("cuda", mx.gpu(0)), ("cpu", mx.cpu())):
+        kv = mx.kv.create("device", device=dev)
+        mod = sparse_lr_module(mx, cfg, ctx, kv, start)
+        batch = next(iter(mx.io.NDArrayIter(X, Y, batch_size=cfg["batch"],
+                                            label_name="softmax_label")))
+        mod.prepare(batch, sparse_row_id_fn=sparse_row_ids)
+        mod.forward_backward(batch)
+        mod.update()
+        after[dev] = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    worst, ulps = 0.0, 0
+    for k in start:
+        want, got = after["cpu"][k], after["cuda"][k]
+        upd = np.abs(want - start[k]).max()
+        diff = np.abs(got - want)
+        ulp = np.spacing(np.abs(want).astype(np.float32))
+        ok = diff <= 1e-5 * upd + ulp
+        check(upd > 0 and ok.all(), "36c: %s on the card %.3g from the "
+              "CPU, its largest update %.3g" % (k, diff.max(), upd))
+        worst = max(worst, float((np.maximum(diff - ulp, 0)).max() / upd))
+        ulps += int((diff > 0).sum())
+    log("36c parity: one step at vocab %d, batch %d, card vs CPU: every "
+        "tensor within 1e-5 of its largest update plus one ulp (beyond the "
+        "ulp %.3g of it; %d elements one ulp apart) [%s]"
+        % (cfg["vocab"], cfg["batch"], worst, ulps, card))
+
+
+def sparse_lr_full(torch, mx, sp, kernels, card):
+    """36c: ``Module.fit`` of the SparseEmbedding classifier at vocab
+    1,000,000, dim 16, 8 ids a row, batch 8192, SGD (lr 0.5, momentum 0.9)
+    through ``KVStore("device")`` with ``sparse_row_id_fn``: median step ms
+    (CUDA events at each batch end), host ms in ``prepare`` and
+    ``update()``, B5/B6 launches, idle share, peak memory; then the loss
+    falling on a repeated batch."""
+    cfg = SPARSE_LR
+    steps = cfg["warm"] + cfg["timed"]
+    X, Y = sparse_lr_data(cfg, cfg["batch"] * steps, 39)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kv = mx.kv.create("device")
+    mod = sparse_lr_module(mx, cfg, mx.gpu(0), kv)
+    host = {"prepare": [], "update": []}
+    for name in host:
+        def timed_call(*a, _f=getattr(mod, name), _n=name, **k):
+            t0 = time.perf_counter()
+            out = _f(*a, **k)
+            host[_n].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(mod, name, timed_call)
+    ev = []
+
+    def batch_end(param):
+        ev.append(torch.cuda.Event(enable_timing=True))
+        ev[-1].record()
+    it = mx.io.NDArrayIter(X, Y, batch_size=cfg["batch"],
+                           label_name="softmax_label")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, kvstore=kv, eval_metric="ce",
+            batch_end_callback=batch_end, sparse_row_id_fn=sparse_row_ids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(kernels.LAUNCHES)
+    # a prepare per batch after the first: one gather from the dense store
+    # and one write into the bound weight
+    check(got["embedding_gather"] == steps - 1 and
+          got["embedding_scatter"] == steps - 1,
+          "36c: B5 / B6 launched %d / %d times over %d batches, want %d "
+          "each (one row_sparse_pull a batch after the first)"
+          % (got["embedding_gather"], got["embedding_scatter"], steps,
+             steps - 1))
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)]
+    tt = ms[cfg["warm"] - 1:]
+    med = statistics.median(tt)
+    from torch.profiler import ProfilerActivity, profile
+    batch = next(iter(mx.io.NDArrayIter(X[:cfg["batch"]], Y[:cfg["batch"]],
+                                        batch_size=cfg["batch"],
+                                        label_name="softmax_label")))
+    ce0 = sparse_lr_ce(torch, mod, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mod.prepare(batch, sparse_row_id_fn=sparse_row_ids)
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_by_kernel(prof)
+    busy = sum(us for us, _ in by_kernel.values()) / 1e3
+    for _ in range(4):
+        mod.prepare(batch, sparse_row_id_fn=sparse_row_ids)
+        mod.forward_backward(batch)
+        mod.update()
+    ce1 = sparse_lr_ce(torch, mod, batch)
+    peak = torch.cuda.max_memory_allocated()
+    log("36c Module.fit of the SparseEmbedding classifier (vocab %d, dim "
+        "%d, %d ids a row, batch %d): fit %.2f s over %d batches; median "
+        "step %.3f ms (spread %.3f-%.3f) = %.1f examples/s; host ms a step "
+        "in prepare %.3f, in update() %.3f (medians); B5 / B6 %d / %d "
+        "launches; device busy %s ms of the profiled step's %.3f ms: idle "
+        "share %s; peak memory %.2f GB [%s]"
+        % (cfg["vocab"], cfg["dim"], cfg["active"], cfg["batch"], wall,
+           steps, med, min(tt), max(tt), cfg["batch"] / med * 1e3,
+           statistics.median(host["prepare"]),
+           statistics.median(host["update"]), got["embedding_gather"],
+           got["embedding_scatter"],
+           "%.3f" % busy if by_kernel else "not measured", prof_ms,
+           "%.3f" % (1 - busy / prof_ms) if by_kernel else "not measured",
+           peak / 1e9, card))
+    check(np.isfinite(ce1) and ce1 < ce0, "36c: the cross-entropy did not "
+          "fall on the repeated batch (%.6f -> %.6f)" % (ce0, ce1))
+    log("36c cross-entropy on one repeated batch %.6f -> %.6f over 5 steps "
+        "[%s]" % (ce0, ce1, card))
+    del mod, kv
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_sparse(torch, mx, kernels, card):
+    """Phase 36: sparse storage on the card (36a the wide-embedding loop,
+    36b CSR at Avazu's width, 36c Module.fit of the SparseEmbedding
+    classifier); returns each part's launches and the B5/B6 rows."""
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    from mxnet_tpu_torch.sparse import kernels as sk
+    wide_parity(torch, mx, sp, card)
+    torch.cuda.empty_cache()
+    launches = {}
+    launches["wide"], rows = wide_full(torch, mx, sp, kernels, sk, card)
+    launches["csr"] = csr_avazu(torch, mx, sp, kernels, card)
+    torch.cuda.empty_cache()
+    sparse_lr_parity(torch, mx, card)
+    launches["module"] = sparse_lr_full(torch, mx, sp, kernels, card)
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7331,6 +8007,14 @@ def main():
             if r["name"] == "greedy_nms_f64":
                 r["proposal_nms"] = nms
         phase_more_nets(torch, kernels, ShardedTrainer, card)
+        torch.cuda.empty_cache()
+
+    with phase("36 sparse storage: the wide-embedding loop, CSR at Avazu's "
+               "width, Module.fit of the SparseEmbedding classifier"):
+        sparse_launches, sparse_rows = phase_sparse(torch, mx, kernels, card)
+        for part, got in sparse_launches.items():
+            launches["sparse_" + part] = got
+        rows += sparse_rows
         torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------

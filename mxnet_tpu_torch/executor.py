@@ -494,6 +494,39 @@ def infer_types(symbol: Symbol, kwargs):
              for n in prog.aux_names])
 
 
+
+def infer_storage_types(symbol: Symbol, kwargs):
+    """``(arg_stypes, out_stypes, aux_stypes)`` as strings (port of the
+    JAX package's ``infer_storage_types``; reference
+    Symbol.infer_storage_type over FInferStorageType).
+
+    Forward propagation of "default" / "row_sparse" / "csr" tags: an op
+    with a ``stype_rule`` (``ops/sparse_storage.py``) declares its
+    outputs' storage; any other op is a dense producer, its sparse inputs
+    densified at its edge (the reference's dense fallback).  A variable
+    is "default" unless given in ``kwargs`` or tagged with a
+    ``__storage_type__`` attr (``Variable(stype=)``).  A sparse feed is
+    densified at the executor's edge: the graph computes on dense
+    tensors."""
+    prog = GraphProgram(symbol)
+    given = {k: v for k, v in (kwargs or {}).items() if v}
+    sts: Dict[int, tuple] = {}
+    for node in prog.nodes:
+        if node.is_var:
+            sts[id(node)] = (given.get(node.name) or
+                             node.attrs.get("__storage_type__", "default"),)
+            continue
+        in_sts = tuple(sts[id(e.node)][e.index] for e in node.inputs)
+        rule = getattr(node.op, "stype_rule", None)
+        attrs = node.parsed_attrs()
+        n_out = node.op.num_outputs(attrs)
+        out = tuple(rule(attrs, in_sts)) if rule is not None else ()
+        sts[id(node)] = out + ("default",) * (n_out - len(out))
+    by_name = {n.name: n for n in prog.nodes if n.is_var}
+    return ([sts[id(by_name[n])][0] for n in prog.arg_names],
+            [sts[id(e.node)][e.index] for e in symbol._entries],
+            [sts[id(by_name[n])][0] for n in prog.aux_names])
+
 class Executor:
     """A Symbol bound to argument, gradient and auxiliary arrays on one
     device (reference python/mxnet/executor.py).

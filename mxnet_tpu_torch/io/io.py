@@ -15,9 +15,10 @@ walk one order, each taking its block of every global window), so
 
 ``PrefetchingIter`` reads its iterators in background threads; they
 stop and are joined when it is reset, exhausted, closed or collected.
-``LibSVMIter`` yields CSR arrays and raises
-:class:`~mxnet_tpu_torch.base.NotPortedYet` (ROADMAP queue A item 5,
-sparse storage on the host).
+``LibSVMIter`` parses a libsvm file straight into CSR components and
+yields CSR batches (padded by wrap-around, as ``NDArrayIter``'s "pad"):
+no dense (rows, features) array is built, where the JAX package's
+densifies every row; the batches are the same.
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import torch
 
-from ..base import NotPortedYet
 from ..ndarray.ndarray import NDArray
 from .. import telemetry
 
@@ -543,14 +543,101 @@ class CSVIter(DataIter):
 
 
 class LibSVMIter(DataIter):
-    """LibSVM source (reference src/io/iter_libsvm.cc).  Its batches are
-    CSR arrays, which the port does not have yet."""
+    """LibSVM source (reference src/io/iter_libsvm.cc): CSR batches of
+    ``data_shape``'s width on the CPU, float32 labels, the last batch
+    padded with the first rows (``pad`` says how many).  Each row holds
+    what a dense row of its ``index:value`` pairs would: a later
+    duplicate index wins, zeros are dropped, indices ascend (the JAX
+    package's batches), computed over the pairs alone.  ``label_libsvm``
+    is not read, as in the JAX package."""
 
     def __init__(self, data_libsvm, data_shape, label_libsvm=None,
                  batch_size=1, **kwargs):
-        raise NotPortedYet("LibSVMIter yields CSR NDArrays, which are not "
-                           "ported yet (ROADMAP queue A item 5, sparse "
-                           "storage on the host)")
+        super().__init__(batch_size)
+        self._dim = int(np.prod(data_shape))
+        self._indptr, self._cols, self._vals, labels = self._parse(
+            data_libsvm, self._dim)
+        self._labels = np.asarray(labels, np.float32)
+        self._num = len(labels)
+        self._cursor = -batch_size
+        self.data_name = "data"
+        self.label_name = "softmax_label"
+
+    @staticmethod
+    def _parse(path, dim):
+        """``(indptr, indices, values, labels)`` of the file's rows."""
+        labels, rows, cols, vals = [], [], [], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                r = len(labels)
+                labels.append(float(parts[0]))
+                for tok in parts[1:]:
+                    k, v = tok.split(":")
+                    rows.append(r)
+                    cols.append(int(k))
+                    vals.append(float(v))
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals, np.float64).astype(np.float32)
+        bad = (cols < -dim) | (cols >= dim)
+        if bad.any():
+            raise IndexError("LibSVMIter: feature index %d out of range "
+                             "for %d features" % (cols[bad][0], dim))
+        cols = np.where(cols < 0, cols + dim, cols)  # as numpy indexes
+        order = np.lexsort((np.arange(len(cols)), cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        last = np.ones(len(cols), bool)
+        last[:-1] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        keep = last & (vals != 0)
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        indptr = np.zeros(len(labels) + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=len(labels)), out=indptr[1:])
+        return indptr, cols, vals, labels
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name, (self.batch_size, self._dim))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self.label_name, (self.batch_size,))]
+
+    def reset(self):
+        self._cursor = -self.batch_size
+
+    def iter_next(self):
+        self._cursor += self.batch_size
+        return self._cursor < self._num
+
+    def _rows(self, a, b):
+        """Rows ``[a, b)`` as (indptr from 0, indices, values)."""
+        lo, hi = self._indptr[a], self._indptr[b]
+        return (self._indptr[a:b + 1] - lo, self._cols[lo:hi],
+                self._vals[lo:hi])
+
+    def next(self):
+        from ..ndarray.sparse import CSRNDArray
+        if not self.iter_next():
+            raise StopIteration
+        end = min(self._cursor + self.batch_size, self._num)
+        parts = [self._rows(self._cursor, end)]
+        labels = self._labels[self._cursor:end]
+        pad = self.batch_size - (end - self._cursor)
+        if pad:
+            wrap = min(pad, self._num)
+            parts.append(self._rows(0, wrap))
+            labels = np.concatenate([labels, self._labels[:wrap]])
+        indptr = parts[0][0]
+        for p in parts[1:]:
+            indptr = np.concatenate([indptr, p[0][1:] + indptr[-1]])
+        data = CSRNDArray(
+            torch.from_numpy(np.concatenate([p[2] for p in parts])),
+            torch.from_numpy(np.concatenate([p[1] for p in parts])),
+            torch.from_numpy(indptr), (len(indptr) - 1, self._dim))
+        return DataBatch(data=[data], label=[_host(labels)], pad=pad)
 
 
 def _read_idx(path):

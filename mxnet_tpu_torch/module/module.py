@@ -29,13 +29,21 @@ Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
 and naming its ROADMAP queue A item: more than one context
 (distribution), monitors, ``MXNET_TPU_PREFLIGHT`` and
 ``MXNET_TPU_ATTRIBUTION`` (observability), the ``grad_guard`` of
-``init_optimizer`` (resilience), ``sparse_row_id_fn`` (sparse storage on
-the host).
+``init_optimizer`` (resilience).
+
+``prepare(data_batch, sparse_row_id_fn)`` pulls, before a batch, only
+the rows ``sparse_row_id_fn(batch)`` names of each parameter from a
+store that updates (``KVStore.row_sparse_pull``: the other rows of the
+bound array become zero, as in the reference); ``fit`` calls it for the
+next batch, and the step's full pull after ``update()`` writes every row
+back.
 """
 from __future__ import annotations
 
 import logging
 import warnings
+
+import numpy as np
 
 from .. import optimizer as opt_mod
 from .. import telemetry
@@ -442,7 +450,16 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def _sync_params_from_devices(self):
+        """The bound arrays' values into the host parameter dicts; a
+        row_sparse parameter of a store that updates is pulled whole
+        (every row id, as the reference's ``arange``; the JAX package
+        passes ``zeros`` here, which pulls row 0 alone)."""
         self._exec_group.get_params(self._arg_params, self._aux_params)
+        if self._kvstore and self._update_on_kvstore:
+            for name, val in sorted(self._arg_params.items()):
+                if val.stype == "row_sparse":
+                    self._kvstore.row_sparse_pull(
+                        name, val, row_ids=np.arange(val.shape[0]))
         self._params_dirty = False
 
     # -- checkpoints ------------------------------------------------------
@@ -493,8 +510,22 @@ class Module(BaseModule):
                            "observability)")
 
     def prepare(self, data_batch, sparse_row_id_fn=None):
+        """Pull the rows ``sparse_row_id_fn(data_batch)`` (``{param name:
+        row ids}``) of each named parameter into its bound arrays
+        (reference module.py:478); a warning, and nothing pulled, unless
+        the store does the updates."""
         self._require(bound=True)
-        if sparse_row_id_fn is not None:
-            raise NotPortedYet("sparse_row_id_fn: row_sparse pulls are not "
-                               "ported yet (ROADMAP queue A item 5, sparse "
-                               "storage on the host)")
+        if sparse_row_id_fn is None:
+            return
+        if not (self._kvstore and self._update_on_kvstore):
+            warnings.warn(UserWarning(
+                "sparse_row_id_fn does nothing without a kvstore doing "
+                "the updates"))
+            return
+        names = self._exec_group.param_names
+        for name, row_id in sparse_row_id_fn(data_batch).items():
+            if name not in names:
+                continue
+            arrays = self._exec_group_param_arrays()[names.index(name)]
+            self._kvstore.row_sparse_pull(name, arrays,
+                                          row_ids=[row_id] * len(arrays))

@@ -1,13 +1,12 @@
 """``mx.nd`` namespace (port of ``mxnet_tpu/ndarray``): the NDArray, the
 creation and I/O functions, every registered op as a function
 (``populate_module``), ``maximum`` ... ``power``, ``mx.nd.random`` and
-``mx.nd.contrib`` (the ported ``_contrib_*`` ops) and ``mx.nd.linalg``.
-``sparse`` raises :class:`~mxnet_tpu_torch.base.NotPortedYet` when asked
-for (ROADMAP queue A item 5, sparse storage)."""
+``mx.nd.contrib`` (the ``_contrib_*`` ops), ``mx.nd.linalg`` and
+``mx.nd.sparse`` (row_sparse and CSR arrays, with the eager
+``cast_storage`` and ``sparse_retain``)."""
 import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the ops)
-from ..base import NotPortedYet as _NotPortedYet
 from .ndarray import (NDArray, arange, array, concatenate,  # noqa: F401
                       empty, eye, full, imperative_invoke,
                       invoke_with_arrays, load, moveaxis, ones,
@@ -18,6 +17,24 @@ populate_module(_sys.modules[__name__])
 from . import random  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
 from . import linalg  # noqa: E402,F401
+from . import sparse  # noqa: E402,F401
+from .sparse import (BaseSparseNDArray, CSRNDArray,  # noqa: E402,F401
+                     RowSparseNDArray, csr_matrix, row_sparse_array)
+
+
+def cast_storage(data, stype):
+    """Eager storage conversion: a real CSR, row_sparse or dense NDArray
+    (the registry op of the same name is the identity inside a graph;
+    see ``ops/sparse_storage.py``)."""
+    return sparse.cast_storage(data, stype)
+
+
+def sparse_retain(data, indices):
+    """Eager ``sparse_retain``: O(nnz) on a RowSparseNDArray, the
+    registry op's masked dense semantics otherwise."""
+    if isinstance(data, RowSparseNDArray):
+        return data.retain(indices)
+    return invoke_with_arrays("_sparse_retain", [data, indices], {})
 
 
 def _pair(lhs, rhs, same, bcast, scalar):
@@ -57,12 +74,3 @@ def divide(lhs, rhs):
 
 def power(lhs, rhs):
     return lhs ** rhs
-
-
-def __getattr__(name):
-    if name in ("sparse", "cast_storage", "sparse_retain", "csr_matrix",
-                "row_sparse_array", "BaseSparseNDArray", "CSRNDArray",
-                "RowSparseNDArray"):
-        raise _NotPortedYet("mx.nd.%s is not ported yet (ROADMAP queue A "
-                            "item 5, sparse storage)" % name)
-    raise AttributeError("module %r has no attribute %r" % (__name__, name))

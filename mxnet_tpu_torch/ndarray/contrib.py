@@ -3,12 +3,10 @@ reference python/mxnet/ndarray/contrib.py): every registered
 ``_contrib_*`` op of the port under its short name, so both spellings
 work, ``mx.nd.contrib.fused_attention(...)`` and
 ``mx.nd._contrib_fused_attention(...)``, the contrib and detection ops
-of ``ops/contrib.py`` among them.  The one ``_contrib_*`` op left,
-``SparseEmbedding``, is ROADMAP queue A item 5 (sparse storage); asking
-for it, or for any other name, raises ``NotPortedYet``."""
+of ``ops/contrib.py`` and ``SparseEmbedding`` of
+``ops/sparse_storage.py`` among them."""
 import sys as _sys
 
-from ..base import NotPortedYet as _NotPortedYet
 from ..ops.registry import get_op as _get_op, list_ops as _list_ops
 from .ndarray import _make_wrapper
 
@@ -27,10 +25,3 @@ def _populate(mod, make_wrapper):
 
 
 _populate(_sys.modules[__name__], lambda name: _make_wrapper(_get_op(name)))
-
-
-def __getattr__(name):
-    if name.startswith("__"):
-        raise AttributeError(name)
-    raise _NotPortedYet("mx.nd.contrib.%s is not ported yet (ROADMAP queue "
-                        "A item 5, sparse storage: SparseEmbedding)" % name)

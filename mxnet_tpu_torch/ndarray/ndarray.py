@@ -29,9 +29,9 @@ array, ``backward`` writes the gradients into the marked arrays'
 the recorded graph keeps the values it saw, as the JAX package's
 rebinding does.
 
-Not ported (raising :class:`~mxnet_tpu_torch.base.NotPortedYet`): sparse
-storage (``tostype``: ROADMAP queue A item 5, sparse storage) and the
-profiler hook of ``imperative_invoke`` (item 9, observability).
+Sparse storage is :mod:`.sparse` (``tostype``).  Not ported (raising
+:class:`~mxnet_tpu_torch.base.NotPortedYet`): the profiler hook of
+``imperative_invoke`` (item 9, observability).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import rng as _rng
-from ..base import (MXNetError, NotPortedYet, _Null, dtype_name, dtype_np,
+from ..base import (MXNetError, _Null, dtype_name, dtype_np,
                     dtype_torch)
 from ..context import Context, as_torch_device, context_of
 from ..ops.registry import Operator, get_op, list_ops
@@ -159,20 +159,19 @@ class NDArray:
         return NDArray(self._handle.detach())
 
     def tostype(self, stype: str):
+        """This array (``"default"``) or a row_sparse / CSR array of its
+        values (:func:`.sparse.cast_storage`)."""
         if stype == "default":
             return self
-        raise NotPortedYet("NDArray.tostype(%r): sparse storage is not "
-                           "ported yet (ROADMAP queue A item 5, sparse "
-                           "storage)" % (stype,))
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # -- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req: str = "write", stype=None):
         """Mark this array for :func:`autograd.backward`, with a zeroed
-        gradient buffer of its shape, dtype and device."""
-        if stype not in (None, "default"):
-            raise NotPortedYet("attach_grad(stype=%r): sparse gradients "
-                               "are not ported yet (ROADMAP queue A item "
-                               "5, sparse storage)" % (stype,))
+        gradient buffer of its shape, dtype and device.  The gradient is
+        dense whatever ``stype`` says, as in the JAX package (a
+        row_sparse gradient is made at the kvstore boundary)."""
         _ag.mark_variables([self], [NDArray(torch.zeros_like(
             self._handle.detach()))], grad_req)
 

@@ -3,7 +3,8 @@ of the imperative API and the LM graph (:mod:`.init_ops`,
 :mod:`.elemwise`, :mod:`.broadcast_reduce`, :mod:`.matrix`,
 :mod:`.random_ops`, :mod:`.nn`, the fused ``RNN`` op of :mod:`.rnn` on
 cuDNN, :mod:`.linalg`, the spatial ops of :mod:`.spatial` and the
-contrib and detection ops of :mod:`.contrib`, with the parameter-shape
+contrib and detection ops of :mod:`.contrib`, the dense semantics of
+the sparse-storage ops (:mod:`.sparse_storage`), with the parameter-shape
 hooks of :mod:`.shape_hints`), the SGD updates (:mod:`.optimizer_ops`), the
 ``Custom`` op of :mod:`mxnet_tpu_torch.operator`, and the
 hand-written CUDA kernels (:mod:`.kernels`) with their build
@@ -21,8 +22,8 @@ import torch as _torch
 
 from . import build, kernels
 from . import registry, init_ops, elemwise, broadcast_reduce, matrix
-from . import random_ops, nn, rnn, linalg, spatial, contrib, shape_hints
-from . import optimizer_ops
+from . import random_ops, nn, rnn, linalg, spatial, contrib, sparse_storage
+from . import shape_hints, optimizer_ops
 from .kernels import (LAUNCHES, decode_attention, flash_attention,
                       greedy_nms, quant_matmul, quantize_weight)
 

@@ -14,14 +14,14 @@ from __future__ import annotations
 import torch
 
 from ..base import Param, attr_bool, attr_float, attr_shape, attr_str
-from .elemwise import _hypot, _int_to_f64, _mod, _power
+from .elemwise import _hypot, _int_to_f64, _mod, _power, _true_div
 from .registry import register
 
 _BROADCAST = {
     "broadcast_add": (torch.add, ("_broadcast_plus",)),
     "broadcast_sub": (torch.sub, ("_broadcast_minus",)),
     "broadcast_mul": (torch.mul, ()),
-    "broadcast_div": (torch.div, ()),
+    "broadcast_div": (_true_div, ()),
     "broadcast_mod": (_mod, ()),
     "broadcast_power": (_power, ()),
     "broadcast_maximum": (torch.maximum, ()),
@@ -105,16 +105,31 @@ def _prod(x, axes, keepdims):
     return x
 
 
+def _x64_int(f):
+    """A sum or product as ``jnp``'s under x64: uint8 data gives uint64
+    (torch gives int64; the bits agree, since both wrap modulo 2^64;
+    C27)."""
+    def fn(x, axes, keepdims):
+        out = f(x, axes, keepdims)
+        return out.to(torch.uint64) if x.dtype == torch.uint8 else out
+    return fn
+
+
+def _sqrt_x64(s):
+    """``jnp.sqrt`` of a sum: float64 for an integer one (C27)."""
+    return torch.sqrt(_int_to_f64(s))
+
+
 _RED_PARAMS = dict(axis=attr_shape(None), keepdims=attr_bool(False),
                    exclude=attr_bool(False))
 
 _REDUCE = {
-    "sum": lambda x, a, k: torch.sum(x, a, keepdim=k),
+    "sum": _x64_int(lambda x, a, k: torch.sum(x, a, keepdim=k)),
     "mean": lambda x, a, k: torch.mean(_as_float(x), a, keepdim=k),
-    "prod": _prod,
-    "nansum": lambda x, a, k: torch.nansum(x, a, keepdim=k),
-    "nanprod": lambda x, a, k: _prod(
-        torch.where(torch.isnan(x), torch.ones_like(x), x), a, k),
+    "prod": _x64_int(_prod),
+    "nansum": _x64_int(lambda x, a, k: torch.nansum(x, a, keepdim=k)),
+    "nanprod": _x64_int(lambda x, a, k: _prod(
+        torch.where(torch.isnan(x), torch.ones_like(x), x), a, k)),
     "max": lambda x, a, k: torch.amax(x, a, keepdim=k),
     "min": lambda x, a, k: torch.amin(x, a, keepdim=k),
 }
@@ -143,14 +158,15 @@ for _name, _f in _REDUCE.items():
                       keepdims=attr_bool(False)))
 def _norm(attrs, x):
     """Without an axis the 2-norm of every element, in f32, as shape (1,)
-    (``(1,)*ndim`` with keepdims); with one, the ``ord`` 1 or 2 norm."""
+    (``(1,)*ndim`` with keepdims); with one, the ``ord`` 1 or 2 norm, a
+    2-norm of integers in float64 (C27)."""
     if attrs.axis is None:
         out = torch.sqrt(torch.sum(x.to(torch.float32) ** 2)).to(x.dtype)
         return out.reshape((1,) if not attrs.keepdims else (1,) * x.dim())
     axes = tuple(a % x.dim() for a in attrs.axis)
     if attrs.ord == 1:
-        return torch.sum(torch.abs(x), axes, keepdim=attrs.keepdims)
-    return torch.sqrt(torch.sum(x * x, axes, keepdim=attrs.keepdims))
+        return _REDUCE["sum"](torch.abs(x), axes, attrs.keepdims)
+    return _sqrt_x64(torch.sum(x * x, axes, keepdim=attrs.keepdims))
 
 
 def _arg(f):
@@ -174,15 +190,6 @@ register("argmin", inputs=("data",), params=dict(_ARG_PARAMS))(
 @register("argmax_channel", inputs=("data",))
 def _argmax_channel(attrs, x):
     return torch.argmax(x, 1).to(x.dtype)
-
-
-@register("square_sum", inputs=("data",), params=dict(_RED_PARAMS))
-def _square_sum(attrs, x):
-    """reference src/operator/tensor/square_sum-inl.h"""
-    axes = _norm_axes(attrs, x.dim())
-    if not axes:
-        return x * x
-    return torch.sum(x * x, axes, keepdim=attrs.get("keepdims", False))
 
 
 @register("L2Normalization", inputs=("data",),

@@ -49,6 +49,7 @@ import torch
 from ..base import (Param, attr_bool, attr_float, attr_int, attr_shape,
                     attr_str, dtype_torch)
 from . import kernels
+from .elemwise import _saturating_cast
 from .registry import register
 
 _F64 = torch.float64
@@ -458,7 +459,10 @@ def _fft(attrs, x):
     interleaved re/im, out last dim 2n."""
     out = torch.fft.fft(x.to(torch.complex64), dim=-1)
     inter = torch.stack([out.real, out.imag], dim=-1)
-    return inter.reshape(x.shape[:-1] + (2 * x.shape[-1],)).to(x.dtype)
+    # back to x's dtype as the JAX op's astype does: saturating for
+    # integer data (C27), where ``.to`` would wrap
+    return _saturating_cast(
+        inter.reshape(x.shape[:-1] + (2 * x.shape[-1],)), x.dtype)
 
 
 @register("_contrib_ifft", inputs=("data",),
@@ -471,7 +475,7 @@ def _ifft(attrs, x):
     real = _F64 if x.dtype == _F64 else torch.float32
     comp = torch.complex(pairs[..., 0].to(real), pairs[..., 1].to(real))
     out = torch.fft.ifft(comp, dim=-1).real * n
-    return out.to(x.dtype)
+    return _saturating_cast(out, x.dtype)
 
 
 @register("_contrib_count_sketch", inputs=("data", "h", "s"),

@@ -25,7 +25,16 @@ package registers one ``jnp`` expression.  Parity notes:
   narrower ones and bool, as ``jnp.hypot`` promotes them;
 * ``_power`` of integers is ``jnp.power``'s binary exponentiation over
   the exponent's 6 low bits, wrapping in the integer type, where
-  ``torch.pow`` gives 0 for a negative exponent.
+  ``torch.pow`` gives 0 for a negative exponent;
+* the true divisions (``elemwise_div``, ``broadcast_div``) of integers
+  give float64 where a 64-bit integer takes part, float32 otherwise, as
+  ``jnp.true_divide`` promotes them (C27);
+* a scalar op rounds the scalar to a float16 or bfloat16 array's dtype
+  first, as the JAX op's weak typing (and MXNet's ``DType(scalar)``)
+  does, and ``_div_scalar`` / ``_rdiv_scalar`` divide by a 0-d tensor on
+  the array's device, so ``x / s`` and ``s / x`` are correctly rounded
+  quotients where torch computes a Python scalar's quotient as a product
+  with its reciprocal (C26).
 """
 from __future__ import annotations
 
@@ -85,6 +94,32 @@ def _int_to_f64(x):
     scalar promotes an integer array to in the JAX package (x64)."""
     return x if x.is_floating_point() or x.is_complex() else \
         x.to(torch.float64)
+
+
+def _true_div(a, b):
+    """``jnp.true_divide``: integers become float64 where the promoted
+    integer type is 64-bit, float32 otherwise (C27)."""
+    dt = torch.result_type(a, b)
+    if not dt.is_floating_point and not dt.is_complex:
+        dt = torch.float64 if dt in (torch.int64, torch.uint64) \
+            else torch.float32
+        a, b = a.to(dt), b.to(dt)
+    return torch.div(a, b)
+
+
+def _scalar_of(x, s):
+    """The scalar ``s`` as ``x op s`` meets it in the JAX op: rounded to a
+    float16 or bfloat16 ``x``'s dtype first (its weak typing; C26)."""
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return float(torch.tensor(s, dtype=x.dtype))
+    return s
+
+
+def _divisor(x, s):
+    """``s`` as a 0-d tensor of ``x``'s dtype on its device: torch divides
+    by a tensor correctly rounded, by a Python scalar through its
+    reciprocal on the card (C26)."""
+    return torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def _sign(x):
@@ -205,7 +240,7 @@ _BINARY = {
     "elemwise_add": torch.add,
     "elemwise_sub": torch.sub,
     "elemwise_mul": torch.mul,
-    "elemwise_div": torch.div,
+    "elemwise_div": _true_div,
     "_maximum": torch.maximum,
     "_minimum": torch.minimum,
     "_hypot": _hypot,
@@ -264,8 +299,8 @@ _SCALAR = {
     "_minus_scalar": lambda x, s: x - s,
     "_rminus_scalar": lambda x, s: s - x,
     "_mul_scalar": lambda x, s: x * s,
-    "_div_scalar": lambda x, s: x / s,
-    "_rdiv_scalar": lambda x, s: s / x,
+    "_div_scalar": lambda x, s: torch.div(x, _divisor(x, s)),
+    "_rdiv_scalar": lambda x, s: torch.div(_divisor(x, s), x),
     "_mod_scalar": lambda x, s: _mod(x, _scalar_like(x, s)),
     "_rmod_scalar": lambda x, s: _mod(_scalar_like(x, s), x),
     "_power_scalar": lambda x, s: torch.pow(x, s),
@@ -290,7 +325,8 @@ for _name, _f in _SCALAR.items():
              params=dict(scalar=attr_float(required=True)))(
         (lambda f, cast: lambda attrs, x: (
             f(x, attrs.scalar).to(x.dtype) if cast
-            else f(_int_to_f64(x), attrs.scalar)))(
+            else f(_int_to_f64(x), _scalar_of(_int_to_f64(x),
+                                               attrs.scalar))))(
             _f, any(t in _name for t in _CMP)))
 
 

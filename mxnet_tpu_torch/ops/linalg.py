@@ -19,11 +19,19 @@ import math
 import torch
 
 from ..base import attr_bool, attr_float, attr_int
+from .elemwise import _int_to_f64
+from .matrix import promoted
 from .registry import register
 
 
 def _t(x):
     return x.transpose(-1, -2)
+
+
+def _scaled(alpha, x):
+    """``alpha * x`` with x64's rule for a float scalar: an integer
+    product becomes float64 (C27)."""
+    return alpha * _int_to_f64(x)
 
 
 def _solve_tri(a, b, lower):
@@ -37,9 +45,16 @@ def _solve_tri(a, b, lower):
                       axis=attr_int(-2)),
           aliases=("linalg_gemm",))
 def _gemm(attrs, a, b, c):
-    a = _t(a) if attrs.transpose_a else a
-    b = _t(b) if attrs.transpose_b else b
-    return attrs.alpha * torch.matmul(a, b) + attrs.beta * c
+    a, b = promoted(_t(a) if attrs.transpose_a else a,
+                    _t(b) if attrs.transpose_b else b)
+    ab = torch.matmul(a, b)
+    p, q = _scaled(attrs.alpha, ab), _scaled(attrs.beta, c)
+    if ab.is_floating_point() != c.is_floating_point():
+        # an integer term scaled by a float is weakly typed in the JAX
+        # op: it takes the float term's dtype
+        dt = ab.dtype if ab.is_floating_point() else c.dtype
+        p, q = p.to(dt), q.to(dt)
+    return p + q
 
 
 @register("_linalg_gemm2", inputs=("A", "B"),
@@ -48,9 +63,9 @@ def _gemm(attrs, a, b, c):
                       alpha=attr_float(1.0), axis=attr_int(-2)),
           aliases=("linalg_gemm2",))
 def _gemm2(attrs, a, b):
-    a = _t(a) if attrs.transpose_a else a
-    b = _t(b) if attrs.transpose_b else b
-    return attrs.alpha * torch.matmul(a, b)
+    a, b = promoted(_t(a) if attrs.transpose_a else a,
+                    _t(b) if attrs.transpose_b else b)
+    return _scaled(attrs.alpha, torch.matmul(a, b))
 
 
 @register("_linalg_potrf", inputs=("A",), aliases=("linalg_potrf",))
@@ -75,8 +90,9 @@ def _trmm(attrs, a, b):
     tri = torch.tril(a) if attrs.lower else torch.triu(a)
     if attrs.transpose:
         tri = _t(tri)
+    tri, b = promoted(tri, b)
     out = torch.matmul(b, tri) if attrs.rightside else torch.matmul(tri, b)
-    return attrs.alpha * out
+    return _scaled(attrs.alpha, out)
 
 
 @register("_linalg_trsm", inputs=("A", "B"),
@@ -104,8 +120,8 @@ def _sumlogdiag(attrs, a):
           aliases=("linalg_syrk",))
 def _syrk(attrs, a):
     if attrs.transpose:
-        return attrs.alpha * torch.matmul(_t(a), a)
-    return attrs.alpha * torch.matmul(a, _t(a))
+        return _scaled(attrs.alpha, torch.matmul(_t(a), a))
+    return _scaled(attrs.alpha, torch.matmul(a, _t(a)))
 
 
 @register("_linalg_gelqf", inputs=("A",), num_outputs=2,

@@ -6,11 +6,13 @@ indexing_op.h, ordering_op.cc, the sequence ops).
 the JAX package leaves them to XLA; on the card they run in full f32
 (TF32 off), as that package runs them at "highest" precision.  Slices
 with a negative step (which torch indexing refuses) flip the axis and
-take the equivalent positive-step slice.  Parity notes: ``topk`` orders
-tied values as ``torch.topk`` does, which need not be the JAX package's
-order; ``sort`` and ``argsort`` are stable, as ``jnp.sort`` /
-``jnp.argsort`` are, so they agree on ties; ``shuffle`` draws its
-permutation from the device's generator.
+take the equivalent positive-step slice.  Operands of two dtypes meet
+in their promoted dtype (:func:`promoted`), as the JAX ops' products
+promote them (C25).  Parity notes: ``topk`` is a stable sort, so it
+orders tied values as ``lax.top_k`` does (the lower index first, for
+either ``is_ascend``; C24); ``sort`` and ``argsort`` are stable, as
+``jnp.sort`` / ``jnp.argsort`` are, so they agree on ties; ``shuffle``
+draws its permutation from the device's generator.
 """
 from __future__ import annotations
 
@@ -22,7 +24,19 @@ from ..base import (MXNetError, Param, attr_bool, attr_dtype, attr_float,
                     attr_int, attr_shape, attr_str, dtype_torch)
 from .registry import register
 
-__all__ = ["infer_reshape"]
+__all__ = ["infer_reshape", "promoted"]
+
+
+def promoted(*tensors):
+    """The tensors in one dtype, the promotion of theirs: float64 with
+    float32 gives float64, float16 with float32 float32, an integer with
+    a float the float, as the JAX ops' products promote them under x64
+    (``torch.promote_types`` agrees with ``jnp.promote_types`` on these
+    pairs)."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return [t if t.dtype == dt else t.to(dt) for t in tensors]
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +373,7 @@ def _dot(attrs, a, b):
     """reference src/operator/tensor/dot-inl.h: the last axis of lhs with
     the first of rhs (after the optional transposes)."""
     _no_tf32(a.device)
+    a, b = promoted(a, b)
     if attrs.transpose_a and a.dim() > 1:
         a = a.permute(tuple(range(1, a.dim())) + (0,))
     if attrs.transpose_b and b.dim() > 1:
@@ -371,6 +386,7 @@ def _dot(attrs, a, b):
 @register("batch_dot", inputs=("lhs", "rhs"), params=dict(_DOT_PARAMS))
 def _batch_dot(attrs, a, b):
     _no_tf32(a.device)
+    a, b = promoted(a, b)
     if attrs.transpose_a:
         a = a.transpose(-1, -2)
     if attrs.transpose_b:
@@ -485,15 +501,33 @@ def _scatter_set_nd(attrs, lhs, rhs, indices):
           num_outputs=lambda attrs: 2 if attrs and attrs.get(
               "ret_typ") == "both" else 1)
 def _topk(attrs, x):
+    """``lax.top_k`` of x (of -x when ascending) as a stable sort: equal
+    keys keep the lower index first (C24).  Descending, NaN comes first;
+    ascending, last (``lax.top_k`` orders -NaN below every number), and
+    integers are negated in their dtype as the JAX op negates them, so
+    uint8 data wraps there too.  The mask is the one-hot sum the JAX op returns, in its
+    dtype (an integer sum: int64, or uint64 for uint8 data), shaped as
+    ``data`` along any axis (the JAX op's is misshaped along a non-last
+    axis: a reference caveat)."""
     axis = attrs.axis if attrs.axis is not None else -1
-    top_v, top_i = torch.topk(x, attrs.k, dim=axis,
-                              largest=not attrs.is_ascend, sorted=True)
+    if attrs.is_ascend and x.is_floating_point():
+        order = torch.sort(x, dim=axis, stable=True).indices
+    else:
+        keys = -x if attrs.is_ascend else x
+        order = torch.sort(keys, dim=axis, descending=True,
+                           stable=True).indices
+    top_i = order.narrow(axis, 0, attrs.k)
+    if attrs.ret_typ == "mask":
+        mask = torch.zeros_like(x).scatter(axis, top_i, 1)
+        if x.is_floating_point():
+            return mask
+        return mask.to(torch.int64).to(
+            torch.uint64 if x.dtype == torch.uint8 else torch.int64)
+    top_v = torch.gather(x, axis, top_i)
     if attrs.ret_typ == "value":
         return top_v
     if attrs.ret_typ == "both":
         return top_v, top_i.to(x.dtype)
-    if attrs.ret_typ == "mask":
-        return torch.zeros_like(x).scatter(axis, top_i, 1.0)
     return top_i.to(x.dtype)
 
 

@@ -42,7 +42,7 @@ from ..base import (MXNetError, Param, attr_bool, attr_float, attr_int,
                     attr_shape, attr_str)
 from . import kernels
 from .elemwise import _int_to_f64
-from .matrix import _fill, _in_range
+from .matrix import _fill, _in_range, promoted
 from .registry import register
 
 __all__ = ["FLASH_MIN_SEQ"]
@@ -76,8 +76,7 @@ def _fully_connected(attrs, data, weight, bias=None):
     x = data.reshape(data.shape[0], -1) if attrs.flatten else data
     if x.dtype == weight.dtype and (bias is None or bias.dtype == x.dtype):
         return F.linear(x, weight, bias)
-    dt = torch.promote_types(x.dtype, weight.dtype)
-    out = F.linear(x.to(dt), weight.to(dt))
+    out = F.linear(*promoted(x, weight))
     return out if bias is None else out + bias
 
 

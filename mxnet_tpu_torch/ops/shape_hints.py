@@ -122,6 +122,7 @@ def install():
     get_op("InstanceNorm").infer_params = _in_norm
     get_op("LayerNorm").infer_params = _layer_norm
     get_op("Embedding").infer_params = _embedding
+    get_op("_contrib_SparseEmbedding").infer_params = _embedding
     get_op("RNN").infer_params = _rnn
     get_op("LeakyReLU").infer_params = _prelu
 

@@ -308,6 +308,16 @@ class Symbol:
             kwargs = dict(zip(self.list_arguments(), args))
         return infer_types(self, kwargs)
 
+    def infer_storage_type(self, *args, **kwargs):
+        """(arg_stypes, out_stypes, aux_stypes): the "default",
+        "row_sparse" and "csr" tags propagated through the graph from
+        those given by position or by name (reference
+        Symbol.infer_storage_type)."""
+        from ..executor import infer_storage_types
+        if args:
+            kwargs = dict(zip(self.list_arguments(), args))
+        return infer_storage_types(self, kwargs)
+
     # -- binding ---------------------------------------------------------
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,

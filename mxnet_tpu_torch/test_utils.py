@@ -8,9 +8,9 @@ other.
 
 Every helper runs on :func:`default_context` (the current context: the
 card unless the caller is inside ``with mx.cpu():``) or on the ``ctx`` it
-is given.  The sparse helpers (``rand_sparse_ndarray``, a sparse
-``rand_ndarray``) are ROADMAP queue A item 5 (sparse storage) and raise
-``NotPortedYet``.
+is given, the sparse helpers (``rand_sparse_ndarray``, a sparse
+``rand_ndarray``) too, drawing the JAX package's numbers from the same
+module stream.
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ import numbers
 
 import numpy as np
 
-from .base import NotPortedYet
 from .context import Context, cpu, current_context
 from .ndarray.ndarray import NDArray, array as nd_array, zeros as nd_zeros
 from .symbol.symbol import Symbol
@@ -70,15 +69,40 @@ def random_sample(population, k):
 
 
 def rand_sparse_ndarray(shape, stype, density=None, dtype=None,
-                        distribution="uniform"):
-    raise NotPortedYet("rand_sparse_ndarray: sparse storage is not ported "
-                       "yet (ROADMAP queue A item 5, sparse storage)")
+                        distribution="uniform", ctx=None):
+    """A random row_sparse or CSR array and its components (reference
+    test_utils.py:96), the JAX package's draws from the module stream:
+    ``(arr, (values, indices))`` for row_sparse, ``(arr, (data, indices,
+    indptr))`` for CSR."""
+    from .ndarray.sparse import csr_matrix, row_sparse_array
+    density = _rng.rand() if density is None else density
+    dtype = default_dtype() if dtype is None else dtype
+    if stype == "row_sparse":
+        idx_sample = _rng.rand(shape[0])
+        indices = np.argwhere(idx_sample < density).flatten()
+        if indices.shape[0] == 0:
+            return row_sparse_array(
+                (np.zeros((0,) + tuple(shape[1:]), dtype=dtype),
+                 np.zeros((0,), np.int64)), shape=shape, ctx=ctx), \
+                (np.array([]),)
+        val = _rng.rand(indices.shape[0], *shape[1:]).astype(dtype)
+        arr = row_sparse_array((val, indices), shape=shape, dtype=dtype,
+                               ctx=ctx)
+        return arr, (val, indices)
+    if stype == "csr":
+        dense = _rng.rand(*shape)
+        dense[dense > density] = 0
+        arr = csr_matrix(dense.astype(dtype), ctx=ctx)
+        return arr, (arr.data.asnumpy(), arr.indices.asnumpy(),
+                     arr.indptr.asnumpy())
+    raise ValueError("unknown storage type " + stype)
 
 
 def rand_ndarray(shape, stype="default", density=None, dtype=None,
                  distribution="uniform", ctx=None):
     if stype != "default":
-        return rand_sparse_ndarray(shape, stype, density, dtype)
+        arr, _ = rand_sparse_ndarray(shape, stype, density, dtype, ctx=ctx)
+        return arr
     return nd_array(_rng.uniform(size=shape).astype(
         dtype or default_dtype()), ctx=ctx)
 

@@ -247,8 +247,16 @@ def test_unported_parts_name_their_queue_item():
     mod.bind([("data", (2, 16))], [("softmax_label", (2, 16))])
     with pytest.raises(NotPortedYet, match="item 9, observability"):
         mod.install_monitor(object())
-    with pytest.raises(NotPortedYet, match="item 5"):
-        tmx.nd.contrib.SparseEmbedding
+    # sparse storage (item 5) is ported: SparseEmbedding agrees with JAX
+    ids = np.array([[1, 3], [0, 3]], np.float32)
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    got = tmx.nd.contrib.SparseEmbedding(
+        tmx.nd.array(ids, ctx=tmx.cpu()), tmx.nd.array(w, ctx=tmx.cpu()),
+        input_dim=4, output_dim=3)
+    want = jmx.nd.contrib.SparseEmbedding(jmx.nd.array(ids),
+                                          jmx.nd.array(w), input_dim=4,
+                                          output_dim=3)
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
     with pytest.raises(ValueError):
         mod.bind([("data", (2, 16))], shared_module=mod)
 

@@ -32,7 +32,6 @@ import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu.ops import contrib as jax_contrib
 from mxnet_tpu.ops.registry import get_op as jax_get_op
-from mxnet_tpu_torch.base import NotPortedYet
 from mxnet_tpu_torch.ops import kernels
 from mxnet_tpu_torch.ops.registry import get_op
 
@@ -170,5 +169,12 @@ def test_namespaces_carry_the_contrib_names():
                               np.float32), ctx=tmx.cpu())
     out = tmx.nd.contrib.box_nms(x, overlap_thresh=0.5).asnumpy()
     np.testing.assert_array_equal(out[0, 1], -np.ones(6, np.float32))
-    with pytest.raises(NotPortedYet, match="item 5"):
-        tmx.nd.contrib.SparseEmbedding
+    # SparseEmbedding (sparse storage) is in both contrib namespaces now
+    for pkg in (tmx, jmx):
+        assert hasattr(pkg.nd.contrib, "SparseEmbedding")
+        assert hasattr(pkg.sym.contrib, "SparseEmbedding")
+    w = np.arange(10, dtype=np.float32).reshape(5, 2)
+    got = tmx.nd.contrib.SparseEmbedding(
+        tmx.nd.array([4.0, 0.0, 4.0], ctx=tmx.cpu()),
+        tmx.nd.array(w, ctx=tmx.cpu()), input_dim=5, output_dim=2)
+    np.testing.assert_array_equal(got.asnumpy(), w[[4, 0, 4]])

@@ -14,7 +14,8 @@ mxnet_tpu/{metric,io/io}).
   collected.
 * ``NDArrayIter``: ``hard_reset``, ``state_dict`` / ``load_state_dict``
   mid-epoch, ``reshard`` and ``num_parts`` against the JAX package's.
-* ``LibSVMIter`` raises ``NotPortedYet``, naming queue A item 5.
+* ``LibSVMIter`` gives the JAX package's CSR batches (more in
+  ``test_torch_sparse_io.py``).
 """
 import gc
 import gzip
@@ -26,7 +27,6 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import NotPortedYet
 
 
 def _host(pkg, x):
@@ -294,7 +294,17 @@ def test_ndarray_iter_argument_checks_match_jax():
 
 
 def test_libsvm_iter_names_its_queue_item(tmp_path):
+    """LibSVMIter (queue A item 5, now ported) gives the JAX package's
+    CSR batches on this file, the last one padded."""
     path = tmp_path / "d.libsvm"
-    path.write_text("1 0:0.5 3:1.0\n0 1:2.0\n")
-    with pytest.raises(NotPortedYet, match="item 5"):
-        tmx.io.LibSVMIter(str(path), data_shape=(4,), batch_size=1)
+    path.write_text("1 0:0.5 3:1.0\n0 1:2.0\n1 2:0.25\n")
+    got = list(tmx.io.LibSVMIter(str(path), data_shape=(4,), batch_size=2))
+    want = list(jmx.io.LibSVMIter(str(path), data_shape=(4,),
+                                  batch_size=2))
+    assert [b.pad for b in got] == [b.pad for b in want] == [0, 1]
+    for t, j in zip(got, want):
+        assert t.data[0].stype == "csr"
+        np.testing.assert_array_equal(t.data[0].asnumpy(),
+                                      j.data[0].asnumpy())
+        np.testing.assert_array_equal(t.label[0].asnumpy(),
+                                      j.label[0].asnumpy())

@@ -64,6 +64,8 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.context",
                  "mxnet_tpu_torch.ndarray",
                  "mxnet_tpu_torch.ndarray.ndarray",
+                 "mxnet_tpu_torch.ndarray.sparse",
+                 "mxnet_tpu_torch.ops.sparse_storage",
                  "mxnet_tpu_torch.ops.optimizer_ops",
                  "mxnet_tpu_torch.optimizer",
                  "mxnet_tpu_torch.kvstore",

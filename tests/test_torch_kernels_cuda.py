@@ -1849,6 +1849,30 @@ def test_nd_ops_on_card_match_cpu(dev):
                 np.testing.assert_array_equal(a, b)
 
 
+def test_div_scalar_on_card_is_correctly_rounded(dev):
+    """C26: ``_div_scalar`` and ``_rdiv_scalar`` of float32 data on the
+    card give the float32 rounding of the exact quotient, as the JAX op
+    does.  The port divides by a 0-d tensor on the card; a Python scalar
+    divisor would let ATen multiply by its reciprocal there.  Prints how
+    many quotients ``x / s`` with a Python ``s`` gets wrong on the
+    card."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    x = np.random.RandomState(0).uniform(0.1, 100, 20000).astype(np.float32)
+    t = torch.from_numpy(x).to(dev)
+    x64 = x.astype(np.float64)
+    for name, s, exact in (("_div_scalar", 3.0, x64 / 3.0),
+                           ("_div_scalar", 0.1, x64 / np.float64(
+                               np.float32(0.1))),
+                           ("_rdiv_scalar", 3.0, 3.0 / x64)):
+        op = get_op(name)
+        got = op.fn(op.parse_attrs({"scalar": s}), t).cpu().numpy()
+        np.testing.assert_array_equal(got, exact.astype(np.float32), name)
+    raw = (t / 3.0).cpu().numpy()
+    print("torch's x / 3.0 on the card: %d of %d quotients not correctly "
+          "rounded" % ((raw != (x64 / 3.0).astype(np.float32)).sum(),
+                       x.size))
+
+
 def test_out_of_range_ids_on_card_do_not_assert(dev):
     """Embedding, pick and batch_take with ids below -n and at or past n:
     NaN where the CPU gives NaN, no device assert (which would end the

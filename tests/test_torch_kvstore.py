@@ -19,7 +19,7 @@ from mxnet_tpu.ndarray import ndarray as jnd
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch import kvstore as tkv
 from mxnet_tpu_torch import optimizer as topt
-from mxnet_tpu_torch.base import NotPortedYet
+from mxnet_tpu_torch.base import MXNetError, NotPortedYet
 from mxnet_tpu_torch.ndarray import ndarray as tnd
 
 SHAPES = {"w": (6, 5), 3: (7,), "bias": (4,)}
@@ -165,10 +165,12 @@ def test_compressed_push_sends_only_quantized_values():
 
 
 def test_store_refuses_what_is_not_ported():
-    with pytest.raises(NotPortedYet):
+    with pytest.raises(NotPortedYet, match="item 7"):
         tkv.create("dist_sync", device="cpu")
     kv = tkv.create("local", device="cpu")
-    with pytest.raises(NotPortedYet):
+    # row_sparse_pull is ported (test_torch_sparse_storage.py); it needs
+    # its out and row ids
+    with pytest.raises(MXNetError):
         kv.row_sparse_pull("w", out=None, row_ids=None)
     with pytest.raises(Exception):
         kv.set_gradient_compression({"type": "1bit"})
@@ -243,7 +245,6 @@ def test_optimizers_not_ported_raise():
 def test_optimizer_op_attrs_parse_strings_like_values():
     """A Symbol hands the update ops their attrs as strings; they must
     update exactly as from Python floats, and ``lr`` is required."""
-    from mxnet_tpu_torch.base import MXNetError
     rng = np.random.RandomState(5)
     w0, g, m0 = (rng.randn(6, 5).astype(np.float32) for _ in range(3))
     kw = dict(lr=0.1, wd=0.01, momentum=0.9, rescale_grad=0.5,

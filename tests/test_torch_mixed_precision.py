@@ -180,7 +180,7 @@ def test_the_registry_holds_the_six_new_ops():
                "multi_sgd_mom_update", "multi_mp_sgd_update",
                "multi_mp_sgd_mom_update"):
         assert op in names and hasattr(tmx.nd, op)
-    assert len(names) == 363   # with the other optimizers' seven ops, Custom, linalg, spatial, RNN and contrib
+    assert len(names) == 368   # with the other optimizers' seven ops, Custom, linalg, spatial, RNN, contrib and sparse storage
 
 
 @pytest.mark.parametrize("momentum", [0.9, 0.0], ids=["momentum", "plain"])

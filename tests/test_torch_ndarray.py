@@ -270,7 +270,8 @@ def test_clip_where_maximum():
 
 def test_save_load_reference_binary(tmp_path):
     """The reference container, byte for byte: the header, a record's
-    bytes, several dtypes in dict form; a sparse record raises."""
+    bytes, several dtypes in dict form; a sparse record of the JAX
+    package loads as the same row_sparse array."""
     f = str(tmp_path / "x.params")
     with tmx.cpu():
         a = tmx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
@@ -287,22 +288,31 @@ def test_save_load_reference_binary(tmp_path):
     rs = sp.row_sparse_array((np.ones((2, 4), np.float32), [1, 5]),
                              shape=(8, 4))
     jmx.nd.save(f, {"rs": rs})
-    with pytest.raises(NotPortedYet):
-        tmx.nd.load(f, ctx=tmx.cpu())
+    back = tmx.nd.load(f, ctx=tmx.cpu())["rs"]
+    assert back.stype == "row_sparse"
+    assert back.indices.asnumpy().tolist() == [1, 5]
+    np.testing.assert_array_equal(back.asnumpy(), rs.asnumpy())
 
 
 def test_not_ported_parts_raise():
     with tmx.cpu():
         a = tmx.nd.ones((2,))
-        # autograd and mx.nd.contrib are ported (tests/test_torch_
-        # autograd.py, test_torch_contrib_ops.py); sparse storage is not
+        # autograd, mx.nd.contrib and sparse storage are ported (tests/
+        # test_torch_autograd.py, test_torch_contrib_ops.py, test_torch_
+        # sparse_storage.py): tostype and attach_grad(stype=) as in JAX
         assert a.grad is None
         a.attach_grad()
         assert a.grad.asnumpy().tolist() == [0.0, 0.0]
-        for call in (lambda: a.tostype("csr"), lambda: tmx.nd.sparse,
-                     lambda: tmx.nd.contrib.SparseEmbedding,
-                     lambda: a.attach_grad(stype="row_sparse")):
-            with pytest.raises(NotPortedYet):
-                call()
+        j = jmx.nd.ones((2,))
+        for st in ("csr", "row_sparse"):
+            got, want = a.reshape((1, 2)).tostype(st), \
+                j.reshape((1, 2)).tostype(st)
+            assert got.stype == want.stype == st
+            np.testing.assert_array_equal(got.data.asnumpy(),
+                                          want.data.asnumpy())
+        a.attach_grad(stype="row_sparse")    # a dense gradient, as in JAX
+        j.attach_grad(stype="row_sparse")
+        assert a.grad.stype == j.grad.stype == "default"
+        assert tmx.nd.sparse.RowSparseNDArray is tmx.nd.RowSparseNDArray
         with pytest.raises(MXNetError):
             tmx.nd.concat(a, a, dim=0, out=[a, a])

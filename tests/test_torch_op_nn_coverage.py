@@ -4,11 +4,11 @@ conv-net slice and the 7 of the LM slice), each name is the same op as
 the JAX package's aliases say, with the same registry flags
 (``needs_rng``, ``variadic``, ``mode_dependent``, the output counts,
 ``writeback``, ``aux_inputs``) and the same ``params`` keys, every name
-has a parity case in ``torch_cases.py``, and the two registries count
-363 shared names of the JAX package's 368 (all 13 ops of
-``ops/optimizer_ops.py``, the 28 of ``ops/linalg.py``, the 9 of
-``ops/spatial.py``, ``RNN`` and the 39 of ``ops/contrib.py`` among them):
-the 5 left are ``ops/sparse_storage.py``'s."""
+has a parity case in ``torch_cases.py``, and the two registries hold
+the same 368 names (all 13 ops of ``ops/optimizer_ops.py``, the 28 of
+``ops/linalg.py``, the 9 of ``ops/spatial.py``, ``RNN``, the 39 of
+``ops/contrib.py`` and the 5 of ``ops/sparse_storage.py`` among
+them)."""
 import pytest
 
 from mxnet_tpu.ops.registry import get_op as jax_get_op
@@ -41,11 +41,12 @@ def test_the_port_registers_all_but_the_sparse_storage_names():
     jax_names, port_names = set(jax_list_ops()), set(list_ops())
     assert len(jax_names) == 368
     assert not port_names - jax_names, sorted(port_names - jax_names)
-    assert len(port_names) == 363
-    left = jax_names - port_names
-    assert left <= set(jax_module_names("sparse_storage")), sorted(left)
-    assert sorted(left) == ["_contrib_SparseEmbedding", "_sparse_retain",
-                            "_square_sum", "cast_storage", "sparse_retain"]
+    # the sparse-storage names, the last five, came with sparse storage
+    assert len(port_names) == 368
+    assert not jax_names - port_names, sorted(jax_names - port_names)
+    assert {"_contrib_SparseEmbedding", "_sparse_retain", "_square_sum",
+            "cast_storage", "sparse_retain"} <= \
+        set(jax_module_names("sparse_storage"))
 
 
 @pytest.mark.parametrize("name", CONV_NET_NAMES)

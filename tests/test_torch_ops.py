@@ -73,8 +73,10 @@ def test_the_lm_graph_ops_are_registered():
         assert name in list_ops()
     assert get_op("fused_attention") is get_op("_contrib_fused_attention")
     assert "RNN" in list_ops()
+    # ops/sparse_storage.py is ported: cast_storage is the identity
+    assert get_op("cast_storage").name == "cast_storage"
     with pytest.raises(MXNetError):
-        get_op("cast_storage")      # ops/sparse_storage.py is not ported yet
+        get_op("no_such_op")
 
 
 @pytest.mark.parametrize("ishape,code,rev", [

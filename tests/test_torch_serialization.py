@@ -4,14 +4,14 @@ package loads in the other, and both write identical bytes for the same
 dense arrays, in list and in dict form, for every dtype the format has a
 flag for in both (float32, float64, float16, uint8, int32, int8, int64),
 including a 0-d array (stored as shape (1,)) and an empty one.  Sparse
-records raise ``NotPortedYet`` in the port.
+records: ``tests/test_torch_sparse_io.py``.
 """
 import numpy as np
 import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import NotPortedYet
+from mxnet_tpu_torch.base import MXNetError
 
 DTYPES = ["float32", "float64", "float16", "uint8", "int32", "int8",
           "int64"]
@@ -73,7 +73,13 @@ def test_sparse_records_and_arrays_raise(tmp_path):
     f = str(tmp_path / "sparse.params")
     csr = sp.csr_matrix(np.array([[0, 1.0], [2.0, 0]], np.float32))
     jmx.nd.save(f, [csr])
-    with pytest.raises(NotPortedYet):
-        tmx.nd.load(f, ctx=tmx.cpu())
-    with pytest.raises(NotPortedYet):
+    # sparse records are ported: the JAX package's file loads as the same
+    # CSR array, and the port writes the same bytes for it
+    (back,) = tmx.nd.load(f, ctx=tmx.cpu())
+    assert back.stype == "csr"
+    np.testing.assert_array_equal(back.asnumpy(), csr.asnumpy())
+    g = str(tmp_path / "port.params")
+    tmx.nd.save(g, [back])
+    assert open(g, "rb").read() == open(f, "rb").read()
+    with pytest.raises(MXNetError):      # another package's array
         tmx.nd.save(f, [csr])

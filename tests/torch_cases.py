@@ -33,10 +33,10 @@ the last bits.  Random ops (``random=True``) are compared by shape,
 dtype and same-seed reproducibility, never by value.
 
 Ties: ``argmax``/``argmin`` return the first of equal values in both
-packages; ``topk`` orders equal values as ``torch.topk`` does, which need
-not be ``jax.lax.top_k``'s order, so its cases draw tie-free inputs;
-``sort`` and ``argsort`` are stable in both, and the ``argsort`` and
-``sort:desc`` cases hold ties on purpose.
+packages; ``topk``, ``sort`` and ``argsort`` are stable in both (the
+lower index first among ties, as ``jax.lax.top_k`` orders them), and the
+``topk:ties-*``, ``argsort`` and ``sort:desc`` cases hold ties on
+purpose.
 """
 import os
 import zlib
@@ -169,12 +169,116 @@ def _edge_cases():
          _i32([64, 65, 127, 100, 1000, 64, 67, 129])])
     c["broadcast_power:int-neg"] = lambda rs: _case(
         [_i32([[-3], [0], [2], [5]]), _i32([[-3, -1, 0, 2, 64]])])
+    c.update(_topk_cases())
+    c.update(_x64_dtype_cases())
+    return c
+
+
+_TOPK_TIES = [[2, 2, 0, 6, 2, 0], [1, 1, 1, 0, 0, 3]]
+
+
+def _topk_cases():
+    """C24: ``topk`` over ties, NaN and uint8 data, in the JAX op's order
+    (the lower index first among ties, either direction; NaN first
+    descending and last ascending; uint8 negated in its dtype when
+    ascending, so it wraps as the JAX op's does)."""
+    c = {}
+    for asc in (False, True):
+        d = "asc" if asc else "desc"
+        for rt in ("indices", "value", "both", "mask"):
+            c["topk:ties-%s-%s" % (d, rt)] = lambda rs, asc=asc, rt=rt: \
+                _case([_f32(_TOPK_TIES)], dict(k=3, is_ascend=asc,
+                                               ret_typ=rt))
+        for rt in ("both", "mask"):
+            c["topk:ties-uint8-%s-%s" % (d, rt)] = \
+                lambda rs, asc=asc, rt=rt: _case(
+                    [np.asarray(_TOPK_TIES, np.uint8)],
+                    dict(k=3, is_ascend=asc, ret_typ=rt))
+        c["topk:nan-" + d] = lambda rs, asc=asc: _case(
+            [_f32([[1, _NAN, 3, _NAN, 0, 3], [_NAN, 2, 2, -1, _NAN, 5]])],
+            dict(k=4, is_ascend=asc, ret_typ="both"))
+    c["topk:ties-axis0"] = lambda rs: _case(
+        [_f32(_TOPK_TIES).T.copy()], dict(axis=0, k=2, ret_typ="both"))
+    return c
+
+
+def _x64_dtype_cases():
+    """C25 and C27: matrix products of two dtypes promote; integer norms,
+    true divisions with a 64-bit integer, uint8 sums and products, and a
+    uint8 FFT take the JAX op's x64 dtypes (the FFT saturating)."""
+    c = {}
+    rs0 = np.random.RandomState(25)
+    a, b = rs0.randn(3, 4), rs0.randn(4, 5)
+    mixes = (("f64-f32", "float64", "float32"),
+             ("f16-f32", "float16", "float32"),
+             ("int-f32", "int32", "float32"),
+             ("f32-int64", "float32", "int64"))
+    for tag, da, db in mixes:
+        ints = lambda x, dt: np.round(x * 3).astype(dt) \
+            if dt.startswith("int") else x.astype(dt)  # noqa: E731
+        c["dot:" + tag] = lambda rs, da=da, db=db: _case(
+            [ints(a, da), ints(b, db)], tol=ARITH)
+        c["batch_dot:" + tag] = lambda rs, da=da, db=db: _case(
+            [ints(a, da)[None], ints(b, db)[None]], tol=ARITH)
+    for dt in ("int8", "int32", "int64", "uint8"):
+        x = lambda dt=dt: np.abs(_INTS).astype(dt) if dt == "uint8" \
+            else _INTS.astype(dt)  # noqa: E731
+        c["norm:axis-" + dt] = lambda rs, x=x: _case([x()], dict(axis=1),
+                                                     tol=ARITH)
+    c["norm:axis-ord1-uint8"] = lambda rs: _case(
+        [np.abs(_INTS).astype(np.uint8)], dict(axis=1, ord=1))
+    for dt in ("int32", "int8", "uint8"):
+        for n in ("broadcast_div", "elemwise_div", "_div"):
+            c["%s:%s-int64" % (n, dt)] = lambda rs, dt=dt: _case(
+                [(np.abs(_INTS) + 1).astype(dt),
+                 _i32([[3, 2, 7], [1, 5, 2]]).astype(np.int64)], tol=ARITH)
+        c["broadcast_div:int64-" + dt] = lambda rs, dt=dt: _case(
+            [_INTS.astype(np.int64), (np.abs(_INTS[:1]) + 2).astype(dt)],
+            tol=ARITH)
+    u8 = np.asarray([[200, 7, 0, 255], [3, 100, 9, 1], [11, 0, 250, 4]],
+                    np.uint8)
+    for n in ("sum", "sum_axis", "prod", "nansum", "nanprod", "square_sum"):
+        c[n + ":uint8"] = lambda rs: _case([u8], dict(axis=1))
+    c["sum:uint8-all"] = lambda rs: _case([u8])
+    c["_contrib_fft:uint8"] = lambda rs: _case(
+        [np.asarray([[3, 0, 9, 1], [250, 7, 0, 200]], np.uint8)])
+    return c
+
+
+def _linalg_cases():
+    """C25: the linalg products of two dtypes promote, as their JAX ops
+    do (float64 x float32, float16 x float32, int x float)."""
+    c = {}
+    rs0 = np.random.RandomState(26)
+    a, b, m = rs0.randn(3, 4), rs0.randn(4, 5), rs0.randn(3, 5)
+    tri = np.tril(rs0.randn(3, 3)) + 3 * np.eye(3)
+    for tag, da, db in (("f64-f32", "float64", "float32"),
+                        ("f16-f32", "float16", "float32"),
+                        ("f32-f64", "float32", "float64"),
+                        ("int-f32", "int32", "float32")):
+        cv = lambda x, dt: np.round(x * 3).astype(dt) \
+            if dt.startswith("int") else x.astype(dt)  # noqa: E731
+        c["_linalg_gemm:" + tag] = lambda rs, da=da, db=db: _case(
+            [cv(a, da), cv(b, db), cv(m, db)], dict(alpha=0.5, beta=2.0),
+            tol=ARITH)
+        c["_linalg_gemm2:" + tag] = lambda rs, da=da, db=db: _case(
+            [cv(a, da), cv(b, db)], dict(alpha=1.5), tol=ARITH)
+        c["_linalg_trmm:" + tag] = lambda rs, da=da, db=db: _case(
+            [cv(tri, da), cv(m, db)], dict(alpha=0.25), tol=ARITH)
     return c
 
 
 # the JAX module of each op name with an edge case outside elemwise
 _EDGE_MODULE = {"Embedding": "matrix", "pick": "matrix",
-                "batch_take": "matrix", "broadcast_mod": "broadcast_reduce",
+                "batch_take": "matrix", "topk": "matrix", "dot": "matrix",
+                "batch_dot": "matrix", "norm": "broadcast_reduce",
+                "broadcast_div": "broadcast_reduce",
+                "sum": "broadcast_reduce", "sum_axis": "broadcast_reduce",
+                "prod": "broadcast_reduce", "nansum": "broadcast_reduce",
+                "nanprod": "broadcast_reduce",
+                "square_sum": "broadcast_reduce",
+                "_contrib_fft": "contrib",
+                "broadcast_mod": "broadcast_reduce",
                 "broadcast_hypot": "broadcast_reduce",
                 "broadcast_power": "broadcast_reduce",
                 "L2Normalization": "broadcast_reduce"}
@@ -1086,11 +1190,39 @@ def _contrib_cases():
     return c
 
 
+def _sparse_storage_cases():
+    """The five names of ``ops/sparse_storage.py``: their dense semantics
+    in a graph (``cast_storage`` the identity, ``sparse_retain`` zeroing
+    the rows not asked for, ``_square_sum`` a fused reduce,
+    ``_contrib_SparseEmbedding`` a gather whose gradient is dense)."""
+    c = {}
+    for st in ("default", "row_sparse", "csr"):
+        c["cast_storage:" + st] = lambda rs, st=st: _case(
+            [_any(rs, 4, 3)], dict(stype=st), grad=[0])
+    for n in ("_sparse_retain", "sparse_retain"):
+        c[n] = lambda rs: _case([_any(rs, 6, 2, 3), _f32([4, 0, 4, 9])],
+                                grad=[0])
+    c["_sparse_retain:empty"] = lambda rs: _case(
+        [_any(rs, 5, 3), np.zeros((0,), np.float32)])
+    for n in ("_square_sum", "square_sum"):
+        c[n + ":sparse"] = lambda rs: _case([_any(rs, 4, 3)],
+                                            dict(axis=(1,), keepdims=True),
+                                            grad=[0], tol=ARITH)
+    c["_square_sum:all"] = lambda rs: _case([_any(rs, 3, 2, 4)], grad=[0],
+                                            tol=ARITH)
+    c["_contrib_SparseEmbedding"] = lambda rs: _case(
+        [_f32([[1, 4, 1], [0, 9, 4]]), _any(rs, 10, 5)],
+        dict(input_dim=10, output_dim=5), grad=[1])
+    return c
+
+
 # module of the JAX package -> {case key: builder}
 OP_MODULES = {"elemwise": _elemwise_cases(), "init_ops": _init_cases(),
               "broadcast_reduce": _broadcast_reduce_cases(),
               "matrix": _matrix_cases(), "random_ops": _random_cases(),
-              "nn": _nn_cases(), "contrib": _contrib_cases()}
+              "nn": _nn_cases(), "contrib": _contrib_cases(),
+              "linalg": _linalg_cases(),
+              "sparse_storage": _sparse_storage_cases()}
 for _key, _build in _edge_cases().items():
     OP_MODULES[_EDGE_MODULE.get(_key.split(":")[0], "elemwise")][_key] = \
         _build
