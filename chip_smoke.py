@@ -7679,6 +7679,603 @@ def phase_sparse(torch, mx, kernels, card):
     return launches, rows
 
 
+# -- phase 37: data IO, the feed of the three training paths -----------------
+
+# ImageNet's records as example/image_classification/train_imagenet.py:
+# 129-136 reads them: JPEGs stored at short side 256 (256x341), quality
+# 95, 1000 classes; a random 224x224 crop and mirror, batch 32, no mean
+# or std (the script sets none), preprocess_threads = the host's cores.
+# Seeded smooth scenes (tools/make_jpeg_fixture.py) stand in for the
+# photographs, which are not in the repository.  Each fit runs 13 steps:
+# 2 warm-up, 10 timed (CUDA events at batch end), 1 profiled (the first
+# fed turn only); fed and in-memory fits take turns.
+FEED = dict(records=1280, batch=32, classes=1000, warm=2, timed=10,
+            turns=2, rate_batches=8)
+# the training check: a fresh Module over the first 64 records (2
+# batches, center crop, no mirror) at lr 0.01; the metric's cross-entropy
+# of the last epoch must lie the margin below the first's
+FEED_CHECK = dict(parts=20, epochs=8, lr=0.01, margin=0.5)
+# SSD's records: phase 34's seeded scenes as JPEGs with MXNet's detection
+# header, through ImageDetIter and CreateDetAugmenter at SSD's recipe
+DET_FEED = dict(records=128, batch=32, hw=300, steps=6, quality=95)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def feed_fixture_tool(here):
+    """tools/make_jpeg_fixture.py (the scenes and the fixture's format)."""
+    sys.path.insert(0, os.path.join(here, "tools"))
+    import make_jpeg_fixture
+    return make_jpeg_fixture
+
+
+def pack_records(mx, prefix, make, n):
+    """``make(i)`` -> (label, HWC uint8 image) for i < n, encoded by
+    ``recordio.pack_img`` at quality 95 on every core, written to
+    prefix.rec / prefix.idx; returns the JPEG bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        label, img = make(i)
+        return mx.recordio.pack_img(mx.recordio.IRHeader(0, label, i, 0),
+                                    img, quality=95)
+
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        recs = list(ex.map(one, range(n)))
+    w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec", "w")
+    for i, r in enumerate(recs):
+        w.write_idx(i, r)
+    w.close()
+    return sum(len(r) for r in recs)
+
+
+def decoder_check(mx, here, tmp, card):
+    """The decoders this host has against the committed fixture (16 JPEGs
+    at 256x341, quality 95, and the JAX package's PIL pixels): PIL's
+    ``imdecode`` directly, and the native backend through its iterator
+    at the fixture's own size with no crop, mirror or normalisation.
+    Tolerance: 3 levels of 255 (libjpeg-turbo on both sides decodes the
+    same stream bit for bit; other IDCTs and chroma upsampling differ by
+    a few levels).  Returns (the decoder's name, why the native plane
+    cannot build here or None)."""
+    import PIL
+    from PIL import features
+    from mxnet_tpu_torch.io import native
+    fx = np.load(os.path.join(here, "tests", "fixtures", "jpeg_fixture.npz"))
+    jpeg, off, pix = fx["jpeg"], fx["offsets"], fx["pixels"]
+    streams = [jpeg[off[i]:off[i + 1]].tobytes() for i in range(len(pix))]
+    mx.image.imdecode(streams[0])
+    t0 = time.perf_counter()
+    got = [mx.image.imdecode(s).asnumpy() for s in streams]
+    dec_ms = (time.perf_counter() - t0) / len(streams) * 1e3
+    pil_err = max(int(np.abs(g.astype(int) - p).max())
+                  for g, p in zip(got, pix))
+    name = "PIL %s (libjpeg-turbo %s)" % (PIL.__version__,
+                                          features.version("libjpeg_turbo"))
+    why = native.why_not_native()
+    nat = "not built on this host: %s" % why
+    if why is None:
+        prefix = os.path.join(tmp, "fixture")
+        w = mx.recordio.MXIndexedRecordIO(prefix + ".idx", prefix + ".rec",
+                                          "w")
+        for i, s in enumerate(streams):
+            w.write_idx(i, mx.recordio.pack(
+                mx.recordio.IRHeader(0, float(i), i, 0), s))
+        w.close()
+        it = mx.io.ImageRecordIter(path_imgrec=prefix + ".rec",
+                                   data_shape=(3,) + pix.shape[1:3],
+                                   batch_size=len(pix))
+        check(it._native is not None, "the native plane builds here but "
+              "ImageRecordIter chose the Python path")
+        nat_err = float(np.abs(it.next().data[0].asnumpy()
+                               - pix.transpose(0, 3, 1, 2)).max())
+        nat = "max |diff| %g levels" % nat_err
+        check(nat_err <= 3, "the native decode is %g levels off the "
+              "fixture" % nat_err)
+    log("37 decoders: imdecode is %s: %.2f ms a 256x341 JPEG, max |diff| "
+        "%d levels against the fixture's pixels (tolerance 3); native "
+        "libjpeg backend: %s [%s]" % (name, dec_ms, pil_err, nat, card))
+    check(pil_err <= 3, "imdecode is %d levels off the fixture" % pil_err)
+    return name, why
+
+
+def record_iter(mx, prefix, native_io, **kw):
+    """train_imagenet.py's ImageRecordIter over prefix.rec, on the backend
+    asked for ("1"/"0") or by the JAX package's rule (None)."""
+    args = dict(path_imgrec=prefix + ".rec", data_shape=(3, 224, 224),
+                batch_size=FEED["batch"], shuffle=True, rand_crop=True,
+                rand_mirror=True, preprocess_threads=os.cpu_count())
+    args.update(kw)
+    old = os.environ.pop("MXNET_TPU_NATIVE_IO", None)
+    if native_io is not None:
+        os.environ["MXNET_TPU_NATIVE_IO"] = native_io
+    try:
+        return mx.io.ImageRecordIter(**args)
+    finally:
+        os.environ.pop("MXNET_TPU_NATIVE_IO", None)
+        if old is not None:
+            os.environ["MXNET_TPU_NATIVE_IO"] = old
+
+
+def iterator_rates(mx, prefix, backends, card):
+    """The iterator alone: images/s and host ms per next() over
+    FEED["rate_batches"] batches after one, per backend and thread
+    count."""
+    out = {}
+    for backend in backends:
+        for threads in sorted({1, 4, os.cpu_count()}):
+            it = record_iter(mx, prefix, "1" if backend == "native" else "0",
+                             preprocess_threads=threads)
+            it.next()
+            t0 = time.perf_counter()
+            for _ in range(FEED["rate_batches"]):
+                it.next()
+            s = time.perf_counter() - t0
+            out[(backend, threads)] = (FEED["rate_batches"] * FEED["batch"]
+                                       / s, s / FEED["rate_batches"] * 1e3)
+            del it
+    log("37a ImageRecordIter alone (224x224 random crop and mirror, batch "
+        "%d, %d batches after one): %s [%s]"
+        % (FEED["batch"], FEED["rate_batches"], "; ".join(
+            "%s %d thread(s) %.0f images/s (%.1f ms a next())"
+            % (b, t, r, ms) for (b, t), (r, ms) in out.items()), card))
+    return out
+
+
+# the host-side range that marks the profiled fed step in 37a's trace
+FED_STEP_MARK = "chip_smoke profiled fed step"
+
+
+def profile_copies(prof, trace_path):
+    """(device busy ms, every host-to-device copy as (kind, bytes, ms,
+    whether it overlapped a kernel)) of the step that FED_STEP_MARK spans,
+    read from the trace the profiler exports to ``trace_path``: its copies
+    carry their bytes there, and its device events are kept only inside
+    the mark (the tracer's warm-up step is in the trace too)."""
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as fh:
+        events = [ev for ev in json.load(fh).get("traceEvents", [])
+                  if ev.get("ph") == "X"]
+    marks = [(float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+             for ev in events if ev.get("name") == FED_STEP_MARK
+             and not ev.get("cat", "").startswith("gpu")]
+    check(len(marks) == 1, "the profiled fed step's trace holds %d marks"
+          % len(marks))
+    lo, hi = marks[0]
+    kernels_iv, copies, busy = [], [], 0.0
+    for ev in events:
+        cat = ev.get("cat")
+        a = float(ev["ts"])
+        b = a + float(ev.get("dur", 0))
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset") \
+                or not lo <= a <= hi:
+            continue
+        busy += (b - a) / 1e3
+        if cat == "kernel":
+            kernels_iv.append((a, b))
+        elif ev.get("name", "").startswith("Memcpy HtoD"):
+            copies.append((ev["name"], int(ev.get("args", {}).get(
+                "bytes", -1)), (a, b)))
+    return busy, [(name, nbytes, (b - a) / 1e3,
+                   any(a < d and c < b for c, d in kernels_iv))
+                  for name, nbytes, (a, b) in copies]
+
+
+def feed_resnet(torch, mx, prefix, backends, card):
+    """37a: ResNet-50 f32 through Module.fit fed by ImageRecordIter, in
+    turns with the same Module fed by NDArrayIter over batches already
+    decoded; the bound batch against the host batch; the profiled step's
+    idle share and copies; the training check."""
+    from mxnet_tpu_torch.models import resnet
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    f = FEED
+    # the timed steps, then one step of the profiler's warm-up and the
+    # profiled step
+    steps = f["warm"] + f["timed"] + 2
+    it = record_iter(mx, prefix, None)
+    chosen = "native" if it._native is not None else "python"
+    check(chosen == backends[-1], "ImageRecordIter chose the %s backend "
+          "where %s builds" % (chosen, backends[-1]))
+    # the in-memory turns' batches: 13 of the iterator's own, decoded once
+    xs, ys = [], []
+    for _ in range(steps):
+        b = it.next()
+        xs.append(b.data[0].asnumpy())
+        ys.append(b.label[0].asnumpy())
+    it.reset()
+    mem = mx.io.NDArrayIter(np.concatenate(xs), np.concatenate(ys),
+                            batch_size=f["batch"], label_name="softmax_label")
+    host_next = []
+    orig_next = it.next
+
+    def timed_next():
+        t0 = time.perf_counter()
+        try:
+            return orig_next()
+        finally:
+            host_next.append((time.perf_counter() - t0) * 1e3)
+
+    it.next = timed_next
+    fed = mx.io.ResizeIter(it, steps)
+    torch.backends.cudnn.benchmark = True
+    net = resnet.get_symbol(**RESNET50)
+    mod = mx.mod.Module(net)
+    kv = mx.kv.create("device")
+    params = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+              "rescale_grad": 1.0 / f["batch"]}
+    init = mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                          magnitude=2)
+    mx.random.seed(0)
+    state = {}
+
+    def fit(train, tag, first):
+        ev = []
+
+        def on_batch(p):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append(e)
+            if first and len(ev) == steps - 2:
+                # the tracer warms up over one step, so that it records
+                # from the profiled step's first operation, its batch copy
+                state["prof"] = profile(
+                    activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA],
+                    schedule=schedule(wait=0, warmup=1, active=1, repeat=1))
+                state["prof"].__enter__()
+            elif first and len(ev) == steps - 1:
+                torch.cuda.synchronize()
+                state["prof"].step()
+                state["mark"] = record_function(FED_STEP_MARK)
+                state["mark"].__enter__()
+                state["t0"] = time.perf_counter()
+            elif first and len(ev) == steps:
+                torch.cuda.synchronize()
+                state["wall"] = (time.perf_counter() - state["t0"]) * 1e3
+                state["mark"].__exit__(None, None, None)
+                state["prof"].step()
+                state["prof"].__exit__(None, None, None)
+            if tag == "fed" and len(ev) == steps:
+                bound = mod._exec_group.execs[0].arg_dict["data"]
+                state["bound_equal"] = bool(np.array_equal(
+                    bound.asnumpy(), p.locals["batch"].data[0].asnumpy()))
+
+        mod.fit(train, kvstore=kv, optimizer="sgd",
+                optimizer_params=dict(params), initializer=init,
+                eval_metric=mx.metric.CrossEntropy(),
+                batch_end_callback=on_batch, num_epoch=1)
+        torch.cuda.synchronize()
+        check(len(ev) == steps, "%s fit ran %d steps" % (tag, len(ev)))
+        return [a.elapsed_time(b) for a, b in
+                zip(ev[f["warm"] - 1:f["warm"] + f["timed"] - 1],
+                    ev[f["warm"]:f["warm"] + f["timed"]])]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    turns = {"fed": [], "memory": []}
+    for k in range(f["turns"]):
+        turns["fed"].append(fit(fed, "fed", k == 0))
+        turns["memory"].append(fit(mem, "memory", False))
+    peak = torch.cuda.max_memory_allocated()
+    med = {tag: [statistics.median(ms) for ms in runs]
+           for tag, runs in turns.items()}
+    busy, copies = profile_copies(state["prof"], os.path.join(
+        os.path.dirname(prefix), "fed_step_trace.json"))
+    batch_bytes = f["batch"] * 3 * 224 * 224 * 4
+    data_copy = [c for c in copies if c[1] == batch_bytes]
+    log("37a ResNet-50 NCHW 224x224 batch %d f32 through Module.fit "
+        "(KVStore('device'), SGD lr 0.1 momentum 0.9 wd 1e-4; cuDNN, TF32 "
+        "off), fed by ImageRecordIter (%s backend, %d decode threads, "
+        "each batch in fresh pinned buffers) in turns with NDArrayIter "
+        "over decoded "
+        "batches: median step ms (CUDA events at batch end, steps %d-%d) "
+        "fed %s, in memory %s; the feed costs %.2f ms a step (%.1f vs "
+        "%.1f images/s) [%s]"
+        % (f["batch"], chosen, os.cpu_count(), f["warm"] + 1,
+           f["warm"] + f["timed"],
+           " / ".join("%.2f" % m for m in med["fed"]),
+           " / ".join("%.2f" % m for m in med["memory"]),
+           statistics.median(med["fed"]) - statistics.median(med["memory"]),
+           f["batch"] / statistics.median(med["fed"]) * 1e3,
+           f["batch"] / statistics.median(med["memory"]) * 1e3, card))
+    log("  fed step times: %s; host ms in next() inside fit: median %.2f "
+        "(max %.2f); profiled fed step %d: device busy %.2f ms of %.2f ms, "
+        "idle share %.3f; its host-to-device copies: %s; peak memory %.2f "
+        "GB [%s]"
+        % (" | ".join(", ".join("%.1f" % x for x in ms)
+                      for ms in turns["fed"]),
+           statistics.median(host_next), max(host_next), steps, busy,
+           state["wall"], 1 - busy / state["wall"],
+           "; ".join("%s %d bytes %.3f ms (%.1f GB/s), %s a kernel"
+                     % (name, nb, ms, nb / ms / 1e6 if ms else 0.0,
+                        "overlapping" if ov else "not overlapping")
+                     for name, nb, ms, ov in copies) or "none recorded",
+           peak / 1e9, card))
+    check(state.get("bound_equal"), "the bound data array differs from "
+          "the iterator's host batch")
+    check(0 < busy <= state["wall"], "the profiled fed step's device busy "
+          "time %.2f ms is not within its %.2f ms" % (busy, state["wall"]))
+    check(len(data_copy) == 1, "the profiled fed step holds %d copies of "
+          "the %d-byte data batch (its copies: %s)"
+          % (len(data_copy), batch_bytes, copies))
+    check("Pinned -> Device" in data_copy[0][0], "the fed step's data "
+          "batch went up as %r, not from pinned memory" % data_copy[0][0])
+    del mod, kv
+    torch.cuda.empty_cache()
+    # the training check: a fresh Module, the first 64 records, no random
+    # augmentation, lr 0.01
+    c = FEED_CHECK
+    small = record_iter(mx, prefix, None, shuffle=False, rand_crop=False,
+                        rand_mirror=False, num_parts=c["parts"],
+                        part_index=0)
+    ces = []
+    metric = mx.metric.CrossEntropy()
+    mod = mx.mod.Module(net)
+    mx.random.seed(0)
+    mod.fit(small, kvstore=mx.kv.create("device"), optimizer="sgd",
+            optimizer_params={"learning_rate": c["lr"], "momentum": 0.9,
+                              "wd": 1e-4, "rescale_grad": 1.0 / f["batch"]},
+            initializer=init, eval_metric=metric,
+            epoch_end_callback=lambda *a: ces.append(metric.get()[1]),
+            num_epoch=c["epochs"])
+    log("37a training check: a fresh Module over the first %d records "
+        "(center crop, no mirror) at lr %g: cross-entropy by epoch %s; "
+        "must fall by %g [%s]"
+        % (f["records"] // c["parts"], c["lr"],
+           ", ".join("%.3f" % x for x in ces), c["margin"], card))
+    check(np.all(np.isfinite(ces)) and ces[-1] <= ces[0] - c["margin"],
+          "37a: the fed ResNet-50 did not learn its 64 records")
+    del mod
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return med
+
+
+def native_agreement(mx, prefix, card):
+    """Where the native plane builds: both backends on the deterministic
+    configuration (center crop, mean and std) within the JAX test's bound
+    (tests/test_record_iter.py: 2/255 scaled by the std)."""
+    kw = dict(shuffle=False, rand_crop=False, rand_mirror=False,
+              mean_r=123.68, mean_g=116.28, mean_b=103.53, std_r=58.395,
+              std_g=57.12, std_b=57.375, num_parts=FEED_CHECK["parts"],
+              part_index=0)
+    got = {}
+    for backend in ("1", "0"):
+        it = record_iter(mx, prefix, backend, **kw)
+        got[backend] = np.concatenate([b.data[0].asnumpy() for b in it])
+    err = float(np.abs(got["1"] - got["0"]).max())
+    bound = 2.0 / 57.12 + 1e-5
+    log("37a native vs Python backend, %d records, center crop, mean and "
+        "std: max |diff| %.6f (bound %.6f) [%s]"
+        % (len(got["0"]), err, bound, card))
+    check(err < bound, "the backends disagree by %g" % err)
+
+
+class CudaProbe:
+    """A dataset that loads and transforms its base's item, then gives
+    the worker's ``torch.cuda.is_initialized()`` and pid."""
+
+    def __init__(self, base, n):
+        self.base, self.n = base, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        import torch
+        self.base[i]
+        return np.array([float(torch.cuda.is_initialized()),
+                         float(os.getpid())])
+
+
+def feed_gluon(torch, mx, prefix, card):
+    """37b: ImageRecordDataset over 37a's records with RandomResizedCrop,
+    flip, ToTensor and Normalize through DataLoader's worker processes
+    (and threads), feeding 31c's resnet50_v1 and Trainer in turns with
+    31c's in-memory batch."""
+    f = FEED
+    T = mx.gluon.data.vision.transforms
+    ds = mx.gluon.data.vision.ImageRecordDataset(prefix + ".rec") \
+        .transform_first(T.Compose([T.RandomResizedCrop(224),
+                                    T.RandomFlipLeftRight(), T.ToTensor(),
+                                    T.Normalize(IMAGENET_MEAN,
+                                                IMAGENET_STD)]))
+    workers = min(8, os.cpu_count())
+
+    def loader(tw, dataset=ds):
+        return mx.gluon.data.DataLoader(dataset, batch_size=f["batch"],
+                                        shuffle=True, last_batch="discard",
+                                        num_workers=workers,
+                                        thread_workers=tw)
+
+    rates = {}
+    for tw in (False, True):
+        ld = loader(tw)
+        batches = iter(ld)
+        next(batches)
+        t0 = time.perf_counter()
+        for _ in range(f["rate_batches"]):
+            next(batches)
+        rates["threads" if ld._thread_workers else "processes"] = \
+            f["rate_batches"] * f["batch"] / (time.perf_counter() - t0)
+        batches.close()
+    probe = np.concatenate([b.asnumpy() for b in mx.gluon.data.DataLoader(
+        CudaProbe(ds, 4 * workers), batch_size=4, num_workers=workers,
+        thread_workers=False)])
+    pids = set(probe[:, 1].astype(int))
+    log("37b DataLoader alone (batch %d, %d workers, RandomResizedCrop "
+        "224, flip, ToTensor, Normalize): %s; %d worker process(es) "
+        "reported torch.cuda.is_initialized(): %s [%s]"
+        % (f["batch"], workers, ", ".join("%s %.0f images/s" % kv_
+                                          for kv_ in rates.items()),
+           len(pids), sorted(set(bool(v) for v in probe[:, 0])), card))
+    check(not probe[:, 0].any() and os.getpid() not in pids,
+          "a DataLoader worker initialised CUDA")
+    torch.backends.cudnn.benchmark = True
+    rs = np.random.RandomState(0)
+    X = mx.nd.array(rs.randn(f["batch"], 3, 224, 224).astype(np.float32),
+                    ctx=mx.gpu(0))
+    Y = mx.nd.array(rs.randint(0, 1000, f["batch"]).astype(np.float32),
+                    ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mx.random.seed(0)
+    net = gluon_resnet50_net(mx, X)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9,
+                                "wd": 1e-4})
+    steps = f["warm"] + f["timed"] + 1
+    losses = []
+
+    def run(tag):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        source = iter(loader(False)) if tag == "fed" else None
+        for _ in range(steps):
+            if source is None:
+                x, y = X, Y
+            else:
+                xb, yb = next(source)
+                x = xb.as_in_context(mx.gpu(0))
+                y = yb.as_in_context(mx.gpu(0)).astype(np.float32)
+            loss = gluon_step(mx, net, trainer, loss_fn, x, y, f["batch"])
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append(e)
+        if source is not None:
+            source.close()
+        torch.cuda.synchronize()
+        losses.append(float(loss.asnumpy().mean()))
+        return [a.elapsed_time(b) for a, b in
+                zip(ev[f["warm"]:f["warm"] + f["timed"]],
+                    ev[f["warm"] + 1:f["warm"] + f["timed"] + 1])]
+
+    med = {"fed": [], "memory": []}
+    for _ in range(f["turns"]):
+        for tag in ("fed", "memory"):
+            med[tag].append(statistics.median(run(tag)))
+    log("37b Gluon resnet50_v1 224x224 batch %d f32 (hybridized; Trainer "
+        "sgd lr 0.1 momentum 0.9 wd 1e-4) fed by the DataLoader's %d "
+        "worker processes, in turns with 31c's batch on the card: median "
+        "step ms fed %s, in memory %s (%.1f vs %.1f images/s); last "
+        "losses %s [%s]"
+        % (f["batch"], workers, " / ".join("%.2f" % m for m in med["fed"]),
+           " / ".join("%.2f" % m for m in med["memory"]),
+           f["batch"] / statistics.median(med["fed"]) * 1e3,
+           f["batch"] / statistics.median(med["memory"]) * 1e3,
+           ", ".join("%.3f" % x for x in losses), card))
+    check(np.all(np.isfinite(losses)), "37b: a non-finite loss")
+    del net, trainer
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return med, rates
+
+
+def feed_ssd(torch, mx, kernels, tmp, card):
+    """37c: 128 of phase 34's seeded scenes as JPEGs with MXNet's
+    detection header, through ImageDetIter at SSD's recipe into phase
+    34's Module.fit for 6 steps."""
+    import torch_cases as tc
+    from mxnet_tpu_torch.models import ssd
+    d = DET_FEED
+    X, Y = tc.ssd_scenes(d["records"], d["hw"], SSD_DATA["rows"],
+                         SSD["num_classes"], 0, max_obj=SSD_DATA["max_obj"])
+
+    def make(i):
+        rows = Y[i][Y[i][:, 0] >= 0]
+        img = np.clip(np.round((X[i].transpose(1, 2, 0) + 0.9) / 1.8 * 255),
+                      0, 255).astype(np.uint8)
+        return np.concatenate([[2.0, 5.0], rows.ravel()]), img
+
+    prefix = os.path.join(tmp, "ssd")
+    nbytes = pack_records(mx, prefix, make, d["records"])
+    kw = dict(batch_size=d["batch"], data_shape=(3, d["hw"], d["hw"]),
+              path_imgrec=prefix + ".rec", rand_crop=0.5, rand_pad=0.5,
+              rand_mirror=True, mean=True, std=True, shuffle=True)
+    it = mx.image.ImageDetIter(**kw)
+    t0 = time.perf_counter()
+    n = 0
+    for b in it:
+        lab = b.label[0].asnumpy()
+        n += d["batch"] - b.pad
+    rate = n / (time.perf_counter() - t0)
+    it.reset()
+    shape = it.provide_label[0].shape
+    check(lab.shape == shape and shape[2] == 5
+          and shape[1] == int((Y[:, :, 0] >= 0).sum(1).max()),
+          "ImageDetIter's label is %s, provide_label %s" % (lab.shape, shape))
+    pad_rows = lab[:, :, 0] < 0
+    check((lab[pad_rows] == -1).all() and pad_rows.any()
+          and (~pad_rows).any(1).all(),
+          "ImageDetIter's -1 padding is wrong")
+    mod = mx.mod.Module(ssd.get_symbol_train(**SSD), data_names=("data",),
+                        label_names=("label",))
+    ev = []
+
+    def on_batch(p):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ev.append(e)
+
+    torch.backends.cudnn.benchmark = True
+    mx.random.seed(0)
+    before = kernels.LAUNCHES["greedy_nms_f64"]
+    metric = mx.metric.Loss(output_names=["loc_loss_output"], label_names=[])
+    mod.fit(mx.io.ResizeIter(it, d["steps"]), optimizer="sgd",
+            optimizer_params=dict(SSD_SGD), initializer=mx.init.Xavier(),
+            eval_metric=metric, batch_end_callback=on_batch, num_epoch=1)
+    torch.cuda.synchronize()
+    nms = kernels.LAUNCHES["greedy_nms_f64"] - before
+    ms = [a.elapsed_time(b) for a, b in zip(ev[1:-1], ev[2:])]
+    loc = metric.get()[1]
+    log("37c SSD 300x300 batch %d through Module.fit fed by ImageDetIter "
+        "(%d records, %.1f KB a JPEG; rand_crop 0.5, rand_pad 0.5, mirror, "
+        "ImageNet mean and std; label %s padded with -1): the iterator "
+        "alone %.0f images/s (one thread, as the JAX package's); steps "
+        "3-%d %s ms, median %.2f ms (%.1f images/s); %d NMS launches; "
+        "loc loss %.4f [%s]"
+        % (d["batch"], d["records"], nbytes / d["records"] / 1e3, shape,
+           rate, d["steps"], ", ".join("%.1f" % x for x in ms),
+           statistics.median(ms), d["batch"] / statistics.median(ms) * 1e3,
+           nms, loc, card))
+    check(len(ev) == d["steps"] and nms == d["steps"],
+          "37c ran %d steps with %d NMS launches" % (len(ev), nms))
+    check(np.isfinite(loc), "37c: a non-finite loss")
+    del mod
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return statistics.median(ms), rate
+
+
+def phase_data_io(torch, mx, kernels, here, card):
+    """Phase 37: the decoders against the fixture, then 37a-c."""
+    import tempfile
+    fx = feed_fixture_tool(here)
+    with tempfile.TemporaryDirectory() as tmp:
+        decoder, why = decoder_check(mx, here, tmp, card)
+        prefix = os.path.join(tmp, "imagenet")
+        rs = np.random.RandomState(37)
+        seeds = rs.randint(0, 2 ** 31 - 1, FEED["records"])
+        labels = rs.randint(0, FEED["classes"], FEED["records"])
+        t0 = time.perf_counter()
+        nbytes = pack_records(mx, prefix, lambda i: (
+            float(labels[i]), fx.scene(np.random.RandomState(seeds[i]))),
+            FEED["records"])
+        log("37a records: %d seeded scenes at 256x341, JPEG quality 95, "
+            "%.1f KB a record, %d classes, written in %.1f s; decoder %s; "
+            "native libjpeg backend %s [%s]"
+            % (FEED["records"], nbytes / FEED["records"] / 1e3,
+               FEED["classes"], time.perf_counter() - t0, decoder,
+               "builds here" if why is None else "not built: " + why, card))
+        backends = ["python"] + (["native"] if why is None else [])
+        iterator_rates(mx, prefix, backends, card)
+        if why is None:
+            native_agreement(mx, prefix, card)
+        feed_resnet(torch, mx, prefix, backends, card)
+        feed_gluon(torch, mx, prefix, card)
+        feed_ssd(torch, mx, kernels, tmp, card)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8016,6 +8613,13 @@ def main():
             launches["sparse_" + part] = got
         rows += sparse_rows
         torch.cuda.empty_cache()
+
+    with phase("37 data IO: ResNet-50 from JPEG records through "
+               "ImageRecordIter and Module.fit, Gluon through the "
+               "DataLoader's workers, SSD through ImageDetIter"):
+        kernels.reset_launches()
+        phase_data_io(torch, mx, kernels, here, card)
+        launches["data_io"] = dict(kernels.LAUNCHES)
 
     # -- report ---------------------------------------------------------------
     for r in rows:

@@ -42,15 +42,21 @@ Ported so far (ROADMAP.md), slice by slice:
   ``Function``), ``mx.nd.contrib``, ``mx.contrib.autograd``, CustomOp
   (``mx.operator``), ``mx.gluon`` (blocks and ``hybridize``, parameters,
   ``Trainer``, the layers, losses and the vision model zoo) and
-  ``mx.test_utils``.
+  ``mx.test_utils``;
+* data IO -- ``mx.recordio``, ``mx.image`` (``ImageIter``,
+  ``ImageRecordIter`` on the native libjpeg pipeline or PIL threads,
+  ``ImageDetIter``), ``mx.gluon.data`` (datasets, samplers, vision
+  transforms, ``DataLoader`` with worker processes) and
+  ``mx.contrib.text``; batches are built in pinned host memory and go
+  to the card without blocking the host.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (``context=mx.cpu()`` for a Module).  The MXNet namespaces (``mx.nd``,
 ``mx.sym``, ``mx.kv``, ``mx.io``, ``mx.mod``, ``mx.metric``, ``mx.init``,
 ``mx.optimizer``, ``mx.lr_scheduler``, ``mx.callback``, ``mx.random``,
 ``mx.rtc``, ``mx.engine``, ``mx.autograd``, ``mx.gluon``,
-``mx.contrib``, ``mx.operator``, ``mx.test_utils``, ``mx.cpu`` /
-``mx.gpu``) are loaded on
+``mx.contrib``, ``mx.operator``, ``mx.test_utils``, ``mx.image``,
+``mx.recordio``, ``mx.cpu`` / ``mx.gpu``) are loaded on
 first use, so ``import mxnet_tpu_torch`` imports no torch.
 """
 import importlib as _importlib
@@ -66,7 +72,8 @@ __all__ = ["MXNetError", "DeviceUnavailable", "NotPortedYet", "nd", "sym",
            "set_backward_mirror", "backward_mirror_policy", "name",
            "attribute", "executor", "executor_manager", "rnn", "parallel",
            "sparse", "serving", "resilience", "telemetry", "autograd",
-           "gluon", "contrib", "operator", "test_utils"]
+           "gluon", "contrib", "operator", "test_utils", "image",
+           "recordio"]
 
 # attribute -> (module, name in it or None for the module itself)
 _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
@@ -104,7 +111,8 @@ _LAZY = {"nd": ("ndarray", None), "ndarray": ("ndarray", None),
          "telemetry": ("telemetry", None),
          "autograd": ("autograd", None), "gluon": ("gluon", None),
          "contrib": ("contrib", None), "operator": ("operator", None),
-         "test_utils": ("test_utils", None)}
+         "test_utils": ("test_utils", None),
+         "image": ("image", None), "recordio": ("recordio", None)}
 
 
 def __getattr__(name):

@@ -2,7 +2,7 @@
 ``mxnet_tpu/analysis/costmodel.py`` ``decode_step_model``) and one
 transformer training step (a copy of ``transformer_flops_per_step`` of
 ``tools/bench_ideal.py``, the bench's FLOP count).  The HLO-text models of
-the rest of that module wait for ROADMAP queue A13.
+the rest of that module wait for ROADMAP queue A item 9.
 
 ``chip_smoke.py`` holds measured decode and training steps against them.
 """

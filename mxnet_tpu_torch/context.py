@@ -8,9 +8,13 @@ Stated deviation from the JAX package: there the default context is the
 CPU (``context.py:98-100``); here :func:`current_context` outside any
 ``with ctx:`` scope is the card (``base.resolve_device``), and without one
 it raises :class:`~mxnet_tpu_torch.base.DeviceUnavailable`.  Tests ask for
-the CPU with ``cpu()``.  ``cpu_pinned()`` names the host too (its arrays
-are ordinary host tensors: pinned staging is the data IO item of
-ROADMAP queue A), and :func:`num_gpus` counts the visible CUDA devices.
+the CPU with ``cpu()``.  ``cpu_pinned()`` names page-locked host
+memory: an array made there (``nd.array(x, ctx=cpu_pinned())``, a batch
+of the data-IO iterators) is ``is_pinned()`` when a CUDA device is
+visible and reports ``cpu_pinned`` as its context, and its copy to the
+card does not block the host (``io/pinned.py``).  Without a CUDA device
+there is nothing to pin for, and such arrays are ordinary host memory.
+:func:`num_gpus` counts the visible CUDA devices.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Optional
 from .base import resolve_device
 
 __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
-           "num_gpus", "context_of", "as_torch_device"]
+           "num_gpus", "context_of", "as_torch_device", "wants_pinned"]
 
 
 class Context:
@@ -119,11 +123,27 @@ def current_context() -> Context:
 
 
 def context_of(obj) -> Context:
-    """The Context of a torch tensor or device."""
+    """The Context of a torch tensor or device (``cpu_pinned`` for a
+    page-locked host tensor).  Only a process that has initialised CUDA
+    can have pinned memory of its own, so no other queries CUDA: a
+    forked data worker never touches it."""
     dev = getattr(obj, "device", obj)
     if dev.type == "cuda":
         return gpu(dev.index or 0)
+    if dev is not obj:
+        import torch
+        if torch.cuda.is_initialized() and obj.is_pinned():
+            return cpu_pinned()
     return cpu()
+
+
+def wants_pinned(ctx) -> bool:
+    """True when ``ctx`` is ``cpu_pinned`` and a CUDA device is visible,
+    i.e. when an array made there is page-locked."""
+    if not (isinstance(ctx, Context) and ctx.device_type == "cpu_pinned"):
+        return False
+    import torch
+    return torch.cuda.is_available()
 
 
 def as_torch_device(ctx):

@@ -1,13 +1,12 @@
 """``mx.contrib`` (port of ``mxnet_tpu/contrib``; reference
-python/mxnet/contrib/): the legacy autograd API (:mod:`.autograd`) and
-the contrib op namespaces (:mod:`.ndarray`, :mod:`.symbol`).  ``text``
-(ROADMAP queue A item 6, data IO) and ``tensorboard`` (item 9,
-observability) raise ``NotPortedYet`` when asked for."""
+python/mxnet/contrib/): the legacy autograd API (:mod:`.autograd`), the
+contrib op namespaces (:mod:`.ndarray`, :mod:`.symbol`) and the text
+utilities (:mod:`.text`).  ``tensorboard`` (ROADMAP queue A item 9,
+observability) raises ``NotPortedYet`` when asked for."""
 from ..base import NotPortedYet as _NotPortedYet
-from . import autograd, ndarray, symbol  # noqa: F401
+from . import autograd, ndarray, symbol, text  # noqa: F401
 
-_UNPORTED = {"text": "item 6, data IO",
-             "tensorboard": "item 9, observability"}
+_UNPORTED = {"tensorboard": "item 9, observability"}
 
 
 def __getattr__(name):

@@ -45,7 +45,9 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
     """``data`` (an NDArray or numpy) on the one context of
-    ``ctx_list``."""
+    ``ctx_list``.  A batch in pinned host memory (a data loader's) goes
+    to the card without blocking the host and without being pinned
+    again (``NDArray.as_in_context``)."""
     if len(ctx_list) != 1:
         raise NotPortedYet("split_and_load over several contexts is not "
                            "ported yet (ROADMAP queue A item 7, "

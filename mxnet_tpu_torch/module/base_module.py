@@ -7,7 +7,7 @@ Each training step runs inside the ``train/step`` span and counts
 ``train.steps`` (:mod:`~mxnet_tpu_torch.telemetry`).  The JAX package
 also runs every step under its hang watchdog, beats a heartbeat lane and
 can inject a ``hang`` chaos fault (``base_module.py:280-305``); those
-wait for ROADMAP A12, and :meth:`BaseModule.fit` raises
+wait for ROADMAP queue A item 8, and :meth:`BaseModule.fit` raises
 :class:`~mxnet_tpu_torch.base.NotPortedYet` when their knobs are set.
 """
 from __future__ import annotations

@@ -120,7 +120,9 @@ class DataParallelExecutorGroup:
                                                              copy=True))
 
     def _slice_batch(self, arrays, names):
-        """Copy host batch arrays into the executor's bound inputs."""
+        """Copy host batch arrays into the executor's bound inputs without
+        blocking: a batch already in pinned memory (a data-IO iterator's)
+        is copied as it is, any other host batch is pinned first."""
         ex = self.execs[0]
         for name, arr in zip(names, arrays):
             tgt = ex.arg_dict.get(name)
@@ -129,7 +131,7 @@ class DataParallelExecutorGroup:
             src = arr._handle if isinstance(arr, NDArray) else \
                 torch.as_tensor(arr)
             if tgt._handle.device.type == "cuda" and \
-                    src.device.type == "cpu":
+                    src.device.type == "cpu" and not src.is_pinned():
                 src = src.pin_memory()
             tgt._handle.copy_(src, non_blocking=True)
 

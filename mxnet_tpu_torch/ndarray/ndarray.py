@@ -44,7 +44,7 @@ from .. import autograd as _ag
 from .. import rng as _rng
 from ..base import (MXNetError, _Null, dtype_name, dtype_np,
                     dtype_torch)
-from ..context import Context, as_torch_device, context_of
+from ..context import Context, as_torch_device, context_of, wants_pinned
 from ..ops.registry import Operator, get_op, list_ops
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
@@ -146,7 +146,15 @@ class NDArray:
             other._write(self._handle)
             return other
         if isinstance(other, Context):
-            return NDArray(self._handle.to(other.torch_device, copy=True))
+            if wants_pinned(other):
+                return NDArray(self._handle.to("cpu", copy=True)
+                               .pin_memory())
+            src, dev = self._handle, other.torch_device
+            if dev.type == "cuda" and src.device.type == "cpu" \
+                    and src.is_pinned():
+                # page-locked host memory: the copy does not block
+                return NDArray(src.to(dev, non_blocking=True))
+            return NDArray(src.to(dev, copy=True))
         raise TypeError("copyto does not support type " + str(type(other)))
 
     def as_in_context(self, context: Context) -> "NDArray":
@@ -681,19 +689,22 @@ def array(source_array, ctx=None, dtype=None) -> NDArray:
             dtype = "float32"
         src = torch.from_numpy(np.ascontiguousarray(host))
     want = dtype_torch(dtype) if dtype is not None else src.dtype
-    return NDArray(src.to(as_torch_device(ctx), want, copy=True))
+    out = src.to(as_torch_device(ctx), want, copy=True)
+    return NDArray(out.pin_memory() if wants_pinned(ctx) else out)
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs) -> NDArray:
     return NDArray(torch.zeros(_shape(shape),
                                dtype=dtype_torch(dtype or "float32"),
-                               device=as_torch_device(ctx)))
+                               device=as_torch_device(ctx),
+                               pin_memory=wants_pinned(ctx)))
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs) -> NDArray:
     return NDArray(torch.ones(_shape(shape),
                               dtype=dtype_torch(dtype or "float32"),
-                              device=as_torch_device(ctx)))
+                              device=as_torch_device(ctx),
+                              pin_memory=wants_pinned(ctx)))
 
 
 def full(shape, val, ctx=None, dtype=None, out=None) -> NDArray:
@@ -710,7 +721,8 @@ def empty(shape, ctx=None, dtype=None) -> NDArray:
     """Uninitialised storage, as the reference's ``empty``."""
     return NDArray(torch.empty(_shape(shape),
                                dtype=dtype_torch(dtype or "float32"),
-                               device=as_torch_device(ctx)))
+                               device=as_torch_device(ctx),
+                               pin_memory=wants_pinned(ctx)))
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None,

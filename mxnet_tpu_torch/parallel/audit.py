@@ -7,7 +7,7 @@ last finished.  When telemetry is armed each record also counts into the
 registry: ``parallel.collectives{kind}`` and
 ``parallel.collective_bytes{kind}``.  The HLO-text accounting of the
 reference (payloads parsed from compiled programs) has no counterpart
-until NCCL collectives land (ROADMAP queue A11).
+until NCCL collectives land (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@
 Axis names keep the JAX package's roles ('dp' data parallel, 'tp' tensor
 parallel, ...), so a caller builds the same ``MeshSpec(make_mesh((1,),
 ("dp",)))``.  A mesh of more than one device needs collectives over NCCL
-(ROADMAP queue A5) and raises :class:`~mxnet_tpu_torch.base.NotPortedYet`.
+(ROADMAP queue A item 7) and raises
+:class:`~mxnet_tpu_torch.base.NotPortedYet`.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                          % (shape, tuple(axis_names)))
     if int(np.prod(shape)) != 1:
         raise NotPortedYet("a mesh of %d devices (%s): meshes of more than "
-                           "one device need NCCL collectives (ROADMAP A5)"
+                           "one device need NCCL collectives (ROADMAP queue A "
+                           "item 7)"
                            % (int(np.prod(shape)), dict(zip(axis_names,
                                                             shape))))
     return Mesh(axis_names, resolve_device(device))

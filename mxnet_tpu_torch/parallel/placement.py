@@ -4,7 +4,7 @@
 Only :func:`as_mesh` so far: the embedding plane accepts a mesh or a
 :class:`~mxnet_tpu_torch.parallel.mesh.MeshSpec` through it.  The
 ``__shard__`` grammar, the tensor-parallel recipe and the ZeRO state rule
-need a mesh of more than one device (ROADMAP queue A11).
+need a mesh of more than one device (ROADMAP queue A item 7).
 """
 from __future__ import annotations
 

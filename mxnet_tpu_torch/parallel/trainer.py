@@ -147,7 +147,8 @@ class ShardedTrainer:
                  zero=None, device=None):
         if shard_optimizer_state or zero:
             raise NotPortedYet("ZeRO / shard_optimizer_state needs a mesh of "
-                               "more than one device (ROADMAP A5)")
+                               "more than one device (ROADMAP queue A "
+                               "item 7)")
         if int(grad_accum) < 1:
             raise ValueError("grad_accum must be >= 1, got %r" % grad_accum)
         found = _unported_env()
@@ -343,7 +344,8 @@ class ShardedTrainer:
         before the update, for that budget."""
         if local_batch:
             raise NotPortedYet("local_batch=True: multi-process data "
-                               "loading needs the NCCL mesh (ROADMAP A5)")
+                               "loading needs the NCCL mesh (ROADMAP queue A "
+                               "item 7)")
         found = _unported_env()
         if found:
             raise NotPortedYet("not ported to the trainer: %s"

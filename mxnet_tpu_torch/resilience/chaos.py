@@ -14,8 +14,11 @@ drill written for the JAX package arms the same faults here.
 * ``bad_swap``      — consumed by the runtime's swap canary via
   :func:`fire`.
 
-The training-side faults (preempt, nan_grad, hang, oom, corrupt_ckpt,
-io_error) wait for the resilience slice (ROADMAP queue A12).
+* ``io_error``      — an IO read raises ``OSError`` (the data-IO
+  iterators' record reads, inside their retry).
+
+The training-side faults (preempt, nan_grad, hang, oom, corrupt_ckpt)
+wait for the resilience slice (ROADMAP queue A item 8).
 
 Faults are armed with :func:`inject` (tests) or ``MXNET_TPU_CHAOS``, a
 comma list of ``kind[@step][xcount]``.  ``MXNET_TPU_CHAOS_RANKS`` pins
@@ -32,7 +35,8 @@ import time
 from typing import List, Optional
 
 __all__ = ["inject", "fire", "armed", "maybe_slow_exec", "maybe_exec_error",
-           "maybe_replica_crash", "maybe_hedge_lag", "reset"]
+           "maybe_replica_crash", "maybe_hedge_lag", "maybe_io_error",
+           "reset"]
 
 
 class _Fault:
@@ -197,3 +201,10 @@ def maybe_replica_crash(step: Optional[int] = None):
         print("chaos: replica SIGKILLing itself at batch %s" % step,
               flush=True)
         os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_io_error(desc: str = ""):
+    """Raise OSError if an ``io_error`` fault fires now (inside retried
+    IO callables, so the retry path absorbs it)."""
+    if fire("io_error") is not None:
+        raise OSError("chaos: injected transient IO failure (%s)" % desc)

@@ -62,11 +62,14 @@ def _get():
 
 def seed(seed_state: int):
     """``mx.random.seed``: every device's generator restarts from
-    ``seed_state``, and so does the initializers' host stream."""
+    ``seed_state``, and so do the initializers' host stream and the
+    batched image augmenters' generator (``image.image.reseed``)."""
     s = _get()
     s.seed = int(seed_state)
     s.gens = {}
     s.counter = 0
+    from .image import image as _image
+    _image.reseed(int(seed_state))
 
 
 def next_host_seed() -> int:

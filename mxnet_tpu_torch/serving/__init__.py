@@ -2,7 +2,7 @@
 runtime — admission queue, deadline-aware batcher, circuit breaker,
 one-shot request futures, swap with canary — and, on top of it, the
 paged-KV continuous-batching decode engine.  The fleet tier (wire,
-replica, router, fleet) waits for a later slice (ROADMAP queue A10).
+replica, router, fleet) waits for a later slice (ROADMAP queue A item 10).
 
 Quick start::
 

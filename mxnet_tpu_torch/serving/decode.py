@@ -32,7 +32,7 @@ Differences from the JAX package, all deliberate:
   :class:`~mxnet_tpu_torch.base.DeviceUnavailable`.  On the CPU the
   kernels' plain versions run (the tests' path).
 * Tensor-parallel serving (``mesh={"tp": k}``) and the GC307 pre-flight
-  (``MXNET_TPU_PREFLIGHT=1``) wait for ROADMAP queue A11/A13 and raise
+  (``MXNET_TPU_PREFLIGHT=1``) wait for ROADMAP queue A items 7 and 9 and raise
   :class:`~mxnet_tpu_torch.base.NotPortedYet`.
 * f32 products run in full f32: TF32 is switched off on the card, as the
   reference runs with ``jax_default_matmul_precision="highest"``.
@@ -238,7 +238,7 @@ def _no_mesh(mesh):
     if mesh:
         raise NotPortedYet(
             "tensor-parallel decode (mesh=%r) is not ported yet (ROADMAP "
-            "queue A11); serve from one card" % (mesh,))
+            "queue A item 7); serve from one card" % (mesh,))
 
 
 class DecodeProgram:
@@ -498,7 +498,7 @@ class DecodeProgram:
     def load(cls, path, mesh="artifact", name=None, device=None):
         """Load an exported decode artifact (written by either package).
         An artifact exported with a mesh, or an explicit ``mesh``, raises
-        :class:`NotPortedYet` (tensor-parallel serving is queue A11)."""
+        :class:`NotPortedYet` (tensor-parallel serving is queue A item 7)."""
         arrays, meta, _blobs = read_container(path)
         if meta.get("magic") != _MAGIC:
             raise MXNetError("%s is not a decode artifact (magic %r)"
@@ -571,7 +571,7 @@ class DecodeEngine(ServingRuntime):
                 "", "0", "false", "off"):
             raise NotPortedYet("the GC307 decode pre-flight "
                                "(MXNET_TPU_PREFLIGHT) is not ported yet "
-                               "(ROADMAP queue A13)")
+                               "(ROADMAP queue A item 9)")
         c = prog.config
         self._slots: List[Optional[_Slot]] = [None] * c.max_seqs
         self._pool = PagePool(c.pool_pages())

@@ -43,7 +43,7 @@ constructor arguments win over the environment):
 
 The JAX runtime also arms every dispatch on its watchdog
 (``exec_timeout`` / ``MXNET_TPU_SERVE_EXEC_TIMEOUT``).  The watchdog is
-ROADMAP queue A12; until it is ported, asking for an exec timeout raises
+ROADMAP queue A item 8; until it is ported, asking for an exec timeout raises
 :class:`~mxnet_tpu_torch.base.NotPortedYet` instead of serving without
 the wedge detection the caller asked for.
 """
@@ -88,8 +88,8 @@ class ServingRuntime:
         if exec_timeout or _env_float("MXNET_TPU_SERVE_EXEC_TIMEOUT", 0.0):
             raise NotPortedYet(
                 "exec_timeout needs the dispatch watchdog, which the port "
-                "does not have yet (ROADMAP queue A12); leave exec_timeout "
-                "and MXNET_TPU_SERVE_EXEC_TIMEOUT unset")
+                "does not have yet (ROADMAP queue A item 8); leave "
+                "exec_timeout and MXNET_TPU_SERVE_EXEC_TIMEOUT unset")
         self._program = self._load_program(program)
         self._previous = None
         self._standby_swap = None   # (key, program) validated by prewarm

@@ -5,7 +5,7 @@ Lookups are owner-shard routing, gradients are deduped and applied by
 lazy SGD/Adam that touch only the routed rows; the shard-local halves are
 the hand-written CUDA gather (B5) and sorted-id scatter (B6) kernels
 (``csrc/embedding.cu``).  On one device so far: routing across devices
-waits for NCCL collectives (ROADMAP queue A11).
+waits for NCCL collectives (ROADMAP queue A item 7).
 """
 from .embedding import (ShardedEmbedding, live_tables, lookup_wire_bytes,
                         step_alltoall_model_bytes)

@@ -42,9 +42,9 @@ table's rows and rounds them once to the table's dtype.
 The routing is written for any shard count ``S``; :func:`_a2a` is the one
 place that needs a collective, and raises
 :class:`~mxnet_tpu_torch.base.NotPortedYet` for ``S > 1`` until the NCCL
-slice lands (ROADMAP queue A11).  Not ported: the hang watchdog around the
-collectives (``resilience/watchdog.py``, ROADMAP queue A12), and
-``resilience.checkpoint.save_embedding`` / ``restore_embedding``.
+slice lands (ROADMAP queue A item 7).  Not ported: the hang watchdog
+around the collectives (``resilience/watchdog.py``, ROADMAP queue A
+item 8), and ``resilience.checkpoint.save_embedding`` / ``restore_embedding``.
 """
 from __future__ import annotations
 
@@ -154,7 +154,8 @@ def _a2a(x, axis: str, S: int):
         return x
     raise NotPortedYet("all-to-all over mesh axis %r of %d devices: the "
                        "embedding plane routes across devices once NCCL "
-                       "collectives land (ROADMAP queue A11)" % (axis, S))
+                       "collectives land (ROADMAP queue A item 7)"
+                       % (axis, S))
 
 
 def _axis_index(S: int) -> int:

@@ -318,5 +318,5 @@ def embedding_scatter(table, ids, rows, mode: str = "add", backend=None):
 def tune_embedding(rows: int, dim: int, n: int, dtype="float32",
                    iters: int = 10, force: bool = False) -> dict:
     raise NotPortedYet("tune_embedding: the autotune cache is ROADMAP "
-                       "queue A10, and the card has one embedding kernel "
-                       "per device to choose from")
+                       "queue A item 10, and the card has one embedding "
+                       "kernel per device to choose from")

@@ -28,7 +28,7 @@ convention of the port's ``ShardedTrainer``).  On the card the step issues
 no host synchronisation: reading the loss is the first.
 
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
-:func:`lower_step` (it returns compiled HLO text; ROADMAP queue A13) and
+:func:`lower_step` (it returns compiled HLO text; ROADMAP queue A item 9) and
 the GC306 pre-flight of the first step (``MXNET_TPU_PREFLIGHT=1``).
 """
 from __future__ import annotations
@@ -177,7 +177,7 @@ def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
         if os.environ.get("MXNET_TPU_PREFLIGHT", "0") not in _OFF:
             raise NotPortedYet("the GC306 recommender pre-flight "
                                "(MXNET_TPU_PREFLIGHT) is not ported yet "
-                               "(ROADMAP queue A13)")
+                               "(ROADMAP queue A item 9)")
         ids = put(batch["ids"], torch.int32)
         dense = put(batch["dense"], torch.float32)
         label = put(batch["label"], torch.float32)
@@ -224,4 +224,4 @@ def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
 def lower_step(step, state, batch):
     raise NotPortedYet("lower_step: the port runs the recommender step "
                        "eagerly and has no compiled HLO to return "
-                       "(ROADMAP queue A13)")
+                       "(ROADMAP queue A item 9)")

@@ -2,7 +2,7 @@
 ``mxnet_tpu/telemetry``): the metrics registry, spans, the compile-event
 log and the memory hooks, under the JAX package's metric names and
 knobs.  Digests, the attribution plane and distributed tracing wait for
-ROADMAP queue A13."""
+ROADMAP queue A item 9."""
 from .registry import (DEFAULT_BUCKETS, Counter, Gauge, Histogram, arm,
                        count, disarm, is_armed, observe, reset_metrics,
                        set_gauge, snapshot, window_tick)

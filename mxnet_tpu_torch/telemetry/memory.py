@@ -18,7 +18,7 @@ PyTorch's CUDA caching allocator:
 Every hook checks one cached gate (``MXNET_TPU_MEMWATCH`` when set, else
 the telemetry master switch) and returns at once when disarmed.  The
 sampler thread, the per-program breakdowns and the leak watchdog wait for
-ROADMAP queue A13.
+ROADMAP queue A item 9.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Port of the core of ``mxnet_tpu/telemetry/registry.py`` with the same
 metric names, the same zero-cost disarmed path and the same master switch
 (``MXNET_TPU_TELEMETRY=1`` or :func:`arm`).  The exporters (JSONL,
-Prometheus text, snapshot deltas) wait for ROADMAP queue A13.
+Prometheus text, snapshot deltas) wait for ROADMAP queue A item 9.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ observes its duration into that registry histogram, and every completed
 span (and every retrospective :func:`record_span`) is appended to a
 bounded in-process event log that :func:`recent_spans` reads.  The JAX
 package merges spans into its profiler's Chrome trace; the port has no
-profiler yet (ROADMAP queue A13), so the log is where they go.
+profiler yet (ROADMAP queue A item 9), so the log is where they go.
 
 Cost when nothing is armed: one cached-bool check on enter; ``timed=True``
 adds the two clock reads a caller needs for ``.duration`` (the serving

@@ -5,7 +5,7 @@ The port does not jit: its "compile" of a decode program is building and
 loading the CUDA kernels plus one warm-up step.  That event is still
 recorded here under the ``compile/*`` family, so "nothing was built while
 serving" is provable the same way it is in the JAX package.  Distributed
-request tracing waits for ROADMAP queue A13.
+request tracing waits for ROADMAP queue A item 9.
 """
 from __future__ import annotations
 

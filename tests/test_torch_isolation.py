@@ -1,8 +1,8 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * ``mxnet_tpu_torch`` and every one of its modules (``gluon``,
-  ``autograd``, ``contrib``, ``operator`` and the recurrent stack among
-  them), and
+  ``autograd``, ``contrib``, ``operator``, the recurrent stack and the
+  data-IO modules among them), and
   ``chip_smoke``, import without pulling in ``jax`` or any of
   ``mxnet_tpu`` (checked in a fresh interpreter, since this test process
   has both loaded);
@@ -110,7 +110,25 @@ def test_every_port_module_is_listed():
                  "mxnet_tpu_torch.rnn.rnn_cell", "mxnet_tpu_torch.rnn.rnn",
                  "mxnet_tpu_torch.gluon.rnn.rnn_cell",
                  "mxnet_tpu_torch.gluon.rnn.rnn_layer",
-                 "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell"):
+                 "mxnet_tpu_torch.gluon.contrib.rnn.conv_rnn_cell",
+                 "mxnet_tpu_torch.recordio", "mxnet_tpu_torch.io.native",
+                 "mxnet_tpu_torch.io.pinned", "mxnet_tpu_torch.image",
+                 "mxnet_tpu_torch.image.image",
+                 "mxnet_tpu_torch.image.record_iter",
+                 "mxnet_tpu_torch.image.detection",
+                 "mxnet_tpu_torch.gluon.data",
+                 "mxnet_tpu_torch.gluon.data.dataset",
+                 "mxnet_tpu_torch.gluon.data.sampler",
+                 "mxnet_tpu_torch.gluon.data.dataloader",
+                 "mxnet_tpu_torch.gluon.data.vision",
+                 "mxnet_tpu_torch.gluon.data.vision.datasets",
+                 "mxnet_tpu_torch.gluon.data.vision.transforms",
+                 "mxnet_tpu_torch.gluon.contrib.data",
+                 "mxnet_tpu_torch.gluon.contrib.data.sampler",
+                 "mxnet_tpu_torch.contrib.text",
+                 "mxnet_tpu_torch.contrib.text.utils",
+                 "mxnet_tpu_torch.contrib.text.vocab",
+                 "mxnet_tpu_torch.contrib.text.embedding"):
         assert want in mods
 
 
@@ -127,7 +145,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = (mx.nd, mx.random, mx.rtc, mx.engine, mx.nd.random,",
         "        mx.gluon, mx.autograd, mx.contrib, mx.operator,",
         "        mx.test_utils, mx.nd.contrib, mx.gluon.model_zoo,",
-        "        mx.contrib.autograd)",
+        "        mx.contrib.autograd, mx.image, mx.recordio,",
+        "        mx.gluon.data, mx.gluon.data.vision.transforms,",
+        "        mx.gluon.contrib.data, mx.contrib.text,",
+        "        mx.io.ImageRecordIter, mx.image.ImageDetIter)",
         "assert len([n for n in dir(mx.nd) if not n.startswith('__')]) > 250",
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith('jax.') or m == 'jaxlib'"
