@@ -357,7 +357,29 @@ Phases, in order:
     example/sparse/symbolic_sparse_lr.py's SparseEmbedding classifier
     (vocab 1,000,000, dim 16, 8 ids a row, batch 8192) through
     ``KVStore("device")`` with ``sparse_row_id_fn``, one step at vocab
-    10,000 card vs CPU, the cross-entropy falling on a repeated batch.
+    10,000 card vs CPU, the cross-entropy falling on a repeated batch;
+37. data IO: ResNet-50 from JPEG records through ``ImageRecordIter`` and
+    ``Module.fit``, Gluon through the ``DataLoader``'s worker processes,
+    SSD through ``ImageDetIter`` (the feed against batches in memory);
+38. data parallelism across processes, each gang started by
+    ``tools/launch.py`` from here (``--dist-worker``): step 0 asks
+    ``tools/torch_dist_probe.py`` which collectives two ranks on this
+    machine's cards can run over NCCL and over gloo; (a) ``Module.fit``
+    with ``kvstore="dist_sync"`` and 2-bit compression over two ranks,
+    GPT-2-small at batch 8 a rank, 3 steps, on NCCL where two ranks may
+    share the card, else on gloo: B1/B2a/B2b and one grouped B7 launch
+    a push in each rank, both ranks' weights bit-equal to each other and
+    to one process that sums the two ranks' compressed gradients; (b) the
+    dp and ZeRO ``ShardedTrainer`` on the same LM at global batch 16 and
+    (c) the recommender at the Criteo shape over a dp mesh need NCCL
+    across two ranks: over two cards at dp 2 (ZeRO's momentum halved,
+    its audited bytes equal to ``zero_update_model_bytes``; the
+    recommender's shards against one process's step on the whole batch);
+    where the card is alone they run the same code at dp 1 over a
+    one-rank NCCL group and print why dp 2 was not run; (d) ResNet-50
+    through a ``Module`` over ``[gpu(0), gpu(1)]`` (``gpu(0)`` twice on
+    one card) at batch 32 split 16/16 with ``KVStore("device")`` against
+    one context summing the two halves' gradients.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -8276,7 +8298,629 @@ def phase_data_io(torch, mx, kernels, here, card):
         feed_ssd(torch, mx, kernels, tmp, card)
 
 
+# -- phase 38: data parallelism across processes ------------------------------
+#
+# 38a: MXNet's own distributed path, `Module.fit(kvstore="dist_sync")` with
+# 2-bit compression, GPT-2-small (TRAIN) at batch 8 a rank in two ranks
+# started by tools/launch.py; 38b: the dp / ZeRO ShardedTrainer on the same
+# LM at global batch 16; 38c: the recommender at the Criteo shape over a dp
+# mesh; 38d: ResNet-50 through a Module over two contexts in one process.
+# Two ranks may share this card only where the backend allows it: NCCL
+# refuses two ranks of one communicator on one device ("Duplicate GPU
+# detected"), gloo carries CUDA tensors through the host.  38a runs on
+# gloo then; 38b and 38c need NCCL across two ranks and run the same code
+# at dp 1 over a one-rank NCCL group where the card is alone.
+DIST_A = dict(batch=8, steps=3, threshold=0.5, lr=1e-4, momentum=0.9,
+              seed=38)
+DIST_B = dict(batch=16, steps=3, lr=1e-4, momentum=0.9)
+DIST_C = dict(steps=2)
+DIST_D = dict(batch=32, steps=2, lr=0.01, momentum=0.9)
+DIST_TIMEOUT = 360
+FLASH_B12 = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+
+def dist_probe(here, backend, timeout=150):
+    """tools/torch_dist_probe.py over two ranks of ``backend``: which
+    collectives they can run on CUDA tensors (the ``PROBE`` line)."""
+    out = run_gang(here, 2, [os.path.join(here, "tools",
+                                          "torch_dist_probe.py"), backend],
+                   backend, timeout)
+    for line in out.splitlines():
+        if line.startswith("PROBE "):
+            return json.loads(line[len("PROBE "):])
+    fail("the %s probe printed no PROBE line:\n%s" % (backend, out[-2000:]))
+
+
+def run_gang(here, n, argv, backend, timeout=DIST_TIMEOUT):
+    """``python tools/launch.py -n N --dist-device cuda`` over ``argv``
+    (a script and its arguments) with ``MXNET_TPU_DIST_BACKEND``; every
+    process of the gang is killed at ``timeout``; fails unless every rank
+    exits 0.  Returns the gang's standard output."""
+    import signal
+    cmd = [sys.executable, os.path.join(here, "tools", "launch.py"), "-n",
+           str(n), "--dist-device", "cuda", "--env",
+           "MXNET_TPU_DIST_BACKEND=" + backend, sys.executable] + list(argv)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        fail("%s: the gang of %d did not end in %d s:\n%s"
+             % (argv[-2:], n, timeout, err[-3000:]))
+    check(proc.returncode == 0, "%s: the gang of %d exited %d:\n%s\n%s"
+          % (argv[-2:], n, proc.returncode, out[-2000:], err[-4000:]))
+    return out
+
+
+def dist_phase(here, n, worker, backend, tmp):
+    """Run ``chip_smoke.py --dist-worker WORKER`` in a gang of ``n``;
+    returns each rank's result (a JSON file the rank writes)."""
+    out = run_gang(here, n, [os.path.join(here, "chip_smoke.py"),
+                             "--dist-worker", worker, tmp], backend)
+    for line in out.splitlines():
+        log("  | " + line)
+    res = []
+    for r in range(n):
+        with open(os.path.join(tmp, "%s.r%d.json" % (worker, r))) as f:
+            res.append(json.load(f))
+    return res
+
+
+def digest(arrays):
+    """sha256 of each host array's bytes, by name."""
+    import hashlib
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in sorted(arrays.items())}
+
+
+def dist_lm_rows(step, rank, world, batch):
+    lo = (step * world + rank) * batch
+    return slice(lo, lo + batch)
+
+
+def dist_lm_setup(mx, get_symbol):
+    """38a's net, seeded parameters and global data."""
+    cfg, A = TRAIN, DIST_A
+    B, T = A["batch"], cfg["seq_len"]
+    net = get_symbol(**cfg)
+    start = module_params(net, {"data": (B, T), "softmax_label": (B, T)},
+                          A["seed"])
+    world = 2
+    rs = np.random.RandomState(A["seed"] + 1)
+    shape = (A["steps"] * world * B, T)
+    X = rs.randint(0, cfg["vocab_size"], shape).astype(np.float32)
+    Y = rs.randint(0, cfg["vocab_size"], shape).astype(np.float32)
+    return net, start, X, Y
+
+
+def worker_38a(torch, parallel, here):
+    """One rank of 38a: Module.fit over this rank's rows of each global
+    batch through ``dist_sync`` with 2-bit compression."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import audit
+    A = DIST_A
+    r, n = parallel.rank(), parallel.world_size()
+    net, start, X, Y = dist_lm_setup(mx, get_symbol)
+    rows = np.concatenate([np.arange(X.shape[0])[dist_lm_rows(
+        i, r, n, A["batch"])] for i in range(A["steps"])])
+    it = mx.io.NDArrayIter(X[rows], Y[rows], batch_size=A["batch"])
+    mod = mx.mod.Module(net, context=mx.gpu(torch.cuda.current_device()),
+                        compression_params={"type": "2bit",
+                                            "threshold": A["threshold"]})
+    kv = mx.kv.create("dist_sync")
+    host = []
+
+    def on_batch(_p):
+        torch.cuda.synchronize()
+        host.append(time.perf_counter())
+
+    audit.clear_collective_log()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    host.append(time.perf_counter())
+    mod.fit(it, kvstore=kv, optimizer="sgd",
+            optimizer_params={"learning_rate": A["lr"],
+                              "momentum": A["momentum"]},
+            arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                        for k, v in start.items()},
+            eval_metric=mx.metric.Perplexity(ignore_label=None),
+            batch_end_callback=on_batch, num_epoch=1)
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    push = [e for e in audit.collective_log()
+            if e["tag"].startswith("KVStoreDist.push")]
+    args, _ = mod.get_params()
+    return {"launches": got, "digest": digest({k: v.asnumpy() for k, v in
+                                               args.items()}),
+            "step_ms": [(b - a) * 1e3 for a, b in zip(host, host[1:])],
+            "push_bytes": sum(e["bytes"] for e in push) / A["steps"],
+            "push_calls": len(push) / A["steps"],
+            "keys": len(mod._exec_group.param_names),
+            "params": sum(int(np.prod(v.shape)) for v in start.values()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "backend": parallel.backend(), "world": n}
+
+
+def two_bit_sum_reference(torch, mx, kv_mod, get_symbol, world):
+    """One process: each of 38a's steps runs every rank's batch through
+    the port's executor, compresses each rank's gradients with that
+    rank's residuals (B7), sums the compressed values and applies the
+    store's SGD update.  Returns the digests of the final weights."""
+    A = DIST_A
+    B, T = A["batch"], TRAIN["seq_len"]
+    net, start, X, Y = dist_lm_setup(mx, get_symbol)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind([("data", (B, T))], [("softmax_label", (B, T))])
+    mod.init_params(initializer=None, arg_params={
+        k: mx.nd.array(v, ctx=mx.cpu()) for k, v in start.items()})
+    ex = mod._exec_group.execs[0]
+    names = mod._exec_group.param_names
+    opt = mx.optimizer.create("sgd", sym=net,
+                              param_idx2name=dict(enumerate(names)),
+                              learning_rate=A["lr"],
+                              momentum=A["momentum"],
+                              rescale_grad=1.0 / (B * world))
+    upd = mx.optimizer.get_updater(opt)
+    weights = {k: mx.nd.NDArray(ex.arg_dict[k]._handle.clone())
+               for k in names}
+    comps = [kv_mod._TwoBitCompressor(A["threshold"]) for _ in range(world)]
+    for i in range(A["steps"]):
+        total = None
+        for r in range(world):
+            sl = dist_lm_rows(i, r, world, B)
+            for k in names:
+                ex.arg_dict[k]._handle.copy_(weights[k]._handle)
+            ex.arg_dict["data"]._handle.copy_(torch.from_numpy(X[sl]))
+            ex.arg_dict["softmax_label"]._handle.copy_(
+                torch.from_numpy(Y[sl]))
+            ex.run_fwd_bwd(is_train=True)
+            qs = comps[r].compress_many(
+                names, [ex.grad_dict[k]._handle for k in names])
+            total = [q.clone() for q in qs] if total is None else \
+                [t + q for t, q in zip(total, qs)]
+        for k, t in zip(names, total):
+            upd(k, mx.nd.NDArray(t), weights[k])
+    torch.cuda.synchronize()
+    out = digest({k: w.asnumpy() for k, w in weights.items()})
+    del mod, weights, comps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_module(torch, mx, kernels, kv_mod, get_symbol, here, tmp,
+                      backend, card):
+    """38a; returns each rank's launches summed."""
+    res = dist_phase(here, 2, "38a", backend, tmp)
+    per_step = -(-res[0]["keys"] // kernels.two_bit_segments_per_launch())
+    steps = DIST_A["steps"]
+    for r, got in enumerate(res):
+        for key in FLASH_B12:
+            check(got["launches"][key] == TRAIN["num_layers"] * steps,
+                  "38a rank %d: %s launched %d times over %d steps"
+                  % (r, key, got["launches"][key], steps))
+        check(got["launches"]["two_bit_compress"] == per_step * steps,
+              "38a rank %d: two_bit_compress launched %d times, want %d "
+              "(one grouped call per push)"
+              % (r, got["launches"]["two_bit_compress"], per_step * steps))
+        check(got["backend"] == backend and got["world"] == 2,
+              "38a rank %d ran on %s over %d ranks"
+              % (r, got["backend"], got["world"]))
+    check(res[0]["digest"] == res[1]["digest"],
+          "38a: the two ranks' parameters differ after %d steps" % steps)
+    want = two_bit_sum_reference(torch, mx, kv_mod, get_symbol, 2)
+    bad = [k for k in want if want[k] != res[0]["digest"].get(k)]
+    check(not bad, "38a: %d of %d parameters differ from the one-process "
+          "sum of the two ranks' compressed gradients: %s"
+          % (len(bad), len(want), bad[:4]))
+    ms = [statistics.median(g["step_ms"][1:]) for g in res]
+    log("38a Module.fit kvstore='dist_sync' with 2-bit compression "
+        "(threshold %g) over 2 ranks on %s, backend %s: GPT-2-small "
+        "L%d h%d V%d T%d f32, batch %d a rank (16 global), %d keys, %.1f M "
+        "parameters, %d steps: step ms rank 0 %s, rank 1 %s (median after "
+        "the first: %.1f / %.1f); all-reduce payload %.1f MB a step in %d "
+        "call(s) (audit); peak memory %.2f / %.2f GB; both ranks' weights "
+        "bit-equal to each other and to one process summing the two "
+        "compressed gradients [%s]"
+        % (DIST_A["threshold"], "one card" if torch.cuda.device_count()
+           == 1 else "two cards", backend, TRAIN["num_layers"],
+           TRAIN["hidden"], TRAIN["vocab_size"], TRAIN["seq_len"],
+           DIST_A["batch"], res[0]["keys"], res[0]["params"] / 1e6, steps,
+           ", ".join("%.1f" % x for x in res[0]["step_ms"]),
+           ", ".join("%.1f" % x for x in res[1]["step_ms"]), ms[0], ms[1],
+           res[0]["push_bytes"] / 1e6, res[0]["push_calls"],
+           res[0]["peak_gb"], res[1]["peak_gb"], card))
+    total = {}
+    for g in res:
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def worker_38bc(torch, parallel, here):
+    """38b and 38c in one rank of an NCCL gang: dp 2 where the machine
+    has two cards, else dp 1 in a one-rank group.  38b: the plain dp and
+    ZeRO trainers (``local_batch=True``, this rank's rows of each global
+    batch).  38c: the Criteo recommender over the gang's dp mesh against
+    one process's step over a one-device mesh on the whole batch."""
+    import torch.distributed as dist
+    from mxnet_tpu_torch import sparse as tsp
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import (MeshSpec, ShardedTrainer, audit,
+                                          data_parallel_mesh, make_mesh)
+    out = {"backend": parallel.backend(), "world": parallel.world_size()}
+    x = torch.ones(1, device="cuda")
+    audit.collective("all-reduce", "38b NCCL check",
+                     lambda: dist.all_reduce(x), nbytes=4)
+    torch.cuda.synchronize()
+    out["nccl_check"] = float(x)
+    spec = data_parallel_mesh()
+    n, r = spec.dp_size, spec.dp_rank
+    B, T = DIST_B["batch"], TRAIN["seq_len"]
+    b = B // n
+    net = get_symbol(**TRAIN)
+    shapes = {"data": (b, T), "softmax_label": (b, T)}
+    batches = [{k: v[r * b:(r + 1) * b] for k, v in lm_batch(
+        TRAIN["vocab_size"], B, T, 380 + i).items()}
+        for i in range(DIST_B["steps"])]
+    kernels.reset_launches()
+    runs = {}
+    for tag, kw in (("dp", {}), ("zero", {"zero": True})):
+        tr = ShardedTrainer(net, spec, lr=DIST_B["lr"],
+                            momentum=DIST_B["momentum"], wd=0.0, **kw)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        params, mom, aux = tr.init_state(shapes, seed=0)
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated() - before
+        start = [p.clone() for p in params]
+        mom_bytes = sum(m.numel() * m.element_size() for m in mom)
+        audit.clear_collective_log()
+        times, losses = [], []
+        for bt in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, mom, aux, loss = tr.step(params, mom, aux, bt,
+                                             local_batch=True)
+            losses.append(float(loss))
+            times.append((time.perf_counter() - t0) * 1e3)
+        log1 = [e for e in audit.collective_log() if e["step"] == 1]
+        moved = {k: sum(e["bytes"] for e in log1 if e["kind"] == k)
+                 for k in ("all-reduce", "reduce-scatter", "all-gather")}
+        model = None
+        if tr.shard_weight_update:
+            model = audit.zero_update_model_bytes(*tr._zero_split_bytes(),
+                                                  tr.dp)
+        runs[tag] = (params, mom_bytes, times, losses, start, state_bytes,
+                     moved, model)
+        del mom, aux, tr
+    pd, pz = runs["dp"][0], runs["zero"][0]
+    worst = 0.0
+    for a, z, s0 in zip(pd, pz, runs["dp"][4]):
+        upd = float((a - s0).abs().max())
+        err = float((a - z).abs().max())
+        if upd:
+            worst = max(worst, err / upd)
+    out["b"] = {"launches": dict(kernels.LAUNCHES), "worst": worst,
+                "equal": all(torch.equal(a, z) for a, z in zip(pd, pz)),
+                "digest": digest({str(i): p.cpu().numpy()
+                                  for i, p in enumerate(pz)}),
+                "mom_bytes": [runs["dp"][1], runs["zero"][1]],
+                "state_bytes": [runs["dp"][5], runs["zero"][5]],
+                "moved": [runs["dp"][6], runs["zero"][6]],
+                "model": runs["zero"][7],
+                "ms": [runs["dp"][2], runs["zero"][2]],
+                "loss": [runs["dp"][3], runs["zero"][3]], "dp": n}
+    del runs, pd, pz
+    torch.cuda.empty_cache()
+    geo = CRITEO
+    kernels.reset_launches()
+    embs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], spec,
+                                 name="table%d" % f)
+            for f in range(geo["tables"])]
+    state = tsp.recommender_state(embs, dense_dim=geo["dense"],
+                                  hidden=geo["hidden"], seed=0)
+    plain = MeshSpec(make_mesh((1,), ("dp",)))
+    pembs = [tsp.ShardedEmbedding(geo["rows"], geo["dim"], plain,
+                                  name="plain%d" % f)
+             for f in range(geo["tables"])]
+    ref = tsp.recommender_state(pembs, dense_dim=geo["dense"],
+                                hidden=geo["hidden"], seed=0)
+    step = tsp.make_recommender_step(embs, lr=geo["lr"],
+                                     momentum=geo["momentum"])
+    pstep = tsp.make_recommender_step(pembs, lr=geo["lr"],
+                                      momentum=geo["momentum"])
+    k = embs[0].rows_per_shard
+    rows = slice(r * k, (r + 1) * k)
+    gb = geo["batch"] // n
+    launches_c, losses, plosses = {}, [], []
+    touched = [torch.zeros(geo["rows"], dtype=torch.bool, device="cuda")
+               for _ in range(geo["tables"])]
+    for i in range(DIST_C["steps"]):
+        batch = rec_batch(torch, geo, 380 + i, "cuda")
+        for f, t in enumerate(touched):
+            t[batch["ids"][f].long()] = True
+        mine = {"ids": batch["ids"][:, r * gb:(r + 1) * gb],
+                "dense": batch["dense"][r * gb:(r + 1) * gb],
+                "label": batch["label"][r * gb:(r + 1) * gb]}
+        before = dict(kernels.LAUNCHES)
+        state, loss = step(state, mine)
+        losses.append(float(loss))
+        launches_c = {key: launches_c.get(key, 0) + v - before.get(key, 0)
+                      for key, v in kernels.LAUNCHES.items()}
+        ref, ploss = pstep(ref, batch)
+        plosses.append(float(ploss))
+    # duplicate ids' gradient rows sum through index_add_, whose atomics
+    # add in no fixed order on the card: touched rows agree to rounding,
+    # untouched rows bit for bit
+    worst, untouched_equal = 0.0, True
+    pairs = list(zip(state["tables"] + state["moms"],
+                     ref["tables"] + ref["moms"], touched + touched))
+    for a, whole, hit in pairs:
+        want, hit = whole[rows], hit[:whole.shape[0]][rows]
+        worst = max(worst, float((a - want).abs().max())
+                    / max(float(want.abs().max()), 1e-30))
+        untouched_equal &= bool(torch.equal(a[~hit], want[~hit]))
+    for key in ref["mlp"]:
+        a, want = state["mlp"][key], ref["mlp"][key]
+        worst = max(worst, float((a - want).abs().max())
+                    / max(float(want.abs().max()), 1e-30))
+    out["c"] = {"launches": launches_c, "worst": worst,
+                "untouched_equal": untouched_equal,
+                "touched": int(touched[0].sum()), "loss": losses,
+                "plain_loss": plosses, "dp": n, "rows": k}
+    return out
+
+
+def phase_dist_trainer_rec(torch, here, tmp, probe, card):
+    """38b and 38c over two NCCL ranks where two ranks can talk NCCL (two
+    cards), else the same code at dp 1 in a one-rank NCCL group, with the
+    reason printed; returns their launches, summed over the ranks."""
+    n = 2 if probe["collectives"].get("all_reduce") == "ok" else 1
+    res = dist_phase(here, n, "38bc", "nccl", tmp)
+    for g in res:
+        check(g["backend"] == "nccl" and g["nccl_check"] == float(n),
+              "38b: the NCCL group of %d did not run (%s)" % (n, g))
+    why = ""
+    if n == 1:
+        why = ("dp 2 was not run: NCCL refuses two ranks of one "
+               "communicator on one card (step 0: %s), and this machine "
+               "has %d card(s); it waits for a machine with two cards. The "
+               "same code at dp 1 over a one-rank NCCL group: "
+               % (probe["collectives"].get("all_reduce", "?")[:60],
+                  probe["device_count"]))
+    b = [g["b"] for g in res]
+    check(all(x["digest"] == b[0]["digest"] for x in b),
+          "38b: the ranks' ZeRO parameters differ")
+    for r, x in enumerate(b):
+        check(x["equal"] or x["worst"] <= 1e-5, "38b rank %d: the ZeRO run "
+              "differs from the plain dp run by %.3g of the largest update"
+              % (r, x["worst"]))
+        for key in FLASH_B12:
+            want = 2 * TRAIN["num_layers"] * DIST_B["steps"]
+            check(x["launches"][key] == want, "38b rank %d: %s launched %d "
+                  "times, want %d" % (r, key, x["launches"][key], want))
+        if n > 1:
+            check(x["mom_bytes"][1] * n <= x["mom_bytes"][0] * 1.04,
+                  "38b rank %d: ZeRO holds %d momentum bytes, the plain "
+                  "run %d" % (r, x["mom_bytes"][1], x["mom_bytes"][0]))
+            model, moved = x["model"], x["moved"][1]
+            check(moved["reduce-scatter"] == model["reduce-scatter"] and
+                  moved["all-gather"] == model["all-gather"],
+                  "38b rank %d: audit %s, zero_update_model_bytes %s"
+                  % (r, moved, model))
+    x = b[0]
+    log("38b %sShardedTrainer(local_batch=True) plain and ZeRO on "
+        "GPT-2-small at global batch %d over dp %d (NCCL), lr %g, momentum "
+        "%g, %d steps: step ms %s / %s, losses %s / %s, parameters %s; "
+        "momentum bytes a rank %d / %d, state bytes allocated a rank "
+        "(torch.cuda.memory_allocated) %d / %d; audit bytes of a step %s "
+        "/ %s, zero_update_model_bytes %s [%s]"
+        % (why, DIST_B["batch"], x["dp"], DIST_B["lr"], DIST_B["momentum"],
+           DIST_B["steps"], ", ".join("%.1f" % t for t in x["ms"][0]),
+           ", ".join("%.1f" % t for t in x["ms"][1]),
+           ", ".join("%.4f" % v for v in x["loss"][0]),
+           ", ".join("%.4f" % v for v in x["loss"][1]),
+           "bit-equal" if all(g["equal"] for g in b) else
+           "within %.3g of the largest update" % max(g["worst"] for g in b),
+           x["mom_bytes"][0], x["mom_bytes"][1], x["state_bytes"][0],
+           x["state_bytes"][1], x["moved"][0], x["moved"][1], x["model"],
+           card))
+    c = [g["c"] for g in res]
+    steps = DIST_C["steps"]
+    for r, x in enumerate(c):
+        check(x["untouched_equal"], "38c rank %d: an untouched row differs "
+              "from the one-process step's" % r)
+        check(x["worst"] <= 1e-6, "38c rank %d: the recommender over the dp "
+              "mesh differs from the one-process step by %.3g of a tensor's "
+              "largest magnitude" % (r, x["worst"]))
+        for got, want in zip(x["loss"], x["plain_loss"]):
+            check(abs(got - want) <= 1e-6 * abs(want), "38c rank %d: loss "
+                  "%r, the one-process step's %r" % (r, got, want))
+        check(x["launches"].get("embedding_gather") == 2 * steps,
+              "38c rank %d: embedding_gather launched %s times over %d "
+              "steps" % (r, x["launches"].get("embedding_gather"), steps))
+        check(x["launches"].get("embedding_scatter") == 2 * CRITEO["tables"]
+              * steps, "38c rank %d: embedding_scatter launched %s times"
+              % (r, x["launches"].get("embedding_scatter")))
+    log("38c %sthe recommender at the Criteo shape (26 tables x 1,000,000 x "
+        "64 f32, batch 8192) over the NCCL gang's dp mesh of %d (%d rows "
+        "of each table a rank), %d steps, losses %s within 1e-6 of one "
+        "process's step over a one-device mesh on the whole batch; every "
+        "untouched row bit-equal, every table, momentum and MLP tensor "
+        "within %.3g of its largest magnitude (tolerance 1e-6: duplicate "
+        "ids' rows sum through index_add_'s atomics); %d rows of table 0 "
+        "touched; B5/B6 launches a rank %s [%s]"
+        % (why, c[0]["dp"], c[0]["rows"], steps,
+           ", ".join("%.6f" % v for v in c[0]["loss"]),
+           max(x["worst"] for x in c), c[0]["touched"],
+           {k: v for k, v in c[0]["launches"].items() if v}, card))
+
+    def total(part):
+        out = {}
+        for g in res:
+            for key, v in g[part]["launches"].items():
+                out[key] = out.get(key, 0) + v
+        return out
+    return total("b"), total("c")
+
+
+def phase_dist_contexts(torch, mx, kernels, card):
+    """38d: ResNet-50 through a Module over two contexts (MXNet's
+    ``context=[gpu(0), gpu(1)]``; on one card ``gpu(0)`` twice, as the JAX
+    package accepts a repeated context: one executor each) at batch 32
+    split 16/16 with
+    ``KVStore("device")``, held to the rule the CPU lane tests: the store
+    sums the two executors' gradients and updates once."""
+    from mxnet_tpu_torch.models import resnet
+    D = DIST_D
+    B = D["batch"]
+    net = resnet.get_symbol(**RESNET50)
+    shapes = conv_net_shapes(RESNET50, B, "NCHW")
+    half = {k: (B // 2,) + tuple(v[1:]) for k, v in shapes.items()}
+    rs = np.random.RandomState(384)
+    X = rs.randn(D["steps"], *shapes["data"]).astype(np.float32)
+    Y = rs.randint(0, 1000, (D["steps"], B)).astype(np.float32)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ctxs = [mx.gpu(0), mx.gpu(min(1, torch.cuda.device_count() - 1))]
+        mod = mx.mod.Module(net, context=ctxs)
+        mod.bind([("data", shapes["data"])], [("softmax_label", (B,))])
+        mx.random.seed(0)
+        mod.init_params(initializer=mx.init.Xavier(magnitude=2))
+        args, auxs = mod.get_params()
+        args = {k: v.copy() for k, v in args.items()}
+        mod.init_optimizer(kvstore=mx.kv.create("device"), optimizer="sgd",
+                           optimizer_params={"learning_rate": D["lr"],
+                                             "momentum": D["momentum"]})
+        kernels.reset_launches()
+        times = []
+        for i in range(D["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(mx.io.DataBatch([mx.nd.array(
+                X[i], ctx=mx.cpu())], [mx.nd.array(Y[i], ctx=mx.cpu())]))
+            mod.update()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        got, _ = mod.get_params()
+        got = {k: v.asnumpy() for k, v in got.items()}
+        slices = [s.stop - s.start for s in mod._exec_group.slices]
+        del mod
+        ref = mx.mod.Module(net, context=mx.gpu(0))
+        ref.bind([("data", half["data"])], [("softmax_label", (B // 2,))])
+        ref.init_params(initializer=None, arg_params=args, aux_params=auxs)
+        ex = ref._exec_group.execs[0]
+        names = ref._exec_group.param_names
+        opt = mx.optimizer.create("sgd", sym=net,
+                                  param_idx2name=dict(enumerate(names)),
+                                  learning_rate=D["lr"],
+                                  momentum=D["momentum"],
+                                  rescale_grad=1.0 / B)
+        upd = mx.optimizer.get_updater(opt)
+        weights = {k: mx.nd.NDArray(ex.arg_dict[k]._handle.clone())
+                   for k in names}
+        for i in range(D["steps"]):
+            grads = []
+            for h in range(2):
+                sl = slice(h * B // 2, (h + 1) * B // 2)
+                for k in names:
+                    ex.arg_dict[k]._handle.copy_(weights[k]._handle)
+                ex.arg_dict["data"]._handle.copy_(torch.from_numpy(X[i][sl]))
+                ex.arg_dict["softmax_label"]._handle.copy_(
+                    torch.from_numpy(Y[i][sl]))
+                ex.run_fwd_bwd(is_train=True)
+                grads.append([ex.grad_dict[k]._handle.clone()
+                              for k in names])
+            for k, g0, g1 in zip(names, *grads):
+                upd(k, mx.nd.NDArray(g0 + g1), weights[k])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    worst, unequal = 0.0, 0
+    for k in names:
+        a, b = got[k], weights[k].asnumpy()
+        upd_mag = float(np.abs(b - args[k].asnumpy()).max())
+        err = float(np.abs(a - b).max())
+        unequal += int(err > 0)
+        if upd_mag:
+            worst = max(worst, err / upd_mag)
+    check(worst <= 1e-5, "38d: the two-context Module's weights differ "
+          "from the summed-gradient reference by %.3g of the largest "
+          "update" % worst)
+    log("38d Module(context=%s) over ResNet-50 at batch %d "
+        "split %s with KVStore('device'), cudnn deterministic, %d steps: "
+        "step ms %s; weights %s the one-context reference that sums the "
+        "two halves' gradients (%d of %d tensors not bit-equal, worst "
+        "%.3g of the largest update) [%s]"
+        % (ctxs, B, "/".join(map(str, slices)), D["steps"],
+           ", ".join("%.1f" % t for t in times),
+           "bit-equal to" if not unequal else "within 1e-5 of", unequal,
+           len(names), worst, card))
+    del ref, weights
+    torch.cuda.empty_cache()
+    return dict(kernels.LAUNCHES)
+
+
+def phase_dist(torch, mx, kernels, kv_mod, get_symbol, here, card):
+    """Phase 38; returns the launches of its paths."""
+    import tempfile
+    torch.cuda.empty_cache()
+    probes = {b: dist_probe(here, b) for b in ("nccl", "gloo")}
+    log("38 step 0 (tools/torch_dist_probe.py, two ranks, CUDA tensors): "
+        "%d card(s), NCCL %s: nccl %s; gloo %s [%s]"
+        % (probes["nccl"]["device_count"], probes["nccl"]["nccl"],
+           json.dumps(probes["nccl"]["collectives"]),
+           json.dumps(probes["gloo"]["collectives"]), card))
+    two_ranks_nccl = probes["nccl"]["collectives"].get("all_reduce") == "ok"
+    backend = "nccl" if two_ranks_nccl else "gloo"
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["a"] = phase_dist_module(torch, mx, kernels, kv_mod,
+                                          get_symbol, here, tmp, backend,
+                                          card)
+        launches["b"], launches["c"] = phase_dist_trainer_rec(
+            torch, here, tmp, probes["nccl"], card)
+    launches["d"] = phase_dist_contexts(torch, mx, kernels, card)
+    return launches
+
+
+def dist_worker(worker, outdir):
+    """``chip_smoke.py --dist-worker WORKER OUTDIR``: one rank of a phase
+    38 gang (started by tools/launch.py); writes its result to
+    ``OUTDIR/WORKER.r<rank>.json``."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from mxnet_tpu_torch import parallel
+    # a gang of one too (38b/38c on a machine with one card)
+    parallel.init_distributed(num_processes=int(os.environ[
+        "DMLC_NUM_WORKER"]))
+    torch.cuda.set_device(parallel.gang_device())
+    fn = {"38a": worker_38a, "38bc": worker_38bc}[worker]
+    res = fn(torch, parallel, here)
+    r = parallel.rank()
+    with open(os.path.join(outdir, "%s.r%d.json" % (worker, r)), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
 def main():
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2], sys.argv[3])
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -8620,6 +9264,14 @@ def main():
         kernels.reset_launches()
         phase_data_io(torch, mx, kernels, here, card)
         launches["data_io"] = dict(kernels.LAUNCHES)
+
+    with phase("38 data parallelism across processes: Module.fit through "
+               "dist_sync with 2-bit compression in two ranks, the dp and "
+               "ZeRO ShardedTrainer, the recommender over a dp mesh, a "
+               "Module over two contexts"):
+        for part, got in phase_dist(torch, mx, kernels, tkv, get_symbol,
+                                    here, card).items():
+            launches["dist_" + part] = got
 
     # -- report ---------------------------------------------------------------
     for r in rows:

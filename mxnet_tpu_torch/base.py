@@ -87,12 +87,29 @@ def armed_env(names):
     return armed
 
 
+def _gang_device():
+    """This rank's device inside a ``tools/launch.py`` gang, else None
+    (:func:`mxnet_tpu_torch.parallel.gang_device`)."""
+    import os
+    import sys
+    par = sys.modules.get("mxnet_tpu_torch.parallel")
+    if par is None:
+        if "MXNET_TPU_COORDINATOR" not in os.environ:
+            return None
+        from . import parallel as par
+    return par.gang_device()
+
+
 def resolve_device(device=None):
     """``None`` means the card: ``cuda`` if the process sees one, else a
-    typed :class:`DeviceUnavailable`.  An explicit device is taken as
+    typed :class:`DeviceUnavailable`; in a gang, the rank's own device
+    (its card, or the CPU under ``MXNET_TPU_DIST_DEVICE=cpu``).  An explicit device is taken as
     given (tests pass ``"cpu"``)."""
     import torch
     if device is None:
+        gang = _gang_device()
+        if gang is not None:
+            return gang
         if not torch.cuda.is_available():
             raise DeviceUnavailable(
                 "no CUDA device is visible; the port runs on the card "

@@ -97,7 +97,8 @@ class Context:
         ctx = getattr(cls._default_ctx, "value", None)
         if ctx is not None:
             return ctx
-        return Context("gpu", resolve_device(None).index)
+        dev = resolve_device(None)
+        return cpu() if dev.type == "cpu" else Context("gpu", dev.index)
 
 
 def cpu(device_id: int = 0) -> Context:

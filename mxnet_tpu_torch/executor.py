@@ -21,7 +21,7 @@ forward records the graph with autograd, and ``backward`` runs
 ``torch.autograd.grad`` over its outputs and writes the gradients into
 the bound gradient arrays; ``run_fwd_bwd`` does both at once (the Module
 path).  Monitor taps (``set_monitor_callback``, ROADMAP queue A item 9,
-observability) and ``ctx_group`` placement (item 7, distribution) raise
+observability) and ``ctx_group`` placement (item 7's second half) raise
 ``NotPortedYet``.
 
 Remat (the reference's ``MXNET_BACKWARD_DO_MIRROR``): a policy chosen by
@@ -541,9 +541,8 @@ class Executor:
                  aux_states=None, shared_exec=None, program=None,
                  group2ctx=None):
         if group2ctx:
-            raise NotPortedYet("ctx_group placement (group2ctx) is not "
-                               "ported yet (ROADMAP queue A item 7, "
-                               "distribution)")
+            raise NotPortedYet("ctx_group placement (group2ctx) is queue "
+                               "A item 7's second half")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else \
             context_of(as_torch_device(ctx))

@@ -1,21 +1,20 @@
 """DataParallelExecutorManager, the legacy executor manager (port of
 ``mxnet_tpu/executor_manager.py``; reference
 python/mxnet/executor_manager.py:295): a thin wrapper over the module
-layer's executor group, on one context.
+layer's executor group, one executor per context, the batch split by
+``work_load_list``.
 
-The default context is the card, as for ``Module``.  More than one
-context raises :class:`~mxnet_tpu_torch.base.NotPortedYet` (ROADMAP
-queue A item 7, distribution).
+The default context is the card, as for ``Module``.
 """
 from __future__ import annotations
 
 import logging
 
-from .base import NotPortedYet
 from .context import Context, current_context
-from .module.executor_group import DataParallelExecutorGroup
+from .module.executor_group import (DataParallelExecutorGroup,
+                                    _split_input_slice)
 
-__all__ = ["DataParallelExecutorManager"]
+__all__ = ["DataParallelExecutorManager", "_split_input_slice"]
 
 
 class DataParallelExecutorManager:
@@ -24,11 +23,8 @@ class DataParallelExecutorManager:
                  logger=None, sym_gen=None):
         ctx = current_context() if ctx is None else ctx
         ctx = [ctx] if isinstance(ctx, Context) else list(ctx)
-        if len(ctx) != 1:
-            raise NotPortedYet("DataParallelExecutorManager over %d "
-                               "contexts needs NCCL (ROADMAP queue A item "
-                               "7, distribution)" % len(ctx))
-        ctx[0].torch_device            # a missing card raises here
+        for c in ctx:
+            c.torch_device             # a missing card raises here
         self.symbol = symbol
         self.ctx = ctx
         self.arg_names = symbol.list_arguments()
@@ -41,8 +37,7 @@ class DataParallelExecutorManager:
             symbol, ctx, work_load_list, train_data.provide_data,
             train_data.provide_label, self.param_names, for_training=True,
             inputs_need_grad=False, logger=logger or logging)
-        batch = self.execgrp.batch_size
-        self.slices = [slice(0, batch)]
+        self.slices = self.execgrp.slices
 
     def install_monitor(self, monitor):
         self.execgrp.install_monitor(monitor)

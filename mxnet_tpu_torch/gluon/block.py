@@ -369,9 +369,11 @@ class HybridBlock(Block):
         flat_args, _ = _flatten(args, "input")
         arg_map = dict(zip(self._cached_input_names, flat_args))
         params = {p.name: p for p in self.collect_params().values()}
-        arg_nds = [arg_map[n] if n in arg_map else params[n].data()
+        ctx = getattr(getattr(flat_args[0], "_handle", None), "device",
+                      None) if flat_args else None
+        arg_nds = [arg_map[n] if n in arg_map else params[n].data(ctx)
                    for n in prog.arg_names]
-        aux_nds = [params[n].data() for n in prog.aux_names]
+        aux_nds = [params[n].data(ctx) for n in prog.aux_names]
         recording, train = _ag.is_recording(), _ag.is_training()
         if recording:
             tensors = [_ag._leaf_of(a) for a in arg_nds]
@@ -410,7 +412,8 @@ class HybridBlock(Block):
             from .. import ndarray as ndm
 
             def eager(x, *args):
-                params = {i: j.data() for i, j in self._reg_params.items()}
+                params = {i: j.data(x._handle.device)
+                          for i, j in self._reg_params.items()}
                 return self.hybrid_forward(ndm, x, *args, **params)
             return self._deferred_forward(eager, x, *args)
         assert isinstance(x, Symbol), \

@@ -2,16 +2,21 @@
 ``mxnet_tpu/gluon/parameter.py``; reference python/mxnet/gluon/
 parameter.py).
 
-A parameter holds one NDArray on one device (the reference's per-device
-copies are queue A item 7, distribution; ``list_data``/``list_ctx`` keep
-the API).  Its data is a marked variable of :mod:`mxnet_tpu_torch.
-autograd`: a recording op reads it as an autograd leaf, and
-``autograd.backward`` writes its gradient into the parameter's grad
-NDArray by ``grad_req``.  Initialization fills the array on the host with
-the port's initializers (the JAX package's draws) and moves it to the
-context given to ``initialize`` (default: the current context, the
-card).  A parameter of unknown shape defers its initialization to the
-first forward (``DeferredInitializationError`` until then).
+A parameter holds one NDArray per context it was initialized on (the
+reference's per-device copies; ``initialize(ctx=[...])``), with
+``list_data``/``list_grad``/``list_ctx`` in that order.  Each copy is a
+marked variable of :mod:`mxnet_tpu_torch.autograd` with its own gradient
+NDArray: a recording op reads it as an autograd leaf, and
+``autograd.backward`` writes its gradient by ``grad_req``.  ``data(ctx)``
+is the copy on ``ctx`` (a Block's forward asks for the copy on its
+input's context, so each slice of ``split_and_load`` meets its own
+copy; where two contexts name one torch device, the first copy serves
+both); a ``Trainer`` sums the copies' gradients and updates every copy
+alike.  Initialization fills the array on the host with the port's
+initializers (the JAX package's draws) and copies it to each context
+given to ``initialize`` (default: the current context, the card).  A
+parameter of unknown shape defers its initialization to the first
+forward (``DeferredInitializationError`` until then).
 ``ParameterDict.save``/``load`` write and read the reference's ``.params``
 bytes (:mod:`mxnet_tpu_torch.ndarray.serialization`), so either package
 loads what the other saved.
@@ -42,15 +47,8 @@ class DeferredInitializationError(MXNetError):
     initialization (its shape is known only at the first forward)."""
 
 
-def _one_ctx(ctx):
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            from ..base import NotPortedYet
-            raise NotPortedYet("a Parameter on several contexts is not "
-                               "ported yet (ROADMAP queue A item 7, "
-                               "distribution)")
-        ctx = ctx[0]
-    return ctx
+def _ctx_list(ctx):
+    return list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
 
 
 class Parameter:
@@ -63,8 +61,9 @@ class Parameter:
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
         self._var = None
-        self._data: Optional[NDArray] = None
-        self._grad: Optional[NDArray] = None
+        self._data_list: list = []
+        self._grad_list: list = []
+        self._ctx_list: list = []
         self._deferred_init = ()
         self._differentiable = differentiable
         self._allow_deferred_init = allow_deferred_init
@@ -86,6 +85,36 @@ class Parameter:
             self.name, self.shape, self.dtype)
 
     @property
+    def _data(self) -> Optional[NDArray]:
+        """The first copy (None before initialization)."""
+        return self._data_list[0] if self._data_list else None
+
+    @property
+    def _grad(self) -> Optional[NDArray]:
+        return self._grad_list[0] if self._grad_list else None
+
+    def _index(self, ctx):
+        """The copy on ``ctx`` (a Context, else anything with a torch
+        device): equal contexts first, then the same torch device, else
+        the current context's copy, else the first."""
+        if len(self._data_list) <= 1:
+            return 0
+        if ctx is None:
+            from ..context import Context
+            ctx = getattr(Context._default_ctx, "value", None)
+            if ctx is None:
+                return 0
+        for i, c in enumerate(self._ctx_list):
+            if c == ctx:
+                return i
+        from ..context import as_torch_device
+        dev = as_torch_device(ctx)
+        for i, d in enumerate(self._data_list):
+            if d._handle.device == dev:
+                return i
+        return 0
+
+    @property
     def grad_req(self):
         return self._grad_req
 
@@ -98,10 +127,11 @@ class Parameter:
             return
         self._grad_req = req
         if req == "null":
-            self._grad = None
-            if self._data is not None:
-                _ag.mark_variables([self._data], [None], "null")
-        elif self._data is not None:
+            self._grad_list = []
+            if self._data_list:
+                _ag.mark_variables(self._data_list,
+                                   [None] * len(self._data_list), "null")
+        elif self._data_list:
             self._init_grad()
 
     def _check_and_get(self, arr, ctx):
@@ -130,17 +160,26 @@ class Parameter:
             if isinstance(initializer, str):
                 initializer = init_create(initializer)
             initializer(InitDesc(self.name), host)
-            data = host.as_in_context(ctx)
-        self._init_impl(data)
+            data = host
+        self._init_impl(data, ctx)
 
-    def _init_impl(self, data):
-        self._data = data
+    def _init_impl(self, data, ctx):
+        """``data`` on the first context of ``ctx``, and a copy of it on
+        each of the others."""
+        from ..context import as_torch_device
+        self._ctx_list = _ctx_list(ctx)
+        first = data.as_in_context(self._ctx_list[0])
+        self._data_list = [first] + [
+            NDArray(first._handle.to(as_torch_device(c), copy=True))
+            for c in self._ctx_list[1:]]
+        self._grad_list = []
         if self._grad_req != "null":
             self._init_grad()
 
     def _init_grad(self):
-        self._grad = NDArray(torch.zeros_like(self._data._handle.detach()))
-        _ag.mark_variables([self._data], [self._grad],
+        self._grad_list = [NDArray(torch.zeros_like(d._handle.detach()))
+                           for d in self._data_list]
+        _ag.mark_variables(self._data_list, self._grad_list,
                            grad_reqs=self._grad_req)
 
     def initialize(self, init=None, ctx=None, default_init=None,
@@ -156,7 +195,7 @@ class Parameter:
                           "Set force_reinit=True to re-initialize."
                           % self.name, stacklevel=2)
             return
-        ctx = _one_ctx(ctx) if ctx is not None else current_context()
+        ctx = ctx if ctx is not None else current_context()
         if any(s <= 0 for s in (self.shape or (0,))):
             if self._allow_deferred_init:
                 self._deferred_init = (init, ctx, default_init, None)
@@ -168,12 +207,10 @@ class Parameter:
         self._finish_deferred_init()
 
     def reset_ctx(self, ctx):
-        """Move the data (and gradient) to ``ctx``."""
-        ctx = _one_ctx(ctx)
-        if self._data is not None:
-            self._data = self._data.as_in_context(ctx)
-            if self._grad_req != "null":
-                self._init_grad()
+        """Re-place the data (and gradient) on ``ctx`` (one context or
+        a list), from the first copy."""
+        if self._data_list:
+            self._init_impl(self._data_list[0], ctx)
         elif self._deferred_init:
             init, _, default_init, data = self._deferred_init
             self._deferred_init = (init, ctx, default_init, data)
@@ -194,8 +231,8 @@ class Parameter:
                 ctx = self._deferred_init[1] if self._deferred_init \
                     else current_context()
             self._deferred_init = ()
-            self._init_impl(nd_array(data, ctx=_one_ctx(ctx),
-                                     dtype=self.dtype))
+            self._init_impl(nd_array(data, ctx=_ctx_list(ctx)[0],
+                                     dtype=self.dtype), ctx)
         else:
             self.set_data(data)
 
@@ -208,7 +245,8 @@ class Parameter:
             self.shape = tuple(data.shape)
             init, ctx, default_init, _ = self._deferred_init
             self._deferred_init = (init, ctx, default_init,
-                                   nd_array(data, ctx=ctx, dtype=self.dtype))
+                                   nd_array(data, ctx=_ctx_list(ctx)[0],
+                                            dtype=self.dtype))
             self._finish_deferred_init()
             return
         if self.shape is not None and tuple(self.shape) != tuple(data.shape):
@@ -217,35 +255,42 @@ class Parameter:
                 % (self.name, self.shape, data.shape))
         src = data._handle if isinstance(data, NDArray) else \
             torch.from_numpy(np.ascontiguousarray(np.asarray(data)))
-        self._data._write(src.to(self._data._handle.device))
+        for d in self._data_list:
+            d._write(src.to(d._handle.device))
 
     def data(self, ctx=None) -> NDArray:
-        return self._check_and_get(self._data, ctx)
+        """The copy on ``ctx`` (None: the current context's, else the
+        first)."""
+        self._check_and_get(self._data, ctx)
+        return self._data_list[self._index(ctx)]
 
     def list_data(self):
-        return [self._check_and_get(self._data, None)]
+        self._check_and_get(self._data, None)
+        return list(self._data_list)
 
     def grad(self, ctx=None) -> NDArray:
         if self._data is not None and self._grad is None:
             raise RuntimeError(
                 "Cannot get gradient array for Parameter '%s' because "
                 "grad_req='null'" % self.name)
-        return self._check_and_get(self._grad, ctx)
+        self._check_and_get(self._grad, ctx)
+        return self._grad_list[self._index(ctx)]
 
     def list_grad(self):
-        return [self.grad()]
+        self.grad()
+        return list(self._grad_list)
 
     def list_ctx(self):
         if self._data is None:
             if self._deferred_init:
-                return [self._deferred_init[1]]
+                return _ctx_list(self._deferred_init[1])
             raise RuntimeError("Parameter '%s' has not been initialized"
                                % self.name)
-        return [self._data.context]
+        return list(self._ctx_list)
 
     def zero_grad(self):
-        if self._grad is not None:
-            self._grad[:] = 0
+        for g in self._grad_list:
+            g[:] = 0
 
     def var(self):
         """This parameter as a Symbol variable (shape, dtype and the
@@ -260,8 +305,8 @@ class Parameter:
         """Cast the data and gradient to ``dtype`` (the data stays a
         marked variable)."""
         self.dtype = dtype
-        if self._data is not None:
-            self._data = self._data.astype(dtype)
+        if self._data_list:
+            self._data_list = [d.astype(dtype) for d in self._data_list]
             if self._grad_req != "null":
                 self._init_grad()
 

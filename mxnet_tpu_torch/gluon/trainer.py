@@ -3,13 +3,16 @@
 trainer.py).
 
 The kvstore is made lazily at the first ``step`` through the port's
-``model._create_kvstore``, with the reference's rule: a store name on one
-device makes no store, so the optimizer runs locally key by key; a
-:class:`~mxnet_tpu_torch.kvstore.KVStore` object is used as given, with
+``model._create_kvstore``, with the reference's rule: a local store name
+for parameters on one context makes no store, so the optimizer runs
+locally key by key; parameters on several contexts (``initialize(ctx=
+[...])``) or a ``dist_*`` name make one, on the first context's device;
+a :class:`~mxnet_tpu_torch.kvstore.KVStore` object is used as given, with
 ``compression_params`` (two-bit compression on the card's kernel) and
-``update_on_kvstore`` (push the gradient and pull the weight per key, or
-reduce through the store and update locally).  Each parameter is one key,
-pushed and pulled in turn as the reference does.
+``update_on_kvstore`` (push the copies' gradients and pull the weight
+into every copy, per key, or reduce through the store and update each
+copy locally, one updater per context as the reference keeps).  Each
+parameter is one key, pushed and pulled in turn as the reference does.
 """
 from __future__ import annotations
 
@@ -56,14 +59,18 @@ class Trainer:
         else:
             self._optimizer = opt.create(optimizer, **kwargs)
         self._optimizer.param_dict = dict(enumerate(self._params))
-        self._updaters = opt.get_updater(self._optimizer)
+        self._updaters = [opt.get_updater(self._optimizer)]
         self._kv_request = (kvstore, update_on_kvstore)
         self._sync = None    # (store or None, update on the store)
 
     def _resolve_sync(self):
         want, on_kv_override = self._kv_request
+        ctxs = self._params[0].list_ctx() if self._params else [None]
+        self._updaters += [opt.get_updater(self._optimizer)
+                           for _ in ctxs[len(self._updaters):]]
         store, on_kv = _create_kvstore(
-            want, 1, {p.name: p.data() for p in self._params})
+            want, len(ctxs), {p.name: p.data() for p in self._params},
+            device=ctxs[0].torch_device if ctxs[0] is not None else None)
         if on_kv_override is not None:
             on_kv = on_kv_override
         if store is not None:
@@ -128,7 +135,9 @@ class Trainer:
                 store.push(idx, p.list_grad(), priority=-idx)
                 store.pull(idx, p.list_data(), priority=-idx)
             else:
-                self._updaters(idx, p.grad(), p.data())
+                for upd, g, w in zip(self._updaters, p.list_grad(),
+                                     p.list_data()):
+                    upd(idx, g, w)
 
     def save_states(self, fname):
         store, on_kv = self._ready
@@ -136,7 +145,7 @@ class Trainer:
             store.save_optimizer_states(fname, dump_optimizer=True)
         else:
             with open(fname, "wb") as f:
-                f.write(self._updaters.get_states(dump_optimizer=True))
+                f.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
         store, on_kv = self._ready
@@ -145,5 +154,7 @@ class Trainer:
             self._optimizer = store._updater.optimizer
         else:
             with open(fname, "rb") as f:
-                self._updaters.set_states(f.read())
-            self._updaters.optimizer = self._optimizer
+                states = f.read()
+            for upd in self._updaters:
+                upd.set_states(states)
+                upd.optimizer = self._optimizer

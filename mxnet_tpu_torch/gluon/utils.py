@@ -1,8 +1,7 @@
 """Gluon helpers (port of ``mxnet_tpu/gluon/utils.py``; reference
-python/mxnet/gluon/utils.py): ``split_data``, ``split_and_load`` (several
-contexts are ROADMAP queue A item 7, distribution), ``clip_global_norm``
-and ``check_sha1``.  ``download`` raises, as the JAX package's does: the
-environment has no network."""
+python/mxnet/gluon/utils.py): ``split_data``, ``split_and_load``,
+``clip_global_norm`` and ``check_sha1``.  ``download`` raises, as the
+JAX package's does: the environment has no network."""
 from __future__ import annotations
 
 import hashlib
@@ -11,7 +10,6 @@ import warnings
 
 import numpy as np
 
-from ..base import NotPortedYet
 from ..ndarray.ndarray import array as nd_array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
@@ -44,17 +42,18 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """``data`` (an NDArray or numpy) on the one context of
-    ``ctx_list``.  A batch in pinned host memory (a data loader's) goes
-    to the card without blocking the host and without being pinned
-    again (``NDArray.as_in_context``)."""
-    if len(ctx_list) != 1:
-        raise NotPortedYet("split_and_load over several contexts is not "
-                           "ported yet (ROADMAP queue A item 7, "
-                           "distribution)")
+    """``data`` (an NDArray or numpy) cut by :func:`split_data` into one
+    chunk per context of ``ctx_list``, each on its context.  A batch in
+    pinned host memory (a data loader's) goes to the card without
+    blocking the host and without being pinned again
+    (``NDArray.as_in_context``)."""
     if isinstance(data, np.ndarray):
-        return [nd_array(data, ctx=ctx_list[0])]
-    return [data.as_in_context(ctx_list[0])]
+        data = nd_array(data, ctx="cpu")
+    if len(ctx_list) == 1:
+        return [data.as_in_context(ctx_list[0])]
+    chunks = split_data(data, len(ctx_list), batch_axis, even_split)
+    return [chunk.as_in_context(ctx) for chunk, ctx in zip(chunks,
+                                                           ctx_list)]
 
 
 def clip_global_norm(arrays, max_norm):

@@ -31,9 +31,22 @@ dense or row_sparse value, into a row_sparse out or into a dense out whose
 other rows become zero.  On the card its row gathers and writes run the
 embedding kernels B5 and B6.
 
-Not ported yet: the ``dist_*`` stores, their sparse paths among them
-(ROADMAP queue A item 7, distribution: NCCL), raising
-:class:`~mxnet_tpu_torch.base.NotPortedYet`.
+The ``dist_*`` stores (:class:`KVStoreDist`) span the processes of a
+``tools/launch.py`` gang over ``torch.distributed`` (NCCL between cards,
+gloo on the CPU; :func:`~mxnet_tpu_torch.parallel.init_distributed`),
+one store per rank on the rank's device.  ``dist_sync`` and
+``dist_device_sync`` first do the local push (the sum over the rank's
+devices and its two-bit compression, one grouped B7 launch per dtype),
+then sum each key over the ranks: one all-reduce per dtype over a flat
+buffer of the dense keys, :func:`~mxnet_tpu_torch.parallel.
+allreduce_row_sparse` for a row_sparse value; the updater then runs on
+every rank alike, as MXNet's workers each pull the server's sum.
+``dist_async`` (:class:`KVStoreDistAsync`) is the JAX package's
+collective lane: each rank updates with its own gradients and every
+``MXNET_TPU_ASYNC_AVG_INTERVAL`` pushes of a key the stored values are
+averaged over the ranks.  Its parameter-server lane (``MXNET_TPU_KV_DIR``,
+``kvstore/{server,client,protocol,worker}.py``) is queue A item 7's second
+half, and the heartbeat lane of ``num_dead_node`` is item 8.
 """
 from __future__ import annotations
 
@@ -50,7 +63,7 @@ from ..ndarray.sparse import RowSparseNDArray
 from ..ops import kernels
 from .. import telemetry
 
-__all__ = ["KVStore", "create"]
+__all__ = ["KVStore", "KVStoreDist", "KVStoreDistAsync", "create"]
 
 _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
                 "local_allreduce_device", "device", "nccl", "tpu")
@@ -177,6 +190,7 @@ class KVStore:
                     [keys[i] for i in dense], [merged[i] for i in dense])
                 for i, q in zip(dense, qs):
                     merged[i] = q
+            merged = self._across_ranks(keys, merged)
             for k, m in zip(keys, merged):
                 stored = self._store[k]
                 dev = stored._data.device \
@@ -266,6 +280,10 @@ class KVStore:
         _sparse._set_rows(t, uniq.to(t.device), data.to(t.device))
         if t is not o._handle:
             o._handle, o._recorded = t, False
+
+    def _across_ranks(self, keys, merged):
+        """The reduction across processes: none for a local store."""
+        return merged
 
     # -- updater/optimizer ------------------------------------------------
     def set_updater(self, updater):
@@ -364,16 +382,156 @@ class KVStore:
                       for v in value]
 
 
+class KVStoreDist(KVStore):
+    """``dist_sync`` / ``dist_device_sync`` over the ranks of a gang
+    (reference kvstore_dist.h; the JAX package's ``KVStoreTPUDist``): a
+    push is the local push, then the sum over the ranks.  With one
+    process it is a local store."""
+
+    def __init__(self, kv_type="dist_sync", device=None):
+        from .. import parallel
+        parallel.init_distributed(device=device)
+        super().__init__(kv_type, device=device)
+
+    @property
+    def rank(self) -> int:
+        from ..parallel import rank
+        return rank()
+
+    @property
+    def num_workers(self) -> int:
+        from ..parallel import world_size
+        return world_size()
+
+    def barrier(self):
+        from ..parallel import barrier
+        barrier()
+
+    def num_dead_node(self, node_id=0, timeout_sec=60):
+        """The coordinator probe (reference kvstore.h:338): a bounded
+        write, read and delete of one per-rank key on the gang's
+        ``TCPStore``; an unreachable coordinator counts as one dead node.
+        No collective is issued.  The heartbeat lane that counts silent
+        peers is queue A item 8."""
+        if self.num_workers <= 1:
+            return 0
+        import datetime
+        from ..parallel import store
+        st = store()
+        key = "mxt_dead_probe/%d" % self.rank
+        saved = st.timeout
+        try:
+            st.set_timeout(datetime.timedelta(seconds=float(timeout_sec)))
+            st.set(key, "1")
+            st.get(key)
+            st.delete_key(key)
+        except Exception:  # noqa: BLE001 - an unreachable coordinator
+            return 1
+        finally:
+            st.set_timeout(saved)
+        return 0
+
+    def _across_ranks(self, keys, merged):
+        """Each key's value summed over the ranks: the dense ones in one
+        all-reduce per dtype over a flat buffer, each row_sparse one by
+        :func:`~mxnet_tpu_torch.parallel.allreduce_row_sparse`."""
+        if self.num_workers <= 1:
+            return merged
+        from ..parallel import allreduce_many, allreduce_row_sparse
+        merged = list(merged)
+        dense = [i for i, m in enumerate(merged)
+                 if not isinstance(m, RowSparseNDArray)]
+        summed = allreduce_many([merged[i] for i in dense],
+                                "KVStoreDist.push")
+        for i, m in zip(dense, summed):
+            merged[i] = m
+        for i, m in enumerate(merged):
+            if isinstance(m, RowSparseNDArray):
+                merged[i] = allreduce_row_sparse(m)
+        return merged
+
+
+class KVStoreDistAsync(KVStoreDist):
+    """``dist_async`` on collectives (the JAX package's
+    ``KVStoreTPUDistAsync``; reference kvstore_dist_server.h:503 applies
+    each worker's push as it arrives): a push updates with this rank's
+    own gradients, no reduction across ranks and no barrier, and every
+    ``MXNET_TPU_ASYNC_AVG_INTERVAL`` pushes of a key (default 16) its
+    stored value is averaged over the ranks.  Between rounds the ranks
+    hold different values, stale by at most the interval; every rank
+    must push each key equally often.  :meth:`sync_weights` averages
+    every key once (before a checkpoint)."""
+
+    def __init__(self, kv_type="dist_async", device=None):
+        import os
+        super().__init__(kv_type, device=device)
+        self._avg_interval = int(
+            os.environ.get("MXNET_TPU_ASYNC_AVG_INTERVAL", "16"))
+        self._push_counts: Dict[str, int] = {}
+
+    def _across_ranks(self, keys, merged):
+        return merged
+
+    def push(self, key, value, priority=0):
+        super().push(key, value, priority)
+        if self.num_workers <= 1 or self._avg_interval <= 0:
+            return
+        keys, _ = self._normalize_push(key, value)
+        for k in keys:
+            c = self._push_counts.get(k, 0) + 1
+            self._push_counts[k] = c
+            if c % self._avg_interval == 0:
+                self._average_key(k)
+
+    def _average_key(self, k):
+        from ..parallel import allreduce_array, allreduce_row_sparse
+        stored = self._store[k]
+        if isinstance(stored, RowSparseNDArray):
+            # union-sum, then each row over the number of ranks that
+            # hold it (a row on k < N ranks averaged over N would shrink)
+            avg = allreduce_row_sparse(stored)
+            ones = torch.zeros((stored.shape[0],), dtype=torch.float32,
+                               device=stored._data.device)
+            ones[stored._indices.long()] = 1.0
+            counts = allreduce_array(ones)
+            denom = counts[avg._indices.long()].clamp_min(1.0)
+            self._store[k] = RowSparseNDArray(
+                avg._data / denom.reshape((-1,) + (1,) * (
+                    avg._data.dim() - 1)).to(avg._data.dtype),
+                avg._indices, avg.shape, _sorted=True)
+        else:
+            stored._handle.copy_(allreduce_array(stored._handle)
+                                 / self.num_workers)
+
+    def sync_weights(self):
+        """Average every stored value over the ranks once (a collective:
+        every rank calls it), in insertion order, the same on every
+        rank."""
+        if self.num_workers <= 1:
+            return
+        for k in list(self._store):
+            self._average_key(k)
+
+
 def create(name="local", device=None) -> KVStore:
-    """A store of a local type on ``device`` (default: the card; a typed
-    ``DeviceUnavailable`` without one).  The ``dist_*`` types raise
-    ``NotPortedYet`` (ROADMAP queue A item 7)."""
+    """A store of ``name`` on ``device`` (default: the card, or in a gang
+    the rank's device; a typed ``DeviceUnavailable`` without one;
+    reference src/kvstore/kvstore.cc:40-75).  A ``dist_*`` type joins the
+    gang (:func:`~mxnet_tpu_torch.parallel.init_distributed`);
+    ``dist_async`` with ``MXNET_TPU_KV_DIR`` set (the parameter-server
+    lane) raises ``NotPortedYet``."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     if name in _LOCAL_TYPES:
         return KVStore(name, device=device)
+    if name == "dist_async":
+        import os
+        if os.environ.get("MXNET_TPU_KV_DIR"):
+            raise NotPortedYet("kvstore 'dist_async' with MXNET_TPU_KV_DIR: "
+                               "the parameter-server lane (kvstore/{server,"
+                               "client,protocol,worker}.py) is queue A item "
+                               "7's second half")
+        return KVStoreDistAsync(name, device=device)
     if name.startswith("dist"):
-        raise NotPortedYet("kvstore %r: distributed stores, their sparse "
-                           "paths among them, need NCCL (ROADMAP queue A "
-                           "item 7, distribution)" % name)
+        return KVStoreDist(name, device=device)
     raise MXNetError("unknown KVStore type %s" % name)

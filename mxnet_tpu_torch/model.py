@@ -39,8 +39,10 @@ BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
 
 
-def _create_kvstore(kvstore, num_device, arg_params):
-    """``(store or None, update_on_kvstore)`` (reference model.py:58)."""
+def _create_kvstore(kvstore, num_device, arg_params, device=None):
+    """``(store or None, update_on_kvstore)`` (reference model.py:58); a
+    store made here lives on ``device`` (None: the card, or in a gang the
+    rank's device)."""
     update_on_kvstore = True
     if kvstore is None:
         kv = None
@@ -50,7 +52,7 @@ def _create_kvstore(kvstore, num_device, arg_params):
         if num_device == 1 and "dist" not in kvstore:
             kv = None
         else:
-            kv = kvs.create(kvstore)
+            kv = kvs.create(kvstore, device=device)
             if kvstore == "local":
                 max_size = max(np.prod(param.shape)
                                for param in arg_params.values())

@@ -1,23 +1,28 @@
-"""DataParallelExecutorGroup for one context (port of
-``mxnet_tpu/module/executor_group.py``; reference
-python/mxnet/module/executor_group.py:129).
+"""DataParallelExecutorGroup: one executor per context, the batch split
+between them (port of ``mxnet_tpu/module/executor_group.py``; reference
+python/mxnet/module/executor_group.py:129, decide_slices :267).
 
-One :class:`~mxnet_tpu_torch.executor.Executor` bound on the context's
-device.  A batch is fed by copying each host array into the input array
-the executor bound (``copy_``, ``non_blocking`` from pinned host memory
-when the executor is on the card): nothing is rebound, so the step reads
-the same device buffers every time.
+One :class:`~mxnet_tpu_torch.executor.Executor` is bound on each
+context's device for its slice of the batch, cut by ``work_load_list``
+(``_split_input_slice``, the reference's rounding).  A batch is fed by
+copying each host array's slice into the input array that executor bound
+(``copy_``, ``non_blocking`` from pinned host memory when the executor is
+on the card): nothing is rebound, so each step reads the same device
+buffers every time.  The same context may come twice (two executors on
+one card).  ``get_outputs(merge_multi_context=True)`` concatenates the
+executors' outputs on the first one's device; ``get_params`` averages the
+executors' copies, as the reference does.  Each executor keeps its own
+BatchNorm statistics (MXNet's per-device statistics, as the JAX
+package's executor group).
 
-A ``shared_group`` (a bucket of a ``BucketingModule``) binds its
+A ``shared_group`` (a bucket of a ``BucketingModule``) binds each
 executor over the shared group's parameter, gradient and auxiliary
-NDArrays, by name (reference ``bind_exec``): every bucket reads and
-writes the same tensors, so an update through any bucket is the update
-of all.
+NDArrays of the same position, by name (reference ``bind_exec``): every
+bucket reads and writes the same tensors.
 
-A context list longer than one raises
-:class:`~mxnet_tpu_torch.base.NotPortedYet`: data parallelism over cards
-waits for NCCL (ROADMAP queue A item 7, distribution); so does
-``group2ctxs``.
+``group2ctxs`` (ctx_group placement) raises
+:class:`~mxnet_tpu_torch.base.NotPortedYet`: queue A item 7's second
+half.
 """
 from __future__ import annotations
 
@@ -39,24 +44,37 @@ def _descs(shapes):
             for x in (shapes or [])]
 
 
+def _split_input_slice(batch_size: int, work_load_list) -> List[slice]:
+    """The reference's ``executor_manager._split_input_slice``: each
+    context's rows, by ``round(batch * w / total)``, the last taking the
+    rest."""
+    total = sum(work_load_list)
+    if batch_size < len(work_load_list):
+        raise ValueError("Too many slices. Some splits are empty.")
+    slices, start = [], 0
+    for i, w in enumerate(work_load_list):
+        end = batch_size if i == len(work_load_list) - 1 else \
+            start + int(round(batch_size * w / total))
+        slices.append(slice(start, end))
+        start = end
+    return slices
+
+
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None, group2ctxs=None):
-        if len(contexts) != 1:
-            raise NotPortedYet("a Module over %d contexts: data parallelism "
-                               "over cards needs NCCL (ROADMAP queue A "
-                               "item 7, distribution)" % len(contexts))
         if group2ctxs:
-            raise NotPortedYet("group2ctxs is not ported yet (ROADMAP "
-                               "queue A item 7, distribution)")
+            raise NotPortedYet("group2ctxs (ctx_group placement) is queue A "
+                               "item 7's second half")
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.symbol = symbol
         self.contexts = contexts
-        self.workload = workload or [1]
+        self.workload = list(workload or [1] * len(contexts))
+        self.slices: List[slice] = []
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self.logger = logger
@@ -85,19 +103,23 @@ class DataParallelExecutorGroup:
         self.data_shapes = _descs(data_shapes)
         self.label_shapes = _descs(label_shapes)
         self.batch_size = self.data_shapes[0].shape[0]
-        shapes = {d.name: d.shape for d in self.data_shapes
-                  + self.label_shapes}
+        self.slices = _split_input_slice(self.batch_size, self.workload)
         types = {d.name: d.dtype for d in self.data_shapes
                  + self.label_shapes}
-        if reshape and self.execs:
-            self.execs = [self.execs[0].reshape(**shapes)]
-        else:
-            shared = shared_group.execs[0] if shared_group is not None \
-                and shared_group.execs else None
-            self.execs = [Executor.simple_bind(
-                self.symbol, self.contexts[0], grad_req=self.grad_req,
-                type_dict=types, shared_exec=shared,
-                shared_arg_names=self.param_names, **shapes)]
+        execs = []
+        for i, (ctx, sl) in enumerate(zip(self.contexts, self.slices)):
+            shapes = {d.name: (sl.stop - sl.start,) + tuple(d.shape[1:])
+                      for d in self.data_shapes + self.label_shapes}
+            if reshape and len(self.execs) == len(self.contexts):
+                execs.append(self.execs[i].reshape(**shapes))
+                continue
+            shared = shared_group.execs[i] if shared_group is not None \
+                and i < len(shared_group.execs) else None
+            execs.append(Executor.simple_bind(
+                self.symbol, ctx, grad_req=self.grad_req, type_dict=types,
+                shared_exec=shared, shared_arg_names=self.param_names,
+                **shapes))
+        self.execs = execs
 
     def reshape(self, data_shapes, label_shapes):
         self.bind_exec(data_shapes, label_shapes, reshape=True)
@@ -108,32 +130,40 @@ class DataParallelExecutorGroup:
                                 allow_extra_params=allow_extra)
 
     def get_params(self, arg_params, aux_params):
-        """Put host copies of the executor's parameters into the dicts
-        (new NDArrays: an array a caller took from an earlier call keeps
-        its values; reference executor_group.py:376)."""
-        ex = self.execs[0]
-        for names, src, dst in ((self.param_names, ex.arg_dict, arg_params),
-                                (self.aux_names, ex.aux_dict, aux_params)):
+        """Put host copies of the executors' parameters into the dicts,
+        averaged over the executors (new NDArrays: an array a caller took
+        from an earlier call keeps its values; reference
+        executor_group.py:376)."""
+        for names, attr, dst in ((self.param_names, "arg_dict", arg_params),
+                                 (self.aux_names, "aux_dict", aux_params)):
             for name in names:
-                if name in src:
-                    dst[name] = NDArray(src[name]._handle.to("cpu",
-                                                             copy=True))
+                arrs = [getattr(ex, attr)[name]._handle for ex in self.execs
+                        if name in getattr(ex, attr)]
+                if not arrs:
+                    continue
+                host = arrs[0].to("cpu", copy=True)
+                if len(arrs) > 1:
+                    host = torch.stack([a.to("cpu") for a in arrs]).mean(
+                        0).to(host.dtype)
+                dst[name] = NDArray(host)
 
     def _slice_batch(self, arrays, names):
-        """Copy host batch arrays into the executor's bound inputs without
-        blocking: a batch already in pinned memory (a data-IO iterator's)
-        is copied as it is, any other host batch is pinned first."""
-        ex = self.execs[0]
+        """Copy each executor's rows of the host batch arrays into its
+        bound inputs without blocking: a batch already in pinned memory (a
+        data-IO iterator's) is copied as it is, any other host batch is
+        pinned first."""
         for name, arr in zip(names, arrays):
-            tgt = ex.arg_dict.get(name)
-            if tgt is None:
-                continue
             src = arr._handle if isinstance(arr, NDArray) else \
                 torch.as_tensor(arr)
-            if tgt._handle.device.type == "cuda" and \
-                    src.device.type == "cpu" and not src.is_pinned():
-                src = src.pin_memory()
-            tgt._handle.copy_(src, non_blocking=True)
+            for ex, sl in zip(self.execs, self.slices):
+                tgt = ex.arg_dict.get(name)
+                if tgt is None:
+                    continue
+                part = src if len(self.execs) == 1 else src[sl]
+                if tgt._handle.device.type == "cuda" and \
+                        part.device.type == "cpu" and not part.is_pinned():
+                    part = part.pin_memory()
+                tgt._handle.copy_(part, non_blocking=True)
 
     def _load_batch(self, data_batch):
         self._slice_batch(data_batch.data,
@@ -145,25 +175,55 @@ class DataParallelExecutorGroup:
     def forward(self, data_batch, is_train=None):
         """reference executor_group.py:422"""
         self._load_batch(data_batch)
-        self.execs[0].forward(is_train=self.for_training
-                              if is_train is None else is_train)
+        for ex in self.execs:
+            ex.forward(is_train=self.for_training
+                       if is_train is None else is_train)
 
     def forward_backward(self, data_batch):
-        """Forward and backward of one batch on the executor."""
+        """Forward and backward of one batch on every executor."""
         self._load_batch(data_batch)
-        self.execs[0].run_fwd_bwd(is_train=True)
+        for ex in self.execs:
+            ex.run_fwd_bwd(is_train=True)
 
     def backward(self, out_grads=None):
-        """reference executor_group.py:554"""
+        """reference executor_group.py:554: each executor takes its rows
+        of ``out_grads``."""
         if not self.for_training:
             raise RuntimeError("re-bind with for_training=True")
-        self.execs[0].backward(out_grads=out_grads)
+        for ex, sl in zip(self.execs, self.slices):
+            og = out_grads
+            if out_grads is not None and len(self.execs) > 1:
+                og = [NDArray(g._handle[sl].to(ex._ctx.torch_device))
+                      if isinstance(g, NDArray) else g[sl]
+                      for g in out_grads]
+            ex.backward(out_grads=og)
+
+    def _merge(self, per_exec):
+        """Per output, the executors' arrays concatenated along the batch
+        on the first executor's device."""
+        out = []
+        for parts in zip(*per_exec):
+            dev = parts[0]._handle.device
+            out.append(NDArray(torch.cat([p._handle.to(dev)
+                                          for p in parts])))
+        return out
 
     def get_outputs(self, merge_multi_context=True):
-        return self.execs[0].outputs
+        if len(self.execs) == 1:
+            return self.execs[0].outputs
+        per = [ex.outputs for ex in self.execs]
+        if merge_multi_context:
+            return self._merge(per)
+        return [list(parts) for parts in zip(*per)]
 
     def get_input_grads(self, merge_multi_context=True):
-        return [self.execs[0].grad_dict[d.name] for d in self.data_shapes]
+        per = [[ex.grad_dict[d.name] for d in self.data_shapes]
+               for ex in self.execs]
+        if len(self.execs) == 1:
+            return per[0]
+        if merge_multi_context:
+            return self._merge(per)
+        return [list(parts) for parts in zip(*per)]
 
     def update_metric(self, eval_metric, labels):
         """Through ``update_dict`` with the outputs' and labels' names

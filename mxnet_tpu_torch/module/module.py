@@ -1,14 +1,20 @@
-"""Module: one Symbol, an executor group that runs it on one card, and an
-optimizer loop (port of ``mxnet_tpu/module/module.py``; reference
+"""Module: one Symbol, an executor group that runs it on its contexts,
+and an optimizer loop (port of ``mxnet_tpu/module/module.py``; reference
 python/mxnet/module/module.py: bind :363, init_optimizer :472, forward
 :570, backward :612, update :629).
 
-The default context is the card (``current_context()``; a typed
-``DeviceUnavailable`` without one); tests pass ``context=mx.cpu()``.
-The module keeps host copies of the parameters (``get_params``) and the
-executor the device ones.  ``init_optimizer`` creates or adopts the
-store, hands it ``compression_params`` and seeds it; every ``update()``
-then pushes each gradient and pulls the new weight, or updates locally.
+The default context is the card (``current_context()``, in a gang the
+rank's device; a typed ``DeviceUnavailable`` without one); tests pass
+``context=mx.cpu()``.  A list of contexts binds one executor per context,
+the batch split by ``work_load_list`` (MXNet's ``context=[mx.gpu(i) for
+i in range(n)]``); the store then sums the executors' gradients.  The
+module keeps host copies of the parameters (``get_params``) and the
+executors the device ones.  ``init_optimizer`` creates or adopts the
+store (a local one on the first context's device, or a ``dist_*`` one
+across the gang, which scales ``rescale_grad`` by the global batch: the
+rank's batch times ``num_workers``), hands it ``compression_params`` and
+seeds it; every ``update()`` then pushes each gradient and pulls the new
+weight, or updates locally.
 
 Stated difference from the JAX package: ``reshape`` (a batch of another
 size) shares the bound parameter arrays with the new executor, as the
@@ -26,8 +32,8 @@ optimizer state of a parameter is one, whichever module updates it):
 the two halves of ``BucketingModule``.
 
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
-and naming its ROADMAP queue A item: more than one context
-(distribution), monitors, ``MXNET_TPU_PREFLIGHT`` and
+and naming its ROADMAP queue A item: ``group2ctxs`` (item 7's second
+half), monitors, ``MXNET_TPU_PREFLIGHT`` and
 ``MXNET_TPU_ATTRIBUTION`` (observability), the ``grad_guard`` of
 ``init_optimizer`` (resilience).
 
@@ -90,13 +96,14 @@ class Module(BaseModule):
         super().__init__(logger=logger)
         ctxs = context if context is not None else current_context()
         self._context = [ctxs] if isinstance(ctxs, Context) else list(ctxs)
-        if len(self._context) != 1:
-            raise NotPortedYet("a Module over %d contexts: data parallelism "
-                               "over cards needs NCCL (ROADMAP queue A "
-                               "item 7, distribution)" % len(self._context))
-        self._context[0].torch_device     # a missing card raises here
+        for c in self._context:
+            c.torch_device                # a missing card raises here
         self._work_load_list = (work_load_list if work_load_list is not None
                                 else [1] * len(self._context))
+        if len(self._work_load_list) != len(self._context):
+            raise ValueError("work_load_list has %d entries for %d contexts"
+                             % (len(self._work_load_list),
+                                len(self._context)))
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -151,7 +158,8 @@ class Module(BaseModule):
         inferred from the bound input shapes (so that a module chained
         after this one can bind before any forward)."""
         self._require(bound=True)
-        outs = self._exec_group.execs[0].outputs
+        outs = self._exec_group.get_outputs() \
+            if self._exec_group.execs[0].outputs else None
         if not outs:
             shapes = {d.name: d.shape for d in self._data_shapes
                       + (self._label_shapes or [])}
@@ -274,11 +282,11 @@ class Module(BaseModule):
             group2ctxs=self._group2ctxs)
         self.binded = True
         from ..telemetry import memory as _memory
-        ex = self._exec_group.execs[0]
-        _memory.tag([a._handle for a in ex.arg_arrays + ex.aux_arrays],
-                    "params", label="Module.arg")
-        _memory.tag([g._handle for g in ex.grad_arrays if g is not None],
-                    "activations", label="Module.grad")
+        for ex in self._exec_group.execs:
+            _memory.tag([a._handle for a in ex.arg_arrays + ex.aux_arrays],
+                        "params", label="Module.arg")
+            _memory.tag([g._handle for g in ex.grad_arrays if g is not None],
+                        "activations", label="Module.grad")
         if shared_module is not None:
             self._arg_params = shared_module._arg_params
             self._aux_params = shared_module._aux_params
@@ -319,7 +327,8 @@ class Module(BaseModule):
         if self._params_dirty:
             self._sync_params_from_devices()
         kvstore, update_on_kvstore = _create_kvstore(
-            kvstore, len(self._context), self._arg_params)
+            kvstore, len(self._context), self._arg_params,
+            device=self._context[0].torch_device)
         batch = self._exec_group.batch_size
         if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
             batch *= kvstore.num_workers
@@ -373,12 +382,11 @@ class Module(BaseModule):
 
     def _exec_group_param_arrays(self):
         """Per parameter, the list of its per-device arrays."""
-        ex = self._exec_group.execs[0]
-        return [[ex.arg_dict[name]] for name in self._exec_group.param_names]
+        return [[ex.arg_dict[name] for ex in self._exec_group.execs]
+                for name in self._exec_group.param_names]
 
     def _exec_group_grad_arrays(self):
-        ex = self._exec_group.execs[0]
-        return [[ex.grad_dict.get(name)]
+        return [[ex.grad_dict.get(name) for ex in self._exec_group.execs]
                 for name in self._exec_group.param_names]
 
     # -- the train step ---------------------------------------------------

@@ -411,7 +411,8 @@ def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
     ``fix_gamma`` takes gamma as ones, so its gradient is 0.  The
     normalisation is ``F.batch_norm`` (cuDNN on the card) with the
     channel axis moved to 1, and no running statistics handed to it: it
-    would move them with the unbiased variance."""
+    would move them with the unbiased variance.  Under a dp trainer the
+    statistics are the global batch's (:func:`_batch_norm_global`)."""
     ax = attrs.axis % x.dim()
     train = attrs.get("_train", False) and not attrs.use_global_stats
     xf = x.float().movedim(ax, 1)
@@ -421,7 +422,13 @@ def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
     g = torch.ones_like(gamma, dtype=torch.float32) if attrs.fix_gamma \
         else gamma.float()
     beta = beta.float()
-    if train:
+    if train and _dp_global_batch():
+        # data parallelism: the statistics of the global batch
+        out, mean, var = _batch_norm_global(xf, g, beta, attrs.eps)
+        m = attrs.momentum
+        new_mm = mov_mean * m + mean * (1 - m)
+        new_mv = mov_var * m + var * (1 - m)
+    elif train:
         red = [i for i in range(xf.dim()) if i != 1]
         with torch.no_grad():
             var, mean = torch.var_mean(xf, dim=red, correction=0)
@@ -452,6 +459,35 @@ def _batch_norm(attrs, x, gamma, beta, mov_mean, mov_var):
             out = (xf - mean.reshape(bshape)) * (inv * g).reshape(bshape) \
                 + beta.reshape(bshape)
     return out.movedim(1, ax).to(x.dtype), mean, var, new_mm, new_mv
+
+
+def _dp_global_batch():
+    """Whether a dp trainer asks BatchNorm and the loss heads for the
+    global batch (:func:`mxnet_tpu_torch.parallel.global_batch_stats`)."""
+    import sys
+    par = sys.modules.get("mxnet_tpu_torch.parallel")
+    return par is not None and par.batch_stats_global()
+
+
+def _batch_norm_global(xf, g, beta, eps):
+    """Training BatchNorm over the batch of every rank (channels on
+    dim 1): the per-channel sum and then the centred sum of
+    squares are all-reduced, differentiably, so each rank's gradient sees
+    every rank's outputs.  Returns ``(out, mean, var)``, the statistics
+    detached."""
+    import torch.distributed as dist
+    from ..parallel import allreduce_sum_grad
+    red = [i for i in range(xf.dim()) if i != 1]
+    bshape = (1, -1) + (1,) * (xf.dim() - 2)
+    n = xf.numel() // xf.shape[1] * dist.get_world_size()
+    mean = allreduce_sum_grad(xf.sum(dim=red), "BatchNorm global mean")
+    mean = mean / n
+    d = xf - mean.reshape(bshape)
+    var = allreduce_sum_grad((d * d).sum(dim=red), "BatchNorm global var")
+    var = var / n
+    out = d * torch.rsqrt(var + eps).reshape(bshape) * g.reshape(bshape) \
+        + beta.reshape(bshape)
+    return out, mean.detach(), var.detach()
 
 
 @register("InstanceNorm", inputs=("data", "gamma", "beta"),
@@ -540,9 +576,23 @@ def _one_hot(li, nclass, dim, dtype):
                        valid.unsqueeze(dim).to(dtype))
 
 
-def _softmax_output_grad(attrs, dshape, prob, lab, g):
+def _global_count(n, dp, device):
+    """A batch or valid count ``n`` (a number or a 0-d tensor) of this
+    rank, or, under a dp trainer (``dp``: :func:`_dp_global_batch`), summed
+    over the ranks on ``device`` (the gradient's: NCCL takes no host
+    tensor): the JAX package's partitioned step normalises a loss head by
+    the global batch."""
+    if not dp:
+        return n
+    from ..parallel import allreduce_sum_grad
+    t = torch.as_tensor(n, dtype=torch.float32, device=device).reshape(1)
+    return allreduce_sum_grad(t, "loss head normaliser")[0]
+
+
+def _softmax_output_grad(attrs, dshape, prob, lab, g, dp=False):
     """``(softmax - one_hot(label)) * grad_scale / normalizer`` (times
-    the incoming ``g`` only under ``out_grad``)."""
+    the incoming ``g`` only under ``out_grad``); under a dp trainer the
+    normalizer counts the global batch."""
     if attrs.multi_output and len(dshape) > 2:
         # label (N, spatial...), prob (N, C, spatial...)
         li = lab.long()
@@ -550,7 +600,7 @@ def _softmax_output_grad(attrs, dshape, prob, lab, g):
         if attrs.use_ignore:
             keep = lab != attrs.ignore_label
             grad = grad * keep.unsqueeze(1).to(grad.dtype)
-            valid = torch.clamp(keep.sum(), min=1).to(grad.dtype)
+            valid = keep.sum().to(grad.dtype)
         else:
             valid = float(np.prod(tuple(lab.shape)))
     else:
@@ -569,14 +619,17 @@ def _softmax_output_grad(attrs, dshape, prob, lab, g):
         if attrs.use_ignore:
             keep = li != attrs.ignore_label
             grad = grad * keep.unsqueeze(-1).to(grad.dtype)
-            valid = torch.clamp(keep.sum(), min=1).to(grad.dtype)
+            valid = keep.sum().to(grad.dtype)
         else:
             valid = float(np.prod(tuple(li.shape)))
         grad = grad.reshape(dshape)
     if attrs.normalization == "batch":
-        grad = grad / dshape[0]
+        grad = grad / _global_count(dshape[0], dp, grad.device)
     elif attrs.normalization == "valid":
-        grad = grad / valid
+        if dp:
+            valid = _global_count(valid, dp, grad.device).to(grad.dtype)
+        grad = grad / (torch.clamp(valid, min=1) if torch.is_tensor(valid)
+                       else valid)
     grad = grad * attrs.grad_scale
     if attrs.out_grad:
         grad = grad * g
@@ -593,6 +646,7 @@ class SoftmaxOutputFn(torch.autograd.Function):
     def forward(ctx, data, label, attrs):
         prob = _softmax_fwd(attrs, data)
         ctx.attrs = attrs
+        ctx.dp = _dp_global_batch()
         ctx.data_shape = tuple(data.shape)
         ctx.save_for_backward(prob, label)
         return prob
@@ -601,7 +655,7 @@ class SoftmaxOutputFn(torch.autograd.Function):
     def backward(ctx, g):
         prob, label = ctx.saved_tensors
         return (_softmax_output_grad(ctx.attrs, ctx.data_shape, prob, label,
-                                     g), None, None)
+                                     g, ctx.dp), None, None)
 
 
 @register("SoftmaxOutput", inputs=("data", "label"),
@@ -668,6 +722,7 @@ class _MakeLossFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, data, attrs):
         ctx.attrs = attrs
+        ctx.dp = _dp_global_batch()
         ctx.save_for_backward(data)
         return data.view_as(data)
 
@@ -677,10 +732,12 @@ class _MakeLossFn(torch.autograd.Function):
         attrs = ctx.attrs
         scale = attrs.grad_scale
         if attrs.normalization == "batch":
-            scale = scale / d.shape[0]
+            scale = scale / _global_count(d.shape[0], ctx.dp, d.device)
         elif attrs.normalization == "valid":
-            valid = torch.clamp((d > attrs.valid_thresh).sum(), min=1)
-            scale = scale / valid.to(d.dtype)
+            valid = (d > attrs.valid_thresh).sum()
+            if ctx.dp:
+                valid = _global_count(valid, ctx.dp, d.device)
+            scale = scale / torch.clamp(valid, min=1).to(d.dtype)
         return torch.ones_like(d) * scale, None
 
 

@@ -34,13 +34,35 @@ at each :meth:`~ShardedTrainer.step`, as the reference rebuilds its step
 when the policy changes, and the forward then runs in checkpointed
 segments (:mod:`mxnet_tpu_torch.executor`).
 
+Data parallelism (a ``spec`` whose dp axis spans the ranks of a gang,
+:mod:`~mxnet_tpu_torch.parallel.mesh`): each rank runs the step on its
+shard of the global batch (the rank slices it, or with
+``step(local_batch=True)`` it was handed its shard), and the gradients and
+the loss are summed over dp, as the JAX package's loss is the sum over the
+global batch.  A training-mode BatchNorm normalises over the global batch
+(:func:`~mxnet_tpu_torch.parallel.global_batch_stats`), as XLA's
+partitioned step does.  With ZeRO (``shard_optimizer_state``, ``zero=``,
+``MXNET_TPU_ZERO``; :func:`zero_enabled`) each parameter with a dim that
+divides by dp (:func:`~mxnet_tpu_torch.parallel.placement.zero_shard_dim`)
+has its gradient reduce-scattered, its momentum kept as this rank's slice
+of that dim and updated there, and the new slices all-gathered back; the
+rest keep an all-reduce.  The non-finite verdict is then taken from an
+all-reduced flag, so every rank skips or applies the same step.  Every
+collective goes through :func:`~mxnet_tpu_torch.parallel.audit.collective`
+(one per dtype and kind per step).  A loss head normalised by its batch
+(``normalization="batch"``/``"valid"``) counts the global batch, as the
+JAX package's does.
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
-(ROADMAP): ZeRO / ``shard_optimizer_state``, ``local_batch=True``, and
-the JAX step's other env-armed features (the compile cache, pre-flight,
-attribution, and the training chaos drills).
+(ROADMAP): the JAX step's other env-armed features (the compile cache,
+pre-flight, attribution, and the ``preempt``/``hang``/``oom`` chaos
+drills).  The ``nan_grad`` drill poisons the batch of the step it fires
+on, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict
 
 import numpy as np
@@ -52,11 +74,13 @@ from ..executor import (GraphProgram, _resolve_structs,
                         backward_mirror_policy)
 from ..resilience import chaos as _chaos
 from ..resilience import guards as _guards
+from . import placement as _placement
+from .audit import collective
 from .mesh import MeshSpec, make_mesh
 
-__all__ = ["ShardedTrainer", "sgd_step_fn"]
+__all__ = ["ShardedTrainer", "sgd_step_fn", "zero_enabled"]
 
-_TRAIN_FAULTS = ("preempt", "nan_grad", "hang", "oom")
+_TRAIN_FAULTS = ("preempt", "hang", "oom")
 _KNOBS = dict(MXNET_TPU_COMPILE_CACHE="compile cache",
               MXNET_TPU_PREFLIGHT="pre-flight",
               MXNET_TPU_ATTRIBUTION="attribution")
@@ -68,6 +92,36 @@ def _unported_env():
     found += ["MXNET_TPU_CHAOS=%s (training chaos drill)" % k
               for k in _chaos.armed(_TRAIN_FAULTS)]
     return found
+
+
+def zero_enabled(shard_optimizer_state: bool, zero=None) -> bool:
+    """The ZeRO sharded-weight-update knob, as the JAX package resolves
+    it: an explicit ``zero=`` wins, then ``MXNET_TPU_ZERO`` ("1"/"0"),
+    then ``shard_optimizer_state``."""
+    if zero is not None:
+        return bool(zero)
+    v = os.environ.get("MXNET_TPU_ZERO")
+    if v is not None:
+        return v.strip().lower() not in ("0", "off", "false", "")
+    return bool(shard_optimizer_state)
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def _nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _by_dtype(idx, tensors):
+    """``idx`` grouped by the dtype of ``tensors[i]``, in first-seen
+    order (one collective per dtype)."""
+    out = {}
+    for i in idx:
+        out.setdefault(tensors[i].dtype, []).append(i)
+    return list(out.values())
 
 
 def _tree_sgd(params, grads, mom, lr, momentum, wd, rescale, ok):
@@ -145,10 +199,6 @@ class ShardedTrainer:
                  dynamic_loss_scale=False, loss_scale_growth_interval=2000,
                  nonfinite_budget=None, guard_nonfinite=True, grad_accum=1,
                  zero=None, device=None):
-        if shard_optimizer_state or zero:
-            raise NotPortedYet("ZeRO / shard_optimizer_state needs a mesh of "
-                               "more than one device (ROADMAP queue A "
-                               "item 7)")
         if int(grad_accum) < 1:
             raise ValueError("grad_accum must be >= 1, got %r" % grad_accum)
         found = _unported_env()
@@ -189,6 +239,64 @@ class ShardedTrainer:
         self._step_count = 0
         self._generator = None
         self._built_remat = backward_mirror_policy()
+        self.dp = spec.dp_size
+        self.zero = zero_enabled(shard_optimizer_state, zero)
+        self.shard_optimizer_state = bool(shard_optimizer_state) or self.zero
+        self.shard_weight_update = self.zero and self.dp > 1
+        self._param_shapes = None
+        self._zero_dims = None       # per parameter: its ZeRO dim or None
+
+    # -- placement --------------------------------------------------------
+    def param_sharding(self, name: str, shape) -> "_placement.P":
+        """A parameter is replicated over dp (a tp axis is queue A item
+        7's second half)."""
+        return _placement.P()
+
+    def mom_sharding(self, name: str, shape) -> "_placement.P":
+        """The placement of one momentum tensor: the parameter's, plus dp
+        over :func:`~mxnet_tpu_torch.parallel.placement.zero_shard_dim`
+        with ``shard_optimizer_state``."""
+        base = self.param_sharding(name, shape)
+        if not self.shard_optimizer_state:
+            return base
+        return _placement.state_sharding(base, shape, self.spec.mesh,
+                                         self.spec.dp_axis)
+
+    def _zero_layout(self, shapes):
+        """Per parameter, the dim its momentum is split along, or None."""
+        if self._zero_dims is None:
+            self._zero_dims = []
+            for n, shape in zip(self.param_names, shapes):
+                spec = self.mom_sharding(n, shape)
+                hit = _placement.local_slice(spec, shape, self.spec.mesh, 0)
+                self._zero_dims.append(None if hit is None else hit[0])
+        return self._zero_dims
+
+    def _shard(self, t, dim):
+        """This rank's slice of ``t`` along ``dim`` (a view)."""
+        k = t.shape[dim] // self.dp
+        return t.narrow(dim, self.spec.dp_rank * k, k)
+
+    def _zero_split_bytes(self):
+        """``(shardable, residual)`` f32 gradient bytes under ZeRO: the
+        parameters with a dp-divisible dim and the rest."""
+        shapes = [self._param_shapes[n] for n in self.param_names]
+        dims = self._zero_layout(shapes)
+        shardable = residual = 0
+        for shape, d in zip(shapes, dims):
+            nbytes = 4 * int(np.prod(shape)) if shape else 4
+            if d is None:
+                residual += nbytes
+            else:
+                shardable += nbytes
+        return shardable, residual
+
+    def _stats_scope(self):
+        """Global BatchNorm statistics over dp, or nothing."""
+        if self.dp <= 1:
+            return contextlib.nullcontext()
+        from . import global_batch_stats
+        return global_batch_stats()
 
     # -- state ------------------------------------------------------------
     def init_state(self, shapes: Dict[str, tuple], initializer=None,
@@ -206,7 +314,9 @@ class ShardedTrainer:
         nearest even, as the reference's ``astype``.  Momentum and aux
         are f32.  The moving means start at 0 and the other aux states at
         1, as in the JAX trainer.  The generator of the graph's random
-        nodes restarts from ``mx.random.seed`` and ``seed``."""
+        nodes restarts from ``mx.random.seed`` and ``seed``.  With
+        ``shard_optimizer_state`` over dp > 1, each momentum tensor with a
+        ZeRO dim is this rank's slice of it."""
         from ..initializer import InitDesc, Xavier
         _, known, _ = _resolve_structs(self.symbol, shapes)
         initializer = initializer or Xavier(rnd_type="gaussian",
@@ -222,9 +332,18 @@ class ShardedTrainer:
             dt = self.param_dtype if self.param_dtype is not None \
                 and not n.endswith(("gamma", "beta")) else known[n].dtype
             params.append(host.to(dt).to(self.device))
-        mom = tuple(torch.zeros(tuple(known[n].shape), dtype=torch.float32,
-                                device=self.device)
-                    for n in self.param_names)
+        shapes = [tuple(known[n].shape) for n in self.param_names]
+        self._param_shapes = dict(zip(self.param_names, shapes))
+        self._zero_dims = None
+        dims = self._zero_layout(shapes) if self.dp > 1 else \
+            [None] * len(shapes)
+        mom = []
+        for shape, d in zip(shapes, dims):
+            if d is not None:
+                shape = shape[:d] + (shape[d] // self.dp,) + shape[d + 1:]
+            mom.append(torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device))
+        mom = tuple(mom)
         aux = tuple((torch.zeros if "mean" in n else torch.ones)(
             tuple(known[n].shape), dtype=torch.float32, device=self.device)
             for n in self.prog.aux_names)
@@ -248,7 +367,7 @@ class ShardedTrainer:
             args[i] = p
         for n, v in inputs.items():
             args[self.input_idx[n]] = v
-        with torch.enable_grad():
+        with torch.enable_grad(), self._stats_scope():
             outs, new_aux = self.prog.evaluate(args, aux, train=True,
                                                generator=gen,
                                                remat=self._built_remat)
@@ -291,17 +410,27 @@ class ShardedTrainer:
                     params, part, new_aux, scale, gen)
                 torch._foreach_add_(grads, [g.float() for g in g_i])
                 loss = loss + loss_i
-        ok_t = _guards.all_finite(loss, grads)
+        if self.dp > 1:
+            loss, grads, ok_t, dims = self._dp_reduce(params, loss, grads)
+        else:
+            ok_t, dims = _guards.all_finite(loss, grads), [None] * len(grads)
+        # this rank's slices of the parameters ZeRO shards (views), the
+        # whole of the rest
+        p_loc = [p if d is None else self._shard(p, d)
+                 for p, d in zip(params, dims)]
         # all that needs no verdict is queued first: the update's
         # direction and the loss-scale automaton (on the device verdict).
         # A host read of the verdict then only picks the in-place update,
         # and nothing crosses to the card after it.
-        step = _sgd_direction(params, grads, self.lr, self.wd, 1.0 / scale)
+        step = _sgd_direction(p_loc, grads, self.lr, self.wd, 1.0 / scale)
         guard = _guards.scale_update(scale, good, ok_t,
                                      self.loss_scale_growth_interval,
                                      dynamic=self.dynamic_loss_scale)
         ok = bool(ok_t) if read_verdict else ok_t
-        _sgd_apply(params, mom, step, self.momentum, ok)
+        _sgd_apply(p_loc, mom, step, self.momentum, ok)
+        sharded = [i for i, d in enumerate(dims) if d is not None]
+        if sharded and ok is not False:
+            self._allgather_params(params, dims, sharded)
         if read_verdict:
             new_aux = new_aux if ok else tuple(aux)
         else:
@@ -309,22 +438,113 @@ class ShardedTrainer:
                             for na, a in zip(new_aux, aux))
         return tuple(params), tuple(mom), new_aux, loss, ok, guard
 
-    def _prepare_batch(self, batch):
-        """With ``grad_accum`` > 1 the whole batch (accum·micro, ...)
-        folds into (accum, micro, ...), the raw step's leading micro
-        dim."""
-        out = {n: self._put(batch[n]) for n in self.input_names}
+    # -- data parallelism: the dp reductions ------------------------------
+    def _dp_reduce(self, params, loss, grads):
+        """Over dp > 1: the loss and the gradients summed over the ranks,
+        and the non-finite verdict, which every rank takes alike.  Under
+        ZeRO each shardable gradient is reduce-scattered into this rank's
+        slice; the rest are all-reduced (one all-reduce per dtype, with
+        the loss), and sliced where the storage alone is sharded
+        (``shard_optimizer_state`` with ``zero=False``).  Returns ``(loss,
+        grads, ok, dims)``: ``dims[i]`` is the dim parameter ``i`` is
+        sliced along on this rank, or None."""
+        dist, dp = _dist(), self.dp
+        shapes = [tuple(p.shape) for p in params]
+        dims = self._zero_layout(shapes) if self.shard_optimizer_state \
+            else [None] * len(params)
+        scattered = [i for i, d in enumerate(dims)
+                     if d is not None and self.zero]
+        whole = [i for i in range(len(grads)) if i not in scattered]
+        grads = list(grads)
+        g_loc = [None] * len(grads)
+        for idx in _by_dtype(scattered, grads):
+            moved = [grads[i].movedim(dims[i], 0) for i in idx]
+            inp = torch.cat([m.reshape(dp, -1) for m in moved], dim=1)
+            out = torch.empty(inp.shape[1], dtype=inp.dtype,
+                              device=inp.device)
+            collective("reduce-scatter", "ShardedTrainer.step ZeRO grad "
+                       "reduce-scatter", lambda: dist.reduce_scatter_tensor(
+                           out, inp.reshape(-1)),
+                       nbytes=_nbytes([out]), step=self._step_count)
+            off = 0
+            for i, m in zip(idx, moved):
+                n = m.numel() // dp
+                g_loc[i] = out[off:off + n].view(
+                    (m.shape[0] // dp,) + tuple(m.shape[1:])) \
+                    .movedim(0, dims[i])
+                off += n
+        from . import allreduce_many
+        summed = allreduce_many(
+            [loss.reshape(1)] + [grads[i] for i in whole],
+            "ShardedTrainer.step residual grad all-reduce (no dp-divisible "
+            "dim)" if scattered else "ShardedTrainer.step dp grad "
+            "all-reduce", self._step_count)
+        loss = summed[0][0]
+        for i, g in zip(whole, summed[1:]):
+            g_loc[i] = g if dims[i] is None else self._shard(g, dims[i])
+        ok = _guards.all_finite(loss, summed[1:] +
+                                [g_loc[i] for i in scattered])
+        if scattered:
+            # each rank sees its own slices: one flag summed over dp, so
+            # every rank decides alike
+            bad = (~ok).to(torch.float32).reshape(1)
+            collective("all-reduce", "ShardedTrainer.step verdict",
+                       lambda: dist.all_reduce(bad), nbytes=_nbytes([bad]),
+                       step=self._step_count)
+            ok = bad[0] == 0
+        return loss, g_loc, ok, dims
+
+    def _allgather_params(self, params, dims, sharded):
+        """Every rank's updated slices back into the whole parameters:
+        one all-gather per parameter dtype."""
+        dist, dp = _dist(), self.dp
+        for idx in _by_dtype(sharded, params):
+            moved = [self._shard(params[i], dims[i]).movedim(dims[i], 0)
+                     for i in idx]
+            flat = torch.cat([m.reshape(-1) for m in moved])
+            out = torch.empty(dp * flat.numel(), dtype=flat.dtype,
+                              device=flat.device)
+            collective("all-gather", "ShardedTrainer.step ZeRO weight "
+                       "all-gather", lambda: dist.all_gather_into_tensor(
+                           out, flat),
+                       nbytes=_nbytes([out]), step=self._step_count)
+            out = out.view(dp, -1)
+            off = 0
+            for i, m in zip(idx, moved):
+                n = m.numel()
+                whole = out[:, off:off + n].reshape(
+                    (dp * m.shape[0],) + tuple(m.shape[1:]))
+                params[i].copy_(whole.movedim(0, dims[i]))
+                off += n
+
+    def _prepare_batch(self, batch, local_batch=False):
+        """This rank's inputs on the device.  With ``grad_accum`` > 1 a
+        batch (accum·micro, ...) folds into (accum, micro, ...), the raw
+        step's leading micro dim.  Over dp > 1 the rank takes its part of
+        the global batch (of each micro-batch, after the fold: the JAX
+        package's dp over dim 1), unless ``local_batch`` says the batch
+        is already this rank's part."""
         accum = self.grad_accum
-        if accum == 1:
-            return out
-        rows = next(iter(out.values())).shape[0]
-        if any(v.shape[0] != rows for v in out.values()) or rows % accum:
+        vals = {n: batch[n] if isinstance(batch[n], torch.Tensor)
+                else np.asarray(batch[n]) for n in self.input_names}
+        rows = {v.shape[0] for v in vals.values()}
+        if accum > 1 and (len(rows) > 1 or rows.pop() % accum):
             raise ValueError("batch dims %s are not one size divisible "
                              "by grad_accum=%d"
-                             % ({n: tuple(v.shape) for n, v in out.items()},
+                             % ({n: tuple(v.shape) for n, v in vals.items()},
                                 accum))
-        return {n: v.reshape((accum, rows // accum) + tuple(v.shape[1:]))
-                for n, v in out.items()}
+        out = {}
+        for n, v in vals.items():
+            if accum > 1:
+                v = v.reshape((accum, v.shape[0] // accum)
+                              + tuple(v.shape[1:]))
+            if self.dp > 1 and not local_batch:
+                from .mesh import shard_batch
+                out[n] = shard_batch(v, self.spec, axis=1 if accum > 1
+                                     else 0)
+            else:
+                out[n] = self._put(v)
+        return out
 
     def step(self, params, mom, aux, batch: Dict[str, np.ndarray],
              local_batch: bool = False):
@@ -336,25 +556,32 @@ class ShardedTrainer:
         input name to a host array or tensor of the whole batch; with
         ``grad_accum`` > 1 its leading dim splits into that many
         consecutive micro-batches whose gradients sum in an f32
-        accumulator.  A step whose loss or gradients are not finite
+        accumulator.  Over dp > 1 it is the global batch, each rank
+        taking its part, or with ``local_batch=True`` this rank's part
+        (each rank reads only its own); the returned loss is the global
+        batch's.  A step whose loss or gradients are not finite
         applies NO update, halves the loss scale (dynamic scaling), and
         after ``nonfinite_budget`` such steps in a row raises
         :class:`~mxnet_tpu_torch.resilience.guards.NonFiniteError`.  The
         step is :func:`sgd_step_fn`'s, its verdict read on the host once,
         before the update, for that budget."""
-        if local_batch:
-            raise NotPortedYet("local_batch=True: multi-process data "
-                               "loading needs the NCCL mesh (ROADMAP queue A "
-                               "item 7)")
         found = _unported_env()
         if found:
             raise NotPortedYet("not ported to the trainer: %s"
                                % ", ".join(found))
         self._built_remat = backward_mirror_policy()
         self._step_count += 1
+        if _chaos.fire("nan_grad", self._step_count) is not None:
+            # poison the batch so the real in-step detector trips
+            poison = self.data_names[0]
+            batch = dict(batch)
+            v = batch[poison]
+            batch[poison] = torch.full_like(v, float("nan")) \
+                if isinstance(v, torch.Tensor) else \
+                np.full_like(np.asarray(v), np.nan)
         params, mom, aux, loss, ok, self._guard_state = self._raw_step(
-            params, mom, aux, self._prepare_batch(batch), self._keys(),
-            self._guard_arrays(), read_verdict=True)
+            params, mom, aux, self._prepare_batch(batch, local_batch),
+            self._keys(), self._guard_arrays(), read_verdict=True)
         if self.guard_nonfinite:
             self._note_step_result(ok, loss)
         return params, mom, aux, loss
@@ -476,9 +703,10 @@ def sgd_step_fn(trainer: ShardedTrainer):
     (loss scale f32, good streak int32, 0-d tensors) from
     ``trainer._guard_arrays()``.  ``inputs`` maps each input name to a
     tensor of the whole batch (with ``grad_accum`` > 1, a leading micro
-    dim).  ``ok`` is the 0-d bool verdict (the update was applied); the
-    step never reads it, or anything else, on the host, so a loop of
-    steps queues on the card until the caller reads the loss.  As the
+    dim; over dp > 1, this rank's part of it).  ``ok`` is the 0-d bool
+    verdict (the update was applied); the step never reads it, or
+    anything else, on the host, so a loop of steps queues on the card
+    until the caller reads the loss.  As the
     reference's buffers are donated, ``params`` and ``mom`` are updated
     in place; rebind all the returned state every call."""
     return trainer._raw_step

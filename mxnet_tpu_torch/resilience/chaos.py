@@ -17,8 +17,11 @@ drill written for the JAX package arms the same faults here.
 * ``io_error``      — an IO read raises ``OSError`` (the data-IO
   iterators' record reads, inside their retry).
 
-The training-side faults (preempt, nan_grad, hang, oom, corrupt_ckpt)
-wait for the resilience slice (ROADMAP queue A item 8).
+* ``nan_grad``      — ``ShardedTrainer.step`` poisons the batch of the
+  step it fires on (the non-finite guard skips it).
+
+The other training-side faults (preempt, hang, oom, corrupt_ckpt) wait
+for the resilience slice (ROADMAP queue A item 8).
 
 Faults are armed with :func:`inject` (tests) or ``MXNET_TPU_CHAOS``, a
 comma list of ``kind[@step][xcount]``.  ``MXNET_TPU_CHAOS_RANKS`` pins

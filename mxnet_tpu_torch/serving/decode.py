@@ -237,8 +237,8 @@ def _to_host(v):
 def _no_mesh(mesh):
     if mesh:
         raise NotPortedYet(
-            "tensor-parallel decode (mesh=%r) is not ported yet (ROADMAP "
-            "queue A item 7); serve from one card" % (mesh,))
+            "tensor-parallel decode (mesh=%r) is queue A item 7's second "
+            "half; serve from one card" % (mesh,))
 
 
 class DecodeProgram:
@@ -498,7 +498,8 @@ class DecodeProgram:
     def load(cls, path, mesh="artifact", name=None, device=None):
         """Load an exported decode artifact (written by either package).
         An artifact exported with a mesh, or an explicit ``mesh``, raises
-        :class:`NotPortedYet` (tensor-parallel serving is queue A item 7)."""
+        :class:`NotPortedYet` (tensor-parallel serving is queue A item 7's
+        second half)."""
         arrays, meta, _blobs = read_container(path)
         if meta.get("magic") != _MAGIC:
             raise MXNetError("%s is not a decode artifact (magic %r)"

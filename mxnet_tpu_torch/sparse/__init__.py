@@ -4,8 +4,9 @@ a mesh axis, touched-rows compute.
 Lookups are owner-shard routing, gradients are deduped and applied by
 lazy SGD/Adam that touch only the routed rows; the shard-local halves are
 the hand-written CUDA gather (B5) and sorted-id scatter (B6) kernels
-(``csrc/embedding.cu``).  On one device so far: routing across devices
-waits for NCCL collectives (ROADMAP queue A item 7).
+(``csrc/embedding.cu``).  Over a dp mesh of several ranks the routing
+crosses processes through ``all_to_all_single``
+(:func:`~mxnet_tpu_torch.sparse.embedding._a2a`).
 """
 from .embedding import (ShardedEmbedding, live_tables, lookup_wire_bytes,
                         step_alltoall_model_bytes)

@@ -39,12 +39,17 @@ sums the routed gradient in float32, keeps its slots float32
 (``zeros_slot``'s default), computes the new rows in float32 from the
 table's rows and rounds them once to the table's dtype.
 
-The routing is written for any shard count ``S``; :func:`_a2a` is the one
-place that needs a collective, and raises
-:class:`~mxnet_tpu_torch.base.NotPortedYet` for ``S > 1`` until the NCCL
-slice lands (ROADMAP queue A item 7).  Not ported: the hang watchdog
-around the collectives (``resilience/watchdog.py``, ROADMAP queue A
-item 8), and ``resilience.checkpoint.save_embedding`` / ``restore_embedding``.
+The routing is written for any shard count ``S``.  Over a mesh axis of
+``S > 1`` ranks (one process per device, :mod:`mxnet_tpu_torch.parallel.
+mesh`) each rank holds its ``rows_per_shard`` rows (``init_state``,
+``zeros_slot`` and ``load_array`` give the rank's slice of the same
+seeded table) and passes its own part of the batch's ids (B/S of them,
+the JAX package's dp shard); :func:`_a2a` exchanges the id and row
+buckets with ``all_to_all_single`` over the ranks, the one place
+that needs a collective, and :meth:`ShardedEmbedding.state_dict`
+all-gathers the shards.  Not ported: the hang watchdog around the
+collectives (``resilience/watchdog.py``, ROADMAP queue A item 8), and
+``resilience.checkpoint.save_embedding`` / ``restore_embedding``.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..base import MXNetError, NotPortedYet, dtype_torch
+from ..base import MXNetError, dtype_torch
 from . import kernels as _kernels
 
 __all__ = ["ShardedEmbedding", "lookup_wire_bytes",
@@ -148,14 +153,19 @@ def _bucket(values, owner, pos, ok, S: int, C: int, fill):
 
 
 def _a2a(x, axis: str, S: int):
-    """All-to-all over the mesh axis, split and concatenated on dim 0:
-    the identity on one shard."""
+    """All-to-all over the mesh axis, split and concatenated on dim 0
+    (``(S, C, ...)``: row s goes to shard s, and row s of the result came
+    from shard s): the identity on one shard, else ``all_to_all_single``
+    over the ranks (the axis spans every rank of the gang)."""
     if S == 1:
         return x
-    raise NotPortedYet("all-to-all over mesh axis %r of %d devices: the "
-                       "embedding plane routes across devices once NCCL "
-                       "collectives land (ROADMAP queue A item 7)"
-                       % (axis, S))
+    from ..parallel.audit import collective
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    collective("all-to-all", "embedding a2a over %r" % axis,
+               lambda: torch.distributed.all_to_all_single(out, x),
+               nbytes=x.numel() * x.element_size())
+    return out
 
 
 def _axis_index(S: int) -> int:
@@ -231,6 +241,7 @@ class ShardedEmbedding:
         self.capacity_factor = capacity_factor
         self.backend = backend
         self.name = name
+        self.shard_index = _axis_index(S)
         _REG_SEQ[0] += 1
         _REGISTRY[_REG_SEQ[0]] = self
 
@@ -258,12 +269,13 @@ class ShardedEmbedding:
     def init_state(self, seed: int = 0, scale: float = 0.01):
         """The table, ``scale * N(0, 1)`` drawn on the CPU from a
         ``torch.Generator`` seeded with ``seed`` (so a seed gives the same
-        table on every device; the JAX package draws from
-        ``jax.random``), then moved to the mesh's device and tagged
-        ``embedding`` on the memory plane."""
+        table on every device and shard count; the JAX package draws from
+        ``jax.random``), this rank's rows of it moved to the mesh's device
+        and tagged ``embedding`` on the memory plane."""
         gen = torch.Generator().manual_seed(int(seed))
         host = torch.randn((self.padded_rows, self.dim), generator=gen)
-        table = host.mul_(scale).to(self.dtype).to(self.device)
+        table = self._local(host).mul_(scale).to(self.dtype).to(
+            self.device)
         from ..telemetry import memory as _memory
         _memory.tag(table, "embedding", label=self.name)
         return table
@@ -271,11 +283,20 @@ class ShardedEmbedding:
     def zeros_slot(self, dtype="float32"):
         """One optimizer slot (momentum / Adam mean / var) on the table's
         device."""
-        slot = torch.zeros((self.padded_rows, self.dim),
+        slot = torch.zeros((self.rows_per_shard if self.num_shards > 1
+                            else self.padded_rows, self.dim),
                            dtype=dtype_torch(dtype), device=self.device)
         from ..telemetry import memory as _memory
         _memory.tag(slot, "embedding", label=self.name + ".slot")
         return slot
+
+    def _local(self, t):
+        """This rank's rows of a whole (padded) table: all of it on one
+        shard."""
+        if self.num_shards == 1:
+            return t
+        k = self.rows_per_shard
+        return t[self.shard_index * k:(self.shard_index + 1) * k]
 
     def _put(self, x):
         if not isinstance(x, torch.Tensor):
@@ -290,7 +311,7 @@ class ShardedEmbedding:
             self.padded_rows
         uniq, inv, owner, pos, ok, dropped = _plan(ids, S, rows_per, C, vpad)
         send = _bucket(uniq, owner, pos, ok, S, C, vpad)
-        recv = _a2a(send, self.axis, S)                  # ids asked of me
+        recv = _a2a(send, self.axis, S)      # ids asked of me
         local = recv - _axis_index(S) * rows_per
         in_range = (local >= 0) & (local < rows_per)
         lidx = local.clamp(0, rows_per - 1).reshape(-1)
@@ -393,7 +414,11 @@ class ShardedEmbedding:
                                           backend=self.backend)
 
     def _check_batch(self, what, ids):
+        """The global batch of ids: over ``S > 1`` ranks each passes its
+        own B/S."""
         B = int(ids.shape[0])
+        if self.num_shards > 1:
+            return B * self.num_shards
         if B % self.num_shards:
             raise ValueError(
                 "%s batch %d is not divisible by the %r shard count "
@@ -429,7 +454,7 @@ class ShardedEmbedding:
         ``ids``; ``mom`` may be None (momentum-free).  Updates ``table``
         and ``mom`` in place and returns ``(table, mom)``.  The weight and
         momentum rows are read in one grouped gather."""
-        B = int(ids.shape[0])
+        B = self._check_batch("update", ids)
         with _span("collective/embedding_update",
                    sum(self.wire_model(B).values())):
             plan = self._update_plan(ids, grad_rows)
@@ -449,7 +474,7 @@ class ShardedEmbedding:
         ``adam_row_sparse_update``).  Updates the three tensors in place
         and returns ``(table, mean, var)``; their rows are read in one
         grouped gather."""
-        B = int(ids.shape[0])
+        B = self._check_batch("update", ids)
         lr, beta1, beta2 = float(lr), float(beta1), float(beta2)
         with _span("collective/embedding_update",
                    sum(self.wire_model(B).values())):
@@ -479,13 +504,18 @@ class ShardedEmbedding:
     def state_dict(self, table, **slots) -> Dict[str, np.ndarray]:
         """Host snapshot with shard padding STRIPPED — the world-size-
         independent form a resharding restore re-pads from.  Each array
-        is a copy (the live tensors change in place); a bf16 table comes
+        is a copy (the live tensors change in place; over ``S > 1`` ranks
+        the shards are all-gathered, a collective); a bf16 table comes
         back as float32 of the same values (numpy holds no bf16 without
         ``ml_dtypes``), which :meth:`load_array` with ``dtype=`` the
         table's rounds back to the same bits."""
         from ..convert import tensor_to_host
 
         def host(t):
+            if self.num_shards > 1:
+                from ..parallel import allgather_tensor
+                t = allgather_tensor(t, "embedding state_dict")
+                t = t.reshape((-1,) + tuple(t.shape[2:]))
             return tensor_to_host(t[:self.num_rows])
         out = {"table": host(table)}
         for k, v in slots.items():
@@ -524,7 +554,7 @@ class ShardedEmbedding:
         pad = self.padded_rows - self.num_rows
         if pad:
             arr = torch.cat([arr, arr.new_zeros((pad,) + arr.shape[1:])])
-        arr = arr.to(self.device)
+        arr = self._local(arr).to(self.device)
         from ..telemetry import memory as _memory
         _memory.tag(arr, "embedding", label=self.name + ".restored")
         return arr

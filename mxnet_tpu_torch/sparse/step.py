@@ -27,6 +27,13 @@ it eagerly, and the update is applied IN PLACE on the state dict (the
 convention of the port's ``ShardedTrainer``).  On the card the step issues
 no host synchronisation: reading the loss is the first.
 
+Over a mesh of ``S > 1`` ranks each rank passes its own B/S examples
+(its dp shard), holds its rows of every table, and keeps a replica of the
+MLP: the loss is the global batch's mean (each rank's mean over S,
+summed by an all-reduce), the MLP's gradients are all-reduced, and each
+rank's row gradients route to their owners through the plane's
+all-to-all, as the JAX package's partitioned step computes.
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`:
 :func:`lower_step` (it returns compiled HLO text; ROADMAP queue A item 9) and
 the GC306 pre-flight of the first step (``MXNET_TPU_PREFLIGHT=1``).
@@ -132,7 +139,7 @@ def _sgd_all(embs, tables, moms, ids, g_rows, lr, momentum, wd):
     momentum): each table's routing, the gather, then each table's new
     rows and scatters.  Equal to ``embs[f].apply_sgd(...)`` for each f:
     the halves are the ones ``apply_sgd`` runs around its own gather."""
-    Bs = [int(i.shape[0]) for i in ids]
+    Bs = [e._check_batch("update", i) for e, i in zip(embs, ids)]
     with _span("collective/embedding_update",
                sum(sum(e.wire_model(B).values())
                    for e, B in zip(embs, Bs))):
@@ -154,19 +161,29 @@ def _sgd_all(embs, tables, moms, ids, g_rows, lr, momentum, wd):
         e._note_update(B)
 
 
+def _dp_sum(loss, grads):
+    """The loss and the MLP's gradients summed over the ranks."""
+    from ..parallel import allreduce_many
+    out = allreduce_many([loss.reshape(1)] + list(grads),
+                         "recommender MLP grad all-reduce")
+    return out[0][0], out[1:]
+
+
 def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
                           momentum: float = 0.9, wd: float = 0.0,
                           dp_axis: Optional[str] = None):
     """Build the step: ``step(state, batch) -> (state, loss)``.
 
     ``batch``: ``{"ids": (F, B) int, "dense": (B, Dd) f32, "label": (B,)
-    f32}``, tensors or host arrays.  BCE loss on a sigmoid click head; the
+    f32}``, tensors or host arrays (over ``S > 1`` ranks, this rank's B/S
+    examples).  BCE loss on a sigmoid click head; the
     MLP takes SGD+momentum, each table takes the lazy SGD over exactly the
     touched rows.  ``state`` is updated in place and returned; ``loss`` is
     a 0-d tensor on the tables' device."""
     embs = list(embs)
     dev = embs[0].device
     lr, momentum, wd = float(lr), float(momentum), float(wd)
+    S = embs[0].num_shards
 
     def put(v, dtype):
         if not isinstance(v, torch.Tensor):
@@ -188,8 +205,12 @@ def make_recommender_step(embs: Sequence[ShardedEmbedding], lr: float = 0.05,
         rows = [r.requires_grad_() for r in emb_rows]
         with torch.enable_grad():
             loss = _loss_fn(dict(zip(names, leaves)), rows, dense, label)
+            if S > 1:
+                loss = loss / S
             grads = torch.autograd.grad(loss, leaves + rows)
         g_mlp, g_rows = grads[:len(names)], grads[len(names):]
+        if S > 1:
+            loss, g_mlp = _dp_sum(loss, g_mlp)
         with torch.no_grad():
             # dense half: SGD+momentum in place, m = momentum*m - lr*g
             # (g = grad + wd*p) and p += m, one multi-tensor op each

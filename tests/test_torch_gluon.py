@@ -287,9 +287,13 @@ def test_parameter_and_dict_api():
         d2 = tmx.gluon.ParameterDict(d1.prefix, shared=d1)
         d1.get("w0", shape=(10, 10))
         assert d2.get("w0") is d1.get("w0")
-        with pytest.raises(NotPortedYet):
-            tmx.gluon.Parameter("w", shape=(2,)).initialize(
-                ctx=[tmx.cpu(0), tmx.cpu(1)])
+        # several contexts are ported: one copy (and gradient) each
+        w = tmx.gluon.Parameter("w", shape=(2,))
+        w.initialize(ctx=[tmx.cpu(0), tmx.cpu(1)])
+        assert w.list_ctx() == [tmx.cpu(0), tmx.cpu(1)]
+        a, b = w.list_data()
+        assert a is not b and np.array_equal(a.asnumpy(), b.asnumpy())
+        assert len(w.list_grad()) == 2 and w.data(tmx.cpu(1)) is b
 
 
 def test_block_apply_summary_and_infer_shape(capsys):

@@ -1,9 +1,10 @@
 """The port stands alone and runs on the card unless told otherwise.
 
 * ``mxnet_tpu_torch`` and every one of its modules (``gluon``,
-  ``autograd``, ``contrib``, ``operator``, the recurrent stack and the
-  data-IO modules among them), and
-  ``chip_smoke``, import without pulling in ``jax`` or any of
+  ``autograd``, ``contrib``, ``operator``, the recurrent stack, the
+  data-IO modules and the distributed ones among them),
+  ``chip_smoke``, the gang tests' workers (``tests/torch_dist_workers.py``)
+  and ``tools/torch_dist_probe.py`` import without pulling in ``jax`` or any of
   ``mxnet_tpu`` (checked in a fresh interpreter, since this test process
   has both loaded);
 * the entry points default to the card: without a CUDA device they raise
@@ -141,6 +142,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import chip_smoke",
         "sys.path.insert(0, %r)" % os.path.join(ROOT, "tests"),
         "import torch_cases",
+        "import torch_dist_workers",
+        "sys.path.insert(0, %r)" % os.path.join(ROOT, "tools"),
+        "import torch_dist_probe",
+        "from mxnet_tpu_torch.parallel import (init_distributed, barrier,",
+        "    allreduce_array, allreduce_row_sparse, topology)",
+        "from mxnet_tpu_torch.kvstore import KVStoreDist, KVStoreDistAsync",
         "import mxnet_tpu_torch as mx",
         "mods = (mx.nd, mx.random, mx.rtc, mx.engine, mx.nd.random,",
         "        mx.gluon, mx.autograd, mx.contrib, mx.operator,",

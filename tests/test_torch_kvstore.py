@@ -164,9 +164,17 @@ def test_compressed_push_sends_only_quantized_values():
                                [0.2, 0.2, -0.1, 0.49, -1.5], atol=1e-7)
 
 
-def test_store_refuses_what_is_not_ported():
-    with pytest.raises(NotPortedYet, match="item 7"):
-        tkv.create("dist_sync", device="cpu")
+def test_store_refuses_what_is_not_ported(monkeypatch):
+    # the dist stores are ported (tests/test_torch_dist.py); outside a
+    # gang they are one-process stores, as the JAX package's
+    for name in ("dist_sync", "dist_device_sync", "dist_async"):
+        kv = tkv.create(name, device="cpu")
+        assert (kv.type, kv.rank, kv.num_workers) == (name, 0, 1)
+        assert kv.num_dead_node(0) == 0
+    # dist_async's parameter-server lane is item 7's second half
+    monkeypatch.setenv("MXNET_TPU_KV_DIR", "/nonexistent")
+    with pytest.raises(NotPortedYet, match="item 7's second half"):
+        tkv.create("dist_async", device="cpu")
     kv = tkv.create("local", device="cpu")
     # row_sparse_pull is ported (test_torch_sparse_storage.py); it needs
     # its out and row ids

@@ -515,8 +515,12 @@ def test_module_without_a_context_needs_the_card_and_refuses_more():
     net = _mlp(tmx.sym)
     with pytest.raises(DeviceUnavailable):
         tmx.mod.Module(net)
-    with pytest.raises(NotPortedYet):
-        tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
+    # several contexts are ported (tests/test_torch_parallel_mesh.py)
+    assert tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
+    with pytest.raises(NotPortedYet, match="item 7's second half"):
+        tmx.mod.Module(net, context=tmx.cpu(), group2ctxs={
+            "dev1": tmx.cpu()}).bind([("data", (4, 10))],
+                                     [("softmax_label", (4,))])
 
 
 @pytest.mark.parametrize("devtype", ["tpu", "cpu_pinned", "cpu_shared", 6])

@@ -8,8 +8,9 @@ executor_manager,model} vs the same files of mxnet_tpu).
   epochs from the same initializer draws: every parameter within 1e-5 of
   its tensor's largest magnitude, the metric within 1e-6.
 * ``DataParallelExecutorManager``: one forward and backward of a batch,
-  the gradients and ``copy_to`` against the reference; more than one
-  context raises ``NotPortedYet`` naming queue A item 7.
+  the gradients and ``copy_to`` against the reference, on one context
+  and on two (the batch split 4/4); ``group2ctxs`` raises
+  ``NotPortedYet`` naming queue A item 7's second half.
 * ``FeedForward``: ``fit``, ``predict``, ``save``, ``load`` (each
   package loads the other's checkpoint) and ``create``.
 
@@ -172,14 +173,41 @@ def test_executor_manager_matches_jax():
 
 
 def test_executor_manager_refuses_several_contexts():
+    """Several contexts are ported: the manager over [cpu(0), cpu(1)]
+    splits the batch 4/4, and its summed gradients and metric equal the
+    JAX package's manager over the same two contexts; ``group2ctxs``
+    placement is still to port (item 7's second half)."""
     X, y = _data(16)
-    net = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
-        tmx.sym.Variable("data"), num_hidden=3), name="softmax")
-    it = tmx.io.NDArrayIter(X, y, batch_size=8)
-    with pytest.raises(NotPortedYet, match="item 7, distribution"):
-        tmx.DataParallelExecutorManager(net, [tmx.cpu(0), tmx.cpu(1)], it)
-
-
+    res = {}
+    for pkg in (tmx, jmx):
+        sym = pkg.sym
+        net = sym.SoftmaxOutput(sym.FullyConnected(
+            sym.Variable("data"), num_hidden=3, name="fc"), name="softmax")
+        it = pkg.io.NDArrayIter(X, y, batch_size=8)
+        man = pkg.DataParallelExecutorManager(net, [pkg.cpu(0), pkg.cpu(1)],
+                                              it)
+        rs = np.random.RandomState(3)
+        kw = {"ctx": "cpu"} if pkg is tmx else {}
+        params = {n: pkg.nd.array(rs.normal(0, 0.3, a[0].shape).astype(
+            np.float32), **kw) for n, a in zip(man.param_names,
+                                               man.param_arrays)}
+        man.set_params(params, {})
+        man.load_data_batch(next(it))
+        man.forward(is_train=True)
+        man.backward()
+        metric = pkg.metric.Accuracy()
+        man.update_metric(metric, next(iter([it.getlabel()])))
+        res[pkg] = ({n: sum(x.asnumpy() for x in g) for n, g in
+                     zip(man.param_names, man.grad_arrays)},
+                    [s.stop - s.start for s in man.slices], metric.get())
+    _close(res[tmx][0], res[jmx][0])
+    assert res[tmx][1] == res[jmx][1] == [4, 4]
+    assert res[tmx][2] == res[jmx][2]
+    with pytest.raises(NotPortedYet, match="item 7's second half"):
+        tmx.mod.Module(tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+            tmx.sym.Variable("data"), num_hidden=3), name="softmax"),
+            context=tmx.cpu(), group2ctxs={"dev1": tmx.cpu()}).bind(
+                [("data", (8, 5))], [("softmax_label", (8,))])
 def _ff_net(pkg):
     sym = pkg.sym
     net = sym.Activation(sym.FullyConnected(sym.Variable("data"),

@@ -261,19 +261,25 @@ def test_port_trained_state_serves_through_get_decode_step():
 
 
 def test_unported_features_raise():
-    """ZeRO, local batches and meshes of more than one device are still
-    to port (bf16 ``param_dtype``, ``build_step_auto_layout`` and
-    ``sgd_step_fn`` are ported: tests/test_torch_train_bf16.py)."""
+    """ZeRO and local batches are ported (at dp 1 they are the plain
+    step; over dp 2 tests/test_torch_dist.py holds them to the JAX
+    package); a mesh axis other than dp over more than one device is
+    still to port, and a dp mesh of 2 needs a gang of 2."""
     net = get_symbol(**TINY)
-    for kw in (dict(zero=True), dict(shard_optimizer_state=True)):
-        with pytest.raises(NotPortedYet):
-            ShardedTrainer(net, device="cpu", **kw)
     tt = ShardedTrainer(net, device="cpu")
     ShardedTrainer(net, device="cpu", param_dtype="float32")
-    state = tt.init_state(SHAPES)
-    with pytest.raises(NotPortedYet):
-        tt.step(*state, _batches(1)[0], local_batch=True)
-    with pytest.raises(NotPortedYet):
+    want = tt.step(*tt.init_state(SHAPES), _batches(1)[0])[0]
+    for kw in (dict(zero=True), dict(shard_optimizer_state=True)):
+        tz = ShardedTrainer(net, device="cpu", **kw)
+        got = tz.step(*tz.init_state(SHAPES), _batches(1)[0],
+                      local_batch=True)[0]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    for shape, names in (((2,), ("tp",)), ((1, 2), ("dp", "tp")),
+                         ((2,), ("ep",))):
+        with pytest.raises(NotPortedYet, match="item 7's second half"):
+            make_mesh(shape, names, device="cpu")
+    with pytest.raises(ValueError, match="gang has 1"):
         make_mesh((2,), ("dp",), device="cpu")
 
 
@@ -311,6 +317,23 @@ def test_armed_env_features_of_the_jax_step_raise(monkeypatch, var, value):
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                        atol=1e-6)
+        return
+    if var == "MXNET_TPU_CHAOS":
+        # the nan_grad drill is ported: the step it fires on poisons its
+        # batch, is skipped (the state stays) and counted
+        try:
+            tr = ShardedTrainer(net, device="cpu")
+            start = tr.init_state(SHAPES)
+            b = _batches(2)
+            after1 = [p.clone() for p in tr.step(*start, b[0])[0]]
+            params, mom, aux, loss = tr.step(*start, b[1])
+            assert not np.isfinite(float(loss))
+            assert tr.skipped_steps == 1
+            for a, p in zip(after1, params):
+                assert torch.equal(a, p)
+        finally:
+            monkeypatch.delenv(var)
+            chaos.reset()
         return
     try:
         with pytest.raises(NotPortedYet):

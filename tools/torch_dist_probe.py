@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Which collectives two ranks on one machine's cards can run, per backend.
+
+Run under the launcher, one backend per gang:
+
+    python tools/launch.py -n 2 --dist-device cuda \\
+        python tools/torch_dist_probe.py nccl
+    python tools/launch.py -n 2 --dist-device cuda \\
+        python tools/torch_dist_probe.py gloo
+
+Each rank puts itself on card ``rank % device_count`` (both ranks share
+card 0 on a one-card machine), joins a process group of the backend named
+on the command line over the launcher's coordinator, and tries
+``all_reduce``, ``broadcast``, ``reduce_scatter_tensor``,
+``all_gather_into_tensor`` and ``all_to_all_single`` on CUDA tensors,
+each checked against the value it must give.  Rank 0 prints one line
+``PROBE {json}``: the backend, the device count, whether the ranks share
+a card, and for each collective ``"ok"`` or the first line of its error.
+Every wait is bounded (a 60 s group timeout), so a refused communicator
+fails fast instead of hanging.  Imports torch only.
+"""
+import datetime
+import json
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+
+def _probe(backend, rank, world, dev):
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - recorded, not hidden
+            out[name] = (type(e).__name__ + ": "
+                         + (str(e).strip().splitlines() or [""])[0])[:200]
+
+    def all_reduce():
+        x = torch.full((1024,), float(rank + 1), device=dev)
+        dist.all_reduce(x)
+        assert float(x[0]) == world * (world + 1) / 2, float(x[0])
+
+    def broadcast():
+        x = torch.full((1024,), float(rank), device=dev)
+        dist.broadcast(x, 0)
+        assert float(x.abs().sum()) == 0.0
+
+    def reduce_scatter():
+        x = torch.arange(world * 256, dtype=torch.float32, device=dev)
+        y = torch.empty(256, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        assert float(y[0]) == world * rank * 256, float(y[0])
+
+    def all_gather():
+        x = torch.full((256,), float(rank), device=dev)
+        y = torch.empty(world * 256, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        assert float(y[-1]) == world - 1, float(y[-1])
+
+    def all_to_all():
+        x = torch.full((world * 64,), float(rank), device=dev)
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        assert float(y[-1]) == world - 1, float(y[-1])
+
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("reduce_scatter_tensor", reduce_scatter),
+                     ("all_gather_into_tensor", all_gather),
+                     ("all_to_all_single", all_to_all)):
+        attempt(name, fn)
+    return out
+
+
+def main():
+    backend = sys.argv[1] if len(sys.argv) > 1 else "nccl"
+    world = int(os.environ["DMLC_NUM_WORKER"])
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    ndev = torch.cuda.device_count()
+    dev = torch.device("cuda", rank % max(ndev, 1))
+    torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(
+            backend,
+            init_method="tcp://" + os.environ["MXNET_TPU_COORDINATOR"],
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=60))
+        result = _probe(backend, rank, world, dev)
+    except Exception as e:  # noqa: BLE001 - recorded, not hidden
+        result = {"init_process_group": type(e).__name__ + ": " + str(e)[:200]}
+    if rank == 0:
+        print("PROBE " + json.dumps(
+            {"backend": backend, "world": world, "device_count": ndev,
+             "shared_card": ndev < world, "nccl": list(
+                 torch.cuda.nccl.version()) if backend == "nccl" else None,
+             "collectives": result}), flush=True)
+    try:
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - a refused communicator may not close
+        pass
+    os._exit(0)
+
+
+if __name__ == "__main__":
+    main()
