@@ -380,6 +380,20 @@ Phases, in order:
     through a ``Module`` over ``[gpu(0), gpu(1)]`` (``gpu(0)`` twice on
     one card) at batch 32 split 16/16 with ``KVStore("device")`` against
     one context summing the two halves' gradients.
+39. tensor parallelism: step 0 (38's probe) says whether gloo takes
+    ``new_group`` subgroups on CUDA tensors (it must, where NCCL refuses
+    two ranks of one card) and records ``batch_isend_irecv``; (a) the tp
+    ``ShardedTrainer`` on GPT-2-small, tp 2 over two ranks (gloo on one
+    card; dp2 x tp2 over NCCL on four cards), 3 steps: B1/B2a/B2b on
+    every rank, the ranks' whole parameters bit-equal, the update within
+    1e-3 of one process's on the same data; (b) tp-2 decode at full
+    width in f32, int8 and int4 through the ``DecodeEngine`` on rank 0
+    (rank 1 follows): tokens equal to one process's, f32 logits within
+    1e-4, one step's collectives equal to ``decode_tp_model_bytes``, B3
+    and B4 launched on each rank at its shapes, then B3 (H 6) and B4 at
+    every per-rank block against their plain versions; (c)
+    ``Module.fit`` over ``group2ctxs`` (example/model_parallel/
+    two_stage.py's net) bit-equal to the unsegmented Module.
 
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
@@ -524,11 +538,23 @@ def device_by_kernel(prof):
 def phase_kernels(torch, kernels, F, timer, card):
     """Every kernel against its plain version at the decode step's
     shapes, with times and bounds."""
+    c = FULL
+    h, V, L = c["hidden"], c["vocab_size"], c["num_layers"]
+    rows = decode_attention_rows(torch, kernels, F, timer, c["heads"], L)
+    shapes = [("q/k/v/proj", h, h, 4 * L), ("ff1", 4 * h, h, L),
+              ("ff2", h, 4 * h, L), ("head", V, h, 1)]
+    rows += quant_matmul_rows(torch, kernels, timer, shapes)
+    log_rows(rows, card)
+    return rows
+
+
+def decode_attention_rows(torch, kernels, F, timer, H, per_step, where=""):
+    """B3 against its plain version and SDPA over FULL's pool at ``H``
+    heads: the decode step's mix of lengths and the full cache."""
     rows = []
     dev = torch.device("cuda")
     c = FULL
-    S, H, D, page = c["max_seqs"], c["heads"], c["hidden"] // c["heads"], \
-        c["page_size"]
+    S, D, page = c["max_seqs"], c["hidden"] // c["heads"], c["page_size"]
     max_pages = c["seq_len"] // page
     P = 1 + S * max_pages
     rs = np.random.RandomState(0)
@@ -560,6 +586,10 @@ def phase_kernels(torch, kernels, F, timer, card):
               "decode_attention disagrees with its plain version")
         check(torch.equal(out, kernels.decode_attention(q, kp, vp, pt, sl)),
               "two launches of decode_attention gave different bits")
+        tot = int(lens.sum())
+        nbytes = 2 * tot * H * D * 4 + 2 * S * H * D * 4 + pt.numel() * 4 \
+            + S * 4
+        b, by = bound_ms(nbytes, 4.0 * tot * H * D)
         # yardstick: one SDPA call over contiguous K/V of the same
         # lengths, padded to the longest and masked (its mask keeps
         # inactive rows finite by letting them see key 0)
@@ -579,17 +609,13 @@ def phase_kernels(torch, kernels, F, timer, card):
                                              attn_mask=mask)[:, :, 0]
         check((lib[act] - ref[act]).abs().max().item() < 1e-4,
               "the SDPA yardstick computes another function")
-        tot = int(lens.sum())
-        nbytes = 2 * tot * H * D * 4 + 2 * S * H * D * 4 + pt.numel() * 4 \
-            + S * 4
-        b, by = bound_ms(nbytes, 4.0 * tot * H * D)
-        rows.append({
+        row = {
             "name": "decode_attention", "route": "cuda",
             "source": "mxnet_tpu_torch/csrc/decode_attention.cu",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:619",
-            "shape": "S%d H%d D%d page%d, %s, sum(seq_lens)=%d"
-                     % (S, H, D, page, tag, tot),
-            "launches_per_step": c["num_layers"],
+            "shape": "%sS%d H%d D%d page%d, %s, sum(seq_lens)=%d"
+                     % (where, S, H, D, page, tag, tot),
+            "launches_per_step": per_step,
             "max_abs_err": err,
             "ms": timer(lambda: kernels.decode_attention(q, kp, vp, pt, sl)),
             "plain_ms": timer(lambda: kernels.decode_attention_plain(
@@ -599,15 +625,20 @@ def phase_kernels(torch, kernels, F, timer, card):
                 q[:, :, None], kc, vc, attn_mask=mask)),
             "library_call": "F.scaled_dot_product_attention over contiguous "
                             "K/V padded to %d, masked" % T,
-        })
-    del kp, vp, kc, vc
+        }
+        del kc, vc
+        rows.append(row)
+    del kp, vp
+    return rows
 
-    h, V = c["hidden"], c["vocab_size"]
-    M = S
-    shapes = [("q/k/v/proj", h, h, 4 * c["num_layers"]),
-              ("ff1", 4 * h, h, c["num_layers"]),
-              ("ff2", h, 4 * h, c["num_layers"]),
-              ("head", V, h, 1)]
+
+def quant_matmul_rows(torch, kernels, timer, shapes, where=""):
+    """B4 (int8 and int4) against its plain version at the decode step's
+    M = S rows and each ``(label, N, K, launches a step)`` of ``shapes``."""
+    rows = []
+    dev = torch.device("cuda")
+    M = FULL["max_seqs"]
+    rs = np.random.RandomState(0)
     for bits in (8, 4):
         for label, N, K, per_step in shapes:
             w = (rs.randn(N, K) * 0.02).astype(np.float32)
@@ -628,11 +659,11 @@ def phase_kernels(torch, kernels, F, timer, card):
             # scale applied after vs before an f32 sum over K terms, in
             # another order: 1e-5 relative to the result's magnitude
             tol = 1e-5 * max(scale, 1.0)
-            log("quant_matmul int%d %s (%dx%d)@(%dx%d)^T: max_abs_err=%.3g "
-                "(tolerance %.3g = 1e-5 x max|y|)"
-                % (bits, label, M, K, N, K, err, tol))
-            check(err <= tol, "quant_matmul int%d %s disagrees with its "
-                  "plain version" % (bits, label))
+            log("quant_matmul int%d %s%s (%dx%d)@(%dx%d)^T: max_abs_err=%.3g"
+                " (tolerance %.3g = 1e-5 x max|y|)"
+                % (bits, where, label, M, K, N, K, err, tol))
+            check(err <= tol, "quant_matmul int%d %s%s disagrees with its "
+                  "plain version" % (bits, where, label))
             nbytes = qw.numel() + 4 * N + 4 * M * K + 4 * M * N
             b, by = bound_ms(nbytes, 2.0 * M * N * K)
             # the same work on the tensor cores: two TF32 MMAs per product
@@ -643,7 +674,8 @@ def phase_kernels(torch, kernels, F, timer, card):
                 "name": "quant_matmul_int%d" % bits, "route": "cuda",
                 "source": "mxnet_tpu_torch/csrc/quant_matmul.cu",
                 "replaces": "mxnet_tpu/ops/pallas_kernels.py:743",
-                "shape": "%s: x (%d,%d) w (%d,%d)" % (label, M, K, N, K),
+                "shape": "%s%s: x (%d,%d) w (%d,%d)" % (where, label, M, K,
+                                                         N, K),
                 "launches_per_step": per_step,
                 "max_abs_err": err,
                 "ms": timer(lambda: kernels.quant_matmul(x, qw, sc, bits)),
@@ -654,13 +686,17 @@ def phase_kernels(torch, kernels, F, timer, card):
                 "library_ms": timer(lambda: torch.matmul(x, wf.T)),
                 "library_call": "torch.matmul(x, w_f32.T)",
             })
+    return rows
+
+
+def log_rows(rows, card):
     for r in rows:
         log("  %-18s %-34s ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s) "
-            "bound_tc_ms=%s library_ms=%.4f  [%s]"
+            "bound_tc_ms=%s library_ms=%s  [%s]"
             % (r["name"], r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
                r["bound_by"], "%.4f" % r["bound_tc_ms"]
-               if "bound_tc_ms" in r else "-", r["library_ms"], card))
-    return rows
+               if "bound_tc_ms" in r else "-",
+               "%.4f" % r["library_ms"], card))
 
 
 def teacher_forced(progs, steps, n_active, seed):
@@ -7852,8 +7888,12 @@ def profile_copies(prof, trace_path):
     """(device busy ms, every host-to-device copy as (kind, bytes, ms,
     whether it overlapped a kernel)) of the step that FED_STEP_MARK spans,
     read from the trace the profiler exports to ``trace_path``: its copies
-    carry their bytes there, and its device events are kept only inside
-    the mark (the tracer's warm-up step is in the trace too)."""
+    carry their bytes there, and its device events are kept only where
+    they overlap the mark, clipped to it (the tracer's warm-up step is in
+    the trace too).  The mark is on the host's clock and the device's
+    events are converted to it: the step's first copy, issued ~0.2 ms
+    after the mark opens onto an idle card, can be placed just before it,
+    so an event counts by its overlap, not its start."""
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as fh:
         events = [ev for ev in json.load(fh).get("traceEvents", [])
@@ -7870,9 +7910,9 @@ def profile_copies(prof, trace_path):
         a = float(ev["ts"])
         b = a + float(ev.get("dur", 0))
         if cat not in ("kernel", "gpu_memcpy", "gpu_memset") \
-                or not lo <= a <= hi:
+                or b < lo or a > hi:
             continue
-        busy += (b - a) / 1e3
+        busy += (min(b, hi) - max(a, lo)) / 1e3
         if cat == "kernel":
             kernels_iv.append((a, b))
         elif ev.get("name", "").startswith("Memcpy HtoD"):
@@ -8356,11 +8396,12 @@ def run_gang(here, n, argv, backend, timeout=DIST_TIMEOUT):
     return out
 
 
-def dist_phase(here, n, worker, backend, tmp):
+def dist_phase(here, n, worker, backend, tmp, timeout=DIST_TIMEOUT):
     """Run ``chip_smoke.py --dist-worker WORKER`` in a gang of ``n``;
     returns each rank's result (a JSON file the rank writes)."""
     out = run_gang(here, n, [os.path.join(here, "chip_smoke.py"),
-                             "--dist-worker", worker, tmp], backend)
+                             "--dist-worker", worker, tmp], backend,
+                   timeout)
     for line in out.splitlines():
         log("  | " + line)
     res = []
@@ -8871,7 +8912,8 @@ def phase_dist_contexts(torch, mx, kernels, card):
 
 
 def phase_dist(torch, mx, kernels, kv_mod, get_symbol, here, card):
-    """Phase 38; returns the launches of its paths."""
+    """Phase 38; returns the launches of its paths and step 0's probes
+    (phase 39 reads them too)."""
     import tempfile
     torch.cuda.empty_cache()
     probes = {b: dist_probe(here, b) for b in ("nccl", "gloo")}
@@ -8890,7 +8932,369 @@ def phase_dist(torch, mx, kernels, kv_mod, get_symbol, here, card):
         launches["b"], launches["c"] = phase_dist_trainer_rec(
             torch, here, tmp, probes["nccl"], card)
     launches["d"] = phase_dist_contexts(torch, mx, kernels, card)
-    return launches
+    return launches, probes
+
+
+# -- phase 39: tensor parallelism ----------------------------------------------
+#
+# 39a: the tp ShardedTrainer on GPT-2-small (TRAIN, f32, TF32 off): tp 2
+# over two ranks of one card on gloo (NCCL refuses two ranks of one card),
+# dp2 x tp2 over NCCL where the machine has four cards; its update against
+# one process's on the same data.  39b: tp-2 decode of FULL through the
+# DecodeEngine on rank 0 (rank 1 follows), f32, int8 and int4, against the
+# one-process program; B3 and B4 at the per-rank shapes against their
+# plain versions.  39c: Module.fit of example/model_parallel/two_stage.py's
+# net over group2ctxs, bit-equal to the unsegmented Module.
+TP_A = dict(batch=2, steps=3, lr=1e-4, momentum=0.9, seed=39)
+TP_B = dict(requests=4, max_new=16, seed=391, forced=3, cached=512)
+TP_C = dict(batch=16, rows=64, dim=16, hidden=64, epochs=3, lr=0.5)
+TP_TIMEOUT = 600
+
+
+def tp_train_rank(torch, parallel):
+    """39a on one rank: three tp steps from the seeded state; rank 0 then
+    runs the same steps in one process and holds the update to it."""
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import MeshSpec, ShardedTrainer, audit
+    A, n = TP_A, parallel.world_size()
+    axes = {"dp": n // 2, "tp": 2} if n > 2 else {"tp": 2}
+    spec = MeshSpec.build(axes)
+    B, T = A["batch"] * spec.dp_size, TRAIN["seq_len"]
+    net = get_symbol(**TRAIN)
+    shapes = {"data": (B, T), "softmax_label": (B, T)}
+    hyper = dict(lr=A["lr"], momentum=A["momentum"], wd=0.0)
+    tr = ShardedTrainer(net, spec, **hyper)
+    params, mom, aux = tr.init_state(shapes, seed=A["seed"])
+    rs = np.random.RandomState(A["seed"])
+    batches = [{k: rs.randint(0, TRAIN["vocab_size"], (B, T)).astype(
+        np.float32) for k in shapes} for _ in range(A["steps"])]
+    kernels.reset_launches()
+    audit.clear_collective_log()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        params, mom, aux, loss = tr.step(params, mom, aux, b)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = audit.bytes_by_axis(step=1)
+            calls = len([e for e in audit.collective_log()
+                         if e["step"] == 1])
+    launches = dict(kernels.LAUNCHES)
+    whole = tr.get_params(params)
+    out = {"launches": launches, "step_ms": times, "loss": losses,
+           "audit": first, "collectives": calls, "axes": axes,
+           "digest": digest({k: v.cpu().numpy()
+                             for k, v in zip(tr.param_names, whole)}),
+           "block_bytes": sum(p.numel() * p.element_size() for p in params),
+           "mom_bytes": sum(m.numel() * m.element_size() for m in mom),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if parallel.rank() != 0:
+        return out
+    one = ShardedTrainer(net, **hyper)
+    p1, m1, a1 = one.init_state(shapes, seed=A["seed"])
+    start = [p.clone() for p in p1]
+    ref_losses = []
+    for b in batches:
+        p1, m1, a1, loss = one.step(p1, m1, a1, b)
+        ref_losses.append(float(loss))
+    upds = [(pr - p0).abs().max().item() for p0, pr in zip(start, p1)]
+    errs = [(pt - pr).abs().max().item() for pr, pt in zip(p1, whole)]
+    # a tensor whose gradient vanishes (the key bias: softmax ignores a
+    # shift common to every key) moves by rounding alone: each update is
+    # measured against at least 1e-4 of the largest one
+    floor = 1e-4 * max(upds)
+    ratios = [e / max(u, floor) for u, e in zip(upds, errs)]
+    i = int(np.argmax(ratios))
+    out.update(ref_loss=ref_losses, worst=ratios[i],
+               worst_name=one.param_names[i], exact=sum(e == 0 for e in errs),
+               tensors=len(start))
+    return out
+
+
+def tp_decode_rank(torch, parallel):
+    """39b on one rank of a tp-2 gang: per precision, teacher-forced steps
+    with every rank calling ``step`` (one step's audit trail; rank 0 holds
+    tokens and logits to the one-process program), then the engine on
+    rank 0 with rank 1 following (rank 0 holds the tokens to the
+    one-process engine's), then the steady step's ms."""
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import audit
+    from mxnet_tpu_torch.serving.decode import (
+        DecodeConfig, DecodeEngine, DecodeProgram, decode_tp_model_bytes,
+        follow_engine, init_decode_params)
+    c = FULL
+    cfg = DecodeConfig(c["vocab_size"], c["num_layers"], c["hidden"],
+                       c["heads"], c["seq_len"], page_size=c["page_size"],
+                       max_seqs=c["max_seqs"])
+    params = init_decode_params(cfg, seed=0)
+    rs = np.random.RandomState(TP_B["seed"])
+    requests = [(rs.randint(0, cfg.vocab_size, int(rs.randint(16, 65))),
+                 TP_B["max_new"]) for _ in range(TP_B["requests"])]
+    leader = parallel.rank() == 0
+    out = {"model": decode_tp_model_bytes(cfg, 2)}
+    for qz in (None, "int8", "int4"):
+        tag = qz or "f32"
+        prog = DecodeProgram(params, cfg, mesh={"tp": 2}, quantize=qz,
+                             name="tp-" + tag)
+        prog.ensure_compiled()
+        audit.clear_collective_log()
+        forced, _ = teacher_forced([prog], TP_B["forced"], 7, 5)
+        last = audit.collective_log()[-(2 * cfg.num_layers + int(
+            prog.head_split)):]
+        res = {"audit": audit.bytes_by_axis(last)}
+        kernels.reset_launches()
+        if leader:
+            with DecodeEngine(prog, default_deadline=300.0) as eng:
+                futs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+                toks = [f.result(timeout=300)[0].tolist() for f in futs]
+                st = eng.stats()
+            res["steps"] = st["counters"]["steps"]
+            res["token_step_ms"] = st["decode"]["token_step_s"]["p50"] * 1e3
+        else:
+            res["steps"] = follow_engine([prog])["steps"]
+        res["launches"] = dict(kernels.LAUNCHES)
+        res["host_ms"], res["b2b_ms"] = step_timing(torch, prog,
+                                                    TP_B["cached"], steps=10)
+        if leader:
+            one = DecodeProgram(params, cfg, quantize=qz, name="one-" + tag)
+            ref, _ = teacher_forced([one], TP_B["forced"], 7, 5)
+            res["logit_err"] = max((a[1] - b[1]).abs().max().item()
+                                   for a, b in zip(forced[0], ref[0]))
+            res["forced_equal"] = all(torch.equal(a[0], b[0]) for a, b in
+                                      zip(forced[0], ref[0]))
+            with DecodeEngine(one, default_deadline=300.0) as eng:
+                futs = [eng.submit(p, max_new_tokens=m) for p, m in requests]
+                res["engine_equal"] = toks == [
+                    f.result(timeout=300)[0].tolist() for f in futs]
+            del one
+        out[tag] = res
+        del prog
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_train(torch, res, backend, card):
+    """39a's checks and report; returns the launches summed over the
+    ranks."""
+    r0 = res[0]
+    steps, L = TP_A["steps"], TRAIN["num_layers"]
+    for r, g in enumerate(res):
+        for key in FLASH_B12:
+            check(g["launches"].get(key) == L * steps,
+                  "39a rank %d: %s launched %s times over %d steps"
+                  % (r, key, g["launches"].get(key), steps))
+        want = {a for a, k in r0["axes"].items() if k > 1}
+        check(set(g["audit"]) == want, "39a rank %d: collectives on %s, "
+              "want %s" % (r, sorted(g["audit"]), sorted(want)))
+        check(g["digest"] == r0["digest"], "39a: rank %d's parameters "
+              "differ from rank 0's after %d steps" % (r, steps))
+    # the update, not the weights: next to a weight's own magnitude a
+    # wrong gradient would hide in the rounding.  The tp step
+    # sums the same products in other orders (partial input gradients
+    # added over tp): 1e-3 of the largest update of each tensor
+    check(r0["worst"] <= 1e-3, "39a: the tp update of %s differs from the "
+          "one-process update by %.3g of its largest"
+          % (r0["worst_name"], r0["worst"]))
+    check(np.allclose(r0["loss"], r0["ref_loss"], rtol=1e-5),
+          "39a: losses %s against one process's %s"
+          % (r0["loss"], r0["ref_loss"]))
+    tp = r0["audit"].get("tp", {})
+    log("39a tp ShardedTrainer over %s on %s, backend %s: GPT-2-small "
+        "L%d h%d V%d T%d f32, global batch %d, %d steps: step ms rank 0 "
+        "%s, rank 1 %s; %d collectives a step, tp payload a step %s MB, "
+        "dp %s; per rank parameter blocks %.1f MB, momentum %.1f MB, peak "
+        "%.2f GB; losses %s (one process %s); update within %.3g of the "
+        "one-process update's largest (worst %s; %d of %d tensors "
+        "bit-equal); the "
+        "ranks' whole parameters bit-equal; B1/B2 %d launches a rank [%s]"
+        % (r0["axes"], "one card" if torch.cuda.device_count() == 1 else
+           "%d cards" % torch.cuda.device_count(), backend,
+           TRAIN["num_layers"], TRAIN["hidden"], TRAIN["vocab_size"],
+           TRAIN["seq_len"], TP_A["batch"] * r0["axes"].get("dp", 1),
+           steps, ", ".join("%.1f" % x for x in r0["step_ms"]),
+           ", ".join("%.1f" % x for x in res[1]["step_ms"]),
+           r0["collectives"], json.dumps({k: round(v / 1e6, 3)
+                                          for k, v in tp.items()}),
+           json.dumps({k: round(v / 1e6, 3) for k, v in
+                       r0["audit"].get("dp", {}).items()}),
+           r0["block_bytes"] / 1e6, r0["mom_bytes"] / 1e6, r0["peak_gb"],
+           ["%.4f" % x for x in r0["loss"]],
+           ["%.4f" % x for x in r0["ref_loss"]], r0["worst"],
+           r0["worst_name"], r0["exact"], r0["tensors"], L * steps, card))
+    total = {}
+    for g in res:
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_tp_decode(torch, res, card):
+    """39b's checks and report; returns the launches summed over the
+    ranks."""
+    L = FULL["num_layers"]
+    total = {}
+    for tag in ("f32", "int8", "int4"):
+        r0 = res[0][tag]
+        for r, g in enumerate(res):
+            got = g[tag]
+            check(got["audit"] == {"tp": res[0]["model"]},
+                  "39b %s rank %d: one step's collectives %s, the model "
+                  "says %s on tp" % (tag, r, got["audit"], res[0]["model"]))
+            check(got["steps"] == r0["steps"], "39b %s: rank %d ran %d "
+                  "steps, rank 0 %d" % (tag, r, got["steps"], r0["steps"]))
+            check(got["launches"].get("decode_attention") ==
+                  L * got["steps"], "39b %s rank %d: decode_attention "
+                  "launched %s times over %d steps"
+                  % (tag, r, got["launches"].get("decode_attention"),
+                     got["steps"]))
+            if tag != "f32":
+                want = (6 * L + 1) * got["steps"]
+                check(got["launches"].get("quant_matmul_" + tag) == want,
+                      "39b %s rank %d: quant_matmul launched %s times, "
+                      "want %d" % (tag, r, got["launches"].get(
+                          "quant_matmul_" + tag), want))
+            for k, v in got["launches"].items():
+                total[k] = total.get(k, 0) + v
+        check(r0["forced_equal"] and r0["engine_equal"], "39b %s: the tp-2 "
+              "tokens differ from the one-process program's" % tag)
+        if tag == "f32":
+            check(r0["logit_err"] <= 1e-4, "39b f32: logits differ from "
+                  "the one-process step's by %.3g" % r0["logit_err"])
+        log("39b tp-2 decode %s of %s: engine %d steps, token step p50 "
+            "%.3f ms (rank 0's engine); steady step at %d cached a slot "
+            "%.3f ms waiting for tokens, %.3f ms back to back (rank 0), "
+            "%.3f / %.3f (rank 1); tokens equal to one process, "
+            "teacher-forced logits within %.3g; one step's collectives %s "
+            "= decode_tp_model_bytes(cfg, 2), all on tp [%s]"
+            % (tag, "L%d H%d heads%d V%d" % (L, FULL["hidden"], FULL["heads"],
+                                             FULL["vocab_size"]),
+               r0["steps"], r0["token_step_ms"], TP_B["cached"],
+               r0["host_ms"], r0["b2b_ms"], res[1][tag]["host_ms"],
+               res[1][tag]["b2b_ms"], r0["logit_err"], r0["audit"]["tp"],
+               card))
+    return total
+
+
+def tp_kernel_rows(torch, kernels, timer, card):
+    """B3 and B4 at the shapes a tp-2 rank gives them (half the heads; the
+    per-rank blocks of every matmul) against their plain versions."""
+    c, tp = FULL, 2
+    h, V, L = c["hidden"], c["vocab_size"], c["num_layers"]
+    import torch.nn.functional as F
+    rows = decode_attention_rows(torch, kernels, F, timer, c["heads"] // tp,
+                                 L, "tp-2 rank, ")
+    shapes = [("q/k/v", h // tp, h, 3 * L), ("proj", h, h // tp, L),
+              ("ff1", 4 * h // tp, h, L), ("ff2", h, 4 * h // tp, L),
+              ("head", V // tp, h, 1)]
+    rows += quant_matmul_rows(torch, kernels, timer, shapes, "tp-2 rank, ")
+    log_rows(rows, card)
+    return rows
+
+
+def phase_tp_contexts(torch, mx, kernels, card):
+    """39c: Module.fit of example/model_parallel/two_stage.py's net over
+    group2ctxs (stage1 on gpu(0), stage2 on gpu(1) where there are two
+    cards, else gpu(0)), against the unsegmented Module on gpu(0) from the
+    same weights and batches: bit-equal."""
+    C = TP_C
+    second = mx.gpu(min(1, torch.cuda.device_count() - 1))
+    g2c = {"stage1": mx.gpu(0), "stage2": second}
+
+    def net():
+        data = mx.sym.Variable("data")
+        with mx.AttrScope(ctx_group="stage1"):
+            x = mx.sym.FullyConnected(data, num_hidden=C["hidden"],
+                                      name="fc1")
+            x = mx.sym.Activation(x, act_type="relu")
+        with mx.AttrScope(ctx_group="stage2"):
+            x = mx.sym.FullyConnected(x, num_hidden=2, name="fc2")
+            return mx.sym.SoftmaxOutput(x, name="softmax")
+
+    rs = np.random.RandomState(0)
+    X = rs.normal(0, 1, (C["rows"], C["dim"])).astype(np.float32)
+    Y = (X.sum(1) > 0).astype(np.float32)
+    start = {"fc1_weight": rs.normal(0, .3, (C["hidden"], C["dim"])),
+             "fc1_bias": np.zeros(C["hidden"]),
+             "fc2_weight": rs.normal(0, .3, (2, C["hidden"])),
+             "fc2_bias": np.zeros(2)}
+    out, times = {}, {}
+    # each fit twice, in turns; the second pass is kept (the first warms
+    # the card's libraries)
+    for tag, groups in (("plain", None), ("segmented", g2c)) * 2:
+        mod = mx.mod.Module(net(), context=mx.gpu(0), group2ctxs=groups)
+        it = mx.io.NDArrayIter(X, Y, batch_size=C["batch"],
+                               label_name="softmax_label")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mod.fit(it, num_epoch=C["epochs"], initializer=None,
+                arg_params={k: mx.nd.array(v.astype(np.float32),
+                                           ctx=mx.cpu())
+                            for k, v in start.items()},
+                optimizer_params={"learning_rate": C["lr"]})
+        torch.cuda.synchronize()
+        times[tag] = (time.perf_counter() - t0) * 1e3
+        if groups:
+            devs = mod._exec_group.execs[0].ctx_group_devices
+            check(devs is not None and len(devs) == (
+                2 if second != mx.gpu(0) else 1),
+                  "39c: segments on %s" % (devs,))
+        metric = mx.metric.Accuracy()
+        mod.score(it, metric)
+        out[tag] = ({k: v.asnumpy() for k, v in mod.get_params()[0]
+                     .items()}, metric.get()[1], devs if groups else None)
+    bad = [k for k in out["plain"][0]
+           if not np.array_equal(out["plain"][0][k], out["segmented"][0][k])]
+    check(not bad, "39c: the segmented Module's weights differ from the "
+          "unsegmented Module's: %s" % bad)
+    log("39c Module.fit over group2ctxs %s (segments on %s), %d epochs of "
+        "%d rows at batch %d: %.1f ms (unsegmented %.1f ms; each the "
+        "second of two fits in turns), accuracy "
+        "%.3f, every weight bit-equal to the unsegmented Module's on "
+        "gpu(0) [%s]" % (g2c, out["segmented"][2], C["epochs"], C["rows"],
+                         C["batch"], times["segmented"], times["plain"],
+                         out["segmented"][1], card))
+    return dict(kernels.LAUNCHES)
+
+
+def phase_tp(torch, mx, kernels, here, probes, card):
+    """Phase 39; returns its kernel rows and the launches of its paths."""
+    import tempfile
+    gloo = probes["gloo"]["collectives"]
+    log("39 step 0 (tools/torch_dist_probe.py): gloo new_group %s, "
+        "batch_isend_irecv %s; nccl new_group %s, batch_isend_irecv %s "
+        "(recorded for ring, pipeline and MoE) [%s]"
+        % (gloo.get("new_group"), gloo.get("batch_isend_irecv"),
+           probes["nccl"]["collectives"].get("new_group"),
+           probes["nccl"]["collectives"].get("batch_isend_irecv"), card))
+    nccl = probes["nccl"]["collectives"].get("all_reduce") == "ok"
+    backend = "nccl" if nccl else "gloo"
+    check(nccl or gloo.get("new_group") == "ok", "39: gloo refuses "
+          "new_group subgroups on CUDA tensors: %s" % gloo.get("new_group"))
+    n = 4 if nccl and torch.cuda.device_count() >= 4 else 2
+    launches = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        if n == 2:
+            res = dist_phase(here, 2, "39", backend, tmp, TP_TIMEOUT)
+            a, b = [x["a"] for x in res], [x["b"] for x in res]
+        else:
+            a = [x["a"] for x in dist_phase(here, n, "39a", backend, tmp,
+                                            TP_TIMEOUT)]
+            b = [x["b"] for x in dist_phase(here, 2, "39b", backend, tmp,
+                                            TP_TIMEOUT)]
+    launches["a"] = phase_tp_train(torch, a, backend, card)
+    launches["b"] = phase_tp_decode(torch, b, card)
+    timer = Timer(torch)
+    rows = tp_kernel_rows(torch, kernels, timer, card)
+    del timer
+    torch.cuda.empty_cache()
+    launches["c"] = phase_tp_contexts(torch, mx, kernels, card)
+    return rows, launches
 
 
 def dist_worker(worker, outdir):
@@ -8908,7 +9312,11 @@ def dist_worker(worker, outdir):
     parallel.init_distributed(num_processes=int(os.environ[
         "DMLC_NUM_WORKER"]))
     torch.cuda.set_device(parallel.gang_device())
-    fn = {"38a": worker_38a, "38bc": worker_38bc}[worker]
+    fn = {"38a": worker_38a, "38bc": worker_38bc,
+          "39": lambda *a: {"a": tp_train_rank(torch, parallel),
+                            "b": tp_decode_rank(torch, parallel)},
+          "39a": lambda *a: {"a": tp_train_rank(torch, parallel)},
+          "39b": lambda *a: {"b": tp_decode_rank(torch, parallel)}}[worker]
     res = fn(torch, parallel, here)
     r = parallel.rank()
     with open(os.path.join(outdir, "%s.r%d.json" % (worker, r)), "w") as f:
@@ -9269,9 +9677,20 @@ def main():
                "dist_sync with 2-bit compression in two ranks, the dp and "
                "ZeRO ShardedTrainer, the recommender over a dp mesh, a "
                "Module over two contexts"):
-        for part, got in phase_dist(torch, mx, kernels, tkv, get_symbol,
-                                    here, card).items():
+        dist_launches, probes = phase_dist(torch, mx, kernels, tkv,
+                                           get_symbol, here, card)
+        for part, got in dist_launches.items():
             launches["dist_" + part] = got
+
+    with phase("39 tensor parallelism: the tp ShardedTrainer on GPT-2-small "
+               "over two ranks, tp-2 decode through the DecodeEngine, B3 "
+               "and B4 at the per-rank shapes, ctx_group through "
+               "Module.fit"):
+        tp_rows, tp_launches = phase_tp(torch, mx, kernels, here, probes,
+                                        card)
+        rows += tp_rows
+        for part, got in tp_launches.items():
+            launches["tp_" + part] = got
 
     # -- report ---------------------------------------------------------------
     for r in rows:

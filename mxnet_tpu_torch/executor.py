@@ -21,8 +21,12 @@ forward records the graph with autograd, and ``backward`` runs
 ``torch.autograd.grad`` over its outputs and writes the gradients into
 the bound gradient arrays; ``run_fwd_bwd`` does both at once (the Module
 path).  Monitor taps (``set_monitor_callback``, ROADMAP queue A item 9,
-observability) and ``ctx_group`` placement (item 7's second half) raise
-``NotPortedYet``.
+observability) raise ``NotPortedYet``.  ``group2ctx`` (``ctx_group``
+placement) runs each grouped node on its group's device through
+:class:`~mxnet_tpu_torch.placement.SegmentedProgram`; an op node's
+``__shard__`` goes through :func:`~mxnet_tpu_torch.placement.
+activation_constraint` (checked against the current mesh, the value
+unchanged).
 
 Remat (the reference's ``MXNET_BACKWARD_DO_MIRROR``): a policy chosen by
 :func:`set_backward_mirror`, else ``MXNET_TPU_REMAT_POLICY``, else
@@ -237,12 +241,16 @@ class GraphProgram:
         self._segs = None
 
     def evaluate(self, arg_arrays: Sequence, aux_arrays: Sequence,
-                 train: bool = False, generator=None, remat: str = "none"):
+                 train: bool = False, generator=None, remat: str = "none",
+                 node_hook=None):
         """Evaluate the DAG; returns ``(outputs, new_aux)`` as tuples.
         Each ``needs_rng`` node draws from ``generator`` in topological
         order (without one, from its device's generator of
         :mod:`mxnet_tpu_torch.rng`).  ``remat`` other than "none" runs
-        the nodes in checkpointed segments (the module docstring)."""
+        the nodes in checkpointed segments (the module docstring).
+        ``node_hook(node, attrs, inputs)``, where given, computes each op
+        node's outputs in place of ``node.op.fn`` (the ``ctx_group``
+        placement, the tp trainer's sharded layers)."""
         arg_map = dict(zip(self.arg_names, arg_arrays))
         aux_map = dict(zip(self.aux_names, aux_arrays))
         batch_hint = batch_hint_from(arg_map, self.arg_names)
@@ -258,12 +266,12 @@ class GraphProgram:
             for node in self.nodes:
                 if not node.is_var:
                     self._eval_node(node, val, train, batch_hint, generator,
-                                    device)
+                                    device, node_hook)
         else:
             for nodes, live_in, live_out, draws in self._segments():
                 seg = functools.partial(self._eval_segment, nodes, live_in,
                                         live_out, train, batch_hint,
-                                        generator, device)
+                                        generator, device, node_hook)
                 outs = _remat_wrap(seg, remat,
                                    generator if draws else None)(
                     *[val[k] for k in live_in])
@@ -277,21 +285,28 @@ class GraphProgram:
         return outputs, tuple(new_aux)
 
     @staticmethod
-    def _eval_node(node, val, train, batch_hint, generator, device):
+    def _eval_node(node, val, train, batch_hint, generator, device,
+                   node_hook=None):
         attrs = node_attrs(node, train, batch_hint, device)
         ins = [val[(id(e.node), e.index)] for e in node.inputs]
         if node.op.needs_rng:
             ins = [generator] + ins
-        out = node.op.fn(attrs, *ins)
-        for i, o in enumerate(out if isinstance(out, tuple) else (out,)):
+        out = node.op.fn(attrs, *ins) if node_hook is None else \
+            node_hook(node, attrs, ins)
+        out = out if isinstance(out, tuple) else (out,)
+        ann = node.attrs.get("__shard__") if node.attrs else None
+        if ann is not None:
+            from .placement import activation_constraint
+            out = activation_constraint(out, ann, node.name)
+        for i, o in enumerate(out):
             val[(id(node), i)] = o
 
     def _eval_segment(self, nodes, live_in, live_out, train, batch_hint,
-                      generator, device, *ins):
+                      generator, device, node_hook, *ins):
         val = dict(zip(live_in, ins))
         for node in nodes:
             self._eval_node(node, val, train, batch_hint, generator,
-                            device)
+                            device, node_hook)
         return tuple(val[k] for k in live_out)
 
     def _segments(self):
@@ -540,9 +555,6 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, shared_exec=None, program=None,
                  group2ctx=None):
-        if group2ctx:
-            raise NotPortedYet("ctx_group placement (group2ctx) is queue "
-                               "A item 7's second half")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else \
             context_of(as_torch_device(ctx))
@@ -578,6 +590,15 @@ class Executor:
         self.outputs: List = []
         self._graph = None     # (outputs, leaf names, leaves) to backward
         self._generator = None  # the needs_rng nodes' draws, made lazily
+        # ctx_group placement: the graph runs segmented where a grouped
+        # node maps to a context of group2ctx
+        self._seg = None
+        self._group2ctx = group2ctx
+        if group2ctx:
+            from .placement import SegmentedProgram, group_devices
+            if group_devices(symbol, group2ctx):
+                self._seg = SegmentedProgram(self._prog, group2ctx,
+                                             self._ctx)
 
     # -- binding ----------------------------------------------------------
     @staticmethod
@@ -655,7 +676,7 @@ class Executor:
         if self._prog.num_rng and self._generator is None:
             self._generator = _rng.new_generator(self._ctx.torch_device)
         with torch.set_grad_enabled(record):
-            outs, new_aux = self._prog.evaluate(
+            outs, new_aux = (self._seg or self._prog).evaluate(
                 args, aux, train=bool(is_train), generator=self._generator,
                 remat=backward_mirror_policy() if record else "none")
         self._graph = (outs, names, [leaves[n] for n in names]) \
@@ -712,7 +733,7 @@ class Executor:
         else:
             if not isinstance(out_grads, (list, tuple)):
                 out_grads = [out_grads]
-            cots = [g._handle if hasattr(g, "_handle") else
+            cots = [g._handle.to(o.device) if hasattr(g, "_handle") else
                     torch.as_tensor(g, device=o.device)
                     for g, o in zip(out_grads, outs)]
         # an output behind BlockGrad (SSD's det_out and cls_label) has no
@@ -765,7 +786,15 @@ class Executor:
                     grads[n] = g
         return Executor(self._symbol, self._ctx, args, args_grad=grads,
                         grad_req=self.grad_req, aux_states=self.aux_dict,
-                        program=self._prog)
+                        program=self._prog, group2ctx=self._group2ctx)
+
+    @property
+    def ctx_group_devices(self):
+        """The devices of the ``ctx_group`` segments, in order, or None
+        for an executor without them."""
+        if self._seg is None:
+            return None
+        return [seg.device for seg in self._seg.segments]
 
     @property
     def output_dict(self):

@@ -46,7 +46,7 @@ collective lane: each rank updates with its own gradients and every
 ``MXNET_TPU_ASYNC_AVG_INTERVAL`` pushes of a key the stored values are
 averaged over the ranks.  Its parameter-server lane (``MXNET_TPU_KV_DIR``,
 ``kvstore/{server,client,protocol,worker}.py``) is queue A item 7's second
-half, and the heartbeat lane of ``num_dead_node`` is item 8.
+half, step 4, and the heartbeat lane of ``num_dead_node`` is item 8.
 """
 from __future__ import annotations
 
@@ -530,7 +530,7 @@ def create(name="local", device=None) -> KVStore:
             raise NotPortedYet("kvstore 'dist_async' with MXNET_TPU_KV_DIR: "
                                "the parameter-server lane (kvstore/{server,"
                                "client,protocol,worker}.py) is queue A item "
-                               "7's second half")
+                               "7's second half, step 4")
         return KVStoreDistAsync(name, device=device)
     if name.startswith("dist"):
         return KVStoreDist(name, device=device)

@@ -87,8 +87,9 @@ def get_decode_step(arg_params, vocab_size=1000, seq_len=32, num_layers=2,
     one token per occupied slot per call against a paged KV cache on
     ``device`` (None = the card; a typed error without one).
     ``seq_len`` bounds prompt+generation; ``quantize`` (``"int8"`` /
-    ``"int4"``) selects weight-only quantized matmuls; ``mesh`` is not
-    ported yet (typed error).  Feed the program to
+    ``"int4"``) selects weight-only quantized matmuls; ``mesh`` (a
+    ``MeshSpec`` or ``{"tp": k}``) serves it tensor-parallel over a
+    gang's tp group, each rank holding its blocks.  Feed the program to
     :class:`~mxnet_tpu_torch.serving.decode.DecodeEngine` for continuous
     token-level batching."""
     from ..serving.decode import DecodeConfig, DecodeProgram

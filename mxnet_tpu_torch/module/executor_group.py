@@ -20,9 +20,10 @@ executor over the shared group's parameter, gradient and auxiliary
 NDArrays of the same position, by name (reference ``bind_exec``): every
 bucket reads and writes the same tensors.
 
-``group2ctxs`` (ctx_group placement) raises
-:class:`~mxnet_tpu_torch.base.NotPortedYet`: queue A item 7's second
-half.
+``group2ctxs`` (ctx_group placement) binds each executor with its own
+``group2ctx`` (:meth:`DataParallelExecutorGroup._prepare_group2ctxs`,
+the reference's rule), so its grouped nodes run on their groups' devices
+(:class:`~mxnet_tpu_torch.placement.SegmentedProgram`).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import List
 
 import torch
 
-from ..base import NotPortedYet
+from ..context import Context
 from ..executor import Executor
 from ..io.io import DataDesc
 from ..ndarray.ndarray import NDArray
@@ -65,9 +66,8 @@ class DataParallelExecutorGroup:
                  param_names, for_training, inputs_need_grad,
                  shared_group=None, logger=logging, fixed_param_names=None,
                  grad_req="write", state_names=None, group2ctxs=None):
-        if group2ctxs:
-            raise NotPortedYet("group2ctxs (ctx_group placement) is queue A "
-                               "item 7's second half")
+        self.group2ctxs = self._prepare_group2ctxs(group2ctxs,
+                                                   len(contexts))
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
@@ -98,6 +98,41 @@ class DataParallelExecutorGroup:
             self.grad_req = {k: "null" for k in self.grad_req}
         self.bind_exec(data_shapes, label_shapes, shared_group)
 
+    @staticmethod
+    def _prepare_group2ctxs(group2ctxs, ctx_len):
+        """``group2ctxs`` as one ``{group: Context}`` dict per executor
+        (reference executor_group.py:58): a list must hold one dict per
+        context; in a dict, a single Context (or a list of one) is shared
+        by every executor, a list of ``ctx_len`` contexts gives one to
+        each."""
+        if group2ctxs is None:
+            return [None] * ctx_len
+        if isinstance(group2ctxs, list):
+            if len(group2ctxs) != ctx_len:
+                raise ValueError(
+                    "group2ctxs list must have one dict per context "
+                    "(%d != %d)" % (len(group2ctxs), ctx_len))
+            return group2ctxs
+        if isinstance(group2ctxs, dict):
+            per_replica = [dict() for _ in range(ctx_len)]
+            for group, val in group2ctxs.items():
+                if isinstance(val, Context):
+                    spread = [val] * ctx_len
+                elif len(val) == 1:
+                    spread = list(val) * ctx_len
+                elif len(val) == ctx_len:
+                    spread = list(val)
+                else:
+                    raise ValueError(
+                        "group2ctxs[%r] must hold 1 or %d contexts, got %d"
+                        % (group, ctx_len, len(val)))
+                for i in range(ctx_len):
+                    per_replica[i][group] = spread[i]
+            return per_replica
+        raise TypeError(
+            "group2ctxs must be None, a dict of str->Context(s), or a list "
+            "of such dicts; got %r" % type(group2ctxs))
+
     def bind_exec(self, data_shapes, label_shapes, shared_group=None,
                   reshape=False):
         self.data_shapes = _descs(data_shapes)
@@ -118,7 +153,7 @@ class DataParallelExecutorGroup:
             execs.append(Executor.simple_bind(
                 self.symbol, ctx, grad_req=self.grad_req, type_dict=types,
                 shared_exec=shared, shared_arg_names=self.param_names,
-                **shapes))
+                group2ctx=self.group2ctxs[i], **shapes))
         self.execs = execs
 
     def reshape(self, data_shapes, label_shapes):

@@ -31,9 +31,11 @@ gradient and auxiliary arrays and shares its host parameter dicts, and
 optimizer state of a parameter is one, whichever module updates it):
 the two halves of ``BucketingModule``.
 
+``group2ctxs`` places each ``ctx_group`` on its context, in every
+executor (``DataParallelExecutorGroup._prepare_group2ctxs``).
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
-and naming its ROADMAP queue A item: ``group2ctxs`` (item 7's second
-half), monitors, ``MXNET_TPU_PREFLIGHT`` and
+and naming its ROADMAP queue A item: monitors, ``MXNET_TPU_PREFLIGHT`` and
 ``MXNET_TPU_ATTRIBUTION`` (observability), the ``grad_guard`` of
 ``init_optimizer`` (resilience).
 

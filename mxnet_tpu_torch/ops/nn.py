@@ -475,11 +475,10 @@ def _batch_norm_global(xf, g, beta, eps):
     squares are all-reduced, differentiably, so each rank's gradient sees
     every rank's outputs.  Returns ``(out, mean, var)``, the statistics
     detached."""
-    import torch.distributed as dist
-    from ..parallel import allreduce_sum_grad
+    from ..parallel import allreduce_sum_grad, batch_stats_ranks
     red = [i for i in range(xf.dim()) if i != 1]
     bshape = (1, -1) + (1,) * (xf.dim() - 2)
-    n = xf.numel() // xf.shape[1] * dist.get_world_size()
+    n = xf.numel() // xf.shape[1] * batch_stats_ranks()
     mean = allreduce_sum_grad(xf.sum(dim=red), "BatchNorm global mean")
     mean = mean / n
     d = xf - mean.reshape(bshape)

@@ -13,14 +13,29 @@ own dist kvstores are, over ``torch.distributed``:
   (``MXNET_TPU_DIST_BACKEND`` too); a rank never switches backend
   because one failed.  Every group has a timeout, so a lost rank fails
   in seconds instead of hanging its peers.
-* :mod:`.mesh` (a dp mesh over the ranks), :mod:`.placement` (the ZeRO
-  state rule), :mod:`.trainer` (dp and ZeRO), :mod:`.audit` (the
-  collective trail and the wire models).
-* :func:`barrier`, :func:`allreduce_array` and :func:`allreduce_row_sparse`
-  (the JAX package's union-sum), each through :func:`audit.collective`.
+* :mod:`.mesh` (named axes over the ranks, one process group per axis
+  coordinate), :mod:`.placement` (the ``__shard__`` grammar, the tp
+  recipe, the ZeRO state rule, shard and unshard), :mod:`.trainer` (dp,
+  tp and ZeRO), :mod:`.audit` (the collective trail by axis, and the wire
+  models).
+* :func:`barrier`, :func:`allreduce_array`, :func:`allreduce_many`,
+  :func:`allgather_tensor` and :func:`allreduce_row_sparse` (the JAX
+  package's union-sum), each through :func:`audit.collective`.  The first
+  four take ``axis=`` (default "dp") and ``mesh=``: over a mesh's axis
+  they run over that axis's group; with no mesh (a store spanning the
+  gang) over the default group, recorded as "world".
 
-Not ported yet (queue A item 7's second half): a non-dp mesh axis of more
-than one device, ``parallel/{ring,pipeline,moe,hierarchy}.py``.
+A tensor-parallel gang on the CPU is a launcher gang with
+``--dist-device cpu`` (gloo).  On cards each rank has its card and talks
+NCCL; two ranks of one card (tp 2 on one H100) must name gloo
+(``MXNET_TPU_DIST_BACKEND=gloo``): NCCL refuses the communicator, and no
+rank falls back by itself.
+
+Not ported yet (queue A item 7's second half, step 2): ring attention,
+the GPipe schedule, MoE dispatch and the two-tier all-reduce
+(``parallel/{ring,pipeline,moe,hierarchy}.py``): their entry points here
+raise :class:`~mxnet_tpu_torch.base.NotPortedYet`.  A mesh may carry a
+pp/sp/ep axis meanwhile: with no user in the step it replicates.
 """
 from __future__ import annotations
 
@@ -31,7 +46,7 @@ from collections import namedtuple
 
 import torch
 
-from ..base import DeviceUnavailable, MXNetError
+from ..base import DeviceUnavailable, MXNetError, NotPortedYet
 from .audit import collective
 from .mesh import (Mesh, MeshSpec, current_mesh, data_parallel_mesh,
                    describe_devices, make_mesh, reform_mesh, replicate,
@@ -43,13 +58,15 @@ __all__ = ["Topology", "topology", "init_distributed", "barrier",
            "Mesh", "MeshSpec", "make_mesh", "data_parallel_mesh",
            "reform_mesh", "current_mesh", "set_current_mesh", "shard_batch",
            "replicate", "describe_devices", "ShardedTrainer", "rank",
-           "world_size", "gang_device"]
+           "world_size", "gang_device", "allgather_tensor",
+           "ring_attention", "pipeline_apply", "moe_ffn",
+           "hierarchical_allreduce"]
 
 Topology = namedtuple("Topology", ["process_index", "process_count",
                                    "local_device_count",
                                    "global_device_count"])
 
-_STATE = {"device": None, "backend": None}
+_STATE = {"device": None, "backend": None, "timeout": None}
 
 
 def _dist():
@@ -155,10 +172,10 @@ def init_distributed(coordinator_address=None, num_processes=None,
                          "on %s" % (rk, dev))
     secs = float(timeout if timeout is not None else
                  os.environ.get("MXNET_TPU_DIST_TIMEOUT", "60"))
+    timeout = datetime.timedelta(seconds=secs)
     dist.init_process_group(backend, init_method="tcp://" + coord,
-                            world_size=world, rank=rk,
-                            timeout=datetime.timedelta(seconds=secs))
-    _STATE.update(device=dev, backend=backend)
+                            world_size=world, rank=rk, timeout=timeout)
+    _STATE.update(device=dev, backend=backend, timeout=timeout)
     return topology()
 
 
@@ -184,34 +201,50 @@ def _tensor(x):
     return getattr(x, "_handle", x)
 
 
-def allreduce_array(x):
-    """The sum of ``x`` (a tensor or an NDArray) over the processes, as a
-    new tensor (an NDArray for an NDArray); ``x`` itself with one
-    process."""
+def axis_group(axis="dp", mesh=None):
+    """``(group, label)`` a collective over ``axis`` runs on: the group of
+    ``mesh`` (a Mesh or MeshSpec) on that axis, else the default group
+    (the gang as one dp axis), labelled "world"."""
+    from .placement import as_mesh
+    m = as_mesh(mesh)
+    if m is not None and m.shape.get(axis, 1) > 1:
+        return m.group(axis), axis
+    return None, "world"
+
+
+def allreduce_array(x, axis="dp", mesh=None):
+    """The sum of ``x`` (a tensor or an NDArray) over ``axis`` (see
+    :func:`axis_group`), as a new tensor (an NDArray for an NDArray);
+    ``x`` itself with one process."""
     if world_size() <= 1:
         return x
+    group, label = axis_group(axis, mesh)
     t = _tensor(x).clone()
     collective("all-reduce", "parallel.allreduce_array",
-               lambda: _dist().all_reduce(t), nbytes=t.numel() *
-               t.element_size())
+               lambda: _dist().all_reduce(t, group=group), nbytes=t.numel() *
+               t.element_size(), axis=label)
     if t is not x and hasattr(x, "_handle"):
         from ..ndarray.ndarray import NDArray
         return NDArray(t)
     return t
 
 
-def allreduce_many(tensors, tag, step=None):
-    """Each tensor summed over the ranks: one all-reduce per
-    dtype and device over a flat buffer.  Returns the sums (views of the
-    buffers), in order; the inputs are left as they were."""
+def allreduce_many(tensors, tag, step=None, axis="dp", mesh=None):
+    """Each tensor summed over ``axis`` (see :func:`axis_group`): one
+    all-reduce per dtype and device over a flat buffer.  Returns the sums
+    (views of the buffers), in order; the inputs are left as they
+    were."""
+    group, label = axis_group(axis, mesh)
     out = list(tensors)
     buckets = {}
     for i, t in enumerate(out):
         buckets.setdefault((t.dtype, t.device), []).append(i)
     for idx in buckets.values():
         flat = torch.cat([out[i].reshape(-1) for i in idx])
-        collective("all-reduce", tag, lambda: _dist().all_reduce(flat),
-                   nbytes=flat.numel() * flat.element_size(), step=step)
+        collective("all-reduce", tag,
+                   lambda: _dist().all_reduce(flat, group=group),
+                   nbytes=flat.numel() * flat.element_size(), step=step,
+                   axis=label)
         off = 0
         for i in idx:
             n = out[i].numel()
@@ -220,16 +253,20 @@ def allreduce_many(tensors, tag, step=None):
     return out
 
 
-def allgather_tensor(t, tag="parallel.allgather"):
-    """``(world, *t.shape)``: every rank's ``t``, stacked in rank order."""
+def allgather_tensor(t, tag="parallel.allgather", axis="dp", mesh=None,
+                     step=None):
+    """``(n, *t.shape)``: the ``t`` of every rank of this rank's group on
+    ``axis`` (see :func:`axis_group`), stacked in axis order."""
     dist = _dist()
-    n = dist.get_world_size()
+    group, label = axis_group(axis, mesh)
+    n = dist.get_world_size(group)
     t = t.contiguous().reshape((1,) + tuple(t.shape)) if t.dim() == 0 \
         else t.contiguous()
     out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     collective("all-gather", tag, lambda: dist.all_gather_into_tensor(
-        out, t), nbytes=out.numel() * out.element_size())
+        out, t, group=group), nbytes=out.numel() * out.element_size(),
+        step=step, axis=label)
     return out.view((n,) + tuple(t.shape))
 
 
@@ -268,16 +305,17 @@ def allreduce_row_sparse(rs):
 
 # -- global batch statistics under dp (the sync BatchNorm) ---------------
 
-_BATCH_STATS = []      # one entry for each open global_batch_stats
+_BATCH_STATS = []      # (group, axis) of each open global_batch_stats
 
 
 @contextlib.contextmanager
-def global_batch_stats():
+def global_batch_stats(mesh=None, axis="dp"):
     """Inside, a training-mode BatchNorm computes its statistics over the
-    batch of every rank (the global batch the JAX package's GSPMD step
+    batch of every rank of this rank's group on ``axis`` (see
+    :func:`axis_group`: the global batch the JAX package's GSPMD step
     normalises over), and a loss head normalised by its batch counts that
     batch, through :func:`allreduce_sum_grad`."""
-    _BATCH_STATS.append(True)
+    _BATCH_STATS.append(axis_group(axis, mesh))
     try:
         yield
     finally:
@@ -289,25 +327,63 @@ def batch_stats_global() -> bool:
     return bool(_BATCH_STATS)
 
 
+def batch_stats_ranks() -> int:
+    """The number of ranks whose batches the innermost
+    :func:`global_batch_stats` sums over."""
+    return _dist().get_world_size(_BATCH_STATS[-1][0])
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        _dist().all_reduce(y)
+        _dist().all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        _dist().all_reduce(g)
-        return g
+        _dist().all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def allreduce_sum_grad(x, tag="parallel.allreduce_sum_grad"):
-    """A differentiable all-reduce (sum) over the ranks: its backward
-    all-reduces the incoming gradient (each rank's loss depends on every
-    rank's ``x``)."""
+    """A differentiable all-reduce (sum) over the batch axis of the
+    innermost :func:`global_batch_stats`: its backward all-reduces the
+    incoming gradient (each rank's loss depends on every rank's ``x``)."""
+    group, label = _BATCH_STATS[-1] if _BATCH_STATS else (None, "world")
     out = []
-    collective("all-reduce", tag, lambda: out.append(_AllReduceSum.apply(x)),
-               nbytes=x.numel() * x.element_size())
+    collective("all-reduce", tag,
+               lambda: out.append(_AllReduceSum.apply(x, group)),
+               nbytes=x.numel() * x.element_size(), axis=label)
     return out[0]
+
+
+# -- queue A item 7's second half, step 2 ----------------------------------
+
+def _step2(what):
+    raise NotPortedYet("%s is queue A item 7's second half, step 2 (ring, "
+                       "pipeline, moe and hierarchy over the mesh's "
+                       "per-axis groups)" % what)
+
+
+def ring_attention(*args, **kwargs):
+    """Ring attention over an sp axis (``mxnet_tpu/parallel/ring.py``)."""
+    _step2("ring attention")
+
+
+def pipeline_apply(*args, **kwargs):
+    """The GPipe tick schedule over a pp axis
+    (``mxnet_tpu/parallel/pipeline.py``)."""
+    _step2("the pipeline schedule")
+
+
+def moe_ffn(*args, **kwargs):
+    """MoE dispatch over an ep axis (``mxnet_tpu/parallel/moe.py``)."""
+    _step2("MoE dispatch")
+
+
+def hierarchical_allreduce(*args, **kwargs):
+    """The two-tier all-reduce (``mxnet_tpu/parallel/hierarchy.py``)."""
+    _step2("the hierarchical all-reduce")

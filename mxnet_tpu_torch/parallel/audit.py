@@ -2,9 +2,11 @@
 ``mxnet_tpu/parallel/audit.py``'s runtime half and analytic models).
 
 Every collective of the port goes through :func:`collective`, which runs
-it and records a completion event (kind, call-site tag, group, payload
-bytes) in a bounded thread-safe deque, so a post-mortem can say which
-collective last finished and a test can sum a step's bytes.  When
+it and records a completion event (kind, call-site tag, the mesh axis
+whose process group ran it, payload bytes) in a bounded thread-safe
+deque, so a post-mortem can say which
+collective last finished and a test can sum a step's bytes by axis and
+kind (:func:`bytes_by_axis`).  When
 telemetry is armed each record also counts into the registry:
 ``parallel.collectives{kind}`` and ``parallel.collective_bytes{kind}``.
 The payload conventions are the JAX package's: a reduce-scatter's payload
@@ -24,11 +26,12 @@ from collections import deque
 from .. import telemetry
 
 __all__ = ["record_collective", "last_collective", "collective_log",
-           "clear_collective_log", "collective", "ring_allreduce_wire_bytes",
+           "clear_collective_log", "collective", "bytes_by_axis", "ring_allreduce_wire_bytes",
            "collective_wire_bytes", "zero_update_model_bytes",
            "grad_payload_bytes"]
 
-_RUNTIME_LOG: "deque" = deque(maxlen=128)
+# a tp step of a 12-layer LM records ~150 collectives: keep a few steps
+_RUNTIME_LOG: "deque" = deque(maxlen=4096)
 _RUNTIME_LOCK = threading.Lock()
 
 
@@ -36,11 +39,13 @@ def record_collective(kind: str, tag: str = "", step=None, bytes=None,
                       group=None):
     """Note a completed collective (``kind`` = all-to-all/psum/...,
     ``tag`` = call-site label, ``bytes`` = operand payload when the entry
-    point knows it, ``group`` = the process group's label)."""
+    point knows it, ``group`` = the mesh axis whose group ran it, or
+    "world" for the default group); ``axis`` in the record is the same
+    label."""
     with _RUNTIME_LOCK:
         _RUNTIME_LOG.append({"time": time.time(), "kind": kind,
                              "tag": tag, "step": step, "bytes": bytes,
-                             "group": group})
+                             "group": group, "axis": group})
     if telemetry.is_armed():
         telemetry.count("parallel.collectives", kind=kind)
         if bytes:
@@ -66,12 +71,26 @@ def clear_collective_log():
         _RUNTIME_LOG.clear()
 
 
-def collective(kind: str, tag: str, fn, nbytes=None, step=None):
-    """Run one collective (``fn()``) over the default group, then record
-    it (group "world"): the one door every collective of the port goes
-    through.  Returns what ``fn`` returns."""
+def collective(kind: str, tag: str, fn, nbytes=None, step=None,
+               axis="world"):
+    """Run one collective (``fn()``, over the process group of mesh axis
+    ``axis``, or the default group for "world"), then record it under
+    that axis: the one door every collective of the port goes through.
+    Returns what ``fn`` returns."""
     out = fn()
-    record_collective(kind, tag, step=step, bytes=nbytes, group="world")
+    record_collective(kind, tag, step=step, bytes=nbytes, group=axis)
+    return out
+
+
+def bytes_by_axis(events=None, step=None):
+    """``{axis: {kind: payload bytes}}`` summed over ``events`` (default:
+    the whole retained log), only those of ``step`` when given."""
+    out = {}
+    for e in collective_log() if events is None else events:
+        if step is not None and e.get("step") != step:
+            continue
+        kinds = out.setdefault(e.get("axis") or e.get("group"), {})
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + (e["bytes"] or 0)
     return out
 
 

@@ -1,57 +1,127 @@
 """Device mesh (port of ``mxnet_tpu/parallel/mesh.py``): named axes over
-the ranks of the default ``torch.distributed`` group, one device per
-rank.
+the ranks of a ``torch.distributed`` gang, one device per rank.
 
 Axis names keep the JAX package's roles ('dp' data parallel, 'tp' tensor
-parallel, 'pp', 'sp', 'ep'), so a caller builds the same
-``MeshSpec(make_mesh((2,), ("dp",)))`` or ``MeshSpec.build({"dp": 2})``.
-A mesh of one device needs no gang; a mesh of more joins the one
-``tools/launch.py`` started (:func:`~mxnet_tpu_torch.parallel.
-init_distributed`) and must span every rank.  Only the dp axis may
-exceed one device, so its collectives run over the default group;
-tp/pp/sp/ep and user-named axes, and the process group of each axis that
-they need, wait for queue A item 7's second half
-(:class:`~mxnet_tpu_torch.base.NotPortedYet`).
+parallel, 'pp', 'sp', 'ep'; any other name is a plain axis that
+``__shard__`` annotations may name), so a caller builds the same
+``MeshSpec(make_mesh((2, 2), ("dp", "tp")))`` or
+``MeshSpec.build({"dp": 2, "tp": 2})``.  A mesh of one device needs no
+gang; a mesh of more joins the one ``tools/launch.py`` started
+(:func:`~mxnet_tpu_torch.parallel.init_distributed`) and spans every
+rank.  Rank ``r`` sits at ``np.unravel_index(r, shape)``, the row-major
+order in which the JAX package lays its devices out, so rank ``r`` holds
+the shard the JAX package places on device ``r``.
+
+Every axis wider than one device has its own process groups, one per
+coordinate of the other axes: for dp2 x tp2 the tp groups are ranks
+{0, 1} and {2, 3}, the dp groups {0, 2} and {1, 3}.  Every rank creates
+every group, in the same order, when the mesh is made (a layout's groups
+are made once per gang and shared by the meshes of that layout);
+:meth:`Mesh.group` is this rank's group on an axis and
+:meth:`Mesh.axis_index` its position there.  The dp and tp trainers and
+tensor-parallel decode run each collective over the group of its axis,
+never over the default group.
+
+On the CPU the gang talks gloo.  On cards it talks NCCL, one rank per
+card; where two ranks share one card (one H100 host), NCCL refuses the
+communicator, and the caller names gloo (``MXNET_TPU_DIST_BACKEND=gloo``),
+which carries CUDA tensors through the host, subgroups included.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..base import NotPortedYet, resolve_device
+from ..base import resolve_device
 
 __all__ = ["Mesh", "MeshSpec", "make_mesh", "data_parallel_mesh",
            "reform_mesh", "current_mesh", "set_current_mesh", "shard_batch",
            "replicate", "describe_devices"]
 
 _ROLE_AXES = ("dp", "tp", "pp", "sp", "ep")
-_DATA_AXIS = "dp"
+_GROUPS = {}       # (default group, axis names, shape) -> {axis: group}
 
 
 class Mesh:
     """Named axes over the ranks: ``shape`` maps each axis name to its
-    size, ``device`` is this rank's device, ``size`` the number of
-    ranks."""
+    size, ``device`` is this rank's device, ``size`` the number of ranks,
+    ``rank`` this rank's index (its coordinates are its unravelled
+    index)."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
-                 device):
+                 device, rank: int = 0, groups=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
         self.size = int(np.prod(list(self.shape.values()) or [1]))
         self.device = device
+        self.rank = int(rank)
+        dims = tuple(self.shape[a] for a in self.axis_names)
+        self.coords = dict(zip(self.axis_names, (
+            int(c) for c in np.unravel_index(self.rank, dims)))) \
+            if dims else {}
+        self._groups = dict(groups or {})
 
     def axis_index(self, axis) -> int:
-        """This rank's coordinate on ``axis`` (0 on an axis of size 1)."""
+        """This rank's coordinate on ``axis`` (0 on an axis of size 1 or
+        one the mesh does not have)."""
+        return self.coords.get(axis, 0)
+
+    def axis_ranks(self, axis):
+        """The ranks of this rank's group on ``axis``, in axis order."""
+        n = self.shape.get(axis, 1)
+        dims = tuple(self.shape[a] for a in self.axis_names)
+        out = []
+        for j in range(n):
+            c = dict(self.coords, **{axis: j}) if axis in self.shape \
+                else dict(self.coords)
+            out.append(int(np.ravel_multi_index(
+                tuple(c[a] for a in self.axis_names), dims)) if dims else 0)
+        return out
+
+    def group(self, axis):
+        """This rank's process group on ``axis``, or None for an axis of
+        one device (nothing to talk to)."""
         if self.shape.get(axis, 1) <= 1:
-            return 0
-        import torch.distributed as dist
-        return dist.get_rank()
+            return None
+        return self._groups[axis]
 
     def __repr__(self):
         return "Mesh(%s on %s)" % (self.shape, self.device)
+
+
+def _axis_groups(axis_names, shape):
+    """One ``new_group`` per axis wider than 1 and coordinate of the
+    other axes, made by every rank in the same order (row-major over the
+    axes); returns this rank's group of each such axis."""
+    import torch.distributed as dist
+    from . import _STATE
+    from torch.distributed import distributed_c10d
+    key = (id(distributed_c10d._get_default_group()), tuple(axis_names),
+           tuple(shape))
+    if key in _GROUPS:
+        return _GROUPS[key]
+    me = dist.get_rank()
+    timeout = _STATE.get("timeout")
+    kw = {"timeout": timeout} if timeout is not None else {}
+    mine = {}
+    for i, (axis, n) in enumerate(zip(axis_names, shape)):
+        if n <= 1:
+            continue
+        others = [range(s) for j, s in enumerate(shape) if j != i]
+        for rest in itertools.product(*others):
+            ranks = []
+            for c in range(n):
+                idx = list(rest[:i]) + [c] + list(rest[i:])
+                ranks.append(int(np.ravel_multi_index(idx, tuple(shape))))
+            g = dist.new_group(ranks, **kw)
+            if me in ranks:
+                mine[axis] = g
+    _GROUPS[key] = mine
+    return mine
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -59,7 +129,8 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     """A mesh of ``shape``.  One device: the card (``device=None``; a
     typed :class:`~mxnet_tpu_torch.base.DeviceUnavailable` without one)
     or the device given.  More: one rank per device, the gang joined
-    here if it is not yet, on each rank's own device (or ``device``)."""
+    here if it is not yet, on each rank's own device (or ``device``), and
+    the process groups of every axis wider than one device made."""
     shape = tuple(int(s) for s in shape)
     axis_names = tuple(axis_names)
     if len(shape) != len(axis_names):
@@ -68,19 +139,14 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
     n = int(np.prod(shape))
     if n == 1:
         return Mesh(axis_names, shape, resolve_device(device))
-    wide = [a for a, s in zip(axis_names, shape) if s > 1 and a != _DATA_AXIS]
-    if wide:
-        raise NotPortedYet(
-            "mesh %s: an axis other than 'dp' over more than one device "
-            "(tp/pp/sp/ep placement, ring, pipeline, MoE) is queue A item "
-            "7's second half" % dict(zip(axis_names, shape)))
-    from . import init_distributed, world_size
+    from . import init_distributed, rank, world_size
     init_distributed(device=device)
     if world_size() != n:
         raise ValueError("mesh of %d devices requested, the gang has %d "
                          "processes (one device per rank)"
                          % (n, world_size()))
-    return Mesh(axis_names, shape, resolve_device(device))
+    return Mesh(axis_names, shape, resolve_device(device), rank=rank(),
+                groups=_axis_groups(axis_names, shape))
 
 
 class MeshSpec:

@@ -53,6 +53,41 @@ collective goes through :func:`~mxnet_tpu_torch.parallel.audit.collective`
 (``normalization="batch"``/``"valid"``) counts the global batch, as the
 JAX package's does.
 
+Tensor parallelism (a ``spec`` with a tp axis of more than one device;
+the axis named "tp" is taken when ``spec.tp_axis`` is unset, as in the
+JAX package): each rank stores only its block
+(:func:`~mxnet_tpu_torch.parallel.placement.shard_of`) of every parameter
+:meth:`ShardedTrainer.param_sharding` splits (the default recipe, dim 0
+of every ``*_weight`` of rank 2 or 4 that divides, or an explicit
+``__shard__`` on any axis), and of its momentum.  The step computes what
+the one-device step computes, every tp rank of a dp group reading the
+same rows:
+
+* a FullyConnected or Convolution whose weight is split on dim 0 over tp
+  computes its own output channels, which a differentiable all-gather
+  over the tp group makes whole before the bias is added.  Downstream
+  every tp rank computes the same values, so the gathered output's
+  cotangent is the same on every tp rank and the backward takes this
+  rank's slice of it with no collective; the gradient of the layer's
+  input is then this rank's channels' part, summed over tp by an
+  all-reduce in the backward (Megatron's column-parallel pair);
+* an Embedding split on its vocab rows looks up the ids it owns (zero
+  rows elsewhere) and an all-reduce over tp sums the parts (its backward
+  passes the identical cotangent through);
+* any other split parameter is gathered where it is used, and its
+  gradient sliced (reduce-scattered, for a parameter split over dp).
+
+These are :class:`_GatherTp`, :class:`_SumGradTp`, :class:`_SumTp` and
+:class:`_GatherDp` below; :meth:`ShardedTrainer._tp_hook` applies them in
+:meth:`GraphProgram.evaluate`.  The loss and gradient sums, BatchNorm's
+statistics and ZeRO's reduce-scatter and all-gather run over the dp
+group; the non-finite verdict is a flag summed over tp too, since each
+tp rank sees its own gradient blocks.  A pp, sp or ep axis that no
+annotation names replicates, so dp2 x tp2 x pp2 computes dp8's step.
+:meth:`~ShardedTrainer.init_state` returns this rank's blocks (what the
+step takes), :meth:`~ShardedTrainer.shard_params` cuts whole tensors
+into them and :meth:`~ShardedTrainer.get_params` gathers them back.
+
 Not ported yet, each raising :class:`~mxnet_tpu_torch.base.NotPortedYet`
 (ROADMAP): the JAX step's other env-armed features (the compile cache,
 pre-flight, attribution, and the ``preempt``/``hang``/``oom`` chaos
@@ -76,7 +111,7 @@ from ..resilience import chaos as _chaos
 from ..resilience import guards as _guards
 from . import placement as _placement
 from .audit import collective
-from .mesh import MeshSpec, make_mesh
+from .mesh import MeshSpec, make_mesh, set_current_mesh
 
 __all__ = ["ShardedTrainer", "sgd_step_fn", "zero_enabled"]
 
@@ -183,10 +218,96 @@ def _sgd_apply(params, mom, step, momentum, ok):
         torch.where(ok, mn, m, out=m)
 
 
+def _gather(x, dim, group, n, axis, tag, step):
+    """``x`` from every rank of ``group``, concatenated along ``dim``, in
+    the row-major layout the kernels read."""
+    moved = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * moved.shape[0],) + tuple(moved.shape[1:]),
+                      dtype=moved.dtype, device=moved.device)
+    collective("all-gather", tag, lambda: _dist().all_gather_into_tensor(
+        out, moved, group=group), nbytes=_nbytes([out]), step=step,
+        axis=axis)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherTp(torch.autograd.Function):
+    """All-gather along ``dim`` over a group whose ranks all compute the
+    same thing with the result: the cotangent is the same on each, and
+    the backward is this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, index, axis, tag, step):
+        ctx.slice = (dim, index * x.shape[dim], x.shape[dim])
+        return _gather(x, dim, group, n, axis, tag, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, start, k = ctx.slice
+        return (g.narrow(dim, start, k),) + (None,) * 7
+
+
+class _GatherDp(torch.autograd.Function):
+    """All-gather along ``dim`` over the dp group: each rank's cotangent
+    is its own batch's, so the backward reduce-scatters the sum."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, axis, tag, step):
+        ctx.args = (dim, group, n, axis, step)
+        return _gather(x, dim, group, n, axis, tag, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n, axis, step = ctx.args
+        moved = g.movedim(dim, 0).contiguous()
+        out = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
+                          dtype=moved.dtype, device=moved.device)
+        collective("reduce-scatter", "ShardedTrainer dp-split parameter "
+                   "grad reduce-scatter",
+                   lambda: _dist().reduce_scatter_tensor(out, moved,
+                                                         group=group),
+                   nbytes=_nbytes([out]), step=step, axis=axis)
+        return (out.movedim(0, dim),) + (None,) * 6
+
+
+class _SumGradTp(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over a group: the
+    input of a layer that each rank computes part of the outputs of."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis, tag, step):
+        ctx.args = (group, axis, tag, step)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis, tag, step = ctx.args
+        g = g.contiguous().clone()
+        collective("all-reduce", tag, lambda: _dist().all_reduce(
+            g, group=group), nbytes=_nbytes([g]), step=step, axis=axis)
+        return (g,) + (None,) * 4
+
+
+class _SumTp(torch.autograd.Function):
+    """All-reduce (sum) over a group whose ranks all compute the same
+    thing with the result: the backward passes the cotangent through."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis, tag, step):
+        y = x.contiguous().clone()
+        collective("all-reduce", tag, lambda: _dist().all_reduce(
+            y, group=group), nbytes=_nbytes([y]), step=step, axis=axis)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + (None,) * 4
+
+
 class ShardedTrainer:
     """Momentum-SGD trainer for a Symbol graph on one device.
 
-    ``spec`` is a :class:`MeshSpec` over one device; with ``spec=None``
+    ``spec`` is a :class:`MeshSpec` over one device, or over the ranks of
+    a gang (dp, tp, ZeRO: the module docstring); with ``spec=None``
     the trainer builds ``MeshSpec(make_mesh((1,), ("dp",), device))``,
     so ``device=None`` means the card (a typed
     :class:`~mxnet_tpu_torch.base.DeviceUnavailable` without one) and
@@ -240,37 +361,91 @@ class ShardedTrainer:
         self._generator = None
         self._built_remat = backward_mirror_policy()
         self.dp = spec.dp_size
+        tp = spec.tp_axis
+        if tp is None and "tp" in spec.mesh.axis_names:
+            tp = "tp"
+        self.tp_axis = tp if spec.axis_size(tp) > 1 else None
+        self.tp = spec.axis_size(self.tp_axis)
+        from ..placement import shard_annotations
+        self._shard_attrs, self._act_shard_attrs = shard_annotations(
+            self.prog.nodes)
         self.zero = zero_enabled(shard_optimizer_state, zero)
         self.shard_optimizer_state = bool(shard_optimizer_state) or self.zero
         self.shard_weight_update = self.zero and self.dp > 1
         self._param_shapes = None
         self._zero_dims = None       # per parameter: its ZeRO dim or None
+        self._plan = None            # the tp hook's plan per op node
 
     # -- placement --------------------------------------------------------
-    def param_sharding(self, name: str, shape) -> "_placement.P":
-        """A parameter is replicated over dp (a tp axis is queue A item
-        7's second half)."""
-        return _placement.P()
+    def param_sharding(self, name: str, shape) -> "_placement.Sharding":
+        """The placement of one parameter: an explicit ``__shard__``
+        Symbol attr (any mesh axis), else the default tp recipe, else
+        replicated (:func:`~mxnet_tpu_torch.parallel.placement.
+        param_sharding`)."""
+        return _placement.param_sharding(name, shape, self.spec.mesh,
+                                         tp_axis=self.tp_axis,
+                                         ann=self._shard_attrs.get(name))
 
-    def mom_sharding(self, name: str, shape) -> "_placement.P":
+    def mom_sharding(self, name: str, shape) -> "_placement.Sharding":
         """The placement of one momentum tensor: the parameter's, plus dp
         over :func:`~mxnet_tpu_torch.parallel.placement.zero_shard_dim`
-        with ``shard_optimizer_state``."""
+        with ``shard_optimizer_state`` (not for a parameter already split
+        over dp)."""
         base = self.param_sharding(name, shape)
-        if not self.shard_optimizer_state:
+        if not self.shard_optimizer_state or self.spec.dp_axis in base:
             return base
         return _placement.state_sharding(base, shape, self.spec.mesh,
                                          self.spec.dp_axis)
 
     def _zero_layout(self, shapes):
-        """Per parameter, the dim its momentum is split along, or None."""
+        """Per parameter, the dim its momentum is split along over dp, or
+        None."""
         if self._zero_dims is None:
             self._zero_dims = []
             for n, shape in zip(self.param_names, shapes):
-                spec = self.mom_sharding(n, shape)
-                hit = _placement.local_slice(spec, shape, self.spec.mesh, 0)
-                self._zero_dims.append(None if hit is None else hit[0])
+                spec = tuple(self.mom_sharding(n, shape))
+                dp = self.spec.dp_axis
+                self._zero_dims.append(
+                    spec.index(dp) if dp in spec and self.dp > 1
+                    and dp not in self.param_sharding(n, shape) else None)
         return self._zero_dims
+
+    def _split(self, sharding):
+        """Whether ``sharding`` splits anything over an axis of more than
+        one device."""
+        return any(a is not None and self.spec.axis_size(a) > 1
+                   for a in sharding)
+
+    def shard_params(self, whole):
+        """This rank's blocks of whole parameters (host arrays or tensors,
+        in ``param_names`` order or by name), on the trainer's device."""
+        if isinstance(whole, dict):
+            whole = [whole[n] for n in self.param_names]
+        out = []
+        for n, w in zip(self.param_names, whole):
+            t = w if isinstance(w, torch.Tensor) else \
+                torch.as_tensor(np.asarray(w))
+            out.append(_placement.shard_of(t, self.param_sharding(
+                n, tuple(t.shape)), self.spec.mesh).contiguous()
+                .to(self.device))
+        return tuple(out)
+
+    def get_params(self, params):
+        """The whole parameters from this rank's blocks (one all-gather
+        per split axis of each split parameter; every rank of the
+        parameter's groups must call it), in ``param_names`` order."""
+        return tuple(_placement.unshard(p, self.param_sharding(
+            n, self._param_shapes[n]), self.spec.mesh,
+            "ShardedTrainer.get_params") for n, p in zip(self.param_names,
+                                                         params))
+
+    def get_moms(self, mom):
+        """The whole momentum tensors from this rank's blocks, as
+        :meth:`get_params`."""
+        return tuple(_placement.unshard(m, self.mom_sharding(
+            n, self._param_shapes[n]), self.spec.mesh,
+            "ShardedTrainer.get_moms") for n, m in zip(self.param_names,
+                                                       mom))
 
     def _shard(self, t, dim):
         """This rank's slice of ``t`` along ``dim`` (a view)."""
@@ -278,12 +453,15 @@ class ShardedTrainer:
         return t.narrow(dim, self.spec.dp_rank * k, k)
 
     def _zero_split_bytes(self):
-        """``(shardable, residual)`` f32 gradient bytes under ZeRO: the
-        parameters with a dp-divisible dim and the rest."""
+        """``(shardable, residual)`` f32 gradient bytes of this rank's
+        blocks under ZeRO: the parameters with a dp-divisible dim and the
+        rest."""
         shapes = [self._param_shapes[n] for n in self.param_names]
         dims = self._zero_layout(shapes)
         shardable = residual = 0
-        for shape, d in zip(shapes, dims):
+        for n, shape, d in zip(self.param_names, shapes, dims):
+            shape = _placement.local_shape(shape, self.param_sharding(
+                n, shape), self.spec.mesh)
             nbytes = 4 * int(np.prod(shape)) if shape else 4
             if d is None:
                 residual += nbytes
@@ -296,13 +474,126 @@ class ShardedTrainer:
         if self.dp <= 1:
             return contextlib.nullcontext()
         from . import global_batch_stats
-        return global_batch_stats()
+        return global_batch_stats(self.spec, self.spec.dp_axis)
+
+    # -- tensor parallelism: the sharded layers ---------------------------
+    def _tp_plan(self):
+        """Per op node that reads a split parameter: ``(mode, gathers)``,
+        ``mode`` "fc" / "conv" / "embed" where the node computes from its
+        weight's tp block (input 1, split on dim 0 over tp), else None;
+        ``gathers`` the other inputs to gather at use, with their
+        placements."""
+        if self._plan is not None:
+            return self._plan
+        if self.spec.mesh.size == 1:
+            self._plan = {}
+            return self._plan
+        split = {}
+        for n in self.param_names:
+            s = self.param_sharding(n, self._param_shapes[n])
+            if self._split(s):
+                split[n] = s
+        plan = {}
+        for node in self.prog.nodes:
+            if node.is_var:
+                continue
+            reads = {i: e.node.name for i, e in enumerate(node.inputs)
+                     if e.node.is_var and e.node.name in split}
+            if not reads:
+                continue
+            mode = None
+            w = split.get(reads.get(1))
+            if w is not None and w[0] == self.tp_axis and \
+                    not any(w[1:]):
+                attrs = node.parsed_attrs()
+                mode = {"FullyConnected": "fc", "Embedding": "embed"}.get(
+                    node.op.name)
+                if node.op.name == "Convolution" and attrs.num_group == 1:
+                    mode = "conv"
+            plan[id(node)] = (mode, {i: split[v] for i, v in reads.items()
+                                     if not (mode and i == 1)})
+        self._plan = plan
+        return plan
+
+    def _gather_param(self, x, sharding):
+        """A split parameter whole, where a node uses it."""
+        mesh = self.spec.mesh
+        for dim, axis in enumerate(sharding):
+            n = self.spec.axis_size(axis) if axis is not None else 1
+            if n <= 1:
+                continue
+            tag = "ShardedTrainer %s-split parameter all-gather" % axis
+            if axis == self.spec.dp_axis:
+                x = _GatherDp.apply(x, dim, mesh.group(axis), n, axis, tag,
+                                    self._step_count)
+            else:
+                x = _GatherTp.apply(x, dim, mesh.group(axis), n,
+                                    mesh.axis_index(axis), axis, tag,
+                                    self._step_count)
+        return x
+
+    def _tp_hook(self, node, attrs, ins):
+        """:meth:`GraphProgram.evaluate`'s hook: a node reading a split
+        parameter computes from its block (``mode``) or gathers it."""
+        entry = self._plan.get(id(node))
+        if entry is None:
+            return node.op.fn(attrs, *ins)
+        mode, gathers = entry
+        ins = list(ins)
+        off = 1 if node.op.needs_rng else 0
+        for i, s in gathers.items():
+            ins[i + off] = self._gather_param(ins[i + off], s)
+        if mode is None:
+            return node.op.fn(attrs, *ins)
+        mesh, tp = self.spec.mesh, self.tp_axis
+        group = mesh.group(tp)
+        w = ins[1]
+        if mode == "embed":
+            # the rows this rank owns; ids out of the whole vocab give the
+            # op's NaN row, as on one device
+            from ..ops.matrix import _fill, _in_range
+            i, ok = _in_range(ins[0].long(), w.shape[0] * self.tp)
+            local = i - mesh.axis_index(tp) * w.shape[0]
+            mine = (local >= 0) & (local < w.shape[0])
+            rows = torch.nn.functional.embedding(
+                local.clamp(0, w.shape[0] - 1), w)
+            rows = torch.where(mine.unsqueeze(-1), rows,
+                               torch.zeros((), dtype=rows.dtype,
+                                           device=rows.device))
+            out = _SumTp.apply(rows, group, tp, "ShardedTrainer tp "
+                               "embedding all-reduce", self._step_count)
+            return _fill(out, ok.unsqueeze(-1))
+        local = type(attrs)(attrs)
+        local["no_bias"] = True
+        bias = None if attrs.no_bias or len(ins) < 3 else ins[2]
+        x = ins[0]
+        if x.requires_grad:
+            x = _SumGradTp.apply(x, group, tp, "ShardedTrainer tp %s input "
+                                 "grad all-reduce" % mode, self._step_count)
+        if mode == "fc":
+            local["num_hidden"] = w.shape[0]
+            y = node.op.fn(local, x, w)
+            dim = y.dim() - 1
+        else:
+            local["num_filter"] = w.shape[0]
+            y = node.op.fn(local, x, w)
+            dim = y.dim() - 1 if attrs.layout in ("NWC", "NHWC",
+                                                  "NDHWC") else 1
+        y = _GatherTp.apply(y, dim, group, self.tp, mesh.axis_index(tp), tp,
+                            "ShardedTrainer tp %s all-gather" % mode,
+                            self._step_count)
+        if bias is None:
+            return y
+        shape = [1] * y.dim()
+        shape[dim] = -1
+        return y + bias.reshape(shape)
 
     # -- state ------------------------------------------------------------
     def init_state(self, shapes: Dict[str, tuple], initializer=None,
                    seed=0):
         """``(params, mom, aux)`` tuples on the trainer's device, in
-        ``param_names`` / ``aux_names`` order.  Parameters are drawn on
+        ``param_names`` / ``aux_names`` order: this rank's blocks of the
+        split parameters and momentum, the rest whole.  Parameters are drawn on
         the CPU from a ``torch.Generator`` seeded with ``seed`` (Xavier
         gaussian, fan-in, magnitude 2 by default, as the reference), so a
         seed gives the same state on every device; a name no initializer
@@ -316,13 +607,17 @@ class ShardedTrainer:
         1, as in the JAX trainer.  The generator of the graph's random
         nodes restarts from ``mx.random.seed`` and ``seed``.  With
         ``shard_optimizer_state`` over dp > 1, each momentum tensor with a
-        ZeRO dim is this rank's slice of it."""
+        ZeRO dim is this rank's slice of it.  Every rank draws the whole
+        parameters, so a seed gives the same state on any mesh."""
         from ..initializer import InitDesc, Xavier
         _, known, _ = _resolve_structs(self.symbol, shapes)
         initializer = initializer or Xavier(rnd_type="gaussian",
                                             factor_type="in", magnitude=2)
         gen = torch.Generator().manual_seed(int(seed))
-        params = []
+        shapes = [tuple(known[n].shape) for n in self.param_names]
+        self._param_shapes = dict(zip(self.param_names, shapes))
+        self._zero_dims = self._plan = None
+        whole = []
         for n in self.param_names:
             host = torch.zeros(tuple(known[n].shape), dtype=torch.float32)
             try:
@@ -331,19 +626,12 @@ class ShardedTrainer:
                 host.zero_()
             dt = self.param_dtype if self.param_dtype is not None \
                 and not n.endswith(("gamma", "beta")) else known[n].dtype
-            params.append(host.to(dt).to(self.device))
-        shapes = [tuple(known[n].shape) for n in self.param_names]
-        self._param_shapes = dict(zip(self.param_names, shapes))
-        self._zero_dims = None
-        dims = self._zero_layout(shapes) if self.dp > 1 else \
-            [None] * len(shapes)
-        mom = []
-        for shape, d in zip(shapes, dims):
-            if d is not None:
-                shape = shape[:d] + (shape[d] // self.dp,) + shape[d + 1:]
-            mom.append(torch.zeros(shape, dtype=torch.float32,
-                                   device=self.device))
-        mom = tuple(mom)
+            whole.append(host.to(dt))
+        params = self.shard_params(whole)
+        mom = tuple(torch.zeros(_placement.local_shape(
+            shape, self.mom_sharding(n, shape), self.spec.mesh),
+            dtype=torch.float32, device=self.device)
+            for n, shape in zip(self.param_names, shapes))
         aux = tuple((torch.zeros if "mean" in n else torch.ones)(
             tuple(known[n].shape), dtype=torch.float32, device=self.device)
             for n in self.prog.aux_names)
@@ -367,10 +655,12 @@ class ShardedTrainer:
             args[i] = p
         for n, v in inputs.items():
             args[self.input_idx[n]] = v
+        hook = self._tp_hook if self._tp_plan() else None
         with torch.enable_grad(), self._stats_scope():
             outs, new_aux = self.prog.evaluate(args, aux, train=True,
                                                generator=gen,
-                                               remat=self._built_remat)
+                                               remat=self._built_remat,
+                                               node_hook=hook)
             loss = sum(o.float().sum() for o in outs)
             grads = torch.autograd.grad(loss * scale, leaves,
                                         allow_unused=True)
@@ -387,12 +677,21 @@ class ShardedTrainer:
         (:meth:`step` reads it anyway), so the update runs in place, or
         not at all, with no per-tensor select; the same bits."""
         scale, good = guard
+        set_current_mesh(self.spec)
         gen = keys
         if self.prog.num_rng and gen is None:
             gen = self._keys()
         inputs = {n: self._put(v) for n, v in inputs.items()}
         params, mom = list(params), list(mom)
         accum = self.grad_accum
+        if self._param_shapes is None:
+            # state made elsewhere: the parameters' whole shapes from the
+            # inputs' (one micro-batch's)
+            _, known, _ = _resolve_structs(self.symbol, {
+                n: tuple(v.shape[1:] if accum > 1 else v.shape)
+                for n, v in inputs.items()})
+            self._param_shapes = {n: tuple(known[n].shape)
+                                  for n in self.param_names}
         if accum == 1:
             loss, grads, new_aux = self._loss_and_grads(params, inputs, aux,
                                                         scale, gen)
@@ -414,6 +713,10 @@ class ShardedTrainer:
             loss, grads, ok_t, dims = self._dp_reduce(params, loss, grads)
         else:
             ok_t, dims = _guards.all_finite(loss, grads), [None] * len(grads)
+        if self.tp > 1:
+            # each tp rank checks its own gradient blocks: one flag summed
+            # over tp, so every rank decides alike
+            ok_t = self._agree(ok_t, self.tp_axis)
         # this rank's slices of the parameters ZeRO shards (views), the
         # whole of the rest
         p_loc = [p if d is None else self._shard(p, d)
@@ -449,9 +752,10 @@ class ShardedTrainer:
         grads, ok, dims)``: ``dims[i]`` is the dim parameter ``i`` is
         sliced along on this rank, or None."""
         dist, dp = _dist(), self.dp
-        shapes = [tuple(p.shape) for p in params]
-        dims = self._zero_layout(shapes) if self.shard_optimizer_state \
-            else [None] * len(params)
+        group = self.spec.mesh.group(self.spec.dp_axis)
+        shapes_full = [self._param_shapes[n] for n in self.param_names]
+        dims = self._zero_layout(shapes_full) \
+            if self.shard_optimizer_state else [None] * len(params)
         scattered = [i for i, d in enumerate(dims)
                      if d is not None and self.zero]
         whole = [i for i in range(len(grads)) if i not in scattered]
@@ -464,8 +768,9 @@ class ShardedTrainer:
                               device=inp.device)
             collective("reduce-scatter", "ShardedTrainer.step ZeRO grad "
                        "reduce-scatter", lambda: dist.reduce_scatter_tensor(
-                           out, inp.reshape(-1)),
-                       nbytes=_nbytes([out]), step=self._step_count)
+                           out, inp.reshape(-1), group=group),
+                       nbytes=_nbytes([out]), step=self._step_count,
+                       axis=self.spec.dp_axis)
             off = 0
             for i, m in zip(idx, moved):
                 n = m.numel() // dp
@@ -474,30 +779,43 @@ class ShardedTrainer:
                     .movedim(0, dims[i])
                 off += n
         from . import allreduce_many
+        # a parameter split over dp has its gradient summed already (its
+        # gather's backward reduce-scattered it)
+        summing = [i for i in whole if self.spec.dp_axis not in
+                   self.param_sharding(self.param_names[i], shapes_full[i])]
         summed = allreduce_many(
-            [loss.reshape(1)] + [grads[i] for i in whole],
+            [loss.reshape(1)] + [grads[i] for i in summing],
             "ShardedTrainer.step residual grad all-reduce (no dp-divisible "
             "dim)" if scattered else "ShardedTrainer.step dp grad "
-            "all-reduce", self._step_count)
+            "all-reduce", self._step_count, axis=self.spec.dp_axis,
+            mesh=self.spec)
         loss = summed[0][0]
-        for i, g in zip(whole, summed[1:]):
+        for i in whole:
+            g_loc[i] = grads[i]
+        for i, g in zip(summing, summed[1:]):
             g_loc[i] = g if dims[i] is None else self._shard(g, dims[i])
-        ok = _guards.all_finite(loss, summed[1:] +
-                                [g_loc[i] for i in scattered])
+        ok = _guards.all_finite(loss, [g_loc[i] for i in range(len(grads))])
         if scattered:
             # each rank sees its own slices: one flag summed over dp, so
             # every rank decides alike
-            bad = (~ok).to(torch.float32).reshape(1)
-            collective("all-reduce", "ShardedTrainer.step verdict",
-                       lambda: dist.all_reduce(bad), nbytes=_nbytes([bad]),
-                       step=self._step_count)
-            ok = bad[0] == 0
+            ok = self._agree(ok, self.spec.dp_axis)
         return loss, g_loc, ok, dims
+
+    def _agree(self, ok, axis):
+        """The verdict ``ok`` of every rank of this rank's group on
+        ``axis``: a flag summed there."""
+        bad = (~ok).to(torch.float32).reshape(1)
+        group = self.spec.mesh.group(axis)
+        collective("all-reduce", "ShardedTrainer.step verdict",
+                   lambda: _dist().all_reduce(bad, group=group),
+                   nbytes=_nbytes([bad]), step=self._step_count, axis=axis)
+        return bad[0] == 0
 
     def _allgather_params(self, params, dims, sharded):
         """Every rank's updated slices back into the whole parameters:
         one all-gather per parameter dtype."""
         dist, dp = _dist(), self.dp
+        group = self.spec.mesh.group(self.spec.dp_axis)
         for idx in _by_dtype(sharded, params):
             moved = [self._shard(params[i], dims[i]).movedim(dims[i], 0)
                      for i in idx]
@@ -506,8 +824,9 @@ class ShardedTrainer:
                               device=flat.device)
             collective("all-gather", "ShardedTrainer.step ZeRO weight "
                        "all-gather", lambda: dist.all_gather_into_tensor(
-                           out, flat),
-                       nbytes=_nbytes([out]), step=self._step_count)
+                           out, flat, group=group),
+                       nbytes=_nbytes([out]), step=self._step_count,
+                       axis=self.spec.dp_axis)
             out = out.view(dp, -1)
             off = 0
             for i, m in zip(idx, moved):

@@ -31,8 +31,22 @@ Differences from the JAX package, all deliberate:
   ``device="cpu"``; with no CUDA device they raise
   :class:`~mxnet_tpu_torch.base.DeviceUnavailable`.  On the CPU the
   kernels' plain versions run (the tests' path).
-* Tensor-parallel serving (``mesh={"tp": k}``) and the GC307 pre-flight
-  (``MXNET_TPU_PREFLIGHT=1``) wait for ROADMAP queue A items 7 and 9 and raise
+* Tensor-parallel serving (``mesh={"tp": k}`` or a ``MeshSpec``) is one
+  process per device over the tp group of a ``torch.distributed`` gang,
+  where the JAX package is one GSPMD program: each rank holds the blocks
+  the JAX export places on its device (:meth:`DecodeProgram.
+  _param_pspec`: q/k/v/ff1 rows, proj/ff2 contraction columns, the head's
+  vocab rows when the vocab divides), its heads' share of the KV pool
+  ``(L, 2, P, H/tp, page, D)``, and runs the paged decode-attention and
+  quantized-matmul kernels over its own heads and blocks.  Each step's
+  collectives are two all-reduces of ``(S, hidden)`` per layer and one
+  all-gather of the logits (:func:`decode_tp_model_bytes`), each through
+  :func:`~mxnet_tpu_torch.parallel.audit.collective` on the "tp" axis.
+  :class:`DecodeEngine` runs on tp rank 0, which owns the scheduler, the
+  admission queue and the page allocator, and broadcasts each step's
+  int32 arrays and a control word over the tp group; the other ranks run
+  :func:`follow_engine`.  The GC307 pre-flight (``MXNET_TPU_PREFLIGHT=1``)
+  waits for ROADMAP queue A item 9 and raises
   :class:`~mxnet_tpu_torch.base.NotPortedYet`.
 * f32 products run in full f32: TF32 is switched off on the card, as the
   reference runs with ``jax_default_matmul_precision="highest"``.
@@ -53,6 +67,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -65,12 +80,13 @@ from ..ops import kernels
 from ..resilience import chaos
 from ..resilience.container import read_container, write_container
 from .errors import (DeadlineExceeded, ExecFailed, Overloaded,
-                     ServingError, SwapFailed)
+                     ServingError, SwapFailed, TopologyMismatch)
 from .request import Request
 from .runtime import ServingRuntime
 
 __all__ = ["DecodeConfig", "PagePool", "DecodeProgram", "DecodeRequest",
-           "DecodeEngine", "init_decode_params"]
+           "DecodeEngine", "init_decode_params", "decode_tp_model_bytes",
+           "follow_engine"]
 
 _MAGIC = "mxnet_tpu-decode-v1"       # shared with the JAX package
 
@@ -212,6 +228,21 @@ def init_decode_params(config: DecodeConfig, seed: int = 0,
     return params
 
 
+def decode_tp_model_bytes(config: DecodeConfig, tp: int,
+                          itemsize: int = 4) -> dict:
+    """Per-step collective payloads of the tp-sharded decode step (the
+    JAX package's analytic model): two all-reduces of the (S, hidden)
+    activation per layer (the attention projection's and the FFN
+    down-projection's partial sums), and one all-gather of the (S, vocab)
+    logits when the vocab divides by tp (else the head stays whole and
+    nothing is gathered).  Weights and KV pages never move."""
+    S, h = config.max_seqs, config.hidden
+    out = {"all-reduce": 2 * config.num_layers * S * h * itemsize}
+    if tp > 1 and config.vocab_size % tp == 0:
+        out["all-gather"] = S * config.vocab_size * itemsize
+    return out
+
+
 def _quantize_params(params, config: DecodeConfig):
     """Rewrite the matmul weights to (int payload, per-channel scales)
     pairs; everything else passes through (host numpy)."""
@@ -234,11 +265,19 @@ def _to_host(v):
         np.asarray(v)
 
 
-def _no_mesh(mesh):
-    if mesh:
-        raise NotPortedYet(
-            "tensor-parallel decode (mesh=%r) is queue A item 7's second "
-            "half; serve from one card" % (mesh,))
+def _build_mesh(mesh, device):
+    """None | MeshSpec | {"tp": k} axes dict -> MeshSpec or None."""
+    if not mesh:
+        return None
+    if hasattr(mesh, "mesh"):
+        return mesh
+    from ..parallel.mesh import MeshSpec
+    return MeshSpec.build(dict(mesh), device=device)
+
+
+def _program_key(name) -> int:
+    """The int32 a gang's control word names a program by."""
+    return zlib.crc32(str(name).encode()) & 0x7FFFFFFF
 
 
 class DecodeProgram:
@@ -251,14 +290,27 @@ class DecodeProgram:
     ``#q`` / ``#scale`` entries are taken as they are.  ``quantize``
     (or ``config.quantize``): int8/int4 weight-only quantized matmuls,
     fixed at construction = "selected at export".  ``device``: None =
-    the card (typed error without one); tests pass ``"cpu"``.
+    the card (typed error without one); tests pass ``"cpu"``.  ``mesh``:
+    None, a ``MeshSpec`` or an axes dict like ``{"tp": 2}`` (the gang's
+    ranks each make the program, from the same whole parameters); each
+    rank keeps its blocks (module docstring) and every rank of the tp
+    group calls :meth:`step` with the same inputs, or follows a
+    :class:`DecodeEngine` (:func:`follow_engine`).  ``heads`` must divide
+    by tp.
     """
 
     def __init__(self, params: Dict, config: DecodeConfig, *, mesh=None,
                  quantize=None, name="decode", device=None):
-        _no_mesh(mesh)
         import torch
-        self.device = resolve_device(device)
+        tp = (mesh.axis_size("tp") if hasattr(mesh, "mesh") else
+              int(dict(mesh).get("tp", 1))) if mesh else 1
+        if config.heads % tp:
+            raise MXNetError("heads %d not divisible by tp=%d"
+                             % (config.heads, tp))
+        self.spec = _build_mesh(mesh, device)
+        self.tp = tp
+        self.device = self.spec.device if self.spec is not None \
+            else resolve_device(device)
         if self.device.type == "cuda":
             # the reference runs f32 at "highest" matmul precision; TF32
             # would keep ~3 decimal digits
@@ -273,7 +325,12 @@ class DecodeProgram:
         if config.quantize and not is_quantized(params):
             params = _quantize_params(
                 {k: _to_host(v) for k, v in params.items()}, config)
-        self._params = from_jax_params(params, self.device)
+        self._pspecs = {k: self._place(k, tuple(v.shape))
+                        for k, v in params.items()}
+        self._params = from_jax_params(
+            {k: self._block(v, self._pspecs[k]) for k, v in params.items()},
+            self.device)
+        self.key = _program_key(name)
         telemetry.memory.tag(list(self._params.values()), "served",
                              label="DecodeProgram(%s)" % name)
         # 1 once the kernels are built and the warm-up step ran; a value
@@ -308,13 +365,61 @@ class DecodeProgram:
                              "names, models/transformer.get_symbol)"
                              % missing[:6])
 
+    def _param_pspec(self, key):
+        """The tp placement of one parameter (the JAX export's
+        ``_param_pspec``): q/k/v/ff1 weights, biases, ``#q`` payloads and
+        ``#scale`` on dim 0 (the output features: whole heads for q/k/v);
+        proj/ff2 weights and payloads on dim 1 (the contraction), their
+        bias and scale replicated; the head's weight and payload on its
+        vocab rows, its bias and scale replicated; the rest replicated."""
+        base = key.split("#")[0]
+        vec = key.endswith("#scale") or base.endswith("bias")
+        if base.startswith("l"):
+            nm = base.split("_")[1]
+            if nm in ("q", "k", "v", "ff1"):
+                return ("tp",) if vec else ("tp", None)
+            if nm in ("proj", "ff2"):
+                return () if vec else (None, "tp")
+            return ()
+        if base == "head_weight" and not key.endswith("#scale"):
+            return ("tp", None)
+        return ()
+
+    def _place(self, key, shape):
+        """:meth:`_param_pspec`, replicated where the recipe's dim does
+        not divide by tp (an odd vocab keeps a whole head), and with no
+        tp."""
+        if self.tp <= 1:
+            return ()
+        spec = self._param_pspec(key)
+        if any(a and shape[d] % self.tp for d, a in enumerate(spec)):
+            return ()
+        return spec
+
+    def _block(self, value, spec):
+        """This rank's block of a whole host array or tensor."""
+        if not spec:
+            return value
+        import torch
+        from ..parallel.placement import Sharding, shard_of
+        t = value if isinstance(value, torch.Tensor) else \
+            torch.as_tensor(np.ascontiguousarray(_to_host(value)))
+        return shard_of(t, Sharding(self.spec.mesh, spec)).contiguous()
+
+    @property
+    def head_split(self) -> bool:
+        """Whether the head is split on its vocab rows over tp."""
+        return bool(self._pspecs.get("head_weight#q",
+                                     self._pspecs.get("head_weight")))
+
     def fresh_cache(self):
-        """Zeroed page pool ``(L, 2, P, H, page, D)`` on the device.  The
-        engine owns exactly one and threads it through every step."""
+        """Zeroed page pool ``(L, 2, P, H/tp, page, D)`` on the device
+        (this rank's heads).  The engine owns exactly one and threads it
+        through every step."""
         import torch
         c = self.config
-        shape = (c.num_layers, 2, c.pool_pages(), c.heads, c.page_size,
-                 c.head_dim)
+        shape = (c.num_layers, 2, c.pool_pages(), c.heads // self.tp,
+                 c.page_size, c.head_dim)
         kv = torch.zeros(shape, dtype=torch.float32, device=self.device)
         telemetry.memory.tag(kv, "kv_cache",
                              label="DecodeProgram(%s).kv" % self.name)
@@ -323,18 +428,55 @@ class DecodeProgram:
     @property
     def cache_bytes(self) -> int:
         c = self.config
-        return (c.num_layers * 2 * c.pool_pages() * c.heads *
+        return (c.num_layers * 2 * c.pool_pages() * c.heads // self.tp *
                 c.page_size * c.head_dim * 4)
 
     # -- the step ----------------------------------------------------------
-    def _lin(self, x, name):
-        w = self._params.get(name + "_weight#q")
+    def _lin(self, x, name, bias=True, rows=None):
+        """``x @ W.T (+ b)`` over this rank's block of ``W``; ``rows``
+        (a ``(start, n)`` range) picks the replicated scale and bias
+        entries of a row block."""
+        p = self._params
+        w = p.get(name + "_weight#q")
         if w is not None:
-            y = kernels.quant_matmul(x, w, self._params[name +
-                                                        "_weight#scale"],
-                                     self.config.bits)
+            sc = p[name + "_weight#scale"]
+            if rows is not None:
+                sc = sc.narrow(0, *rows)
+            y = kernels.quant_matmul(x, w, sc, self.config.bits)
         else:
-            y = x @ self._params[name + "_weight"].T
+            y = x @ p[name + "_weight"].T
+        if not bias:
+            return y
+        b = p[name + "_bias"]
+        return y + (b if rows is None else b.narrow(0, *rows))
+
+    def _tp_collective(self, kind, t, tag):
+        """One all-reduce (in place) or all-gather (along the last dim)
+        over the tp group, through the audit trail on the "tp" axis."""
+        import torch
+        import torch.distributed as dist
+        from ..parallel.audit import collective
+        group = self.spec.mesh.group("tp")
+        if kind == "all-reduce":
+            collective(kind, tag, lambda: dist.all_reduce(t, group=group),
+                       nbytes=t.numel() * t.element_size(), axis="tp")
+            return t
+        out = torch.empty((self.tp * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        collective(kind, tag, lambda: dist.all_gather_into_tensor(
+            out, t.contiguous(), group=group),
+            nbytes=out.numel() * out.element_size(), axis="tp")
+        out = out.view((self.tp,) + tuple(t.shape))
+        return out.movedim(0, -2).reshape(t.shape[:-1] + (-1,))
+
+    def _lin_sum(self, x, name):
+        """A contraction-split layer: this rank's partial product summed
+        over tp, then the bias."""
+        y = self._lin(x, name, bias=self.tp <= 1)
+        if self.tp <= 1:
+            return y
+        y = self._tp_collective("all-reduce", y.contiguous(),
+                                "DecodeProgram.step %s all-reduce" % name)
         return y + self._params[name + "_bias"]
 
     def _ln(self, x, name):
@@ -366,7 +508,7 @@ class DecodeProgram:
         import torch
         import torch.nn.functional as F
         c = self.config
-        S, H, Dh = c.max_seqs, c.heads, c.head_dim
+        S, H, Dh = c.max_seqs, c.heads // self.tp, c.head_dim
         p = self._params
         x = p["tok_embed_weight"][tokens] + p["pos_embed"][positions]
         for i in range(c.num_layers):
@@ -386,11 +528,19 @@ class DecodeProgram:
             kv[i, 1].permute(0, 2, 1, 3).index_put_((phys, off), v)
             att = kernels.decode_attention(q, kv[i, 0], kv[i, 1],
                                            page_table, seq_lens)
-            x = x + self._lin(att.reshape(S, c.hidden), pfx + "proj")
+            x = x + self._lin_sum(att.reshape(S, H * Dh), pfx + "proj")
             f = self._lin(self._ln(x, pfx + "ln2"), pfx + "ff1")
             f = F.gelu(f, approximate="none")
-            x = x + self._lin(f, pfx + "ff2")
-        logits = self._lin(self._ln(x, "ln_f"), "head")       # (S, vocab)
+            x = x + self._lin_sum(f, pfx + "ff2")
+        if self.head_split:
+            n = c.vocab_size // self.tp
+            logits = self._tp_collective(
+                "all-gather", self._lin(self._ln(x, "ln_f"), "head",
+                                        rows=(self.spec.mesh.axis_index(
+                                            "tp") * n, n)),
+                "DecodeProgram.step logits all-gather")
+        else:
+            logits = self._lin(self._ln(x, "ln_f"), "head")   # (S, vocab)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, kv
 
@@ -476,8 +626,11 @@ class DecodeProgram:
     def export(self, path) -> str:
         """Write the deploy artifact in the JAX package's format (same
         container, magic, meta keys and ``param/<name>`` arrays,
-        quantized payloads included), so either package loads it."""
+        quantized payloads included), so either package loads it.  A tp
+        program gathers its blocks (every rank of the gang calls this;
+        rank 0 writes)."""
         from ..deploy import current_topology, device_fingerprint
+        from ..parallel.placement import Sharding, unshard
         topo = current_topology(self.device)
         platform, kind, count = topo
         meta = {
@@ -486,33 +639,149 @@ class DecodeProgram:
             "platform": platform, "device_kind": kind,
             "device_count": count,
             "topologies": {device_fingerprint(topo): "params"},
-            "mesh_axes": None,
+            "mesh_axes": (dict(self.spec.mesh.shape)
+                          if self.spec is not None else None),
             "param_names": sorted(self._params),
         }
-        arrays = {"param/%s" % k: _to_host(v)
-                  for k, v in self._params.items()}
-        write_container(path, arrays=arrays, meta=meta, blobs={})
+        arrays = {"param/%s" % k: _to_host(unshard(
+            v, Sharding(self.spec.mesh, self._pspecs[k]),
+            tag="DecodeProgram.export") if self._pspecs[k] else v)
+            for k, v in sorted(self._params.items())}
+        if self.spec is None or self.spec.mesh.rank == 0:
+            write_container(path, arrays=arrays, meta=meta, blobs={})
         return path
 
     @classmethod
     def load(cls, path, mesh="artifact", name=None, device=None):
         """Load an exported decode artifact (written by either package).
-        An artifact exported with a mesh, or an explicit ``mesh``, raises
-        :class:`NotPortedYet` (tensor-parallel serving is queue A item 7's
-        second half)."""
+        ``mesh="artifact"`` re-forms the mesh axes recorded at export
+        (every rank of a gang of that many processes loads it); pass a
+        mesh or axes dict, or None, to override.  A mesh of more devices
+        than the gang has raises :class:`TopologyMismatch`, before any
+        group is made."""
         arrays, meta, _blobs = read_container(path)
         if meta.get("magic") != _MAGIC:
             raise MXNetError("%s is not a decode artifact (magic %r)"
                              % (path, meta.get("magic")))
         config = DecodeConfig.from_meta(meta["config"])
-        _no_mesh(meta.get("mesh_axes") if mesh == "artifact" else mesh)
+        if mesh == "artifact":
+            mesh = meta.get("mesh_axes")
+        if mesh and not hasattr(mesh, "mesh"):
+            from ..parallel import world_size
+            need = int(np.prod([int(v) for v in dict(mesh).values()]))
+            have = max(world_size(), int(os.environ.get(
+                "DMLC_NUM_WORKER", "1") or 1))
+            if need > have:
+                raise TopologyMismatch(
+                    "artifact was exported for mesh %s (%d devices) but "
+                    "this gang has %d process(es)" % (dict(mesh), need,
+                                                      have))
         params = {k[len("param/"):]: v for k, v in arrays.items()
                   if k.startswith("param/")}
-        prog = cls(params, config,
+        prog = cls(params, config, mesh=mesh,
                    name=name or os.path.basename(os.fspath(path)),
                    device=device)
         telemetry.count("deploy.loads")
         return prog
+
+
+_STEP, _SWAP, _FAIL, _STOP = 1, 2, 3, 4     # a tp gang's control words
+
+
+class _Gang:
+    """The control channel of a tp-served :class:`DecodeEngine`: tp rank
+    0 broadcasts one int32 buffer per event over the tp group -- the
+    control word (op, program key, flag), then the step's six int32
+    arrays or a swap canary's tokens; the other ranks receive it in
+    :func:`follow_engine`.  ``lock`` serialises the leader's events (the
+    engine's worker steps, a caller's swap)."""
+
+    def __init__(self, prog):
+        import torch
+        from ..parallel import backend
+        mesh = prog.spec.mesh
+        self.group = mesh.group("tp")
+        self.src = mesh.axis_ranks("tp")[0]
+        self.leader = mesh.axis_index("tp") == 0
+        c = prog.config
+        S = c.max_seqs
+        self.n = 3 + max(5 * S + S * c.pages_per_seq, S * c.forward_len)
+        # NCCL carries only device tensors; gloo takes host ones
+        self.device = prog.device if backend() == "nccl" \
+            else torch.device("cpu")
+        self.lock = threading.Lock()
+
+    def _bcast(self, buf):
+        import torch.distributed as dist
+        from ..parallel.audit import collective
+        collective("broadcast", "DecodeEngine control word",
+                   lambda: dist.broadcast(buf, self.src, group=self.group),
+                   nbytes=buf.numel() * buf.element_size(), axis="tp")
+
+    def send(self, op, key=0, flag=0, payload=()):
+        import torch
+        host = np.zeros(self.n, np.int32)
+        host[:3] = (op, key, flag)
+        if payload:
+            body = np.concatenate([np.asarray(_to_host(a), np.int32)
+                                   .reshape(-1) for a in payload])
+            host[3:3 + body.size] = body
+        self._bcast(torch.from_numpy(host).to(self.device))
+
+    def recv(self):
+        import torch
+        buf = torch.empty(self.n, dtype=torch.int32, device=self.device)
+        self._bcast(buf)
+        host = _to_host(buf)
+        return int(host[0]), int(host[1]), int(host[2]), host[3:]
+
+
+def follow_engine(programs) -> Dict[str, int]:
+    """Serve as a tp rank other than 0 of a :class:`DecodeEngine`: run
+    each step the engine on tp rank 0 broadcasts, on this rank's blocks,
+    until the engine closes.  ``programs``: the :class:`DecodeProgram`
+    objects this rank built for the gang (the engine's first program and
+    every one it may swap to, matched by ``name``).  A swap warms and
+    canary-runs its program here as on rank 0, before any step names it;
+    a step that failed on rank 0 (a chaos ``exec_error`` included) resets
+    this rank's pool as rank 0 resets its own.  Returns the counts of
+    steps, swaps and failed steps."""
+    progs = {p.key: p for p in programs}
+    first = list(programs)[0]
+    if first.tp <= 1:
+        raise MXNetError("follow_engine needs programs over a tp mesh")
+    gang = _Gang(first)
+    if gang.leader:
+        raise MXNetError("tp rank 0 runs the DecodeEngine; follow_engine "
+                         "is for the other ranks of its tp group")
+    c = first.config
+    S, pp = c.max_seqs, c.pages_per_seq
+    kv = None
+    counts = {"steps": 0, "swaps": 0, "exec_failures": 0}
+    while True:
+        op, key, flag, body = gang.recv()
+        if op == _STOP:
+            return counts
+        prog = progs.get(key)
+        if prog is None:
+            raise MXNetError("the engine named program key %d, which this "
+                             "rank was not given" % key)
+        if op == _SWAP:
+            prog.ensure_compiled()
+            if kv is None:
+                kv = prog.fresh_cache()
+            if flag:
+                prog.forward(body[:S * c.forward_len].reshape(
+                    S, c.forward_len))
+            counts["swaps"] += 1
+        elif op == _STEP:
+            arrays = [body[i * S:(i + 1) * S] for i in range(5)]
+            arrays.append(body[5 * S:5 * S + S * pp].reshape(S, pp))
+            _next, _logits, kv = prog.step(kv, *arrays)
+            counts["steps"] += 1
+        elif op == _FAIL:
+            kv = prog.fresh_cache()
+            counts["exec_failures"] += 1
 
 
 class DecodeRequest(Request):
@@ -561,13 +830,22 @@ class DecodeEngine(ServingRuntime):
     run out), then runs ONE decode step for all occupied slots — prefill
     is chunked into the running batch one token per step.  Admission,
     the breaker and the one-shot Request future (no late OKs, ever) are
-    inherited from :class:`ServingRuntime`."""
+    inherited from :class:`ServingRuntime`.
+
+    Over a tp mesh the engine runs on tp rank 0 and leads the gang (the
+    module docstring); the other ranks call :func:`follow_engine`.  A
+    swap takes a :class:`DecodeProgram` every rank built (with the same
+    name on each)."""
 
     def __init__(self, program, *, max_new_default=None, **kw):
         prog = self._load_program(program)
         if not isinstance(prog, DecodeProgram):
             raise ServingError("DecodeEngine needs a DecodeProgram, got %r"
                                % (type(prog).__name__,))
+        self._gang = _Gang(prog) if prog.tp > 1 else None
+        if self._gang is not None and not self._gang.leader:
+            raise MXNetError("a tp-served DecodeEngine runs on tp rank 0; "
+                             "this rank follows it (follow_engine)")
         if os.environ.get("MXNET_TPU_PREFLIGHT", "") not in (
                 "", "0", "false", "off"):
             raise NotPortedYet("the GC307 decode pre-flight "
@@ -587,8 +865,16 @@ class DecodeEngine(ServingRuntime):
         super().__init__(prog, **kw)
         # build + warm up BEFORE serving (one visible compile/decode_step
         # span; the loop itself never builds)
-        prog.ensure_compiled()
-        self._kv = prog.fresh_cache()
+        with self._gang_lock():
+            if self._gang is not None:
+                self._gang.send(_SWAP, prog.key)
+            prog.ensure_compiled()
+            self._kv = prog.fresh_cache()
+
+    def _gang_lock(self):
+        import contextlib
+        return self._gang.lock if self._gang is not None \
+            else contextlib.nullcontext()
 
     # -- admission ----------------------------------------------------------
     def submit(self, tokens=None, *, max_new_tokens=None, priority=0,
@@ -764,7 +1050,8 @@ class DecodeEngine(ServingRuntime):
                 if not self._breaker.dispatch_ok():
                     time.sleep(0.02)
                     continue
-                self._engine_step(active)
+                with self._gang_lock():
+                    self._engine_step(active)
             except Exception:
                 if not self._stop:
                     raise
@@ -791,6 +1078,7 @@ class DecodeEngine(ServingRuntime):
             self._batch_seq += 1
             seq = self._batch_seq
             prog = self._program
+        sent = False
         try:
             with telemetry.memory.oom_guard(
                     "%s.step" % self._name, step=seq), telemetry.span(
@@ -800,6 +1088,10 @@ class DecodeEngine(ServingRuntime):
                 chaos.maybe_slow_exec(seq)
                 chaos.maybe_replica_crash(seq)
                 chaos.maybe_hedge_lag(seq)
+                if self._gang is not None:
+                    self._gang.send(_STEP, prog.key, 0, (
+                        tokens, positions, seq_lens, phys, off, self._table))
+                    sent = True
                 next_tok, _logits, kv = prog.step(
                     self._kv, tokens, positions, seq_lens, phys, off,
                     self._table)
@@ -813,6 +1105,9 @@ class DecodeEngine(ServingRuntime):
                 self._counters["exec_failures"] += 1
             telemetry.count("serve.exec_failures")
             err = ExecFailed("decode step failed: %r" % (e,))
+            if self._gang is not None and not sent:
+                # the followers reset their pools as this rank does
+                self._gang.send(_FAIL, prog.key)
             for i in list(active):
                 req = self._slots[i].req if self._slots[i] else None
                 if req is not None and req.expired():
@@ -860,6 +1155,8 @@ class DecodeEngine(ServingRuntime):
 
     # -- swap / stats --------------------------------------------------------
     def _validate_swap(self, source, canary_inputs=None):
+        if self._gang is not None:
+            return self._validate_tp_swap(source, canary_inputs)
         new = super()._validate_swap(source, canary_inputs)
         if not isinstance(new, DecodeProgram):
             with self._lock:
@@ -882,6 +1179,38 @@ class DecodeEngine(ServingRuntime):
                              "pool on %s" % (new.device,
                                              self._program.device))
         new.ensure_compiled()     # the warm half: build OUTSIDE the flip
+        return new
+
+    def _validate_tp_swap(self, source, canary_inputs):
+        """A tp engine's swap: the checks that need no collective first,
+        then, with the gang, the canary run and the warm-up on every
+        rank."""
+        cur = self._program
+        why = None
+        if not isinstance(source, DecodeProgram):
+            why = ("a tp-served engine swaps to a DecodeProgram every rank "
+                   "built, got %r" % (source,))
+        elif not source.config.same_geometry(cur.config):
+            why = ("decode geometry mismatch: %s != %s"
+                   % (source.config.describe(), cur.config.describe()))
+        elif source.device != cur.device or source.spec is None or \
+                dict(source.spec.mesh.shape) != dict(cur.spec.mesh.shape):
+            why = ("decode program on %s over %s cannot take over a KV pool "
+                   "on %s over %s" % (source.device, source.spec and dict(
+                       source.spec.mesh.shape), cur.device,
+                       dict(cur.spec.mesh.shape)))
+        if why:
+            with self._lock:
+                self._counters["swap_failures"] += 1
+            raise SwapFailed(why)
+        c = cur.config
+        toks = np.asarray((canary_inputs or {}).get("tokens", np.zeros(
+            (c.max_seqs, c.forward_len), np.int32)), np.int32).reshape(
+                c.max_seqs, c.forward_len)
+        with self._gang.lock:
+            self._gang.send(_SWAP, source.key, 1, (toks,))
+            new = super()._validate_swap(source, {"tokens": toks})
+            new.ensure_compiled()
         return new
 
     @staticmethod
@@ -924,3 +1253,7 @@ class DecodeEngine(ServingRuntime):
         super().close()
         for i in self._active():
             self._retire(i, ServingError("engine closed mid-generation"))
+        if self._gang is not None:
+            with self._gang.lock:
+                self._gang.send(_STOP)
+            self._gang = None

@@ -272,8 +272,12 @@ def test_load_refuses_what_the_port_cannot_serve(tmp_path):
         tdec.DecodeProgram.load(bad, device="cpu")
     _jcfg, tcfg = _cfgs()
     params = tdec.init_decode_params(tcfg, seed=0)
-    with pytest.raises(NotPortedYet):
+    # tp decode is ported (tests/test_torch_dist.py's gang): a tp mesh of
+    # 2 needs a gang of 2, and heads must divide by tp
+    with pytest.raises(ValueError, match="gang has 1"):
         tdec.DecodeProgram(params, tcfg, mesh={"tp": 2}, device="cpu")
+    with pytest.raises(MXNetError, match="heads 4 not divisible"):
+        tdec.DecodeProgram(params, tcfg, mesh={"tp": 3}, device="cpu")
     with pytest.raises(MXNetError):
         tdec.DecodeProgram({"tok_embed_weight": params["tok_embed_weight"]},
                            tcfg, device="cpu")

@@ -30,7 +30,20 @@ Tolerances:
   values);
 * the recommender at S 2 and 4 against the JAX package's XLA backend on
   the same mesh: within 1e-6 of each tensor's largest magnitude, as
-  tests/test_torch_sparse_plane.py, and every untouched row bit-equal.
+  tests/test_torch_sparse_plane.py, and every untouched row bit-equal;
+* tensor parallelism: the tp-2 ``ShardedTrainer`` (here; dp2 x tp2 plain
+  and ZeRO, and the annotated MLP, in tests/test_torch_dist4.py) against
+  the JAX trainer on the same mesh of virtual devices: the whole state
+  and rank r's blocks (against the JAX array's shard on device r) within
+  rtol 2e-4 / atol 2e-5, the losses within rtol 1e-5, the ranks' whole
+  parameters bit-equal, no collective on the default group; tp-2 decode
+  against the JAX package's tp-2 ``DecodeProgram`` at vocab 29 (the head
+  whole) and 32 (the head split), teacher-forced: tokens equal, logits
+  within 1e-4 (f32, int8, int4: the bar of tests/test_torch_decode.py),
+  rank r's KV pool within 1e-5 of the JAX pool's heads on device r, one
+  step's audit trail equal to ``decode_tp_model_bytes``; the tp-2
+  engine's tokens equal to the JAX one-process engine's, and its swap and
+  kill drill (tests/test_decode.py:345).
 """
 import os
 
@@ -39,6 +52,7 @@ import pytest
 
 import jax.numpy as jnp
 import mxnet_tpu as jmx
+import mxnet_tpu.serving.decode as jdec
 from mxnet_tpu import sparse as jsp
 from mxnet_tpu.models.transformer import get_symbol as jax_lm
 from mxnet_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
@@ -53,7 +67,8 @@ CASES2 = ("cuda_untouched", "lm_dp", "lm_local", "lm_zero",
           "lm_sharded_state", "lm_zero_accum", "lm_nan", "bn_dp",
           "bn_dp_batch",
           "module_sync", "module_sync_2bit", "gluon_sync", "async_avg",
-          "async_avg_rsp", "rsp_allreduce", "rec")
+          "async_avg_rsp", "rsp_allreduce", "rec", "lm_tp2", "decode_tp",
+          "decode_tp_engine")
 
 
 result = W.result
@@ -201,6 +216,116 @@ def _rec_inputs(outdir, S):
     return refs
 
 
+def _device_shards(x, n):
+    """The blocks of a JAX array on devices 0..n-1, by device index."""
+    import jax
+    devs = jax.devices()[:n]
+    by = {sh.device: np.asarray(sh.data) for sh in x.addressable_shards}
+    return [by[d] for d in devs]
+
+
+def _jax_tp_train(symbol, axes, kw, hyper, shapes, batches, seed,
+                  init=None):
+    """The JAX trainer over ``axes`` from ``init`` (whole host arrays by
+    name; else its own ``init_state(seed)``): the whole state, each
+    device's blocks and the losses."""
+    import jax
+    spec = JaxMeshSpec.build(axes)
+    jt = JaxTrainer(symbol, spec, **dict(hyper, **kw))
+    p, m, a = jt.init_state(shapes, seed=seed)
+    if init is not None:
+        p = tuple(jax.device_put(init[n].astype(np.asarray(x).dtype),
+                                 x.sharding)
+                  for n, x in zip(jt.param_names, p))
+    losses = []
+    for b in batches:
+        p, m, a, loss = jt.step(p, m, a, b)
+        losses.append(float(loss))
+    n = spec.mesh.size
+    return {"p": dict(zip(jt.param_names, map(_host, p))),
+            "m": dict(zip(jt.param_names, map(_host, m))),
+            "sp": {k: _device_shards(x, n) for k, x in
+                   zip(jt.param_names, p)},
+            "sm": {k: _device_shards(x, n) for k, x in
+                   zip(jt.param_names, m)}, "loss": losses}
+
+
+def _tp_lm_inputs(outdir, names):
+    """The lm inputs (those of :func:`_lm_inputs`) and the JAX trainer's
+    runs over the meshes of ``names`` (``W.TP_LM``)."""
+    T = W.LM["seq_len"]
+    shapes = {"data": (W.LM_BATCH, T), "softmax_label": (W.LM_BATCH, T)}
+    if not os.path.exists(os.path.join(outdir, "lm.in.npz")):
+        _lm_inputs(outdir)
+    with np.load(os.path.join(outdir, "lm.in.npz")) as f:
+        inp = {k: f[k] for k in f.files}
+    batches = [{k: inp["b%d_%s" % (i, k)] for k in shapes}
+               for i in range(W.LM_STEPS)]
+    init = {k[2:]: v for k, v in inp.items() if k.startswith("p_")}
+
+    def refs():
+        return {n: _jax_tp_train(jax_lm(**W.LM), W.TP_LM[n][0],
+                                 W.TP_LM[n][1], W.LM_HYPER, shapes,
+                                 batches, 5, init) for n in names}
+    return refs
+
+
+def _tp_mlp_inputs(outdir):
+    M = W.TP_MLP
+    shapes = {"data": (M["batch"], M["dim"]),
+              "softmax_label": (M["batch"],)}
+    rs = np.random.RandomState(61)
+    inp = {"p_fc1_weight": rs.normal(0, .3, (M["hidden"], M["dim"])),
+           "p_fc1_bias": rs.normal(0, .1, (M["hidden"],)),
+           "p_fc2_weight": rs.normal(0, .3, (M["classes"], M["hidden"])),
+           "p_fc2_bias": rs.normal(0, .1, (M["classes"],))}
+    for i in range(M["steps"]):
+        inp["x%d" % i] = rs.rand(M["batch"], M["dim"])
+        inp["y%d" % i] = rs.randint(0, M["classes"], M["batch"])
+    inp = {k: v.astype(np.float32) for k, v in inp.items()}
+    np.savez(os.path.join(outdir, "tpmlp.in.npz"), **inp)
+    batches = [{"data": inp["x%d" % i], "softmax_label": inp["y%d" % i]}
+               for i in range(M["steps"])]
+    init = {k[2:]: v for k, v in inp.items() if k.startswith("p_")}
+
+    def refs():
+        return _jax_tp_train(W.tp_mlp_symbol(jmx.sym), M["mesh"], {},
+                             M["hyper"], shapes, batches, 0, init)
+    return refs
+
+
+def _dec_inputs(outdir):
+    """The decode toy's parameters at both vocabs, and the JAX package's
+    tp-2 programs teacher-forced over them, plus its one-process engine's
+    tokens for the engine case's requests."""
+    inp = {}
+    for vocab in W.TP_DEC["vocabs"]:
+        params = jdec.init_decode_params(W.tp_decode_config(jdec, vocab),
+                                         seed=3)
+        inp.update({"v%d_%s" % (vocab, k): v for k, v in params.items()})
+    np.savez(os.path.join(outdir, "dec.in.npz"), **inp)
+
+    def refs():
+        out = {}
+        for vocab in W.TP_DEC["vocabs"]:
+            params = {k[len("v%d_" % vocab):]: v for k, v in inp.items()
+                      if k.startswith("v%d_" % vocab)}
+            for qz in ((None, "int8", "int4") if vocab == 29 else (None,)):
+                prog = jdec.DecodeProgram(params, W.tp_decode_config(
+                    jdec, vocab), quantize=qz, mesh={"tp": 2})
+                out["v%d_%s" % (vocab, qz or "f32")] = W.tp_teacher_forced(
+                    prog, prog.fresh_cache(), W.tp_decode_tokens(vocab), 2,
+                    np.asarray)
+        params = {k[4:]: v for k, v in inp.items() if k.startswith("v29_")}
+        with jdec.DecodeEngine(jdec.DecodeProgram(params, W.tp_decode_config(
+                jdec, 29)), default_deadline=60.0) as eng:
+            futs = [eng.submit(p, max_new_tokens=m)
+                    for p, m in W.tp_requests(29)]
+            out["engine"] = [f.result(timeout=60)[0] for f in futs]
+        return out
+    return refs
+
+
 def gang_with_refs(outdir, n, cases, inputs):
     """Write every input (``inputs``: name -> an ``_*_inputs`` result's
     maker), start the gang, compute the JAX references while it runs,
@@ -223,7 +348,9 @@ def gang(tmp_path_factory):
     return gang_with_refs(outdir, 2, CASES2, {
         "lm": lambda: _lm_inputs(outdir), "bn": lambda: _bn_inputs(outdir),
         "module": lambda: _module_inputs(outdir),
-        "rec": lambda: _rec_inputs(outdir, 2)})
+        "rec": lambda: _rec_inputs(outdir, 2),
+        "tplm": lambda: _tp_lm_inputs(outdir, ("lm_tp2",)),
+        "dec": lambda: _dec_inputs(outdir)})
 
 
 # -- the dp trainer --------------------------------------------------------
@@ -444,3 +571,102 @@ def _check_rec(outdir, ref, n):
 def test_recommender_dp2_matches_jax_xla_backend(gang):
     outdir, refs = gang
     _check_rec(outdir, refs["rec"], 2)
+
+
+# -- tensor parallelism -----------------------------------------------------
+
+def check_tp(outdir, name, ref, n, axes):
+    """A tp trainer case against the JAX trainer's run over the same mesh
+    (module docstring); ``axes``: the mesh axes that must carry
+    collectives."""
+    got = [result(outdir, name, r) for r in range(n)]
+    for g in got[1:]:
+        for k in g:
+            if k.startswith(("w_", "wm_", "loss")):
+                np.testing.assert_array_equal(g[k], got[0][k], err_msg=k)
+    np.testing.assert_allclose(got[0]["loss"], ref["loss"], rtol=1e-5)
+    for k, v in ref["p"].items():
+        _close(got[0]["w_" + k], v, what=k)
+        _close(got[0]["wm_" + k], ref["m"][k], what="mom " + k)
+        for r in range(n):
+            _close(got[r]["s_" + k], ref["sp"][k][r], what="%s r%d" % (k, r))
+            _close(got[r]["sm_" + k], ref["sm"][k][r],
+                   what="mom %s r%d" % (k, r))
+    for g in got:
+        seen = {k.split("_")[1] for k in g if k.startswith("audit_")}
+        assert seen == set(axes), seen
+
+
+def test_tp2_trainer_matches_jax(gang):
+    """The LM at tp 2 (every FC and the embedding split over tp, the
+    flash-free einsum path), three momentum steps, against the JAX
+    trainer on a tp-2 mesh: rank r holds the JAX array's shard on device
+    r; every collective ran on the tp group."""
+    outdir, refs = gang
+    check_tp(outdir, "lm_tp2", refs["tplm"]["lm_tp2"], 2, ("tp",))
+    a = result(outdir, "lm_tp2", 0)
+    assert a["s_l0_ff1_weight"].shape[0] * 2 == a["w_l0_ff1_weight"].shape[0]
+    assert a["s_tok_embed_weight"].shape[0] * 2 == \
+        a["w_tok_embed_weight"].shape[0]
+    assert a["audit_tp_all-gather"] > 0 and a["audit_tp_all-reduce"] > 0
+
+
+@pytest.mark.parametrize("vocab,qz", [(29, None), (29, "int8"),
+                                      (29, "int4"), (32, None)])
+def test_tp2_decode_matches_jax_tp2(gang, vocab, qz):
+    """Teacher-forced tp-2 decode against the JAX package's tp-2 program:
+    tokens equal, logits within 1e-4, each rank's KV heads within 1e-5 of
+    the JAX pool's on its device, the ranks' outputs equal, and one
+    step's collectives exactly ``decode_tp_model_bytes`` on the tp axis
+    (vocab 29 keeps a whole head and gathers nothing)."""
+    from mxnet_tpu_torch.serving import decode as tdec
+    outdir, refs = gang
+    tag = "v%d_%s" % (vocab, qz or "f32")
+    jn, jl, jkv = refs["dec"][tag]
+    got = [result(outdir, "decode_tp", r) for r in (0, 1)]
+    np.testing.assert_array_equal(got[0]["next_" + tag],
+                                  got[1]["next_" + tag])
+    np.testing.assert_array_equal(got[0]["logits_" + tag],
+                                  got[1]["logits_" + tag])
+    assert np.array_equal(got[0]["next_" + tag], jn), tag
+    assert np.abs(got[0]["logits_" + tag] - jl).max() < 1e-4, tag
+    h = jkv.shape[3] // 2
+    for r, g in enumerate(got):
+        kv = g["kv_" + tag]
+        assert kv.shape[3] == h
+        assert np.abs(kv[:, :, 1:] - jkv[:, :, 1:, r * h:(r + 1) * h]
+                      ).max() < 1e-5, (tag, r)
+        cfg = W.tp_decode_config(tdec, vocab)
+        want = tdec.decode_tp_model_bytes(cfg, 2)
+        assert want == jdec.decode_tp_model_bytes(
+            W.tp_decode_config(jdec, vocab), 2)
+        have = {k[len("audit_%s_" % tag):]: int(v) for k, v in g.items()
+                if k.startswith("audit_%s_" % tag)}
+        assert have == want, (tag, have, want)
+        assert g["axes_" + tag].tolist() == ["tp"]
+    if tag == "v32_f32":
+        for g in got:
+            assert int(g["loaded_tp"]) == 2
+            np.testing.assert_array_equal(g["next_loaded"], jn)
+            np.testing.assert_array_equal(g["logits_loaded"],
+                                          got[0]["logits_" + tag])
+
+
+def test_tp2_engine_matches_jax_and_survives_the_drill(gang):
+    """The tp-2 engine (rank 0 leads, rank 1 follows): its tokens equal
+    the JAX one-process engine's; then a swap mid-generation completes
+    all six requests in time, an exec_error burst sheds typed on every
+    rank (the follower counts the failed steps), the pool drains clean
+    and a geometry mismatch is refused with the swapped model serving."""
+    outdir, refs = gang
+    a, b = (result(outdir, "decode_tp_engine", r) for r in (0, 1))
+    for i, want in enumerate(refs["dec"]["engine"]):
+        np.testing.assert_array_equal(a["parity%d" % i], want)
+    assert bool(a["swapped"]) and int(a["ok"]) == 6
+    assert set(a["doomed"].tolist()) <= {"ExecFailed", "DeadlineExceeded",
+                                         "CircuitOpen"}
+    assert a["pages"][0] == a["pages"][1]
+    assert str(a["mismatch"]) == "SwapFailed" and bool(a["still_b"])
+    assert int(b["parity_steps"]) > 0 and int(b["parity_swaps"]) == 1
+    assert int(b["drill_swaps"]) == 2
+    assert int(b["drill_exec_failures"]) >= 1

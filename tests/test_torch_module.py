@@ -515,12 +515,14 @@ def test_module_without_a_context_needs_the_card_and_refuses_more():
     net = _mlp(tmx.sym)
     with pytest.raises(DeviceUnavailable):
         tmx.mod.Module(net)
-    # several contexts are ported (tests/test_torch_parallel_mesh.py)
+    # several contexts are ported (tests/test_torch_parallel_mesh.py),
+    # and so is group2ctxs (tests/test_torch_placement.py): a group no
+    # node belongs to leaves the graph unsegmented
     assert tmx.mod.Module(net, context=[tmx.cpu(0), tmx.cpu(1)])
-    with pytest.raises(NotPortedYet, match="item 7's second half"):
-        tmx.mod.Module(net, context=tmx.cpu(), group2ctxs={
-            "dev1": tmx.cpu()}).bind([("data", (4, 10))],
-                                     [("softmax_label", (4,))])
+    mod = tmx.mod.Module(net, context=tmx.cpu(), group2ctxs={
+        "dev1": tmx.cpu()})
+    mod.bind([("data", (4, 10))], [("softmax_label", (4,))])
+    assert mod._exec_group.execs[0]._seg is None
 
 
 @pytest.mark.parametrize("devtype", ["tpu", "cpu_pinned", "cpu_shared", 6])

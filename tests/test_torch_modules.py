@@ -9,8 +9,8 @@ executor_manager,model} vs the same files of mxnet_tpu).
   its tensor's largest magnitude, the metric within 1e-6.
 * ``DataParallelExecutorManager``: one forward and backward of a batch,
   the gradients and ``copy_to`` against the reference, on one context
-  and on two (the batch split 4/4); ``group2ctxs`` raises
-  ``NotPortedYet`` naming queue A item 7's second half.
+  and on two (the batch split 4/4); a Module with ``group2ctxs`` binds
+  (its placement is tests/test_torch_placement.py's).
 * ``FeedForward``: ``fit``, ``predict``, ``save``, ``load`` (each
   package loads the other's checkpoint) and ``create``.
 
@@ -25,7 +25,6 @@ import pytest
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import NotPortedYet
 
 
 def _data(n=48, dim=8, nclass=3, seed=0):
@@ -175,8 +174,9 @@ def test_executor_manager_matches_jax():
 def test_executor_manager_refuses_several_contexts():
     """Several contexts are ported: the manager over [cpu(0), cpu(1)]
     splits the batch 4/4, and its summed gradients and metric equal the
-    JAX package's manager over the same two contexts; ``group2ctxs``
-    placement is still to port (item 7's second half)."""
+    JAX package's manager over the same two contexts; a Module with
+    ``group2ctxs`` binds and predicts what the Module without it does
+    (ctx_group placement: tests/test_torch_placement.py)."""
     X, y = _data(16)
     res = {}
     for pkg in (tmx, jmx):
@@ -192,6 +192,8 @@ def test_executor_manager_refuses_several_contexts():
             np.float32), **kw) for n, a in zip(man.param_names,
                                                man.param_arrays)}
         man.set_params(params, {})
+        if pkg is tmx:
+            tparams = params
         man.load_data_batch(next(it))
         man.forward(is_train=True)
         man.backward()
@@ -203,11 +205,20 @@ def test_executor_manager_refuses_several_contexts():
     _close(res[tmx][0], res[jmx][0])
     assert res[tmx][1] == res[jmx][1] == [4, 4]
     assert res[tmx][2] == res[jmx][2]
-    with pytest.raises(NotPortedYet, match="item 7's second half"):
-        tmx.mod.Module(tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
-            tmx.sym.Variable("data"), num_hidden=3), name="softmax"),
-            context=tmx.cpu(), group2ctxs={"dev1": tmx.cpu()}).bind(
-                [("data", (8, 5))], [("softmax_label", (8,))])
+    outs = []
+    for g2c in ({"dev1": tmx.cpu()}, None):
+        with tmx.AttrScope(ctx_group="dev1"):
+            fc = tmx.sym.FullyConnected(tmx.sym.Variable("data"),
+                                        num_hidden=3, name="fc")
+        mod = tmx.mod.Module(tmx.sym.SoftmaxOutput(fc, name="softmax"),
+                             context=tmx.cpu(), group2ctxs=g2c)
+        mod.bind([("data", (8, X.shape[1]))], [("softmax_label", (8,))])
+        mod.init_params(arg_params={"fc_weight": tparams["fc_weight"],
+                                    "fc_bias": tparams["fc_bias"]})
+        mod.forward(tmx.io.DataBatch([tmx.nd.array(X[:8], ctx="cpu")], []),
+                    is_train=False)
+        outs.append(mod.get_outputs()[0].asnumpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
 def _ff_net(pkg):
     sym = pkg.sym
     net = sym.Activation(sym.FullyConnected(sym.Variable("data"),

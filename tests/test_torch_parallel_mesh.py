@@ -4,8 +4,8 @@ module/executor_group.py, gluon/{parameter,utils,trainer}.py).
 
 * ``MeshSpec.build`` roles and ``reform_mesh`` (tests/test_unified_mesh.py
   :28,47) on meshes of one device (more needs a gang:
-  tests/test_torch_dist.py); a non-dp axis over more than one device
-  raises ``NotPortedYet`` naming queue A item 7's second half.
+  tests/test_torch_dist.py, whose gangs also hold the tp cases); a mesh
+  of more devices than the gang's ranks raises ``ValueError``.
 * ``zero_shard_dim`` / ``state_sharding`` / ``batch_sharding`` equal the
   JAX package's rule over many shapes and dp sizes; ``zero_enabled``'s
   precedence (tests/test_zero_sharding.py:168).
@@ -15,7 +15,8 @@ module/executor_group.py, gluon/{parameter,utils,trainer}.py).
   parameters within rtol 1e-5 / atol 1e-6 (the two executors' gradients
   summed in another order), Gluon's the same.
 * Every ``NotPortedYet`` the port still raises for distribution names
-  item 7's second half.
+  item 7's second half; ring, pipeline, MoE and the hierarchical
+  all-reduce raise it naming step 2.
 """
 import os
 import re
@@ -74,7 +75,7 @@ def test_meshspec_build_roles_and_reform():
     assert torch.equal(replicate(x, dpm), torch.as_tensor(x))
     for axes in ({"dp": 2, "tp": 2}, {"tp": 2}, {"dp": 1, "pp": 2},
                  {"dp": 1, "sp": 2}, {"dp": 1, "ep": 4}):
-        with pytest.raises(NotPortedYet, match="item 7's second half"):
+        with pytest.raises(ValueError, match="gang has 1"):
             MeshSpec.build(axes, device="cpu")
 
 
@@ -308,7 +309,13 @@ def test_gluon_trainer_over_two_contexts_matches_jax(kvstore):
 
 def test_remaining_distribution_gaps_name_item_7s_second_half():
     """Every ``NotPortedYet`` of the port that names item 7 names its
-    second half: the first half is ported."""
+    second half: the first half is ported.  Of the second half, step 2's
+    entry points raise naming step 2 (steps 1 and 3 are ported)."""
+    from mxnet_tpu_torch import parallel
+    for fn in (parallel.ring_attention, parallel.pipeline_apply,
+               parallel.moe_ffn, parallel.hierarchical_allreduce):
+        with pytest.raises(NotPortedYet, match="second half, step 2"):
+            fn()
     hits = []
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
                                                       "mxnet_tpu_torch")):

@@ -362,11 +362,11 @@ def test_lookup_and_updates_make_one_grouped_gather(specs, monkeypatch):
 def test_unported_paths_raise(specs, monkeypatch):
     _jspec, tspec = specs
     # a dp mesh of 2 and its all-to-all are ported (they need a gang of
-    # 2: tests/test_torch_dist.py); an ep axis over 2 devices is item 7's
-    # second half
+    # 2: tests/test_torch_dist.py); so is a mesh with an ep axis over 2
+    # devices (MoE dispatch over it is item 7's second half, step 2)
     with pytest.raises(ValueError, match="gang has 1"):
         make_mesh((2,), ("dp",), device="cpu")
-    with pytest.raises(NotPortedYet, match="item 7's second half"):
+    with pytest.raises(ValueError, match="gang has 1"):
         make_mesh((2,), ("ep",), device="cpu")
     x = torch.zeros(1, 3)
     assert tembedding._a2a(x, "dp", 1) is x

@@ -275,9 +275,11 @@ def test_unported_features_raise():
                       local_batch=True)[0]
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+    # a tp, dp x tp or ep mesh over two devices is ported: like dp it
+    # needs a gang of two (tests/test_torch_dist.py)
     for shape, names in (((2,), ("tp",)), ((1, 2), ("dp", "tp")),
                          ((2,), ("ep",))):
-        with pytest.raises(NotPortedYet, match="item 7's second half"):
+        with pytest.raises(ValueError, match="gang has 1"):
             make_mesh(shape, names, device="cpu")
     with pytest.raises(ValueError, match="gang has 1"):
         make_mesh((2,), ("dp",), device="cpu")

@@ -41,6 +41,15 @@ BN_HYPER = dict(lr=0.05, momentum=0.9, wd=0.0)
 MLP_DIM, MLP_CLASSES, MLP_BATCH, MLP_BATCHES = 10, 3, 8, 4
 # the recommender
 REC = dict(V=50, D=8, F=3, B=16, dense=4, hidden=(16,), steps=2)
+# tensor parallelism: the LM's meshes by case (over the lm inputs), the
+# annotated MLP, and the decode toy (tests/test_decode.py's geometry)
+TP_LM = {"lm_tp2": ({"tp": 2}, {}),
+         "lm_dp2tp2": ({"dp": 2, "tp": 2}, {}),
+         "lm_dp2tp2_zero": ({"dp": 2, "tp": 2}, {"zero": True})}
+TP_MLP = dict(batch=8, dim=12, hidden=32, classes=8, steps=2,
+              mesh={"dp": 2, "tp": 2}, hyper=dict(lr=0.1, momentum=0.9,
+                                                   wd=1e-4))
+TP_DEC = dict(L=2, H=24, heads=2, T=16, page=4, S=3, vocabs=(29, 32))
 
 CASES = {}
 
@@ -241,6 +250,249 @@ def bn_dp(outdir):
 def bn_dp_batch(outdir):
     """The loss head normalised by the batch: the global batch's count."""
     return _bn(outdir, "batch")
+
+
+# -- tensor parallelism ----------------------------------------------------
+
+def _tp_trainer_out(tr, params, mom, losses, first):
+    """This rank's blocks, the whole parameters and momentum (gathered),
+    the losses and the first step's audit trail by axis and kind
+    (``first``, read right after that step: the log keeps 128 events)."""
+    whole = tr.get_params(params)
+    moms = tr.get_moms(mom)
+    out = {"loss": np.asarray(losses)}
+    for n, p, w, m, mw in zip(tr.param_names, params, whole, mom, moms):
+        out["s_" + n] = p.cpu().numpy()
+        out["w_" + n] = w.cpu().numpy()
+        out["sm_" + n] = m.cpu().numpy()
+        out["wm_" + n] = mw.cpu().numpy()
+    for axis, kinds in first.items():
+        for kind, b in kinds.items():
+            out["audit_%s_%s" % (axis, kind)] = np.asarray(b)
+    return out
+
+
+def _tp_lm(outdir, name):
+    axes, kw = TP_LM[name]
+    inp = _load(outdir, "lm")
+    spec = parallel.MeshSpec.build(axes, device="cpu")
+    tr = parallel.ShardedTrainer(lm_symbol(), spec, **dict(LM_HYPER, **kw))
+    T = LM["seq_len"]
+    params, mom, aux = tr.init_state({"data": (LM_BATCH, T),
+                                      "softmax_label": (LM_BATCH, T)})
+    params = tr.shard_params({n: inp["p_" + n] for n in tr.param_names})
+    audit.clear_collective_log()
+    losses = []
+    for i in range(LM_STEPS):
+        pre = "b%d_" % i
+        batch = {k[len(pre):]: v for k, v in inp.items()
+                 if k.startswith(pre)}
+        params, mom, aux, loss = tr.step(params, mom, aux, batch)
+        losses.append(float(loss))
+        if i == 0:
+            first = audit.bytes_by_axis(step=1)
+    return _tp_trainer_out(tr, params, mom, losses, first)
+
+
+@case
+def lm_tp2(outdir):
+    return _tp_lm(outdir, "lm_tp2")
+
+
+@case
+def lm_dp2tp2(outdir):
+    return _tp_lm(outdir, "lm_dp2tp2")
+
+
+@case
+def lm_dp2tp2_zero(outdir):
+    return _tp_lm(outdir, "lm_dp2tp2_zero")
+
+
+def tp_mlp_symbol(sym):
+    """An MLP whose weights carry ``__shard__`` on two axes (fc1's on its
+    input dim over tp, fc2's on dim 0 over dp) and whose first layer's
+    output carries an activation annotation."""
+    w1 = sym.Variable("fc1_weight", attr={"__shard__": "*,tp"})
+    w2 = sym.Variable("fc2_weight", attr={"__shard__": "dp"})
+    h = sym.FullyConnected(sym.Variable("data"), weight=w1, name="fc1",
+                           num_hidden=TP_MLP["hidden"],
+                           attr={"__shard__": "dp"})
+    h = sym.Activation(h, act_type="relu")
+    h = sym.FullyConnected(h, weight=w2, name="fc2",
+                           num_hidden=TP_MLP["classes"])
+    return sym.SoftmaxOutput(h, name="softmax")
+
+
+@case
+def mlp_annotated(outdir):
+    inp = _load(outdir, "tpmlp")
+    spec = parallel.MeshSpec.build(TP_MLP["mesh"], device="cpu")
+    tr = parallel.ShardedTrainer(tp_mlp_symbol(mx.sym), spec,
+                                 **TP_MLP["hyper"])
+    shapes = {"data": (TP_MLP["batch"], TP_MLP["dim"]),
+              "softmax_label": (TP_MLP["batch"],)}
+    params, mom, aux = tr.init_state(shapes)
+    params = tr.shard_params({n: inp["p_" + n] for n in tr.param_names})
+    audit.clear_collective_log()
+    losses = []
+    for i in range(TP_MLP["steps"]):
+        params, mom, aux, loss = tr.step(params, mom, aux, {
+            "data": inp["x%d" % i], "softmax_label": inp["y%d" % i]})
+        losses.append(float(loss))
+        if i == 0:
+            first = audit.bytes_by_axis(step=1)
+    return _tp_trainer_out(tr, params, mom, losses, first)
+
+
+def tp_decode_config(dec, vocab, quantize=None):
+    return dec.DecodeConfig(vocab, TP_DEC["L"], TP_DEC["H"],
+                            TP_DEC["heads"], TP_DEC["T"],
+                            page_size=TP_DEC["page"],
+                            max_seqs=TP_DEC["S"], quantize=quantize)
+
+
+def tp_decode_tokens(vocab, seed=1):
+    S, T = TP_DEC["S"], TP_DEC["T"]
+    return np.random.RandomState(seed).randint(0, vocab, (S, T)) \
+        .astype(np.int32)
+
+
+def tp_teacher_forced(prog, kv, toks, n_active, to_np):
+    """Every position through ``prog.step`` with slots >= n_active
+    inactive; returns the stacked next tokens and logits of the active
+    slots, and the final pool."""
+    S, T, page = TP_DEC["S"], TP_DEC["T"], TP_DEC["page"]
+    pp = -(-T // page)
+    table = np.zeros((S, pp), np.int32)
+    for s in range(n_active):
+        table[s] = 1 + s * pp + np.arange(pp)
+    act = (np.arange(S) < n_active).astype(np.int32)
+    nxts, logits = [], []
+    for t in range(T):
+        pos = np.full(S, t, np.int32) * act
+        nxt, lg, kv = prog.step(
+            kv, toks[:, t], pos, (pos + 1) * act,
+            table[np.arange(S), pos // page] * act, (pos % page) * act,
+            table)
+        nxts.append(to_np(nxt)[:n_active])
+        logits.append(to_np(lg)[:n_active])
+    return np.stack(nxts), np.stack(logits), to_np(kv)
+
+
+@case
+def decode_tp(outdir):
+    """tp-2 decode programs (f32 at both vocabs, int8 and int4 at the
+    odd one), teacher-forced through every position, each rank calling
+    ``step`` alike; one step's audit trail; an export and a load under
+    the artifact's mesh."""
+    from mxnet_tpu_torch.serving import decode as dec
+    inp = _load(outdir, "dec")
+    out = {}
+    for vocab in TP_DEC["vocabs"]:
+        params = {k[len("v%d_" % vocab):]: v for k, v in inp.items()
+                  if k.startswith("v%d_" % vocab)}
+        for qz in ((None, "int8", "int4") if vocab == 29 else (None,)):
+            tag = "v%d_%s" % (vocab, qz or "f32")
+            prog = dec.DecodeProgram(params, tp_decode_config(
+                dec, vocab), quantize=qz, mesh={"tp": 2}, device="cpu",
+                name="tp-" + tag)
+            audit.clear_collective_log()
+            nxt, lg, kv = tp_teacher_forced(
+                prog, prog.fresh_cache(), tp_decode_tokens(vocab), 2,
+                lambda a: a.numpy())
+            # the last step's collectives: two a layer, and the logits'
+            n = 2 * TP_DEC["L"] + int(prog.head_split)
+            for kind, b in audit.bytes_by_axis(
+                    audit.collective_log()[-n:]).get("tp", {}).items():
+                out["audit_%s_%s" % (tag, kind)] = np.asarray(b)
+            out["axes_" + tag] = np.asarray(sorted(audit.bytes_by_axis()))
+            out.update({"next_" + tag: nxt, "logits_" + tag: lg,
+                        "kv_" + tag: kv})
+    path = os.path.join(outdir, "tp.decode")
+    prog.export(path)
+    parallel.barrier("exported")
+    back = dec.DecodeProgram.load(path, device="cpu", name="tp-loaded")
+    nxt, lg, _kv = tp_teacher_forced(back, back.fresh_cache(),
+                                     tp_decode_tokens(32), 2,
+                                     lambda a: a.numpy())
+    out.update({"next_loaded": nxt, "logits_loaded": lg,
+                "loaded_tp": np.asarray(back.tp)})
+    return out
+
+
+def tp_requests(vocab, n=6, seed=0):
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, vocab, 2 + i % 3), 8) for i in range(n)]
+
+
+@case
+def decode_tp_engine(outdir):
+    """The tp-2 engine on rank 0 (rank 1 follows): continuous batching
+    against the one-process engine's tokens, then the drill of
+    tests/test_decode.py:345 -- a swap mid-generation with no failed or
+    late request, an exec_error kill burst that sheds typed, the pool
+    drained clean, and a geometry mismatch refused."""
+    from mxnet_tpu_torch.resilience import chaos
+    from mxnet_tpu_torch.serving import decode as dec
+    inp = _load(outdir, "dec")
+    params = {k[4:]: v for k, v in inp.items() if k.startswith("v29_")}
+    cfg = tp_decode_config(dec, 29)
+    p_a = dec.DecodeProgram(params, cfg, mesh={"tp": 2}, device="cpu",
+                            name="drill-a")
+    p_b = dec.DecodeProgram(dec.init_decode_params(cfg, seed=9), cfg,
+                            mesh={"tp": 2}, device="cpu", name="drill-b")
+    if parallel.rank() != 0:
+        # one follow_engine per engine rank 0 opens
+        out = {}
+        for run in ("parity", "drill"):
+            counts = dec.follow_engine([p_a, p_b])
+            out.update({"%s_%s" % (run, k): np.asarray(v)
+                        for k, v in counts.items()})
+        return out
+    out = {}
+    with dec.DecodeEngine(p_a, default_deadline=60.0) as eng:
+        futs = [eng.submit(p, max_new_tokens=m)
+                for p, m in tp_requests(29)]
+        for i, f in enumerate(futs):
+            out["parity%d" % i] = f.result(timeout=60)[0]
+    with dec.DecodeEngine(p_a, default_deadline=30.0,
+                          breaker_threshold=100) as eng:
+        rs = np.random.RandomState(0)
+        reqs = [eng.submit(rs.randint(0, 29, 2 + i % 3), max_new_tokens=8)
+                for i in range(6)]
+        eng.swap(p_b)
+        out["swapped"] = np.asarray(eng._program is p_b)
+        ok = 0
+        for r in reqs:
+            got = r.result(timeout=30)
+            ok += int(got[0].size == 8 and r.latency <= 30.0)
+        out["ok"] = np.asarray(ok)
+        with chaos.inject("exec_error", count=50):
+            doomed = [eng.submit(rs.randint(0, 29, 3), max_new_tokens=4,
+                                 deadline=5.0) for _ in range(3)]
+            names = []
+            for r in doomed:
+                try:
+                    r.result(timeout=30)
+                    names.append("OK")
+                except Exception as e:  # noqa: BLE001 - the type is checked
+                    names.append(type(e).__name__)
+        chaos.reset()
+        out["doomed"] = np.asarray(names)
+        st = eng.stats()["decode"]
+        out["pages"] = np.asarray([st["pages_free"], st["pages_total"]])
+        cfg2 = dec.DecodeConfig(29, TP_DEC["L"], TP_DEC["H"], TP_DEC["heads"],
+                                TP_DEC["T"] * 2, page_size=TP_DEC["page"],
+                                max_seqs=TP_DEC["S"])
+        try:
+            eng.swap(dec.DecodeProgram(dec.init_decode_params(cfg2), cfg2,
+                                       device="cpu"))
+            out["mismatch"] = np.asarray("accepted")
+        except Exception as e:  # noqa: BLE001 - the type is checked
+            out["mismatch"] = np.asarray(type(e).__name__)
+        out["still_b"] = np.asarray(eng._program is p_b)
+    return out
 
 
 # -- Module.fit through dist_sync -----------------------------------------

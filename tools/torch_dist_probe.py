@@ -13,7 +13,11 @@ card 0 on a one-card machine), joins a process group of the backend named
 on the command line over the launcher's coordinator, and tries
 ``all_reduce``, ``broadcast``, ``reduce_scatter_tensor``,
 ``all_gather_into_tensor`` and ``all_to_all_single`` on CUDA tensors,
-each checked against the value it must give.  Rank 0 prints one line
+each checked against the value it must give; then the same all-reduce,
+all-gather and broadcast over a ``new_group`` subgroup of the ranks (the
+per-axis groups of a tensor-parallel mesh), and a ring exchange through
+``batch_isend_irecv`` (on host tensors for gloo, whose point-to-point
+path takes no CUDA tensor).  Rank 0 prints one line
 ``PROBE {json}``: the backend, the device count, whether the ranks share
 a card, and for each collective ``"ok"`` or the first line of its error.
 Every wait is bounded (a 60 s group timeout), so a refused communicator
@@ -68,11 +72,42 @@ def _probe(backend, rank, world, dev):
         dist.all_to_all_single(y, x)
         assert float(y[-1]) == world - 1, float(y[-1])
 
+    def subgroup():
+        g = dist.new_group(list(range(world)))
+        x = torch.full((1024,), float(rank + 1), device=dev)
+        dist.all_reduce(x, group=g)
+        assert float(x[0]) == world * (world + 1) / 2, float(x[0])
+        y = torch.empty(world * 256, device=dev)
+        dist.all_gather_into_tensor(y, torch.full((256,), float(rank),
+                                                  device=dev), group=g)
+        assert float(y[-1]) == world - 1, float(y[-1])
+        z = torch.full((64,), float(rank), device=dev)
+        dist.broadcast(z, 0, group=g)
+        assert float(z.abs().sum()) == 0.0
+
+    def batch_isend_irecv():
+        # gloo's point-to-point reads its buffer as host memory (a CUDA
+        # tensor aborts the process from gloo's thread): host tensors there
+        where = dev if backend == "nccl" else torch.device("cpu")
+        send = torch.full((256,), float(rank), device=where)
+        recv = torch.empty(256, device=where)
+        ops = [dist.P2POp(dist.isend, send, (rank + 1) % world),
+               dist.P2POp(dist.irecv, recv, (rank - 1) % world)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        assert float(recv[0]) == (rank - 1) % world, float(recv[0])
+
     for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
                      ("reduce_scatter_tensor", reduce_scatter),
                      ("all_gather_into_tensor", all_gather),
                      ("all_to_all_single", all_to_all)):
         attempt(name, fn)
+    for name, fn in (("new_group", subgroup),
+                     ("batch_isend_irecv", batch_isend_irecv)):
+        if out["all_reduce"] == "ok":
+            attempt(name, fn)
+        else:
+            out[name] = "not tried: the default group's all_reduce failed"
     return out
 
 
