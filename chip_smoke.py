@@ -395,6 +395,23 @@ Phases, in order:
     ``Module.fit`` over ``group2ctxs`` (example/model_parallel/
     two_stage.py's net) bit-equal to the unsegmented Module.
 
+40. item 7's step 2, each over one mesh axis's process group (gloo gangs
+    of 2, and 4 for (d), on one card; NCCL at n = 4 on four cards), step
+    0 asking the probe whether the backend takes ``all_to_all_single``
+    with split sizes over subgroups (the hop's form): (a) ring attention
+    in example/long_context/ring_transformer.py's block at TRAIN's widths,
+    B 1, T 16384 over sp, causal, f32 then bf16, forward and backward:
+    B1 on the diagonal block (causal) and below it (no mask), B2a/B2b
+    against the merged lse, every rank's out, dx and the parameters'
+    gradients against one process's block over the whole sequence; the
+    ring's kernels against their plain versions at T 2048 a block, timed
+    at the rank's block; (b) TRAIN's 12 blocks as 2 stages through
+    ``PipelineRunner.loss_and_grad``, 4 micro-batches of (2, 1024, 768),
+    against the blocks in sequence; (c) Switch-Base-8's FFN over ep 2,
+    8192 tokens, against ``moe_ffn_dense``, 5 SGD steps; (d) the
+    two-tier all-reduce of the LM's gradients over island 2 x dp 2
+    against the flat all-reduce, its trail against the model.
+
 Launch counters are set to 0 just before each path is driven and read
 just after it: every kernel of the path must have launched, exactly once
 per layer per step (once per matmul for the quantized ones; two grouped
@@ -8360,10 +8377,10 @@ FLASH_B12 = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
 
 
-def dist_probe(here, backend, timeout=150):
-    """tools/torch_dist_probe.py over two ranks of ``backend``: which
+def dist_probe(here, backend, timeout=150, n=2):
+    """tools/torch_dist_probe.py over ``n`` ranks of ``backend``: which
     collectives they can run on CUDA tensors (the ``PROBE`` line)."""
-    out = run_gang(here, 2, [os.path.join(here, "tools",
+    out = run_gang(here, n, [os.path.join(here, "tools",
                                           "torch_dist_probe.py"), backend],
                    backend, timeout)
     for line in out.splitlines():
@@ -9297,6 +9314,908 @@ def phase_tp(torch, mx, kernels, here, probes, card):
     return rows, launches
 
 
+# -- phase 40: ring attention, the GPipe schedule, MoE, the two-tier sum ------
+#
+# 40a: the pre-norm block of example/long_context/ring_transformer.py at
+# TRAIN's widths (hidden 768, 12 heads of 64) on B 1, T 16384, causal,
+# its attention ring-parallel over sp (8192 a rank at sp 2), f32 then
+# bf16, against one process running the block with the flash kernels
+# over the whole sequence.  40b: TRAIN's 12 blocks as S stages (6 a
+# stage at S 2) through PipelineRunner.loss_and_grad, 4 micro-batches of
+# (2, 1024, 768) f32, against the 12 blocks in sequence.  40c:
+# Switch-Base-8's FFN (d_model 768, d_ff 3072, 8 experts, top-1, ReLU;
+# Fedus et al. 2021) over ep, 16 x 512 tokens f32, against moe_ffn_dense,
+# then 5 SGD steps at capacity factor 1.25.  40d: the two-tier all-reduce
+# of the LM's gradient set over island 2 x dp 2 (4 ranks) against the flat
+# all-reduce.  On one card the gangs run on gloo (NCCL refuses two ranks
+# of one card), each hop one all_to_all_single with split sizes (the
+# probe says gloo takes it); on four cards NCCL at n = 4.
+
+RING_A = dict(B=1, T=16384, seed=40, steps=3, hops=5)
+PIPE_B = dict(micro=4, mb=2, seed=41, steps=2)
+MOE_C = dict(d=768, ff=3072, experts=8, cf=1.25, tokens=16 * 512,
+             gate_std=0.05, std=0.02, shift=0.3, aux=0.01, lr=5.0, steps=5,
+             seed=42)
+HIER_D = dict(islands=2, dp=2, seed=43)
+STEP2_TIMEOUT = 600
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def rel_err(a, b):
+    """max|a - b| over max|b|, in float32."""
+    a, b = a.detach().float(), b.detach().float()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def norm_gap(a, b, scale):
+    """||a - b|| over ||scale||, in float32."""
+    return ((a.detach().float() - b.detach().float()).norm()
+            / scale.detach().float().norm().clamp_min(1e-30)).item()
+
+
+def ring_block(torch, p, x, attn, heads):
+    """example/long_context/ring_transformer.py's pre-norm block: x +
+    attn(q, k, v) wo, then x + gelu(x w1) w2."""
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    xn = (x - x.mean(-1, keepdim=True)) / (
+        x.std(-1, keepdim=True, correction=0) + 1e-5)
+    q, k, v = ((xn @ p[w]).view(B, T, heads, D // heads)
+               for w in ("wq", "wk", "wv"))
+    x = x + attn(q, k, v).reshape(B, T, D) @ p["wo"]
+    return x + F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+def ring_params(hidden, seed):
+    rs = np.random.RandomState(seed)
+    shapes = {"wq": (hidden, hidden), "wk": (hidden, hidden),
+              "wv": (hidden, hidden), "wo": (hidden, hidden),
+              "w1": (hidden, 4 * hidden), "w2": (4 * hidden, hidden)}
+    return {k: rs.normal(0, 0.02, s).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def causal_attention_f64(torch, q, k, v, chunk=512):
+    """Causal softmax attention over (B, T, H, D) in float64, ``chunk``
+    queries at a time against the keys up to the chunk's end, each chunk
+    recomputed in the backward (one (T, T) float64 score set at T 16384
+    would take 26 GB)."""
+    import math
+    from torch.utils.checkpoint import checkpoint
+    T, D = q.shape[1], q.shape[3]
+
+    def rows(qc, k, v, s):
+        end = s + qc.shape[1]
+        sc = torch.einsum("bqhd,bkhd->bhqk", qc, k[:, :end]) / math.sqrt(D)
+        qi = torch.arange(s, end, device=q.device)[:, None]
+        ki = torch.arange(end, device=q.device)[None]
+        sc = sc.masked_fill(ki > qi, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v[:, :end])
+
+    return torch.cat([checkpoint(rows, q[:, s:s + chunk], k, v, s,
+                                 use_reentrant=False)
+                      for s in range(0, T, chunk)], 1)
+
+
+def ring_witness(torch, host, x_host, heads, dev):
+    """40a's block over the whole sequence in float64 (the witness the f32
+    ring and the f32 one-process run are each measured against): the
+    output, dx and every parameter's gradient."""
+    B, T, D = x_host.shape
+    pw = {k: torch.from_numpy(v).to(dev, torch.float64).requires_grad_()
+          for k, v in host.items()}
+    xw = torch.from_numpy(x_host).to(dev, torch.float64).requires_grad_()
+    y = ring_block(torch, pw, xw, lambda q, k, v: causal_attention_f64(
+        torch, q, k, v), heads)
+    ((y ** 2).sum() / (B * T * D)).backward()
+    out = {"out": y.detach(), "dx": xw.grad}
+    out.update({"d" + k: p.grad for k, p in pw.items()})
+    return out
+
+
+def rel_err64(a, b):
+    """max|a - b| over max|b|, ``b`` float64."""
+    return (a.detach().double() - b).abs().max().item() / max(
+        b.abs().max().item(), 1e-300)
+
+
+def ring_rank(torch, parallel, n, cfg=None, widths=None, dev=None):
+    """40a on one rank: the block's forward and backward with its
+    attention ring-parallel over sp, f32 then bf16 (the main path: one
+    step with the launches counted, then ``steps`` timed), the hop alone
+    timed; against the block over the whole sequence with
+    ``kernels.flash_attention`` in this process (this rank's out and dx
+    shards, every parameter's whole gradient)."""
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import MeshSpec, audit, comm
+    A = dict(RING_A, **(cfg or {}))
+    W = dict(TRAIN, **(widths or {}))
+    spec = MeshSpec.build({"sp": n}, device=dev)
+    dev = spec.device
+    r = spec.mesh.axis_index("sp")
+    B, T, D, H = A["B"], A["T"], W["hidden"], W["heads"]
+    Tl = T // n
+    host = ring_params(D, A["seed"])
+    x_host = np.random.RandomState(A["seed"] + 1).normal(
+        0, 1, (B, T, D)).astype(np.float32)
+    out = {"rank": r, "n": n, "T": T, "hop_bytes": {}}
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        params = {k: torch.from_numpy(v).to(dev, dt).requires_grad_()
+                  for k, v in host.items()}
+        xl = torch.from_numpy(x_host[:, r * Tl:(r + 1) * Tl].copy()).to(
+            dev, dt).requires_grad_()
+
+        def attn(q, k, v):
+            return parallel.ring_attention(q, k, v, spec, axis="sp",
+                                           causal=True)
+
+        def step():
+            for t in list(params.values()) + [xl]:
+                t.grad = None
+            pr = {k: comm.replicated_input(p, "sp", spec)
+                  for k, p in params.items()}
+            y = ring_block(torch, pr, xl, attn, H)
+            loss = (y.float() ** 2).sum() / (B * T * D)
+            loss.backward()
+            return y.detach(), loss.detach()
+
+        kernels.reset_launches()
+        audit.clear_collective_log()
+        _sync(torch, dev)
+        y, loss = step()
+        _sync(torch, dev)
+        res = {"launches": dict(kernels.LAUNCHES),
+               "audit": audit.bytes_by_axis(),
+               "collectives": len(audit.collective_log())}
+        times = []
+        for _ in range(A["steps"]):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            step()
+            _sync(torch, dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        # the hop alone: k and v of one block, stacked, to the neighbour
+        kv = torch.zeros((2, B, Tl, H, D // H), dtype=dt, device=dev)
+        group = spec.mesh.group("sp")
+        hop_ms = []
+        for _ in range(A["hops"]):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            comm.ppermute_start(kv, comm.ring_perm(n), group, "sp",
+                                "phase 40a hop").wait()
+            _sync(torch, dev)
+            hop_ms.append((time.perf_counter() - t0) * 1e3)
+        out["hop_bytes"][dtype] = kv.numel() * kv.element_size()
+        # the whole sequence in this process
+        pw = {k: torch.from_numpy(v).to(dev, dt).requires_grad_()
+              for k, v in host.items()}
+        xw = torch.from_numpy(x_host).to(dev, dt).requires_grad_()
+        yw = ring_block(torch, pw, xw, lambda q, k, v: kernels.flash_attention(
+            q, k, v, causal=True), H)
+        lw = (yw.float() ** 2).sum() / (B * T * D)
+        lw.backward()
+        mine = slice(r * Tl, (r + 1) * Tl)
+        got = {"out": y, "dx": xl.grad}
+        got.update({"d" + k: p.grad for k, p in params.items()})
+        want = {"out": yw.detach()[:, mine], "dx": xw.grad[:, mine]}
+        want.update({"d" + k: p.grad for k, p in pw.items()})
+        res["err"] = {k: rel_err(got[k], want[k]) for k in got}
+        if dtype == "float32":
+            refs = {k: v.float().clone() for k, v in want.items()}
+            del pw, xw, yw, want
+            # which of the two f32 results is nearer the exact value
+            w64 = ring_witness(torch, host, x_host, H, dev)
+            w64["out"], w64["dx"] = w64["out"][:, mine], w64["dx"][:, mine]
+            res["err64"] = {k: rel_err64(got[k], w64[k]) for k in got}
+            res["proc_err64"] = {k: rel_err64(refs[k], w64[k]) for k in got}
+            del w64
+        else:
+            # each tensor's distance from the one-process bf16 run against
+            # that run's own distance from the f32 run, norm-wise
+            res["gap"] = {k: norm_gap(got[k], want[k], refs[k]) for k in got}
+            res["own_gap"] = {k: norm_gap(want[k], refs[k], refs[k])
+                              for k in got}
+        res.update(step_ms=times, hop_ms=hop_ms, loss=loss.item(),
+                   loss_whole=lw.item())
+        out[dtype] = res
+        del params, y, xl
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def lm_layer(torch, hidden, layer, seed, dev):
+    """One GPT-2 block's parameters, from a seed per layer."""
+    g = torch.Generator().manual_seed(seed * 1000 + layer)
+    D = hidden
+
+    def normal(*shape, std=0.02):
+        return (torch.randn(shape, generator=g) * std).to(dev)
+
+    return {"ln1_g": 1 + normal(D), "ln1_b": normal(D),
+            "wqkv": normal(D, 3 * D), "bqkv": normal(3 * D),
+            "wo": normal(D, D), "bo": normal(D),
+            "ln2_g": 1 + normal(D), "ln2_b": normal(D),
+            "w1": normal(D, 4 * D), "b1": normal(4 * D),
+            "w2": normal(4 * D, D), "b2": normal(D)}
+
+
+def lm_block(torch, kernels, p, x, heads):
+    """GPT-2's pre-LN block, its attention causal on the flash kernels."""
+    import torch.nn.functional as F
+    B, T, D = x.shape
+    h = F.layer_norm(x, (D,), p["ln1_g"], p["ln1_b"])
+    q, k, v = (h @ p["wqkv"] + p["bqkv"]).view(B, T, 3, heads,
+                                               D // heads).unbind(2)
+    a = kernels.flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=True)
+    x = x + a.reshape(B, T, D) @ p["wo"] + p["bo"]
+    h = F.layer_norm(x, (D,), p["ln2_g"], p["ln2_b"])
+    return x + F.gelu(h @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] \
+        + p["b2"]
+
+
+def pipe_rank(torch, parallel, n, cfg=None, widths=None, dev=None):
+    """40b on one rank: TRAIN's blocks as n stages through
+    ``PipelineRunner.loss_and_grad`` (the main path: one call with the
+    launches counted, then ``steps`` timed); against the blocks in
+    sequence over each micro-batch in this process (the loss, and this
+    stage's gradients)."""
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import MeshSpec, PipelineRunner, audit
+    C = dict(PIPE_B, **(cfg or {}))
+    W = dict(TRAIN, **(widths or {}))
+    spec = MeshSpec.build({"pp": n}, device=dev)
+    dev = spec.device
+    s = spec.mesh.axis_index("pp")
+    L, D, H, T = W["num_layers"], W["hidden"], W["heads"], W["seq_len"]
+    per = L // n
+    layers = [lm_layer(torch, D, i, C["seed"], dev) for i in range(L)]
+    mine = {k: torch.stack([layers[s * per + i][k] for i in range(per)])
+            for k in layers[0]}
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x = lm_block(torch, kernels, {k: v[i] for k, v in p.items()}, x,
+                         H)
+        return x
+
+    g = torch.Generator().manual_seed(C["seed"])
+    M, mb = C["micro"], C["mb"]
+    x = torch.randn((M, mb, T, D), generator=g).to(dev)
+    y = torch.randn((M, mb, T, D), generator=g).to(dev)
+
+    def mse(pred, tgt):
+        return torch.mean((pred - tgt) ** 2)
+
+    runner = PipelineRunner(stage_fn, n, spec, axis="pp")
+    kernels.reset_launches()
+    audit.clear_collective_log()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    loss, grads = runner.loss_and_grad(mse, mine, x, y)
+    _sync(torch, dev)
+    first = (time.perf_counter() - t0) * 1e3
+    out = {"stage": s, "n": n, "launches": dict(kernels.LAUNCHES),
+           "first_ms": first, "ticks": M + 2 * (n - 1), "per_stage": per}
+    trail = audit.collective_log()
+    out["audit_fwd"] = audit.bytes_by_axis(
+        [e for e in trail if not e["tag"].endswith("backward")])
+    out["audit_bwd"] = audit.bytes_by_axis(
+        [e for e in trail if e["tag"].endswith("backward")])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 \
+        if dev.type == "cuda" else None
+    times = []
+    for _ in range(C["steps"]):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        runner.loss_and_grad(mse, mine, x, y)
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    # the blocks in sequence, micro-batch by micro-batch
+    leaves = [{k: v.clone().requires_grad_() for k, v in lay.items()}
+              for lay in layers]
+    preds = []
+    for m in range(M):
+        h = x[m]
+        for lay in leaves:
+            h = lm_block(torch, kernels, lay, h, H)
+        preds.append(h)
+    ref = mse(torch.stack(preds), y)
+    ref.backward()
+    errs = {}
+    for k in mine:
+        for i in range(per):
+            errs["l%d_%s" % (s * per + i, k)] = rel_err(
+                grads[k][i], leaves[s * per + i][k].grad)
+    worst = max(errs, key=errs.get)
+    out.update(loss=loss.item(), ref_loss=ref.item(), step_ms=times,
+               worst=errs[worst], worst_name=worst, tensors=len(errs),
+               exact=sum(e == 0 for e in errs.values()))
+    return out
+
+
+def moe_weights(torch, C, dev):
+    g = torch.Generator().manual_seed(C["seed"])
+    d, ff, E, N = C["d"], C["ff"], C["experts"], C["tokens"]
+    # tokens that share a mean direction (as a trained model's hidden
+    # states do) load the experts unevenly: some overflow at 1.25
+    x = torch.randn((N, d), generator=g) + C["shift"] * torch.randn(
+        (d,), generator=g)
+    wg = torch.randn((d, E), generator=g) * C["gate_std"]
+    w1 = torch.randn((E, d, ff), generator=g) * C["std"]
+    w2 = torch.randn((E, ff, d), generator=g) * C["std"]
+    tgt = torch.randn((N, d), generator=g) * 0.1
+    return [t.to(dev) for t in (x, wg, w1, w2, tgt)]
+
+
+def moe_rank(torch, parallel, n, cfg=None, dev=None):
+    """40c on one rank: at capacity factor 8 (no drops) out and every
+    gradient against ``moe_ffn_dense`` over all tokens in this process; at
+    1.25 the dropped rows 0 and the others equal, one call's audit trail;
+    then ``steps`` SGD steps of the regression at 1.25 (each rank's loss
+    its tokens' part plus the replicated aux term)."""
+    import math
+    from mxnet_tpu_torch.parallel import MeshSpec, audit, moe
+    C = dict(MOE_C, **(cfg or {}))
+    spec = MeshSpec.build({"ep": n}, device=dev)
+    dev = spec.device
+    r = spec.mesh.axis_index("ep")
+    x, wg, w1, w2, tgt = moe_weights(torch, C, dev)
+    N, E, d = C["tokens"], C["experts"], C["d"]
+    tl, el = N // n, E // n
+    rows, exp = slice(r * tl, (r + 1) * tl), slice(r * el, (r + 1) * el)
+    out = {"rank": r, "n": n}
+
+    def leaves(*ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+
+    # capacity factor 8: nothing dropped, so the dense result
+    xs, g1, a1, b1 = leaves(x[rows], wg, w1[exp], w2[exp])
+    o, _aux = parallel.moe_ffn(xs, g1, a1, b1, spec, capacity_factor=8.0)
+    (o ** 2).sum().div(N).backward()
+    xd, gd, ad, bd = leaves(x, wg, w1, w2)
+    od, _ = moe.moe_ffn_dense(xd, gd, ad, bd)
+    (od ** 2).sum().div(N).backward()
+    out["err_cf8"] = {
+        "out": rel_err(o, od[rows]), "dx": rel_err(xs.grad, xd.grad[rows]),
+        "dwg": rel_err(g1.grad, gd.grad), "dw1": rel_err(a1.grad,
+                                                          ad.grad[exp]),
+        "dw2": rel_err(b1.grad, bd.grad[exp])}
+    # capacity factor 1.25: dropped rows are 0, the rest the dense rows
+    audit.clear_collective_log()
+    with torch.no_grad():
+        o = parallel.moe_ffn(x[rows], wg, w1[exp], w2[exp], spec,
+                             capacity_factor=C["cf"])[0]
+    out["audit"] = audit.bytes_by_axis()
+    out["calls"] = [e["kind"] for e in audit.collective_log()]
+    out["capacity"] = int(math.ceil(tl * C["cf"] / E))
+    dropped = (o == 0).all(dim=1)
+    out["dropped"] = int(dropped.sum())
+    # the tokens the routing must drop, in plain code: each token's argmax
+    # expert, its 1-based place among this shard's tokens of that expert,
+    # dropped past the capacity
+    with torch.no_grad():
+        chosen = torch.softmax(x[rows] @ wg, dim=-1).argmax(dim=-1).tolist()
+    seen, want = [0] * E, []
+    for e in chosen:
+        seen[e] += 1
+        want.append(seen[e] > out["capacity"])
+    want = torch.tensor(want, device=dev)
+    out["want_dropped"] = int(want.sum())
+    out["dropped_as_routed"] = bool(torch.equal(dropped, want))
+    out["err_kept"] = rel_err(o[~dropped], od.detach()[rows][~dropped])
+    # training at 1.25
+    xs = x[rows]
+    g1, a1, b1 = leaves(wg, w1[exp], w2[exp])
+    losses, parts, times = [], [], []
+    for i in range(C["steps"] + 1):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for t in (g1, a1, b1):
+            t.grad = None
+        o, aux = parallel.moe_ffn(xs, g1, a1, b1, spec,
+                                  capacity_factor=C["cf"])
+        part = ((o - tgt[rows]) ** 2).sum() / (N * d)
+        (part + C["aux"] * aux).backward()
+        if i < C["steps"]:
+            with torch.no_grad():
+                for t in (g1, a1, b1):
+                    t -= C["lr"] * t.grad
+        _sync(torch, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        parts.append(part.item())
+        losses.append(aux.item())
+    out.update(parts=parts, aux=losses, step_ms=times[1:-1],
+               wg_digest=digest({"wg": g1.detach().cpu().numpy()}),
+               a2a_bytes=2 * E * out["capacity"] * d * 4)
+    return out
+
+
+def lm_grad_shapes(get_symbol):
+    """The shapes of the LM's (TRAIN) parameters, in argument order."""
+    net = get_symbol(**TRAIN)
+    shapes = {"data": (1, TRAIN["seq_len"]),
+              "softmax_label": (1, TRAIN["seq_len"])}
+    args, _, _ = net.infer_shape(**shapes)
+    return [tuple(s) for a, s in zip(net.list_arguments(), args)
+            if a not in shapes]
+
+
+def hier_rank(torch, parallel, shapes=None, dev=None):
+    """40d on one rank of island 2 x dp 2: the two-tier all-reduce of a
+    gradient set (the LM's) against the flat all-reduce, on integer-valued
+    data (bit-equal) and on normal data (within rounding), each call's
+    audit trail against ``hierarchical_allreduce_model_bytes``."""
+    from mxnet_tpu_torch.models.transformer import get_symbol
+    from mxnet_tpu_torch.parallel import MeshSpec, audit
+    C = HIER_D
+    spec = MeshSpec.build({"island": C["islands"], "dp": C["dp"]},
+                          device=dev)
+    dev = spec.device
+    r = parallel.rank()
+    shapes = shapes or lm_grad_shapes(get_symbol)
+    gen = torch.Generator(device=dev).manual_seed(C["seed"] + r)
+    normal = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    ints = [torch.randint(-1000, 1000, s, generator=gen, device=dev).float()
+            for s in shapes]
+    model = {}
+    for s in shapes:
+        m = audit.hierarchical_allreduce_model_bytes(
+            4 * int(np.prod(s)), C["islands"], C["dp"])
+        for kind, axis in (("reduce-scatter", "dp"), ("all-reduce", "island"),
+                           ("all-gather", "dp")):
+            model.setdefault(axis, {})
+            model[axis][kind] = model[axis].get(kind, 0) + m[kind]
+    out = {"rank": r, "tensors": len(shapes),
+           "bytes": 4 * sum(int(np.prod(s)) for s in shapes), "model": model}
+    times = {}
+    for tag, vals in (("ints", ints), ("normal", normal)):
+        audit.clear_collective_log()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        hier = parallel.hierarchical_grad_allreduce(vals, spec)
+        _sync(torch, dev)
+        times["hier_" + tag] = (time.perf_counter() - t0) * 1e3
+        out["audit_" + tag] = audit.bytes_by_axis()
+        t0 = time.perf_counter()
+        flat = [parallel.flat_allreduce(v, spec) for v in vals]
+        _sync(torch, dev)
+        times["flat_" + tag] = (time.perf_counter() - t0) * 1e3
+        if tag == "ints":
+            out["ints_equal"] = all(torch.equal(a, b)
+                                    for a, b in zip(hier, flat))
+        else:
+            # each order of a 4-term sum is within 3u of sum|v|: the two
+            # within 6u
+            u = 2.0 ** -24
+            worst = 0.0
+            for a, b, v in zip(hier, flat, vals):
+                bound = 6 * u * parallel.flat_allreduce(v.abs(), spec)
+                worst = max(worst, ((a - b).abs() / bound.clamp_min(
+                    1e-30)).max().item())
+            out["normal_ratio"] = worst
+            out["normal_equal"] = sum(torch.equal(a, b)
+                                      for a, b in zip(hier, flat))
+        del hier, flat
+    out["ms"] = times
+    return out
+
+
+def step2_worker(torch, parallel, which):
+    """``chip_smoke.py --dist-worker 40|40d OUTDIR`` on one rank."""
+    n = parallel.world_size()
+    if which == "40d":
+        return {"d": hier_rank(torch, parallel)}
+    res = {"a": ring_rank(torch, parallel, n)}
+    torch.cuda.empty_cache()
+    res["b"] = pipe_rank(torch, parallel, n)
+    torch.cuda.empty_cache()
+    res["c"] = moe_rank(torch, parallel, n)
+    return res
+
+
+def ring_launch_want(r, n):
+    """B1 / B2a / B2b launches a causal ring step gives rank r of n: the
+    diagonal block and the r blocks below it."""
+    return r + 1
+
+
+def phase_ring(torch, res, backend, card):
+    """40a's checks and report; returns the launches summed over the
+    ranks, by dtype."""
+    n, T = res[0]["n"], res[0]["T"]
+    total = {}
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        for g in res:
+            got, r = g[dtype], g["rank"]
+            for key in FLASH_B12:
+                want = ring_launch_want(r, n)
+                check(got["launches"].get(key + sfx) == want,
+                      "40a %s rank %d: %s launched %s times in one step, "
+                      "want %d" % (dtype, r, key + sfx,
+                                   got["launches"].get(key + sfx), want))
+            check(set(got["audit"]) == {"sp"}, "40a %s rank %d: collectives "
+                  "on %s" % (dtype, r, sorted(got["audit"])))
+            # the forward's n-1 k/v hops, the backward's n-1 k/v and n
+            # dk/dv hops, and one all-reduce per parameter gradient
+            check(got["collectives"] == 3 * n - 2 + 6, "40a %s rank %d: %d "
+                  "collectives in a step" % (dtype, r, got["collectives"]))
+            if dtype == "float32":
+                # the output within 1e-4 of its largest; each gradient, a
+                # sum over 16384 tokens split at the rank's block, within
+                # 1e-3 of its largest (39a's bar for sums in another order)
+                bad = {k: v for k, v in got["err"].items()
+                       if v > (1e-4 if k == "out" else 1e-3)}
+                check(not bad, "40a f32 rank %d: against one process %s "
+                      "(all: %s)" % (r, bad, got["err"]))
+                # against the float64 witness: within 1e-4 of the largest
+                # (the bar against one process before the witness), or no
+                # farther than twice the one-process f32 run
+                far = {k: (v, got["proc_err64"][k]) for k, v in
+                       got["err64"].items()
+                       if v > max(1e-4, 2 * got["proc_err64"][k])}
+                check(not far, "40a f32 rank %d: from the float64 witness "
+                      "(ring, one process) %s" % (r, far))
+            else:
+                bad = {k: (v, got["own_gap"][k]) for k, v in
+                       got["gap"].items() if v > 3 * got["own_gap"][k]}
+                check(not bad, "40a bf16 rank %d: norm-wise gaps (ring, "
+                      "own bf16-vs-f32) %s" % (r, bad))
+            for k, v in got["launches"].items():
+                total[k] = total.get(k, 0) + v
+        r0 = res[0][dtype]
+        lw = [g[dtype]["loss"] for g in res]
+        log("40a ring attention over sp %d on %s, backend %s, hop as one "
+            "all_to_all_single with split sizes: the ring_transformer block "
+            "at hidden %d, %d heads, B %d, T %d (%d a rank), causal, %s: "
+            "step ms (forward + backward + 6 gradient all-reduces) rank 0 %s, "
+            "rank %d %s; hop %.1f MB (k and v of one block), %s ms alone "
+            "(rank 0); launches a step B1/B2a/B2b %s by rank; against one "
+            "process over the whole sequence: %s; loss parts %s sum %.6f, "
+            "one process %.6f [%s]"
+            % (n, "one card" if torch.cuda.device_count() == 1 else
+               "%d cards" % torch.cuda.device_count(), backend,
+               TRAIN["hidden"], TRAIN["heads"], RING_A["B"], T, T // n,
+               dtype, ", ".join("%.1f" % t for t in r0["step_ms"]), n - 1,
+               ", ".join("%.1f" % t for t in res[-1][dtype]["step_ms"]),
+               res[0]["hop_bytes"][dtype] / 1e6,
+               ", ".join("%.2f" % t for t in r0["hop_ms"]),
+               [ring_launch_want(g["rank"], n) for g in res],
+               ("max err over max|ref| (bars: out 1e-4, gradients 1e-3) "
+                + json.dumps({k: float("%.3g" % max(g[dtype]["err"][k]
+                                                     for g in res))
+                              for k in r0["err"]})
+                + "; from a float64 witness over the whole sequence, ring / "
+                "one process (bar: 1e-4 or twice the one process) "
+                + json.dumps({k: "%.3g / %.3g" % (
+                    max(g[dtype]["err64"][k] for g in res),
+                    max(g[dtype]["proc_err64"][k] for g in res))
+                    for k in r0["err64"]})) if dtype == "float32"
+               else
+               ("norm-wise gap / own bf16-vs-f32 gap " + json.dumps(
+                   {k: "%.3g / %.3g" % (max(g[dtype]["gap"][k] for g in res),
+                                        r0["own_gap"][k])
+                    for k in r0["gap"]})),
+               ["%.6f" % v for v in lw], sum(lw), r0["loss_whole"], card))
+    return total
+
+
+def phase_pipe(torch, res, backend, card):
+    """40b's checks and report; returns the launches summed over the
+    ranks."""
+    n = res[0]["n"]
+    total = {}
+    for g in res:
+        s, ticks, per = g["stage"], g["ticks"], g["per_stage"]
+        for key in FLASH_B12:
+            check(g["launches"].get(key) == per * ticks,
+                  "40b stage %d: %s launched %s times, want %d layers x %d "
+                  "ticks" % (s, key, g["launches"].get(key), per, ticks))
+        check(set(g["audit_fwd"]) == {"pp"} and set(g["audit_bwd"]) <= {"pp"},
+              "40b stage %d: collectives on %s / %s"
+              % (s, sorted(g["audit_fwd"]), sorted(g["audit_bwd"])))
+        mb = PIPE_B["mb"] * TRAIN["seq_len"] * TRAIN["hidden"] * 4
+        want = {"collective-permute": mb * ticks,
+                "all-reduce": mb * PIPE_B["micro"]}
+        check(g["audit_fwd"]["pp"] == want, "40b stage %d: forward trail %s, "
+              "pipeline.py:120-121 counts %s" % (s, g["audit_fwd"]["pp"],
+                                                 want))
+        check(g["worst"] <= 1e-3, "40b stage %d: gradient %s differs from "
+              "the blocks in sequence by %.3g of its largest"
+              % (s, g["worst_name"], g["worst"]))
+        check(abs(g["loss"] - g["ref_loss"]) <= 1e-5 * abs(g["ref_loss"]),
+              "40b stage %d: loss %.7f, in sequence %.7f"
+              % (s, g["loss"], g["ref_loss"]))
+        for k, v in g["launches"].items():
+            total[k] = total.get(k, 0) + v
+    r0 = res[0]
+    log("40b GPipe over pp %d on %s, backend %s: TRAIN's %d blocks as %d "
+        "stages of %d, %d micro-batches of (%d, %d, %d) f32, %d ticks, "
+        "through PipelineRunner.loss_and_grad: first call %.1f ms, then %s "
+        "ms (rank 0); peak %s GB a rank; forward hops %.1f MB and output "
+        "all-reduce %.1f MB a rank (pipeline.py:120-121's count), backward "
+        "hops %.1f MB; loss %.7f (in sequence %.7f); worst gradient within "
+        "%.3g of its largest (%s; %s of %d tensors a stage bit-equal); "
+        "B1/B2a/B2b %d launches a stage [%s]"
+        % (n, "one card" if torch.cuda.device_count() == 1 else
+           "%d cards" % torch.cuda.device_count(), backend,
+           TRAIN["num_layers"], n, r0["per_stage"], PIPE_B["micro"],
+           PIPE_B["mb"], TRAIN["seq_len"], TRAIN["hidden"], r0["ticks"],
+           r0["first_ms"], ", ".join("%.1f" % t for t in r0["step_ms"]),
+           ", ".join("%.2f" % g["peak_gb"] for g in res),
+           r0["audit_fwd"]["pp"]["collective-permute"] / 1e6,
+           r0["audit_fwd"]["pp"]["all-reduce"] / 1e6,
+           r0["audit_bwd"].get("pp", {}).get("collective-permute", 0) / 1e6,
+           r0["loss"], r0["ref_loss"], max(g["worst"] for g in res),
+           max(res, key=lambda g: g["worst"])["worst_name"],
+           [g["exact"] for g in res], r0["tensors"],
+           r0["per_stage"] * r0["ticks"], card))
+    return total
+
+
+def phase_moe(torch, res, backend, card):
+    """40c's checks and report."""
+    C = MOE_C
+    n = res[0]["n"]
+    for g in res:
+        r = g["rank"]
+        bad = {k: v for k, v in g["err_cf8"].items()
+               if v > (1e-4 if k == "out" else 1e-3)}
+        check(not bad, "40c rank %d: at capacity factor 8, against "
+              "moe_ffn_dense %s (all: %s)" % (r, bad, g["err_cf8"]))
+        check(g["err_kept"] <= 1e-4, "40c rank %d: kept rows at %.2f differ "
+              "from dense by %.3g" % (r, C["cf"], g["err_kept"]))
+        check(g["dropped_as_routed"], "40c rank %d: at %.2f the zero rows "
+              "(%d) are not the tokens past their expert's capacity in "
+              "plain routing (%d)" % (r, C["cf"], g["dropped"],
+                                      g["want_dropped"]))
+        check(g["calls"] == ["all-to-all", "all-to-all", "all-reduce"] and
+              g["audit"] == {"ep": {"all-to-all": g["a2a_bytes"],
+                                    "all-reduce": 4}},
+              "40c rank %d: one call's trail %s %s, moe.py:141 says "
+              "2 all-to-all of %d bytes in all and a 4-byte all-reduce"
+              % (r, g["calls"], g["audit"], g["a2a_bytes"]))
+        check(g["wg_digest"] == res[0]["wg_digest"], "40c: the replicated "
+              "gate differs between ranks after %d steps" % C["steps"])
+    losses = [sum(g["parts"][i] for g in res) + C["aux"] * res[0]["aux"][i]
+              for i in range(C["steps"] + 1)]
+    check(losses[-1] < losses[0], "40c: the loss did not fall: %s" % losses)
+    r0 = res[0]
+    log("40c Switch-Base-8 FFN over ep %d on %s, backend %s: d_model %d, "
+        "d_ff %d, %d experts (%d a rank), top-1, ReLU, %d tokens (%d a "
+        "rank), f32: at capacity factor 8 out, dx, dwg, dw1, dw2 within %s "
+        "of moe_ffn_dense's largest (bars: out 1e-4, gradients 1e-3); at "
+        "%.2f (capacity %d) %s tokens dropped by rank, rows 0, exactly "
+        "those past their expert's capacity in plain routing (%s), the rest "
+        "within %.3g; one call: 2 "
+        "all-to-all, %.2f MB in all, and a 4-byte all-reduce (moe.py:141); "
+        "%d SGD steps (lr %g): loss %s; step ms %s (rank 0) [%s]"
+        % (n, "one card" if torch.cuda.device_count() == 1 else
+           "%d cards" % torch.cuda.device_count(), backend, C["d"], C["ff"],
+           C["experts"], C["experts"] // n, C["tokens"], C["tokens"] // n,
+           json.dumps({k: float("%.3g" % max(g["err_cf8"][k] for g in res))
+                       for k in r0["err_cf8"]}), C["cf"], r0["capacity"],
+           [g["dropped"] for g in res], [g["want_dropped"] for g in res],
+           max(g["err_kept"] for g in res),
+           r0["a2a_bytes"] / 1e6, C["steps"], C["lr"],
+           ["%.6f" % v for v in losses],
+           ", ".join("%.1f" % t for t in r0["step_ms"]), card))
+
+
+def phase_hier(torch, res, backend, card):
+    """40d's checks and report."""
+    for g in res:
+        r = g["rank"]
+        for tag in ("ints", "normal"):
+            check(g["audit_" + tag] == g["model"], "40d rank %d %s: trail "
+                  "%s, hierarchical_allreduce_model_bytes %s"
+                  % (r, tag, g["audit_" + tag], g["model"]))
+        check(g["ints_equal"], "40d rank %d: the two-tier sum of "
+              "integer-valued data differs from the flat all-reduce" % r)
+        check(g["normal_ratio"] <= 1.0, "40d rank %d: the two-tier sum is "
+              "%.3g of 6u sum|v| from the flat one" % (r, g["normal_ratio"]))
+    r0 = res[0]
+    log("40d two-tier all-reduce over island %d x dp %d (4 ranks on %s, "
+        "backend %s) of the LM's %d gradients (%.1f MB f32 a rank): "
+        "integer-valued data bit-equal to flat_allreduce; normal data "
+        "within %.3g of the 6u sum|v| bound (%d of %d tensors bit-equal); "
+        "each rank's trail by axis = hierarchical_allreduce_model_bytes "
+        "%s; ms (rank 0; the ints pass runs first and meets each group's "
+        "first collective) %s [%s]"
+        % (HIER_D["islands"], HIER_D["dp"], "one card" if
+           torch.cuda.device_count() == 1 else "%d cards" %
+           torch.cuda.device_count(), backend, r0["tensors"],
+           r0["bytes"] / 1e6, max(g["normal_ratio"] for g in res),
+           r0["normal_equal"], r0["tensors"], json.dumps(r0["model"]),
+           json.dumps({k: round(v, 1) for k, v in r0["ms"].items()}), card))
+
+
+def ring_kernel_rows(torch, kernels, F, n, card):
+    """B1 / B2a / B2b as a ring rank runs them, f32 and bf16, on a
+    two-block problem at 40a's block (T / n a rank): the diagonal block
+    causal, the one below it unmasked, dQ and dK/dV against the merged lse
+    and delta.  Each is held against its plain version on the same inputs,
+    then timed with the plain versions and SDPA beside them."""
+    from mxnet_tpu_torch.parallel import ring
+    dev = torch.device("cuda")
+    H, D = TRAIN["heads"], TRAIN["hidden"] // TRAIN["heads"]
+    B, T = RING_A["B"], RING_A["T"] // n
+    rows = []
+
+    def problem(dt):
+        """q of block 1, k/v of blocks 0 and 1, dO; the merged out, lse and
+        delta from the kernels' forward, as the ring makes them."""
+        g = torch.Generator(device=dev).manual_seed(T)
+        q, k0, v0, k1, v1, do = (torch.randn((B, T, H, D), generator=g,
+                                             device=dev).to(dt)
+                                 for _ in range(6))
+        o, lse = ring._merge(None, None,
+                             *kernels.flash_attention_fwd(q, k0, v0, False))
+        o, lse = ring._merge(o, lse,
+                             *kernels.flash_attention_fwd(q, k1, v1, True))
+        o = o.to(dt)
+        return q, (k0, v0, False), (k1, v1, True), do, o, lse, \
+            kernels.flash_delta(o, do)
+
+    def compare(dtype, q, k, v, do, lse, delta, causal):
+        """Each kernel's max_abs_err against its plain version and the
+        error over its tolerance (those of phases 6 and 20)."""
+        out, ls = kernels.flash_attention_fwd(q, k, v, causal)
+        ref, ref_ls = kernels.flash_attention_fwd_plain(q, k, v, causal)
+        dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 causal)
+        rq = kernels.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  causal)
+        rk, rv = kernels.flash_attention_bwd_dkv_plain(q, k, v, do, lse,
+                                                       delta, causal)
+        torch.cuda.synchronize()
+        pairs = (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))
+        if dtype == "float32":
+            e = {"out": (out - ref).abs().max().item(),
+                 "lse": (ls - ref_ls).abs().max().item()}
+            t = {"out": 1e-5, "lse": 1e-5}
+            for nm, a, b in pairs:
+                e[nm] = (a - b).abs().max().item()
+                t[nm] = 1e-4 * max(1.0, b.abs().max().item())
+            return e, {x: e[x] / t[x] for x in e}
+        ratio = {"out": lowp_close(torch, out, ref, 1e-5)}
+        lse_e = (ls - ref_ls).abs().max().item()
+        ratio["lse"] = (lse_e / (1e-5 * max(1.0, ref_ls.abs().max().item())),
+                        lse_e)
+        for nm, a, b in pairs:
+            ratio[nm] = lowp_close(torch, a, b, 1e-4)
+        return ({x: r_[1] for x, r_ in ratio.items()},
+                {x: r_[0] for x, r_ in ratio.items()})
+
+    for dtype, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        dt = getattr(torch, dtype)
+        q, below, diag, do, o, lse, delta = problem(dt)
+        errs = {}
+        for mask, (k, v, causal) in (("below", below), ("diagonal", diag)):
+            e, ratio = compare(dtype, q, k, v, do, lse, delta, causal)
+            log("40 ring kernels %s %s block at T %d a block: max_abs_err %s, "
+                "error/tolerance %s (tolerances as phases 6 and 20; dQ, dK/dV "
+                "read the two blocks' merged lse and delta)"
+                % (dtype, mask, T,
+                   ", ".join("%s %.3g" % kv for kv in e.items()),
+                   ", ".join("%s %.3g" % kv for kv in ratio.items())))
+            check(all(x <= 1.0 for x in ratio.values()), "40: the ring's %s "
+                  "%s block disagrees with the plain versions" % (dtype, mask))
+            errs[mask] = e
+        torch.cuda.empty_cache()
+        timer, slow = Timer(torch), Timer(torch, iters=5)
+        qt = q.transpose(1, 2).contiguous().requires_grad_()
+        dot = do.transpose(1, 2).contiguous()
+        for mask, (k, v, causal) in (("below", below), ("diagonal", diag)):
+            kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (k, v))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+            lib_fwd = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+            lib_bwd = timer(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True))
+            del lib_out
+            shape = ("ring block (sp %d) q/k/v (%d, %d, %d, %d) %s, %s" % (
+                n, B, T, H, D, dtype, "diagonal, causal" if causal else
+                "below the diagonal, no mask"))
+            e = errs[mask]
+            specs = [
+                ("flash_attention_fwd", ":250", 4, 3, 1, 1, "fwd",
+                 lambda: kernels.flash_attention_fwd(q, k, v, causal),
+                 lambda: kernels.flash_attention_fwd_plain(q, k, v, causal),
+                 max(e["out"], e["lse"]), lib_fwd, ", with lse"),
+                ("flash_attention_bwd_dq", ":448", 6, 4, 1, 2, "dq",
+                 lambda: kernels.flash_attention_bwd_dq(
+                     q, k, v, do, lse, delta, causal),
+                 lambda: kernels.flash_attention_bwd_dq_plain(
+                     q, k, v, do, lse, delta, causal),
+                 e["dq"], lib_bwd, ", dO, merged lse and delta"),
+                ("flash_attention_bwd_dkv", ":468", 8, 4, 2, 2, "dkv",
+                 lambda: kernels.flash_attention_bwd_dkv(
+                     q, k, v, do, lse, delta, causal),
+                 lambda: kernels.flash_attention_bwd_dkv_plain(
+                     q, k, v, do, lse, delta, causal),
+                 max(e["dk"], e["dv"]), lib_bwd,
+                 ", dO, merged lse and delta")]
+            for (name, site, units, n_in, n_out, n_rows, kind, fn, plain,
+                 err, lib, extra) in specs:
+                if dtype == "float32":
+                    b, by, tc = flash_bound(B, T, T, H, D, causal, units,
+                                            n_in, n_out, n_rows)
+                    math_ = "3xtf32 mma.sync"
+                else:
+                    b, by, tc = b9_bound(B, T, T, H, D, causal, units, n_in,
+                                         n_out, n_rows, B9_MMAS[kind])
+                    math_ = B9_MATH[kind]
+                rows.append({
+                    "name": name + sfx, "route": "cuda",
+                    "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
+                    "replaces": "mxnet_tpu/ops/pallas_kernels.py" + site,
+                    "shape": shape + extra, "launches_per_step":
+                    n if causal else n * (n - 1) // 2,
+                    "max_abs_err": err, "ms": timer(fn),
+                    "plain_ms": slow(plain), "bound_ms": b, "bound_by": by,
+                    "bound_tc_ms": tc, "math": math_, "library_ms": lib,
+                    "library_call": "F.scaled_dot_product_attention(%s) %s "
+                    "%s" % ("is_causal=True" if causal else "no mask", dtype,
+                            "forward" if kind == "fwd" else
+                            "autograd backward (dQ, dK, dV together)")})
+            del kt, vt
+        del q, qt, below, diag, do, o, lse, delta, timer, slow
+        torch.cuda.empty_cache()
+    log_rows(rows, card)
+    return rows
+
+
+def phase_step2(torch, mx, kernels, here, probes, card):
+    """Phase 40; returns its kernel rows and the launches of its paths."""
+    import tempfile
+    import torch.nn.functional as F
+    probes = dict(probes, gloo4=dist_probe(here, "gloo", n=4))
+    split = {b: probes[b]["collectives"].get("all_to_all_split_subgroup")
+             for b in ("nccl", "gloo", "gloo4")}
+    log("40 step 0 (tools/torch_dist_probe.py, CUDA tensors): "
+        "all_to_all_single with uneven split sizes over new_group "
+        "subgroups: nccl %s; gloo 2 ranks %s; gloo 4 ranks on %d card(s) "
+        "%s (every collective: %s) [%s]"
+        % (split["nccl"], split["gloo"], probes["gloo4"]["device_count"],
+           split["gloo4"], json.dumps(probes["gloo4"]["collectives"]), card))
+    nccl = probes["nccl"]["collectives"].get("all_reduce") == "ok"
+    backend = "nccl" if nccl else "gloo"
+    four = "nccl" if nccl else "gloo4"
+    check(split[backend] == "ok" and split[four] == "ok", "40: %s refuses "
+          "the split-size all_to_all_single the hop is built on: %s"
+          % (backend, split))
+    n = 4 if nccl and torch.cuda.device_count() >= 4 else 2
+    log("40: gangs of %d (40a-40c) and 4 (40d) on %s; the hop: one "
+        "all_to_all_single with split sizes (the probe's) [%s]"
+        % (n, backend, card))
+    torch.cuda.empty_cache()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res = dist_phase(here, n, "40", backend, tmp, STEP2_TIMEOUT)
+        launches["ring"] = phase_ring(torch, [x["a"] for x in res], backend,
+                                      card)
+        launches["pipe"] = phase_pipe(torch, [x["b"] for x in res], backend,
+                                      card)
+        phase_moe(torch, [x["c"] for x in res], backend, card)
+        res = dist_phase(here, 4, "40d", backend, tmp, STEP2_TIMEOUT)
+        phase_hier(torch, [x["d"] for x in res], backend, card)
+    rows = ring_kernel_rows(torch, kernels, F, n, card)
+    return rows, launches
+
+
 def dist_worker(worker, outdir):
     """``chip_smoke.py --dist-worker WORKER OUTDIR``: one rank of a phase
     38 gang (started by tools/launch.py); writes its result to
@@ -9316,7 +10235,9 @@ def dist_worker(worker, outdir):
           "39": lambda *a: {"a": tp_train_rank(torch, parallel),
                             "b": tp_decode_rank(torch, parallel)},
           "39a": lambda *a: {"a": tp_train_rank(torch, parallel)},
-          "39b": lambda *a: {"b": tp_decode_rank(torch, parallel)}}[worker]
+          "39b": lambda *a: {"b": tp_decode_rank(torch, parallel)},
+          "40": lambda *a: step2_worker(torch, parallel, "40"),
+          "40d": lambda *a: step2_worker(torch, parallel, "40d")}[worker]
     res = fn(torch, parallel, here)
     r = parallel.rank()
     with open(os.path.join(outdir, "%s.r%d.json" % (worker, r)), "w") as f:
@@ -9691,6 +10612,14 @@ def main():
         rows += tp_rows
         for part, got in tp_launches.items():
             launches["tp_" + part] = got
+
+    with phase("40 ring attention, the GPipe schedule, MoE dispatch and "
+               "the two-tier all-reduce, each over one mesh axis's group"):
+        step2_rows, step2_launches = phase_step2(torch, mx, kernels, here,
+                                                 probes, card)
+        rows += step2_rows
+        for part, got in step2_launches.items():
+            launches["step2_" + part] = got
 
     # -- report ---------------------------------------------------------------
     for r in rows:

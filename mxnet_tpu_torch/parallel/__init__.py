@@ -31,11 +31,15 @@ NCCL; two ranks of one card (tp 2 on one H100) must name gloo
 (``MXNET_TPU_DIST_BACKEND=gloo``): NCCL refuses the communicator, and no
 rank falls back by itself.
 
-Not ported yet (queue A item 7's second half, step 2): ring attention,
-the GPipe schedule, MoE dispatch and the two-tier all-reduce
-(``parallel/{ring,pipeline,moe,hierarchy}.py``): their entry points here
-raise :class:`~mxnet_tpu_torch.base.NotPortedYet`.  A mesh may carry a
-pp/sp/ep axis meanwhile: with no user in the step it replicates.
+The per-axis programs of the JAX package's ``shard_map`` kernels, each
+over one axis's group and taking this rank's shard of a sharded
+argument: :mod:`.ring` (ring attention over sp on the flash kernels),
+:mod:`.pipeline` (the GPipe tick schedule over pp), :mod:`.moe` (switch
+top-1 dispatch over ep) and :mod:`.hierarchy` (the two-tier all-reduce),
+built on :mod:`.comm`'s differentiable collectives (``ppermute`` as one
+``all_to_all_single`` with split sizes, the all-to-all, the
+replicated-input and replicated-output rules).  A mesh that also carries
+dp/tp axes composes: only the named axis's group talks.
 """
 from __future__ import annotations
 
@@ -46,11 +50,16 @@ from collections import namedtuple
 
 import torch
 
-from ..base import DeviceUnavailable, MXNetError, NotPortedYet
+from ..base import DeviceUnavailable, MXNetError
 from .audit import collective
+from .hierarchy import (flat_allreduce, hierarchical_allreduce,
+                        hierarchical_grad_allreduce, two_tier_psum)
 from .mesh import (Mesh, MeshSpec, current_mesh, data_parallel_mesh,
                    describe_devices, make_mesh, reform_mesh, replicate,
                    set_current_mesh, shard_batch)
+from .moe import moe_ffn, moe_ffn_dense, top1_gating
+from .pipeline import PipelineRunner, pipeline_apply
+from .ring import local_ring_attention_fn, ring_attention
 from .trainer import ShardedTrainer
 
 __all__ = ["Topology", "topology", "init_distributed", "barrier",
@@ -59,8 +68,10 @@ __all__ = ["Topology", "topology", "init_distributed", "barrier",
            "reform_mesh", "current_mesh", "set_current_mesh", "shard_batch",
            "replicate", "describe_devices", "ShardedTrainer", "rank",
            "world_size", "gang_device", "allgather_tensor",
-           "ring_attention", "pipeline_apply", "moe_ffn",
-           "hierarchical_allreduce"]
+           "ring_attention", "local_ring_attention_fn", "pipeline_apply",
+           "PipelineRunner", "moe_ffn", "moe_ffn_dense", "top1_gating",
+           "two_tier_psum", "hierarchical_allreduce", "flat_allreduce",
+           "hierarchical_grad_allreduce"]
 
 Topology = namedtuple("Topology", ["process_index", "process_count",
                                    "local_device_count",
@@ -212,15 +223,15 @@ def axis_group(axis="dp", mesh=None):
     return None, "world"
 
 
-def allreduce_array(x, axis="dp", mesh=None):
+def allreduce_array(x, axis="dp", mesh=None, tag="parallel.allreduce_array"):
     """The sum of ``x`` (a tensor or an NDArray) over ``axis`` (see
     :func:`axis_group`), as a new tensor (an NDArray for an NDArray);
-    ``x`` itself with one process."""
+    ``x`` itself with one process.  ``tag`` names it in the audit trail."""
     if world_size() <= 1:
         return x
     group, label = axis_group(axis, mesh)
     t = _tensor(x).clone()
-    collective("all-reduce", "parallel.allreduce_array",
+    collective("all-reduce", tag,
                lambda: _dist().all_reduce(t, group=group), nbytes=t.numel() *
                t.element_size(), axis=label)
     if t is not x and hasattr(x, "_handle"):
@@ -358,32 +369,3 @@ def allreduce_sum_grad(x, tag="parallel.allreduce_sum_grad"):
                lambda: out.append(_AllReduceSum.apply(x, group)),
                nbytes=x.numel() * x.element_size(), axis=label)
     return out[0]
-
-
-# -- queue A item 7's second half, step 2 ----------------------------------
-
-def _step2(what):
-    raise NotPortedYet("%s is queue A item 7's second half, step 2 (ring, "
-                       "pipeline, moe and hierarchy over the mesh's "
-                       "per-axis groups)" % what)
-
-
-def ring_attention(*args, **kwargs):
-    """Ring attention over an sp axis (``mxnet_tpu/parallel/ring.py``)."""
-    _step2("ring attention")
-
-
-def pipeline_apply(*args, **kwargs):
-    """The GPipe tick schedule over a pp axis
-    (``mxnet_tpu/parallel/pipeline.py``)."""
-    _step2("the pipeline schedule")
-
-
-def moe_ffn(*args, **kwargs):
-    """MoE dispatch over an ep axis (``mxnet_tpu/parallel/moe.py``)."""
-    _step2("MoE dispatch")
-
-
-def hierarchical_allreduce(*args, **kwargs):
-    """The two-tier all-reduce (``mxnet_tpu/parallel/hierarchy.py``)."""
-    _step2("the hierarchical all-reduce")

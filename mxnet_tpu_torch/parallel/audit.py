@@ -28,7 +28,7 @@ from .. import telemetry
 __all__ = ["record_collective", "last_collective", "collective_log",
            "clear_collective_log", "collective", "bytes_by_axis", "ring_allreduce_wire_bytes",
            "collective_wire_bytes", "zero_update_model_bytes",
-           "grad_payload_bytes"]
+           "hierarchical_allreduce_model_bytes", "grad_payload_bytes"]
 
 # a tp step of a 12-layer LM records ~150 collectives: keep a few steps
 _RUNTIME_LOG: "deque" = deque(maxlen=4096)
@@ -122,6 +122,32 @@ def zero_update_model_bytes(shardable_bytes, residual_bytes, dp):
     return {"reduce-scatter": shardable_bytes // max(1, dp),
             "all-gather": shardable_bytes,
             "all-reduce": residual_bytes}
+
+
+def hierarchical_allreduce_model_bytes(payload_bytes, islands, per_island,
+                                       elem_bytes=4):
+    """Per-rank collective payloads of the two-tier all-reduce
+    (:mod:`.hierarchy`) of a ``payload``-byte tensor on an ``islands`` x
+    ``per_island`` mesh, in the payload conventions above:
+    ``reduce-scatter`` (fast tier) the 1/k output shard, ``all-reduce``
+    (slow tier) that shard, ``all-gather`` (fast tier) the gathered whole;
+    and the two wire numbers: ``slow_wire``, the bytes a rank sends over
+    the slow tier (a ring all-reduce of its shard over the m islands), and
+    ``flat_wire``, what a flat ring over all m*k ranks pushes through each
+    link, the slow tier's included."""
+    m = max(1, islands)
+    k = max(1, per_island)
+    # the scatter pads in ELEMENTS to a multiple of k, so the shard is
+    # ceil(elems/k) elements, not ceil(bytes/k) bytes
+    elems = -(-payload_bytes // elem_bytes)
+    shard = -(-elems // k) * elem_bytes
+    return {
+        "reduce-scatter": shard,
+        "all-reduce": shard,
+        "all-gather": shard * k,
+        "slow_wire": ring_allreduce_wire_bytes(shard, m),
+        "flat_wire": ring_allreduce_wire_bytes(payload_bytes, m * k),
+    }
 
 
 def grad_payload_bytes(params, grad_dtype_bytes=4):

@@ -43,7 +43,8 @@ __all__ = ["Mesh", "MeshSpec", "make_mesh", "data_parallel_mesh",
            "replicate", "describe_devices"]
 
 _ROLE_AXES = ("dp", "tp", "pp", "sp", "ep")
-_GROUPS = {}       # (default group, axis names, shape) -> {axis: group}
+# (default group, axis names, shape, axes) -> this rank's group on axes
+_GROUPS = {}
 
 
 class Mesh:
@@ -89,37 +90,59 @@ class Mesh:
             return None
         return self._groups[axis]
 
+    def joint_group(self, axes):
+        """This rank's process group spanning every axis in ``axes`` at
+        once (the ranks that share this rank's coordinates on the other
+        axes), or None when they span one rank.  Made on first use, by
+        every rank in the same order (a collective call)."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if int(np.prod([self.shape[a] for a in axes] or [1])) <= 1:
+            return None
+        if axes not in self._groups:
+            self._groups[axes] = _joint_groups(self.axis_names, tuple(
+                self.shape[a] for a in self.axis_names), axes)
+        return self._groups[axes]
+
     def __repr__(self):
         return "Mesh(%s on %s)" % (self.shape, self.device)
 
 
 def _axis_groups(axis_names, shape):
-    """One ``new_group`` per axis wider than 1 and coordinate of the
-    other axes, made by every rank in the same order (row-major over the
-    axes); returns this rank's group of each such axis."""
+    """This rank's group of each axis wider than 1 (:func:`_joint_groups`
+    of the axis alone, axis by axis)."""
+    return {a: _joint_groups(axis_names, shape, (a,))
+            for a, n in zip(axis_names, shape) if n > 1}
+
+
+def _joint_groups(axis_names, shape, axes):
+    """One ``new_group`` per coordinate of the axes not in ``axes``, over
+    the ranks that vary along ``axes`` (row-major, every rank in the same
+    order); returns this rank's, cached per layout."""
     import torch.distributed as dist
     from . import _STATE
     from torch.distributed import distributed_c10d
     key = (id(distributed_c10d._get_default_group()), tuple(axis_names),
-           tuple(shape))
+           tuple(shape), tuple(axes))
     if key in _GROUPS:
         return _GROUPS[key]
     me = dist.get_rank()
     timeout = _STATE.get("timeout")
     kw = {"timeout": timeout} if timeout is not None else {}
-    mine = {}
-    for i, (axis, n) in enumerate(zip(axis_names, shape)):
-        if n <= 1:
-            continue
-        others = [range(s) for j, s in enumerate(shape) if j != i]
-        for rest in itertools.product(*others):
-            ranks = []
-            for c in range(n):
-                idx = list(rest[:i]) + [c] + list(rest[i:])
-                ranks.append(int(np.ravel_multi_index(idx, tuple(shape))))
-            g = dist.new_group(ranks, **kw)
-            if me in ranks:
-                mine[axis] = g
+    inner = [i for i, a in enumerate(axis_names) if a in axes]
+    outer = [i for i in range(len(shape)) if i not in inner]
+    mine = None
+    for rest in itertools.product(*[range(shape[i]) for i in outer]):
+        ranks = []
+        for c in itertools.product(*[range(shape[i]) for i in inner]):
+            idx = [0] * len(shape)
+            for i, x in zip(outer, rest):
+                idx[i] = x
+            for i, x in zip(inner, c):
+                idx[i] = x
+            ranks.append(int(np.ravel_multi_index(idx, tuple(shape))))
+        g = dist.new_group(sorted(ranks), **kw)
+        if me in ranks:
+            mine = g
     _GROUPS[key] = mine
     return mine
 

@@ -16,7 +16,8 @@ module/executor_group.py, gluon/{parameter,utils,trainer}.py).
   summed in another order), Gluon's the same.
 * Every ``NotPortedYet`` the port still raises for distribution names
   item 7's second half; ring, pipeline, MoE and the hierarchical
-  all-reduce raise it naming step 2.
+  all-reduce run, and only the parameter-server lane raises it, naming
+  step 4.
 """
 import os
 import re
@@ -307,16 +308,34 @@ def test_gluon_trainer_over_two_contexts_matches_jax(kvstore):
             np.testing.assert_array_equal(copies[0], copies[1])
 
 
-def test_remaining_distribution_gaps_name_item_7s_second_half():
+def test_remaining_distribution_gaps_name_item_7s_second_half(monkeypatch,
+                                                              tmp_path):
     """Every ``NotPortedYet`` of the port that names item 7 names its
-    second half: the first half is ported.  Of the second half, step 2's
-    entry points raise naming step 2 (steps 1 and 3 are ported)."""
-    from mxnet_tpu_torch import parallel
-    for fn in (parallel.ring_attention, parallel.pipeline_apply,
-               parallel.moe_ffn, parallel.hierarchical_allreduce):
-        with pytest.raises(NotPortedYet, match="second half, step 2"):
-            fn()
-    hits = []
+    second half: the first half is ported, and of the second half steps
+    1-3 are.  Step 2's entry points run (here on meshes of one rank: the
+    gangs of tests/test_torch_parallel_step2.py hold them against the JAX
+    package), and the only item-7 ``NotPortedYet`` left is the
+    parameter-server lane's, naming step 4."""
+    from mxnet_tpu_torch import kvstore, parallel
+    one = {a: tmx.parallel.make_mesh((1,), (a,), device="cpu")
+           for a in ("sp", "pp", "ep")}
+    x = torch.ones(1, 4, 2, 8)
+    assert parallel.ring_attention(x, x, x, one["sp"], causal=True) \
+        .shape == x.shape
+    assert parallel.pipeline_apply(lambda w, v: v @ w, 1, one["pp"], "pp",
+                                   torch.eye(3), torch.ones(2, 1, 3)) \
+        .shape == (2, 1, 3)
+    out, aux = parallel.moe_ffn(torch.ones(4, 3), torch.ones(3, 2),
+                                torch.ones(2, 3, 5), torch.ones(2, 5, 3),
+                                one["ep"])
+    assert out.shape == (4, 3) and aux.dim() == 0
+    two = tmx.parallel.make_mesh((1, 1), ("island", "dp"), device="cpu")
+    v = torch.arange(6.0)
+    assert torch.equal(parallel.hierarchical_allreduce(v, two), v)
+    monkeypatch.setenv("MXNET_TPU_KV_DIR", str(tmp_path))
+    with pytest.raises(NotPortedYet, match="second half, step 4"):
+        kvstore.create("dist_async")
+    hits, raises = [], []
     for dirpath, _dirs, files in os.walk(os.path.join(ROOT,
                                                       "mxnet_tpu_torch")):
         for f in files:
@@ -325,6 +344,13 @@ def test_remaining_distribution_gaps_name_item_7s_second_half():
                 text = re.sub(r"\s+", " ", text).replace('" "', "")
                 for m in re.finditer(r"item 7(.{0,16})", text):
                     hits.append((f, m.group(1)))
+                # each raise's message: its next 300 characters
+                for m in re.finditer(r"raise NotPortedYet\((.{0,300})",
+                                     text):
+                    if "item 7" in m.group(1):
+                        raises.append((f, m.group(1)))
     assert hits
     for f, tail in hits:
         assert tail.startswith("'s second half"), (f, tail)
+    assert raises and all(f == "__init__.py" and "step 4" in msg
+                          for f, msg in raises), raises

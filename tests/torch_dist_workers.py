@@ -54,16 +54,16 @@ TP_DEC = dict(L=2, H=24, heads=2, T=16, page=4, S=3, vocabs=(29, 32))
 CASES = {}
 
 
-def start_gang(outdir, n, cases, device="cpu", backend=None):
-    """Start ``n`` ranks of this file over ``cases`` through
-    tools/launch.py (``--dist-device device``); :func:`wait_gang` waits
-    for them."""
+def start_gang(outdir, n, cases, device="cpu", backend=None, script=None):
+    """Start ``n`` ranks of ``script`` (default: this file) over ``cases``
+    through tools/launch.py (``--dist-device device``); :func:`wait_gang`
+    waits for them."""
     import subprocess
     cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
            str(n), "--dist-device", device]
     if backend:
         cmd += ["--env", "MXNET_TPU_DIST_BACKEND=" + backend]
-    cmd += [sys.executable, os.path.abspath(__file__), outdir,
+    cmd += [sys.executable, os.path.abspath(script or __file__), outdir,
             ",".join(cases)]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
@@ -758,13 +758,16 @@ def rec(outdir):
     return out
 
 
-def main():
+def main(cases=None):
+    """Run the cases named on the command line (``cases``: name ->
+    ``fn(outdir)``, default this file's) on this rank of the gang."""
+    cases = CASES if cases is None else cases
     outdir, names = sys.argv[1], sys.argv[2].split(",")
     torch.set_num_threads(1)
     parallel.init_distributed()
     r = parallel.rank()
     for name in names:
-        out = CASES[name](outdir)
+        out = cases[name](outdir)
         np.savez(os.path.join(outdir, "%s.r%d.npz" % (name, r)), **out)
     parallel.barrier("done")
     import torch.distributed as dist

@@ -15,9 +15,15 @@ on the command line over the launcher's coordinator, and tries
 ``all_gather_into_tensor`` and ``all_to_all_single`` on CUDA tensors,
 each checked against the value it must give; then the same all-reduce,
 all-gather and broadcast over a ``new_group`` subgroup of the ranks (the
-per-axis groups of a tensor-parallel mesh), and a ring exchange through
+per-axis groups of a tensor-parallel mesh), a ring exchange through
 ``batch_isend_irecv`` (on host tensors for gloo, whose point-to-point
-path takes no CUDA tensor).  Rank 0 prints one line
+path takes no CUDA tensor), and the same ring exchange as one
+``all_to_all_single`` with uneven split sizes over ``new_group``
+subgroups on CUDA tensors (each rank sends its tensor to its right
+neighbour and nothing to any other rank: the hop of ring attention and
+the pipeline; two subgroups of half the ranks each when the gang has 4
+or more, one of every rank otherwise).  ``-n 4`` probes a gang of four
+(the two-tier all-reduce's island 2 x dp 2).  Rank 0 prints one line
 ``PROBE {json}``: the backend, the device count, whether the ranks share
 a card, and for each collective ``"ok"`` or the first line of its error.
 Every wait is bounded (a 60 s group timeout), so a refused communicator
@@ -97,13 +103,34 @@ def _probe(backend, rank, world, dev):
             req.wait()
         assert float(recv[0]) == (rank - 1) % world, float(recv[0])
 
+    def all_to_all_split_subgroup():
+        half = world // 2 if world >= 4 and world % 2 == 0 else world
+        mine = None
+        for start in range(0, world, half):
+            g = dist.new_group(list(range(start, start + half)))
+            if start <= rank < start + half:
+                mine, me = g, rank - start
+        n, numel = half, 1000 + 24 * rank     # uneven, odd byte counts
+        left = (me - 1) % n
+        ins = [numel if j == (me + 1) % n else 0 for j in range(n)]
+        outs = [1000 + 24 * (left + rank - me) if j == left else 0
+                for j in range(n)]
+        x = torch.full((numel,), float(rank), device=dev)
+        y = torch.empty(sum(outs), device=dev)
+        dist.all_to_all_single(y, x, outs, ins, group=mine)
+        want = float(left + rank - me)
+        assert y.numel() and float(y.min()) == float(y.max()) == want, \
+            (float(y.min()), want)
+
     for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
                      ("reduce_scatter_tensor", reduce_scatter),
                      ("all_gather_into_tensor", all_gather),
                      ("all_to_all_single", all_to_all)):
         attempt(name, fn)
     for name, fn in (("new_group", subgroup),
-                     ("batch_isend_irecv", batch_isend_irecv)):
+                     ("batch_isend_irecv", batch_isend_irecv),
+                     ("all_to_all_split_subgroup",
+                      all_to_all_split_subgroup)):
         if out["all_reduce"] == "ok":
             attempt(name, fn)
         else:
